@@ -1,0 +1,9 @@
+from nerface_tpu_torch.data.flame import FlameDataset, load_flame_data, pose_spherical
+from nerface_tpu_torch.data.synthetic import synthetic_flame_dataset
+
+__all__ = [
+    "FlameDataset",
+    "load_flame_data",
+    "pose_spherical",
+    "synthetic_flame_dataset",
+]

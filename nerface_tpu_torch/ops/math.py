@@ -1,0 +1,35 @@
+"""Small numeric helpers shared across the pipeline.
+
+Port of `nerface_tpu/ops/math.py`: `meshgrid_xy` and `cumprod_exclusive`,
+plus `linspace01`, which reproduces `jnp.linspace(0, 1, n)` bit for bit
+(torch's and numpy's linspace round differently in the last place, and
+the sample depths must match the JAX package's exactly).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def meshgrid_xy(tensor1: torch.Tensor, tensor2: torch.Tensor):
+    """np.meshgrid(..., indexing='xy') semantics: (ii, jj) of shape
+    (len(tensor2), len(tensor1)); ii varies along columns, jj along rows."""
+    ii, jj = torch.meshgrid(tensor1, tensor2, indexing="xy")
+    return ii, jj
+
+
+def cumprod_exclusive(tensor: torch.Tensor) -> torch.Tensor:
+    """tf.math.cumprod(..., exclusive=True) along the last axis:
+    [a, b, c] -> [1, a, ab]."""
+    cumprod = torch.cumprod(tensor, dim=-1)
+    return torch.cat([torch.ones_like(cumprod[..., :1]), cumprod[..., :-1]], dim=-1)
+
+
+def linspace01(n: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """`jnp.linspace(0.0, 1.0, n)` as the JAX package computes it on the
+    CPU: i · (1 / (n - 1)) in f32 for i < n - 1 (XLA turns its division by
+    the constant n - 1 into this product), then 1."""
+    if n == 1:
+        return torch.zeros(1, dtype=dtype, device=device)
+    head = torch.arange(n - 1, dtype=dtype, device=device) * (1.0 / (n - 1))
+    return torch.cat([head, torch.ones(1, dtype=dtype, device=device)])

@@ -1,0 +1,318 @@
+"""The rendering pipeline: coarse pass → hierarchical resample → fine pass
+→ composite.
+
+Port of `nerface_tpu/render/pipeline.py` (reference `train_utils.py`
+`run_network` :9-33, `predict_and_render_radiance` :36-162). Kept
+reference semantics (SURVEY.md §2.4):
+
+* the direction-branch input is columns [-3:] of the reference's 8-float
+  ray record, **[rd_z, near, far]** (`train_utils.py:14`), not the
+  normalized view direction;
+* the background overwrites the last sample's radiance before compositing;
+* hierarchical sampling uses coarse weights[..., 1:-1] over z-midpoints,
+  det when perturb is off, detached, merged and sorted with the coarse
+  depths;
+* `bg_weight` is the last pass's background-sample weight per ray;
+* `ray_directions_ablation` feeds the direction branch per ray.
+
+Path choice. For the flagship paper model in bf16 (`dtype=torch.bfloat16`)
+at σ-noise 0, each pass is one `fused_paper_render` call — the hand-written
+CUDA kernel on the card — over the model's weights packed once
+(`_kernel_weights`). Otherwise the model runs as PyTorch ops and is
+composited by `volume_render_radiance_field`; in f32 this is the path held
+to the JAX package's f32 XLA path.
+
+Draws: `t_rand` (R, num_coarse) and `u` (R, num_fine) may be injected;
+otherwise they come from the port's per-ray hash of (seed, ray_index).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+
+from nerface_tpu_torch.models.mlp import linear_cols
+from nerface_tpu_torch.models.nerf_models import HIDDEN, ConditionalBlendshapePaperNeRFModel
+from nerface_tpu_torch.ops.compositing import inject_background, volume_render_radiance_field
+from nerface_tpu_torch.ops.encoding import positional_encoding
+from nerface_tpu_torch.ops.kernels.fused_mlp import (
+    KERNEL_SAMPLES,
+    MAX_FREQS,
+    fused_paper_render,
+    pack_paper_weights,
+)
+from nerface_tpu_torch.ops.sampling import merge_sorted_zvals, sample_pdf, stratified_zvals
+
+
+@dataclasses.dataclass(frozen=True)
+class EncodeSpec:
+    num_encoding_functions: int
+    include_input: bool
+    log_sampling: bool
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return positional_encoding(
+            x,
+            num_encoding_functions=self.num_encoding_functions,
+            include_input=self.include_input,
+            log_sampling=self.log_sampling,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderSettings:
+    """Render configuration: `getattr(cfg.nerf, mode)` plus the dataset's
+    near/far bounds. `fast_eval` is read from the config so the server can
+    refuse it (not ported yet)."""
+
+    num_coarse: int = 64
+    num_fine: int = 64
+    perturb: bool = True
+    radiance_field_noise_std: float = 0.0
+    white_background: bool = False
+    lindisp: bool = False
+    use_viewdirs: bool = True
+    near: float = 0.2
+    far: float = 0.8
+    no_ndc: bool = True
+    encode_xyz: EncodeSpec = EncodeSpec(10, True, True)
+    encode_dir: Optional[EncodeSpec] = EncodeSpec(4, False, True)
+    chunksize: int = 65536
+    fast_eval: bool = False
+
+    @classmethod
+    def from_cfg(cls, cfg, mode: str = "train") -> "RenderSettings":
+        node = getattr(cfg.nerf, mode)
+        encode_dir = None
+        if cfg.models.coarse.use_viewdirs:
+            encode_dir = EncodeSpec(
+                cfg.models.coarse.num_encoding_fn_dir,
+                cfg.models.coarse.include_input_dir,
+                cfg.models.coarse.log_sampling_dir,
+            )
+        return cls(
+            num_coarse=node.num_coarse,
+            num_fine=node.num_fine,
+            perturb=bool(node.perturb),
+            radiance_field_noise_std=float(node.radiance_field_noise_std),
+            white_background=bool(node.white_background),
+            lindisp=bool(node.lindisp),
+            use_viewdirs=bool(cfg.nerf.use_viewdirs),
+            near=float(cfg.dataset.near),
+            far=float(cfg.dataset.far),
+            no_ndc=bool(cfg.dataset.no_ndc),
+            encode_xyz=EncodeSpec(
+                cfg.models.coarse.num_encoding_fn_xyz,
+                cfg.models.coarse.include_input_xyz,
+                cfg.models.coarse.log_sampling_xyz,
+            ),
+            encode_dir=encode_dir,
+            chunksize=int(node.chunksize),
+            fast_eval=bool(node.get("fast_eval", False)),
+        )
+
+
+def _fused_render_eligible(model, n_samples, pe_dir, expr, latent, settings, dtype) -> bool:
+    """Whether a pass can be one `fused_paper_render` call."""
+    if dtype != torch.bfloat16:
+        return False
+    if settings.radiance_field_noise_std > 0.0:
+        return False
+    if not isinstance(model, ConditionalBlendshapePaperNeRFModel):
+        return False
+    if pe_dir is None or expr is None or latent is None:
+        return False
+    if expr.ndim != 1 or latent.ndim != 1:
+        return False
+    enc = settings.encode_xyz
+    if not enc.include_input or model.dim_xyz != 3 + 6 * enc.num_encoding_functions:
+        return False
+    if enc.num_encoding_functions > MAX_FREQS or n_samples not in KERNEL_SAMPLES:
+        return False
+    # forward() slices the first pe_dir-width dir columns; so does the fold
+    return model.dim_dir >= pe_dir.shape[-1]
+
+
+def _fused_conditioning(model, pe_dir, expr, latent):
+    """(cond, dir_contrib) for a fused call: cond = [expr/3; latent] and the
+    per-ray direction-branch contribution pe_dir @ W_dir0[:, 256:].T."""
+    cond = torch.cat([expr * (1.0 / 3.0), latent])
+    dd = pe_dir.shape[-1]
+    dir_contrib = linear_cols(model.layers_dir[0], pe_dir, HIDDEN, HIDDEN + dd)
+    return cond, dir_contrib
+
+
+def _kernel_weights(model, encode_xyz: EncodeSpec):
+    """The model's weights packed for the kernel, kept on the model and
+    packed again only when a parameter is replaced or updated in place."""
+    key = (encode_xyz.num_encoding_functions, encode_xyz.log_sampling) + tuple(
+        (p.data_ptr(), p._version) for p in model.parameters()
+    )
+    cached = getattr(model, "_kernel_weights_cache", None)
+    if cached is None or cached[0] != key:
+        packed = pack_paper_weights(
+            model.state_dict(), encode_xyz.num_encoding_functions, encode_xyz.log_sampling
+        )
+        cached = model._kernel_weights_cache = (key, packed)
+    return cached[1]
+
+
+def _fused_pass(model, ro, rd, z_vals, pe_dir, expr, latent, background, settings, out_weights):
+    cond, dir_contrib = _fused_conditioning(model, pe_dir, expr, latent)
+    return fused_paper_render(
+        _kernel_weights(model, settings.encode_xyz), ro, rd, z_vals, dir_contrib, cond,
+        background=background,
+        white_background=settings.white_background,
+        num_encoding_fn_xyz=settings.encode_xyz.num_encoding_functions,
+        log_sampling_xyz=settings.encode_xyz.log_sampling,
+        out_weights=out_weights,
+    )
+
+
+def _apply_model(model, ro, rd, z_vals, encode_xyz, pe_dir, expr, latent, dtype):
+    """Positional-encode the sample points and evaluate the model."""
+    pts = ro[..., None, :] + rd[..., None, :] * z_vals[..., :, None]
+    return model(
+        encode_xyz(pts), pe_dir,
+        expr if model.takes_expression else None,
+        latent if model.takes_latent else None,
+        dtype=dtype,
+    )
+
+
+def _direction_branch_input(rd: torch.Tensor, near: torch.Tensor, far: torch.Tensor):
+    """The reference's de-facto view-direction input: columns [-3:] of the
+    8-float ray record = [rd_z, near, far] (`train_utils.py:14`)."""
+    shape = rd.shape[:-1]
+    return torch.stack(
+        [rd[..., 2], near[..., 0].expand(shape), far[..., 0].expand(shape)], dim=-1
+    )
+
+
+def render_rays(
+    model_coarse,
+    model_fine,
+    ray_origins: torch.Tensor,
+    ray_directions: torch.Tensor,
+    settings: RenderSettings,
+    seed: int = 0,
+    expressions: Optional[torch.Tensor] = None,
+    latent_code: Optional[torch.Tensor] = None,
+    background_prior: Optional[torch.Tensor] = None,
+    ray_directions_ablation: Optional[torch.Tensor] = None,
+    dtype=None,
+    ray_index: Optional[torch.Tensor] = None,
+    t_rand: Optional[torch.Tensor] = None,
+    u: Optional[torch.Tensor] = None,
+) -> Dict[str, Any]:
+    """Render a batch of rays (R, 3). Returns coarse/fine rgb/disp/acc/depth
+    maps, the per-sample weights of the last unfused pass (None after a
+    fused fine pass), and the background-sample weight per ray.
+
+    `ray_index` (global ray indices, default arange(R)) keys the port's
+    own draws, so any tiling of a frame draws the same numbers."""
+    if settings.radiance_field_noise_std > 0.0:
+        raise NotImplementedError(
+            "sigma noise (training) is not ported yet: ROADMAP.md Queue 1, train step"
+        )
+    if not settings.no_ndc:
+        raise NotImplementedError("the NDC (LLFF) ray path is not ported yet")
+    ro = ray_origins.reshape(-1, 3)
+    rd = ray_directions.reshape(-1, 3)
+    num_rays = ro.shape[0]
+    if ray_index is None:
+        ray_index = torch.arange(num_rays, device=ro.device)
+    near = torch.full((num_rays, 1), settings.near, dtype=ro.dtype, device=ro.device)
+    far = torch.full((num_rays, 1), settings.far, dtype=ro.dtype, device=ro.device)
+
+    # ---- coarse pass -------------------------------------------------------
+    z_vals = stratified_zvals(
+        near, far, settings.num_coarse, lindisp=settings.lindisp,
+        perturb=settings.perturb, t_rand=t_rand, seed=seed, ray_index=ray_index,
+    )
+    pe_dir = None
+    if settings.use_viewdirs and settings.encode_dir is not None:
+        dir_src = rd if ray_directions_ablation is None else ray_directions_ablation.reshape(-1, 3)
+        pe_dir = settings.encode_dir(_direction_branch_input(dir_src, near, far))
+
+    if _fused_render_eligible(
+        model_coarse, settings.num_coarse, pe_dir, expressions, latent_code, settings, dtype
+    ):
+        fc = _fused_pass(
+            model_coarse, ro, rd, z_vals, pe_dir, expressions, latent_code,
+            background_prior, settings, out_weights=True,
+        )
+        rgb_coarse, disp_coarse, acc_coarse = fc["rgb"], fc["disp"], fc["acc"]
+        weights, depth_coarse = fc["weights"], fc["depth"]
+    else:
+        radiance = _apply_model(
+            model_coarse, ro, rd, z_vals, settings.encode_xyz, pe_dir,
+            expressions, latent_code, dtype,
+        )
+        radiance = inject_background(radiance, background_prior)
+        rgb_coarse, disp_coarse, acc_coarse, weights, depth_coarse = (
+            volume_render_radiance_field(
+                radiance, z_vals, rd,
+                white_background=settings.white_background,
+                background_prior=background_prior,
+                return_depth=True,
+            )
+        )
+
+    out: Dict[str, Any] = {
+        "rgb_coarse": rgb_coarse,
+        "disp_coarse": disp_coarse,
+        "acc_coarse": acc_coarse,
+        "depth_coarse": depth_coarse,
+        "rgb_fine": None,
+        "disp_fine": None,
+        "acc_fine": None,
+        "depth_fine": None,
+    }
+
+    if settings.num_fine > 0:
+        if model_fine is None:
+            raise ValueError("num_fine > 0 requires a fine model")
+        # ---- hierarchical resample ----------------------------------------
+        z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+        z_samples = sample_pdf(
+            z_mid, weights[..., 1:-1], settings.num_fine,
+            det=(not settings.perturb), u=u, seed=seed, ray_index=ray_index,
+        )
+        z_all = merge_sorted_zvals(z_vals, z_samples)
+        if _fused_render_eligible(
+            model_fine, z_all.shape[-1], pe_dir, expressions, latent_code, settings, dtype
+        ):
+            fr = _fused_pass(
+                model_fine, ro, rd, z_all, pe_dir, expressions, latent_code,
+                background_prior, settings, out_weights=False,
+            )
+            out.update(
+                rgb_fine=fr["rgb"], disp_fine=fr["disp"],
+                acc_fine=fr["acc"], depth_fine=fr["depth"],
+            )
+            out["weights"] = None
+            out["bg_weight"] = fr["bg_weight"]
+            return out
+
+        radiance = _apply_model(
+            model_fine, ro, rd, z_all, settings.encode_xyz, pe_dir,
+            expressions, latent_code, dtype,
+        )
+        radiance = inject_background(radiance, background_prior)
+        rgb_fine, disp_fine, acc_fine, weights, depth_fine = volume_render_radiance_field(
+            radiance, z_all, rd,
+            white_background=settings.white_background,
+            background_prior=background_prior,
+            return_depth=True,
+        )
+        out.update(
+            rgb_fine=rgb_fine, disp_fine=disp_fine, acc_fine=acc_fine,
+            depth_fine=depth_fine,
+        )
+
+    out["weights"] = weights
+    out["bg_weight"] = weights[..., -1]
+    return out

@@ -1,0 +1,114 @@
+"""PyTorch port, the hand-written CUDA kernel on the card: `fused_paper_render`
+against its plain PyTorch version (bf16 operands) on the same CUDA tensors.
+
+Every test here is marked `cuda` and skips on a host with no card. The file
+imports no JAX, so it also runs where JAX is not installed:
+
+    python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
+
+Tolerances are those of `chip_smoke.py`: rgb, acc, bg_weight and weights
+atol 2e-3 (the f32 sums run in another order, which can flip a bf16
+rounding of an activation), depth atol 2e-3·far, disp rtol 1e-2.
+"""
+
+import pytest
+import torch
+
+from nerface_tpu_torch.models.nerf_models import ConditionalBlendshapePaperNeRFModel
+from nerface_tpu_torch.ops.kernels import fused_mlp as K
+
+torch.set_num_threads(1)
+
+FAR = 0.8
+
+
+@pytest.fixture(scope="module")
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's f32 GEMMs
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def params(cuda_device):
+    m = ConditionalBlendshapePaperNeRFModel(
+        num_encoding_fn_xyz=10, num_encoding_fn_dir=4, include_input_dir=False,
+        device=cuda_device, generator=torch.Generator().manual_seed(0),
+    )
+    return m.state_dict()
+
+
+def _inputs(n_rays, n_samples, dev, seed):
+    """Rays through a head at the origin; rays 0-1 with rd = 0 (acc = 0)
+    and 2-3 with |rd| = 1e-9 (acc ~ 1e-5)."""
+    g = torch.Generator().manual_seed(seed)
+    ro = torch.randn(n_rays, 3, generator=g) * 0.05 + torch.tensor([0.0, 0.0, 0.5])
+    rd = torch.randn(n_rays, 3, generator=g) * torch.tensor([0.2, 0.2, 0.05])
+    rd[:, 2] -= 1.0
+    rd[0:2] = 0.0
+    rd[2:4] = 1e-9
+    z = 0.2 + torch.cumsum(torch.rand(n_rays, n_samples, generator=g) * (1.2 / n_samples), -1)
+    dc = torch.randn(n_rays, 128, generator=g) * 0.3
+    cond = torch.randn(108, generator=g) * 0.2
+    bg = torch.rand(n_rays, 3, generator=g)
+    return [t.to(dev).contiguous() for t in (ro, rd, z, dc, cond, bg)]
+
+
+def _assert_close(got, ref):
+    for k, v in got.items():
+        assert torch.isfinite(v).all(), k
+    for k in ("rgb", "acc", "bg_weight", "weights"):
+        if k in ref:
+            torch.testing.assert_close(got[k], ref[k], atol=2e-3, rtol=0, msg=k)
+    torch.testing.assert_close(got["depth"], ref["depth"], atol=2e-3 * FAR, rtol=0)
+    torch.testing.assert_close(got["disp"], ref["disp"], atol=0, rtol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "n_rays,S,with_bg,white",
+    [(512, 64, True, False), (512, 128, True, False), (301, 64, False, True),
+     (77, 128, True, False), (1000, 32, False, False)],
+    ids=["coarse", "fine", "ragged-white", "ragged-fine", "s32"],
+)
+def test_kernel_matches_plain(cuda_device, params, n_rays, S, with_bg, white):
+    """Rows past the last ray of a ragged last tile are masked (301·64 and
+    77·128 are not multiples of the 128-row tile)."""
+    ro, rd, z, dc, cond, bg = _inputs(n_rays, S, cuda_device, seed=S + n_rays)
+    kw = dict(background=bg if with_bg else None, white_background=white, out_weights=True)
+    before = K.fused_paper_render.launches
+    got = K.fused_paper_render(params, ro, rd, z, dc, cond, **kw)
+    torch.cuda.synchronize()
+    assert K.fused_paper_render.launches == before + 1
+    ref = K.fused_paper_render_reference(params, ro, rd, z, dc, cond, **kw)
+    assert set(got) == set(ref) and got["weights"].shape == (n_rays, S)
+    assert float(got["acc"][:2].abs().max()) == 0.0
+    _assert_close(got, ref)
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_what_it_does_not_take(cuda_device, params):
+    ro, rd, z, dc, cond, bg = _inputs(64, 64, cuda_device, seed=1)
+    before = K.fused_paper_render.launches
+    with pytest.raises(ValueError, match="samples per ray"):
+        K.fused_paper_render(params, ro, rd, z[:, :16].contiguous(), dc, cond)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.fused_paper_render(params, ro, rd, z.t().contiguous().t(), dc, cond)
+    with pytest.raises(TypeError, match="float32"):
+        K.fused_paper_render(params, ro.double(), rd, z, dc, cond)
+    with pytest.raises(ValueError, match="ray_directions is on"):
+        K.fused_paper_render(params, ro, rd.cpu(), z, dc, cond)
+    assert K.fused_paper_render.launches == before
+
+
+@pytest.mark.cuda
+def test_packed_weights_give_the_same_result(cuda_device, params):
+    """The serving path's once-packed weights (conditioning folded per
+    call) launch the same kernel on the same bytes as a state dict."""
+    ro, rd, z, dc, cond, bg = _inputs(300, 64, cuda_device, seed=3)
+    kw = dict(background=bg, out_weights=True)
+    a = K.fused_paper_render(params, ro, rd, z, dc, cond, **kw)
+    b = K.fused_paper_render(K.pack_paper_weights(params), ro, rd, z, dc, cond, **kw)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
