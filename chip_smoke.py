@@ -4,13 +4,16 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with one CUDA card (an H100:
-the kernel is built for sm_90a) and nvcc. It imports nothing of JAX.
-Phases, one line each (plus the kernel's register report):
+the kernels are built for sm_90a) and nvcc. It imports nothing of JAX.
+Phases, one line each (plus the kernels' register reports):
 
   1. device  — nvidia-smi's name and power limit, torch's device name;
                fails when CUDA is not available.
-  2. build   — nvcc builds `nerface_tpu_torch/csrc/fused_paper_render.cu`
-               into build/nerface_tpu_torch/; prints the seconds it took.
+  2. build   — nvcc builds both kernel libraries,
+               `nerface_tpu_torch/csrc/fused_paper_render.cu` (K2) and
+               `fused_train_pass.cu` (K1), in parallel into
+               build/nerface_tpu_torch/; prints the seconds and each
+               kernel's ptxas registers and shared memory.
   3. kernel  — the fused-render kernel against its plain PyTorch version
                (bf16 operands), on He-scaled random weights (HE_GAIN) on
                the card, at the main path's coarse
@@ -33,20 +36,54 @@ Phases, one line each (plus the kernel's register report):
                same request (max 1 level, mean ≤ 0.15 levels), and that the
                frame is the MLP's (≥ 10 levels off the background and a
                std of ≥ 10 levels).
+  5. train_kernel — K1 `fused_train_pass` against its plain PyTorch version
+               (bf16 operands) on He-scaled random weights: R = 2048 rays at
+               S = 64 and 128 with σ-noise and a background (the slice's two
+               passes), R = 256 at S = 32 with a white background (σ raised
+               by SIGMA_BIAS) and with a trainable background + the
+               supervised background term.
+               Each case on K1_SEEDS draws of weights and inputs: rgb/weights
+               atol 2e-3; every gradient tensor within its max-error and
+               norm-error limits (`k1_grad_limits`);
+               everything finite; two launches on the same inputs give
+               bit-identical gradients. Prints every tensor's worst readings.
+               Median kernel and plain ms (CUDA events) and TFLOP/s at R = 2048.
+  6. train_step — one train step of the flagship config (2048 rays, 64 + 64
+               samples, σ-noise 0.1) on the card both ways from the same
+               weights, batch and draws: bf16 through K1, f32 through the
+               plain autograd path. Loss rtol 0.03, gradients atol
+               0.25·max|f32| (tests/test_fused_train.py's envelope).
+  7. train   — the main path: `train(cfg, dataset=…)` of
+               nerface_tpu_torch/train/loop.py, bf16 on the card, for
+               TRAIN_STEPS steps on a 512² in-memory dataset (4 train + 2 val
+               frames rendered by the ported `render_blob_frame`, 8-bit as
+               the PNGs hold them) with configs/synth512_paper.yml's
+               settings, print_every 10, a validation at step 0 and saves at
+               step 0 and the end. Checks: K1 launched 2 × steps times, K2
+               2 × 4 tiles × 2 frames; the loop printed the loss at steps 0,
+               10, 20, 30 and 39, every one finite, and the mean of those in
+               the last 10 steps below that of steps 0 and 10; the last .ckpt
+               reloads and holds two Adam param groups. Then the median of
+               steady synchronised steps and rays/s.
 
     python3 chip_smoke.py --profile
 
-adds a fifth phase: 6 timed frames per map set, then torch.profiler over 2
-frames, whose table of device time per op is printed.
+adds profile phases: 6 timed frames per map set, then torch.profiler over 2
+frames, and torch.profiler over 5 steady train steps; each prints its table
+of device time per kernel.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failure raises, exits non-zero and
 prints no result.
 """
 
+import contextlib
+import ctypes
 import io
 import json
+import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -108,7 +145,52 @@ HE_GAIN = 6.0 ** 0.5
 # added to fc_alpha's bias in the served avatar: σ ≈ 10 a unit of depth
 # leaves the background ≈ e^-6 of a pixel
 SIGMA_BIAS = 10.0
-MLP_FLOP_PER_SAMPLE = 0.98e6  # the .cu file's count
+# H100 SXM: dense bf16 tensor-core peak and HBM3 rate (NVIDIA data sheet),
+# the denominators of each kernel's least time (`bound_ms`)
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_S = 3.35e12
+# The paper model's products per sample, (K, N) of each, at the function's
+# widths (the kernels zero-pad layer 0's K = 63 and the skip layer's 319 to
+# 64 and 320; the pad is not the function's work): the trunk, fc_feat, the
+# σ head, the direction branch and the rgb head.
+D_XYZ = 3 + 6 * 10  # xyz + 10 sin/cos bands
+PAPER_FORWARD_KN = [(D_XYZ, 256), (256, 256), (256, 256), (D_XYZ + 256, 256), (256, 256),
+                    (256, 256), (256, 256), (256, 1), (256, 128), (128, 128), (128, 128),
+                    (128, 3)]
+# dX runs every product but the two that read the encoded input, with the
+# skip layer's K = 256 part only
+PAPER_DX_KN = [(256, 256)] * 5 + [(256, 256), (256, 1), (256, 128), (128, 128), (128, 128),
+                                  (128, 3)]
+K2_FLOP_PER_SAMPLE = sum(2 * k * n for k, n in PAPER_FORWARD_KN)
+# K1: forward + dX + dW (dW has the forward's products)
+K1_FLOP_PER_SAMPLE = sum(2 * k * n for k, n in PAPER_FORWARD_KN + PAPER_DX_KN + PAPER_FORWARD_KN)
+# K1 against its plain version: each gradient tensor g against the plain
+# r, on K1_SEEDS draws of weights and inputs per case, within two limits
+# read on the card (PERF.md): the max error max|g − r| ≤ a·max|r| + 1e-6,
+# and the norm error ‖g − r‖ ≤ b·‖r‖ + 1e-6, which bf16 rounding flips
+# barely move but a systematic fault (a dropped or doubled row segment, a
+# wrong partial) would. (a, b) = k1_grad_limits(n_rays, tensor).
+K1_SEEDS = 3
+K1_GRAD_TOL = (0.02, 0.02)  # (max, norm) at the slice's 2048 rays
+# at a few hundred rays (the white and trainable-background cases), whose
+# sums have fewer terms
+K1_GRAD_TOL_FEW_RAYS = (0.06, 0.04)
+# the direction branch's gradients have few terms: one flipped bf16
+# rounding moves them further (d_dir, a ray's sum over its samples, most)
+K1_DIR_BRANCH_MAX_TOL = {"dir": 0.15, "wd0": 0.04, "wd1": 0.04, "wd2": 0.04,
+                         "bd0": 0.04, "bd1": 0.04, "bd2": 0.04}
+
+
+def k1_grad_limits(n_rays, name):
+    """(max, norm) limits of K1's gradient tensor `name` in a pass of
+    `n_rays` rays, relative to the plain version's max|r| and ‖r‖."""
+    max_tol, norm_tol = K1_GRAD_TOL if n_rays >= TRAIN_RAYS else K1_GRAD_TOL_FEW_RAYS
+    return max(max_tol, K1_DIR_BRANCH_MAX_TOL.get(name, 0.0)), norm_tol
+
+
+TRAIN_RAYS = 2048
+TRAIN_STEPS = 40
+LIBRARIES = ("fused_paper_render", "fused_train_pass")
 
 
 class SmokeFailure(RuntimeError):
@@ -251,7 +333,7 @@ def kernel_phase(dev):
         result["err"][label + "_tile"] = _compare(got, ref, label + " tile")
         del ref
         result["tile_ms"][label] = _median_ms(lambda: fused_paper_render(*args, **kw), iters=10)
-        tflops = TILE_RAYS * S * MLP_FLOP_PER_SAMPLE / result["tile_ms"][label] / 1e9
+        tflops = TILE_RAYS * S * K2_FLOP_PER_SAMPLE / result["tile_ms"][label] / 1e9
         phase(
             "kernel",
             f"S={S} rays={TILE_RAYS}: max abs err "
@@ -392,21 +474,381 @@ def profile_phase(server):
             server.render(frame=0, seed=i, maps=all_maps)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / n
+    busy = _print_profile("profile", prof, n, wall, "a frame", DeviceType, "+".join(all_maps))
+    return {"wall_ms": wall, "busy_ms": busy}
+
+
+def _bound_ms(flops, nbytes):
+    """The least time for the work: the larger of its operations at the
+    bf16 dense peak and its bytes (inputs read once, outputs written once)
+    at the memory rate; and which of the two bounds it."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def build_phase():
+    """Both libraries, one nvcc each, started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from nerface_tpu_torch.ops.kernels import build
+
+    def one(name):
+        t0 = time.perf_counter()
+        lib = build.build_library(name)
+        return name, lib, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        built = list(pool.map(one, LIBRARIES))
+    wall = time.perf_counter() - t0
+    for name, lib, secs in built:
+        log = open(str(lib) + ".log").read().splitlines()
+        info = []
+        for i, line in enumerate(log):
+            if "Compiling entry function" not in line:
+                continue
+            m = re.search(r"(train_fwd_kernel|train_bwd_kernel|dw_kernel|reduce_rows|"
+                          r"render_kernel)(?:ILi(\d+)E)?", line)
+            short = (m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")) if m else line
+            usage = [x.split("info    :")[-1].strip() if "info" in x else x.strip()
+                     for x in log[i + 1:i + 4] if "registers" in x or "spill" in x]
+            info.append(f"{short}: {'; '.join(usage)}")
+        phase("build", f"{name}: {secs:.1f} s ({lib.name}); ptxas: {' | '.join(info)}")
+        if name == "fused_train_pass":
+            smem = (ctypes.c_longlong * 3)()
+            build.load_library(name).nerface_fused_train_shared_bytes(smem)
+            phase("build", f"{name} shared memory a CTA: train_fwd_kernel {smem[0]} B, "
+                           f"train_bwd_kernel {smem[1]} B (dynamic), dw_kernel {smem[2]} B")
+    phase("build", f"both libraries in {wall:.1f} s")
+
+
+def _train_kernel_inputs(n_rays, n_samples, gen, dev):
+    import torch
+
+    ro, rd, z, _, cond, bg = _kernel_inputs(n_rays, n_samples, gen, dev)
+    rd[:4] = rd[4:8]  # K1's rays all cross the head
+    tgt = torch.rand(n_rays, 3, generator=gen).to(dev)
+    noise = torch.randn(n_rays, n_samples, generator=gen).to(dev)
+    pe_dir = torch.randn(n_rays, 24, generator=gen).to(dev)
+    return ro, rd.contiguous(), z, tgt, bg, noise, pe_dir, cond
+
+
+def _k2_bytes(n_rays, n_samples, with_weights):
+    from nerface_tpu_torch.ops.kernels.fused_mlp import F_OFFSETS, W_OFFSETS
+
+    per_ray_in = 4 * (3 + 3 + 3 + 128 + n_samples)  # ro rd bg dir_c z
+    per_ray_out = 4 * (3 + 4 + (n_samples if with_weights else 0))  # rgb, 4 maps, weights
+    return n_rays * (per_ray_in + per_ray_out) + 2 * W_OFFSETS["TOTAL"] + 4 * F_OFFSETS["TOTAL"]
+
+
+def _k1_bytes(n_rays, n_samples):
+    from nerface_tpu_torch.ops.kernels.fused_mlp import F_OFFSETS, W_OFFSETS
+    from nerface_tpu_torch.ops.kernels.fused_train import WT_OFFSETS
+
+    per_ray_in = 4 * (3 + 3 + 3 + 3 + 128 + 2 * n_samples)  # ro rd target bg dir_c z noise
+    per_ray_out = 4 * (3 + n_samples + 128)  # rgb, weights, d_dir
+    weights = 2 * (W_OFFSETS["TOTAL"] + WT_OFFSETS["TOTAL"]) + 4 * F_OFFSETS["TOTAL"]
+    grads = 4 * (W_OFFSETS["TOTAL"] + F_OFFSETS["TOTAL"])
+    return n_rays * (per_ray_in + per_ray_out) + weights + grads
+
+
+def _k1_params(seed, dev):
+    """He-scaled random weights of one paper model."""
+    import torch
+
+    from nerface_tpu_torch.models.nerf_models import ConditionalBlendshapePaperNeRFModel
+
+    model = ConditionalBlendshapePaperNeRFModel(
+        num_encoding_fn_xyz=10, num_encoding_fn_dir=4, include_input_dir=False,
+        device=dev, generator=torch.Generator().manual_seed(seed),
+    )
+    _he_scale(model)
+    return {k: v.detach() for k, v in model.named_parameters()}
+
+
+def train_kernel_phase(dev):
+    import torch
+
+    from nerface_tpu_torch.ops.kernels import fused_train as T
+
+    names = ["cond0", "cond3", "dir"] + list(T.WEIGHT_NAMES) + list(T.BIAS_NAMES)
+    models = [_k1_params(SEED + 3 + 100 * i, dev) for i in range(K1_SEEDS)]
+    result = {"err": {}, "grad_rel": {}, "ms": {}, "plain_ms": {}, "bound": {}, "readings": {}}
+    cases = (("fine", TRAIN_RAYS, 128, "noise"), ("coarse", TRAIN_RAYS, 64, "noise"),
+             ("white", 256, 32, "white"), ("train_bg", 256, 32, "train_bg"))
+    for c, (label, R, S, kind) in enumerate(cases):
+        worst = {}  # tensor -> (max reading, norm reading) over the seeds
+        errs = {"rgb": 0.0, "weights": 0.0}
+        for i, params in enumerate(models):
+            gen = torch.Generator().manual_seed(SEED + 4 + 100 * i + c)
+            ro, rd, z, tgt, bg, noise, pe_dir, cond = _train_kernel_inputs(R, S, gen, dev)
+            if kind == "white":
+                # σ raised as in the served avatar: with a white background
+                # the last sample's colour carries what a ray did not absorb,
+                # and on transparent rays one flipped bf16 rounding of a
+                # He-scaled activation shows there in full (2.24e-3 against
+                # the 2e-3 limit on the card; PERF.md)
+                params = dict(params, **{"fc_alpha.bias": params["fc_alpha.bias"] + SIGMA_BIAS})
+            bundle = [t.contiguous() for t in T.prefold_paper_params(params, cond, pe_dir, 10)]
+            kw = dict(loss_scale=2.0 / (3.0 * R))
+            if kind == "noise":
+                kw.update(background=bg, noise=noise, noise_std=0.1)
+            elif kind == "white":
+                kw.update(white_background=True)
+            else:
+                kw.update(background=bg, train_bg=True, sup_bg_scale=0.001 / R)
+            args = (bundle, ro, rd, z, tgt)
+            got, grads, d_bg = T.fused_train_pass(*args, **kw)
+            torch.cuda.synchronize()
+            _, grads2, d_bg2 = T.fused_train_pass(*args, **kw)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(grads, grads2))
+            same = same and (d_bg is None or torch.equal(d_bg, d_bg2))
+            check(same, f"{label} seed {i}: two launches gave different gradients")
+            ref, rgrads, rd_bg = T.fused_train_pass_reference(*args, **kw)
+            for k in ("rgb", "weights"):
+                check(bool(torch.isfinite(got[k]).all()), f"{label}: kernel {k} not finite")
+                e = float((got[k] - ref[k]).abs().max())
+                check(e <= 2e-3, f"{label} seed {i}: {k} max abs err {e} > 2e-3")
+                errs[k] = max(errs[k], e)
+            pairs = list(zip(names, grads, rgrads))
+            if d_bg is not None:
+                pairs.append(("bg", d_bg, rd_bg))
+            for name, g, r in pairs:
+                check(bool(torch.isfinite(g).all()), f"{label}: kernel grad {name} not finite")
+                d = g - r
+                e, scale = float(d.abs().max()), float(r.abs().max())
+                e_norm, r_norm = float(d.norm()), float(r.norm())
+                tol, tol_norm = k1_grad_limits(R, name)
+                check(e <= tol * scale + 1e-6,
+                      f"{label} seed {i}: grad {name} max err {e} > {tol}·{scale} + 1e-6")
+                check(e_norm <= tol_norm * r_norm + 1e-6,
+                      f"{label} seed {i}: grad {name} ‖err‖ {e_norm} > {tol_norm}·{r_norm} + 1e-6")
+                e_max, e_norm = e / max(scale, 1e-30), e_norm / max(r_norm, 1e-30)
+                w = worst.get(name, (0.0, 0.0))
+                worst[name] = (max(w[0], e_max), max(w[1], e_norm))
+            if i == 0 and R == TRAIN_RAYS:
+                result["ms"][label] = _median_ms(lambda: T.fused_train_pass(*args, **kw),
+                                                 iters=10)
+                result["plain_ms"][label] = _median_ms(
+                    lambda: T.fused_train_pass_reference(*args, **kw), warmup=1, iters=3)
+                result["bound"][label] = _bound_ms(R * S * K1_FLOP_PER_SAMPLE, _k1_bytes(R, S))
+        result["err"][label] = errs
+        result["readings"][label] = worst
+        w_max = max(worst, key=lambda n: worst[n][0])
+        w_norm = max(worst, key=lambda n: worst[n][1])
+        result["grad_rel"][label] = (w_max, worst[w_max][0], w_norm, worst[w_norm][1])
+        line = (f"R={R} S={S} {kind}, {K1_SEEDS} seeds: rgb err {errs['rgb']:.3g}, weights err "
+                f"{errs['weights']:.3g}; worst grad max err {w_max} {worst[w_max][0]:.4f}·max, "
+                f"worst ‖err‖ {w_norm} {worst[w_norm][1]:.4f}·‖r‖; bit-identical over 2 launches")
+        if R == TRAIN_RAYS:
+            flops = R * S * K1_FLOP_PER_SAMPLE
+            line += (f"; kernel {result['ms'][label]:.3f} ms "
+                     f"({flops / result['ms'][label] / 1e9:.1f} TFLOP/s at "
+                     f"{K1_FLOP_PER_SAMPLE / 1e6:.4f} MFLOP a sample), plain "
+                     f"{result['plain_ms'][label]:.3f} ms")
+        phase("train_kernel", line)
+    # every tensor's worst readings per case, the calibration of the limits
+    for name in names + ["bg"]:
+        cells = [f"{label} {result['readings'][label][name][0]:.2e}/"
+                 f"{result['readings'][label][name][1]:.2e}"
+                 for label, *_ in cases if name in result["readings"][label]]
+        limits = {R: "/".join(map(str, k1_grad_limits(R, name))) for _, R, *_ in cases}
+        phase("train_kernel", f"  grad {name:6s} max/norm rel err: {', '.join(cells)} (limits "
+                              + ", ".join(f"{v} at R={R}" for R, v in limits.items()) + ")")
+    return result
+
+
+def _train_cfg(steps, logdir):
+    import copy
+
+    d = copy.deepcopy(SYNTH512_PAPER)
+    d["experiment"].update(logdir=logdir, train_iters=steps, print_every=10,
+                           validate_every=1000, save_every=1000)
+    return d
+
+
+def _train_dataset():
+    from nerface_tpu_torch.data.synthetic import synthetic_flame_dataset
+
+    return synthetic_flame_dataset(H=512, W=512, n_train=4, n_val=2, n_test=1, seed=SEED,
+                                   with_images=True)
+
+
+def train_step_phase(dev, ds):
+    """One step's losses and gradients both ways from the same weights,
+    batch and draws (the update itself is Adam's, the same code both ways)."""
+    import copy
+
+    import torch
+
+    from nerface_tpu_torch.config import CfgNode, FeatureFlags
+    from nerface_tpu_torch.data.pipeline import RayFeed, batch_to_device
+    from nerface_tpu_torch.ops.kernels.fused_train import fused_train_pass
+    from nerface_tpu_torch.render.pipeline import RenderSettings
+    from nerface_tpu_torch.train.fused import fused_losses, fused_train_eligible
+    from nerface_tpu_torch.train.loop import build_models_from_cfg, setup_background
+    from nerface_tpu_torch.train.state import create_train_state
+    from nerface_tpu_torch.train.step import compute_losses
+
+    cfg = CfgNode(SYNTH512_PAPER)
+    flags = FeatureFlags.from_cfg(cfg)
+    settings = RenderSettings.from_cfg(cfg, mode="train")
+    bg = setup_background(ds, flags)
+    batch = batch_to_device(RayFeed(ds, TRAIN_RAYS, background=bg, seed=SEED).sample_batch(), dev)
+    mc, mf = build_models_from_cfg(cfg, device=dev, generator=torch.Generator().manual_seed(SEED))
+    check(fused_train_eligible(mc, mf, settings, flags, torch.bfloat16, dev),
+          "the flagship config is not eligible for K1")
+    latent = torch.randn(len(ds.i_train), 32, generator=torch.Generator().manual_seed(1)) * 0.1
+    out = {}
+    for label, losses in (("bf16", fused_losses), ("f32", compute_losses)):
+        state = create_train_state(copy.deepcopy(mc), copy.deepcopy(mf), flags,
+                                   n_train=len(ds.i_train), background=bg, device=dev)
+        with torch.no_grad():
+            state.latent_codes.copy_(latent)
+        before = fused_train_pass.launches
+        total, _ = losses(state, batch, 7, settings, flags)
+        total.backward()
+        torch.cuda.synchronize()
+        launched = fused_train_pass.launches - before
+        check(launched == (2 if label == "bf16" else 0), f"{label} step launched K1 {launched} times")
+        grads = {f"coarse.{n}": p.grad for n, p in state.model_coarse.named_parameters()}
+        grads.update({f"fine.{n}": p.grad for n, p in state.model_fine.named_parameters()})
+        grads["latent_codes"] = state.latent_codes.grad
+        out[label] = (float(total.detach()), grads)
+    loss_b, gb = out["bf16"]
+    loss_f, gf = out["f32"]
+    check(abs(loss_b - loss_f) <= 0.03 * abs(loss_f), f"step loss bf16 {loss_b} vs f32 {loss_f}")
+    worst, worst_rel = "", 0.0
+    for name, g32 in gf.items():
+        if g32 is None:  # layers_dir.3: never reaches the loss
+            check(gb[name] is None, f"{name}: bf16 grad where f32 has none")
+            continue
+        scale = float(g32.abs().max())
+        e = float((gb[name] - g32).abs().max())
+        check(bool(torch.isfinite(gb[name]).all()), f"bf16 step grad {name} not finite")
+        check(e <= 0.25 * scale + 2e-6, f"step grad {name}: err {e} > 0.25·{scale}")
+        if scale > 0 and e / scale > worst_rel:
+            worst, worst_rel = name, e / scale
+    phase("train_step", f"{TRAIN_RAYS} rays, 64+64 samples, σ-noise 0.1: loss bf16/K1 {loss_b:.6f} vs "
+                        f"f32 plain {loss_f:.6f} (rel {abs(loss_b - loss_f) / loss_f:.4f}); "
+                        f"worst grad {worst} {worst_rel:.4f}·max (limit 0.25)")
+    return {"loss_bf16": loss_b, "loss_f32": loss_f, "worst_grad_rel": worst_rel}
+
+
+def train_phase(dev, ds, tmp, profile, card):
+    import torch
+
+    from nerface_tpu_torch.config import CfgNode, FeatureFlags
+    from nerface_tpu_torch.data.pipeline import RayFeed, batch_to_device
+    from nerface_tpu_torch.ops.kernels.fused_mlp import fused_paper_render
+    from nerface_tpu_torch.ops.kernels.fused_train import fused_train_pass
+    from nerface_tpu_torch.render.pipeline import RenderSettings
+    from nerface_tpu_torch.train.checkpoint import load_torch_checkpoint
+    from nerface_tpu_torch.train.loop import setup_background, train
+    from nerface_tpu_torch.train.schedule import from_cfg
+    from nerface_tpu_torch.train.state import build_optimizer
+    from nerface_tpu_torch.train.step import train_step
+
+    cfg = CfgNode(_train_cfg(TRAIN_STEPS, tmp))
+    out = io.StringIO()
+    fused_train_pass.launches = 0
+    fused_paper_render.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        state = train(cfg, dataset=ds, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2 = fused_train_pass.launches, fused_paper_render.launches
+    print(out.getvalue(), end="", flush=True)
+    check(k1 == 2 * TRAIN_STEPS, f"K1 launches {k1} != 2 x {TRAIN_STEPS} steps")
+    tiles = -(-ds.H * ds.W // int(cfg.nerf.validation.chunksize))
+    check(k2 == 2 * tiles * 2, f"K2 launches {k2} != 2 x {tiles} tiles x 2 frames")
+    # the losses the loop printed: every 10th step and the last
+    printed = {int(i): float(v) for i, v in
+               re.findall(r"\[TRAIN\] Iter: (\d+) Loss: (\S+)", out.getvalue())}
+    want = sorted(set(range(0, TRAIN_STEPS, 10)) | {TRAIN_STEPS - 1})
+    check(sorted(printed) == want, f"printed steps {sorted(printed)} != {want}")
+    check(all(math.isfinite(v) for v in printed.values()), f"non-finite loss: {printed}")
+    first = statistics.mean(printed[i] for i in want if i < 20)
+    last = statistics.mean(printed[i] for i in want if i >= TRAIN_STEPS - 10)
+    check(last < first, f"loss did not fall: steps < 20 {first}, last 10 steps {last}")
+    path = os.path.join(tmp, "synth512_paper", f"checkpoint{TRAIN_STEPS:05d}.ckpt")
+    saved = load_torch_checkpoint(path)
+    groups = saved["optimizer"]["param_groups"]
+    check(saved["iter"] == TRAIN_STEPS and len(groups) == 2,
+          f"checkpoint iter {saved['iter']}, {len(groups)} param groups")
+    phase("train", f"{TRAIN_STEPS} steps at {ds.H}x{ds.W} (bf16, cuda) in {wall:.1f} s with one "
+                   f"validation and 2 saves; K1 launches {k1} = 2 x {TRAIN_STEPS}, K2 launches "
+                   f"{k2} = 2 x {tiles} tiles x 2 frames; printed loss, mean of steps 0 and 10 "
+                   f"{first:.5f} -> of the last 10 steps {last:.5f}; {os.path.basename(path)} "
+                   f"reloads, 2 param groups")
+
+    # steady steps, synchronised, from the trained state
+    flags = FeatureFlags.from_cfg(cfg)
+    settings = RenderSettings.from_cfg(cfg, mode="train")
+    opt = build_optimizer(cfg, state)
+    feed = RayFeed(ds, TRAIN_RAYS, background=setup_background(ds, flags), seed=SEED + 9,
+                   pin_memory=True).start()
+    sched = from_cfg(cfg)
+    launches_before = fused_train_pass.launches
+
+    def step(i):
+        batch = batch_to_device(next(feed), dev)
+        train_step(state, opt, batch, 1000 + i, settings, flags, sched, dtype=torch.bfloat16)
+
+    for i in range(3):
+        step(i)
+    times = []
+    for i in range(15):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(3 + i)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(times)
+    phase("train", f"steady step {step_ms:.2f} ms (median of 15, synchronised; min "
+                   f"{min(times):.2f}, max {max(times):.2f}), {TRAIN_RAYS / step_ms * 1e3:,.0f} "
+                   f"rays/s on {card}")
+    result = {"k1_launches": k1, "k2_launches": k2, "step_ms": step_ms,
+              "rays_s": TRAIN_RAYS / step_ms * 1e3, "loss_printed": printed}
+    if profile:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        n = 5
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(n):
+                step(100 + i)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / n
+        _print_profile("profile_train", prof, n, wall, "a step", DeviceType, "train step")
+    feed.stop()
+    check(fused_train_pass.launches > launches_before, "steady steps did not launch K1")
+    return result
+
+
+def _print_profile(name, prof, n, wall, unit, DeviceType, what=""):
+    """Print the CUDA kernels' device time per `unit` (n of them ran under
+    `prof`, `wall` ms each) and the top 12 kernels; returns the busy ms."""
     rows = []
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
+        # a user annotation's device range (e.g. Optimizer.step) spans kernels
+        # that are listed on their own
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
             us = getattr(e, "device_time_total", None)
             rows.append(((us if us is not None else e.cuda_time_total) / 1e3 / n, e.count // n,
                          e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     check(busy > 0.0, "the profiler saw no device time")
-    phase("profile", f"{'+'.join(all_maps)} under the profiler: {wall:.2f} ms a frame, device "
-                     f"busy {busy:.2f} ms ({100 * busy / wall:.1f} %), "
-                     f"{sum(r[1] for r in rows)} kernel launches a frame")
+    phase(name, f"{what} under the profiler: {wall:.2f} ms {unit}, device busy {busy:.2f} ms "
+                f"({100 * busy / wall:.1f} %), {sum(r[1] for r in rows)} kernel launches {unit}")
     for ms, count, key in rows[:12]:
-        phase("profile", f"  {ms:9.3f} ms {100 * ms / busy:5.1f} % x{count:<4d} {key[:90]}")
-    return {"wall_ms": wall, "busy_ms": busy}
+        phase(name, f"  {ms:9.3f} ms {100 * ms / busy:5.1f} % x{count:<4d} {key[:90]}")
+    return busy
 
 
 def main() -> int:
@@ -416,7 +858,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also time warm frames and profile one frame's device time")
+                    help="also profile a served frame's and a train step's device time")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -436,38 +878,66 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
-    from nerface_tpu_torch.ops.kernels import build
-
-    t0 = time.perf_counter()
-    lib = build.build_library("fused_paper_render")
-    build_s = time.perf_counter() - t0
-    regs = [line.strip() for line in open(str(lib) + ".log") if "registers" in line]
-    phase("build", f"{build_s:.1f} s, {lib.name}; ptxas: {' | '.join(regs)}")
-
+    build_phase()
     k = kernel_phase(dev)
     with tempfile.TemporaryDirectory() as tmp:
         server, s = serve_phase(dev, tmp)
         if args.profile:
             profile_phase(server)
+        del server
+        tk = train_kernel_phase(dev)
+        ds = _train_dataset()
+        ts = train_step_phase(dev, ds)
+        tr = train_phase(dev, ds, tmp, args.profile, card)
 
     errs = [v for errs in k["err"].values() for key, v in errs.items()
             if key in ("rgb", "acc", "bg_weight", "weights")]
-    kernels = {"kernels": [{
-        "name": "fused_paper_render",
-        "route": "cuda",
-        "source": "nerface_tpu_torch/csrc/fused_paper_render.cu",
-        "replaces": "nerface_tpu/ops/pallas/fused_mlp.py:652",
-        "launches": s["launches"],
-        "max_abs_err": max(errs),
-        # one coarse (S=64, weights) + one fine (S=128) call on 4096 rays
-        "ms": k["ms"]["coarse"] + k["ms"]["fine"],
-        "plain_ms": k["plain_ms"]["coarse"] + k["plain_ms"]["fine"],
-        "ms_by_pass": k["ms"],
-        "plain_ms_by_pass": k["plain_ms"],
-        "tile_ms_by_pass": k["tile_ms"],  # 65536 rays
-        "frame_ms_512": s["frame_ms"],
-        "card": card,
-    }]}
+    k2_bound = [_bound_ms(KERNEL_RAYS * S * K2_FLOP_PER_SAMPLE, _k2_bytes(KERNEL_RAYS, S, w))[0]
+                for S, w in ((64, True), (128, False))]
+    k1_bound = [tk["bound"][p][0] for p in ("coarse", "fine")]
+    kernels = {"kernels": [
+        {
+            "name": "fused_paper_render",
+            "route": "cuda",
+            "source": "nerface_tpu_torch/csrc/fused_paper_render.cu",
+            "replaces": "nerface_tpu/ops/pallas/fused_mlp.py:652",
+            "launches": s["launches"],
+            "max_abs_err": max(errs),
+            # one coarse (S=64, weights) + one fine (S=128) call on 4096 rays
+            "ms": k["ms"]["coarse"] + k["ms"]["fine"],
+            "plain_ms": k["plain_ms"]["coarse"] + k["plain_ms"]["fine"],
+            "bound_ms": sum(k2_bound),
+            "bound_by": "operations",
+            "library_ms": None,
+            "ms_by_pass": k["ms"],
+            "plain_ms_by_pass": k["plain_ms"],
+            "tile_ms_by_pass": k["tile_ms"],  # 65536 rays
+            "frame_ms_512": s["frame_ms"],
+            "card": card,
+        },
+        {
+            "name": "fused_train_pass",
+            "route": "cuda",
+            "source": "nerface_tpu_torch/csrc/fused_train_pass.cu",
+            "replaces": "nerface_tpu/ops/pallas/fused_train.py:69",
+            "launches": tr["k1_launches"],
+            "max_abs_err": max(v for e in tk["err"].values() for v in e.values()),
+            # a train step's two passes: coarse (S=64) + fine (S=128), 2048 rays
+            "ms": tk["ms"]["coarse"] + tk["ms"]["fine"],
+            "plain_ms": tk["plain_ms"]["coarse"] + tk["plain_ms"]["fine"],
+            "bound_ms": sum(k1_bound),
+            "bound_by": "operations" if all(tk["bound"][p][1] == "operations"
+                                            for p in ("coarse", "fine")) else "bytes",
+            "library_ms": None,  # no single PyTorch call computes it
+            "ms_by_pass": tk["ms"],
+            "plain_ms_by_pass": tk["plain_ms"],
+            "worst_grad_rel": tk["grad_rel"],
+            "train_step_ms": tr["step_ms"],
+            "train_rays_s": tr["rays_s"],
+            "step_vs_f32": ts,
+            "card": card,
+        },
+    ]}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)

@@ -5,8 +5,11 @@ camera poses, expression vectors, intrinsics, checkerboard background,
 bboxes and index map, drawn from the same `RandomState(seed)` stream in
 the same order — so `synthetic_flame_dataset(...)` holds exactly the poses
 and expressions that `make_synthetic_flame_dataset` writes to disk with
-the same arguments (its default, non-compact scene). The ground-truth
-frames (the analytic blob render) are not produced: serving needs none.
+the same arguments (its default, non-compact scene). With
+`with_images=True` it also renders the ground-truth frames with the
+generator's `render_blob_frame` (copied here) and quantises them to 8 bits
+as its PNG files hold them, so a training set needs no files and no image
+library.
 """
 
 from __future__ import annotations
@@ -41,6 +44,57 @@ def _checkerboard(H: int, W: int, tile: int = 8) -> np.ndarray:
     return bg
 
 
+def render_blob_frame(
+    H: int,
+    W: int,
+    intrinsics: np.ndarray,
+    c2w: np.ndarray,
+    expression: np.ndarray,
+    background: np.ndarray,
+    num_samples: int = 48,
+    near: float = 0.2,
+    far: float = 0.8,
+    compact: bool = False,
+) -> np.ndarray:
+    """Analytic volume render of the expression-conditioned blob over
+    `background`, (H, W, 3) in [0, 1] (the JAX package's
+    `data/synthetic.py::render_blob_frame`). `compact` renders a small blob
+    whose σ is exactly 0 beyond 2.5 radii."""
+    fx, fy, cx, cy = intrinsics
+    ii, jj = np.meshgrid(np.arange(W, dtype=np.float32), np.arange(H, dtype=np.float32), indexing="xy")
+    dirs = np.stack([(ii - W * cx) / fx, -(jj - H * cy) / fy, -np.ones_like(ii)], axis=-1)
+    rd = dirs @ c2w[:3, :3].T
+    ro = c2w[:3, 3]
+
+    t = np.linspace(near, far, num_samples, dtype=np.float32)
+    pts = ro[None, None, None, :] + rd[..., None, :] * t[None, None, :, None]
+
+    e0 = float(expression[0]) if len(expression) else 0.0
+    e1 = float(expression[1]) if len(expression) > 1 else 0.0
+    radius = (0.012 if compact else 0.08) * (1.0 + 0.4 * np.tanh(e0))
+    color = np.clip(
+        np.array([0.8 + 0.2 * np.tanh(e1), 0.4, 0.3 - 0.2 * np.tanh(e1)]), 0, 1
+    ).astype(np.float32)
+
+    d2 = np.sum(pts * pts, axis=-1)
+    sigma = 400.0 * np.exp(-d2 / (2 * radius * radius))
+    if compact:
+        cut = 2.5 * radius
+        sigma = np.where(d2 < cut * cut, sigma, 0.0)
+
+    dists = np.diff(t, append=t[-1] + 1e10).astype(np.float32)
+    dists = dists[None, None, :] * np.linalg.norm(rd, axis=-1)[..., None]
+    alpha = 1.0 - np.exp(-sigma * dists)
+    trans = np.cumprod(1.0 - alpha + 1e-10, axis=-1)
+    trans = np.roll(trans, 1, axis=-1)
+    trans[..., 0] = 1.0
+    weights = alpha * trans
+
+    rgb = np.sum(weights[..., None] * color[None, None, None, :], axis=-2)
+    acc = np.sum(weights, axis=-1)
+    return np.clip(rgb + (1.0 - acc[..., None]) * background, 0.0, 1.0)
+
+
 def synthetic_flame_dataset(
     n_train: int = 8,
     n_val: int = 2,
@@ -49,12 +103,16 @@ def synthetic_flame_dataset(
     W: int = 64,
     expr_dim: int = 76,
     seed: int = 0,
+    with_images: bool = False,
+    num_samples: int = 48,
 ) -> FlameDataset:
     """An in-memory `FlameDataset` of the generator's (non-compact) scene:
     its per-frame poses, expressions and bboxes for train, val and test in
     order, its intrinsics, and the background and index map that
-    `load_flame_data` would read from its files. No frames (`images` is
-    None) and no files."""
+    `load_flame_data` would read from its files. With `with_images`, the
+    frames the generator writes (rendered with `num_samples` samples a
+    ray) as the loader reads them back: 8-bit levels / 255 in float32;
+    otherwise `images` is None. No files."""
     rng = np.random.RandomState(seed)
     camera_angle_x = 0.35
     focal = 0.5 * W / np.tan(0.5 * camera_angle_x)
@@ -78,8 +136,17 @@ def synthetic_flame_dataset(
         axis=-1,
     )
     starts = np.cumsum([0, n_train, n_val, n_test])
+    images = None
+    if with_images:
+        intr = np.array([focal, focal, 0.5, 0.5], np.float32)
+        bg_float = _checkerboard(H, W)
+        images = np.stack([
+            (render_blob_frame(H, W, intr, c2w, e, bg_float, num_samples=num_samples) * 255)
+            .astype(np.uint8)
+            for c2w, e in zip(poses, exprs)
+        ]).astype(np.float32) / 255.0
     return FlameDataset(
-        images=None,
+        images=images,
         poses=np.stack(poses).astype(np.float32),
         render_poses=spherical_render_poses(),
         H=int(H),

@@ -3,9 +3,10 @@
 The kernels are CUDA C++ files in `nerface_tpu_torch/csrc/` with a plain C
 interface. `build_library` compiles one with nvcc into a shared library
 under `build/nerface_tpu_torch/` at the root of the checkout, on first use;
-`load_library` loads it with ctypes and declares the C function's
-argument types. The library's file name carries a hash of the source and
-the flags, so an edited source is rebuilt and an unchanged one is not.
+`load_library(name)` loads it with ctypes and declares its C functions'
+argument types (`SIGNATURES`). The library's file name carries a hash of
+the source, the headers beside it and the flags, so an edited source is
+rebuilt and an unchanged one is not.
 
 Flags: Hopper (`sm_90a`), -O3, and neither `--use_fast_math` nor
 `-ftz=true`: the encoding needs `sinf` with full range reduction (sin
@@ -48,7 +49,10 @@ def build_library(name: str = "fused_paper_render") -> Path:
     compiler's resource report (-Xptxas -v) is kept beside it as
     `<library>.log`."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()
     lib = BUILD_DIR / f"lib{name}_{digest[:16]}.so"
     if lib.exists():
         return lib
@@ -65,12 +69,28 @@ def build_library(name: str = "fused_paper_render") -> Path:
     return lib
 
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# library -> {C function: (argtypes, restype)}: pointers and the stream as
+# c_void_p, sizes and flags as c_int, scalars as c_float.
+SIGNATURES = {
+    "fused_paper_render": {
+        "nerface_fused_paper_render": ([_P] * 13 + [_I] * 4 + [_P], ctypes.c_int),
+    },
+    "fused_train_pass": {
+        "nerface_fused_train_pass": ([_P] * 17 + [_I] * 4 + [_F] * 3 + [_P], ctypes.c_int),
+        "nerface_fused_train_workspace_bytes": ([_I, _I], ctypes.c_longlong),
+        "nerface_fused_train_shared_bytes": ([_P], None),
+    },
+}
+
+
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the fused-render library, with argtypes
-    declared: pointers and the stream as c_void_p, sizes as c_int."""
-    lib = ctypes.CDLL(str(build_library("fused_paper_render")))
-    fn = lib.nerface_fused_paper_render
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+def load_library(name: str = "fused_paper_render") -> ctypes.CDLL:
+    """Build (if needed) and load the library of `csrc/<name>.cu`, with its
+    functions' argtypes and restype declared from `SIGNATURES`."""
+    lib = ctypes.CDLL(str(build_library(name)))
+    for fn_name, (argtypes, restype) in SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = restype
     return lib

@@ -406,7 +406,7 @@ def fused_paper_render(
 
     from nerface_tpu_torch.ops.kernels.build import load_library
 
-    lib = load_library()
+    lib = load_library("fused_paper_render")
 
     def ptr(t):
         return ctypes.c_void_p(t.data_ptr() if t is not None else 0)

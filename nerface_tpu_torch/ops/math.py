@@ -1,6 +1,7 @@
 """Small numeric helpers shared across the pipeline.
 
-Port of `nerface_tpu/ops/math.py`: `meshgrid_xy` and `cumprod_exclusive`,
+Port of `nerface_tpu/ops/math.py`: `meshgrid_xy`, `cumprod_exclusive` and
+`mse2psnr` (the PSNR of an MSE tensor),
 plus `linspace01`, which reproduces `jnp.linspace(0, 1, n)` bit for bit
 (torch's and numpy's linspace round differently in the last place, and
 the sample depths must match the JAX package's exactly).
@@ -9,6 +10,11 @@ the sample depths must match the JAX package's exactly).
 from __future__ import annotations
 
 import torch
+
+
+def mse2psnr(mse: torch.Tensor) -> torch.Tensor:
+    """PSNR of an MSE tensor, clamped at 1e-5 as the JAX package does."""
+    return -10.0 * torch.log10(torch.clamp(mse, min=1e-5))
 
 
 def meshgrid_xy(tensor1: torch.Tensor, tensor2: torch.Tensor):

@@ -27,7 +27,9 @@ _M32 = 0xFFFFFFFF
 # Stream ids: one per kind of draw, as the JAX package splits its key
 # four ways (`render/pipeline.py`: strat, coarse noise, pdf, fine noise).
 STREAM_STRATIFIED = 0
+STREAM_NOISE_COARSE = 1
 STREAM_PDF = 2
+STREAM_NOISE_FINE = 3
 
 
 def _mul32(x, c: int):
@@ -49,6 +51,13 @@ def _mix32(x):
     return x ^ (x >> 16)
 
 
+def step_seed(seed: int, step: int) -> int:
+    """The draws' seed of train step `step` of a run seeded `seed`: keyed
+    by the step number (as the JAX package folds the step into its key),
+    so a resumed run draws what the uninterrupted run would have."""
+    return _mix32((int(seed) & _M32) ^ _mix32((int(step) + 0x632BE5AB) & _M32))
+
+
 def per_ray_uniform(
     seed: int, stream: int, ray_index: torch.Tensor, num_samples: int
 ) -> torch.Tensor:
@@ -60,6 +69,18 @@ def per_ray_uniform(
     col = torch.arange(num_samples, dtype=torch.int64, device=ray_index.device)
     h = _mix32(h ^ _mix32(_mul32(col, 0x9E3779B9) ^ 0x85EBCA6B))
     return (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def per_ray_normal(
+    seed: int, stream: int, ray_index: torch.Tensor, num_samples: int
+) -> torch.Tensor:
+    """(R, num_samples) f32 standard normals (Box–Muller over
+    `per_ray_uniform`'s draws); row r depends only on (seed, stream,
+    ray_index[r]), as the JAX package's `per_ray_normal` rows do."""
+    u = per_ray_uniform(seed, stream, ray_index, 2 * num_samples)
+    u1 = 1.0 - u[:, 0::2]  # (0, 1]: log stays finite
+    u2 = u[:, 1::2]
+    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * torch.pi) * u2)
 
 
 def stratified_zvals(

@@ -22,8 +22,12 @@ CUDA kernel on the card — over the model's weights packed once
 composited by `volume_render_radiance_field`; in f32 this is the path held
 to the JAX package's f32 XLA path.
 
-Draws: `t_rand` (R, num_coarse) and `u` (R, num_fine) may be injected;
-otherwise they come from the port's per-ray hash of (seed, ray_index).
+Draws: `t_rand` (R, num_coarse), `u` (R, num_fine) and the σ-noise normals
+`noise_c` (R, num_coarse) and `noise_f` (R, num_coarse + num_fine) may be
+injected; otherwise they come from the port's per-ray hash of (seed,
+ray_index), one stream per kind of draw, as the JAX package splits its key
+four ways. The unfused path is plain differentiable torch: the f32
+training path takes its gradients by autograd through it.
 """
 
 from __future__ import annotations
@@ -43,7 +47,14 @@ from nerface_tpu_torch.ops.kernels.fused_mlp import (
     fused_paper_render,
     pack_paper_weights,
 )
-from nerface_tpu_torch.ops.sampling import merge_sorted_zvals, sample_pdf, stratified_zvals
+from nerface_tpu_torch.ops.sampling import (
+    STREAM_NOISE_COARSE,
+    STREAM_NOISE_FINE,
+    merge_sorted_zvals,
+    per_ray_normal,
+    sample_pdf,
+    stratified_zvals,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -206,6 +217,8 @@ def render_rays(
     ray_index: Optional[torch.Tensor] = None,
     t_rand: Optional[torch.Tensor] = None,
     u: Optional[torch.Tensor] = None,
+    noise_c: Optional[torch.Tensor] = None,
+    noise_f: Optional[torch.Tensor] = None,
 ) -> Dict[str, Any]:
     """Render a batch of rays (R, 3). Returns coarse/fine rgb/disp/acc/depth
     maps, the per-sample weights of the last unfused pass (None after a
@@ -213,10 +226,6 @@ def render_rays(
 
     `ray_index` (global ray indices, default arange(R)) keys the port's
     own draws, so any tiling of a frame draws the same numbers."""
-    if settings.radiance_field_noise_std > 0.0:
-        raise NotImplementedError(
-            "sigma noise (training) is not ported yet: ROADMAP.md Queue 1, train step"
-        )
     if not settings.no_ndc:
         raise NotImplementedError("the NDC (LLFF) ray path is not ported yet")
     ro = ray_origins.reshape(-1, 3)
@@ -226,6 +235,9 @@ def render_rays(
         ray_index = torch.arange(num_rays, device=ro.device)
     near = torch.full((num_rays, 1), settings.near, dtype=ro.dtype, device=ro.device)
     far = torch.full((num_rays, 1), settings.far, dtype=ro.dtype, device=ro.device)
+    std = float(settings.radiance_field_noise_std)
+    if std > 0.0 and noise_c is None:
+        noise_c = per_ray_normal(seed, STREAM_NOISE_COARSE, ray_index, settings.num_coarse)
 
     # ---- coarse pass -------------------------------------------------------
     z_vals = stratified_zvals(
@@ -255,8 +267,10 @@ def render_rays(
         rgb_coarse, disp_coarse, acc_coarse, weights, depth_coarse = (
             volume_render_radiance_field(
                 radiance, z_vals, rd,
+                radiance_field_noise_std=std,
                 white_background=settings.white_background,
                 background_prior=background_prior,
+                noise=noise_c,
                 return_depth=True,
             )
         )
@@ -302,10 +316,14 @@ def render_rays(
             expressions, latent_code, dtype,
         )
         radiance = inject_background(radiance, background_prior)
+        if std > 0.0 and noise_f is None:
+            noise_f = per_ray_normal(seed, STREAM_NOISE_FINE, ray_index, z_all.shape[-1])
         rgb_fine, disp_fine, acc_fine, weights, depth_fine = volume_render_radiance_field(
             radiance, z_all, rd,
+            radiance_field_noise_std=std,
             white_background=settings.white_background,
             background_prior=background_prior,
+            noise=noise_f,
             return_depth=True,
         )
         out.update(

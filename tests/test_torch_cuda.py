@@ -14,6 +14,7 @@ rounding of an activation), depth atol 2e-3·far, disp rtol 1e-2.
 import pytest
 import torch
 
+from chip_smoke import HE_GAIN, SIGMA_BIAS, k1_grad_limits
 from nerface_tpu_torch.models.nerf_models import ConditionalBlendshapePaperNeRFModel
 from nerface_tpu_torch.ops.kernels import fused_mlp as K
 
@@ -112,3 +113,86 @@ def test_packed_weights_give_the_same_result(cuda_device, params):
     b = K.fused_paper_render(K.pack_paper_weights(params), ro, rd, z, dc, cond, **kw)
     for k in a:
         assert torch.equal(a[k], b[k]), k
+
+
+# -- K1: fused_train_pass ---------------------------------------------------
+# Tolerances are chip_smoke.py's: rgb and weights atol 2e-3; each gradient
+# tensor within `k1_grad_limits`' max error (relative to max|plain|) and
+# norm error (relative to ‖plain‖), read on the card (PERF.md).
+
+
+@pytest.fixture(scope="module")
+def he_params(params):
+    """chip_smoke's K1 weights: He-scaled (at the default init the
+    activations fade, and many gradients with them)."""
+    return {k: v * HE_GAIN if k.endswith(".weight") else v for k, v in params.items()}
+
+
+def _train_inputs(R, S, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    ro, rd, z, dc, cond, bg = _inputs(R, S, "cpu", seed)
+    rd[:4] = rd[4:8]
+    tgt = torch.rand(R, 3, generator=g)
+    noise = torch.randn(R, S, generator=g)
+    pe_dir = torch.randn(R, 24, generator=g)
+    return [t.to(dev).contiguous() for t in (ro, rd, z, tgt, bg, noise, pe_dir, cond)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "R,S,kind",
+    [(512, 64, "noise"), (77, 128, "noise"), (301, 32, "white"), (301, 32, "train_bg")],
+    ids=["coarse", "fine-ragged", "s32-white-ragged", "s32-train-bg"],
+)
+def test_train_kernel_matches_plain(cuda_device, he_params, R, S, kind):
+    from nerface_tpu_torch.ops.kernels import fused_train as T
+
+    ro, rd, z, tgt, bg, noise, pe_dir, cond = _train_inputs(R, S, cuda_device, seed=R + S)
+    params = he_params
+    if kind == "white":  # opaque rays, as chip_smoke's white case
+        params = dict(params, **{"fc_alpha.bias": params["fc_alpha.bias"] + SIGMA_BIAS})
+    bundle = [t.contiguous() for t in T.prefold_paper_params(params, cond, pe_dir, 10)]
+    kw = dict(loss_scale=2.0 / (3.0 * R))
+    if kind == "noise":
+        kw.update(background=bg, noise=noise, noise_std=0.1)
+    elif kind == "white":
+        kw.update(white_background=True)
+    else:
+        kw.update(background=bg, train_bg=True, sup_bg_scale=0.001 / R)
+    before = T.fused_train_pass.launches
+    got, grads, d_bg = T.fused_train_pass(bundle, ro, rd, z, tgt, **kw)
+    _, grads2, _ = T.fused_train_pass(bundle, ro, rd, z, tgt, **kw)
+    torch.cuda.synchronize()
+    assert T.fused_train_pass.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads2)), "not deterministic"
+    ref, rgrads, rd_bg = T.fused_train_pass_reference(bundle, ro, rd, z, tgt, **kw)
+    for k in ("rgb", "weights"):
+        torch.testing.assert_close(got[k], ref[k], atol=2e-3, rtol=0, msg=k)
+    names = ["cond0", "cond3", "dir"] + list(T.WEIGHT_NAMES) + list(T.BIAS_NAMES)
+    pairs = list(zip(names, grads, rgrads))
+    if kind == "train_bg":
+        pairs.append(("bg", d_bg, rd_bg))
+    for name, g, r in pairs:
+        assert torch.isfinite(g).all(), name
+        tol, tol_norm = k1_grad_limits(R, name)
+        torch.testing.assert_close(g, r, atol=tol * float(r.abs().max()) + 1e-6, rtol=0, msg=name)
+        err, ref_norm = float((g - r).norm()), float(r.norm())
+        assert err <= tol_norm * ref_norm + 1e-6, f"{name}: ‖err‖ {err} > {tol_norm}·{ref_norm}"
+
+
+@pytest.mark.cuda
+def test_train_kernel_refuses_what_it_does_not_take(cuda_device, params):
+    from nerface_tpu_torch.ops.kernels import fused_train as T
+
+    ro, rd, z, tgt, bg, noise, pe_dir, cond = _train_inputs(64, 64, cuda_device, seed=2)
+    bundle = T.prefold_paper_params(params, cond, pe_dir, 10)
+    before = T.fused_train_pass.launches
+    with pytest.raises(ValueError, match="samples per ray"):
+        T.fused_train_pass(bundle, ro, rd, z[:, :16].contiguous(), tgt, loss_scale=1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        T.fused_train_pass(bundle, ro, rd, z.t().contiguous().t(), tgt, loss_scale=1.0)
+    with pytest.raises(TypeError, match="float32"):
+        T.fused_train_pass(bundle, ro.double(), rd, z, tgt, loss_scale=1.0)
+    with pytest.raises(ValueError, match="target is on"):
+        T.fused_train_pass(bundle, ro, rd, z, tgt.cpu(), loss_scale=1.0)
+    assert T.fused_train_pass.launches == before

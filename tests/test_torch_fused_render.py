@@ -183,7 +183,10 @@ def test_opaque_rays(model):
 
 
 def test_offsets_match_cuda_source():
+    """The offsets live in the header the kernel includes (shared with K1)."""
     src = CU.read_text()
+    assert '#include "mma_tile.cuh"' in src
+    src += (CU.parent / "mma_tile.cuh").read_text()
     for prefix, offsets in (("W", K.W_OFFSETS), ("F", K.F_OFFSETS)):
         found = {
             m.group(1): int(m.group(2))
