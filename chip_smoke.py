@@ -9,11 +9,11 @@ Phases, one line each (plus the kernels' register reports):
 
   1. device  — nvidia-smi's name and power limit, torch's device name;
                fails when CUDA is not available.
-  2. build   — nvcc builds both kernel libraries,
-               `nerface_tpu_torch/csrc/fused_paper_render.cu` (K2) and
-               `fused_train_pass.cu` (K1), in parallel into
-               build/nerface_tpu_torch/; prints the seconds and each
-               kernel's ptxas registers and shared memory.
+  2. build   — nvcc builds the three kernel libraries,
+               `nerface_tpu_torch/csrc/fused_paper_render.cu` (K2),
+               `fused_train_pass.cu` (K1) and `fused_flex.cu` (K4), in
+               parallel into build/nerface_tpu_torch/; prints the seconds
+               and each kernel's ptxas registers and shared memory.
   3. kernel  — the fused-render kernel against its plain PyTorch version
                (bf16 operands), on He-scaled random weights (HE_GAIN) on
                the card, at the main path's coarse
@@ -65,12 +65,31 @@ Phases, one line each (plus the kernels' register reports):
                the last 10 steps below that of steps 0 and 10; the last .ckpt
                reloads and holds two Adam param groups. Then the median of
                steady synchronised steps and rays/s.
+  8. flex_kernel — K4f `fused_flex_forward` and K4b `fused_flex_backward`
+               (csrc/fused_flex.cu) against their plain versions on
+               synth512_lcode's He-scaled weights, FLEX_SEEDS draws a case:
+               R = 2048 at S = 64 and 128 (forward and backward) and one
+               65536-ray tile at each (forward). Raw rgb and σ within
+               FLEX_OUT_TOL of their max; every gradient tensor, d_v0 and
+               d_dir within `k1_grad_limits`; bit-identical over 2 launches;
+               ms, TFLOP/s, bound ms and the plain versions' ms.
+  9. flex_serve — a 512² synth512_lcode avatar (SYNTH512_LCODE: the paper
+               config with the Flexible family's
+               ConditionalBlendshapeLearnableCodeNeRFModel) served as in
+               phase 4: K4f launched 2 × tiles per frame, no K2 or K4b, the
+               bf16 frame against the f32 plain frame within FLEX_FRAME_MAX
+               / FLEX_FRAME_MEAN levels.
+ 10. flex_train — `train()` of synth512_lcode in bf16 for FLEX_TRAIN_STEPS
+               steps, validation at step 0: K4f launched 2 × steps + 2 ×
+               tiles × 2 frames, K4b 2 × steps, K1 and K2 never; the printed
+               loss falling; the last .ckpt reloading; steady step ms and
+               rays/s.
 
     python3 chip_smoke.py --profile
 
 adds profile phases: 6 timed frames per map set, then torch.profiler over 2
-frames, and torch.profiler over 5 steady train steps; each prints its table
-of device time per kernel.
+frames, and torch.profiler over 5 steady train steps of synth512_paper and
+of synth512_lcode; each prints its table of device time per kernel.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failure raises, exits non-zero and
@@ -78,6 +97,7 @@ prints no result.
 """
 
 import contextlib
+import copy
 import ctypes
 import io
 import json
@@ -134,6 +154,14 @@ SYNTH512_PAPER = {
     },
 }
 
+# synth512_paper with one change: both models are the Flexible family's
+# ConditionalBlendshapeLearnableCodeNeRFModel (expr·(1/3) ⊕ a 32-dim latent
+# code folded into layer1, 3 hidden relu layers of 256, σ off the trunk),
+# whose MLP runs through K4; tests/test_torch_flex_serve.py pins it.
+SYNTH512_LCODE = copy.deepcopy(SYNTH512_PAPER)
+for _node in SYNTH512_LCODE["models"].values():
+    _node["type"] = "ConditionalBlendshapeLearnableCodeNeRFModel"
+
 KERNEL_RAYS = 4096
 TILE_RAYS = 65536  # the validation chunksize: one tile of the main path
 FAR = 0.8
@@ -188,9 +216,32 @@ def k1_grad_limits(n_rays, name):
     return max(max_tol, K1_DIR_BRANCH_MAX_TOL.get(name, 0.0)), norm_tol
 
 
+# The Flexible trunk of synth512_lcode (n = 3 hidden layers), forward:
+# layer1 at K = 63, the hidden layers, fc_feat, the σ head off the trunk,
+# layers_dir.0's feat columns and fc_rgb. Its dX products: fc_rgb,
+# layers_dir.0, fc_feat, the σ head and the hidden layers (the last one's
+# output cotangent feeds layer1's gradient and d_v0).
+FLEX_FORWARD_KN = [(D_XYZ, 256)] + [(256, 256)] * 3 + [(256, 256), (256, 1), (256, 128), (128, 3)]
+FLEX_DX_KN = [(128, 3), (256, 128), (256, 256), (256, 1)] + [(256, 256)] * 3
+K4F_FLOP_PER_SAMPLE = sum(2 * k * n for k, n in FLEX_FORWARD_KN)
+# K4b: recompute + dX + dW (dW has the forward's products)
+K4B_FLOP_PER_SAMPLE = sum(2 * k * n for k, n in FLEX_FORWARD_KN + FLEX_DX_KN + FLEX_FORWARD_KN)
+FLEX_N_HIDDEN = 3
+FLEX_SEEDS = 3
+# K4f against its plain version: max |kernel − plain| ≤ FLEX_OUT_TOL·max|plain|,
+# raw rgb and σ each: a flipped bf16 rounding of an activation moves a raw
+# output by a few units of its last bf16 place (readings on the card up to
+# 5.6e-3, PERF.md). K4b's gradients take K1's limits (`k1_grad_limits`).
+FLEX_OUT_TOL = 0.01
+# the served bf16 K4f frame against the f32 plain frame, in 8-bit levels
+# (readings on the card: max 1, mean 0.0748; PERF.md)
+FLEX_FRAME_MAX = 1
+FLEX_FRAME_MEAN = 0.1
+
 TRAIN_RAYS = 2048
 TRAIN_STEPS = 40
-LIBRARIES = ("fused_paper_render", "fused_train_pass")
+FLEX_TRAIN_STEPS = 30
+LIBRARIES = ("fused_paper_render", "fused_train_pass", "fused_flex")
 
 
 class SmokeFailure(RuntimeError):
@@ -359,36 +410,12 @@ def serve_phase(dev, tmp):
 
     from nerface_tpu_torch.config import CfgNode
     from nerface_tpu_torch.data.synthetic import synthetic_flame_dataset
-    from nerface_tpu_torch.models.nerf_models import build_model
     from nerface_tpu_torch.ops.kernels.fused_mlp import fused_paper_render
     from nerface_tpu_torch.serve import AvatarServer
 
     cfg = CfgNode(SYNTH512_PAPER)
     ds = synthetic_flame_dataset(H=512, W=512, n_train=8, n_val=2, n_test=2, seed=SEED)
-    gen = torch.Generator().manual_seed(SEED + 2)
-    coarse = build_model(cfg.models.coarse, generator=gen)
-    fine = build_model(
-        cfg.models.fine, num_layers=cfg.models.coarse.num_layers,
-        hidden_size=cfg.models.coarse.hidden_size, generator=gen,
-    )
-    for m in (coarse, fine):
-        _he_scale(m)
-        with torch.no_grad():
-            m.fc_alpha.bias += SIGMA_BIAS
-    ckpt = os.path.join(tmp, "synth512_paper.ckpt")
-    torch.save(
-        {
-            "iter": 0,
-            "model_coarse_state_dict": coarse.state_dict(),
-            "model_fine_state_dict": fine.state_dict(),
-            "optimizer_state_dict": None,
-            "loss": 0.0,
-            "psnr": 0.0,
-            "background": torch.as_tensor(ds.load_background()),
-            "latent_codes": torch.randn(len(ds.i_train), 32, generator=gen) * 0.1,
-        },
-        ckpt,
-    )
+    ckpt = _save_avatar(cfg, ds, os.path.join(tmp, "synth512_paper.ckpt"), SEED + 2)
     server = AvatarServer(cfg, ckpt, dataset=ds, dtype=torch.bfloat16, device=dev, log=False)
     n_pix = server.H * server.W
     tiles = -(-n_pix // min(server.settings.chunksize, n_pix))
@@ -487,7 +514,7 @@ def _bound_ms(flops, nbytes):
 
 
 def build_phase():
-    """Both libraries, one nvcc each, started together."""
+    """Every library, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from nerface_tpu_torch.ops.kernels import build
@@ -507,19 +534,21 @@ def build_phase():
         for i, line in enumerate(log):
             if "Compiling entry function" not in line:
                 continue
-            m = re.search(r"(train_fwd_kernel|train_bwd_kernel|dw_kernel|reduce_rows|"
-                          r"render_kernel)(?:ILi(\d+)E)?", line)
+            m = re.search(r"(train_fwd_kernel|train_bwd_kernel|flex_fwd_kernel|flex_bwd_kernel|"
+                          r"dw_kernel|reduce_rows|render_kernel)(?:ILi(\d+)E)?", line)
             short = (m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")) if m else line
             usage = [x.split("info    :")[-1].strip() if "info" in x else x.strip()
                      for x in log[i + 1:i + 4] if "registers" in x or "spill" in x]
             info.append(f"{short}: {'; '.join(usage)}")
         phase("build", f"{name}: {secs:.1f} s ({lib.name}); ptxas: {' | '.join(info)}")
-        if name == "fused_train_pass":
+        kinds = {"fused_train_pass": "train", "fused_flex": "flex"}
+        if name in kinds:
+            k = kinds[name]
             smem = (ctypes.c_longlong * 3)()
-            build.load_library(name).nerface_fused_train_shared_bytes(smem)
-            phase("build", f"{name} shared memory a CTA: train_fwd_kernel {smem[0]} B, "
-                           f"train_bwd_kernel {smem[1]} B (dynamic), dw_kernel {smem[2]} B")
-    phase("build", f"both libraries in {wall:.1f} s")
+            getattr(build.load_library(name), f"nerface_fused_{k}_shared_bytes")(smem)
+            phase("build", f"{name} shared memory a CTA: {k}_fwd_kernel {smem[0]} B, "
+                           f"{k}_bwd_kernel {smem[1]} B (dynamic), dw_kernel {smem[2]} B")
+    phase("build", f"{len(LIBRARIES)} libraries in {wall:.1f} s")
 
 
 def _train_kernel_inputs(n_rays, n_samples, gen, dev):
@@ -739,16 +768,11 @@ def train_step_phase(dev, ds):
 def train_phase(dev, ds, tmp, profile, card):
     import torch
 
-    from nerface_tpu_torch.config import CfgNode, FeatureFlags
-    from nerface_tpu_torch.data.pipeline import RayFeed, batch_to_device
+    from nerface_tpu_torch.config import CfgNode
     from nerface_tpu_torch.ops.kernels.fused_mlp import fused_paper_render
     from nerface_tpu_torch.ops.kernels.fused_train import fused_train_pass
-    from nerface_tpu_torch.render.pipeline import RenderSettings
     from nerface_tpu_torch.train.checkpoint import load_torch_checkpoint
-    from nerface_tpu_torch.train.loop import setup_background, train
-    from nerface_tpu_torch.train.schedule import from_cfg
-    from nerface_tpu_torch.train.state import build_optimizer
-    from nerface_tpu_torch.train.step import train_step
+    from nerface_tpu_torch.train.loop import train
 
     cfg = CfgNode(_train_cfg(TRAIN_STEPS, tmp))
     out = io.StringIO()
@@ -785,27 +809,8 @@ def train_phase(dev, ds, tmp, profile, card):
                    f"reloads, 2 param groups")
 
     # steady steps, synchronised, from the trained state
-    flags = FeatureFlags.from_cfg(cfg)
-    settings = RenderSettings.from_cfg(cfg, mode="train")
-    opt = build_optimizer(cfg, state)
-    feed = RayFeed(ds, TRAIN_RAYS, background=setup_background(ds, flags), seed=SEED + 9,
-                   pin_memory=True).start()
-    sched = from_cfg(cfg)
     launches_before = fused_train_pass.launches
-
-    def step(i):
-        batch = batch_to_device(next(feed), dev)
-        train_step(state, opt, batch, 1000 + i, settings, flags, sched, dtype=torch.bfloat16)
-
-    for i in range(3):
-        step(i)
-    times = []
-    for i in range(15):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step(3 + i)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
+    times, step, feed = _steady_steps(state, cfg, ds, dev)
     step_ms = statistics.median(times)
     phase("train", f"steady step {step_ms:.2f} ms (median of 15, synchronised; min "
                    f"{min(times):.2f}, max {max(times):.2f}), {TRAIN_RAYS / step_ms * 1e3:,.0f} "
@@ -813,21 +818,372 @@ def train_phase(dev, ds, tmp, profile, card):
     result = {"k1_launches": k1, "k2_launches": k2, "step_ms": step_ms,
               "rays_s": TRAIN_RAYS / step_ms * 1e3, "loss_printed": printed}
     if profile:
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile as torch_profile
-
-        n = 5
-        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for i in range(n):
-                step(100 + i)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / n
-        _print_profile("profile_train", prof, n, wall, "a step", DeviceType, "train step")
+        _profile_steps("profile_train", step, "train step")
     feed.stop()
     check(fused_train_pass.launches > launches_before, "steady steps did not launch K1")
     return result
+
+
+def _flex_params(seed, dev):
+    """He-scaled random weights of one synth512_lcode model (the state-dict
+    params) and a per-frame v0 = layer1's bias + its conditioning columns
+    applied to a random [expr/3; latent]."""
+    import torch
+
+    from nerface_tpu_torch.models.nerf_models import ConditionalBlendshapeLearnableCodeNeRFModel
+
+    model = ConditionalBlendshapeLearnableCodeNeRFModel(
+        num_layers=FLEX_N_HIDDEN + 1, hidden_size=256, num_encoding_fn_xyz=10,
+        num_encoding_fn_dir=4, include_input_dir=False, device=dev,
+        generator=torch.Generator().manual_seed(seed),
+    )
+    _he_scale(model)
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    g = torch.Generator().manual_seed(seed + 1)
+    cond = torch.cat([torch.randn(76, generator=g) * 0.5 / 3.0, torch.randn(32, generator=g) * 0.1])
+    w1 = params["layer1.weight"]
+    v0 = (params["layer1.bias"] + w1[:, D_XYZ:] @ cond.to(dev))[None, :].contiguous()
+    return params, v0
+
+
+def _k4_bytes(n_rays, n_samples, backward):
+    """The bytes K4f / K4b must move: each input read once (rays, depths,
+    dir_c, v0, weights; g and the transposed weights for K4b), each output
+    written once ((R, S, 4); the gradients and d_dir for K4b)."""
+    from nerface_tpu_torch.ops.kernels import fused_flex as F
+
+    n = FLEX_N_HIDDEN
+    w, f, wt = F.w_offsets(n)["TOTAL"], F.f_offsets(n)["TOTAL"], F.wt_offsets(n)["TOTAL"]
+    rays = n_rays * 4 * (3 + 3 + n_samples + 128)
+    samples = n_rays * n_samples * 4 * 4  # (R, S, 4) f32: the output, or g
+    weights = 2 * w + 4 * f
+    if not backward:
+        return rays + samples + weights
+    return rays + samples + weights + 2 * wt + 4 * (w + f) + n_rays * 4 * 128
+
+
+def flex_kernel_phase(dev):
+    """K4f and K4b against their plain versions on synth512_lcode's
+    He-scaled weights, FLEX_SEEDS draws of weights and inputs a case."""
+    import torch
+
+    from nerface_tpu_torch.ops.kernels import fused_flex as F
+
+    n = FLEX_N_HIDDEN
+    wn, bn = F.weight_names(n)
+    names = list(wn) + list(bn) + ["v0", "dir"]
+    result = {"err": {}, "readings": {}, "ms": {}, "plain_ms": {}, "bound": {}, "tile_ms": {},
+              "bwd_ms": {}, "bwd_plain_ms": {}, "bwd_bound": {}, "grad_rel": {},
+              "abs_err": 0.0, "grad_abs_err": 0.0}
+    models = [_flex_params(SEED + 7 + 100 * i, dev) for i in range(FLEX_SEEDS)]
+    for c, (label, R, S) in enumerate((("coarse", TRAIN_RAYS, 64), ("fine", TRAIN_RAYS, 128),
+                                       ("tile64", TILE_RAYS, 64), ("tile128", TILE_RAYS, 128))):
+        worst, out_err = {}, {"rgb": 0.0, "sigma": 0.0}
+        for i, (params, v0) in enumerate(models):
+            gen = torch.Generator().manual_seed(SEED + 8 + 100 * i + c)
+            ro, rd, z, dc, _, _ = _kernel_inputs(R, S, gen, dev)
+            weights = F.pack_flex_weights(params, n, 10)
+            args = (weights, ro, rd, z, dc, v0, n)
+            got = F.fused_flex_forward(*args)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()), f"{label}: K4f output not finite")
+            # the plain version's activations at 65536 rays take tens of GB:
+            # chunks of 8192 rays
+            ref = torch.cat([
+                F.fused_flex_forward_reference(weights, ro[j:j + 8192], rd[j:j + 8192],
+                                               z[j:j + 8192], dc[j:j + 8192], v0, n)
+                for j in range(0, R, 8192)
+            ])
+            for part, sl in (("rgb", slice(0, 3)), ("sigma", slice(3, 4))):
+                e = float((got[..., sl] - ref[..., sl]).abs().max())
+                scale = float(ref[..., sl].abs().max())
+                check(e <= FLEX_OUT_TOL * scale,
+                      f"{label} seed {i}: K4f {part} max err {e} > {FLEX_OUT_TOL}·{scale}")
+                out_err[part] = max(out_err[part], e / scale)
+                result["abs_err"] = max(result["abs_err"], e)
+            del ref
+            if i == 0:
+                flops = R * S * K4F_FLOP_PER_SAMPLE
+                key = "tile_ms" if R == TILE_RAYS else "ms"
+                result[key][label] = _median_ms(lambda: F.fused_flex_forward(*args),
+                                                iters=10 if R == TILE_RAYS else 15)
+                if R == TRAIN_RAYS:
+                    result["plain_ms"][label] = _median_ms(
+                        lambda: F.fused_flex_forward_reference(*args), warmup=1, iters=5)
+                    result["bound"][label] = _bound_ms(flops, _k4_bytes(R, S, False))
+            if R != TRAIN_RAYS:
+                continue
+            g = torch.randn(R, S, 4, generator=gen).to(dev)
+            grads, d_v0, d_dir = F.fused_flex_backward(*args[:6], g, n)
+            torch.cuda.synchronize()
+            grads2, d_v02, d_dir2 = F.fused_flex_backward(*args[:6], g, n)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(grads + (d_v0, d_dir),
+                                                          grads2 + (d_v02, d_dir2)))
+            check(same, f"{label} seed {i}: two K4b launches gave different gradients")
+            rgrads, rd_v0, rd_dir = F.fused_flex_backward_reference(*args[:6], g, n)
+            for name, a, r in zip(names, grads + (d_v0, d_dir), rgrads + (rd_v0, rd_dir)):
+                a, r = a.float(), r.float()
+                check(bool(torch.isfinite(a).all()), f"{label}: K4b grad {name} not finite")
+                d = a - r
+                e, scale = float(d.abs().max()), float(r.abs().max())
+                e_norm, r_norm = float(d.norm()), float(r.norm())
+                tol, tol_norm = k1_grad_limits(R, name)
+                check(e <= tol * scale + 1e-6,
+                      f"{label} seed {i}: K4b grad {name} max err {e} > {tol}·{scale} + 1e-6")
+                check(e_norm <= tol_norm * r_norm + 1e-6,
+                      f"{label} seed {i}: K4b grad {name} ‖err‖ {e_norm} > {tol_norm}·{r_norm}")
+                w = worst.get(name, (0.0, 0.0))
+                worst[name] = (max(w[0], e / max(scale, 1e-30)), max(w[1], e_norm / max(r_norm, 1e-30)))
+                result["grad_abs_err"] = max(result["grad_abs_err"], e)
+            if i == 0:
+                result["bwd_ms"][label] = _median_ms(
+                    lambda: F.fused_flex_backward(*args[:6], g, n), iters=10)
+                result["bwd_plain_ms"][label] = _median_ms(
+                    lambda: F.fused_flex_backward_reference(*args[:6], g, n), warmup=1, iters=3)
+                result["bwd_bound"][label] = _bound_ms(R * S * K4B_FLOP_PER_SAMPLE,
+                                                       _k4_bytes(R, S, True))
+        result["err"][label] = out_err
+        line = (f"R={R} S={S}, {FLEX_SEEDS} seeds: K4f max err rgb {out_err['rgb']:.2e}·max, "
+                f"σ {out_err['sigma']:.2e}·max (limit {FLEX_OUT_TOL})")
+        if R == TILE_RAYS:
+            ms = result["tile_ms"][label]
+            line += (f"; K4f {ms:.3f} ms, {R * S * K4F_FLOP_PER_SAMPLE / ms / 1e9:.1f} TFLOP/s at "
+                     f"{K4F_FLOP_PER_SAMPLE / 1e6:.4f} MFLOP a sample")
+        else:
+            result["readings"][label] = worst
+            w_max = max(worst, key=lambda k: worst[k][0])
+            w_norm = max(worst, key=lambda k: worst[k][1])
+            result["grad_rel"][label] = (w_max, worst[w_max][0], w_norm, worst[w_norm][1])
+            fw, bw = result["ms"][label], result["bwd_ms"][label]
+            line += (f"; K4b worst grad max err {w_max} {worst[w_max][0]:.4f}·max, worst ‖err‖ "
+                     f"{w_norm} {worst[w_norm][1]:.4f}·‖r‖; bit-identical over 2 launches; "
+                     f"K4f {fw:.3f} ms ({R * S * K4F_FLOP_PER_SAMPLE / fw / 1e9:.1f} TFLOP/s, bound "
+                     f"{result['bound'][label][0]:.3f}), plain {result['plain_ms'][label]:.3f} ms; "
+                     f"K4b {bw:.3f} ms ({R * S * K4B_FLOP_PER_SAMPLE / bw / 1e9:.1f} TFLOP/s at "
+                     f"{K4B_FLOP_PER_SAMPLE / 1e6:.4f} MFLOP a sample, bound "
+                     f"{result['bwd_bound'][label][0]:.3f}), plain {result['bwd_plain_ms'][label]:.3f} ms")
+        phase("flex_kernel", line)
+    for name in names:
+        cells = [f"{label} {result['readings'][label][name][0]:.2e}/"
+                 f"{result['readings'][label][name][1]:.2e}" for label in ("coarse", "fine")]
+        phase("flex_kernel", f"  grad {name:5s} max/norm rel err: {', '.join(cells)} (limits "
+                             f"{'/'.join(map(str, k1_grad_limits(TRAIN_RAYS, name)))})")
+    return result
+
+
+def _save_avatar(cfg, ds, path, seed):
+    """A reference-schema .ckpt of He-scaled random models (σ biased up so
+    that the MLP's colour, not the background, makes the pixels) and a
+    random 32-wide latent table."""
+    import torch
+
+    from nerface_tpu_torch.models.nerf_models import build_model
+
+    gen = torch.Generator().manual_seed(seed)
+    coarse = build_model(cfg.models.coarse, generator=gen)
+    fine = build_model(
+        cfg.models.fine, num_layers=cfg.models.coarse.num_layers,
+        hidden_size=cfg.models.coarse.hidden_size, generator=gen,
+    )
+    for m in (coarse, fine):
+        _he_scale(m)
+        with torch.no_grad():
+            m.fc_alpha.bias += SIGMA_BIAS
+    torch.save(
+        {
+            "iter": 0,
+            "model_coarse_state_dict": coarse.state_dict(),
+            "model_fine_state_dict": fine.state_dict(),
+            "optimizer_state_dict": None,
+            "loss": 0.0,
+            "psnr": 0.0,
+            "background": torch.as_tensor(ds.load_background()),
+            "latent_codes": torch.randn(len(ds.i_train), 32, generator=gen) * 0.1,
+        },
+        path,
+    )
+    return path
+
+
+def flex_serve_phase(dev, tmp):
+    """A 512² synth512_lcode avatar served in bf16 through K4f."""
+    import numpy as np
+    import torch
+
+    from nerface_tpu_torch.config import CfgNode
+    from nerface_tpu_torch.data.synthetic import synthetic_flame_dataset
+    from nerface_tpu_torch.ops.kernels import fused_flex as F
+    from nerface_tpu_torch.ops.kernels.fused_mlp import fused_paper_render
+    from nerface_tpu_torch.serve import AvatarServer
+
+    cfg = CfgNode(SYNTH512_LCODE)
+    ds = synthetic_flame_dataset(H=512, W=512, n_train=8, n_val=2, n_test=2, seed=SEED)
+    ckpt = _save_avatar(cfg, ds, os.path.join(tmp, "synth512_lcode.ckpt"), SEED + 5)
+    server = AvatarServer(cfg, ckpt, dataset=ds, dtype=torch.bfloat16, device=dev, log=False)
+    tiles = -(-server.H * server.W // min(server.settings.chunksize, server.H * server.W))
+    maps = ["rgb_fine", "disp", "normals"]
+    requests = [{"cmd": "ping"}, {"frame": 0, "seed": 0, "maps": maps},
+                {"frame": 1, "seed": 1, "maps": maps}, {"frame": 0, "seed": 2, "maps": maps},
+                {"cmd": "stop"}]
+    n_renders = sum("cmd" not in r for r in requests)
+    out = io.StringIO()
+    F.fused_flex_forward.launches = F.fused_flex_backward.launches = 0
+    fused_paper_render.launches = 0
+    handled = server.serve_jsonl(io.StringIO("\n".join(map(json.dumps, requests)) + "\n"), out)
+    launches = F.fused_flex_forward.launches
+    check(F.fused_flex_backward.launches == 0 and fused_paper_render.launches == 0,
+          "serving the flex avatar launched K4b or K2")
+    replies = [json.loads(line) for line in out.getvalue().splitlines()]
+    check(handled == len(requests) and len(replies) == len(requests), f"replies: {replies}")
+    for req, rep in zip(requests, replies):
+        check(rep.get("ok") is True, f"request {req} failed: {rep}")
+    check(launches == 2 * tiles * n_renders,
+          f"K4f launches {launches} != 2 x {tiles} tiles x {n_renders} frames")
+    frame_ms = [r["frame_ms"] for r in replies if "frame_ms" in r]
+    phase("flex_serve", f"{n_renders} synth512_lcode renders at {ds.H}x{ds.W} via serve_jsonl, frame_ms "
+                        f"{frame_ms}, K4f launches {launches} = 2 x {tiles} tiles x {n_renders}")
+
+    img = server.render(frame=1, seed=1, maps=tuple(maps))
+    check(img["rgb_fine"].shape == (ds.H, ds.W, 3) and img["rgb_fine"].dtype == np.uint8,
+          f"rgb {img['rgb_fine'].shape} {img['rgb_fine'].dtype}")
+    cfg32 = CfgNode(SYNTH512_LCODE)
+    cfg32.nerf.validation["chunksize"] = 16384  # bounds the f32 activations
+    plain = AvatarServer(cfg32, ckpt, dataset=ds, dtype=None, device=dev, log=False)
+    before = F.fused_flex_forward.launches
+    ref = plain.render(frame=1, seed=1, maps=("rgb_fine",))["rgb_fine"]
+    check(F.fused_flex_forward.launches == before, "the f32 plain path launched K4f")
+    diff = np.abs(img["rgb_fine"].astype(np.int16) - ref.astype(np.int16))
+    mean_diff, p99 = float(diff.mean()), float(np.percentile(diff, 99))
+    bg = (np.clip(ds.load_background(), 0.0, 1.0) * 255.0).astype(np.int16)
+    off_bg = float(np.abs(img["rgb_fine"].astype(np.int16) - bg).mean())
+    spread = float(img["rgb_fine"].std())
+    check(off_bg >= 10.0 and spread >= 10.0,
+          f"frame {off_bg} levels off the background, std {spread}: the MLP shows little")
+    check(int(diff.max()) <= FLEX_FRAME_MAX and mean_diff <= FLEX_FRAME_MEAN,
+          f"bf16 K4f frame vs f32: mean {mean_diff}, max {int(diff.max())}")
+    phase("flex_serve", f"mean |frame - background| {off_bg:.2f} levels, frame std {spread:.2f}; "
+                        f"bf16 K4f frame vs f32 plain frame: mean |diff| {mean_diff:.4f} levels, "
+                        f"p99 {p99:.0f}, max {int(diff.max())} (limits {FLEX_FRAME_MEAN}, "
+                        f"{FLEX_FRAME_MAX})")
+    return {"launches": launches, "frame_ms": frame_ms, "tiles": tiles,
+            "mean_diff": mean_diff, "max_diff": int(diff.max())}
+
+
+def _steady_steps(state, cfg, ds, dev, n_warm=3, n=15):
+    """Median ms of `n` synchronised bf16 train steps after `n_warm`, from
+    `state`, with the step function for further steps."""
+    import torch
+
+    from nerface_tpu_torch.config import FeatureFlags
+    from nerface_tpu_torch.data.pipeline import RayFeed, batch_to_device
+    from nerface_tpu_torch.render.pipeline import RenderSettings
+    from nerface_tpu_torch.train.loop import setup_background
+    from nerface_tpu_torch.train.schedule import from_cfg
+    from nerface_tpu_torch.train.state import build_optimizer
+    from nerface_tpu_torch.train.step import train_step
+
+    flags = FeatureFlags.from_cfg(cfg)
+    settings = RenderSettings.from_cfg(cfg, mode="train")
+    opt = build_optimizer(cfg, state)
+    feed = RayFeed(ds, TRAIN_RAYS, background=setup_background(ds, flags), seed=SEED + 9,
+                   pin_memory=dev.type == "cuda").start()
+    sched = from_cfg(cfg)
+
+    def step(i):
+        batch = batch_to_device(next(feed), dev)
+        train_step(state, opt, batch, 1000 + i, settings, flags, sched, dtype=torch.bfloat16)
+
+    for i in range(n_warm):
+        step(i)
+    times = []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(n_warm + i)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times, step, feed
+
+
+def _profile_steps(name, step, what):
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    n = 5
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            step(100 + i)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    _print_profile(name, prof, n, wall, "a step", DeviceType, what)
+
+
+def flex_train_phase(dev, ds, tmp, profile, card):
+    """`train()` of synth512_lcode in bf16 on the card: every MLP pass is
+    K4f, every gradient K4b."""
+    import torch
+
+    from nerface_tpu_torch.config import CfgNode
+    from nerface_tpu_torch.ops.kernels import fused_flex as F
+    from nerface_tpu_torch.ops.kernels.fused_mlp import fused_paper_render
+    from nerface_tpu_torch.ops.kernels.fused_train import fused_train_pass
+    from nerface_tpu_torch.train.checkpoint import load_torch_checkpoint
+    from nerface_tpu_torch.train.loop import train
+
+    steps = FLEX_TRAIN_STEPS
+    d = copy.deepcopy(SYNTH512_LCODE)
+    d["experiment"].update(logdir=os.path.join(tmp, "flex"), train_iters=steps, print_every=10,
+                           validate_every=1000, save_every=1000)
+    cfg = CfgNode(d)
+    out = io.StringIO()
+    F.fused_flex_forward.launches = F.fused_flex_backward.launches = 0
+    fused_train_pass.launches = fused_paper_render.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        state = train(cfg, dataset=ds, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k4f, k4b = F.fused_flex_forward.launches, F.fused_flex_backward.launches
+    print(out.getvalue(), end="", flush=True)
+    tiles = -(-ds.H * ds.W // int(cfg.nerf.validation.chunksize))
+    check(k4f == 2 * steps + 2 * tiles * 2,
+          f"K4f launches {k4f} != 2 x {steps} steps + 2 x {tiles} tiles x 2 frames")
+    check(k4b == 2 * steps, f"K4b launches {k4b} != 2 x {steps} steps")
+    check(fused_train_pass.launches == 0 and fused_paper_render.launches == 0,
+          "the flex run launched K1 or K2")
+    printed = {int(i): float(v) for i, v in
+               re.findall(r"\[TRAIN\] Iter: (\d+) Loss: (\S+)", out.getvalue())}
+    want = sorted(set(range(0, steps, 10)) | {steps - 1})
+    check(sorted(printed) == want, f"printed steps {sorted(printed)} != {want}")
+    check(all(math.isfinite(v) for v in printed.values()), f"non-finite loss: {printed}")
+    first = statistics.mean(printed[i] for i in want if i < 20)
+    last = statistics.mean(printed[i] for i in want if i >= steps - 10)
+    check(last < first, f"flex loss did not fall: steps < 20 {first}, last 10 steps {last}")
+    path = os.path.join(tmp, "flex", "synth512_paper", f"checkpoint{steps:05d}.ckpt")
+    saved = load_torch_checkpoint(path)
+    groups = saved["optimizer"]["param_groups"]
+    check(saved["iter"] == steps and len(groups) == 2,
+          f"checkpoint iter {saved['iter']}, {len(groups)} param groups")
+    check(set(saved["fine"]) == set(state.model_fine.state_dict()), "checkpoint keys")
+    phase("flex_train", f"{steps} synth512_lcode steps at {ds.H}x{ds.W} (bf16, {dev.type}) in {wall:.1f} s "
+                        f"with one validation and 2 saves; K4f launches {k4f} = 2 x {steps} + 2 x "
+                        f"{tiles} tiles x 2 frames, K4b launches {k4b} = 2 x {steps}; printed loss, "
+                        f"mean of steps 0 and 10 {first:.5f} -> of the last 10 steps {last:.5f}; "
+                        f"{os.path.basename(path)} reloads, 2 param groups")
+    times, step, feed = _steady_steps(state, cfg, ds, dev)
+    step_ms = statistics.median(times)
+    phase("flex_train", f"steady step {step_ms:.2f} ms (median of 15, synchronised; min "
+                        f"{min(times):.2f}, max {max(times):.2f}), "
+                        f"{TRAIN_RAYS / step_ms * 1e3:,.0f} rays/s on {card}")
+    if profile:
+        _profile_steps("profile_flex_train", step, "flex train step")
+    feed.stop()
+    return {"k4f_launches": k4f, "k4b_launches": k4b, "step_ms": step_ms,
+            "rays_s": TRAIN_RAYS / step_ms * 1e3, "loss_printed": printed}
 
 
 def _print_profile(name, prof, n, wall, unit, DeviceType, what=""):
@@ -889,6 +1245,9 @@ def main() -> int:
         ds = _train_dataset()
         ts = train_step_phase(dev, ds)
         tr = train_phase(dev, ds, tmp, args.profile, card)
+        fk = flex_kernel_phase(dev)
+        fs = flex_serve_phase(dev, tmp)
+        ft = flex_train_phase(dev, ds, tmp, args.profile, card)
 
     errs = [v for errs in k["err"].values() for key, v in errs.items()
             if key in ("rgb", "acc", "bg_weight", "weights")]
@@ -935,6 +1294,47 @@ def main() -> int:
             "train_step_ms": tr["step_ms"],
             "train_rays_s": tr["rays_s"],
             "step_vs_f32": ts,
+            "card": card,
+        },
+        {
+            "name": "fused_flex_fwd",
+            "route": "cuda",
+            "source": "nerface_tpu_torch/csrc/fused_flex.cu",
+            "replaces": "nerface_tpu/ops/pallas/fused_flex.py:131",
+            # the flex paths: served frames + training (steps and validation)
+            "launches": fs["launches"] + ft["k4f_launches"],
+            "launches_by_path": {"flex_serve": fs["launches"], "flex_train": ft["k4f_launches"]},
+            "max_abs_err": fk["abs_err"],  # of raw rgb and σ, all cases
+            "max_rel_err": fk["err"],  # relative to max|plain| per case
+            # a train step's two passes at 2048 rays: coarse (S=64) + fine (S=128)
+            "ms": fk["ms"]["coarse"] + fk["ms"]["fine"],
+            "plain_ms": fk["plain_ms"]["coarse"] + fk["plain_ms"]["fine"],
+            "bound_ms": fk["bound"]["coarse"][0] + fk["bound"]["fine"][0],
+            "bound_by": "operations" if all(fk["bound"][p][1] == "operations"
+                                            for p in ("coarse", "fine")) else "bytes",
+            "library_ms": None,  # no single PyTorch call computes it
+            "ms_by_pass": fk["ms"],
+            "tile_ms_by_pass": fk["tile_ms"],  # 65536 rays
+            "frame_ms_512": fs["frame_ms"],
+            "card": card,
+        },
+        {
+            "name": "fused_flex_bwd",
+            "route": "cuda",
+            "source": "nerface_tpu_torch/csrc/fused_flex.cu",
+            "replaces": "nerface_tpu/ops/pallas/fused_flex.py:143",
+            "launches": ft["k4b_launches"],
+            "max_abs_err": fk["grad_abs_err"],  # over every gradient tensor
+            "worst_grad_rel": fk["grad_rel"],  # (max error, norm error) per pass
+            "ms": fk["bwd_ms"]["coarse"] + fk["bwd_ms"]["fine"],
+            "plain_ms": fk["bwd_plain_ms"]["coarse"] + fk["bwd_plain_ms"]["fine"],
+            "bound_ms": fk["bwd_bound"]["coarse"][0] + fk["bwd_bound"]["fine"][0],
+            "bound_by": "operations" if all(fk["bwd_bound"][p][1] == "operations"
+                                            for p in ("coarse", "fine")) else "bytes",
+            "library_ms": None,  # no single PyTorch call computes it
+            "ms_by_pass": fk["bwd_ms"],
+            "train_step_ms": ft["step_ms"],
+            "train_rays_s": ft["rays_s"],
             "card": card,
         },
     ]}

@@ -8,7 +8,8 @@
 // nerface_tpu_torch/ops/kernels/fused_train.py (wrapper, operand packing,
 // the autograd.Function and the plain PyTorch version
 // `fused_train_pass_reference`). The encode, dense-layer and head code is
-// shared with K2 (fused_paper_render.cu) in mma_tile.cuh.
+// shared with K2 (fused_paper_render.cu) in mma_tile.cuh, the dX epilogues
+// and dW with K4b (fused_flex.cu) in grad_tile.cuh.
 //
 // The TPU kernel keeps a tile's 10 bf16 activations in VMEM and adds its
 // weight gradients into one output block over the sequential grid. Neither
@@ -62,7 +63,7 @@
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a -O3, with neither
 // --use_fast_math nor -ftz=true (see fused_paper_render.cu).
 
-#include "mma_tile.cuh"
+#include "grad_tile.cuh"
 
 using namespace nerface;
 
@@ -87,15 +88,6 @@ constexpr int PART_WA = F_OFF_TOTAL;
 constexpr int PART_WRGB = PART_WA + HIDDEN;
 constexpr int PART_COLS = PART_WRGB + DIR_HIDDEN * 3;
 
-// dW: 64×64 output blocks, 64-row chunks, 4 warps, DW_SPLIT row segments.
-constexpr int DW_BM = 64;
-constexpr int DW_BN = 64;
-constexpr int DW_ROWS = 64;
-constexpr int DW_THREADS = 128;
-constexpr int DW_LD = 64 + 8;
-constexpr int DW_SPLIT_MAX = 16;
-constexpr int DW_MATS = 11;
-
 // The workspace: per buffer a (rows, width) row-major matrix, rows being
 // the pass's sample rows rounded up to whole tiles.
 struct Workspace {
@@ -115,8 +107,6 @@ struct Workspace {
   float* tile_part;  // (tiles, PART_COLS)
   float* dw_part;    // (DW_SPLIT, W_OFF_WA)
 };
-
-__host__ __device__ inline size_t align256(size_t x) { return (x + 255) & ~size_t(255); }
 
 // Lays the workspace out from `base` (or only measures it when base is
 // null); returns its size in bytes.
@@ -435,34 +425,6 @@ struct BwdSmem {
   float grgb[TILE_ROWS * 3];
 };
 
-// gy = acc ⊙ [act > 0], the mask from the bf16 activation in the workspace
-struct EpiMask {
-  const bf16* act;  // the tile's (128, ld) activation
-  int ld;
-  __device__ __forceinline__ float2 operator()(int row, int col, float v0, float v1) const {
-    const __nv_bfloat162 m = *reinterpret_cast<const __nv_bfloat162*>(act + (size_t)row * ld + col);
-    return make_float2(__low2float(m) > 0.f ? v0 : 0.f, __high2float(m) > 0.f ? v1 : 0.f);
-  }
-};
-
-// gfeat = bf16(g_sigma) ⊗ wa + gx0 @ Wd0ᵀ (feat has no relu)
-struct EpiAddSigma {
-  const float* gsig;  // shared memory, per row
-  const bf16* wa;     // (256,)
-  __device__ __forceinline__ float2 operator()(int row, int col, float v0, float v1) const {
-    const float g = round_bf16(gsig[row]);
-    return make_float2(g * __bfloat162float(wa[col]) + v0, g * __bfloat162float(wa[col + 1]) + v1);
-  }
-};
-
-// the tile's column sums (four 32-row blocks, added in order) into its
-// partial row
-template <int N>
-__device__ __forceinline__ void tile_colsum(float* dst, const float* colsum) {
-  for (int c = threadIdx.x; c < N; c += THREADS)
-    dst[c] = ((colsum[c] + colsum[N + c]) + colsum[2 * N + c]) + colsum[3 * N + c];
-}
-
 template <int S>
 __global__ void __launch_bounds__(THREADS, 1) train_bwd_kernel(const BwdArgs a) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -542,130 +504,6 @@ __global__ void __launch_bounds__(THREADS, 1) train_bwd_kernel(const BwdArgs a) 
   tile_colsum<HIDDEN>(part + F_OFF_COND0, sm.colsum);
 }
 
-// ---------------------------------------------------------------------------
-// Weight gradients: dW = Xᵀ · gY over every row of the pass
-
-struct DwMat {
-  const bf16* X;  // (rows, ldx) activations; columns [0, kdim)
-  const bf16* G;  // (rows, ndim) cotangents
-  int ldx, kdim, ndim, out_off, relu_x;
-};
-
-struct DwArgs {
-  DwMat m[DW_MATS];
-  int block_start[DW_MATS + 1];
-  float* part;  // (split, W_OFF_WA)
-  int rows_per_split;
-  int rows;
-};
-
-__global__ void __launch_bounds__(DW_THREADS) dw_kernel(const DwArgs a) {
-  __shared__ __align__(128) bf16 xs[2][DW_ROWS * DW_LD];
-  __shared__ __align__(128) bf16 gs[2][DW_ROWS * DW_LD];
-  int mi = 0;
-  while (blockIdx.x >= (unsigned)a.block_start[mi + 1]) ++mi;
-  const DwMat& M = a.m[mi];
-  const int blk = blockIdx.x - a.block_start[mi];
-  const int nb = M.ndim / DW_BN;
-  const int k0 = (blk / nb) * DW_BM, n0 = (blk % nb) * DW_BN;
-  const int r_begin = blockIdx.y * a.rows_per_split;
-  const int r_end = min(a.rows, r_begin + a.rows_per_split);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int mw = (warp >> 1) * 32, nw = (warp & 1) * 32;
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  auto stage = [&](int buf, int r0) {
-    // 64 rows × 8 segments of 16 bytes, for X and for G
-    for (int i = threadIdx.x; i < DW_ROWS * 8; i += DW_THREADS) {
-      const int r = i >> 3, c = (i & 7) * 8;
-      cp_async16(&xs[buf][r * DW_LD + c], M.X + (size_t)(r0 + r) * M.ldx + k0 + c);
-      cp_async16(&gs[buf][r * DW_LD + c], M.G + (size_t)(r0 + r) * M.ndim + n0 + c);
-    }
-    cp_async_commit();
-  };
-
-  const int nch = (r_end - r_begin) / DW_ROWS;
-  if (nch > 0) stage(0, r_begin);
-  // A (m = k of W, k = row) comes from xs stored [row][m]: ldmatrix.trans,
-  // lanes 8j..8j+7 give rows kk + (lane&7) + 8·(j/2) at m + 8·(j%2).
-  // B (row × n) from gs stored [row][n]: as mma_layer's B.
-  const int j8 = lane >> 3;
-  const int a_row = (lane & 7) + ((j8 >> 1) << 3), a_col = (j8 & 1) << 3;
-  const int b_row = lane & 15, b_col = (lane >> 4) << 3;
-  for (int ch = 0; ch < nch; ++ch) {
-    if (ch + 1 < nch) {
-      stage((ch + 1) & 1, r_begin + (ch + 1) * DW_ROWS);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* X = xs[ch & 1];
-    const bf16* G = gs[ch & 1];
-#pragma unroll
-    for (int kk = 0; kk < DW_ROWS; kk += 16) {
-      unsigned af[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        ldsm_x4<true>(af[i], X + (kk + a_row) * DW_LD + mw + 16 * i + a_col);
-        if (M.relu_x) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            __nv_bfloat162 t = *reinterpret_cast<__nv_bfloat162*>(&af[i][e]);
-            t = __hmax2(t, __float2bfloat162_rn(0.f));
-            af[i][e] = *reinterpret_cast<unsigned*>(&t);
-          }
-        }
-      }
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        unsigned bfr[4];
-        ldsm_x4<true>(bfr, G + (kk + b_row) * DW_LD + nw + 16 * jj + b_col);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          mma_bf16(acc[i][2 * jj], af[i], bfr[0], bfr[1]);
-          mma_bf16(acc[i][2 * jj + 1], af[i], bfr[2], bfr[3]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  float* out = a.part + (size_t)blockIdx.y * W_OFF_WA + M.out_off;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = k0 + mw + 16 * i + (lane >> 2) + 8 * h;
-        const int n = n0 + nw + 8 * j + 2 * (lane & 3);
-        *reinterpret_cast<float2*>(out + (size_t)m * M.ndim + n) =
-            make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-      }
-}
-
-// out[c] = Σ_{p in order} part[p][c] for c < C; columns below C1 go to
-// out1[c], the others to out2[c − C1].
-__global__ void reduce_rows(const float* __restrict__ part, int P, int C, int C1, float* out1,
-                            float* out2) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  float sum = 0.f;
-  for (int p = 0; p < P; ++p) sum += part[(size_t)p * C + c];
-  if (c < C1)
-    out1[c] = sum;
-  else
-    out2[c - C1] = sum;
-}
-
 template <int S>
 int launch_tiles(const FwdArgs& fa, const BwdArgs& ba, int tiles, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(train_fwd_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -688,7 +526,7 @@ int launch_tiles(const FwdArgs& fa, const BwdArgs& ba, int tiles, cudaStream_t s
 extern "C" void nerface_fused_train_shared_bytes(long long* out) {
   out[0] = (long long)sizeof(FwdSmem);
   out[1] = (long long)sizeof(BwdSmem);
-  out[2] = (long long)(2 * 2 * DW_ROWS * DW_LD * sizeof(bf16));
+  out[2] = (long long)DW_SMEM_BYTES;
 }
 
 // Bytes of device workspace one call needs.
@@ -739,12 +577,8 @@ extern "C" int nerface_fused_train_pass(
   }
   if (err != 0) return err;
 
-  // dW over DW_SPLIT row segments of whole 64-row chunks
-  const int chunks = rows / DW_ROWS;
-  const int split = chunks < DW_SPLIT_MAX ? chunks : DW_SPLIT_MAX;
-  const int per = (chunks + split - 1) / split;
-  DwArgs da;
-  const DwMat mats[DW_MATS] = {
+  // dW over row segments of whole 64-row chunks
+  const DwMat mats[] = {
       {ws.xin, ws.gh[0], K_XIN, K_XIN, HIDDEN, W_OFF_W0, 0},
       {ws.h[0], ws.gh[1], HIDDEN, HIDDEN, HIDDEN, W_OFF_W1, 0},
       {ws.h[1], ws.gh[2], HIDDEN, HIDDEN, HIDDEN, W_OFF_W2, 0},
@@ -757,22 +591,8 @@ extern "C" int nerface_fused_train_pass(
       {ws.hd, ws.gx1, DIR_HIDDEN, DIR_HIDDEN, DIR_HIDDEN, W_OFF_WD1, 1},
       {ws.x1, ws.gx2, DIR_HIDDEN, DIR_HIDDEN, DIR_HIDDEN, W_OFF_WD2, 0},
   };
-  da.block_start[0] = 0;
-  for (int i = 0; i < DW_MATS; ++i) {
-    da.m[i] = mats[i];
-    da.block_start[i + 1] = da.block_start[i] + (mats[i].kdim / DW_BM) * (mats[i].ndim / DW_BN);
-  }
-  da.part = ws.dw_part;
-  da.rows_per_split = per * DW_ROWS;
-  da.rows = rows;
-  dw_kernel<<<dim3(da.block_start[DW_MATS], split), DW_THREADS, 0, st>>>(da);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  // segments past the last row (split·per > chunks) computed zero blocks
-  reduce_rows<<<(W_OFF_WA + 255) / 256, 256, 0, st>>>(ws.dw_part, split, W_OFF_WA, W_OFF_WA, dW,
-                                                      nullptr);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  err = launch_dw(mats, (int)(sizeof(mats) / sizeof(mats[0])), ws.dw_part, W_OFF_WA, rows, dW, st);
+  if (err != 0) return err;
   reduce_rows<<<(PART_COLS + 255) / 256, 256, 0, st>>>(ws.tile_part, (int)tiles, PART_COLS,
                                                        F_OFF_TOTAL, dF, dW + W_OFF_WA);
   return (int)cudaGetLastError();

@@ -1,8 +1,10 @@
 """Build and load the port's CUDA kernels.
 
 The kernels are CUDA C++ files in `nerface_tpu_torch/csrc/` with a plain C
-interface. `build_library` compiles one with nvcc into a shared library
-under `build/nerface_tpu_torch/` at the root of the checkout, on first use;
+interface, one library per `.cu` file (`fused_paper_render`, K2;
+`fused_train_pass`, K1; `fused_flex`, K4), sharing the `.cuh` headers.
+`build_library` compiles one with nvcc into a shared library under
+`build/nerface_tpu_torch/` at the root of the checkout, on first use;
 `load_library(name)` loads it with ctypes and declares its C functions'
 argument types (`SIGNATURES`). The library's file name carries a hash of
 the source, the headers beside it and the flags, so an edited source is
@@ -80,6 +82,12 @@ SIGNATURES = {
         "nerface_fused_train_pass": ([_P] * 17 + [_I] * 4 + [_F] * 3 + [_P], ctypes.c_int),
         "nerface_fused_train_workspace_bytes": ([_I, _I], ctypes.c_longlong),
         "nerface_fused_train_shared_bytes": ([_P], None),
+    },
+    "fused_flex": {
+        "nerface_fused_flex_fwd": ([_P] * 7 + [_I] * 4 + [_P], ctypes.c_int),
+        "nerface_fused_flex_bwd": ([_P] * 12 + [_I] * 4 + [_P], ctypes.c_int),
+        "nerface_fused_flex_workspace_bytes": ([_I, _I, _I], ctypes.c_longlong),
+        "nerface_fused_flex_shared_bytes": ([_P], None),
     },
 }
 

@@ -1,0 +1,502 @@
+"""Fused MLP of the Flexible model family: forward and backward.
+
+Port of K4, `nerface_tpu/ops/pallas/fused_flex.py::fused_flex_mlp` (TPU
+kernels `_fwd_kernel`, pallas_call at fused_flex.py:247, and `_bwd_kernel`,
+pallas_call at fused_flex.py:287). One call evaluates the skip-free
+Flexible trunk over (R, S) samples — points ro + rd·z and their positional
+encoding, `layer1` with NO activation (+ `v0`, the layer's bias with the
+per-frame conditioning folded in), (num_layers − 1) relu'd hidden layers,
+σ off the trunk, relu(fc_feat), `layers_dir.0` + the per-ray direction
+contribution, relu, `fc_rgb` — and returns the raw radiance [rgb, σ]
+(R, S, 4); compositing stays with the caller.
+
+* `pack_flex_weights` is plain differentiable torch: the model's params
+  -> the kernel's weights, bf16 (in, out) matrices (`layer1` split into
+  its xyz rows `w1a` and encoding rows `w1b`) and f32 bias rows, in the
+  JAX package's order (`fused_flex.py:344-356`).
+* `fused_flex_forward` / `fused_flex_backward` are the wrappers: on CUDA
+  tensors they launch the hand-written kernels of `csrc/fused_flex.cu`
+  (K4f; K4b with its recompute, dX chain and deterministic dW) or raise;
+  on CPU tensors they run `fused_flex_forward_reference` /
+  `fused_flex_backward_reference`. Each counts its calls that launch in
+  `.launches`.
+* The plain versions round to bf16 where the TPU kernel does: every left
+  matmul operand (the raw points included) and the weights; the saved
+  activations, their relu masks, both operands of dW and the cotangent of
+  dX; bias sums and d_v0 / d_dir take the f32 cotangents. With
+  `mm_dtype=torch.float32` they are the f32 math.
+* `FusedFlexMLP` is the `torch.autograd.Function` (the JAX custom VJP):
+  its forward is K4f, its backward K4b; the matrix gradients leave it in
+  the weights' bf16, as the JAX VJP returns them (`fused_flex.py:297-299`),
+  the bias gradients, d_v0 and d_dir in f32. `fused_flex_mlp` is the
+  JAX package's entry point.
+* `flex_fused_eligible` is the port's copy of the JAX eligibility check
+  (`fused_flex.py:364-385`) plus what the kernel is built for: hidden
+  width 256 only (JAX also admits 512, which here runs the model's plain
+  forward), at most `MAX_HIDDEN` hidden layers, and on the card
+  `FLEX_KERNEL_SAMPLES` samples per ray.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Sequence, Tuple
+
+import torch
+
+from nerface_tpu_torch.ops.encoding import _frequency_bands
+from nerface_tpu_torch.ops.kernels.fused_mlp import (
+    DIR_HIDDEN,
+    HIDDEN,
+    K_XIN,
+    MAX_FREQS,
+    _check,
+    _encode_points,
+)
+
+# S values the kernel is compiled for (whole rays per 128-row tile)
+FLEX_KERNEL_SAMPLES = (32, 64, 128)
+# hidden layers after layer1 the kernel takes (num_layers − 1)
+MAX_HIDDEN = 8
+
+
+def weight_names(n_hidden: int) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
+    """(matrix names, bias names) in the kernel's order (`_weight_names`)."""
+    wn = ("w1a", "w1b") + tuple(f"wh{i}" for i in range(n_hidden)) + ("wf", "wa", "wd0", "wrgb")
+    bn = tuple(f"bh{i}" for i in range(n_hidden)) + ("bf", "ba", "bd0", "brgb")
+    return wn, bn
+
+
+def pack_flex_weights(params: Dict[str, torch.Tensor], n_hidden: int, num_encoding_fn_xyz: int):
+    """State-dict-named params ({name: tensor}, e.g.
+    `dict(model.named_parameters())`) -> the kernel's weights: the bf16
+    (in, out) matrices of `weight_names` (w1a (3, h), w1b (6L, h), wh_i,
+    wf, wa (h, 1), wd0 (the first h columns of layers_dir.0), wrgb), then
+    the f32 (1, out) bias rows. Differentiable."""
+    d_pe = 3 + 6 * num_encoding_fn_xyz
+
+    def w(name):
+        return params[name + ".weight"]
+
+    def b(name):
+        return params[name + ".bias"][None, :]
+
+    h = w("layer1").shape[0]
+    mats = [w("layer1")[:, :3].T, w("layer1")[:, 3:d_pe].T]
+    mats += [w(f"layers_xyz.{i}").T for i in range(n_hidden)]
+    mats += [w("fc_feat").T, w("fc_alpha").T, w("layers_dir.0")[:, :h].T, w("fc_rgb").T]
+    biases = [b(f"layers_xyz.{i}") for i in range(n_hidden)]
+    biases += [b("fc_feat"), b("fc_alpha"), b("layers_dir.0"), b("fc_rgb")]
+    return tuple(m.to(torch.bfloat16) for m in mats) + tuple(biases)
+
+
+def _unpack(weights: Sequence[torch.Tensor], n_hidden: int):
+    wn, bn = weight_names(n_hidden)
+    if len(weights) != len(wn) + len(bn):
+        raise ValueError(f"{len(weights)} weights, expected {len(wn) + len(bn)} for "
+                         f"{n_hidden} hidden layers")
+    return dict(zip(wn + bn, weights))
+
+
+def flex_fused_eligible(model, encode_xyz, pe_dir, n_samples: int, device) -> bool:
+    """Whether `model` can run its radiance field as one `fused_flex_mlp`
+    call: a Flexible-family model with view directions, the xyz input and
+    its declared encoding, no skip layer engaged (every reference config),
+    hidden width 256, at most MAX_HIDDEN hidden layers, ≤ MAX_FREQS bands,
+    and on the card a sample count the kernel is built for."""
+    from nerface_tpu_torch.models.nerf_models import _FlexibleFamily
+
+    if not isinstance(model, _FlexibleFamily):
+        return False
+    if not model.use_viewdirs or pe_dir is None:
+        return False
+    if not encode_xyz.include_input or encode_xyz.num_encoding_functions > MAX_FREQS:
+        return False
+    if model.dim_xyz != 3 + 6 * encode_xyz.num_encoding_functions:
+        return False
+    if model.dim_dir < pe_dir.shape[-1]:
+        return False
+    n_hidden = model.num_layers - 1
+    if model.hidden_size != HIDDEN or not 0 <= n_hidden <= MAX_HIDDEN:
+        return False
+    if any(model._is_skip_forward(i, n_hidden) for i in range(n_hidden)):
+        return False
+    return torch.device(device).type != "cuda" or n_samples in FLEX_KERNEL_SAMPLES
+
+
+# -- plain versions -----------------------------------------------------------
+
+
+def _rounding(mm_dtype):
+    if mm_dtype == torch.float32:
+        return lambda x: x
+    return lambda x: x.to(mm_dtype).float()
+
+
+def _forward_reference(W, ro, rd, z, dir_c, v0, n_hidden, num_encoding_fn_xyz,
+                       log_sampling_xyz, mm_dtype):
+    """`fused_flex.py::_forward`: (rgb (R·S, 3), σ (R·S, 1), x3, enc,
+    saved activations rounded as the TPU kernel saves them)."""
+    r = _rounding(mm_dtype)
+    Wr = {k: r(v.float()) for k, v in W.items() if k.startswith("w")}
+    n_rays, n_samples = z.shape
+    x3 = (ro[:, None, :] + rd[:, None, :] * z[:, :, None]).reshape(-1, 3)
+    enc = _encode_points(x3, num_encoding_fn_xyz, log_sampling_xyz)
+
+    def dot(a, name):
+        return r(a) @ Wr[name]
+
+    a = dot(x3, "w1a") + dot(enc, "w1b") + v0  # layer1: NO relu
+    acts = [a]
+    for i in range(n_hidden):
+        a = torch.relu(dot(a, f"wh{i}") + W[f"bh{i}"])
+        acts.append(a)
+    feat = torch.relu(dot(a, "wf") + W["bf"])
+    alpha = dot(a, "wa") + W["ba"]  # σ off the trunk
+    hd = ((dot(feat, "wd0") + W["bd0"]).reshape(n_rays, n_samples, -1)
+          + dir_c[:, None, :]).reshape(n_rays * n_samples, -1)
+    x0 = torch.relu(hd)
+    rgb = dot(x0, "wrgb") + W["brgb"]
+    saved = dict(acts=[r(t) for t in acts], feat=r(feat), x0=r(x0))
+    return rgb, alpha, x3, enc, saved
+
+
+def fused_flex_forward_reference(
+    weights, ray_origins, ray_directions, z_vals, dir_contrib, v0, n_hidden: int,
+    num_encoding_fn_xyz: int = 10, log_sampling_xyz: bool = True, mm_dtype=torch.bfloat16,
+) -> torch.Tensor:
+    """Plain PyTorch version of `fused_flex_forward`: (R, S, 4) [rgb, σ]."""
+    W = _unpack([t.detach() for t in weights], n_hidden)
+    n_rays, n_samples = z_vals.shape
+    rgb, alpha, *_ = _forward_reference(
+        W, ray_origins, ray_directions, z_vals, dir_contrib, v0, n_hidden,
+        num_encoding_fn_xyz, log_sampling_xyz, mm_dtype,
+    )
+    return torch.cat([rgb, alpha], -1).reshape(n_rays, n_samples, 4)
+
+
+def fused_flex_backward_reference(
+    weights, ray_origins, ray_directions, z_vals, dir_contrib, v0, g, n_hidden: int,
+    num_encoding_fn_xyz: int = 10, log_sampling_xyz: bool = True, mm_dtype=torch.bfloat16,
+):
+    """Plain PyTorch version of `fused_flex_backward`, `_bwd_kernel`
+    written out (`fused_flex.py:143-208`): recompute, then the dX chain and
+    dW. Returns (d_weights in the weights' order and dtypes, d_v0 (1, h),
+    d_dir (R, h/2))."""
+    W = _unpack([t.detach() for t in weights], n_hidden)
+    n_rays, n_samples = z_vals.shape
+    r = _rounding(mm_dtype)
+    _, _, x3, enc, s = _forward_reference(
+        W, ray_origins, ray_directions, z_vals, dir_contrib, v0, n_hidden,
+        num_encoding_fn_xyz, log_sampling_xyz, mm_dtype,
+    )
+    Wr = {k: r(v.float()) for k, v in W.items() if k.startswith("w")}
+    acts, feat, x0 = s["acts"], s["feat"], s["x0"]
+    g = g.reshape(-1, 4)
+    g_rgb, g_alpha = g[:, :3], g[:, 3:4]
+
+    def dot_t(x, gy):  # dW = xᵀ gy
+        return r(x).T @ r(gy)
+
+    def dot_bt(gy, name):  # dx = gy Wᵀ
+        return r(gy) @ Wr[name].T
+
+    def m(x):
+        return (x > 0).float()
+
+    gw, gb = {}, {}
+    gx0 = dot_bt(g_rgb, "wrgb") * m(x0)
+    gw["wrgb"] = dot_t(x0, g_rgb)
+    gb["brgb"] = g_rgb.sum(0, keepdim=True)
+    g_pre_feat = dot_bt(gx0, "wd0")
+    gw["wd0"] = dot_t(feat, gx0)
+    gb["bd0"] = gx0.sum(0, keepdim=True)
+    d_dir = gx0.reshape(n_rays, n_samples, -1).sum(1)
+    g_pre_feat = g_pre_feat * m(feat)
+    ga = dot_bt(g_pre_feat, "wf") + dot_bt(g_alpha, "wa")
+    gw["wf"] = dot_t(acts[n_hidden], g_pre_feat)
+    gb["bf"] = g_pre_feat.sum(0, keepdim=True)
+    gw["wa"] = dot_t(acts[n_hidden], g_alpha)
+    gb["ba"] = g_alpha.sum(0, keepdim=True)
+    for i in range(n_hidden - 1, -1, -1):
+        g_pre = ga * m(acts[i + 1])
+        gw[f"wh{i}"] = dot_t(acts[i], g_pre)
+        gb[f"bh{i}"] = g_pre.sum(0, keepdim=True)
+        ga = dot_bt(g_pre, f"wh{i}")
+    # layer1 has no activation: ga is its pre-activation cotangent
+    gw["w1a"] = dot_t(x3, ga)
+    gw["w1b"] = dot_t(enc, ga)
+    d_v0 = ga.sum(0, keepdim=True)
+    wn, bn = weight_names(n_hidden)
+    grads = tuple(gw[n].to(W[n].dtype) for n in wn) + tuple(gb[n] for n in bn)
+    return grads, d_v0, d_dir
+
+
+# -- the kernel's operand layout ----------------------------------------------
+# Each must equal the offsets computed in csrc/fused_flex.cu (flex_layout);
+# tests/test_torch_flex_kernel.py checks it against the source.
+
+
+def w_offsets(n_hidden: int) -> Dict[str, int]:
+    """bf16 weights, each (in, out) row-major: W1 = [w1a; w1b; 0] (K_XIN,
+    h), WF, WD0, WH0..WH{n-1}, then WA and WRGB (the σ and rgb heads, whose
+    gradients are per-tile partial sums)."""
+    offs = {"W1": 0, "WF": K_XIN * HIDDEN}
+    offs["WD0"] = offs["WF"] + HIDDEN * HIDDEN
+    wh = offs["WD0"] + HIDDEN * DIR_HIDDEN
+    for i in range(n_hidden):
+        offs[f"WH{i}"] = wh + i * HIDDEN * HIDDEN
+    offs["WA"] = wh + n_hidden * HIDDEN * HIDDEN
+    offs["WRGB"] = offs["WA"] + HIDDEN
+    offs["TOTAL"] = offs["WRGB"] + DIR_HIDDEN * 3
+    return offs
+
+
+def f_offsets(n_hidden: int) -> Dict[str, int]:
+    """f32 rows: V0 (layer1's folded bias), BF, BD0, BA, BRGB, the encoding's
+    frequency bands, BH0..BH{n-1}."""
+    offs = {"V0": 0, "BF": HIDDEN, "BD0": 2 * HIDDEN, "BA": 2 * HIDDEN + DIR_HIDDEN}
+    offs["BRGB"] = offs["BA"] + 1
+    offs["FREQS"] = offs["BRGB"] + 3
+    for i in range(n_hidden):
+        offs[f"BH{i}"] = offs["FREQS"] + 16 + i * HIDDEN
+    offs["TOTAL"] = offs["FREQS"] + 16 + n_hidden * HIDDEN
+    return offs
+
+
+def wt_offsets(n_hidden: int) -> Dict[str, int]:
+    """The dX products' transposed weights, (out, in) row-major: WD0T, WFT,
+    WHT0..WHT{n-1}."""
+    offs = {"WD0T": 0, "WFT": DIR_HIDDEN * HIDDEN}
+    for i in range(n_hidden):
+        offs[f"WHT{i}"] = offs["WFT"] + (1 + i) * HIDDEN * HIDDEN
+    offs["TOTAL"] = offs["WFT"] + (1 + n_hidden) * HIDDEN * HIDDEN
+    return offs
+
+
+def pack_kernel_operands(W, v0: torch.Tensor, n_hidden: int, freqs: torch.Tensor):
+    """(bf16 weights, f32 rows) flat buffers in the `w_offsets` /
+    `f_offsets` order."""
+    n_enc = W["w1b"].shape[0]
+    pad = W["w1a"].new_zeros(K_XIN - 3 - n_enc, HIDDEN)
+    mats = [torch.cat([W["w1a"], W["w1b"], pad]), W["wf"], W["wd0"]]
+    mats += [W[f"wh{i}"] for i in range(n_hidden)] + [W["wa"], W["wrgb"]]
+    wbuf = torch.cat([m.reshape(-1).to(torch.bfloat16) for m in mats])
+    rows = [v0, W["bf"], W["bd0"], W["ba"], W["brgb"],
+            torch.cat([freqs, freqs.new_zeros(16 - freqs.numel())])]
+    rows += [W[f"bh{i}"] for i in range(n_hidden)]
+    fbuf = torch.cat([t.reshape(-1).float() for t in rows])
+    return wbuf.contiguous(), fbuf.contiguous()
+
+
+def pack_transposed_weights(W, n_hidden: int) -> torch.Tensor:
+    """The dX products' bf16 operand buffer in `wt_offsets` order."""
+    mats = [W["wd0"].T, W["wf"].T] + [W[f"wh{i}"].T for i in range(n_hidden)]
+    return torch.cat([m.reshape(-1).to(torch.bfloat16) for m in mats]).contiguous()
+
+
+def _split_kernel_grads(dwbuf, dfbuf, n_hidden: int, n_enc: int):
+    """The kernel's packed f32 gradients -> ({matrix name: grad},
+    {bias name: (1, out) grad}, d_v0 (1, h)); W1's zero-padded rows are
+    dropped."""
+    wo, fo = w_offsets(n_hidden), f_offsets(n_hidden)
+
+    def mat(name, rows, cols):
+        return dwbuf[wo[name]:wo[name] + rows * cols].reshape(rows, cols)
+
+    def row(name, n):
+        return dfbuf[fo[name]:fo[name] + n][None, :]
+
+    w1 = mat("W1", K_XIN, HIDDEN)
+    gw = {"w1a": w1[:3], "w1b": w1[3:3 + n_enc], "wf": mat("WF", HIDDEN, HIDDEN),
+          "wa": mat("WA", HIDDEN, 1), "wd0": mat("WD0", HIDDEN, DIR_HIDDEN),
+          "wrgb": mat("WRGB", DIR_HIDDEN, 3)}
+    gb = {"bf": row("BF", HIDDEN), "ba": row("BA", 1), "bd0": row("BD0", DIR_HIDDEN),
+          "brgb": row("BRGB", 3)}
+    for i in range(n_hidden):
+        gw[f"wh{i}"] = mat(f"WH{i}", HIDDEN, HIDDEN)
+        gb[f"bh{i}"] = row(f"BH{i}", HIDDEN)
+    return gw, gb, row("V0", HIDDEN)
+
+
+# -- the wrappers -------------------------------------------------------------
+
+
+def _kernel_call(weights, ro, rd, z, dir_c, v0, n_hidden, num_encoding_fn_xyz, g=None):
+    """Check the operands of a kernel launch; returns the weights by name."""
+    dev = ro.device
+    n_rays, n_samples = z.shape
+    if n_samples not in FLEX_KERNEL_SAMPLES:
+        raise ValueError(
+            f"kernel is built for {FLEX_KERNEL_SAMPLES} samples per ray, got {n_samples}"
+        )
+    if not 1 <= num_encoding_fn_xyz <= MAX_FREQS:
+        raise ValueError(f"kernel takes 1..{MAX_FREQS} xyz encoding bands")
+    if not 0 <= n_hidden <= MAX_HIDDEN:
+        raise ValueError(f"kernel takes 0..{MAX_HIDDEN} hidden layers, got {n_hidden}")
+    _check("ray_origins", ro, (n_rays, 3), dev)
+    _check("ray_directions", rd, (n_rays, 3), dev)
+    _check("z_vals", z, (n_rays, n_samples), dev)
+    _check("dir_contrib", dir_c, (n_rays, DIR_HIDDEN), dev)
+    _check("v0", v0, (1, HIDDEN), dev)
+    if g is not None:
+        _check("g", g, (n_rays, n_samples, 4), dev)
+    W = _unpack([t.detach() for t in weights], n_hidden)
+    n_enc = 6 * num_encoding_fn_xyz
+    shapes = {"w1a": (3, HIDDEN), "w1b": (n_enc, HIDDEN), "wa": (HIDDEN, 1),
+              "wd0": (HIDDEN, DIR_HIDDEN), "wrgb": (DIR_HIDDEN, 3)}
+    for name, t in W.items():
+        if name.startswith("w"):
+            want = shapes.get(name, (HIDDEN, HIDDEN))
+            if t.dtype != torch.bfloat16 or tuple(t.shape) != want or t.device != dev:
+                raise ValueError(f"{name} must be bfloat16 {want} on {dev}, got {t.dtype} "
+                                 f"{tuple(t.shape)} on {t.device}")
+        elif t.dtype != torch.float32 or t.dim() != 2 or t.shape[0] != 1 or t.device != dev:
+            raise ValueError(f"{name} must be a float32 (1, n) row on {dev}")
+    return W
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+
+
+def fused_flex_forward(
+    weights, ray_origins, ray_directions, z_vals, dir_contrib, v0, n_hidden: int,
+    num_encoding_fn_xyz: int = 10, log_sampling_xyz: bool = True,
+) -> torch.Tensor:
+    """K4f: the raw radiance (R, S, 4) f32 of the skip-free Flexible trunk.
+    `weights` is `pack_flex_weights(...)`; ro/rd (R, 3), z (R, S),
+    dir_contrib (R, 128) = pe_dir @ W_dir0[:, 256:].T, v0 (1, 256), all
+    f32 and contiguous."""
+    dev = ray_origins.device
+    if dev.type == "cpu":
+        return fused_flex_forward_reference(
+            weights, ray_origins, ray_directions, z_vals, dir_contrib, v0, n_hidden,
+            num_encoding_fn_xyz, log_sampling_xyz,
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"fused_flex_forward runs on cuda or cpu, not {dev}")
+    W = _kernel_call(weights, ray_origins, ray_directions, z_vals, dir_contrib, v0, n_hidden,
+                     num_encoding_fn_xyz)
+    n_rays, n_samples = z_vals.shape
+    freqs = torch.as_tensor(_frequency_bands(num_encoding_fn_xyz, log_sampling_xyz), device=dev)
+    wbuf, fbuf = pack_kernel_operands(W, v0, n_hidden, freqs)
+    out = torch.empty(n_rays, n_samples, 4, dtype=torch.float32, device=dev)
+
+    from nerface_tpu_torch.ops.kernels.build import load_library
+
+    lib = load_library("fused_flex")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.nerface_fused_flex_fwd(
+            _ptr(ray_origins), _ptr(ray_directions), _ptr(z_vals), _ptr(dir_contrib),
+            _ptr(wbuf), _ptr(fbuf), _ptr(out), n_rays, n_samples, num_encoding_fn_xyz,
+            n_hidden, ctypes.c_void_p(stream),
+        )
+    if err != 0:
+        raise RuntimeError(f"fused_flex_forward kernel launch failed: cudaError {err}")
+    fused_flex_forward.launches += 1
+    # wbuf and fbuf may be freed on return: the caching allocator hands
+    # their memory only to later work on this stream
+    return out
+
+
+fused_flex_forward.launches = 0
+
+
+def fused_flex_backward(
+    weights, ray_origins, ray_directions, z_vals, dir_contrib, v0, g, n_hidden: int,
+    num_encoding_fn_xyz: int = 10, log_sampling_xyz: bool = True,
+):
+    """K4b: the gradients of Σ g·out for the cotangent g (R, S, 4) of
+    `fused_flex_forward`'s output. Returns (d_weights in the weights'
+    order and dtypes, d_v0 (1, 256), d_dir (R, 128)), f32 but for the
+    matrices' bf16."""
+    dev = ray_origins.device
+    if dev.type == "cpu":
+        return fused_flex_backward_reference(
+            weights, ray_origins, ray_directions, z_vals, dir_contrib, v0, g, n_hidden,
+            num_encoding_fn_xyz, log_sampling_xyz,
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"fused_flex_backward runs on cuda or cpu, not {dev}")
+    W = _kernel_call(weights, ray_origins, ray_directions, z_vals, dir_contrib, v0, n_hidden,
+                     num_encoding_fn_xyz, g=g)
+    n_rays, n_samples = z_vals.shape
+    freqs = torch.as_tensor(_frequency_bands(num_encoding_fn_xyz, log_sampling_xyz), device=dev)
+    wbuf, fbuf = pack_kernel_operands(W, v0, n_hidden, freqs)
+    wtbuf = pack_transposed_weights(W, n_hidden)
+
+    from nerface_tpu_torch.ops.kernels.build import load_library
+
+    lib = load_library("fused_flex")
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    dwbuf, dfbuf = empty(w_offsets(n_hidden)["TOTAL"]), empty(f_offsets(n_hidden)["TOTAL"])
+    d_dir = empty(n_rays, DIR_HIDDEN)
+    ws = torch.empty(lib.nerface_fused_flex_workspace_bytes(n_rays, n_samples, n_hidden),
+                     dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.nerface_fused_flex_bwd(
+            _ptr(ray_origins), _ptr(ray_directions), _ptr(z_vals), _ptr(dir_contrib),
+            _ptr(wbuf), _ptr(wtbuf), _ptr(fbuf), _ptr(g), _ptr(dwbuf), _ptr(dfbuf), _ptr(d_dir),
+            _ptr(ws), n_rays, n_samples, num_encoding_fn_xyz, n_hidden, ctypes.c_void_p(stream),
+        )
+    if err != 0:
+        raise RuntimeError(f"fused_flex_backward kernel launch failed: cudaError {err}")
+    fused_flex_backward.launches += 1
+    gw, gb, d_v0 = _split_kernel_grads(dwbuf, dfbuf, n_hidden, 6 * num_encoding_fn_xyz)
+    wn, bn = weight_names(n_hidden)
+    grads = tuple(gw[n].to(torch.bfloat16) for n in wn) + tuple(gb[n] for n in bn)
+    # the operand buffers and the workspace may be freed on return
+    return grads, d_v0, d_dir
+
+
+fused_flex_backward.launches = 0
+
+
+class FusedFlexMLP(torch.autograd.Function):
+    """`FusedFlexMLP.apply(opts, ro, rd, z, dir_contrib, v0, *weights)` with
+    opts = (n_hidden, num_encoding_fn_xyz, log_sampling_xyz): the raw
+    radiance (R, S, 4), differentiable in dir_contrib, v0 and the weights."""
+
+    @staticmethod
+    def forward(ctx, opts, ro, rd, z, dir_c, v0, *weights):
+        n_hidden, n_freqs, log_sampling = opts
+        ctx.opts = opts
+        ctx.save_for_backward(ro, rd, z, dir_c, v0, *weights)
+        return fused_flex_forward(weights, ro, rd, z, dir_c, v0, n_hidden, n_freqs, log_sampling)
+
+    @staticmethod
+    def backward(ctx, g):
+        n_hidden, n_freqs, log_sampling = ctx.opts
+        ro, rd, z, dir_c, v0, *weights = ctx.saved_tensors
+        grads, d_v0, d_dir = fused_flex_backward(
+            weights, ro, rd, z, dir_c, v0, g.contiguous(), n_hidden, n_freqs, log_sampling
+        )
+        return (None, None, None, None, d_dir, d_v0) + tuple(grads)
+
+
+def fused_flex_mlp(
+    params: Dict[str, torch.Tensor],
+    ray_origins: torch.Tensor,
+    ray_directions: torch.Tensor,
+    z_vals: torch.Tensor,
+    dir_contrib: torch.Tensor,
+    v0: torch.Tensor,
+    n_hidden: int,
+    num_encoding_fn_xyz: int,
+    log_sampling_xyz: bool = True,
+) -> torch.Tensor:
+    """Fused forward of a skip-free Flexible-family trunk (the JAX
+    package's `fused_flex_mlp`): (R, S, 4) radiance, differentiable in the
+    params, v0 (1, h) and dir_contrib (R, h/2), and so in whatever
+    conditioning the caller folded into them."""
+    weights = pack_flex_weights(params, n_hidden, num_encoding_fn_xyz)
+    return FusedFlexMLP.apply(
+        (n_hidden, num_encoding_fn_xyz, log_sampling_xyz), ray_origins, ray_directions, z_vals,
+        dir_contrib, v0, *weights,
+    )

@@ -18,9 +18,12 @@ reference semantics (SURVEY.md §2.4):
 Path choice. For the flagship paper model in bf16 (`dtype=torch.bfloat16`)
 at σ-noise 0, each pass is one `fused_paper_render` call — the hand-written
 CUDA kernel on the card — over the model's weights packed once
-(`_kernel_weights`). Otherwise the model runs as PyTorch ops and is
-composited by `volume_render_radiance_field`; in f32 this is the path held
-to the JAX package's f32 XLA path.
+(`_kernel_weights`). For an eligible Flexible-family model in bf16, each
+pass's MLP is one `fused_flex_mlp` call (K4f; its backward is K4b), with
+the conditioning folded into `v0` and the direction contribution in
+differentiable torch, composited by `volume_render_radiance_field` as the
+JAX package composites it with XLA. Otherwise the model runs as PyTorch
+ops; in f32 this is the path held to the JAX package's f32 XLA path.
 
 Draws: `t_rand` (R, num_coarse), `u` (R, num_fine) and the σ-noise normals
 `noise_c` (R, num_coarse) and `noise_f` (R, num_coarse + num_fine) may be
@@ -37,10 +40,11 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from nerface_tpu_torch.models.mlp import linear_cols
+from nerface_tpu_torch.models.mlp import cond_contribution, linear_cols
 from nerface_tpu_torch.models.nerf_models import HIDDEN, ConditionalBlendshapePaperNeRFModel
 from nerface_tpu_torch.ops.compositing import inject_background, volume_render_radiance_field
 from nerface_tpu_torch.ops.encoding import positional_encoding
+from nerface_tpu_torch.ops.kernels.fused_flex import flex_fused_eligible, fused_flex_mlp
 from nerface_tpu_torch.ops.kernels.fused_mlp import (
     KERNEL_SAMPLES,
     MAX_FREQS,
@@ -182,8 +186,46 @@ def _fused_pass(model, ro, rd, z_vals, pe_dir, expr, latent, background, setting
     )
 
 
+def _flex_pass(model, ro, rd, z_vals, encode_xyz, pe_dir, expr, latent):
+    """One `fused_flex_mlp` call for a Flexible-family model
+    (`nerface_tpu/render/pipeline.py:268-317`): v0 = layer1's bias + its
+    conditioning columns applied to the prepared (expr, latent), and the
+    per-ray direction contribution, both differentiable f32 torch."""
+    e, l = model._prepare(
+        expr if model.takes_expression else None, latent if model.takes_latent else None, None
+    )
+    h = model.hidden_size
+    v0 = model.layer1.bias
+    segs = model._cond_segments_layer1(e, l)
+    if segs:
+        v0 = v0 + cond_contribution(model.layer1, segs, model.dim_xyz)
+    dd = pe_dir.shape[-1]
+    dir_contrib = linear_cols(model.layers_dir[0], pe_dir, h, h + dd)
+    return fused_flex_mlp(
+        dict(model.named_parameters()), ro.contiguous(), rd.contiguous(), z_vals.contiguous(),
+        dir_contrib.contiguous(), v0[None, :].contiguous(), n_hidden=model.num_layers - 1,
+        num_encoding_fn_xyz=encode_xyz.num_encoding_functions,
+        log_sampling_xyz=encode_xyz.log_sampling,
+    )
+
+
 def _apply_model(model, ro, rd, z_vals, encode_xyz, pe_dir, expr, latent, dtype):
-    """Positional-encode the sample points and evaluate the model."""
+    """Evaluate the radiance field at the samples: one K4 call for an
+    eligible Flexible-family model in bf16 with 2-D rays and per-frame
+    conditioning, else positional-encode the points and run the model."""
+    if (
+        dtype == torch.bfloat16
+        and ro.ndim == 2
+        and z_vals.ndim == 2
+        and pe_dir is not None
+        and pe_dir.ndim == 2
+        and (expr is None or expr.ndim == 1)
+        and (latent is None or latent.ndim == 1)
+        and (not model.takes_expression or expr is not None)
+        and (not model.takes_latent or latent is not None)
+        and flex_fused_eligible(model, encode_xyz, pe_dir, z_vals.shape[-1], ro.device)
+    ):
+        return _flex_pass(model, ro, rd, z_vals, encode_xyz, pe_dir, expr, latent)
     pts = ro[..., None, :] + rd[..., None, :] * z_vals[..., :, None]
     return model(
         encode_xyz(pts), pe_dir,

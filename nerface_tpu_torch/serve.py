@@ -4,7 +4,8 @@ Port of `nerface_tpu/serve.py`: a resident process that loads one trained
 avatar once and answers render requests — "render this expression under
 this pose" — through the same full-frame renderer as batch eval
 (`eval/renderer.py`). On the card with `dtype=torch.bfloat16`, both passes
-of every tile go through the hand-written fused-render kernel.
+of every tile go through a hand-written kernel: the fused render (K2) for
+the paper model, the Flexible family's fused MLP (K4f) for those models.
 
 Protocol: newline-delimited JSON over stdio or TCP, one request per line,
 one JSON response per line. Fields (all optional unless noted):
@@ -81,8 +82,9 @@ class AvatarServer:
     Construction mirrors the JAX server's: dataset metadata for intrinsics
     and request defaults, models from cfg, the checkpoint's weights,
     background and latent codes, then the eval flags' background and
-    latent-row rules. `device` is where everything lives and renders;
-    `dtype=torch.bfloat16` selects the fused-render kernel path."""
+    latent-row rules. `device` is where everything lives and renders (the
+    card unless the caller asks for the CPU); `dtype=torch.bfloat16`
+    selects the kernel path."""
 
     def __init__(
         self,
@@ -91,7 +93,7 @@ class AvatarServer:
         dataset=None,
         eval_flags: Optional[EvalFlags] = None,
         dtype=None,
-        device="cpu",
+        device="cuda",
         log: bool = True,
     ):
         self.cfg = cfg

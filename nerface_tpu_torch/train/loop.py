@@ -3,8 +3,9 @@
 Port of the single-device, host-feed path of `nerface_tpu/train/loop.py`
 (reference `train_transformed_rays.py:24-575`): config and data, the
 models, the background and the latent table, the prefetching ray feed,
-the train step (train/step.py: through K1 in bf16 on the card), periodic
-validation renders through K2, and reference-schema `.ckpt` saves.
+the train step (train/step.py: in bf16 on the card through K1 for the
+paper model, through K4f/K4b for the Flexible family), periodic
+validation renders (K2, or K4f), and reference-schema `.ckpt` saves.
 
 Per step: one host batch from `RayFeed` (pinned, copied with
 `non_blocking=True` on the card), and the draws' seed `step_seed(seed, i)`:
@@ -88,8 +89,8 @@ def validate(
 ) -> Dict[str, float]:
     """Full-frame validation renders (`train_transformed_rays.py:427-549`)
     with the reference's quirks: only the first `num_frames` val frames,
-    a zero latent code, the fine MSE counted twice, and the sum divided by
-    len(i_val)."""
+    a zero latent code (which a model that takes none ignores), the fine
+    MSE counted twice, and the sum divided by len(i_val)."""
     settings = RenderSettings.from_cfg(cfg, mode="validation")
     dev = next(state.model_coarse.parameters()).device
     bg = None
@@ -135,7 +136,8 @@ def train(
 ) -> TrainState:
     """Run training per the config on `device` (the card unless the
     caller asks for the CPU); returns the final `TrainState`. `dtype`
-    torch.bfloat16 trains the paper model through K1."""
+    torch.bfloat16 trains the paper model through K1 and a Flexible-family
+    model through K4f/K4b."""
     if bool(cfg.experiment.get("device_feed") or False):
         raise NotImplementedError(
             "the device feed is not ported yet (ROADMAP.md Queue 1: DeviceRayFeed)"

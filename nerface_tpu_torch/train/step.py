@@ -12,7 +12,10 @@ Port of `nerface_tpu/train/step.py`. Everything between the reference's
 
 `compute_losses` is the f32 path: `render_rays` unfused, with autograd.
 `train_step` takes `fused_losses` (K1, train/fused.py) when the step is
-eligible, else `compute_losses`; both draw the same numbers.
+eligible, else `compute_losses`; both draw the same numbers. A bf16
+Flexible-family step goes through `compute_losses` too: each pass's MLP is
+one `fused_flex_mlp` call (render/pipeline.py), whose forward is K4f and
+whose backward autograd hands to K4b.
 """
 
 from __future__ import annotations

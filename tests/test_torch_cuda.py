@@ -1,5 +1,7 @@
-"""PyTorch port, the hand-written CUDA kernel on the card: `fused_paper_render`
-against its plain PyTorch version (bf16 operands) on the same CUDA tensors.
+"""PyTorch port, the hand-written CUDA kernels on the card: `fused_paper_render`
+(K2), `fused_train_pass` (K1) and `fused_flex_forward` / `fused_flex_backward`
+(K4f / K4b) against their plain PyTorch versions (bf16 operands) on the same
+CUDA tensors.
 
 Every test here is marked `cuda` and skips on a host with no card. The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -14,7 +16,7 @@ rounding of an activation), depth atol 2e-3·far, disp rtol 1e-2.
 import pytest
 import torch
 
-from chip_smoke import HE_GAIN, SIGMA_BIAS, k1_grad_limits
+from chip_smoke import FLEX_OUT_TOL, HE_GAIN, SIGMA_BIAS, _flex_params, k1_grad_limits
 from nerface_tpu_torch.models.nerf_models import ConditionalBlendshapePaperNeRFModel
 from nerface_tpu_torch.ops.kernels import fused_mlp as K
 
@@ -196,3 +198,73 @@ def test_train_kernel_refuses_what_it_does_not_take(cuda_device, params):
     with pytest.raises(ValueError, match="target is on"):
         T.fused_train_pass(bundle, ro, rd, z, tgt.cpu(), loss_scale=1.0)
     assert T.fused_train_pass.launches == before
+
+
+# -- K4: fused_flex_forward / fused_flex_backward -----------------------------
+# Tolerances are chip_smoke.py's: raw rgb and σ each within FLEX_OUT_TOL of
+# their max|plain|; each gradient tensor (d_v0 and d_dir included) within
+# `k1_grad_limits`, read on the card (PERF.md). Weights: synth512_lcode's
+# model He-scaled, v0 its layer1 fold of a random conditioning.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,S", [(512, 64), (77, 128), (301, 32)],
+                         ids=["coarse", "fine-ragged", "s32-ragged"])
+def test_flex_kernels_match_plain(cuda_device, R, S):
+    """Rows past the last ray of a ragged last tile are masked (77·128 and
+    301·32 are not multiples of the 128-row tile)."""
+    from nerface_tpu_torch.ops.kernels import fused_flex as F
+
+    params, v0 = _flex_params(R + S, cuda_device)
+    ro, rd, z, dc, _, _ = _inputs(R, S, cuda_device, seed=R + S)
+    weights = F.pack_flex_weights(params, 3, 10)
+    g = torch.randn(R, S, 4, generator=torch.Generator().manual_seed(S)).to(cuda_device)
+    args = (weights, ro, rd, z, dc, v0)
+    before = (F.fused_flex_forward.launches, F.fused_flex_backward.launches)
+    out = F.fused_flex_forward(*args, 3)
+    grads = F.fused_flex_backward(*args, g, 3)
+    grads2 = F.fused_flex_backward(*args, g, 3)
+    torch.cuda.synchronize()
+    assert (F.fused_flex_forward.launches, F.fused_flex_backward.launches) == (
+        before[0] + 1, before[1] + 2)
+    flat, flat2 = grads[0] + grads[1:], grads2[0] + grads2[1:]
+    assert all(torch.equal(a, b) for a, b in zip(flat, flat2)), "not deterministic"
+    ref = F.fused_flex_forward_reference(*args, 3)
+    assert torch.isfinite(out).all()
+    for sl in (slice(0, 3), slice(3, 4)):
+        torch.testing.assert_close(out[..., sl], ref[..., sl],
+                                   atol=FLEX_OUT_TOL * float(ref[..., sl].abs().max()), rtol=0)
+    rgrads = F.fused_flex_backward_reference(*args, g, 3)
+    wn, bn = F.weight_names(3)
+    for name, a, r in zip(wn + bn + ("v0", "dir"), flat, rgrads[0] + rgrads[1:]):
+        a, r = a.float(), r.float()
+        assert torch.isfinite(a).all(), name
+        tol, tol_norm = k1_grad_limits(R, name)
+        torch.testing.assert_close(a, r, atol=tol * float(r.abs().max()) + 1e-6, rtol=0, msg=name)
+        err, ref_norm = float((a - r).norm()), float(r.norm())
+        assert err <= tol_norm * ref_norm + 1e-6, f"{name}: ‖err‖ {err} > {tol_norm}·{ref_norm}"
+
+
+@pytest.mark.cuda
+def test_flex_kernels_refuse_what_they_do_not_take(cuda_device):
+    from nerface_tpu_torch.ops.kernels import fused_flex as F
+
+    params, v0 = _flex_params(1, cuda_device)
+    ro, rd, z, dc, _, _ = _inputs(64, 64, cuda_device, seed=2)
+    weights = F.pack_flex_weights(params, 3, 10)
+    g = torch.zeros(64, 64, 4, device=cuda_device)
+    before = (F.fused_flex_forward.launches, F.fused_flex_backward.launches)
+    with pytest.raises(ValueError, match="samples per ray"):
+        F.fused_flex_forward(weights, ro, rd, z[:, :16].contiguous(), dc, v0, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        F.fused_flex_forward(weights, ro, rd, z.t().contiguous().t(), dc, v0, 3)
+    with pytest.raises(TypeError, match="float32"):
+        F.fused_flex_forward(weights, ro.double(), rd, z, dc, v0, 3)
+    with pytest.raises(ValueError, match="hidden layers"):
+        F.fused_flex_forward(weights, ro, rd, z, dc, v0, 9)
+    f32_mats = tuple(w.float() for w in weights)
+    with pytest.raises(ValueError, match="bfloat16"):
+        F.fused_flex_forward(f32_mats, ro, rd, z, dc, v0, 3)
+    with pytest.raises(ValueError, match="g has shape"):
+        F.fused_flex_backward(weights, ro, rd, z, dc, v0, g[:, :32].contiguous(), 3)
+    assert (F.fused_flex_forward.launches, F.fused_flex_backward.launches) == before

@@ -114,4 +114,4 @@ def test_build_model():
     assert isinstance(m, ConditionalBlendshapePaperNeRFModel)
     assert m.dim_xyz == 63 and m.dim_dir == 24 and m.dim_cond == 108
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(_model_cfg("FlexibleNeRFModel"))
+        build_model(_model_cfg("VeryTinyNeRFModel"))

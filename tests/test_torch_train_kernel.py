@@ -235,7 +235,9 @@ def test_offsets_match_cuda_source():
     found = {m.group(1): int(m.group(2))
              for m in re.finditer(r"constexpr int WT_OFF_(\w+) = (\d+);", src)}
     assert found == T.WT_OFFSETS
-    assert "#include \"mma_tile.cuh\"" in src
+    # the layer code is K2's (mma_tile.cuh), shared through grad_tile.cuh
+    assert "#include \"grad_tile.cuh\"" in src
+    assert "#include \"mma_tile.cuh\"" in (CU.parent / "grad_tile.cuh").read_text()
 
 
 def test_kernel_gradient_layout_unpacks(model):
