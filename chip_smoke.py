@@ -9,11 +9,12 @@ Phases, one line each (plus the kernels' register reports):
 
   1. device  — nvidia-smi's name and power limit, torch's device name;
                fails when CUDA is not available.
-  2. build   — nvcc builds the three kernel libraries,
+  2. build   — nvcc builds the four kernel libraries,
                `nerface_tpu_torch/csrc/fused_paper_render.cu` (K2),
-               `fused_train_pass.cu` (K1) and `fused_flex.cu` (K4), in
-               parallel into build/nerface_tpu_torch/; prints the seconds
-               and each kernel's ptxas registers and shared memory.
+               `fused_train_pass.cu` (K1), `fused_paper_mlp.cu` (K3) and
+               `fused_flex.cu` (K4), in parallel into build/nerface_tpu_torch/;
+               prints the seconds and each kernel's ptxas registers and
+               shared memory.
   3. kernel  — the fused-render kernel against its plain PyTorch version
                (bf16 operands), on He-scaled random weights (HE_GAIN) on
                the card, at the main path's coarse
@@ -24,6 +25,9 @@ Phases, one line each (plus the kernels' register reports):
                2e-3·far, disp rtol 1e-2, everything finite. Median kernel
                and plain times at 4096 rays, and the kernel's at 65536
                (CUDA events, after warm-up).
+     small_kernels — the same for K2's `small` mode (the smaller paper
+               model), and K1's `small` mode as in phase 6 at R = 2048,
+               S = 64 and 128, at those kernels' limits.
   4. serve   — a 512² avatar of the paper model (configs/synth512_paper.yml
                as a dict, He-scaled random weights from a fixed seed with σ
                biased up so that the MLP's colour, not the background, makes
@@ -33,9 +37,15 @@ Phases, one line each (plus the kernels' register reports):
                stop. Checks every reply, that the kernel ran exactly
                2 × tiles times per frame, the maps' shapes and dtype, and the
                bf16 kernel frame against the f32 plain-PyTorch frame of the
-               same request (max 1 level, mean ≤ 0.15 levels), and that the
-               frame is the MLP's (≥ 10 levels off the background and a
-               std of ≥ 10 levels).
+               same request (max FRAME_MAX = 1 level, mean ≤ FRAME_MEAN =
+               0.15 levels), and that the frame is the MLP's (≥ 10 levels
+               off the background and a std of ≥ 10 levels).
+     smaller_serve — the same for SYNTH512_SMALLER (both models the smaller
+               paper model): K2 `small`, 24 launches.
+     noisy_frame — one 512² synth512_paper frame at validation σ-noise 0.1,
+               which K2 refuses: K3f launched 2 × tiles = 8 times, K2 and
+               K3b never; the frame against the f32 plain frame (the same
+               noise draws) at the serve limits.
   5. train_kernel — K1 `fused_train_pass` against its plain PyTorch version
                (bf16 operands) on He-scaled random weights: R = 2048 rays at
                S = 64 and 128 with σ-noise and a background (the slice's two
@@ -48,11 +58,20 @@ Phases, one line each (plus the kernels' register reports):
                everything finite; two launches on the same inputs give
                bit-identical gradients. Prints every tensor's worst readings.
                Median kernel and plain ms (CUDA events) and TFLOP/s at R = 2048.
+     paper_mlp_kernel — K3f `fused_paper_mlp_forward` and K3b
+               `fused_paper_mlp_backward` (csrc/fused_paper_mlp.cu) against
+               their plain versions, both modes, K3_SEEDS draws a case: R =
+               2048 at S = 64 and 128 (forward and backward) and 65536-ray
+               tiles at S = 64 and 128 (forward). Raw rgb and σ within
+               K3_OUT_TOL·max; every gradient tensor within
+               `k1_grad_limits`; bit-identical over 2 launches; ms, TFLOP/s,
+               bound ms and the plain versions' ms.
   6. train_step — one train step of the flagship config (2048 rays, 64 + 64
                samples, σ-noise 0.1) on the card both ways from the same
                weights, batch and draws: bf16 through K1, f32 through the
                plain autograd path. Loss rtol 0.03, gradients atol
-               0.25·max|f32| (tests/test_fused_train.py's envelope).
+               0.25·max|f32| (tests/test_fused_train.py's envelope); every
+               parameter with an f32 gradient has a bf16 one.
   7. train   — the main path: `train(cfg, dataset=…)` of
                nerface_tpu_torch/train/loop.py, bf16 on the card, for
                TRAIN_STEPS steps on a 512² in-memory dataset (4 train + 2 val
@@ -60,11 +79,18 @@ Phases, one line each (plus the kernels' register reports):
                the PNGs hold them) with configs/synth512_paper.yml's
                settings, print_every 10, a validation at step 0 and saves at
                step 0 and the end. Checks: K1 launched 2 × steps times, K2
-               2 × 4 tiles × 2 frames; the loop printed the loss at steps 0,
-               10, 20, 30 and 39, every one finite, and the mean of those in
-               the last 10 steps below that of steps 0 and 10; the last .ckpt
-               reloads and holds two Adam param groups. Then the median of
-               steady synchronised steps and rays/s.
+               2 × 4 tiles × 2 frames, K3 never; the loop printed the loss at
+               steps 0, 10, 20, 30 and 39, every one finite, and the mean of
+               those in the last 10 steps below that of steps 0 and 10; the
+               last .ckpt reloads and holds two Adam param groups. Then the
+               median of steady synchronised steps and rays/s.
+     smaller_train — the same for SYNTH512_SMALLER, PAPER_TRAIN_STEPS steps:
+               K1 `small` 2 × steps = 60, K2 16.
+     coarse_train — SYNTH512_PAPER_COARSE (no fine pass, which K1 refuses):
+               one bf16 step against the f32 plain step as in phase 6 (K3f
+               and K3b once each, K1 never; every parameter with a
+               gradient), then PAPER_TRAIN_STEPS steps of `train()`: K3f and
+               K3b 30 times each, K1 never, K2 4 tiles × 2 validation frames.
   8. flex_kernel — K4f `fused_flex_forward` and K4b `fused_flex_backward`
                (csrc/fused_flex.cu) against their plain versions on
                synth512_lcode's He-scaled weights, FLEX_SEEDS draws a case:
@@ -88,12 +114,13 @@ Phases, one line each (plus the kernels' register reports):
     python3 chip_smoke.py --profile
 
 adds profile phases: 6 timed frames per map set, then torch.profiler over 2
-frames, and torch.profiler over 5 steady train steps of synth512_paper and
-of synth512_lcode; each prints its table of device time per kernel.
+frames, and torch.profiler over 5 steady train steps of synth512_paper, of
+synth512_paper_coarse and of synth512_lcode; each prints its table of device
+time per kernel.
 
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}. Any failure raises, exits non-zero and
-prints no result.
+The line before the last is {"kernels": [...]} (K2, K1, K3f, K3b, K4f,
+K4b); the last line is {"ok": true, "device": {...}}. Any failure raises,
+exits non-zero and prints no result.
 """
 
 import contextlib
@@ -162,6 +189,22 @@ SYNTH512_LCODE = copy.deepcopy(SYNTH512_PAPER)
 for _node in SYNTH512_LCODE["models"].values():
     _node["type"] = "ConditionalBlendshapeLearnableCodeNeRFModel"
 
+# synth512_paper with the reference's coarse-only setting: no models.fine
+# node and num_fine 0 in training and validation, so K1 refuses the step
+# and every training pass's MLP is K3 (K3f forward, K3b backward);
+# tests/test_torch_paper_mlp.py pins it.
+SYNTH512_PAPER_COARSE = copy.deepcopy(SYNTH512_PAPER)
+del SYNTH512_PAPER_COARSE["models"]["fine"]
+for _mode in ("train", "validation"):
+    SYNTH512_PAPER_COARSE["nerf"][_mode]["num_fine"] = 0
+
+# synth512_paper with both models ConditionalBlendshapePaperSmallerNeRFModel
+# (5 trunk layers, the expression fed again into the direction branch) at
+# the paper config's widths: K1, K2 and K3 in their `small` mode.
+SYNTH512_SMALLER = copy.deepcopy(SYNTH512_PAPER)
+for _node in SYNTH512_SMALLER["models"].values():
+    _node["type"] = "ConditionalBlendshapePaperSmallerNeRFModel"
+
 KERNEL_RAYS = 4096
 TILE_RAYS = 65536  # the validation chunksize: one tile of the main path
 FAR = 0.8
@@ -192,6 +235,19 @@ PAPER_DX_KN = [(256, 256)] * 5 + [(256, 256), (256, 1), (256, 128), (128, 128), 
 K2_FLOP_PER_SAMPLE = sum(2 * k * n for k, n in PAPER_FORWARD_KN)
 # K1: forward + dX + dW (dW has the forward's products)
 K1_FLOP_PER_SAMPLE = sum(2 * k * n for k, n in PAPER_FORWARD_KN + PAPER_DX_KN + PAPER_FORWARD_KN)
+# the smaller model has no layers_xyz.5: one 256×256 product fewer in the
+# forward, in dX and in dW
+W5_FLOP = 2 * 256 * 256
+
+
+def paper_flop_per_sample(small, backward):
+    """The paper MLP's operations a sample: the forward (K2, K3f) or the
+    forward + dX + dW (K1, K3b)."""
+    if backward:
+        return K1_FLOP_PER_SAMPLE - (3 * W5_FLOP if small else 0)
+    return K2_FLOP_PER_SAMPLE - (W5_FLOP if small else 0)
+
+
 # K1 against its plain version: each gradient tensor g against the plain
 # r, on K1_SEEDS draws of weights and inputs per case, within two limits
 # read on the card (PERF.md): the max error max|g − r| ≤ a·max|r| + 1e-6,
@@ -241,7 +297,19 @@ FLEX_FRAME_MEAN = 0.1
 TRAIN_RAYS = 2048
 TRAIN_STEPS = 40
 FLEX_TRAIN_STEPS = 30
-LIBRARIES = ("fused_paper_render", "fused_train_pass", "fused_flex")
+# the paper family's slice: train() steps of synth512_smaller (K1 small) and
+# of synth512_paper_coarse (K3)
+PAPER_TRAIN_STEPS = 30
+# K3f against its plain version: raw rgb and σ within K3_OUT_TOL·max|plain|
+# each (K4f's limit, for the same kind of kernel); K3b's gradients take
+# K1's limits (`k1_grad_limits`)
+K3_OUT_TOL = 0.01
+K3_SEEDS = 3
+# a served frame against the f32 plain frame, in 8-bit levels: K2 (with or
+# without `small`) and the σ-noise frame through K3f
+FRAME_MAX = 1
+FRAME_MEAN = 0.15
+LIBRARIES = ("fused_paper_render", "fused_train_pass", "fused_paper_mlp", "fused_flex")
 
 
 class SmokeFailure(RuntimeError):
@@ -333,20 +401,34 @@ def _he_scale(model):
                 p.mul_(HE_GAIN)
 
 
-def kernel_phase(dev):
+def _paper_model(seed, dev, small=False):
+    """A paper-family model (the smaller one with `small`) at the slice's
+    widths, its weights drawn from `seed`."""
     import torch
 
-    from nerface_tpu_torch.models.nerf_models import ConditionalBlendshapePaperNeRFModel
+    from nerface_tpu_torch.models.nerf_models import (
+        ConditionalBlendshapePaperNeRFModel,
+        ConditionalBlendshapePaperSmallerNeRFModel,
+    )
+
+    cls = ConditionalBlendshapePaperSmallerNeRFModel if small else ConditionalBlendshapePaperNeRFModel
+    return cls(num_encoding_fn_xyz=10, num_encoding_fn_dir=4, include_input_dir=False,
+               device=dev, generator=torch.Generator().manual_seed(seed))
+
+
+def kernel_phase(dev, small=False):
+    """K2 (its `small` mode with `small`) against its plain version."""
+    import torch
+
     from nerface_tpu_torch.ops.kernels.fused_mlp import (
         fused_paper_render,
         fused_paper_render_reference,
         pack_paper_weights,
     )
 
-    model = ConditionalBlendshapePaperNeRFModel(
-        num_encoding_fn_xyz=10, num_encoding_fn_dir=4, include_input_dir=False,
-        device=dev, generator=torch.Generator().manual_seed(SEED),
-    )
+    name = "small_kernels" if small else "kernel"
+    what = "K2 small" if small else "K2"
+    model = _paper_model(SEED + (50 if small else 0), dev, small)
     # the opaque rays' check below takes the default init: there one
     # sample's colour is the ray's, and a bf16 rounding flip of a He-scaled
     # activation moves it by up to 1.6e-3 of the 2e-3 limit (H100, PERF.md)
@@ -359,38 +441,40 @@ def kernel_phase(dev):
     for label, S, with_w in (("coarse", 64, True), ("fine", 128, False)):
         ro, rd, z, dc, cond, bg = _kernel_inputs(KERNEL_RAYS, S, gen, dev)
         args = (params, ro, rd, z, dc, cond)
-        kw = dict(background=bg, out_weights=with_w)
+        kw = dict(background=bg, out_weights=with_w, small=small)
         got = fused_paper_render(*args, **kw)
         torch.cuda.synchronize()
         ref = fused_paper_render_reference(*args, **kw)
         check(float(got["acc"][:2].abs().max()) == 0.0, f"{label}: rd = 0 rays have acc != 0")
-        result["err"][label] = _compare(got, ref, label)
+        result["err"][label] = _compare(got, ref, f"{what} {label}")
         result["ms"][label] = _median_ms(lambda: fused_paper_render(packed, *args[1:], **kw))
         result["plain_ms"][label] = _median_ms(lambda: fused_paper_render_reference(*args, **kw))
         phase(
-            "kernel",
-            f"S={S} rays={KERNEL_RAYS}: max abs err "
+            name,
+            f"{what} S={S} rays={KERNEL_RAYS}: max abs err "
             + ", ".join(f"{k} {v:.3g}" for k, v in result["err"][label].items())
             + f"; kernel {result['ms'][label]:.3f} ms, plain {result['plain_ms'][label]:.3f} ms",
         )
         # one whole tile of the main path: 16x the grid of the check above
         ro, rd, z, dc, cond, bg = _kernel_inputs(TILE_RAYS, S, gen, dev)
         args = (packed, ro, rd, z, dc, cond)
-        kw = dict(background=bg, out_weights=with_w)
+        kw = dict(background=bg, out_weights=with_w, small=small)
         got = fused_paper_render(*args, **kw)
         torch.cuda.synchronize()
         ref = _chunked(fused_paper_render_reference, params, (ro, rd, z, dc, bg), cond,
-                       out_weights=with_w)
-        result["err"][label + "_tile"] = _compare(got, ref, label + " tile")
+                       out_weights=with_w, small=small)
+        result["err"][label + "_tile"] = _compare(got, ref, f"{what} {label} tile")
         del ref
         result["tile_ms"][label] = _median_ms(lambda: fused_paper_render(*args, **kw), iters=10)
-        tflops = TILE_RAYS * S * K2_FLOP_PER_SAMPLE / result["tile_ms"][label] / 1e9
+        tflops = TILE_RAYS * S * paper_flop_per_sample(small, False) / result["tile_ms"][label] / 1e9
         phase(
-            "kernel",
-            f"S={S} rays={TILE_RAYS}: max abs err "
+            name,
+            f"{what} S={S} rays={TILE_RAYS}: max abs err "
             + ", ".join(f"{k} {v:.3g}" for k, v in result["err"][label + "_tile"].items())
             + f"; kernel {result['tile_ms'][label]:.3f} ms, {tflops:.1f} TFLOP/s of MLP",
         )
+    if small:
+        return result
     # fully opaque rays: σ = 1e8 puts σ·d past exp's underflow (σ·d > 104)
     # for every first spacing above 1e-6, so alpha == 1 exactly there
     hot = dict(default_init, **{"fc_alpha.bias": default_init["fc_alpha.bias"] + 1e8})
@@ -404,18 +488,56 @@ def kernel_phase(dev):
     return result
 
 
-def serve_phase(dev, tmp):
+def _frame_against_plain(img, cfg_dict, ckpt, ds, dev, label):
+    """The served bf16 frame `img` (frame 1, seed 1) against the f32
+    plain-PyTorch frame of the same request: (mean |diff|, p99, max) in
+    8-bit levels; fails past FRAME_MEAN / FRAME_MAX, when the f32 path
+    launched a kernel, or when the frame shows little of the MLP."""
+    import numpy as np
+
+    from nerface_tpu_torch.config import CfgNode
+    from nerface_tpu_torch.ops.kernels.fused_mlp import (
+        fused_paper_mlp_forward,
+        fused_paper_render,
+    )
+    from nerface_tpu_torch.serve import AvatarServer
+
+    cfg32 = CfgNode(cfg_dict)
+    cfg32.nerf.validation["chunksize"] = 16384  # bounds the f32 activations
+    plain = AvatarServer(cfg32, ckpt, dataset=ds, dtype=None, device=dev, log=False)
+    before = fused_paper_render.launches + fused_paper_mlp_forward.launches
+    ref = plain.render(frame=1, seed=1, maps=("rgb_fine",))["rgb_fine"]
+    check(fused_paper_render.launches + fused_paper_mlp_forward.launches == before,
+          f"{label}: the f32 plain path launched a kernel")
+    diff = np.abs(img["rgb_fine"].astype(np.int16) - ref.astype(np.int16))
+    mean_diff, p99 = float(diff.mean()), float(np.percentile(diff, 99))
+    # bf16 operands against f32: the limits sit just above the readings on
+    # an H100 (PERF.md); the pixels are the MLP's colour
+    bg = (np.clip(ds.load_background(), 0.0, 1.0) * 255.0).astype(np.int16)
+    off_bg = float(np.abs(img["rgb_fine"].astype(np.int16) - bg).mean())
+    spread = float(img["rgb_fine"].std())
+    check(off_bg >= 10.0 and spread >= 10.0,
+          f"{label}: frame {off_bg} levels off the background, std {spread}: the MLP shows little")
+    check(int(diff.max()) <= FRAME_MAX and mean_diff <= FRAME_MEAN,
+          f"{label}: bf16 frame vs f32: mean {mean_diff}, max {int(diff.max())}")
+    return {"mean_diff": mean_diff, "p99": p99, "max_diff": int(diff.max()), "off_bg": off_bg,
+            "spread": spread}
+
+
+def serve_phase(dev, tmp, cfg_dict=SYNTH512_PAPER, name="serve", seed=SEED + 2):
+    """A 512² avatar of `cfg_dict` (a paper-family model) served in bf16:
+    every pass of every tile one K2 launch."""
     import numpy as np
     import torch
 
     from nerface_tpu_torch.config import CfgNode
     from nerface_tpu_torch.data.synthetic import synthetic_flame_dataset
-    from nerface_tpu_torch.ops.kernels.fused_mlp import fused_paper_render
+    from nerface_tpu_torch.ops.kernels.fused_mlp import fused_paper_mlp_forward, fused_paper_render
     from nerface_tpu_torch.serve import AvatarServer
 
-    cfg = CfgNode(SYNTH512_PAPER)
+    cfg = CfgNode(cfg_dict)
     ds = synthetic_flame_dataset(H=512, W=512, n_train=8, n_val=2, n_test=2, seed=SEED)
-    ckpt = _save_avatar(cfg, ds, os.path.join(tmp, "synth512_paper.ckpt"), SEED + 2)
+    ckpt = _save_avatar(cfg, ds, os.path.join(tmp, f"{name}.ckpt"), seed)
     server = AvatarServer(cfg, ckpt, dataset=ds, dtype=torch.bfloat16, device=dev, log=False)
     n_pix = server.H * server.W
     tiles = -(-n_pix // min(server.settings.chunksize, n_pix))
@@ -429,19 +551,20 @@ def serve_phase(dev, tmp):
     ]
     n_renders = sum("cmd" not in r for r in requests)
     out = io.StringIO()
-    fused_paper_render.launches = 0
+    fused_paper_render.launches = fused_paper_mlp_forward.launches = 0
     handled = server.serve_jsonl(io.StringIO("\n".join(map(json.dumps, requests)) + "\n"), out)
     launches = fused_paper_render.launches
+    check(fused_paper_mlp_forward.launches == 0, f"{name}: serving launched K3f")
     replies = [json.loads(line) for line in out.getvalue().splitlines()]
     check(handled == len(requests) and len(replies) == len(requests), f"replies: {replies}")
     for req, rep in zip(requests, replies):
         check(rep.get("ok") is True, f"request {req} failed: {rep}")
     check(replies[0]["H"] == 512 and replies[0]["W"] == 512, f"ping: {replies[0]}")
     check(launches == 2 * tiles * n_renders,
-          f"kernel launches {launches} != 2 x {tiles} tiles x {n_renders} frames")
+          f"{name}: K2 launches {launches} != 2 x {tiles} tiles x {n_renders} frames")
     frame_ms = [r["frame_ms"] for r in replies if "frame_ms" in r]
-    phase("serve", f"{n_renders} renders at 512x512 via serve_jsonl, frame_ms {frame_ms}, "
-                   f"kernel launches {launches} = 2 x {tiles} tiles x {n_renders}")
+    phase(name, f"{n_renders} renders of {cfg.models.coarse.type} at 512x512 via serve_jsonl, "
+                f"frame_ms {frame_ms}, K2 launches {launches} = 2 x {tiles} tiles x {n_renders}")
 
     # the maps of the request, and the same frame from the f32 plain path
     img = server.render(frame=1, seed=1, maps=tuple(maps))
@@ -450,29 +573,56 @@ def serve_phase(dev, tmp):
     check(img["normals"].shape == (511, 511, 3), f"normals shape {img['normals'].shape}")
     for k, v in img.items():
         check(v.dtype == np.uint8, f"{k} dtype {v.dtype}")
-    cfg32 = CfgNode(SYNTH512_PAPER)
-    cfg32.nerf.validation["chunksize"] = 16384  # bounds the f32 activations
-    plain = AvatarServer(cfg32, ckpt, dataset=ds, dtype=None, device=dev, log=False)
-    before = fused_paper_render.launches
-    ref = plain.render(frame=1, seed=1, maps=("rgb_fine",))["rgb_fine"]
-    check(fused_paper_render.launches == before, "the f32 plain path launched the kernel")
-    diff = np.abs(img["rgb_fine"].astype(np.int16) - ref.astype(np.int16))
-    mean_diff, p99 = float(diff.mean()), float(np.percentile(diff, 99))
-    # bf16 operands against f32: the limits sit just above the reading on an
-    # H100 (mean 0.0999, max 1; PERF.md); the pixels are the MLP's colour
-    bg = (np.clip(ds.load_background(), 0.0, 1.0) * 255.0).astype(np.int16)
-    off_bg = float(np.abs(img["rgb_fine"].astype(np.int16) - bg).mean())
-    spread = float(img["rgb_fine"].std())
-    check(off_bg >= 10.0 and spread >= 10.0,
-          f"frame {off_bg} levels off the background, std {spread}: the MLP shows little")
-    check(int(diff.max()) <= 1 and mean_diff <= 0.15,
-          f"bf16 frame vs f32: mean {mean_diff}, max {int(diff.max())}")
-    phase("serve", f"shapes rgb {img['rgb_fine'].shape} disp {img['disp'].shape} normals "
-                   f"{img['normals'].shape} uint8; mean |frame - background| {off_bg:.2f} "
-                   f"levels, frame std {spread:.2f} levels; bf16 kernel frame "
-                   f"vs f32 plain frame: mean |diff| {mean_diff:.4f} levels, p99 {p99:.0f}, "
-                   f"max {int(diff.max())}")
-    return server, {"launches": launches, "frame_ms": frame_ms, "tiles": tiles}
+    f = _frame_against_plain(img, cfg_dict, ckpt, ds, dev, name)
+    phase(name, f"shapes rgb {img['rgb_fine'].shape} disp {img['disp'].shape} normals "
+                f"{img['normals'].shape} uint8; mean |frame - background| {f['off_bg']:.2f} "
+                f"levels, frame std {f['spread']:.2f} levels; bf16 kernel frame "
+                f"vs f32 plain frame: mean |diff| {f['mean_diff']:.4f} levels, p99 {f['p99']:.0f}, "
+                f"max {f['max_diff']} (limits {FRAME_MEAN}, {FRAME_MAX})")
+    return server, dict(f, launches=launches, frame_ms=frame_ms, tiles=tiles)
+
+
+def noisy_frame_phase(dev, tmp):
+    """One 512² synth512_paper frame at validation σ-noise 0.1, which K2
+    refuses: both passes of every tile are K3f + torch compositing with the
+    noise, as the JAX package renders it. The f32 plain frame draws the
+    same noise (keyed by seed and ray index)."""
+    import torch
+
+    from nerface_tpu_torch.config import CfgNode
+    from nerface_tpu_torch.data.synthetic import synthetic_flame_dataset
+    from nerface_tpu_torch.ops.kernels.fused_mlp import (
+        fused_paper_mlp_backward,
+        fused_paper_mlp_forward,
+        fused_paper_render,
+    )
+    from nerface_tpu_torch.serve import AvatarServer
+
+    d = copy.deepcopy(SYNTH512_PAPER)
+    d["nerf"]["validation"]["radiance_field_noise_std"] = 0.1
+    cfg = CfgNode(d)
+    ds = synthetic_flame_dataset(H=512, W=512, n_train=8, n_val=2, n_test=2, seed=SEED)
+    ckpt = _save_avatar(cfg, ds, os.path.join(tmp, "noisy.ckpt"), SEED + 2)
+    server = AvatarServer(cfg, ckpt, dataset=ds, dtype=torch.bfloat16, device=dev, log=False)
+    tiles = -(-server.H * server.W // min(server.settings.chunksize, server.H * server.W))
+    server.render(frame=0, seed=0, maps=("rgb_fine",))  # warm
+    fused_paper_render.launches = fused_paper_mlp_forward.launches = 0
+    fused_paper_mlp_backward.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = server.render(frame=1, seed=1, maps=("rgb_fine",))
+    frame_ms = (time.perf_counter() - t0) * 1e3
+    k3f = fused_paper_mlp_forward.launches
+    check(k3f == 2 * tiles and fused_paper_render.launches == 0
+          and fused_paper_mlp_backward.launches == 0,
+          f"noisy frame: K3f {k3f} (want 2 x {tiles} tiles), K2 {fused_paper_render.launches}, "
+          f"K3b {fused_paper_mlp_backward.launches} (want 0)")
+    f = _frame_against_plain(img, d, ckpt, ds, dev, "noisy_frame")
+    phase("noisy_frame", f"one 512x512 frame at σ-noise 0.1 in {frame_ms:.1f} ms: K3f launches {k3f} "
+                         f"= 2 x {tiles} tiles, K2 0; bf16 K3f frame vs f32 plain frame: mean |diff| "
+                         f"{f['mean_diff']:.4f} levels, p99 {f['p99']:.0f}, max {f['max_diff']} "
+                         f"(limits {FRAME_MEAN}, {FRAME_MAX})")
+    return dict(f, launches=k3f, frame_ms=frame_ms)
 
 
 def profile_phase(server):
@@ -535,12 +685,23 @@ def build_phase():
             if "Compiling entry function" not in line:
                 continue
             m = re.search(r"(train_fwd_kernel|train_bwd_kernel|flex_fwd_kernel|flex_bwd_kernel|"
-                          r"dw_kernel|reduce_rows|render_kernel)(?:ILi(\d+)E)?", line)
-            short = (m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")) if m else line
+                          r"dw_kernel|reduce_rows|render_kernel|mlp_fwd_kernel|recompute_kernel)"
+                          r"(?:ILi(\d+)E(?:Lb([01])E)?)?", line)
+            short = line
+            if m:
+                targs = ", ".join(([m.group(2)] if m.group(2) else [])
+                                  + (["small"] if m.group(3) == "1" else []))
+                short = m.group(1) + (f"<{targs}>" if targs else "")
             usage = [x.split("info    :")[-1].strip() if "info" in x else x.strip()
                      for x in log[i + 1:i + 4] if "registers" in x or "spill" in x]
             info.append(f"{short}: {'; '.join(usage)}")
         phase("build", f"{name}: {secs:.1f} s ({lib.name}); ptxas: {' | '.join(info)}")
+        if name == "fused_paper_mlp":
+            smem = (ctypes.c_longlong * 4)()
+            build.load_library(name).nerface_fused_paper_mlp_shared_bytes(smem)
+            phase("build", f"{name} shared memory a CTA: mlp_fwd_kernel {smem[0]} B, "
+                           f"recompute_kernel {smem[1]} B, train_bwd_kernel {smem[2]} B (dynamic), "
+                           f"dw_kernel {smem[3]} B")
         kinds = {"fused_train_pass": "train", "fused_flex": "flex"}
         if name in kinds:
             k = kinds[name]
@@ -572,7 +733,7 @@ def _k2_bytes(n_rays, n_samples, with_weights):
 
 def _k1_bytes(n_rays, n_samples):
     from nerface_tpu_torch.ops.kernels.fused_mlp import F_OFFSETS, W_OFFSETS
-    from nerface_tpu_torch.ops.kernels.fused_train import WT_OFFSETS
+    from nerface_tpu_torch.ops.kernels.fused_mlp import WT_OFFSETS
 
     per_ray_in = 4 * (3 + 3 + 3 + 3 + 128 + 2 * n_samples)  # ro rd target bg dir_c z noise
     per_ray_out = 4 * (3 + n_samples + 128)  # rgb, weights, d_dir
@@ -581,30 +742,59 @@ def _k1_bytes(n_rays, n_samples):
     return n_rays * (per_ray_in + per_ray_out) + weights + grads
 
 
-def _k1_params(seed, dev):
-    """He-scaled random weights of one paper model."""
-    import torch
-
-    from nerface_tpu_torch.models.nerf_models import ConditionalBlendshapePaperNeRFModel
-
-    model = ConditionalBlendshapePaperNeRFModel(
-        num_encoding_fn_xyz=10, num_encoding_fn_dir=4, include_input_dir=False,
-        device=dev, generator=torch.Generator().manual_seed(seed),
-    )
+def _k1_params(seed, dev, small=False):
+    """He-scaled random weights of one paper-family model."""
+    model = _paper_model(seed, dev, small)
     _he_scale(model)
     return {k: v.detach() for k, v in model.named_parameters()}
 
 
-def train_kernel_phase(dev):
+def _bundle_names(small):
+    from nerface_tpu_torch.ops.kernels.fused_mlp import bundle_names
+
+    wn, bn = bundle_names(small)
+    return ["cond0", "cond3", "dir"] + list(wn) + list(bn)
+
+
+def _grad_readings(label, what, R, names, grads, rgrads, worst):
+    """Each gradient tensor against the plain version's within
+    `k1_grad_limits`; updates `worst` (tensor -> (max, norm) relative
+    readings) and returns the largest absolute error."""
+    import torch
+
+    abs_err = 0.0
+    for name, g, r in zip(names, grads, rgrads):
+        g, r = g.float(), r.float()
+        check(bool(torch.isfinite(g).all()), f"{label}: {what} grad {name} not finite")
+        d = g - r
+        e, scale = float(d.abs().max()), float(r.abs().max())
+        e_norm, r_norm = float(d.norm()), float(r.norm())
+        tol, tol_norm = k1_grad_limits(R, name)
+        check(e <= tol * scale + 1e-6,
+              f"{label}: {what} grad {name} max err {e} > {tol}·{scale} + 1e-6")
+        check(e_norm <= tol_norm * r_norm + 1e-6,
+              f"{label}: {what} grad {name} ‖err‖ {e_norm} > {tol_norm}·{r_norm} + 1e-6")
+        w = worst.get(name, (0.0, 0.0))
+        worst[name] = (max(w[0], e / max(scale, 1e-30)), max(w[1], e_norm / max(r_norm, 1e-30)))
+        abs_err = max(abs_err, e)
+    return abs_err
+
+
+def train_kernel_phase(dev, small=False):
+    """K1 (its `small` mode with `small`) against its plain version."""
     import torch
 
     from nerface_tpu_torch.ops.kernels import fused_train as T
 
-    names = ["cond0", "cond3", "dir"] + list(T.WEIGHT_NAMES) + list(T.BIAS_NAMES)
-    models = [_k1_params(SEED + 3 + 100 * i, dev) for i in range(K1_SEEDS)]
+    name = "small_kernels" if small else "train_kernel"
+    what = "K1 small" if small else "K1"
+    names = _bundle_names(small)
+    models = [_k1_params(SEED + 3 + 100 * i + (50 if small else 0), dev, small)
+              for i in range(K1_SEEDS)]
     result = {"err": {}, "grad_rel": {}, "ms": {}, "plain_ms": {}, "bound": {}, "readings": {}}
-    cases = (("fine", TRAIN_RAYS, 128, "noise"), ("coarse", TRAIN_RAYS, 64, "noise"),
-             ("white", 256, 32, "white"), ("train_bg", 256, 32, "train_bg"))
+    cases = (("fine", TRAIN_RAYS, 128, "noise"), ("coarse", TRAIN_RAYS, 64, "noise"))
+    if not small:
+        cases += (("white", 256, 32, "white"), ("train_bg", 256, 32, "train_bg"))
     for c, (label, R, S, kind) in enumerate(cases):
         worst = {}  # tensor -> (max reading, norm reading) over the seeds
         errs = {"rgb": 0.0, "weights": 0.0}
@@ -618,8 +808,9 @@ def train_kernel_phase(dev):
                 # He-scaled activation shows there in full (2.24e-3 against
                 # the 2e-3 limit on the card; PERF.md)
                 params = dict(params, **{"fc_alpha.bias": params["fc_alpha.bias"] + SIGMA_BIAS})
-            bundle = [t.contiguous() for t in T.prefold_paper_params(params, cond, pe_dir, 10)]
-            kw = dict(loss_scale=2.0 / (3.0 * R))
+            bundle = [t.contiguous()
+                      for t in T.prefold_paper_params(params, cond, pe_dir, 10, small=small)]
+            kw = dict(loss_scale=2.0 / (3.0 * R), small=small)
             if kind == "noise":
                 kw.update(background=bg, noise=noise, noise_std=0.1)
             elif kind == "white":
@@ -643,55 +834,169 @@ def train_kernel_phase(dev):
             pairs = list(zip(names, grads, rgrads))
             if d_bg is not None:
                 pairs.append(("bg", d_bg, rd_bg))
-            for name, g, r in pairs:
-                check(bool(torch.isfinite(g).all()), f"{label}: kernel grad {name} not finite")
-                d = g - r
-                e, scale = float(d.abs().max()), float(r.abs().max())
-                e_norm, r_norm = float(d.norm()), float(r.norm())
-                tol, tol_norm = k1_grad_limits(R, name)
-                check(e <= tol * scale + 1e-6,
-                      f"{label} seed {i}: grad {name} max err {e} > {tol}·{scale} + 1e-6")
-                check(e_norm <= tol_norm * r_norm + 1e-6,
-                      f"{label} seed {i}: grad {name} ‖err‖ {e_norm} > {tol_norm}·{r_norm} + 1e-6")
-                e_max, e_norm = e / max(scale, 1e-30), e_norm / max(r_norm, 1e-30)
-                w = worst.get(name, (0.0, 0.0))
-                worst[name] = (max(w[0], e_max), max(w[1], e_norm))
+            _grad_readings(f"{label} seed {i}", what, R, *zip(*pairs), worst)
             if i == 0 and R == TRAIN_RAYS:
                 result["ms"][label] = _median_ms(lambda: T.fused_train_pass(*args, **kw),
                                                  iters=10)
                 result["plain_ms"][label] = _median_ms(
                     lambda: T.fused_train_pass_reference(*args, **kw), warmup=1, iters=3)
-                result["bound"][label] = _bound_ms(R * S * K1_FLOP_PER_SAMPLE, _k1_bytes(R, S))
+                result["bound"][label] = _bound_ms(R * S * paper_flop_per_sample(small, True),
+                                                   _k1_bytes(R, S))
         result["err"][label] = errs
         result["readings"][label] = worst
         w_max = max(worst, key=lambda n: worst[n][0])
         w_norm = max(worst, key=lambda n: worst[n][1])
         result["grad_rel"][label] = (w_max, worst[w_max][0], w_norm, worst[w_norm][1])
-        line = (f"R={R} S={S} {kind}, {K1_SEEDS} seeds: rgb err {errs['rgb']:.3g}, weights err "
-                f"{errs['weights']:.3g}; worst grad max err {w_max} {worst[w_max][0]:.4f}·max, "
+        line = (f"{what} R={R} S={S} {kind}, {K1_SEEDS} seeds: rgb err {errs['rgb']:.3g}, weights "
+                f"err {errs['weights']:.3g}; worst grad max err {w_max} {worst[w_max][0]:.4f}·max, "
                 f"worst ‖err‖ {w_norm} {worst[w_norm][1]:.4f}·‖r‖; bit-identical over 2 launches")
         if R == TRAIN_RAYS:
-            flops = R * S * K1_FLOP_PER_SAMPLE
+            fps = paper_flop_per_sample(small, True)
             line += (f"; kernel {result['ms'][label]:.3f} ms "
-                     f"({flops / result['ms'][label] / 1e9:.1f} TFLOP/s at "
-                     f"{K1_FLOP_PER_SAMPLE / 1e6:.4f} MFLOP a sample), plain "
+                     f"({R * S * fps / result['ms'][label] / 1e9:.1f} TFLOP/s at "
+                     f"{fps / 1e6:.4f} MFLOP a sample, bound {result['bound'][label][0]:.3f}), plain "
                      f"{result['plain_ms'][label]:.3f} ms")
-        phase("train_kernel", line)
+        phase(name, line)
     # every tensor's worst readings per case, the calibration of the limits
-    for name in names + ["bg"]:
-        cells = [f"{label} {result['readings'][label][name][0]:.2e}/"
-                 f"{result['readings'][label][name][1]:.2e}"
-                 for label, *_ in cases if name in result["readings"][label]]
-        limits = {R: "/".join(map(str, k1_grad_limits(R, name))) for _, R, *_ in cases}
-        phase("train_kernel", f"  grad {name:6s} max/norm rel err: {', '.join(cells)} (limits "
-                              + ", ".join(f"{v} at R={R}" for R, v in limits.items()) + ")")
+    for t in names + ["bg"]:
+        cells = [f"{label} {result['readings'][label][t][0]:.2e}/"
+                 f"{result['readings'][label][t][1]:.2e}"
+                 for label, *_ in cases if t in result["readings"][label]]
+        if not cells:
+            continue
+        limits = {R: "/".join(map(str, k1_grad_limits(R, t))) for _, R, *_ in cases}
+        phase(name, f"  {what} grad {t:6s} max/norm rel err: {', '.join(cells)} (limits "
+                    + ", ".join(f"{v} at R={R}" for R, v in limits.items()) + ")")
     return result
 
 
-def _train_cfg(steps, logdir):
-    import copy
+def _k3_bytes(n_rays, n_samples, backward):
+    """The bytes K3f / K3b must move: each input read once (rays, depths,
+    dir_c, the packed weights; g and the transposed weights for K3b), each
+    output written once ((R, S, 4); the gradients and d_dir for K3b)."""
+    from nerface_tpu_torch.ops.kernels.fused_mlp import F_OFFSETS, W_OFFSETS, WT_OFFSETS
 
-    d = copy.deepcopy(SYNTH512_PAPER)
+    rays = n_rays * 4 * (3 + 3 + n_samples + 128)
+    samples = n_rays * n_samples * 4 * 4  # (R, S, 4) f32: the output, or g
+    weights = 2 * W_OFFSETS["TOTAL"] + 4 * F_OFFSETS["TOTAL"]
+    if not backward:
+        return rays + samples + weights
+    grads = 4 * (W_OFFSETS["TOTAL"] + F_OFFSETS["TOTAL"]) + n_rays * 4 * 128
+    return rays + samples + weights + 2 * WT_OFFSETS["TOTAL"] + grads
+
+
+def paper_mlp_kernel_phase(dev):
+    """K3f `fused_paper_mlp_forward` and K3b `fused_paper_mlp_backward`
+    (csrc/fused_paper_mlp.cu) against their plain versions, both modes, on
+    He-scaled weights, K3_SEEDS draws a case: R = 2048 at S = 64 and 128
+    (forward and backward) and one 65536-ray tile at each (forward, the
+    paper model: the σ-noise frame's tiles)."""
+    import torch
+
+    from nerface_tpu_torch.ops.kernels import fused_mlp as K
+    from nerface_tpu_torch.ops.kernels.fused_train import prefold_paper_params
+
+    result = {"err": {}, "readings": {}, "ms": {}, "plain_ms": {}, "bound": {}, "tile_ms": {},
+              "bwd_ms": {}, "bwd_plain_ms": {}, "bwd_bound": {}, "grad_rel": {},
+              "abs_err": 0.0, "grad_abs_err": 0.0}
+    cases = [(f"{m}_{S}", small, R, S)
+             for small, m in ((False, "paper"), (True, "small"))
+             for R, S in ((TRAIN_RAYS, 64), (TRAIN_RAYS, 128))]
+    cases += [("paper_tile64", False, TILE_RAYS, 64), ("paper_tile128", False, TILE_RAYS, 128)]
+    for c, (label, small, R, S) in enumerate(cases):
+        what = "K3 small" if small else "K3"
+        names = _bundle_names(small)
+        worst, out_err = {}, {"rgb": 0.0, "sigma": 0.0}
+        for i in range(K3_SEEDS):
+            params = _k1_params(SEED + 11 + 100 * i + (50 if small else 0), dev, small)
+            gen = torch.Generator().manual_seed(SEED + 12 + 100 * i + c)
+            ro, rd, z, _, _, _, pe_dir, cond = _train_kernel_inputs(R, S, gen, dev)
+            bundle = [t.contiguous() for t in prefold_paper_params(
+                params, cond, pe_dir, 10, small=small, dir_expr_offset=(256 + 24) if small else 0)]
+            kw = dict(small=small)
+            args = (bundle, ro, rd, z)
+            got = K.fused_paper_mlp_forward(*args, **kw)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()), f"{label}: K3f output not finite")
+            check(torch.equal(got, K.fused_paper_mlp_forward(*args, **kw)),
+                  f"{label} seed {i}: two K3f launches differ")
+            # the plain version's activations at 65536 rays take tens of GB:
+            # chunks of 8192 rays (dir_contrib is per ray)
+            ref = torch.cat([
+                K.fused_paper_mlp_reference(
+                    bundle[:2] + [bundle[2][j:j + 8192]] + bundle[3:], ro[j:j + 8192],
+                    rd[j:j + 8192], z[j:j + 8192], **kw)
+                for j in range(0, R, 8192)
+            ])
+            for part, sl in (("rgb", slice(0, 3)), ("sigma", slice(3, 4))):
+                e = float((got[..., sl] - ref[..., sl]).abs().max())
+                scale = float(ref[..., sl].abs().max())
+                check(e <= K3_OUT_TOL * scale,
+                      f"{label} seed {i}: K3f {part} max err {e} > {K3_OUT_TOL}·{scale}")
+                out_err[part] = max(out_err[part], e / scale)
+                result["abs_err"] = max(result["abs_err"], e)
+            del ref
+            fps = paper_flop_per_sample(small, False)
+            if i == 0:
+                key = "tile_ms" if R == TILE_RAYS else "ms"
+                result[key][label] = _median_ms(lambda: K.fused_paper_mlp_forward(*args, **kw),
+                                                iters=10 if R == TILE_RAYS else 15)
+                if R == TRAIN_RAYS:
+                    result["plain_ms"][label] = _median_ms(
+                        lambda: K.fused_paper_mlp_reference(*args, **kw), warmup=1, iters=5)
+                    result["bound"][label] = _bound_ms(R * S * fps, _k3_bytes(R, S, False))
+            if R != TRAIN_RAYS:
+                continue
+            g = torch.randn(R, S, 4, generator=gen).to(dev)
+            grads = K.fused_paper_mlp_backward(*args, g, **kw)
+            torch.cuda.synchronize()
+            grads2 = K.fused_paper_mlp_backward(*args, g, **kw)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(grads, grads2)),
+                  f"{label} seed {i}: two K3b launches gave different gradients")
+            rgrads = K.fused_paper_mlp_backward_reference(*args, g, **kw)
+            result["grad_abs_err"] = max(
+                result["grad_abs_err"],
+                _grad_readings(f"{label} seed {i}", what, R, names, grads, rgrads, worst))
+            if i == 0:
+                result["bwd_ms"][label] = _median_ms(
+                    lambda: K.fused_paper_mlp_backward(*args, g, **kw), iters=10)
+                result["bwd_plain_ms"][label] = _median_ms(
+                    lambda: K.fused_paper_mlp_backward_reference(*args, g, **kw), warmup=1, iters=3)
+                result["bwd_bound"][label] = _bound_ms(R * S * paper_flop_per_sample(small, True),
+                                                       _k3_bytes(R, S, True))
+        result["err"][label] = out_err
+        line = (f"{what} R={R} S={S}, {K3_SEEDS} seeds: K3f max err rgb {out_err['rgb']:.2e}·max, "
+                f"σ {out_err['sigma']:.2e}·max (limit {K3_OUT_TOL}), bit-identical over 2 launches")
+        fps, bps = paper_flop_per_sample(small, False), paper_flop_per_sample(small, True)
+        if R == TILE_RAYS:
+            ms = result["tile_ms"][label]
+            line += f"; K3f {ms:.3f} ms, {R * S * fps / ms / 1e9:.1f} TFLOP/s"
+        else:
+            result["readings"][label] = worst
+            w_max = max(worst, key=lambda k: worst[k][0])
+            w_norm = max(worst, key=lambda k: worst[k][1])
+            result["grad_rel"][label] = (w_max, worst[w_max][0], w_norm, worst[w_norm][1])
+            fw, bw = result["ms"][label], result["bwd_ms"][label]
+            line += (f"; K3b worst grad max err {w_max} {worst[w_max][0]:.4f}·max, worst ‖err‖ "
+                     f"{w_norm} {worst[w_norm][1]:.4f}·‖r‖; bit-identical over 2 launches; "
+                     f"K3f {fw:.3f} ms ({R * S * fps / fw / 1e9:.1f} TFLOP/s at {fps / 1e6:.4f} "
+                     f"MFLOP a sample, bound {result['bound'][label][0]:.3f}), plain "
+                     f"{result['plain_ms'][label]:.3f} ms; K3b {bw:.3f} ms "
+                     f"({R * S * bps / bw / 1e9:.1f} TFLOP/s at {bps / 1e6:.4f} MFLOP a sample, "
+                     f"bound {result['bwd_bound'][label][0]:.3f}), plain "
+                     f"{result['bwd_plain_ms'][label]:.3f} ms")
+        phase("paper_mlp_kernel", line)
+    for t in _bundle_names(False):
+        cells = [f"{label} {result['readings'][label][t][0]:.2e}/{result['readings'][label][t][1]:.2e}"
+                 for label in result["readings"] if t in result["readings"][label]]
+        phase("paper_mlp_kernel", f"  K3b grad {t:5s} max/norm rel err: {', '.join(cells)} (limits "
+                                  f"{'/'.join(map(str, k1_grad_limits(TRAIN_RAYS, t)))})")
+    return result
+
+
+def _train_cfg(steps, logdir, cfg_dict=SYNTH512_PAPER):
+    d = copy.deepcopy(cfg_dict)
     d["experiment"].update(logdir=logdir, train_iters=steps, print_every=10,
                            validate_every=1000, save_every=1000)
     return d
@@ -704,123 +1009,160 @@ def _train_dataset():
                                    with_images=True)
 
 
-def train_step_phase(dev, ds):
-    """One step's losses and gradients both ways from the same weights,
-    batch and draws (the update itself is Adam's, the same code both ways)."""
-    import copy
+def _launch_counts():
+    """The wrappers' launch counters of the paper family's kernels."""
+    from nerface_tpu_torch.ops.kernels import fused_mlp as K
+    from nerface_tpu_torch.ops.kernels.fused_train import fused_train_pass
 
+    return {"K1": fused_train_pass, "K2": K.fused_paper_render, "K3f": K.fused_paper_mlp_forward,
+            "K3b": K.fused_paper_mlp_backward}
+
+
+def train_step_phase(dev, ds, cfg_dict=SYNTH512_PAPER, name="train_step"):
+    """One step's losses and gradients both ways from the same weights,
+    batch and draws (the update itself is Adam's, the same code both ways):
+    bf16 on the card (through K1 where the step is eligible, else through
+    K3) against the f32 plain path. Every parameter the f32 step gives a
+    gradient gets one in bf16, within 0.25·max."""
     import torch
 
     from nerface_tpu_torch.config import CfgNode, FeatureFlags
     from nerface_tpu_torch.data.pipeline import RayFeed, batch_to_device
-    from nerface_tpu_torch.ops.kernels.fused_train import fused_train_pass
     from nerface_tpu_torch.render.pipeline import RenderSettings
     from nerface_tpu_torch.train.fused import fused_losses, fused_train_eligible
     from nerface_tpu_torch.train.loop import build_models_from_cfg, setup_background
     from nerface_tpu_torch.train.state import create_train_state
     from nerface_tpu_torch.train.step import compute_losses
 
-    cfg = CfgNode(SYNTH512_PAPER)
+    cfg = CfgNode(cfg_dict)
     flags = FeatureFlags.from_cfg(cfg)
     settings = RenderSettings.from_cfg(cfg, mode="train")
     bg = setup_background(ds, flags)
     batch = batch_to_device(RayFeed(ds, TRAIN_RAYS, background=bg, seed=SEED).sample_batch(), dev)
     mc, mf = build_models_from_cfg(cfg, device=dev, generator=torch.Generator().manual_seed(SEED))
-    check(fused_train_eligible(mc, mf, settings, flags, torch.bfloat16, dev),
-          "the flagship config is not eligible for K1")
+    fused = fused_train_eligible(mc, mf, settings, flags, torch.bfloat16, dev)
+    n_pass = 2 if mf is not None else 1
+    want = {"K1": n_pass, "K3f": 0, "K3b": 0} if fused else {"K1": 0, "K3f": n_pass, "K3b": n_pass}
     latent = torch.randn(len(ds.i_train), 32, generator=torch.Generator().manual_seed(1)) * 0.1
+    counters = _launch_counts()
     out = {}
-    for label, losses in (("bf16", fused_losses), ("f32", compute_losses)):
+    for label in ("bf16", "f32"):
         state = create_train_state(copy.deepcopy(mc), copy.deepcopy(mf), flags,
                                    n_train=len(ds.i_train), background=bg, device=dev)
         with torch.no_grad():
             state.latent_codes.copy_(latent)
-        before = fused_train_pass.launches
-        total, _ = losses(state, batch, 7, settings, flags)
+        before = {k: c.launches for k, c in counters.items()}
+        if label == "bf16" and fused:
+            total, _ = fused_losses(state, batch, 7, settings, flags)
+        else:
+            total, _ = compute_losses(state, batch, 7, settings, flags,
+                                      dtype=torch.bfloat16 if label == "bf16" else None)
         total.backward()
         torch.cuda.synchronize()
-        launched = fused_train_pass.launches - before
-        check(launched == (2 if label == "bf16" else 0), f"{label} step launched K1 {launched} times")
-        grads = {f"coarse.{n}": p.grad for n, p in state.model_coarse.named_parameters()}
-        grads.update({f"fine.{n}": p.grad for n, p in state.model_fine.named_parameters()})
+        launched = {k: c.launches - before[k] for k, c in counters.items()}
+        expect = dict(want, K2=0) if label == "bf16" else dict.fromkeys(counters, 0)
+        check(all(launched[k] == v for k, v in expect.items()),
+              f"{name}: the {label} step launched {launched}, expected {expect}")
+        grads = {}
+        for which, m in (("coarse", state.model_coarse), ("fine", state.model_fine)):
+            if m is not None:
+                grads.update({f"{which}.{n}": p.grad for n, p in m.named_parameters()})
         grads["latent_codes"] = state.latent_codes.grad
         out[label] = (float(total.detach()), grads)
     loss_b, gb = out["bf16"]
     loss_f, gf = out["f32"]
-    check(abs(loss_b - loss_f) <= 0.03 * abs(loss_f), f"step loss bf16 {loss_b} vs f32 {loss_f}")
-    worst, worst_rel = "", 0.0
-    for name, g32 in gf.items():
+    check(abs(loss_b - loss_f) <= 0.03 * abs(loss_f), f"{name}: loss bf16 {loss_b} vs f32 {loss_f}")
+    worst, worst_rel, n_grads = "", 0.0, 0
+    for t, g32 in gf.items():
         if g32 is None:  # layers_dir.3: never reaches the loss
-            check(gb[name] is None, f"{name}: bf16 grad where f32 has none")
+            check(gb[t] is None, f"{name}: {t}: bf16 grad where f32 has none")
             continue
+        check(gb[t] is not None, f"{name}: {t} has an f32 gradient and no bf16 one")
         scale = float(g32.abs().max())
-        e = float((gb[name] - g32).abs().max())
-        check(bool(torch.isfinite(gb[name]).all()), f"bf16 step grad {name} not finite")
-        check(e <= 0.25 * scale + 2e-6, f"step grad {name}: err {e} > 0.25·{scale}")
+        e = float((gb[t] - g32).abs().max())
+        check(bool(torch.isfinite(gb[t]).all()), f"{name}: bf16 step grad {t} not finite")
+        check(e <= 0.25 * scale + 2e-6, f"{name}: step grad {t}: err {e} > 0.25·{scale}")
+        n_grads += 1
         if scale > 0 and e / scale > worst_rel:
-            worst, worst_rel = name, e / scale
-    phase("train_step", f"{TRAIN_RAYS} rays, 64+64 samples, σ-noise 0.1: loss bf16/K1 {loss_b:.6f} vs "
-                        f"f32 plain {loss_f:.6f} (rel {abs(loss_b - loss_f) / loss_f:.4f}); "
-                        f"worst grad {worst} {worst_rel:.4f}·max (limit 0.25)")
-    return {"loss_bf16": loss_b, "loss_f32": loss_f, "worst_grad_rel": worst_rel}
+            worst, worst_rel = t, e / scale
+    via = "K1" if fused else "K3"
+    phase(name, f"{TRAIN_RAYS} rays, {settings.num_coarse}+{settings.num_fine} samples, σ-noise "
+                f"{settings.radiance_field_noise_std}: loss bf16/{via} {loss_b:.6f} vs f32 plain "
+                f"{loss_f:.6f} (rel {abs(loss_b - loss_f) / loss_f:.4f}); {n_grads} parameters with "
+                f"a gradient, each in bf16 too; worst grad {worst} {worst_rel:.4f}·max (limit 0.25); "
+                f"launches {want}")
+    return {"loss_bf16": loss_b, "loss_f32": loss_f, "worst_grad_rel": worst_rel,
+            "n_grads": n_grads}
 
 
-def train_phase(dev, ds, tmp, profile, card):
+def train_phase(dev, ds, tmp, profile, card, cfg_dict=SYNTH512_PAPER, steps=TRAIN_STEPS,
+                name="train"):
+    """The main path: `train()` of `cfg_dict` in bf16 on the card for
+    `steps` steps with one validation at step 0 and saves at step 0 and the
+    end. The paper family's launches: K1 2 a step (K3f and K3b 1 a pass a
+    step where K1 refuses the step), K2 2 a tile of the 2 validation frames
+    (1 without a fine pass)."""
     import torch
 
     from nerface_tpu_torch.config import CfgNode
-    from nerface_tpu_torch.ops.kernels.fused_mlp import fused_paper_render
-    from nerface_tpu_torch.ops.kernels.fused_train import fused_train_pass
+    from nerface_tpu_torch.render.pipeline import RenderSettings
     from nerface_tpu_torch.train.checkpoint import load_torch_checkpoint
     from nerface_tpu_torch.train.loop import train
 
-    cfg = CfgNode(_train_cfg(TRAIN_STEPS, tmp))
+    cfg = CfgNode(_train_cfg(steps, os.path.join(tmp, name), cfg_dict))
+    n_pass = 2 if "fine" in cfg.models else 1
+    tiles = -(-ds.H * ds.W // int(cfg.nerf.validation.chunksize))
+    k1 = RenderSettings.from_cfg(cfg, "train").num_fine > 0
+    want = {"K1": n_pass * steps if k1 else 0, "K2": n_pass * tiles * 2,
+            "K3f": 0 if k1 else n_pass * steps, "K3b": 0 if k1 else n_pass * steps}
+    counters = _launch_counts()
+    for c in counters.values():
+        c.launches = 0
     out = io.StringIO()
-    fused_train_pass.launches = 0
-    fused_paper_render.launches = 0
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         state = train(cfg, dataset=ds, dtype=torch.bfloat16, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k1, k2 = fused_train_pass.launches, fused_paper_render.launches
+    launched = {k: c.launches for k, c in counters.items()}
     print(out.getvalue(), end="", flush=True)
-    check(k1 == 2 * TRAIN_STEPS, f"K1 launches {k1} != 2 x {TRAIN_STEPS} steps")
-    tiles = -(-ds.H * ds.W // int(cfg.nerf.validation.chunksize))
-    check(k2 == 2 * tiles * 2, f"K2 launches {k2} != 2 x {tiles} tiles x 2 frames")
+    check(launched == want, f"{name}: launches {launched}, expected {want}")
     # the losses the loop printed: every 10th step and the last
     printed = {int(i): float(v) for i, v in
                re.findall(r"\[TRAIN\] Iter: (\d+) Loss: (\S+)", out.getvalue())}
-    want = sorted(set(range(0, TRAIN_STEPS, 10)) | {TRAIN_STEPS - 1})
-    check(sorted(printed) == want, f"printed steps {sorted(printed)} != {want}")
-    check(all(math.isfinite(v) for v in printed.values()), f"non-finite loss: {printed}")
-    first = statistics.mean(printed[i] for i in want if i < 20)
-    last = statistics.mean(printed[i] for i in want if i >= TRAIN_STEPS - 10)
-    check(last < first, f"loss did not fall: steps < 20 {first}, last 10 steps {last}")
-    path = os.path.join(tmp, "synth512_paper", f"checkpoint{TRAIN_STEPS:05d}.ckpt")
+    steps_printed = sorted(set(range(0, steps, 10)) | {steps - 1})
+    check(sorted(printed) == steps_printed, f"{name}: printed steps {sorted(printed)}")
+    check(all(math.isfinite(v) for v in printed.values()), f"{name}: non-finite loss: {printed}")
+    first = statistics.mean(printed[i] for i in steps_printed if i < 20)
+    last = statistics.mean(printed[i] for i in steps_printed if i >= steps - 10)
+    check(last < first, f"{name}: loss did not fall: steps < 20 {first}, last 10 steps {last}")
+    path = os.path.join(tmp, name, str(cfg.experiment.id), f"checkpoint{steps:05d}.ckpt")
     saved = load_torch_checkpoint(path)
     groups = saved["optimizer"]["param_groups"]
-    check(saved["iter"] == TRAIN_STEPS and len(groups) == 2,
-          f"checkpoint iter {saved['iter']}, {len(groups)} param groups")
-    phase("train", f"{TRAIN_STEPS} steps at {ds.H}x{ds.W} (bf16, cuda) in {wall:.1f} s with one "
-                   f"validation and 2 saves; K1 launches {k1} = 2 x {TRAIN_STEPS}, K2 launches "
-                   f"{k2} = 2 x {tiles} tiles x 2 frames; printed loss, mean of steps 0 and 10 "
-                   f"{first:.5f} -> of the last 10 steps {last:.5f}; {os.path.basename(path)} "
-                   f"reloads, 2 param groups")
+    check(saved["iter"] == steps and len(groups) == 2,
+          f"{name}: checkpoint iter {saved['iter']}, {len(groups)} param groups")
+    check(set(saved["coarse"]) == set(state.model_coarse.state_dict())
+          and (saved["fine"] is None) == (state.model_fine is None), f"{name}: checkpoint keys")
+    phase(name, f"{steps} steps of {cfg.models.coarse.type}"
+                f"{'' if n_pass == 2 else ' (coarse only)'} at {ds.H}x{ds.W} (bf16, {dev.type}) in "
+                f"{wall:.1f} s with one validation and 2 saves; launches {launched} = {want}; "
+                f"printed loss, mean of steps 0 and 10 {first:.5f} -> of the last 10 steps "
+                f"{last:.5f}; {os.path.basename(path)} reloads, 2 param groups")
 
     # steady steps, synchronised, from the trained state
-    launches_before = fused_train_pass.launches
+    launches_before = {k: c.launches for k, c in counters.items()}
     times, step, feed = _steady_steps(state, cfg, ds, dev)
     step_ms = statistics.median(times)
-    phase("train", f"steady step {step_ms:.2f} ms (median of 15, synchronised; min "
-                   f"{min(times):.2f}, max {max(times):.2f}), {TRAIN_RAYS / step_ms * 1e3:,.0f} "
-                   f"rays/s on {card}")
-    result = {"k1_launches": k1, "k2_launches": k2, "step_ms": step_ms,
-              "rays_s": TRAIN_RAYS / step_ms * 1e3, "loss_printed": printed}
+    phase(name, f"steady step {step_ms:.2f} ms (median of 15, synchronised; min "
+                f"{min(times):.2f}, max {max(times):.2f}), {TRAIN_RAYS / step_ms * 1e3:,.0f} "
+                f"rays/s on {card}")
+    result = {"launches": launched, "step_ms": step_ms, "rays_s": TRAIN_RAYS / step_ms * 1e3,
+              "loss_printed": printed}
     if profile:
-        _profile_steps("profile_train", step, "train step")
+        _profile_steps(f"profile_{name}", step, f"{name} step")
     feed.stop()
-    check(fused_train_pass.launches > launches_before, "steady steps did not launch K1")
+    main = "K1" if k1 else "K3f"
+    check(counters[main].launches > launches_before[main], f"{name}: steady steps did not launch {main}")
     return result
 
 
@@ -1236,31 +1578,49 @@ def main() -> int:
 
     build_phase()
     k = kernel_phase(dev)
+    ks = kernel_phase(dev, small=True)
     with tempfile.TemporaryDirectory() as tmp:
         server, s = serve_phase(dev, tmp)
         if args.profile:
             profile_phase(server)
         del server
+        server, ss = serve_phase(dev, tmp, SYNTH512_SMALLER, "smaller_serve", SEED + 6)
+        del server
+        nf = noisy_frame_phase(dev, tmp)
         tk = train_kernel_phase(dev)
+        tks = train_kernel_phase(dev, small=True)
+        pk = paper_mlp_kernel_phase(dev)
         ds = _train_dataset()
         ts = train_step_phase(dev, ds)
         tr = train_phase(dev, ds, tmp, args.profile, card)
+        st = train_phase(dev, ds, tmp, False, card, SYNTH512_SMALLER, PAPER_TRAIN_STEPS,
+                         "smaller_train")
+        cs = train_step_phase(dev, ds, SYNTH512_PAPER_COARSE, "coarse_train")
+        ct = train_phase(dev, ds, tmp, args.profile, card, SYNTH512_PAPER_COARSE,
+                         PAPER_TRAIN_STEPS, "coarse_train")
         fk = flex_kernel_phase(dev)
         fs = flex_serve_phase(dev, tmp)
         ft = flex_train_phase(dev, ds, tmp, args.profile, card)
 
-    errs = [v for errs in k["err"].values() for key, v in errs.items()
+    errs = [v for r in (k, ks) for errs in r["err"].values() for key, v in errs.items()
             if key in ("rgb", "acc", "bg_weight", "weights")]
     k2_bound = [_bound_ms(KERNEL_RAYS * S * K2_FLOP_PER_SAMPLE, _k2_bytes(KERNEL_RAYS, S, w))[0]
                 for S, w in ((64, True), (128, False))]
     k1_bound = [tk["bound"][p][0] for p in ("coarse", "fine")]
+    # the coarse-only training pass: 2048 rays at S = 64, the paper model
+    k3 = "paper_64"
     kernels = {"kernels": [
         {
             "name": "fused_paper_render",
             "route": "cuda",
             "source": "nerface_tpu_torch/csrc/fused_paper_render.cu",
             "replaces": "nerface_tpu/ops/pallas/fused_mlp.py:652",
-            "launches": s["launches"],
+            "modes": ["paper", "small"],
+            "launches": s["launches"] + ss["launches"],
+            "launches_by_path": {"serve": s["launches"], "smaller_serve": ss["launches"],
+                                 "train": tr["launches"]["K2"],
+                                 "smaller_train": st["launches"]["K2"],
+                                 "coarse_train": ct["launches"]["K2"]},
             "max_abs_err": max(errs),
             # one coarse (S=64, weights) + one fine (S=128) call on 4096 rays
             "ms": k["ms"]["coarse"] + k["ms"]["fine"],
@@ -1271,7 +1631,11 @@ def main() -> int:
             "ms_by_pass": k["ms"],
             "plain_ms_by_pass": k["plain_ms"],
             "tile_ms_by_pass": k["tile_ms"],  # 65536 rays
+            "small_ms_by_pass": ks["ms"],
+            "small_plain_ms_by_pass": ks["plain_ms"],
+            "small_tile_ms_by_pass": ks["tile_ms"],
             "frame_ms_512": s["frame_ms"],
+            "smaller_frame_ms_512": ss["frame_ms"],
             "card": card,
         },
         {
@@ -1279,8 +1643,11 @@ def main() -> int:
             "route": "cuda",
             "source": "nerface_tpu_torch/csrc/fused_train_pass.cu",
             "replaces": "nerface_tpu/ops/pallas/fused_train.py:69",
-            "launches": tr["k1_launches"],
-            "max_abs_err": max(v for e in tk["err"].values() for v in e.values()),
+            "modes": ["paper", "small"],
+            "launches": tr["launches"]["K1"] + st["launches"]["K1"],
+            "launches_by_path": {"train": tr["launches"]["K1"],
+                                 "smaller_train": st["launches"]["K1"]},
+            "max_abs_err": max(v for r in (tk, tks) for e in r["err"].values() for v in e.values()),
             # a train step's two passes: coarse (S=64) + fine (S=128), 2048 rays
             "ms": tk["ms"]["coarse"] + tk["ms"]["fine"],
             "plain_ms": tk["plain_ms"]["coarse"] + tk["plain_ms"]["fine"],
@@ -1291,9 +1658,60 @@ def main() -> int:
             "ms_by_pass": tk["ms"],
             "plain_ms_by_pass": tk["plain_ms"],
             "worst_grad_rel": tk["grad_rel"],
+            "small_ms_by_pass": tks["ms"],
+            "small_plain_ms_by_pass": tks["plain_ms"],
+            "small_bound_ms_by_pass": {p: tks["bound"][p][0] for p in tks["bound"]},
+            "small_worst_grad_rel": tks["grad_rel"],
             "train_step_ms": tr["step_ms"],
             "train_rays_s": tr["rays_s"],
+            "smaller_train_step_ms": st["step_ms"],
             "step_vs_f32": ts,
+            "card": card,
+        },
+        {
+            "name": "fused_paper_mlp_fwd",
+            "route": "cuda",
+            "source": "nerface_tpu_torch/csrc/fused_paper_mlp.cu",
+            "replaces": "nerface_tpu/ops/pallas/fused_mlp.py:234",
+            "modes": ["paper", "small"],
+            # the paths through K3f: coarse-only training and the σ-noise frame
+            "launches": ct["launches"]["K3f"] + nf["launches"],
+            "launches_by_path": {"coarse_train": ct["launches"]["K3f"],
+                                 "noisy_frame": nf["launches"]},
+            "max_abs_err": pk["abs_err"],  # of raw rgb and σ, all cases
+            "max_rel_err": pk["err"],  # relative to max|plain| per case
+            # the coarse-only training pass: 2048 rays at S = 64
+            "ms": pk["ms"][k3],
+            "plain_ms": pk["plain_ms"][k3],
+            "bound_ms": pk["bound"][k3][0],
+            "bound_by": pk["bound"][k3][1],
+            "library_ms": None,  # no single PyTorch call computes it
+            "ms_by_case": pk["ms"],
+            "plain_ms_by_case": pk["plain_ms"],
+            "bound_ms_by_case": {c: b[0] for c, b in pk["bound"].items()},
+            "tile_ms_by_case": pk["tile_ms"],  # 65536 rays
+            "noisy_frame_ms_512": nf["frame_ms"],
+            "card": card,
+        },
+        {
+            "name": "fused_paper_mlp_bwd",
+            "route": "cuda",
+            "source": "nerface_tpu_torch/csrc/fused_paper_mlp.cu",
+            "replaces": "nerface_tpu/ops/pallas/fused_mlp.py:333",
+            "modes": ["paper", "small"],
+            "launches": ct["launches"]["K3b"],
+            "max_abs_err": pk["grad_abs_err"],  # over every gradient tensor
+            "worst_grad_rel": pk["grad_rel"],  # (max error, norm error) per case
+            "ms": pk["bwd_ms"][k3],
+            "plain_ms": pk["bwd_plain_ms"][k3],
+            "bound_ms": pk["bwd_bound"][k3][0],
+            "bound_by": pk["bwd_bound"][k3][1],
+            "library_ms": None,  # no single PyTorch call computes it
+            "ms_by_case": pk["bwd_ms"],
+            "plain_ms_by_case": pk["bwd_plain_ms"],
+            "bound_ms_by_case": {c: b[0] for c, b in pk["bwd_bound"].items()},
+            "coarse_train_step_ms": ct["step_ms"],
+            "step_vs_f32": cs,
             "card": card,
         },
         {

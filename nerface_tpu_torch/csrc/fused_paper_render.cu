@@ -6,8 +6,10 @@
 // (pallas_call at fused_mlp.py:811). Python side:
 // nerface_tpu_torch/ops/kernels/fused_mlp.py (wrapper, operand packing, and
 // the plain PyTorch version `fused_paper_render_reference`).
-// The encode, dense-layer and head code is shared with K1
-// (fused_train_pass.cu) in mma_tile.cuh.
+// Steps 1-3 below are `render_tile` in mma_tile.cuh, shared with K3f
+// (fused_paper_mlp.cu); the encode, dense-layer and head code with K1
+// (fused_train_pass.cu) too. `small` selects the smaller paper model, whose
+// trunk has no layers_xyz.5 (256→256 ×1 after the skip).
 //
 // What one CTA does, for a tile of 128 sample rows (2 rays at S = 64, 1 ray
 // at S = 128):
@@ -58,14 +60,6 @@ using namespace nerface;
 
 namespace {
 
-struct Smem {
-  bf16 act[2][TILE_ROWS * LD_ACT];
-  bf16 wstage[2][KC * LD_W];
-  bf16 xin[TILE_ROWS * LD_XIN];
-  float sigma[TILE_ROWS];
-  float rgb[TILE_ROWS * 3];
-};
-
 struct Args {
   const float* ro;     // (R, 3)
   const float* rd;     // (R, 3)
@@ -85,50 +79,16 @@ struct Args {
   int white_bg;
 };
 
-template <int N, int K0, int K1, class Epi>
-__device__ __forceinline__ void layer(Smem& sm, const bf16* A0, int lda0, const bf16* A1,
-                                      const bf16* Wt, bf16* out, const Epi& epi) {
-  mma_layer<N, K0, K1, false>(sm.wstage[0], sm.wstage[1], A0, lda0, A1, Wt, out, nullptr, nullptr,
-                              epi);
-}
-
-template <int S>
+template <int S, bool SMALL>
 __global__ void __launch_bounds__(THREADS, 1) render_kernel(const Args a) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  RenderSmem& sm = *reinterpret_cast<RenderSmem*>(smem_raw);
   constexpr int RAYS = TILE_ROWS / S;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int ray0 = blockIdx.x * RAYS;
-  const bf16* W = a.W;
-  const float* F = a.F;
-  using Relu = EpiBias<true>;
-  using Linear = EpiBias<false>;
 
-  // 1. [xyz; sin(x·f + φ); 0] per sample row, bf16
-  encode_tile<S>(sm.xin, nullptr, a.ro, a.rd, a.z, F + F_OFF_FREQS, ray0, a.n_rays, a.n_freqs);
-
-  bf16* A = sm.act[0];
-  bf16* B = sm.act[1];
-  // 2. trunk (cond0 / cond3 carry the folded per-frame conditioning)
-  layer<HIDDEN, K_XIN, 0>(sm, sm.xin, LD_XIN, nullptr, W + W_OFF_W0, A, Relu{F + F_OFF_COND0});
-  layer<HIDDEN, HIDDEN, 0>(sm, A, LD_ACT, nullptr, W + W_OFF_W1, B, Relu{F + F_OFF_B1});
-  layer<HIDDEN, HIDDEN, 0>(sm, B, LD_ACT, nullptr, W + W_OFF_W2, A, Relu{F + F_OFF_B2});
-  layer<HIDDEN, K_XIN, HIDDEN>(sm, sm.xin, LD_XIN, A, W + W_OFF_W3, B, Relu{F + F_OFF_COND3});
-  layer<HIDDEN, HIDDEN, 0>(sm, B, LD_ACT, nullptr, W + W_OFF_W4, A, Relu{F + F_OFF_B4});
-  layer<HIDDEN, HIDDEN, 0>(sm, A, LD_ACT, nullptr, W + W_OFF_W5, B, Relu{F + F_OFF_B5});
-  layer<HIDDEN, HIDDEN, 0>(sm, B, LD_ACT, nullptr, W + W_OFF_WF, A, Linear{F + F_OFF_BF});  // A = feat
-
-  // 3a. σ head
-  sigma_head(sm.sigma, A, W + W_OFF_WA, F[F_OFF_BA]);
-
-  // 2b. direction branch
-  layer<DIR_HIDDEN, HIDDEN, 0>(sm, A, LD_ACT, nullptr, W + W_OFF_WD0, B,
-                               EpiDirRelu<S>{F + F_OFF_BD0, a.dir_c, ray0, a.n_rays});
-  layer<DIR_HIDDEN, DIR_HIDDEN, 0>(sm, B, LD_ACT, nullptr, W + W_OFF_WD1, A, Relu{F + F_OFF_BD1});
-  layer<DIR_HIDDEN, DIR_HIDDEN, 0>(sm, A, LD_ACT, nullptr, W + W_OFF_WD2, B, Relu{F + F_OFF_BD2});
-
-  // 3b. rgb head
-  rgb_head(sm.rgb, B, W + W_OFF_WRGB, F + F_OFF_BRGB);
+  // 1.-3. encode, the MLP, the σ and rgb heads (mma_tile.cuh)
+  render_tile<S, SMALL>(sm, a.ro, a.rd, a.z, a.dir_c, a.W, a.F, ray0, a.n_rays, a.n_freqs);
 
   // 4. compositing: warp w owns ray ray0 + w; lane l owns samples
   // [l·SPL, (l+1)·SPL).
@@ -209,15 +169,12 @@ __global__ void __launch_bounds__(THREADS, 1) render_kernel(const Args a) {
   }
 }
 
-template <int S>
-int launch(const Args& args, int grid, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(render_kernel<S>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)sizeof(Smem));
-  if (e != cudaSuccess) return (int)e;
-  render_kernel<S><<<grid, THREADS, sizeof(Smem), stream>>>(args);
-  return (int)cudaGetLastError();
-}
+template <int S, bool SMALL>
+struct Render {
+  static int run(const Args& args, int grid, cudaStream_t s) {
+    return launch_tiles(render_kernel<S, SMALL>, sizeof(RenderSmem), grid, s, args);
+  }
+};
 
 }  // namespace
 
@@ -228,7 +185,7 @@ extern "C" int nerface_fused_paper_render(const float* ro, const float* rd, cons
                                           const float* F, float* rgb, float* disp, float* acc,
                                           float* depth, float* bgw, float* weights,
                                           int n_rays, int n_samples, int n_freqs, int white_bg,
-                                          void* stream) {
+                                          int small, void* stream) {
   if (n_rays < 0 || n_freqs < 1 || 3 + 6 * n_freqs > K_XIN) return (int)cudaErrorInvalidValue;
   Args args{ro,  rd,  z,     dir_c, bg,  static_cast<const bf16*>(W), F,      rgb,     disp,
             acc, depth, bgw, weights, n_rays, n_freqs, white_bg};
@@ -236,14 +193,5 @@ extern "C" int nerface_fused_paper_render(const float* ro, const float* rd, cons
   const int grid = (int)((rows + TILE_ROWS - 1) / TILE_ROWS);
   if (grid == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (n_samples) {
-    case 32:
-      return launch<32>(args, grid, s);
-    case 64:
-      return launch<64>(args, grid, s);
-    case 128:
-      return launch<128>(args, grid, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return dispatch_pass<Render>(n_samples, small, args, grid, s);
 }

@@ -1,5 +1,6 @@
-// Backward pieces shared by the training kernels (fused_train_pass.cu, K1;
-// fused_flex.cu, K4b): the dX epilogues, a tile's column sums, and the
+// Backward pieces shared by the training kernels (fused_train_pass.cu, K1,
+// and fused_paper_mlp.cu, K3b, through paper_train.cuh; fused_flex.cu, K4b):
+// the dX epilogues, a tile's column sums, and the
 // deterministic weight gradient dW = Xᵀ·gY over every row of a pass.
 //
 // dW: a CTA of `dw_kernel` owns one 64×64 block of one matrix and one of up

@@ -1,8 +1,9 @@
 // Device code shared by the paper model's kernels (fused_paper_render.cu,
-// fused_train_pass.cu): the packed operand layout, cp.async / ldmatrix /
-// mma.sync wrappers, the positional encoding of a tile's sample points, and
-// one dense layer over a 128-row tile with its epilogue supplied by the
-// caller.
+// fused_train_pass.cu, fused_paper_mlp.cu): the packed operand layout,
+// cp.async / ldmatrix / mma.sync wrappers, the positional encoding of a
+// tile's sample points, one dense layer over a 128-row tile with its
+// epilogue supplied by the caller, and the forward-only MLP over a tile
+// (K2 and K3f).
 //
 // A dense layer: out = epi([A0 | A1] @ Wt) over a tile of 128 sample rows,
 // bf16 `mma.sync.m16n8k16` with f32 accumulation, operands loaded with
@@ -325,6 +326,100 @@ __device__ __forceinline__ void rgb_head(float* rgb, const bf16* x, const bf16* 
     rgb[idx] = sum + brgb[ch];
   }
   __syncthreads();
+}
+
+// Shared memory of a forward-only CTA (K2, K3f).
+struct RenderSmem {
+  bf16 act[2][TILE_ROWS * LD_ACT];
+  bf16 wstage[2][KC * LD_W];
+  bf16 xin[TILE_ROWS * LD_XIN];
+  float sigma[TILE_ROWS];
+  float rgb[TILE_ROWS * 3];
+};
+
+// The paper model's MLP over one tile of 128 sample rows, forward only (K2,
+// K3f): [xyz; sin(x·f + φ); 0] per row, the trunk 64→256, 256→256 ×2, the
+// concat-skip layer [xin; h2] (K = 320)→256, 256→256 ×2 (×1 when SMALL: the
+// smaller model has no layers_xyz.5), fc_feat, the direction branch 256→128
+// (+ the ray's dir contribution) and 128→128 ×2; the raw σ and rgb heads
+// into sm.sigma / sm.rgb, ending with a barrier. Activations ping-pong
+// between the two act buffers; cond0 / cond3 carry the folded per-frame
+// conditioning.
+template <int S, bool SMALL>
+__device__ __forceinline__ void render_tile(RenderSmem& sm, const float* __restrict__ ro,
+                                            const float* __restrict__ rd, const float* __restrict__ z,
+                                            const float* __restrict__ dir_c, const bf16* __restrict__ W,
+                                            const float* __restrict__ F, int ray0, int n_rays, int n_freqs) {
+  using Relu = EpiBias<true>;
+  using Linear = EpiBias<false>;
+  bf16* s0 = sm.wstage[0];
+  bf16* s1 = sm.wstage[1];
+  bf16* A = sm.act[0];
+  bf16* B = sm.act[1];
+  encode_tile<S>(sm.xin, nullptr, ro, rd, z, F + F_OFF_FREQS, ray0, n_rays, n_freqs);
+  mma_layer<HIDDEN, K_XIN, 0, false>(s0, s1, sm.xin, LD_XIN, nullptr, W + W_OFF_W0, A, nullptr, nullptr,
+                                     Relu{F + F_OFF_COND0});
+  mma_layer<HIDDEN, HIDDEN, 0, false>(s0, s1, A, LD_ACT, nullptr, W + W_OFF_W1, B, nullptr, nullptr,
+                                      Relu{F + F_OFF_B1});
+  mma_layer<HIDDEN, HIDDEN, 0, false>(s0, s1, B, LD_ACT, nullptr, W + W_OFF_W2, A, nullptr, nullptr,
+                                      Relu{F + F_OFF_B2});
+  mma_layer<HIDDEN, K_XIN, HIDDEN, false>(s0, s1, sm.xin, LD_XIN, A, W + W_OFF_W3, B, nullptr, nullptr,
+                                          Relu{F + F_OFF_COND3});
+  mma_layer<HIDDEN, HIDDEN, 0, false>(s0, s1, B, LD_ACT, nullptr, W + W_OFF_W4, A, nullptr, nullptr,
+                                      Relu{F + F_OFF_B4});
+  bf16* h = A;  // the trunk's last activation
+  bf16* o = B;
+  if constexpr (!SMALL) {
+    mma_layer<HIDDEN, HIDDEN, 0, false>(s0, s1, h, LD_ACT, nullptr, W + W_OFF_W5, o, nullptr, nullptr,
+                                        Relu{F + F_OFF_B5});
+    h = B;
+    o = A;
+  }
+  mma_layer<HIDDEN, HIDDEN, 0, false>(s0, s1, h, LD_ACT, nullptr, W + W_OFF_WF, o, nullptr, nullptr,
+                                      Linear{F + F_OFF_BF});
+  bf16* feat = o;
+  bf16* x = h;
+  sigma_head(sm.sigma, feat, W + W_OFF_WA, F[F_OFF_BA]);
+  mma_layer<DIR_HIDDEN, HIDDEN, 0, false>(s0, s1, feat, LD_ACT, nullptr, W + W_OFF_WD0, x, nullptr, nullptr,
+                                          EpiDirRelu<S>{F + F_OFF_BD0, dir_c, ray0, n_rays});
+  mma_layer<DIR_HIDDEN, DIR_HIDDEN, 0, false>(s0, s1, x, LD_ACT, nullptr, W + W_OFF_WD1, feat, nullptr,
+                                              nullptr, Relu{F + F_OFF_BD1});
+  mma_layer<DIR_HIDDEN, DIR_HIDDEN, 0, false>(s0, s1, feat, LD_ACT, nullptr, W + W_OFF_WD2, x, nullptr,
+                                              nullptr, Relu{F + F_OFF_BD2});
+  rgb_head(sm.rgb, x, W + W_OFF_WRGB, F + F_OFF_BRGB);
+}
+
+// Launch `kernel` (a 512-thread CTA a tile, `smem` bytes of dynamic shared
+// memory) on `grid` tiles; returns a cudaError_t.
+template <class Kernel, class Args>
+inline int launch_tiles(Kernel kernel, size_t smem, int grid, cudaStream_t stream, const Args& args) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<grid, THREADS, smem, stream>>>(args);
+  return (int)cudaGetLastError();
+}
+
+// Runs FN<S, SMALL>::run(args...) for a pass's sample count and model
+// (SMALL: the smaller paper model); returns its cudaError_t
+// (cudaErrorInvalidValue for a sample count the kernels are not built for).
+template <template <int, bool> class FN, class... Args>
+int dispatch_pass(int n_samples, int small, Args&&... args) {
+  switch (n_samples * 2 + (small ? 1 : 0)) {
+    case 64:
+      return FN<32, false>::run(args...);
+    case 65:
+      return FN<32, true>::run(args...);
+    case 128:
+      return FN<64, false>::run(args...);
+    case 129:
+      return FN<64, true>::run(args...);
+    case 256:
+      return FN<128, false>::run(args...);
+    case 257:
+      return FN<128, true>::run(args...);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace nerface

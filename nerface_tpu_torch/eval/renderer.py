@@ -3,8 +3,9 @@
 Port of the single-device parity renderer of `nerface_tpu/eval/renderer.py`
 (`_render_frame_jit`): the frame's H·W rays are padded to whole tiles of
 `tile` rays (default `settings.chunksize`, the reference's validation
-chunk of 65536) and rendered tile by tile (in bf16, each pass of a tile is
-one fused-render kernel launch);
+chunk of 65536) and rendered tile by tile (in bf16, each pass of a
+paper-family tile is one fused-render kernel launch, K2, which only this
+renderer enables: eval is never differentiated);
 each ray's draws are keyed by its global index, so the frame does not
 depend on the tile size. Fast-eval (bbox / occupancy ray skipping) and
 mesh sharding are not ported yet (ROADMAP.md Queue 1).
@@ -12,6 +13,7 @@ mesh sharding are not ported yet (ROADMAP.md Queue 1).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional
 
 import torch
@@ -60,6 +62,9 @@ def render_full_frame(
         if ray_directions_ablation is not None else None
     )
     idx = torch.arange(n_pad, device=ro.device)
+    # eval is never differentiated: the forward-only fused render may run
+    # (`nerface_tpu/eval/renderer.py:83-87`)
+    settings = dataclasses.replace(settings, fused_render=True)
 
     tiles = []
     for t0 in range(0, n_pad, tile):

@@ -7,6 +7,9 @@ Ports of `nerface_tpu/models/nerf_models.py` (reference `models.py`):
   layer 3, the σ head off `fc_feat`, and a 3×128 view-direction branch to
   RGB. Its state dict keeps `layers_dir.3`, which the reference creates
   and never applies (`models.py` quirk, kept for checkpoint parity).
+* `ConditionalBlendshapePaperSmallerNeRFModel` (`models.py:266-338`): the
+  same with 5 trunk layers, and the expression fed again into the
+  direction branch, whose first layer reads [feat; dirs; expr/3].
 * The Flexible family (`_FlexibleFamily` and its 8 subclasses,
   `models.py:351-1230`): `layer1` + (num_layers − 1) hidden layers with
   periodic concat-skips, then a view-direction head or `fc_out`, each
@@ -81,6 +84,10 @@ class ConditionalBlendshapePaperNeRFModel(_ModelBase):
     takes_latent = True
     n_xyz_layers = 6
     skip_at = 3
+    # layers_dir.0 and the 128-wide layers after it, applied or not
+    n_dir_layers = 4
+    # whether layers_dir.0 also reads expr/3 after the direction columns
+    dir_takes_expression = False
 
     def __init__(
         self,
@@ -114,9 +121,10 @@ class ConditionalBlendshapePaperNeRFModel(_ModelBase):
         )
         self.fc_feat = _lin(HIDDEN, HIDDEN)
         self.fc_alpha = _lin(HIDDEN, 1)
+        d_dir0 = HIDDEN + self.dim_dir + (self.dim_expression if self.dir_takes_expression else 0)
         self.layers_dir = nn.ModuleList(
-            [_lin(HIDDEN + self.dim_dir, DIR_HIDDEN)]
-            + [_lin(DIR_HIDDEN, DIR_HIDDEN) for _ in range(3)]
+            [_lin(d_dir0, DIR_HIDDEN)]
+            + [_lin(DIR_HIDDEN, DIR_HIDDEN) for _ in range(self.n_dir_layers - 1)]
         )
         self.fc_rgb = _lin(DIR_HIDDEN, 3)
         self.to_empty(device=device or "cpu")
@@ -167,11 +175,26 @@ class ConditionalBlendshapePaperNeRFModel(_ModelBase):
             dd = pe_dir.shape[-1]
             contrib = linear_cols(self.layers_dir[0], pe_dir, HIDDEN, HIDDEN + dd, dtype)
             h = h + (contrib[:, None, :] if structure is not None else contrib)
+            if self.dir_takes_expression and self.dim_expression:
+                h = h + cond_contribution(
+                    self.layers_dir[0], [(expr * (1.0 / 3.0), self.dim_expression)],
+                    HIDDEN + self.dim_dir, dtype,
+                )
         x = torch.relu(h)
         for i in range(1, 3):
             x = torch.relu(linear(self.layers_dir[i], x, dtype))
         rgb = linear(self.fc_rgb, x, dtype)
         return torch.cat([rgb, alpha], dim=-1)
+
+
+class ConditionalBlendshapePaperSmallerNeRFModel(ConditionalBlendshapePaperNeRFModel):
+    """The smaller paper model: 5 trunk layers (the skip at 3), and
+    layers_dir.0 reads [feat; dirs; expr/3] (`models.py:330`); 3 direction
+    layers, none unused."""
+
+    n_xyz_layers = 5
+    n_dir_layers = 3
+    dir_takes_expression = True
 
 
 class _FlexibleFamily(_ModelBase):
@@ -471,6 +494,7 @@ class ConditionalAutoEncoderNeRFModel(_FlexibleFamily):
 
 MODELS = {
     "ConditionalBlendshapePaperNeRFModel": ConditionalBlendshapePaperNeRFModel,
+    "ConditionalBlendshapePaperSmallerNeRFModel": ConditionalBlendshapePaperSmallerNeRFModel,
     "FlexibleNeRFModel": FlexibleNeRFModel,
     "ConditionalNeRFModel": ConditionalNeRFModel,
     "ConditionalBlendshapeLearnableCodeNeRFModel": ConditionalBlendshapeLearnableCodeNeRFModel,

@@ -2,7 +2,8 @@
 
 The kernels are CUDA C++ files in `nerface_tpu_torch/csrc/` with a plain C
 interface, one library per `.cu` file (`fused_paper_render`, K2;
-`fused_train_pass`, K1; `fused_flex`, K4), sharing the `.cuh` headers.
+`fused_train_pass`, K1; `fused_paper_mlp`, K3; `fused_flex`, K4), sharing
+the `.cuh` headers.
 `build_library` compiles one with nvcc into a shared library under
 `build/nerface_tpu_torch/` at the root of the checkout, on first use;
 `load_library(name)` loads it with ctypes and declares its C functions'
@@ -76,12 +77,18 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # c_void_p, sizes and flags as c_int, scalars as c_float.
 SIGNATURES = {
     "fused_paper_render": {
-        "nerface_fused_paper_render": ([_P] * 13 + [_I] * 4 + [_P], ctypes.c_int),
+        "nerface_fused_paper_render": ([_P] * 13 + [_I] * 5 + [_P], ctypes.c_int),
     },
     "fused_train_pass": {
-        "nerface_fused_train_pass": ([_P] * 17 + [_I] * 4 + [_F] * 3 + [_P], ctypes.c_int),
+        "nerface_fused_train_pass": ([_P] * 17 + [_I] * 5 + [_F] * 3 + [_P], ctypes.c_int),
         "nerface_fused_train_workspace_bytes": ([_I, _I], ctypes.c_longlong),
         "nerface_fused_train_shared_bytes": ([_P], None),
+    },
+    "fused_paper_mlp": {
+        "nerface_fused_paper_mlp_fwd": ([_P] * 7 + [_I] * 4 + [_P], ctypes.c_int),
+        "nerface_fused_paper_mlp_bwd": ([_P] * 12 + [_I] * 4 + [_P], ctypes.c_int),
+        "nerface_fused_paper_mlp_workspace_bytes": ([_I, _I], ctypes.c_longlong),
+        "nerface_fused_paper_mlp_shared_bytes": ([_P], None),
     },
     "fused_flex": {
         "nerface_fused_flex_fwd": ([_P] * 7 + [_I] * 4 + [_P], ctypes.c_int),

@@ -1,33 +1,45 @@
-"""Fused render of the NeRFace paper model: radiance MLP + compositing.
+"""The NeRFace paper model's MLP as kernels: K2 (MLP + compositing) and K3
+(the MLP alone, with its backward).
 
-Port of K2, `nerface_tpu/ops/pallas/fused_mlp.py::fused_paper_render`
-(TPU kernel `_render_kernel`, pallas_call at fused_mlp.py:811). One call
-evaluates the whole radiance field — sample points ro + rd·z, their
-positional encoding, the 6×256 trunk with the concat-skip at layer 3, the
-σ head, the 128-wide view-direction branch — and composites it per ray,
-so neither the (R, S, 63) encoding nor the (R, S, 4) radiance exists in
-device memory.
+Port of `nerface_tpu/ops/pallas/fused_mlp.py`: K2 `fused_paper_render`
+(TPU kernel `_render_kernel`, pallas_call at fused_mlp.py:811) and K3
+`fused_paper_mlp` (TPU kernels `_fwd_kernel`, pallas_call at :473, and
+`_bwd_kernel`, pallas_call at :523). Both evaluate the whole radiance
+field — sample points ro + rd·z, their positional encoding, the 6×256
+trunk (5×256 for the smaller model, `small`) with the concat-skip at
+layer 3, the σ head, the 128-wide view-direction branch — so the (R, S,
+63) encoding never exists in device memory. K2 also composites each ray
+(forward only: eval and serving); K3 returns the raw (R, S, 4) [rgb, σ]
+and has a backward (training and σ-noise renders).
 
-* `fused_paper_render` is the wrapper: on a CUDA tensor it launches the
+* `fused_paper_render` is K2's wrapper: on a CUDA tensor it launches the
   hand-written kernel `csrc/fused_paper_render.cu` (bf16 tensor cores,
   f32 accumulation) or raises; on a CPU tensor it runs
   `fused_paper_render_reference`. It counts launches in
   `fused_paper_render.launches`.
-* `fused_paper_render_reference` is the plain PyTorch version. With
-  `mm_dtype=torch.bfloat16` it rounds matmul operands to bf16 exactly
-  where the TPU kernel's `_dot` does (points, encoding and every
-  activation entering a matmul; weights), with f32 products and sums;
-  with `torch.float32` it is the f32 math of the unfused path.
+* `fused_paper_mlp` is K3 as a `torch.autograd.Function` over the kernel
+  bundle of `fused_train.py::prefold_paper_params`; its forward is
+  `fused_paper_mlp_forward` (K3f, `csrc/fused_paper_mlp.cu`), its
+  backward `fused_paper_mlp_backward` (K3b: recompute, dX, dW), each
+  counting its launches. Matrix gradients leave the backward rounded to
+  bf16, as the JAX package's VJP casts them (`fused_mlp.py:534-537`).
+* The plain versions (`*_reference`) round matmul operands to bf16 where
+  the TPU kernels' `_dot` does (`mm_dtype=torch.bfloat16`: points,
+  encoding and every activation entering a matmul; weights), with f32
+  products and sums; with `torch.float32` they are the f32 math.
+  `_trunk_forward_reference` / `_trunk_backward_reference` are the JAX
+  package's `_trunk_forward` / `_trunk_backward`, shared with K1's plain
+  version (`fused_train.py`).
 * `_layout_weights` folds the per-frame conditioning into the `cond0` /
-  `cond3` bias rows and lays the matrices out (in, out), as the JAX
-  package's function of the same name does; `pack_kernel_operands`
-  packs them into the two flat buffers the kernel reads. The offsets
-  below are mirrored as `constexpr`s in the .cu file (a CPU test checks
-  that they agree).
-* `pack_paper_weights` does that packing once per model
+  `cond3` bias rows and lays the matrices out (in, out);
+  `pack_kernel_operands` packs them into the two flat buffers the kernels
+  read, `pack_transposed_weights` the backward's transposed trunk. The
+  offsets below are mirrored as `constexpr`s in the .cu/.cuh files (CPU
+  tests check that they agree). The smaller model keeps the W5/B5 slots,
+  zero: its kernels skip that layer.
+* `pack_paper_weights` does K2's packing once per model
   (`PackedPaperWeights`); a call then folds only the conditioning into a
-  copy of the f32 rows. The wrapper takes the packed weights or a state
-  dict, which it packs on every call.
+  copy of the f32 rows.
 
 Disparity keeps the TPU kernel's guard, 1 / max(1e-10, depth / max(acc,
 1e-38)): finite where acc = 0 (the unfused path's depth / acc is NaN there).
@@ -37,7 +49,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Sequence, Union
 
 import torch
 
@@ -49,9 +61,26 @@ DIR_HIDDEN = 128
 # columns to one tensor-core K extent: 64 holds N <= 10 bands.
 K_XIN = 64
 MAX_FREQS = (K_XIN - 3) // 6
-# S values the kernel is compiled for: a tile of 128 sample rows holds
-# 128 / S whole rays, and each ray is composited by one warp.
+# S values the kernels are compiled for: a tile of 128 sample rows holds
+# 128 / S whole rays, and K2 composites each ray with one warp.
 KERNEL_SAMPLES = (32, 64, 128)
+
+# The kernel bundle's matrices (in, out) and bias rows, in the JAX
+# package's order; the smaller model (`small`) has no w5 / b5.
+WEIGHT_NAMES = (
+    "w0a", "w0b", "w1", "w2", "w3xa", "w3xb", "w3h", "w4", "w5", "wf", "wa",
+    "wd0", "wd1", "wd2", "wrgb",
+)
+BIAS_NAMES = ("b1", "b2", "b4", "b5", "bf", "ba", "bd0", "bd1", "bd2", "brgb")
+
+
+def bundle_names(small: bool = False):
+    """(weight names, bias names) of a kernel bundle."""
+    if small:
+        return (tuple(n for n in WEIGHT_NAMES if n != "w5"),
+                tuple(n for n in BIAS_NAMES if n != "b5"))
+    return WEIGHT_NAMES, BIAS_NAMES
+
 
 # Packed bf16 weights, each (in, out) row-major, in this order.
 W_LAYOUT = (
@@ -76,6 +105,24 @@ F_LAYOUT = (
     ("BD0", DIR_HIDDEN), ("BD1", DIR_HIDDEN), ("BD2", DIR_HIDDEN),
     ("BA", 1), ("BRGB", 3), ("FREQS", 16),
 )
+# The trunk's transposed weights, (out, in) row-major, for the backward's
+# dX products gy @ Wᵀ (K1 and K3b), in this order. They must equal WT_OFF_*
+# in csrc/paper_train.cuh (a CPU test checks it).
+WT_LAYOUT = (
+    ("WD2T", DIR_HIDDEN, DIR_HIDDEN),
+    ("WD1T", DIR_HIDDEN, DIR_HIDDEN),
+    ("WD0T", DIR_HIDDEN, HIDDEN),
+    ("WFT", HIDDEN, HIDDEN),
+    ("W5T", HIDDEN, HIDDEN),
+    ("W4T", HIDDEN, HIDDEN),
+    ("W3HT", HIDDEN, HIDDEN),
+    ("W2T", HIDDEN, HIDDEN),
+    ("W1T", HIDDEN, HIDDEN),
+)
+WT_SOURCE = {
+    "WD2T": "wd2", "WD1T": "wd1", "WD0T": "wd0", "WFT": "wf", "W5T": "w5",
+    "W4T": "w4", "W3HT": "w3h", "W2T": "w2", "W1T": "w1",
+}
 
 
 def _offsets(layout):
@@ -92,12 +139,14 @@ def _offsets(layout):
 
 W_OFFSETS = _offsets(W_LAYOUT)
 F_OFFSETS = _offsets(F_LAYOUT)
+WT_OFFSETS = _offsets(WT_LAYOUT)
 
 
-def _layout_matrices(params: Dict[str, torch.Tensor], d_pe: int, dc: int):
+def _layout_matrices(params: Dict[str, torch.Tensor], d_pe: int, dc: int, small: bool = False):
     """State-dict params -> the kernel-layout f32 matrices, (in, out), and
     bias rows keyed by the JAX package's names; the conditioning columns
-    of layers 0 and 3 are left out (`_fold_conditioning`)."""
+    of layers 0 and 3 are left out (`_fold_conditioning`), and so are
+    w5/b5 when `small`."""
 
     def w(name):
         return params[name + ".weight"]
@@ -105,7 +154,7 @@ def _layout_matrices(params: Dict[str, torch.Tensor], d_pe: int, dc: int):
     def b(name):
         return params[name + ".bias"]
 
-    return {
+    W = {
         "w0a": w("layers_xyz.0")[:, :3].T,
         "w0b": w("layers_xyz.0")[:, 3:d_pe].T,
         "w1": w("layers_xyz.1").T,
@@ -114,7 +163,6 @@ def _layout_matrices(params: Dict[str, torch.Tensor], d_pe: int, dc: int):
         "w3xb": w("layers_xyz.3")[:, 3:d_pe].T,
         "w3h": w("layers_xyz.3")[:, d_pe + dc:].T,
         "w4": w("layers_xyz.4").T,
-        "w5": w("layers_xyz.5").T,
         "wf": w("fc_feat").T,
         "wa": w("fc_alpha").T,
         "wd0": w("layers_dir.0")[:, :HIDDEN].T,
@@ -124,7 +172,6 @@ def _layout_matrices(params: Dict[str, torch.Tensor], d_pe: int, dc: int):
         "b1": b("layers_xyz.1"),
         "b2": b("layers_xyz.2"),
         "b4": b("layers_xyz.4"),
-        "b5": b("layers_xyz.5"),
         "bf": b("fc_feat"),
         "ba": b("fc_alpha"),
         "bd0": b("layers_dir.0"),
@@ -132,29 +179,34 @@ def _layout_matrices(params: Dict[str, torch.Tensor], d_pe: int, dc: int):
         "bd2": b("layers_dir.2"),
         "brgb": b("fc_rgb"),
     }
+    if not small:
+        W["w5"], W["b5"] = w("layers_xyz.5").T, b("layers_xyz.5")
+    return W
 
 
-def _layout_weights(params: Dict[str, torch.Tensor], cond: torch.Tensor, d_pe: int, dc: int):
+def _layout_weights(params: Dict[str, torch.Tensor], cond: torch.Tensor, d_pe: int, dc: int,
+                    small: bool = False):
     """State-dict params + per-frame cond (expr/3 ⊕ latent) -> (cond0,
     cond3, W) with W the kernel-layout f32 matrices and bias rows keyed by
     the JAX package's names (`fused_mlp.py::_layout_weights`)."""
     w0, w3 = params["layers_xyz.0.weight"], params["layers_xyz.3.weight"]
     cond0 = w0[:, d_pe:d_pe + dc] @ cond + params["layers_xyz.0.bias"]
     cond3 = w3[:, d_pe:d_pe + dc] @ cond + params["layers_xyz.3.bias"]
-    return cond0, cond3, _layout_matrices(params, d_pe, dc)
+    return cond0, cond3, _layout_matrices(params, d_pe, dc, small)
 
 
 def pack_kernel_operands(cond0, cond3, W, freqs: torch.Tensor):
     """(bf16 weights, f32 rows) flat buffers in `W_LAYOUT` / `F_LAYOUT`
-    order, on the params' device."""
+    order, on the params' device; a W without w5/b5 (the smaller model)
+    leaves their slots zero."""
     n_enc = W["w0b"].shape[0]
     zpad = W["w0a"].new_zeros(K_XIN - 3 - n_enc, HIDDEN)
     mats = {
         "W0": torch.cat([W["w0a"], W["w0b"], zpad]),
         "W1": W["w1"], "W2": W["w2"],
         "W3": torch.cat([W["w3xa"], W["w3xb"], zpad, W["w3h"]]),
-        "W4": W["w4"], "W5": W["w5"], "WF": W["wf"],
-        "WD0": W["wd0"], "WD1": W["wd1"], "WD2": W["wd2"],
+        "W4": W["w4"], "W5": W["w5"] if "w5" in W else W["w4"].new_zeros(HIDDEN, HIDDEN),
+        "WF": W["wf"], "WD0": W["wd0"], "WD1": W["wd1"], "WD2": W["wd2"],
         "WA": W["wa"], "WRGB": W["wrgb"],
     }
     wbuf = torch.cat(
@@ -162,17 +214,30 @@ def pack_kernel_operands(cond0, cond3, W, freqs: torch.Tensor):
     ).to(torch.bfloat16)
     rows = {
         "COND0": cond0, "B1": W["b1"], "B2": W["b2"], "COND3": cond3,
-        "B4": W["b4"], "B5": W["b5"], "BF": W["bf"], "BD0": W["bd0"],
-        "BD1": W["bd1"], "BD2": W["bd2"], "BA": W["ba"], "BRGB": W["brgb"],
+        "B4": W["b4"], "B5": W["b5"] if "b5" in W else W["b4"].new_zeros(HIDDEN),
+        "BF": W["bf"], "BD0": W["bd0"], "BD1": W["bd1"], "BD2": W["bd2"],
+        "BA": W["ba"], "BRGB": W["brgb"],
         "FREQS": torch.cat([freqs, freqs.new_zeros(16 - freqs.numel())]),
     }
     fbuf = torch.cat([rows[name].reshape(-1).float() for name, _ in F_LAYOUT])
     return wbuf.contiguous(), fbuf.contiguous()
 
 
+def pack_transposed_weights(W) -> torch.Tensor:
+    """The dX products' bf16 operand buffer: `WT_LAYOUT`'s matrices, each
+    the (in, out) kernel-layout matrix transposed to (out, in); a zero W5T
+    for the smaller model."""
+    def mat(name):
+        src = WT_SOURCE[name]
+        return W[src].T if src in W else W["w4"].new_zeros(HIDDEN, HIDDEN)
+
+    return torch.cat([mat(name).reshape(-1) for name, *_ in WT_LAYOUT]).to(
+        torch.bfloat16).contiguous()
+
+
 @dataclasses.dataclass(frozen=True)
 class PackedPaperWeights:
-    """A paper model's weights packed for the kernel once (`pack_paper_weights`).
+    """A paper model's weights packed for K2 once (`pack_paper_weights`).
     `fbuf`'s COND0/COND3 rows hold the layer-0/3 biases; each call adds
     `cond_w @ cond` to them in a copy. `params` is the state dict, which
     the plain version reads."""
@@ -186,13 +251,15 @@ class PackedPaperWeights:
 
 
 def pack_paper_weights(
-    params: Dict[str, torch.Tensor], num_encoding_fn_xyz: int = 10, log_sampling_xyz: bool = True
+    params: Dict[str, torch.Tensor], num_encoding_fn_xyz: int = 10, log_sampling_xyz: bool = True,
 ) -> PackedPaperWeights:
-    """Check a paper model's state dict and pack it for the kernel."""
+    """Check a paper-family model's state dict and pack it for K2; a trunk
+    with no layers_xyz.5 is the smaller model's (`small`)."""
     if not 1 <= num_encoding_fn_xyz <= MAX_FREQS:
         raise ValueError(
             f"kernel takes 1..{MAX_FREQS} xyz encoding bands, got {num_encoding_fn_xyz}"
         )
+    small = "layers_xyz.5.weight" not in params
     d_pe = 3 + 6 * num_encoding_fn_xyz
     w0, w3 = params["layers_xyz.0.weight"], params["layers_xyz.3.weight"]
     dc = w0.shape[1] - d_pe
@@ -206,7 +273,7 @@ def pack_paper_weights(
         if v.device != dev or v.dtype != torch.float32:
             raise ValueError(f"param {k} must be float32 on {dev}")
     freqs = torch.as_tensor(_frequency_bands(num_encoding_fn_xyz, log_sampling_xyz), device=dev)
-    W = _layout_matrices(params, d_pe, dc)
+    W = _layout_matrices(params, d_pe, dc, small)
     wbuf, fbuf = pack_kernel_operands(
         params["layers_xyz.0.bias"], params["layers_xyz.3.bias"], W, freqs
     )
@@ -235,30 +302,110 @@ def _encode_points(x: torch.Tensor, num_encoding_fn_xyz: int, log_sampling_xyz: 
     return torch.sin(t + torch.as_tensor(phase, device=dev))
 
 
-def _mlp_reference(W, cond0, cond3, x3, enc, dir_contrib, n_rays, n_samples, mm_dtype):
-    """The radiance MLP over (R·S, 3) points and their encoding:
-    (raw rgb (R, S, 3), σ (R, S))."""
+def _points(ro, rd, z):
+    """(R·S, 3) sample points ro + rd·z."""
+    return (ro[:, None, :] + rd[:, None, :] * z[:, :, None]).reshape(-1, 3)
 
-    def mm(a, w):
-        if mm_dtype != torch.float32:
-            a = a.to(mm_dtype).float()
-            w = w.to(mm_dtype).float()
-        return a @ w
 
-    h = torch.relu(mm(x3, W["w0a"]) + mm(enc, W["w0b"]) + cond0)
-    h = torch.relu(mm(h, W["w1"]) + W["b1"])
-    h = torch.relu(mm(h, W["w2"]) + W["b2"])
-    h = torch.relu(mm(x3, W["w3xa"]) + mm(enc, W["w3xb"]) + mm(h, W["w3h"]) + cond3)
-    h = torch.relu(mm(h, W["w4"]) + W["b4"])
-    h = torch.relu(mm(h, W["w5"]) + W["b5"])
-    feat = mm(h, W["wf"]) + W["bf"]
-    sigma = (mm(feat, W["wa"]) + W["ba"]).reshape(n_rays, n_samples)
-    hd = (mm(feat, W["wd0"]) + W["bd0"]).reshape(n_rays, n_samples, DIR_HIDDEN)
-    x = torch.relu(hd + dir_contrib[:, None, :]).reshape(-1, DIR_HIDDEN)
-    x = torch.relu(mm(x, W["wd1"]) + W["bd1"])
-    x = torch.relu(mm(x, W["wd2"]) + W["bd2"])
-    rgb = (mm(x, W["wrgb"]) + W["brgb"]).reshape(n_rays, n_samples, 3)
-    return rgb, sigma
+def _rounder(mm_dtype):
+    """A matmul operand as the TPU kernels round it (identity in f32)."""
+    if mm_dtype == torch.float32:
+        return lambda x: x
+    return lambda x: x.to(mm_dtype).float()
+
+
+def _trunk_forward_reference(W, cond0, cond3, dir_c, x3, enc, n_rays, n_samples, mm_dtype):
+    """The MLP over (R·S, 3) points and their encoding (the JAX package's
+    `_trunk_forward`): W holds the (in, out) matrices and bias rows by
+    name, without w5/b5 for the smaller model. Returns (raw rgb (R, S, 3),
+    σ (R, S), the activations the backward reads, rounded as the kernels
+    keep them)."""
+    r = _rounder(mm_dtype)
+
+    def dot(a, name):
+        return r(a) @ r(W[name])
+
+    tile = n_rays * n_samples
+    h0 = torch.relu(dot(x3, "w0a") + dot(enc, "w0b") + cond0)
+    h1 = torch.relu(dot(h0, "w1") + W["b1"])
+    h2 = torch.relu(dot(h1, "w2") + W["b2"])
+    h3 = torch.relu(dot(x3, "w3xa") + dot(enc, "w3xb") + dot(h2, "w3h") + cond3)
+    h4 = torch.relu(dot(h3, "w4") + W["b4"])
+    h5 = torch.relu(dot(h4, "w5") + W["b5"]) if "w5" in W else h4
+    feat = dot(h5, "wf") + W["bf"]
+    sigma = (dot(feat, "wa") + W["ba"]).reshape(n_rays, n_samples)
+    hd_pre = ((dot(feat, "wd0") + W["bd0"]).reshape(n_rays, n_samples, DIR_HIDDEN)
+              + dir_c[:, None, :]).reshape(tile, DIR_HIDDEN)
+    x0 = torch.relu(hd_pre)
+    x1 = torch.relu(dot(x0, "wd1") + W["bd1"])
+    x2 = torch.relu(dot(x1, "wd2") + W["bd2"])
+    rgb = (dot(x2, "wrgb") + W["brgb"]).reshape(n_rays, n_samples, 3)
+    acts = {k: r(v) for k, v in dict(h0=h0, h1=h1, h2=h2, h3=h3, h4=h4, h5=h5, feat=feat,
+                                     hd_pre=hd_pre, x1=x1, x2=x2).items()}
+    return rgb, sigma, acts
+
+
+def _trunk_backward_reference(W, a, x3, enc, g_rgb, g_alpha, n_rays, n_samples, mm_dtype):
+    """The JAX package's `_trunk_backward` (`fused_mlp.py:248-330`): from
+    the head cotangents g_rgb (R·S, 3) and g_alpha (R·S, 1) to (weight
+    gradients, bias gradients, d_cond0, d_cond3, d_dir (R, 128)). dW takes
+    the bf16 activations and a bf16-rounded cotangent, dX rounds the
+    cotangent, relu masks are taken on the bf16 activations, bias sums
+    take the f32 cotangents."""
+    r = _rounder(mm_dtype)
+
+    def dot_t(x, gy):  # dW = xᵀ gy
+        return r(x).T @ r(gy)
+
+    def dot_bt(gy, name):  # dx = gy Wᵀ
+        return r(gy) @ r(W[name]).T
+
+    def m(x):
+        return (x > 0).float()
+
+    gw, gb = {}, {}
+    gw["wrgb"] = dot_t(a["x2"], g_rgb)
+    gb["brgb"] = g_rgb.sum(0, keepdim=True)
+    gx2 = dot_bt(g_rgb, "wrgb") * m(a["x2"])
+    gw["wd2"] = dot_t(a["x1"], gx2)
+    gb["bd2"] = gx2.sum(0, keepdim=True)
+    gx1 = dot_bt(gx2, "wd2") * m(a["x1"])
+    gw["wd1"] = dot_t(torch.relu(a["hd_pre"]), gx1)
+    gb["bd1"] = gx1.sum(0, keepdim=True)
+    gx0 = dot_bt(gx1, "wd1") * m(a["hd_pre"])
+    gw["wd0"] = dot_t(a["feat"], gx0)
+    gb["bd0"] = gx0.sum(0, keepdim=True)
+    d_dir = gx0.reshape(n_rays, n_samples, DIR_HIDDEN).sum(1)
+    gw["wa"] = dot_t(a["feat"], g_alpha)
+    gb["ba"] = g_alpha.sum(0, keepdim=True)
+    gfeat = dot_bt(g_alpha, "wa") + dot_bt(gx0, "wd0")
+    gw["wf"] = dot_t(a["h5"], gfeat)
+    gb["bf"] = gfeat.sum(0, keepdim=True)
+    if "w5" in W:
+        gh5 = dot_bt(gfeat, "wf") * m(a["h5"])
+        gw["w5"] = dot_t(a["h4"], gh5)
+        gb["b5"] = gh5.sum(0, keepdim=True)
+        gh4 = dot_bt(gh5, "w5") * m(a["h4"])
+    else:  # the smaller model: fc_feat reads h4
+        gh4 = dot_bt(gfeat, "wf") * m(a["h4"])
+    gw["w4"] = dot_t(a["h3"], gh4)
+    gb["b4"] = gh4.sum(0, keepdim=True)
+    gh3 = dot_bt(gh4, "w4") * m(a["h3"])
+    gw["w3xa"] = dot_t(x3, gh3)
+    gw["w3xb"] = dot_t(enc, gh3)
+    gw["w3h"] = dot_t(a["h2"], gh3)
+    d_cond3 = gh3.sum(0, keepdim=True)
+    gh2 = dot_bt(gh3, "w3h") * m(a["h2"])
+    gw["w2"] = dot_t(a["h1"], gh2)
+    gb["b2"] = gh2.sum(0, keepdim=True)
+    gh1 = dot_bt(gh2, "w2") * m(a["h1"])
+    gw["w1"] = dot_t(a["h0"], gh1)
+    gb["b1"] = gh1.sum(0, keepdim=True)
+    gh0 = dot_bt(gh1, "w1") * m(a["h0"])
+    gw["w0a"] = dot_t(x3, gh0)
+    gw["w0b"] = dot_t(enc, gh0)
+    d_cond0 = gh0.sum(0, keepdim=True)
+    return gw, gb, d_cond0, d_cond3, d_dir
 
 
 def _composite_reference(rgb, sigma, z, rd, background, white_background, out_weights):
@@ -309,6 +456,7 @@ def fused_paper_render_reference(
     num_encoding_fn_xyz: int = 10,
     log_sampling_xyz: bool = True,
     out_weights: bool = False,
+    small: bool = False,
     mm_dtype=torch.bfloat16,
 ) -> Dict[str, torch.Tensor]:
     """Plain PyTorch version of `fused_paper_render` (same arguments and
@@ -316,14 +464,15 @@ def fused_paper_render_reference(
     kernel's) or f32."""
     n_rays, n_samples = z_vals.shape
     d_pe = 3 + 6 * num_encoding_fn_xyz
-    cond0, cond3, W = _layout_weights(params, cond, d_pe, cond.shape[-1])
-    ro, rd, z = ray_origins, ray_directions, z_vals
-    x3 = (ro[:, None, :] + rd[:, None, :] * z[:, :, None]).reshape(-1, 3)
+    cond0, cond3, W = _layout_weights(params, cond, d_pe, cond.shape[-1], small)
+    x3 = _points(ray_origins, ray_directions, z_vals)
     enc = _encode_points(x3, num_encoding_fn_xyz, log_sampling_xyz)
-    rgb, sigma = _mlp_reference(
-        W, cond0, cond3, x3, enc, dir_contrib, n_rays, n_samples, mm_dtype
+    rgb, sigma, _ = _trunk_forward_reference(
+        W, cond0, cond3, dir_contrib, x3, enc, n_rays, n_samples, mm_dtype
     )
-    return _composite_reference(rgb, sigma, z, rd, background, white_background, out_weights)
+    return _composite_reference(
+        rgb, sigma, z_vals, ray_directions, background, white_background, out_weights
+    )
 
 
 def _check(name, t, shape, device):
@@ -335,6 +484,29 @@ def _check(name, t, shape, device):
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _check_kernel_call(name, ray_origins, ray_directions, z_vals, num_encoding_fn_xyz):
+    """The checks every kernel wrapper makes on a CUDA call; returns the
+    device."""
+    dev = ray_origins.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {dev}")
+    n_rays, n_samples = z_vals.shape
+    if n_samples not in KERNEL_SAMPLES:
+        raise ValueError(
+            f"kernel is built for {KERNEL_SAMPLES} samples per ray, got {n_samples}"
+        )
+    if not 1 <= num_encoding_fn_xyz <= MAX_FREQS:
+        raise ValueError(f"kernel takes 1..{MAX_FREQS} xyz encoding bands")
+    _check("ray_origins", ray_origins, (n_rays, 3), dev)
+    _check("ray_directions", ray_directions, (n_rays, 3), dev)
+    _check("z_vals", z_vals, (n_rays, n_samples), dev)
+    return dev
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
 
 
 def fused_paper_render(
@@ -349,32 +521,30 @@ def fused_paper_render(
     num_encoding_fn_xyz: int = 10,
     log_sampling_xyz: bool = True,
     out_weights: bool = False,
+    small: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Forward-only fused render. ro/rd (R, 3), z (R, S), dir_contrib
-    (R, 128) — `pe_dir @ W_dir0[:, 256:].T` — and cond (108,) = [expr/3;
-    latent], all f32; params the model's `pack_paper_weights` or its state
-    dict. Returns rgb (R, 3), disp/acc/depth/bg_weight (R,), and weights
-    (R, S) when `out_weights`. Semantics of inject_background +
+    (R, 128) — `pe_dir @ W_dir0[:, 256:].T`, plus the smaller model's
+    folded expression columns — and cond (108,) = [expr/3; latent], all
+    f32; params the model's `pack_paper_weights` or its state dict. Returns
+    rgb (R, 3), disp/acc/depth/bg_weight (R,), and weights (R, S) when
+    `out_weights`. Semantics of inject_background +
     volume_render_radiance_field at σ-noise 0, with bf16 matmul operands."""
     dev = ray_origins.device
+    state = params.params if isinstance(params, PackedPaperWeights) else params
+    if small == ("layers_xyz.5.weight" in state):
+        raise ValueError(f"called with small={small} on the weights of the "
+                         f"{'paper' if small else 'smaller'} model")
     if dev.type == "cpu":
         return fused_paper_render_reference(
-            params.params if isinstance(params, PackedPaperWeights) else params,
-            ray_origins, ray_directions, z_vals, dir_contrib, cond,
+            state, ray_origins, ray_directions, z_vals, dir_contrib, cond,
             background=background, white_background=white_background,
             num_encoding_fn_xyz=num_encoding_fn_xyz,
-            log_sampling_xyz=log_sampling_xyz, out_weights=out_weights,
+            log_sampling_xyz=log_sampling_xyz, out_weights=out_weights, small=small,
         )
-    if dev.type != "cuda":
-        raise ValueError(f"fused_paper_render runs on cuda or cpu, not {dev}")
+    _check_kernel_call("fused_paper_render", ray_origins, ray_directions, z_vals,
+                       num_encoding_fn_xyz)
     n_rays, n_samples = z_vals.shape
-    if n_samples not in KERNEL_SAMPLES:
-        raise ValueError(
-            f"kernel is built for {KERNEL_SAMPLES} samples per ray, got {n_samples}"
-        )
-    _check("ray_origins", ray_origins, (n_rays, 3), dev)
-    _check("ray_directions", ray_directions, (n_rays, 3), dev)
-    _check("z_vals", z_vals, (n_rays, n_samples), dev)
     _check("dir_contrib", dir_contrib, (n_rays, DIR_HIDDEN), dev)
     if background is not None:
         _check("background", background, (n_rays, 3), dev)
@@ -407,18 +577,14 @@ def fused_paper_render(
     from nerface_tpu_torch.ops.kernels.build import load_library
 
     lib = load_library("fused_paper_render")
-
-    def ptr(t):
-        return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
-
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.nerface_fused_paper_render(
-            ptr(ray_origins), ptr(ray_directions), ptr(z_vals), ptr(dir_contrib),
-            ptr(background), ptr(packed.wbuf), ptr(fbuf),
-            ptr(out["rgb"]), ptr(out["disp"]), ptr(out["acc"]), ptr(out["depth"]),
-            ptr(out["bg_weight"]), ptr(out.get("weights")),
-            n_rays, n_samples, num_encoding_fn_xyz, int(bool(white_background)),
+            _ptr(ray_origins), _ptr(ray_directions), _ptr(z_vals), _ptr(dir_contrib),
+            _ptr(background), _ptr(packed.wbuf), _ptr(fbuf),
+            _ptr(out["rgb"]), _ptr(out["disp"]), _ptr(out["acc"]), _ptr(out["depth"]),
+            _ptr(out["bg_weight"]), _ptr(out.get("weights")),
+            n_rays, n_samples, num_encoding_fn_xyz, int(bool(white_background)), int(bool(small)),
             ctypes.c_void_p(stream),
         )
     if err != 0:
@@ -430,3 +596,261 @@ def fused_paper_render(
 
 
 fused_paper_render.launches = 0
+
+
+# -- K3: the MLP over a kernel bundle, forward and backward -----------------
+
+def _unbundle(bundle: Sequence[torch.Tensor], small: bool = False):
+    """A kernel bundle (cond0, cond3, dir_contrib, *matrices, *bias rows)
+    -> (cond0, cond3, dir_contrib, {matrix}, {bias row})."""
+    wn, bn = bundle_names(small)
+    if len(bundle) != 3 + len(wn) + len(bn):
+        raise ValueError(f"bundle has {len(bundle)} tensors, expected {3 + len(wn) + len(bn)}"
+                         f" (small={small})")
+    W = dict(zip(wn, bundle[3:3 + len(wn)]))
+    B = dict(zip(bn, bundle[3 + len(wn):]))
+    return bundle[0], bundle[1], bundle[2], W, B
+
+
+def _regroup(d_cond0, d_cond3, d_dir, gw, gb, small):
+    """Gradients by name -> a tuple in the bundle's order."""
+    wn, bn = bundle_names(small)
+    return (d_cond0, d_cond3, d_dir) + tuple(gw[n] for n in wn) + tuple(gb[n] for n in bn)
+
+
+def _kernel_operands(bundle, n_rays, dev, num_encoding_fn_xyz, log_sampling_xyz, small,
+                     transposed):
+    """Check a bundle for a kernel call and pack it: (dir_contrib, bf16
+    weights, f32 rows, bf16 transposed trunk or None)."""
+    bundle = [t.detach() for t in bundle]
+    cond0, cond3, dir_c, W, B = _unbundle(bundle, small)
+    n_enc = 6 * num_encoding_fn_xyz
+    _check("dir_contrib", dir_c, (n_rays, DIR_HIDDEN), dev)
+    _check("cond0", cond0, (1, HIDDEN), dev)
+    _check("cond3", cond3, (1, HIDDEN), dev)
+    shapes = {"w0a": (3, HIDDEN), "w0b": (n_enc, HIDDEN), "w3xa": (3, HIDDEN),
+              "w3xb": (n_enc, HIDDEN), "wa": (HIDDEN, 1), "wd0": (HIDDEN, DIR_HIDDEN),
+              "wd1": (DIR_HIDDEN, DIR_HIDDEN), "wd2": (DIR_HIDDEN, DIR_HIDDEN),
+              "wrgb": (DIR_HIDDEN, 3)}
+    for name, t in W.items():
+        want = shapes.get(name, (HIDDEN, HIDDEN))
+        if t.dtype != torch.float32 or tuple(t.shape) != want or t.device != dev:
+            raise ValueError(f"{name} must be float32 {want} on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    for name, t in B.items():
+        if t.dtype != torch.float32 or t.dim() != 2 or t.shape[0] != 1 or t.device != dev:
+            raise ValueError(f"{name} must be a float32 (1, n) row on {dev}")
+    freqs = torch.as_tensor(_frequency_bands(num_encoding_fn_xyz, log_sampling_xyz), device=dev)
+    Wk = dict(W)
+    Wk.update({k: v.reshape(-1) for k, v in B.items()})
+    wbuf, fbuf = pack_kernel_operands(cond0.reshape(-1), cond3.reshape(-1), Wk, freqs)
+    wtbuf = pack_transposed_weights(W) if transposed else None
+    return dir_c, wbuf, fbuf, wtbuf
+
+
+def _split_kernel_grads(dwbuf, dfbuf, n_enc, small=False):
+    """The kernels' packed f32 gradients -> ((d_cond0, d_cond3), weight
+    gradients, bias gradients) in the bundle's shapes; the zero-padded
+    rows of W0/W3 (and the smaller model's W5/B5 slots) are dropped."""
+
+    def mat(name, rows, cols):
+        o = W_OFFSETS[name]
+        return dwbuf[o:o + rows * cols].reshape(rows, cols)
+
+    w0 = mat("W0", K_XIN, HIDDEN)
+    w3 = mat("W3", K_XIN + HIDDEN, HIDDEN)
+    gw = {
+        "w0a": w0[:3], "w0b": w0[3:3 + n_enc], "w1": mat("W1", HIDDEN, HIDDEN),
+        "w2": mat("W2", HIDDEN, HIDDEN), "w3xa": w3[:3], "w3xb": w3[3:3 + n_enc],
+        "w3h": w3[K_XIN:], "w4": mat("W4", HIDDEN, HIDDEN), "w5": mat("W5", HIDDEN, HIDDEN),
+        "wf": mat("WF", HIDDEN, HIDDEN), "wa": mat("WA", HIDDEN, 1),
+        "wd0": mat("WD0", HIDDEN, DIR_HIDDEN), "wd1": mat("WD1", DIR_HIDDEN, DIR_HIDDEN),
+        "wd2": mat("WD2", DIR_HIDDEN, DIR_HIDDEN), "wrgb": mat("WRGB", DIR_HIDDEN, 3),
+    }
+    frow = {"b1": "B1", "b2": "B2", "b4": "B4", "b5": "B5", "bf": "BF", "ba": "BA",
+            "bd0": "BD0", "bd1": "BD1", "bd2": "BD2", "brgb": "BRGB"}
+    width = {"ba": 1, "brgb": 3, "bd0": DIR_HIDDEN, "bd1": DIR_HIDDEN, "bd2": DIR_HIDDEN}
+
+    def row(name, n):
+        o = F_OFFSETS[name]
+        return dfbuf[o:o + n][None, :]
+
+    gb = {k: row(v, width.get(k, HIDDEN)) for k, v in frow.items()}
+    if small:
+        del gw["w5"], gb["b5"]
+    return (row("COND0", HIDDEN), row("COND3", HIDDEN)), gw, gb
+
+
+def _recompute(bundle, ro, rd, z, num_encoding_fn_xyz, log_sampling_xyz, small, mm_dtype):
+    cond0, cond3, dir_c, W, B = _unbundle([t.detach() for t in bundle], small)
+    W.update(B)
+    n_rays, n_samples = z.shape
+    x3 = _points(ro, rd, z)
+    enc = _encode_points(x3, num_encoding_fn_xyz, log_sampling_xyz)
+    rgb, sigma, acts = _trunk_forward_reference(
+        W, cond0, cond3, dir_c, x3, enc, n_rays, n_samples, mm_dtype)
+    return W, x3, enc, rgb, sigma, acts
+
+
+def fused_paper_mlp_reference(
+    bundle, ray_origins, ray_directions, z_vals, *, num_encoding_fn_xyz=10,
+    log_sampling_xyz=True, small=False, mm_dtype=torch.bfloat16,
+):
+    """Plain PyTorch version of `fused_paper_mlp_forward`: raw [rgb, σ]
+    (R, S, 4) of the bundle's MLP at the samples."""
+    *_, rgb, sigma, _ = _recompute(bundle, ray_origins, ray_directions, z_vals,
+                                   num_encoding_fn_xyz, log_sampling_xyz, small, mm_dtype)
+    return torch.cat([rgb, sigma[..., None]], dim=-1)
+
+
+def fused_paper_mlp_backward_reference(
+    bundle, ray_origins, ray_directions, z_vals, g, *, num_encoding_fn_xyz=10,
+    log_sampling_xyz=True, small=False, mm_dtype=torch.bfloat16,
+):
+    """Plain PyTorch version of `fused_paper_mlp_backward`: recompute the
+    forward, then the trunk backward from g (R, S, 4), the cotangent of
+    [rgb, σ]. Returns f32 gradients in the bundle's order and shapes."""
+    n_rays, n_samples = z_vals.shape
+    W, x3, enc, _, _, acts = _recompute(bundle, ray_origins, ray_directions, z_vals,
+                                        num_encoding_fn_xyz, log_sampling_xyz, small, mm_dtype)
+    g = g.reshape(n_rays * n_samples, 4)
+    gw, gb, d_cond0, d_cond3, d_dir = _trunk_backward_reference(
+        W, acts, x3, enc, g[:, :3], g[:, 3:4], n_rays, n_samples, mm_dtype)
+    return _regroup(d_cond0, d_cond3, d_dir, gw, gb, small)
+
+
+def fused_paper_mlp_forward(
+    bundle, ray_origins, ray_directions, z_vals, *, num_encoding_fn_xyz=10,
+    log_sampling_xyz=True, small=False,
+):
+    """K3f: raw [rgb, σ] (R, S, 4) f32 of the bundle's MLP. On CUDA
+    tensors it launches `csrc/fused_paper_mlp.cu`'s forward kernel or
+    raises; on CPU tensors it runs the plain version (bf16 operands)."""
+    kw = dict(num_encoding_fn_xyz=num_encoding_fn_xyz, log_sampling_xyz=log_sampling_xyz,
+              small=small)
+    if ray_origins.device.type == "cpu":
+        return fused_paper_mlp_reference(bundle, ray_origins, ray_directions, z_vals, **kw)
+    dev = _check_kernel_call("fused_paper_mlp_forward", ray_origins, ray_directions, z_vals,
+                             num_encoding_fn_xyz)
+    n_rays, n_samples = z_vals.shape
+    dir_c, wbuf, fbuf, _ = _kernel_operands(bundle, n_rays, dev, num_encoding_fn_xyz,
+                                            log_sampling_xyz, small, transposed=False)
+    out = torch.empty(n_rays, n_samples, 4, dtype=torch.float32, device=dev)
+
+    from nerface_tpu_torch.ops.kernels.build import load_library
+
+    lib = load_library("fused_paper_mlp")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.nerface_fused_paper_mlp_fwd(
+            _ptr(ray_origins), _ptr(ray_directions), _ptr(z_vals), _ptr(dir_c), _ptr(wbuf),
+            _ptr(fbuf), _ptr(out), n_rays, n_samples, num_encoding_fn_xyz, int(bool(small)),
+            ctypes.c_void_p(stream),
+        )
+    if err != 0:
+        raise RuntimeError(f"fused_paper_mlp forward kernel launch failed: cudaError {err}")
+    fused_paper_mlp_forward.launches += 1
+    return out
+
+
+fused_paper_mlp_forward.launches = 0
+
+
+def fused_paper_mlp_backward(
+    bundle, ray_origins, ray_directions, z_vals, g, *, num_encoding_fn_xyz=10,
+    log_sampling_xyz=True, small=False,
+):
+    """K3b: the f32 gradients, in the bundle's order and shapes, of
+    Σ g·[rgb, σ] for g (R, S, 4). On CUDA tensors it launches
+    `csrc/fused_paper_mlp.cu`'s recompute kernel and K1's backward kernels
+    or raises; on CPU tensors it runs the plain version (bf16 operands)."""
+    kw = dict(num_encoding_fn_xyz=num_encoding_fn_xyz, log_sampling_xyz=log_sampling_xyz,
+              small=small)
+    if ray_origins.device.type == "cpu":
+        return fused_paper_mlp_backward_reference(
+            bundle, ray_origins, ray_directions, z_vals, g, **kw)
+    dev = _check_kernel_call("fused_paper_mlp_backward", ray_origins, ray_directions, z_vals,
+                             num_encoding_fn_xyz)
+    n_rays, n_samples = z_vals.shape
+    _check("g", g, (n_rays, n_samples, 4), dev)
+    dir_c, wbuf, fbuf, wtbuf = _kernel_operands(bundle, n_rays, dev, num_encoding_fn_xyz,
+                                                log_sampling_xyz, small, transposed=True)
+
+    from nerface_tpu_torch.ops.kernels.build import load_library
+
+    lib = load_library("fused_paper_mlp")
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    dwbuf, dfbuf = empty(W_OFFSETS["TOTAL"]), empty(F_OFFSETS["TOTAL"])
+    d_dir = empty(n_rays, DIR_HIDDEN)
+    ws = torch.empty(lib.nerface_fused_paper_mlp_workspace_bytes(n_rays, n_samples),
+                     dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.nerface_fused_paper_mlp_bwd(
+            _ptr(ray_origins), _ptr(ray_directions), _ptr(z_vals), _ptr(dir_c), _ptr(g),
+            _ptr(wbuf), _ptr(wtbuf), _ptr(fbuf), _ptr(dwbuf), _ptr(dfbuf), _ptr(d_dir), _ptr(ws),
+            n_rays, n_samples, num_encoding_fn_xyz, int(bool(small)), ctypes.c_void_p(stream),
+        )
+    if err != 0:
+        raise RuntimeError(f"fused_paper_mlp backward kernel launch failed: cudaError {err}")
+    fused_paper_mlp_backward.launches += 1
+    (d_cond0, d_cond3), gw, gb = _split_kernel_grads(dwbuf, dfbuf, 6 * num_encoding_fn_xyz, small)
+    # the operand buffers and the workspace may be freed on return: the
+    # caching allocator hands their memory only to later work on this stream
+    return _regroup(d_cond0, d_cond3, d_dir, gw, gb, small)
+
+
+fused_paper_mlp_backward.launches = 0
+
+
+class FusedPaperMLP(torch.autograd.Function):
+    """K3 with its VJP: `FusedPaperMLP.apply(opts, ro, rd, z, *bundle)`,
+    opts = {num_encoding_fn_xyz, log_sampling_xyz, small, mm_dtype}. The
+    forward saves only its inputs (the backward recomputes, as the TPU
+    kernel's VJP does); the geometry gets no gradient. With bf16 operands
+    the matrix gradients are rounded to bf16 (`fused_mlp.py:534-537`).
+    `mm_dtype` f32 runs the plain version in f32 (CPU tensors only)."""
+
+    @staticmethod
+    def forward(ctx, opts, ro, rd, z, *bundle):
+        kw = {k: opts[k] for k in ("num_encoding_fn_xyz", "log_sampling_xyz", "small")}
+        ctx.kw, ctx.mm_dtype = kw, opts["mm_dtype"]
+        ctx.save_for_backward(ro, rd, z, *bundle)
+        with torch.no_grad():
+            if ctx.mm_dtype == torch.bfloat16:
+                return fused_paper_mlp_forward(bundle, ro, rd, z, **kw)
+            if ro.device.type != "cpu":
+                raise ValueError(f"the kernels take bf16 operands, not {ctx.mm_dtype}")
+            return fused_paper_mlp_reference(bundle, ro, rd, z, mm_dtype=ctx.mm_dtype, **kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        ro, rd, z, *bundle = ctx.saved_tensors
+        g = g.contiguous()
+        if ctx.mm_dtype == torch.bfloat16:
+            grads = fused_paper_mlp_backward(bundle, ro, rd, z, g, **ctx.kw)
+            n_w = len(bundle_names(ctx.kw["small"])[0])
+            grads = tuple(
+                t.to(torch.bfloat16).float() if 3 <= i < 3 + n_w else t
+                for i, t in enumerate(grads)
+            )
+        else:
+            grads = fused_paper_mlp_backward_reference(
+                bundle, ro, rd, z, g, mm_dtype=ctx.mm_dtype, **ctx.kw)
+        return (None, None, None, None) + tuple(grads)
+
+
+def fused_paper_mlp(
+    bundle, ray_origins, ray_directions, z_vals, *, num_encoding_fn_xyz=10,
+    log_sampling_xyz=True, small=False, mm_dtype=torch.bfloat16,
+) -> torch.Tensor:
+    """Differentiable raw [rgb, σ] (R, S, 4) of the paper model's MLP
+    (`fused_mlp.py::fused_paper_mlp`): `bundle` is
+    `prefold_paper_params(...)` (all f32), whose gradients autograd carries
+    back to the modules and the latent table. ro/rd (R, 3), z (R, S)."""
+    opts = dict(num_encoding_fn_xyz=num_encoding_fn_xyz, log_sampling_xyz=log_sampling_xyz,
+                small=small, mm_dtype=mm_dtype)
+    return FusedPaperMLP.apply(opts, ray_origins, ray_directions, z_vals, *bundle)

@@ -6,8 +6,9 @@ Port of K1, `nerface_tpu/ops/pallas/fused_train.py::fused_train_pass`
 
 * `prefold_paper_params` is plain differentiable f32 torch: torch-layout
   params + the per-frame conditioning -> the kernel's input bundle
-  (cond0, cond3, dir_contrib, 15 matrices (in, out), 10 bias rows), in
-  the JAX package's order and shapes. Autograd carries the bundle's
+  (cond0, cond3, dir_contrib, 15 matrices (in, out), 10 bias rows; 14
+  and 9 for the smaller model, `small`), in the JAX package's order and
+  shapes. K3 (`fused_mlp.py::fused_paper_mlp`) takes the same bundle. Autograd carries the bundle's
   gradients back to the modules, the latent table and a trainable
   background.
 * `fused_train_pass` is the wrapper: on CUDA tensors it launches the
@@ -18,7 +19,9 @@ Port of K1, `nerface_tpu/ops/pallas/fused_train.py::fused_train_pass`
   rounds to bf16 where the TPU kernel does (`mm_dtype=torch.bfloat16`:
   every left matmul operand, the raw points included, and the weights);
   its compositing backward and trunk backward are written out by hand,
-  mirroring `fused_train.py:173-230` and `fused_mlp.py:248-330`: dW takes
+  mirroring `fused_train.py:173-230` and `fused_mlp.py:248-330` (the
+  trunk's forward and backward are K3's, `fused_mlp.py::
+  _trunk_forward_reference` / `_trunk_backward_reference`): dW takes
   bf16 activations and a bf16-rounded cotangent, dX rounds the cotangent,
   relu masks are taken on the bf16 activations, bias sums take the f32
   cotangents. With `mm_dtype=torch.float32` it is the f32 math, equal to
@@ -37,65 +40,39 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from nerface_tpu_torch.ops.encoding import _frequency_bands
 from nerface_tpu_torch.ops.kernels.fused_mlp import (
     DIR_HIDDEN,
     F_OFFSETS,
     HIDDEN,
-    K_XIN,
-    MAX_FREQS,
     W_OFFSETS,
     _check,
+    _check_kernel_call,
     _encode_points,
-    pack_kernel_operands,
+    _kernel_operands,
+    _points,
+    _ptr,
+    _regroup,
+    _split_kernel_grads,
+    _trunk_backward_reference,
+    _trunk_forward_reference,
+    _unbundle,
+    bundle_names,
 )
 
-WEIGHT_NAMES = (
-    "w0a", "w0b", "w1", "w2", "w3xa", "w3xb", "w3h", "w4", "w5", "wf", "wa",
-    "wd0", "wd1", "wd2", "wrgb",
-)
-BIAS_NAMES = ("b1", "b2", "b4", "b5", "bf", "ba", "bd0", "bd1", "bd2", "brgb")
-# S values the kernel is compiled for (whole rays per 128-row tile)
-TRAIN_KERNEL_SAMPLES = (32, 64, 128)
 
-# The trunk's transposed weights, (out, in) row-major, for the backward's
-# dX products gy @ Wᵀ, in this order. They must equal WT_OFF_* in
-# csrc/fused_train_pass.cu (a CPU test checks it).
-WT_LAYOUT = (
-    ("WD2T", DIR_HIDDEN, DIR_HIDDEN),
-    ("WD1T", DIR_HIDDEN, DIR_HIDDEN),
-    ("WD0T", DIR_HIDDEN, HIDDEN),
-    ("WFT", HIDDEN, HIDDEN),
-    ("W5T", HIDDEN, HIDDEN),
-    ("W4T", HIDDEN, HIDDEN),
-    ("W3HT", HIDDEN, HIDDEN),
-    ("W2T", HIDDEN, HIDDEN),
-    ("W1T", HIDDEN, HIDDEN),
-)
-WT_SOURCE = {
-    "WD2T": "wd2", "WD1T": "wd1", "WD0T": "wd0", "WFT": "wf", "W5T": "w5",
-    "W4T": "w4", "W3HT": "w3h", "W2T": "w2", "W1T": "w1",
-}
-
-
-def _wt_offsets():
-    offs, o = {}, 0
-    for name, k, n in WT_LAYOUT:
-        offs[name] = o
-        o += k * n
-    offs["TOTAL"] = o
-    return offs
-
-
-WT_OFFSETS = _wt_offsets()
-
-
-def prefold_paper_params(params, cond: torch.Tensor, pe_dir: torch.Tensor, num_encoding_fn_xyz: int):
+def prefold_paper_params(params, cond: torch.Tensor, pe_dir: torch.Tensor, num_encoding_fn_xyz: int,
+                         small: bool = False, dir_expr_offset: int = 0):
     """Differentiable f32 map from the paper model's torch-layout params
     ({state-dict name: tensor}, e.g. `dict(model.named_parameters())`) and
     the per-frame cond = [expr/3; latent] to the kernel bundle (cond0 (1,
-    256), cond3 (1, 256), dir_contrib (R, 128), *WEIGHT_NAMES (in, out),
-    *BIAS_NAMES (1, out)) — `fused_train.py::prefold_paper_params`."""
+    256), cond3 (1, 256), dir_contrib (R, 128), the matrices (in, out), the
+    bias rows (1, out); `bundle_names(small)`) —
+    `fused_train.py::prefold_paper_params`. With `small` the smaller model
+    is laid out (no layers_xyz.5), and a nonzero `dir_expr_offset` (the
+    column of layers_dir.0 where its expression block starts: 256 + the
+    declared dir width) folds the expression part of `cond` into
+    dir_contrib: the smaller model's direction branch reads [feat; dirs;
+    expr/3]."""
     d_pe = 3 + 6 * num_encoding_fn_xyz
     dc = cond.shape[-1]
 
@@ -109,37 +86,38 @@ def prefold_paper_params(params, cond: torch.Tensor, pe_dir: torch.Tensor, num_e
     cond3 = (w("layers_xyz.3")[:, d_pe:d_pe + dc] @ cond + b("layers_xyz.3"))[None, :]
     dd = pe_dir.shape[-1]
     dir_contrib = pe_dir @ w("layers_dir.0")[:, HIDDEN:HIDDEN + dd].T
-    mats = (
-        w("layers_xyz.0")[:, :3].T,
-        w("layers_xyz.0")[:, 3:d_pe].T,
-        w("layers_xyz.1").T,
-        w("layers_xyz.2").T,
-        w("layers_xyz.3")[:, :3].T,
-        w("layers_xyz.3")[:, 3:d_pe].T,
-        w("layers_xyz.3")[:, d_pe + dc:].T,
-        w("layers_xyz.4").T,
-        w("layers_xyz.5").T,
-        w("fc_feat").T,
-        w("fc_alpha").T,
-        w("layers_dir.0")[:, :HIDDEN].T,
-        w("layers_dir.1").T,
-        w("layers_dir.2").T,
-        w("fc_rgb").T,
-    )
-    biases = tuple(
-        b(n)[None, :]
-        for n in (
-            "layers_xyz.1", "layers_xyz.2", "layers_xyz.4", "layers_xyz.5", "fc_feat",
-            "fc_alpha", "layers_dir.0", "layers_dir.1", "layers_dir.2", "fc_rgb",
+    if dir_expr_offset:
+        # the per-frame expression: one (128,) vector added to every ray
+        n_expr = dc - 32  # cond is [expr/3; latent (32)]
+        dir_contrib = dir_contrib + (
+            w("layers_dir.0")[:, dir_expr_offset:dir_expr_offset + n_expr] @ cond[:n_expr]
         )
-    )
-    return (cond0, cond3, dir_contrib) + mats + biases
-
-
-def _unbundle(bundle):
-    W = dict(zip(WEIGHT_NAMES, bundle[3:3 + len(WEIGHT_NAMES)]))
-    B = dict(zip(BIAS_NAMES, bundle[3 + len(WEIGHT_NAMES):]))
-    return bundle[0], bundle[1], bundle[2], W, B
+    wn, bn = bundle_names(small)
+    mats = {
+        "w0a": w("layers_xyz.0")[:, :3].T,
+        "w0b": w("layers_xyz.0")[:, 3:d_pe].T,
+        "w1": w("layers_xyz.1").T,
+        "w2": w("layers_xyz.2").T,
+        "w3xa": w("layers_xyz.3")[:, :3].T,
+        "w3xb": w("layers_xyz.3")[:, 3:d_pe].T,
+        "w3h": w("layers_xyz.3")[:, d_pe + dc:].T,
+        "w4": w("layers_xyz.4").T,
+        "wf": w("fc_feat").T,
+        "wa": w("fc_alpha").T,
+        "wd0": w("layers_dir.0")[:, :HIDDEN].T,
+        "wd1": w("layers_dir.1").T,
+        "wd2": w("layers_dir.2").T,
+        "wrgb": w("fc_rgb").T,
+    }
+    biases = {
+        "b1": "layers_xyz.1", "b2": "layers_xyz.2", "b4": "layers_xyz.4", "bf": "fc_feat",
+        "ba": "fc_alpha", "bd0": "layers_dir.0", "bd1": "layers_dir.1", "bd2": "layers_dir.2",
+        "brgb": "fc_rgb",
+    }
+    if not small:
+        mats["w5"], biases["b5"] = w("layers_xyz.5").T, "layers_xyz.5"
+    return ((cond0, cond3, dir_contrib) + tuple(mats[n] for n in wn)
+            + tuple(b(biases[n])[None, :] for n in bn))
 
 
 def fused_train_pass_reference(
@@ -158,46 +136,24 @@ def fused_train_pass_reference(
     train_bg: bool = False,
     num_encoding_fn_xyz: int = 10,
     log_sampling_xyz: bool = True,
+    small: bool = False,
     mm_dtype=torch.bfloat16,
 ):
     """Plain PyTorch version of `fused_train_pass` (same arguments and
     outputs), forward and hand-written backward. Returns (outs, grads,
     d_bg) with outs = {"rgb": (R, 3), "weights": (R, S)}, grads in the
     bundle's order and shapes, d_bg (R, 3) when `train_bg` else None."""
-    cond0, cond3, dir_c, W, B = _unbundle([t.detach() for t in bundle])
+    cond0, cond3, dir_c, W, B = _unbundle([t.detach() for t in bundle], small)
+    W.update(B)
     ro, rd, z, tgt = ray_origins, ray_directions, z_vals, target
     n_rays, n_samples = z.shape
     tile = n_rays * n_samples
-    bf16 = mm_dtype != torch.float32
-
-    def r(x):  # a matmul operand as the TPU kernel rounds it
-        return x.to(mm_dtype).float() if bf16 else x
-
-    Wr = {k: r(v) for k, v in W.items()}
-
-    def dot(a, name):
-        return r(a) @ Wr[name]
 
     # ---- forward (`fused_mlp.py::_trunk_forward`) ---------------------------
-    x3 = (ro[:, None, :] + rd[:, None, :] * z[:, :, None]).reshape(-1, 3)
+    x3 = _points(ro, rd, z)
     enc = _encode_points(x3, num_encoding_fn_xyz, log_sampling_xyz)
-    h0 = torch.relu(dot(x3, "w0a") + dot(enc, "w0b") + cond0)
-    h1 = torch.relu(dot(h0, "w1") + B["b1"])
-    h2 = torch.relu(dot(h1, "w2") + B["b2"])
-    h3 = torch.relu(dot(x3, "w3xa") + dot(enc, "w3xb") + dot(h2, "w3h") + cond3)
-    h4 = torch.relu(dot(h3, "w4") + B["b4"])
-    h5 = torch.relu(dot(h4, "w5") + B["b5"])
-    feat = dot(h5, "wf") + B["bf"]
-    sigma = (dot(feat, "wa") + B["ba"]).reshape(n_rays, n_samples)
-    hd_pre = ((dot(feat, "wd0") + B["bd0"]).reshape(n_rays, n_samples, DIR_HIDDEN)
-              + dir_c[:, None, :]).reshape(tile, DIR_HIDDEN)
-    x0 = torch.relu(hd_pre)
-    x1 = torch.relu(dot(x0, "wd1") + B["bd1"])
-    x2 = torch.relu(dot(x1, "wd2") + B["bd2"])
-    rgb_raw = (dot(x2, "wrgb") + B["brgb"]).reshape(n_rays, n_samples, 3)
-    # activations kept for the backward: bf16 on the TPU kernel
-    a = {k: r(v) for k, v in dict(h0=h0, h1=h1, h2=h2, h3=h3, h4=h4, h5=h5, feat=feat,
-                                  hd_pre=hd_pre, x1=x1, x2=x2).items()}
+    rgb_raw, sigma, a = _trunk_forward_reference(
+        W, cond0, cond3, dir_c, x3, enc, n_rays, n_samples, mm_dtype)
 
     # ---- compositing (`fused_train.py:122-171`) -----------------------------
     d = torch.cat([z[:, 1:] - z[:, :-1], torch.full_like(z[:, :1], 1e10)], dim=-1)
@@ -257,101 +213,12 @@ def fused_train_pass_reference(
         g_rgb_raw = g_sig
 
     # ---- trunk backward (`fused_mlp.py:248-330`) ---------------------------
-    g_rgb = g_rgb_raw.reshape(tile, 3)
-    g_alpha = g_sigma.reshape(tile, 1)
-
-    def dot_t(x, gy):  # dW = xᵀ gy
-        return r(x).T @ r(gy)
-
-    def dot_bt(gy, name):  # dx = gy Wᵀ
-        return r(gy) @ Wr[name].T
-
-    def m(x):
-        return (x > 0).float()
-
-    gw, gb = {}, {}
-    gw["wrgb"] = dot_t(a["x2"], g_rgb)
-    gb["brgb"] = g_rgb.sum(0, keepdim=True)
-    gx2 = dot_bt(g_rgb, "wrgb") * m(a["x2"])
-    gw["wd2"] = dot_t(a["x1"], gx2)
-    gb["bd2"] = gx2.sum(0, keepdim=True)
-    gx1 = dot_bt(gx2, "wd2") * m(a["x1"])
-    gw["wd1"] = dot_t(torch.relu(a["hd_pre"]), gx1)
-    gb["bd1"] = gx1.sum(0, keepdim=True)
-    gx0 = dot_bt(gx1, "wd1") * m(a["hd_pre"])
-    gw["wd0"] = dot_t(a["feat"], gx0)
-    gb["bd0"] = gx0.sum(0, keepdim=True)
-    d_dir = gx0.reshape(n_rays, n_samples, DIR_HIDDEN).sum(1)
-    gw["wa"] = dot_t(a["feat"], g_alpha)
-    gb["ba"] = g_alpha.sum(0, keepdim=True)
-    gfeat = dot_bt(g_alpha, "wa") + dot_bt(gx0, "wd0")
-    gw["wf"] = dot_t(a["h5"], gfeat)
-    gb["bf"] = gfeat.sum(0, keepdim=True)
-    gh5 = dot_bt(gfeat, "wf") * m(a["h5"])
-    gw["w5"] = dot_t(a["h4"], gh5)
-    gb["b5"] = gh5.sum(0, keepdim=True)
-    gh4 = dot_bt(gh5, "w5") * m(a["h4"])
-    gw["w4"] = dot_t(a["h3"], gh4)
-    gb["b4"] = gh4.sum(0, keepdim=True)
-    gh3 = dot_bt(gh4, "w4") * m(a["h3"])
-    gw["w3xa"] = dot_t(x3, gh3)
-    gw["w3xb"] = dot_t(enc, gh3)
-    gw["w3h"] = dot_t(a["h2"], gh3)
-    d_cond3 = gh3.sum(0, keepdim=True)
-    gh2 = dot_bt(gh3, "w3h") * m(a["h2"])
-    gw["w2"] = dot_t(a["h1"], gh2)
-    gb["b2"] = gh2.sum(0, keepdim=True)
-    gh1 = dot_bt(gh2, "w2") * m(a["h1"])
-    gw["w1"] = dot_t(a["h0"], gh1)
-    gb["b1"] = gh1.sum(0, keepdim=True)
-    gh0 = dot_bt(gh1, "w1") * m(a["h0"])
-    gw["w0a"] = dot_t(x3, gh0)
-    gw["w0b"] = dot_t(enc, gh0)
-    d_cond0 = gh0.sum(0, keepdim=True)
-
-    grads = (d_cond0, d_cond3, d_dir) + tuple(gw[n] for n in WEIGHT_NAMES) + tuple(
-        gb[n] for n in BIAS_NAMES
-    )
+    gw, gb, d_cond0, d_cond3, d_dir = _trunk_backward_reference(
+        W, a, x3, enc, g_rgb_raw.reshape(tile, 3), g_sigma.reshape(tile, 1), n_rays, n_samples,
+        mm_dtype)
+    grads = _regroup(d_cond0, d_cond3, d_dir, gw, gb, small)
     outs = {"rgb": rgb_map, "weights": weights}
     return outs, grads, (g_bg if train_bg else None)
-
-
-def pack_transposed_weights(W) -> torch.Tensor:
-    """The dX products' bf16 operand buffer: `WT_LAYOUT`'s matrices, each
-    the (in, out) kernel-layout matrix transposed to (out, in)."""
-    return torch.cat(
-        [W[WT_SOURCE[name]].T.reshape(-1) for name, *_ in WT_LAYOUT]
-    ).to(torch.bfloat16).contiguous()
-
-
-def _split_kernel_grads(dwbuf, dfbuf, n_enc):
-    """The kernel's packed f32 gradients -> the bundle's weight and bias
-    gradients; the zero-padded rows of W0/W3 are dropped."""
-
-    def mat(name, rows, cols):
-        o = W_OFFSETS[name]
-        return dwbuf[o:o + rows * cols].reshape(rows, cols)
-
-    w0 = mat("W0", K_XIN, HIDDEN)
-    w3 = mat("W3", K_XIN + HIDDEN, HIDDEN)
-    gw = {
-        "w0a": w0[:3], "w0b": w0[3:3 + n_enc], "w1": mat("W1", HIDDEN, HIDDEN),
-        "w2": mat("W2", HIDDEN, HIDDEN), "w3xa": w3[:3], "w3xb": w3[3:3 + n_enc],
-        "w3h": w3[K_XIN:], "w4": mat("W4", HIDDEN, HIDDEN), "w5": mat("W5", HIDDEN, HIDDEN),
-        "wf": mat("WF", HIDDEN, HIDDEN), "wa": mat("WA", HIDDEN, 1),
-        "wd0": mat("WD0", HIDDEN, DIR_HIDDEN), "wd1": mat("WD1", DIR_HIDDEN, DIR_HIDDEN),
-        "wd2": mat("WD2", DIR_HIDDEN, DIR_HIDDEN), "wrgb": mat("WRGB", DIR_HIDDEN, 3),
-    }
-    frow = {"b1": "B1", "b2": "B2", "b4": "B4", "b5": "B5", "bf": "BF", "ba": "BA",
-            "bd0": "BD0", "bd1": "BD1", "bd2": "BD2", "brgb": "BRGB"}
-    width = {"ba": 1, "brgb": 3, "bd0": DIR_HIDDEN, "bd1": DIR_HIDDEN, "bd2": DIR_HIDDEN}
-
-    def row(name, n):
-        o = F_OFFSETS[name]
-        return dfbuf[o:o + n][None, :]
-
-    gb = {k: row(v, width.get(k, HIDDEN)) for k, v in frow.items()}
-    return (row("COND0", HIDDEN), row("COND3", HIDDEN)), gw, gb
 
 
 def fused_train_pass(
@@ -370,69 +237,36 @@ def fused_train_pass(
     train_bg: bool = False,
     num_encoding_fn_xyz: int = 10,
     log_sampling_xyz: bool = True,
+    small: bool = False,
 ):
     """One training pass (coarse or fine) through the fused kernel: the
-    JAX package's arguments and outputs (`fused_train.py:293-318`, without
-    `small`). `bundle` is `prefold_paper_params(...)` (all f32). Returns
-    (outs, grads, d_bg): outs = {"rgb": (R, 3), "weights": (R, S)}, grads
-    the f32 gradients in the bundle's order and shapes, d_bg (R, 3) when
-    `train_bg` else None."""
+    JAX package's arguments and outputs (`fused_train.py:293-318`).
+    `bundle` is `prefold_paper_params(...)` (all f32; the smaller model's
+    with `small`). Returns (outs, grads, d_bg): outs = {"rgb": (R, 3),
+    "weights": (R, S)}, grads the f32 gradients in the bundle's order and
+    shapes, d_bg (R, 3) when `train_bg` else None."""
     n_rays, n_samples = z_vals.shape
     if noise_std > 0.0 and noise is None:
         raise ValueError("noise_std > 0 requires a noise array")
     if (sup_bg_scale > 0.0 or train_bg) and background is None:
         raise ValueError("sup_bg_scale > 0 and train_bg need a background")
-    if len(bundle) != 3 + len(WEIGHT_NAMES) + len(BIAS_NAMES):
-        raise ValueError(f"bundle has {len(bundle)} tensors, expected 28")
     kw = dict(
         background=background, noise=noise, noise_std=noise_std,
         white_background=white_background, loss_scale=loss_scale, sup_bg_scale=sup_bg_scale,
         train_bg=train_bg, num_encoding_fn_xyz=num_encoding_fn_xyz,
-        log_sampling_xyz=log_sampling_xyz,
+        log_sampling_xyz=log_sampling_xyz, small=small,
     )
-    dev = ray_origins.device
-    if dev.type == "cpu":
+    if ray_origins.device.type == "cpu":
         return fused_train_pass_reference(bundle, ray_origins, ray_directions, z_vals, target, **kw)
-    if dev.type != "cuda":
-        raise ValueError(f"fused_train_pass runs on cuda or cpu, not {dev}")
-    if n_samples not in TRAIN_KERNEL_SAMPLES:
-        raise ValueError(
-            f"kernel is built for {TRAIN_KERNEL_SAMPLES} samples per ray, got {n_samples}"
-        )
-    if not 1 <= num_encoding_fn_xyz <= MAX_FREQS:
-        raise ValueError(f"kernel takes 1..{MAX_FREQS} xyz encoding bands")
-    n_enc = 6 * num_encoding_fn_xyz
-    _check("ray_origins", ray_origins, (n_rays, 3), dev)
-    _check("ray_directions", ray_directions, (n_rays, 3), dev)
-    _check("z_vals", z_vals, (n_rays, n_samples), dev)
+    dev = _check_kernel_call("fused_train_pass", ray_origins, ray_directions, z_vals,
+                             num_encoding_fn_xyz)
     _check("target", target, (n_rays, 3), dev)
     if background is not None:
         _check("background", background, (n_rays, 3), dev)
     if noise_std > 0.0:
         _check("noise", noise, (n_rays, n_samples), dev)
-    bundle = [t.detach() for t in bundle]
-    cond0, cond3, dir_c, W, B = _unbundle(bundle)
-    _check("dir_contrib", dir_c, (n_rays, DIR_HIDDEN), dev)
-    _check("cond0", cond0, (1, HIDDEN), dev)
-    _check("cond3", cond3, (1, HIDDEN), dev)
-    shapes = {"w0a": (3, HIDDEN), "w0b": (n_enc, HIDDEN), "w3xa": (3, HIDDEN),
-              "w3xb": (n_enc, HIDDEN), "wa": (HIDDEN, 1), "wd0": (HIDDEN, DIR_HIDDEN),
-              "wd1": (DIR_HIDDEN, DIR_HIDDEN), "wd2": (DIR_HIDDEN, DIR_HIDDEN),
-              "wrgb": (DIR_HIDDEN, 3)}
-    for name, t in W.items():
-        want = shapes.get(name, (HIDDEN, HIDDEN))
-        if t.dtype != torch.float32 or tuple(t.shape) != want or t.device != dev:
-            raise ValueError(f"{name} must be float32 {want} on {dev}, got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
-    for name, t in B.items():
-        if t.dtype != torch.float32 or t.dim() != 2 or t.shape[0] != 1 or t.device != dev:
-            raise ValueError(f"{name} must be a float32 (1, n) row on {dev}")
-
-    freqs = torch.as_tensor(_frequency_bands(num_encoding_fn_xyz, log_sampling_xyz), device=dev)
-    Wk = dict(W)
-    Wk.update({k: v.reshape(-1) for k, v in B.items()})
-    wbuf, fbuf = pack_kernel_operands(cond0.reshape(-1), cond3.reshape(-1), Wk, freqs)
-    wtbuf = pack_transposed_weights(W)
+    dir_c, wbuf, fbuf, wtbuf = _kernel_operands(bundle, n_rays, dev, num_encoding_fn_xyz,
+                                                log_sampling_xyz, small, transposed=True)
 
     from nerface_tpu_torch.ops.kernels.build import load_library
 
@@ -448,28 +282,22 @@ def fused_train_pass(
     ws = torch.empty(
         lib.nerface_fused_train_workspace_bytes(n_rays, n_samples), dtype=torch.uint8, device=dev
     )
-
-    def ptr(t):
-        return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
-
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.nerface_fused_train_pass(
-            ptr(ray_origins), ptr(ray_directions), ptr(z_vals), ptr(target), ptr(dir_c),
-            ptr(background), ptr(noise if noise_std > 0.0 else None),
-            ptr(wbuf), ptr(wtbuf), ptr(fbuf),
-            ptr(rgb), ptr(weights), ptr(dwbuf), ptr(dfbuf), ptr(d_dir), ptr(d_bg), ptr(ws),
-            n_rays, n_samples, num_encoding_fn_xyz, int(bool(white_background)),
+            _ptr(ray_origins), _ptr(ray_directions), _ptr(z_vals), _ptr(target), _ptr(dir_c),
+            _ptr(background), _ptr(noise if noise_std > 0.0 else None),
+            _ptr(wbuf), _ptr(wtbuf), _ptr(fbuf),
+            _ptr(rgb), _ptr(weights), _ptr(dwbuf), _ptr(dfbuf), _ptr(d_dir), _ptr(d_bg), _ptr(ws),
+            n_rays, n_samples, num_encoding_fn_xyz, int(bool(white_background)), int(bool(small)),
             ctypes.c_float(noise_std), ctypes.c_float(loss_scale), ctypes.c_float(sup_bg_scale),
             ctypes.c_void_p(stream),
         )
     if err != 0:
         raise RuntimeError(f"fused_train_pass kernel launch failed: cudaError {err}")
     fused_train_pass.launches += 1
-    (d_cond0, d_cond3), gw, gb = _split_kernel_grads(dwbuf, dfbuf, n_enc)
-    grads = (d_cond0, d_cond3, d_dir) + tuple(gw[n] for n in WEIGHT_NAMES) + tuple(
-        gb[n] for n in BIAS_NAMES
-    )
+    (d_cond0, d_cond3), gw, gb = _split_kernel_grads(dwbuf, dfbuf, 6 * num_encoding_fn_xyz, small)
+    grads = _regroup(d_cond0, d_cond3, d_dir, gw, gb, small)
     # the operand buffers and the workspace may be freed on return: the
     # caching allocator hands their memory only to later work on this stream
     return {"rgb": rgb, "weights": weights}, grads, d_bg

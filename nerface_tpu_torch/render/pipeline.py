@@ -15,15 +15,25 @@ reference semantics (SURVEY.md §2.4):
 * `bg_weight` is the last pass's background-sample weight per ray;
 * `ray_directions_ablation` feeds the direction branch per ray.
 
-Path choice. For the flagship paper model in bf16 (`dtype=torch.bfloat16`)
-at σ-noise 0, each pass is one `fused_paper_render` call — the hand-written
-CUDA kernel on the card — over the model's weights packed once
-(`_kernel_weights`). For an eligible Flexible-family model in bf16, each
-pass's MLP is one `fused_flex_mlp` call (K4f; its backward is K4b), with
-the conditioning folded into `v0` and the direction contribution in
-differentiable torch, composited by `volume_render_radiance_field` as the
-JAX package composites it with XLA. Otherwise the model runs as PyTorch
-ops; in f32 this is the path held to the JAX package's f32 XLA path.
+Path choice, in bf16 (`dtype=torch.bfloat16`), for the paper family
+(`ConditionalBlendshapePaperNeRFModel` and its smaller variant):
+
+* with `settings.fused_render` (set by `eval/renderer.py::
+  render_full_frame` only: eval is never differentiated) and σ-noise 0,
+  each pass is one `fused_paper_render` call (K2: MLP + compositing,
+  forward only) over the model's weights packed once (`_kernel_weights`);
+* otherwise each pass's MLP is one `fused_paper_mlp` call (K3f; its
+  backward is K3b) over the differentiable `prefold_paper_params` bundle,
+  composited by `volume_render_radiance_field` with the σ-noise, as the
+  JAX package composites it with XLA (`pipeline.py:240-267`). On the card
+  a pass with a sample count the kernels are not built for runs the
+  model's plain forward.
+
+For an eligible Flexible-family model in bf16, each pass's MLP is one
+`fused_flex_mlp` call (K4f; its backward is K4b), with the conditioning
+folded into `v0` and the direction contribution in differentiable torch.
+Otherwise the model runs as PyTorch ops; in f32 this is the path held to
+the JAX package's f32 XLA path.
 
 Draws: `t_rand` (R, num_coarse), `u` (R, num_fine) and the σ-noise normals
 `noise_c` (R, num_coarse) and `noise_f` (R, num_coarse + num_fine) may be
@@ -41,16 +51,22 @@ from typing import Any, Dict, Optional
 import torch
 
 from nerface_tpu_torch.models.mlp import cond_contribution, linear_cols
-from nerface_tpu_torch.models.nerf_models import HIDDEN, ConditionalBlendshapePaperNeRFModel
+from nerface_tpu_torch.models.nerf_models import (
+    HIDDEN,
+    ConditionalBlendshapePaperNeRFModel,
+    ConditionalBlendshapePaperSmallerNeRFModel,
+)
 from nerface_tpu_torch.ops.compositing import inject_background, volume_render_radiance_field
 from nerface_tpu_torch.ops.encoding import positional_encoding
 from nerface_tpu_torch.ops.kernels.fused_flex import flex_fused_eligible, fused_flex_mlp
 from nerface_tpu_torch.ops.kernels.fused_mlp import (
     KERNEL_SAMPLES,
     MAX_FREQS,
+    fused_paper_mlp,
     fused_paper_render,
     pack_paper_weights,
 )
+from nerface_tpu_torch.ops.kernels.fused_train import prefold_paper_params
 from nerface_tpu_torch.ops.sampling import (
     STREAM_NOISE_COARSE,
     STREAM_NOISE_FINE,
@@ -80,7 +96,8 @@ class EncodeSpec:
 class RenderSettings:
     """Render configuration: `getattr(cfg.nerf, mode)` plus the dataset's
     near/far bounds. `fast_eval` is read from the config so the server can
-    refuse it (not ported yet)."""
+    refuse it (not ported yet). `fused_render` lets a paper-family pass
+    take the forward-only K2; only the full-frame renderer sets it."""
 
     num_coarse: int = 64
     num_fine: int = 64
@@ -96,6 +113,7 @@ class RenderSettings:
     encode_dir: Optional[EncodeSpec] = EncodeSpec(4, False, True)
     chunksize: int = 65536
     fast_eval: bool = False
+    fused_render: bool = False
 
     @classmethod
     def from_cfg(cls, cfg, mode: str = "train") -> "RenderSettings":
@@ -129,34 +147,64 @@ class RenderSettings:
         )
 
 
-def _fused_render_eligible(model, n_samples, pe_dir, expr, latent, settings, dtype) -> bool:
-    """Whether a pass can be one `fused_paper_render` call."""
-    if dtype != torch.bfloat16:
+def _fused_variant(model) -> Optional[bool]:
+    """None for a model no paper-family kernel takes; else the kernels'
+    `small` flag (True: the smaller paper model)."""
+    if isinstance(model, ConditionalBlendshapePaperSmallerNeRFModel):
+        return True
+    if isinstance(model, ConditionalBlendshapePaperNeRFModel):
         return False
-    if settings.radiance_field_noise_std > 0.0:
-        return False
-    if not isinstance(model, ConditionalBlendshapePaperNeRFModel):
+    return None
+
+
+def _fused_model_ok(model, encode_xyz: EncodeSpec, pe_dir, expr, latent) -> bool:
+    """The paper-family kernels' checks on the model and the per-frame
+    inputs (`nerface_tpu/render/pipeline.py:187-206`), plus the kernels'
+    band limit."""
+    small = _fused_variant(model)
+    if small is None:
         return False
     if pe_dir is None or expr is None or latent is None:
         return False
     if expr.ndim != 1 or latent.ndim != 1:
         return False
-    enc = settings.encode_xyz
-    if not enc.include_input or model.dim_xyz != 3 + 6 * enc.num_encoding_functions:
+    if not encode_xyz.include_input or model.dim_xyz != 3 + 6 * encode_xyz.num_encoding_functions:
         return False
-    if enc.num_encoding_functions > MAX_FREQS or n_samples not in KERNEL_SAMPLES:
+    if encode_xyz.num_encoding_functions > MAX_FREQS:
         return False
     # forward() slices the first pe_dir-width dir columns; so does the fold
-    return model.dim_dir >= pe_dir.shape[-1]
+    if model.dim_dir < pe_dir.shape[-1]:
+        return False
+    return not small or model.dim_expression == 76
+
+
+def _fused_render_eligible(model, n_samples, pe_dir, expr, latent, settings, dtype) -> bool:
+    """Whether a pass can be one `fused_paper_render` call: only where the
+    caller set `settings.fused_render` (K2 has no backward)."""
+    if dtype != torch.bfloat16 or not settings.fused_render:
+        return False
+    if settings.radiance_field_noise_std > 0.0:
+        return False
+    return n_samples in KERNEL_SAMPLES and _fused_model_ok(
+        model, settings.encode_xyz, pe_dir, expr, latent
+    )
 
 
 def _fused_conditioning(model, pe_dir, expr, latent):
-    """(cond, dir_contrib) for a fused call: cond = [expr/3; latent] and the
-    per-ray direction-branch contribution pe_dir @ W_dir0[:, 256:].T."""
+    """(cond, dir_contrib, small) for a K2 call: cond = [expr/3; latent],
+    the per-ray direction-branch contribution pe_dir @ W_dir0[:, 256:].T
+    and, for the smaller model, its expression columns' (starting at the
+    declared dir width) folded in."""
+    small = bool(_fused_variant(model))
     cond = torch.cat([expr * (1.0 / 3.0), latent])
     dd = pe_dir.shape[-1]
     dir_contrib = linear_cols(model.layers_dir[0], pe_dir, HIDDEN, HIDDEN + dd)
-    return cond, dir_contrib
+    if small:
+        dir_contrib = dir_contrib + cond_contribution(
+            model.layers_dir[0], [(expr * (1.0 / 3.0), model.dim_expression)],
+            HIDDEN + model.dim_dir,
+        )
+    return cond, dir_contrib, small
 
 
 def _kernel_weights(model, encode_xyz: EncodeSpec):
@@ -175,7 +223,7 @@ def _kernel_weights(model, encode_xyz: EncodeSpec):
 
 
 def _fused_pass(model, ro, rd, z_vals, pe_dir, expr, latent, background, settings, out_weights):
-    cond, dir_contrib = _fused_conditioning(model, pe_dir, expr, latent)
+    cond, dir_contrib, small = _fused_conditioning(model, pe_dir, expr, latent)
     return fused_paper_render(
         _kernel_weights(model, settings.encode_xyz), ro, rd, z_vals, dir_contrib, cond,
         background=background,
@@ -183,6 +231,23 @@ def _fused_pass(model, ro, rd, z_vals, pe_dir, expr, latent, background, setting
         num_encoding_fn_xyz=settings.encode_xyz.num_encoding_functions,
         log_sampling_xyz=settings.encode_xyz.log_sampling,
         out_weights=out_weights,
+        small=small,
+    )
+
+
+def _paper_pass(model, ro, rd, z_vals, encode_xyz, pe_dir, expr, latent):
+    """One `fused_paper_mlp` call (K3) for a paper-family model
+    (`nerface_tpu/render/pipeline.py:256-267`) over the differentiable
+    `prefold_paper_params` bundle of its parameters."""
+    small = bool(_fused_variant(model))
+    L = encode_xyz.num_encoding_functions
+    bundle = prefold_paper_params(
+        dict(model.named_parameters()), torch.cat([expr * (1.0 / 3.0), latent]), pe_dir, L,
+        small=small, dir_expr_offset=(HIDDEN + model.dim_dir) if small else 0,
+    )
+    return fused_paper_mlp(
+        [t.contiguous() for t in bundle], ro.contiguous(), rd.contiguous(), z_vals.contiguous(),
+        num_encoding_fn_xyz=L, log_sampling_xyz=encode_xyz.log_sampling, small=small,
     )
 
 
@@ -210,9 +275,21 @@ def _flex_pass(model, ro, rd, z_vals, encode_xyz, pe_dir, expr, latent):
 
 
 def _apply_model(model, ro, rd, z_vals, encode_xyz, pe_dir, expr, latent, dtype):
-    """Evaluate the radiance field at the samples: one K4 call for an
-    eligible Flexible-family model in bf16 with 2-D rays and per-frame
-    conditioning, else positional-encode the points and run the model."""
+    """Evaluate the radiance field at the samples: in bf16 with 2-D rays
+    and per-frame conditioning, one K3 call for a paper-family model (on
+    the card at the kernels' sample counts) or one K4 call for an eligible
+    Flexible-family model; else positional-encode the points and run the
+    model."""
+    if (
+        dtype == torch.bfloat16
+        and ro.ndim == 2
+        and z_vals.ndim == 2
+        and pe_dir is not None
+        and pe_dir.ndim == 2
+        and _fused_model_ok(model, encode_xyz, pe_dir, expr, latent)
+        and (ro.device.type != "cuda" or z_vals.shape[-1] in KERNEL_SAMPLES)
+    ):
+        return _paper_pass(model, ro, rd, z_vals, encode_xyz, pe_dir, expr, latent)
     if (
         dtype == torch.bfloat16
         and ro.ndim == 2

@@ -1,8 +1,9 @@
 """The training losses through the one-pass fused kernel.
 
-Port of `nerface_tpu/train/fused.py`. For the flagship
-`ConditionalBlendshapePaperNeRFModel` in bf16, both passes of a step are
-one `FusedTrainPass` each (K1: `ops/kernels/fused_train.py`), whose
+Port of `nerface_tpu/train/fused.py`. For the paper family
+(`ConditionalBlendshapePaperNeRFModel`, or its smaller variant for both
+models: K1's `small` mode) in bf16, both passes of a step are one
+`FusedTrainPass` each (K1: `ops/kernels/fused_train.py`), whose
 forward launches the kernel and whose backward hands the kernel's
 gradients to `prefold_paper_params`, plain differentiable torch, so
 `total.backward()` reaches the modules, the latent table and a trainable
@@ -18,13 +19,9 @@ from typing import Dict, Optional
 import torch
 
 from nerface_tpu_torch.config.flags import FeatureFlags
-from nerface_tpu_torch.models.nerf_models import ConditionalBlendshapePaperNeRFModel
-from nerface_tpu_torch.ops.kernels.fused_mlp import MAX_FREQS
-from nerface_tpu_torch.ops.kernels.fused_train import (
-    TRAIN_KERNEL_SAMPLES,
-    fused_train_loss,
-    prefold_paper_params,
-)
+from nerface_tpu_torch.models.nerf_models import HIDDEN
+from nerface_tpu_torch.ops.kernels.fused_mlp import KERNEL_SAMPLES, MAX_FREQS
+from nerface_tpu_torch.ops.kernels.fused_train import fused_train_loss, prefold_paper_params
 from nerface_tpu_torch.ops.math import mse2psnr
 from nerface_tpu_torch.ops.safe import safe_norm
 from nerface_tpu_torch.ops.sampling import (
@@ -35,21 +32,29 @@ from nerface_tpu_torch.ops.sampling import (
     sample_pdf,
     stratified_zvals,
 )
-from nerface_tpu_torch.render.pipeline import RenderSettings, _direction_branch_input
+from nerface_tpu_torch.render.pipeline import (
+    RenderSettings,
+    _direction_branch_input,
+    _fused_variant,
+)
 
 
 def fused_train_eligible(
     model_coarse, model_fine, settings: RenderSettings, flags: FeatureFlags, dtype, device
 ) -> bool:
     """Whether a step can train through K1 with the f32 path's semantics:
-    bf16, the paper model for both passes, ≥ 1 fine sample, view
-    directions, the xyz input included, a latent vector (the table or the
-    zeros ablation), and on the card sample counts the kernel is built
-    for."""
+    bf16, the same paper-family variant for both passes (the smaller one
+    with the 76-dim expression), ≥ 1 fine sample, view directions, the xyz
+    input included, a latent vector (the table or the zeros ablation), and
+    on the card sample counts the kernel is built for
+    (`nerface_tpu/train/fused.py:43-74`)."""
     if dtype != torch.bfloat16:
         return False
     models = (model_coarse, model_fine)
-    if not all(isinstance(m, ConditionalBlendshapePaperNeRFModel) for m in models):
+    small = _fused_variant(model_coarse)
+    if small is None or small != _fused_variant(model_fine):
+        return False
+    if small and any(m.dim_expression != 76 for m in models):
         return False
     if settings.num_fine <= 0 or not settings.no_ndc:
         return False
@@ -64,7 +69,7 @@ def fused_train_eligible(
         return False
     if torch.device(device).type == "cuda":
         s_all = settings.num_coarse + settings.num_fine
-        return settings.num_coarse in TRAIN_KERNEL_SAMPLES and s_all in TRAIN_KERNEL_SAMPLES
+        return settings.num_coarse in KERNEL_SAMPLES and s_all in KERNEL_SAMPLES
     return True
 
 
@@ -139,14 +144,19 @@ def fused_losses(
         noise_c = noise_c.contiguous()
 
     cond = torch.cat([expression * (1.0 / 3.0), latent])
+    small = bool(_fused_variant(state.model_coarse))
+    # the smaller model: the expression block of layers_dir.0 starts after
+    # the declared dir width
+    dir_off = (HIDDEN + state.model_coarse.dim_dir) if small else 0
     bundles = [
-        prefold_paper_params(dict(m.named_parameters()), cond, pe_dir, L)
+        prefold_paper_params(dict(m.named_parameters()), cond, pe_dir, L, small=small,
+                             dir_expr_offset=dir_off)
         for m in (state.model_coarse, state.model_fine)
     ]
     common = dict(
         background=bg, noise_std=std, white_background=settings.white_background,
         loss_scale=2.0 / (3.0 * num_rays), train_bg=state.train_background,
-        num_encoding_fn_xyz=L, log_sampling_xyz=settings.encode_xyz.log_sampling,
+        num_encoding_fn_xyz=L, log_sampling_xyz=settings.encode_xyz.log_sampling, small=small,
     )
     coarse_loss, _, w_c, _, _ = fused_train_loss(
         bundles[0], ro, rd, z_vals, target, noise=noise_c, sup_bg_scale=0.0, **common

@@ -1,7 +1,9 @@
 """PyTorch port, the hand-written CUDA kernels on the card: `fused_paper_render`
-(K2), `fused_train_pass` (K1) and `fused_flex_forward` / `fused_flex_backward`
-(K4f / K4b) against their plain PyTorch versions (bf16 operands) on the same
-CUDA tensors.
+(K2), `fused_train_pass` (K1), `fused_paper_mlp_forward` /
+`fused_paper_mlp_backward` (K3f / K3b), each for the paper model and in its
+`small` mode for the smaller one, and `fused_flex_forward` /
+`fused_flex_backward` (K4f / K4b) against their plain PyTorch versions
+(bf16 operands) on the same CUDA tensors.
 
 Every test here is marked `cuda` and skips on a host with no card. The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -16,7 +18,16 @@ rounding of an activation), depth atol 2e-3·far, disp rtol 1e-2.
 import pytest
 import torch
 
-from chip_smoke import FLEX_OUT_TOL, HE_GAIN, SIGMA_BIAS, _flex_params, k1_grad_limits
+from chip_smoke import (
+    FLEX_OUT_TOL,
+    HE_GAIN,
+    K3_OUT_TOL,
+    SIGMA_BIAS,
+    _bundle_names,
+    _flex_params,
+    _k1_params,
+    k1_grad_limits,
+)
 from nerface_tpu_torch.models.nerf_models import ConditionalBlendshapePaperNeRFModel
 from nerface_tpu_torch.ops.kernels import fused_mlp as K
 
@@ -170,7 +181,7 @@ def test_train_kernel_matches_plain(cuda_device, he_params, R, S, kind):
     ref, rgrads, rd_bg = T.fused_train_pass_reference(bundle, ro, rd, z, tgt, **kw)
     for k in ("rgb", "weights"):
         torch.testing.assert_close(got[k], ref[k], atol=2e-3, rtol=0, msg=k)
-    names = ["cond0", "cond3", "dir"] + list(T.WEIGHT_NAMES) + list(T.BIAS_NAMES)
+    names = _bundle_names(False)
     pairs = list(zip(names, grads, rgrads))
     if kind == "train_bg":
         pairs.append(("bg", d_bg, rd_bg))
@@ -268,3 +279,134 @@ def test_flex_kernels_refuse_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="g has shape"):
         F.fused_flex_backward(weights, ro, rd, z, dc, v0, g[:, :32].contiguous(), 3)
     assert (F.fused_flex_forward.launches, F.fused_flex_backward.launches) == before
+
+
+# -- the smaller model: K2 and K1 in their `small` mode -----------------------
+# chip_smoke.py's tolerances, as above.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rays,S", [(512, 64), (77, 128)], ids=["coarse", "fine-ragged"])
+def test_render_kernel_small_matches_plain(cuda_device, n_rays, S):
+    params = _k1_params(5, cuda_device, small=True)
+    ro, rd, z, dc, cond, bg = _inputs(n_rays, S, cuda_device, seed=S + n_rays + 1)
+    kw = dict(background=bg, out_weights=True, small=True)
+    before = K.fused_paper_render.launches
+    got = K.fused_paper_render(params, ro, rd, z, dc, cond, **kw)
+    torch.cuda.synchronize()
+    assert K.fused_paper_render.launches == before + 1
+    _assert_close(got, K.fused_paper_render_reference(params, ro, rd, z, dc, cond, **kw))
+    with pytest.raises(ValueError, match="small"):
+        K.fused_paper_render(K.pack_paper_weights(params), ro, rd, z, dc, cond,
+                             background=bg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,S", [(512, 64), (77, 128)], ids=["coarse", "fine-ragged"])
+def test_train_kernel_small_matches_plain(cuda_device, R, S):
+    from nerface_tpu_torch.ops.kernels import fused_train as T
+
+    params = _k1_params(6, cuda_device, small=True)
+    ro, rd, z, tgt, bg, noise, pe_dir, cond = _train_inputs(R, S, cuda_device, seed=R + S + 1)
+    bundle = [t.contiguous() for t in T.prefold_paper_params(params, cond, pe_dir, 10, small=True)]
+    kw = dict(loss_scale=2.0 / (3.0 * R), background=bg, noise=noise, noise_std=0.1, small=True)
+    got, grads, _ = T.fused_train_pass(bundle, ro, rd, z, tgt, **kw)
+    _, grads2, _ = T.fused_train_pass(bundle, ro, rd, z, tgt, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads2)), "not deterministic"
+    ref, rgrads, _ = T.fused_train_pass_reference(bundle, ro, rd, z, tgt, **kw)
+    for k in ("rgb", "weights"):
+        torch.testing.assert_close(got[k], ref[k], atol=2e-3, rtol=0, msg=k)
+    _assert_grads_close(_bundle_names(True), grads, rgrads, R)
+
+
+def _assert_grads_close(names, grads, rgrads, R):
+    assert len(names) == len(grads) == len(rgrads)
+    for name, g, r in zip(names, grads, rgrads):
+        assert torch.isfinite(g).all(), name
+        tol, tol_norm = k1_grad_limits(R, name)
+        torch.testing.assert_close(g, r, atol=tol * float(r.abs().max()) + 1e-6, rtol=0, msg=name)
+        err, ref_norm = float((g - r).norm()), float(r.norm())
+        assert err <= tol_norm * ref_norm + 1e-6, f"{name}: ‖err‖ {err} > {tol_norm}·{ref_norm}"
+
+
+# -- K3: fused_paper_mlp_forward / fused_paper_mlp_backward -------------------
+# chip_smoke.py's tolerances: raw rgb and σ each within K3_OUT_TOL of their
+# max|plain|; each gradient tensor within `k1_grad_limits`.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("small", [False, True], ids=["paper", "small"])
+@pytest.mark.parametrize("R,S", [(512, 64), (77, 128), (301, 32)],
+                         ids=["coarse", "fine-ragged", "s32-ragged"])
+def test_paper_mlp_kernels_match_plain(cuda_device, small, R, S):
+    """Rows past the last ray of a ragged last tile are masked."""
+    from nerface_tpu_torch.ops.kernels.fused_train import prefold_paper_params
+
+    params = _k1_params(7, cuda_device, small=small)
+    ro, rd, z, tgt, bg, noise, pe_dir, cond = _train_inputs(R, S, cuda_device, seed=R + S + 2)
+    bundle = [t.contiguous() for t in prefold_paper_params(
+        params, cond, pe_dir, 10, small=small, dir_expr_offset=(256 + 24) if small else 0)]
+    g = torch.randn(R, S, 4, generator=torch.Generator().manual_seed(S)).to(cuda_device)
+    args = (bundle, ro, rd, z)
+    before = (K.fused_paper_mlp_forward.launches, K.fused_paper_mlp_backward.launches)
+    out = K.fused_paper_mlp_forward(*args, small=small)
+    out2 = K.fused_paper_mlp_forward(*args, small=small)
+    grads = K.fused_paper_mlp_backward(*args, g, small=small)
+    grads2 = K.fused_paper_mlp_backward(*args, g, small=small)
+    torch.cuda.synchronize()
+    assert (K.fused_paper_mlp_forward.launches, K.fused_paper_mlp_backward.launches) == (
+        before[0] + 2, before[1] + 2)
+    assert torch.equal(out, out2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
+    ref = K.fused_paper_mlp_reference(*args, small=small)
+    assert out.shape == (R, S, 4) and torch.isfinite(out).all()
+    for sl in (slice(0, 3), slice(3, 4)):
+        torch.testing.assert_close(out[..., sl], ref[..., sl],
+                                   atol=K3_OUT_TOL * float(ref[..., sl].abs().max()), rtol=0)
+    rgrads = K.fused_paper_mlp_backward_reference(*args, g, small=small)
+    _assert_grads_close(_bundle_names(small), grads, rgrads, R)
+
+
+@pytest.mark.cuda
+def test_paper_mlp_autograd_reaches_the_modules(cuda_device):
+    """The render pipeline's K3 branch on the card: autograd through the
+    prefold hands K3b's gradients to every applied parameter."""
+    from nerface_tpu_torch.models.nerf_models import ConditionalBlendshapePaperSmallerNeRFModel
+    from nerface_tpu_torch.render.pipeline import EncodeSpec, _paper_pass
+
+    m = ConditionalBlendshapePaperSmallerNeRFModel(
+        num_encoding_fn_xyz=10, num_encoding_fn_dir=4, include_input_dir=False,
+        device=cuda_device, generator=torch.Generator().manual_seed(8),
+    )
+    ro, rd, z, tgt, bg, noise, pe_dir, cond = _train_inputs(256, 64, cuda_device, seed=9)
+    expr, latent = cond[:76] * 3.0, cond[76:].clone().requires_grad_(True)
+    before = K.fused_paper_mlp_backward.launches
+    out = _paper_pass(m, ro, rd, z, EncodeSpec(10, True, True), pe_dir, expr, latent)
+    out.square().sum().backward()
+    assert K.fused_paper_mlp_backward.launches == before + 1
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in m.parameters())
+    assert latent.grad is not None and latent.grad.abs().sum() > 0
+
+
+@pytest.mark.cuda
+def test_paper_mlp_kernels_refuse_what_they_do_not_take(cuda_device, params):
+    from nerface_tpu_torch.ops.kernels.fused_train import prefold_paper_params
+
+    ro, rd, z, tgt, bg, noise, pe_dir, cond = _train_inputs(64, 64, cuda_device, seed=2)
+    bundle = prefold_paper_params(params, cond, pe_dir, 10)
+    g = torch.zeros(64, 64, 4, device=cuda_device)
+    before = (K.fused_paper_mlp_forward.launches, K.fused_paper_mlp_backward.launches)
+    with pytest.raises(ValueError, match="samples per ray"):
+        K.fused_paper_mlp_forward(bundle, ro, rd, z[:, :16].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        K.fused_paper_mlp_forward(bundle, ro, rd, z.t().contiguous().t())
+    with pytest.raises(TypeError, match="float32"):
+        K.fused_paper_mlp_forward(bundle, ro.double(), rd, z)
+    with pytest.raises(ValueError, match="bundle has"):
+        K.fused_paper_mlp_forward(bundle, ro, rd, z, small=True)
+    with pytest.raises(ValueError, match="g has shape"):
+        K.fused_paper_mlp_backward(bundle, ro, rd, z, g[:, :32].contiguous())
+    with pytest.raises(ValueError, match="dir_contrib has shape"):
+        K.fused_paper_mlp_forward(bundle, ro[:32].contiguous(), rd[:32].contiguous(),
+                                  z[:32].contiguous())
+    assert (K.fused_paper_mlp_forward.launches, K.fused_paper_mlp_backward.launches) == before

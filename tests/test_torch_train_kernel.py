@@ -43,7 +43,7 @@ torch.set_num_threads(1)
 
 CU = pathlib.Path(T.__file__).resolve().parents[2] / "csrc" / "fused_train_pass.cu"
 R = 16
-NAMES = ["d_cond0", "d_cond3", "d_dir"] + list(T.WEIGHT_NAMES) + list(T.BIAS_NAMES)
+NAMES = ["d_cond0", "d_cond3", "d_dir"] + list(K.WEIGHT_NAMES) + list(K.BIAS_NAMES)
 
 
 @pytest.fixture(scope="module")
@@ -131,7 +131,7 @@ def test_prefold_matches_jax(model):
 def _f32_forward_loss(bundle, x, case):
     """The plain version's forward in f32 as autograd-able torch, and the
     pass's loss (MSE, + the supervised background term)."""
-    cond0, cond3, dir_c, W, B = T._unbundle(bundle)
+    cond0, cond3, dir_c, W, B = K._unbundle(bundle)
     kw = _case_kwargs(case, x, _t)
     ro, rd, z, tgt = (_t(x[k]) for k in ("ro", "rd", "z", "target"))
     bg = kw["background"]
@@ -231,12 +231,15 @@ def test_wrapper_on_cpu_is_the_plain_version(model):
 
 
 def test_offsets_match_cuda_source():
+    """The transposed layout lives in paper_train.cuh, which K1 and K3b
+    include (the layer code is K2's, mma_tile.cuh, through grad_tile.cuh)."""
     src = CU.read_text()
+    assert "#include \"paper_train.cuh\"" in src
+    header = (CU.parent / "paper_train.cuh").read_text()
     found = {m.group(1): int(m.group(2))
-             for m in re.finditer(r"constexpr int WT_OFF_(\w+) = (\d+);", src)}
-    assert found == T.WT_OFFSETS
-    # the layer code is K2's (mma_tile.cuh), shared through grad_tile.cuh
-    assert "#include \"grad_tile.cuh\"" in src
+             for m in re.finditer(r"constexpr int WT_OFF_(\w+) = (\d+);", header)}
+    assert found == K.WT_OFFSETS
+    assert "#include \"grad_tile.cuh\"" in header
     assert "#include \"mma_tile.cuh\"" in (CU.parent / "grad_tile.cuh").read_text()
 
 
@@ -250,7 +253,7 @@ def test_kernel_gradient_layout_unpacks(model):
     _, grads, _ = T.fused_train_pass_reference(
         tb, *(_t(x[k]) for k in ("ro", "rd", "z", "target")), loss_scale=0.1
     )
-    _, _, _, gw, gb = T._unbundle(grads)
+    _, _, _, gw, gb = K._unbundle(grads)
     dw = torch.zeros(K.W_OFFSETS["TOTAL"])
     df = torch.zeros(K.F_OFFSETS["TOTAL"])
     pad = torch.zeros(K.K_XIN - 63, 256)
@@ -268,16 +271,16 @@ def test_kernel_gradient_layout_unpacks(model):
     for name, r in rows.items():
         o = K.F_OFFSETS[name]
         df[o:o + r.numel()] = r.reshape(-1)
-    (c0, c3), uw, ub = T._split_kernel_grads(dw, df, 60)
+    (c0, c3), uw, ub = K._split_kernel_grads(dw, df, 60)
     assert torch.equal(c0, grads[0]) and torch.equal(c3, grads[1])
-    for k in T.WEIGHT_NAMES:
+    for k in K.WEIGHT_NAMES:
         assert torch.equal(uw[k], gw[k]), k
-    for k in T.BIAS_NAMES:
+    for k in K.BIAS_NAMES:
         assert torch.equal(ub[k], gb[k]), k
-    _, _, _, W, _ = T._unbundle(tb)
-    wt = T.pack_transposed_weights(W)
-    assert wt.dtype == torch.bfloat16 and wt.numel() == T.WT_OFFSETS["TOTAL"]
-    for name, k, n in T.WT_LAYOUT:
-        o = T.WT_OFFSETS[name]
+    _, _, _, W, _ = K._unbundle(tb)
+    wt = K.pack_transposed_weights(W)
+    assert wt.dtype == torch.bfloat16 and wt.numel() == K.WT_OFFSETS["TOTAL"]
+    for name, k, n in K.WT_LAYOUT:
+        o = K.WT_OFFSETS[name]
         got = wt[o:o + k * n].reshape(k, n)
-        assert torch.equal(got, W[T.WT_SOURCE[name]].T.to(torch.bfloat16)), name
+        assert torch.equal(got, W[K.WT_SOURCE[name]].T.to(torch.bfloat16)), name
