@@ -9,10 +9,11 @@ Phases, one line each (plus the kernels' register reports):
 
   1. device  — nvidia-smi's name and power limit, torch's device name;
                fails when CUDA is not available.
-  2. build   — nvcc builds the four kernel libraries,
+  2. build   — nvcc builds the five kernel libraries,
                `nerface_tpu_torch/csrc/fused_paper_render.cu` (K2),
-               `fused_train_pass.cu` (K1), `fused_paper_mlp.cu` (K3) and
-               `fused_flex.cu` (K4), in parallel into build/nerface_tpu_torch/;
+               `fused_train_pass.cu` (K1), `fused_paper_mlp.cu` (K3),
+               `fused_flex.cu` (K4) and `fused_resample.cu` (K5), in
+               parallel into build/nerface_tpu_torch/;
                prints the seconds and each kernel's ptxas registers and
                shared memory.
   3. kernel  — the fused-render kernel against its plain PyTorch version
@@ -28,6 +29,14 @@ Phases, one line each (plus the kernels' register reports):
      small_kernels — the same for K2's `small` mode (the smaller paper
                model), and K1's `small` mode as in phase 6 at R = 2048,
                S = 64 and 128, at those kernels' limits.
+     resample_kernel — K5 `fused_resample` on its own entry point (nothing
+               renders through it, as in JAX): once per regime on a
+               65536-ray tile with the counts reset, then against its plain
+               version (the pipeline's sample_pdf + merge_sorted_zvals) at
+               2048 rays and a 65536-ray tile, 64 + 64 samples, RESAMPLE_SEEDS
+               draws a case, general and sorted_u (+ a spike case): max error
+               ≤ RESAMPLE_TOL·far, rows sorted, bit-identical over 2
+               launches; kernel, plain and bound ms.
   4. serve   — a 512² avatar of the paper model (configs/synth512_paper.yml
                as a dict, He-scaled random weights from a fixed seed with σ
                biased up so that the MLP's colour, not the background, makes
@@ -42,6 +51,14 @@ Phases, one line each (plus the kernels' register reports):
                off the background and a std of ≥ 10 levels).
      smaller_serve — the same for SYNTH512_SMALLER (both models the smaller
                paper model): K2 `small`, 24 launches.
+     fast_serve — the same avatar with `nerf.validation.fast_eval: true`, the
+               JAX package's production serving configuration: the bbox
+               union [153, 358, 153, 358], capacity 0.17, 3 tiles of 16384
+               rays, K2 launched 6 times a frame (nothing else); the fast
+               frame against the same server's parity frame (active pixels
+               within 1 level, the count that differ; every skipped pixel
+               the background or, in a spare slot, the parity pixel); warm
+               fast and parity frame ms in turns.
      noisy_frame — one 512² synth512_paper frame at validation σ-noise 0.1,
                which K2 refuses: K3f launched 2 × tiles = 8 times, K2 and
                K3b never; the frame against the f32 plain frame (the same
@@ -84,6 +101,10 @@ Phases, one line each (plus the kernels' register reports):
                those in the last 10 steps below that of steps 0 and 10; the
                last .ckpt reloads and holds two Adam param groups. Then the
                median of steady synchronised steps and rays/s.
+     occupancy_serve — that run's last checkpoint served with fast_eval and
+               the occupancy grid (splat, 128³, 2× supersampled): the grid
+               builds' seconds, occupied and active fractions, capacity, K2
+               launches (2 a tile), frame ms, and the fast_serve contract.
      smaller_train — the same for SYNTH512_SMALLER, PAPER_TRAIN_STEPS steps:
                K1 `small` 2 × steps = 60, K2 16.
      coarse_train — SYNTH512_PAPER_COARSE (no fine pass, which K1 refuses):
@@ -114,12 +135,12 @@ Phases, one line each (plus the kernels' register reports):
     python3 chip_smoke.py --profile
 
 adds profile phases: 6 timed frames per map set, then torch.profiler over 2
-frames, and torch.profiler over 5 steady train steps of synth512_paper, of
+frames, of the parity and of the fast synth512_paper server, and torch.profiler over 5 steady train steps of synth512_paper, of
 synth512_paper_coarse and of synth512_lcode; each prints its table of device
 time per kernel.
 
 The line before the last is {"kernels": [...]} (K2, K1, K3f, K3b, K4f,
-K4b); the last line is {"ok": true, "device": {...}}. Any failure raises,
+K4b, K5); the last line is {"ok": true, "device": {...}}. Any failure raises,
 exits non-zero and prints no result.
 """
 
@@ -309,7 +330,23 @@ K3_SEEDS = 3
 # without `small`) and the σ-noise frame through K3f
 FRAME_MAX = 1
 FRAME_MEAN = 0.15
-LIBRARIES = ("fused_paper_render", "fused_train_pass", "fused_paper_mlp", "fused_flex")
+LIBRARIES = ("fused_paper_render", "fused_train_pass", "fused_paper_mlp", "fused_flex",
+             "fused_resample")
+# K5 against its plain version (the pipeline's sample_pdf + merge_sorted_zvals):
+# max |kernel − plain| ≤ RESAMPLE_TOL·far, the JAX kernel's own contract
+# against its XLA twin (`tests/test_pallas.py`), on RESAMPLE_SEEDS draws per
+# case at 64 + 64 samples; the spike case's mass on one bin is RESAMPLE_SPIKE
+RESAMPLE_TOL = 1e-5
+RESAMPLE_SEEDS = 3
+RESAMPLE_SPIKE = 50.0
+# synth512_paper served as the JAX package's production configuration:
+# fast-eval (the test split's head-bbox union, capacity 0.17 of the 512²
+# frame: 3 tiles of 16384 rays) and, for the trained checkpoint, the
+# occupancy grid too (splat mask, 128³, 2× supersampled)
+FAST_FRAMES = 6  # timed warm frames per renderer, fast and parity in turns
+# the fast phases' frame side and grid resolution (a CPU rehearsal shrinks them)
+FAST_SERVE_SIZE = 512
+OCCUPANCY_RESOLUTION = 128
 
 
 class SmokeFailure(RuntimeError):
@@ -625,7 +662,7 @@ def noisy_frame_phase(dev, tmp):
     return dict(f, launches=k3f, frame_ms=frame_ms)
 
 
-def profile_phase(server):
+def profile_phase(server, name="profile"):
     """Frame times of the warm server, then where one frame's device time
     goes (torch.profiler over 2 frames, CUDA kernels only)."""
     import torch
@@ -641,8 +678,8 @@ def profile_phase(server):
             t0 = time.perf_counter()
             server.render(frame=i % 2, seed=i, maps=maps)
             ts.append((time.perf_counter() - t0) * 1e3)
-        phase("profile", f"frame_ms {'+'.join(maps)}: {[round(t, 2) for t in ts]}, "
-                         f"median {statistics.median(ts):.2f}")
+        phase(name, f"frame_ms {'+'.join(maps)}: {[round(t, 2) for t in ts]}, "
+                    f"median {statistics.median(ts):.2f}")
     n = 2
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -651,7 +688,7 @@ def profile_phase(server):
             server.render(frame=0, seed=i, maps=all_maps)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / n
-    busy = _print_profile("profile", prof, n, wall, "a frame", DeviceType, "+".join(all_maps))
+    busy = _print_profile(name, prof, n, wall, "a frame", DeviceType, "+".join(all_maps))
     return {"wall_ms": wall, "busy_ms": busy}
 
 
@@ -685,12 +722,13 @@ def build_phase():
             if "Compiling entry function" not in line:
                 continue
             m = re.search(r"(train_fwd_kernel|train_bwd_kernel|flex_fwd_kernel|flex_bwd_kernel|"
-                          r"dw_kernel|reduce_rows|render_kernel|mlp_fwd_kernel|recompute_kernel)"
-                          r"(?:ILi(\d+)E(?:Lb([01])E)?)?", line)
+                          r"dw_kernel|reduce_rows|render_kernel|mlp_fwd_kernel|recompute_kernel|"
+                          r"resample_kernel)(?:ILi(\d+)E(?:Lb([01])E)?)?", line)
             short = line
             if m:
+                flag = "sorted_u" if m.group(1) == "resample_kernel" else "small"
                 targs = ", ".join(([m.group(2)] if m.group(2) else [])
-                                  + (["small"] if m.group(3) == "1" else []))
+                                  + ([flag] if m.group(3) == "1" else []))
                 short = m.group(1) + (f"<{targs}>" if targs else "")
             usage = [x.split("info    :")[-1].strip() if "info" in x else x.strip()
                      for x in log[i + 1:i + 4] if "registers" in x or "spill" in x]
@@ -1157,7 +1195,7 @@ def train_phase(dev, ds, tmp, profile, card, cfg_dict=SYNTH512_PAPER, steps=TRAI
                 f"{min(times):.2f}, max {max(times):.2f}), {TRAIN_RAYS / step_ms * 1e3:,.0f} "
                 f"rays/s on {card}")
     result = {"launches": launched, "step_ms": step_ms, "rays_s": TRAIN_RAYS / step_ms * 1e3,
-              "loss_printed": printed}
+              "loss_printed": printed, "checkpoint": path}
     if profile:
         _profile_steps(f"profile_{name}", step, f"{name} step")
     feed.stop()
@@ -1549,6 +1587,312 @@ def _print_profile(name, prof, n, wall, unit, DeviceType, what=""):
     return busy
 
 
+def _resample_inputs(n_rays, n_coarse, n_fine, seed, dev, spike=False):
+    """Coarse depths as the pipeline draws them (stratified over [0.2, FAR],
+    jittered: sorted per ray), weights in [0.1, 1) and general draws u
+    (R, Sf). Every bin's pdf stays ≥ 1e-3: at a bin under the reference's
+    1e-5 clamp, or of pdf ~1e-4, the draw at a cdf knot moves by up to a bin
+    with the cdf's last ulp, which no two orders of f32 sums share (PERF.md).
+    With `spike`, RESAMPLE_SPIKE of mass on one bin crowds the draws into it,
+    among the coarse depths around it."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    t = (torch.arange(n_coarse) + torch.rand(n_rays, n_coarse, generator=g)) / n_coarse
+    z = 0.2 + (FAR - 0.2) * t
+    w = 0.1 + 0.9 * torch.rand(n_rays, n_coarse, generator=g)
+    if spike:
+        w[:, 7] = RESAMPLE_SPIKE
+    u = torch.rand(n_rays, n_fine, generator=g)
+    return [x.to(dev).contiguous() for x in (z, w, u)]
+
+
+def _k5_bytes(n_rays, n_coarse, n_fine, shared_u):
+    """z and w read, u read ((R, Sf), or one (Sf,) row), the union written."""
+    u = n_fine if shared_u else n_rays * n_fine
+    return 4 * (2 * n_rays * n_coarse + u + n_rays * (n_coarse + n_fine))
+
+
+def resample_phase(dev):
+    """K5 `fused_resample` (csrc/fused_resample.cu), an entry point of its
+    own as in the JAX package (nothing renders through it): driven once per
+    regime on a serve tile (the counts reset just before), then held against
+    its plain version, which is what `render_rays` runs today, at 2048 rays
+    and at a 65536-ray tile, 64 + 64 samples, RESAMPLE_SEEDS draws a case and
+    the spike case: max error ≤ RESAMPLE_TOL·far, every row sorted,
+    bit-identical over 2 launches; kernel and plain ms and the bound."""
+    import torch
+
+    from nerface_tpu_torch.ops.kernels.fused_resample import (
+        fused_resample,
+        fused_resample_reference,
+    )
+    from nerface_tpu_torch.ops.math import linspace01
+
+    S = 64
+    u_det = linspace01(S, device=dev)
+    z, w, u = _resample_inputs(TILE_RAYS, S, S, SEED + 20, dev)
+    fused_resample.launches = 0
+    fused_resample(z, w, u)
+    fused_resample(z, w, u_det, sorted_u=True)
+    torch.cuda.synchronize()
+    path_launches = fused_resample.launches
+    check(path_launches == 2, f"resample: {path_launches} launches for 2 calls")
+
+    result = {"err": {}, "ms": {}, "plain_ms": {}, "bound": {}, "launches": path_launches}
+    worst = 0.0
+    for R in (TRAIN_RAYS, TILE_RAYS):
+        for regime in ("general", "sorted_u"):
+            cases = [(i, False) for i in range(RESAMPLE_SEEDS)]
+            if regime == "sorted_u":
+                cases.append((RESAMPLE_SEEDS, True))  # the spike, with the linspace draws
+            err = 0.0
+            for i, spike in cases:
+                z, w, u = _resample_inputs(R, S, S, SEED + 21 + 100 * i + R, dev, spike)
+                sorted_u = regime == "sorted_u"
+                uu = u_det if sorted_u else u
+                got = fused_resample(z, w, uu, sorted_u=sorted_u)
+                got2 = fused_resample(z, w, uu, sorted_u=sorted_u)
+                torch.cuda.synchronize()
+                ref = fused_resample_reference(z, w, uu, sorted_u)
+                check(bool(torch.isfinite(got).all()), f"resample {regime} R={R}: not finite")
+                check(torch.equal(got, got2), f"resample {regime} R={R} seed {i}: launches differ")
+                check(bool((got[:, 1:] >= got[:, :-1]).all()),
+                      f"resample {regime} R={R} seed {i}: a row is not sorted")
+                e = float((got - ref).abs().max())
+                check(e <= RESAMPLE_TOL * FAR,
+                      f"resample {regime} R={R} seed {i}{' spike' if spike else ''}: max err {e} "
+                      f"> {RESAMPLE_TOL}·{FAR}")
+                err = max(err, e)
+            label = f"{regime}_{R}"
+            result["err"][label] = err
+            worst = max(worst, err)
+            z, w, u = _resample_inputs(R, S, S, SEED + 30, dev)
+            uu = u_det if regime == "sorted_u" else u
+            srt = regime == "sorted_u"
+            result["ms"][label] = _median_ms(lambda: fused_resample(z, w, uu, sorted_u=srt), iters=20)
+            result["plain_ms"][label] = _median_ms(
+                lambda: fused_resample_reference(z, w, uu, srt), iters=10)
+            result["bound"][label] = _bound_ms(0, _k5_bytes(R, S, S, srt))
+            phase("resample_kernel",
+                  f"K5 {regime} R={R} Sc={S} Sf={S}, {len(cases)} draws"
+                  f"{' (the last a spike of ' + str(RESAMPLE_SPIKE) + ')' if srt else ''}: max abs "
+                  f"err {err:.3g} (limit {RESAMPLE_TOL}·far = {RESAMPLE_TOL * FAR:.1e}), rows "
+                  f"sorted, bit-identical over 2 launches; kernel {result['ms'][label]:.4f} ms, "
+                  f"bound {result['bound'][label][0]:.4f} ms ({result['bound'][label][1]}), plain "
+                  f"(sample_pdf + merge_sorted_zvals, the pipeline's resample) "
+                  f"{result['plain_ms'][label]:.4f} ms")
+    result["max_abs_err"] = worst
+    phase("resample_kernel", f"K5 launched {path_launches} times on its entry point (a 65536-ray "
+                             f"tile, each regime once); nothing in render/ or eval/ calls it")
+    return result
+
+
+def _fast_contract(server, frame, seed, label):
+    """The fast frame against the same server's parity frame (frame
+    `frame`, seed `seed`): inside the active mask (bbox ∩ occupancy) within
+    1 level; outside, each pixel the background or the parity pixel (a
+    spare capacity slot renders a real ray, within 1 level: the torch ops
+    around K2 run at another row count). Returns the readings."""
+    import numpy as np
+    import torch
+
+    from nerface_tpu_torch.eval.driver import device_cast_to_image
+    from nerface_tpu_torch.eval.renderer import _active_mask
+    from nerface_tpu_torch.ops.rays import get_ray_bundle
+
+    H, W = server.H, server.W
+    fast = server.render(frame=frame, seed=seed, maps=("rgb_fine",))["rgb_fine"].astype(np.int16)
+    par = server.render(frame=frame, seed=seed, maps=("rgb_fine",),
+                        fast_eval=False)["rgb_fine"].astype(np.int16)
+    pose, _, _ = server._frame_defaults(frame)
+    pose = torch.as_tensor(pose[:3, :4], dtype=torch.float32, device=server.device)
+    ro, rd = get_ray_bundle(H, W, server.intrinsics, pose)
+    active = _active_mask(ro.reshape(-1, 3), rd.reshape(-1, 3), H, W, server.fast_bbox,
+                          server.occupancy, server.settings, pose=pose,
+                          intrinsics=server.intrinsics).reshape(H, W).cpu().numpy()
+    if server.background is not None:
+        bg = device_cast_to_image(server.background.reshape(H, W, 3)).cpu().numpy()
+    else:
+        bg = np.full((H, W, 3), 255 if server.settings.white_background else 0, np.uint8)
+    bg = bg.astype(np.int16)
+    diff = np.abs(fast - par)
+    inside_max = int(diff[active].max()) if active.any() else 0
+    inside_differ = int((diff[active] > 0).any(axis=-1).sum())
+    out_bg = (fast == bg).all(axis=-1) & ~active
+    out_par = (diff <= 1).all(axis=-1) & ~active
+    check(active.any(), f"{label}: no active ray")
+    check(inside_max <= 1, f"{label}: active pixels {inside_max} levels off the parity frame")
+    check(bool((out_bg | out_par)[~active].all()),
+          f"{label}: {int((~(out_bg | out_par))[~active].sum())} skipped pixels are neither the "
+          f"background nor the parity pixel")
+    return {"active": int(active.sum()), "inside_max": inside_max, "inside_differ": inside_differ,
+            "skipped_bg": int(out_bg.sum()), "spare_real": int((out_par & ~out_bg).sum())}
+
+
+def _fast_vs_parity_ms(server):
+    """Warm synchronised rgb frames, fast and parity in turns."""
+    import torch
+
+    fast, par = [], []
+    for i in range(FAST_FRAMES):
+        for flag, ts in ((True, fast), (False, par)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            server.render(frame=i % len(server.dataset.i_test), seed=i, maps=("rgb_fine",),
+                          fast_eval=flag)
+            ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(fast), statistics.median(par), fast, par
+
+
+def _fast_requests(server, name):
+    """3 renders over serve_jsonl, the paper family's counts reset just
+    before and read just after; returns (K2 launches, frame_ms)."""
+    from nerface_tpu_torch.ops.kernels.fused_resample import fused_resample
+
+    counters = _launch_counts()
+    maps = ["rgb_fine", "disp", "normals"]
+    last = len(server.dataset.i_test) - 1
+    requests = [{"cmd": "ping"}, {"frame": 0, "seed": 0, "maps": maps},
+                {"frame": last, "seed": 1, "maps": maps}, {"frame": 0, "seed": 2, "maps": maps},
+                {"cmd": "stop"}]
+    out = io.StringIO()
+    for c in list(counters.values()) + [fused_resample]:
+        c.launches = 0
+    handled = server.serve_jsonl(io.StringIO("\n".join(map(json.dumps, requests)) + "\n"), out)
+    launched = {k: c.launches for k, c in counters.items()}
+    launched["K5"] = fused_resample.launches
+    replies = [json.loads(line) for line in out.getvalue().splitlines()]
+    check(handled == len(requests) and len(replies) == len(requests), f"{name}: {replies}")
+    for req, rep in zip(requests, replies):
+        check(rep.get("ok") is True, f"{name}: request {req} failed: {rep}")
+    check(replies[0]["fast_eval"] is True, f"{name}: ping {replies[0]}")
+    return launched, [r["frame_ms"] for r in replies if "frame_ms" in r], sum(
+        "cmd" not in r for r in requests)
+
+
+def _tiles_per_frame(server):
+    from nerface_tpu_torch.eval.renderer import FAST_TILE
+
+    n = server.H * server.W
+    tile = min(server.settings.chunksize, n, FAST_TILE)
+    cap = -(-max(1, int(n * server.settings.fast_eval_capacity)) // tile) * tile
+    return min(cap, -(-n // tile) * tile) // tile
+
+
+def fast_serve_phase(dev, tmp, profile):
+    """SYNTH512_PAPER with `nerf.validation.fast_eval: true`, served in
+    bf16: the test split's bbox union [153, 358, 153, 358] gives capacity
+    0.17, 49152 rays in 3 tiles of 16384, 6 K2 launches a frame."""
+    import torch
+
+    from nerface_tpu_torch.config import CfgNode
+    from nerface_tpu_torch.data.synthetic import synthetic_flame_dataset
+    from nerface_tpu_torch.eval.renderer import FAST_TILE
+    from nerface_tpu_torch.serve import AvatarServer
+
+    size = FAST_SERVE_SIZE
+
+    d = copy.deepcopy(SYNTH512_PAPER)
+    d["nerf"]["validation"]["fast_eval"] = True
+    cfg = CfgNode(d)
+    ds = synthetic_flame_dataset(H=size, W=size, n_train=8, n_val=2, n_test=2, seed=SEED)
+    ckpt = _save_avatar(cfg, ds, os.path.join(tmp, "fast.ckpt"), SEED + 2)
+    server = AvatarServer(cfg, ckpt, dataset=ds, dtype=torch.bfloat16, device=dev, log=False)
+    tiles = _tiles_per_frame(server)
+    check(size != 512 or (server.fast_bbox.tolist() == [153, 358, 153, 358] and tiles == 3),
+          f"fast_serve: bbox {server.fast_bbox.tolist()}, capacity "
+          f"{server.settings.fast_eval_capacity}, {tiles} tiles")
+    launched, frame_ms, n = _fast_requests(server, "fast_serve")
+    check(launched == {"K1": 0, "K2": 2 * tiles * n, "K3f": 0, "K3b": 0, "K5": 0},
+          f"fast_serve: launches {launched}, want K2 = 2 x {tiles} tiles x {n} frames only")
+    phase("fast_serve", f"{n} fast renders at {size}x{size} via serve_jsonl (bbox "
+                        f"{server.fast_bbox.tolist()}, capacity "
+                        f"{server.settings.fast_eval_capacity:.4f}: {tiles} tiles of "
+                        f"{FAST_TILE}), frame_ms {frame_ms}, launches {launched}")
+    c = _fast_contract(server, 1, 1, "fast_serve")
+    fast_ms, par_ms, fast_all, par_all = _fast_vs_parity_ms(server)
+    phase("fast_serve", f"vs the same server's parity frame: {c['active']} active pixels, max "
+                        f"{c['inside_max']} level off, {c['inside_differ']} differ; skipped "
+                        f"pixels: {c['skipped_bg']} background, {c['spare_real']} rendered in "
+                        f"spare slots (= parity within 1 level); warm rgb frame {fast_ms:.2f} ms "
+                        f"fast vs {par_ms:.2f} ms parity (medians of {FAST_FRAMES}, in turns: "
+                        f"{[round(t, 2) for t in fast_all]} / {[round(t, 2) for t in par_all]})")
+    if profile:
+        profile_phase(server, "profile_fast")
+    return dict(c, launches=launched["K2"], frame_ms=frame_ms, fast_ms=fast_ms, parity_ms=par_ms,
+                tiles=tiles)
+
+
+def occupancy_serve_phase(dev, ds, ckpt):
+    """The checkpoint `[train]` saved, served in bf16 with fast_eval and the
+    occupancy grid (splat mask, 128³, 2× supersampled): the grid build's
+    seconds and occupancy, the active fraction and capacity, K2 launches
+    and frame ms, and the fast contract against the parity frame."""
+    import numpy as np
+    import torch
+
+    from nerface_tpu_torch.config import CfgNode
+    from nerface_tpu_torch.eval import occupancy as O
+    from nerface_tpu_torch.serve import AvatarServer
+
+    resolution = OCCUPANCY_RESOLUTION
+    d = copy.deepcopy(SYNTH512_PAPER)
+    d["nerf"]["validation"].update(fast_eval=True, occupancy=True,
+                                   occupancy_resolution=resolution)
+    cfg = CfgNode(d)
+    builds = []
+    real_build = O.build_occupancy_grid
+
+    def timed_build(*a, **k):  # the tighten prepass and the grid itself
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grid = real_build(*a, **k)
+        torch.cuda.synchronize()
+        builds.append(time.perf_counter() - t0)
+        return grid
+
+    O.build_occupancy_grid = timed_build
+    try:
+        t0 = time.perf_counter()
+        server = AvatarServer(cfg, ckpt, dataset=ds, dtype=torch.bfloat16, device=dev, log=False)
+        setup_s = time.perf_counter() - t0
+    finally:
+        O.build_occupancy_grid = real_build
+    occ = server.occupancy
+    check(occ is not None and occ.boxes_lo is not None and occ.resolution == resolution,
+          f"occupancy_serve: no {resolution}³ splat grid")
+    i_test = np.asarray(ds.i_test)
+    frac = O.active_fraction(occ, np.asarray(ds.poses)[i_test], ds.intrinsics, ds.H, ds.W,
+                             server.settings.near, server.settings.far)
+    tiles = _tiles_per_frame(server)
+    launched, frame_ms, n = _fast_requests(server, "occupancy_serve")
+    check(launched == {"K1": 0, "K2": 2 * tiles * n, "K3f": 0, "K3b": 0, "K5": 0},
+          f"occupancy_serve: launches {launched}, want K2 = 2 x {tiles} tiles x {n} frames only")
+    n_boxes = int(occ.boxes_valid.sum())
+    phase("occupancy_serve",
+          f"{os.path.basename(ckpt)} with fast_eval + occupancy (splat, {resolution}^3, 2x "
+          f"supersampled): "
+          f"server setup {setup_s:.2f} s, grid builds {[round(b, 3) for b in builds]} s (tighten "
+          f"prepass 32^3, grid {2 * resolution}^3 pooled to {resolution}^3, 8 expressions each), "
+          f"occupied "
+          f"{occ.occupancy_fraction():.4f}, {n_boxes} splat boxes, bbox "
+          f"{server.fast_bbox.tolist()}; active fraction {frac:.4f}, capacity "
+          f"{server.settings.fast_eval_capacity:.4f} ({tiles} tiles); {n} renders via "
+          f"serve_jsonl, frame_ms {frame_ms}, launches {launched}")
+    c = _fast_contract(server, 0, 1, "occupancy_serve")
+    fast_ms, par_ms, fast_all, par_all = _fast_vs_parity_ms(server)
+    phase("occupancy_serve", f"vs the same server's parity frame: {c['active']} active pixels, "
+                             f"max {c['inside_max']} level off, {c['inside_differ']} differ; "
+                             f"skipped pixels: {c['skipped_bg']} background, {c['spare_real']} "
+                             f"rendered in spare slots; warm rgb frame {fast_ms:.2f} ms fast vs "
+                             f"{par_ms:.2f} ms parity (medians of {FAST_FRAMES}, in turns)")
+    return dict(c, launches=launched["K2"], frame_ms=frame_ms, fast_ms=fast_ms, parity_ms=par_ms,
+                tiles=tiles, grid_build_s=builds, setup_s=setup_s,
+                occupied=occ.occupancy_fraction(), active_fraction=frac,
+                capacity=server.settings.fast_eval_capacity)
+
+
 def main() -> int:
     import argparse
 
@@ -1579,11 +1923,13 @@ def main() -> int:
     build_phase()
     k = kernel_phase(dev)
     ks = kernel_phase(dev, small=True)
+    rk = resample_phase(dev)
     with tempfile.TemporaryDirectory() as tmp:
         server, s = serve_phase(dev, tmp)
         if args.profile:
             profile_phase(server)
         del server
+        fe = fast_serve_phase(dev, tmp, args.profile)
         server, ss = serve_phase(dev, tmp, SYNTH512_SMALLER, "smaller_serve", SEED + 6)
         del server
         nf = noisy_frame_phase(dev, tmp)
@@ -1593,6 +1939,7 @@ def main() -> int:
         ds = _train_dataset()
         ts = train_step_phase(dev, ds)
         tr = train_phase(dev, ds, tmp, args.profile, card)
+        oc = occupancy_serve_phase(dev, ds, tr["checkpoint"])
         st = train_phase(dev, ds, tmp, False, card, SYNTH512_SMALLER, PAPER_TRAIN_STEPS,
                          "smaller_train")
         cs = train_step_phase(dev, ds, SYNTH512_PAPER_COARSE, "coarse_train")
@@ -1616,8 +1963,11 @@ def main() -> int:
             "source": "nerface_tpu_torch/csrc/fused_paper_render.cu",
             "replaces": "nerface_tpu/ops/pallas/fused_mlp.py:652",
             "modes": ["paper", "small"],
-            "launches": s["launches"] + ss["launches"],
+            # the served frames of the four serving paths
+            "launches": s["launches"] + ss["launches"] + fe["launches"] + oc["launches"],
             "launches_by_path": {"serve": s["launches"], "smaller_serve": ss["launches"],
+                                 "fast_serve": fe["launches"],
+                                 "occupancy_serve": oc["launches"],
                                  "train": tr["launches"]["K2"],
                                  "smaller_train": st["launches"]["K2"],
                                  "coarse_train": ct["launches"]["K2"]},
@@ -1636,6 +1986,8 @@ def main() -> int:
             "small_tile_ms_by_pass": ks["tile_ms"],
             "frame_ms_512": s["frame_ms"],
             "smaller_frame_ms_512": ss["frame_ms"],
+            "fast_frame_ms_512": {"fast": fe["fast_ms"], "parity": fe["parity_ms"]},
+            "occupancy_frame_ms_512": {"fast": oc["fast_ms"], "parity": oc["parity_ms"]},
             "card": card,
         },
         {
@@ -1753,6 +2105,28 @@ def main() -> int:
             "ms_by_pass": fk["bwd_ms"],
             "train_step_ms": ft["step_ms"],
             "train_rays_s": ft["rays_s"],
+            "card": card,
+        },
+        {
+            "name": "fused_resample",
+            "route": "cuda",
+            "source": "nerface_tpu_torch/csrc/fused_resample.cu",
+            "replaces": "nerface_tpu/ops/pallas/fused_mlp.py:837",
+            "regimes": ["general", "sorted_u"],
+            # its own entry point, as in the JAX package: nothing renders through it
+            "launches": rk["launches"],
+            "launches_by_path": {"resample_kernel": rk["launches"]},
+            "max_abs_err": rk["max_abs_err"],
+            "err_by_case": rk["err"],
+            # a 65536-ray serve tile, 64 + 64 samples, general draws
+            "ms": rk["ms"][f"general_{TILE_RAYS}"],
+            "plain_ms": rk["plain_ms"][f"general_{TILE_RAYS}"],
+            "bound_ms": rk["bound"][f"general_{TILE_RAYS}"][0],
+            "bound_by": rk["bound"][f"general_{TILE_RAYS}"][1],
+            "library_ms": None,  # no single PyTorch call computes it
+            "ms_by_case": rk["ms"],
+            "plain_ms_by_case": rk["plain_ms"],
+            "bound_ms_by_case": {c: b[0] for c, b in rk["bound"].items()},
             "card": card,
         },
     ]}

@@ -38,7 +38,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--fast-eval", action="store_true",
-        help="Head-bbox ray skipping (not yet ported: refused).",
+        help="Head-bbox ray skipping (sets nerf.validation.fast_eval; with "
+        "nerf.validation.occupancy the occupancy grid too): the production "
+        "serving configuration with --bf16.",
     )
     parser.add_argument(
         "--bf16", action="store_true",
@@ -63,8 +65,6 @@ def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     if args.num_devices > 1:
         raise SystemExit("--num-devices > 1 is not yet ported to PyTorch")
-    if args.fast_eval:
-        raise SystemExit("--fast-eval is not yet ported to PyTorch")
 
     import sys
 
@@ -74,6 +74,8 @@ def main(argv=None) -> None:
     from nerface_tpu_torch.serve import AvatarServer
 
     cfg = load_config(args.config)
+    if args.fast_eval:
+        cfg.nerf.validation["fast_eval"] = True
     server = AvatarServer(
         cfg, checkpoint=args.checkpoint,
         dtype=torch.bfloat16 if args.bf16 else None,

@@ -2,8 +2,8 @@
 
 The kernels are CUDA C++ files in `nerface_tpu_torch/csrc/` with a plain C
 interface, one library per `.cu` file (`fused_paper_render`, K2;
-`fused_train_pass`, K1; `fused_paper_mlp`, K3; `fused_flex`, K4), sharing
-the `.cuh` headers.
+`fused_train_pass`, K1; `fused_paper_mlp`, K3; `fused_flex`, K4;
+`fused_resample`, K5), sharing the `.cuh` headers.
 `build_library` compiles one with nvcc into a shared library under
 `build/nerface_tpu_torch/` at the root of the checkout, on first use;
 `load_library(name)` loads it with ctypes and declares its C functions'
@@ -95,6 +95,9 @@ SIGNATURES = {
         "nerface_fused_flex_bwd": ([_P] * 12 + [_I] * 4 + [_P], ctypes.c_int),
         "nerface_fused_flex_workspace_bytes": ([_I, _I, _I], ctypes.c_longlong),
         "nerface_fused_flex_shared_bytes": ([_P], None),
+    },
+    "fused_resample": {
+        "nerface_fused_resample": ([_P] * 3 + [_I, _P] + [_I] * 4 + [_P], ctypes.c_int),
     },
 }
 

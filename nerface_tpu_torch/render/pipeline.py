@@ -95,9 +95,18 @@ class EncodeSpec:
 @dataclasses.dataclass(frozen=True)
 class RenderSettings:
     """Render configuration: `getattr(cfg.nerf, mode)` plus the dataset's
-    near/far bounds. `fast_eval` is read from the config so the server can
-    refuse it (not ported yet). `fused_render` lets a paper-family pass
-    take the forward-only K2; only the full-frame renderer sets it."""
+    near/far bounds. `fused_render` lets a paper-family pass take the
+    forward-only K2; only the full-frame renderer sets it.
+
+    Fast eval (`eval/renderer.py`): only the rays inside the frame's head
+    bbox, or touching an occupied voxel of an occupancy grid
+    (`eval/occupancy.py`), run the radiance field; `fast_eval_capacity` is
+    the fraction of H·W rays rendered. The occupancy fields keep the JAX
+    package's meaning and defaults (`nerface_tpu/render/pipeline.py:91-125`):
+    the render-time mask ("splat" or "probe"), the grid's side, the probes a
+    ray, the dilation steps (0 for splat, 1 for probe), the probe block (0:
+    from the conservativeness bound) and the capacity's headroom over the
+    measured active fraction."""
 
     num_coarse: int = 64
     num_fine: int = 64
@@ -114,6 +123,14 @@ class RenderSettings:
     chunksize: int = 65536
     fast_eval: bool = False
     fused_render: bool = False
+    fast_eval_capacity: float = 0.6
+    occupancy: bool = False
+    occupancy_mask: str = "splat"
+    occupancy_resolution: int = 128
+    occupancy_probes: int = 128
+    occupancy_dilate: int = 0
+    occupancy_block: int = 0
+    occupancy_margin: float = 1.05
 
     @classmethod
     def from_cfg(cls, cfg, mode: str = "train") -> "RenderSettings":
@@ -125,6 +142,7 @@ class RenderSettings:
                 cfg.models.coarse.include_input_dir,
                 cfg.models.coarse.log_sampling_dir,
             )
+        mask = str(node.get("occupancy_mask", "splat"))
         return cls(
             num_coarse=node.num_coarse,
             num_fine=node.num_fine,
@@ -144,6 +162,14 @@ class RenderSettings:
             encode_dir=encode_dir,
             chunksize=int(node.chunksize),
             fast_eval=bool(node.get("fast_eval", False)),
+            fast_eval_capacity=float(node.get("fast_eval_capacity", 0.6)),
+            occupancy=bool(node.get("occupancy", False)),
+            occupancy_mask=mask,
+            occupancy_resolution=int(node.get("occupancy_resolution", 128)),
+            occupancy_probes=int(node.get("occupancy_probes", 128)),
+            occupancy_dilate=int(node.get("occupancy_dilate", 0 if mask == "splat" else 1)),
+            occupancy_block=int(node.get("occupancy_block", 0)),
+            occupancy_margin=float(node.get("occupancy_margin", 1.05)),
         )
 
 

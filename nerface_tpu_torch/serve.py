@@ -19,19 +19,29 @@ one JSON response per line. Fields (all optional unless noted):
    "seed": int                 — stream of the stratified samples' draws
    "maps": ["rgb_fine", ...]   — any of rgb_fine/rgb_coarse/disp/depth/
                                  acc/normals (default ["rgb_fine"])
+   "fast_eval": bool           — override the server default per request.
+                                 The fast path's bbox (and occupancy grid)
+                                 is frozen from the TEST-SPLIT poses; send
+                                 false with novel poses that may leave it
    "save": "/path/prefix"      — write <prefix><map>.png per map
    "encode": "png_base64"      — inline the maps in the response
    "cmd": "ping" | "stop"}     — health check / shutdown
 
 Responses: {"ok": true, "frame_ms": .., "saved": [..], "maps": {..}} or
 {"ok": false, "error": ".."}. A malformed request never kills the server.
-Fast-eval (`"fast_eval": true`, bbox ray skipping) and multi-device
-serving are not ported yet.
+
+Fast-eval + bf16 is the production serving configuration, as in the JAX
+package: with `nerf.validation.fast_eval` the server sizes the head-bbox
+capacity (and, with `occupancy`, builds the occupancy grid from the trained
+field) once at construction (`eval/occupancy.py::fast_eval_setup`), and
+only the active rays of each frame run the radiance field. Multi-device
+serving is not ported yet.
 """
 
 from __future__ import annotations
 
 import base64
+import dataclasses
 import io
 import json
 import socket
@@ -103,10 +113,6 @@ class AvatarServer:
         self.flags = eval_flags if eval_flags is not None else EvalFlags.from_cfg(cfg)
 
         self.settings = RenderSettings.from_cfg(cfg, mode="validation")
-        if self.settings.fast_eval:
-            raise NotImplementedError(
-                "fast_eval serving is not yet ported to PyTorch (ROADMAP.md Queue 1)"
-            )
 
         if dataset is None:
             dataset = load_flame_data(
@@ -172,6 +178,20 @@ class AvatarServer:
                 n = len(dataset.poses)
                 self.idx_map = np.stack([np.arange(n), np.arange(n)], axis=-1)
 
+        self.fast_bbox = None
+        self.occupancy = None
+        if self.settings.fast_eval:
+            # the eval driver's setup (one shared helper): bbox union and
+            # capacity, and the occupancy grid when the config asks for it
+            from nerface_tpu_torch.eval.occupancy import fast_eval_setup
+
+            i_test = np.asarray(dataset.i_test)
+            self.fast_bbox, self.settings, self.occupancy = fast_eval_setup(
+                dataset, np.asarray(dataset.poses)[i_test],
+                np.asarray(dataset.expressions)[i_test], self.settings, self.model_coarse,
+                latent_codes=self.latent_codes, dtype=self.dtype, log=log, device=self.device,
+            )
+
         i0 = int(np.asarray(dataset.i_test)[0]) if len(dataset.i_test) else 0
         self._default_pose = np.asarray(dataset.poses[i0], np.float32)
         self._default_expression = np.asarray(dataset.expressions[i0], np.float32)
@@ -213,15 +233,25 @@ class AvatarServer:
     ) -> Dict[str, tuple]:
         """DISPATCH half of a render: enqueue the frame's device work and the
         on-device uint8 casts; returns ("u8" | "disp", tensor) per map. No
-        host copy happens here — `finalize_maps` does it."""
+        host copy happens here — `finalize_maps` does it.
+
+        `fast_eval=None` takes the server's default. The fast path's bbox,
+        capacity and grid are frozen from the test split's poses and
+        expressions; a client sending novel ones should pass
+        `fast_eval=False` for the full-frame parity renderer."""
         bad = [m for m in maps if m not in _KNOWN_MAPS]
         if bad:
             raise ValueError(f"unknown maps {bad}; known: {_KNOWN_MAPS}")
-        if fast_eval:
-            raise ValueError(
-                "fast_eval requested but the server was built without it "
-                "(fast-eval is not yet ported to PyTorch)"
-            )
+        settings, bbox, occ = self.settings, self.fast_bbox, self.occupancy
+        if fast_eval is not None and bool(fast_eval) != settings.fast_eval:
+            if fast_eval and bbox is None:
+                raise ValueError(
+                    "fast_eval requested but the server was built without "
+                    "it (cfg.nerf.validation.fast_eval false)"
+                )
+            settings = dataclasses.replace(settings, fast_eval=bool(fast_eval))
+            if not fast_eval:
+                bbox = occ = None
         d_pose, d_expr, d_latent = self._frame_defaults(frame)
         pose = d_pose if pose is None else np.asarray(pose, np.float32).reshape(4, 4)
         expression = d_expr if expression is None else np.asarray(expression, np.float32)
@@ -238,12 +268,14 @@ class AvatarServer:
 
         out = render_full_frame(
             self.model_coarse, self.model_fine, self.H, self.W, self.intrinsics,
-            pose[:3, :4], self.settings, seed=int(seed),
+            pose[:3, :4], settings, seed=int(seed),
             expressions=torch.as_tensor(expression, device=self.device),
             latent_code=latent_code,
             background=self.background,
             dtype=self.dtype,
             device=self.device,
+            bbox=bbox,
+            occupancy=occ,
         )
         pending: Dict[str, tuple] = {}
         with torch.no_grad():
@@ -295,7 +327,7 @@ class AvatarServer:
                     "n_latent_codes": (
                         int(len(self.latent_codes)) if self.latent_codes is not None else 0
                     ),
-                    "fast_eval": False,
+                    "fast_eval": bool(self.settings.fast_eval),
                     "device": str(self.device),
                     "requests_served": self.requests_served,
                 }, None

@@ -1,9 +1,10 @@
 """PyTorch port, the hand-written CUDA kernels on the card: `fused_paper_render`
 (K2), `fused_train_pass` (K1), `fused_paper_mlp_forward` /
 `fused_paper_mlp_backward` (K3f / K3b), each for the paper model and in its
-`small` mode for the smaller one, and `fused_flex_forward` /
-`fused_flex_backward` (K4f / K4b) against their plain PyTorch versions
-(bf16 operands) on the same CUDA tensors.
+`small` mode for the smaller one, `fused_flex_forward` /
+`fused_flex_backward` (K4f / K4b) and `fused_resample` (K5) against their
+plain PyTorch versions (bf16 operands for the MLP kernels) on the same CUDA
+tensors.
 
 Every test here is marked `cuda` and skips on a host with no card. The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -22,10 +23,12 @@ from chip_smoke import (
     FLEX_OUT_TOL,
     HE_GAIN,
     K3_OUT_TOL,
+    RESAMPLE_TOL,
     SIGMA_BIAS,
     _bundle_names,
     _flex_params,
     _k1_params,
+    _resample_inputs,
     k1_grad_limits,
 )
 from nerface_tpu_torch.models.nerf_models import ConditionalBlendshapePaperNeRFModel
@@ -410,3 +413,53 @@ def test_paper_mlp_kernels_refuse_what_they_do_not_take(cuda_device, params):
         K.fused_paper_mlp_forward(bundle, ro[:32].contiguous(), rd[:32].contiguous(),
                                   z[:32].contiguous())
     assert (K.fused_paper_mlp_forward.launches, K.fused_paper_mlp_backward.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "R,Sc,Sf,regime,spike",
+    [(2048, 64, 64, "general", False), (2048, 64, 64, "sorted_u", False),
+     (2048, 64, 64, "sorted_u", True), (77, 32, 16, "general", False),
+     (301, 128, 128, "general", False), (300, 128, 100, "sorted_u", False)],
+    ids=["general", "sorted_u", "sorted_u-spike", "ragged-32", "128+128", "128+100"],
+)
+def test_resample_kernel_matches_plain(cuda_device, R, Sc, Sf, regime, spike):
+    """K5 against its plain version (the pipeline's sample_pdf +
+    merge_sorted_zvals) within chip_smoke's RESAMPLE_TOL·far, rows sorted,
+    bit-identical over two launches; a ragged last CTA (77 rays) and a
+    non-power-of-two Sf in both regimes."""
+    from nerface_tpu_torch.ops.kernels import fused_resample as K5
+    from nerface_tpu_torch.ops.math import linspace01
+
+    z, w, u = _resample_inputs(R, Sc, Sf, R + Sc + Sf, cuda_device, spike)
+    sorted_u = regime == "sorted_u"
+    if sorted_u:
+        u = linspace01(Sf, device=cuda_device)
+    before = K5.fused_resample.launches
+    got = K5.fused_resample(z, w, u, sorted_u=sorted_u)
+    again = K5.fused_resample(z, w, u, sorted_u=sorted_u)
+    torch.cuda.synchronize()
+    assert K5.fused_resample.launches == before + 2
+    assert torch.equal(got, again) and got.shape == (R, Sc + Sf)
+    assert bool((got[:, 1:] >= got[:, :-1]).all())
+    ref = K5.fused_resample_reference(z, w, u, sorted_u)
+    torch.testing.assert_close(got, ref, atol=RESAMPLE_TOL * FAR, rtol=0)
+
+
+@pytest.mark.cuda
+def test_resample_kernel_refuses_what_it_does_not_take(cuda_device):
+    from nerface_tpu_torch.ops.kernels import fused_resample as K5
+
+    z, w, u = _resample_inputs(64, 64, 64, 1, cuda_device)
+    before = K5.fused_resample.launches
+    with pytest.raises(ValueError, match="coarse samples"):
+        K5.fused_resample(z[:, :48].contiguous(), w[:, :48].contiguous(), u)
+    with pytest.raises(ValueError, match="fine samples"):
+        K5.fused_resample(z, w, torch.rand(64, 129, device=cuda_device))
+    with pytest.raises(ValueError, match="contiguous"):
+        K5.fused_resample(z.t().contiguous().t(), w, u)
+    with pytest.raises(TypeError, match="float32"):
+        K5.fused_resample(z, w.double(), u)
+    with pytest.raises(ValueError, match="u is on"):
+        K5.fused_resample(z, w, u.cpu())
+    assert K5.fused_resample.launches == before

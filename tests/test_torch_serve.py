@@ -283,17 +283,26 @@ def test_cli_stdio(avatar, tmp_path, monkeypatch, capsys):
     base = ["--config", "c.yml", "--checkpoint", "k", "--stdio"]
     args = build_parser().parse_args(base + ["--bf16", "--num-devices", "4"])
     assert args.bf16 and args.num_devices == 4 and args.device == "cuda"
-    for extra in (["--num-devices", "2"], ["--fast-eval"]):
-        with pytest.raises(SystemExit, match="not yet ported"):
-            main(base + extra)
+    assert build_parser().parse_args(base + ["--fast-eval"]).fast_eval
+    with pytest.raises(SystemExit, match="not yet ported"):
+        main(base + ["--num-devices", "2"])
 
 
-def test_fast_eval_config_is_refused(avatar):
+def test_fast_eval_config_serves(avatar):
+    """`fast_eval: true` builds a fast server (bbox union of the test
+    split) that reports it and renders; the JAX server's bbox and capacity."""
     ds_dir, ckpt, _, _ = avatar
     cfg = CfgNode(_cfg_dict(ds_dir))
     cfg.nerf.validation["fast_eval"] = True
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        AvatarServer(cfg, checkpoint=ckpt, device="cpu", log=False)
+    srv = AvatarServer(cfg, checkpoint=ckpt, device="cpu", log=False)
+    jcfg = JaxCfgNode(_cfg_dict(ds_dir))
+    jcfg.nerf.validation["fast_eval"] = True
+    jsrv = JaxAvatarServer(jcfg, checkpoint=ckpt, log=False)
+    np.testing.assert_array_equal(srv.fast_bbox, jsrv.fast_bbox)
+    assert srv.settings.fast_eval_capacity == jsrv.settings.fast_eval_capacity
+    assert srv.handle({"cmd": "ping"})["fast_eval"] is True
+    reply = srv.handle({"frame": 0})
+    assert reply["ok"] and reply["frame_ms"] > 0
 
 
 def test_synthetic_dataset_matches_generator_files(avatar):
