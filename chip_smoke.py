@@ -9,13 +9,13 @@ Phases, one line each (plus the kernels' register reports):
 
   1. device  — nvidia-smi's name and power limit, torch's device name;
                fails when CUDA is not available.
-  2. build   — nvcc builds the five kernel libraries,
+  2. build   — nvcc builds the six kernel libraries,
                `nerface_tpu_torch/csrc/fused_paper_render.cu` (K2),
                `fused_train_pass.cu` (K1), `fused_paper_mlp.cu` (K3),
-               `fused_flex.cu` (K4) and `fused_resample.cu` (K5), in
-               parallel into build/nerface_tpu_torch/;
-               prints the seconds and each kernel's ptxas registers and
-               shared memory.
+               `fused_flex.cu` (K4), `fused_resample.cu` (K5) and
+               `probes.cu` (the design probes P1 / P2), in parallel into
+               build/nerface_tpu_torch/; prints the seconds and each
+               kernel's ptxas registers, spills and shared memory.
   3. kernel  — the fused-render kernel against its plain PyTorch version
                (bf16 operands), on He-scaled random weights (HE_GAIN) on
                the card, at the main path's coarse
@@ -25,7 +25,9 @@ Phases, one line each (plus the kernels' register reports):
                rays: rgb/acc/bg_weight/weights atol 2e-3, depth atol
                2e-3·far, disp rtol 1e-2, everything finite. Median kernel
                and plain times at 4096 rays, and the kernel's at 65536
-               (CUDA events, after warm-up).
+               (CUDA events, after warm-up), each both through the wrapper
+               and as the bare C launch with the conditioning folded
+               beforehand (`launch_ms_by_pass`).
      small_kernels — the same for K2's `small` mode (the smaller paper
                model), and K1's `small` mode as in phase 6 at R = 2048,
                S = 64 and 128, at those kernels' limits.
@@ -37,6 +39,15 @@ Phases, one line each (plus the kernels' register reports):
                draws a case, general and sorted_u (+ a spike case): max error
                ≤ RESAMPLE_TOL·far, rows sorted, bit-identical over 2
                launches; kernel, plain and bound ms.
+     probes  — the design probes of K2's layer chain
+               (nerface_tpu_torch/tools/perf/, csrc/probes.cu), each variant
+               driven once at the TPU probes' sizes with the counts reset
+               (P2 chain_overlap: 7 variants; P1 encoder_concat: split and
+               packed), then held against its plain version on every row
+               (P2 within `chain_overlap_probe.tolerance`, bwd_mix's aᵀ·gy
+               product of the last 64 rows within its TOL, P1 within its
+               TOL) and timed: ms, TFLOP/s, the plain version's ms, and for
+               P1 the ms a repetition.
   4. serve   — a 512² avatar of the paper model (configs/synth512_paper.yml
                as a dict, He-scaled random weights from a fixed seed with σ
                biased up so that the MLP's colour, not the background, makes
@@ -140,8 +151,8 @@ synth512_paper_coarse and of synth512_lcode; each prints its table of device
 time per kernel.
 
 The line before the last is {"kernels": [...]} (K2, K1, K3f, K3b, K4f,
-K4b, K5); the last line is {"ok": true, "device": {...}}. Any failure raises,
-exits non-zero and prints no result.
+K4b, K5, P2, P1); the last line is {"ok": true, "device": {...}}. Any
+failure raises, exits non-zero and prints no result.
 """
 
 import contextlib
@@ -331,7 +342,20 @@ K3_SEEDS = 3
 FRAME_MAX = 1
 FRAME_MEAN = 0.15
 LIBRARIES = ("fused_paper_render", "fused_train_pass", "fused_paper_mlp", "fused_flex",
-             "fused_resample")
+             "fused_resample", "probes")
+# PR 5's record of K2's 65536-ray tile times in its earlier design
+# (ldmatrix + mma.sync, one 512-thread CTA a tile), read by chip_smoke.py on
+# an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6). Copied, not measured: the
+# phase text prints them, labelled, beside this run's; the kernels line
+# carries only this run's numbers
+K2_PREVIOUS_TILE_MS = {"coarse": 18.985, "fine": 37.460}
+# ... and its warm rgb 512² frames, parity / fast / occupancy (PERF.md §5, §6)
+PREVIOUS_FRAME_MS = {"parity": 240.43, "fast": 56.14, "occupancy": 53.85}
+K2_DESIGN = ("wgmma m64n256k16 with A from registers, f32 accumulators; weight chunk "
+             "images through a 5-stage ring of cp.async.bulk copies from a producer warp "
+             "(mbarriers), multicast to a 2-CTA cluster; persistent grid; two free-running "
+             "consumer warpgroups, each on whole rays; three encoder warps; the heads on "
+             "m64n8 wgmmas")
 # K5 against its plain version (the pipeline's sample_pdf + merge_sorted_zvals):
 # max |kernel − plain| ≤ RESAMPLE_TOL·far, the JAX kernel's own contract
 # against its XLA twin (`tests/test_pallas.py`), on RESAMPLE_SEEDS draws per
@@ -363,21 +387,9 @@ def phase(name, text):
 
 
 def _median_ms(fn, warmup=3, iters=15):
-    import torch
+    from nerface_tpu_torch.tools.perf._timing import median_ms
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    return median_ms(fn, warmup, iters)
 
 
 def _kernel_inputs(n_rays, n_samples, gen, dev):
@@ -474,7 +486,7 @@ def kernel_phase(dev, small=False):
     params = model.state_dict()
     packed = pack_paper_weights(params)
     gen = torch.Generator().manual_seed(SEED + 1)
-    result = {"err": {}, "ms": {}, "plain_ms": {}, "tile_ms": {}}
+    result = {"err": {}, "ms": {}, "plain_ms": {}, "tile_ms": {}, "launch_ms": {}}
     for label, S, with_w in (("coarse", 64, True), ("fine", 128, False)):
         ro, rd, z, dc, cond, bg = _kernel_inputs(KERNEL_RAYS, S, gen, dev)
         args = (params, ro, rd, z, dc, cond)
@@ -485,12 +497,14 @@ def kernel_phase(dev, small=False):
         check(float(got["acc"][:2].abs().max()) == 0.0, f"{label}: rd = 0 rays have acc != 0")
         result["err"][label] = _compare(got, ref, f"{what} {label}")
         result["ms"][label] = _median_ms(lambda: fused_paper_render(packed, *args[1:], **kw))
+        result["launch_ms"][label] = _median_ms(_bare_launch(packed, args[1:], kw))
         result["plain_ms"][label] = _median_ms(lambda: fused_paper_render_reference(*args, **kw))
         phase(
             name,
             f"{what} S={S} rays={KERNEL_RAYS}: max abs err "
             + ", ".join(f"{k} {v:.3g}" for k, v in result["err"][label].items())
-            + f"; kernel {result['ms'][label]:.3f} ms, plain {result['plain_ms'][label]:.3f} ms",
+            + f"; kernel {result['ms'][label]:.3f} ms (bare launch "
+            f"{result['launch_ms'][label]:.3f} ms), plain {result['plain_ms'][label]:.3f} ms",
         )
         # one whole tile of the main path: 16x the grid of the check above
         ro, rd, z, dc, cond, bg = _kernel_inputs(TILE_RAYS, S, gen, dev)
@@ -503,12 +517,18 @@ def kernel_phase(dev, small=False):
         result["err"][label + "_tile"] = _compare(got, ref, f"{what} {label} tile")
         del ref
         result["tile_ms"][label] = _median_ms(lambda: fused_paper_render(*args, **kw), iters=10)
-        tflops = TILE_RAYS * S * paper_flop_per_sample(small, False) / result["tile_ms"][label] / 1e9
+        result["launch_ms"][label + "_tile"] = _median_ms(_bare_launch(packed, args[1:], kw), iters=10)
+        flop = TILE_RAYS * S * paper_flop_per_sample(small, False)
+        tflops = flop / result["tile_ms"][label] / 1e9
+        bound = _bound_ms(flop, _k2_bytes(TILE_RAYS, S, with_w))[0]
+        prev = "" if small else f" (PR 5's record, earlier design: {K2_PREVIOUS_TILE_MS[label]} ms)"
         phase(
             name,
             f"{what} S={S} rays={TILE_RAYS}: max abs err "
             + ", ".join(f"{k} {v:.3g}" for k, v in result["err"][label + "_tile"].items())
-            + f"; kernel {result['tile_ms'][label]:.3f} ms, {tflops:.1f} TFLOP/s of MLP",
+            + f"; kernel {result['tile_ms'][label]:.3f} ms (bare launch "
+            f"{result['launch_ms'][label + '_tile']:.3f} ms), {tflops:.1f} TFLOP/s of MLP; bound "
+            f"{bound:.3f} ms{prev}",
         )
     if small:
         return result
@@ -523,6 +543,82 @@ def kernel_phase(dev, small=False):
     check(float((got["weights"][4:, 0] - 1.0).abs().max()) < 1e-6, "opaque: weight 0 != 1")
     phase("kernel", f"opaque rays: max abs err {max(result['err']['opaque'].values()):.3g}")
     return result
+
+
+def _bare_launch(packed, per_call, kw):
+    """K2's C entry point alone, as a function to time: the conditioning
+    folded and the outputs allocated beforehand, so a call is the ctypes
+    call and the kernel (the wrapper's time also holds the fold, the
+    checks and the allocations). `per_call` is (ro, rd, z, dc, cond)."""
+    from nerface_tpu_torch.ops.kernels.fused_mlp import (
+        _fold_conditioning,
+        _launch_render,
+        render_outputs,
+    )
+
+    ro, rd, z, dc, cond = per_call
+    fbuf = _fold_conditioning(packed, cond)
+    out = render_outputs(*z.shape, kw.get("out_weights", False), ro.device)
+    operands = (ro, rd, z, dc, kw.get("background"))
+    return lambda: _launch_render(packed, fbuf, operands, out, kw.get("white_background", False),
+                                  kw.get("small", False))
+
+
+def probes_phase(dev):
+    """The design probes P2 (chain_overlap, 7 variants) and P1
+    (encoder_concat, split / packed) of K2's layer chain: each variant
+    driven once at the TPU probes' sizes with the counts reset just before,
+    then held against its plain version and timed."""
+    import torch
+
+    from nerface_tpu_torch.tools.perf import chain_overlap_probe as P2
+    from nerface_tpu_torch.tools.perf import encoder_concat_probe as P1
+
+    P2.chain_overlap.launches = 0
+    P1.encoder_concat.launches = 0
+    r2 = P2.run(dev, seed=SEED + 40)
+    r1 = P1.run(dev, seed=SEED + 41)
+    check(r2["launches"] == len(P2.VARIANTS), f"probes: P2 drove {r2['launches']} launches")
+    check(r1["launches"] == len(P1.VARIANTS), f"probes: P1 drove {r1['launches']} launches")
+    rows = P2.GRID * P2.TILE
+    for v, r in r2["variants"].items():
+        max_tol, norm_tol = P2.tolerance(v)
+        check(r["finite"], f"probes: P2 {v} not finite")
+        check(r["max_err"] <= max_tol and r["norm_err"] <= norm_tol,
+              f"probes: P2 {v} max / norm err {r['max_err']:.3g} / {r['norm_err']:.3g} > "
+              f"{max_tol} / {norm_tol}")
+        dw = ""
+        if v == "bwd_mix":
+            check(r["dw_finite"] and r["dw_max_err"] <= P2.TOL[0]
+                  and r["dw_norm_err"] <= P2.TOL[1],
+                  f"probes: P2 bwd_mix aᵀ·gy max / norm err {r['dw_max_err']:.3g} / "
+                  f"{r['dw_norm_err']:.3g} > {P2.TOL[0]} / {P2.TOL[1]}")
+            dw = (f"; aᵀ·gy of the last 64 rows max / norm rel err {r['dw_max_err']:.2e} / "
+                  f"{r['dw_norm_err']:.2e} (limits {P2.TOL[0]} / {P2.TOL[1]})")
+        r["bound"] = _bound_ms(P2.flops(rows), P2.nbytes(rows))
+        phase("probes", f"P2 {v:17s} {rows} rows × {P2.DEPTH} layers: {r['ms']:.3f} ms, "
+                        f"{r['tflops']:.1f} TFLOP/s (bound {r['bound'][0]:.3f} ms, "
+                        f"{r['bound'][1]}); plain {r['plain_ms']:.2f} ms; max / norm rel err "
+                        f"{r['max_err']:.2e} / {r['norm_err']:.2e} (limits {max_tol} / {norm_tol})"
+                        f"{dw}")
+    for v, r in r1["variants"].items():
+        check(r["finite"] and r["max_err"] <= P1.TOL,
+              f"probes: P1 {v} max rel err {r['max_err']:.3g} > {P1.TOL}")
+        r["bound"] = _bound_ms(P1.flops(rows), P1.nbytes(rows))
+        phase("probes", f"P1 {v:6s} {rows} rows × {P1.REPS} reps: {r['ms']:.3f} ms, "
+                        f"{r['tflops']:.1f} TFLOP/s (bound {r['bound'][0]:.3f} ms, "
+                        f"{r['bound'][1]}); {1e3 * r['rep_ms']:.2f} µs a repetition "
+                        f"({r['rep_tflops'] or 0:.1f} TFLOP/s); plain {r['plain_ms']:.2f} ms; "
+                        f"max rel err {r['max_err']:.2e} (limit {P1.TOL})")
+    # the probes' GB of inputs, outputs and plain versions go back to the card
+    # before the serving and training phases
+    torch.cuda.empty_cache()
+    faster = min(P1.VARIANTS, key=lambda v: r1["variants"][v]["rep_ms"])
+    phase("probes", f"P1: {faster} is faster a repetition; P2: the two free-running warpgroups "
+                    f"{r2['variants']['twochain']['tflops']:.1f} TFLOP/s against ping-pong "
+                    f"{r2['variants']['twochain_pingpong']['tflops']:.1f} and one warpgroup "
+                    f"{r2['variants']['single']['tflops']:.1f}")
+    return {"P2": r2, "P1": r1}
 
 
 def _frame_against_plain(img, cfg_dict, ckpt, ds, dev, label):
@@ -723,12 +819,19 @@ def build_phase():
                 continue
             m = re.search(r"(train_fwd_kernel|train_bwd_kernel|flex_fwd_kernel|flex_bwd_kernel|"
                           r"dw_kernel|reduce_rows|render_kernel|mlp_fwd_kernel|recompute_kernel|"
-                          r"resample_kernel)(?:ILi(\d+)E(?:Lb([01])E)?)?", line)
+                          r"resample_kernel|chain_kernel|encoder_kernel)"
+                          r"(?:ILi(\d+)E(?:Lb([01])E)?|ILb([01])E)?", line)
             short = line
             if m:
                 flag = "sorted_u" if m.group(1) == "resample_kernel" else "small"
                 targs = ", ".join(([m.group(2)] if m.group(2) else [])
                                   + ([flag] if m.group(3) == "1" else []))
+                if m.group(1) == "chain_kernel" and m.group(2):
+                    from nerface_tpu_torch.tools.perf.chain_overlap_probe import VARIANTS
+
+                    targs = VARIANTS[int(m.group(2))]
+                if m.group(4):
+                    targs = "split" if m.group(4) == "1" else "packed"
                 short = m.group(1) + (f"<{targs}>" if targs else "")
             usage = [x.split("info    :")[-1].strip() if "info" in x else x.strip()
                      for x in log[i + 1:i + 4] if "registers" in x or "spill" in x]
@@ -1817,7 +1920,9 @@ def fast_serve_phase(dev, tmp, profile):
                         f"pixels: {c['skipped_bg']} background, {c['spare_real']} rendered in "
                         f"spare slots (= parity within 1 level); warm rgb frame {fast_ms:.2f} ms "
                         f"fast vs {par_ms:.2f} ms parity (medians of {FAST_FRAMES}, in turns: "
-                        f"{[round(t, 2) for t in fast_all]} / {[round(t, 2) for t in par_all]})")
+                        f"{[round(t, 2) for t in fast_all]} / {[round(t, 2) for t in par_all]}); "
+                        f"PR 5's record, earlier K2: {PREVIOUS_FRAME_MS['fast']} / "
+                        f"{PREVIOUS_FRAME_MS['parity']} ms")
     if profile:
         profile_phase(server, "profile_fast")
     return dict(c, launches=launched["K2"], frame_ms=frame_ms, fast_ms=fast_ms, parity_ms=par_ms,
@@ -1886,11 +1991,35 @@ def occupancy_serve_phase(dev, ds, ckpt):
                              f"max {c['inside_max']} level off, {c['inside_differ']} differ; "
                              f"skipped pixels: {c['skipped_bg']} background, {c['spare_real']} "
                              f"rendered in spare slots; warm rgb frame {fast_ms:.2f} ms fast vs "
-                             f"{par_ms:.2f} ms parity (medians of {FAST_FRAMES}, in turns)")
+                             f"{par_ms:.2f} ms parity (medians of {FAST_FRAMES}, in turns); PR 5's "
+                             f"record, earlier K2: {PREVIOUS_FRAME_MS['occupancy']} ms")
     return dict(c, launches=launched["K2"], frame_ms=frame_ms, fast_ms=fast_ms, parity_ms=par_ms,
                 tiles=tiles, grid_build_s=builds, setup_s=setup_s,
                 occupied=occ.occupancy_fraction(), active_fraction=frac,
                 capacity=server.settings.fast_eval_capacity)
+
+
+def _probe_entry(res, name, headline, replaces, card):
+    """A probe's entry of the kernels line: `headline` is the variant K2
+    follows; every variant's numbers ride along."""
+    v = res["variants"]
+    return {
+        "name": f"{name}_probe",
+        "route": "cuda",
+        "source": "nerface_tpu_torch/csrc/probes.cu",
+        "replaces": replaces,
+        # its own entry point, each variant once: nothing in the system runs a probe
+        "launches": res["launches"],
+        "max_abs_err": max(r["max_abs"] for r in v.values()),
+        "ms": v[headline]["ms"],
+        "plain_ms": v[headline]["plain_ms"],
+        "bound_ms": v[headline]["bound"][0],
+        "bound_by": v[headline]["bound"][1],
+        "library_ms": None,  # no single PyTorch call computes it
+        "headline_variant": headline,
+        "by_variant": {k: {x: r[x] for x in r if x not in ("finite", "bound")} for k, r in v.items()},
+        "card": card,
+    }
 
 
 def main() -> int:
@@ -1924,6 +2053,7 @@ def main() -> int:
     k = kernel_phase(dev)
     ks = kernel_phase(dev, small=True)
     rk = resample_phase(dev)
+    pr = probes_phase(dev)
     with tempfile.TemporaryDirectory() as tmp:
         server, s = serve_phase(dev, tmp)
         if args.profile:
@@ -1984,6 +2114,13 @@ def main() -> int:
             "small_ms_by_pass": ks["ms"],
             "small_plain_ms_by_pass": ks["plain_ms"],
             "small_tile_ms_by_pass": ks["tile_ms"],
+            # the C entry alone, conditioning folded beforehand (4096 rays and the tile)
+            "launch_ms_by_pass": k["launch_ms"],
+            "small_launch_ms_by_pass": ks["launch_ms"],
+            "tile_bound_ms_by_pass": {p: _bound_ms(TILE_RAYS * S * K2_FLOP_PER_SAMPLE,
+                                                   _k2_bytes(TILE_RAYS, S, S == 64))[0]
+                                      for p, S in (("coarse", 64), ("fine", 128))},
+            "design": K2_DESIGN,
             "frame_ms_512": s["frame_ms"],
             "smaller_frame_ms_512": ss["frame_ms"],
             "fast_frame_ms_512": {"fast": fe["fast_ms"], "parity": fe["parity_ms"]},
@@ -2129,6 +2266,10 @@ def main() -> int:
             "bound_ms_by_case": {c: b[0] for c, b in rk["bound"].items()},
             "card": card,
         },
+        _probe_entry(pr["P2"], "chain_overlap", "twochain",
+                     "tools/perf/chain_overlap_probe.py:119", card),
+        _probe_entry(pr["P1"], "encoder_concat", "packed",
+                     "tools/perf/encoder_concat_probe.py:77", card),
     ]}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),

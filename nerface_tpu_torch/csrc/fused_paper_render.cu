@@ -4,61 +4,105 @@
 // Replaces K2 of the JAX package, the Pallas TPU kernel `_render_kernel`
 // behind nerface_tpu/ops/pallas/fused_mlp.py::fused_paper_render
 // (pallas_call at fused_mlp.py:811). Python side:
-// nerface_tpu_torch/ops/kernels/fused_mlp.py (wrapper, operand packing, and
-// the plain PyTorch version `fused_paper_render_reference`).
-// Steps 1-3 below are `render_tile` in mma_tile.cuh, shared with K3f
-// (fused_paper_mlp.cu); the encode, dense-layer and head code with K1
-// (fused_train_pass.cu) too. `small` selects the smaller paper model, whose
-// trunk has no layers_xyz.5 (256→256 ×1 after the skip).
+// nerface_tpu_torch/ops/kernels/fused_mlp.py (wrapper, the weights' chunk
+// images `pack_sm90_chunks`, and the plain PyTorch version
+// `fused_paper_render_reference`). `small` selects the smaller paper model,
+// whose trunk has no layers_xyz.5 (256→256 ×1 after the skip).
 //
-// What one CTA does, for a tile of 128 sample rows (2 rays at S = 64, 1 ray
-// at S = 128):
-//   1. points ro + rd·z and their positional encoding sin(x·f + φ) in f32
-//      (`sinf`, full range reduction: arguments reach hundreds of radians),
-//      packed with xyz into 64 bf16 columns [xyz(3); PE(60); 0] in shared
-//      memory;
-//   2. the trunk 64→256, 256→256 ×2, the concat-skip layer [xin; h2] (K=320)
-//      →256, 256→256 ×2, fc_feat, then the direction branch 256→128 (+ the
-//      per-ray dir contribution) and 128→128 ×2. Each layer is bf16
-//      `mma.sync.m16n8k16` with f32 accumulation, operands loaded with
-//      `ldmatrix` (B transposed on the fly); activations ping-pong between
-//      two 128×256 bf16 buffers in shared memory; the weights (~0.98 MB bf16,
-//      resident in L2) stream through shared memory in 64-row K-chunks,
-//      double-buffered with cp.async, so the CTA's 16 warps share one copy of
-//      each chunk and the next chunk's load overlaps this chunk's MMAs. Bias,
-//      relu, the cond0/cond3 conditioning folds and the dir contribution are
-//      applied to the accumulator registers, which are stored as bf16 pairs;
-//   3. the σ head (256→1) and the rgb head (128→3) as per-thread dot
-//      products;
-//   4. compositing: one warp per ray, an f32 scan of log transmittance
-//      (the TPU kernel's triangular matmul was a Mosaic workaround), the
-//      background on the last sample, relu σ + 1e-6 there.
+// Bound: tensor-core throughput. The MLP is ≈ 0.983 MFLOP a sample at the
+// function's widths (2·(63·256 + 5·256² + 319·256 + 256 + 256·128 + 2·128²
+// + 128·3); the zero pad of layer 0 and the skip layer to K = 64 / 320 is
+// not counted): 4.17 ms for a 65536-ray tile at S = 64 and 8.34 ms at
+// S = 128 at the H100's 989 TFLOP/s bf16 dense peak, against ~1.9 MB of
+// ray data in and out per 65536 rays.
 //
-// Bound: tensor-core throughput. The MLP is about 1 MFLOP per sample
-// (2·(63·256 + 5·256² + 319·256 + 256 + 256·128 + 2·128² + 128·3) ≈ 0.983
-// MFLOP at the function's widths; the zero pad of layer 0 and the skip
-// layer to K = 64 / 320 is not counted), ≈ 49.5
-// TFLOP for one 512² frame at 64 + 128 samples per ray, against
-// ~1.9 MB of ray data in and out per 65536 rays. On an H100 80GB HBM3 at
-// 700 W, chip_smoke.py times it at 212-219 TFLOP/s on 65536-ray tiles,
-// ≈ 22 % of the bf16 dense peak.
-//
-// What this simple design leaves on the table: wgmma (mma.sync reaches only
-// part of Hopper's tensor-core rate); TMA multicast of the weight chunks
-// across a cluster; one CTA per SM (218 KB of shared memory), so an SM idles
-// through each CTA's encode, epilogues, heads, scan and the barrier at every
-// chunk; and a persistent grid that would overlap one tile's epilogue with
-// the next tile's loads.
+// Design (one persistent 2-CTA cluster per SM pair, 384 threads a CTA):
+//   - The weights are packed once per model into chunk images
+//     (`wbuf_sm90`): each layer's 64-row K chunks as the byte image of
+//     wgmma's 128-byte-swizzled K-major B operand (wgmma_tile.cuh), 32 KB
+//     for a 256-wide layer, 16 KB for the 128-wide direction branch; the
+//     skip layer (K = 320) is five chunks, the first reading [xyz; PE; 0].
+//   - Warpgroup 2 feeds the others. One thread (the producer) streams the
+//     chunk sequence through a RING-deep ring of 32 KB stages, each chunk
+//     one `cp.async.bulk` completing on the stage's `full` mbarrier; in the
+//     cluster each CTA copies half of a chunk and multicasts it to both, so
+//     a chunk leaves L2 once for 256 rows. A stage is refilled when all
+//     four consumer warpgroups of the cluster have arrived on its `empty`
+//     barrier (the peer's by a remote arrive). Its other three warps (the
+//     encoders) write each unit's [xyz; PE; 0] tile into one of its
+//     warpgroup's two swizzled xin buffers, handed over on mbarriers
+//     (`xin_full` / `xin_empty`), so the encode's sinf never holds a
+//     consumer. `setmaxnreg` gives the warpgroup's registers to the
+//     consumers (40 / 232).
+//   - Warpgroups 0 and 1 (the consumers) each take whole rays as 64-row
+//     units: two rays a unit at S = 32, one at S = 64, one ray in two
+//     units at S = 128. Each layer is `wgmma.mma_async` m64n256k16
+//     (m64n128k16 for the direction branch) into 128 f32 accumulator
+//     registers a thread. Layer 0 and the skip layer's first chunk read
+//     xin from shared memory with K packed to 64 (probe P1: four k16 steps
+//     a product against five for the split x3 | enc, 14.73 against 18.03 µs
+//     a repetition). Every other A comes from registers: the epilogue
+//     (bias, the cond0/cond3 folds, the ray's dir_c row) rounds each
+//     accumulator pair to bf16 with the relu fused into the convert,
+//     exactly where the plain version rounds, and that pair is wgmma's
+//     A-fragment register for the next layer (`acc_to_a`); activations
+//     never touch shared memory (probe P2: chains whose operands go through
+//     shared memory, fourchain, run 13 % below those that stay in
+//     registers). 128 accumulator + 64 A-fragment registers a thread fit
+//     the 232. One chunk's wgmma group stays in flight while the previous
+//     stage is released.
+//   - The two consumers run free of each other: no ping-pong ordering
+//     (probe P2: two free-running warpgroups 661 TFLOP/s, the same two
+//     with named-barrier ping-pong 593, one warpgroup 577; PERF.md §6).
+//     Only the weight ring ties them.
+//   - The σ head (256→1) and the rgb head (128→3) are m64n8k16 wgmmas
+//     against the head weights zero-padded to 8 columns in shared memory;
+//     the raw σ and rgb go to shared memory for the compositing: one warp
+//     per ray, an f32 scan of log transmittance with separately rounded
+//     __fadd_rn / __fmul_rn, the background on the last sample, relu σ +
+//     1e-6 there, the 1e-10 / 1e-38 guards.
+//   - The grid is persistent: cluster c takes rounds c, c + clusters, ...
+//     of 2 CTAs × 2 warpgroups' rays; the producer and the encoders run
+//     ahead into the next round. A warpgroup whose rays are past the last
+//     ray computes zeros and stores nothing, so every consumer of a cluster
+//     walks the same chunk sequence.
 //
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a -O3, with neither
 // --use_fast_math nor -ftz=true: the disparity guard max(acc, 1e-38) needs
 // denormals, and the encoding needs the accurate sinf.
 
 #include "mma_tile.cuh"
+#include "wgmma_tile.cuh"
 
 using namespace nerface;
+using namespace nerface::sm90;
 
 namespace {
+
+constexpr int RING = 5;                     // weight stages
+// CTAs sharing each chunk: 2 (the peer is rank ^ 1), or 1 in a build with
+// NERFACE_K2_CLUSTER=1 (tools/perf/k2_cluster_ablation.py's comparison)
+#ifndef NERFACE_K2_CLUSTER
+#define NERFACE_K2_CLUSTER 2
+#endif
+constexpr int CLUSTER = NERFACE_K2_CLUSTER;
+static_assert(CLUSTER == 1 || CLUSTER == 2, "K2 runs in 1- or 2-CTA clusters");
+constexpr int CONSUMERS = 2;                // warpgroups computing the tile
+constexpr int K2_THREADS = 128 * (CONSUMERS + 1);
+constexpr int STAGE_BYTES = KCH * HIDDEN * 2;
+constexpr int ENCODERS = 3;                 // warps of the producer warpgroup that encode
+constexpr int BAR_WG = 1;                   // + warpgroup: that warpgroup's named barrier
+
+// A consumer warpgroup takes whole rays, WG_RAYS at a time, as UNITS
+// 64-row units (two at S = 128: one ray); a cluster takes RAYS_PER_PAIR
+// rays a round of its loop, and streams every chunk UNITS times a round.
+template <int S>
+struct Geometry {
+  static constexpr int WG_RAYS = S >= 64 ? 1 : 64 / S;
+  static constexpr int UNITS = S > 64 ? S / 64 : 1;
+  static constexpr int RAYS_PER_PAIR = CLUSTER * CONSUMERS * WG_RAYS;
+  __host__ __device__ static int pairs(int n_rays) { return (n_rays + RAYS_PER_PAIR - 1) / RAYS_PER_PAIR; }
+};
 
 struct Args {
   const float* ro;     // (R, 3)
@@ -66,7 +110,7 @@ struct Args {
   const float* z;      // (R, S)
   const float* dir_c;  // (R, 128)
   const float* bg;     // (R, 3) or null
-  const bf16* W;       // packed weights
+  const bf16* W;       // the weights' chunk images (W_OFF_* offsets)
   const float* F;      // packed bias rows + frequency bands
   float* rgb;          // (R, 3)
   float* disp;         // (R,)
@@ -79,22 +123,203 @@ struct Args {
   int white_bg;
 };
 
+struct alignas(ATOM_BYTES) K2Smem {
+  unsigned char ring[RING][STAGE_BYTES];   // weight chunk images
+  // [xyz; PE; 0] of a consumer warpgroup's unit, K-major swizzled: two
+  // buffers a warpgroup, filled by the encoder warps
+  unsigned char xin[CONSUMERS][2][64 * ROW_BYTES];
+  // the heads' weights zero-padded to 8 columns, as chunk images: wa
+  // (256 → 1) and wrgb (128 → 3)
+  unsigned char wa8[HIDDEN / KCH][8 * ROW_BYTES];
+  unsigned char wrgb8[DIR_HIDDEN / KCH][8 * ROW_BYTES];
+  float f[F_OFF_TOTAL];                      // bias rows, frequency bands
+  float sigma[CONSUMERS][128];              // a warpgroup's rays' raw σ and rgb
+  float rgb[CONSUMERS][128 * 3];
+  uint64_t full[RING];
+  uint64_t empty[RING];
+  uint64_t xin_full[CONSUMERS][2];
+  uint64_t xin_empty[CONSUMERS][2];
+};
+
+// The producer: every chunk of every layer of every unit of every round of
+// this cluster, in the consumers' order; then wait until each stage has
+// been released once more, so no arrive or copy of the peer CTA is left in
+// flight when this CTA exits.
 template <int S, bool SMALL>
-__global__ void __launch_bounds__(THREADS, 1) render_kernel(const Args a) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  RenderSmem& sm = *reinterpret_cast<RenderSmem*>(smem_raw);
-  constexpr int RAYS = TILE_ROWS / S;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int ray0 = blockIdx.x * RAYS;
+__device__ __forceinline__ void produce(K2Smem& sm, const bf16* __restrict__ W, uint32_t rank, int n_pairs) {
+  Ring ring;
+  auto load_layer = [&](int off, int k, int n) {
+    const uint32_t bytes = KCH * n * 2, part = bytes / CLUSTER;
+    for (int c = 0; c < k / KCH; ++c) {
+      mbar_wait(&sm.empty[ring.stage], ring.phase ^ 1);
+      mbar_expect_tx(&sm.full[ring.stage], bytes);
+      const unsigned char* src = reinterpret_cast<const unsigned char*>(W + off + c * KCH * n);
+      if constexpr (CLUSTER == 1) {
+        bulk_load(sm.ring[ring.stage], src, bytes, &sm.full[ring.stage]);
+      } else {
+        bulk_load_multicast(sm.ring[ring.stage] + rank * part, src + rank * part, part, &sm.full[ring.stage],
+                            (1u << CLUSTER) - 1);
+      }
+      ring.advance<RING>();
+    }
+  };
+  for (int pair = cluster_id(); pair < n_pairs; pair += cluster_count()) {
+    for (int u = 0; u < Geometry<S>::UNITS; ++u) {
+      load_layer(W_OFF_W0, K_XIN, HIDDEN);
+      load_layer(W_OFF_W1, HIDDEN, HIDDEN);
+      load_layer(W_OFF_W2, HIDDEN, HIDDEN);
+      load_layer(W_OFF_W3, K_XIN + HIDDEN, HIDDEN);
+      load_layer(W_OFF_W4, HIDDEN, HIDDEN);
+      if (!SMALL) load_layer(W_OFF_W5, HIDDEN, HIDDEN);
+      load_layer(W_OFF_WF, HIDDEN, HIDDEN);
+      load_layer(W_OFF_WD0, HIDDEN, DIR_HIDDEN);
+      load_layer(W_OFF_WD1, DIR_HIDDEN, DIR_HIDDEN);
+      load_layer(W_OFF_WD2, DIR_HIDDEN, DIR_HIDDEN);
+    }
+  }
+  for (int s = 0; s < RING; ++s) {
+    mbar_wait(&sm.empty[ring.stage], ring.phase ^ 1);
+    ring.advance<RING>();
+  }
+}
 
-  // 1.-3. encode, the MLP, the σ and rgb heads (mma_tile.cuh)
-  render_tile<S, SMALL>(sm, a.ro, a.rd, a.z, a.dir_c, a.W, a.F, ray0, a.n_rays, a.n_freqs);
+// Release a stage: one arrive from this warpgroup on the stage's `empty`
+// barrier in each CTA of the cluster.
+__device__ __forceinline__ void release(K2Smem& sm, int stage, uint32_t rank) {
+  const int t = threadIdx.x & 127;
+  if (t == 0) mbar_arrive(&sm.empty[stage]);
+  if (CLUSTER > 1 && t == 32) mbar_arrive_cluster(&sm.empty[stage], rank ^ 1);
+}
 
-  // 4. compositing: warp w owns ray ray0 + w; lane l owns samples
-  // [l·SPL, (l+1)·SPL).
+// One layer of a warpgroup's 64 rows: acc = A·W over the layer's NCH
+// chunks of N columns. A is the encoded tile in shared memory (xin) for the
+// first X_CHUNKS chunks, then the registers a[] (k16 slice s in
+// a[4s .. 4s + 3]). One chunk's group stays in flight while the previous
+// stage is released.
+template <int N, int NCH, int X_CHUNKS>
+__device__ __forceinline__ void layer(float* acc, uint32_t* a, uint32_t xin, K2Smem& sm, Ring& ring,
+                                      uint32_t rank) {
+  int prev = 0;
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+    mbar_wait(&sm.full[ring.stage], ring.phase);
+    const uint32_t b = smem_u32(sm.ring[ring.stage]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KCH / 16; ++kk) {
+      const uint64_t db = desc_k(b + 32 * kk);
+      const int scale = (c > 0 || kk > 0) ? 1 : 0;
+      if (c < X_CHUNKS) {
+        wgmma_ss<N>(acc, desc_k(xin + 32 * kk), db, scale);
+      } else {
+        wgmma_rs<N>(acc, a + 4 * ((KCH / 16) * (c - X_CHUNKS) + kk), db, scale);
+      }
+    }
+    wgmma_commit();
+    if (c > 0) {
+      wgmma_wait<1>();
+      release(sm, prev, rank);
+    }
+    prev = ring.stage;
+    ring.advance<RING>();
+  }
+  wgmma_wait<0>();
+  release(sm, prev, rank);
+  fence_regs<N / 2>(acc);
+  fence_regs<64>(a);
+}
+
+// Epilogues on the accumulator (acc_to_a applies the relu): + bias row;
+// the direction branch's first layer adds the ray's dir_c row too.
+struct EpiBias {
+  const float* bias;
+  __device__ __forceinline__ float2 operator()(int, int col, float v0, float v1) const {
+    const float2 b = *reinterpret_cast<const float2*>(bias + col);
+    return make_float2(v0 + b.x, v1 + b.y);
+  }
+};
+
+struct EpiDir {
+  const float* bias;
+  const float* dir_c;  // the ray's row, or null past the last ray
+  __device__ __forceinline__ float2 operator()(int, int col, float v0, float v1) const {
+    const float2 b = *reinterpret_cast<const float2*>(bias + col);
+    v0 += b.x;
+    v1 += b.y;
+    if (dir_c != nullptr) {
+      const float2 d = __ldg(reinterpret_cast<const float2*>(dir_c + col));
+      v0 += d.x;
+      v1 += d.y;
+    }
+    return make_float2(v0, v1);
+  }
+};
+
+// One encode task of a unit (rows row_base .. row_base + 63 of a consumer
+// warpgroup's item): row task % 64, the 32 columns [32·(task / 64), +32) of
+// [xyz; sin(x·f + φ); 0], rounded to bf16, into the unit's swizzled xin
+// buffer. A row's point is loaded and computed once. The products and sums
+// round separately (no FMA contraction) as in the plain version; `sinf`
+// has full range reduction. Rows past the last ray are 0.
+template <int S>
+__device__ __forceinline__ void encode_task(unsigned char* xin, int task, const Args& a, const float* freqs,
+                                            int ray0, int row_base) {
+  const int r = task & 63, c0 = (task >> 6) * 32;
+  const int row = row_base + r;
+  const int ray = ray0 + row / S;
+  const int n_cols = ray < a.n_rays ? 3 + 6 * a.n_freqs : 0;
+  float x0 = 0.f, x1 = 0.f, x2 = 0.f;
+  if (n_cols > 0) {
+    const float zz = a.z[(size_t)ray * S + row % S];
+    x0 = __fadd_rn(a.ro[ray * 3], __fmul_rn(a.rd[ray * 3], zz));
+    x1 = __fadd_rn(a.ro[ray * 3 + 1], __fmul_rn(a.rd[ray * 3 + 1], zz));
+    x2 = __fadd_rn(a.ro[ray * 3 + 2], __fmul_rn(a.rd[ray * 3 + 2], zz));
+  }
+  auto col = [&](int c) {
+    if (c >= n_cols) return 0.f;
+    if (c < 3) return c == 0 ? x0 : (c == 1 ? x1 : x2);
+    const int p = c - 3, d = p % 3;
+    const float phase = (p % 6) >= 3 ? 1.57079632679489661923f : 0.f;
+    return sinf(__fadd_rn(__fmul_rn(d == 0 ? x0 : (d == 1 ? x1 : x2), freqs[p / 6]), phase));
+  };
+#pragma unroll 1
+  for (int j = 0; j < 32; j += 2) {
+    const int c = c0 + j;
+    *reinterpret_cast<uint32_t*>(xin + sw128(r, c)) = pack_bf16(col(c), col(c + 1));
+  }
+}
+
+// The encoder warps (ENCODERS · 32 threads, index e): every unit of both
+// consumer warpgroups, in the order they take them, each into the next of
+// the warpgroup's two xin buffers once its skip layer has released it.
+template <int S>
+__device__ __forceinline__ void encode(K2Smem& sm, const Args& a, uint32_t rank, int n_pairs, int e) {
+  using G = Geometry<S>;
+  int done[CONSUMERS] = {};  // units encoded for each warpgroup
+  for (int pair = cluster_id(); pair < n_pairs; pair += cluster_count()) {
+    for (int u = 0; u < G::UNITS; ++u) {
+#pragma unroll
+      for (int wg = 0; wg < CONSUMERS; ++wg) {
+        const int b = done[wg] & 1;
+        mbar_wait(&sm.xin_empty[wg][b], ((done[wg] >> 1) & 1) ^ 1);
+        const int ray0 = ((pair * CLUSTER + (int)rank) * CONSUMERS + wg) * G::WG_RAYS;
+        for (int task = e; task < 128; task += ENCODERS * 32)
+          encode_task<S>(sm.xin[wg][b], task, a, sm.f + F_OFF_FREQS, ray0, u * 64);
+        fence_proxy_async();
+        mbar_arrive(&sm.xin_full[wg][b]);
+        ++done[wg];
+      }
+    }
+  }
+}
+
+// Compositing of ray `ray` (rows warp·S .. warp·S + S - 1 of its
+// warpgroup's raw σ and rgb) by one warp: lane l owns samples
+// [l·SPL, (l+1)·SPL).
+template <int S>
+__device__ __forceinline__ void composite(const float* sigma, const float* rgb, const Args& a, int warp,
+                                          int lane, int ray) {
   constexpr int SPL = S / 32;
-  const int ray = ray0 + warp;
-  if (warp >= RAYS || ray >= a.n_rays) return;
   const float* zr = a.z + (size_t)ray * S;
   const float rx = a.rd[ray * 3], ry = a.rd[ray * 3 + 1], rz = a.rd[ray * 3 + 2];
   const float rnorm =
@@ -109,7 +334,7 @@ __global__ void __launch_bounds__(THREADS, 1) render_kernel(const Args a) {
     const int row = warp * S + s;
     const float dz = s < S - 1 ? __fsub_rn(zr[s + 1], zr[s]) : 1e10f;
     const float d = __fmul_rn(dz, rnorm);
-    float sa = fmaxf(sm.sigma[row], 0.f);
+    float sa = fmaxf(sigma[row], 0.f);
     if (s == S - 1) sa = __fadd_rn(sa, 1e-6f);
     // one_minus_alpha as exp(-σd) directly: 1 - alpha + 1e-10 would round
     // to exactly 0 for alpha == 1 and log would give -inf
@@ -137,7 +362,7 @@ __global__ void __launch_bounds__(THREADS, 1) render_kernel(const Args a) {
     float c[3];
 #pragma unroll
     for (int ch = 0; ch < 3; ++ch) {
-      const float raw = sm.rgb[row * 3 + ch];
+      const float raw = rgb[row * 3 + ch];
       // the last sample's rgb is the raw background pixel, no sigmoid
       c[ch] = (has_bg && s == S - 1) ? a.bg[ray * 3 + ch] : 1.f / (1.f + expf(-raw));
     }
@@ -169,17 +394,187 @@ __global__ void __launch_bounds__(THREADS, 1) render_kernel(const Args a) {
   }
 }
 
+// A head: the m64n8 product of the K bf16 columns in a[] with a (K, 8)
+// weight image at shared address `w` (K / 64 chunks of 1 KB), into d.
+template <int K>
+__device__ __forceinline__ void head(float* d, uint32_t* a, uint32_t w) {
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < K / 16; ++s) wgmma_rs_n8(d, a + 4 * s, desc_k(w + (s >> 2) * 8 * ROW_BYTES + 32 * (s & 3)), s > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs<4>(d);
+  fence_regs<64>(a);
+}
+
+// A consumer warpgroup (wg 0 or 1) over its rays: for each unit, encode,
+// the layers and the heads; after an item's last unit, its warps composite
+// its rays. Nothing but the weight ring ties the two warpgroups together,
+// so one's encode, epilogues, heads and compositing run under the other's
+// matrix products.
+template <int S, bool SMALL>
+__device__ __forceinline__ void consume(K2Smem& sm, const Args& a, uint32_t rank, int wg, int n_pairs) {
+  using G = Geometry<S>;
+  const int lane = threadIdx.x & 31, lw = (threadIdx.x >> 5) & 3;  // lw: the warp in the warpgroup
+  // the thread's accumulator rows: r0 and r0 + 8 of a unit, in one ray
+  const int r0 = lw * 16 + (lane >> 2);
+  int units = 0;  // units taken, for the xin buffer and its phase
+  float* sigma = sm.sigma[wg];
+  float* rgb = sm.rgb[wg];
+  Ring ring;
+  float acc[128];
+  uint32_t act[64];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) act[i] = 0u;
+
+  for (int pair = cluster_id(); pair < n_pairs; pair += cluster_count()) {
+    const int ray0 = ((pair * CLUSTER + (int)rank) * CONSUMERS + wg) * G::WG_RAYS;
+#pragma unroll 1
+    for (int u = 0; u < G::UNITS; ++u) {
+      const int ray = ray0 + (u * 64 + r0) / S;
+      const int b = units & 1;
+      mbar_wait(&sm.xin_full[wg][b], (units >> 1) & 1);
+      const uint32_t xin = smem_u32(sm.xin[wg][b]);
+
+      layer<HIDDEN, 1, 1>(acc, act, xin, sm, ring, rank);
+      acc_to_a<HIDDEN, true>(acc, act, EpiBias{sm.f + F_OFF_COND0});
+      layer<HIDDEN, 4, 0>(acc, act, xin, sm, ring, rank);
+      acc_to_a<HIDDEN, true>(acc, act, EpiBias{sm.f + F_OFF_B1});
+      layer<HIDDEN, 4, 0>(acc, act, xin, sm, ring, rank);
+      acc_to_a<HIDDEN, true>(acc, act, EpiBias{sm.f + F_OFF_B2});
+      layer<HIDDEN, 5, 1>(acc, act, xin, sm, ring, rank);  // the skip: [xin; h2]
+      if ((threadIdx.x & 127) == 0) mbar_arrive(&sm.xin_empty[wg][b]);  // its last reader is done
+      ++units;
+      acc_to_a<HIDDEN, true>(acc, act, EpiBias{sm.f + F_OFF_COND3});
+      layer<HIDDEN, 4, 0>(acc, act, xin, sm, ring, rank);
+      acc_to_a<HIDDEN, true>(acc, act, EpiBias{sm.f + F_OFF_B4});
+      if constexpr (!SMALL) {
+        layer<HIDDEN, 4, 0>(acc, act, xin, sm, ring, rank);
+        acc_to_a<HIDDEN, true>(acc, act, EpiBias{sm.f + F_OFF_B5});
+      }
+      layer<HIDDEN, 4, 0>(acc, act, xin, sm, ring, rank);
+      acc_to_a<HIDDEN, false>(acc, act, EpiBias{sm.f + F_OFF_BF});  // feat
+
+      // the σ head: feat (bf16, in act) against wa padded to 8 columns
+      float hs[4] = {0.f, 0.f, 0.f, 0.f};
+      head<HIDDEN>(hs, act, smem_u32(sm.wa8));
+
+      const float* dir_c = ray < a.n_rays ? a.dir_c + (size_t)ray * DIR_HIDDEN : nullptr;
+      layer<DIR_HIDDEN, 4, 0>(acc, act, xin, sm, ring, rank);
+      acc_to_a<DIR_HIDDEN, true>(acc, act, EpiDir{sm.f + F_OFF_BD0, dir_c});
+      layer<DIR_HIDDEN, 2, 0>(acc, act, xin, sm, ring, rank);
+      acc_to_a<DIR_HIDDEN, true>(acc, act, EpiBias{sm.f + F_OFF_BD1});
+      layer<DIR_HIDDEN, 2, 0>(acc, act, xin, sm, ring, rank);
+
+      // the rgb head: x2 = bf16(relu(acc + bd2)) against wrgb padded to 8
+      // columns
+      acc_to_a<DIR_HIDDEN, true>(acc, act, EpiBias{sm.f + F_OFF_BD2});
+      float hc[4] = {0.f, 0.f, 0.f, 0.f};
+      head<DIR_HIDDEN>(hc, act, smem_u32(sm.wrgb8));
+
+      if (u == 0) named_bar_sync(BAR_WG + wg, 128);  // the last item's compositing has read sigma / rgb
+      // hs / hc[2h + j]: row r0 + 8h, column 2·(lane % 4) + j
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = u * 64 + r0 + 8 * h;
+        if ((lane & 3) == 0) {
+          sigma[row] = hs[2 * h] + sm.f[F_OFF_BA];
+          rgb[row * 3] = hc[2 * h] + sm.f[F_OFF_BRGB];
+          rgb[row * 3 + 1] = hc[2 * h + 1] + sm.f[F_OFF_BRGB + 1];
+        } else if ((lane & 3) == 1) {
+          rgb[row * 3 + 2] = hc[2 * h] + sm.f[F_OFF_BRGB + 2];
+        }
+      }
+    }
+    named_bar_sync(BAR_WG + wg, 128);
+    if (lw < G::WG_RAYS && ray0 + lw < a.n_rays) composite<S>(sigma, rgb, a, lw, lane, ray0 + lw);
+  }
+}
+
+template <int S, bool SMALL>
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(K2_THREADS, 1) render_kernel(const Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t pad = (ATOM_BYTES - (smem_u32(smem_raw) & (ATOM_BYTES - 1))) & (ATOM_BYTES - 1);
+  K2Smem& sm = *reinterpret_cast<K2Smem*>(smem_raw + pad);
+  const int t = threadIdx.x;
+  for (int i = t; i < F_OFF_TOTAL; i += K2_THREADS) sm.f[i] = a.F[i];
+  // element (k, n) of a head's (K, 8) weight: chunk k / 64, byte sw128(n, k % 64)
+  for (int i = t; i < HIDDEN * 8; i += K2_THREADS) {
+    const int k = i >> 3, n = i & 7;
+    *reinterpret_cast<bf16*>(sm.wa8[k / KCH] + sw128(n, k % KCH)) =
+        n == 0 ? a.W[W_OFF_WA + k] : __float2bfloat16_rn(0.f);
+  }
+  for (int i = t; i < DIR_HIDDEN * 8; i += K2_THREADS) {
+    const int k = i >> 3, n = i & 7;
+    *reinterpret_cast<bf16*>(sm.wrgb8[k / KCH] + sw128(n, k % KCH)) =
+        n < 3 ? a.W[W_OFF_WRGB + k * 3 + n] : __float2bfloat16_rn(0.f);
+  }
+  fence_proxy_async();  // the images are read by wgmma
+  if (t == 0) {
+    for (int s = 0; s < RING; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], CONSUMERS * CLUSTER);
+    }
+    for (int w = 0; w < CONSUMERS; ++w) {
+      for (int b = 0; b < 2; ++b) {
+        mbar_init(&sm.xin_full[w][b], ENCODERS * 32);
+        mbar_init(&sm.xin_empty[w][b], 1);
+      }
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  cluster_sync();  // the peer's barriers exist before any copy or arrive reaches them
+
+  const uint32_t rank = cluster_rank();
+  const int n_pairs = Geometry<S>::pairs(a.n_rays);
+  const int wg = t / 128;
+  if (wg == CONSUMERS) {
+    reg_dealloc<40>();
+    const int w = (t >> 5) - 4 * CONSUMERS;  // the warp in the producer warpgroup
+    if (t == CONSUMERS * 128) {
+      produce<S, SMALL>(sm, a.W, rank, n_pairs);
+    } else if (w >= 1 && w <= ENCODERS) {
+      encode<S>(sm, a, rank, n_pairs, t - CONSUMERS * 128 - 32);
+    }
+  } else {
+    reg_alloc<232>();
+    consume<S, SMALL>(sm, a, rank, wg, n_pairs);
+  }
+}
+
+constexpr size_t SMEM_BYTES = sizeof(K2Smem) + ATOM_BYTES;  // + the alignment pad
+
 template <int S, bool SMALL>
 struct Render {
-  static int run(const Args& args, int grid, cudaStream_t s) {
-    return launch_tiles(render_kernel<S, SMALL>, sizeof(RenderSmem), grid, s, args);
+  static int run(const Args& args, cudaStream_t stream) {
+    auto kernel = render_kernel<S, SMALL>;
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+    if (e != cudaSuccess) return (int)e;
+    static int max_clusters = 0;  // co-resident clusters on this card
+    if (max_clusters == 0) {
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(CLUSTER, 1, 1);
+      cfg.blockDim = dim3(K2_THREADS, 1, 1);
+      cfg.dynamicSmemBytes = SMEM_BYTES;
+      e = cudaOccupancyMaxActiveClusters(&max_clusters, kernel, &cfg);
+      if (e != cudaSuccess) return (int)e;
+      if (max_clusters < 1) return (int)cudaErrorInvalidConfiguration;
+    }
+    const int pairs = Geometry<S>::pairs(args.n_rays);
+    const int clusters = pairs < max_clusters ? pairs : max_clusters;
+    kernel<<<clusters * CLUSTER, K2_THREADS, SMEM_BYTES, stream>>>(args);
+    return (int)cudaGetLastError();
   }
 };
 
 }  // namespace
 
 // Returns a cudaError_t (0 on success). Launches on `stream`, does not
-// synchronise and allocates nothing.
+// synchronise and allocates nothing. W is `pack_sm90_chunks`' image of the
+// packed weights.
 extern "C" int nerface_fused_paper_render(const float* ro, const float* rd, const float* z,
                                           const float* dir_c, const float* bg, const void* W,
                                           const float* F, float* rgb, float* disp, float* acc,
@@ -189,9 +584,7 @@ extern "C" int nerface_fused_paper_render(const float* ro, const float* rd, cons
   if (n_rays < 0 || n_freqs < 1 || 3 + 6 * n_freqs > K_XIN) return (int)cudaErrorInvalidValue;
   Args args{ro,  rd,  z,     dir_c, bg,  static_cast<const bf16*>(W), F,      rgb,     disp,
             acc, depth, bgw, weights, n_rays, n_freqs, white_bg};
-  const long long rows = (long long)n_rays * n_samples;
-  const int grid = (int)((rows + TILE_ROWS - 1) / TILE_ROWS);
-  if (grid == 0) return 0;
+  if (n_rays == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch_pass<Render>(n_samples, small, args, grid, s);
+  return dispatch_pass<Render>(n_samples, small, args, s);
 }

@@ -3,7 +3,8 @@
 The kernels are CUDA C++ files in `nerface_tpu_torch/csrc/` with a plain C
 interface, one library per `.cu` file (`fused_paper_render`, K2;
 `fused_train_pass`, K1; `fused_paper_mlp`, K3; `fused_flex`, K4;
-`fused_resample`, K5), sharing the `.cuh` headers.
+`fused_resample`, K5; `probes`, the design probes P1 and P2 of
+`nerface_tpu_torch/tools/perf/`), sharing the `.cuh` headers.
 `build_library` compiles one with nvcc into a shared library under
 `build/nerface_tpu_torch/` at the root of the checkout, on first use;
 `load_library(name)` loads it with ctypes and declares its C functions'
@@ -46,13 +47,15 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def build_library(name: str = "fused_paper_render") -> Path:
+def build_library(name: str = "fused_paper_render", defines: tuple = ()) -> Path:
     """Compile `csrc/<name>.cu` into `build/nerface_tpu_torch/` unless a
-    library of the same source and flags is there; returns its path. The
-    compiler's resource report (-Xptxas -v) is kept beside it as
-    `<library>.log`."""
+    library of the same source and flags is there; returns its path.
+    `defines` ("NAME=value", ...) go to nvcc as -D flags: a variant build
+    for a comparison. The compiler's resource report (-Xptxas -v) is kept
+    beside it as `<library>.log`."""
     src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+    h = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
     digest = h.hexdigest()
@@ -61,7 +64,7 @@ def build_library(name: str = "fused_paper_render") -> Path:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [find_nvcc(), *flags, "-o", str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
@@ -99,14 +102,19 @@ SIGNATURES = {
     "fused_resample": {
         "nerface_fused_resample": ([_P] * 3 + [_I, _P] + [_I] * 4 + [_P], ctypes.c_int),
     },
+    "probes": {
+        "nerface_probe_chain": ([_P] * 4 + [_I] * 3 + [_P], ctypes.c_int),
+        "nerface_probe_encoder": ([_P] * 4 + [_I] * 3 + [_P], ctypes.c_int),
+    },
 }
 
 
 @functools.lru_cache(maxsize=None)
-def load_library(name: str = "fused_paper_render") -> ctypes.CDLL:
-    """Build (if needed) and load the library of `csrc/<name>.cu`, with its
-    functions' argtypes and restype declared from `SIGNATURES`."""
-    lib = ctypes.CDLL(str(build_library(name)))
+def load_library(name: str = "fused_paper_render", defines: tuple = ()) -> ctypes.CDLL:
+    """Build (if needed) and load the library of `csrc/<name>.cu` (with
+    `build_library`'s `defines`), with its functions' argtypes and restype
+    declared from `SIGNATURES`."""
+    lib = ctypes.CDLL(str(build_library(name, defines)))
     for fn_name, (argtypes, restype) in SIGNATURES[name].items():
         fn = getattr(lib, fn_name)
         fn.argtypes = argtypes

@@ -13,8 +13,8 @@ layer 3, the σ head, the 128-wide view-direction branch — so the (R, S,
 and has a backward (training and σ-noise renders).
 
 * `fused_paper_render` is K2's wrapper: on a CUDA tensor it launches the
-  hand-written kernel `csrc/fused_paper_render.cu` (bf16 tensor cores,
-  f32 accumulation) or raises; on a CPU tensor it runs
+  hand-written kernel `csrc/fused_paper_render.cu` (bf16 wgmma, f32
+  accumulation) or raises; on a CPU tensor it runs
   `fused_paper_render_reference`. It counts launches in
   `fused_paper_render.launches`.
 * `fused_paper_mlp` is K3 as a `torch.autograd.Function` over the kernel
@@ -39,7 +39,11 @@ and has a backward (training and σ-noise renders).
   zero: its kernels skip that layer.
 * `pack_paper_weights` does K2's packing once per model
   (`PackedPaperWeights`); a call then folds only the conditioning into a
-  copy of the f32 rows.
+  copy of the f32 rows. K2 reads its weights as `wbuf_sm90`
+  (`pack_sm90_chunks`): the same offsets, each matrix's 64-row K chunks
+  rewritten as the byte image of wgmma's 128-byte-swizzled K-major B
+  operand (`csrc/wgmma_tile.cuh`), so one bulk copy puts a chunk in shared
+  memory ready for the tensor cores.
 
 Disparity keeps the TPU kernel's guard, 1 / max(1e-10, depth / max(acc,
 1e-38)): finite where acc = 0 (the unfused path's depth / acc is NaN there).
@@ -235,6 +239,40 @@ def pack_transposed_weights(W) -> torch.Tensor:
         torch.bfloat16).contiguous()
 
 
+# K rows of one weight chunk: one 128-byte row of 64 bf16 in the image
+SM90_KCH = 64
+# the matrices K2 streams as chunk images, in W_LAYOUT order; WA and WRGB
+# (the heads) stay row-major
+SM90_CHUNKED = ("W0", "W1", "W2", "W3", "W4", "W5", "WF", "WD0", "WD1", "WD2")
+
+
+def sm90_chunk_image(m: torch.Tensor) -> torch.Tensor:
+    """A (K, N) matrix, K a multiple of 64, as wgmma's 128-byte-swizzled
+    K-major B operand, flat: for each 64-row chunk c, N rows of 64 k (128
+    bytes), the 16-byte group g of row n at position g ^ (n % 8). Element
+    (k, n) lands at chunk k // 64, byte n·128 + ((k%64 // 8) ^ (n%8))·16 +
+    (k%8)·2 of it (`sw128` in csrc/wgmma_tile.cuh)."""
+    K, N = m.shape
+    if K % SM90_KCH:
+        raise ValueError(f"K = {K} is not a multiple of {SM90_KCH}")
+    t = m.reshape(K // SM90_KCH, SM90_KCH, N).transpose(1, 2).reshape(K // SM90_KCH, N, 8, 8)
+    n = torch.arange(N, device=m.device)[:, None]
+    slot = torch.arange(8, device=m.device)[None, :]
+    # position p of row n holds group p ^ (n % 8)
+    return t[:, n, slot ^ (n % 8), :].reshape(-1).contiguous()
+
+
+def pack_sm90_chunks(wbuf: torch.Tensor) -> torch.Tensor:
+    """K2's weight buffer: `wbuf` (W_LAYOUT, bf16) with every matrix of
+    `SM90_CHUNKED` rewritten by `sm90_chunk_image` in place of its rows; the
+    offsets (W_OFFSETS) and the heads are unchanged."""
+    parts = []
+    for name, k, n in W_LAYOUT:
+        m = wbuf[W_OFFSETS[name]:W_OFFSETS[name] + k * n]
+        parts.append(sm90_chunk_image(m.reshape(k, n)) if name in SM90_CHUNKED else m)
+    return torch.cat(parts).contiguous()
+
+
 @dataclasses.dataclass(frozen=True)
 class PackedPaperWeights:
     """A paper model's weights packed for K2 once (`pack_paper_weights`).
@@ -243,7 +281,7 @@ class PackedPaperWeights:
     the plain version reads."""
 
     params: Dict[str, torch.Tensor]
-    wbuf: torch.Tensor  # bf16, W_LAYOUT
+    wbuf_sm90: torch.Tensor  # bf16, W_LAYOUT's offsets, the chunk images
     fbuf: torch.Tensor  # f32, F_LAYOUT
     cond_w: torch.Tensor  # (2, 256, dc) f32: layers_xyz.0/.3 conditioning columns
     num_encoding_fn_xyz: int
@@ -279,7 +317,7 @@ def pack_paper_weights(
     )
     cond_w = torch.stack([w0[:, d_pe:d_pe + dc], w3[:, d_pe:d_pe + dc]]).contiguous()
     return PackedPaperWeights(
-        dict(params), wbuf, fbuf, cond_w, num_encoding_fn_xyz, log_sampling_xyz
+        dict(params), pack_sm90_chunks(wbuf), fbuf, cond_w, num_encoding_fn_xyz, log_sampling_xyz
     )
 
 
@@ -559,10 +597,23 @@ def fused_paper_render(
             f"{packed.log_sampling_xyz}), called with {num_encoding_fn_xyz} (log "
             f"{log_sampling_xyz})"
         )
-    if packed.wbuf.device != dev:
-        raise ValueError(f"packed weights are on {packed.wbuf.device}, expected {dev}")
+    if packed.wbuf_sm90.device != dev:
+        raise ValueError(f"packed weights are on {packed.wbuf_sm90.device}, expected {dev}")
     _check("cond", cond, (packed.cond_w.shape[-1],), dev)
     fbuf = _fold_conditioning(packed, cond)
+    out = render_outputs(n_rays, n_samples, out_weights, dev)
+    _launch_render(packed, fbuf, (ray_origins, ray_directions, z_vals, dir_contrib, background),
+                   out, white_background, small)
+    # fbuf (and a per-call wbuf) may be freed on return: the caching
+    # allocator hands their memory only to later work on this stream
+    return out
+
+
+fused_paper_render.launches = 0
+
+
+def render_outputs(n_rays: int, n_samples: int, out_weights: bool, dev) -> Dict[str, torch.Tensor]:
+    """K2's uninitialised f32 outputs for `n_rays` rays."""
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
@@ -573,29 +624,32 @@ def fused_paper_render(
     }
     if out_weights:
         out["weights"] = empty(n_rays, n_samples)
+    return out
 
+
+def _launch_render(packed: PackedPaperWeights, fbuf: torch.Tensor, per_ray, out, white_background,
+                   small):
+    """K2's C entry point on checked CUDA operands: `fbuf` the folded rows
+    (`_fold_conditioning`), `per_ray` (ro, rd, z, dir_contrib, background
+    or None), `out` from `render_outputs`. Counts the launch in
+    `fused_paper_render.launches`."""
     from nerface_tpu_torch.ops.kernels.build import load_library
 
+    ro, rd, z, dc, bg = per_ray
+    n_rays, n_samples = z.shape
     lib = load_library("fused_paper_render")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(ro.device):
+        stream = torch.cuda.current_stream(ro.device).cuda_stream
         err = lib.nerface_fused_paper_render(
-            _ptr(ray_origins), _ptr(ray_directions), _ptr(z_vals), _ptr(dir_contrib),
-            _ptr(background), _ptr(packed.wbuf), _ptr(fbuf),
+            _ptr(ro), _ptr(rd), _ptr(z), _ptr(dc), _ptr(bg), _ptr(packed.wbuf_sm90), _ptr(fbuf),
             _ptr(out["rgb"]), _ptr(out["disp"]), _ptr(out["acc"]), _ptr(out["depth"]),
             _ptr(out["bg_weight"]), _ptr(out.get("weights")),
-            n_rays, n_samples, num_encoding_fn_xyz, int(bool(white_background)), int(bool(small)),
-            ctypes.c_void_p(stream),
+            n_rays, n_samples, packed.num_encoding_fn_xyz, int(bool(white_background)),
+            int(bool(small)), ctypes.c_void_p(stream),
         )
     if err != 0:
         raise RuntimeError(f"fused_paper_render kernel launch failed: cudaError {err}")
     fused_paper_render.launches += 1
-    # fbuf (and a per-call wbuf) may be freed on return: the caching
-    # allocator hands their memory only to later work on this stream
-    return out
-
-
-fused_paper_render.launches = 0
 
 
 # -- K3: the MLP over a kernel bundle, forward and backward -----------------

@@ -31,7 +31,10 @@ from chip_smoke import (
     _resample_inputs,
     k1_grad_limits,
 )
-from nerface_tpu_torch.models.nerf_models import ConditionalBlendshapePaperNeRFModel
+from nerface_tpu_torch.models.nerf_models import (
+    ConditionalBlendshapePaperNeRFModel,
+    ConditionalBlendshapePaperSmallerNeRFModel,
+)
 from nerface_tpu_torch.ops.kernels import fused_mlp as K
 
 torch.set_num_threads(1)
@@ -129,6 +132,103 @@ def test_packed_weights_give_the_same_result(cuda_device, params):
     b = K.fused_paper_render(K.pack_paper_weights(params), ro, rd, z, dc, cond, **kw)
     for k in a:
         assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("small", [False, True], ids=["paper", "small"])
+@pytest.mark.parametrize(
+    "n_rays,S",
+    [(0, 64), (1, 64), (5, 128), (3, 32), (333, 128), (2049, 64)],
+    ids=["none", "one", "fewer-than-clusters", "one-tile", "odd-tiles", "ragged"],
+)
+def test_kernel_edges_bit_identical(cuda_device, small, n_rays, S):
+    """The persistent 2-CTA cluster grid at its edges: no ray, one ray,
+    fewer tile pairs than co-resident clusters, an odd tile count (a
+    cluster's second CTA has no tile) and a ragged last tile; each against
+    the plain version and bit-identical over 2 launches."""
+    m = (ConditionalBlendshapePaperSmallerNeRFModel if small else ConditionalBlendshapePaperNeRFModel)(
+        num_encoding_fn_xyz=10, num_encoding_fn_dir=4, include_input_dir=False,
+        device=cuda_device, generator=torch.Generator().manual_seed(11),
+    )
+    params = m.state_dict()
+    # rays 4.. of _inputs all cross the head
+    ro, rd, z, dc, cond, bg = _inputs(n_rays + 4, S, cuda_device, seed=n_rays + S)
+    ro, rd, z, dc, bg = (t[4:].contiguous() for t in (ro, rd, z, dc, bg))
+    kw = dict(background=bg, out_weights=True, small=small)
+    packed = K.pack_paper_weights(params)
+    a = K.fused_paper_render(packed, ro, rd, z, dc, cond, **kw)
+    b = K.fused_paper_render(packed, ro, rd, z, dc, cond, **kw)
+    torch.cuda.synchronize()
+    assert a["weights"].shape == (n_rays, S)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    if n_rays:
+        _assert_close(a, K.fused_paper_render_reference(params, ro, rd, z, dc, cond, **kw))
+
+
+# -- the design probes P1 / P2 (csrc/probes.cu) ------------------------------
+
+
+# 65536 rows take a persistent CTA through several passes of its loop
+# (132 CTAs take at most 256 rows each a pass)
+PROBE_ROWS = [2048, 65536]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", PROBE_ROWS)
+@pytest.mark.parametrize("variant", ["single", "twochain_1wg", "twochain", "twochain_pingpong",
+                                     "fourchain", "bwd_mix", "bias_sums"])
+def test_chain_probe_matches_plain(cuda_device, variant, rows):
+    from nerface_tpu_torch.tools.perf import chain_overlap_probe as P2
+
+    g = torch.Generator().manual_seed(0)
+    x = (torch.randn(rows, 256, generator=g) * 0.05).to(cuda_device)
+    w = (torch.randn(256, 256, generator=g) * 0.06).to(torch.bfloat16).to(cuda_device)
+    before = P2.chain_overlap.launches
+    got = P2.chain_overlap(x, w, variant)
+    ref = P2.chain_reference(x, w, variant)
+    torch.cuda.synchronize()
+    assert P2.chain_overlap.launches == before + 1
+    assert torch.isfinite(got).all()
+    max_tol, norm_tol = P2.tolerance(variant)
+    assert float((got - ref).abs().max()) <= max_tol * float(ref.abs().max())
+    assert float((got - ref).norm()) <= norm_tol * float(ref.norm())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", PROBE_ROWS)
+def test_bwd_mix_probe_dw_matches_plain(cuda_device, rows):
+    """bwd_mix's aᵀ·gy product (MN-major operands from shared memory) on
+    the last 64 rows, which a CTA reaches on a later pass at 65536 rows."""
+    from nerface_tpu_torch.tools.perf import chain_overlap_probe as P2
+
+    g = torch.Generator().manual_seed(2)
+    x = (torch.randn(rows, 256, generator=g) * 0.05).to(cuda_device)
+    w = (torch.randn(256, 256, generator=g) * 0.06).to(torch.bfloat16).to(cuda_device)
+    dw = torch.full((256, 256), float("nan"), device=cuda_device)
+    P2.chain_overlap(x, w, "bwd_mix", dw=dw)
+    ref = P2.bwd_mix_dw_reference(x, w)
+    torch.cuda.synchronize()
+    assert torch.isfinite(dw).all()
+    assert float((dw - ref).abs().max()) <= P2.TOL[0] * float(ref.abs().max())
+    assert float((dw - ref).norm()) <= P2.TOL[1] * float(ref.norm())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", PROBE_ROWS)
+@pytest.mark.parametrize("variant", ["split", "packed"])
+def test_encoder_probe_matches_plain(cuda_device, variant, rows):
+    from nerface_tpu_torch.tools.perf import encoder_concat_probe as P1
+
+    g = torch.Generator().manual_seed(1)
+    x3, enc = torch.randn(rows, 3, generator=g), torch.randn(rows, 60, generator=g)
+    wa = torch.randn(3, 256, generator=g).to(torch.bfloat16)
+    wb = torch.randn(60, 256, generator=g).to(torch.bfloat16)
+    x3, enc, wa, wb = (t.to(cuda_device) for t in (x3, enc, wa, wb))
+    got = P1.encoder_concat(x3, enc, wa, wb, variant)
+    ref = P1.encoder_reference(x3, enc, wa, wb, variant)
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max()) <= P1.TOL * float(ref.abs().max())
 
 
 # -- K1: fused_train_pass ---------------------------------------------------

@@ -286,7 +286,7 @@ def test_packed_once_equals_packed_per_call(n_freqs):
         freqs = _t(_frequency_bands(n_freqs, True))
         wbuf, fbuf = K.pack_kernel_operands(*K._layout_weights(params, cond, 3 + 6 * n_freqs, 108),
                                             freqs)
-        assert torch.equal(packed.wbuf, wbuf)
+        assert torch.equal(packed.wbuf_sm90, K.pack_sm90_chunks(wbuf))
         torch.testing.assert_close(K._fold_conditioning(packed, cond), fbuf, rtol=0, atol=0)
     with pytest.raises(ValueError, match="float32"):
         K.pack_paper_weights({k: v.double() for k, v in params.items()}, n_freqs, True)
@@ -310,7 +310,7 @@ def test_render_path_packs_a_model_once(model):
     m.load_state_dict(model[2], strict=True)
     again = _kernel_weights(m, enc)
     assert again is not first
-    assert torch.equal(again.wbuf, K.pack_paper_weights(model[2]).wbuf)
+    assert torch.equal(again.wbuf_sm90, K.pack_paper_weights(model[2]).wbuf_sm90)
 
 
 def test_wrapper_on_cpu_is_the_plain_version(model):

@@ -207,7 +207,7 @@ def test_packed_layouts_leave_w5_zero(pair):
     sd = tm.state_dict()
     packed = K.pack_paper_weights(sd)
     o, n = K.W_OFFSETS["W5"], 256 * 256
-    assert not packed.wbuf[o:o + n].float().any()
+    assert not packed.wbuf_sm90[o:o + n].float().any()
     o = K.F_OFFSETS["B5"]
     assert not packed.fbuf[o:o + 256].any()
     with pytest.raises(ValueError, match="small"):  # called as the paper model
