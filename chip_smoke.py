@@ -85,7 +85,11 @@ Phases, one line each (plus the kernels' register reports):
                norm-error limits (`k1_grad_limits`);
                everything finite; two launches on the same inputs give
                bit-identical gradients. Prints every tensor's worst readings.
-               Median kernel and plain ms (CUDA events) and TFLOP/s at R = 2048.
+               Median kernel and plain ms (CUDA events) and TFLOP/s at R = 2048,
+               the bare C launch's ms (operands packed beforehand) and each of
+               its kernels' device ms by name (torch.profiler) beside its
+               bound (tools/perf/k1_launch_split.py); K3b's the same in
+               paper_mlp_kernel.
      paper_mlp_kernel — K3f `fused_paper_mlp_forward` and K3b
                `fused_paper_mlp_backward` (csrc/fused_paper_mlp.cu) against
                their plain versions, both modes, K3_SEEDS draws a case: R =
@@ -796,6 +800,26 @@ def _bound_ms(flops, nbytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def _entry_name(text):
+    """A kernel's short name, with its template arguments, from a ptxas
+    line that holds its mangled name."""
+    m = re.search(r"(train_pass_kernel|dw_wgmma_kernel|flex_fwd_kernel|flex_bwd_kernel|"
+                  r"dw_kernel|reduce_rows|render_kernel|mlp_fwd_kernel|"
+                  r"resample_kernel|chain_kernel|encoder_kernel)"
+                  r"(?:ILi(\d+)E(?:Lb([01])E)?|ILb([01])E)?", text)
+    if not m:
+        return text
+    flag = "sorted_u" if m.group(1) == "resample_kernel" else "small"
+    targs = ", ".join(([m.group(2)] if m.group(2) else []) + ([flag] if m.group(3) == "1" else []))
+    if m.group(1) == "chain_kernel" and m.group(2):
+        from nerface_tpu_torch.tools.perf.chain_overlap_probe import VARIANTS
+
+        targs = VARIANTS[int(m.group(2))]
+    if m.group(4):
+        targs = "split" if m.group(4) == "1" else "packed"
+    return m.group(1) + (f"<{targs}>" if targs else "")
+
+
 def build_phase():
     """Every library, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -817,39 +841,32 @@ def build_phase():
         for i, line in enumerate(log):
             if "Compiling entry function" not in line:
                 continue
-            m = re.search(r"(train_fwd_kernel|train_bwd_kernel|flex_fwd_kernel|flex_bwd_kernel|"
-                          r"dw_kernel|reduce_rows|render_kernel|mlp_fwd_kernel|recompute_kernel|"
-                          r"resample_kernel|chain_kernel|encoder_kernel)"
-                          r"(?:ILi(\d+)E(?:Lb([01])E)?|ILb([01])E)?", line)
-            short = line
-            if m:
-                flag = "sorted_u" if m.group(1) == "resample_kernel" else "small"
-                targs = ", ".join(([m.group(2)] if m.group(2) else [])
-                                  + ([flag] if m.group(3) == "1" else []))
-                if m.group(1) == "chain_kernel" and m.group(2):
-                    from nerface_tpu_torch.tools.perf.chain_overlap_probe import VARIANTS
-
-                    targs = VARIANTS[int(m.group(2))]
-                if m.group(4):
-                    targs = "split" if m.group(4) == "1" else "packed"
-                short = m.group(1) + (f"<{targs}>" if targs else "")
             usage = [x.split("info    :")[-1].strip() if "info" in x else x.strip()
                      for x in log[i + 1:i + 4] if "registers" in x or "spill" in x]
-            info.append(f"{short}: {'; '.join(usage)}")
+            info.append(f"{_entry_name(line)}: {'; '.join(usage)}")
+        # ptxas's C75xx notes: wgmmas it serialises, and why
+        serial = set()
+        for x in log:
+            m = re.search(r"\((C75\d\d)\)[^:]*:\s*(.*?)(?: (?:in|for) the function '([^']+)')?\.?$", x)
+            if m:
+                serial.add(f"{_entry_name(m.group(3) or '?')}: {m.group(1)} {m.group(2)}")
+        serial = sorted(serial)
         phase("build", f"{name}: {secs:.1f} s ({lib.name}); ptxas: {' | '.join(info)}")
-        if name == "fused_paper_mlp":
-            smem = (ctypes.c_longlong * 4)()
-            build.load_library(name).nerface_fused_paper_mlp_shared_bytes(smem)
-            phase("build", f"{name} shared memory a CTA: mlp_fwd_kernel {smem[0]} B, "
-                           f"recompute_kernel {smem[1]} B, train_bwd_kernel {smem[2]} B (dynamic), "
-                           f"dw_kernel {smem[3]} B")
-        kinds = {"fused_train_pass": "train", "fused_flex": "flex"}
-        if name in kinds:
-            k = kinds[name]
+        phase("build", f"{name} wgmma serialisation (ptxas C75xx): "
+                       f"{' | '.join(serial) if serial else 'none reported'}")
+        if name in ("fused_train_pass", "fused_paper_mlp"):
             smem = (ctypes.c_longlong * 3)()
+            k = "train" if name == "fused_train_pass" else "paper_mlp"
             getattr(build.load_library(name), f"nerface_fused_{k}_shared_bytes")(smem)
-            phase("build", f"{name} shared memory a CTA: {k}_fwd_kernel {smem[0]} B, "
-                           f"{k}_bwd_kernel {smem[1]} B (dynamic), dw_kernel {smem[2]} B")
+            sizes = ([] if k == "train" else [f"mlp_fwd_kernel {smem[0]} B"]) + [
+                f"train_pass_kernel {smem[k != 'train']} B",
+                f"dw_wgmma_kernel {smem[1 + (k != 'train')]} B"]
+            phase("build", f"{name} shared memory a CTA (dynamic): {', '.join(sizes)}")
+        if name == "fused_flex":
+            smem = (ctypes.c_longlong * 3)()
+            build.load_library(name).nerface_fused_flex_shared_bytes(smem)
+            phase("build", f"{name} shared memory a CTA: flex_fwd_kernel {smem[0]} B, "
+                           f"flex_bwd_kernel {smem[1]} B (dynamic), dw_kernel {smem[2]} B")
     phase("build", f"{len(LIBRARIES)} libraries in {wall:.1f} s")
 
 
@@ -921,18 +938,34 @@ def _grad_readings(label, what, R, names, grads, rgrads, worst):
     return abs_err
 
 
+def _launch_split(name, what, fn, R, S, small, k3b=False):
+    """`fn`, a bare launch of K1 or K3b (operands packed beforehand), timed
+    (CUDA events), then its kernels' device ms a call by name under
+    torch.profiler, each beside its operations bound and its byte floor
+    (tools/perf/k1_launch_split.py). Returns (bare ms, {kernel: row})."""
+    from nerface_tpu_torch.tools.perf import k1_launch_split as KS
+
+    bare = _median_ms(fn, iters=10)
+    rows = KS.split_rows(fn, R, S, small, k3b)
+    for short, r in rows.items():
+        phase(name, f"  {what} S={S} {KS.row_text(short, r)}")
+    return bare, rows
+
+
 def train_kernel_phase(dev, small=False):
     """K1 (its `small` mode with `small`) against its plain version."""
     import torch
 
     from nerface_tpu_torch.ops.kernels import fused_train as T
+    from nerface_tpu_torch.tools.perf import k1_launch_split as KS
 
     name = "small_kernels" if small else "train_kernel"
     what = "K1 small" if small else "K1"
     names = _bundle_names(small)
     models = [_k1_params(SEED + 3 + 100 * i + (50 if small else 0), dev, small)
               for i in range(K1_SEEDS)]
-    result = {"err": {}, "grad_rel": {}, "ms": {}, "plain_ms": {}, "bound": {}, "readings": {}}
+    result = {"err": {}, "grad_rel": {}, "ms": {}, "plain_ms": {}, "bound": {}, "readings": {},
+              "bare_ms": {}, "split": {}}
     cases = (("fine", TRAIN_RAYS, 128, "noise"), ("coarse", TRAIN_RAYS, 64, "noise"))
     if not small:
         cases += (("white", 256, 32, "white"), ("train_bg", 256, 32, "train_bg"))
@@ -983,6 +1016,9 @@ def train_kernel_phase(dev, small=False):
                     lambda: T.fused_train_pass_reference(*args, **kw), warmup=1, iters=3)
                 result["bound"][label] = _bound_ms(R * S * paper_flop_per_sample(small, True),
                                                    _k1_bytes(R, S))
+                rays = dict(ro=ro, rd=rd, z=z, tgt=tgt, bg=bg, noise=noise)
+                result["bare_ms"][label], result["split"][label] = _launch_split(
+                    name, what, KS.k1_bare(bundle, rays, small), R, S, small)
         result["err"][label] = errs
         result["readings"][label] = worst
         w_max = max(worst, key=lambda n: worst[n][0])
@@ -993,7 +1029,8 @@ def train_kernel_phase(dev, small=False):
                 f"worst ‖err‖ {w_norm} {worst[w_norm][1]:.4f}·‖r‖; bit-identical over 2 launches")
         if R == TRAIN_RAYS:
             fps = paper_flop_per_sample(small, True)
-            line += (f"; kernel {result['ms'][label]:.3f} ms "
+            line += (f"; kernel {result['ms'][label]:.3f} ms, bare launch "
+                     f"{result['bare_ms'][label]:.3f} ms "
                      f"({R * S * fps / result['ms'][label] / 1e9:.1f} TFLOP/s at "
                      f"{fps / 1e6:.4f} MFLOP a sample, bound {result['bound'][label][0]:.3f}), plain "
                      f"{result['plain_ms'][label]:.3f} ms")
@@ -1036,9 +1073,11 @@ def paper_mlp_kernel_phase(dev):
 
     from nerface_tpu_torch.ops.kernels import fused_mlp as K
     from nerface_tpu_torch.ops.kernels.fused_train import prefold_paper_params
+    from nerface_tpu_torch.tools.perf import k1_launch_split as KS
 
     result = {"err": {}, "readings": {}, "ms": {}, "plain_ms": {}, "bound": {}, "tile_ms": {},
               "bwd_ms": {}, "bwd_plain_ms": {}, "bwd_bound": {}, "grad_rel": {},
+              "bwd_bare_ms": {}, "bwd_split": {},
               "abs_err": 0.0, "grad_abs_err": 0.0}
     cases = [(f"{m}_{S}", small, R, S)
              for small, m in ((False, "paper"), (True, "small"))
@@ -1106,6 +1145,10 @@ def paper_mlp_kernel_phase(dev):
                     lambda: K.fused_paper_mlp_backward_reference(*args, g, **kw), warmup=1, iters=3)
                 result["bwd_bound"][label] = _bound_ms(R * S * paper_flop_per_sample(small, True),
                                                        _k3_bytes(R, S, True))
+                result["bwd_bare_ms"][label], result["bwd_split"][label] = _launch_split(
+                    "paper_mlp_kernel", "K3b small" if small else "K3b",
+                    KS.k3b_bare(bundle, dict(ro=ro, rd=rd, z=z, g=g), small),
+                    R, S, small, k3b=True)
         result["err"][label] = out_err
         line = (f"{what} R={R} S={S}, {K3_SEEDS} seeds: K3f max err rgb {out_err['rgb']:.2e}·max, "
                 f"σ {out_err['sigma']:.2e}·max (limit {K3_OUT_TOL}), bit-identical over 2 launches")
@@ -1123,7 +1166,8 @@ def paper_mlp_kernel_phase(dev):
                      f"{w_norm} {worst[w_norm][1]:.4f}·‖r‖; bit-identical over 2 launches; "
                      f"K3f {fw:.3f} ms ({R * S * fps / fw / 1e9:.1f} TFLOP/s at {fps / 1e6:.4f} "
                      f"MFLOP a sample, bound {result['bound'][label][0]:.3f}), plain "
-                     f"{result['plain_ms'][label]:.3f} ms; K3b {bw:.3f} ms "
+                     f"{result['plain_ms'][label]:.3f} ms; K3b {bw:.3f} ms, bare launch "
+                     f"{result['bwd_bare_ms'][label]:.3f} ms "
                      f"({R * S * bps / bw / 1e9:.1f} TFLOP/s at {bps / 1e6:.4f} MFLOP a sample, "
                      f"bound {result['bwd_bound'][label][0]:.3f}), plain "
                      f"{result['bwd_plain_ms'][label]:.3f} ms")
@@ -1357,6 +1401,7 @@ def flex_kernel_phase(dev):
     names = list(wn) + list(bn) + ["v0", "dir"]
     result = {"err": {}, "readings": {}, "ms": {}, "plain_ms": {}, "bound": {}, "tile_ms": {},
               "bwd_ms": {}, "bwd_plain_ms": {}, "bwd_bound": {}, "grad_rel": {},
+              "bwd_bare_ms": {}, "bwd_split": {},
               "abs_err": 0.0, "grad_abs_err": 0.0}
     models = [_flex_params(SEED + 7 + 100 * i, dev) for i in range(FLEX_SEEDS)]
     for c, (label, R, S) in enumerate((("coarse", TRAIN_RAYS, 64), ("fine", TRAIN_RAYS, 128),
@@ -2146,6 +2191,11 @@ def main() -> int:
             "library_ms": None,  # no single PyTorch call computes it
             "ms_by_pass": tk["ms"],
             "plain_ms_by_pass": tk["plain_ms"],
+            # the C entry alone, operands packed beforehand, and its kernels' device ms
+            "bare_ms_by_pass": tk["bare_ms"],
+            "launch_split_by_pass": tk["split"],
+            "small_bare_ms_by_pass": tks["bare_ms"],
+            "small_launch_split_by_pass": tks["split"],
             "worst_grad_rel": tk["grad_rel"],
             "small_ms_by_pass": tks["ms"],
             "small_plain_ms_by_pass": tks["plain_ms"],
@@ -2198,6 +2248,8 @@ def main() -> int:
             "library_ms": None,  # no single PyTorch call computes it
             "ms_by_case": pk["bwd_ms"],
             "plain_ms_by_case": pk["bwd_plain_ms"],
+            "bare_ms_by_case": pk["bwd_bare_ms"],
+            "launch_split_by_case": pk["bwd_split"],
             "bound_ms_by_case": {c: b[0] for c, b in pk["bwd_bound"].items()},
             "coarse_train_step_ms": ct["step_ms"],
             "step_vs_f32": cs,

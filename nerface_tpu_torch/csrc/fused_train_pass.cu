@@ -7,61 +7,36 @@
 // (pallas_call at fused_train.py:398). Python side:
 // nerface_tpu_torch/ops/kernels/fused_train.py (wrapper, operand packing,
 // the autograd.Function and the plain PyTorch version
-// `fused_train_pass_reference`). The encode, dense-layer and head code is
-// shared with K2 (fused_paper_render.cu) in mma_tile.cuh, the dX epilogues
-// and dW with K4b (fused_flex.cu) in grad_tile.cuh, the forward with its
-// workspace writes, the dX kernel and the dW list with K3b
-// (fused_paper_mlp.cu) in paper_train.cuh. `small` selects the smaller
-// paper model (no layers_xyz.5; paper_train.cuh).
+// `fused_train_pass_reference`). `small` selects the smaller paper model
+// (no layers_xyz.5).
 //
-// The TPU kernel keeps a tile's 10 bf16 activations in VMEM and adds its
-// weight gradients into one output block over the sequential grid. Neither
-// carries over: the activations of a 128-row tile (2176 bf16 a row, 557 KB)
-// do not fit in shared memory, and CUDA blocks run at the same time in no
-// order. So one call is five launches on the caller's stream, with the
-// activations and cotangents in a device-memory workspace (≈ 8.8 KB a row):
+// The TPU kernel keeps the whole pass of a tile in one body, because the
+// loss cotangent is ray-local: forward, compositing, backward. So does
+// this one: `train_pass_kernel` (paper_train.cuh) is one persistent CTA an
+// SM whose two consumer warpgroups each take whole rays through the
+// forward chain on wgmma, K1's middle below (compositing, the loss
+// cotangent and its backward, in f32), and the dX chain on wgmma, without
+// leaving the CTA. The weight gradients are a second kernel over the
+// activations and cotangents the first stored as wgmma operand images
+// (`dw_wgmma_kernel`, wgmma_dw.cuh), and two `reduce_rows` add the
+// partials in a fixed order: four launches a call, no float atomics,
+// bit-identical gradients over calls. K3b (fused_paper_mlp.cu) runs the
+// same launches with its own middle.
 //
-//   1. train_fwd_kernel, one 512-thread CTA per 128-row tile (2 rays at
-//      S = 64, 1 at S = 128): encode, the trunk and heads as in K2 (bf16
-//      mma.sync, f32 accumulation), writing xin, h0..h5, feat, hd_pre, x1,
-//      x2 (bf16) to the workspace; then per ray one warp: compositing with
-//      an f32 scan of log transmittance, rgb and weights out, the loss
-//      cotangent (rgb − t)·loss_scale (+ the white-background and
-//      supervised-background terms), and the compositing backward with a
-//      reverse (suffix) warp scan, giving the per-row f32 cotangents of raw
-//      rgb and σ. The tile's sums for the σ/rgb heads' weights and biases
-//      (a 256→1 and a 128→3 product: no tensor-core shape) go to a per-tile
-//      partial row.
-//   2. train_bwd_kernel, per tile: gx2 = bf16(g_rgb) Wrgbᵀ ⊙ [x2 > 0], then
-//      gy ← (bf16(gy) Wᵀ) ⊙ [act > 0] layer by layer down to gh0 as mma.sync
-//      GEMMs over transposed weights, each bf16 cotangent written to the
-//      workspace; the f32 column sums of each (bias and conditioning
-//      gradients) to the tile's partial row, and the per-ray d_dir (the sum
-//      of gx0 over the ray's rows) straight out.
-//   3. dw_kernel: dW = Xᵀ·bf16(gY) for the 13 tensor-core products (W3 in
-//      two: its xin rows and its h2 rows), bf16 operands and f32
-//      accumulation. A CTA owns one 64×64 block of one matrix and one of
-//      DW_SPLIT row segments, and writes its f32 block to a partial buffer.
-//   4./5. reduce_rows: the partials summed over segments (dW) and over
-//      tiles (biases, cond0/cond3, the heads' weights), each in a fixed
-//      order.
-// No atomics anywhere: two calls on the same inputs give bit-identical
-// results.
+// Where the TPU kernel rounds to bf16, this one does too: every left
+// matmul operand (the raw points included), both operands of dW, the
+// cotangent of dX; relu masks are taken on the bf16 activations; bias sums
+// take the f32 cotangents; the compositing and its backward stay f32.
 //
-// Where the TPU kernel rounds to bf16, this one does too: every left matmul
-// operand (the raw points included), both operands of dW, the cotangent of
-// dX; relu masks are taken on the bf16 activations; bias sums take the f32
-// cotangents; the compositing and its backward stay f32.
-//
-// Bound: tensor-core throughput. Forward ≈ 0.98 MFLOP a sample, dX ≈ 0.92
-// (no dX into the encoding), dW ≈ 0.98: 2.885 MFLOP a sample at the
-// function's widths (layer 0's K = 63 and the skip layer's 319, not the
-// zero-padded 64 and 320 the MMAs run), 0.76 TFLOP
-// for the slice's fine pass (2048 rays × 128 samples). The workspace moves
-// ≈ 2.3 GB at that pass (written once, read by dX and dW), ~0.7 ms at the
-// card's 3.35 TB/s against ~0.75 ms of bf16 dense peak: the design is near
-// balance, and a later version that keeps dX in shared memory across
-// layers would move less.
+// Bound on this card (paper_train.cuh): 2.885 MFLOP a sample, 1.147 ms
+// of the bf16 dense peak for a train step's pair (2048 rays at S = 64 and
+// 128), with a floor of ≈ 2 ms for the ≈ 6.6 GB of workspace written and
+// read again by dW. What holds the kernel back today is registers: ptxas
+// spills 6.8–8.3 KB a thread in every train_pass_kernel instantiation,
+// and the pair takes 8.8 ms as a bare launch (H100 80GB HBM3, 700 W;
+// PERF.md §6). The earlier design (one 512-thread CTA a 128-row
+// tile, mma.sync, every activation read back from device memory by two
+// more launches) took 11.8 ms on the same card.
 //
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a -O3, with neither
 // --use_fast_math nor -ftz=true (see fused_paper_render.cu).
@@ -69,50 +44,52 @@
 #include "paper_train.cuh"
 
 using namespace nerface;
+using namespace nerface::k1;
 
 namespace {
 
-struct FwdArgs {
-  const float* ro;      // (R, 3)
+__device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
+
+// K1's middle: per ray one warp (warp lw of the warpgroup owns ray ray0 +
+// lw; lane l owns samples [l·SPL, (l+1)·SPL)): compositing with an f32
+// scan of log transmittance, rgb and weights out, the loss cotangent (rgb
+// − t)·loss_scale (+ the white-background and supervised-background
+// terms), and the compositing backward with a reverse (suffix) warp scan,
+// giving each row's f32 cotangents of raw σ and rgb. A ray past the last
+// one gets zero cotangents.
+struct K1Policy {
   const float* rd;      // (R, 3)
   const float* z;       // (R, S)
   const float* target;  // (R, 3)
-  const float* dir_c;   // (R, 128)
   const float* bg;      // (R, 3) or null
   const float* noise;   // (R, S) or null
-  const bf16* W;        // packed weights (fused_mlp.py W_LAYOUT)
-  const float* F;       // packed bias rows + frequency bands (F_LAYOUT)
   float* rgb;           // (R, 3)
   float* weights;       // (R, S)
   float* d_bg;          // (R, 3) or null
-  Workspace ws;
-  int n_rays, n_freqs, white_bg;
+  int n_rays, white_bg;
   float noise_std, loss_scale, sup_bg_scale;
-};
 
-__device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
+  template <int S>
+  __device__ __forceinline__ void middle(const float* sigma, const float* rgb_raw, float* gsig, float* grgb,
+                                         int ray0, int lw, int lane) const {
+    if (lw >= Geometry<S>::WG_RAYS) return;
+    const int ray = ray0 + lw;
+    if (ray >= n_rays) {
+      for (int s = lane; s < S; s += 32) {
+        gsig[lw * S + s] = 0.f;
+        grgb[(lw * S + s) * 3] = grgb[(lw * S + s) * 3 + 1] = grgb[(lw * S + s) * 3 + 2] = 0.f;
+      }
+      return;
+    }
+    composite<S>(sigma, rgb_raw, gsig, grgb, ray, lw, lane);
+  }
 
-template <int S, bool SMALL>
-__global__ void __launch_bounds__(THREADS, 1) train_fwd_kernel(const FwdArgs a) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  FwdSmem& sm = *reinterpret_cast<FwdSmem*>(smem_raw);
-  constexpr int RAYS = TILE_ROWS / S;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tile = blockIdx.x;
-  const int ray0 = tile * RAYS;
-
-  for (int i = tid; i < TILE_ROWS; i += THREADS) sm.gsig[i] = 0.f;
-  for (int i = tid; i < TILE_ROWS * 3; i += THREADS) sm.grgb[i] = 0.f;
-
-  // ---- forward: K2's layer chain, each activation also to the workspace
-  const bf16* x2 = train_tile<S, SMALL>(sm, a.ro, a.rd, a.z, a.dir_c, a.W, a.F, a.ws, tile, a.n_rays,
-                                        a.n_freqs);
-
-  // ---- compositing, loss cotangent, compositing backward: warp w owns
-  // ray ray0 + w; lane l owns samples [l·SPL, (l+1)·SPL)
-  constexpr int SPL = S / 32;
-  const int ray = ray0 + warp;
-  if (warp < RAYS && ray < a.n_rays) {
+  // kept operation for operation from the earlier one-CTA-a-tile kernel
+  template <int S>
+  __device__ __forceinline__ void composite(const float* sigma, const float* rgb, float* gsig, float* grgb,
+                                            int ray, int lw, int lane) const {
+    const K1Policy& a = *this;
+    constexpr int SPL = S / 32;
     const float* zr = a.z + (size_t)ray * S;
     const float rx = a.rd[ray * 3], ry = a.rd[ray * 3 + 1], rz = a.rd[ray * 3 + 2];
     const float rnorm =
@@ -124,10 +101,10 @@ __global__ void __launch_bounds__(THREADS, 1) train_fwd_kernel(const FwdArgs a) 
 #pragma unroll
     for (int q = 0; q < SPL; ++q) {
       const int s = lane * SPL + q;
-      const int row = warp * S + s;
+      const int row = lw * S + s;
       const float dz = s < S - 1 ? __fsub_rn(zr[s + 1], zr[s]) : 1e10f;
       d[q] = __fmul_rn(dz, rnorm);
-      float sn = sm.sigma[row];
+      float sn = sigma[row];
       if (a.noise != nullptr) sn = __fadd_rn(sn, __fmul_rn(a.noise[(size_t)ray * S + s], a.noise_std));
       mask[q] = sn > 0.f;
       float sa = mask[q] ? sn : 0.f;
@@ -150,12 +127,12 @@ __global__ void __launch_bounds__(THREADS, 1) train_fwd_kernel(const FwdArgs a) 
 #pragma unroll
     for (int q = 0; q < SPL; ++q) {
       const int s = lane * SPL + q;
-      const int row = warp * S + s;
+      const int row = lw * S + s;
       trans[q] = expf(excl + prefix[q]);
       w[q] = alpha[q] * trans[q];
 #pragma unroll
       for (int ch = 0; ch < 3; ++ch) {
-        const float c = (has_bg && s == S - 1) ? a.bg[ray * 3 + ch] : sigmoidf(sm.rgb[row * 3 + ch]);
+        const float c = (has_bg && s == S - 1) ? a.bg[ray * 3 + ch] : sigmoidf(rgb[row * 3 + ch]);
         c_sum[ch] += w[q] * c;
       }
       acc += w[q];
@@ -189,11 +166,11 @@ __global__ void __launch_bounds__(THREADS, 1) train_fwd_kernel(const FwdArgs a) 
 #pragma unroll
     for (int q = 0; q < SPL; ++q) {
       const int s = lane * SPL + q;
-      const int row = warp * S + s;
+      const int row = lw * S + s;
       float g_w = g_acc;
 #pragma unroll
       for (int ch = 0; ch < 3; ++ch) {
-        const float c = (has_bg && s == S - 1) ? bgv[ch] : sigmoidf(sm.rgb[row * 3 + ch]);
+        const float c = (has_bg && s == S - 1) ? bgv[ch] : sigmoidf(rgb[row * 3 + ch]);
         g_w += c * grm[ch];
       }
       if (s == S - 1) g_w += sup_ray * a.sup_bg_scale;
@@ -212,67 +189,61 @@ __global__ void __launch_bounds__(THREADS, 1) train_fwd_kernel(const FwdArgs a) 
 #pragma unroll
     for (int q = SPL - 1; q >= 0; --q) {
       const int s = lane * SPL + q;
-      const int row = warp * S + s;
+      const int row = lw * S + s;
       const float g_log_t = after;
       after += v[q];
       const float g_omae = g_log_t / (oma[q] + 1e-10f) - g_alpha_c[q];
       // omae first: it is exactly 0 on the 1e10 last distance
       const float g_sa = -(oma[q] * g_omae) * d[q];
-      sm.gsig[row] = mask[q] ? g_sa : 0.f;
+      gsig[row] = mask[q] ? g_sa : 0.f;
       const bool bg_sample = has_bg && s == S - 1;
 #pragma unroll
       for (int ch = 0; ch < 3; ++ch) {
         const float g_act = w[q] * grm[ch];
         if (bg_sample) {
-          sm.grgb[row * 3 + ch] = 0.f;
+          grgb[row * 3 + ch] = 0.f;
           if (a.d_bg != nullptr) {
             float g = g_act;
             if (a.sup_bg_scale > 0.f) g += 2.f * (bgv[ch] - tgt[ch]) * w[q] * a.sup_bg_scale;
             a.d_bg[ray * 3 + ch] = g;
           }
         } else {
-          const float sg = sigmoidf(sm.rgb[row * 3 + ch]);
-          sm.grgb[row * 3 + ch] = g_act * sg * (1.f - sg);
+          const float sg = sigmoidf(rgb[row * 3 + ch]);
+          grgb[row * 3 + ch] = g_act * sg * (1.f - sg);
         }
       }
     }
   }
-  __syncthreads();
-
-  // ---- the head cotangents out, and the tile's partial sums
-  head_partials(sm, a.ws, tile, x2);
-}
+};
 
 template <int S, bool SMALL>
 struct Pass {
-  static int run(const FwdArgs& fa, const BwdArgs& ba, long long tiles, float* dW, float* dF,
-                 cudaStream_t st) {
-    int err = launch_tiles(train_fwd_kernel<S, SMALL>, sizeof(FwdSmem), (int)tiles, st, fa);
-    if (err != 0) return err;
-    return launch_paper_backward<S, SMALL>(ba, tiles, dW, dF, st);
+  static int run(const PassArgs& pa, const K1Policy& policy, float* dW, float* dF, cudaStream_t st) {
+    return launch_pass<S, SMALL>(pa, policy, dW, dF, st);
   }
 };
 
 }  // namespace
 
-// Shared memory a CTA of each kernel takes: out[0] train_fwd_kernel and
-// out[1] train_bwd_kernel (dynamic), out[2] dw_kernel (static).
+// Shared memory a CTA of each kernel takes: out[0] train_pass_kernel,
+// out[1] dw_wgmma_kernel (both dynamic, with their 1 KB alignment pad).
 extern "C" void nerface_fused_train_shared_bytes(long long* out) {
-  out[0] = (long long)sizeof(FwdSmem);
-  out[1] = (long long)sizeof(BwdSmem);
-  out[2] = (long long)DW_SMEM_BYTES;
+  out[0] = (long long)SMEM_BYTES;
+  out[1] = (long long)DWG_SMEM_BYTES;
 }
 
 // Bytes of device workspace one call needs.
 extern "C" long long nerface_fused_train_workspace_bytes(int n_rays, int n_samples) {
-  return workspace_bytes(n_rays, n_samples);
+  return k1::workspace_bytes(n_rays, n_samples);
 }
 
 // Returns a cudaError_t (0 on success). Launches on `stream`, does not
 // synchronise and allocates nothing: `workspace` holds
-// nerface_fused_train_workspace_bytes(n_rays, n_samples) bytes. dW is the
-// f32 gradient in the packed weight layout (W_OFF_TOTAL), dF in the bias-row
-// layout (F_OFF_TOTAL: COND0/COND3 rows hold d_cond0/d_cond3; FREQS is 0).
+// nerface_fused_train_workspace_bytes(n_rays, n_samples) bytes. W and WT
+// are the chunk images of the packed weights and of the transposed trunk
+// (`pack_sm90_chunks`, ops/kernels/fused_mlp.py). dW is the f32 gradient
+// in the packed weight layout (W_OFF_TOTAL), dF in the bias-row layout
+// (F_OFF_TOTAL: COND0/COND3 rows hold d_cond0/d_cond3; FREQS is 0).
 // `small`: the smaller paper model (its W5/B5 slots come back zero).
 extern "C" int nerface_fused_train_pass(
     const float* ro, const float* rd, const float* z, const float* target, const float* dir_c,
@@ -283,13 +254,11 @@ extern "C" int nerface_fused_train_pass(
   if (n_rays < 0 || n_freqs < 1 || 3 + 6 * n_freqs > K_XIN) return (int)cudaErrorInvalidValue;
   if (n_samples != 32 && n_samples != 64 && n_samples != 128) return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
-  const long long tiles = pass_tiles(n_rays, n_samples);
   Workspace ws;
-  carve(static_cast<unsigned char*>(workspace), tiles * TILE_ROWS, tiles, &ws);
-  const bf16* Wb = static_cast<const bf16*>(W);
-  FwdArgs fa{ro, rd, z, target, dir_c, bg, noise, Wb, F, rgb, weights, d_bg, ws,
-             n_rays, n_freqs, white_bg, noise_std, loss_scale, sup_bg_scale};
-  if (noise_std <= 0.f) fa.noise = nullptr;
-  BwdArgs ba{Wb, static_cast<const bf16*>(WT), d_dir, ws, n_rays};
-  return dispatch_pass<Pass>(n_samples, small, fa, ba, tiles, dW, dF, static_cast<cudaStream_t>(stream));
+  carve(static_cast<unsigned char*>(workspace), pass_units(n_rays, n_samples), pass_ctas(n_rays, n_samples), &ws);
+  PassArgs pa{ro, rd, z, dir_c, static_cast<const bf16*>(W), static_cast<const bf16*>(WT), F, d_dir, ws,
+              n_rays, n_freqs};
+  K1Policy policy{rd, z, target, bg, noise_std > 0.f ? noise : nullptr, rgb, weights, d_bg, n_rays, white_bg,
+                  noise_std, loss_scale, sup_bg_scale};
+  return dispatch_pass<Pass>(n_samples, small, pa, policy, dW, dF, static_cast<cudaStream_t>(stream));
 }

@@ -1,7 +1,6 @@
-// Backward pieces shared by the training kernels (fused_train_pass.cu, K1,
-// and fused_paper_mlp.cu, K3b, through paper_train.cuh; fused_flex.cu, K4b):
-// the dX epilogues, a tile's column sums, and the
-// deterministic weight gradient dW = Xᵀ·gY over every row of a pass.
+// K4b's backward pieces (fused_flex.cu): the dX epilogues, a tile's column
+// sums, and the deterministic weight gradient dW = Xᵀ·gY over every row of
+// a pass; `reduce_rows` also adds K1's and K3b's partials (paper_train.cuh).
 //
 // dW: a CTA of `dw_kernel` owns one 64×64 block of one matrix and one of up
 // to DW_SPLIT_MAX row segments, reads the bf16 activations X and cotangents

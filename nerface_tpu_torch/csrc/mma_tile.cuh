@@ -1,5 +1,6 @@
 // Device code shared by the paper model's kernels (fused_paper_render.cu,
-// fused_train_pass.cu, fused_paper_mlp.cu): the packed operand layout,
+// fused_train_pass.cu, fused_paper_mlp.cu) and K4 (fused_flex.cu): the packed
+// operand layout,
 // cp.async / ldmatrix / mma.sync wrappers, the positional encoding of a
 // tile's sample points, one dense layer over a 128-row tile with its
 // epilogue supplied by the caller, and the forward-only MLP over a tile

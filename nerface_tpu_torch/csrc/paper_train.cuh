@@ -1,15 +1,83 @@
-// The paper model's training kernels' shared pieces (fused_train_pass.cu,
-// K1; fused_paper_mlp.cu, K3b): the device-memory workspace of a pass, the
-// forward over a tile that writes every activation to it, the heads'
-// cotangents and partial sums, the trunk backward (dX) kernel, and the
-// weight gradients (dW) with the final reductions.
+// The paper model's training pass on Hopper (sm_90a), shared by K1
+// (fused_train_pass.cu: MLP, compositing, the loss cotangent and the
+// whole backward) and K3b (fused_paper_mlp.cu: the MLP's backward from
+// autograd's cotangent g).
 //
-// A pass is a chain of launches on the caller's stream, the activations
-// and cotangents in the workspace (≈ 8.8 KB a row): a forward kernel (K1's
-// with compositing and the loss cotangent, K3b's recompute reading the
-// cotangent g) that ends in `head_partials`; then `train_bwd_kernel` and
-// `launch_paper_backward`'s dw_kernel and reductions (grad_tile.cuh). No
-// atomics: two calls on the same inputs give bit-identical gradients.
+// A pass is four launches on the caller's stream:
+//
+//   1. train_pass_kernel<S, SMALL, Policy>: one persistent CTA an SM
+//      (K1_CTAS at most), 384 threads. Per item of a consumer warpgroup
+//      (64·UNITS sample rows: whole rays) it runs
+//        - the forward chain of K2 (fused_paper_render.cu): wgmma m64n256k16
+//          / m64n128k16 with A from registers, each epilogue's bf16 pairs
+//          the next layer's A fragment, the weights' chunk images
+//          (`pack_sm90_chunks`) streamed through a ring of RING 32 KB
+//          stages by a producer thread with 1-D bulk copies, the encoder
+//          warps filling xin; every bf16 activation is also stored to the
+//          workspace;
+//        - the middle, a policy: K1's compositing, loss cotangent and
+//          compositing backward (fused_train_pass.cu), or K3b's read of
+//          autograd's cotangent g (fused_paper_mlp.cu), giving each row's
+//          f32 cotangents of raw σ and rgb;
+//        - the dX chain, on wgmma too: gy as bf16 A fragments in
+//          registers, B the layer's Wᵀ as its own chunk images (the
+//          transposed trunk through `pack_sm90_chunks`), streamed through
+//          the same ring; the relu masks from the activations this
+//          warpgroup stored a moment before (an L2 hit); each bf16
+//          cotangent to the workspace;
+//        - the bias and conditioning sums (f32 cotangents) and the σ / rgb
+//          heads' weight sums, per warp (`colsum`).
+//   2. dw_wgmma_kernel (wgmma_dw.cuh): dW = Xᵀ·bf16(gY) for the 11
+//      products (10 in the smaller model; W3 in two: its xin rows and its
+//      h2 rows), read from the workspace's operand images.
+//   3./4. reduce_rows (grad_tile.cuh): dW's row segments, and the CTAs'
+//      partial rows (biases, cond0 / cond3, the heads' weights), each
+//      added in a fixed order.
+// No float atomics and every partition fixed by the shape: two calls on
+// the same inputs give bit-identical gradients.
+//
+// The workspace belongs to the kernels. Each buffer (`WS_BUFFERS`, the
+// order of WS_BUFFER_NAMES in ops/kernels/fused_train.py) holds one bf16
+// matrix of the pass as wgmma operand images: per 64-row unit, its
+// 64-column blocks of 64 rows in the 128-byte swizzle, 8 KB a block
+// (`image_offset`). The forward and dX store whole 16-byte groups (a
+// quad's four lanes trade their words with shuffles, `quad_transpose`),
+// and dW loads a unit of a buffer with one bulk copy.
+//
+// Bounds on this card. The pass's operations are 2.885 MFLOP a sample
+// (0.98 forward, 0.92 dX, 0.98 dW): 1.147 ms of the H100's bf16 dense
+// peak for a train step's pair (2048 rays at S = 64 and 128). The
+// workspace, which the TPU kernel never moves, adds ≈ 8.6 KB a row written
+// and ≈ 8.3 KB read by dW: ≈ 6.6 GB for the pair, a floor of ≈ 2 ms at
+// 3.35 TB/s. The design keeps the rest out of HBM: the activations' second
+// read (the dX masks) comes from L2 (a persistent grid's working set, 132
+// CTAs × 2 items × ≈ 4.3 KB × 64–128 rows, is a few MB of the 50 MB), the
+// f32 head cotangents never leave shared memory, and the bias sums never
+// leave the CTA until its last item.
+//
+// What bounds it now is neither: registers. A consumer thread holds 128
+// f32 accumulators and 64 bf16 A registers, and ptxas spills 6.8–8.3 KB
+// a thread in every instantiation of train_pass_kernel (the A registers,
+// stored after their convert and reloaded around every ring wait), so the
+// kernel runs at ≈ 100 TFLOP/s and the pair takes 8.8 ms as a bare launch
+// on an H100 80GB HBM3 at 700 W (PERF.md §6), not the ≈ 2 ms floor.
+// dw_wgmma_kernel spills nothing; at ≈ 30 % of its operations bound it is
+// the smaller part. `chip_smoke.py`'s `[build]` prints the spills and any
+// wgmma ptxas serialises (its C75xx notes) for every instantiation. A
+// later version that keeps dW's operands out of HBM (dW per tile, with
+// the accumulators spread over the CTAs) would move about half the bytes,
+// once the registers no longer bound it.
+//
+// The bias sums stay sums of the f32 cotangents, as in the TPU kernel.
+// Form: after a layer's epilogue each thread folds its two rows, the
+// warp reduce-scatters the column sums over its eight row lanes (N/8 +
+// N/16 + N/32 shuffles instead of an all-reduce's 3·N/4), and each lane
+// adds its N/32 columns into the warp's running partial row in global
+// memory (an L2 hit, only that lane ever touches them); at the end a CTA
+// folds its 8 warps' rows into one, in order. Cost: ≈ 60 shuffles, 64
+// adds and 4 float2 read-modify-writes a thread for a 256-wide layer,
+// ≈ 2 % of the warpgroup's instruction slots, off the tensor cores and
+// overlapped by the other warpgroup's products.
 //
 // SMALL is the smaller paper model (no layers_xyz.5): its forward skips
 // W5, fc_feat's cotangent is masked by h4 directly, and W5 drops out of
@@ -18,11 +86,14 @@
 #pragma once
 
 #include "grad_tile.cuh"
+#include "wgmma_dw.cuh"
+#include "wgmma_tile.cuh"
 
 namespace nerface {
 
-// Transposed trunk weights, (out, in) row-major, for the dX products. They
-// must equal WT_OFFSETS in ops/kernels/fused_mlp.py.
+// Transposed trunk weights, (out, in), for the dX products, each as its
+// chunk images (K = out, N = in). They must equal WT_OFFSETS in
+// ops/kernels/fused_mlp.py.
 constexpr int WT_OFF_WD2T = 0;
 constexpr int WT_OFF_WD1T = 16384;
 constexpr int WT_OFF_WD0T = 32768;
@@ -34,362 +105,848 @@ constexpr int WT_OFF_W2T = 327680;
 constexpr int WT_OFF_W1T = 393216;
 constexpr int WT_OFF_TOTAL = 458752;
 
-// A tile's partial row: the F_LAYOUT columns (bias and conditioning sums),
-// then WA (256) and WRGB (128·3).
+// A partial row: the F_LAYOUT columns (bias and conditioning sums), then
+// WA (256) and WRGB (128·3).
 constexpr int PART_WA = F_OFF_TOTAL;
 constexpr int PART_WRGB = PART_WA + HIDDEN;
 constexpr int PART_COLS = PART_WRGB + DIR_HIDDEN * 3;
 
-// The workspace: per buffer a (rows, width) row-major matrix, rows being
-// the pass's sample rows rounded up to whole tiles.
+namespace k1 {
+
+using namespace sm90;
+
+constexpr int K1_CTAS = 132;       // the persistent grid, at most: one CTA an H100 SM
+constexpr int CONSUMERS = 2;       // warpgroups computing items
+constexpr int THREADS = 128 * (CONSUMERS + 1);
+constexpr int RING = 4;            // weight stages
+constexpr int STAGE_BYTES = KCH * HIDDEN * 2;
+constexpr int ENCODERS = 3;        // warps of the producer warpgroup that encode
+constexpr int BAR_WG = 1;          // + warpgroup: that warpgroup's named barrier
+constexpr int BAR_CONSUMERS = 3;   // both consumer warpgroups
+constexpr int WARPS_A_CTA = 4 * CONSUMERS;
+constexpr int BLOCK_BYTES = 64 * ROW_BYTES;  // a 64 × 64 image block
+
+// The workspace's bf16 buffers and their widths.
+enum WsBuffer {
+  WS_XIN, WS_H0, WS_H1, WS_H2, WS_H3, WS_H4, WS_H5, WS_FEAT, WS_X0, WS_X1, WS_X2,
+  WS_GX2, WS_GX1, WS_GX0, WS_GFEAT, WS_GH0, WS_GH1, WS_GH2, WS_GH3, WS_GH4, WS_GH5, WS_BUFFERS
+};
+__host__ __device__ constexpr int ws_width(int b) {
+  return b == WS_XIN ? K_XIN
+                     : (b == WS_X0 || b == WS_X1 || b == WS_X2 || b == WS_GX2 || b == WS_GX1 || b == WS_GX0)
+                           ? DIR_HIDDEN
+                           : HIDDEN;
+}
+
+// Byte offset of element (row, col) of a unit's image (64 rows, width
+// columns): its column block, then the swizzled row.
+__host__ __device__ __forceinline__ int image_offset(int row, int col) {
+  return (col >> 6) * BLOCK_BYTES + sw128(row, col & 63);
+}
+
+// An item of a consumer warpgroup: WG_RAYS rays, UNITS 64-row units (two
+// rays a unit at S = 32, one at S = 64, one ray in two units at S = 128).
+template <int S>
+struct Geometry {
+  static constexpr int WG_RAYS = S >= 64 ? 1 : 64 / S;
+  static constexpr int UNITS = S > 64 ? S / 64 : 1;
+  __host__ __device__ static int items(int n_rays) { return (n_rays + WG_RAYS - 1) / WG_RAYS; }
+  __host__ __device__ static int pairs(int n_rays) { return (items(n_rays) + CONSUMERS - 1) / CONSUMERS; }
+};
+
+inline int pass_units(int n_rays, int n_samples) {
+  const int per_unit = n_samples >= 64 ? 1 : 64 / n_samples;  // rays a unit
+  const int units_a_ray = n_samples > 64 ? n_samples / 64 : 1;
+  return (n_rays + per_unit - 1) / per_unit * units_a_ray;
+}
+inline int pass_ctas(int n_rays, int n_samples) {
+  const int per_item = n_samples >= 64 ? 1 : 64 / n_samples;
+  const int pairs = ((n_rays + per_item - 1) / per_item + CONSUMERS - 1) / CONSUMERS;
+  return pairs < K1_CTAS ? pairs : K1_CTAS;
+}
+
 struct Workspace {
-  bf16* xin;
-  bf16* h[6];
-  bf16* feat;
-  bf16* hd;
-  bf16* x1;
-  bf16* x2;
-  bf16* gx2;
-  bf16* gx1;
-  bf16* gx0;
-  bf16* gfeat;
-  bf16* gh[6];  // gh[i]: cotangent of h_i
-  float* g_rgb;    // (rows, 3)
-  float* g_sigma;  // (rows,)
-  float* tile_part;  // (tiles, PART_COLS)
-  float* dw_part;    // (DW_SPLIT, W_OFF_WA)
+  unsigned char* buf[WS_BUFFERS];  // unit images, units × width × 128 bytes each
+  float* warp_part;                // (ctas · WARPS_A_CTA, PART_COLS): each warp's running sums
+  float* tile_part;                // (ctas, PART_COLS): a CTA's sums
+  float* dw_part;                  // (DWG_SEGS, W_OFF_WA)
+  __device__ __forceinline__ unsigned char* unit(int b, int u) const {
+    return buf[b] + (size_t)u * ws_width(b) * ROW_BYTES;
+  }
 };
 
 // Lays the workspace out from `base` (or only measures it when base is
 // null); returns its size in bytes.
-inline size_t carve(unsigned char* base, long long rows, long long tiles, Workspace* ws) {
+inline size_t carve(unsigned char* base, int units, int ctas, Workspace* ws) {
   size_t off = 0;
   auto take = [&](size_t bytes) -> void* {
     void* p = base ? base + off : nullptr;
     off = align256(off + bytes);
     return p;
   };
-  auto mat = [&](int width) { return static_cast<bf16*>(take((size_t)rows * width * sizeof(bf16))); };
   Workspace w;
-  w.xin = mat(K_XIN);
-  for (int i = 0; i < 6; ++i) w.h[i] = mat(HIDDEN);
-  w.feat = mat(HIDDEN);
-  w.hd = mat(DIR_HIDDEN);
-  w.x1 = mat(DIR_HIDDEN);
-  w.x2 = mat(DIR_HIDDEN);
-  w.gx2 = mat(DIR_HIDDEN);
-  w.gx1 = mat(DIR_HIDDEN);
-  w.gx0 = mat(DIR_HIDDEN);
-  w.gfeat = mat(HIDDEN);
-  for (int i = 0; i < 6; ++i) w.gh[i] = mat(HIDDEN);
-  w.g_rgb = static_cast<float*>(take((size_t)rows * 3 * sizeof(float)));
-  w.g_sigma = static_cast<float*>(take((size_t)rows * sizeof(float)));
-  w.tile_part = static_cast<float*>(take((size_t)tiles * PART_COLS * sizeof(float)));
-  w.dw_part = static_cast<float*>(take((size_t)DW_SPLIT_MAX * W_OFF_WA * sizeof(float)));
+  for (int b = 0; b < WS_BUFFERS; ++b)
+    w.buf[b] = static_cast<unsigned char*>(take((size_t)units * ws_width(b) * ROW_BYTES));
+  w.warp_part = static_cast<float*>(take((size_t)ctas * WARPS_A_CTA * PART_COLS * sizeof(float)));
+  w.tile_part = static_cast<float*>(take((size_t)ctas * PART_COLS * sizeof(float)));
+  w.dw_part = static_cast<float*>(take((size_t)DWG_SEGS * W_OFF_WA * sizeof(float)));
   if (ws) *ws = w;
   return off;
 }
 
-// The tiles of a pass of n_rays × n_samples rows, and its workspace bytes.
-inline long long pass_tiles(int n_rays, int n_samples) {
-  return ((long long)n_rays * n_samples + TILE_ROWS - 1) / TILE_ROWS;
-}
-
 inline long long workspace_bytes(int n_rays, int n_samples) {
-  const long long tiles = pass_tiles(n_rays, n_samples);
-  return (long long)carve(nullptr, tiles * TILE_ROWS, tiles, nullptr);
+  return (long long)carve(nullptr, pass_units(n_rays, n_samples), pass_ctas(n_rays, n_samples), nullptr);
 }
 
-// Shared memory of a forward CTA of the training kernels.
-struct FwdSmem {
-  bf16 act[2][TILE_ROWS * LD_ACT];
-  bf16 wstage[2][KC * LD_W];
-  bf16 xin[TILE_ROWS * LD_XIN];
-  float sigma[TILE_ROWS];
-  float rgb[TILE_ROWS * 3];
-  float gsig[TILE_ROWS];
-  float grgb[TILE_ROWS * 3];
+struct PassArgs {
+  const float* ro;     // (R, 3)
+  const float* rd;     // (R, 3)
+  const float* z;      // (R, S)
+  const float* dir_c;  // (R, 128)
+  const bf16* W;       // the weights' chunk images (W_OFF_* offsets)
+  const bf16* WT;      // the transposed trunk's chunk images (WT_OFF_*)
+  const float* F;      // bias rows + frequency bands
+  float* d_dir;        // (R, 128)
+  Workspace ws;
+  int n_rays, n_freqs;
 };
 
-// layers_dir.0 in training: hd_pre = acc + bias + the ray's dir
-// contribution, kept before the relu (its mask is the backward's).
-template <int S>
-struct EpiDirPre {
+struct alignas(ATOM_BYTES) Smem {
+  unsigned char ring[RING][STAGE_BYTES];  // weight chunk images
+  unsigned char xin[CONSUMERS][2][64 * ROW_BYTES];
+  unsigned char wa8[HIDDEN / KCH][8 * ROW_BYTES];  // the heads' weights padded to 8 columns
+  unsigned char wrgb8[DIR_HIDDEN / KCH][8 * ROW_BYTES];
+  float f[F_OFF_TOTAL];
+  float wa[HIDDEN];              // the heads' bf16 weights as f32, for dX
+  float wrgb[DIR_HIDDEN * 3];
+  // an item's raw σ / rgb and their f32 cotangents, per consumer warpgroup
+  float sigma[CONSUMERS][128];
+  float rgb[CONSUMERS][128 * 3];
+  float gsig[CONSUMERS][128];
+  float grgb[CONSUMERS][128 * 3];
+  float dsum[CONSUMERS][2][4][DIR_HIDDEN];  // a unit's per-warp d_dir sums, by unit parity
+  float dacc[CONSUMERS][DIR_HIDDEN];        // d_dir of a ray's first unit (S = 128)
+  uint64_t full[RING];
+  uint64_t empty[RING];
+  uint64_t xin_full[CONSUMERS][2];
+  uint64_t xin_empty[CONSUMERS][2];
+};
+constexpr size_t SMEM_BYTES = sizeof(Smem) + ATOM_BYTES;  // + the alignment pad
+static_assert(SMEM_BYTES <= 232448, "shared memory");
+
+// -- the chunk sequence ---------------------------------------------------------
+
+// Every chunk, in the consumers' order, of a round: each unit's forward
+// layers, then each unit's dX layers. `fn(src, k, n)` takes one layer.
+template <int S, bool SMALL, class Fn>
+__device__ __forceinline__ void round_layers(const bf16* W, const bf16* WT, Fn&& fn) {
+#pragma unroll 1
+  for (int u = 0; u < Geometry<S>::UNITS; ++u) {
+    fn(W + W_OFF_W0, K_XIN, HIDDEN);
+    fn(W + W_OFF_W1, HIDDEN, HIDDEN);
+    fn(W + W_OFF_W2, HIDDEN, HIDDEN);
+    fn(W + W_OFF_W3, K_XIN + HIDDEN, HIDDEN);
+    fn(W + W_OFF_W4, HIDDEN, HIDDEN);
+    if (!SMALL) fn(W + W_OFF_W5, HIDDEN, HIDDEN);
+    fn(W + W_OFF_WF, HIDDEN, HIDDEN);
+    fn(W + W_OFF_WD0, HIDDEN, DIR_HIDDEN);
+    fn(W + W_OFF_WD1, DIR_HIDDEN, DIR_HIDDEN);
+    fn(W + W_OFF_WD2, DIR_HIDDEN, DIR_HIDDEN);
+  }
+#pragma unroll 1
+  for (int u = 0; u < Geometry<S>::UNITS; ++u) {
+    fn(WT + WT_OFF_WD2T, DIR_HIDDEN, DIR_HIDDEN);
+    fn(WT + WT_OFF_WD1T, DIR_HIDDEN, DIR_HIDDEN);
+    fn(WT + WT_OFF_WD0T, DIR_HIDDEN, HIDDEN);
+    fn(WT + WT_OFF_WFT, HIDDEN, HIDDEN);
+    if (!SMALL) fn(WT + WT_OFF_W5T, HIDDEN, HIDDEN);
+    fn(WT + WT_OFF_W4T, HIDDEN, HIDDEN);
+    fn(WT + WT_OFF_W3HT, HIDDEN, HIDDEN);
+    fn(WT + WT_OFF_W2T, HIDDEN, HIDDEN);
+    fn(WT + WT_OFF_W1T, HIDDEN, HIDDEN);
+  }
+}
+
+// The producer: every chunk of every round of this CTA.
+template <int S, bool SMALL>
+__device__ __forceinline__ void produce(Smem& sm, const PassArgs& a, int n_pairs) {
+  Ring ring;
+  auto load = [&](const bf16* src, int k, int n) {
+    const uint32_t bytes = KCH * n * 2;
+    for (int c = 0; c < k / KCH; ++c) {
+      mbar_wait(&sm.empty[ring.stage], ring.phase ^ 1);
+      mbar_expect_tx(&sm.full[ring.stage], bytes);
+      bulk_load(sm.ring[ring.stage], src + c * KCH * n, bytes, &sm.full[ring.stage]);
+      ring.advance<RING>();
+    }
+  };
+  for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) round_layers<S, SMALL>(a.W, a.WT, load);
+}
+
+// One layer of a warpgroup's 64 rows: acc = A·B over NCH chunks of N
+// columns; A is xin in shared memory for the first X_CHUNKS chunks, then
+// the registers a[] (k16 slice s in a[4s .. 4s + 3]). One chunk's group
+// stays in flight while the previous stage is released.
+template <int N, int NCH, int X_CHUNKS>
+__device__ __forceinline__ void layer(float* acc, uint32_t* a, uint32_t xin, Smem& sm, Ring& ring) {
+  // The accumulators' old values are dead: made constants here, they hold
+  // no register through the epilogue before (the first product does not
+  // read them, but the asm operand would keep them live).
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  int prev = 0;
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+    mbar_wait(&sm.full[ring.stage], ring.phase);
+    const uint32_t b = smem_u32(sm.ring[ring.stage]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KCH / 16; ++kk) {
+      const uint64_t db = desc_k(b + 32 * kk);
+      const int scale = (c > 0 || kk > 0) ? 1 : 0;
+      if (c < X_CHUNKS) {
+        wgmma_ss<N>(acc, desc_k(xin + 32 * kk), db, scale);
+      } else {
+        wgmma_rs<N>(acc, a + 4 * ((KCH / 16) * (c - X_CHUNKS) + kk), db, scale);
+      }
+    }
+    wgmma_commit();
+    if (c > 0) {
+      wgmma_wait<1>();
+      if ((threadIdx.x & 127) == 0) mbar_arrive(&sm.empty[prev]);
+    }
+    prev = ring.stage;
+    ring.advance<RING>();
+  }
+  wgmma_wait<0>();
+  if ((threadIdx.x & 127) == 0) mbar_arrive(&sm.empty[prev]);
+  fence_regs<N / 2>(acc);
+  fence_regs<(KCH / 4) * (NCH - X_CHUNKS)>(a);  // only the A registers this layer read
+}
+
+// A head: the m64n8 product of the K bf16 columns in a[] with a (K, 8)
+// weight image at shared address `w`, into d.
+template <int K>
+__device__ __forceinline__ void head(float* d, uint32_t* a, uint32_t w) {
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < K / 16; ++s)
+    wgmma_rs_n8(d, a + 4 * s, desc_k(w + (s >> 2) * 8 * ROW_BYTES + 32 * (s & 3)), s > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs<4>(d);
+  fence_regs<K / 4>(a);
+}
+
+// -- fragments and images ---------------------------------------------------------
+
+// The thread's first row of a warpgroup's 64-row unit (the second is + 8).
+__device__ __forceinline__ int frag_row() { return ((threadIdx.x >> 5) & 3) * 16 + ((threadIdx.x & 31) >> 2); }
+
+// A 4 × 4 transpose of 32-bit words across a quad: lane q's w[t] becomes
+// lane t's w[q]. Two exchange stages of two shuffles.
+__device__ __forceinline__ void quad_transpose(uint32_t (&w)[4]) {
+  const int q = threadIdx.x & 3;
+#pragma unroll
+  for (int b = 1; b <= 2; b <<= 1) {
+    const bool hi = (q & b) != 0;
+#pragma unroll
+    for (int t0 = 0; t0 < 4; ++t0) {
+      if (t0 & b) continue;
+      const int t1 = t0 | b;
+      const uint32_t recv = __shfl_xor_sync(0xffffffffu, hi ? w[t0] : w[t1], b);
+      if (hi) {
+        w[t0] = recv;
+      } else {
+        w[t1] = recv;
+      }
+    }
+  }
+}
+
+// A-fragment pairs a[p] (row frag_row() + 8·(p & 1), columns 8·(p >> 1) +
+// 2·(lane % 4) + {0, 1}) of an N-wide unit into its image: a quad's lanes
+// trade words so that each stores one whole 16-byte group.
+template <int N>
+__device__ __forceinline__ void store_frag(unsigned char* img, const uint32_t* a) {
+  const int r0 = frag_row(), q = threadIdx.x & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int bb = 0; bb < N / 32; ++bb) {
+      uint32_t w[4] = {a[8 * bb + h], a[8 * bb + 2 + h], a[8 * bb + 4 + h], a[8 * bb + 6 + h]};
+      quad_transpose(w);
+      const int j = 4 * bb + q;  // the group this lane stores
+      *reinterpret_cast<uint4*>(img + image_offset(r0 + 8 * h, 8 * j)) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+// The inverse: the thread's pairs of an N-wide unit's image into a[], one
+// 16-byte group a lane loaded and traded back.
+template <int N>
+__device__ __forceinline__ void load_frag(uint32_t* a, const unsigned char* img) {
+  const int r0 = frag_row(), q = threadIdx.x & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int bb = 0; bb < N / 32; ++bb) {
+      const uint4 v = *reinterpret_cast<const uint4*>(img + image_offset(r0 + 8 * h, 8 * (4 * bb + q)));
+      uint32_t w[4] = {v.x, v.y, v.z, v.w};
+      quad_transpose(w);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) a[8 * bb + 2 * t + h] = w[t];
+    }
+  }
+}
+
+// -- column sums ---------------------------------------------------------------
+
+// One stage of a reduce-scatter over lanes lane ^ L: each keeps half of
+// v[0, NV) (the upper half where its bit L is set) plus the partner's.
+template <int NV, int L>
+__device__ __forceinline__ void scatter_stage(float* v) {
+  const bool upper = (threadIdx.x & L) != 0;
+#pragma unroll
+  for (int i = 0; i < NV / 2; ++i) {
+    const float send = upper ? v[i] : v[i + NV / 2];
+    const float keep = upper ? v[i + NV / 2] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, L);
+  }
+}
+
+// v[0, NV) summed over the eight lanes that share lane % 4 (a warp's 16
+// rows); afterwards lane g·4 + q holds the sums of indices [g·NV/8,
+// (g+1)·NV/8) in v[0, NV/8).
+template <int NV>
+__device__ __forceinline__ void scatter_sum(float* v) {
+  scatter_stage<NV, 16>(v);
+  scatter_stage<NV / 2, 8>(v);
+  scatter_stage<NV / 4, 4>(v);
+}
+
+// The column of index i of a thread's folded accumulator (i = 2j + e:
+// column pair group j, element e).
+__device__ __forceinline__ int fold_col(int i) { return 8 * (i >> 1) + 2 * (threadIdx.x & 3) + (i & 1); }
+
+// The f32 values in acc (64 × N, accumulator layout) summed over the
+// warp's 16 rows and added into the warp's partial row `part` (+ the
+// row's column offset): each thread folds its two rows in place (acc[2j +
+// e], column fold_col(2j + e)), the warp reduce-scatters them
+// (`scatter_sum`). acc is consumed: afterwards acc[0, N/32) holds this
+// lane's column sums (columns fold_col(g·N/32 + k)).
+template <int N>
+__device__ __forceinline__ void colsum(float* acc, float* part, bool live) {
+  constexpr int NV = N / 4;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) acc[2 * j + e] = acc[4 * j + e] + acc[4 * j + 2 + e];
+  }
+  scatter_sum<NV>(acc);
+  if (!live) return;
+  const int base = ((threadIdx.x & 31) >> 2) * (NV / 8);
+#pragma unroll
+  for (int k = 0; k < NV / 8; k += 2) {
+    float2* p = reinterpret_cast<float2*>(part + fold_col(base + k));
+    float2 o = *p;
+    o.x += acc[k];
+    o.y += acc[k + 1];
+    *p = o;
+  }
+}
+
+// -- the forward ----------------------------------------------------------------
+
+struct EpiBias {
   const float* bias;
-  const float* dir_c;
-  int ray0, n_rays;
-  __device__ __forceinline__ float2 operator()(int row, int col, float v0, float v1) const {
-    v0 += bias[col];
-    v1 += bias[col + 1];
-    const int ray = ray0 + row / S;
-    if (ray < n_rays) {
-      v0 += dir_c[(size_t)ray * DIR_HIDDEN + col];
-      v1 += dir_c[(size_t)ray * DIR_HIDDEN + col + 1];
+  __device__ __forceinline__ float2 operator()(int, int col, float v0, float v1) const {
+    const float2 b = *reinterpret_cast<const float2*>(bias + col);
+    return make_float2(v0 + b.x, v1 + b.y);
+  }
+};
+
+struct EpiDir {
+  const float* bias;
+  const float* dir_c;  // the ray's row, or null past the last ray
+  __device__ __forceinline__ float2 operator()(int, int col, float v0, float v1) const {
+    const float2 b = *reinterpret_cast<const float2*>(bias + col);
+    v0 += b.x;
+    v1 += b.y;
+    if (dir_c != nullptr) {
+      const float2 d = __ldg(reinterpret_cast<const float2*>(dir_c + col));
+      v0 += d.x;
+      v1 += d.y;
     }
     return make_float2(v0, v1);
   }
 };
 
-// The forward over `tile` that keeps what the backward reads: K2's layer
-// chain (bf16 mma.sync, f32 accumulation), each activation also written to
-// the workspace (xin, h0..h4 [h5], feat, hd_pre, x1, x2), the raw σ and rgb
-// heads into sm.sigma / sm.rgb. Returns the shared-memory buffer that holds
-// x2 (read by `head_partials`); ends with a barrier.
-template <int S, bool SMALL>
-__device__ __forceinline__ const bf16* train_tile(FwdSmem& sm, const float* __restrict__ ro,
-                                                  const float* __restrict__ rd, const float* __restrict__ z,
-                                                  const float* __restrict__ dir_c, const bf16* __restrict__ W,
-                                                  const float* __restrict__ F, const Workspace& ws, int tile,
-                                                  int n_rays, int n_freqs) {
-  using Relu = EpiBias<true>;
-  using Linear = EpiBias<false>;
-  constexpr int RAYS = TILE_ROWS / S;
-  const int ray0 = tile * RAYS;
-  const size_t row0 = (size_t)tile * TILE_ROWS;
-  const size_t oH = row0 * HIDDEN, oD = row0 * DIR_HIDDEN;
-  bf16* s0 = sm.wstage[0];
-  bf16* s1 = sm.wstage[1];
-  bf16* A = sm.act[0];
-  bf16* B = sm.act[1];
-  encode_tile<S>(sm.xin, ws.xin + row0 * K_XIN, ro, rd, z, F + F_OFF_FREQS, ray0, n_rays, n_freqs);
-  mma_layer<HIDDEN, K_XIN, 0, false>(s0, s1, sm.xin, LD_XIN, nullptr, W + W_OFF_W0, A, ws.h[0] + oH,
-                                     nullptr, Relu{F + F_OFF_COND0});
-  mma_layer<HIDDEN, HIDDEN, 0, false>(s0, s1, A, LD_ACT, nullptr, W + W_OFF_W1, B, ws.h[1] + oH,
-                                      nullptr, Relu{F + F_OFF_B1});
-  mma_layer<HIDDEN, HIDDEN, 0, false>(s0, s1, B, LD_ACT, nullptr, W + W_OFF_W2, A, ws.h[2] + oH,
-                                      nullptr, Relu{F + F_OFF_B2});
-  mma_layer<HIDDEN, K_XIN, HIDDEN, false>(s0, s1, sm.xin, LD_XIN, A, W + W_OFF_W3, B, ws.h[3] + oH,
-                                          nullptr, Relu{F + F_OFF_COND3});
-  mma_layer<HIDDEN, HIDDEN, 0, false>(s0, s1, B, LD_ACT, nullptr, W + W_OFF_W4, A, ws.h[4] + oH,
-                                      nullptr, Relu{F + F_OFF_B4});
-  bf16* h = A;  // the trunk's last activation
-  bf16* o = B;
-  if constexpr (!SMALL) {
-    mma_layer<HIDDEN, HIDDEN, 0, false>(s0, s1, h, LD_ACT, nullptr, W + W_OFF_W5, o, ws.h[5] + oH,
-                                        nullptr, Relu{F + F_OFF_B5});
-    h = B;
-    o = A;
+// One encode task of a unit (rows row_base .. row_base + 63 of an item):
+// row task % 64, the 32 columns [32·(task / 64), +32) of [xyz; sin(x·f +
+// φ); 0], rounded to bf16, into the unit's swizzled xin buffer and, when
+// given, the workspace's xin image. Products and sums round separately
+// (no FMA contraction) as in the plain version; `sinf` has full range
+// reduction. Rows past the last ray are 0.
+template <int S>
+__device__ __forceinline__ void encode_task(unsigned char* xin, unsigned char* xg, int task, const PassArgs& a,
+                                            const float* freqs, int ray0, int row_base) {
+  const int r = task & 63, c0 = (task >> 6) * 32;
+  const int row = row_base + r;
+  const int ray = ray0 + row / S;
+  const int n_cols = ray < a.n_rays ? 3 + 6 * a.n_freqs : 0;
+  float x0 = 0.f, x1 = 0.f, x2 = 0.f;
+  if (n_cols > 0) {
+    const float zz = a.z[(size_t)ray * S + row % S];
+    x0 = __fadd_rn(a.ro[ray * 3], __fmul_rn(a.rd[ray * 3], zz));
+    x1 = __fadd_rn(a.ro[ray * 3 + 1], __fmul_rn(a.rd[ray * 3 + 1], zz));
+    x2 = __fadd_rn(a.ro[ray * 3 + 2], __fmul_rn(a.rd[ray * 3 + 2], zz));
   }
-  mma_layer<HIDDEN, HIDDEN, 0, false>(s0, s1, h, LD_ACT, nullptr, W + W_OFF_WF, o, ws.feat + oH,
-                                      nullptr, Linear{F + F_OFF_BF});
-  bf16* feat = o;
-  bf16* x = h;
-  sigma_head(sm.sigma, feat, W + W_OFF_WA, F[F_OFF_BA]);
-  mma_layer<DIR_HIDDEN, HIDDEN, 0, false>(s0, s1, feat, LD_ACT, nullptr, W + W_OFF_WD0, x, ws.hd + oD,
-                                          nullptr, EpiDirPre<S>{F + F_OFF_BD0, dir_c, ray0, n_rays});
-  // x0 = relu(hd_pre) in place (relu commutes with the bf16 rounding)
-  for (int e = threadIdx.x; e < TILE_ROWS * DIR_HIDDEN; e += THREADS) {
-    bf16* p = x + (e / DIR_HIDDEN) * LD_ACT + e % DIR_HIDDEN;
-    if (__bfloat162float(*p) < 0.f) *p = __float2bfloat16_rn(0.f);
-  }
-  __syncthreads();
-  mma_layer<DIR_HIDDEN, DIR_HIDDEN, 0, false>(s0, s1, x, LD_ACT, nullptr, W + W_OFF_WD1, feat,
-                                              ws.x1 + oD, nullptr, Relu{F + F_OFF_BD1});
-  mma_layer<DIR_HIDDEN, DIR_HIDDEN, 0, false>(s0, s1, feat, LD_ACT, nullptr, W + W_OFF_WD2, x,
-                                              ws.x2 + oD, nullptr, Relu{F + F_OFF_BD2});
-  rgb_head(sm.rgb, x, W + W_OFF_WRGB, F + F_OFF_BRGB);
-  return x;
-}
-
-// The row cotangents of the heads (sm.gsig, sm.grgb: raw σ and rgb) to the
-// workspace, and the tile's partial sums of the heads' biases and weights
-// (a 256→1 and a 128→3 product: no tensor-core shape); x2 is the tile's
-// bf16 x2 in shared memory. Call after a barrier.
-__device__ __forceinline__ void head_partials(FwdSmem& sm, const Workspace& ws, int tile, const bf16* x2) {
-  const int tid = threadIdx.x;
-  const size_t row0 = (size_t)tile * TILE_ROWS;
-  for (int i = tid; i < TILE_ROWS; i += THREADS) ws.g_sigma[row0 + i] = sm.gsig[i];
-  for (int i = tid; i < TILE_ROWS * 3; i += THREADS) ws.g_rgb[row0 * 3 + i] = sm.grgb[i];
-  float* part = ws.tile_part + (size_t)tile * PART_COLS;
-  if (tid < 3) {
-    float sum = 0.f;
-    for (int r = 0; r < TILE_ROWS; ++r) sum += sm.grgb[r * 3 + tid];
-    part[F_OFF_BRGB + tid] = sum;
-  } else if (tid == 3) {
-    float sum = 0.f;
-    for (int r = 0; r < TILE_ROWS; ++r) sum += sm.gsig[r];
-    part[F_OFF_BA] = sum;
-  } else if (tid >= 32 && tid < 32 + (F_OFF_TOTAL - F_OFF_FREQS)) {
-    part[F_OFF_FREQS + tid - 32] = 0.f;
-  }
-  // WRGB: x2ᵀ · bf16(g_rgb)
-  for (int idx = tid; idx < DIR_HIDDEN * 3; idx += THREADS) {
-    const int k = idx / 3, ch = idx % 3;
-    float sum = 0.f;
-    for (int r = 0; r < TILE_ROWS; ++r)
-      sum += __bfloat162float(x2[r * LD_ACT + k]) * round_bf16(sm.grgb[r * 3 + ch]);
-    part[PART_WRGB + idx] = sum;
-  }
-  // WA: featᵀ · bf16(g_sigma); feat from the workspace (this CTA's writes)
-  for (int k = tid; k < HIDDEN; k += THREADS) {
-    float sum = 0.f;
-    const bf16* f = ws.feat + row0 * HIDDEN + k;
-    for (int r = 0; r < TILE_ROWS; ++r) sum += __bfloat162float(f[(size_t)r * HIDDEN]) * round_bf16(sm.gsig[r]);
-    part[PART_WA + k] = sum;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Trunk backward (dX)
-
-struct BwdArgs {
-  const bf16* W;   // packed forward weights (for Wrgb, Wa)
-  const bf16* WT;  // packed transposed weights
-  float* d_dir;    // (R, 128)
-  Workspace ws;
-  int n_rays;
-};
-
-struct BwdSmem {
-  bf16 act[2][TILE_ROWS * LD_ACT];
-  bf16 wstage[2][KC * LD_W];
-  float colsum[4 * HIDDEN];
-  float gsig[TILE_ROWS];
-  float grgb[TILE_ROWS * 3];
-};
-
-// Per tile: gx2 = bf16(g_rgb) Wrgbᵀ ⊙ [x2 > 0], then gy ← (bf16(gy) Wᵀ) ⊙
-// [act > 0] layer by layer down to gh0 as mma.sync GEMMs over transposed
-// weights, each bf16 cotangent written to the workspace; the f32 column
-// sums of each (bias and conditioning gradients) to the tile's partial
-// row, and the per-ray d_dir (the sum of gx0 over the ray's rows) straight
-// out.
-template <int S, bool SMALL>
-__global__ void __launch_bounds__(THREADS, 1) train_bwd_kernel(const BwdArgs a) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  BwdSmem& sm = *reinterpret_cast<BwdSmem*>(smem_raw);
-  constexpr int RAYS = TILE_ROWS / S;
-  const int tid = threadIdx.x;
-  const int tile = blockIdx.x;
-  const int ray0 = tile * RAYS;
-  const size_t row0 = (size_t)tile * TILE_ROWS;
-  const Workspace& ws = a.ws;
-  const size_t oH = row0 * HIDDEN, oD = row0 * DIR_HIDDEN;
-  float* part = ws.tile_part + (size_t)tile * PART_COLS;
-  bf16* A = sm.act[0];
-  bf16* B = sm.act[1];
-  bf16* s0 = sm.wstage[0];
-  bf16* s1 = sm.wstage[1];
-
-  for (int i = tid; i < TILE_ROWS; i += THREADS) sm.gsig[i] = ws.g_sigma[row0 + i];
-  for (int i = tid; i < TILE_ROWS * 3; i += THREADS) sm.grgb[i] = ws.g_rgb[row0 * 3 + i];
-  __syncthreads();
-
-  // gx2 = bf16(g_rgb) Wrgbᵀ ⊙ [x2 > 0]: thread (k, rows of block tid/128)
-  {
-    const int k = tid & (DIR_HIDDEN - 1), blk = tid / DIR_HIDDEN;
-    const bf16* wr = a.W + W_OFF_WRGB + k * 3;
-    const float w0 = __bfloat162float(wr[0]), w1 = __bfloat162float(wr[1]), w2 = __bfloat162float(wr[2]);
-    float sum = 0.f;
-    for (int r = blk * 32; r < blk * 32 + 32; ++r) {
-      float v = round_bf16(sm.grgb[r * 3]) * w0 + round_bf16(sm.grgb[r * 3 + 1]) * w1 +
-                round_bf16(sm.grgb[r * 3 + 2]) * w2;
-      if (!(__bfloat162float(ws.x2[oD + (size_t)r * DIR_HIDDEN + k]) > 0.f)) v = 0.f;
-      const bf16 b = __float2bfloat16_rn(v);
-      A[r * LD_ACT + k] = b;
-      ws.gx2[oD + (size_t)r * DIR_HIDDEN + k] = b;
-      sum += v;
-    }
-    sm.colsum[blk * DIR_HIDDEN + k] = sum;
-  }
-  __syncthreads();
-  tile_colsum<DIR_HIDDEN>(part + F_OFF_BD2, sm.colsum);
-
-  mma_layer<DIR_HIDDEN, DIR_HIDDEN, 0, true>(s0, s1, A, LD_ACT, nullptr, a.WT + WT_OFF_WD2T, B,
-                                             ws.gx1 + oD, sm.colsum, EpiMask{ws.x1 + oD, DIR_HIDDEN});
-  tile_colsum<DIR_HIDDEN>(part + F_OFF_BD1, sm.colsum);
-  mma_layer<DIR_HIDDEN, DIR_HIDDEN, 0, true>(s0, s1, B, LD_ACT, nullptr, a.WT + WT_OFF_WD1T, A,
-                                             ws.gx0 + oD, sm.colsum, EpiMask{ws.hd + oD, DIR_HIDDEN});
-  tile_colsum<DIR_HIDDEN>(part + F_OFF_BD0, sm.colsum);
-  // d_dir: the sum of gx0 over the ray's rows (S/32 blocks of 32)
-  for (int e = tid; e < RAYS * DIR_HIDDEN; e += THREADS) {
-    const int j = e / DIR_HIDDEN, c = e % DIR_HIDDEN;
-    if (ray0 + j >= a.n_rays) continue;
-    float sum = 0.f;
-    for (int b = j * (S / 32); b < (j + 1) * (S / 32); ++b) sum += sm.colsum[b * DIR_HIDDEN + c];
-    a.d_dir[(size_t)(ray0 + j) * DIR_HIDDEN + c] = sum;
-  }
-  mma_layer<HIDDEN, DIR_HIDDEN, 0, true>(s0, s1, A, LD_ACT, nullptr, a.WT + WT_OFF_WD0T, B,
-                                         ws.gfeat + oH, sm.colsum,
-                                         EpiAddSigma{sm.gsig, a.W + W_OFF_WA});
-  tile_colsum<HIDDEN>(part + F_OFF_BF, sm.colsum);
-  // g: the cotangent just computed; o: the other buffer
-  bf16* g = B;
-  bf16* o = A;
-  auto flip = [&]() {
-    bf16* t = g;
-    g = o;
-    o = t;
+  auto col = [&](int c) {
+    if (c >= n_cols) return 0.f;
+    if (c < 3) return c == 0 ? x0 : (c == 1 ? x1 : x2);
+    const int p = c - 3, d = p % 3;
+    const float phase = (p % 6) >= 3 ? 1.57079632679489661923f : 0.f;
+    return sinf(__fadd_rn(__fmul_rn(d == 0 ? x0 : (d == 1 ? x1 : x2), freqs[p / 6]), phase));
   };
-  // fc_feat's input: h5, or h4 in the smaller model
-  constexpr int LAST = SMALL ? 4 : 5;
-  mma_layer<HIDDEN, HIDDEN, 0, true>(s0, s1, g, LD_ACT, nullptr, a.WT + WT_OFF_WFT, o,
-                                     ws.gh[LAST] + oH, sm.colsum, EpiMask{ws.h[LAST] + oH, HIDDEN});
-  tile_colsum<HIDDEN>(part + (SMALL ? F_OFF_B4 : F_OFF_B5), sm.colsum);
-  flip();
-  if constexpr (SMALL) {
-    for (int c = tid; c < HIDDEN; c += THREADS) part[F_OFF_B5 + c] = 0.f;
-  } else {
-    mma_layer<HIDDEN, HIDDEN, 0, true>(s0, s1, g, LD_ACT, nullptr, a.WT + WT_OFF_W5T, o,
-                                       ws.gh[4] + oH, sm.colsum, EpiMask{ws.h[4] + oH, HIDDEN});
-    tile_colsum<HIDDEN>(part + F_OFF_B4, sm.colsum);
-    flip();
+#pragma unroll 1
+  for (int j = 0; j < 32; j += 2) {
+    const int c = c0 + j;
+    const uint32_t v = pack_bf16(col(c), col(c + 1));
+    *reinterpret_cast<uint32_t*>(xin + sw128(r, c)) = v;
+    if (xg != nullptr) *reinterpret_cast<uint32_t*>(xg + sw128(r, c)) = v;
   }
-  mma_layer<HIDDEN, HIDDEN, 0, true>(s0, s1, g, LD_ACT, nullptr, a.WT + WT_OFF_W4T, o,
-                                     ws.gh[3] + oH, sm.colsum, EpiMask{ws.h[3] + oH, HIDDEN});
-  tile_colsum<HIDDEN>(part + F_OFF_COND3, sm.colsum);
-  flip();
-  mma_layer<HIDDEN, HIDDEN, 0, true>(s0, s1, g, LD_ACT, nullptr, a.WT + WT_OFF_W3HT, o,
-                                     ws.gh[2] + oH, sm.colsum, EpiMask{ws.h[2] + oH, HIDDEN});
-  tile_colsum<HIDDEN>(part + F_OFF_B2, sm.colsum);
-  flip();
-  mma_layer<HIDDEN, HIDDEN, 0, true>(s0, s1, g, LD_ACT, nullptr, a.WT + WT_OFF_W2T, o,
-                                     ws.gh[1] + oH, sm.colsum, EpiMask{ws.h[1] + oH, HIDDEN});
-  tile_colsum<HIDDEN>(part + F_OFF_B1, sm.colsum);
-  flip();
-  mma_layer<HIDDEN, HIDDEN, 0, true>(s0, s1, g, LD_ACT, nullptr, a.WT + WT_OFF_W1T, o,
-                                     ws.gh[0] + oH, sm.colsum, EpiMask{ws.h[0] + oH, HIDDEN});
-  tile_colsum<HIDDEN>(part + F_OFF_COND0, sm.colsum);
 }
 
-// The rest of a pass after its forward kernel: train_bwd_kernel, then dW =
-// Xᵀ·bf16(gY) for the tensor-core products (W3 in two: its xin rows and
-// its h2 rows) over whole 64-row chunks, and the partials summed over tiles
-// (biases, cond0/cond3, the heads' weights). dW is the f32 gradient in the
-// packed weight layout (W_OFF_TOTAL), dF in the bias-row layout
+// The item a consumer warpgroup takes in a round.
+__device__ __forceinline__ int item_of(int pair, int wg) { return pair * CONSUMERS + wg; }
+
+// The encoder warps (ENCODERS · 32 threads, index e): every unit of both
+// consumer warpgroups, in their order, each into the next of the
+// warpgroup's two xin buffers once its skip layer has released it.
+template <int S>
+__device__ __forceinline__ void encode(Smem& sm, const PassArgs& a, int n_pairs, int e) {
+  using G = Geometry<S>;
+  const int n_items = G::items(a.n_rays);
+  int done[CONSUMERS] = {};
+  for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
+    for (int u = 0; u < G::UNITS; ++u) {
+#pragma unroll
+      for (int wg = 0; wg < CONSUMERS; ++wg) {
+        const int b = done[wg] & 1;
+        mbar_wait(&sm.xin_empty[wg][b], ((done[wg] >> 1) & 1) ^ 1);
+        const int item = item_of(pair, wg);
+        unsigned char* xg = item < n_items ? a.ws.unit(WS_XIN, item * G::UNITS + u) : nullptr;
+        for (int task = e; task < 128; task += ENCODERS * 32)
+          encode_task<S>(sm.xin[wg][b], xg, task, a, sm.f + F_OFF_FREQS, item * G::WG_RAYS, u * 64);
+        fence_proxy_async();
+        mbar_arrive(&sm.xin_full[wg][b]);
+        ++done[wg];
+      }
+    }
+  }
+}
+
+// The forward of one unit: K2's chain, each activation also stored to
+// the workspace (when `live`), the raw σ and rgb of its rows into
+// sigma / rgb (rows u·64 ..).
+template <int S, bool SMALL>
+__device__ __forceinline__ void forward_unit(Smem& sm, const PassArgs& a, Ring& ring, float* acc, uint32_t* act,
+                                             int wg, int u, int unit, int ray, bool live, int& units) {
+  const int b = units & 1;
+  mbar_wait(&sm.xin_full[wg][b], (units >> 1) & 1);
+  const uint32_t xin = smem_u32(sm.xin[wg][b]);
+  const Workspace& ws = a.ws;
+  layer<HIDDEN, 1, 1>(acc, act, xin, sm, ring);
+  acc_to_a<HIDDEN, true>(acc, act, EpiBias{sm.f + F_OFF_COND0});
+  if (live) store_frag<HIDDEN>(ws.unit(WS_H0, unit), act);
+  layer<HIDDEN, 4, 0>(acc, act, xin, sm, ring);
+  acc_to_a<HIDDEN, true>(acc, act, EpiBias{sm.f + F_OFF_B1});
+  if (live) store_frag<HIDDEN>(ws.unit(WS_H1, unit), act);
+  layer<HIDDEN, 4, 0>(acc, act, xin, sm, ring);
+  acc_to_a<HIDDEN, true>(acc, act, EpiBias{sm.f + F_OFF_B2});
+  if (live) store_frag<HIDDEN>(ws.unit(WS_H2, unit), act);
+  layer<HIDDEN, 5, 1>(acc, act, xin, sm, ring);  // the skip: [xin; h2]
+  if ((threadIdx.x & 127) == 0) mbar_arrive(&sm.xin_empty[wg][b]);
+  ++units;
+  acc_to_a<HIDDEN, true>(acc, act, EpiBias{sm.f + F_OFF_COND3});
+  if (live) store_frag<HIDDEN>(ws.unit(WS_H3, unit), act);
+  layer<HIDDEN, 4, 0>(acc, act, xin, sm, ring);
+  acc_to_a<HIDDEN, true>(acc, act, EpiBias{sm.f + F_OFF_B4});
+  if (live) store_frag<HIDDEN>(ws.unit(WS_H4, unit), act);
+  if constexpr (!SMALL) {
+    layer<HIDDEN, 4, 0>(acc, act, xin, sm, ring);
+    acc_to_a<HIDDEN, true>(acc, act, EpiBias{sm.f + F_OFF_B5});
+    if (live) store_frag<HIDDEN>(ws.unit(WS_H5, unit), act);
+  }
+  layer<HIDDEN, 4, 0>(acc, act, xin, sm, ring);
+  // feat: no relu
+  acc_to_a<HIDDEN, false>(acc, act, EpiBias{sm.f + F_OFF_BF});
+  if (live) store_frag<HIDDEN>(ws.unit(WS_FEAT, unit), act);
+  float hs[4] = {0.f, 0.f, 0.f, 0.f};
+  head<HIDDEN>(hs, act, smem_u32(sm.wa8));
+  const float* dir_c = ray < a.n_rays ? a.dir_c + (size_t)ray * DIR_HIDDEN : nullptr;
+  layer<DIR_HIDDEN, 4, 0>(acc, act, xin, sm, ring);
+  // x0 = relu(hd_pre): its mask is hd_pre's, and it is WD1's dW operand
+  acc_to_a<DIR_HIDDEN, true>(acc, act, EpiDir{sm.f + F_OFF_BD0, dir_c});
+  if (live) store_frag<DIR_HIDDEN>(ws.unit(WS_X0, unit), act);
+  layer<DIR_HIDDEN, 2, 0>(acc, act, xin, sm, ring);
+  acc_to_a<DIR_HIDDEN, true>(acc, act, EpiBias{sm.f + F_OFF_BD1});
+  if (live) store_frag<DIR_HIDDEN>(ws.unit(WS_X1, unit), act);
+  layer<DIR_HIDDEN, 2, 0>(acc, act, xin, sm, ring);
+  acc_to_a<DIR_HIDDEN, true>(acc, act, EpiBias{sm.f + F_OFF_BD2});
+  if (live) store_frag<DIR_HIDDEN>(ws.unit(WS_X2, unit), act);
+  float hc[4] = {0.f, 0.f, 0.f, 0.f};
+  head<DIR_HIDDEN>(hc, act, smem_u32(sm.wrgb8));
+  float* sigma = sm.sigma[wg];
+  float* rgb = sm.rgb[wg];
+  const int lane = threadIdx.x & 31, r0 = frag_row();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = u * 64 + r0 + 8 * h;
+    if ((lane & 3) == 0) {
+      sigma[row] = hs[2 * h] + sm.f[F_OFF_BA];
+      rgb[row * 3] = hc[2 * h] + sm.f[F_OFF_BRGB];
+      rgb[row * 3 + 1] = hc[2 * h + 1] + sm.f[F_OFF_BRGB + 1];
+    } else if ((lane & 3) == 1) {
+      rgb[row * 3 + 2] = hc[2 * h] + sm.f[F_OFF_BRGB + 2];
+    }
+  }
+}
+
+// -- dX -------------------------------------------------------------------------
+
+// acc ⊙ [the activation image > 0] (no mask when img is null), then bf16
+// into act (the next product's A) and, when live, into the cotangent's
+// image `gout`; then the f32 column sums into the warp's partial row. The
+// mask's words are loaded into act, whose old values (the layer's A) are
+// dead here.
+template <int N>
+__device__ __forceinline__ void dx_epilogue(float* acc, uint32_t* act, const unsigned char* img, unsigned char* gout,
+                                            float* part, bool live) {
+  if (img != nullptr) {
+    load_frag<N>(act, img);
+#pragma unroll
+    for (int p = 0; p < N / 4; ++p) {
+      const float2 m = unpack_bf16(act[p]);
+      acc[2 * p] = m.x > 0.f ? acc[2 * p] : 0.f;
+      acc[2 * p + 1] = m.y > 0.f ? acc[2 * p + 1] : 0.f;
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < N / 4; ++p) act[p] = pack_bf16(acc[2 * p], acc[2 * p + 1]);
+  if (live) store_frag<N>(gout, act);
+  colsum<N>(acc, part, live);
+}
+
+// The heads' parts of a unit's dX, before its first product: the tile's
+// WA sums featᵀ·bf16(g_σ) and WRGB sums x2ᵀ·bf16(g_rgb), the σ / rgb
+// biases' sums, and gx2 = bf16(g_rgb)·Wrgbᵀ ⊙ [x2 > 0] into acc[0, 64).
+// The 128-wide dX layers that follow use only acc[0, 64) and act[0, 32),
+// so the upper halves hold the temporaries: no register beyond the
+// chain's 128 + 64 is live here.
+__device__ __forceinline__ void dx_heads(Smem& sm, const PassArgs& a, float* acc, uint32_t* act, int wg, int u,
+                                         int unit, float* part, bool live) {
+  const float* gsig = sm.gsig[wg] + u * 64;
+  const float* grgb = sm.grgb[wg] + u * 64 * 3;
+  const int r0 = frag_row(), lane = threadIdx.x & 31;
+  const int g8 = lane >> 2;
+  float* v = acc + 64;      // 64 column partials
+  uint32_t* x2 = act + 32;  // the unit's x2 fragment (32 pairs)
+  // WA: the 2-row fold of feat · bf16(g_σ), 64 columns a thread
+#pragma unroll
+  for (int i = 0; i < HIDDEN / 4; ++i) v[i] = 0.f;
+  const float g0 = round_bf16(gsig[r0]), g1 = round_bf16(gsig[r0 + 8]);
+  load_frag<HIDDEN>(act, a.ws.unit(WS_FEAT, unit));  // act is dead here
+#pragma unroll
+  for (int p = 0; p < HIDDEN / 4; ++p) {
+    const float2 f = unpack_bf16(act[p]);
+    const float g = (p & 1) ? g1 : g0;
+    v[p & ~1] += f.x * g;  // column pair group p >> 1: v[2j], v[2j + 1]
+    v[(p & ~1) + 1] += f.y * g;
+  }
+  scatter_sum<HIDDEN / 4>(v);
+  if (live) {
+#pragma unroll
+    for (int k = 0; k < HIDDEN / 32; k += 2) {
+      float2* p = reinterpret_cast<float2*>(part + PART_WA + fold_col(g8 * (HIDDEN / 32) + k));
+      float2 o = *p;
+      o.x += v[k];
+      o.y += v[k + 1];
+      *p = o;
+    }
+  }
+  // x2: the mask of gx2 and the left operand of WRGB; gx2 into acc
+  load_frag<DIR_HIDDEN>(x2, a.ws.unit(WS_X2, unit));
+  float gr[2][3];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) gr[h][ch] = round_bf16(grgb[(r0 + 8 * h) * 3 + ch]);
+#pragma unroll
+  for (int p = 0; p < DIR_HIDDEN / 4; ++p) {
+    const int h = p & 1, col = fold_col(2 * (p >> 1));
+    const float2 m = unpack_bf16(x2[p]);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float* w = sm.wrgb + (col + e) * 3;
+      const float gx = gr[h][0] * w[0] + gr[h][1] * w[1] + gr[h][2] * w[2];
+      acc[2 * p + e] = (e == 0 ? m.x : m.y) > 0.f ? gx : 0.f;
+    }
+  }
+  // WRGB, a channel at a time
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+#pragma unroll
+    for (int j = 0; j < DIR_HIDDEN / 8; ++j) {
+      const float2 m0 = unpack_bf16(x2[2 * j]), m1 = unpack_bf16(x2[2 * j + 1]);
+      v[2 * j] = m0.x * gr[0][ch] + m1.x * gr[1][ch];
+      v[2 * j + 1] = m0.y * gr[0][ch] + m1.y * gr[1][ch];
+    }
+    scatter_sum<DIR_HIDDEN / 4>(v);
+    if (live) {
+#pragma unroll
+      for (int k = 0; k < DIR_HIDDEN / 32; ++k) part[PART_WRGB + fold_col(g8 * (DIR_HIDDEN / 32) + k) * 3 + ch] += v[k];
+    }
+  }
+  // the σ and rgb biases: one lane a column, the unit's rows in order
+  const int lw = (threadIdx.x >> 5) & 3;
+  if (live && lw == 0 && lane < 4) {
+    float s = 0.f;
+    for (int r = 0; r < 64; ++r) s += lane < 3 ? grgb[r * 3 + lane] : gsig[r];
+    part[lane < 3 ? F_OFF_BRGB + lane : F_OFF_BA] += s;
+  }
+}
+
+// The σ head's cotangent joins fc_feat's: gfeat = bf16(g_σ) ⊗ wa + acc.
+__device__ __forceinline__ void add_sigma(float* acc, const float* gsig, const float* wa) {
+  const int r0 = frag_row();
+  const float g0 = round_bf16(gsig[r0]), g1 = round_bf16(gsig[r0 + 8]);
+#pragma unroll
+  for (int p = 0; p < HIDDEN / 4; ++p) {
+    const float g = (p & 1) ? g1 : g0;
+    const int col = fold_col(2 * (p >> 1));
+    acc[2 * p] = g * wa[col] + acc[2 * p];
+    acc[2 * p + 1] = g * wa[col + 1] + acc[2 * p + 1];
+  }
+}
+
+// The dX chain of one unit, from the item's f32 head cotangents in
+// gsig / grgb: each cotangent masked, stored and summed (dx_epilogue),
+// d_dir of the unit's rays.
+template <int S, bool SMALL>
+__device__ __forceinline__ void dx_unit(Smem& sm, const PassArgs& a, Ring& ring, float* acc, uint32_t* act, int wg,
+                                        int u, int unit, int ray0, float* part, bool live, int& dx_units) {
+  const Workspace& ws = a.ws;
+  const uint32_t none = 0;
+  dx_heads(sm, a, acc, act, wg, u, unit, part, live);  // gx2, masked, in acc
+  dx_epilogue<DIR_HIDDEN>(acc, act, nullptr, ws.unit(WS_GX2, unit), part + F_OFF_BD2, live);
+  layer<DIR_HIDDEN, 2, 0>(acc, act, none, sm, ring);  // gx1 = gx2·WD2ᵀ ⊙ [x1 > 0]
+  dx_epilogue<DIR_HIDDEN>(acc, act, ws.unit(WS_X1, unit), ws.unit(WS_GX1, unit), part + F_OFF_BD1, live);
+  layer<DIR_HIDDEN, 2, 0>(acc, act, none, sm, ring);  // gx0 = gx1·WD1ᵀ ⊙ [x0 > 0]
+  dx_epilogue<DIR_HIDDEN>(acc, act, ws.unit(WS_X0, unit), ws.unit(WS_GX0, unit), part + F_OFF_BD0, live);
+  // d_dir: the warps' column sums of gx0 (acc[0, 4) of each lane) summed
+  // over the ray's warps in order
+  {
+    const int lane = threadIdx.x & 31, lw = (threadIdx.x >> 5) & 3, t = threadIdx.x & 127;
+    float* ds = sm.dsum[wg][dx_units & 1][lw];
+    const int base = (lane >> 2) * (DIR_HIDDEN / 32);
+#pragma unroll
+    for (int k = 0; k < DIR_HIDDEN / 32; ++k) ds[fold_col(base + k)] = acc[k];
+    named_bar_sync(BAR_WG + wg, 128);
+    const float(*d)[DIR_HIDDEN] = sm.dsum[wg][dx_units & 1];
+    if constexpr (S == 32) {
+      // two rays a unit: warps 0-1 and 2-3
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int ray = ray0 + r;
+        if (live && ray < a.n_rays) a.d_dir[(size_t)ray * DIR_HIDDEN + t] = d[2 * r][t] + d[2 * r + 1][t];
+      }
+    } else {
+      const float s = ((d[0][t] + d[1][t]) + d[2][t]) + d[3][t];
+      if (S == 64 || u == 1) {
+        const float total = S == 64 ? s : sm.dacc[wg][t] + s;
+        if (live && ray0 < a.n_rays) a.d_dir[(size_t)ray0 * DIR_HIDDEN + t] = total;
+      } else {
+        sm.dacc[wg][t] = s;
+      }
+    }
+    ++dx_units;
+  }
+  layer<HIDDEN, 2, 0>(acc, act, none, sm, ring);  // gfeat = gx0·WD0ᵀ + bf16(g_σ) ⊗ wa
+  add_sigma(acc, sm.gsig[wg] + u * 64, sm.wa);
+  dx_epilogue<HIDDEN>(acc, act, nullptr, ws.unit(WS_GFEAT, unit), part + F_OFF_BF, live);
+  // fc_feat's input: h5, or h4 in the smaller model
+  constexpr int LAST = SMALL ? WS_H4 : WS_H5;
+  layer<HIDDEN, 4, 0>(acc, act, none, sm, ring);  // WFᵀ
+  dx_epilogue<HIDDEN>(acc, act, ws.unit(LAST, unit), ws.unit(SMALL ? WS_GH4 : WS_GH5, unit),
+                      part + (SMALL ? F_OFF_B4 : F_OFF_B5), live);
+  if constexpr (!SMALL) {
+    layer<HIDDEN, 4, 0>(acc, act, none, sm, ring);  // W5ᵀ
+    dx_epilogue<HIDDEN>(acc, act, ws.unit(WS_H4, unit), ws.unit(WS_GH4, unit), part + F_OFF_B4, live);
+  }
+  layer<HIDDEN, 4, 0>(acc, act, none, sm, ring);  // W4ᵀ
+  dx_epilogue<HIDDEN>(acc, act, ws.unit(WS_H3, unit), ws.unit(WS_GH3, unit), part + F_OFF_COND3, live);
+  layer<HIDDEN, 4, 0>(acc, act, none, sm, ring);  // W3hᵀ
+  dx_epilogue<HIDDEN>(acc, act, ws.unit(WS_H2, unit), ws.unit(WS_GH2, unit), part + F_OFF_B2, live);
+  layer<HIDDEN, 4, 0>(acc, act, none, sm, ring);  // W2ᵀ
+  dx_epilogue<HIDDEN>(acc, act, ws.unit(WS_H1, unit), ws.unit(WS_GH1, unit), part + F_OFF_B1, live);
+  layer<HIDDEN, 4, 0>(acc, act, none, sm, ring);  // W1ᵀ
+  dx_epilogue<HIDDEN>(acc, act, ws.unit(WS_H0, unit), ws.unit(WS_GH0, unit), part + F_OFF_COND0, live);
+}
+
+// A consumer warpgroup over its items: each unit's forward, the middle
+// (`policy`: the rows' f32 cotangents of raw σ and rgb into gsig / grgb,
+// zero past the last ray), each unit's dX. A warpgroup whose item is past
+// the last ray walks the same chunks and stores nothing.
+template <int S, bool SMALL, class Policy>
+__device__ __forceinline__ void consume(Smem& sm, const PassArgs& a, const Policy& policy, int wg, int n_pairs,
+                                        float* part) {
+  using G = Geometry<S>;
+  const int lane = threadIdx.x & 31, lw = (threadIdx.x >> 5) & 3;
+  const int r0 = frag_row();
+  int units = 0, dx_units = 0;
+  Ring ring;
+  float acc[128];
+  uint32_t act[64];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) act[i] = 0u;
+  const int n_items = G::items(a.n_rays);
+  for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
+    const int item = item_of(pair, wg);
+    const bool live = item < n_items;
+    const int ray0 = item * G::WG_RAYS;
+#pragma unroll 1
+    for (int u = 0; u < G::UNITS; ++u)
+      forward_unit<S, SMALL>(sm, a, ring, acc, act, wg, u, item * G::UNITS + u, ray0 + (u * 64 + r0) / S, live,
+                             units);
+    // the chain's registers hold nothing the middle needs: constants, so
+    // the compiler can hand their registers to the compositing
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) act[i] = 0u;
+    named_bar_sync(BAR_WG + wg, 128);
+    policy.template middle<S>(sm.sigma[wg], sm.rgb[wg], sm.gsig[wg], sm.grgb[wg], ray0, lw, lane);
+    named_bar_sync(BAR_WG + wg, 128);
+#pragma unroll 1
+    for (int u = 0; u < G::UNITS; ++u)
+      dx_unit<S, SMALL>(sm, a, ring, acc, act, wg, u, item * G::UNITS + u, ray0, part, live, dx_units);
+  }
+}
+
+template <int S, bool SMALL, class Policy>
+__global__ void __launch_bounds__(THREADS, 1) train_pass_kernel(const PassArgs a, const Policy policy) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t pad = (ATOM_BYTES - (smem_u32(smem_raw) & (ATOM_BYTES - 1))) & (ATOM_BYTES - 1);
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw + pad);
+  const int t = threadIdx.x;
+  for (int i = t; i < F_OFF_TOTAL; i += THREADS) sm.f[i] = a.F[i];
+  for (int i = t; i < HIDDEN; i += THREADS) sm.wa[i] = __bfloat162float(a.W[W_OFF_WA + i]);
+  for (int i = t; i < DIR_HIDDEN * 3; i += THREADS) sm.wrgb[i] = __bfloat162float(a.W[W_OFF_WRGB + i]);
+  // element (k, n) of a head's (K, 8) weight: chunk k / 64, byte sw128(n, k % 64)
+  for (int i = t; i < HIDDEN * 8; i += THREADS) {
+    const int k = i >> 3, n = i & 7;
+    *reinterpret_cast<bf16*>(sm.wa8[k / KCH] + sw128(n, k % KCH)) =
+        n == 0 ? a.W[W_OFF_WA + k] : __float2bfloat16_rn(0.f);
+  }
+  for (int i = t; i < DIR_HIDDEN * 8; i += THREADS) {
+    const int k = i >> 3, n = i & 7;
+    *reinterpret_cast<bf16*>(sm.wrgb8[k / KCH] + sw128(n, k % KCH)) =
+        n < 3 ? a.W[W_OFF_WRGB + k * 3 + n] : __float2bfloat16_rn(0.f);
+  }
+  fence_proxy_async();  // the images are read by wgmma
+  if (t == 0) {
+    for (int s = 0; s < RING; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], CONSUMERS);
+    }
+    for (int w = 0; w < CONSUMERS; ++w) {
+      for (int b = 0; b < 2; ++b) {
+        mbar_init(&sm.xin_full[w][b], ENCODERS * 32);
+        mbar_init(&sm.xin_empty[w][b], 1);
+      }
+    }
+    mbar_init_fence();
+  }
+  // each consumer warp's running partial row starts at zero
+  float* part = nullptr;
+  if (t < CONSUMERS * 128) {
+    part = a.ws.warp_part + ((size_t)blockIdx.x * WARPS_A_CTA + (t >> 5)) * PART_COLS;
+    for (int c = t & 31; c < PART_COLS; c += 32) part[c] = 0.f;
+    __syncwarp();
+  }
+  __syncthreads();
+
+  const int n_pairs = Geometry<S>::pairs(a.n_rays);
+  const int wg = t / 128;
+  if (wg == CONSUMERS) {
+    reg_dealloc<40>();
+    const int w = (t >> 5) - 4 * CONSUMERS;  // the warp in the producer warpgroup
+    if (t == CONSUMERS * 128) {
+      produce<S, SMALL>(sm, a, n_pairs);
+    } else if (w >= 1 && w <= ENCODERS) {
+      encode<S>(sm, a, n_pairs, t - CONSUMERS * 128 - 32);
+    }
+  } else {
+    reg_alloc<232>();
+    consume<S, SMALL, Policy>(sm, a, policy, wg, n_pairs, part);
+    // the CTA's partial row: its warps' rows added in order
+    named_bar_sync(BAR_CONSUMERS, CONSUMERS * 128);
+    const float* rows = a.ws.warp_part + (size_t)blockIdx.x * WARPS_A_CTA * PART_COLS;
+    for (int c = t; c < PART_COLS; c += CONSUMERS * 128) {
+      float s = 0.f;
+      for (int w = 0; w < WARPS_A_CTA; ++w) s += rows[(size_t)w * PART_COLS + c];
+      a.ws.tile_part[(size_t)blockIdx.x * PART_COLS + c] = s;
+    }
+  }
+}
+
+// The pass: train_pass_kernel, then dW = Xᵀ·bf16(gY) on wgmma (W3 in two:
+// its xin rows and its h2 rows), and the partials summed in order: dW in
+// the packed weight layout (W_OFF_TOTAL), dF in the bias-row layout
 // (F_OFF_TOTAL: COND0/COND3 hold d_cond0/d_cond3; FREQS is 0). Returns a
 // cudaError_t.
-template <int S, bool SMALL>
-int launch_paper_backward(const BwdArgs& ba, long long tiles, float* dW, float* dF, cudaStream_t st) {
-  int err = launch_tiles(train_bwd_kernel<S, SMALL>, sizeof(BwdSmem), (int)tiles, st, ba);
-  if (err != 0) return err;
-  const Workspace& ws = ba.ws;
-  const int rows = (int)(tiles * TILE_ROWS);
-  const DwMat mats[] = {
-      {ws.xin, ws.gh[0], K_XIN, K_XIN, HIDDEN, W_OFF_W0, 0},
-      {ws.h[0], ws.gh[1], HIDDEN, HIDDEN, HIDDEN, W_OFF_W1, 0},
-      {ws.h[1], ws.gh[2], HIDDEN, HIDDEN, HIDDEN, W_OFF_W2, 0},
-      {ws.xin, ws.gh[3], K_XIN, K_XIN, HIDDEN, W_OFF_W3, 0},
-      {ws.h[2], ws.gh[3], HIDDEN, HIDDEN, HIDDEN, W_OFF_W3 + K_XIN * HIDDEN, 0},
-      {ws.h[3], ws.gh[4], HIDDEN, HIDDEN, HIDDEN, W_OFF_W4, 0},
-      {ws.h[SMALL ? 4 : 5], ws.gfeat, HIDDEN, HIDDEN, HIDDEN, W_OFF_WF, 0},
-      {ws.feat, ws.gx0, HIDDEN, HIDDEN, DIR_HIDDEN, W_OFF_WD0, 0},
-      {ws.hd, ws.gx1, DIR_HIDDEN, DIR_HIDDEN, DIR_HIDDEN, W_OFF_WD1, 1},
-      {ws.x1, ws.gx2, DIR_HIDDEN, DIR_HIDDEN, DIR_HIDDEN, W_OFF_WD2, 0},
-      {ws.h[4], ws.gh[5], HIDDEN, HIDDEN, HIDDEN, W_OFF_W5, 0},
+template <int S, bool SMALL, class Policy>
+int launch_pass(const PassArgs& a, const Policy& policy, float* dW, float* dF, cudaStream_t st) {
+  const int ctas = pass_ctas(a.n_rays, S);
+  auto kernel = train_pass_kernel<S, SMALL, Policy>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<ctas, THREADS, SMEM_BYTES, st>>>(a, policy);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const Workspace& ws = a.ws;
+  auto B = [&](int b) { return ws.buf[b]; };
+  const DwgMat mats[] = {
+      {B(WS_XIN), B(WS_GH0), K_XIN, HIDDEN, W_OFF_W0},
+      {B(WS_H0), B(WS_GH1), HIDDEN, HIDDEN, W_OFF_W1},
+      {B(WS_H1), B(WS_GH2), HIDDEN, HIDDEN, W_OFF_W2},
+      {B(WS_XIN), B(WS_GH3), K_XIN, HIDDEN, W_OFF_W3},
+      {B(WS_H2), B(WS_GH3), HIDDEN, HIDDEN, W_OFF_W3 + K_XIN * HIDDEN},
+      {B(WS_H3), B(WS_GH4), HIDDEN, HIDDEN, W_OFF_W4},
+      {B(SMALL ? WS_H4 : WS_H5), B(WS_GFEAT), HIDDEN, HIDDEN, W_OFF_WF},
+      {B(WS_FEAT), B(WS_GX0), HIDDEN, DIR_HIDDEN, W_OFF_WD0},
+      {B(WS_X0), B(WS_GX1), DIR_HIDDEN, DIR_HIDDEN, W_OFF_WD1},
+      {B(WS_X1), B(WS_GX2), DIR_HIDDEN, DIR_HIDDEN, W_OFF_WD2},
+      {B(WS_H4), B(WS_GH5), HIDDEN, HIDDEN, W_OFF_W5},
   };
   // the smaller model has no W5: the last entry drops out, and its slot,
-  // which no dw block covers, is zeroed after the reduction
+  // which no dW block covers, is zeroed after the reduction
   const int n_mats = (int)(sizeof(mats) / sizeof(mats[0])) - (SMALL ? 1 : 0);
-  err = launch_dw(mats, n_mats, ws.dw_part, W_OFF_WA, rows, dW, st);
+  int err = launch_dw_wgmma(mats, n_mats, ws.dw_part, W_OFF_WA, pass_units(a.n_rays, S), st);
   if (err != 0) return err;
+  reduce_rows<<<(W_OFF_WA + 255) / 256, 256, 0, st>>>(ws.dw_part, DWG_SEGS, W_OFF_WA, W_OFF_WA, dW, nullptr);
   if (SMALL) {
-    cudaError_t e = cudaMemsetAsync(dW + W_OFF_W5, 0, (size_t)HIDDEN * HIDDEN * sizeof(float), st);
+    e = cudaMemsetAsync(dW + W_OFF_W5, 0, (size_t)HIDDEN * HIDDEN * sizeof(float), st);
     if (e != cudaSuccess) return (int)e;
   }
-  reduce_rows<<<(PART_COLS + 255) / 256, 256, 0, st>>>(ws.tile_part, (int)tiles, PART_COLS, F_OFF_TOTAL, dF,
+  reduce_rows<<<(PART_COLS + 255) / 256, 256, 0, st>>>(ws.tile_part, ctas, PART_COLS, F_OFF_TOTAL, dF,
                                                        dW + W_OFF_WA);
   return (int)cudaGetLastError();
 }
 
+}  // namespace k1
 }  // namespace nerface

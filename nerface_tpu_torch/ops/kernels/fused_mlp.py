@@ -43,7 +43,9 @@ and has a backward (training and σ-noise renders).
   (`pack_sm90_chunks`): the same offsets, each matrix's 64-row K chunks
   rewritten as the byte image of wgmma's 128-byte-swizzled K-major B
   operand (`csrc/wgmma_tile.cuh`), so one bulk copy puts a chunk in shared
-  memory ready for the tensor cores.
+  memory ready for the tensor cores. K1 and K3b take the same images of
+  the weights and of the transposed trunk, gathered from their bundle on
+  every call by one cached index (`_backward_weight_gather`).
 
 Disparity keeps the TPU kernel's guard, 1 / max(1e-10, depth / max(acc,
 1e-38)): finite where acc = 0 (the unfused path's depth / acc is NaN there).
@@ -53,6 +55,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Dict, Optional, Sequence, Union
 
 import torch
@@ -199,13 +202,24 @@ def _layout_weights(params: Dict[str, torch.Tensor], cond: torch.Tensor, d_pe: i
     return cond0, cond3, _layout_matrices(params, d_pe, dc, small)
 
 
-def pack_kernel_operands(cond0, cond3, W, freqs: torch.Tensor):
-    """(bf16 weights, f32 rows) flat buffers in `W_LAYOUT` / `F_LAYOUT`
-    order, on the params' device; a W without w5/b5 (the smaller model)
-    leaves their slots zero."""
+def _matrix_shapes(n_enc: int) -> Dict[str, tuple]:
+    """(in, out) of every kernel-layout matrix of a bundle with `n_enc`
+    encoding columns."""
+    shapes = {n: (HIDDEN, HIDDEN) for n in WEIGHT_NAMES}
+    shapes.update({"w0a": (3, HIDDEN), "w0b": (n_enc, HIDDEN), "w3xa": (3, HIDDEN),
+                   "w3xb": (n_enc, HIDDEN), "wa": (HIDDEN, 1), "wd0": (HIDDEN, DIR_HIDDEN),
+                   "wd1": (DIR_HIDDEN, DIR_HIDDEN), "wd2": (DIR_HIDDEN, DIR_HIDDEN),
+                   "wrgb": (DIR_HIDDEN, 3)})
+    return shapes
+
+
+def _weight_matrices(W):
+    """`W_LAYOUT`'s matrices by name from the kernel-layout matrices `W`:
+    W0 and W3 with their encoding rows zero-padded to K_XIN, and a zero W5
+    where `W` has no w5 (the smaller model)."""
     n_enc = W["w0b"].shape[0]
     zpad = W["w0a"].new_zeros(K_XIN - 3 - n_enc, HIDDEN)
-    mats = {
+    return {
         "W0": torch.cat([W["w0a"], W["w0b"], zpad]),
         "W1": W["w1"], "W2": W["w2"],
         "W3": torch.cat([W["w3xa"], W["w3xb"], zpad, W["w3h"]]),
@@ -213,9 +227,17 @@ def pack_kernel_operands(cond0, cond3, W, freqs: torch.Tensor):
         "WF": W["wf"], "WD0": W["wd0"], "WD1": W["wd1"], "WD2": W["wd2"],
         "WA": W["wa"], "WRGB": W["wrgb"],
     }
-    wbuf = torch.cat(
-        [mats[name].reshape(-1) for name, *_ in W_LAYOUT]
-    ).to(torch.bfloat16)
+
+
+def _transposed_matrices(W):
+    """`WT_LAYOUT`'s matrices by name: each (in, out) matrix of `W`
+    transposed to (out, in); a zero W5T where `W` has no w5."""
+    return {name: W[src].T if src in W else W["w4"].new_zeros(HIDDEN, HIDDEN)
+            for name, src in WT_SOURCE.items()}
+
+
+def _pack_rows(cond0, cond3, W, freqs: torch.Tensor) -> torch.Tensor:
+    """The f32 rows in `F_LAYOUT` order; a W without b5 leaves its slot zero."""
     rows = {
         "COND0": cond0, "B1": W["b1"], "B2": W["b2"], "COND3": cond3,
         "B4": W["b4"], "B5": W["b5"] if "b5" in W else W["b4"].new_zeros(HIDDEN),
@@ -223,19 +245,26 @@ def pack_kernel_operands(cond0, cond3, W, freqs: torch.Tensor):
         "BA": W["ba"], "BRGB": W["brgb"],
         "FREQS": torch.cat([freqs, freqs.new_zeros(16 - freqs.numel())]),
     }
-    fbuf = torch.cat([rows[name].reshape(-1).float() for name, _ in F_LAYOUT])
-    return wbuf.contiguous(), fbuf.contiguous()
+    return torch.cat([rows[name].reshape(-1).float() for name, _ in F_LAYOUT]).contiguous()
+
+
+def pack_kernel_operands(cond0, cond3, W, freqs: torch.Tensor):
+    """(bf16 weights, f32 rows) flat buffers in `W_LAYOUT` / `F_LAYOUT`
+    order, on the params' device; a W without w5/b5 (the smaller model)
+    leaves their slots zero."""
+    mats = _weight_matrices(W)
+    wbuf = torch.cat(
+        [mats[name].reshape(-1) for name, *_ in W_LAYOUT]
+    ).to(torch.bfloat16)
+    return wbuf.contiguous(), _pack_rows(cond0, cond3, W, freqs)
 
 
 def pack_transposed_weights(W) -> torch.Tensor:
     """The dX products' bf16 operand buffer: `WT_LAYOUT`'s matrices, each
     the (in, out) kernel-layout matrix transposed to (out, in); a zero W5T
     for the smaller model."""
-    def mat(name):
-        src = WT_SOURCE[name]
-        return W[src].T if src in W else W["w4"].new_zeros(HIDDEN, HIDDEN)
-
-    return torch.cat([mat(name).reshape(-1) for name, *_ in WT_LAYOUT]).to(
+    mats = _transposed_matrices(W)
+    return torch.cat([mats[name].reshape(-1) for name, *_ in WT_LAYOUT]).to(
         torch.bfloat16).contiguous()
 
 
@@ -271,6 +300,36 @@ def pack_sm90_chunks(wbuf: torch.Tensor) -> torch.Tensor:
         m = wbuf[W_OFFSETS[name]:W_OFFSETS[name] + k * n]
         parts.append(sm90_chunk_image(m.reshape(k, n)) if name in SM90_CHUNKED else m)
     return torch.cat(parts).contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _backward_weight_gather(small: bool, n_enc: int, device) -> torch.Tensor:
+    """Where each element of K1's and K3b's bf16 weight buffer comes from:
+    its position in [0; the bundle's matrices flat, in the bundle's
+    order]. The buffer is the transposed trunk's chunk images (`WT_LAYOUT`)
+    and then the forward weights' (`W_LAYOUT`, the heads row-major): what
+    `pack_sm90_chunks` makes of `pack_transposed_weights` and of
+    `pack_kernel_operands`' weights, composed into one gather. The
+    transposed trunk comes first: its 917504 bytes keep the forward
+    weights' start as aligned as the allocation's."""
+    shapes = _matrix_shapes(n_enc)
+    idx, o = {}, 1
+    for name in bundle_names(small)[0]:
+        k, n = shapes[name]
+        idx[name] = torch.arange(o, o + k * n, device=device).reshape(k, n)
+        o += k * n
+    wt, w = _transposed_matrices(idx), _weight_matrices(idx)
+    return torch.cat(
+        [sm90_chunk_image(wt[name]) for name, *_ in WT_LAYOUT]
+        + [sm90_chunk_image(w[name]) if name in SM90_CHUNKED else w[name].reshape(-1)
+           for name, *_ in W_LAYOUT]).contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _device_bands(num_encoding_fn_xyz: int, log_sampling_xyz: bool, device) -> torch.Tensor:
+    """The encoding's frequency bands on `device`, copied there once: a
+    copy from the host on every call would wait for the stream."""
+    return torch.as_tensor(_frequency_bands(num_encoding_fn_xyz, log_sampling_xyz), device=device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -675,31 +734,36 @@ def _regroup(d_cond0, d_cond3, d_dir, gw, gb, small):
 def _kernel_operands(bundle, n_rays, dev, num_encoding_fn_xyz, log_sampling_xyz, small,
                      transposed):
     """Check a bundle for a kernel call and pack it: (dir_contrib, bf16
-    weights, f32 rows, bf16 transposed trunk or None)."""
+    weights, f32 rows, bf16 transposed trunk or None). With `transposed`
+    (the backward kernels, K1 and K3b) the weights and the transposed trunk
+    come as their chunk images, gathered straight from the bundle
+    (`_backward_weight_gather`); else (K3f) plain."""
     bundle = [t.detach() for t in bundle]
     cond0, cond3, dir_c, W, B = _unbundle(bundle, small)
     n_enc = 6 * num_encoding_fn_xyz
     _check("dir_contrib", dir_c, (n_rays, DIR_HIDDEN), dev)
     _check("cond0", cond0, (1, HIDDEN), dev)
     _check("cond3", cond3, (1, HIDDEN), dev)
-    shapes = {"w0a": (3, HIDDEN), "w0b": (n_enc, HIDDEN), "w3xa": (3, HIDDEN),
-              "w3xb": (n_enc, HIDDEN), "wa": (HIDDEN, 1), "wd0": (HIDDEN, DIR_HIDDEN),
-              "wd1": (DIR_HIDDEN, DIR_HIDDEN), "wd2": (DIR_HIDDEN, DIR_HIDDEN),
-              "wrgb": (DIR_HIDDEN, 3)}
+    shapes = _matrix_shapes(n_enc)
     for name, t in W.items():
-        want = shapes.get(name, (HIDDEN, HIDDEN))
+        want = shapes[name]
         if t.dtype != torch.float32 or tuple(t.shape) != want or t.device != dev:
             raise ValueError(f"{name} must be float32 {want} on {dev}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
     for name, t in B.items():
         if t.dtype != torch.float32 or t.dim() != 2 or t.shape[0] != 1 or t.device != dev:
             raise ValueError(f"{name} must be a float32 (1, n) row on {dev}")
-    freqs = torch.as_tensor(_frequency_bands(num_encoding_fn_xyz, log_sampling_xyz), device=dev)
+    freqs = _device_bands(num_encoding_fn_xyz, log_sampling_xyz, dev)
     Wk = dict(W)
     Wk.update({k: v.reshape(-1) for k, v in B.items()})
-    wbuf, fbuf = pack_kernel_operands(cond0.reshape(-1), cond3.reshape(-1), Wk, freqs)
-    wtbuf = pack_transposed_weights(W) if transposed else None
-    return dir_c, wbuf, fbuf, wtbuf
+    if not transposed:
+        wbuf, fbuf = pack_kernel_operands(cond0.reshape(-1), cond3.reshape(-1), Wk, freqs)
+        return dir_c, wbuf, fbuf, None
+    fbuf = _pack_rows(cond0.reshape(-1), cond3.reshape(-1), Wk, freqs)
+    src = torch.cat([dir_c.new_zeros(1)] + [W[n].reshape(-1) for n in bundle_names(small)[0]])
+    both = src.to(torch.bfloat16)[_backward_weight_gather(small, n_enc, dev)]
+    wt_total = WT_OFFSETS["TOTAL"]
+    return dir_c, both[wt_total:], fbuf, both[:wt_total]
 
 
 def _split_kernel_grads(dwbuf, dfbuf, n_enc, small=False):
@@ -816,8 +880,8 @@ def fused_paper_mlp_backward(
 ):
     """K3b: the f32 gradients, in the bundle's order and shapes, of
     Σ g·[rgb, σ] for g (R, S, 4). On CUDA tensors it launches
-    `csrc/fused_paper_mlp.cu`'s recompute kernel and K1's backward kernels
-    or raises; on CPU tensors it runs the plain version (bf16 operands)."""
+    `csrc/fused_paper_mlp.cu`'s pass (K1's wgmma pass kernel with K3b's
+    middle, then dW; `csrc/paper_train.cuh`) or raises; on CPU tensors it runs the plain version (bf16 operands)."""
     kw = dict(num_encoding_fn_xyz=num_encoding_fn_xyz, log_sampling_xyz=log_sampling_xyz,
               small=small)
     if ray_origins.device.type == "cpu":
@@ -827,34 +891,60 @@ def fused_paper_mlp_backward(
                              num_encoding_fn_xyz)
     n_rays, n_samples = z_vals.shape
     _check("g", g, (n_rays, n_samples, 4), dev)
-    dir_c, wbuf, fbuf, wtbuf = _kernel_operands(bundle, n_rays, dev, num_encoding_fn_xyz,
-                                                log_sampling_xyz, small, transposed=True)
+    operands = _kernel_operands(bundle, n_rays, dev, num_encoding_fn_xyz, log_sampling_xyz,
+                                small, transposed=True)
+    out = paper_bwd_outputs(n_rays, dev)
+    ws = paper_bwd_workspace(n_rays, n_samples, dev)
+    _launch_paper_bwd(operands, (ray_origins, ray_directions, z_vals, g), out, ws,
+                      num_encoding_fn_xyz, small)
+    (d_cond0, d_cond3), gw, gb = _split_kernel_grads(out["dw"], out["df"],
+                                                     6 * num_encoding_fn_xyz, small)
+    # the operand buffers and the workspace may be freed on return: the
+    # caching allocator hands their memory only to later work on this stream
+    return _regroup(d_cond0, d_cond3, out["d_dir"], gw, gb, small)
 
-    from nerface_tpu_torch.ops.kernels.build import load_library
 
-    lib = load_library("fused_paper_mlp")
+def paper_bwd_outputs(n_rays: int, dev) -> Dict[str, torch.Tensor]:
+    """K3b's uninitialised f32 outputs: the packed weight and row
+    gradients (`W_LAYOUT` / `F_LAYOUT`) and d_dir (R, 128)."""
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
-    dwbuf, dfbuf = empty(W_OFFSETS["TOTAL"]), empty(F_OFFSETS["TOTAL"])
-    d_dir = empty(n_rays, DIR_HIDDEN)
-    ws = torch.empty(lib.nerface_fused_paper_mlp_workspace_bytes(n_rays, n_samples),
-                     dtype=torch.uint8, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    return {"dw": empty(W_OFFSETS["TOTAL"]), "df": empty(F_OFFSETS["TOTAL"]),
+            "d_dir": empty(n_rays, DIR_HIDDEN)}
+
+
+def paper_bwd_workspace(n_rays: int, n_samples: int, dev) -> torch.Tensor:
+    """K3b's device workspace for a pass (`csrc/paper_train.cuh`)."""
+    from nerface_tpu_torch.ops.kernels.build import load_library
+
+    nbytes = load_library("fused_paper_mlp").nerface_fused_paper_mlp_workspace_bytes(
+        n_rays, n_samples)
+    return torch.empty(nbytes, dtype=torch.uint8, device=dev)
+
+
+def _launch_paper_bwd(operands, per_ray, out, ws, num_encoding_fn_xyz, small):
+    """K3b's C entry point on checked CUDA operands: `operands` from
+    `_kernel_operands(..., transposed=True)`, `per_ray` (ro, rd, z, g),
+    `out` from `paper_bwd_outputs`, `ws` from `paper_bwd_workspace`.
+    Counts the launch in `fused_paper_mlp_backward.launches`."""
+    from nerface_tpu_torch.ops.kernels.build import load_library
+
+    dir_c, wbuf, fbuf, wtbuf = operands
+    ro, rd, z, g = per_ray
+    n_rays, n_samples = z.shape
+    lib = load_library("fused_paper_mlp")
+    with torch.cuda.device(ro.device):
+        stream = torch.cuda.current_stream(ro.device).cuda_stream
         err = lib.nerface_fused_paper_mlp_bwd(
-            _ptr(ray_origins), _ptr(ray_directions), _ptr(z_vals), _ptr(dir_c), _ptr(g),
-            _ptr(wbuf), _ptr(wtbuf), _ptr(fbuf), _ptr(dwbuf), _ptr(dfbuf), _ptr(d_dir), _ptr(ws),
+            _ptr(ro), _ptr(rd), _ptr(z), _ptr(dir_c), _ptr(g), _ptr(wbuf), _ptr(wtbuf),
+            _ptr(fbuf), _ptr(out["dw"]), _ptr(out["df"]), _ptr(out["d_dir"]), _ptr(ws),
             n_rays, n_samples, num_encoding_fn_xyz, int(bool(small)), ctypes.c_void_p(stream),
         )
     if err != 0:
         raise RuntimeError(f"fused_paper_mlp backward kernel launch failed: cudaError {err}")
     fused_paper_mlp_backward.launches += 1
-    (d_cond0, d_cond3), gw, gb = _split_kernel_grads(dwbuf, dfbuf, 6 * num_encoding_fn_xyz, small)
-    # the operand buffers and the workspace may be freed on return: the
-    # caching allocator hands their memory only to later work on this stream
-    return _regroup(d_cond0, d_cond3, d_dir, gw, gb, small)
 
 
 fused_paper_mlp_backward.launches = 0

@@ -44,6 +44,7 @@ from nerface_tpu_torch.ops.kernels.fused_mlp import (
     DIR_HIDDEN,
     F_OFFSETS,
     HIDDEN,
+    K_XIN,
     W_OFFSETS,
     _check,
     _check_kernel_call,
@@ -58,6 +59,47 @@ from nerface_tpu_torch.ops.kernels.fused_mlp import (
     _unbundle,
     bundle_names,
 )
+
+
+# The device workspace of a K1 / K3b call (csrc/paper_train.cuh, `WsBuffer`
+# and `carve`): these bf16 buffers in this order, each one matrix of the
+# pass (sample rows × width) as wgmma operand images (`workspace_image`),
+# then each consumer warp's and each CTA's f32 partial row (PART_COLS: the
+# bias rows, WA, WRGB) and dW's DWG_SEGS row segments; every piece aligned
+# to 256 bytes. A CPU test holds these to the .cuh.
+WS_BUFFERS = (
+    ("xin", K_XIN), ("h0", HIDDEN), ("h1", HIDDEN), ("h2", HIDDEN), ("h3", HIDDEN),
+    ("h4", HIDDEN), ("h5", HIDDEN), ("feat", HIDDEN), ("x0", DIR_HIDDEN), ("x1", DIR_HIDDEN),
+    ("x2", DIR_HIDDEN), ("gx2", DIR_HIDDEN), ("gx1", DIR_HIDDEN), ("gx0", DIR_HIDDEN),
+    ("gfeat", HIDDEN), ("gh0", HIDDEN), ("gh1", HIDDEN), ("gh2", HIDDEN), ("gh3", HIDDEN),
+    ("gh4", HIDDEN), ("gh5", HIDDEN),
+)
+K1_CTAS = 132  # the persistent grid's CTAs at most
+WARPS_A_CTA = 8  # consumer warps of a CTA
+DWG_SEGS = 7  # dW's row segments
+PART_COLS = F_OFFSETS["TOTAL"] + HIDDEN + DIR_HIDDEN * 3
+
+
+def workspace_geometry(n_rays: int, n_samples: int) -> Tuple[int, int]:
+    """(64-row units, persistent CTAs) of a pass: a consumer warpgroup's
+    item is 64 // S rays at S = 32 and one ray of S // 64 units above."""
+    per_item = 64 // n_samples if n_samples < 64 else 1
+    items = -(-n_rays // per_item)
+    units = items * max(1, n_samples // 64)
+    return units, min(-(-items // 2), K1_CTAS)
+
+
+def workspace_image(m: torch.Tensor) -> torch.Tensor:
+    """A (rows, width) matrix (rows a multiple of 64, width of 64) as the
+    workspace holds it, flat: for each 64-row unit, its 64-column blocks
+    of 64 rows, row r's eight 16-byte groups at position group ^ (r % 8) —
+    element (r, c) of unit u at byte u·width·128 + (c // 64)·8192 +
+    r·128 + (((c % 64) // 8) ^ (r % 8))·16 + (c % 8)·2 (`image_offset`)."""
+    rows, width = m.shape
+    t = m.reshape(rows // 64, 64, width // 64, 8, 8).permute(0, 2, 1, 3, 4)
+    r = torch.arange(64, device=m.device)[:, None]
+    slot = torch.arange(8, device=m.device)[None, :]
+    return t[:, :, r, slot ^ (r % 8), :].reshape(-1).contiguous()
 
 
 def prefold_paper_params(params, cond: torch.Tensor, pe_dir: torch.Tensor, num_encoding_fn_xyz: int,
@@ -265,30 +307,65 @@ def fused_train_pass(
         _check("background", background, (n_rays, 3), dev)
     if noise_std > 0.0:
         _check("noise", noise, (n_rays, n_samples), dev)
-    dir_c, wbuf, fbuf, wtbuf = _kernel_operands(bundle, n_rays, dev, num_encoding_fn_xyz,
-                                                log_sampling_xyz, small, transposed=True)
+    operands = _kernel_operands(bundle, n_rays, dev, num_encoding_fn_xyz, log_sampling_xyz,
+                                small, transposed=True)
+    out = train_outputs(n_rays, n_samples, train_bg, dev)
+    ws = train_workspace(n_rays, n_samples, dev)
+    _launch_train(operands, (ray_origins, ray_directions, z_vals, target, background,
+                             noise if noise_std > 0.0 else None), out, ws,
+                  num_encoding_fn_xyz=num_encoding_fn_xyz, white_background=white_background,
+                  small=small, noise_std=noise_std, loss_scale=loss_scale,
+                  sup_bg_scale=sup_bg_scale)
+    (d_cond0, d_cond3), gw, gb = _split_kernel_grads(out["dw"], out["df"],
+                                                     6 * num_encoding_fn_xyz, small)
+    grads = _regroup(d_cond0, d_cond3, out["d_dir"], gw, gb, small)
+    # the operand buffers and the workspace may be freed on return: the
+    # caching allocator hands their memory only to later work on this stream
+    return {"rgb": out["rgb"], "weights": out["weights"]}, grads, out["d_bg"]
 
-    from nerface_tpu_torch.ops.kernels.build import load_library
 
-    lib = load_library("fused_train_pass")
+def train_outputs(n_rays: int, n_samples: int, train_bg: bool, dev) -> dict:
+    """K1's uninitialised f32 outputs: rgb (R, 3), weights (R, S), the
+    packed weight and row gradients (`W_OFFSETS` / `F_OFFSETS`), d_dir
+    (R, 128), and d_bg (R, 3) with `train_bg` (else None)."""
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
-    rgb, weights = empty(n_rays, 3), empty(n_rays, n_samples)
-    dwbuf, dfbuf = empty(W_OFFSETS["TOTAL"]), empty(F_OFFSETS["TOTAL"])
-    d_dir = empty(n_rays, DIR_HIDDEN)
-    d_bg = empty(n_rays, 3) if train_bg else None
-    ws = torch.empty(
-        lib.nerface_fused_train_workspace_bytes(n_rays, n_samples), dtype=torch.uint8, device=dev
-    )
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    return {"rgb": empty(n_rays, 3), "weights": empty(n_rays, n_samples),
+            "dw": empty(W_OFFSETS["TOTAL"]), "df": empty(F_OFFSETS["TOTAL"]),
+            "d_dir": empty(n_rays, DIR_HIDDEN), "d_bg": empty(n_rays, 3) if train_bg else None}
+
+
+def train_workspace(n_rays: int, n_samples: int, dev) -> torch.Tensor:
+    """K1's device workspace for a pass (`WS_BUFFERS`, csrc/paper_train.cuh)."""
+    from nerface_tpu_torch.ops.kernels.build import load_library
+
+    nbytes = load_library("fused_train_pass").nerface_fused_train_workspace_bytes(
+        n_rays, n_samples)
+    return torch.empty(nbytes, dtype=torch.uint8, device=dev)
+
+
+def _launch_train(operands, per_ray, out, ws, *, num_encoding_fn_xyz, white_background, small,
+                  noise_std, loss_scale, sup_bg_scale):
+    """K1's C entry point on checked CUDA operands: `operands` from
+    `_kernel_operands(..., transposed=True)`, `per_ray` (ro, rd, z,
+    target, background or None, noise or None), `out` from
+    `train_outputs`, `ws` from `train_workspace`. Counts the launch in
+    `fused_train_pass.launches`."""
+    from nerface_tpu_torch.ops.kernels.build import load_library
+
+    dir_c, wbuf, fbuf, wtbuf = operands
+    ro, rd, z, tgt, bg, noise = per_ray
+    n_rays, n_samples = z.shape
+    lib = load_library("fused_train_pass")
+    with torch.cuda.device(ro.device):
+        stream = torch.cuda.current_stream(ro.device).cuda_stream
         err = lib.nerface_fused_train_pass(
-            _ptr(ray_origins), _ptr(ray_directions), _ptr(z_vals), _ptr(target), _ptr(dir_c),
-            _ptr(background), _ptr(noise if noise_std > 0.0 else None),
+            _ptr(ro), _ptr(rd), _ptr(z), _ptr(tgt), _ptr(dir_c), _ptr(bg), _ptr(noise),
             _ptr(wbuf), _ptr(wtbuf), _ptr(fbuf),
-            _ptr(rgb), _ptr(weights), _ptr(dwbuf), _ptr(dfbuf), _ptr(d_dir), _ptr(d_bg), _ptr(ws),
+            _ptr(out["rgb"]), _ptr(out["weights"]), _ptr(out["dw"]), _ptr(out["df"]),
+            _ptr(out["d_dir"]), _ptr(out["d_bg"]), _ptr(ws),
             n_rays, n_samples, num_encoding_fn_xyz, int(bool(white_background)), int(bool(small)),
             ctypes.c_float(noise_std), ctypes.c_float(loss_scale), ctypes.c_float(sup_bg_scale),
             ctypes.c_void_p(stream),
@@ -296,11 +373,6 @@ def fused_train_pass(
     if err != 0:
         raise RuntimeError(f"fused_train_pass kernel launch failed: cudaError {err}")
     fused_train_pass.launches += 1
-    (d_cond0, d_cond3), gw, gb = _split_kernel_grads(dwbuf, dfbuf, 6 * num_encoding_fn_xyz, small)
-    grads = _regroup(d_cond0, d_cond3, d_dir, gw, gb, small)
-    # the operand buffers and the workspace may be freed on return: the
-    # caching allocator hands their memory only to later work on this stream
-    return {"rgb": rgb, "weights": weights}, grads, d_bg
 
 
 fused_train_pass.launches = 0

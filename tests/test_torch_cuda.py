@@ -433,6 +433,55 @@ def _assert_grads_close(names, grads, rgrads, R):
         assert err <= tol_norm * ref_norm + 1e-6, f"{name}: ‖err‖ {err} > {tol_norm}·{ref_norm}"
 
 
+# -- K1 and K3b's persistent grid (paper_train.cuh) ---------------------------
+# Ray counts past one round of the grid (132 CTAs × 2 items), each ragged:
+# the last item of a round is cut short, and at S = 32 the last item holds
+# one live ray and one past the end.
+PERSISTENT_CASES = [(2085, 64), (601, 128), (1111, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("small", [False, True], ids=["paper", "small"])
+@pytest.mark.parametrize("R,S", PERSISTENT_CASES, ids=["s64", "s128", "s32"])
+def test_train_kernel_persistent_grid(cuda_device, small, R, S):
+    from nerface_tpu_torch.ops.kernels import fused_train as T
+
+    params = _k1_params(8, cuda_device, small=small)
+    ro, rd, z, tgt, bg, noise, pe_dir, cond = _train_inputs(R, S, cuda_device, seed=R + S + 3)
+    bundle = [t.contiguous() for t in T.prefold_paper_params(params, cond, pe_dir, 10, small=small)]
+    kw = dict(loss_scale=2.0 / (3.0 * R), background=bg, noise=noise, noise_std=0.1, small=small)
+    _, ctas = T.workspace_geometry(R, S)
+    assert ctas == T.K1_CTAS and R > 2 * T.K1_CTAS * (64 // S if S < 64 else 1)
+    got, grads, _ = T.fused_train_pass(bundle, ro, rd, z, tgt, **kw)
+    _, grads2, _ = T.fused_train_pass(bundle, ro, rd, z, tgt, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads2)), "not deterministic"
+    ref, rgrads, _ = T.fused_train_pass_reference(bundle, ro, rd, z, tgt, **kw)
+    for k in ("rgb", "weights"):
+        torch.testing.assert_close(got[k], ref[k], atol=2e-3, rtol=0, msg=k)
+    _assert_grads_close(_bundle_names(small), grads, rgrads, R)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("small", [False, True], ids=["paper", "small"])
+@pytest.mark.parametrize("R,S", PERSISTENT_CASES, ids=["s64", "s128", "s32"])
+def test_paper_mlp_backward_persistent_grid(cuda_device, small, R, S):
+    from nerface_tpu_torch.ops.kernels.fused_train import prefold_paper_params
+
+    params = _k1_params(9, cuda_device, small=small)
+    ro, rd, z, tgt, bg, noise, pe_dir, cond = _train_inputs(R, S, cuda_device, seed=R + S + 4)
+    bundle = [t.contiguous() for t in prefold_paper_params(
+        params, cond, pe_dir, 10, small=small, dir_expr_offset=(256 + 24) if small else 0)]
+    g = (torch.randn(R, S, 4, generator=torch.Generator().manual_seed(S)) / R).to(cuda_device)
+    args = (bundle, ro, rd, z, g)
+    grads = K.fused_paper_mlp_backward(*args, small=small)
+    grads2 = K.fused_paper_mlp_backward(*args, small=small)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads2)), "not deterministic"
+    rgrads = K.fused_paper_mlp_backward_reference(*args, small=small)
+    _assert_grads_close(_bundle_names(small), grads, rgrads, R)
+
+
 # -- K3: fused_paper_mlp_forward / fused_paper_mlp_backward -------------------
 # chip_smoke.py's tolerances: raw rgb and σ each within K3_OUT_TOL of their
 # max|plain|; each gradient tensor within `k1_grad_limits`.
