@@ -17,7 +17,7 @@ Phases, one line each (plus the kernels' register reports):
                build/nerface_tpu_torch/; prints the seconds and each
                kernel's ptxas registers, spills and shared memory.
   3. kernel  — the fused-render kernel against its plain PyTorch version
-               (bf16 operands), on He-scaled random weights (HE_GAIN) on
+               (bf16 operands), on He-scaled random weights (cases.HE_GAIN) on
                the card, at the main path's coarse
                (S=64, with weights) and fine (S=128) shapes, for 4096 rays
                and for one whole 65536-ray tile (the plain version in
@@ -129,12 +129,23 @@ Phases, one line each (plus the kernels' register reports):
                K3b 30 times each, K1 never, K2 4 tiles × 2 validation frames.
   8. flex_kernel — K4f `fused_flex_forward` and K4b `fused_flex_backward`
                (csrc/fused_flex.cu) against their plain versions on
-               synth512_lcode's He-scaled weights, FLEX_SEEDS draws a case:
-               R = 2048 at S = 64 and 128 (forward and backward) and one
-               65536-ray tile at each (forward). Raw rgb and σ within
-               FLEX_OUT_TOL of their max; every gradient tensor, d_v0 and
-               d_dir within `k1_grad_limits`; bit-identical over 2 launches;
-               ms, TFLOP/s, bound ms and the plain versions' ms.
+               synth512_lcode's He-scaled weights, FLEX_SEEDS draws a case
+               (FLEX_CASES): R = 2048 at S = 64 and 128 (forward and
+               backward), one 65536-ray tile at each (forward), and the
+               same model at 0 and 8 hidden layers at R = 2048, S = 32. Raw
+               rgb and σ within FLEX_OUT_TOL of their max; every gradient
+               tensor, d_v0 and d_dir within `k1_grad_limits` (at 8 hidden
+               layers `flex_limit`: no less than FLEX_TC_FACTOR × the
+               plain version's own error on the tensor cores, each reading
+               printed per seed beside that yardstick's and what a lost
+               64-row unit reads, the factor checked to lie between the
+               two); bit-identical
+               over 2 launches; at n = 3 the wrapper's and the bare C
+               launch's ms (`tools/perf/flex_launch_split.py`, through the
+               wrappers' `_launch_flex_*`), TFLOP/s, bound ms, the plain
+               versions' ms, and K4b's device ms per launch (recompute, dX,
+               dW, reductions) under torch.profiler, each beside its
+               operations bound and, apart, its workspace byte floor.
   9. flex_serve — a 512² synth512_lcode avatar (SYNTH512_LCODE: the paper
                config with the Flexible family's
                ConditionalBlendshapeLearnableCodeNeRFModel) served as in
@@ -150,9 +161,10 @@ Phases, one line each (plus the kernels' register reports):
     python3 chip_smoke.py --profile
 
 adds profile phases: 6 timed frames per map set, then torch.profiler over 2
-frames, of the parity and of the fast synth512_paper server, and torch.profiler over 5 steady train steps of synth512_paper, of
-synth512_paper_coarse and of synth512_lcode; each prints its table of device
-time per kernel.
+frames, of the parity and of the fast synth512_paper server and of the
+synth512_lcode server, and torch.profiler over 5 steady train steps of
+synth512_paper, of synth512_paper_coarse and of synth512_lcode; each prints
+its table of device time per kernel.
 
 The line before the last is {"kernels": [...]} (K2, K1, K3f, K3b, K4f,
 K4b, K5, P2, P1); the last line is {"ok": true, "device": {...}}. Any
@@ -245,10 +257,6 @@ KERNEL_RAYS = 4096
 TILE_RAYS = 65536  # the validation chunksize: one tile of the main path
 FAR = 0.8
 SEED = 0
-# Random weights are PyTorch's default init times √6, He's variance 2/fan_in:
-# as in a trained field, activations keep their size through the layers
-# (at the default init they fade, and the output is nearly the last bias).
-HE_GAIN = 6.0 ** 0.5
 # added to fc_alpha's bias in the served avatar: σ ≈ 10 a unit of depth
 # leaves the background ≈ e^-6 of a pixel
 SIGMA_BIAS = 10.0
@@ -355,6 +363,15 @@ LIBRARIES = ("fused_paper_render", "fused_train_pass", "fused_paper_mlp", "fused
 K2_PREVIOUS_TILE_MS = {"coarse": 18.985, "fine": 37.460}
 # ... and its warm rgb 512² frames, parity / fast / occupancy (PERF.md §5, §6)
 PREVIOUS_FRAME_MS = {"parity": 240.43, "fast": 56.14, "occupancy": 53.85}
+K4F_DESIGN = ("K2's wgmma chain without the cluster (csrc/wgmma_chain.cuh): m64n256k16 with A "
+              "from registers; weight chunk images through a 5-stage bulk-copy ring; persistent "
+              "grid, one CTA an SM; two free-running consumer warpgroups on whole rays; three "
+              "encoder warps; n = 0..8 hidden layers at run time; the heads on m64n8 wgmmas")
+K4B_DESIGN = ("the recompute: K4f's kernel with a save flag, the activations to the workspace as "
+              "wgmma operand images and the relu masks as bits; dX: persistent, each product one "
+              "wgmma_ss m64n256k16 chain with A (the last cotangent) in a shared-memory tile, "
+              "copied out by one bulk store, masks from the bits; dW: wgmma_dw.cuh's kernel in "
+              "row segments filling one wave; two ordered reduce_rows, no atomics")
 K2_DESIGN = ("wgmma m64n256k16 with A from registers, f32 accumulators; weight chunk "
              "images through a 5-stage ring of cp.async.bulk copies from a producer warp "
              "(mbarriers), multicast to a 2-CTA cluster; persistent grid; two free-running "
@@ -397,20 +414,15 @@ def _median_ms(fn, warmup=3, iters=15):
 
 
 def _kernel_inputs(n_rays, n_samples, gen, dev):
-    """Rays through a head at the origin seen from z = 0.5; rays 0-1 with
-    rd = 0 (acc = 0 exactly) and 2-3 with |rd| = 1e-9 (acc ~ 1e-5)."""
-    import torch
+    """Rays through a head at the origin seen from z = 0.5 (`cases.py`'s
+    `render_inputs`); rays 0-1 with rd = 0 (acc = 0 exactly) and 2-3 with
+    |rd| = 1e-9 (acc ~ 1e-5)."""
+    from nerface_tpu_torch.tools.perf.cases import render_inputs
 
-    ro = torch.randn(n_rays, 3, generator=gen) * 0.05 + torch.tensor([0.0, 0.0, 0.5])
-    rd = torch.randn(n_rays, 3, generator=gen) * torch.tensor([0.2, 0.2, 0.05])
-    rd[:, 2] -= 1.0
+    ro, rd, z, dc, cond, bg = render_inputs(n_rays, n_samples, gen, dev)
     rd[0:2] = 0.0
     rd[2:4] = 1e-9
-    z = 0.2 + torch.cumsum(torch.rand(n_rays, n_samples, generator=gen) * (1.2 / n_samples), -1)
-    dc = torch.randn(n_rays, 128, generator=gen) * 0.3
-    cond = torch.cat([torch.randn(76, generator=gen) * 0.5 / 3.0, torch.randn(32, generator=gen) * 0.1])
-    bg = torch.rand(n_rays, 3, generator=gen)
-    return [t.to(dev).contiguous() for t in (ro, rd, z, dc, cond, bg)]
+    return [ro, rd, z, dc, cond, bg]
 
 
 def _compare(got, ref, label):
@@ -445,15 +457,6 @@ def _chunked(fn, params, per_ray, cond, chunk=16384, **kw):
     return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
 
 
-def _he_scale(model):
-    import torch
-
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            if name.endswith(".weight"):
-                p.mul_(HE_GAIN)
-
-
 def _paper_model(seed, dev, small=False):
     """A paper-family model (the smaller one with `small`) at the slice's
     widths, its weights drawn from `seed`."""
@@ -478,6 +481,7 @@ def kernel_phase(dev, small=False):
         fused_paper_render_reference,
         pack_paper_weights,
     )
+    from nerface_tpu_torch.tools.perf.cases import he_scale
 
     name = "small_kernels" if small else "kernel"
     what = "K2 small" if small else "K2"
@@ -486,7 +490,7 @@ def kernel_phase(dev, small=False):
     # sample's colour is the ray's, and a bf16 rounding flip of a He-scaled
     # activation moves it by up to 1.6e-3 of the 2e-3 limit (H100, PERF.md)
     default_init = {k: v.clone() for k, v in model.state_dict().items()}
-    _he_scale(model)
+    he_scale(model)
     params = model.state_dict()
     packed = pack_paper_weights(params)
     gen = torch.Generator().manual_seed(SEED + 1)
@@ -803,13 +807,13 @@ def _bound_ms(flops, nbytes):
 def _entry_name(text):
     """A kernel's short name, with its template arguments, from a ptxas
     line that holds its mangled name."""
-    m = re.search(r"(train_pass_kernel|dw_wgmma_kernel|flex_fwd_kernel|flex_bwd_kernel|"
-                  r"dw_kernel|reduce_rows|render_kernel|mlp_fwd_kernel|"
+    m = re.search(r"(train_pass_kernel|dw_wgmma_kernel|flex_chain_kernel|flex_dx_kernel|"
+                  r"reduce_rows|render_kernel|mlp_fwd_kernel|"
                   r"resample_kernel|chain_kernel|encoder_kernel)"
                   r"(?:ILi(\d+)E(?:Lb([01])E)?|ILb([01])E)?", text)
     if not m:
         return text
-    flag = "sorted_u" if m.group(1) == "resample_kernel" else "small"
+    flag = {"resample_kernel": "sorted_u", "flex_chain_kernel": "save"}.get(m.group(1), "small")
     targs = ", ".join(([m.group(2)] if m.group(2) else []) + ([flag] if m.group(3) == "1" else []))
     if m.group(1) == "chain_kernel" and m.group(2):
         from nerface_tpu_torch.tools.perf.chain_overlap_probe import VARIANTS
@@ -865,8 +869,8 @@ def build_phase():
         if name == "fused_flex":
             smem = (ctypes.c_longlong * 3)()
             build.load_library(name).nerface_fused_flex_shared_bytes(smem)
-            phase("build", f"{name} shared memory a CTA: flex_fwd_kernel {smem[0]} B, "
-                           f"flex_bwd_kernel {smem[1]} B (dynamic), dw_kernel {smem[2]} B")
+            phase("build", f"{name} shared memory a CTA (dynamic): flex_chain_kernel {smem[0]} B, "
+                           f"flex_dx_kernel {smem[1]} B, dw_wgmma_kernel {smem[2]} B")
     phase("build", f"{len(LIBRARIES)} libraries in {wall:.1f} s")
 
 
@@ -902,8 +906,10 @@ def _k1_bytes(n_rays, n_samples):
 
 def _k1_params(seed, dev, small=False):
     """He-scaled random weights of one paper-family model."""
+    from nerface_tpu_torch.tools.perf.cases import he_scale
+
     model = _paper_model(seed, dev, small)
-    _he_scale(model)
+    he_scale(model)
     return {k: v.detach() for k, v in model.named_parameters()}
 
 
@@ -946,7 +952,7 @@ def _launch_split(name, what, fn, R, S, small, k3b=False):
     from nerface_tpu_torch.tools.perf import k1_launch_split as KS
 
     bare = _median_ms(fn, iters=10)
-    rows = KS.split_rows(fn, R, S, small, k3b)
+    rows = KS.split_rows(fn, KS.launch_bounds(R, S, small, k3b))
     for short, r in rows.items():
         phase(name, f"  {what} S={S} {KS.row_text(short, r)}")
     return bare, rows
@@ -1086,7 +1092,7 @@ def paper_mlp_kernel_phase(dev):
     for c, (label, small, R, S) in enumerate(cases):
         what = "K3 small" if small else "K3"
         names = _bundle_names(small)
-        worst, out_err = {}, {"rgb": 0.0, "sigma": 0.0}
+        worst, out_err, out_lim, calib = {}, {"rgb": 0.0, "sigma": 0.0}, {"rgb": 0.0, "sigma": 0.0}, {}
         for i in range(K3_SEEDS):
             params = _k1_params(SEED + 11 + 100 * i + (50 if small else 0), dev, small)
             gen = torch.Generator().manual_seed(SEED + 12 + 100 * i + c)
@@ -1351,28 +1357,6 @@ def train_phase(dev, ds, tmp, profile, card, cfg_dict=SYNTH512_PAPER, steps=TRAI
     return result
 
 
-def _flex_params(seed, dev):
-    """He-scaled random weights of one synth512_lcode model (the state-dict
-    params) and a per-frame v0 = layer1's bias + its conditioning columns
-    applied to a random [expr/3; latent]."""
-    import torch
-
-    from nerface_tpu_torch.models.nerf_models import ConditionalBlendshapeLearnableCodeNeRFModel
-
-    model = ConditionalBlendshapeLearnableCodeNeRFModel(
-        num_layers=FLEX_N_HIDDEN + 1, hidden_size=256, num_encoding_fn_xyz=10,
-        num_encoding_fn_dir=4, include_input_dir=False, device=dev,
-        generator=torch.Generator().manual_seed(seed),
-    )
-    _he_scale(model)
-    params = {k: v.detach() for k, v in model.named_parameters()}
-    g = torch.Generator().manual_seed(seed + 1)
-    cond = torch.cat([torch.randn(76, generator=g) * 0.5 / 3.0, torch.randn(32, generator=g) * 0.1])
-    w1 = params["layer1.weight"]
-    v0 = (params["layer1.bias"] + w1[:, D_XYZ:] @ cond.to(dev))[None, :].contiguous()
-    return params, v0
-
-
 def _k4_bytes(n_rays, n_samples, backward):
     """The bytes K4f / K4b must move: each input read once (rays, depths,
     dir_c, v0, weights; g and the transposed weights for K4b), each output
@@ -1389,25 +1373,99 @@ def _k4_bytes(n_rays, n_samples, backward):
     return rays + samples + weights + 2 * wt + 4 * (w + f) + n_rays * 4 * 128
 
 
+# At FLEX_TC_DEPTH hidden layers no evaluation on the tensor cores meets
+# `k1_grad_limits` or FLEX_OUT_TOL: PyTorch's own plain version with TF32
+# matmuls (the same bf16-exact operands, the tensor cores' f32
+# accumulation) misses them on the same inputs by as much as K4f / K4b do
+# (PERF.md). There a reading passes within its limit or within
+# FLEX_TC_FACTOR of that yardstick's same reading. The factor lies between
+# the largest kernel / yardstick ratio of [flex_kernel]'s n = 8 case and
+# what a modelled fault reads there: one 64-row unit's cotangent lost
+# (`_lost_unit`), which the dW launch's weight tensors alone must still
+# catch (PERF.md §6).
+FLEX_TC_DEPTH = 8
+FLEX_TC_FACTOR = 1.5
+
+
+def flex_limit(base, n_hidden, tc=None):
+    """The limit of one reading of K4f or K4b (relative to the plain
+    version's max or norm) at `n_hidden` hidden layers: `base`, and at
+    n_hidden ≥ FLEX_TC_DEPTH no less than FLEX_TC_FACTOR × `tc`, the same
+    reading of the plain version on the tensor cores (`tensor_core_plain`)."""
+    return base if n_hidden < FLEX_TC_DEPTH else max(base, FLEX_TC_FACTOR * tc)
+
+
+def flex_grad_limits(n_rays, name, n_hidden, tc_err=None):
+    """(max, norm) limits of K4b's gradient tensor `name`: `k1_grad_limits`
+    through `flex_limit`, `tc_err` the tensor-core yardstick's (max, norm)
+    readings (needed at n_hidden ≥ FLEX_TC_DEPTH only)."""
+    tol, tol_norm = k1_grad_limits(n_rays, name)
+    tc = tc_err or (None, None)
+    return flex_limit(tol, n_hidden, tc[0]), flex_limit(tol_norm, n_hidden, tc[1])
+
+
+def _lost_unit(t):
+    """`t` (R, S, 4) with the middle 64-row unit's rows zeroed: a kernel
+    that loses one unit of its schedule."""
+    f = t.clone().reshape(-1, 64, 4)
+    f[f.shape[0] // 2] = 0
+    return f.reshape(t.shape)
+
+
+def tensor_core_plain(fn):
+    """`fn()` (a plain version) with its f32 matmuls on the tensor cores
+    (TF32: exact on bf16 operands, the tensor cores' accumulation)."""
+    import torch
+
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return fn()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def rel_err(a, r):
+    """(max|a − r| / max|r|, ‖a − r‖ / ‖r‖), f32."""
+    a, r = a.float(), r.float()
+    d = a - r
+    return float(d.abs().max()) / max(float(r.abs().max()), 1e-30), float(d.norm()) / max(float(r.norm()), 1e-30)
+
+
+# [flex_kernel]'s cases: (label, rays, samples a ray, hidden layers); the
+# train step's pair and the serving tiles at synth512_lcode's n = 3, and
+# the kernels' other chunk sequences, n = 0 and the most they take, 8
+FLEX_CASES = (("coarse", TRAIN_RAYS, 64, FLEX_N_HIDDEN), ("fine", TRAIN_RAYS, 128, FLEX_N_HIDDEN),
+              ("tile64", TILE_RAYS, 64, FLEX_N_HIDDEN), ("tile128", TILE_RAYS, 128, FLEX_N_HIDDEN),
+              ("n0_s32", TRAIN_RAYS, 32, 0), ("n8_s32", TRAIN_RAYS, 32, 8))
+
+
 def flex_kernel_phase(dev):
     """K4f and K4b against their plain versions on synth512_lcode's
-    He-scaled weights, FLEX_SEEDS draws of weights and inputs a case."""
+    He-scaled weights (and the same model at 0 and 8 hidden layers),
+    FLEX_SEEDS draws of weights and inputs a case; at n = 3 the wrappers'
+    and the bare launches' times (`tools/perf/flex_launch_split.py`, the
+    wrappers' own `_launch_flex_*`) and K4b's device time per launch."""
     import torch
 
     from nerface_tpu_torch.ops.kernels import fused_flex as F
+    from nerface_tpu_torch.tools.perf import flex_launch_split as FS
+    from nerface_tpu_torch.tools.perf import k1_launch_split as KS
+    from nerface_tpu_torch.tools.perf.cases import flex_params
 
-    n = FLEX_N_HIDDEN
-    wn, bn = F.weight_names(n)
-    names = list(wn) + list(bn) + ["v0", "dir"]
     result = {"err": {}, "readings": {}, "ms": {}, "plain_ms": {}, "bound": {}, "tile_ms": {},
-              "bwd_ms": {}, "bwd_plain_ms": {}, "bwd_bound": {}, "grad_rel": {},
-              "bwd_bare_ms": {}, "bwd_split": {},
-              "abs_err": 0.0, "grad_abs_err": 0.0}
-    models = [_flex_params(SEED + 7 + 100 * i, dev) for i in range(FLEX_SEEDS)]
-    for c, (label, R, S) in enumerate((("coarse", TRAIN_RAYS, 64), ("fine", TRAIN_RAYS, 128),
-                                       ("tile64", TILE_RAYS, 64), ("tile128", TILE_RAYS, 128))):
-        worst, out_err = {}, {"rgb": 0.0, "sigma": 0.0}
-        for i, (params, v0) in enumerate(models):
+              "bare_ms": {}, "bwd_ms": {}, "bwd_plain_ms": {}, "bwd_bound": {}, "grad_rel": {},
+              "bwd_bare_ms": {}, "bwd_split": {}, "abs_err": 0.0, "grad_abs_err": 0.0}
+    models = {}
+    for c, (label, R, S, n) in enumerate(FLEX_CASES):
+        if n not in models:
+            models[n] = [flex_params(SEED + 7 + 100 * i + (n if n != FLEX_N_HIDDEN else 0), dev, n)
+                         for i in range(FLEX_SEEDS)]
+        wn, bn = F.weight_names(n)
+        names = list(wn) + list(bn) + ["v0", "dir"]
+        timed = n == FLEX_N_HIDDEN
+        worst, out_err, out_lim, calib = {}, {"rgb": 0.0, "sigma": 0.0}, {"rgb": 0.0, "sigma": 0.0}, {}
+        for i, (params, v0) in enumerate(models[n]):
             gen = torch.Generator().manual_seed(SEED + 8 + 100 * i + c)
             ro, rd, z, dc, _, _ = _kernel_inputs(R, S, gen, dev)
             weights = F.pack_flex_weights(params, n, 10)
@@ -1422,26 +1480,38 @@ def flex_kernel_phase(dev):
                                                z[j:j + 8192], dc[j:j + 8192], v0, n)
                 for j in range(0, R, 8192)
             ])
+            tc_ref = None
+            if n >= FLEX_TC_DEPTH:
+                tc_ref = tensor_core_plain(lambda: F.fused_flex_forward_reference(*args))
+                lost = _lost_unit(ref)
             for part, sl in (("rgb", slice(0, 3)), ("sigma", slice(3, 4))):
                 e = float((got[..., sl] - ref[..., sl]).abs().max())
                 scale = float(ref[..., sl].abs().max())
-                check(e <= FLEX_OUT_TOL * scale,
-                      f"{label} seed {i}: K4f {part} max err {e} > {FLEX_OUT_TOL}·{scale}")
+                tc_e = tc_ref is not None and rel_err(tc_ref[..., sl], ref[..., sl])
+                tol = flex_limit(FLEX_OUT_TOL, n, tc_e and tc_e[0])
+                check(e <= tol * scale, f"{label} seed {i}: K4f {part} max err {e} > {tol}·{scale}")
                 out_err[part] = max(out_err[part], e / scale)
+                out_lim[part] = max(out_lim[part], tol)
                 result["abs_err"] = max(result["abs_err"], e)
+                if tc_ref is not None:
+                    calib.setdefault(part, []).append(dict(
+                        kernel=rel_err(got[..., sl], ref[..., sl]), tc=tc_e, limit=(tol, None),
+                        base=(FLEX_OUT_TOL, None), fault=rel_err(lost[..., sl], ref[..., sl])))
             del ref
-            if i == 0:
+            g = torch.randn(R, S, 4, generator=gen).to(dev)
+            case = dict(weights=weights, ro=ro, rd=rd, z=z, dc=dc, v0=v0, g=g, n=n)
+            if i == 0 and timed:
                 flops = R * S * K4F_FLOP_PER_SAMPLE
                 key = "tile_ms" if R == TILE_RAYS else "ms"
-                result[key][label] = _median_ms(lambda: F.fused_flex_forward(*args),
-                                                iters=10 if R == TILE_RAYS else 15)
+                iters = 10 if R == TILE_RAYS else 15
+                result[key][label] = _median_ms(lambda: F.fused_flex_forward(*args), iters=iters)
+                result["bare_ms"][label] = _median_ms(FS.bare_fwd(case), iters=iters)
                 if R == TRAIN_RAYS:
                     result["plain_ms"][label] = _median_ms(
                         lambda: F.fused_flex_forward_reference(*args), warmup=1, iters=5)
                     result["bound"][label] = _bound_ms(flops, _k4_bytes(R, S, False))
             if R != TRAIN_RAYS:
                 continue
-            g = torch.randn(R, S, 4, generator=gen).to(dev)
             grads, d_v0, d_dir = F.fused_flex_backward(*args[:6], g, n)
             torch.cuda.synchronize()
             grads2, d_v02, d_dir2 = F.fused_flex_backward(*args[:6], g, n)
@@ -1449,14 +1519,26 @@ def flex_kernel_phase(dev):
             same = all(torch.equal(a, b) for a, b in zip(grads + (d_v0, d_dir),
                                                           grads2 + (d_v02, d_dir2)))
             check(same, f"{label} seed {i}: two K4b launches gave different gradients")
-            rgrads, rd_v0, rd_dir = F.fused_flex_backward_reference(*args[:6], g, n)
-            for name, a, r in zip(names, grads + (d_v0, d_dir), rgrads + (rd_v0, rd_dir)):
+            plain = lambda: F.fused_flex_backward_reference(*args[:6], g, n)  # noqa: E731
+            rgrads, rd_v0, rd_dir = plain()
+            tc = fault = [None] * len(names)
+            if n >= FLEX_TC_DEPTH:
+                t = tensor_core_plain(plain)
+                tc = [rel_err(x, r) for x, r in zip(t[0] + t[1:], rgrads + (rd_v0, rd_dir))]
+                t = F.fused_flex_backward_reference(*args[:6], _lost_unit(g), n)
+                fault = [rel_err(x, r) for x, r in zip(t[0] + t[1:], rgrads + (rd_v0, rd_dir))]
+            for name, a, r, tc_err, f_err in zip(names, grads + (d_v0, d_dir), rgrads + (rd_v0, rd_dir),
+                                                 tc, fault):
                 a, r = a.float(), r.float()
                 check(bool(torch.isfinite(a).all()), f"{label}: K4b grad {name} not finite")
                 d = a - r
                 e, scale = float(d.abs().max()), float(r.abs().max())
                 e_norm, r_norm = float(d.norm()), float(r.norm())
-                tol, tol_norm = k1_grad_limits(R, name)
+                tol, tol_norm = flex_grad_limits(R, name, n, tc_err)
+                if tc_err is not None:
+                    calib.setdefault(name, []).append(dict(
+                        kernel=rel_err(a, r), tc=tc_err, limit=(tol, tol_norm),
+                        base=k1_grad_limits(R, name), fault=f_err))
                 check(e <= tol * scale + 1e-6,
                       f"{label} seed {i}: K4b grad {name} max err {e} > {tol}·{scale} + 1e-6")
                 check(e_norm <= tol_norm * r_norm + 1e-6,
@@ -1464,40 +1546,102 @@ def flex_kernel_phase(dev):
                 w = worst.get(name, (0.0, 0.0))
                 worst[name] = (max(w[0], e / max(scale, 1e-30)), max(w[1], e_norm / max(r_norm, 1e-30)))
                 result["grad_abs_err"] = max(result["grad_abs_err"], e)
-            if i == 0:
+            if i == 0 and timed:
                 result["bwd_ms"][label] = _median_ms(
                     lambda: F.fused_flex_backward(*args[:6], g, n), iters=10)
                 result["bwd_plain_ms"][label] = _median_ms(
                     lambda: F.fused_flex_backward_reference(*args[:6], g, n), warmup=1, iters=3)
                 result["bwd_bound"][label] = _bound_ms(R * S * K4B_FLOP_PER_SAMPLE,
                                                        _k4_bytes(R, S, True))
+                bwd = FS.bare_bwd(case)
+                result["bwd_bare_ms"][label] = _median_ms(bwd, iters=10)
+                rows = KS.split_rows(bwd, FS.launch_bounds(R, S, n))
+                result["bwd_split"][label] = rows
+                for short, row in rows.items():
+                    phase("flex_kernel", f"  K4b S={S} {KS.row_text(short, row)}")
         result["err"][label] = out_err
-        line = (f"R={R} S={S}, {FLEX_SEEDS} seeds: K4f max err rgb {out_err['rgb']:.2e}·max, "
-                f"σ {out_err['sigma']:.2e}·max (limit {FLEX_OUT_TOL})")
+        line = (f"{label} R={R} S={S} n={n}, {FLEX_SEEDS} seeds: K4f max err rgb "
+                f"{out_err['rgb']:.2e}·max, σ {out_err['sigma']:.2e}·max (limits "
+                f"{out_lim['rgb']:.4g}, {out_lim['sigma']:.4g})")
         if R == TILE_RAYS:
-            ms = result["tile_ms"][label]
-            line += (f"; K4f {ms:.3f} ms, {R * S * K4F_FLOP_PER_SAMPLE / ms / 1e9:.1f} TFLOP/s at "
-                     f"{K4F_FLOP_PER_SAMPLE / 1e6:.4f} MFLOP a sample")
+            ms, bare = result["tile_ms"][label], result["bare_ms"][label]
+            line += (f"; K4f {ms:.3f} ms, bare launch {bare:.3f} ms "
+                     f"({R * S * K4F_FLOP_PER_SAMPLE / bare / 1e9:.1f} TFLOP/s at "
+                     f"{K4F_FLOP_PER_SAMPLE / 1e6:.4f} MFLOP a sample, operations bound "
+                     f"{R * S * K4F_FLOP_PER_SAMPLE / PEAK_BF16_FLOPS * 1e3:.3f} ms)")
         else:
             result["readings"][label] = worst
             w_max = max(worst, key=lambda k: worst[k][0])
             w_norm = max(worst, key=lambda k: worst[k][1])
             result["grad_rel"][label] = (w_max, worst[w_max][0], w_norm, worst[w_norm][1])
-            fw, bw = result["ms"][label], result["bwd_ms"][label]
             line += (f"; K4b worst grad max err {w_max} {worst[w_max][0]:.4f}·max, worst ‖err‖ "
-                     f"{w_norm} {worst[w_norm][1]:.4f}·‖r‖; bit-identical over 2 launches; "
-                     f"K4f {fw:.3f} ms ({R * S * K4F_FLOP_PER_SAMPLE / fw / 1e9:.1f} TFLOP/s, bound "
-                     f"{result['bound'][label][0]:.3f}), plain {result['plain_ms'][label]:.3f} ms; "
-                     f"K4b {bw:.3f} ms ({R * S * K4B_FLOP_PER_SAMPLE / bw / 1e9:.1f} TFLOP/s at "
-                     f"{K4B_FLOP_PER_SAMPLE / 1e6:.4f} MFLOP a sample, bound "
-                     f"{result['bwd_bound'][label][0]:.3f}), plain {result['bwd_plain_ms'][label]:.3f} ms")
+                     f"{w_norm} {worst[w_norm][1]:.4f}·‖r‖; bit-identical over 2 launches")
+            if timed:
+                fw, bw = result["ms"][label], result["bwd_ms"][label]
+                line += (f"; K4f {fw:.3f} ms, bare launch {result['bare_ms'][label]:.3f} ms "
+                         f"({R * S * K4F_FLOP_PER_SAMPLE / fw / 1e9:.1f} TFLOP/s, bound "
+                         f"{result['bound'][label][0]:.3f}), plain {result['plain_ms'][label]:.3f} ms; "
+                         f"K4b {bw:.3f} ms, bare launch {result['bwd_bare_ms'][label]:.3f} ms "
+                         f"({R * S * K4B_FLOP_PER_SAMPLE / bw / 1e9:.1f} TFLOP/s at "
+                         f"{K4B_FLOP_PER_SAMPLE / 1e6:.4f} MFLOP a sample, bound "
+                         f"{result['bwd_bound'][label][0]:.3f}), plain "
+                         f"{result['bwd_plain_ms'][label]:.3f} ms")
         phase("flex_kernel", line)
-    for name in names:
-        cells = [f"{label} {result['readings'][label][name][0]:.2e}/"
-                 f"{result['readings'][label][name][1]:.2e}" for label in ("coarse", "fine")]
+        if calib:
+            result.setdefault("calibration", {})[label] = _flex_calibration(label, calib)
+    # every tensor's worst readings per case
+    for name in sorted({t for r in result["readings"].values() for t in r}, key=lambda t: (len(t), t)):
+        cells = [f"{label} {r[name][0]:.2e}/{r[name][1]:.2e}"
+                 for label, r in result["readings"].items() if name in r]
         phase("flex_kernel", f"  grad {name:5s} max/norm rel err: {', '.join(cells)} (limits "
-                             f"{'/'.join(map(str, k1_grad_limits(TRAIN_RAYS, name)))})")
+                             f"{'/'.join(map(str, k1_grad_limits(TRAIN_RAYS, name)))} below n = "
+                             f"{FLEX_TC_DEPTH}, `flex_limit` from there)")
     return result
+
+
+def _flex_calibration(label, calib):
+    """The n ≥ FLEX_TC_DEPTH case's readings, seed by seed: each tensor's
+    kernel reading, the tensor-core yardstick's, their ratio, the limit
+    applied and what a lost unit (`_lost_unit`) reads. Checks that the
+    factor lies between the largest ratio of a reading it decides and the
+    largest factor at which the dW launch's tensors alone still catch a
+    unit lost to that launch. Returns the summary."""
+    # the dW launch's products: w1a, w1b, wh_i, wf, wd0 (the weights before
+    # WA in `w_offsets`); wa and wrgb are dX's partial sums
+    dw_tensors = {nm for nm in calib if nm.startswith("w") and nm not in ("wa", "wrgb")}
+
+    def ratio(a, b):
+        return a / b if b > 0 else float("inf")
+
+    def pair(x):
+        return f"{x[0]:.2e}" + (f"/{x[1]:.2e}" if x[1] is not None else "")
+
+    decided, catch = [], {i: (0.0, None) for i in range(FLEX_SEEDS)}
+    for name, seeds in calib.items():
+        cells = []
+        for i, r in enumerate(seeds):
+            k, t, lim, base, f = r["kernel"], r["tc"], r["limit"], r["base"], r["fault"]
+            ratios = [ratio(k[j], t[j]) for j in (0, 1) if lim[j] is not None]
+            cells.append(f"s{i} {pair(k)} | {pair(t)} ({'/'.join(f'{q:.2f}' for q in ratios)}) | "
+                         f"{pair(lim)} | {pair(f)}")
+            for j, q in enumerate(ratios):
+                if k[j] > base[j]:  # the factor decides this reading
+                    decided.append((q, name, i, ("max", "norm")[j]))
+            if name in dw_tensors:  # the largest factor that still catches the lost unit here
+                best = max((ratio(f[j], t[j]) for j in (0, 1) if f[j] > base[j]), default=0.0)
+                if best > catch[i][0]:
+                    catch[i] = (best, name)
+        phase("flex_kernel", f"  {label} {name:5s} kernel | tensor cores (ratio) | limit | one unit "
+                             f"lost, max/norm: {'; '.join(cells)}")
+    top = max(decided, default=(0.0, None, None, None))
+    low = min(catch.values(), key=lambda c: c[0])
+    phase("flex_kernel", f"{label}: FLEX_TC_FACTOR {FLEX_TC_FACTOR}: the largest kernel / tensor-core "
+                         f"ratio of a reading above its base limit {top[0]:.3f} ({top[1]} seed {top[2]} "
+                         f"{top[3]}); a unit lost to the dW launch alone is caught up to a factor of "
+                         f"{low[0]:.3f} ({low[1]}, the least over the seeds)")
+    check(top[0] < FLEX_TC_FACTOR < low[0],
+          f"{label}: FLEX_TC_FACTOR {FLEX_TC_FACTOR} not between {top[0]} and {low[0]}")
+    return {"largest_ratio": top, "lost_unit_caught_below": low}
 
 
 def _save_avatar(cfg, ds, path, seed):
@@ -1507,6 +1651,7 @@ def _save_avatar(cfg, ds, path, seed):
     import torch
 
     from nerface_tpu_torch.models.nerf_models import build_model
+    from nerface_tpu_torch.tools.perf.cases import he_scale
 
     gen = torch.Generator().manual_seed(seed)
     coarse = build_model(cfg.models.coarse, generator=gen)
@@ -1515,7 +1660,7 @@ def _save_avatar(cfg, ds, path, seed):
         hidden_size=cfg.models.coarse.hidden_size, generator=gen,
     )
     for m in (coarse, fine):
-        _he_scale(m)
+        he_scale(m)
         with torch.no_grad():
             m.fc_alpha.bias += SIGMA_BIAS
     torch.save(
@@ -1534,8 +1679,10 @@ def _save_avatar(cfg, ds, path, seed):
     return path
 
 
-def flex_serve_phase(dev, tmp):
-    """A 512² synth512_lcode avatar served in bf16 through K4f."""
+def flex_serve_phase(dev, tmp, profile=False):
+    """A 512² synth512_lcode avatar served in bf16 through K4f; with
+    `profile` its warm frames and a frame's device time per kernel
+    (`profile_phase`)."""
     import numpy as np
     import torch
 
@@ -1572,6 +1719,8 @@ def flex_serve_phase(dev, tmp):
     phase("flex_serve", f"{n_renders} synth512_lcode renders at {ds.H}x{ds.W} via serve_jsonl, frame_ms "
                         f"{frame_ms}, K4f launches {launches} = 2 x {tiles} tiles x {n_renders}")
 
+    if profile:
+        profile_phase(server, "profile_flex_serve")
     img = server.render(frame=1, seed=1, maps=tuple(maps))
     check(img["rgb_fine"].shape == (ds.H, ds.W, 3) and img["rgb_fine"].dtype == np.uint8,
           f"rgb {img['rgb_fine'].shape} {img['rgb_fine'].dtype}")
@@ -2121,7 +2270,7 @@ def main() -> int:
         ct = train_phase(dev, ds, tmp, args.profile, card, SYNTH512_PAPER_COARSE,
                          PAPER_TRAIN_STEPS, "coarse_train")
         fk = flex_kernel_phase(dev)
-        fs = flex_serve_phase(dev, tmp)
+        fs = flex_serve_phase(dev, tmp, args.profile)
         ft = flex_train_phase(dev, ds, tmp, args.profile, card)
 
     errs = [v for r in (k, ks) for errs in r["err"].values() for key, v in errs.items()
@@ -2274,6 +2423,9 @@ def main() -> int:
             "library_ms": None,  # no single PyTorch call computes it
             "ms_by_pass": fk["ms"],
             "tile_ms_by_pass": fk["tile_ms"],  # 65536 rays
+            # the C entry alone, operands packed beforehand (2048 rays and the tiles)
+            "bare_ms_by_pass": fk["bare_ms"],
+            "design": K4F_DESIGN,
             "frame_ms_512": fs["frame_ms"],
             "card": card,
         },
@@ -2292,6 +2444,11 @@ def main() -> int:
                                             for p in ("coarse", "fine")) else "bytes",
             "library_ms": None,  # no single PyTorch call computes it
             "ms_by_pass": fk["bwd_ms"],
+            # the C entry alone, and its launches' device ms beside their
+            # operations bound and, apart, their workspace byte floor
+            "bare_ms_by_pass": fk["bwd_bare_ms"],
+            "launch_split_by_pass": fk["bwd_split"],
+            "design": K4B_DESIGN,
             "train_step_ms": ft["step_ms"],
             "train_rays_s": ft["rays_s"],
             "card": card,

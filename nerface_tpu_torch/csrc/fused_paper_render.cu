@@ -16,7 +16,8 @@
 // S = 128 at the H100's 989 TFLOP/s bf16 dense peak, against ~1.9 MB of
 // ray data in and out per 65536 rays.
 //
-// Design (one persistent 2-CTA cluster per SM pair, 384 threads a CTA):
+// Design (one persistent 2-CTA cluster per SM pair, 384 threads a CTA; the
+// chain's pieces are wgmma_chain.cuh's, which K4f shares):
 //   - The weights are packed once per model into chunk images
 //     (`wbuf_sm90`): each layer's 64-row K chunks as the byte image of
 //     wgmma's 128-byte-swizzled K-major B operand (wgmma_tile.cuh), 32 KB
@@ -72,7 +73,7 @@
 // denormals, and the encoding needs the accurate sinf.
 
 #include "mma_tile.cuh"
-#include "wgmma_tile.cuh"
+#include "wgmma_chain.cuh"
 
 using namespace nerface;
 using namespace nerface::sm90;
@@ -87,22 +88,16 @@ constexpr int RING = 5;                     // weight stages
 #endif
 constexpr int CLUSTER = NERFACE_K2_CLUSTER;
 static_assert(CLUSTER == 1 || CLUSTER == 2, "K2 runs in 1- or 2-CTA clusters");
-constexpr int CONSUMERS = 2;                // warpgroups computing the tile
+constexpr int CONSUMERS = CHAIN_CONSUMERS;  // warpgroups computing the tile
 constexpr int K2_THREADS = 128 * (CONSUMERS + 1);
-constexpr int STAGE_BYTES = KCH * HIDDEN * 2;
-constexpr int ENCODERS = 3;                 // warps of the producer warpgroup that encode
+constexpr int ENCODERS = CHAIN_ENCODERS;    // warps of the producer warpgroup that encode
 constexpr int BAR_WG = 1;                   // + warpgroup: that warpgroup's named barrier
 
 // A consumer warpgroup takes whole rays, WG_RAYS at a time, as UNITS
-// 64-row units (two at S = 128: one ray); a cluster takes RAYS_PER_PAIR
+// 64-row units (two at S = 128: one ray); a cluster takes RAYS_PER_ROUND
 // rays a round of its loop, and streams every chunk UNITS times a round.
 template <int S>
-struct Geometry {
-  static constexpr int WG_RAYS = S >= 64 ? 1 : 64 / S;
-  static constexpr int UNITS = S > 64 ? S / 64 : 1;
-  static constexpr int RAYS_PER_PAIR = CLUSTER * CONSUMERS * WG_RAYS;
-  __host__ __device__ static int pairs(int n_rays) { return (n_rays + RAYS_PER_PAIR - 1) / RAYS_PER_PAIR; }
-};
+using Geometry = Schedule<S, CLUSTER>;
 
 struct Args {
   const float* ro;     // (R, 3)
@@ -124,10 +119,10 @@ struct Args {
 };
 
 struct alignas(ATOM_BYTES) K2Smem {
-  unsigned char ring[RING][STAGE_BYTES];   // weight chunk images
+  unsigned char ring[RING][CHAIN_STAGE];   // weight chunk images
   // [xyz; PE; 0] of a consumer warpgroup's unit, K-major swizzled: two
   // buffers a warpgroup, filled by the encoder warps
-  unsigned char xin[CONSUMERS][2][64 * ROW_BYTES];
+  unsigned char xin[CONSUMERS][2][XIN_BYTES];
   // the heads' weights zero-padded to 8 columns, as chunk images: wa
   // (256 → 1) and wrgb (128 → 3)
   unsigned char wa8[HIDDEN / KCH][8 * ROW_BYTES];
@@ -149,19 +144,7 @@ template <int S, bool SMALL>
 __device__ __forceinline__ void produce(K2Smem& sm, const bf16* __restrict__ W, uint32_t rank, int n_pairs) {
   Ring ring;
   auto load_layer = [&](int off, int k, int n) {
-    const uint32_t bytes = KCH * n * 2, part = bytes / CLUSTER;
-    for (int c = 0; c < k / KCH; ++c) {
-      mbar_wait(&sm.empty[ring.stage], ring.phase ^ 1);
-      mbar_expect_tx(&sm.full[ring.stage], bytes);
-      const unsigned char* src = reinterpret_cast<const unsigned char*>(W + off + c * KCH * n);
-      if constexpr (CLUSTER == 1) {
-        bulk_load(sm.ring[ring.stage], src, bytes, &sm.full[ring.stage]);
-      } else {
-        bulk_load_multicast(sm.ring[ring.stage] + rank * part, src + rank * part, part, &sm.full[ring.stage],
-                            (1u << CLUSTER) - 1);
-      }
-      ring.advance<RING>();
-    }
+    sm90::load_layer<RING, CLUSTER>(sm.ring, sm.full, sm.empty, ring, W + off, k, n, rank);
   };
   for (int pair = cluster_id(); pair < n_pairs; pair += cluster_count()) {
     for (int u = 0; u < Geometry<S>::UNITS; ++u) {
@@ -191,126 +174,21 @@ __device__ __forceinline__ void release(K2Smem& sm, int stage, uint32_t rank) {
   if (CLUSTER > 1 && t == 32) mbar_arrive_cluster(&sm.empty[stage], rank ^ 1);
 }
 
-// One layer of a warpgroup's 64 rows: acc = A·W over the layer's NCH
-// chunks of N columns. A is the encoded tile in shared memory (xin) for the
-// first X_CHUNKS chunks, then the registers a[] (k16 slice s in
-// a[4s .. 4s + 3]). One chunk's group stays in flight while the previous
-// stage is released.
+// One layer of a warpgroup's 64 rows (`chain_layer`), each stage released
+// in both CTAs of the cluster.
 template <int N, int NCH, int X_CHUNKS>
 __device__ __forceinline__ void layer(float* acc, uint32_t* a, uint32_t xin, K2Smem& sm, Ring& ring,
                                       uint32_t rank) {
-  int prev = 0;
-#pragma unroll
-  for (int c = 0; c < NCH; ++c) {
-    mbar_wait(&sm.full[ring.stage], ring.phase);
-    const uint32_t b = smem_u32(sm.ring[ring.stage]);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < KCH / 16; ++kk) {
-      const uint64_t db = desc_k(b + 32 * kk);
-      const int scale = (c > 0 || kk > 0) ? 1 : 0;
-      if (c < X_CHUNKS) {
-        wgmma_ss<N>(acc, desc_k(xin + 32 * kk), db, scale);
-      } else {
-        wgmma_rs<N>(acc, a + 4 * ((KCH / 16) * (c - X_CHUNKS) + kk), db, scale);
-      }
-    }
-    wgmma_commit();
-    if (c > 0) {
-      wgmma_wait<1>();
-      release(sm, prev, rank);
-    }
-    prev = ring.stage;
-    ring.advance<RING>();
-  }
-  wgmma_wait<0>();
-  release(sm, prev, rank);
-  fence_regs<N / 2>(acc);
-  fence_regs<64>(a);
-}
-
-// Epilogues on the accumulator (acc_to_a applies the relu): + bias row;
-// the direction branch's first layer adds the ray's dir_c row too.
-struct EpiBias {
-  const float* bias;
-  __device__ __forceinline__ float2 operator()(int, int col, float v0, float v1) const {
-    const float2 b = *reinterpret_cast<const float2*>(bias + col);
-    return make_float2(v0 + b.x, v1 + b.y);
-  }
-};
-
-struct EpiDir {
-  const float* bias;
-  const float* dir_c;  // the ray's row, or null past the last ray
-  __device__ __forceinline__ float2 operator()(int, int col, float v0, float v1) const {
-    const float2 b = *reinterpret_cast<const float2*>(bias + col);
-    v0 += b.x;
-    v1 += b.y;
-    if (dir_c != nullptr) {
-      const float2 d = __ldg(reinterpret_cast<const float2*>(dir_c + col));
-      v0 += d.x;
-      v1 += d.y;
-    }
-    return make_float2(v0, v1);
-  }
-};
-
-// One encode task of a unit (rows row_base .. row_base + 63 of a consumer
-// warpgroup's item): row task % 64, the 32 columns [32·(task / 64), +32) of
-// [xyz; sin(x·f + φ); 0], rounded to bf16, into the unit's swizzled xin
-// buffer. A row's point is loaded and computed once. The products and sums
-// round separately (no FMA contraction) as in the plain version; `sinf`
-// has full range reduction. Rows past the last ray are 0.
-template <int S>
-__device__ __forceinline__ void encode_task(unsigned char* xin, int task, const Args& a, const float* freqs,
-                                            int ray0, int row_base) {
-  const int r = task & 63, c0 = (task >> 6) * 32;
-  const int row = row_base + r;
-  const int ray = ray0 + row / S;
-  const int n_cols = ray < a.n_rays ? 3 + 6 * a.n_freqs : 0;
-  float x0 = 0.f, x1 = 0.f, x2 = 0.f;
-  if (n_cols > 0) {
-    const float zz = a.z[(size_t)ray * S + row % S];
-    x0 = __fadd_rn(a.ro[ray * 3], __fmul_rn(a.rd[ray * 3], zz));
-    x1 = __fadd_rn(a.ro[ray * 3 + 1], __fmul_rn(a.rd[ray * 3 + 1], zz));
-    x2 = __fadd_rn(a.ro[ray * 3 + 2], __fmul_rn(a.rd[ray * 3 + 2], zz));
-  }
-  auto col = [&](int c) {
-    if (c >= n_cols) return 0.f;
-    if (c < 3) return c == 0 ? x0 : (c == 1 ? x1 : x2);
-    const int p = c - 3, d = p % 3;
-    const float phase = (p % 6) >= 3 ? 1.57079632679489661923f : 0.f;
-    return sinf(__fadd_rn(__fmul_rn(d == 0 ? x0 : (d == 1 ? x1 : x2), freqs[p / 6]), phase));
-  };
-#pragma unroll 1
-  for (int j = 0; j < 32; j += 2) {
-    const int c = c0 + j;
-    *reinterpret_cast<uint32_t*>(xin + sw128(r, c)) = pack_bf16(col(c), col(c + 1));
-  }
+  chain_layer<N, NCH, X_CHUNKS, RING>(acc, a, xin, sm.ring, sm.full, ring,
+                                      [&](int stage) { release(sm, stage, rank); });
 }
 
 // The encoder warps (ENCODERS · 32 threads, index e): every unit of both
-// consumer warpgroups, in the order they take them, each into the next of
-// the warpgroup's two xin buffers once its skip layer has released it.
+// consumer warpgroups, in the order they take them (`encode_units`).
 template <int S>
 __device__ __forceinline__ void encode(K2Smem& sm, const Args& a, uint32_t rank, int n_pairs, int e) {
-  using G = Geometry<S>;
-  int done[CONSUMERS] = {};  // units encoded for each warpgroup
-  for (int pair = cluster_id(); pair < n_pairs; pair += cluster_count()) {
-    for (int u = 0; u < G::UNITS; ++u) {
-#pragma unroll
-      for (int wg = 0; wg < CONSUMERS; ++wg) {
-        const int b = done[wg] & 1;
-        mbar_wait(&sm.xin_empty[wg][b], ((done[wg] >> 1) & 1) ^ 1);
-        const int ray0 = ((pair * CLUSTER + (int)rank) * CONSUMERS + wg) * G::WG_RAYS;
-        for (int task = e; task < 128; task += ENCODERS * 32)
-          encode_task<S>(sm.xin[wg][b], task, a, sm.f + F_OFF_FREQS, ray0, u * 64);
-        fence_proxy_async();
-        mbar_arrive(&sm.xin_full[wg][b]);
-        ++done[wg];
-      }
-    }
-  }
+  encode_units<S, CLUSTER>(sm.xin, sm.xin_full, sm.xin_empty, a, sm.f + F_OFF_FREQS, rank, cluster_id(),
+                           cluster_count(), n_pairs, e, [](int, int) -> unsigned char* { return nullptr; });
 }
 
 // Compositing of ray `ray` (rows warp·S .. warp·S + S - 1 of its
@@ -394,19 +272,6 @@ __device__ __forceinline__ void composite(const float* sigma, const float* rgb, 
   }
 }
 
-// A head: the m64n8 product of the K bf16 columns in a[] with a (K, 8)
-// weight image at shared address `w` (K / 64 chunks of 1 KB), into d.
-template <int K>
-__device__ __forceinline__ void head(float* d, uint32_t* a, uint32_t w) {
-  wgmma_fence();
-#pragma unroll
-  for (int s = 0; s < K / 16; ++s) wgmma_rs_n8(d, a + 4 * s, desc_k(w + (s >> 2) * 8 * ROW_BYTES + 32 * (s & 3)), s > 0);
-  wgmma_commit();
-  wgmma_wait<0>();
-  fence_regs<4>(d);
-  fence_regs<64>(a);
-}
-
 // A consumer warpgroup (wg 0 or 1) over its rays: for each unit, encode,
 // the layers and the heads; after an item's last unit, its warps composite
 // its rays. Nothing but the weight ring ties the two warpgroups together,
@@ -430,7 +295,7 @@ __device__ __forceinline__ void consume(K2Smem& sm, const Args& a, uint32_t rank
   for (int i = 0; i < 64; ++i) act[i] = 0u;
 
   for (int pair = cluster_id(); pair < n_pairs; pair += cluster_count()) {
-    const int ray0 = ((pair * CLUSTER + (int)rank) * CONSUMERS + wg) * G::WG_RAYS;
+    const int ray0 = G::item(pair, (int)rank, wg) * G::WG_RAYS;
 #pragma unroll 1
     for (int u = 0; u < G::UNITS; ++u) {
       const int ray = ray0 + (u * 64 + r0) / S;
@@ -439,40 +304,40 @@ __device__ __forceinline__ void consume(K2Smem& sm, const Args& a, uint32_t rank
       const uint32_t xin = smem_u32(sm.xin[wg][b]);
 
       layer<HIDDEN, 1, 1>(acc, act, xin, sm, ring, rank);
-      acc_to_a<HIDDEN, true>(acc, act, EpiBias{sm.f + F_OFF_COND0});
+      acc_to_a<HIDDEN, true>(acc, act, ChainBias{sm.f + F_OFF_COND0});
       layer<HIDDEN, 4, 0>(acc, act, xin, sm, ring, rank);
-      acc_to_a<HIDDEN, true>(acc, act, EpiBias{sm.f + F_OFF_B1});
+      acc_to_a<HIDDEN, true>(acc, act, ChainBias{sm.f + F_OFF_B1});
       layer<HIDDEN, 4, 0>(acc, act, xin, sm, ring, rank);
-      acc_to_a<HIDDEN, true>(acc, act, EpiBias{sm.f + F_OFF_B2});
+      acc_to_a<HIDDEN, true>(acc, act, ChainBias{sm.f + F_OFF_B2});
       layer<HIDDEN, 5, 1>(acc, act, xin, sm, ring, rank);  // the skip: [xin; h2]
       if ((threadIdx.x & 127) == 0) mbar_arrive(&sm.xin_empty[wg][b]);  // its last reader is done
       ++units;
-      acc_to_a<HIDDEN, true>(acc, act, EpiBias{sm.f + F_OFF_COND3});
+      acc_to_a<HIDDEN, true>(acc, act, ChainBias{sm.f + F_OFF_COND3});
       layer<HIDDEN, 4, 0>(acc, act, xin, sm, ring, rank);
-      acc_to_a<HIDDEN, true>(acc, act, EpiBias{sm.f + F_OFF_B4});
+      acc_to_a<HIDDEN, true>(acc, act, ChainBias{sm.f + F_OFF_B4});
       if constexpr (!SMALL) {
         layer<HIDDEN, 4, 0>(acc, act, xin, sm, ring, rank);
-        acc_to_a<HIDDEN, true>(acc, act, EpiBias{sm.f + F_OFF_B5});
+        acc_to_a<HIDDEN, true>(acc, act, ChainBias{sm.f + F_OFF_B5});
       }
       layer<HIDDEN, 4, 0>(acc, act, xin, sm, ring, rank);
-      acc_to_a<HIDDEN, false>(acc, act, EpiBias{sm.f + F_OFF_BF});  // feat
+      acc_to_a<HIDDEN, false>(acc, act, ChainBias{sm.f + F_OFF_BF});  // feat
 
       // the σ head: feat (bf16, in act) against wa padded to 8 columns
       float hs[4] = {0.f, 0.f, 0.f, 0.f};
-      head<HIDDEN>(hs, act, smem_u32(sm.wa8));
+      chain_head<HIDDEN>(hs, act, smem_u32(sm.wa8));
 
       const float* dir_c = ray < a.n_rays ? a.dir_c + (size_t)ray * DIR_HIDDEN : nullptr;
       layer<DIR_HIDDEN, 4, 0>(acc, act, xin, sm, ring, rank);
-      acc_to_a<DIR_HIDDEN, true>(acc, act, EpiDir{sm.f + F_OFF_BD0, dir_c});
+      acc_to_a<DIR_HIDDEN, true>(acc, act, ChainDir{sm.f + F_OFF_BD0, dir_c});
       layer<DIR_HIDDEN, 2, 0>(acc, act, xin, sm, ring, rank);
-      acc_to_a<DIR_HIDDEN, true>(acc, act, EpiBias{sm.f + F_OFF_BD1});
+      acc_to_a<DIR_HIDDEN, true>(acc, act, ChainBias{sm.f + F_OFF_BD1});
       layer<DIR_HIDDEN, 2, 0>(acc, act, xin, sm, ring, rank);
 
       // the rgb head: x2 = bf16(relu(acc + bd2)) against wrgb padded to 8
       // columns
-      acc_to_a<DIR_HIDDEN, true>(acc, act, EpiBias{sm.f + F_OFF_BD2});
+      acc_to_a<DIR_HIDDEN, true>(acc, act, ChainBias{sm.f + F_OFF_BD2});
       float hc[4] = {0.f, 0.f, 0.f, 0.f};
-      head<DIR_HIDDEN>(hc, act, smem_u32(sm.wrgb8));
+      chain_head<DIR_HIDDEN>(hc, act, smem_u32(sm.wrgb8));
 
       if (u == 0) named_bar_sync(BAR_WG + wg, 128);  // the last item's compositing has read sigma / rgb
       // hs / hc[2h + j]: row r0 + 8h, column 2·(lane % 4) + j
@@ -500,17 +365,8 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(K2_THREADS, 1)
   K2Smem& sm = *reinterpret_cast<K2Smem*>(smem_raw + pad);
   const int t = threadIdx.x;
   for (int i = t; i < F_OFF_TOTAL; i += K2_THREADS) sm.f[i] = a.F[i];
-  // element (k, n) of a head's (K, 8) weight: chunk k / 64, byte sw128(n, k % 64)
-  for (int i = t; i < HIDDEN * 8; i += K2_THREADS) {
-    const int k = i >> 3, n = i & 7;
-    *reinterpret_cast<bf16*>(sm.wa8[k / KCH] + sw128(n, k % KCH)) =
-        n == 0 ? a.W[W_OFF_WA + k] : __float2bfloat16_rn(0.f);
-  }
-  for (int i = t; i < DIR_HIDDEN * 8; i += K2_THREADS) {
-    const int k = i >> 3, n = i & 7;
-    *reinterpret_cast<bf16*>(sm.wrgb8[k / KCH] + sw128(n, k % KCH)) =
-        n < 3 ? a.W[W_OFF_WRGB + k * 3 + n] : __float2bfloat16_rn(0.f);
-  }
+  head_image<HIDDEN>(sm.wa8, a.W + W_OFF_WA, 1, t, K2_THREADS);
+  head_image<DIR_HIDDEN>(sm.wrgb8, a.W + W_OFF_WRGB, 3, t, K2_THREADS);
   fence_proxy_async();  // the images are read by wgmma
   if (t == 0) {
     for (int s = 0; s < RING; ++s) {
@@ -529,7 +385,7 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(K2_THREADS, 1)
   cluster_sync();  // the peer's barriers exist before any copy or arrive reaches them
 
   const uint32_t rank = cluster_rank();
-  const int n_pairs = Geometry<S>::pairs(a.n_rays);
+  const int n_pairs = Geometry<S>::rounds(a.n_rays);
   const int wg = t / 128;
   if (wg == CONSUMERS) {
     reg_dealloc<40>();
@@ -563,7 +419,7 @@ struct Render {
       if (e != cudaSuccess) return (int)e;
       if (max_clusters < 1) return (int)cudaErrorInvalidConfiguration;
     }
-    const int pairs = Geometry<S>::pairs(args.n_rays);
+    const int pairs = Geometry<S>::rounds(args.n_rays);
     const int clusters = pairs < max_clusters ? pairs : max_clusters;
     kernel<<<clusters * CLUSTER, K2_THREADS, SMEM_BYTES, stream>>>(args);
     return (int)cudaGetLastError();

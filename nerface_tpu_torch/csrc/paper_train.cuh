@@ -936,7 +936,7 @@ int launch_pass(const PassArgs& a, const Policy& policy, float* dW, float* dF, c
   // the smaller model has no W5: the last entry drops out, and its slot,
   // which no dW block covers, is zeroed after the reduction
   const int n_mats = (int)(sizeof(mats) / sizeof(mats[0])) - (SMALL ? 1 : 0);
-  int err = launch_dw_wgmma(mats, n_mats, ws.dw_part, W_OFF_WA, pass_units(a.n_rays, S), st);
+  int err = launch_dw_wgmma(mats, n_mats, ws.dw_part, W_OFF_WA, pass_units(a.n_rays, S), DWG_SEGS, st);
   if (err != 0) return err;
   reduce_rows<<<(W_OFF_WA + 255) / 256, 256, 0, st>>>(ws.dw_part, DWG_SEGS, W_OFF_WA, W_OFF_WA, dW, nullptr);
   if (SMALL) {

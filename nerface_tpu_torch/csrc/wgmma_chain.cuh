@@ -1,0 +1,236 @@
+// The layer chain of the port's persistent wgmma MLP kernels, shared by K2
+// (fused_paper_render.cu) and K4f / K4b's recompute (fused_flex.cu).
+//
+// A CTA has two consumer warpgroups and a producer warpgroup. The
+// producer's first thread streams each layer's weight chunk images
+// (wgmma_tile.cuh) through a ring of CHAIN_STAGE-byte stages
+// (`load_layer`), three of its warps encode each unit's [xyz; PE; 0] tile
+// into the consumer's two swizzled xin buffers (`encode_units`), handed
+// over on mbarriers. A consumer warpgroup takes whole rays as 64-row units
+// (`Schedule`) and runs each layer as one chain of wgmmas with A in
+// registers (`chain_layer`), its epilogue turning the accumulators into
+// the next layer's A (`acc_to_a` with `ChainBias` / `ChainDir`); the
+// narrow heads are m64n8 products (`chain_head`). Nothing here calls out:
+// ptxas serialises every wgmma of a kernel that contains a call.
+
+#pragma once
+
+#include "wgmma_tile.cuh"
+
+namespace nerface {
+namespace sm90 {
+
+constexpr int CHAIN_CONSUMERS = 2;                 // warpgroups computing units
+constexpr int CHAIN_ENCODERS = 3;                  // warps of the producer warpgroup that encode
+constexpr int CHAIN_STAGE = KCH * 256 * 2;         // a ring stage: one 64 × 256 bf16 chunk image
+constexpr int XIN_BYTES = 64 * ROW_BYTES;          // a unit's [xyz; PE; 0], K = 64
+
+// The unit schedule. A consumer warpgroup takes whole rays, WG_RAYS at a
+// time (an item), as UNITS 64-row units: two rays a unit at S = 32, one at
+// S = 64, one ray in two units at S = 128. Round r of a CTA group of CTAS
+// (a cluster, or 1) gives item (r·CTAS + rank)·CHAIN_CONSUMERS + wg to
+// consumer wg of CTA rank. Unit k of the pass holds its sample rows
+// [64k, 64k + 64).
+template <int S, int CTAS>
+struct Schedule {
+  static constexpr int WG_RAYS = S >= 64 ? 1 : 64 / S;
+  static constexpr int UNITS = S > 64 ? S / 64 : 1;
+  static constexpr int RAYS_PER_ROUND = CTAS * CHAIN_CONSUMERS * WG_RAYS;
+  __host__ __device__ static int rounds(int n_rays) { return (n_rays + RAYS_PER_ROUND - 1) / RAYS_PER_ROUND; }
+  __host__ __device__ static int item(int round, int rank, int wg) {
+    return (round * CTAS + rank) * CHAIN_CONSUMERS + wg;
+  }
+};
+
+// The producer: one layer's k / 64 chunks of 64 × n bf16 from the chunk
+// images at `src`, each into the next stage once every consumer has
+// released it; in a cluster of CTAS each CTA copies its part of a chunk
+// and multicasts it to all.
+template <int RING, int CTAS>
+__device__ __forceinline__ void load_layer(unsigned char (*stages)[CHAIN_STAGE], uint64_t* full, uint64_t* empty,
+                                           Ring& ring, const bf16* src, int k, int n, uint32_t rank) {
+  const uint32_t bytes = KCH * n * 2, part = bytes / CTAS;
+  for (int c = 0; c < k / KCH; ++c) {
+    mbar_wait(&empty[ring.stage], ring.phase ^ 1);
+    mbar_expect_tx(&full[ring.stage], bytes);
+    const unsigned char* s = reinterpret_cast<const unsigned char*>(src + c * KCH * n);
+    if constexpr (CTAS == 1) {
+      bulk_load(stages[ring.stage], s, bytes, &full[ring.stage]);
+    } else {
+      bulk_load_multicast(stages[ring.stage] + rank * part, s + rank * part, part, &full[ring.stage],
+                          (1u << CTAS) - 1);
+    }
+    ring.advance<RING>();
+  }
+}
+
+// One layer of a warpgroup's 64 rows: acc = A·W over the layer's NCH
+// chunks of N columns. A is a K-major image in shared memory at xin (64 ×
+// 64 blocks, XIN_BYTES apart: the encoded tile, or K4b's A tile) for the
+// first X_CHUNKS chunks, then the registers a[] (k16 slice s in a[4s ..
+// 4s + 3]). One chunk's group stays in flight while the previous stage is
+// released (`release(stage)`). Afterwards the accumulators and the first
+// A_LIVE A registers are fenced (K2 fences all 64). With FRESH the
+// accumulators' old values are made constants first: the first product
+// does not read them, but its asm operand would keep them live through
+// the epilogue before. A stage holds STAGE bytes: a chunk image's N rows
+// of 64 k, or (K4b's dX) half of them.
+template <int N, int NCH, int X_CHUNKS, int RING, bool FRESH = false, int A_LIVE = 64, int STAGE = CHAIN_STAGE,
+          class Release>
+__device__ __forceinline__ void chain_layer(float* acc, uint32_t* a, uint32_t xin, unsigned char (*stages)[STAGE],
+                                            uint64_t* full, Ring& ring, const Release& release) {
+  if constexpr (FRESH) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  }
+  int prev = 0;
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+    mbar_wait(&full[ring.stage], ring.phase);
+    const uint32_t b = smem_u32(stages[ring.stage]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KCH / 16; ++kk) {
+      const uint64_t db = desc_k(b + 32 * kk);
+      const int scale = (c > 0 || kk > 0) ? 1 : 0;
+      if (c < X_CHUNKS) {
+        wgmma_ss<N>(acc, desc_k(xin + c * XIN_BYTES + 32 * kk), db, scale);
+      } else {
+        wgmma_rs<N>(acc, a + 4 * ((KCH / 16) * (c - X_CHUNKS) + kk), db, scale);
+      }
+    }
+    wgmma_commit();
+    if (c > 0) {
+      wgmma_wait<1>();
+      release(prev);
+    }
+    prev = ring.stage;
+    ring.advance<RING>();
+  }
+  wgmma_wait<0>();
+  release(prev);
+  fence_regs<N / 2>(acc);
+  fence_regs<A_LIVE>(a);
+}
+
+// A head: the m64n8 product of the K bf16 columns in a[] with a (K, 8)
+// weight image at shared address `w` (K / 64 chunks of 1 KB), into d.
+template <int K>
+__device__ __forceinline__ void chain_head(float* d, uint32_t* a, uint32_t w) {
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < K / 16; ++s) wgmma_rs_n8(d, a + 4 * s, desc_k(w + (s >> 2) * 8 * ROW_BYTES + 32 * (s & 3)), s > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs<4>(d);
+  fence_regs<64>(a);
+}
+
+// A head's (K, 8) image in shared memory from the row-major (K, cols)
+// bf16 weight at `w`, zero past `cols`: element (k, n) at chunk k / 64,
+// byte sw128(n, k % 64). The caller fences for the async proxy.
+template <int K>
+__device__ __forceinline__ void head_image(unsigned char (*img)[8 * ROW_BYTES], const bf16* w, int cols, int t,
+                                           int threads) {
+  for (int i = t; i < K * 8; i += threads) {
+    const int k = i >> 3, n = i & 7;
+    *reinterpret_cast<bf16*>(img[k / KCH] + sw128(n, k % KCH)) = n < cols ? w[k * cols + n] : __float2bfloat16_rn(0.f);
+  }
+}
+
+// Epilogues on the accumulator (acc_to_a applies the relu): + bias row;
+// the direction branch's first layer adds the ray's dir_c row too.
+struct ChainBias {
+  const float* bias;
+  __device__ __forceinline__ float2 operator()(int, int col, float v0, float v1) const {
+    const float2 b = *reinterpret_cast<const float2*>(bias + col);
+    return make_float2(v0 + b.x, v1 + b.y);
+  }
+};
+
+struct ChainDir {
+  const float* bias;
+  const float* dir_c;  // the ray's row, or null past the last ray
+  __device__ __forceinline__ float2 operator()(int, int col, float v0, float v1) const {
+    const float2 b = *reinterpret_cast<const float2*>(bias + col);
+    v0 += b.x;
+    v1 += b.y;
+    if (dir_c != nullptr) {
+      const float2 d = __ldg(reinterpret_cast<const float2*>(dir_c + col));
+      v0 += d.x;
+      v1 += d.y;
+    }
+    return make_float2(v0, v1);
+  }
+};
+
+// One encode task of a unit (rows row_base .. row_base + 63 of an item
+// whose first ray is ray0): row task % 64, the 32 columns [32·(task / 64),
+// +32) of [xyz; sin(x·f + φ); 0], rounded to bf16, into the unit's
+// swizzled xin buffer and, when xg is not null, into the same bytes of a
+// workspace image. A row's point is loaded and computed once. The products
+// and sums round separately (no FMA contraction) as in the plain version;
+// `sinf` has full range reduction. Rows past the last ray are 0. `a` has
+// the rays (ro, rd, z), n_rays and n_freqs.
+template <int S, class A>
+__device__ __forceinline__ void encode_task(unsigned char* xin, unsigned char* xg, int task, const A& a,
+                                            const float* freqs, int ray0, int row_base) {
+  const int r = task & 63, c0 = (task >> 6) * 32;
+  const int row = row_base + r;
+  const int ray = ray0 + row / S;
+  const int n_cols = ray < a.n_rays ? 3 + 6 * a.n_freqs : 0;
+  float x0 = 0.f, x1 = 0.f, x2 = 0.f;
+  if (n_cols > 0) {
+    const float zz = a.z[(size_t)ray * S + row % S];
+    x0 = __fadd_rn(a.ro[ray * 3], __fmul_rn(a.rd[ray * 3], zz));
+    x1 = __fadd_rn(a.ro[ray * 3 + 1], __fmul_rn(a.rd[ray * 3 + 1], zz));
+    x2 = __fadd_rn(a.ro[ray * 3 + 2], __fmul_rn(a.rd[ray * 3 + 2], zz));
+  }
+  auto col = [&](int c) {
+    if (c >= n_cols) return 0.f;
+    if (c < 3) return c == 0 ? x0 : (c == 1 ? x1 : x2);
+    const int p = c - 3, d = p % 3;
+    const float phase = (p % 6) >= 3 ? 1.57079632679489661923f : 0.f;
+    return sinf(__fadd_rn(__fmul_rn(d == 0 ? x0 : (d == 1 ? x1 : x2), freqs[p / 6]), phase));
+  };
+#pragma unroll 1
+  for (int j = 0; j < 32; j += 2) {
+    const int c = c0 + j;
+    const uint32_t v = pack_bf16(col(c), col(c + 1));
+    *reinterpret_cast<uint32_t*>(xin + sw128(r, c)) = v;
+    if (xg != nullptr) *reinterpret_cast<uint32_t*>(xg + sw128(r, c)) = v;
+  }
+}
+
+// The encoder warps (CHAIN_ENCODERS · 32 threads, index e): every unit of
+// both consumer warpgroups of CTA `rank`, rounds round0, round0 + step, ...
+// below n_rounds, in the order the consumers take them, each into the
+// next of the warpgroup's two xin buffers once its reader has released it.
+// xg(item, u) is the unit's workspace image, or null.
+template <int S, int CTAS, class A, class Xg>
+__device__ __forceinline__ void encode_units(unsigned char (*xin)[2][XIN_BYTES], uint64_t (*xin_full)[2],
+                                             uint64_t (*xin_empty)[2], const A& a, const float* freqs,
+                                             uint32_t rank, int round0, int step, int n_rounds, int e,
+                                             const Xg& xg) {
+  using G = Schedule<S, CTAS>;
+  int done[CHAIN_CONSUMERS] = {};  // units encoded for each warpgroup
+  for (int round = round0; round < n_rounds; round += step) {
+    for (int u = 0; u < G::UNITS; ++u) {
+#pragma unroll
+      for (int wg = 0; wg < CHAIN_CONSUMERS; ++wg) {
+        const int b = done[wg] & 1;
+        mbar_wait(&xin_empty[wg][b], ((done[wg] >> 1) & 1) ^ 1);
+        const int item = G::item(round, (int)rank, wg);
+        unsigned char* g = xg(item, u);
+        for (int task = e; task < 128; task += CHAIN_ENCODERS * 32)
+          encode_task<S>(xin[wg][b], g, task, a, freqs, item * G::WG_RAYS, u * 64);
+        fence_proxy_async();
+        mbar_arrive(&xin_full[wg][b]);
+        ++done[wg];
+      }
+    }
+  }
+}
+
+}  // namespace sm90
+}  // namespace nerface

@@ -1,7 +1,7 @@
-// The paper model's weight gradients on Hopper (sm_90a): dW = Xᵀ·bf16(gY)
-// for the products of a training pass (K1, fused_train_pass.cu; K3b,
-// fused_paper_mlp.cu; both through paper_train.cuh), from the pass's
-// workspace.
+// The weight gradients of the port's training passes on Hopper (sm_90a):
+// dW = Xᵀ·bf16(gY) for the products of a pass, from its workspace: the
+// paper model's (K1, fused_train_pass.cu; K3b, fused_paper_mlp.cu; both
+// through paper_train.cuh) and the Flexible family's (K4b, fused_flex.cu).
 //
 // The workspace holds every bf16 activation X and cotangent gY of the pass
 // as wgmma operand images: per 64-row unit, the buffer's 64-column blocks
@@ -15,7 +15,10 @@
 //
 // A CTA owns one product, two 64-column blocks of its X (one a consumer
 // warpgroup: the 64 × N f32 block of dW, 64 or 128 accumulator registers
-// a thread) and one of DWG_SEGS row segments fixed by the pass's shape.
+// a thread) and one of the caller's row segments, a count fixed by the
+// pass's shape: DWG_SEGS for the paper model (its 18 column-block pairs ×
+// 7 = 126 CTAs, one wave on 132 SMs), `dw_segments` of the product list
+// for a pass that picks its own.
 // Its producer thread keeps a ring of DWG_RING stages in flight, each a
 // unit of gY and of the CTA's two X blocks (one bulk copy each); the
 // consumers run four m64nNk16 wgmmas a unit and keep one unit's group in
@@ -37,7 +40,8 @@
 
 namespace nerface {
 
-constexpr int DWG_SEGS = 7;       // row segments: 18 products × 7 = 126 CTAs, one wave on 132 SMs
+constexpr int DWG_SEGS = 7;       // the paper model's row segments: 18 × 7 = 126 CTAs, one wave on 132 SMs
+constexpr int DWG_WAVE = 132;     // CTAs of one wave on an H100 (one an SM)
 constexpr int DWG_RING = 4;
 constexpr int DWG_MATS_MAX = 12;
 constexpr int DWG_BLOCK = 64 * sm90::ROW_BYTES;  // a 64 × 64 bf16 image block, 8 KB
@@ -54,7 +58,7 @@ struct DwgMat {
 struct DwgArgs {
   DwgMat m[DWG_MATS_MAX];
   int task_start[DWG_MATS_MAX + 1];  // CTAs (column-block pairs) of the products before each
-  float* part;                       // (DWG_SEGS, part_ld)
+  float* part;                       // (segments, part_ld)
   int part_ld;
   int units;
   int units_per_seg;
@@ -151,29 +155,40 @@ __global__ void __launch_bounds__(DWG_THREADS, 1) dw_wgmma_kernel(const DwgArgs 
 
 constexpr size_t DWG_SMEM_BYTES = sizeof(DwgSmem) + sm90::ATOM_BYTES;  // + the alignment pad
 
+// A product's CTAs: one a pair of X's 64-column blocks.
+__host__ __device__ inline int dw_tasks(int kdim) { return (kdim / 64 + 1) / 2; }
+
+// The row segments that fill one wave with the products of `kdims`
+// (their X widths): DWG_WAVE / their CTAs, at least 1.
+inline int dw_segments(const int* kdims, int n_mats) {
+  int tasks = 0;
+  for (int i = 0; i < n_mats; ++i) tasks += dw_tasks(kdims[i]);
+  return tasks >= DWG_WAVE ? 1 : DWG_WAVE / tasks;
+}
+
 // dW of `n_mats` products over `units` workspace units into `part`
-// (DWG_SEGS × part_ld floats; the products cover every column below
-// part_ld); returns a cudaError_t. The caller adds the segments
-// (reduce_rows).
-inline int launch_dw_wgmma(const DwgMat* mats, int n_mats, float* part, int part_ld, int units,
+// (segs × part_ld floats; the products cover every column below part_ld),
+// the units cut into `segs` row segments; returns a cudaError_t. The
+// caller adds the segments (reduce_rows).
+inline int launch_dw_wgmma(const DwgMat* mats, int n_mats, float* part, int part_ld, int units, int segs,
                            cudaStream_t st) {
-  if (n_mats > DWG_MATS_MAX) return (int)cudaErrorInvalidValue;
+  if (n_mats > DWG_MATS_MAX || segs < 1) return (int)cudaErrorInvalidValue;
   DwgArgs da;
   da.task_start[0] = 0;
   for (int i = 0; i < n_mats; ++i) {
     if (mats[i].kdim % 64 != 0 || (mats[i].ndim != 128 && mats[i].ndim != 256))
       return (int)cudaErrorInvalidValue;
     da.m[i] = mats[i];
-    da.task_start[i + 1] = da.task_start[i] + (mats[i].kdim / 64 + 1) / 2;
+    da.task_start[i + 1] = da.task_start[i] + dw_tasks(mats[i].kdim);
   }
   da.part = part;
   da.part_ld = part_ld;
   da.units = units;
-  da.units_per_seg = (units + DWG_SEGS - 1) / DWG_SEGS;
+  da.units_per_seg = (units + segs - 1) / segs;
   cudaError_t e = cudaFuncSetAttribute(dw_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)DWG_SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
-  dw_wgmma_kernel<<<dim3(da.task_start[n_mats], DWG_SEGS), DWG_THREADS, DWG_SMEM_BYTES, st>>>(da);
+  dw_wgmma_kernel<<<dim3(da.task_start[n_mats], segs), DWG_THREADS, DWG_SMEM_BYTES, st>>>(da);
   return (int)cudaGetLastError();
 }
 

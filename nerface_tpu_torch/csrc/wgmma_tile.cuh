@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the port's wgmma kernels: K2
-// (fused_paper_render.cu) and the design probes P1 / P2 (probes.cu).
+// (fused_paper_render.cu), K1 / K3b (paper_train.cuh), K4f / K4b
+// (fused_flex.cu) and the design probes P1 / P2 (probes.cu).
 //
 // - wgmma.mma_async m64n256k16 / m64n128k16, bf16 operands, f32
 //   accumulators in registers: A from shared memory (`wgmma_ss_*`, a matrix

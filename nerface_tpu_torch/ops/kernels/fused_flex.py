@@ -16,10 +16,15 @@ contribution, relu, `fc_rgb` — and returns the raw radiance [rgb, σ]
   JAX package's order (`fused_flex.py:344-356`).
 * `fused_flex_forward` / `fused_flex_backward` are the wrappers: on CUDA
   tensors they launch the hand-written kernels of `csrc/fused_flex.cu`
-  (K4f; K4b with its recompute, dX chain and deterministic dW) or raise;
-  on CPU tensors they run `fused_flex_forward_reference` /
-  `fused_flex_backward_reference`. Each counts its calls that launch in
-  `.launches`.
+  (K4f, a persistent wgmma kernel; K4b, its recompute, a wgmma dX chain,
+  a wgmma dW and two ordered reductions) or raise; on CPU tensors they
+  run `fused_flex_forward_reference` / `fused_flex_backward_reference`.
+  Each C entry has one call site, `_launch_flex_fwd` / `_launch_flex_bwd`,
+  which counts the launch in the wrapper's `.launches`; the kernels read
+  the weights as chunk images (`sm90_chunk_image`), written from
+  `pack_flex_weights`' matrices by one cached gather
+  (`_flex_weight_gather`), and the bands copied once per device
+  (`fused_mlp._device_bands`): a call copies nothing from the host.
 * The plain versions round to bf16 where the TPU kernel does: every left
   matmul operand (the raw points included) and the weights; the saved
   activations, their relu masks, both operands of dW and the cotangent of
@@ -40,21 +45,24 @@ contribution, relu, `fc_rgb` — and returns the raw radiance [rgb, σ]
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Sequence, Tuple
 
 import torch
 
-from nerface_tpu_torch.ops.encoding import _frequency_bands
 from nerface_tpu_torch.ops.kernels.fused_mlp import (
     DIR_HIDDEN,
     HIDDEN,
     K_XIN,
     MAX_FREQS,
     _check,
+    _device_bands,
     _encode_points,
+    _ptr,
+    sm90_chunk_image,
 )
 
-# S values the kernel is compiled for (whole rays per 128-row tile)
+# S values the kernels are compiled for (whole rays in 64-row units)
 FLEX_KERNEL_SAMPLES = (32, 64, 128)
 # hidden layers after layer1 the kernel takes (num_layers − 1)
 MAX_HIDDEN = 8
@@ -240,7 +248,7 @@ def fused_flex_backward_reference(
 def w_offsets(n_hidden: int) -> Dict[str, int]:
     """bf16 weights, each (in, out) row-major: W1 = [w1a; w1b; 0] (K_XIN,
     h), WF, WD0, WH0..WH{n-1}, then WA and WRGB (the σ and rgb heads, whose
-    gradients are per-tile partial sums)."""
+    gradients are the CTAs' partial sums)."""
     offs = {"W1": 0, "WF": K_XIN * HIDDEN}
     offs["WD0"] = offs["WF"] + HIDDEN * HIDDEN
     wh = offs["WD0"] + HIDDEN * DIR_HIDDEN
@@ -274,25 +282,85 @@ def wt_offsets(n_hidden: int) -> Dict[str, int]:
     return offs
 
 
-def pack_kernel_operands(W, v0: torch.Tensor, n_hidden: int, freqs: torch.Tensor):
-    """(bf16 weights, f32 rows) flat buffers in the `w_offsets` /
-    `f_offsets` order."""
-    n_enc = W["w1b"].shape[0]
-    pad = W["w1a"].new_zeros(K_XIN - 3 - n_enc, HIDDEN)
-    mats = [torch.cat([W["w1a"], W["w1b"], pad]), W["wf"], W["wd0"]]
-    mats += [W[f"wh{i}"] for i in range(n_hidden)] + [W["wa"], W["wrgb"]]
-    wbuf = torch.cat([m.reshape(-1).to(torch.bfloat16) for m in mats])
+def _pack_rows(W, v0: torch.Tensor, n_hidden: int, freqs: torch.Tensor) -> torch.Tensor:
+    """The f32 rows in `f_offsets` order."""
     rows = [v0, W["bf"], W["bd0"], W["ba"], W["brgb"],
             torch.cat([freqs, freqs.new_zeros(16 - freqs.numel())])]
     rows += [W[f"bh{i}"] for i in range(n_hidden)]
-    fbuf = torch.cat([t.reshape(-1).float() for t in rows])
-    return wbuf.contiguous(), fbuf.contiguous()
+    return torch.cat([t.reshape(-1).float() for t in rows]).contiguous()
+
+
+def _forward_matrices(W, n_hidden: int):
+    """`w_offsets`' matrices by name, (in, out): W1 = [w1a; w1b; 0]."""
+    n_enc = W["w1b"].shape[0]
+    pad = W["w1a"].new_zeros(K_XIN - 3 - n_enc, HIDDEN)
+    mats = {"W1": torch.cat([W["w1a"], W["w1b"], pad]), "WF": W["wf"], "WD0": W["wd0"]}
+    mats.update({f"WH{i}": W[f"wh{i}"] for i in range(n_hidden)})
+    mats.update(WA=W["wa"], WRGB=W["wrgb"])
+    return mats
+
+
+def _transposed_matrices(W, n_hidden: int):
+    """`wt_offsets`' matrices by name, (out, in)."""
+    mats = {"WD0T": W["wd0"].T, "WFT": W["wf"].T}
+    mats.update({f"WHT{i}": W[f"wh{i}"].T for i in range(n_hidden)})
+    return mats
+
+
+def pack_kernel_operands(W, v0: torch.Tensor, n_hidden: int, freqs: torch.Tensor):
+    """(bf16 weights, f32 rows) flat buffers in the `w_offsets` /
+    `f_offsets` order, each matrix row-major."""
+    mats = _forward_matrices(W, n_hidden)
+    wbuf = torch.cat([mats[k].reshape(-1).to(torch.bfloat16) for k in w_offsets(n_hidden)
+                      if k != "TOTAL"])
+    return wbuf.contiguous(), _pack_rows(W, v0, n_hidden, freqs)
 
 
 def pack_transposed_weights(W, n_hidden: int) -> torch.Tensor:
-    """The dX products' bf16 operand buffer in `wt_offsets` order."""
-    mats = [W["wd0"].T, W["wf"].T] + [W[f"wh{i}"].T for i in range(n_hidden)]
-    return torch.cat([m.reshape(-1).to(torch.bfloat16) for m in mats]).contiguous()
+    """The dX products' bf16 operand buffer in `wt_offsets` order, each
+    matrix row-major."""
+    mats = _transposed_matrices(W, n_hidden)
+    return torch.cat([mats[k].reshape(-1).to(torch.bfloat16) for k in wt_offsets(n_hidden)
+                      if k != "TOTAL"]).contiguous()
+
+
+# the matrices the kernels stream as chunk images; WA and WRGB (the heads)
+# stay row-major
+CHUNKED = ("W1", "WF", "WD0")
+
+
+def _matrix_shapes(n_hidden: int, n_enc: int) -> Dict[str, Tuple[int, int]]:
+    """`weight_names`' matrices' shapes, (in, out)."""
+    shapes = {"w1a": (3, HIDDEN), "w1b": (n_enc, HIDDEN), "wf": (HIDDEN, HIDDEN),
+              "wa": (HIDDEN, 1), "wd0": (HIDDEN, DIR_HIDDEN), "wrgb": (DIR_HIDDEN, 3)}
+    shapes.update({f"wh{i}": (HIDDEN, HIDDEN) for i in range(n_hidden)})
+    return shapes
+
+
+@functools.lru_cache(maxsize=None)
+def _flex_weight_gather(n_hidden: int, n_enc: int, device, transposed: bool) -> torch.Tensor:
+    """Where each element of the kernels' bf16 weight buffer comes from: its
+    position in [0; the weights' matrices flat, in `weight_names` order].
+    The buffer is the forward weights in `w_offsets` order, each matrix but
+    the heads as its chunk images (`sm90_chunk_image`); with `transposed`
+    (K4b) the transposed weights' chunk images (`wt_offsets`) come first:
+    what imaging `pack_kernel_operands` / `pack_transposed_weights` gives,
+    composed into one gather. The transposed part's size, a multiple of
+    1024 bytes, keeps the forward weights' start aligned."""
+    shapes = _matrix_shapes(n_hidden, n_enc)
+    idx, o = {}, 1
+    for name in weight_names(n_hidden)[0]:
+        k, n = shapes[name]
+        idx[name] = torch.arange(o, o + k * n, device=device).reshape(k, n)
+        o += k * n
+
+    def image(name, m):
+        return sm90_chunk_image(m) if name in CHUNKED or name.startswith("WH") else m.reshape(-1)
+
+    parts = [image(k, m) for k, m in _forward_matrices(idx, n_hidden).items()]
+    if transposed:
+        parts = [sm90_chunk_image(m) for m in _transposed_matrices(idx, n_hidden).values()] + parts
+    return torch.cat(parts).contiguous()
 
 
 def _split_kernel_grads(dwbuf, dfbuf, n_hidden: int, n_enc: int):
@@ -356,8 +424,84 @@ def _kernel_call(weights, ro, rd, z, dir_c, v0, n_hidden, num_encoding_fn_xyz, g
     return W
 
 
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+def _kernel_operands(W, v0, n_hidden, num_encoding_fn_xyz, log_sampling_xyz, transposed):
+    """Checked weights by name -> the kernels' operands: (bf16 forward
+    weight images, f32 rows), and with `transposed` (K4b) the transposed
+    weights' images after them. Both images come out of one gather
+    (`_flex_weight_gather`); nothing is copied from the host."""
+    dev = v0.device
+    n_enc = 6 * num_encoding_fn_xyz
+    src = torch.cat([W["w1a"].new_zeros(1)]
+                    + [W[n].reshape(-1) for n in weight_names(n_hidden)[0]])
+    both = src[_flex_weight_gather(n_hidden, n_enc, dev, transposed)]
+    fbuf = _pack_rows(W, v0, n_hidden, _device_bands(num_encoding_fn_xyz, log_sampling_xyz, dev))
+    if not transposed:
+        return both, fbuf
+    wt_total = wt_offsets(n_hidden)["TOTAL"]
+    return both[wt_total:], fbuf, both[:wt_total]
+
+
+def _lib():
+    from nerface_tpu_torch.ops.kernels.build import load_library
+
+    return load_library("fused_flex")
+
+
+def _launch_flex_fwd(operands, per_ray, out, n_hidden, num_encoding_fn_xyz):
+    """K4f's C entry on checked CUDA operands: `operands` (W images, f32
+    rows) from `_kernel_operands(..., transposed=False)`, `per_ray` (ro,
+    rd, z, dir_contrib), `out` (R, S, 4) f32. Counts the launch in
+    `fused_flex_forward.launches`."""
+    wbuf, fbuf = operands
+    ro, rd, z, dc = per_ray
+    n_rays, n_samples = z.shape
+    with torch.cuda.device(ro.device):
+        stream = torch.cuda.current_stream(ro.device).cuda_stream
+        err = _lib().nerface_fused_flex_fwd(
+            _ptr(ro), _ptr(rd), _ptr(z), _ptr(dc), _ptr(wbuf), _ptr(fbuf), _ptr(out), n_rays,
+            n_samples, num_encoding_fn_xyz, n_hidden, ctypes.c_void_p(stream),
+        )
+    if err != 0:
+        raise RuntimeError(f"fused_flex_forward kernel launch failed: cudaError {err}")
+    fused_flex_forward.launches += 1
+
+
+def flex_bwd_outputs(n_rays: int, n_hidden: int, dev) -> Dict[str, torch.Tensor]:
+    """K4b's uninitialised f32 outputs: the packed weight and row gradients
+    (`w_offsets` / `f_offsets`) and d_dir (R, 128)."""
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    return {"dw": empty(w_offsets(n_hidden)["TOTAL"]), "df": empty(f_offsets(n_hidden)["TOTAL"]),
+            "d_dir": empty(n_rays, DIR_HIDDEN)}
+
+
+def flex_bwd_workspace(n_rays: int, n_samples: int, n_hidden: int, dev) -> torch.Tensor:
+    """K4b's device workspace for a pass (`workspace_layout`'s bytes)."""
+    nbytes = _lib().nerface_fused_flex_workspace_bytes(n_rays, n_samples, n_hidden)
+    return torch.empty(nbytes, dtype=torch.uint8, device=dev)
+
+
+def _launch_flex_bwd(operands, per_ray, out, ws, n_hidden, num_encoding_fn_xyz):
+    """K4b's C entry on checked CUDA operands: `operands` (W images, f32
+    rows, WT images) from `_kernel_operands(..., transposed=True)`,
+    `per_ray` (ro, rd, z, dir_contrib, g), `out` from `flex_bwd_outputs`,
+    `ws` from `flex_bwd_workspace`. Counts the launch in
+    `fused_flex_backward.launches`."""
+    wbuf, fbuf, wtbuf = operands
+    ro, rd, z, dc, g = per_ray
+    n_rays, n_samples = z.shape
+    with torch.cuda.device(ro.device):
+        stream = torch.cuda.current_stream(ro.device).cuda_stream
+        err = _lib().nerface_fused_flex_bwd(
+            _ptr(ro), _ptr(rd), _ptr(z), _ptr(dc), _ptr(wbuf), _ptr(wtbuf), _ptr(fbuf), _ptr(g),
+            _ptr(out["dw"]), _ptr(out["df"]), _ptr(out["d_dir"]), _ptr(ws), n_rays, n_samples,
+            num_encoding_fn_xyz, n_hidden, ctypes.c_void_p(stream),
+        )
+    if err != 0:
+        raise RuntimeError(f"fused_flex_backward kernel launch failed: cudaError {err}")
+    fused_flex_backward.launches += 1
 
 
 def fused_flex_forward(
@@ -378,25 +522,11 @@ def fused_flex_forward(
         raise ValueError(f"fused_flex_forward runs on cuda or cpu, not {dev}")
     W = _kernel_call(weights, ray_origins, ray_directions, z_vals, dir_contrib, v0, n_hidden,
                      num_encoding_fn_xyz)
-    n_rays, n_samples = z_vals.shape
-    freqs = torch.as_tensor(_frequency_bands(num_encoding_fn_xyz, log_sampling_xyz), device=dev)
-    wbuf, fbuf = pack_kernel_operands(W, v0, n_hidden, freqs)
-    out = torch.empty(n_rays, n_samples, 4, dtype=torch.float32, device=dev)
-
-    from nerface_tpu_torch.ops.kernels.build import load_library
-
-    lib = load_library("fused_flex")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.nerface_fused_flex_fwd(
-            _ptr(ray_origins), _ptr(ray_directions), _ptr(z_vals), _ptr(dir_contrib),
-            _ptr(wbuf), _ptr(fbuf), _ptr(out), n_rays, n_samples, num_encoding_fn_xyz,
-            n_hidden, ctypes.c_void_p(stream),
-        )
-    if err != 0:
-        raise RuntimeError(f"fused_flex_forward kernel launch failed: cudaError {err}")
-    fused_flex_forward.launches += 1
-    # wbuf and fbuf may be freed on return: the caching allocator hands
+    operands = _kernel_operands(W, v0, n_hidden, num_encoding_fn_xyz, log_sampling_xyz, False)
+    out = torch.empty(*z_vals.shape, 4, dtype=torch.float32, device=dev)
+    _launch_flex_fwd(operands, (ray_origins, ray_directions, z_vals, dir_contrib), out, n_hidden,
+                     num_encoding_fn_xyz)
+    # the operands may be freed on return: the caching allocator hands
     # their memory only to later work on this stream
     return out
 
@@ -423,39 +553,93 @@ def fused_flex_backward(
     W = _kernel_call(weights, ray_origins, ray_directions, z_vals, dir_contrib, v0, n_hidden,
                      num_encoding_fn_xyz, g=g)
     n_rays, n_samples = z_vals.shape
-    freqs = torch.as_tensor(_frequency_bands(num_encoding_fn_xyz, log_sampling_xyz), device=dev)
-    wbuf, fbuf = pack_kernel_operands(W, v0, n_hidden, freqs)
-    wtbuf = pack_transposed_weights(W, n_hidden)
-
-    from nerface_tpu_torch.ops.kernels.build import load_library
-
-    lib = load_library("fused_flex")
-
-    def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
-
-    dwbuf, dfbuf = empty(w_offsets(n_hidden)["TOTAL"]), empty(f_offsets(n_hidden)["TOTAL"])
-    d_dir = empty(n_rays, DIR_HIDDEN)
-    ws = torch.empty(lib.nerface_fused_flex_workspace_bytes(n_rays, n_samples, n_hidden),
-                     dtype=torch.uint8, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.nerface_fused_flex_bwd(
-            _ptr(ray_origins), _ptr(ray_directions), _ptr(z_vals), _ptr(dir_contrib),
-            _ptr(wbuf), _ptr(wtbuf), _ptr(fbuf), _ptr(g), _ptr(dwbuf), _ptr(dfbuf), _ptr(d_dir),
-            _ptr(ws), n_rays, n_samples, num_encoding_fn_xyz, n_hidden, ctypes.c_void_p(stream),
-        )
-    if err != 0:
-        raise RuntimeError(f"fused_flex_backward kernel launch failed: cudaError {err}")
-    fused_flex_backward.launches += 1
-    gw, gb, d_v0 = _split_kernel_grads(dwbuf, dfbuf, n_hidden, 6 * num_encoding_fn_xyz)
+    operands = _kernel_operands(W, v0, n_hidden, num_encoding_fn_xyz, log_sampling_xyz, True)
+    out = flex_bwd_outputs(n_rays, n_hidden, dev)
+    ws = flex_bwd_workspace(n_rays, n_samples, n_hidden, dev)
+    _launch_flex_bwd(operands, (ray_origins, ray_directions, z_vals, dir_contrib, g), out, ws,
+                     n_hidden, num_encoding_fn_xyz)
+    gw, gb, d_v0 = _split_kernel_grads(out["dw"], out["df"], n_hidden, 6 * num_encoding_fn_xyz)
     wn, bn = weight_names(n_hidden)
     grads = tuple(gw[n].to(torch.bfloat16) for n in wn) + tuple(gb[n] for n in bn)
     # the operand buffers and the workspace may be freed on return
-    return grads, d_v0, d_dir
+    return grads, d_v0, out["d_dir"]
 
 
 fused_flex_backward.launches = 0
+
+
+# -- the kernels' schedule and workspace, mirrored for the CPU tests ----------
+# Each must equal csrc/fused_flex.cu (tests/test_torch_k4_layout.py reads
+# the source).
+
+FLEX_CTAS = 132  # the persistent grid's CTAs at most (k1::pass_ctas)
+CONSUMERS = 2  # consumer warpgroups of a CTA
+WARPS_A_CTA = 4 * CONSUMERS
+DWG_WAVE = 132  # dW's CTAs of one wave (wgmma_dw.cuh)
+
+
+MASK_BYTES = 128 * HIDDEN // 64 * 4  # a unit's relu mask as bits: 4 words a thread
+
+
+def workspace_buffers(n_hidden: int) -> Tuple[Tuple[str, int], ...]:
+    """K4b's bf16 image buffers and their widths, in the carve's order."""
+    return ((("xin", K_XIN),) + tuple((f"a{i}", HIDDEN) for i in range(n_hidden + 1))
+            + (("feat", HIDDEN), ("x0", DIR_HIDDEN), ("gx0", DIR_HIDDEN), ("gfeat", HIDDEN))
+            + tuple((f"gpre{i}", HIDDEN) for i in range(n_hidden)) + (("ga0", HIDDEN),))
+
+
+def mask_buffers(n_hidden: int) -> Tuple[str, ...]:
+    """The relu masks dX applies (`MASK_BYTES` a unit), after the images:
+    feat's, then a_1..a_n's."""
+    return ("fmask",) + tuple(f"amask{i}" for i in range(1, n_hidden + 1))
+
+
+def dw_segments(n_hidden: int) -> int:
+    """dW's row segments: one wave over its products' column-block pairs
+    (W1: 1, WF, WD0 and each WH_i: 2)."""
+    tasks = 1 + 2 * (2 + n_hidden)
+    return 1 if tasks >= DWG_WAVE else DWG_WAVE // tasks
+
+
+def unit_schedule(n_rays: int, n_samples: int):
+    """The persistent grid's work, as the kernels walk it: a list of (cta,
+    round, warpgroup, unit, live) in each CTA's order. CTA c takes rounds
+    c, c + ctas, ...; round r gives warpgroup wg the item 2r + wg, whole
+    rays (two at S = 32, one at 64 and 128) as 64-row units (two at S =
+    128); unit k holds the pass's rows [64k, 64k + 64). An item past the
+    last ray is not live."""
+    wg_rays = 64 // n_samples if n_samples < 64 else 1
+    units_an_item = n_samples // 64 if n_samples > 64 else 1
+    rounds = -(-n_rays // (CONSUMERS * wg_rays))
+    ctas = min(rounds, FLEX_CTAS)
+    out = []
+    for cta in range(ctas):
+        for r in range(cta, rounds, ctas):
+            for wg in range(CONSUMERS):
+                item = r * CONSUMERS + wg
+                for u in range(units_an_item):
+                    out.append((cta, r, wg, item * units_an_item + u, item * wg_rays < n_rays))
+    return out
+
+
+def workspace_layout(n_rays: int, n_samples: int, n_hidden: int):
+    """({piece: byte offset}, total bytes) of K4b's workspace, as `carve`
+    lays it out: the image buffers (`workspace_buffers`), the relu masks
+    (`mask_buffers`), then the warps' and the CTAs' partial rows and dW's
+    segments, each 256-byte aligned."""
+    per_unit = 64 // n_samples if n_samples < 64 else 1
+    units = -(-n_rays // per_unit) * (n_samples // 64 if n_samples > 64 else 1)
+    ctas = min(-(-n_rays // (CONSUMERS * per_unit)), FLEX_CTAS)
+    part_cols = f_offsets(n_hidden)["TOTAL"] + HIDDEN + 3 * DIR_HIDDEN
+    pieces = [(name, units * width * 128) for name, width in workspace_buffers(n_hidden)]
+    pieces += [(name, units * MASK_BYTES) for name in mask_buffers(n_hidden)]
+    pieces += [("warp_part", ctas * WARPS_A_CTA * part_cols * 4), ("tile_part", ctas * part_cols * 4),
+               ("dw_part", dw_segments(n_hidden) * w_offsets(n_hidden)["WA"] * 4)]
+    offs, o = {}, 0
+    for name, nbytes in pieces:
+        offs[name] = o
+        o = (o + nbytes + 255) // 256 * 256
+    return offs, o
 
 
 class FusedFlexMLP(torch.autograd.Function):

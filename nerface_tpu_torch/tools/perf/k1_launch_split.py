@@ -29,12 +29,11 @@ import torch
 from nerface_tpu_torch.ops.kernels import fused_mlp as K
 from nerface_tpu_torch.ops.kernels import fused_train as T
 from nerface_tpu_torch.tools.perf._timing import card_line, median_ms
+from nerface_tpu_torch.tools.perf.cases import D_XYZ, paper_case
 
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
 RAYS = 2048
-HE_GAIN = 6.0 ** 0.5
-D_XYZ = 63
 # (K, N) of the paper MLP's products at the function's widths: the forward
 # (trunk, fc_feat, σ head, direction branch, rgb head) and dX (every
 # product but the two that read the encoded input; the skip layer's h2
@@ -99,34 +98,6 @@ def row_text(name, r):
             f"workspace included; {r['part']})")
 
 
-def paper_case(R, S, seed, dev, small=False):
-    """He-scaled random paper-family weights prefolded into K1's bundle,
-    and a pass's rays (σ-noise, a background)."""
-    from nerface_tpu_torch.models.nerf_models import (
-        ConditionalBlendshapePaperNeRFModel,
-        ConditionalBlendshapePaperSmallerNeRFModel,
-    )
-
-    cls = ConditionalBlendshapePaperSmallerNeRFModel if small else ConditionalBlendshapePaperNeRFModel
-    model = cls(num_encoding_fn_xyz=10, num_encoding_fn_dir=4, include_input_dir=False, device=dev,
-                generator=torch.Generator().manual_seed(seed))
-    params = {k: (v.detach() * (HE_GAIN if k.endswith(".weight") else 1.0))
-              for k, v in model.named_parameters()}
-    g = torch.Generator().manual_seed(seed + 1)
-    ro = torch.randn(R, 3, generator=g) * 0.05 + torch.tensor([0.0, 0.0, 0.5])
-    rd = torch.randn(R, 3, generator=g) * torch.tensor([0.2, 0.2, 0.05])
-    rd[:, 2] -= 1.0
-    z = 0.2 + torch.cumsum(torch.rand(R, S, generator=g) * (1.2 / S), -1)
-    cond = torch.cat([torch.randn(76, generator=g) * 0.5 / 3.0, torch.randn(32, generator=g) * 0.1])
-    rays = dict(ro=ro, rd=rd, z=z, tgt=torch.rand(R, 3, generator=g), bg=torch.rand(R, 3, generator=g),
-                noise=torch.randn(R, S, generator=g), pe_dir=torch.randn(R, 24, generator=g),
-                g=torch.randn(R, S, 4, generator=g) * 1e-3)
-    rays = {k: v.to(dev).contiguous() for k, v in rays.items()}
-    bundle = [t.contiguous() for t in
-              T.prefold_paper_params(params, cond.to(dev), rays["pe_dir"], 10, small=small)]
-    return bundle, rays
-
-
 def _operands(bundle, R, dev, small):
     """The tree's own packing of a bundle for K1 / K3b: (dir_c, W, F, WT)."""
     return K._kernel_operands(bundle, R, dev, 10, True, small, transposed=True)
@@ -189,19 +160,24 @@ def kernel_split(fns, n=5):
     return out
 
 
-def short_name(key):
-    """A kernel's name in a profiler key, without its template arguments."""
-    for frag in ("train_pass_kernel", "dw_wgmma_kernel", "reduce_rows"):
+def short_name(key, names):
+    """A kernel's name in a profiler key: the first of `names` in it, else
+    the key's start."""
+    for frag in names:
         if frag in key:
             return frag
     return key[:60]
 
 
-def split_rows(fn, R, S, small, k3b=False):
-    """`fn`'s kernels, by `short_name`, slowest first: {name: `launch_row`}."""
-    bounds = launch_bounds(R, S, small, k3b)
-    return {short_name(key): launch_row(ms, count, *bounds.get(short_name(key), (0, 0, "?")))
-            for key, (ms, count) in sorted(kernel_split([fn]).items(), key=lambda kv: -kv[1][0])}
+def split_rows(fn, bounds):
+    """`fn`'s kernels, slowest first, each by its name in `bounds` ({kernel
+    name: (flop, bytes, what)} of one call, as `launch_bounds` gives them):
+    {name: `launch_row`}."""
+    rows = {}
+    for key, (ms, count) in sorted(kernel_split([fn]).items(), key=lambda kv: -kv[1][0]):
+        name = short_name(key, bounds)
+        rows[name] = launch_row(ms, count, *bounds.get(name, (0, 0, "?")))
+    return rows
 
 
 def measure(dev, cases=None):
@@ -214,7 +190,7 @@ def measure(dev, cases=None):
         bundle, rays = paper_case(RAYS, S, 7 + c, dev, small)
         fn = (k1_bare if which == "k1" else k3b_bare)(bundle, rays, small)
         ms = median_ms(fn, warmup=3, iters=15)
-        kernels = split_rows(fn, RAYS, S, small, which == "k3b")
+        kernels = split_rows(fn, launch_bounds(RAYS, S, small, which == "k3b"))
         label = f"{which}{'_small' if small else ''}_{S}"
         flop_total = sum(v["flop"] for v in kernels.values())
         res[label] = {"bare_ms": ms, "device_ms": sum(v["ms"] for v in kernels.values()),

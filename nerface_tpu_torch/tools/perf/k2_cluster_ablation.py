@@ -25,6 +25,7 @@ import torch
 
 from nerface_tpu_torch.ops.kernels import build
 from nerface_tpu_torch.ops.kernels import fused_mlp as K
+from nerface_tpu_torch.tools.perf.cases import ray_draws
 
 TILE_RAYS = 65536
 FRAME_TILES = 4
@@ -49,10 +50,7 @@ def variant(defines):
 
 def _inputs(n_rays, n_samples, seed, dev):
     g = torch.Generator().manual_seed(seed)
-    ro = torch.randn(n_rays, 3, generator=g) * 0.05 + torch.tensor([0.0, 0.0, 0.5])
-    rd = torch.randn(n_rays, 3, generator=g) * torch.tensor([0.2, 0.2, 0.05])
-    rd[:, 2] -= 1.0
-    z = 0.2 + torch.cumsum(torch.rand(n_rays, n_samples, generator=g) * (1.2 / n_samples), -1)
+    ro, rd, z = ray_draws(n_rays, n_samples, g)
     dc = torch.randn(n_rays, 128, generator=g) * 0.3
     cond = torch.randn(108, generator=g) * 0.2
     bg = torch.rand(n_rays, 3, generator=g)

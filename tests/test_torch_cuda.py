@@ -21,21 +21,25 @@ import torch
 
 from chip_smoke import (
     FLEX_OUT_TOL,
-    HE_GAIN,
+    FLEX_TC_DEPTH,
     K3_OUT_TOL,
     RESAMPLE_TOL,
     SIGMA_BIAS,
     _bundle_names,
-    _flex_params,
     _k1_params,
     _resample_inputs,
+    flex_grad_limits,
+    flex_limit,
     k1_grad_limits,
+    rel_err,
+    tensor_core_plain,
 )
 from nerface_tpu_torch.models.nerf_models import (
     ConditionalBlendshapePaperNeRFModel,
     ConditionalBlendshapePaperSmallerNeRFModel,
 )
 from nerface_tpu_torch.ops.kernels import fused_mlp as K
+from nerface_tpu_torch.tools.perf.cases import HE_GAIN, flex_params, ray_draws
 
 torch.set_num_threads(1)
 
@@ -63,12 +67,9 @@ def _inputs(n_rays, n_samples, dev, seed):
     """Rays through a head at the origin; rays 0-1 with rd = 0 (acc = 0)
     and 2-3 with |rd| = 1e-9 (acc ~ 1e-5)."""
     g = torch.Generator().manual_seed(seed)
-    ro = torch.randn(n_rays, 3, generator=g) * 0.05 + torch.tensor([0.0, 0.0, 0.5])
-    rd = torch.randn(n_rays, 3, generator=g) * torch.tensor([0.2, 0.2, 0.05])
-    rd[:, 2] -= 1.0
+    ro, rd, z = ray_draws(n_rays, n_samples, g)
     rd[0:2] = 0.0
     rd[2:4] = 1e-9
-    z = 0.2 + torch.cumsum(torch.rand(n_rays, n_samples, generator=g) * (1.2 / n_samples), -1)
     dc = torch.randn(n_rays, 128, generator=g) * 0.3
     cond = torch.randn(108, generator=g) * 0.2
     bg = torch.rand(n_rays, 3, generator=g)
@@ -329,7 +330,7 @@ def test_flex_kernels_match_plain(cuda_device, R, S):
     301·32 are not multiples of the 128-row tile)."""
     from nerface_tpu_torch.ops.kernels import fused_flex as F
 
-    params, v0 = _flex_params(R + S, cuda_device)
+    params, v0 = flex_params(R + S, cuda_device)
     ro, rd, z, dc, _, _ = _inputs(R, S, cuda_device, seed=R + S)
     weights = F.pack_flex_weights(params, 3, 10)
     g = torch.randn(R, S, 4, generator=torch.Generator().manual_seed(S)).to(cuda_device)
@@ -363,7 +364,7 @@ def test_flex_kernels_match_plain(cuda_device, R, S):
 def test_flex_kernels_refuse_what_they_do_not_take(cuda_device):
     from nerface_tpu_torch.ops.kernels import fused_flex as F
 
-    params, v0 = _flex_params(1, cuda_device)
+    params, v0 = flex_params(1, cuda_device)
     ro, rd, z, dc, _, _ = _inputs(64, 64, cuda_device, seed=2)
     weights = F.pack_flex_weights(params, 3, 10)
     g = torch.zeros(64, 64, 4, device=cuda_device)
@@ -480,6 +481,82 @@ def test_paper_mlp_backward_persistent_grid(cuda_device, small, R, S):
     assert all(torch.equal(a, b) for a, b in zip(grads, grads2)), "not deterministic"
     rgrads = K.fused_paper_mlp_backward_reference(*args, small=small)
     _assert_grads_close(_bundle_names(small), grads, rgrads, R)
+
+
+# -- K4f and K4b's persistent grid (csrc/fused_flex.cu) ----------------------
+# The same ragged ray counts past one round of the 132-CTA grid, at 0, 3 and
+# 8 hidden layers: the chunk sequences and the workspace follow n. At 8
+# the outputs and gradients are held to `flex_limit` / `flex_grad_limits`
+# (chip_smoke.py): no less than FLEX_TC_FACTOR × what the plain version
+# reads on the tensor cores.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 3, 8])
+@pytest.mark.parametrize("R,S", PERSISTENT_CASES, ids=["s64", "s128", "s32"])
+def test_flex_kernels_persistent_grid(cuda_device, n, R, S):
+    from nerface_tpu_torch.ops.kernels import fused_flex as F
+
+    params, v0 = flex_params(R + n, cuda_device, n_hidden=n)
+    ro, rd, z, dc, _, _ = _inputs(R, S, cuda_device, seed=R + S + n)
+    weights = F.pack_flex_weights(params, n, 10)
+    g = torch.randn(R, S, 4, generator=torch.Generator().manual_seed(S + n)).to(cuda_device)
+    args = (weights, ro, rd, z, dc, v0)
+    assert max(c for c, *_ in F.unit_schedule(R, S)) == F.FLEX_CTAS - 1
+    out, out2 = F.fused_flex_forward(*args, n), F.fused_flex_forward(*args, n)
+    grads = F.fused_flex_backward(*args, g, n)
+    grads2 = F.fused_flex_backward(*args, g, n)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2)
+    flat, flat2 = grads[0] + grads[1:], grads2[0] + grads2[1:]
+    assert all(torch.equal(a, b) for a, b in zip(flat, flat2)), "not deterministic"
+    ref = F.fused_flex_forward_reference(*args, n)
+    deep = n >= FLEX_TC_DEPTH
+    tc_ref = tensor_core_plain(lambda: F.fused_flex_forward_reference(*args, n)) if deep else None
+    for sl in (slice(0, 3), slice(3, 4)):
+        tol = flex_limit(FLEX_OUT_TOL, n, deep and rel_err(tc_ref[..., sl], ref[..., sl])[0])
+        torch.testing.assert_close(out[..., sl], ref[..., sl],
+                                   atol=tol * float(ref[..., sl].abs().max()), rtol=0)
+    rgrads = F.fused_flex_backward_reference(*args, g, n)
+    rflat = rgrads[0] + rgrads[1:]
+    tc = tensor_core_plain(lambda: F.fused_flex_backward_reference(*args, g, n)) if deep else None
+    tc_flat = tc[0] + tc[1:] if deep else [None] * len(rflat)
+    wn, bn = F.weight_names(n)
+    for name, a, r, t in zip(wn + bn + ("v0", "dir"), flat, rflat, tc_flat):
+        assert torch.isfinite(a).all(), name
+        tol, tol_norm = flex_grad_limits(R, name, n, t is not None and rel_err(t, r))
+        e_max, e_norm = rel_err(a, r)
+        assert e_max <= tol + 1e-6 / max(float(r.abs().max()), 1e-30), f"{name}: max err {e_max} > {tol}"
+        assert e_norm <= tol_norm + 1e-6 / max(float(r.norm()), 1e-30), f"{name}: ‖err‖ {e_norm} > {tol_norm}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,S", [(1, 32), (1, 64), (1, 128), (3, 32)],
+                         ids=["half-unit", "one-unit", "one-ray-two-units", "ragged-item"])
+def test_flex_kernels_passes_below_one_round(cuda_device, R, S):
+    """Passes smaller than one unit or item: one CTA, a dead warpgroup,
+    rows past the last ray inside a live unit (S = 32)."""
+    from nerface_tpu_torch.ops.kernels import fused_flex as F
+
+    params, v0 = flex_params(R + S + 11, cuda_device)
+    ro, rd, z, dc, _, _ = _inputs(R, S, cuda_device, seed=R + S + 11)
+    weights = F.pack_flex_weights(params, 3, 10)
+    g = torch.randn(R, S, 4, generator=torch.Generator().manual_seed(R + S)).to(cuda_device)
+    args = (weights, ro, rd, z, dc, v0)
+    assert len({c for c, *_ in F.unit_schedule(R, S)}) == 1
+    out = F.fused_flex_forward(*args, 3)
+    grads, grads2 = F.fused_flex_backward(*args, g, 3), F.fused_flex_backward(*args, g, 3)
+    torch.cuda.synchronize()
+    flat, flat2 = grads[0] + grads[1:], grads2[0] + grads2[1:]
+    assert all(torch.equal(a, b) for a, b in zip(flat, flat2)), "not deterministic"
+    ref = F.fused_flex_forward_reference(*args, 3)
+    for sl in (slice(0, 3), slice(3, 4)):
+        torch.testing.assert_close(out[..., sl], ref[..., sl],
+                                   atol=FLEX_OUT_TOL * float(ref[..., sl].abs().max()), rtol=0)
+    rgrads = F.fused_flex_backward_reference(*args, g, 3)
+    wn, bn = F.weight_names(3)
+    _assert_grads_close(wn + bn + ("v0", "dir"), [t.float() for t in flat],
+                        [t.float() for t in rgrads[0] + rgrads[1:]], R)
 
 
 # -- K3: fused_paper_mlp_forward / fused_paper_mlp_backward -------------------

@@ -282,7 +282,9 @@ def test_offsets_match_cuda_source():
                   "TOTAL": c["FT_OFF_WHT"] + n * hh}
         want_t.update({f"WHT{i}": c["FT_OFF_WHT"] + i * hh for i in range(n)})
         assert F.wt_offsets(n) == want_t
-    assert '#include "grad_tile.cuh"' in src
+    # the wgmma chain K2 shares, K1's operand images and dW, reduce_rows
+    for header in ("wgmma_chain.cuh", "paper_train.cuh", "wgmma_dw.cuh", "grad_tile.cuh"):
+        assert f'#include "{header}"' in src, header
 
 
 def test_kernel_layouts_pack_and_unpack():
