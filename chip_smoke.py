@@ -38,7 +38,9 @@ Phases, one line each (plus the kernels' register reports):
                2048 rays and a 65536-ray tile, 64 + 64 samples, RESAMPLE_SEEDS
                draws a case, general and sorted_u (+ a spike case): max error
                ≤ RESAMPLE_TOL·far, rows sorted, bit-identical over 2
-               launches; kernel, plain and bound ms.
+               launches; kernel (wrapper) ms, the bare C launch's ms, its
+               device ms under torch.profiler and GB/s from that
+               (`tools/perf/k3f_k5_launch_split.py`), plain and bound ms.
      probes  — the design probes of K2's layer chain
                (nerface_tpu_torch/tools/perf/, csrc/probes.cu), each variant
                driven once at the TPU probes' sizes with the counts reset
@@ -97,7 +99,11 @@ Phases, one line each (plus the kernels' register reports):
                tiles at S = 64 and 128 (forward). Raw rgb and σ within
                K3_OUT_TOL·max; every gradient tensor within
                `k1_grad_limits`; bit-identical over 2 launches; ms, TFLOP/s,
-               bound ms and the plain versions' ms.
+               bound ms and the plain versions' ms; K3f's bare C launch
+               (`tools/perf/k3f_k5_launch_split.py`) beside its wrapper in
+               every case. Then K3f against K2 on one 65536-ray tile, S =
+               64: K3f's raw rows composited by ops/compositing.py against
+               K2's rgb and acc within K3F_K2_TOL (the two run one chain).
   6. train_step — one train step of the flagship config (2048 rays, 64 + 64
                samples, σ-noise 0.1) on the card both ways from the same
                weights, batch and draws: bf16 through K1, f32 through the
@@ -161,8 +167,9 @@ Phases, one line each (plus the kernels' register reports):
     python3 chip_smoke.py --profile
 
 adds profile phases: 6 timed frames per map set, then torch.profiler over 2
-frames, of the parity and of the fast synth512_paper server and of the
-synth512_lcode server, and torch.profiler over 5 steady train steps of
+frames, of the parity and of the fast synth512_paper server, of the σ-noise
+frame's server (K3f) and of the synth512_lcode server, and torch.profiler
+over 5 steady train steps of
 synth512_paper, of synth512_paper_coarse and of synth512_lcode; each prints
 its table of device time per kernel.
 
@@ -349,6 +356,15 @@ PAPER_TRAIN_STEPS = 30
 # K1's limits (`k1_grad_limits`)
 K3_OUT_TOL = 0.01
 K3_SEEDS = 3
+# K3f's raw rows composited by the port's plain compositing against K2's
+# rgb / acc on the same inputs: the two kernels run one copy of the chain
+# (csrc/paper_chain.cuh) on the same bf16 weight images, f32 rows and dir_c,
+# so their raw rows are the same bits and only the compositing differs (K2's
+# warp scan of log transmittance against torch's cumprod: a few f32 ulps a
+# sample, ~1e-6 over 64 samples). One flipped bf16 rounding in either chain
+# moves an output by ~1e-3 (each kernel against its plain version), so
+# K3F_K2_TOL = 1e-4 keeps rounding noise and catches a chain that differs.
+K3F_K2_TOL = 1e-4
 # a served frame against the f32 plain frame, in 8-bit levels: K2 (with or
 # without `small`) and the σ-noise frame through K3f
 FRAME_MAX = 1
@@ -372,6 +388,14 @@ K4B_DESIGN = ("the recompute: K4f's kernel with a save flag, the activations to 
               "wgmma_ss m64n256k16 chain with A (the last cotangent) in a shared-memory tile, "
               "copied out by one bulk store, masks from the bits; dW: wgmma_dw.cuh's kernel in "
               "row segments filling one wave; two ordered reduce_rows, no atomics")
+K3F_DESIGN = ("K2's chain (csrc/paper_chain.cuh on wgmma_chain.cuh) without the cluster: persistent "
+              "grid, one CTA an SM; weight chunk images through a 5-stage bulk-copy ring; three "
+              "encoder warps; two free-running consumer warpgroups on whole rays, m64n256k16 with A "
+              "from registers, the heads on m64n8; each row's raw [rgb, σ] out as one float4")
+K5_DESIGN = ("persistent warps, one ray each at a time, the next ray's rows loaded ahead into "
+             "registers; the scan in registers (butterfly sum, warp scan); a branch-free search; the "
+             "draws bitonic-sorted by shuffles; the union one bitonic merge of 32·E registers; "
+             "16-byte stores")
 K2_DESIGN = ("wgmma m64n256k16 with A from registers, f32 accumulators; weight chunk "
              "images through a 5-stage ring of cp.async.bulk copies from a producer warp "
              "(mbarriers), multicast to a 2-CTA cluster; persistent grid; two free-running "
@@ -723,7 +747,7 @@ def serve_phase(dev, tmp, cfg_dict=SYNTH512_PAPER, name="serve", seed=SEED + 2):
     return server, dict(f, launches=launches, frame_ms=frame_ms, tiles=tiles)
 
 
-def noisy_frame_phase(dev, tmp):
+def noisy_frame_phase(dev, tmp, profile=False):
     """One 512² synth512_paper frame at validation σ-noise 0.1, which K2
     refuses: both passes of every tile are K3f + torch compositing with the
     noise, as the JAX package renders it. The f32 plain frame draws the
@@ -758,12 +782,13 @@ def noisy_frame_phase(dev, tmp):
           and fused_paper_mlp_backward.launches == 0,
           f"noisy frame: K3f {k3f} (want 2 x {tiles} tiles), K2 {fused_paper_render.launches}, "
           f"K3b {fused_paper_mlp_backward.launches} (want 0)")
+    prof = profile_phase(server, "profile_noisy") if profile else None
     f = _frame_against_plain(img, d, ckpt, ds, dev, "noisy_frame")
     phase("noisy_frame", f"one 512x512 frame at σ-noise 0.1 in {frame_ms:.1f} ms: K3f launches {k3f} "
                          f"= 2 x {tiles} tiles, K2 0; bf16 K3f frame vs f32 plain frame: mean |diff| "
                          f"{f['mean_diff']:.4f} levels, p99 {f['p99']:.0f}, max {f['max_diff']} "
                          f"(limits {FRAME_MEAN}, {FRAME_MAX})")
-    return dict(f, launches=k3f, frame_ms=frame_ms)
+    return dict(f, launches=k3f, frame_ms=frame_ms, profile=prof)
 
 
 def profile_phase(server, name="profile"):
@@ -810,17 +835,20 @@ def _entry_name(text):
     m = re.search(r"(train_pass_kernel|dw_wgmma_kernel|flex_chain_kernel|flex_dx_kernel|"
                   r"reduce_rows|render_kernel|mlp_fwd_kernel|"
                   r"resample_kernel|chain_kernel|encoder_kernel)"
-                  r"(?:ILi(\d+)E(?:Lb([01])E)?|ILb([01])E)?", text)
+                  r"(?:ILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?|ILb([01])E)?", text)
     if not m:
         return text
     flag = {"resample_kernel": "sorted_u", "flex_chain_kernel": "save"}.get(m.group(1), "small")
-    targs = ", ".join(([m.group(2)] if m.group(2) else []) + ([flag] if m.group(3) == "1" else []))
+    ints = [m.group(2)] if m.group(2) else []
+    if m.group(3):  # K5's draws a lane
+        ints.append(f"FP={m.group(3)}")
+    targs = ", ".join(ints + ([flag] if m.group(4) == "1" else []))
     if m.group(1) == "chain_kernel" and m.group(2):
         from nerface_tpu_torch.tools.perf.chain_overlap_probe import VARIANTS
 
         targs = VARIANTS[int(m.group(2))]
-    if m.group(4):
-        targs = "split" if m.group(4) == "1" else "packed"
+    if m.group(5):
+        targs = "split" if m.group(5) == "1" else "packed"
     return m.group(1) + (f"<{targs}>" if targs else "")
 
 
@@ -955,6 +983,8 @@ def _launch_split(name, what, fn, R, S, small, k3b=False):
     rows = KS.split_rows(fn, KS.launch_bounds(R, S, small, k3b))
     for short, r in rows.items():
         phase(name, f"  {what} S={S} {KS.row_text(short, r)}")
+    if not rows:
+        phase(name, f"  {what} S={S} split not measured: the profiler saw no device time")
     return bare, rows
 
 
@@ -1081,7 +1111,10 @@ def paper_mlp_kernel_phase(dev):
     from nerface_tpu_torch.ops.kernels.fused_train import prefold_paper_params
     from nerface_tpu_torch.tools.perf import k1_launch_split as KS
 
+    from nerface_tpu_torch.tools.perf.k3f_k5_launch_split import k3f_bare
+
     result = {"err": {}, "readings": {}, "ms": {}, "plain_ms": {}, "bound": {}, "tile_ms": {},
+              "bare_ms": {}, "tile_bare_ms": {}, "tile_bound": {},
               "bwd_ms": {}, "bwd_plain_ms": {}, "bwd_bound": {}, "grad_rel": {},
               "bwd_bare_ms": {}, "bwd_split": {},
               "abs_err": 0.0, "grad_abs_err": 0.0}
@@ -1124,13 +1157,17 @@ def paper_mlp_kernel_phase(dev):
             del ref
             fps = paper_flop_per_sample(small, False)
             if i == 0:
-                key = "tile_ms" if R == TILE_RAYS else "ms"
-                result[key][label] = _median_ms(lambda: K.fused_paper_mlp_forward(*args, **kw),
-                                                iters=10 if R == TILE_RAYS else 15)
-                if R == TRAIN_RAYS:
+                tile = R == TILE_RAYS
+                it = 10 if tile else 15
+                result["tile_ms" if tile else "ms"][label] = _median_ms(
+                    lambda: K.fused_paper_mlp_forward(*args, **kw), iters=it)
+                result["tile_bare_ms" if tile else "bare_ms"][label] = _median_ms(
+                    k3f_bare(bundle, dict(ro=ro, rd=rd, z=z), small), iters=it)
+                result["tile_bound" if tile else "bound"][label] = _bound_ms(R * S * fps,
+                                                                              _k3_bytes(R, S, False))
+                if not tile:
                     result["plain_ms"][label] = _median_ms(
                         lambda: K.fused_paper_mlp_reference(*args, **kw), warmup=1, iters=5)
-                    result["bound"][label] = _bound_ms(R * S * fps, _k3_bytes(R, S, False))
             if R != TRAIN_RAYS:
                 continue
             g = torch.randn(R, S, 4, generator=gen).to(dev)
@@ -1160,8 +1197,9 @@ def paper_mlp_kernel_phase(dev):
                 f"σ {out_err['sigma']:.2e}·max (limit {K3_OUT_TOL}), bit-identical over 2 launches")
         fps, bps = paper_flop_per_sample(small, False), paper_flop_per_sample(small, True)
         if R == TILE_RAYS:
-            ms = result["tile_ms"][label]
-            line += f"; K3f {ms:.3f} ms, {R * S * fps / ms / 1e9:.1f} TFLOP/s"
+            ms, bare = result["tile_ms"][label], result["tile_bare_ms"][label]
+            line += (f"; K3f {ms:.3f} ms, bare launch {bare:.3f} ms ({R * S * fps / bare / 1e9:.1f} "
+                     f"TFLOP/s), bound {result['tile_bound'][label][0]:.3f} ms")
         else:
             result["readings"][label] = worst
             w_max = max(worst, key=lambda k: worst[k][0])
@@ -1170,7 +1208,8 @@ def paper_mlp_kernel_phase(dev):
             fw, bw = result["ms"][label], result["bwd_ms"][label]
             line += (f"; K3b worst grad max err {w_max} {worst[w_max][0]:.4f}·max, worst ‖err‖ "
                      f"{w_norm} {worst[w_norm][1]:.4f}·‖r‖; bit-identical over 2 launches; "
-                     f"K3f {fw:.3f} ms ({R * S * fps / fw / 1e9:.1f} TFLOP/s at {fps / 1e6:.4f} "
+                     f"K3f {fw:.3f} ms, bare launch {result['bare_ms'][label]:.3f} ms "
+                     f"({R * S * fps / result['bare_ms'][label] / 1e9:.1f} TFLOP/s at {fps / 1e6:.4f} "
                      f"MFLOP a sample, bound {result['bound'][label][0]:.3f}), plain "
                      f"{result['plain_ms'][label]:.3f} ms; K3b {bw:.3f} ms, bare launch "
                      f"{result['bwd_bare_ms'][label]:.3f} ms "
@@ -1183,7 +1222,42 @@ def paper_mlp_kernel_phase(dev):
                  for label in result["readings"] if t in result["readings"][label]]
         phase("paper_mlp_kernel", f"  K3b grad {t:5s} max/norm rel err: {', '.join(cells)} (limits "
                                   f"{'/'.join(map(str, k1_grad_limits(TRAIN_RAYS, t)))})")
+    result["k2_cross"] = k3f_k2_crosscheck(dev)
     return result
+
+
+def k3f_k2_crosscheck(dev):
+    """K3f's raw rows at one 65536-ray tile, S = 64, composited by the
+    port's plain compositing (ops/compositing.py), against K2's rgb and acc
+    on the same inputs: K3f takes K2's folded rows, dir_c and weights as
+    its bundle. Within K3F_K2_TOL; returns the max errors."""
+    import torch
+
+    from nerface_tpu_torch.ops import compositing as C
+    from nerface_tpu_torch.ops.kernels import fused_mlp as K
+    from nerface_tpu_torch.tools.perf.cases import paper_params, render_inputs
+
+    R, S = TILE_RAYS, 64
+    params = paper_params(SEED + 13, dev)
+    ro, rd, z, dc, cond, bg = render_inputs(R, S, torch.Generator().manual_seed(SEED + 14), dev)
+    packed = K.pack_paper_weights(params)
+    k2 = K.fused_paper_render(packed, ro, rd, z, dc, cond, background=bg)
+    fbuf = K._fold_conditioning(packed, cond)
+    W = K._layout_matrices(params, 63, cond.shape[-1])
+    rows = [fbuf[K.F_OFFSETS[n]:K.F_OFFSETS[n] + 256][None] for n in ("COND0", "COND3")]
+    wn, bn = K.bundle_names(False)
+    bundle = rows + [dc] + [W[n].contiguous() for n in wn] + [W[n][None].contiguous() for n in bn]
+    raw = K.fused_paper_mlp_forward(bundle, ro, rd, z)
+    rgb, _, acc, _, _ = C.volume_render_radiance_field(C.inject_background(raw, bg), z, rd,
+                                                       background_prior=bg)
+    torch.cuda.synchronize()
+    err = {"rgb": float((rgb - k2["rgb"]).abs().max()), "acc": float((acc - k2["acc"]).abs().max())}
+    for k, e in err.items():
+        check(e <= K3F_K2_TOL, f"K3f vs K2 at {R}x{S}: {k} max err {e} > {K3F_K2_TOL}")
+    phase("paper_mlp_kernel", f"K3f vs K2 at {R} rays x {S} (one chain, csrc/paper_chain.cuh): K3f's raw "
+                              f"rows through ops/compositing.py against K2's maps: rgb max err "
+                              f"{err['rgb']:.3g}, acc {err['acc']:.3g} (limit {K3F_K2_TOL})")
+    return err
 
 
 def _train_cfg(steps, logdir, cfg_dict=SYNTH512_PAPER):
@@ -1559,6 +1633,9 @@ def flex_kernel_phase(dev):
                 result["bwd_split"][label] = rows
                 for short, row in rows.items():
                     phase("flex_kernel", f"  K4b S={S} {KS.row_text(short, row)}")
+                if not rows:
+                    phase("flex_kernel", f"  K4b S={S} split not measured: the profiler saw no "
+                                         "device time")
         result["err"][label] = out_err
         line = (f"{label} R={R} S={S} n={n}, {FLEX_SEEDS} seeds: K4f max err rgb "
                 f"{out_err['rgb']:.2e}·max, σ {out_err['sigma']:.2e}·max (limits "
@@ -1884,26 +1961,6 @@ def _print_profile(name, prof, n, wall, unit, DeviceType, what=""):
     return busy
 
 
-def _resample_inputs(n_rays, n_coarse, n_fine, seed, dev, spike=False):
-    """Coarse depths as the pipeline draws them (stratified over [0.2, FAR],
-    jittered: sorted per ray), weights in [0.1, 1) and general draws u
-    (R, Sf). Every bin's pdf stays ≥ 1e-3: at a bin under the reference's
-    1e-5 clamp, or of pdf ~1e-4, the draw at a cdf knot moves by up to a bin
-    with the cdf's last ulp, which no two orders of f32 sums share (PERF.md).
-    With `spike`, RESAMPLE_SPIKE of mass on one bin crowds the draws into it,
-    among the coarse depths around it."""
-    import torch
-
-    g = torch.Generator().manual_seed(seed)
-    t = (torch.arange(n_coarse) + torch.rand(n_rays, n_coarse, generator=g)) / n_coarse
-    z = 0.2 + (FAR - 0.2) * t
-    w = 0.1 + 0.9 * torch.rand(n_rays, n_coarse, generator=g)
-    if spike:
-        w[:, 7] = RESAMPLE_SPIKE
-    u = torch.rand(n_rays, n_fine, generator=g)
-    return [x.to(dev).contiguous() for x in (z, w, u)]
-
-
 def _k5_bytes(n_rays, n_coarse, n_fine, shared_u):
     """z and w read, u read ((R, Sf), or one (Sf,) row), the union written."""
     u = n_fine if shared_u else n_rays * n_fine
@@ -1925,10 +1982,12 @@ def resample_phase(dev):
         fused_resample_reference,
     )
     from nerface_tpu_torch.ops.math import linspace01
+    from nerface_tpu_torch.tools.perf.cases import resample_inputs
+    from nerface_tpu_torch.tools.perf.k3f_k5_launch_split import device_ms, k5_bare
 
     S = 64
     u_det = linspace01(S, device=dev)
-    z, w, u = _resample_inputs(TILE_RAYS, S, S, SEED + 20, dev)
+    z, w, u = resample_inputs(TILE_RAYS, S, S, SEED + 20, dev)
     fused_resample.launches = 0
     fused_resample(z, w, u)
     fused_resample(z, w, u_det, sorted_u=True)
@@ -1936,7 +1995,8 @@ def resample_phase(dev):
     path_launches = fused_resample.launches
     check(path_launches == 2, f"resample: {path_launches} launches for 2 calls")
 
-    result = {"err": {}, "ms": {}, "plain_ms": {}, "bound": {}, "launches": path_launches}
+    result = {"err": {}, "ms": {}, "bare_ms": {}, "device_ms": {}, "device_by": {}, "gb_s": {},
+              "plain_ms": {}, "bound": {}, "launches": path_launches}
     worst = 0.0
     for R in (TRAIN_RAYS, TILE_RAYS):
         for regime in ("general", "sorted_u"):
@@ -1945,7 +2005,8 @@ def resample_phase(dev):
                 cases.append((RESAMPLE_SEEDS, True))  # the spike, with the linspace draws
             err = 0.0
             for i, spike in cases:
-                z, w, u = _resample_inputs(R, S, S, SEED + 21 + 100 * i + R, dev, spike)
+                z, w, u = resample_inputs(R, S, S, SEED + 21 + 100 * i + R, dev,
+                                          RESAMPLE_SPIKE if spike else 0.0)
                 sorted_u = regime == "sorted_u"
                 uu = u_det if sorted_u else u
                 got = fused_resample(z, w, uu, sorted_u=sorted_u)
@@ -1964,10 +2025,15 @@ def resample_phase(dev):
             label = f"{regime}_{R}"
             result["err"][label] = err
             worst = max(worst, err)
-            z, w, u = _resample_inputs(R, S, S, SEED + 30, dev)
+            z, w, u = resample_inputs(R, S, S, SEED + 30, dev)
             uu = u_det if regime == "sorted_u" else u
             srt = regime == "sorted_u"
             result["ms"][label] = _median_ms(lambda: fused_resample(z, w, uu, sorted_u=srt), iters=20)
+            bare = k5_bare(z, w, uu, srt)
+            result["bare_ms"][label] = _median_ms(bare, iters=20)
+            result["device_ms"][label], result["device_by"][label] = device_ms(bare, "resample_kernel")
+            check(result["device_ms"][label] > 0, f"resample {regime} R={R}: no device time read")
+            result["gb_s"][label] = _k5_bytes(R, S, S, srt) / result["device_ms"][label] / 1e6
             result["plain_ms"][label] = _median_ms(
                 lambda: fused_resample_reference(z, w, uu, srt), iters=10)
             result["bound"][label] = _bound_ms(0, _k5_bytes(R, S, S, srt))
@@ -1975,7 +2041,9 @@ def resample_phase(dev):
                   f"K5 {regime} R={R} Sc={S} Sf={S}, {len(cases)} draws"
                   f"{' (the last a spike of ' + str(RESAMPLE_SPIKE) + ')' if srt else ''}: max abs "
                   f"err {err:.3g} (limit {RESAMPLE_TOL}·far = {RESAMPLE_TOL * FAR:.1e}), rows "
-                  f"sorted, bit-identical over 2 launches; kernel {result['ms'][label]:.4f} ms, "
+                  f"sorted, bit-identical over 2 launches; kernel {result['ms'][label]:.4f} ms, bare "
+                  f"launch {result['bare_ms'][label]:.4f} ms, device {result['device_ms'][label]:.4f} "
+                  f"ms by {result['device_by'][label]} ({result['gb_s'][label]:.0f} GB/s), "
                   f"bound {result['bound'][label][0]:.4f} ms ({result['bound'][label][1]}), plain "
                   f"(sample_pdf + merge_sorted_zvals, the pipeline's resample) "
                   f"{result['plain_ms'][label]:.4f} ms")
@@ -2256,7 +2324,7 @@ def main() -> int:
         fe = fast_serve_phase(dev, tmp, args.profile)
         server, ss = serve_phase(dev, tmp, SYNTH512_SMALLER, "smaller_serve", SEED + 6)
         del server
-        nf = noisy_frame_phase(dev, tmp)
+        nf = noisy_frame_phase(dev, tmp, args.profile)
         tk = train_kernel_phase(dev)
         tks = train_kernel_phase(dev, small=True)
         pk = paper_mlp_kernel_phase(dev)
@@ -2377,7 +2445,16 @@ def main() -> int:
             "ms_by_case": pk["ms"],
             "plain_ms_by_case": pk["plain_ms"],
             "bound_ms_by_case": {c: b[0] for c, b in pk["bound"].items()},
+            # the C entry alone, operands packed beforehand
+            "bare_ms_by_case": pk["bare_ms"],
+            "tflops_bare_by_case": {c: TRAIN_RAYS * int(c.split("_")[1])
+                                    * paper_flop_per_sample(c.startswith("small"), False) / ms / 1e9
+                                    for c, ms in pk["bare_ms"].items()},
             "tile_ms_by_case": pk["tile_ms"],  # 65536 rays
+            "tile_bare_ms_by_case": pk["tile_bare_ms"],
+            "tile_bound_ms_by_case": {c: b[0] for c, b in pk["tile_bound"].items()},
+            "vs_k2_max_err": pk["k2_cross"],
+            "design": K3F_DESIGN,
             "noisy_frame_ms_512": nf["frame_ms"],
             "card": card,
         },
@@ -2471,8 +2548,13 @@ def main() -> int:
             "bound_by": rk["bound"][f"general_{TILE_RAYS}"][1],
             "library_ms": None,  # no single PyTorch call computes it
             "ms_by_case": rk["ms"],
+            "bare_ms_by_case": rk["bare_ms"],  # the C entry into a preallocated output
+            "device_ms_by_case": rk["device_ms"],  # the bare launch's device time
+            "device_ms_read_by": rk["device_by"],  # torch.profiler, or queued CUDA events
+            "gb_s_device_by_case": rk["gb_s"],
             "plain_ms_by_case": rk["plain_ms"],
             "bound_ms_by_case": {c: b[0] for c, b in rk["bound"].items()},
+            "design": K5_DESIGN,
             "card": card,
         },
         _probe_entry(pr["P2"], "chain_overlap", "twochain",

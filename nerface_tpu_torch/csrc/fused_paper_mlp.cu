@@ -12,11 +12,16 @@
 // passes that K2 does not take (σ-noise > 0) run their MLP here; `small`
 // selects the smaller paper model (no layers_xyz.5).
 //
-// K3f: one 512-thread CTA per 128-row tile runs K2's MLP (`render_tile`,
-// mma_tile.cuh: encode, the trunk, the heads; bf16 mma.sync with f32
-// accumulation, the weights streamed from L2 through shared memory) and
-// writes each row's raw [rgb, σ] to the (R, S, 4) f32 output. It saves
-// nothing: the backward recomputes, as the TPU kernel's VJP does.
+// K3f: K2's forward chain (paper_chain.cuh, on wgmma_chain.cuh) without
+// the cluster, as K4f runs it: one persistent 384-thread CTA an SM
+// (k1::pass_ctas), warpgroup 2 streaming the weights' chunk images through
+// a 5-stage bulk-copy ring and encoding each 64-row unit's [xyz; PE; 0],
+// warpgroups 0 and 1 running free of each other over whole rays
+// (wgmma m64n256k16 / m64n128k16 with A in registers, the heads on m64n8).
+// After the heads each row's raw [rgb, σ] (σ = head + ba, rgb = head +
+// brgb: what K2 composites) goes out as one float4, the eight rows of a
+// warp's store one 128-byte line; rows past the last ray are not written.
+// It saves nothing: the backward recomputes, as the TPU kernel's VJP does.
 //
 // K3b: K1's launches (fused_train_pass.cu, paper_train.cuh) with K3b's
 // middle: `train_pass_kernel` recomputes the forward on wgmma (storing
@@ -28,17 +33,21 @@
 // autograd.Function rounds them to bf16 as the JAX package's VJP does.
 //
 // Bound: K3f is tensor-core bound: K2's MLP work, ≈ 0.98 MFLOP a sample at
-// the function's widths (0.85 for the smaller model); it stays on the
-// mma.sync tile of mma_tile.cuh (a later PR's). K3b does K1's forward + dX
-// + dW, ≈ 2.885 MFLOP a sample (2.49 small), and is bound, as K1 is, by
-// the workspace's bytes (paper_train.cuh).
+// the function's widths (0.85 for the smaller model): 4.17 / 8.34 ms for a
+// 65536-ray tile at S = 64 / 128 at the H100's 989 TFLOP/s bf16 dense
+// peak, against 52 / 69 MB of rays in and 67 / 134 MB of rows out (36 /
+// 61 µs at 3.35 TB/s). K3b does K1's forward + dX + dW, ≈ 2.885 MFLOP a
+// sample (2.49 small), and is bound, as K1 is, by the workspace's bytes
+// (paper_train.cuh).
 //
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a -O3, with neither
 // --use_fast_math nor -ftz=true (see fused_paper_render.cu).
 
+#include "paper_chain.cuh"
 #include "paper_train.cuh"
 
 using namespace nerface;
+using namespace nerface::sm90;
 
 namespace {
 
@@ -47,25 +56,68 @@ struct FwdArgs {
   const float* rd;     // (R, 3)
   const float* z;      // (R, S)
   const float* dir_c;  // (R, 128)
-  const bf16* W;       // packed weights (fused_mlp.py W_LAYOUT)
+  const bf16* W;       // the weights' chunk images (W_OFF_* offsets, as K2 takes them)
   const float* F;      // packed bias rows + frequency bands (F_LAYOUT)
   float* out;          // (R, S, 4): raw rgb, σ
   int n_rays, n_freqs;
 };
 
+constexpr size_t FWD_SMEM_BYTES = sizeof(PaperChainSmem) + ATOM_BYTES;  // + the alignment pad
+
+// A consumer warpgroup over its units: the chain, then the rows out. Its
+// k-th unit is unit k % UNITS of the item of round blockIdx.x + (k /
+// UNITS)·gridDim.x; a unit holds the pass's sample rows [64·unit, +64). A
+// warpgroup whose rays are past the last computes zeros and stores nothing,
+// so both consumers walk the same chunk sequence.
 template <int S, bool SMALL>
-__global__ void __launch_bounds__(THREADS, 1) mlp_fwd_kernel(const FwdArgs a) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  RenderSmem& sm = *reinterpret_cast<RenderSmem*>(smem_raw);
-  const int ray0 = blockIdx.x * (TILE_ROWS / S);
-  render_tile<S, SMALL>(sm, a.ro, a.rd, a.z, a.dir_c, a.W, a.F, ray0, a.n_rays, a.n_freqs);
-  // the tile's rows [rgb, σ], 4 floats each, neighbouring threads on
-  // neighbouring addresses; rows past the last ray are not written
-  const size_t row0 = (size_t)blockIdx.x * TILE_ROWS;
-  const size_t rows = (size_t)a.n_rays * S;
-  for (int e = threadIdx.x; e < TILE_ROWS * 4; e += THREADS) {
-    const int r = e >> 2, c = e & 3;
-    if (row0 + r < rows) a.out[(row0 + r) * 4 + c] = c < 3 ? sm.rgb[r * 3 + c] : sm.sigma[r];
+__device__ __forceinline__ void fwd_consume(PaperChainSmem& sm, const FwdArgs& a, int wg, int n_rounds) {
+  using G = Schedule<S, 1>;
+  const int lane = threadIdx.x & 31;
+  const int r0 = k1::frag_row();  // the thread's accumulator rows: r0 and r0 + 8 of a unit, in one ray
+  Ring ring;
+  float acc[128];
+  uint32_t act[64];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) act[i] = 0u;
+
+  for (int k = 0;; ++k) {
+    const int round = blockIdx.x + (k / G::UNITS) * gridDim.x;
+    if (round >= n_rounds) break;
+    const int row0 = (G::item(round, 0, wg) * G::UNITS + k % G::UNITS) * 64 + r0;
+    const int ray = row0 / S;
+    mbar_wait(&sm.xin_full[wg][k & 1], (k >> 1) & 1);
+    float hs[4], hc[4];
+    paper_unit<SMALL, 1>(acc, act, smem_u32(sm.xin[wg][k & 1]), sm, ring, 0, &sm.xin_empty[wg][k & 1], a.dir_c,
+                         ray, a.n_rays, hs, hc);
+    // hs / hc[2h + j]: row r0 + 8h, column 2·(lane % 4) + j; lane q = 1
+    // holds rgb's third column, handed to lane q = 0, which stores the row
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float b2 = __shfl_down_sync(0xffffffffu, hc[2 * h], 1);
+      if ((lane & 3) == 0 && ray < a.n_rays)
+        *reinterpret_cast<float4*>(a.out + (size_t)(row0 + 8 * h) * 4) =
+            make_float4(hc[2 * h] + sm.f[F_OFF_BRGB], hc[2 * h + 1] + sm.f[F_OFF_BRGB + 1],
+                        b2 + sm.f[F_OFF_BRGB + 2], hs[2 * h] + sm.f[F_OFF_BA]);
+    }
+  }
+}
+
+template <int S, bool SMALL>
+__global__ void __launch_bounds__(PAPER_THREADS, 1) mlp_fwd_kernel(const FwdArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t pad = (ATOM_BYTES - (smem_u32(smem_raw) & (ATOM_BYTES - 1))) & (ATOM_BYTES - 1);
+  PaperChainSmem& sm = *reinterpret_cast<PaperChainSmem*>(smem_raw + pad);
+  paper_setup<1>(sm, a.W, a.F);
+  const int n_rounds = Schedule<S, 1>::rounds(a.n_rays);
+  const int wg = threadIdx.x / 128;
+  if (wg == CHAIN_CONSUMERS) {
+    reg_dealloc<40>();
+    paper_feed<S, SMALL, 1>(sm, a, 0, blockIdx.x, gridDim.x, n_rounds);
+  } else {
+    reg_alloc<232>();
+    fwd_consume<S, SMALL>(sm, a, wg, n_rounds);
   }
 }
 
@@ -94,8 +146,12 @@ struct K3bPolicy {
 
 template <int S, bool SMALL>
 struct Forward {
-  static int run(const FwdArgs& a, int grid, cudaStream_t st) {
-    return launch_tiles(mlp_fwd_kernel<S, SMALL>, sizeof(RenderSmem), grid, st, a);
+  static int run(const FwdArgs& a, cudaStream_t st) {
+    auto kernel = mlp_fwd_kernel<S, SMALL>;
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FWD_SMEM_BYTES);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<k1::pass_ctas(a.n_rays, S), PAPER_THREADS, FWD_SMEM_BYTES, st>>>(a);
+    return (int)cudaGetLastError();
   }
 };
 
@@ -108,11 +164,11 @@ struct Backward {
 
 }  // namespace
 
-// Shared memory a CTA of each kernel takes (dynamic): out[0]
-// mlp_fwd_kernel, out[1] train_pass_kernel, out[2] dw_wgmma_kernel (both
-// with their 1 KB alignment pad).
+// Shared memory a CTA of each kernel takes (dynamic, each with its 1 KB
+// alignment pad): out[0] mlp_fwd_kernel, out[1] train_pass_kernel, out[2]
+// dw_wgmma_kernel.
 extern "C" void nerface_fused_paper_mlp_shared_bytes(long long* out) {
-  out[0] = (long long)sizeof(RenderSmem);
+  out[0] = (long long)FWD_SMEM_BYTES;
   out[1] = (long long)k1::SMEM_BYTES;
   out[2] = (long long)DWG_SMEM_BYTES;
 }
@@ -128,17 +184,17 @@ extern "C" int nerface_fused_paper_mlp_fwd(const float* ro, const float* rd, con
                                            const float* dir_c, const void* W, const float* F, float* out,
                                            int n_rays, int n_samples, int n_freqs, int small, void* stream) {
   if (n_rays < 0 || n_freqs < 1 || 3 + 6 * n_freqs > K_XIN) return (int)cudaErrorInvalidValue;
-  const long long tiles = ((long long)n_rays * n_samples + TILE_ROWS - 1) / TILE_ROWS;
-  if (tiles == 0) return 0;
+  if (n_samples != 32 && n_samples != 64 && n_samples != 128) return (int)cudaErrorInvalidValue;
+  if (n_rays == 0) return 0;
   FwdArgs a{ro, rd, z, dir_c, static_cast<const bf16*>(W), F, out, n_rays, n_freqs};
-  return dispatch_pass<Forward>(n_samples, small, a, (int)tiles, static_cast<cudaStream_t>(stream));
+  return dispatch_pass<Forward>(n_samples, small, a, static_cast<cudaStream_t>(stream));
 }
 
 // K3b. Returns a cudaError_t (0 on success). Launches on `stream`, does not
 // synchronise and allocates nothing: `workspace` holds
 // nerface_fused_paper_mlp_workspace_bytes(n_rays, n_samples) bytes. W and
 // WT are the chunk images of the packed weights and of the transposed
-// trunk (`pack_sm90_chunks`, as K1 takes them; K3f takes W plain). dW is
+// trunk (`pack_sm90_chunks`, as K1 takes them; K3f takes the same W). dW is
 // the f32 gradient in the packed weight layout (W_OFF_TOTAL), dF in the
 // bias-row layout (F_OFF_TOTAL: COND0/COND3 hold d_cond0/d_cond3; FREQS and
 // the smaller model's W5/B5 slots are 0), d_dir (R, 128).

@@ -17,7 +17,9 @@
 // ray data in and out per 65536 rays.
 //
 // Design (one persistent 2-CTA cluster per SM pair, 384 threads a CTA; the
-// chain's pieces are wgmma_chain.cuh's, which K4f shares):
+// chain's pieces are wgmma_chain.cuh's, which K4f shares, and the paper
+// model's layer sequence, producer and set-up are paper_chain.cuh's, which
+// K3f runs without the cluster):
 //   - The weights are packed once per model into chunk images
 //     (`wbuf_sm90`): each layer's 64-row K chunks as the byte image of
 //     wgmma's 128-byte-swizzled K-major B operand (wgmma_tile.cuh), 32 KB
@@ -73,14 +75,13 @@
 // denormals, and the encoding needs the accurate sinf.
 
 #include "mma_tile.cuh"
-#include "wgmma_chain.cuh"
+#include "paper_chain.cuh"
 
 using namespace nerface;
 using namespace nerface::sm90;
 
 namespace {
 
-constexpr int RING = 5;                     // weight stages
 // CTAs sharing each chunk: 2 (the peer is rank ^ 1), or 1 in a build with
 // NERFACE_K2_CLUSTER=1 (tools/perf/k2_cluster_ablation.py's comparison)
 #ifndef NERFACE_K2_CLUSTER
@@ -89,8 +90,7 @@ constexpr int RING = 5;                     // weight stages
 constexpr int CLUSTER = NERFACE_K2_CLUSTER;
 static_assert(CLUSTER == 1 || CLUSTER == 2, "K2 runs in 1- or 2-CTA clusters");
 constexpr int CONSUMERS = CHAIN_CONSUMERS;  // warpgroups computing the tile
-constexpr int K2_THREADS = 128 * (CONSUMERS + 1);
-constexpr int ENCODERS = CHAIN_ENCODERS;    // warps of the producer warpgroup that encode
+constexpr int K2_THREADS = PAPER_THREADS;
 constexpr int BAR_WG = 1;                   // + warpgroup: that warpgroup's named barrier
 
 // A consumer warpgroup takes whole rays, WG_RAYS at a time, as UNITS
@@ -118,78 +118,12 @@ struct Args {
   int white_bg;
 };
 
-struct alignas(ATOM_BYTES) K2Smem {
-  unsigned char ring[RING][CHAIN_STAGE];   // weight chunk images
-  // [xyz; PE; 0] of a consumer warpgroup's unit, K-major swizzled: two
-  // buffers a warpgroup, filled by the encoder warps
-  unsigned char xin[CONSUMERS][2][XIN_BYTES];
-  // the heads' weights zero-padded to 8 columns, as chunk images: wa
-  // (256 → 1) and wrgb (128 → 3)
-  unsigned char wa8[HIDDEN / KCH][8 * ROW_BYTES];
-  unsigned char wrgb8[DIR_HIDDEN / KCH][8 * ROW_BYTES];
-  float f[F_OFF_TOTAL];                      // bias rows, frequency bands
-  float sigma[CONSUMERS][128];              // a warpgroup's rays' raw σ and rgb
+// The chain's shared memory (paper_chain.cuh), then a warpgroup's rays'
+// raw σ and rgb for the compositing.
+struct K2Smem : PaperChainSmem {
+  float sigma[CONSUMERS][128];
   float rgb[CONSUMERS][128 * 3];
-  uint64_t full[RING];
-  uint64_t empty[RING];
-  uint64_t xin_full[CONSUMERS][2];
-  uint64_t xin_empty[CONSUMERS][2];
 };
-
-// The producer: every chunk of every layer of every unit of every round of
-// this cluster, in the consumers' order; then wait until each stage has
-// been released once more, so no arrive or copy of the peer CTA is left in
-// flight when this CTA exits.
-template <int S, bool SMALL>
-__device__ __forceinline__ void produce(K2Smem& sm, const bf16* __restrict__ W, uint32_t rank, int n_pairs) {
-  Ring ring;
-  auto load_layer = [&](int off, int k, int n) {
-    sm90::load_layer<RING, CLUSTER>(sm.ring, sm.full, sm.empty, ring, W + off, k, n, rank);
-  };
-  for (int pair = cluster_id(); pair < n_pairs; pair += cluster_count()) {
-    for (int u = 0; u < Geometry<S>::UNITS; ++u) {
-      load_layer(W_OFF_W0, K_XIN, HIDDEN);
-      load_layer(W_OFF_W1, HIDDEN, HIDDEN);
-      load_layer(W_OFF_W2, HIDDEN, HIDDEN);
-      load_layer(W_OFF_W3, K_XIN + HIDDEN, HIDDEN);
-      load_layer(W_OFF_W4, HIDDEN, HIDDEN);
-      if (!SMALL) load_layer(W_OFF_W5, HIDDEN, HIDDEN);
-      load_layer(W_OFF_WF, HIDDEN, HIDDEN);
-      load_layer(W_OFF_WD0, HIDDEN, DIR_HIDDEN);
-      load_layer(W_OFF_WD1, DIR_HIDDEN, DIR_HIDDEN);
-      load_layer(W_OFF_WD2, DIR_HIDDEN, DIR_HIDDEN);
-    }
-  }
-  for (int s = 0; s < RING; ++s) {
-    mbar_wait(&sm.empty[ring.stage], ring.phase ^ 1);
-    ring.advance<RING>();
-  }
-}
-
-// Release a stage: one arrive from this warpgroup on the stage's `empty`
-// barrier in each CTA of the cluster.
-__device__ __forceinline__ void release(K2Smem& sm, int stage, uint32_t rank) {
-  const int t = threadIdx.x & 127;
-  if (t == 0) mbar_arrive(&sm.empty[stage]);
-  if (CLUSTER > 1 && t == 32) mbar_arrive_cluster(&sm.empty[stage], rank ^ 1);
-}
-
-// One layer of a warpgroup's 64 rows (`chain_layer`), each stage released
-// in both CTAs of the cluster.
-template <int N, int NCH, int X_CHUNKS>
-__device__ __forceinline__ void layer(float* acc, uint32_t* a, uint32_t xin, K2Smem& sm, Ring& ring,
-                                      uint32_t rank) {
-  chain_layer<N, NCH, X_CHUNKS, RING>(acc, a, xin, sm.ring, sm.full, ring,
-                                      [&](int stage) { release(sm, stage, rank); });
-}
-
-// The encoder warps (ENCODERS · 32 threads, index e): every unit of both
-// consumer warpgroups, in the order they take them (`encode_units`).
-template <int S>
-__device__ __forceinline__ void encode(K2Smem& sm, const Args& a, uint32_t rank, int n_pairs, int e) {
-  encode_units<S, CLUSTER>(sm.xin, sm.xin_full, sm.xin_empty, a, sm.f + F_OFF_FREQS, rank, cluster_id(),
-                           cluster_count(), n_pairs, e, [](int, int) -> unsigned char* { return nullptr; });
-}
 
 // Compositing of ray `ray` (rows warp·S .. warp·S + S - 1 of its
 // warpgroup's raw σ and rgb) by one warp: lane l owns samples
@@ -301,43 +235,10 @@ __device__ __forceinline__ void consume(K2Smem& sm, const Args& a, uint32_t rank
       const int ray = ray0 + (u * 64 + r0) / S;
       const int b = units & 1;
       mbar_wait(&sm.xin_full[wg][b], (units >> 1) & 1);
-      const uint32_t xin = smem_u32(sm.xin[wg][b]);
-
-      layer<HIDDEN, 1, 1>(acc, act, xin, sm, ring, rank);
-      acc_to_a<HIDDEN, true>(acc, act, ChainBias{sm.f + F_OFF_COND0});
-      layer<HIDDEN, 4, 0>(acc, act, xin, sm, ring, rank);
-      acc_to_a<HIDDEN, true>(acc, act, ChainBias{sm.f + F_OFF_B1});
-      layer<HIDDEN, 4, 0>(acc, act, xin, sm, ring, rank);
-      acc_to_a<HIDDEN, true>(acc, act, ChainBias{sm.f + F_OFF_B2});
-      layer<HIDDEN, 5, 1>(acc, act, xin, sm, ring, rank);  // the skip: [xin; h2]
-      if ((threadIdx.x & 127) == 0) mbar_arrive(&sm.xin_empty[wg][b]);  // its last reader is done
+      float hs[4], hc[4];
+      paper_unit<SMALL, CLUSTER>(acc, act, smem_u32(sm.xin[wg][b]), sm, ring, rank, &sm.xin_empty[wg][b], a.dir_c,
+                                 ray, a.n_rays, hs, hc);
       ++units;
-      acc_to_a<HIDDEN, true>(acc, act, ChainBias{sm.f + F_OFF_COND3});
-      layer<HIDDEN, 4, 0>(acc, act, xin, sm, ring, rank);
-      acc_to_a<HIDDEN, true>(acc, act, ChainBias{sm.f + F_OFF_B4});
-      if constexpr (!SMALL) {
-        layer<HIDDEN, 4, 0>(acc, act, xin, sm, ring, rank);
-        acc_to_a<HIDDEN, true>(acc, act, ChainBias{sm.f + F_OFF_B5});
-      }
-      layer<HIDDEN, 4, 0>(acc, act, xin, sm, ring, rank);
-      acc_to_a<HIDDEN, false>(acc, act, ChainBias{sm.f + F_OFF_BF});  // feat
-
-      // the σ head: feat (bf16, in act) against wa padded to 8 columns
-      float hs[4] = {0.f, 0.f, 0.f, 0.f};
-      chain_head<HIDDEN>(hs, act, smem_u32(sm.wa8));
-
-      const float* dir_c = ray < a.n_rays ? a.dir_c + (size_t)ray * DIR_HIDDEN : nullptr;
-      layer<DIR_HIDDEN, 4, 0>(acc, act, xin, sm, ring, rank);
-      acc_to_a<DIR_HIDDEN, true>(acc, act, ChainDir{sm.f + F_OFF_BD0, dir_c});
-      layer<DIR_HIDDEN, 2, 0>(acc, act, xin, sm, ring, rank);
-      acc_to_a<DIR_HIDDEN, true>(acc, act, ChainBias{sm.f + F_OFF_BD1});
-      layer<DIR_HIDDEN, 2, 0>(acc, act, xin, sm, ring, rank);
-
-      // the rgb head: x2 = bf16(relu(acc + bd2)) against wrgb padded to 8
-      // columns
-      acc_to_a<DIR_HIDDEN, true>(acc, act, ChainBias{sm.f + F_OFF_BD2});
-      float hc[4] = {0.f, 0.f, 0.f, 0.f};
-      chain_head<DIR_HIDDEN>(hc, act, smem_u32(sm.wrgb8));
 
       if (u == 0) named_bar_sync(BAR_WG + wg, 128);  // the last item's compositing has read sigma / rgb
       // hs / hc[2h + j]: row r0 + 8h, column 2·(lane % 4) + j
@@ -363,38 +264,15 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(K2_THREADS, 1)
   extern __shared__ unsigned char smem_raw[];
   const uint32_t pad = (ATOM_BYTES - (smem_u32(smem_raw) & (ATOM_BYTES - 1))) & (ATOM_BYTES - 1);
   K2Smem& sm = *reinterpret_cast<K2Smem*>(smem_raw + pad);
-  const int t = threadIdx.x;
-  for (int i = t; i < F_OFF_TOTAL; i += K2_THREADS) sm.f[i] = a.F[i];
-  head_image<HIDDEN>(sm.wa8, a.W + W_OFF_WA, 1, t, K2_THREADS);
-  head_image<DIR_HIDDEN>(sm.wrgb8, a.W + W_OFF_WRGB, 3, t, K2_THREADS);
-  fence_proxy_async();  // the images are read by wgmma
-  if (t == 0) {
-    for (int s = 0; s < RING; ++s) {
-      mbar_init(&sm.full[s], 1);
-      mbar_init(&sm.empty[s], CONSUMERS * CLUSTER);
-    }
-    for (int w = 0; w < CONSUMERS; ++w) {
-      for (int b = 0; b < 2; ++b) {
-        mbar_init(&sm.xin_full[w][b], ENCODERS * 32);
-        mbar_init(&sm.xin_empty[w][b], 1);
-      }
-    }
-    mbar_init_fence();
-  }
-  __syncthreads();
+  paper_setup<CLUSTER>(sm, a.W, a.F);
   cluster_sync();  // the peer's barriers exist before any copy or arrive reaches them
 
   const uint32_t rank = cluster_rank();
   const int n_pairs = Geometry<S>::rounds(a.n_rays);
-  const int wg = t / 128;
+  const int wg = threadIdx.x / 128;
   if (wg == CONSUMERS) {
     reg_dealloc<40>();
-    const int w = (t >> 5) - 4 * CONSUMERS;  // the warp in the producer warpgroup
-    if (t == CONSUMERS * 128) {
-      produce<S, SMALL>(sm, a.W, rank, n_pairs);
-    } else if (w >= 1 && w <= ENCODERS) {
-      encode<S>(sm, a, rank, n_pairs, t - CONSUMERS * 128 - 32);
-    }
+    paper_feed<S, SMALL, CLUSTER>(sm, a, rank, cluster_id(), cluster_count(), n_pairs);
   } else {
     reg_alloc<232>();
     consume<S, SMALL>(sm, a, rank, wg, n_pairs);

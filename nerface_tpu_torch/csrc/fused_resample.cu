@@ -18,36 +18,42 @@
 //   s    = bins[below] + (u - cdf[below]) / denom · (bins[above] - bins[below])
 //   out  = the sorted union of z and the Sf samples              (Sc+Sf values)
 //
-// Design: one warp per ray, RAYS_PER_CTA rays per CTA, nothing but the
-// output written to device memory.
-//   1. the warp loads z and w coalesced (each lane Sc/32 of each) into
-//      registers and its slice of shared memory; the pdf's normaliser is a
-//      warp reduction, the cdf a warp inclusive scan in f32, chunk by chunk
-//      of 32 with a carry; cdf and bins stay in shared memory;
-//   2. each lane draws its samples q = lane, lane + 32, ...: a binary search
-//      over the cdf finds k, and the interpolation runs with the reference's
-//      denom < 1e-5 → 1 rule in separately rounded operations (no FMA
-//      contraction: __fadd_rn / __fmul_rn / __fdiv_rn), as PyTorch's
-//      elementwise kernels compute it;
-//   3. in the general regime the samples are bitonic-sorted in shared
-//      memory (padded with +inf to a power of two); with `sorted_u` (u
-//      non-decreasing, e.g. the deterministic linspace draws) the draw is
-//      monotone in u and the sort is skipped;
-//   4. merge by ranks: z_i goes to i + #{s < z_i} and s_q to q + #{z ≤ s_q},
-//      each count a binary search in the other sorted list (ties put z
-//      first, as both JAX regimes do; equal values are equal, so the output
-//      is the same for any tie order), scattered into shared memory and
-//      stored coalesced.
-// The shared (Sf,) u row is read once per CTA.
-//
 // Bound: bytes. No tensor-core work; at 65536 rays × (64 + 64) samples it
 // reads z and w (2 × 16.8 MB, and u, 16.8 MB, in the general regime) and
-// writes 33.5 MB: ≈ 84 MB, ≈ 25 µs at 3.35 TB/s. The design reads each
-// input once and writes each output once; everything in between lives in
-// registers and shared memory.
+// writes 33.5 MB: ≈ 84 MB, ≈ 25 µs at 3.35 TB/s (67 MB, 20 µs, with one
+// shared u row). Everything between the loads and the store lives in
+// registers, apart from a warp's cdf, bins and z rows in shared memory.
 //
-// Shapes: Sc ∈ {32, 64, 128} (a template argument), 1 ≤ Sf ≤ 128,
-// Sc + Sf ≤ 256, z sorted per ray, any R (the last CTA's spare warps exit).
+// Design: a persistent grid (as many CTAs as fit on the card, WARPS warps
+// each) whose warps walk the rays, one ray a warp at a time, the next
+// ray's z / w (and u) rows loaded into registers while this one is worked
+// on. Per ray:
+//   1. the scan, in registers: lane l holds z and w at [PER·l, PER·l + PER)
+//      (one 4-, 8- or 16-byte load each); the normaliser is a butterfly
+//      sum, the cdf the lane's running sum plus an exclusive warp scan of
+//      the lanes' totals; cdf, bins and z go to the warp's rows in shared
+//      memory (vector stores);
+//   2. the draws: lane l draws q = FP·l .. FP·l + FP - 1 (+inf past Sf): a
+//      branch-free search of log2(Sc) steps over the cdf finds k, and the
+//      interpolation runs with the reference's denom < 1e-5 → 1 rule in
+//      separately rounded operations (no FMA contraction: __fadd_rn /
+//      __fmul_rn / __fdiv_rn), as PyTorch's elementwise kernels compute it;
+//   3. in the general regime the draws are bitonic-sorted across the warp in
+//      registers (shuffles, FP a lane); with `sorted_u` (u non-decreasing,
+//      e.g. the deterministic linspace draws) the draw is monotone in u and
+//      they come out sorted;
+//   4. the union: a warp's N = 32·E registers (N the power of two ≥ Sc +
+//      32·FP) hold z ascending (lanes below Sc / E, read back from shared
+//      memory) and then the draws descending (moved into place by one
+//      shuffle a register), a bitonic sequence that log2(N) merge stages
+//      sort; equal values are equal, so the output is what any tie order
+//      (the reference puts z first) gives. Lane l then stores
+//      [E·l, E·l + E) of the row with 16-byte stores.
+// The shared (Sf,) u row is read once per CTA. The work is a pure function
+// of the ray's inputs: launches are bit-identical.
+//
+// Shapes: Sc ∈ {32, 64, 128}, 1 ≤ Sf ≤ 128 (FP = 1, 2 or 4 draws a lane:
+// both template arguments), Sc + Sf ≤ 256, z sorted per ray, any R.
 //
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a -O3 (no fast math).
 
@@ -55,159 +61,262 @@
 
 namespace {
 
-constexpr int RAYS_PER_CTA = 8;  // one warp per ray
+constexpr int WARPS = 8;  // warps a CTA, one ray each at a time
 constexpr int MAX_FINE = 128;
 constexpr int MAX_OUT = 256;
 constexpr unsigned FULL = 0xffffffffu;
 
+__host__ __device__ constexpr int pow2_at_least(int x) { return x <= 1 ? 1 : 2 * pow2_at_least((x + 1) / 2); }
+
+__device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
+
+// V consecutive floats at `p` (4·V-byte aligned) into v
+template <int V>
+__device__ __forceinline__ void load_vec(float (&v)[V], const float* p) {
+  if constexpr (V == 1) {
+    v[0] = *p;
+  } else if constexpr (V == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    v[0] = a.x, v[1] = a.y;
+  } else {
+#pragma unroll
+    for (int c = 0; c < V; c += 4) {
+      const float4 a = *reinterpret_cast<const float4*>(p + c);
+      v[c] = a.x, v[c + 1] = a.y, v[c + 2] = a.z, v[c + 3] = a.w;
+    }
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[V]) {
+  if constexpr (V == 1) {
+    *p = v[0];
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int c = 0; c < V; c += 4) *reinterpret_cast<float4*>(p + c) = make_float4(v[c], v[c + 1], v[c + 2], v[c + 3]);
+  }
+}
+
+// One stage of a bitonic network over a warp's 32·E values, E a lane in
+// blocked order (lane l holds positions E·l .. E·l + E - 1): each pair
+// (i, i ^ j) is put in order, ascending where i & size is 0, else
+// descending.
+template <int E>
+__device__ __forceinline__ void bitonic_stage(float (&v)[E], int size, int j, int lane) {
+  if (j >= E) {  // the partner is slot e of lane ^ (j / E); both bits lie above the slot
+    const int i0 = lane * E;
+    const bool up = (i0 & size) == 0, lower = (i0 & j) == 0;
+    const bool keep_max = lower != up;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const float b = __shfl_xor_sync(FULL, v[e], j / E);
+      v[e] = keep_max ? fmaxf(v[e], b) : fminf(v[e], b);
+    }
+  } else {  // the partner is slot e ^ j of this lane
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      if (e & j) continue;
+      const bool up = ((lane * E + e) & size) == 0;
+      const float lo = fminf(v[e], v[e ^ j]), hi = fmaxf(v[e], v[e ^ j]);
+      v[e] = up ? lo : hi;
+      v[e ^ j] = up ? hi : lo;
+    }
+  }
+}
+
+// Sort a warp's 32·E values ascending.
+template <int E>
+__device__ __forceinline__ void bitonic_sort(float (&v)[E], int lane) {
+#pragma unroll
+  for (int size = 2; size <= 32 * E; size <<= 1) {
+#pragma unroll
+    for (int j = size >> 1; j > 0; j >>= 1) bitonic_stage<E>(v, size, j, lane);
+  }
+}
+
+// A warp's rows in shared memory: the ray's cdf, bins and z.
 template <int SC>
-struct WarpSmem {
-  float z[SC];
+struct __align__(16) WarpRows {
   float cdf[SC];   // Sc - 1 used
   float bins[SC];  // Sc - 1 used
-  float s[MAX_FINE];
-  float out[MAX_OUT];
+  float z[SC];
 };
 
-// first index in a[0, n) whose value is > x (a non-decreasing)
-__device__ __forceinline__ int upper_bound(const float* a, int n, float x) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (a[mid] <= x) lo = mid + 1; else hi = mid;
+// A ray's inputs in registers: z and w at [PER·lane, +PER), u at
+// [FP·lane, +FP) (0 past n_fine, or unread with a shared row).
+template <int SC, int FP>
+struct RayRows {
+  static constexpr int PER = SC / 32;
+  float z[PER], w[PER], u[FP];
+  __device__ __forceinline__ void load(const float* __restrict__ zg, const float* __restrict__ wg,
+                                       const float* __restrict__ ug, bool u_shared, int n_fine, int ray, int lane) {
+    load_vec<PER>(z, zg + (size_t)ray * SC + PER * lane);
+    load_vec<PER>(w, wg + (size_t)ray * SC + PER * lane);
+    if (!u_shared) {
+#pragma unroll
+      for (int k = 0; k < FP; ++k) {
+        const int q = FP * lane + k;
+        u[k] = q < n_fine ? ug[(size_t)ray * n_fine + q] : 0.f;
+      }
+    }
   }
-  return lo;
-}
+};
 
-// first index in a[0, n) whose value is >= x (a non-decreasing)
-__device__ __forceinline__ int lower_bound(const float* a, int n, float x) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (a[mid] < x) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-template <int SC, bool SORTED>
-__global__ void __launch_bounds__(RAYS_PER_CTA * 32)
-resample_kernel(const float* __restrict__ z, const float* __restrict__ w,
-                const float* __restrict__ u, int u_shared, float* __restrict__ out, int n_rays,
-                int n_fine) {
+template <int SC, int FP, bool SORTED>
+__global__ void __launch_bounds__(WARPS * 32)
+resample_kernel(const float* __restrict__ z, const float* __restrict__ w, const float* __restrict__ u,
+                int u_shared, float* __restrict__ out, int n_rays, int n_fine) {
+  constexpr int PER = SC / 32;                       // z and w a lane in the scan
+  constexpr int B = SC - 1;                          // cdf and bins
+  constexpr int N = pow2_at_least(SC + 32 * FP);     // the union's network
+  constexpr int E = N / 32;                          // union positions a lane
+  constexpr int ZL = SC / E;                         // lanes holding z in the union
+  static_assert(E % FP == 0 && SC % E == 0 && N <= MAX_OUT, "shapes");
   __shared__ float u_row[MAX_FINE];
-  __shared__ WarpSmem<SC> smem[RAYS_PER_CTA];
-  constexpr int B = SC - 1;     // cdf and bins
-  constexpr int PER = SC / 32;  // z and w values a lane
+  __shared__ WarpRows<SC> rows[WARPS];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-
   if (u_shared) {
     for (int q = threadIdx.x; q < n_fine; q += blockDim.x) u_row[q] = u[q];
   }
   __syncthreads();
-  const int ray = blockIdx.x * RAYS_PER_CTA + warp;
-  if (ray >= n_rays) return;
-  WarpSmem<SC>& m = smem[warp];
-  const float* zr = z + (size_t)ray * SC;
-  const float* wr = w + (size_t)ray * SC;
+  WarpRows<SC>& m = rows[warp];
+  const int n_out = SC + n_fine;
+  const int stride = gridDim.x * WARPS;
 
-  // 1. z, the shifted weights and their sum
-  float wv[PER];
-  float part = 0.f;
+  RayRows<SC, FP> next;
+  int ray = blockIdx.x * WARPS + warp;
+  if (ray < n_rays) next.load(z, w, u, u_shared, n_fine, ray, lane);
+  for (; ray < n_rays; ray += stride) {
+    const RayRows<SC, FP> cur = next;
+    if (ray + stride < n_rays) next.load(z, w, u, u_shared, n_fine, ray + stride, lane);
+
+    // 1. the shifted weights, their sum, the cdf and the bins
+    float wk[PER], part = 0.f;
 #pragma unroll
-  for (int k = 0; k < PER; ++k) {
-    const int i = k * 32 + lane;
-    m.z[i] = zr[i];
-    wv[k] = (i >= 1 && i <= SC - 2) ? __fadd_rn(wr[i], 1e-5f) : 0.f;
-    part = __fadd_rn(part, wv[k]);
-  }
+    for (int k = 0; k < PER; ++k) {
+      const int i = PER * lane + k;
+      wk[k] = (i >= 1 && i <= SC - 2) ? __fadd_rn(cur.w[k], 1e-5f) : 0.f;
+      part = __fadd_rn(part, wk[k]);
+    }
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) part = __fadd_rn(part, __shfl_xor_sync(FULL, part, o));
-  const float total = part;
-  __syncwarp();
-  for (int i = lane; i < B; i += 32) m.bins[i] = __fmul_rn(0.5f, __fadd_rn(m.z[i + 1], m.z[i]));
-  // cdf[i] = Σ pdf over weight indices 1..i, chunk by chunk with a carry
-  float carry = 0.f;
+    for (int o = 16; o > 0; o >>= 1) part = __fadd_rn(part, __shfl_xor_sync(FULL, part, o));
+    const float total = part;
+    float c[PER], run = 0.f;
 #pragma unroll
-  for (int k = 0; k < PER; ++k) {
-    const int i = k * 32 + lane;
-    float v = (i >= 1 && i <= SC - 2) ? __fdiv_rn(wv[k], total) : 0.f;
+    for (int k = 0; k < PER; ++k) {
+      const int i = PER * lane + k;
+      if (i >= 1 && i <= SC - 2) run = __fadd_rn(run, __fdiv_rn(wk[k], total));
+      c[k] = run;
+    }
+    float incl = run;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
-      const float t = __shfl_up_sync(FULL, v, o);
-      if (lane >= o) v = __fadd_rn(v, t);
+      const float t = __shfl_up_sync(FULL, incl, o);
+      if (lane >= o) incl = __fadd_rn(incl, t);
     }
-    v = __fadd_rn(carry, v);
-    if (i >= 1 && i <= SC - 2) m.cdf[i] = v;
-    carry = __shfl_sync(FULL, v, 31);
-  }
-  if (lane == 0) m.cdf[0] = 0.f;
-  __syncwarp();
-
-  // 2. the inverse-CDF draw
-  const float* ur = u_shared ? u_row : u + (size_t)ray * n_fine;
-  for (int q = lane; q < n_fine; q += 32) {
-    const float uq = ur[q];
-    const int k = upper_bound(m.cdf, B, uq);
-    const int below = k > 0 ? k - 1 : 0;
-    const int above = k < B - 1 ? k : B - 1;
-    const float cb = m.cdf[below], bb = m.bins[below];
-    float denom = __fsub_rn(m.cdf[above], cb);
-    if (denom < 1e-5f) denom = 1.f;
-    const float t = __fdiv_rn(__fsub_rn(uq, cb), denom);
-    m.s[q] = __fadd_rn(bb, __fmul_rn(t, __fsub_rn(m.bins[above], bb)));
-  }
-  __syncwarp();
-
-  // 3. sort the draws (general regime): bitonic over a power of two
-  if (!SORTED) {
-    int p = 1;
-    while (p < n_fine) p <<= 1;
-    for (int q = n_fine + lane; q < p; q += 32) m.s[q] = __int_as_float(0x7f800000);  // +inf
+    float excl = __shfl_up_sync(FULL, incl, 1);
+    if (lane == 0) excl = 0.f;
+    const float z_next = __shfl_down_sync(FULL, cur.z[0], 1);  // z[PER·(l+1)]; lane 31's bin is unused
+    float bins[PER];
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      c[k] = __fadd_rn(excl, c[k]);
+      bins[k] = __fmul_rn(0.5f, __fadd_rn(k + 1 < PER ? cur.z[k + 1] : z_next, cur.z[k]));
+    }
+    __syncwarp();  // the last ray's reads of the rows are done
+    store_vec<PER>(m.cdf + PER * lane, c);
+    store_vec<PER>(m.bins + PER * lane, bins);
+    store_vec<PER>(m.z + PER * lane, cur.z);
     __syncwarp();
-    for (int k = 2; k <= p; k <<= 1) {
-      for (int j = k >> 1; j > 0; j >>= 1) {
-        for (int i = lane; i < p; i += 32) {
-          const int ij = i ^ j;
-          if (ij > i) {
-            const float a = m.s[i], b = m.s[ij];
-            const bool up = (i & k) == 0;
-            if (up ? a > b : a < b) {
-              m.s[i] = b;
-              m.s[ij] = a;
-            }
-          }
-        }
-        __syncwarp();
+
+    // 2. the inverse-CDF draws q = FP·lane + k
+    float s[FP];
+#pragma unroll
+    for (int k = 0; k < FP; ++k) {
+      const int q = FP * lane + k;
+      s[k] = pos_inf();
+      if (q < n_fine) {
+        const float uq = u_shared ? u_row[q] : cur.u[k];
+        int pos = 0;  // #{cdf ≤ uq}: the steps add up to B
+#pragma unroll
+        for (int step = SC / 2; step > 0; step >>= 1) pos += m.cdf[pos + step - 1] <= uq ? step : 0;
+        const int below = pos > 0 ? pos - 1 : 0;
+        const int above = pos < B - 1 ? pos : B - 1;
+        const float cb = m.cdf[below], bb = m.bins[below];
+        float denom = __fsub_rn(m.cdf[above], cb);
+        if (denom < 1e-5f) denom = 1.f;
+        const float t = __fdiv_rn(__fsub_rn(uq, cb), denom);
+        s[k] = __fadd_rn(bb, __fmul_rn(t, __fsub_rn(m.bins[above], bb)));
+      }
+    }
+
+    // 3. the draws in order (the general regime)
+    if constexpr (!SORTED) bitonic_sort<FP>(s, lane);
+
+    // 4. the union: z ascending, then the draws descending (draw N - 1 - p
+    // at position p), merged
+    float v[E];
+    if (lane < ZL) {
+      load_vec<E>(v, m.z + E * lane);
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int q = N - 1 - (E * lane + e);
+      const float t = __shfl_sync(FULL, s[FP - 1 - e % FP], (q / FP) & 31);
+      if (lane >= ZL) v[e] = q < n_fine ? t : pos_inf();
+    }
+#pragma unroll
+    for (int j = N / 2; j > 0; j >>= 1) bitonic_stage<E>(v, N, j, lane);
+
+    float* orow = out + (size_t)ray * n_out;
+    if (E >= 4 && (n_out & 3) == 0) {
+#pragma unroll
+      for (int c4 = 0; c4 < E; c4 += 4) {
+        const int p = E * lane + c4;
+        if (p < n_out) *reinterpret_cast<float4*>(orow + p) = make_float4(v[c4], v[c4 + 1], v[c4 + 2], v[c4 + 3]);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        if (E * lane + e < n_out) orow[E * lane + e] = v[e];
       }
     }
   }
+}
 
-  // 4. merge by ranks, then one coalesced store of the row
-  for (int i = lane; i < SC; i += 32) {
-    const float zi = m.z[i];
-    m.out[i + lower_bound(m.s, n_fine, zi)] = zi;
+template <int SC, int FP, bool SORTED>
+int launch_one(const float* z, const float* w, const float* u, int u_shared, float* out, int n_rays, int n_fine,
+               cudaStream_t stream) {
+  auto kernel = resample_kernel<SC, FP, SORTED>;
+  static int ctas = 0;  // CTAs resident on the card at once: the persistent grid
+  if (ctas == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, WARPS * 32, 0);
+    if (e != cudaSuccess) return (int)e;
+    if (sms * per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    ctas = sms * per_sm;
   }
-  for (int q = lane; q < n_fine; q += 32) {
-    const float sq = m.s[q];
-    m.out[q + upper_bound(m.z, SC, sq)] = sq;
-  }
-  __syncwarp();
-  const int n_out = SC + n_fine;
-  float* orow = out + (size_t)ray * n_out;
-  for (int i = lane; i < n_out; i += 32) orow[i] = m.out[i];
+  const int need = (n_rays + WARPS - 1) / WARPS;
+  kernel<<<need < ctas ? need : ctas, WARPS * 32, 0, stream>>>(z, w, u, u_shared, out, n_rays, n_fine);
+  return (int)cudaGetLastError();
 }
 
 template <int SC>
-int launch(const float* z, const float* w, const float* u, int u_shared, float* out, int n_rays,
-           int n_fine, int sorted_u, cudaStream_t stream) {
-  const int grid = (n_rays + RAYS_PER_CTA - 1) / RAYS_PER_CTA;
-  if (sorted_u)
-    resample_kernel<SC, true><<<grid, RAYS_PER_CTA * 32, 0, stream>>>(z, w, u, u_shared, out,
-                                                                     n_rays, n_fine);
-  else
-    resample_kernel<SC, false><<<grid, RAYS_PER_CTA * 32, 0, stream>>>(z, w, u, u_shared, out,
-                                                                      n_rays, n_fine);
-  return (int)cudaGetLastError();
+int launch(const float* z, const float* w, const float* u, int u_shared, float* out, int n_rays, int n_fine,
+           int sorted_u, cudaStream_t stream) {
+  const int fp = n_fine <= 32 ? 1 : (n_fine <= 64 ? 2 : 4);
+  switch (fp * 2 + (sorted_u ? 1 : 0)) {
+    case 2: return launch_one<SC, 1, false>(z, w, u, u_shared, out, n_rays, n_fine, stream);
+    case 3: return launch_one<SC, 1, true>(z, w, u, u_shared, out, n_rays, n_fine, stream);
+    case 4: return launch_one<SC, 2, false>(z, w, u, u_shared, out, n_rays, n_fine, stream);
+    case 5: return launch_one<SC, 2, true>(z, w, u, u_shared, out, n_rays, n_fine, stream);
+    case 8: return launch_one<SC, 4, false>(z, w, u, u_shared, out, n_rays, n_fine, stream);
+    default: return launch_one<SC, 4, true>(z, w, u, u_shared, out, n_rays, n_fine, stream);
+  }
 }
 
 }  // namespace

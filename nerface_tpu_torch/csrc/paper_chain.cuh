@@ -1,0 +1,187 @@
+// The paper model's forward chain on wgmma_chain.cuh, shared by K2
+// (fused_paper_render.cu: the chain, then each ray's compositing) and K3f
+// (fused_paper_mlp.cu: the chain, then each row's raw [rgb, σ] out).
+//
+// A CTA of PAPER_THREADS: warpgroups 0 and 1 consume, warpgroup 2 feeds
+// them (`paper_feed`: its first thread streams the chunk sequence of every
+// unit through the PAPER_RING-stage weight ring, its warps 1..3 encode each
+// unit's [xyz; PE; 0] tile). A consumer warpgroup runs one 64-row unit at
+// a time through `paper_unit`: the trunk 64→256, 256→256 ×2, the skip
+// layer [xin; h2] (K = 320)→256, 256→256 ×2 (×1 for the smaller model,
+// SMALL: no layers_xyz.5), fc_feat, the σ head, the direction branch
+// 256→128 (+ the ray's dir_c row) and 128→128 ×2, the rgb head; it hands
+// back the heads' raw sums and the caller adds the head biases. In a
+// cluster of CTAS (K2's default 2) each chunk is copied once for the
+// cluster and a stage is released in every CTA of it; K3f runs with CTAS
+// = 1. Each kernel's shared memory starts with `PaperChainSmem`.
+
+#pragma once
+
+#include "mma_tile.cuh"
+#include "wgmma_chain.cuh"
+
+namespace nerface {
+namespace sm90 {
+
+constexpr int PAPER_RING = 5;  // weight stages
+constexpr int PAPER_THREADS = 128 * (CHAIN_CONSUMERS + 1);
+
+struct alignas(ATOM_BYTES) PaperChainSmem {
+  unsigned char ring[PAPER_RING][CHAIN_STAGE];  // weight chunk images
+  // [xyz; PE; 0] of a consumer warpgroup's unit, K-major swizzled: two
+  // buffers a warpgroup, filled by the encoder warps
+  unsigned char xin[CHAIN_CONSUMERS][2][XIN_BYTES];
+  // the heads' weights zero-padded to 8 columns, as chunk images: wa
+  // (256 → 1) and wrgb (128 → 3)
+  unsigned char wa8[HIDDEN / KCH][8 * ROW_BYTES];
+  unsigned char wrgb8[DIR_HIDDEN / KCH][8 * ROW_BYTES];
+  float f[F_OFF_TOTAL];  // bias rows, frequency bands
+  uint64_t full[PAPER_RING];
+  uint64_t empty[PAPER_RING];
+  uint64_t xin_full[CHAIN_CONSUMERS][2];
+  uint64_t xin_empty[CHAIN_CONSUMERS][2];
+};
+
+// The CTA's set-up: the bias rows, the heads' images and the barriers (a
+// stage's `empty` counts every consumer warpgroup of the cluster); ends
+// with __syncthreads.
+template <int CTAS>
+__device__ __forceinline__ void paper_setup(PaperChainSmem& sm, const bf16* W, const float* F) {
+  const int t = threadIdx.x;
+  for (int i = t; i < F_OFF_TOTAL; i += PAPER_THREADS) sm.f[i] = F[i];
+  head_image<HIDDEN>(sm.wa8, W + W_OFF_WA, 1, t, PAPER_THREADS);
+  head_image<DIR_HIDDEN>(sm.wrgb8, W + W_OFF_WRGB, 3, t, PAPER_THREADS);
+  fence_proxy_async();  // the images are read by wgmma
+  if (t == 0) {
+    for (int s = 0; s < PAPER_RING; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], CHAIN_CONSUMERS * CTAS);
+    }
+    for (int w = 0; w < CHAIN_CONSUMERS; ++w) {
+      for (int b = 0; b < 2; ++b) {
+        mbar_init(&sm.xin_full[w][b], CHAIN_ENCODERS * 32);
+        mbar_init(&sm.xin_empty[w][b], 1);
+      }
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+}
+
+// The producer: every chunk of every layer of every unit of rounds round0,
+// round0 + step, ... below n_rounds, in the consumers' order; then wait
+// until each stage has been released once more, so no arrive or copy of a
+// peer CTA is left in flight when this CTA exits.
+template <int S, bool SMALL, int CTAS>
+__device__ __forceinline__ void paper_produce(PaperChainSmem& sm, const bf16* __restrict__ W, uint32_t rank,
+                                              int round0, int step, int n_rounds) {
+  Ring ring;
+  auto load = [&](int off, int k, int n) {
+    load_layer<PAPER_RING, CTAS>(sm.ring, sm.full, sm.empty, ring, W + off, k, n, rank);
+  };
+  for (int round = round0; round < n_rounds; round += step) {
+    for (int u = 0; u < Schedule<S, CTAS>::UNITS; ++u) {
+      load(W_OFF_W0, K_XIN, HIDDEN);
+      load(W_OFF_W1, HIDDEN, HIDDEN);
+      load(W_OFF_W2, HIDDEN, HIDDEN);
+      load(W_OFF_W3, K_XIN + HIDDEN, HIDDEN);
+      load(W_OFF_W4, HIDDEN, HIDDEN);
+      if (!SMALL) load(W_OFF_W5, HIDDEN, HIDDEN);
+      load(W_OFF_WF, HIDDEN, HIDDEN);
+      load(W_OFF_WD0, HIDDEN, DIR_HIDDEN);
+      load(W_OFF_WD1, DIR_HIDDEN, DIR_HIDDEN);
+      load(W_OFF_WD2, DIR_HIDDEN, DIR_HIDDEN);
+    }
+  }
+  for (int s = 0; s < PAPER_RING; ++s) {
+    mbar_wait(&sm.empty[ring.stage], ring.phase ^ 1);
+    ring.advance<PAPER_RING>();
+  }
+}
+
+// Warpgroup CHAIN_CONSUMERS after it gave its registers away: the producer
+// thread and the encoder warps over the same rounds as the consumers. `a`
+// has W, the rays (ro, rd, z), n_rays and n_freqs.
+template <int S, bool SMALL, int CTAS, class A>
+__device__ __forceinline__ void paper_feed(PaperChainSmem& sm, const A& a, uint32_t rank, int round0, int step,
+                                           int n_rounds) {
+  const int t = threadIdx.x - CHAIN_CONSUMERS * 128;  // the thread in the warpgroup
+  const int w = t >> 5;
+  if (t == 0) {
+    paper_produce<S, SMALL, CTAS>(sm, a.W, rank, round0, step, n_rounds);
+  } else if (w >= 1 && w <= CHAIN_ENCODERS) {
+    encode_units<S, CTAS>(sm.xin, sm.xin_full, sm.xin_empty, a, sm.f + F_OFF_FREQS, rank, round0, step, n_rounds,
+                          t - 32, [](int, int) -> unsigned char* { return nullptr; });
+  }
+}
+
+// Release a stage: one arrive from this warpgroup on the stage's `empty`
+// barrier in each CTA of the cluster (the peer is rank ^ 1).
+template <int CTAS>
+__device__ __forceinline__ void paper_release(PaperChainSmem& sm, int stage, uint32_t rank) {
+  const int t = threadIdx.x & 127;
+  if (t == 0) mbar_arrive(&sm.empty[stage]);
+  if (CTAS > 1 && t == 32) mbar_arrive_cluster(&sm.empty[stage], rank ^ 1);
+}
+
+// One layer of a warpgroup's 64 rows (`chain_layer` on the ring), each
+// stage released in every CTA of the cluster.
+template <int N, int NCH, int X_CHUNKS, int CTAS>
+__device__ __forceinline__ void paper_layer(float* acc, uint32_t* a, uint32_t xin, PaperChainSmem& sm, Ring& ring,
+                                            uint32_t rank) {
+  chain_layer<N, NCH, X_CHUNKS, PAPER_RING>(acc, a, xin, sm.ring, sm.full, ring,
+                                            [&](int stage) { paper_release<CTAS>(sm, stage, rank); });
+}
+
+// A consumer warpgroup's unit: its encoded tile at shared address xin
+// (released on *xin_empty after the skip layer, its last reader), the
+// layers and the heads. hs / hc[2h + j] come back as the σ / rgb heads'
+// sums without their biases, for row r0 + 8h and column 2·(lane % 4) + j
+// (r0 = 16·warp + lane / 4). The rows' ray `ray` reads its dir_c row from
+// dir_c_base (R, 128) unless it lies past n_rays; its address is taken
+// where the direction branch needs it, not held through the trunk (that
+// register kept K3f's S = 128 chain from a clean wgmma pipeline, C7511).
+template <bool SMALL, int CTAS>
+__device__ __forceinline__ void paper_unit(float* acc, uint32_t* act, uint32_t xin, PaperChainSmem& sm, Ring& ring,
+                                           uint32_t rank, uint64_t* xin_empty, const float* dir_c_base, int ray,
+                                           int n_rays, float* hs, float* hc) {
+  paper_layer<HIDDEN, 1, 1, CTAS>(acc, act, xin, sm, ring, rank);
+  acc_to_a<HIDDEN, true>(acc, act, ChainBias{sm.f + F_OFF_COND0});
+  paper_layer<HIDDEN, 4, 0, CTAS>(acc, act, xin, sm, ring, rank);
+  acc_to_a<HIDDEN, true>(acc, act, ChainBias{sm.f + F_OFF_B1});
+  paper_layer<HIDDEN, 4, 0, CTAS>(acc, act, xin, sm, ring, rank);
+  acc_to_a<HIDDEN, true>(acc, act, ChainBias{sm.f + F_OFF_B2});
+  paper_layer<HIDDEN, 5, 1, CTAS>(acc, act, xin, sm, ring, rank);  // the skip: [xin; h2]
+  if ((threadIdx.x & 127) == 0) mbar_arrive(xin_empty);            // its last reader is done
+  acc_to_a<HIDDEN, true>(acc, act, ChainBias{sm.f + F_OFF_COND3});
+  paper_layer<HIDDEN, 4, 0, CTAS>(acc, act, xin, sm, ring, rank);
+  acc_to_a<HIDDEN, true>(acc, act, ChainBias{sm.f + F_OFF_B4});
+  if constexpr (!SMALL) {
+    paper_layer<HIDDEN, 4, 0, CTAS>(acc, act, xin, sm, ring, rank);
+    acc_to_a<HIDDEN, true>(acc, act, ChainBias{sm.f + F_OFF_B5});
+  }
+  paper_layer<HIDDEN, 4, 0, CTAS>(acc, act, xin, sm, ring, rank);
+  acc_to_a<HIDDEN, false>(acc, act, ChainBias{sm.f + F_OFF_BF});  // feat
+
+  // the σ head: feat (bf16, in act) against wa padded to 8 columns
+#pragma unroll
+  for (int i = 0; i < 4; ++i) hs[i] = 0.f;
+  chain_head<HIDDEN>(hs, act, smem_u32(sm.wa8));
+
+  paper_layer<DIR_HIDDEN, 4, 0, CTAS>(acc, act, xin, sm, ring, rank);
+  const float* dir_c = ray < n_rays ? dir_c_base + (size_t)ray * DIR_HIDDEN : nullptr;
+  acc_to_a<DIR_HIDDEN, true>(acc, act, ChainDir{sm.f + F_OFF_BD0, dir_c});
+  paper_layer<DIR_HIDDEN, 2, 0, CTAS>(acc, act, xin, sm, ring, rank);
+  acc_to_a<DIR_HIDDEN, true>(acc, act, ChainBias{sm.f + F_OFF_BD1});
+  paper_layer<DIR_HIDDEN, 2, 0, CTAS>(acc, act, xin, sm, ring, rank);
+
+  // the rgb head: x2 = bf16(relu(acc + bd2)) against wrgb padded to 8
+  // columns
+  acc_to_a<DIR_HIDDEN, true>(acc, act, ChainBias{sm.f + F_OFF_BD2});
+#pragma unroll
+  for (int i = 0; i < 4; ++i) hc[i] = 0.f;
+  chain_head<DIR_HIDDEN>(hc, act, smem_u32(sm.wrgb8));
+}
+
+}  // namespace sm90
+}  // namespace nerface

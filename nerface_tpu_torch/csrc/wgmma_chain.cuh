@@ -1,5 +1,6 @@
 // The layer chain of the port's persistent wgmma MLP kernels, shared by K2
-// (fused_paper_render.cu) and K4f / K4b's recompute (fused_flex.cu).
+// and K3f (through paper_chain.cuh) and K4f / K4b's recompute
+// (fused_flex.cu).
 //
 // A CTA has two consumer warpgroups and a producer warpgroup. The
 // producer's first thread streams each layer's weight chunk images

@@ -1,5 +1,5 @@
-// Hopper (sm_90a) building blocks of the port's wgmma kernels: K2
-// (fused_paper_render.cu), K1 / K3b (paper_train.cuh), K4f / K4b
+// Hopper (sm_90a) building blocks of the port's wgmma kernels: K2 and K3f
+// (paper_chain.cuh), K1 / K3b (paper_train.cuh), K4f / K4b
 // (fused_flex.cu) and the design probes P1 / P2 (probes.cu).
 //
 // - wgmma.mma_async m64n256k16 / m64n128k16, bf16 operands, f32

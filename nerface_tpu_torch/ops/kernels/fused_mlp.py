@@ -45,7 +45,8 @@ and has a backward (training and σ-noise renders).
   operand (`csrc/wgmma_tile.cuh`), so one bulk copy puts a chunk in shared
   memory ready for the tensor cores. K1 and K3b take the same images of
   the weights and of the transposed trunk, gathered from their bundle on
-  every call by one cached index (`_backward_weight_gather`).
+  every call by one cached index (`_backward_weight_gather`); K3f takes
+  the weights' images alone, by that index's forward part.
 
 Disparity keeps the TPU kernel's guard, 1 / max(1e-10, depth / max(acc,
 1e-38)): finite where acc = 0 (the unfused path's depth / acc is NaN there).
@@ -734,10 +735,11 @@ def _regroup(d_cond0, d_cond3, d_dir, gw, gb, small):
 def _kernel_operands(bundle, n_rays, dev, num_encoding_fn_xyz, log_sampling_xyz, small,
                      transposed):
     """Check a bundle for a kernel call and pack it: (dir_contrib, bf16
-    weights, f32 rows, bf16 transposed trunk or None). With `transposed`
-    (the backward kernels, K1 and K3b) the weights and the transposed trunk
-    come as their chunk images, gathered straight from the bundle
-    (`_backward_weight_gather`); else (K3f) plain."""
+    weights, f32 rows, bf16 transposed trunk or None). The weights come as
+    their chunk images, gathered straight from the bundle by one cached
+    index (`_backward_weight_gather`): with `transposed` (the backward
+    kernels, K1 and K3b) the transposed trunk's too, else (K3f) the
+    forward weights' alone, by that index's forward part."""
     bundle = [t.detach() for t in bundle]
     cond0, cond3, dir_c, W, B = _unbundle(bundle, small)
     n_enc = 6 * num_encoding_fn_xyz
@@ -756,13 +758,13 @@ def _kernel_operands(bundle, n_rays, dev, num_encoding_fn_xyz, log_sampling_xyz,
     freqs = _device_bands(num_encoding_fn_xyz, log_sampling_xyz, dev)
     Wk = dict(W)
     Wk.update({k: v.reshape(-1) for k, v in B.items()})
-    if not transposed:
-        wbuf, fbuf = pack_kernel_operands(cond0.reshape(-1), cond3.reshape(-1), Wk, freqs)
-        return dir_c, wbuf, fbuf, None
     fbuf = _pack_rows(cond0.reshape(-1), cond3.reshape(-1), Wk, freqs)
     src = torch.cat([dir_c.new_zeros(1)] + [W[n].reshape(-1) for n in bundle_names(small)[0]])
-    both = src.to(torch.bfloat16)[_backward_weight_gather(small, n_enc, dev)]
-    wt_total = WT_OFFSETS["TOTAL"]
+    src = src.to(torch.bfloat16)
+    idx, wt_total = _backward_weight_gather(small, n_enc, dev), WT_OFFSETS["TOTAL"]
+    if not transposed:  # K3f: the forward weights' part of the one index
+        return dir_c, src[idx[wt_total:]], fbuf, None
+    both = src[idx]
     return dir_c, both[wt_total:], fbuf, both[:wt_total]
 
 
@@ -851,27 +853,37 @@ def fused_paper_mlp_forward(
     dev = _check_kernel_call("fused_paper_mlp_forward", ray_origins, ray_directions, z_vals,
                              num_encoding_fn_xyz)
     n_rays, n_samples = z_vals.shape
-    dir_c, wbuf, fbuf, _ = _kernel_operands(bundle, n_rays, dev, num_encoding_fn_xyz,
-                                            log_sampling_xyz, small, transposed=False)
+    operands = _kernel_operands(bundle, n_rays, dev, num_encoding_fn_xyz, log_sampling_xyz,
+                                small, transposed=False)
     out = torch.empty(n_rays, n_samples, 4, dtype=torch.float32, device=dev)
-
-    from nerface_tpu_torch.ops.kernels.build import load_library
-
-    lib = load_library("fused_paper_mlp")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.nerface_fused_paper_mlp_fwd(
-            _ptr(ray_origins), _ptr(ray_directions), _ptr(z_vals), _ptr(dir_c), _ptr(wbuf),
-            _ptr(fbuf), _ptr(out), n_rays, n_samples, num_encoding_fn_xyz, int(bool(small)),
-            ctypes.c_void_p(stream),
-        )
-    if err != 0:
-        raise RuntimeError(f"fused_paper_mlp forward kernel launch failed: cudaError {err}")
-    fused_paper_mlp_forward.launches += 1
+    _launch_paper_fwd(operands, (ray_origins, ray_directions, z_vals), out, num_encoding_fn_xyz,
+                      small)
     return out
 
 
 fused_paper_mlp_forward.launches = 0
+
+
+def _launch_paper_fwd(operands, per_ray, out, num_encoding_fn_xyz, small):
+    """K3f's C entry point on checked CUDA operands: `operands` from
+    `_kernel_operands(..., transposed=False)`, `per_ray` (ro, rd, z), `out`
+    the (R, S, 4) f32 output. Counts the launch in
+    `fused_paper_mlp_forward.launches`."""
+    from nerface_tpu_torch.ops.kernels.build import load_library
+
+    dir_c, wbuf, fbuf, _ = operands
+    ro, rd, z = per_ray
+    n_rays, n_samples = z.shape
+    lib = load_library("fused_paper_mlp")
+    with torch.cuda.device(ro.device):
+        stream = torch.cuda.current_stream(ro.device).cuda_stream
+        err = lib.nerface_fused_paper_mlp_fwd(
+            _ptr(ro), _ptr(rd), _ptr(z), _ptr(dir_c), _ptr(wbuf), _ptr(fbuf), _ptr(out),
+            n_rays, n_samples, num_encoding_fn_xyz, int(bool(small)), ctypes.c_void_p(stream),
+        )
+    if err != 0:
+        raise RuntimeError(f"fused_paper_mlp forward kernel launch failed: cudaError {err}")
+    fused_paper_mlp_forward.launches += 1
 
 
 def fused_paper_mlp_backward(

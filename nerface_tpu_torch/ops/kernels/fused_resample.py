@@ -6,8 +6,9 @@ TPU kernel `_resample_kernel`, `pallas_call` at fused_mlp.py:973). Like the
 JAX package's, it is an entry point of its own: nothing in `render/` or
 `eval/` calls it, and `render_rays` keeps `sample_pdf` + `merge_sorted_zvals`.
 
-* `fused_resample` is the wrapper: on CUDA tensors it launches
-  `csrc/fused_resample.cu` or raises; on CPU tensors it runs
+* `fused_resample` is the wrapper: on CUDA tensors it checks them
+  (`check_kernel_operands`) and launches `csrc/fused_resample.cu`
+  (`_launch_resample`) or raises; on CPU tensors it runs
   `fused_resample_reference`. It counts launches in `fused_resample.launches`.
 * `fused_resample_reference` is the plain PyTorch version, exactly what
   `render_rays` runs: `sample_pdf` over the z-midpoints and the weights
@@ -74,8 +75,21 @@ def fused_resample(
         return fused_resample_reference(z_vals, weights, u, sorted_u)
     if dev.type != "cuda":
         raise ValueError(f"fused_resample runs on cuda or cpu, not {dev}")
+    check_kernel_operands(z_vals, weights, u)
     n_rays, n_coarse = z_vals.shape
-    n_fine = u.shape[-1]
+    out = torch.empty(n_rays, n_coarse + u.shape[-1], dtype=torch.float32, device=dev)
+    _launch_resample(z_vals, weights, u, out, sorted_u)
+    return out
+
+
+fused_resample.launches = 0
+
+
+def check_kernel_operands(z_vals: torch.Tensor, weights: torch.Tensor, u: torch.Tensor):
+    """Raise on what the kernel does not take: Sc outside KERNEL_COARSE, Sf
+    outside 1..MAX_FINE or Sc + Sf past MAX_TOTAL, an operand that is not
+    f32, not on z_vals' device or not contiguous."""
+    n_coarse, n_fine = z_vals.shape[1], u.shape[-1]
     if n_coarse not in KERNEL_COARSE:
         raise ValueError(f"kernel is built for {KERNEL_COARSE} coarse samples, got {n_coarse}")
     if not 1 <= n_fine <= MAX_FINE or n_coarse + n_fine > MAX_TOTAL:
@@ -86,26 +100,28 @@ def fused_resample(
     for name, t in (("z_vals", z_vals), ("weights", weights), ("u", u)):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+        if t.device != z_vals.device:
+            raise ValueError(f"{name} is on {t.device}, expected {z_vals.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    out = torch.empty(n_rays, n_coarse + n_fine, dtype=torch.float32, device=dev)
 
+
+def _launch_resample(z_vals, weights, u, out, sorted_u):
+    """K5's C entry point on checked CUDA operands (`check_kernel_operands`),
+    into `out` (R, Sc + Sf) f32. Counts the launch in
+    `fused_resample.launches`."""
     from nerface_tpu_torch.ops.kernels.build import load_library
 
+    n_rays, n_coarse = z_vals.shape
     lib = load_library("fused_resample")
+    dev = z_vals.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.nerface_fused_resample(
             ctypes.c_void_p(z_vals.data_ptr()), ctypes.c_void_p(weights.data_ptr()),
             ctypes.c_void_p(u.data_ptr()), int(u.ndim == 1), ctypes.c_void_p(out.data_ptr()),
-            n_rays, n_coarse, n_fine, int(bool(sorted_u)), ctypes.c_void_p(stream),
+            n_rays, n_coarse, u.shape[-1], int(bool(sorted_u)), ctypes.c_void_p(stream),
         )
     if err != 0:
         raise RuntimeError(f"fused_resample kernel launch failed: cudaError {err}")
     fused_resample.launches += 1
-    return out
-
-
-fused_resample.launches = 0

@@ -15,6 +15,7 @@ import torch
 # (at the default init they fade, and the output is nearly the last bias).
 HE_GAIN = 6.0 ** 0.5
 D_XYZ = 63  # the encoded xyz: 3 + 2·3·10 bands
+FAR = 0.8  # synth512_paper's far plane: K5's depths lie in [0.2, FAR]
 
 
 def he_scale(model):
@@ -49,6 +50,24 @@ def render_inputs(n_rays, n_samples, gen, dev):
     cond = conditioning(gen)
     bg = torch.rand(n_rays, 3, generator=gen)
     return [t.to(dev).contiguous() for t in (ro, rd, z, dc, cond, bg)]
+
+
+def resample_inputs(n_rays, n_coarse, n_fine, seed, dev, spike=0.0):
+    """K5's inputs: coarse depths as the pipeline draws them (stratified
+    over [0.2, FAR], jittered: sorted per ray), weights in [0.1, 1) and
+    general draws u (R, Sf). Every bin's pdf stays ≥ 1e-3: at a bin under
+    the reference's 1e-5 clamp, or of pdf ~1e-4, the draw at a cdf knot
+    moves by up to a bin with the cdf's last ulp, which no two orders of
+    f32 sums share (PERF.md). A nonzero `spike` puts that mass on one bin:
+    the draws crowd into it, among the coarse depths around it."""
+    g = torch.Generator().manual_seed(seed)
+    t = (torch.arange(n_coarse) + torch.rand(n_rays, n_coarse, generator=g)) / n_coarse
+    z = 0.2 + (FAR - 0.2) * t
+    w = 0.1 + 0.9 * torch.rand(n_rays, n_coarse, generator=g)
+    if spike:
+        w[:, 7] = spike
+    u = torch.rand(n_rays, n_fine, generator=g)
+    return [x.to(dev).contiguous() for x in (z, w, u)]
 
 
 def paper_params(seed, dev, small=False):

@@ -1,8 +1,10 @@
 """Digests of the paper family's kernels' outputs on fixed inputs, on the
 card: K2 (`fused_paper_render`, both modes, 4096 rays at S = 64 with the
 weights and a 65536-ray tile at S = 128), K1 (`fused_train_pass`, 2048
-rays at S = 64 and 128, σ-noise and a background) and K3b
-(`fused_paper_mlp_backward`, 2048 × 64), each output tensor's SHA-256.
+rays at S = 64 and 128, σ-noise and a background), K3f
+(`fused_paper_mlp_forward`, 2048 × 64 and 1111 × 128), K3b
+(`fused_paper_mlp_backward`, 2048 × 64) and K5 (`fused_resample`, 2048
+rays, 64 + 64 samples, both regimes), each output tensor's SHA-256.
 Two checkouts that print the same digests computed the same bits: the A/B
 check of a change that must leave these kernels as they were. Its inputs
 come from `tools/perf/cases.py`.
@@ -21,9 +23,10 @@ import json
 import torch
 
 from nerface_tpu_torch.ops.kernels import fused_mlp as K
+from nerface_tpu_torch.ops.kernels import fused_resample as K5
 from nerface_tpu_torch.ops.kernels import fused_train as T
 from nerface_tpu_torch.tools.perf._timing import card_line
-from nerface_tpu_torch.tools.perf.cases import paper_case, paper_params, render_inputs
+from nerface_tpu_torch.tools.perf.cases import paper_case, paper_params, render_inputs, resample_inputs
 
 
 def digest(t: torch.Tensor) -> str:
@@ -53,6 +56,15 @@ def digests(dev):
         bundle, rays = paper_case(2048, 64, 31 + small, dev, small)
         grads = K.fused_paper_mlp_backward(bundle, rays["ro"], rays["rd"], rays["z"], rays["g"], small=small)
         res[f"K3b{tag}_2048x64"] = {"grads": digest(torch.cat([t.reshape(-1).float() for t in grads]))}
+        for R, S in ((2048, 64), (1111, 128)):
+            bundle, rays = paper_case(R, S, 41 + S + small, dev, small)
+            out = K.fused_paper_mlp_forward(bundle, rays["ro"], rays["rd"], rays["z"], small=small)
+            res[f"K3f{tag}_{R}x{S}"] = {"out": digest(out)}
+    from nerface_tpu_torch.ops.math import linspace01
+
+    z, w, u = resample_inputs(2048, 64, 64, 51, dev)
+    res["K5_2048_64+64"] = {"general": digest(K5.fused_resample(z, w, u)),
+                            "sorted_u": digest(K5.fused_resample(z, w, linspace01(64, device=dev), sorted_u=True))}
     torch.cuda.synchronize()
     return res
 

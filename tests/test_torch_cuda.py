@@ -23,11 +23,11 @@ from chip_smoke import (
     FLEX_OUT_TOL,
     FLEX_TC_DEPTH,
     K3_OUT_TOL,
+    RESAMPLE_SPIKE,
     RESAMPLE_TOL,
     SIGMA_BIAS,
     _bundle_names,
     _k1_params,
-    _resample_inputs,
     flex_grad_limits,
     flex_limit,
     k1_grad_limits,
@@ -39,7 +39,7 @@ from nerface_tpu_torch.models.nerf_models import (
     ConditionalBlendshapePaperSmallerNeRFModel,
 )
 from nerface_tpu_torch.ops.kernels import fused_mlp as K
-from nerface_tpu_torch.tools.perf.cases import HE_GAIN, flex_params, ray_draws
+from nerface_tpu_torch.tools.perf.cases import HE_GAIN, flex_params, ray_draws, resample_inputs
 
 torch.set_num_threads(1)
 
@@ -657,7 +657,7 @@ def test_resample_kernel_matches_plain(cuda_device, R, Sc, Sf, regime, spike):
     from nerface_tpu_torch.ops.kernels import fused_resample as K5
     from nerface_tpu_torch.ops.math import linspace01
 
-    z, w, u = _resample_inputs(R, Sc, Sf, R + Sc + Sf, cuda_device, spike)
+    z, w, u = resample_inputs(R, Sc, Sf, R + Sc + Sf, cuda_device, RESAMPLE_SPIKE if spike else 0.0)
     sorted_u = regime == "sorted_u"
     if sorted_u:
         u = linspace01(Sf, device=cuda_device)
@@ -676,7 +676,7 @@ def test_resample_kernel_matches_plain(cuda_device, R, Sc, Sf, regime, spike):
 def test_resample_kernel_refuses_what_it_does_not_take(cuda_device):
     from nerface_tpu_torch.ops.kernels import fused_resample as K5
 
-    z, w, u = _resample_inputs(64, 64, 64, 1, cuda_device)
+    z, w, u = resample_inputs(64, 64, 64, 1, cuda_device)
     before = K5.fused_resample.launches
     with pytest.raises(ValueError, match="coarse samples"):
         K5.fused_resample(z[:, :48].contiguous(), w[:, :48].contiguous(), u)
@@ -689,3 +689,90 @@ def test_resample_kernel_refuses_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="u is on"):
         K5.fused_resample(z, w, u.cpu())
     assert K5.fused_resample.launches == before
+
+
+# -- K3f on the shared chain and K5 as a persistent kernel ----------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("small", [False, True], ids=["paper", "small"])
+@pytest.mark.parametrize("R,S", [(1111, 128), (2085, 64), (600, 32), (265, 64), (77, 128), (5, 32)],
+                         ids=["s128-rounds", "s64-rounds", "s32-rounds", "s64-ragged", "s128-ragged",
+                              "s32-few-rays"])
+def test_paper_mlp_forward_persistent_grid(cuda_device, small, R, S):
+    """K3f past one round of the 132-CTA grid (R > 2·132·rays an item) and
+    at ragged R, each S, both modes: raw rgb and σ within K3_OUT_TOL of the
+    plain version, bit-identical over two launches, and no row written past
+    the last ray (the launch writes into the head of a larger NaN buffer)."""
+    from nerface_tpu_torch.ops.kernels.fused_train import prefold_paper_params
+
+    params = _k1_params(11, cuda_device, small=small)
+    ro, rd, z, tgt, bg, noise, pe_dir, cond = _train_inputs(R, S, cuda_device, seed=R + S + 5)
+    bundle = [t.contiguous() for t in prefold_paper_params(
+        params, cond, pe_dir, 10, small=small, dir_expr_offset=(256 + 24) if small else 0)]
+    args = (bundle, ro, rd, z)
+    out = K.fused_paper_mlp_forward(*args, small=small)
+    operands = K._kernel_operands(bundle, R, ro.device, 10, True, small, transposed=False)
+    big = torch.full((R + 2, S, 4), float("nan"), device=ro.device)
+    before = K.fused_paper_mlp_forward.launches
+    K._launch_paper_fwd(operands, (ro, rd, z), big, 10, small)
+    torch.cuda.synchronize()
+    assert K.fused_paper_mlp_forward.launches == before + 1
+    assert torch.equal(big[:R], out) and torch.isnan(big[R:]).all()
+    ref = K.fused_paper_mlp_reference(*args, small=small)
+    assert torch.isfinite(out).all()
+    for sl in (slice(0, 3), slice(3, 4)):
+        torch.testing.assert_close(out[..., sl], ref[..., sl],
+                                   atol=K3_OUT_TOL * float(ref[..., sl].abs().max()), rtol=0)
+
+
+def _away_from_knots(w, u, gap=1e-6):
+    """u moved at least `gap` off the knots of the reference's cdf (in
+    float64): near a knot of a tiny-pdf bin the draw jumps across the bin
+    with the cdf's last ulp, which no two orders of f32 sums share."""
+    ww = w[:, 1:-1].double() + 1e-5
+    cdf = torch.cumsum(ww / ww.sum(-1, keepdim=True), -1)
+    cdf = torch.cat([torch.zeros_like(cdf[:, :1]), cdf], -1)
+    uu = u.double().clone()
+    for _ in range(4):
+        near = (uu[:, :, None] - cdf[:, None, :]).abs().min(-1).values < gap
+        if not near.any():
+            break
+        uu = torch.where(near, (uu + 5 * gap).clamp(max=1 - 1e-6), uu)
+    return uu.float().contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sc", [32, 64, 128])
+@pytest.mark.parametrize("Sf,draws", [(37, "rows"), (100, "shared"), (64, "linspace"), (16, "sorted_rows"),
+                                      (64, "spike"), (64, "spike_rows"), (48, "tiny")])
+def test_resample_kernel_shapes_and_draws(cuda_device, Sc, Sf, draws):
+    """K5 at each Sc with Sf that are not powers of two, per-ray and shared
+    u in the general regime, the linspace row and sorted per-ray draws with
+    `sorted_u`, the spike in both regimes, and tiny-pdf bins (every third
+    weight 0, the draws kept off the cdf's knots): within RESAMPLE_TOL·far
+    of the plain version, rows sorted, bit-identical over two launches, on
+    2085 rays (past one round of the persistent grid's warps)."""
+    from nerface_tpu_torch.ops.kernels import fused_resample as K5
+    from nerface_tpu_torch.ops.math import linspace01
+
+    R = 2085
+    z, w, u = resample_inputs(R, Sc, Sf, R + Sc + Sf, cuda_device,
+                              RESAMPLE_SPIKE if draws.startswith("spike") else 0.0)
+    sorted_u = draws in ("linspace", "sorted_rows", "spike")
+    if draws == "shared":
+        u = u[0].contiguous()
+    elif draws in ("linspace", "spike"):
+        u = linspace01(Sf, device=cuda_device)
+    elif draws == "sorted_rows":
+        u = torch.sort(u, -1).values.contiguous()
+    elif draws == "tiny":
+        w[:, ::3] = 0.0
+        u = _away_from_knots(w.cpu(), u.cpu()).to(cuda_device)
+    got = K5.fused_resample(z, w, u, sorted_u=sorted_u)
+    again = K5.fused_resample(z, w, u, sorted_u=sorted_u)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and got.shape == (R, Sc + Sf)
+    assert bool((got[:, 1:] >= got[:, :-1]).all())
+    ref = K5.fused_resample_reference(z, w, u, sorted_u)
+    torch.testing.assert_close(got, ref, atol=RESAMPLE_TOL * FAR, rtol=0)

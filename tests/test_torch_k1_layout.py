@@ -54,12 +54,17 @@ def test_backward_operands_are_chunk_images(small):
     and each transposed matrix (out, in) as the chunk image of the B of
     gy·Wᵀ (K = out, N = in), bit for bit."""
     bundle = _bundle(small)
-    _, _, _, W, _ = K._unbundle(bundle, small)
+    cond0, cond3, _, W, B = K._unbundle(bundle, small)
     _, wimg, _, wtimg = K._kernel_operands(bundle, 4, torch.device("cpu"), 10, True, small,
                                            transposed=True)
-    _, wplain, _, none = K._kernel_operands(bundle, 4, torch.device("cpu"), 10, True, small,
-                                            transposed=False)
-    assert none is None and wimg.numel() == wplain.numel() == K.W_OFFSETS["TOTAL"]
+    # K3f's forward operands are the same images, from a gather of their own
+    _, wfwd, _, none = K._kernel_operands(bundle, 4, torch.device("cpu"), 10, True, small,
+                                          transposed=False)
+    wplain, _ = K.pack_kernel_operands(cond0.reshape(-1), cond3.reshape(-1),
+                                       dict(W, **{k: v.reshape(-1) for k, v in B.items()}),
+                                       K._device_bands(10, True, torch.device("cpu")))
+    assert none is None and torch.equal(_bits(wfwd), _bits(wimg))
+    assert wimg.numel() == wplain.numel() == K.W_OFFSETS["TOTAL"]
     for name, k, n in K.W_LAYOUT:
         o = K.W_OFFSETS[name]
         got = wimg[o:o + k * n]
@@ -274,9 +279,11 @@ def test_backward_operands_gather_equals_packing_then_images(small, n_freq):
               + [torch.randn(1, widths.get(n, K.HIDDEN), generator=g) for n in bn])
     _, wimg, fbuf, wtimg = K._kernel_operands(bundle, 4, torch.device("cpu"), n_freq, True, small,
                                               transposed=True)
-    _, wplain, fplain, _ = K._kernel_operands(bundle, 4, torch.device("cpu"), n_freq, True,
-                                              small, transposed=False)
     W = dict(zip(wn, bundle[3:3 + len(wn)]))
+    wplain, fplain = K.pack_kernel_operands(
+        bundle[0].reshape(-1), bundle[1].reshape(-1),
+        dict(W, **{n: b.reshape(-1) for n, b in zip(bn, bundle[3 + len(wn):])}),
+        K._device_bands(n_freq, True, torch.device("cpu")))
     wt = K.pack_transposed_weights(W)
     wt_want = torch.cat([K.sm90_chunk_image(wt[K.WT_OFFSETS[n]:K.WT_OFFSETS[n] + k * c]
                                             .reshape(k, c)) for n, k, c in K.WT_LAYOUT])

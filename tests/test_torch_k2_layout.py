@@ -85,22 +85,25 @@ def _cu_value(expr):
 def test_chunk_sequence_matches_cuda_source():
     """The producer streams, and the consumers multiply, the chunked
     matrices of W_LAYOUT in its order, 64 K rows a chunk; the smaller
-    model skips W5 on both sides."""
-    src = (CSRC / "fused_paper_render.cu").read_text()
+    model skips W5 on both sides. Both sequences live in paper_chain.cuh,
+    which K2 (and K3f) run."""
+    assert '#include "paper_chain.cuh"' in (CSRC / "fused_paper_render.cu").read_text()
+    src = (CSRC / "paper_chain.cuh").read_text()
     hdr = (CSRC / "wgmma_tile.cuh").read_text()
     assert re.search(rf"constexpr int KCH = {K.SM90_KCH};", hdr)
     assert re.search(rf"constexpr int ROW_BYTES = {2 * K.SM90_KCH};", hdr)
     want = [(name, k, n) for name, k, n in K.W_LAYOUT if name in K.SM90_CHUNKED]
+    produce = src[src.index("void paper_produce("):src.index("void paper_feed(")]
     loads = [(m.group(1), _cu_value(m.group(2)), _cu_value(m.group(3)))
-             for m in re.finditer(r"load_layer\(W_OFF_(\w+), ([\w +]+), (\w+)\);", src)]
+             for m in re.finditer(r"load\(W_OFF_(\w+), ([\w +]+), (\w+)\);", produce)]
     assert loads == want
-    assert re.search(r"if \(!SMALL\) load_layer\(W_OFF_W5,", src)
-    body = src[src.index("void consume("):src.index("__global__")]
+    assert re.search(r"if \(!SMALL\) load\(W_OFF_W5,", produce)
+    body = src[src.index("void paper_unit("):]
     layers = [(_cu_value(m.group(1)), int(m.group(2)))
-              for m in re.finditer(r"\blayer<(\w+), (\d+), \d+>\(", body)]
+              for m in re.finditer(r"\bpaper_layer<(\w+), (\d+), \d+, CTAS>\(", body)]
     assert layers == [(n, k // K.SM90_KCH) for _, k, n in want]
     w5 = body.index("if constexpr (!SMALL)")
-    assert body.index("layer<HIDDEN, 4, 0>", w5) < body.index("F_OFF_B5", w5)
+    assert body.index("paper_layer<HIDDEN, 4, 0, CTAS>", w5) < body.index("F_OFF_B5", w5)
 
 
 def test_swizzle_matches_header():
