@@ -122,6 +122,24 @@ Phases, one line each (plus the kernels' register reports):
                those in the last 10 steps below that of steps 0 and 10; the
                last .ckpt reloads and holds two Adam param groups. Then the
                median of steady synchronised steps and rays/s.
+     window_train — the execution window (train/window.py): `train()` of
+               synth512_paper with configs/synth512_devfeed.yml's settings
+               (the device feed) for WINDOW_STEPS = 40 steps, print every
+               10, validation at 0 and 20, saves every 20 and at the end, at
+               `steps_per_execute` WINDOW_K = 10 (CUDA-graph replays, async
+               validation) and at 1 (the same step body eagerly, sync
+               validation); then the same for the host feed. Checks: final
+               parameters, latent table, Adam state (the last .ckpt) and
+               printed [TRAIN] lines bit for bit; the [VAL] lines equal; K1
+               ran 80 times and K2 32 (2 validations) in each run, read from
+               torch.profiler's kernel records (replays included); the loss
+               falls; the windowed run's steps are graph replays (38
+               replays, K1's wrapper called from the host 6 times: 2 eager
+               steps and the capture). Then the steady per-step ms windowed
+               and step at a time (`train()`'s window of one step, one
+               batch uploaded a step), each the median of 12 blocks of 10
+               steps with validation off, and with --profile the device
+               idle share of a window.
      occupancy_serve — that run's last checkpoint served with fast_eval and
                the occupancy grid (splat, 128³, 2× supersampled): the grid
                builds' seconds, occupied and active fractions, capacity, K2
@@ -1431,6 +1449,260 @@ def train_phase(dev, ds, tmp, profile, card, cfg_dict=SYNTH512_PAPER, steps=TRAI
     return result
 
 
+WINDOW_STEPS = 40
+WINDOW_K = 10
+WINDOW_TIMED = 12  # timed blocks of WINDOW_K steps each way: 120 steps
+_TRAIN_LINE = r"\[TRAIN\] Iter: (\d+) Loss: (\S+) BG Loss: (\S+) PSNR: (\S+) LatentReg: (\S+)"
+_VAL_LINE = r"\[VAL\] Iter: (\d+) loss: (\S+) PSNR: (\S+)"
+
+
+def _window_cfg(logdir, k, device_feed):
+    """configs/synth512_devfeed.yml's settings (synth512_paper, the device
+    feed) cut to WINDOW_STEPS steps: print every 10, validate at 0 and 20,
+    save every 20 and at the end, `steps_per_execute` k."""
+    d = copy.deepcopy(SYNTH512_PAPER)
+    d["experiment"].update(id="synth512_devfeed", logdir=logdir, train_iters=WINDOW_STEPS,
+                           print_every=10, validate_every=20, save_every=20,
+                           steps_per_execute=k, device_feed=device_feed)
+    return d
+
+
+# the hand kernels' __global__ functions (nerface_tpu_torch/csrc/): a K1 or
+# K3b call runs one train_pass_kernel, a K2 call one render_kernel, a K3f
+# call one mlp_fwd_kernel, a K4f call one flex_chain_kernel, a K4b call one
+# flex_chain_kernel (its recompute) and one flex_dx_kernel, a K5 call one
+# resample_kernel
+HAND_KERNELS = ("train_pass_kernel", "dw_wgmma_kernel", "reduce_rows", "render_kernel",
+                "mlp_fwd_kernel", "flex_chain_kernel", "flex_dx_kernel", "resample_kernel")
+
+
+def kernel_runs(prof):
+    """The hand kernels' runs that torch.profiler `prof` read from the
+    card's kernel records, by __global__ name: a CUDA graph's replays run
+    its kernels with no call from the host, and are counted here."""
+    from torch.autograd import DeviceType
+
+    runs = dict.fromkeys(HAND_KERNELS, 0)
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            for name in HAND_KERNELS:
+                if re.search(rf"\b{name}\b", e.key):
+                    runs[name] += e.count
+    return runs
+
+
+def _window_run(cfg, ds, dev):
+    """`train()` of `cfg` in bf16 under torch.profiler, with the launch
+    counters reset: the wrappers' counts (their C entries' calls from the
+    host), the graph replays, and the hand kernels' runs on the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from nerface_tpu_torch.train.loop import train
+
+    counters = _launch_counts()
+    for c in counters.values():
+        c.launches = 0
+    calls = {"replays": 0}
+    replay = torch.cuda.CUDAGraph.replay
+
+    def counted_replay(g):
+        calls["replays"] += 1
+        return replay(g)
+
+    torch.cuda.CUDAGraph.replay = counted_replay
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with contextlib.redirect_stdout(out):
+                state = train(cfg, dataset=ds, dtype=torch.bfloat16, device=dev)
+            torch.cuda.synchronize()
+    finally:
+        torch.cuda.CUDAGraph.replay = replay
+    wall = time.perf_counter() - t0
+    return {"state": state, "out": out.getvalue(), "wall": wall,
+            "launches": {k: c.launches for k, c in counters.items()},
+            "runs": kernel_runs(prof), **calls}
+
+
+def _window_steady(cfg, ds, dev, k_max, device_feed, profile=False):
+    """Per-step ms of WINDOW_TIMED blocks of WINDOW_K steps (synchronised
+    at block ends, validation off) from a fresh state through a
+    `TrainWindow` of `k_max` steps, as `train()` runs it: windowed (k_max
+    WINDOW_K, a block is one window of graph replays) or step at a time
+    (k_max 1, a block is WINDOW_K windows of one eager step, the host feed
+    uploading one batch a step)."""
+    import torch
+
+    from nerface_tpu_torch.config import FeatureFlags
+    from nerface_tpu_torch.data.device_feed import DeviceRayFeed
+    from nerface_tpu_torch.data.pipeline import RayFeed
+    from nerface_tpu_torch.render.pipeline import RenderSettings
+    from nerface_tpu_torch.train.loop import build_models_from_cfg, setup_background
+    from nerface_tpu_torch.train.schedule import from_cfg
+    from nerface_tpu_torch.train.state import build_optimizer, create_train_state
+    from nerface_tpu_torch.train.window import TrainWindow
+
+    flags = FeatureFlags.from_cfg(cfg)
+    bg = setup_background(ds, flags)
+    mc, mf = build_models_from_cfg(cfg, device=dev, generator=torch.Generator().manual_seed(SEED))
+    state = create_train_state(mc, mf, flags, n_train=len(ds.i_train), background=bg, device=dev)
+    opt = build_optimizer(cfg, state)
+    dfeed = feed = None
+    if device_feed:
+        dfeed = DeviceRayFeed(ds, TRAIN_RAYS, background=bg if flags.fixed_background else None,
+                              device=dev)
+    else:
+        feed = RayFeed(ds, TRAIN_RAYS, background=bg if flags.fixed_background else None,
+                       seed=SEED).start()
+    window = TrainWindow(state, opt, RenderSettings.from_cfg(cfg, "train"), flags,
+                         from_cfg(cfg), SEED, k_max, dtype=torch.bfloat16, device_feed=dfeed)
+
+    def run():
+        for _ in range(WINDOW_K // k_max):
+            window.run(k_max, None if feed is None else [next(feed) for _ in range(k_max)])
+
+    try:
+        for _ in range(2):
+            run()
+        times = []
+        for _ in range(WINDOW_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3 / WINDOW_K)
+        idle = None
+        if profile:
+            from torch.autograd import DeviceType
+            from torch.profiler import ProfilerActivity, profile as torch_profile
+
+            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            busy = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA) / 1e3
+            idle = None if busy <= 0 else 1.0 - busy / wall
+    finally:
+        if feed is not None:
+            feed.stop()
+    return times, idle
+
+
+def window_train_phase(dev, ds, tmp, profile, card):
+    """The execution window on the main path: `train()` of synth512_paper
+    with configs/synth512_devfeed.yml's settings, WINDOW_STEPS steps at
+    `steps_per_execute` WINDOW_K (CUDA-graph replays) against the same run
+    one step at a time, for the device feed and the host feed: final
+    parameters, Adam state and printed losses bit for bit, the async
+    validation lines equal the sync ones, K1 ran 2 times a step and K2 2
+    times a tile of each validation frame in each (torch.profiler's kernel
+    records, graph replays included), the loss falls, and the window's
+    steps are graph replays (K1's wrapper called from the host only for
+    the eager steps and the capture). Then the steady per-step ms both
+    ways (median of WINDOW_TIMED blocks of WINDOW_K steps, validation
+    off)."""
+    import torch
+
+    from nerface_tpu_torch.config import CfgNode
+    from nerface_tpu_torch.train.checkpoint import load_torch_checkpoint
+
+    result = {"launches": {}, "runs": {}, "step_ms": {}, "idle": {}}
+    for feed_name, device_feed in (("device_feed", True), ("host_feed", False)):
+        runs = {}
+        for k in (1, WINDOW_K):
+            cfg = CfgNode(_window_cfg(os.path.join(tmp, f"window_{feed_name}_{k}"), k, device_feed))
+            runs[k] = r = _window_run(cfg, ds, dev)
+            tag = f"{feed_name}, K={k}"
+            # K1 2 passes a step; K2 2 passes a tile of 2 frames at 2 validations
+            tiles = -(-ds.H * ds.W // int(cfg.nerf.validation.chunksize))
+            want = {"K1": 2 * WINDOW_STEPS, "K2": 2 * tiles * 2 * 2}
+            ran = {"K1": r["runs"]["train_pass_kernel"], "K2": r["runs"]["render_kernel"]}
+            check(ran == want and r["runs"]["mlp_fwd_kernel"] == 0,
+                  f"window_train ({tag}): kernel runs on the card {r['runs']}, expected {want}")
+            printed = re.findall(_TRAIN_LINE, r["out"])
+            steps_printed = sorted(set(range(0, WINDOW_STEPS, 10)) | {WINDOW_STEPS - 1})
+            check([int(p[0]) for p in printed] == steps_printed,
+                  f"window_train ({tag}): printed steps {[p[0] for p in printed]}")
+            loss = {int(p[0]): float(p[1]) for p in printed}
+            check(all(math.isfinite(v) for v in loss.values()), f"window_train ({tag}): {loss}")
+            check(statistics.mean(loss[i] for i in (10, 20, 30, 39)) < loss[0],
+                  f"window_train ({tag}): the loss did not fall: {loss}")
+            r["printed"], r["loss"] = printed, loss
+            r["val"] = re.findall(_VAL_LINE, r["out"])
+            check([int(v[0]) for v in r["val"]] == [0, 20],
+                  f"window_train ({tag}): validation lines {r['val']}")
+            r["ckpt"] = load_torch_checkpoint(os.path.join(
+                tmp, f"window_{feed_name}_{k}", "synth512_devfeed",
+                f"checkpoint{WINDOW_STEPS:05d}.ckpt"))
+        one, win = runs[1], runs[WINDOW_K]
+        # the windowed run: 2 eager steps (the first window and the step before
+        # the capture), the rest replays; K1's wrapper called from the host
+        # for the eager steps' 2 passes and the capture's 2. The validations'
+        # K2 calls are eager in both.
+        n_replay = WINDOW_STEPS - 2
+        want_win = {"K1": 2 * 2 + 2, "K2": want["K2"], "K3f": 0, "K3b": 0}
+        check(win["replays"] == n_replay and win["launches"] == want_win,
+              f"window_train ({feed_name}): {win['replays']} replays, wrapper counts "
+              f"{win['launches']} (expected {n_replay} and {want_win})")
+        want_one = {"K1": 2 * WINDOW_STEPS, "K2": want["K2"], "K3f": 0, "K3b": 0}
+        check(one["replays"] == 0 and one["launches"] == want_one,
+              f"window_train ({feed_name}): step at a time: {one['replays']} replays, wrapper "
+              f"counts {one['launches']} (expected {want_one})")
+        check(one["printed"] == win["printed"],
+              f"window_train ({feed_name}): printed lines differ:\n{one['printed']}\n{win['printed']}")
+        check(one["val"] == win["val"],
+              f"window_train ({feed_name}): sync validation {one['val']} != async {win['val']}")
+        sa, sb = one["state"], win["state"]
+        n_params = 0
+        for a, b in ((sa.model_coarse, sb.model_coarse), (sa.model_fine, sb.model_fine)):
+            for (name, pa), pb in zip(a.named_parameters(), b.parameters()):
+                check(torch.equal(pa, pb), f"window_train ({feed_name}): {name} differs")
+                n_params += 1
+        check(torch.equal(sa.latent_codes, sb.latent_codes),
+              f"window_train ({feed_name}): the latent table differs")
+        oa, ob = one["ckpt"]["optimizer"]["state"], win["ckpt"]["optimizer"]["state"]
+        check(oa.keys() == ob.keys(), f"window_train ({feed_name}): Adam state keys")
+        for key in oa:
+            for f in ("step", "exp_avg", "exp_avg_sq"):
+                check(torch.equal(oa[key][f], ob[key][f]),
+                      f"window_train ({feed_name}): Adam {f} of parameter {key} differs")
+        result["launches"][feed_name] = {"step_at_a_time": one["launches"],
+                                         "windowed": win["launches"]}
+        result["runs"][feed_name] = {"step_at_a_time": one["runs"], "windowed": win["runs"]}
+        phase("window_train", f"{feed_name}: {WINDOW_STEPS} steps of synth512_paper at "
+                              f"{ds.H}x{ds.W} (bf16, under torch.profiler): K={WINDOW_K} in "
+                              f"{win['wall']:.1f} s ({win['replays']} graph replays, K1 ran "
+                              f"{win['runs']['train_pass_kernel']} times on the card from "
+                              f"{win['launches']['K1']} wrapper calls, validation async) = K=1 in "
+                              f"{one['wall']:.1f} s (K1 ran {one['runs']['train_pass_kernel']} "
+                              f"times from {one['launches']['K1']} calls, validation sync) bit for "
+                              f"bit: {n_params} parameters + latent "
+                              f"table, Adam state of {len(oa)} tensors, printed losses "
+                              f"{[round(v, 5) for v in win['loss'].values()]}, validation lines "
+                              f"{[(v[0], v[1]) for v in win['val']]}")
+
+        cfg = CfgNode(_window_cfg(tmp, WINDOW_K, device_feed))
+        graph_ms, idle = _window_steady(cfg, ds, dev, WINDOW_K, device_feed, profile)
+        eager_ms, _ = _window_steady(cfg, ds, dev, 1, device_feed)
+        g, e = statistics.median(graph_ms), statistics.median(eager_ms)
+        result["step_ms"][feed_name] = {"windowed": g, "step_at_a_time": e}
+        result["idle"][feed_name] = idle
+        phase("window_train", f"{feed_name}: steady step windowed {g:.3f} ms vs step at a time "
+                              f"{e:.3f} ms (median of {WINDOW_TIMED} blocks of {WINDOW_K} steps "
+                              f"each, validation off; windowed min "
+                              f"{min(graph_ms):.3f} max {max(graph_ms):.3f}, step at a time min "
+                              f"{min(eager_ms):.3f} max {max(eager_ms):.3f}) on {card}"
+                              + ("" if not profile else
+                                 f"; device idle in a window "
+                                 f"{'not measured' if idle is None else f'{idle:.3f}'}"))
+    return result
+
+
 def _k4_bytes(n_rays, n_samples, backward):
     """The bytes K4f / K4b must move: each input read once (rays, depths,
     dir_c, v0, weights; g and the transposed weights for K4b), each output
@@ -1826,27 +2098,26 @@ def flex_serve_phase(dev, tmp, profile=False):
 
 def _steady_steps(state, cfg, ds, dev, n_warm=3, n=15):
     """Median ms of `n` synchronised bf16 train steps after `n_warm`, from
-    `state`, with the step function for further steps."""
+    `state`, one at a time through the loop's step body
+    (train/window.py, no graph), with the step function for further
+    steps."""
     import torch
 
     from nerface_tpu_torch.config import FeatureFlags
-    from nerface_tpu_torch.data.pipeline import RayFeed, batch_to_device
+    from nerface_tpu_torch.data.pipeline import RayFeed
     from nerface_tpu_torch.render.pipeline import RenderSettings
     from nerface_tpu_torch.train.loop import setup_background
     from nerface_tpu_torch.train.schedule import from_cfg
     from nerface_tpu_torch.train.state import build_optimizer
-    from nerface_tpu_torch.train.step import train_step
+    from nerface_tpu_torch.train.window import TrainWindow
 
     flags = FeatureFlags.from_cfg(cfg)
-    settings = RenderSettings.from_cfg(cfg, mode="train")
-    opt = build_optimizer(cfg, state)
-    feed = RayFeed(ds, TRAIN_RAYS, background=setup_background(ds, flags), seed=SEED + 9,
-                   pin_memory=dev.type == "cuda").start()
-    sched = from_cfg(cfg)
+    feed = RayFeed(ds, TRAIN_RAYS, background=setup_background(ds, flags), seed=SEED + 9).start()
+    window = TrainWindow(state, build_optimizer(cfg, state), RenderSettings.from_cfg(cfg, "train"),
+                         flags, from_cfg(cfg), SEED + 9, 1, dtype=torch.bfloat16)
 
     def step(i):
-        batch = batch_to_device(next(feed), dev)
-        train_step(state, opt, batch, 1000 + i, settings, flags, sched, dtype=torch.bfloat16)
+        window.run(1, [next(feed)])
 
     for i in range(n_warm):
         step(i)
@@ -2331,6 +2602,7 @@ def main() -> int:
         ds = _train_dataset()
         ts = train_step_phase(dev, ds)
         tr = train_phase(dev, ds, tmp, args.profile, card)
+        wt = window_train_phase(dev, ds, tmp, args.profile, card)
         oc = occupancy_serve_phase(dev, ds, tr["checkpoint"])
         st = train_phase(dev, ds, tmp, False, card, SYNTH512_SMALLER, PAPER_TRAIN_STEPS,
                          "smaller_train")
@@ -2346,6 +2618,11 @@ def main() -> int:
     k2_bound = [_bound_ms(KERNEL_RAYS * S * K2_FLOP_PER_SAMPLE, _k2_bytes(KERNEL_RAYS, S, w))[0]
                 for S, w in ((64, True), (128, False))]
     k1_bound = [tk["bound"][p][0] for p in ("coarse", "fine")]
+    # window_train: the wrappers' calls from the host, and the kernels' runs
+    # on the card that torch.profiler read (the graph replays' among them)
+    wt_k1 = sum(r[m]["K1"] for r in wt["launches"].values() for m in r)
+    wt_k1_runs = sum(r[m]["train_pass_kernel"] for r in wt["runs"].values() for m in r)
+    wt_k2_runs = sum(r[m]["render_kernel"] for r in wt["runs"].values() for m in r)
     # the coarse-only training pass: 2048 rays at S = 64, the paper model
     k3 = "paper_64"
     kernels = {"kernels": [
@@ -2361,8 +2638,11 @@ def main() -> int:
                                  "fast_serve": fe["launches"],
                                  "occupancy_serve": oc["launches"],
                                  "train": tr["launches"]["K2"],
+                                 "window_train": sum(r[m]["K2"] for r in wt["launches"].values()
+                                                     for m in r),
                                  "smaller_train": st["launches"]["K2"],
                                  "coarse_train": ct["launches"]["K2"]},
+            "kernel_runs_by_path": {"window_train": wt_k2_runs},
             "max_abs_err": max(errs),
             # one coarse (S=64, weights) + one fine (S=128) call on 4096 rays
             "ms": k["ms"]["coarse"] + k["ms"]["fine"],
@@ -2395,9 +2675,11 @@ def main() -> int:
             "source": "nerface_tpu_torch/csrc/fused_train_pass.cu",
             "replaces": "nerface_tpu/ops/pallas/fused_train.py:69",
             "modes": ["paper", "small"],
-            "launches": tr["launches"]["K1"] + st["launches"]["K1"],
+            "launches": tr["launches"]["K1"] + st["launches"]["K1"] + wt_k1,
             "launches_by_path": {"train": tr["launches"]["K1"],
-                                 "smaller_train": st["launches"]["K1"]},
+                                 "smaller_train": st["launches"]["K1"],
+                                 "window_train": wt_k1},
+            "kernel_runs_by_path": {"window_train": wt_k1_runs},
             "max_abs_err": max(v for r in (tk, tks) for e in r["err"].values() for v in e.values()),
             # a train step's two passes: coarse (S=64) + fine (S=128), 2048 rays
             "ms": tk["ms"]["coarse"] + tk["ms"]["fine"],
@@ -2420,6 +2702,11 @@ def main() -> int:
             "small_worst_grad_rel": tks["grad_rel"],
             "train_step_ms": tr["step_ms"],
             "train_rays_s": tr["rays_s"],
+            # the steady per-step ms of the execution window and of the same
+            # step body one step at a time, and the device idle share of a
+            # window (with --profile)
+            "window_step_ms": wt["step_ms"],
+            "window_device_idle": wt["idle"],
             "smaller_train_step_ms": st["step_ms"],
             "step_vs_f32": ts,
             "card": card,

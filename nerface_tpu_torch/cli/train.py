@@ -1,12 +1,12 @@
 """Train CLI of the PyTorch port (the reference's
 `train_transformed_rays.py:26-36` arguments).
 
-    # bf16 on the card: both passes of every step through K1
-    python -m nerface_tpu_torch.cli.train --config configs/synth512_paper.yml --bf16
+    # bf16 on the card: both passes of every step through K1, the rays
+    # drawn on the card, 50 steps a window of CUDA-graph replays
+    python -m nerface_tpu_torch.cli.train --config configs/synth512_devfeed.yml --bf16
 
-Options of the JAX package's CLI that are not ported yet are refused:
-`--num-devices` > 1, `--device-feed` and `--steps-per-execute` > 1
-(ROADMAP.md Queue 1).
+`--num-devices` > 1 is not ported yet and is refused (ROADMAP.md Queue 1:
+DDP).
 """
 
 from __future__ import annotations
@@ -36,12 +36,14 @@ def build_parser() -> argparse.ArgumentParser:
         help="Data-parallel devices (not yet ported: > 1 is refused).",
     )
     parser.add_argument(
-        "--device-feed", action="store_true",
-        help="Sample ray batches on the device (not yet ported: refused).",
+        "--device-feed", action="store_true", default=None,
+        help="Sample ray batches on the device (default: cfg.experiment.device_feed).",
     )
     parser.add_argument(
         "--steps-per-execute", type=int, default=None, metavar="K",
-        help="Train steps per execution window (not yet ported: > 1 is refused).",
+        help="Train steps per execution window: K replays of one captured CUDA graph on "
+             "the card (default: cfg.experiment.steps_per_execute; auto = 50 at >= 2000 "
+             "iterations, else 1).",
     )
     return parser
 
@@ -51,15 +53,6 @@ def main(argv=None) -> None:
     if args.num_devices > 1:
         raise SystemExit(
             "--num-devices > 1 is not yet ported to PyTorch (ROADMAP.md Queue 1: DDP)"
-        )
-    if args.device_feed:
-        raise SystemExit(
-            "--device-feed is not yet ported to PyTorch (ROADMAP.md Queue 1: DeviceRayFeed)"
-        )
-    if args.steps_per_execute is not None and args.steps_per_execute > 1:
-        raise SystemExit(
-            "--steps-per-execute > 1 is not yet ported to PyTorch (ROADMAP.md Queue 1: the "
-            "CUDA-graph execution window)"
         )
 
     import torch
@@ -74,6 +67,7 @@ def main(argv=None) -> None:
         dtype=torch.bfloat16 if args.bf16 else None,
         device=args.device,
         steps_per_execute=args.steps_per_execute,
+        device_feed=args.device_feed,
     )
 
 

@@ -9,8 +9,9 @@ spherical render poses, optional half-res resize with intrinsics scaling,
 bbox → pixel coordinates, and `test=True` loading only the test split.
 
 Differences from the JAX package's module, all about dependencies: the
-image readers (`imageio`, `PIL`, `cv2`) are imported inside the functions
-that use them, and a `FlameDataset` may carry its background and index map
+image readers (`PIL`, `cv2`) are imported inside the functions that use
+them (PNG frames through Pillow, which imageio itself reads them with),
+and a `FlameDataset` may carry its background and index map
 in memory, so a dataset built without files (e.g. from
 `data/synthetic.py`) serves the same requests as one loaded from disk.
 """
@@ -184,10 +185,10 @@ def load_flame_data(
         np.savez(cache_path, **payload)
         return ds
 
-    try:
-        import imageio.v2 as imageio
-    except ImportError:
-        import imageio
+    from PIL import Image
+
+    def imread(path):
+        return np.asarray(Image.open(path))
 
     splits = ["test"] if test else ["train", "val", "test"]
     metas = {}
@@ -204,10 +205,10 @@ def load_flame_data(
         imgs, frontal, poses, exprs, bboxes = [], [], [], [], []
         for frame in meta["frames"][::skip]:
             fname = os.path.join(basedir, frame["file_path"] + ".png")
-            imgs.append(imageio.imread(fname))
+            imgs.append(imread(fname))
             if load_frontal_faces:
                 frontal.append(
-                    imageio.imread(
+                    imread(
                         os.path.join(basedir, frame["file_path"] + "_frontal.png")
                     )
                 )

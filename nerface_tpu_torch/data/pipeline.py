@@ -9,11 +9,8 @@ pixels, the frame's expression and latent index. Batch b's draws come from
 `RandomState(SeedSequence([seed, b]))`, so a resumed run built with
 `start_batch` = its step continues the uninterrupted run's stream, and the
 batches are bit-identical to the JAX package's numpy path. A background
-thread keeps `prefetch` batches ready.
-
-With `pin_memory=True` the thread hands out torch tensors in page-locked
-host memory, which the train loop copies to the card with
-`non_blocking=True` (`batch_to_device`).
+thread keeps `prefetch` batches ready; the train loop stacks a window's
+batches and uploads them once (train/window.py).
 """
 
 from __future__ import annotations
@@ -39,7 +36,6 @@ class RayFeed:
         bbox_p: float = 0.9,
         prefetch: int = 4,
         start_batch: int = 0,
-        pin_memory: bool = False,
     ):
         if dataset.images is None:
             raise ValueError("RayFeed needs a dataset with images")
@@ -47,7 +43,6 @@ class RayFeed:
         self.num_rays = num_rays
         self.seed = int(seed)
         self._batch_index = int(start_batch)
-        self.pin_memory = pin_memory
         H, W = dataset.H, dataset.W
         intr = np.asarray(dataset.intrinsics, np.float32)
         if intr.ndim == 0:
@@ -96,16 +91,10 @@ class RayFeed:
             batch["background_rgb"] = self._background_flat[sel, :3].astype(np.float32)
         return batch
 
-    def _produce(self):
-        batch = self.sample_batch()
-        if self.pin_memory:
-            batch = {k: torch.as_tensor(np.asarray(v)).pin_memory() for k, v in batch.items()}
-        return batch
-
     def _worker(self):
         try:
             while not self._stop.is_set():
-                batch = self._produce()
+                batch = self.sample_batch()
                 while not self._stop.is_set():
                     try:
                         self._queue.put(batch, timeout=0.25)
@@ -133,7 +122,7 @@ class RayFeed:
 
     def __next__(self) -> Dict[str, np.ndarray]:
         if self._thread is None:
-            return self._produce()
+            return self.sample_batch()
         while True:
             if self._error is not None:
                 raise RuntimeError("ray feed thread failed") from self._error
@@ -150,10 +139,5 @@ class RayFeed:
 
 
 def batch_to_device(batch, device) -> Dict[str, torch.Tensor]:
-    """A feed batch (numpy arrays, or pinned tensors) as tensors on
-    `device`; pinned tensors are copied with `non_blocking=True`."""
-    out = {}
-    for k, v in batch.items():
-        t = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
-        out[k] = t.to(device, non_blocking=t.is_pinned())
-    return out
+    """A feed batch of numpy arrays as tensors on `device`."""
+    return {k: torch.as_tensor(np.asarray(v)).to(device) for k, v in batch.items()}

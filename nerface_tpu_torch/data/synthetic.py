@@ -1,6 +1,11 @@
-"""Synthetic FLAME-format scene parameters (host, numpy).
+"""Synthetic FLAME-format datasets (host, numpy).
 
-Port of the scene half of `nerface_tpu/data/synthetic.py`: the generator's
+Port of `nerface_tpu/data/synthetic.py`. `make_synthetic_flame_dataset`
+writes the generator's dataset directory (`transforms_{split}.json`,
+`{split}/f_%04d.png`, `bg/00050.png`, `index_map.npy`), the same files as
+the JAX package's (Pillow is imported where it is used).
+
+`synthetic_flame_dataset` holds the same scene in memory: the generator's
 camera poses, expression vectors, intrinsics, checkerboard background,
 bboxes and index map, drawn from the same `RandomState(seed)` stream in
 the same order — so `synthetic_flame_dataset(...)` holds exactly the poses
@@ -13,6 +18,9 @@ library.
 """
 
 from __future__ import annotations
+
+import json
+import os
 
 import numpy as np
 
@@ -159,3 +167,74 @@ def synthetic_flame_dataset(
         background=background,
         index_map=index_map,
     )
+
+
+def make_synthetic_flame_dataset(
+    outdir: str,
+    n_train: int = 8,
+    n_val: int = 2,
+    n_test: int = 2,
+    H: int = 64,
+    W: int = 64,
+    expr_dim: int = 76,
+    seed: int = 0,
+    num_samples: int = 48,
+    compact: bool = False,
+) -> str:
+    """Write a loader-compatible synthetic dataset; returns `outdir`
+    (`nerface_tpu/data/synthetic.py:109-207`). `compact` renders the small
+    truncated blob (background pixels equal bg/00050.png exactly) with
+    per-frame bboxes from its projection, at ≥ 128 samples a ray."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    if compact:
+        num_samples = max(num_samples, 128)
+    camera_angle_x = 0.35
+    focal = 0.5 * W / np.tan(0.5 * camera_angle_x)
+    intrinsics = np.array([focal, focal, 0.5, 0.5], np.float32)
+    background = _checkerboard(H, W)
+
+    os.makedirs(os.path.join(outdir, "bg"), exist_ok=True)
+    Image.fromarray((background * 255).astype(np.uint8)).save(os.path.join(outdir, "bg", "00050.png"))
+
+    frame_id = 0
+    for split, n in (("train", n_train), ("val", n_val), ("test", n_test)):
+        os.makedirs(os.path.join(outdir, split), exist_ok=True)
+        frames = []
+        for _ in range(n):
+            # camera near z = 0.5 with a small jitter (tracker-pose-like)
+            jitter = rng.randn(3) * np.array([0.06, 0.06, 0.02])
+            cam = np.array([0.0, 0.0, 0.5]) + jitter
+            c2w = _look_at(cam.astype(np.float32))
+            expr = np.zeros(expr_dim, np.float32)
+            expr[:6] = rng.randn(6).astype(np.float32) * 0.5
+            img = render_blob_frame(H, W, intrinsics, c2w, expr, background,
+                                    num_samples=num_samples, compact=compact)
+            name = f"f_{frame_id:04d}"
+            Image.fromarray((img * 255).astype(np.uint8)).save(
+                os.path.join(outdir, split, name + ".png"))
+            if compact:
+                # the truncated blob's projected extent plus 30 %
+                r_blob = 0.012 * (1.0 + 0.4 * np.tanh(float(expr[0])))
+                cut = 2.5 * r_blob
+                dist = float(np.linalg.norm(cam))
+                half = 1.3 * (cut / max(dist - cut, 1e-6)) / (2.0 * np.tan(0.5 * camera_angle_x))
+                half = float(min(0.49, half))
+                bbox = np.array([0.5 - half, 0.5 + half, 0.5 - half, 0.5 + half], np.float32)
+            else:
+                bbox = np.array([0.30, 0.70, 0.30, 0.70], np.float32)
+            frames.append({"file_path": f"{split}/{name}", "transform_matrix": c2w.tolist(),
+                           "expression": expr.tolist(), "bbox": bbox.tolist()})
+            frame_id += 1
+        with open(os.path.join(outdir, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": camera_angle_x, "intrinsics": intrinsics.tolist(),
+                       "frames": frames}, f)
+
+    n = n_train + n_val + n_test
+    index_map = np.stack(
+        [np.arange(n), np.concatenate([np.arange(n_train), -np.ones(n_val + n_test, int)])],
+        axis=-1,
+    )
+    np.save(os.path.join(outdir, "index_map.npy"), index_map)
+    return outdir

@@ -58,6 +58,7 @@ def volume_render_radiance_field(
     sigma_a = torch.cat([sigma_a[..., :-1], sigma_a[..., -1:] + 1e-6], dim=-1)
 
     alpha = 1.0 - torch.exp(-sigma_a * dists)
+    # 1 − α + 1e-10 ≥ 1e-10: no zero
     weights = alpha * cumprod_exclusive(1.0 - alpha + 1e-10)
 
     rgb_map = torch.sum(weights[..., None] * rgb, dim=-2)

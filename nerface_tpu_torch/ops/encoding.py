@@ -57,6 +57,16 @@ def _encoding_columns(d: int, num_encoding_functions: int, log_sampling: bool):
     return rows, C[rows, np.arange(C.shape[1])], phase
 
 
+@functools.lru_cache(maxsize=64)
+def encoding_tables(d: int, num_encoding_functions: int, log_sampling: bool, dtype, device):
+    """`_encoding_columns` as tensors on `device`: (input rows, frequencies,
+    phases), copied there once. A copy from the host on every call would
+    wait for the stream, and inside a captured CUDA graph it is refused."""
+    rows, freqs, phase = _encoding_columns(d, num_encoding_functions, log_sampling)
+    return (torch.as_tensor(rows, device=device), torch.as_tensor(freqs, dtype=dtype, device=device),
+            torch.as_tensor(phase, dtype=dtype, device=device))
+
+
 def positional_encoding(
     tensor: torch.Tensor,
     num_encoding_functions: int = 6,
@@ -67,13 +77,9 @@ def positional_encoding(
     if num_encoding_functions == 0:
         return tensor if include_input else tensor[..., :0]
     d = tensor.shape[-1]
-    rows, freqs, phase = _encoding_columns(d, num_encoding_functions, log_sampling)
-    dev, dt = tensor.device, tensor.dtype
-    x = tensor[..., torch.as_tensor(rows, device=dev)]
-    enc = torch.sin(
-        x * torch.as_tensor(freqs, dtype=dt, device=dev)
-        + torch.as_tensor(phase, dtype=dt, device=dev)
-    )
+    rows, freqs, phase = encoding_tables(d, num_encoding_functions, log_sampling, tensor.dtype,
+                                         tensor.device)
+    enc = torch.sin(tensor[..., rows] * freqs + phase)
     if include_input:
         return torch.cat([tensor, enc], dim=-1)
     return enc

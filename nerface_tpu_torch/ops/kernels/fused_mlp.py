@@ -61,7 +61,7 @@ from typing import Dict, Optional, Sequence, Union
 
 import torch
 
-from nerface_tpu_torch.ops.encoding import _encoding_columns, _frequency_bands
+from nerface_tpu_torch.ops.encoding import _frequency_bands, encoding_tables
 
 HIDDEN = 256
 DIR_HIDDEN = 128
@@ -394,10 +394,9 @@ def _fold_conditioning(packed: PackedPaperWeights, cond: torch.Tensor) -> torch.
 
 def _encode_points(x: torch.Tensor, num_encoding_fn_xyz: int, log_sampling_xyz: bool):
     """sin(x·f + φ) in f32, the kernel's encoding of (N, 3) points."""
-    rows, freqs, phase = _encoding_columns(3, num_encoding_fn_xyz, log_sampling_xyz)
-    dev = x.device
-    t = x[:, torch.as_tensor(rows, device=dev)] * torch.as_tensor(freqs, device=dev)
-    return torch.sin(t + torch.as_tensor(phase, device=dev))
+    rows, freqs, phase = encoding_tables(3, num_encoding_fn_xyz, log_sampling_xyz,
+                                         torch.float32, x.device)
+    return torch.sin(x[:, rows] * freqs + phase)
 
 
 def _points(ro, rd, z):

@@ -24,10 +24,32 @@ def meshgrid_xy(tensor1: torch.Tensor, tensor2: torch.Tensor):
     return ii, jj
 
 
+class _CumprodNonzero(torch.autograd.Function):
+    """`torch.cumprod` along the last axis of a tensor with no zero. Its
+    gradient is torch's own for that case (`cumprod_backward`:
+    reversed_cumsum(output·grad) / input), taken without torch's test for
+    zeros, which reads a flag back to the host and so cannot run inside a
+    captured CUDA graph."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        if x.numel() <= 1 or x.shape[-1] == 1:
+            return g
+        return torch.flip(torch.flip(out * g, [-1]).cumsum(-1), [-1]).div(x)
+
+
 def cumprod_exclusive(tensor: torch.Tensor) -> torch.Tensor:
     """tf.math.cumprod(..., exclusive=True) along the last axis:
-    [a, b, c] -> [1, a, ab]."""
-    cumprod = torch.cumprod(tensor, dim=-1)
+    [a, b, c] -> [1, a, ab], for a `tensor` with no zero (the compositing's
+    1 − α + 1e-10): its gradient reads nothing back to the host."""
+    cumprod = _CumprodNonzero.apply(tensor)
     return torch.cat([torch.ones_like(cumprod[..., :1]), cumprod[..., :-1]], dim=-1)
 
 

@@ -11,7 +11,10 @@ injected draws the port makes its own with `per_ray_uniform`: a
 counter-based hash of (seed, stream, global ray index, sample index)
 written in torch integer ops. A ray's draws depend on those four numbers
 alone, so they are the same on the CPU and the card and for any tiling
-of the ray axis.
+of the ray axis. The seed may be a 0-d int64 tensor on the device
+(`step_seed` of the window's step counter): the draws are then made
+without reading anything back to the host, and equal the int form's bit
+for bit.
 """
 
 from __future__ import annotations
@@ -30,6 +33,10 @@ STREAM_STRATIFIED = 0
 STREAM_NOISE_COARSE = 1
 STREAM_PDF = 2
 STREAM_NOISE_FINE = 3
+# The device ray feed's draws (data/device_feed.py): the frame, then one
+# Gumbel key a pixel.
+STREAM_FEED_FRAME = 4
+STREAM_FEED_PIXEL = 5
 
 
 def _mul32(x, c: int):
@@ -51,29 +58,41 @@ def _mix32(x):
     return x ^ (x >> 16)
 
 
-def step_seed(seed: int, step: int) -> int:
+def step_seed(seed, step):
     """The draws' seed of train step `step` of a run seeded `seed`: keyed
     by the step number (as the JAX package folds the step into its key),
-    so a resumed run draws what the uninterrupted run would have."""
-    return _mix32((int(seed) & _M32) ^ _mix32((int(step) + 0x632BE5AB) & _M32))
+    so a resumed run draws what the uninterrupted run would have. Either
+    argument may be a 0-d int64 tensor (the window reads the step from a
+    device counter): the result is then a 0-d int64 tensor on its device,
+    equal bit for bit to the int form."""
+    if not isinstance(seed, torch.Tensor):
+        seed = int(seed)
+    if not isinstance(step, torch.Tensor):
+        step = int(step)
+    return _mix32((seed & _M32) ^ _mix32((step + 0x632BE5AB) & _M32))
 
 
-def per_ray_uniform(
-    seed: int, stream: int, ray_index: torch.Tensor, num_samples: int
-) -> torch.Tensor:
-    """(R, num_samples) f32 uniforms in [0, 1) on `ray_index`'s device.
-    Row r depends only on (seed, stream, ray_index[r])."""
-    key = _mix32((int(seed) & _M32) ^ _mix32((int(stream) + 0x9E3779B9) & _M32))
+def per_ray_bits(seed, stream: int, ray_index: torch.Tensor, num_samples: int) -> torch.Tensor:
+    """(R, num_samples) int64 hashes in [0, 2^32) on `ray_index`'s device.
+    Row r depends only on (seed, stream, ray_index[r]); `seed` is an int or
+    a 0-d int64 tensor (`step_seed`'s tensor form)."""
+    if not isinstance(seed, torch.Tensor):
+        seed = int(seed)
+    key = _mix32((seed & _M32) ^ _mix32((int(stream) + 0x9E3779B9) & _M32))
     ray = ray_index.to(torch.int64).reshape(-1, 1) & _M32
     h = _mix32(ray ^ key)
     col = torch.arange(num_samples, dtype=torch.int64, device=ray_index.device)
-    h = _mix32(h ^ _mix32(_mul32(col, 0x9E3779B9) ^ 0x85EBCA6B))
+    return _mix32(h ^ _mix32(_mul32(col, 0x9E3779B9) ^ 0x85EBCA6B))
+
+
+def per_ray_uniform(seed, stream: int, ray_index: torch.Tensor, num_samples: int) -> torch.Tensor:
+    """(R, num_samples) f32 uniforms in [0, 1) on `ray_index`'s device.
+    Row r depends only on (seed, stream, ray_index[r])."""
+    h = per_ray_bits(seed, stream, ray_index, num_samples)
     return (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
-def per_ray_normal(
-    seed: int, stream: int, ray_index: torch.Tensor, num_samples: int
-) -> torch.Tensor:
+def per_ray_normal(seed, stream: int, ray_index: torch.Tensor, num_samples: int) -> torch.Tensor:
     """(R, num_samples) f32 standard normals (Box–Muller over
     `per_ray_uniform`'s draws); row r depends only on (seed, stream,
     ray_index[r]), as the JAX package's `per_ray_normal` rows do."""
@@ -90,7 +109,7 @@ def stratified_zvals(
     lindisp: bool = False,
     perturb: bool = True,
     t_rand: Optional[torch.Tensor] = None,
-    seed: int = 0,
+    seed=0,
     ray_index: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Coarse depth values per ray: (num_rays, num_samples).
@@ -122,7 +141,7 @@ def sample_pdf(
     num_samples: int,
     det: bool = False,
     u: Optional[torch.Tensor] = None,
-    seed: int = 0,
+    seed=0,
     ray_index: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Inverse-transform sampling of `num_samples` depths from a per-ray

@@ -235,7 +235,9 @@ def _fused_conditioning(model, pe_dir, expr, latent):
 
 def _kernel_weights(model, encode_xyz: EncodeSpec):
     """The model's weights packed for the kernel, kept on the model and
-    packed again only when a parameter is replaced or updated in place."""
+    packed again only when a parameter is replaced or updated in place (a
+    CUDA-graph replay bumps no version: train/window.py bumps them after
+    its replays)."""
     key = (encode_xyz.num_encoding_functions, encode_xyz.log_sampling) + tuple(
         (p.data_ptr(), p._version) for p in model.parameters()
     )
@@ -353,7 +355,7 @@ def render_rays(
     ray_origins: torch.Tensor,
     ray_directions: torch.Tensor,
     settings: RenderSettings,
-    seed: int = 0,
+    seed=0,
     expressions: Optional[torch.Tensor] = None,
     latent_code: Optional[torch.Tensor] = None,
     background_prior: Optional[torch.Tensor] = None,

@@ -30,6 +30,8 @@ from typing import Any, Dict, List, Mapping, Optional
 import numpy as np
 import torch
 
+from nerface_tpu_torch.train.state import conform_optimizer_state
+
 
 def params_from_jax(numpy_tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """{name: array} (the JAX package's per-model params, pulled to numpy)
@@ -66,6 +68,17 @@ def load_torch_checkpoint(path: str, device=None) -> Dict[str, Any]:
     }
 
 
+def _optimizer_state_dict(optimizer) -> Dict[str, Any]:
+    """`optimizer.state_dict()` with each group's LR as a float, as the
+    reference's schema holds it (the port keeps it in a tensor)."""
+    sd = optimizer.state_dict()
+    sd["param_groups"] = [
+        dict(g, lr=float(g["lr"])) if isinstance(g["lr"], torch.Tensor) else g
+        for g in sd["param_groups"]
+    ]
+    return sd
+
+
 def save_torch_checkpoint(path: str, state, optimizer, loss: float = 0.0, psnr: float = 0.0) -> str:
     """Write `state` (train/state.py) and `optimizer` as a reference-schema
     `.ckpt` (`train_transformed_rays.py:554-572`); returns `path`."""
@@ -83,7 +96,7 @@ def save_torch_checkpoint(path: str, state, optimizer, loss: float = 0.0, psnr: 
             "iter": int(state.step),
             "model_coarse_state_dict": cpu_sd(state.model_coarse),
             "model_fine_state_dict": cpu_sd(state.model_fine),
-            "optimizer_state_dict": optimizer.state_dict(),
+            "optimizer_state_dict": _optimizer_state_dict(optimizer),
             "loss": float(loss),
             "psnr": float(psnr),
             "background": cpu(state.background),
@@ -114,7 +127,10 @@ def restore_train_state(state, optimizer, ckpt: Dict[str, Any]):
             state.background.copy_(ckpt["background"].reshape(state.background.shape))
     state.step = int(ckpt.get("iter", 0))
     if ckpt.get("optimizer") is not None:
+        lr = optimizer.param_groups[0]["lr"]
+        capturable = [g.get("capturable") for g in optimizer.param_groups]
         optimizer.load_state_dict(ckpt["optimizer"])
+        conform_optimizer_state(optimizer, lr, capturable)
     return state
 
 
@@ -167,11 +183,13 @@ def train_state_from_jax(
         entries.append((state.latent_codes, adam.mu["latent_codes"], adam.nu["latent_codes"]))
     if state.train_background:
         entries.append((state.background, adam.mu["background"], adam.nu["background"]))
+    capturable = [g.get("capturable") for g in optimizer.param_groups]
     for p, mu, nu in entries:
         optimizer.state[p] = {
             "step": torch.tensor(count),
             "exp_avg": torch.as_tensor(np.array(mu, np.float32), device=p.device),
             "exp_avg_sq": torch.as_tensor(np.array(nu, np.float32), device=p.device),
         }
+    conform_optimizer_state(optimizer, optimizer.param_groups[0]["lr"], capturable)
     return state
 

@@ -95,7 +95,9 @@ def conditioning(state, batch, flags: FeatureFlags):
         expression = torch.zeros_like(expression)
     latent = None
     if flags.train_latent_codes and not flags.disable_latent_codes:
-        latent = state.latent_codes[batch["latent_index"].long()]
+        # index_select, not [t]: indexing by a 0-d tensor reads it back to the host
+        latent = state.latent_codes.index_select(
+            0, batch["latent_index"].reshape(1).long()).reshape(-1)
     elif flags.disable_latent_codes:
         latent = torch.zeros(32, device=expression.device)
     return expression, latent
@@ -104,13 +106,14 @@ def conditioning(state, batch, flags: FeatureFlags):
 def fused_losses(
     state,
     batch: Dict[str, torch.Tensor],
-    seed: int,
+    seed,
     settings: RenderSettings,
     flags: FeatureFlags,
     draws: Optional[Dict[str, torch.Tensor]] = None,
 ):
     """(total, metrics) of one step through K1; `total.backward()` gives
-    the gradients. `draws` may inject t_rand, noise_c, u and noise_f."""
+    the gradients. `seed` is an int or `step_seed`'s 0-d tensor form.
+    `draws` may inject t_rand, noise_c, u and noise_f."""
     draws = draws or {}
     ro = batch["ray_origins"].reshape(-1, 3).contiguous()
     rd = batch["ray_directions"].reshape(-1, 3).contiguous()

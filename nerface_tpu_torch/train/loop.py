@@ -1,29 +1,49 @@
 """The training loop.
 
-Port of the single-device, host-feed path of `nerface_tpu/train/loop.py`
-(reference `train_transformed_rays.py:24-575`): config and data, the
-models, the background and the latent table, the prefetching ray feed,
-the train step (train/step.py: in bf16 on the card through K1 for the
-paper model, through K4f/K4b for the Flexible family), periodic
-validation renders (K2, or K4f), and reference-schema `.ckpt` saves.
+Port of the single-device path of `nerface_tpu/train/loop.py` (reference
+`train_transformed_rays.py:24-575`): config and data, the models, the
+background (blurred with `blur_background`) and the latent table, the ray
+feed, the train step (in bf16 on the card through K1 for the paper model,
+through K4f/K4b for the Flexible family), periodic validation renders (K2,
+or K4f), and reference-schema `.ckpt` saves.
 
-Per step: one host batch from `RayFeed` (pinned, copied with
-`non_blocking=True` on the card), and the draws' seed `step_seed(seed, i)`:
-keyed by the iteration, so a resumed run draws what the uninterrupted run
-would have, and a resumed feed (`start_batch` = the step) continues its
-sample stream. Cadences as in the JAX package: print at `print_every` and
-the last step; validate at `validate_every` (synchronously); save at
-`save_every` and the last step, into `<logdir>/<id>/checkpoint<step>.ckpt`.
+The steps run in execution windows (train/window.py): K steps as K
+replays of one captured CUDA graph on the card, the counterpart of the
+JAX package's `make_train_megastep`. K is `steps_per_execute` (argument,
+else config; "auto" is 50 at ≥ 2000 iterations, else 1), cut by
+`_effective_window` to divide every active cadence, so the bookkeeping at
+step j (print, validate, save) always sees the state after step j, as
+the step-at-a-time loop does; the metrics are the window's last step's.
+K = 1 runs every step eagerly through the same step body.
 
-Not ported yet (ROADMAP.md Queue 1): the device feed, the execution
-window (`steps_per_execute` > 1; "auto" runs one step at a time), async
-validation, TensorBoard, several devices.
+The feed is the host `RayFeed` (batch b from `SeedSequence([seed, b])`,
+one stack of K batches uploaded a window) or, with `device_feed`, the
+device sampler (data/device_feed.py) inside the step. The draws' seed of
+step i is `step_seed(seed, i)` from the device step counter, so a resumed
+run draws what the uninterrupted run would have, and its feed continues
+the stream.
+
+A print boundary copies the metrics to the host behind the window and a
+logging thread prints them; the loop waits for the previous boundary's
+copy (`_backpressure`), which bounds how far the host runs ahead of the
+card. Validation is asynchronous by default under a window
+(`experiment.async_val` overrides): a side thread renders on its own CUDA
+stream from a snapshot of the post-step-j models and background, cloned
+on the training stream, at most one render in flight; a failing render
+fails the run.
+
+Not ported yet (ROADMAP.md Queue 1): TensorBoard, the `config.yml`
+snapshot, the supervisor, several devices (DDP).
 """
 
 from __future__ import annotations
 
+import collections
+import copy
+import dataclasses
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional
 
 import numpy as np
@@ -31,20 +51,19 @@ import torch
 
 from nerface_tpu_torch.config.flags import FeatureFlags
 from nerface_tpu_torch.data.flame import FlameDataset, load_flame_data
-from nerface_tpu_torch.data.pipeline import RayFeed, batch_to_device
+from nerface_tpu_torch.data.pipeline import RayFeed
 from nerface_tpu_torch.eval.renderer import render_full_frame
 from nerface_tpu_torch.models.nerf_models import build_model
 from nerface_tpu_torch.ops.math import mse2psnr
-from nerface_tpu_torch.ops.sampling import step_seed
 from nerface_tpu_torch.render.pipeline import RenderSettings
 from nerface_tpu_torch.train.checkpoint import (
     load_torch_checkpoint,
     restore_train_state,
     save_torch_checkpoint,
 )
-from nerface_tpu_torch.train.schedule import from_cfg as schedule_from_cfg
+from nerface_tpu_torch.train.schedule import from_cfg
 from nerface_tpu_torch.train.state import TrainState, build_optimizer, create_train_state
-from nerface_tpu_torch.train.step import train_step
+from nerface_tpu_torch.train.window import METRIC_KEYS, TrainWindow
 
 
 def build_models_from_cfg(cfg, device=None, generator: Optional[torch.Generator] = None):
@@ -63,13 +82,15 @@ def build_models_from_cfg(cfg, device=None, generator: Optional[torch.Generator]
 
 def setup_background(dataset: FlameDataset, flags: FeatureFlags) -> Optional[np.ndarray]:
     """Fixed background: the GT `bg/00050.png`. Trainable background: the
-    mean of the train frames (`train_transformed_rays.py:143-170`)."""
+    mean of the train frames, blurred with `blur_background`
+    (`train_transformed_rays.py:143-170`)."""
     if flags.train_background:
+        avg = dataset.images[dataset.i_train].mean(axis=0)
         if flags.blur_background:
-            raise NotImplementedError(
-                "blur_background is not ported yet (utils/smoothing.py: ROADMAP.md Queue 1)"
-            )
-        return dataset.images[dataset.i_train].mean(axis=0).astype(np.float32)
+            from nerface_tpu_torch.utils.smoothing import gaussian_smooth
+
+            avg = gaussian_smooth(torch.from_numpy(np.asarray(avg, np.float32)), 11, 11.0).numpy()
+        return avg.astype(np.float32)
     if flags.fixed_background:
         bg = dataset.load_background()
         if bg.shape != dataset.images[dataset.i_train][0].shape:
@@ -125,6 +146,59 @@ def validate(
             "coarse_loss": coarse_loss, "fine_loss": fine_loss, "time": time.time() - t0}
 
 
+def _effective_window(requested, cadences, multiprocess: bool = False) -> int:
+    """The largest window K ≤ `requested` that divides every active
+    cadence, so print, validate and save land on window ends
+    (`nerface_tpu/train/loop.py:170-186`). Several processes run K = 1."""
+    if multiprocess:
+        return 1
+    cad = [int(c) for c in cadences if c and int(c) > 0]
+    k = max(1, int(requested))
+    if cad:
+        k = min([k] + cad)
+    while k > 1 and any(c % k for c in cad):
+        k -= 1
+    return k
+
+
+def _requested_window(steps_per_execute, cfg, train_iters: int) -> int:
+    """The argument, else the config; "auto" (or none) is 50 for
+    production-length runs (≥ 2000 iterations), else 1."""
+    k_req = steps_per_execute
+    if k_req is None:
+        k_req = cfg.experiment.get("steps_per_execute")
+    if k_req is None or str(k_req) == "auto":
+        return 50 if train_iters >= 2000 else 1
+    return int(k_req)
+
+
+def _snapshot(state: TrainState, stream=None) -> TrainState:
+    """The models and the background, cloned on the current stream, for a
+    validation render that runs while training goes on, on `stream` if
+    given (the clones' memory is then kept until that stream is done)."""
+
+    def clone(m):
+        if m is None:
+            return None
+        cache = m.__dict__.pop("_kernel_weights_cache", None)
+        try:
+            out = copy.deepcopy(m)
+        finally:
+            if cache is not None:
+                m._kernel_weights_cache = cache
+        return out.requires_grad_(False)
+
+    bg = None if state.background is None else state.background.detach().clone()
+    snap = dataclasses.replace(state, model_coarse=clone(state.model_coarse),
+                               model_fine=clone(state.model_fine), latent_codes=None,
+                               background=bg)
+    if stream is not None:
+        models = [m for m in (snap.model_coarse, snap.model_fine) if m is not None]
+        for t in [p for m in models for p in m.parameters()] + ([bg] if bg is not None else []):
+            t.record_stream(stream)
+    return snap
+
+
 def train(
     cfg,
     load_checkpoint: str = "",
@@ -133,25 +207,17 @@ def train(
     dtype=None,
     device="cuda",
     steps_per_execute: Optional[int] = None,
+    device_feed: Optional[bool] = None,
 ) -> TrainState:
     """Run training per the config on `device` (the card unless the
     caller asks for the CPU); returns the final `TrainState`. `dtype`
     torch.bfloat16 trains the paper model through K1 and a Flexible-family
-    model through K4f/K4b."""
-    if bool(cfg.experiment.get("device_feed") or False):
-        raise NotImplementedError(
-            "the device feed is not ported yet (ROADMAP.md Queue 1: DeviceRayFeed)"
-        )
-    k_req = steps_per_execute
-    if k_req is None:
-        k_req = cfg.experiment.get("steps_per_execute")
-    if k_req is not None and str(k_req) != "auto" and int(k_req) > 1:
-        raise NotImplementedError(
-            "steps_per_execute > 1 is not ported yet (ROADMAP.md Queue 1: the CUDA-graph "
-            "execution window)"
-        )
+    model through K4f/K4b. `steps_per_execute` and `device_feed` override
+    the config's."""
     dev = torch.device(device)
     flags = FeatureFlags.from_cfg(cfg)
+    if device_feed is None:
+        device_feed = bool(cfg.experiment.get("device_feed") or False)
     if dataset is None:
         dataset = load_flame_data(
             cfg.dataset.basedir, half_res=cfg.dataset.half_res, testskip=cfg.dataset.testskip,
@@ -172,9 +238,6 @@ def train(
         if not os.path.isfile(load_checkpoint):
             raise FileNotFoundError(f"--load-checkpoint path does not exist: {load_checkpoint!r}")
         restore_train_state(state, optimizer, load_torch_checkpoint(load_checkpoint, device=dev))
-    schedule = schedule_from_cfg(cfg)
-    for group in optimizer.param_groups:
-        group["lr"] = schedule(state.step)
 
     settings = RenderSettings.from_cfg(cfg, mode="train")
     logdir = os.path.join(str(cfg.experiment.logdir), str(cfg.experiment.id))
@@ -184,39 +247,128 @@ def train(
     save_every = int(cfg.experiment.save_every)
     print_every = int(cfg.experiment.print_every)
     rays_per_step = int(cfg.nerf.train.num_random_rays)
+    k_exec = _effective_window(_requested_window(steps_per_execute, cfg, train_iters),
+                               [print_every, validate_every, save_every])
+    if k_exec > 1:
+        print(f"[train] execution window: {k_exec} steps", flush=True)
 
-    feed = RayFeed(
-        dataset, num_rays=rays_per_step,
-        background=background if flags.fixed_background else None,
-        seed=seed, start_batch=state.step, pin_memory=dev.type == "cuda",
-    ).start()
+    feed = dfeed = None
+    if device_feed:
+        from nerface_tpu_torch.data.device_feed import DeviceRayFeed
+
+        dfeed = DeviceRayFeed(dataset, num_rays=rays_per_step,
+                              background=background if flags.fixed_background else None,
+                              device=dev)
+    else:
+        # resume continues the uninterrupted run's sample stream
+        feed = RayFeed(dataset, num_rays=rays_per_step,
+                       background=background if flags.fixed_background else None,
+                       seed=seed, start_batch=state.step).start()
+    cuda = dev.type == "cuda"
+    async_val = cfg.experiment.get("async_val")
+    async_val = bool(k_exec > 1 if async_val is None else async_val)
+    val_pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="train-val") if async_val else None
+    val_stream = torch.cuda.Stream(device=dev) if async_val and cuda else None
+    val_pending: collections.deque = collections.deque()
+
+    def _drain_validation():
+        while val_pending:
+            val_pending.popleft().result()
+
+    window = TrainWindow(state, optimizer, settings, flags, from_cfg(cfg), seed, k_exec,
+                         dtype=dtype, device_feed=dfeed, before_capture=_drain_validation)
+    io_pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="train-log")
+    logged = []
     start_iter = state.step
     t_start = time.time()
+
+    def _log_train(host, ready, j, n_done):
+        # the logging thread: waits for the copy, so rays/s counts work done
+        if ready is not None:
+            ready.synchronize()
+        m = dict(zip(METRIC_KEYS, host.tolist()))
+        rays_s = rays_per_step * n_done / max(time.time() - t_start, 1e-9)
+        print(
+            f"[TRAIN] Iter: {j} Loss: {m['total_loss']:.6f} "
+            f"BG Loss: {m['background_loss']:.6f} PSNR: {m['psnr']:.3f} "
+            f"LatentReg: {m['latent_code_loss']:.6f} rays/s: {rays_s:,.0f}",
+            flush=True,
+        )
+
+    # at each print boundary the loop waits for the previous boundary's
+    # copy: the host runs at most ~2 print windows ahead of the card
+    copies: collections.deque = collections.deque()
+
+    def _backpressure(ready):
+        copies.append(ready)
+        if len(copies) > 1:
+            prev = copies.popleft()
+            if prev is not None:
+                prev.synchronize()
+
+    def _run_val(snap, vj, ready):
+        if val_stream is None:
+            vm = validate(cfg, dataset, snap, flags, vj, dtype=dtype)
+        else:
+            with torch.cuda.stream(val_stream):
+                val_stream.wait_event(ready)
+                vm = validate(cfg, dataset, snap, flags, vj, dtype=dtype)
+        print(f"[VAL] Iter: {vj} loss: {vm['loss']:.6f} PSNR: {vm['psnr']:.3f} "
+              f"time: {vm['time']:.2f}s", flush=True)
+        return vm
+
     try:
-        for i in range(start_iter, train_iters):
-            batch = batch_to_device(next(feed), dev)
-            metrics = train_step(
-                state, optimizer, batch, step_seed(seed, i), settings, flags, schedule, dtype=dtype
-            )
-            last = i == train_iters - 1
-            if i % print_every == 0 or last:
-                m = {k: float(v) for k, v in metrics.items()}
-                rays_s = rays_per_step * (i - start_iter + 1) / max(time.time() - t_start, 1e-9)
-                print(
-                    f"[TRAIN] Iter: {i} Loss: {m['total_loss']:.6f} "
-                    f"BG Loss: {m['background_loss']:.6f} PSNR: {m['psnr']:.3f} "
-                    f"LatentReg: {m['latent_code_loss']:.6f} rays/s: {rays_s:,.0f}",
-                    flush=True,
-                )
-            if validate_every > 0 and i % validate_every == 0 and len(dataset.i_val):
-                vm = validate(cfg, dataset, state, flags, i, dtype=dtype)
-                print(f"[VAL] Iter: {i} loss: {vm['loss']:.6f} PSNR: {vm['psnr']:.3f} "
-                      f"time: {vm['time']:.2f}s", flush=True)
-            if save_every > 0 and (i % save_every == 0 or last):
+        i = start_iter
+        while i < train_iters:
+            # the window [i .. j]: j is the next multiple of k_exec (where
+            # every cadence lands) or the last step
+            j = i if i % k_exec == 0 else (i // k_exec + 1) * k_exec
+            j = min(j, train_iters - 1)
+            k_run = j - i + 1
+            batches = None if dfeed is not None else [next(feed) for _ in range(k_run)]
+            window.run(k_run, batches)
+            last = j == train_iters - 1
+
+            if j % print_every == 0 or last:
+                host = torch.empty(len(METRIC_KEYS), dtype=torch.float32, pin_memory=cuda)
+                host.copy_(window.metrics_out, non_blocking=cuda)
+                ready = None
+                if cuda:
+                    ready = torch.cuda.Event()
+                    ready.record()
+                _backpressure(ready)
+                logged.append(io_pool.submit(_log_train, host, ready, j, j - start_iter + 1))
+
+            if validate_every > 0 and j % validate_every == 0 and len(dataset.i_val):
+                if val_pool is not None:
+                    snap = _snapshot(state, val_stream)
+                    ready = None
+                    if val_stream is not None:
+                        ready = torch.cuda.Event()
+                        ready.record()
+                    val_pending.append(val_pool.submit(_run_val, snap, j, ready))
+                    # at most one render in flight
+                    while len(val_pending) > 1:
+                        val_pending.popleft().result()
+                else:
+                    _run_val(state, j, None)
+
+            if save_every > 0 and (j % save_every == 0 or last):
+                m = dict(zip(METRIC_KEYS, window.metrics_out.tolist()))
                 save_torch_checkpoint(
                     os.path.join(logdir, f"checkpoint{state.step:05d}.ckpt"), state, optimizer,
-                    loss=float(metrics["total_loss"]), psnr=float(metrics["psnr"]),
+                    loss=m["total_loss"], psnr=m["psnr"],
                 )
+            i = j + 1
     finally:
-        feed.stop()
+        try:
+            if feed is not None:
+                feed.stop()
+            _drain_validation()  # a failed render fails the run
+        finally:
+            if val_pool is not None:
+                val_pool.shutdown(wait=True)
+            io_pool.shutdown(wait=True)
+    for f in logged:
+        f.result()
     return state

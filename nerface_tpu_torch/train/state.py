@@ -4,12 +4,13 @@ Port of `nerface_tpu/train/state.py`, with the reference checkpoint's
 logical schema (`train_transformed_rays.py:554-572`): the coarse and fine
 `nn.Module`s, the (n_train, 32) latent-code table (a Parameter of zeros),
 the background (a Parameter when trained, else a fixed tensor) and the
-step. `build_optimizer` is `torch.optim.Adam` over the reference's
-parameter order in its two param groups: coarse weights, fine weights and
-the latent table, then the background slot, which holds the background
-even when it is not trained (`train_transformed_rays.py:170-200`), so a
-checkpoint's `optimizer_state_dict` loads in the reference, in the JAX
-package (`import_torch_optimizer_state`) and here alike.
+step. `build_optimizer` builds the configured optimizer (Adam unless the
+config names another) over the reference's parameter order in its two
+param groups: coarse weights, fine weights and the latent table, then the
+background slot, which holds the background even when it is not trained
+(`train_transformed_rays.py:170-200`), so a checkpoint's
+`optimizer_state_dict` loads in the reference, in the JAX package
+(`import_torch_optimizer_state`) and here alike.
 """
 
 from __future__ import annotations
@@ -77,15 +78,59 @@ def create_train_state(
     return TrainState(model_coarse, model_fine, latent, bg, train_bg, 0)
 
 
-def build_optimizer(cfg, state: TrainState) -> torch.optim.Adam:
-    """Adam at cfg.optimizer.lr in the reference's two param groups. The
-    train step sets the groups' LR after each step (train/schedule.py)."""
-    if str(cfg.optimizer.type).lower() != "adam":
-        raise NotImplementedError(
-            f"optimizer {cfg.optimizer.type!r} is not ported yet (the port trains with Adam)"
-        )
-    lr = float(cfg.optimizer.lr)
-    return torch.optim.Adam(
-        [{"params": state.ordered_params()}, {"params": [state.background_slot()]}], lr=lr
-    )
+OPTIMIZERS = ("adam", "flat_adam", "adamw", "sgd", "rmsprop")
 
+
+def build_optimizer(cfg, state: TrainState) -> torch.optim.Optimizer:
+    """The optimizer `cfg.optimizer.type` names, over the reference's two
+    param groups, as the JAX package's optax twin at optax's defaults
+    (`nerface_tpu/train/state.py:34-60`): adam and flat_adam (whose one flat
+    buffer is a layout choice, not other math) are `torch.optim.Adam`,
+    adamw `torch.optim.AdamW` with optax's weight decay 1e-4, sgd and
+    rmsprop train/optim.py's.
+
+    The LR is one 0-d f32 tensor on the parameters' device, shared by both
+    groups, which the train step writes after each step (train/schedule.py);
+    on the card Adam and AdamW keep their step counts there too
+    (`capturable=True`). So a step reads nothing back to the host and can be
+    captured in a CUDA graph (train/window.py), and the step-at-a-time path
+    runs the very same configuration."""
+    from nerface_tpu_torch.train import optim
+
+    kind = str(cfg.optimizer.type).lower()
+    if kind not in OPTIMIZERS:
+        raise ValueError(f"unsupported optimizer type: {cfg.optimizer.type} (one of {OPTIMIZERS})")
+    dev = next(state.model_coarse.parameters()).device
+    lr = torch.tensor(float(cfg.optimizer.lr), dtype=torch.float32, device=dev)
+    groups = [{"params": state.ordered_params()}, {"params": [state.background_slot()]}]
+    capturable = dev.type == "cuda"
+    if kind in ("adam", "flat_adam"):
+        return torch.optim.Adam(groups, lr=lr, capturable=capturable)
+    if kind == "adamw":
+        return torch.optim.AdamW(groups, lr=lr, weight_decay=1e-4, capturable=capturable)
+    if kind == "sgd":
+        return optim.SGD(groups, lr=lr)
+    return optim.RMSprop(groups, lr=lr)
+
+
+def set_lr(optimizer: torch.optim.Optimizer, lr: torch.Tensor) -> None:
+    """Write the 0-d tensor `lr` into the param groups' LR tensor in place
+    (`build_optimizer`'s), so a captured step sees it."""
+    for group in optimizer.param_groups:
+        group["lr"].copy_(lr)
+
+
+def conform_optimizer_state(optimizer: torch.optim.Optimizer, lr, capturable) -> None:
+    """After `load_state_dict` (which takes the saved groups' LR and flags)
+    or a hand-written state: put back the optimizer's LR tensor `lr` and
+    the `capturable` flags it was built with (one a group), and move each
+    step count to its parameter's device where the group is capturable."""
+    for group, cap in zip(optimizer.param_groups, capturable):
+        group["lr"] = lr
+        if cap is None:
+            continue
+        group["capturable"] = cap
+        for p in group["params"]:
+            st = optimizer.state.get(p)
+            if cap and st and isinstance(st.get("step"), torch.Tensor):
+                st["step"] = st["step"].to(device=p.device, dtype=torch.float32)

@@ -1,8 +1,9 @@
-"""One training step: losses, backward, Adam, the LR schedule.
+"""The losses of one training step.
 
-Port of `nerface_tpu/train/step.py`. Everything between the reference's
-`run_one_iter_of_nerf` call and `optimizer.step()`
-(`train_transformed_rays.py:336-400`):
+Port of the loss half of `nerface_tpu/train/step.py`: everything between
+the reference's `run_one_iter_of_nerf` call and `loss.backward()`
+(`train_transformed_rays.py:336-400`); the backward, the optimizer's step
+and the LR write are the train step's (train/window.py):
 
 * coarse MSE + fine MSE against the target RGB (:355-362,382);
 * the latent regularizer ‖code‖·0.0005, added ×10 when enabled (:370-372,386);
@@ -11,7 +12,7 @@ Port of `nerface_tpu/train/step.py`. Everything between the reference's
 * PSNR from the coarse + fine MSE, before the regularizers (:383).
 
 `compute_losses` is the f32 path: `render_rays` unfused, with autograd.
-`train_step` takes `fused_losses` (K1, train/fused.py) when the step is
+The train step takes `fused_losses` (K1, train/fused.py) when the step is
 eligible, else `compute_losses`; both draw the same numbers. A bf16
 Flexible-family step goes through `compute_losses` too: each pass's MLP is
 one `fused_flex_mlp` call (render/pipeline.py), whose forward is K4f and
@@ -20,7 +21,7 @@ whose backward autograd hands to K4b.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -28,19 +29,14 @@ from nerface_tpu_torch.config.flags import FeatureFlags
 from nerface_tpu_torch.ops.math import mse2psnr
 from nerface_tpu_torch.ops.safe import safe_norm
 from nerface_tpu_torch.render.pipeline import RenderSettings, render_rays
-from nerface_tpu_torch.train.fused import (
-    background_prior,
-    conditioning,
-    fused_losses,
-    fused_train_eligible,
-)
+from nerface_tpu_torch.train.fused import background_prior, conditioning
 from nerface_tpu_torch.train.state import TrainState
 
 
 def compute_losses(
     state: TrainState,
     batch: Dict[str, torch.Tensor],
-    seed: int,
+    seed,
     settings: RenderSettings,
     flags: FeatureFlags,
     dtype=None,
@@ -89,33 +85,3 @@ def compute_losses(
         "background_loss": background_loss.detach(),
     }
     return total, metrics
-
-
-def train_step(
-    state: TrainState,
-    optimizer: torch.optim.Optimizer,
-    batch: Dict[str, torch.Tensor],
-    seed: int,
-    settings: RenderSettings,
-    flags: FeatureFlags,
-    schedule: Callable[[int], float],
-    dtype=None,
-    draws: Optional[Dict[str, torch.Tensor]] = None,
-) -> Dict[str, torch.Tensor]:
-    """losses → backward → Adam.step → LR update; advances `state.step`.
-    Returns the step's metrics as device scalars (reading one waits for
-    the step)."""
-    dev = batch["ray_origins"].device
-    optimizer.zero_grad(set_to_none=True)
-    if fused_train_eligible(state.model_coarse, state.model_fine, settings, flags, dtype, dev):
-        total, metrics = fused_losses(state, batch, seed, settings, flags, draws=draws)
-    else:
-        total, metrics = compute_losses(state, batch, seed, settings, flags, dtype=dtype, draws=draws)
-    total.backward()
-    optimizer.step()
-    state.step += 1
-    # the reference sets the LR after the step (train/schedule.py)
-    for group in optimizer.param_groups:
-        group["lr"] = schedule(state.step)
-    metrics["total_loss"] = total.detach()
-    return metrics

@@ -4,7 +4,9 @@
 `small` mode for the smaller one, `fused_flex_forward` /
 `fused_flex_backward` (K4f / K4b) and `fused_resample` (K5) against their
 plain PyTorch versions (bf16 operands for the MLP kernels) on the same CUDA
-tensors.
+tensors. The training loop's execution window (train/window.py): a
+windowed run of each kernel family against the same run one step at a
+time, bit for bit, and a render after a window.
 
 Every test here is marked `cuda` and skips on a host with no card. The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -776,3 +778,161 @@ def test_resample_kernel_shapes_and_draws(cuda_device, Sc, Sf, draws):
     assert bool((got[:, 1:] >= got[:, :-1]).all())
     ref = K5.fused_resample_reference(z, w, u, sorted_u)
     torch.testing.assert_close(got, ref, atol=RESAMPLE_TOL * FAR, rtol=0)
+
+
+# -- the execution window (train/window.py) ----------------------------------
+WINDOW_RAYS = 256
+
+
+def _window_cfg(cfg_dict, k, device_feed, logdir):
+    import copy
+
+    from nerface_tpu_torch.config import CfgNode
+
+    d = copy.deepcopy(cfg_dict)
+    d["experiment"].update(logdir=logdir, train_iters=7, print_every=5, validate_every=5,
+                           save_every=5, steps_per_execute=k, device_feed=device_feed)
+    d["nerf"]["train"]["num_random_rays"] = WINDOW_RAYS
+    return CfgNode(d)
+
+
+@pytest.fixture(scope="module")
+def window_dataset():
+    from nerface_tpu_torch.data.synthetic import synthetic_flame_dataset
+
+    return synthetic_flame_dataset(H=32, W=32, n_train=4, n_val=1, n_test=1, with_images=True,
+                                   num_samples=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config,device_feed", [("paper", True), ("paper", False),
+                                                ("coarse", True), ("lcode", True)],
+                         ids=["paper-device_feed", "paper-host_feed", "coarse-device_feed",
+                              "lcode-device_feed"])
+def test_window_equals_step_at_a_time(cuda_device, window_dataset, tmp_path, config,
+                                      device_feed):
+    """`train()` at 256 rays over the windows [0..0], [1..5], [6..6] (K = 5,
+    CUDA-graph replays, async validation at 0 and 5) against K = 1 (the
+    same step body, eager, sync validation): the parameters, the latent
+    table, the optimizer state and the printed lines bit for bit. Each
+    hand kernel ran as many times on the card in both (torch.profiler's
+    kernel records, the replays' among them): the step's kernels 7 times
+    a pass (K1 for the paper model, K3f / K3b for the coarse-only one, K4f
+    / K4b for synth512_lcode) and the validations' K2 (or K4f). The
+    wrappers count their calls from the host: at K = 5 the 2 eager steps',
+    the capture's and the validations'."""
+    import io
+    import re
+    from contextlib import redirect_stdout
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import SYNTH512_LCODE, SYNTH512_PAPER, SYNTH512_PAPER_COARSE, kernel_runs
+    from nerface_tpu_torch.ops.kernels import fused_flex, fused_mlp, fused_train
+    from nerface_tpu_torch.train import checkpoint as ckpt
+    from nerface_tpu_torch.train.loop import train
+
+    cfg_dict = {"paper": SYNTH512_PAPER, "coarse": SYNTH512_PAPER_COARSE,
+                "lcode": SYNTH512_LCODE}[config]
+    wrappers = [fused_train.fused_train_pass, fused_mlp.fused_paper_render,
+                fused_mlp.fused_paper_mlp_forward, fused_mlp.fused_paper_mlp_backward,
+                fused_flex.fused_flex_forward, fused_flex.fused_flex_backward]
+    out = {}
+    for k in (1, 5):
+        for c in wrappers:
+            c.launches = 0
+        text = io.StringIO()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with redirect_stdout(text):
+                state = train(_window_cfg(cfg_dict, k, device_feed, str(tmp_path / f"k{k}")),
+                              dataset=window_dataset, dtype=torch.bfloat16, device=cuda_device)
+            torch.cuda.synchronize()
+        lines = re.findall(r"\[TRAIN\] Iter: .* LatentReg: \S+|\[VAL\] Iter: \d+ loss: \S+ PSNR: \S+",
+                           text.getvalue())
+        calls = {c.__name__: c.launches for c in wrappers if c.launches}
+        out[k] = (state, calls, kernel_runs(prof), sorted(lines))
+    (s1, c1, r1, p1), (s5, c5, r5, p5) = out[1], out[5]
+    assert p1 == p5 and len(p1) == 3 + 2, (p1, p5)
+    # 7 steps (3 of them from the host at K = 5: 2 eager, the capture); 2
+    # validations of 1 frame, one tile, a launch a pass
+    n_pass = 1 if config == "coarse" else 2
+    runs = {"paper": {"train_pass_kernel": 2 * 7, "render_kernel": 2 * 2},
+            "coarse": {"mlp_fwd_kernel": 7, "train_pass_kernel": 7, "render_kernel": 2},
+            # K4b recomputes the forward: one more flex_chain_kernel a pass
+            "lcode": {"flex_chain_kernel": 2 * 2 * 7 + 2 * 2, "flex_dx_kernel": 2 * 7}}[config]
+    assert r1 == r5, (r1, r5)
+    assert {n: c for n, c in r1.items() if n in runs} == runs, r1
+
+    def calls(steps):
+        return {"paper": {"fused_train_pass": 2 * steps, "fused_paper_render": 2 * 2},
+                "coarse": {"fused_paper_mlp_forward": steps, "fused_paper_mlp_backward": steps,
+                           "fused_paper_render": 2},
+                "lcode": {"fused_flex_forward": n_pass * steps + 2 * 2,
+                          "fused_flex_backward": n_pass * steps}}[config]
+
+    assert c1 == calls(7) and c5 == calls(3), (c1, c5)
+    assert s1.step == s5.step == 7
+    for ma, mb in ((s1.model_coarse, s5.model_coarse), (s1.model_fine, s5.model_fine)):
+        if ma is None:
+            continue
+        for (name, pa), pb in zip(ma.named_parameters(), mb.parameters()):
+            assert torch.equal(pa, pb), name
+    assert torch.equal(s1.latent_codes, s5.latent_codes)
+    oa = ckpt.load_torch_checkpoint(str(tmp_path / "k1" / "synth512_paper" / "checkpoint00007.ckpt"))
+    ob = ckpt.load_torch_checkpoint(str(tmp_path / "k5" / "synth512_paper" / "checkpoint00007.ckpt"))
+    for key, st in oa["optimizer"]["state"].items():
+        for f in ("step", "exp_avg", "exp_avg_sq"):
+            assert torch.equal(st[f], ob["optimizer"]["state"][key][f]), (key, f)
+
+
+@pytest.mark.cuda
+def test_render_after_a_window_sees_the_updated_weights(cuda_device, window_dataset):
+    """K2's packed weights are cached on the model by (data_ptr, _version);
+    graph replays update the parameters in place without bumping
+    `_version`, so the window bumps it. A frame of the live models rendered
+    before a window (which fills the cache) and again after it equals the
+    frame of a fresh copy of the trained models."""
+    import copy
+
+    from chip_smoke import SYNTH512_PAPER
+    from nerface_tpu_torch.config import FeatureFlags
+    from nerface_tpu_torch.data.device_feed import DeviceRayFeed
+    from nerface_tpu_torch.eval.renderer import render_full_frame
+    from nerface_tpu_torch.render.pipeline import RenderSettings
+    from nerface_tpu_torch.train.loop import build_models_from_cfg, setup_background
+    from nerface_tpu_torch.train.schedule import from_cfg
+    from nerface_tpu_torch.train.state import build_optimizer, create_train_state
+    from nerface_tpu_torch.train.window import TrainWindow
+
+    ds = window_dataset
+    cfg = _window_cfg(SYNTH512_PAPER, 5, True, "")
+    flags = FeatureFlags.from_cfg(cfg)
+    bg = setup_background(ds, flags)
+    mc, mf = build_models_from_cfg(cfg, device=cuda_device,
+                                   generator=torch.Generator().manual_seed(0))
+    state = create_train_state(mc, mf, flags, n_train=len(ds.i_train), background=bg,
+                               device=cuda_device)
+    window = TrainWindow(state, build_optimizer(cfg, state), RenderSettings.from_cfg(cfg, "train"),
+                         flags, from_cfg(cfg), 42, 5, dtype=torch.bfloat16,
+                         device_feed=DeviceRayFeed(ds, WINDOW_RAYS, device=cuda_device))
+    settings = RenderSettings.from_cfg(cfg, "validation")
+    i = int(ds.i_val[0])
+    expr = torch.as_tensor(ds.expressions[i], device=cuda_device)
+
+    def frame(c, f):
+        out = render_full_frame(c, f, ds.H, ds.W, ds.intrinsics, ds.poses[i][:3, :4], settings,
+                                seed=3, expressions=expr,
+                                latent_code=torch.zeros(32, device=cuda_device),
+                                dtype=torch.bfloat16, device=cuda_device)
+        return out["rgb_fine"]
+
+    before = frame(state.model_coarse, state.model_fine)
+    window.run(1)
+    window.run(5)  # an eager step, the capture, 4 replays
+    assert window.replays == 4
+    after = frame(state.model_coarse, state.model_fine)
+    fresh = frame(copy.deepcopy(state.model_coarse), copy.deepcopy(state.model_fine))
+    torch.cuda.synchronize()
+    assert not torch.equal(before, fresh)
+    assert torch.equal(after, fresh)
+

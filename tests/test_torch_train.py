@@ -53,6 +53,7 @@ from nerface_tpu.render.pipeline import EncodeSpec as JaxEncodeSpec
 from nerface_tpu.render.pipeline import RenderSettings as JaxRenderSettings
 from nerface_tpu.train import checkpoint as jax_ckpt
 from nerface_tpu.train.loop import train as jax_train
+from nerface_tpu.train.schedule import from_cfg as jax_schedule_from_cfg
 from nerface_tpu.train.state import build_optimizer as jax_build_optimizer
 from nerface_tpu.train.state import TrainState as JaxTrainState
 from nerface_tpu.train.step import _compute_losses
@@ -68,8 +69,8 @@ from nerface_tpu_torch.render.pipeline import EncodeSpec, RenderSettings
 from nerface_tpu_torch.train import checkpoint as ckpt
 from nerface_tpu_torch.train.fused import fused_losses, fused_train_eligible
 from nerface_tpu_torch.train.loop import build_models_from_cfg, train
-from nerface_tpu_torch.train.schedule import exponential_lr
-from nerface_tpu_torch.train.state import build_optimizer, create_train_state
+from nerface_tpu_torch.train.schedule import from_cfg as schedule_from_cfg
+from nerface_tpu_torch.train.state import build_optimizer, create_train_state, set_lr
 from nerface_tpu_torch.train.step import compute_losses
 
 torch.set_num_threads(1)
@@ -272,9 +273,13 @@ def test_fused_path_matches_jax_f32_path(case):
 def test_adam_and_schedule_match_optax():
     """The same gradients, fed for 5 steps, move the port's parameters and
     Adam moments as optax.adam + exponential_lr does (lr_decay 0.002: the
-    LR falls by 10× every 2 steps, so the post-step offset matters)."""
+    LR falls by 10× every 2 steps, so the post-step offset matters). The LR
+    goes through the train step's path, `from_cfg` written by `set_lr`
+    into the optimizer's LR tensor, and equals the JAX package's schedule
+    bit for bit at every step."""
     _, jstate, jopt, _, state, opt, _ = _pair({}, None, lr_decay=0.002)
-    sched = exponential_lr(5e-4, 0.002, 0.1)
+    sched = schedule_from_cfg(CfgNode(_opt_cfg(0.002)))
+    jsched = jax_schedule_from_cfg(JaxCfgNode(_opt_cfg(0.002)))
     params = [p for p in state.ordered_params()]
     jparams = jstate.params
     jos = jstate.opt_state
@@ -294,8 +299,9 @@ def test_adam_and_schedule_match_optax():
         jparams = optax.apply_updates(jparams, updates)
         opt.step()
         state.step += 1
+        set_lr(opt, sched(torch.tensor(state.step)))
         for group in opt.param_groups:
-            group["lr"] = sched(state.step)
+            assert group["lr"].item() == np.float32(jsched(state.step)), state.step
     for which, m in (("coarse", state.model_coarse), ("fine", state.model_fine)):
         for name, p in m.named_parameters():
             want = np.asarray(jparams[which][name])
@@ -488,7 +494,9 @@ def test_cli_trains_on_the_cpu(dataset_dir, tmp_path, capsys):
     assert len(re.findall(r"\[TRAIN\] Iter: \d+ Loss", out)) == 2
     saved = ckpt.load_torch_checkpoint(str(tmp_path / "runs" / "slice" / "checkpoint00002.ckpt"))
     assert saved["iter"] == 2 and len(saved["optimizer"]["param_groups"]) == 2
-    for argv, what in ((["--num-devices", "2"], "num-devices"), (["--device-feed"], "device-feed"),
-                       (["--steps-per-execute", "4"], "steps-per-execute")):
-        with pytest.raises(SystemExit, match="ROADMAP"):
-            cli_train.main(["--config", str(path), "--device", "cpu"] + argv)
+    with pytest.raises(SystemExit, match="ROADMAP.*DDP"):
+        cli_train.main(["--config", str(path), "--device", "cpu", "--num-devices", "2"])
+    # the device feed and --steps-per-execute are ported: they train
+    cli_train.main(["--config", str(path), "--device", "cpu", "--max-iters", "2",
+                    "--device-feed", "--steps-per-execute", "4"])
+    assert len(re.findall(r"\[TRAIN\] Iter: \d+ Loss", capsys.readouterr().out)) == 2
