@@ -140,6 +140,27 @@ Phases, one line each (plus the kernels' register reports):
                batch uploaded a step), each the median of 12 blocks of 10
                steps with validation off, and with --profile the device
                idle share of a window.
+     eval    — the eval / reenactment entry point: a 512² synthetic
+               dataset written to disk (EVAL_SPLIT: 16 train, 2 val, 5
+               test frames), `cli/train.py --bf16` for EVAL_STEPS = 300
+               steps of synth512_devfeed's settings at K = 50, then
+               `cli/eval.py --bf16 --save-disparity-image
+               --save-error-image` over the test split parity,
+               `--fast-eval` and `--occupancy`: every file written, K2
+               only (2 × 4 tiles a parity frame, and the parity run again
+               under torch.profiler: 40 `render_kernel` runs), the bf16
+               frames against the same checkpoint's f32 plain frames
+               (FRAME_MAX / FRAME_MEAN), each fast frame's active pixels
+               against the parity frame (`[fast_serve]`'s contract), and
+               each mode's avg_time_per_image, setup_s and frame_loop_s.
+     metrics — `cli/metrics.py` over each mode's renders against the test
+               split: mean L1, PSNR, SSIM (LPIPS nan, no weights),
+               metrics.txt and L2/ written.
+     quality — the same 300 steps in f32 from the same seed; each run's
+               last and first checkpoints rendered in bf16 (parity) and
+               scored: each run ≥ QUALITY_GAIN_DB above its first
+               checkpoint, bf16's mean test PSNR ≥ f32's −
+               QUALITY_BF16_MARGIN_DB.
      occupancy_serve — that run's last checkpoint served with fast_eval and
                the occupancy grid (splat, 128³, 2× supersampled): the grid
                builds' seconds, occupied and active fractions, capacity, K2
@@ -1703,6 +1724,309 @@ def window_train_phase(dev, ds, tmp, profile, card):
     return result
 
 
+EVAL_SIZE = 512
+EVAL_SPLIT = {"n_train": 16, "n_val": 2, "n_test": 5}
+EVAL_STEPS = 300
+EVAL_K = 50
+EVAL_MODES = {"parity": [], "fast": ["--fast-eval"], "occupancy": ["--occupancy"]}
+QUALITY_GAIN_DB = 10.0  # each trained run above its first checkpoint
+QUALITY_BF16_MARGIN_DB = 1.0  # bf16's mean test PSNR at least f32's minus this
+
+
+def _eval_cfg(ds_dir, logdir, run_id, chunksize=None):
+    """configs/synth512_devfeed.yml's settings (synth512_paper, the device
+    feed) on the dataset at `ds_dir`, cut to EVAL_STEPS steps at
+    `steps_per_execute` EVAL_K: print every 50, validate at 0 and 150, save
+    at the first step and the last."""
+    d = copy.deepcopy(SYNTH512_PAPER)
+    d["experiment"].update(id=run_id, logdir=logdir, train_iters=EVAL_STEPS, print_every=50,
+                           validate_every=150, save_every=EVAL_STEPS,
+                           steps_per_execute=EVAL_K, device_feed=True)
+    d["dataset"]["basedir"] = ds_dir
+    if chunksize:
+        d["nerf"]["validation"]["chunksize"] = chunksize
+    return d
+
+
+def _write_cfg(d, path):
+    """The config as JSON, which the YAML loader reads."""
+    with open(path, "w") as f:
+        json.dump(d, f)
+    return path
+
+
+def _cli(main, argv):
+    """A CLI's `main(argv)` with its standard output captured: (result, text)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = main(argv)
+    return result, out.getvalue()
+
+
+def _cli_train(cfg_path, bf16, dev):
+    """`cli/train.py` for EVAL_STEPS steps; returns the printed [TRAIN] PSNRs
+    by step, the wall seconds and K1's wrapper calls."""
+    from nerface_tpu_torch.cli import train as cli_train
+
+    counters = _launch_counts()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    _, text = _cli(cli_train.main, ["--config", cfg_path, "--device", str(dev)]
+                   + (["--bf16"] if bf16 else []))
+    wall = time.perf_counter() - t0
+    psnr = {int(m[0]): float(m[3]) for m in re.findall(_TRAIN_LINE, text)}
+    check(sorted(psnr) == list(range(0, EVAL_STEPS, 50)) + [EVAL_STEPS - 1],
+          f"eval: training printed steps {sorted(psnr)}")
+    check(all(math.isfinite(v) for v in psnr.values()), f"eval: training PSNRs {psnr}")
+    check(f"execution window: {EVAL_K} steps" in text, "eval: training did not take the window")
+    return {"psnr": psnr, "wall": wall, "launches": {k: c.launches for k, c in counters.items()}}
+
+
+def _cli_eval(cfg_path, ckpt, savedir, dev, bf16, extra=(), profile=False):
+    """`cli/eval.py` on `ckpt` into `savedir`, the paper family's launch
+    counts reset just before and read just after (and under torch.profiler
+    with `profile`); returns the summary, the launches, the kernel runs and
+    the fast-eval set-up that evaluate made."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from nerface_tpu_torch.cli import eval as cli_eval
+    from nerface_tpu_torch.eval import occupancy as O
+
+    argv = ["--config", cfg_path, "--checkpoint", ckpt, "--savedir", savedir, "--device", str(dev),
+            "--save-disparity-image", "--save-error-image", *extra] + (["--bf16"] if bf16 else [])
+    counters = _launch_counts()
+    for c in counters.values():
+        c.launches = 0
+    setups = []
+    real_setup = O.fast_eval_setup
+
+    def recorded_setup(*a, **k):
+        setups.append(real_setup(*a, **k))
+        return setups[-1]
+
+    O.fast_eval_setup = recorded_setup
+    runs = None
+    try:
+        if profile:
+            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                summary, text = _cli(cli_eval.main, argv)
+                torch.cuda.synchronize()
+            runs = kernel_runs(prof)
+        else:
+            summary, text = _cli(cli_eval.main, argv)
+    finally:
+        O.fast_eval_setup = real_setup
+    launched = {k: c.launches for k, c in counters.items()}
+    return {"summary": summary, "launches": launched, "runs": runs,
+            "setup": setups[0] if setups else None, "text": text}
+
+
+def _png(path):
+    import numpy as np
+    from PIL import Image
+
+    return np.asarray(Image.open(path))
+
+
+def eval_phase(dev, tmp, card):
+    """The eval / reenactment entry point on the main path: a 512² synthetic
+    dataset written to disk, `cli/train.py` in bf16 for EVAL_STEPS steps of
+    synth512_devfeed's settings, then `cli/eval.py --bf16` over the test
+    split parity, `--fast-eval` and `--occupancy`, with the disparity and
+    error images: every frame's K2 runs read from torch.profiler (a parity
+    frame is 2 passes × 4 tiles), the bf16 parity frames against the same
+    checkpoint's f32 plain frames (FRAME_MAX / FRAME_MEAN), each fast
+    frame's active pixels against the parity frame as `[fast_serve]` holds
+    them, and each mode's times."""
+    import numpy as np
+    import torch
+
+    from nerface_tpu_torch.data.flame import load_flame_data
+    from nerface_tpu_torch.data.synthetic import make_synthetic_flame_dataset
+    from nerface_tpu_torch.eval.driver import device_cast_to_image
+    from nerface_tpu_torch.eval.renderer import _active_mask
+    from nerface_tpu_torch.ops.rays import get_ray_bundle
+
+    t0 = time.perf_counter()
+    ds_dir = make_synthetic_flame_dataset(os.path.join(tmp, "eval_ds"), H=EVAL_SIZE, W=EVAL_SIZE,
+                                          seed=SEED, **EVAL_SPLIT)
+    gen_s = time.perf_counter() - t0
+    n_test = EVAL_SPLIT["n_test"]
+    logdir = os.path.join(tmp, "eval_runs")
+    cfg_path = _write_cfg(_eval_cfg(ds_dir, logdir, "eval_bf16"), os.path.join(tmp, "eval.yml"))
+    tr = _cli_train(cfg_path, True, dev)
+    run_dir = os.path.join(logdir, "eval_bf16")
+    ckpt = os.path.join(run_dir, f"checkpoint{EVAL_STEPS:05d}.ckpt")
+    check(os.path.isfile(ckpt) and os.path.isfile(os.path.join(run_dir, "checkpoint00001.ckpt")),
+          f"eval: checkpoints {sorted(os.listdir(run_dir))}")
+    phase("eval", f"dataset {EVAL_SIZE}x{EVAL_SIZE} written in {gen_s:.1f} s (cut: "
+                  f"{EVAL_SPLIT['n_train']} train, {EVAL_SPLIT['n_val']} val, {n_test} test "
+                  f"frames); cli/train.py --bf16: {EVAL_STEPS} steps at K={EVAL_K} in "
+                  f"{tr['wall']:.1f} s, K1 wrapper calls {tr['launches']['K1']}, printed PSNR "
+                  f"{tr['psnr']}")
+
+    tiles = -(-EVAL_SIZE * EVAL_SIZE // int(SYNTH512_PAPER["nerf"]["validation"]["chunksize"]))
+    res = {"dataset": ds_dir, "cfg": cfg_path, "ckpt": ckpt, "train": tr, "modes": {},
+           "dirs": {}}
+    for mode, extra in EVAL_MODES.items():
+        d = os.path.join(tmp, f"eval_{mode}")
+        r = _cli_eval(cfg_path, ckpt, d, dev, True, extra)
+        s, launched = r["summary"], r["launches"]
+        check(s["frames"] == n_test, f"eval ({mode}): {s['frames']} frames")
+        check(launched["K1"] == launched["K3f"] == launched["K3b"] == 0 and launched["K2"] > 0
+              and launched["K2"] % (2 * n_test) == 0,
+              f"eval ({mode}): launches {launched}")
+        if mode == "parity":
+            check(launched["K2"] == 2 * tiles * n_test,
+                  f"eval (parity): K2 launches {launched['K2']} != 2 x {tiles} x {n_test}")
+        for sub in ("", "normals", "disparity", "error"):
+            names = sorted(f for f in os.listdir(os.path.join(d, sub)) if f.endswith(".png"))
+            check(names == [f"{i:04d}.png" for i in range(n_test)],
+                  f"eval ({mode}): {sub or 'rgb'} files {names}")
+        rgb = _png(os.path.join(d, "0000.png"))
+        check(rgb.shape == (EVAL_SIZE, EVAL_SIZE, 3) and rgb.dtype == np.uint8,
+              f"eval ({mode}): rgb {rgb.shape} {rgb.dtype}")
+        check(_png(os.path.join(d, "normals", "0000.png")).shape == (EVAL_SIZE - 1,
+                                                                     EVAL_SIZE - 1, 3),
+              f"eval ({mode}): normals shape")
+        res["modes"][mode] = {"summary": s, "launches": launched["K2"], "setup": r["setup"]}
+        res["dirs"][mode] = d
+        phase("eval", f"{mode}: cli/eval.py --bf16 {' '.join(extra)} over {n_test} test frames: "
+                      f"avg_time_per_image {s['avg_time_per_image'] * 1e3:.2f} ms, setup_s "
+                      f"{s['setup_s']:.3f}, frame_loop_s {s['frame_loop_s']:.3f}; K2 launches "
+                      f"{launched['K2']} ({launched['K2'] // n_test} a frame), nothing else; on "
+                      f"{card}")
+
+    # the parity run again under torch.profiler: the kernel runs on the card
+    r = _cli_eval(cfg_path, ckpt, os.path.join(tmp, "eval_profiled"), dev, True, profile=True)
+    ran = r["runs"]["render_kernel"]
+    check(ran == 2 * tiles * n_test == r["launches"]["K2"] and r["runs"]["mlp_fwd_kernel"] == 0
+          and r["runs"]["train_pass_kernel"] == 0,
+          f"eval: torch.profiler saw {r['runs']} for {n_test} parity frames "
+          f"(K2 wrapper calls {r['launches']['K2']}, want 2 x {tiles} tiles a frame)")
+    for i in range(n_test):
+        name = f"{i:04d}.png"
+        check(np.array_equal(_png(os.path.join(tmp, "eval_profiled", name)),
+                             _png(os.path.join(res["dirs"]["parity"], name))),
+              f"eval: profiled parity frame {i} differs from the first run's")
+    res["runs"] = ran
+
+    # the same checkpoint's f32 plain frames (16384-ray tiles bound the f32
+    # activations; each ray's draws are keyed by its index, not the tile)
+    cfg32 = _write_cfg(_eval_cfg(ds_dir, logdir, "eval_bf16", chunksize=16384),
+                       os.path.join(tmp, "eval_f32.yml"))
+    r32 = _cli_eval(cfg32, ckpt, os.path.join(tmp, "eval_f32"), dev, False)
+    check(r32["launches"] == {"K1": 0, "K2": 0, "K3f": 0, "K3b": 0},
+          f"eval: the f32 plain path launched {r32['launches']}")
+    frames = []
+    for i in range(n_test):
+        name = f"{i:04d}.png"
+        a = _png(os.path.join(res["dirs"]["parity"], name)).astype(np.int16)
+        b = _png(os.path.join(tmp, "eval_f32", name)).astype(np.int16)
+        diff = np.abs(a - b)
+        frames.append((float(diff.mean()), int(diff.max())))
+        check(int(diff.max()) <= FRAME_MAX and float(diff.mean()) <= FRAME_MEAN,
+              f"eval: bf16 frame {i} vs f32: mean {diff.mean()}, max {diff.max()}")
+    res["vs_f32"] = frames
+    phase("eval", f"bf16 parity frames vs the f32 plain frames of the checkpoint, each frame: "
+                  f"(mean |diff|, max) {[(round(m, 4), x) for m, x in frames]} levels (limits "
+                  f"{FRAME_MEAN}, {FRAME_MAX}); f32 avg_time_per_image "
+                  f"{r32['summary']['avg_time_per_image'] * 1e3:.1f} ms")
+
+    # each fast frame against the parity frame of the same seed
+    test_ds = load_flame_data(ds_dir, test=True)
+    bg = device_cast_to_image(torch.as_tensor(test_ds.load_background())).numpy()
+    for mode in ("fast", "occupancy"):
+        bbox, settings, occ = res["modes"][mode]["setup"]
+        check((occ is not None) == (mode == "occupancy"), f"eval ({mode}): grid {occ}")
+        worst = {"inside_max": 0, "active": []}
+        for i in range(n_test):
+            pose = torch.as_tensor(test_ds.poses[test_ds.i_test[i]][:3, :4], device=dev)
+            ro, rd = get_ray_bundle(EVAL_SIZE, EVAL_SIZE, test_ds.intrinsics, pose)
+            active = _active_mask(ro.reshape(-1, 3), rd.reshape(-1, 3), EVAL_SIZE, EVAL_SIZE,
+                                  bbox, occ, settings, pose=pose,
+                                  intrinsics=test_ds.intrinsics).reshape(EVAL_SIZE, EVAL_SIZE)
+            c = _contract(_png(os.path.join(res["dirs"][mode], f"{i:04d}.png")),
+                          _png(os.path.join(res["dirs"]["parity"], f"{i:04d}.png")),
+                          active.cpu().numpy(), bg, f"eval ({mode}) frame {i}")
+            worst["inside_max"] = max(worst["inside_max"], c["inside_max"])
+            worst["active"].append(c["active"])
+        res["modes"][mode]["contract"] = worst
+        phase("eval", f"{mode} frames vs the parity frames: active pixels {worst['active']}, "
+                      f"max {worst['inside_max']} level off; every skipped pixel the background "
+                      f"or the parity pixel; capacity {settings.fast_eval_capacity:.4f}"
+                      + (f", grid {occ.resolution}^3 {occ.occupancy_fraction():.4f} occupied"
+                         if occ is not None else ""))
+    return res
+
+
+def _score(ds_dir, images_dir, label):
+    """`cli/metrics.py` against the test split's ground truth; checks
+    metrics.txt and one L2 map a frame. Returns the means."""
+    from nerface_tpu_torch.cli import metrics as cli_metrics
+
+    summary, _ = _cli(cli_metrics.main, ["--gt_path", os.path.join(ds_dir, "test"),
+                                         "--images_path", images_dir])
+    l2 = sorted(os.listdir(os.path.join(images_dir, "L2")))
+    n = len([f for f in os.listdir(images_dir) if f.endswith(".png")])
+    check(os.path.isfile(os.path.join(images_dir, "metrics.txt")) and len(l2) == n > 0,
+          f"{label}: metrics.txt or L2/ missing ({l2})")
+    check(all(math.isfinite(summary[k]) for k in ("L1", "PSNR", "SSIM"))
+          and math.isnan(summary["LPIPS"]), f"{label}: {summary}")
+    return summary
+
+
+def metrics_phase(ev):
+    """`cli/metrics.py` over each `[eval]` mode's renders."""
+    out = {}
+    for mode, d in ev["dirs"].items():
+        s = out[mode] = _score(ev["dataset"], d, f"metrics ({mode})")
+        phase("metrics", f"{mode}: mean L1 {s['L1']:.5f}, PSNR {s['PSNR']:.3f} dB, SSIM "
+                         f"{s['SSIM']:.4f}, LPIPS {s['LPIPS']} (no weights); metrics.txt and "
+                         f"L2/ written")
+    return out
+
+
+def quality_phase(dev, tmp, ev, me, card):
+    """bf16 training's quality against f32's on the same data and seed:
+    the same EVAL_STEPS steps in f32 through `cli/train.py`, each run's last
+    and first checkpoints rendered by `cli/eval.py --bf16` (parity) and
+    scored by `cli/metrics.py`: each run at least QUALITY_GAIN_DB above its
+    first checkpoint, bf16's mean test PSNR at least f32's minus
+    QUALITY_BF16_MARGIN_DB."""
+    logdir = os.path.join(tmp, "eval_runs")
+    cfg_path = _write_cfg(_eval_cfg(ev["dataset"], logdir, "eval_f32"),
+                          os.path.join(tmp, "quality_f32.yml"))
+    tr = _cli_train(cfg_path, False, dev)
+    check(tr["launches"]["K1"] == 0, f"quality: the f32 run launched K1 {tr['launches']}")
+    scores = {"bf16": {"last": me["parity"]}, "f32": {}}
+    for run, path in (("bf16", ev["cfg"]), ("f32", cfg_path)):
+        run_dir = os.path.join(logdir, f"eval_{run}")
+        for which, step in (("last", EVAL_STEPS), ("first", 1)):
+            if which in scores[run]:
+                continue
+            d = os.path.join(tmp, f"quality_{run}_{which}")
+            _cli_eval(path, os.path.join(run_dir, f"checkpoint{step:05d}.ckpt"), d, dev, True)
+            scores[run][which] = _score(ev["dataset"], d, f"quality ({run}, {which})")
+    for run in ("bf16", "f32"):
+        gain = scores[run]["last"]["PSNR"] - scores[run]["first"]["PSNR"]
+        check(gain >= QUALITY_GAIN_DB, f"quality ({run}): {gain:.2f} dB over the first checkpoint")
+    gap = scores["f32"]["last"]["PSNR"] - scores["bf16"]["last"]["PSNR"]
+    check(gap <= QUALITY_BF16_MARGIN_DB, f"quality: bf16 {gap:.3f} dB below f32")
+    phase("quality", f"f32 training: {EVAL_STEPS} steps at K={EVAL_K} in {tr['wall']:.1f} s, "
+                     f"printed PSNR {tr['psnr']}")
+    phase("quality", "mean test PSNR / SSIM of the bf16 parity renders (cli/metrics.py, "
+                     f"{EVAL_SPLIT['n_test']} frames at {EVAL_SIZE}x{EVAL_SIZE}): "
+                     + "; ".join(f"{run} training: step {EVAL_STEPS} {s['last']['PSNR']:.3f} dB / "
+                                 f"{s['last']['SSIM']:.4f}, checkpoint00001 "
+                                 f"{s['first']['PSNR']:.3f} dB / {s['first']['SSIM']:.4f}"
+                                 for run, s in scores.items())
+                     + f"; bf16 - f32 {-gap:+.3f} dB (limit -{QUALITY_BF16_MARGIN_DB}); on {card}")
+    return {"scores": scores, "train": tr, "gap_db": -gap}
+
+
 def _k4_bytes(n_rays, n_samples, backward):
     """The bytes K4f / K4b must move: each input read once (rays, depths,
     dir_c, v0, weights; g and the transposed weights for K4b), each output
@@ -2338,9 +2662,8 @@ def _fast_contract(server, frame, seed, label):
     from nerface_tpu_torch.ops.rays import get_ray_bundle
 
     H, W = server.H, server.W
-    fast = server.render(frame=frame, seed=seed, maps=("rgb_fine",))["rgb_fine"].astype(np.int16)
-    par = server.render(frame=frame, seed=seed, maps=("rgb_fine",),
-                        fast_eval=False)["rgb_fine"].astype(np.int16)
+    fast = server.render(frame=frame, seed=seed, maps=("rgb_fine",))["rgb_fine"]
+    par = server.render(frame=frame, seed=seed, maps=("rgb_fine",), fast_eval=False)["rgb_fine"]
     pose, _, _ = server._frame_defaults(frame)
     pose = torch.as_tensor(pose[:3, :4], dtype=torch.float32, device=server.device)
     ro, rd = get_ray_bundle(H, W, server.intrinsics, pose)
@@ -2351,7 +2674,16 @@ def _fast_contract(server, frame, seed, label):
         bg = device_cast_to_image(server.background.reshape(H, W, 3)).cpu().numpy()
     else:
         bg = np.full((H, W, 3), 255 if server.settings.white_background else 0, np.uint8)
-    bg = bg.astype(np.int16)
+    return _contract(fast, par, active, bg, label)
+
+
+def _contract(fast, par, active, bg, label):
+    """A fast uint8 frame against the parity frame of the same seed: the
+    pixels of the (H, W) bool `active` mask within 1 level, every other
+    pixel the background `bg` or the parity pixel (within 1 level)."""
+    import numpy as np
+
+    fast, par, bg = (x.astype(np.int16) for x in (fast, par, bg))
     diff = np.abs(fast - par)
     inside_max = int(diff[active].max()) if active.any() else 0
     inside_differ = int((diff[active] > 0).any(axis=-1).sum())
@@ -2603,6 +2935,9 @@ def main() -> int:
         ts = train_step_phase(dev, ds)
         tr = train_phase(dev, ds, tmp, args.profile, card)
         wt = window_train_phase(dev, ds, tmp, args.profile, card)
+        ev = eval_phase(dev, tmp, card)
+        me = metrics_phase(ev)
+        qu = quality_phase(dev, tmp, ev, me, card)
         oc = occupancy_serve_phase(dev, ds, tr["checkpoint"])
         st = train_phase(dev, ds, tmp, False, card, SYNTH512_SMALLER, PAPER_TRAIN_STEPS,
                          "smaller_train")
@@ -2632,17 +2967,19 @@ def main() -> int:
             "source": "nerface_tpu_torch/csrc/fused_paper_render.cu",
             "replaces": "nerface_tpu/ops/pallas/fused_mlp.py:652",
             "modes": ["paper", "small"],
-            # the served frames of the four serving paths
-            "launches": s["launches"] + ss["launches"] + fe["launches"] + oc["launches"],
+            # the frames of the four serving paths and of the eval entry point
+            "launches": s["launches"] + ss["launches"] + fe["launches"] + oc["launches"]
+            + sum(m["launches"] for m in ev["modes"].values()),
             "launches_by_path": {"serve": s["launches"], "smaller_serve": ss["launches"],
                                  "fast_serve": fe["launches"],
                                  "occupancy_serve": oc["launches"],
+                                 **{f"eval_{k}": m["launches"] for k, m in ev["modes"].items()},
                                  "train": tr["launches"]["K2"],
                                  "window_train": sum(r[m]["K2"] for r in wt["launches"].values()
                                                      for m in r),
                                  "smaller_train": st["launches"]["K2"],
                                  "coarse_train": ct["launches"]["K2"]},
-            "kernel_runs_by_path": {"window_train": wt_k2_runs},
+            "kernel_runs_by_path": {"window_train": wt_k2_runs, "eval_parity": ev["runs"]},
             "max_abs_err": max(errs),
             # one coarse (S=64, weights) + one fine (S=128) call on 4096 rays
             "ms": k["ms"]["coarse"] + k["ms"]["fine"],
@@ -2667,6 +3004,15 @@ def main() -> int:
             "smaller_frame_ms_512": ss["frame_ms"],
             "fast_frame_ms_512": {"fast": fe["fast_ms"], "parity": fe["parity_ms"]},
             "occupancy_frame_ms_512": {"fast": oc["fast_ms"], "parity": oc["parity_ms"]},
+            # cli/eval.py's summaries (bf16, 5 test frames of 512²) and the
+            # quality of 300 bf16 / f32 train steps (mean test PSNR, dB)
+            "eval_summary_512": {k: m["summary"] for k, m in ev["modes"].items()},
+            "eval_vs_f32_levels": ev["vs_f32"],
+            "eval_psnr": {k: v["PSNR"] for k, v in me.items()},
+            "quality_psnr": {run: {w: v["PSNR"] for w, v in sc.items()}
+                             for run, sc in qu["scores"].items()},
+            "quality_ssim": {run: {w: v["SSIM"] for w, v in sc.items()}
+                             for run, sc in qu["scores"].items()},
             "card": card,
         },
         {
@@ -2675,10 +3021,12 @@ def main() -> int:
             "source": "nerface_tpu_torch/csrc/fused_train_pass.cu",
             "replaces": "nerface_tpu/ops/pallas/fused_train.py:69",
             "modes": ["paper", "small"],
-            "launches": tr["launches"]["K1"] + st["launches"]["K1"] + wt_k1,
+            "launches": tr["launches"]["K1"] + st["launches"]["K1"] + wt_k1
+            + ev["train"]["launches"]["K1"],
             "launches_by_path": {"train": tr["launches"]["K1"],
                                  "smaller_train": st["launches"]["K1"],
-                                 "window_train": wt_k1},
+                                 "window_train": wt_k1,
+                                 "eval_train": ev["train"]["launches"]["K1"]},
             "kernel_runs_by_path": {"window_train": wt_k1_runs},
             "max_abs_err": max(v for r in (tk, tks) for e in r["err"].values() for v in e.values()),
             # a train step's two passes: coarse (S=64) + fine (S=128), 2048 rays

@@ -28,6 +28,12 @@
 //   ends the launch with an error instead of hanging the card. No function
 //   here calls out (printf is an extern call): ptxas serializes every
 //   wgmma of a kernel that contains one.
+// - A debug build (-DNERFACE_WATCHDOG_REPORT, `build.py`'s
+//   NERFACE_KERNEL_DEFINES) also writes the first trapping wait's block,
+//   warpgroup, thread, barrier address and parity to host-mapped words
+//   (`nerface_watchdog_arm`) before the trap, where the host reads them
+//   after the launch has failed. The production build carries none of it:
+//   the report changes ptxas's registers, spills and wgmma serialisation.
 
 #pragma once
 
@@ -331,6 +337,40 @@ __device__ __forceinline__ unsigned long long global_ns() {
   return t;
 }
 
+#ifdef NERFACE_WATCHDOG_REPORT
+// Host-mapped report words: [0] WATCHDOG_MAGIC once the rest is written,
+// [1] blockIdx.x, [2] warpgroup, [3] threadIdx.x, [4] the barrier's shared
+// address, [5] its parity, [6] the dynamic shared memory's size (which
+// names the kernel), [7] that memory's shared address (a kernel's carve
+// starts there, rounded up to 1024). One trapping wait of the launch
+// writes them; the other waits that time out spin until its trap ends the
+// launch, so they do not end it before the words are out.
+constexpr unsigned int WATCHDOG_MAGIC = 0x57a7c400u;
+__device__ unsigned int* g_watchdog_words = nullptr;
+__device__ unsigned int g_watchdog_claimed = 0;
+extern __shared__ unsigned char watchdog_dynamic_smem[];
+
+__device__ __forceinline__ void watchdog_report(uint32_t addr, uint32_t parity) {
+  volatile unsigned int* w = g_watchdog_words;
+  if (w == nullptr) return;
+  if (atomicCAS(&g_watchdog_claimed, 0u, 1u) != 0u) {
+    for (;;) __nanosleep(1000);
+  }
+  uint32_t dyn_size;
+  asm volatile("mov.u32 %0, %%dynamic_smem_size;\n" : "=r"(dyn_size));
+  w[1] = blockIdx.x;
+  w[2] = threadIdx.x / 128;
+  w[3] = threadIdx.x;
+  w[4] = addr;
+  w[5] = parity;
+  w[6] = dyn_size;
+  w[7] = smem_u32(watchdog_dynamic_smem);
+  __threadfence_system();
+  w[0] = WATCHDOG_MAGIC;
+  __threadfence_system();
+}
+#endif
+
 // Wait until the phase of parity `parity` of `bar` has completed.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
@@ -351,6 +391,9 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       if (t0 == 0) {
         t0 = t;
       } else if (t - t0 > WATCHDOG_NS) {
+#ifdef NERFACE_WATCHDOG_REPORT
+        watchdog_report(addr, parity);
+#endif
         asm volatile("trap;\n");
       }
     }
@@ -434,3 +477,44 @@ struct Ring {
 
 }  // namespace sm90
 }  // namespace nerface
+
+#ifdef NERFACE_WATCHDOG_REPORT
+// Allocates the report words in host-mapped memory, zeroes them and points
+// this library's kernels at them; `*host_words` receives their host address.
+// Returns a cudaError_t.
+extern "C" int nerface_watchdog_arm(void** host_words) {
+  using namespace nerface::sm90;
+  unsigned int* h = nullptr;
+  cudaError_t e = cudaHostAlloc(reinterpret_cast<void**>(&h), 8 * sizeof(unsigned int),
+                                cudaHostAllocMapped);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  for (int i = 0; i < 8; ++i) h[i] = 0;
+  unsigned int* d = nullptr;
+  const unsigned int zero = 0;
+  e = cudaHostGetDevicePointer(reinterpret_cast<void**>(&d), h, 0);
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_watchdog_words, &d, sizeof(d));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_watchdog_claimed, &zero, sizeof(zero));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *host_words = h;
+  return 0;
+}
+
+// A wait that never completes: one CTA of 4 warps waits on a barrier no
+// thread arrives at, so the watchdog traps and reports block 0 (the first
+// thread to claim the words). It ends the process's CUDA context.
+__global__ void watchdog_selftest_kernel() {
+  using namespace nerface::sm90;
+  __shared__ uint64_t bar;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  mbar_wait(&bar, 0);
+}
+
+extern "C" int nerface_watchdog_selftest(void* stream) {
+  watchdog_selftest_kernel<<<1, 128, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+#endif

@@ -16,6 +16,12 @@ Flags: Hopper (`sm_90a`), -O3, and neither `--use_fast_math` nor
 `-ftz=true`: the encoding needs `sinf` with full range reduction (sin
 arguments reach hundreds of radians), and the disparity guard
 max(acc, 1e-38) needs denormals.
+
+A debug build: the environment variable NERFACE_KERNEL_DEFINES (defines,
+space-separated) is added to every library's `defines`, e.g.
+`NERFACE_KERNEL_DEFINES=NERFACE_WATCHDOG_REPORT`, the mbarrier watchdog's
+report (`csrc/wgmma_tile.cuh`, read by `tools/perf/watchdog_loop.py`).
+Unset, the libraries are the production build.
 """
 
 from __future__ import annotations
@@ -50,10 +56,12 @@ def find_nvcc() -> str:
 def build_library(name: str = "fused_paper_render", defines: tuple = ()) -> Path:
     """Compile `csrc/<name>.cu` into `build/nerface_tpu_torch/` unless a
     library of the same source and flags is there; returns its path.
-    `defines` ("NAME=value", ...) go to nvcc as -D flags: a variant build
-    for a comparison. The compiler's resource report (-Xptxas -v) is kept
-    beside it as `<library>.log`."""
+    `defines` ("NAME=value", ...) and NERFACE_KERNEL_DEFINES's go to nvcc
+    as -D flags: a variant build for a comparison, or a debug build. The
+    compiler's resource report (-Xptxas -v) is kept beside it as
+    `<library>.log`."""
     src = CSRC / f"{name}.cu"
+    defines = tuple(defines) + tuple(os.environ.get("NERFACE_KERNEL_DEFINES", "").split())
     flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
     h = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
     for header in sorted(CSRC.glob("*.cuh")):

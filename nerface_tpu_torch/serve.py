@@ -51,21 +51,19 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from nerface_tpu_torch.config.flags import EvalFlags, FeatureFlags
+from nerface_tpu_torch.config.flags import EvalFlags
 from nerface_tpu_torch.data.flame import load_flame_data
 from nerface_tpu_torch.eval.driver import (
     cast_to_disparity_image,
     device_cast_to_image,
     device_uint8,
+    load_avatar,
 )
 from nerface_tpu_torch.eval.normals import normal_map_from_depth
 from nerface_tpu_torch.eval.renderer import render_full_frame
-from nerface_tpu_torch.models.nerf_models import build_model
 from nerface_tpu_torch.render.pipeline import RenderSettings
-from nerface_tpu_torch.train.checkpoint import load_torch_checkpoint
 
 _KNOWN_MAPS = ("rgb_fine", "rgb_coarse", "disp", "depth", "acc", "normals")
-LATENT_DIM = 32
 
 
 def _u8_unit(x: torch.Tensor) -> torch.Tensor:
@@ -126,57 +124,14 @@ class AvatarServer:
         self.H, self.W = dataset.H, dataset.W
         self.intrinsics = np.asarray(dataset.intrinsics, np.float32)
 
-        ckpt = load_torch_checkpoint(checkpoint, device=self.device)
-        self.model_coarse = build_model(cfg.models.coarse, device=self.device)
-        self.model_coarse.load_state_dict(ckpt["coarse"], strict=True)
-        self.model_fine = None
-        if "fine" in cfg.models:
-            self.model_fine = build_model(
-                cfg.models.fine,
-                num_layers=cfg.models.coarse.num_layers,
-                hidden_size=cfg.models.coarse.hidden_size,
-                device=self.device,
-            )
-            self.model_fine.load_state_dict(ckpt["fine"], strict=True)
-        for m in (self.model_coarse, self.model_fine):
-            if m is not None:
-                m.eval().requires_grad_(False)
-
-        # Same resolution as the JAX server's train-state template: the
-        # checkpoint's table, else zeros(n_train, 32) when the flags use
-        # latent codes; the checkpoint's background, else zeros when a
-        # fixed or trained background is in use — then the eval flags.
-        train_flags = FeatureFlags.from_cfg(cfg)
-        codes = None
-        if train_flags.train_latent_codes and not train_flags.disable_latent_codes:
-            codes = ckpt["latent_codes"]
-            if codes is None:
-                codes = torch.zeros(
-                    max(len(dataset.i_train), 1), LATENT_DIM, device=self.device
-                )
-        self.latent_codes = codes
-
-        background = ckpt["background"]
-        if background is None and (train_flags.train_background or train_flags.fixed_background):
-            background = torch.zeros(self.H, self.W, 3, device=self.device)
-        if self.flags.replace_background:
-            background = torch.as_tensor(
-                dataset.load_background(), dtype=torch.float32, device=self.device
-            )
-        if self.flags.no_background:
-            background = None
+        # the eval driver's set-up (one shared helper); the server keeps the
+        # JAX server's rule that `no_lcode` is the eval driver's alone
+        avatar = load_avatar(cfg, checkpoint, dataset, self.flags, self.device, log=log)
+        self.model_coarse, self.model_fine = avatar.model_coarse, avatar.model_fine
+        self.latent_codes = avatar.latent_codes
+        self.idx_map = avatar.idx_map
+        background = avatar.background
         self.background = background.reshape(-1, 3).contiguous() if background is not None else None
-
-        self.idx_map = None
-        if self.latent_codes is not None:
-            try:
-                self.idx_map = dataset.load_index_map()
-            except FileNotFoundError:
-                # identity map, as the eval driver falls back to
-                if log:
-                    print("WARNING: index_map.npy not found; using identity latent-code mapping")
-                n = len(dataset.poses)
-                self.idx_map = np.stack([np.arange(n), np.arange(n)], axis=-1)
 
         self.fast_bbox = None
         self.occupancy = None
