@@ -139,7 +139,12 @@ Phases, one line each (plus the kernels' register reports):
                and step at a time (`train()`'s window of one step, one
                batch uploaded a step), each the median of 12 blocks of 10
                steps with validation off, and with --profile the device
-               idle share of a window.
+               idle share of a window. The host feed is the native sampler
+               (`nerface_tpu_torch/native`, RayFeed's default); its numpy
+               path (`native=False`) beside it, windowed: both feeds'
+               steady step, idle share (--profile) and the feed thread's ms
+               a batch; and the device feed's `torch.topk` over the 512²
+               frame's 262144 keys timed alone.
      eval    — the eval / reenactment entry point: a 512² synthetic
                dataset written to disk (EVAL_SPLIT: 16 train, 2 val, 5
                test frames), `cli/train.py --bf16` for EVAL_STEPS = 300
@@ -161,6 +166,18 @@ Phases, one line each (plus the kernels' register reports):
                scored: each run ≥ QUALITY_GAIN_DB above its first
                checkpoint, bf16's mean test PSNR ≥ f32's −
                QUALITY_BF16_MARGIN_DB.
+     supervised_train — the production run's sidecars: `cli/train.py
+               --bf16` on the eval dataset with the host feed (native), K
+               = 50, save_every 100, 300 steps, uninterrupted (in this
+               process, K1's launches counted); then `cli/supervise.py`
+               over the same run in a child process: once a checkpoint
+               past step 100 is complete the phase sends the train child
+               SIGTERM, the child must exit 143 and the supervisor
+               relaunch it from the newest complete .ckpt and finish; the
+               last .ckpt's parameters, latent table and Adam state equal
+               the uninterrupted run's bit for bit. Then the training
+               thread's ms inside an async save's `submit` against a
+               synchronous save's.
      occupancy_serve — that run's last checkpoint served with fast_eval and
                the occupancy grid (splat, 128³, 2× supersampled): the grid
                builds' seconds, occupied and active fractions, capacity, K2
@@ -191,6 +208,12 @@ Phases, one line each (plus the kernels' register reports):
                versions' ms, and K4b's device ms per launch (recompute, dX,
                dW, reductions) under torch.profiler, each beside its
                operations bound and, apart, its workspace byte floor.
+     flex_dead_units — K4f + K4b at 8 hidden layers, DEAD_UNIT_PASSES
+               passes of 2085 × 64 and 601 × 128 (their last round leaves
+               warpgroup 1 past the last ray: the dead-unit walk of K4b's
+               recompute and dX, `fused_flex.cu::skip_stages`), every
+               pass's output and gradients equal to the first pass's bit
+               for bit; passes and wall time. A fault fails the run.
   9. flex_serve — a 512² synth512_lcode avatar (SYNTH512_LCODE: the paper
                config with the Flexible family's
                ConditionalBlendshapeLearnableCodeNeRFModel) served as in
@@ -1547,13 +1570,14 @@ def _window_run(cfg, ds, dev):
             "runs": kernel_runs(prof), **calls}
 
 
-def _window_steady(cfg, ds, dev, k_max, device_feed, profile=False):
+def _window_steady(cfg, ds, dev, k_max, device_feed, profile=False, native=True):
     """Per-step ms of WINDOW_TIMED blocks of WINDOW_K steps (synchronised
     at block ends, validation off) from a fresh state through a
     `TrainWindow` of `k_max` steps, as `train()` runs it: windowed (k_max
     WINDOW_K, a block is one window of graph replays) or step at a time
     (k_max 1, a block is WINDOW_K windows of one eager step, the host feed
-    uploading one batch a step)."""
+    uploading one batch a step). The host feed draws with the native
+    sampler, or with numpy where `native` is False."""
     import torch
 
     from nerface_tpu_torch.config import FeatureFlags
@@ -1576,7 +1600,7 @@ def _window_steady(cfg, ds, dev, k_max, device_feed, profile=False):
                               device=dev)
     else:
         feed = RayFeed(ds, TRAIN_RAYS, background=bg if flags.fixed_background else None,
-                       seed=SEED).start()
+                       seed=SEED, native=native).start()
     window = TrainWindow(state, opt, RenderSettings.from_cfg(cfg, "train"), flags,
                          from_cfg(cfg), SEED, k_max, dtype=torch.bfloat16, device_feed=dfeed)
 
@@ -1721,7 +1745,82 @@ def window_train_phase(dev, ds, tmp, profile, card):
                               + ("" if not profile else
                                  f"; device idle in a window "
                                  f"{'not measured' if idle is None else f'{idle:.3f}'}"))
+
+    # the host feed's numpy path beside the native one, windowed; the
+    # draw alone on each path; the device feed's top-k alone
+    t_rows = time.perf_counter()
+    cfg = CfgNode(_window_cfg(tmp, WINDOW_K, False))
+    numpy_ms, numpy_idle = _window_steady(cfg, ds, dev, WINDOW_K, False, profile, native=False)
+    n = statistics.median(numpy_ms)
+    result["step_ms"]["host_feed_numpy"] = {"windowed": n}
+    result["idle"]["host_feed_numpy"] = numpy_idle
+    result["feed_batch_ms"] = {path: _feed_batch_ms(cfg, ds, native)
+                               for path, native in (("native", True), ("numpy", False))}
+    result["topk_ms"] = _topk_ms(ds, dev)
+    result["feed_rows_s"] = time.perf_counter() - t_rows
+    idle = {k: result["idle"][k] for k in ("host_feed", "host_feed_numpy")}
+    native_ms = result["step_ms"]["host_feed"]["windowed"]
+    phase("window_train", f"host feed windowed: native sampler {native_ms:.3f} ms, numpy path "
+                          f"{n:.3f} ms a step (medians of {WINDOW_TIMED} blocks "
+                          f"of {WINDOW_K}; numpy min {min(numpy_ms):.3f} max {max(numpy_ms):.3f})"
+                          + ("" if not profile else
+                             "; device idle in a window: " + ", ".join(
+                                 f"{k} {'not measured' if v is None else f'{v:.3f}'}"
+                                 for k, v in idle.items()))
+                          + f"; the feed thread's ms a batch ({TRAIN_RAYS} rays of a "
+                            f"{ds.H}x{ds.W} frame, median of {FEED_BATCHES} sample_batch calls): "
+                            f"native {result['feed_batch_ms']['native']:.3f}, numpy "
+                            f"{result['feed_batch_ms']['numpy']:.3f}; the device feed's "
+                            f"torch.topk of {TRAIN_RAYS} over {ds.H * ds.W} keys alone: "
+                            f"{result['topk_ms']['single']:.4f} ms a call (median of 15, CUDA "
+                            f"events), {result['topk_ms']['queued']:.4f} ms a call queued "
+                            f"({TOPK_QUEUED} calls between two events); on {card}; these "
+                            f"rows took {result['feed_rows_s']:.1f} s")
     return result
+
+
+FEED_BATCHES = 50
+TOPK_QUEUED = 100
+
+
+def _feed_batch_ms(cfg, ds, native):
+    """Median ms of one `RayFeed.sample_batch` (the feed thread's work for a
+    batch: the frame, the draw, the rays' gather and rotation) on this
+    host's CPU, native or numpy."""
+    from nerface_tpu_torch.config import FeatureFlags
+    from nerface_tpu_torch.data.pipeline import RayFeed
+    from nerface_tpu_torch.train.loop import setup_background
+
+    flags = FeatureFlags.from_cfg(cfg)
+    bg = setup_background(ds, flags)
+    feed = RayFeed(ds, TRAIN_RAYS, background=bg if flags.fixed_background else None, seed=SEED,
+                   native=native)
+    for _ in range(3):
+        feed.sample_batch()
+    times = []
+    for _ in range(FEED_BATCHES):
+        t0 = time.perf_counter()
+        feed.sample_batch()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _topk_ms(ds, dev):
+    """The device feed's draw, `torch.topk` of TRAIN_RAYS over a frame's
+    H·W f32 keys (data/device_feed.py), alone: ms of one call between two
+    CUDA events (median), and a call's share of TOPK_QUEUED calls queued
+    between two events."""
+    import torch
+
+    keys = torch.rand(ds.H * ds.W, generator=torch.Generator().manual_seed(SEED)).to(dev)
+    single = _median_ms(lambda: torch.topk(keys, TRAIN_RAYS))
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(TOPK_QUEUED):
+        torch.topk(keys, TRAIN_RAYS)
+    b.record()
+    b.synchronize()
+    return {"single": single, "queued": a.elapsed_time(b) / TOPK_QUEUED}
 
 
 EVAL_SIZE = 512
@@ -2027,6 +2126,189 @@ def quality_phase(dev, tmp, ev, me, card):
     return {"scores": scores, "train": tr, "gap_db": -gap}
 
 
+SUPERVISED_SAVE = 100
+SAVE_TIMINGS = 5
+
+
+def _supervised_cfg(ds_dir, logdir, run_id):
+    """`[eval]`'s run (synth512_paper on the 512² dataset on disk, EVAL_STEPS
+    steps at K = EVAL_K, validation at 0 and 150) on the host feed, saving
+    every SUPERVISED_SAVE steps."""
+    d = _eval_cfg(ds_dir, logdir, run_id)
+    d["experiment"].update(save_every=SUPERVISED_SAVE, device_feed=False)
+    return d
+
+
+def _children(pid):
+    """The live child processes of `pid`: the processes /proc lists (no
+    threads) whose parent is `pid`."""
+    out = []
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            try:
+                with open(f"/proc/{entry}/stat") as f:
+                    stat = f.read()
+            except OSError:
+                continue
+            # the fields after the parenthesised command: state, ppid, ...
+            if int(stat.rsplit(")", 1)[1].split()[1]) == pid:
+                out.append(int(entry))
+    return out
+
+
+def supervised_train_phase(dev, tmp, ds_dir, card):
+    """The production run's sidecars on the main path: `cli/train.py --bf16`
+    on the host feed (native), uninterrupted, in this process with the
+    launch counts reset; then `cli/supervise.py` over the same run in a
+    child process. Once a checkpoint past step SUPERVISED_SAVE is complete
+    the train child gets SIGTERM: it must exit 143, and the supervisor
+    relaunch it from the newest complete .ckpt and finish. The last
+    .ckpt's parameters, latent table, background and Adam state equal the
+    uninterrupted run's bit for bit. Then the training thread's ms inside
+    an async save's `submit` against a synchronous save's, on the run's
+    last state."""
+    import signal
+
+    import torch
+
+    from nerface_tpu_torch.cli import train as cli_train
+    from nerface_tpu_torch.config import CfgNode, FeatureFlags
+    from nerface_tpu_torch.data.flame import load_flame_data
+    from nerface_tpu_torch.train import checkpoint as C
+    from nerface_tpu_torch.train.loop import build_models_from_cfg, setup_background
+    from nerface_tpu_torch.train.state import build_optimizer, create_train_state
+
+    t_phase = time.perf_counter()
+    logdir = os.path.join(tmp, "supervised_runs")
+    paths = {run: _write_cfg(_supervised_cfg(ds_dir, logdir, run),
+                             os.path.join(tmp, f"supervised_{run}.yml"))
+             for run in ("whole", "supervised")}
+    counters = _launch_counts()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    _, text = _cli(cli_train.main, ["--config", paths["whole"], "--device", str(dev), "--bf16"])
+    whole_s = time.perf_counter() - t0
+    launched = {k: c.launches for k, c in counters.items()}
+    check(f"execution window: {EVAL_K} steps" in text, "supervised_train: no window")
+    check(launched["K1"] > 0 and launched["K2"] > 0 and launched["K3f"] == launched["K3b"] == 0,
+          f"supervised_train: launches {launched}")
+    saves = [f"checkpoint{j + 1:05d}.ckpt" for j in range(0, EVAL_STEPS - 1, SUPERVISED_SAVE)]
+    saves.append(f"checkpoint{EVAL_STEPS:05d}.ckpt")
+    check(all(os.path.isfile(os.path.join(logdir, "whole", n)) for n in saves),
+          f"supervised_train: checkpoints {sorted(os.listdir(os.path.join(logdir, 'whole')))}")
+
+    run_dir = os.path.join(logdir, "supervised")
+    log_path = os.path.join(tmp, "supervise.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        sup = subprocess.Popen(
+            [sys.executable, "-m", "nerface_tpu_torch.cli.supervise", "--poll-seconds", "0.2",
+             "--max-restarts", "2", "--outage-probe-seconds", "0", "--", "--config",
+             paths["supervised"], "--device", str(dev), "--bf16"],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log, stderr=subprocess.STDOUT)
+        try:
+            while True:
+                latest = C.latest_checkpoint(run_dir)
+                if latest is not None and C.checkpoint_step(latest) > SUPERVISED_SAVE:
+                    break
+                check(sup.poll() is None and time.perf_counter() - t0 < 600,
+                      f"supervised_train: no checkpoint past step {SUPERVISED_SAVE}")
+                time.sleep(0.02)
+            t_ckpt = time.perf_counter() - t0
+            children = _children(sup.pid)
+            check(len(children) == 1, f"supervised_train: the supervisor's children {children}")
+            os.kill(children[0], signal.SIGTERM)
+            t_relaunch = None
+            while sup.poll() is None and t_relaunch is None:
+                if [c for c in _children(sup.pid) if c != children[0]]:
+                    t_relaunch = time.perf_counter() - t0
+                time.sleep(0.02)
+            rc = sup.wait(timeout=600)
+        finally:
+            if sup.poll() is None:
+                sup.kill()
+                sup.wait()
+    sup_s = time.perf_counter() - t0
+    with open(log_path) as f:
+        out = f.read()
+    check(rc == 0 and "[SUPERVISE] training complete" in out, f"supervised_train: rc {rc}\n{out}")
+    check("[SUPERVISE] child exited 143" in out,
+          f"supervised_train: the train child did not exit 143 on SIGTERM\n{out}")
+    relaunch = [line for line in out.splitlines() if "[SUPERVISE] launch (restart 1)" in line]
+    check(len(relaunch) == 1 and "--load-checkpoint" in relaunch[0],
+          f"supervised_train: relaunches {relaunch}\n{out}")
+    resumed = relaunch[0].split("--load-checkpoint")[1].strip()
+    check(C.checkpoint_step(resumed) > SUPERVISED_SAVE and os.path.isfile(resumed),
+          f"supervised_train: resumed from {resumed}")
+    check(not [n for n in os.listdir(run_dir) if n.endswith(".tmp")],
+          f"supervised_train: partial files {os.listdir(run_dir)}")
+    a = C.load_torch_checkpoint(os.path.join(logdir, "whole", f"checkpoint{EVAL_STEPS:05d}.ckpt"))
+    b = C.load_torch_checkpoint(os.path.join(run_dir, f"checkpoint{EVAL_STEPS:05d}.ckpt"))
+    n_tensors = 0
+    for which in ("coarse", "fine"):
+        check(a[which].keys() == b[which].keys(), f"supervised_train: {which} keys")
+        for k in a[which]:
+            check(torch.equal(a[which][k], b[which][k]), f"supervised_train: {which}.{k} differs")
+            n_tensors += 1
+    for k in ("latent_codes", "background"):
+        check(torch.equal(a[k], b[k]), f"supervised_train: {k} differs")
+    oa, ob = a["optimizer"], b["optimizer"]
+    check(oa["param_groups"] == ob["param_groups"] and oa["state"].keys() == ob["state"].keys(),
+          "supervised_train: Adam's groups or keys differ")
+    for key in oa["state"]:
+        for f in ("step", "exp_avg", "exp_avg_sq"):
+            check(torch.equal(oa["state"][key][f], ob["state"][key][f]),
+                  f"supervised_train: Adam {f} of parameter {key} differs")
+    phase("supervised_train", f"cli/train.py --bf16 (host feed, native), {EVAL_STEPS} steps at "
+                              f"K={EVAL_K}, saves every {SUPERVISED_SAVE}: uninterrupted in "
+                              f"{whole_s:.1f} s (K1 wrapper calls {launched['K1']}, K2 "
+                              f"{launched['K2']}); cli/supervise.py in {sup_s:.1f} s: the child "
+                              f"got SIGTERM after {os.path.basename(latest)} (at {t_ckpt:.1f} s), "
+                              f"exited 143, was relaunched (at {t_relaunch or 0.0:.1f} s) from "
+                              f"{os.path.basename(resumed)} and finished; "
+                              f"checkpoint{EVAL_STEPS:05d}.ckpt equals the uninterrupted run's "
+                              f"bit for bit ({n_tensors} parameters, latent table, background, "
+                              f"Adam state of {len(oa['state'])} tensors)")
+
+    # a save's cost to the training thread, on the run's last state
+    cfg = CfgNode(_supervised_cfg(ds_dir, logdir, "timing"))
+    flags = FeatureFlags.from_cfg(cfg)
+    ds = load_flame_data(ds_dir)
+    mc, mf = build_models_from_cfg(cfg, device=dev)
+    state = create_train_state(mc, mf, flags, n_train=len(ds.i_train),
+                               background=setup_background(ds, flags), device=dev)
+    opt = build_optimizer(cfg, state)
+    C.restore_train_state(state, opt, C.load_torch_checkpoint(
+        os.path.join(run_dir, f"checkpoint{EVAL_STEPS:05d}.ckpt"), device=dev))
+    writer = C.AsyncCheckpointWriter()
+    loss, psnr = torch.tensor(0.01, device=dev), torch.tensor(30.0, device=dev)
+    times = {"submit": [], "sync": []}
+    for i in range(SAVE_TIMINGS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        writer.submit(os.path.join(tmp, f"timing_async{i}.ckpt"), state, opt, loss=loss, psnr=psnr)
+        times["submit"].append((time.perf_counter() - t0) * 1e3)
+        writer.drain()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        C.save_torch_checkpoint(os.path.join(tmp, f"timing_sync{i}.ckpt"), state, opt, loss=loss,
+                                psnr=psnr)
+        times["sync"].append((time.perf_counter() - t0) * 1e3)
+    writer.finish()
+    mb = os.path.getsize(os.path.join(tmp, "timing_sync0.ckpt")) / 1e6
+    ms = {k: statistics.median(v) for k, v in times.items()}
+    phase_s = time.perf_counter() - t_phase
+    phase("supervised_train", f"a save's time on the training thread ({mb:.1f} MB .ckpt, median of "
+                              f"{SAVE_TIMINGS}): async submit {ms['submit']:.3f} ms (min "
+                              f"{min(times['submit']):.3f}) vs synchronous save {ms['sync']:.3f} ms "
+                              f"(min {min(times['sync']):.3f}); on {card}; the phase took "
+                              f"{phase_s:.1f} s")
+    return {"launches": launched, "resumed_from": os.path.basename(resumed),
+            "sigterm_after": os.path.basename(latest), "save_ms": ms, "ckpt_mb": mb,
+            "whole_s": whole_s, "supervised_s": sup_s, "phase_s": phase_s}
+
+
 def _k4_bytes(n_rays, n_samples, backward):
     """The bytes K4f / K4b must move: each input read once (rays, depths,
     dir_c, v0, weights; g and the transposed weights for K4b), each output
@@ -2269,6 +2551,60 @@ def flex_kernel_phase(dev):
         phase("flex_kernel", f"  grad {name:5s} max/norm rel err: {', '.join(cells)} (limits "
                              f"{'/'.join(map(str, k1_grad_limits(TRAIN_RAYS, name)))} below n = "
                              f"{FLEX_TC_DEPTH}, `flex_limit` from there)")
+    return result
+
+
+# the ray / sample cases whose last round leaves warpgroup 1 past the last
+# ray (tests/test_torch_k4_layout.py::DEAD_UNIT_CTA), at 8 hidden layers
+DEAD_UNIT_CASES = ((2085, 64), (601, 128))
+DEAD_UNIT_PASSES = 200
+
+
+def flex_dead_units_phase(dev):
+    """K4f + K4b at 8 hidden layers on DEAD_UNIT_CASES, DEAD_UNIT_PASSES
+    passes: the dead-unit walk of K4b's recompute and dX
+    (`fused_flex.cu::skip_stages`), which trapped in the mbarrier watchdog
+    before its repair. Every pass's output and gradients equal the first
+    pass's bit for bit. Nothing catches a fault: it fails the run."""
+    import torch
+
+    from nerface_tpu_torch.ops.kernels import fused_flex as F
+    from nerface_tpu_torch.tools.perf.cases import flex_params
+
+    n = 8
+    result = {}
+    for R, S in DEAD_UNIT_CASES:
+        sched = F.unit_schedule(R, S)
+        dead = sorted({(c, r, wg) for c, r, wg, _, ok in sched if not ok})
+        check(len(dead) == 1 and dead[0][2] == 1, f"flex_dead_units {R}x{S}: dead items {dead}")
+        params, v0 = flex_params(SEED + R + n, dev, n_hidden=n)
+        gen = torch.Generator().manual_seed(SEED + R + S)
+        ro, rd, z, dc, _, _ = _kernel_inputs(R, S, gen, dev)
+        weights = F.pack_flex_weights(params, n, 10)
+        g = torch.randn(R, S, 4, generator=gen).to(dev)
+        args = (weights, ro, rd, z, dc, v0)
+        first = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DEAD_UNIT_PASSES):
+            out = F.fused_flex_forward(*args, n)
+            grads = F.fused_flex_backward(*args, g, n)
+            flat = [out, *grads[0], *grads[1:]]
+            if first is None:
+                first = flat
+            else:
+                for a, b in zip(first, flat):
+                    check(torch.equal(a, b), f"flex_dead_units {R}x{S}: a pass differs from the "
+                                             f"first")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(all(bool(torch.isfinite(t).all()) for t in first),
+              f"flex_dead_units {R}x{S}: not finite")
+        result[f"{R}x{S}"] = {"passes": DEAD_UNIT_PASSES, "seconds": wall, "dead_item": dead[0]}
+        phase("flex_dead_units", f"{R}x{S}, n = {n}: {DEAD_UNIT_PASSES} passes of K4f + K4b in "
+                                 f"{wall:.2f} s, each bit for bit the first (outputs and "
+                                 f"{len(first) - 1} gradient tensors); the dead warpgroup-1 item "
+                                 f"in CTA {dead[0][0]}, round {dead[0][1]}")
     return result
 
 
@@ -2938,6 +3274,7 @@ def main() -> int:
         ev = eval_phase(dev, tmp, card)
         me = metrics_phase(ev)
         qu = quality_phase(dev, tmp, ev, me, card)
+        su = supervised_train_phase(dev, tmp, ev["dataset"], card)
         oc = occupancy_serve_phase(dev, ds, tr["checkpoint"])
         st = train_phase(dev, ds, tmp, False, card, SYNTH512_SMALLER, PAPER_TRAIN_STEPS,
                          "smaller_train")
@@ -2945,6 +3282,7 @@ def main() -> int:
         ct = train_phase(dev, ds, tmp, args.profile, card, SYNTH512_PAPER_COARSE,
                          PAPER_TRAIN_STEPS, "coarse_train")
         fk = flex_kernel_phase(dev)
+        du = flex_dead_units_phase(dev)
         fs = flex_serve_phase(dev, tmp, args.profile)
         ft = flex_train_phase(dev, ds, tmp, args.profile, card)
 
@@ -2969,7 +3307,7 @@ def main() -> int:
             "modes": ["paper", "small"],
             # the frames of the four serving paths and of the eval entry point
             "launches": s["launches"] + ss["launches"] + fe["launches"] + oc["launches"]
-            + sum(m["launches"] for m in ev["modes"].values()),
+            + sum(m["launches"] for m in ev["modes"].values()) + su["launches"]["K2"],
             "launches_by_path": {"serve": s["launches"], "smaller_serve": ss["launches"],
                                  "fast_serve": fe["launches"],
                                  "occupancy_serve": oc["launches"],
@@ -2978,7 +3316,8 @@ def main() -> int:
                                  "window_train": sum(r[m]["K2"] for r in wt["launches"].values()
                                                      for m in r),
                                  "smaller_train": st["launches"]["K2"],
-                                 "coarse_train": ct["launches"]["K2"]},
+                                 "coarse_train": ct["launches"]["K2"],
+                                 "supervised_train": su["launches"]["K2"]},
             "kernel_runs_by_path": {"window_train": wt_k2_runs, "eval_parity": ev["runs"]},
             "max_abs_err": max(errs),
             # one coarse (S=64, weights) + one fine (S=128) call on 4096 rays
@@ -3022,11 +3361,12 @@ def main() -> int:
             "replaces": "nerface_tpu/ops/pallas/fused_train.py:69",
             "modes": ["paper", "small"],
             "launches": tr["launches"]["K1"] + st["launches"]["K1"] + wt_k1
-            + ev["train"]["launches"]["K1"],
+            + ev["train"]["launches"]["K1"] + su["launches"]["K1"],
             "launches_by_path": {"train": tr["launches"]["K1"],
                                  "smaller_train": st["launches"]["K1"],
                                  "window_train": wt_k1,
-                                 "eval_train": ev["train"]["launches"]["K1"]},
+                                 "eval_train": ev["train"]["launches"]["K1"],
+                                 "supervised_train": su["launches"]["K1"]},
             "kernel_runs_by_path": {"window_train": wt_k1_runs},
             "max_abs_err": max(v for r in (tk, tks) for e in r["err"].values() for v in e.values()),
             # a train step's two passes: coarse (S=64) + fine (S=128), 2048 rays
@@ -3055,6 +3395,15 @@ def main() -> int:
             # window (with --profile)
             "window_step_ms": wt["step_ms"],
             "window_device_idle": wt["idle"],
+            # the host feed's draw a batch on the host's CPU, native and numpy,
+            # and the device feed's top-k alone
+            "feed_batch_ms": wt["feed_batch_ms"],
+            "device_feed_topk_ms": wt["topk_ms"],
+            # the supervised run: where SIGTERM hit, the resume point, and a
+            # save's ms on the training thread, async submit vs synchronous
+            "supervised": {k: su[k] for k in ("sigterm_after", "resumed_from", "save_ms",
+                                             "ckpt_mb", "whole_s", "supervised_s", "phase_s")},
+            "feed_rows_s": wt["feed_rows_s"],
             "smaller_train_step_ms": st["step_ms"],
             "step_vs_f32": ts,
             "card": card,
@@ -3160,6 +3509,9 @@ def main() -> int:
             # operations bound and, apart, their workspace byte floor
             "bare_ms_by_pass": fk["bwd_bare_ms"],
             "launch_split_by_pass": fk["bwd_split"],
+            # K4f + K4b passes on the two cases with a dead warpgroup, each
+            # bit for bit the first pass
+            "dead_unit_passes": du,
             "design": K4B_DESIGN,
             "train_step_ms": ft["step_ms"],
             "train_rays_s": ft["rays_s"],

@@ -290,14 +290,27 @@ __device__ __forceinline__ void layer(float* acc, uint32_t* a, uint32_t xin, Sme
 
 // A dead unit's share of the ring: `count` stages waited for and released
 // untouched, so both consumers walk the same stage sequence while only the
-// live one computes (no branch inside a product's wgmma chain).
+// live one computes (no branch inside a product's wgmma chain). Only the
+// warpgroup's thread 0 waits and releases; the others only advance their
+// ring. Nothing ties a dead warpgroup's warps together (a live one's are
+// tied by its wgmmas), so a warp that waited on `full[s]` itself could
+// still be waiting for lap L when thread 0 has released it and the
+// producer has completed lap L + 1: it would then wait on lap L + 2, of
+// the same parity, and trail the ring by two laps until the producer
+// stops and the watchdog traps. The other threads read nothing of a
+// stage, and a warpgroup's items only grow, so once its item is past the
+// last ray every later one is too and they never wait on the ring again.
 template <int STAGES, class Smem, class Release>
 __device__ __forceinline__ void skip_stages(Smem& sm, Ring& ring, int count, const Release& release) {
+  const bool leader = (threadIdx.x & 127) == 0;
   for (int i = 0; i < count; ++i) {
-    mbar_wait(&sm.full[ring.stage], ring.phase);
-    release(ring.stage);
+    if (leader) {
+      mbar_wait(&sm.full[ring.stage], ring.phase);
+      release(ring.stage);
+    }
     ring.advance<STAGES>();
   }
+  __syncwarp();  // thread 0's warp whole again before an aligned barrier (the dX kernel's last)
 }
 
 // The producer: each unit's chunks, W1, WH_0..WH_{n-1}, WF, WD0.
@@ -351,13 +364,17 @@ __device__ __forceinline__ void fwd_consume(FwdSmem& sm, const FwdArgs& a, int w
       const int unit = item * G::UNITS + u;
       const int ray = ray0 + (u * 64 + r0) / S;
       const int b = units & 1;
-      mbar_wait(&sm.xin_full[wg][b], (units >> 1) & 1);
       if (SAVE && !live) {  // the recompute stores nothing of a dead unit: skip its chunks
-        if ((threadIdx.x & 127) == 0) mbar_arrive(&sm.xin_empty[wg][b]);
+        // thread 0 alone takes the xin buffer, as skip_stages the ring
+        if ((threadIdx.x & 127) == 0) {
+          mbar_wait(&sm.xin_full[wg][b], (units >> 1) & 1);
+          mbar_arrive(&sm.xin_empty[wg][b]);
+        }
         ++units;
         skip_stages<RING>(sm, ring, 1 + 4 * n + 4 + 4, release);
         continue;
       }
+      mbar_wait(&sm.xin_full[wg][b], (units >> 1) & 1);
       const uint32_t xin = smem_u32(sm.xin[wg][b]);
       layer<HIDDEN, 1, 1, FRESH>(acc, act, xin, sm, ring, release);
       if ((threadIdx.x & 127) == 0) mbar_arrive(&sm.xin_empty[wg][b]);  // layer1 is its only reader

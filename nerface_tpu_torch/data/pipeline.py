@@ -1,16 +1,21 @@
 """Host-side ray-batch feed.
 
-Port of the numpy path of `nerface_tpu/data/pipeline.py::RayFeed`
-(reference `train_transformed_rays.py:289-331`): per step, a train frame
-and `num_rays` importance-sampled pixels (data/sampler.py), their rays
-(pixel directions in the camera frame are computed once and only the
-selected ones are rotated by the frame's pose), target and background
-pixels, the frame's expression and latent index. Batch b's draws come from
+Port of `nerface_tpu/data/pipeline.py::RayFeed` (reference
+`train_transformed_rays.py:289-331`): per step, a train frame and
+`num_rays` importance-sampled pixels (data/sampler.py), their rays (pixel
+directions in the camera frame are computed once and only the selected
+ones are rotated by the frame's pose), target and background pixels, the
+frame's expression and latent index. Batch b's draws come from
 `RandomState(SeedSequence([seed, b]))`, so a resumed run built with
-`start_batch` = its step continues the uninterrupted run's stream, and the
-batches are bit-identical to the JAX package's numpy path. A background
-thread keeps `prefetch` batches ready; the train loop stacks a window's
-batches and uploads them once (train/window.py).
+`start_batch` = its step continues the uninterrupted run's stream.
+
+Two paths, each bit-identical to the JAX package's path of the same name:
+the native path (the default, as in JAX) draws one seed from the batch's
+RandomState for the C++ Gumbel top-k over the frame's map and gathers and
+rotates the rays in C++ (`nerface_tpu_torch/native`); the numpy path
+(`native=False`) draws with `sample_ray_indices`. They draw other batches.
+A background thread keeps `prefetch` batches ready; the train loop stacks
+a window's batches and uploads them once (train/window.py).
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ class RayFeed:
         bbox_p: float = 0.9,
         prefetch: int = 4,
         start_batch: int = 0,
+        native: bool = True,
     ):
         if dataset.images is None:
             raise ValueError("RayFeed needs a dataset with images")
@@ -60,6 +66,12 @@ class RayFeed:
         )
         self._maps = build_importance_maps(dataset.bboxes, H, W, dataset.i_train, p=bbox_p)
         self._train_pos = {int(g): i for i, g in enumerate(dataset.i_train)}
+        self._native = None
+        if native:
+            from nerface_tpu_torch import native as _native
+
+            _native.library()  # built (or its failure raised) here, not in the thread
+            self._native = _native
         self._queue: "queue.Queue" = queue.Queue(maxsize=prefetch)
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -74,21 +86,33 @@ class RayFeed:
         rng = self._batch_rng()
         self._batch_index += 1
         img_idx = int(rng.choice(ds.i_train))
-        sel = sample_ray_indices(rng, self._maps[self._train_pos[img_idx]], self.num_rays)
-        pose = ds.poses[img_idx]
-        rd = (self._dirs_cam[sel] @ pose[:3, :3].T.astype(np.float32)).astype(np.float32)
-        ro = np.broadcast_to(pose[:3, 3].astype(np.float32), rd.shape).copy()
+        probs = self._maps[self._train_pos[img_idx]]
+        if self._native is not None:
+            sel = self._native.gumbel_topk(probs, self.num_rays, int(rng.randint(0, 2**63 - 1)))
+            ro, rd, target, bg = self._native.assemble_batch(
+                sel, self._dirs_cam, self._images_flat[img_idx], ds.poses[img_idx],
+                self._background_flat,
+            )
+        else:
+            sel = sample_ray_indices(rng, probs, self.num_rays)
+            pose = ds.poses[img_idx]
+            rd = (self._dirs_cam[sel] @ pose[:3, :3].T.astype(np.float32)).astype(np.float32)
+            ro = np.broadcast_to(pose[:3, 3].astype(np.float32), rd.shape).copy()
+            target = self._images_flat[img_idx][sel, :3]
+            bg = None
+            if self._background_flat is not None:
+                bg = self._background_flat[sel, :3].astype(np.float32)
         batch = {
             "ray_origins": ro,
             "ray_directions": rd,
-            "target_rgb": self._images_flat[img_idx][sel, :3],
+            "target_rgb": target,
             "expression": ds.expressions[img_idx],
             "latent_index": np.int32(img_idx),
             "frame_index": np.int32(img_idx),
             "pixel_indices": sel.astype(np.int32),
         }
-        if self._background_flat is not None:
-            batch["background_rgb"] = self._background_flat[sel, :3].astype(np.float32)
+        if bg is not None:
+            batch["background_rgb"] = bg
         return batch
 
     def _worker(self):

@@ -14,7 +14,10 @@ params are dicts keyed by the same state-dict names) into tensors for
 Training: `save_torch_checkpoint` writes a train state in that schema with
 the Adam state as `optimizer_state_dict` (the reference's two param
 groups; the JAX package's `load_torch_checkpoint` +
-`import_torch_optimizer_state` read it), and `restore_train_state` resumes
+`import_torch_optimizer_state` read it), to a temporary file renamed into
+place; `AsyncCheckpointWriter` writes it from a worker thread;
+`latest_checkpoint` finds a run's newest complete `.ckpt` (the
+supervisor's resume point); and `restore_train_state` resumes
 from such a file — written by the port, the reference or the JAX
 package's `export_torch_checkpoint`: weights, latent table, background,
 step and Adam moments; `train_state_from_jax` does the same from a JAX
@@ -25,6 +28,9 @@ tensors its optimizer never sees; PARITY.md).
 
 from __future__ import annotations
 
+import os
+import re
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Mapping, Optional
 
 import numpy as np
@@ -68,43 +74,157 @@ def load_torch_checkpoint(path: str, device=None) -> Dict[str, Any]:
     }
 
 
-def _optimizer_state_dict(optimizer) -> Dict[str, Any]:
-    """`optimizer.state_dict()` with each group's LR as a float, as the
-    reference's schema holds it (the port keeps it in a tensor)."""
-    sd = optimizer.state_dict()
-    sd["param_groups"] = [
+def _payload(state, optimizer, loss, psnr) -> Dict[str, Any]:
+    """The `.ckpt`'s dict (`train_transformed_rays.py:554-572`) holding the
+    live tensors themselves, the optimizer's LR and the metrics as they
+    are (tensors or numbers): no copy, no read from the card."""
+
+    def sd(module):
+        return None if module is None else {k: v.detach() for k, v in module.state_dict().items()}
+
+    def t(x):
+        return None if x is None else x.detach()
+
+    return {
+        "iter": int(state.step),
+        "model_coarse_state_dict": sd(state.model_coarse),
+        "model_fine_state_dict": sd(state.model_fine),
+        "optimizer_state_dict": optimizer.state_dict(),
+        "loss": loss,
+        "psnr": psnr,
+        "background": t(state.background),
+        "latent_codes": t(state.latent_codes),
+    }
+
+
+def _tree_map(fn, x):
+    """`fn` on every tensor of a nest of dicts, lists and tuples."""
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, dict):
+        return {k: _tree_map(fn, v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_tree_map(fn, v) for v in x)
+    return x
+
+
+def _finish_payload(payload: Dict[str, Any]) -> Dict[str, Any]:
+    """A payload whose tensors are on the host as the schema holds them:
+    the LRs and the metrics as floats."""
+    opt = payload["optimizer_state_dict"]
+    opt["param_groups"] = [
         dict(g, lr=float(g["lr"])) if isinstance(g["lr"], torch.Tensor) else g
-        for g in sd["param_groups"]
+        for g in opt["param_groups"]
     ]
-    return sd
+    payload["loss"], payload["psnr"] = float(payload["loss"]), float(payload["psnr"])
+    return payload
 
 
-def save_torch_checkpoint(path: str, state, optimizer, loss: float = 0.0, psnr: float = 0.0) -> str:
-    """Write `state` (train/state.py) and `optimizer` as a reference-schema
-    `.ckpt` (`train_transformed_rays.py:554-572`); returns `path`."""
-
-    def cpu_sd(module):
-        if module is None:
-            return None
-        return {k: v.detach().cpu() for k, v in module.state_dict().items()}
-
-    def cpu(t):
-        return None if t is None else t.detach().cpu()
-
-    torch.save(
-        {
-            "iter": int(state.step),
-            "model_coarse_state_dict": cpu_sd(state.model_coarse),
-            "model_fine_state_dict": cpu_sd(state.model_fine),
-            "optimizer_state_dict": _optimizer_state_dict(optimizer),
-            "loss": float(loss),
-            "psnr": float(psnr),
-            "background": cpu(state.background),
-            "latent_codes": cpu(state.latent_codes),
-        },
-        path,
-    )
+def _write_atomic(payload: Dict[str, Any], path: str) -> str:
+    """`torch.save` to `path`.tmp, synced to the disk, then a rename: a
+    process killed while writing leaves a `.tmp` that `latest_checkpoint`
+    skips, never a torn `.ckpt`."""
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        torch.save(payload, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
     return path
+
+
+def save_torch_checkpoint(path: str, state, optimizer, loss=0.0, psnr=0.0) -> str:
+    """Write `state` (train/state.py) and `optimizer` as a reference-schema
+    `.ckpt` (`train_transformed_rays.py:554-572`), atomically; returns
+    `path`. `loss` and `psnr` may be 0-d tensors."""
+    payload = _tree_map(lambda x: x.cpu(), _payload(state, optimizer, loss, psnr))
+    return _write_atomic(_finish_payload(payload), path)
+
+
+class AsyncCheckpointWriter:
+    """Checkpoint writes off the training thread (the port of
+    `nerface_tpu/train/checkpoint.py::AsyncCheckpointWriter`).
+
+    `submit` clones the state's tensors, the optimizer's state and the
+    metrics on the current (training) stream, records an event after the
+    clones and hands them to one worker thread, which copies them to
+    pinned host memory on a stream of its own once the event has
+    completed and writes the `.ckpt` as `save_torch_checkpoint` does, so
+    the training thread neither reads the card nor waits for the disk. At
+    most one write is in flight: a second `submit` first drains the
+    previous one, bounding the snapshots to one. `finish()` joins the
+    worker and re-raises a failed write; call it before reading the
+    checkpoint directory. The clones are never made inside a captured
+    graph: the loop submits between windows."""
+
+    def __init__(self):
+        self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="ckpt-writer")
+        self._future = None
+        self._stream = None
+
+    def submit(self, path: str, state, optimizer, loss=0.0, psnr=0.0):
+        self.drain()
+        snap = _tree_map(lambda x: x.clone(), _payload(state, optimizer, loss, psnr))
+        ready = None
+        dev = next(state.model_coarse.parameters()).device
+        if dev.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record()
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(device=dev)
+        self._future = self._pool.submit(self._write, path, snap, ready)
+
+    def _write(self, path, snap, ready):
+        if ready is not None:
+            with torch.cuda.stream(self._stream):
+                self._stream.wait_event(ready)
+                snap = _tree_map(
+                    lambda x: torch.empty(x.shape, dtype=x.dtype, pin_memory=True).copy_(
+                        x, non_blocking=True) if x.is_cuda else x,
+                    snap,
+                )
+            self._stream.synchronize()
+        return _write_atomic(_finish_payload(snap), path)
+
+    def drain(self):
+        if self._future is not None:
+            fut, self._future = self._future, None
+            fut.result()
+
+    def finish(self):
+        try:
+            self.drain()
+        finally:
+            self._pool.shutdown(wait=True)
+
+
+_CKPT_NAME = re.compile(r"checkpoint(\d+)\.ckpt")
+
+
+def checkpoint_step(path: str) -> int:
+    """Step number of a `checkpoint{step}.ckpt` basename (-1 if none).
+
+    Numeric, not lexical: `checkpoint{step:05d}` grows to 6 digits past
+    step 99999 (the reference's paper schedule runs to 1M), where string
+    order would rank `checkpoint100001` below `checkpoint95001`."""
+    m = _CKPT_NAME.fullmatch(os.path.basename(path))
+    return int(m.group(1)) if m else -1
+
+
+def is_complete_checkpoint(path: str) -> bool:
+    """True for a `checkpoint{step}.ckpt` file: `save_torch_checkpoint`
+    renames it into place only once written, so a process killed
+    mid-save leaves a `.tmp`, which this rejects."""
+    return checkpoint_step(path) >= 0 and os.path.isfile(path)
+
+
+def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
+    """Highest-step complete `checkpoint{step}.ckpt` under `ckpt_dir`."""
+    if not os.path.isdir(ckpt_dir):
+        return None
+    cands = [os.path.join(ckpt_dir, d) for d in os.listdir(ckpt_dir)]
+    cands = [p for p in cands if is_complete_checkpoint(p)]
+    return max(cands, key=checkpoint_step) if cands else None
 
 
 def restore_train_state(state, optimizer, ckpt: Dict[str, Any]):

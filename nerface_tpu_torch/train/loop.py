@@ -32,8 +32,18 @@ stream from a snapshot of the post-step-j models and background, cloned
 on the training stream, at most one render in flight; a failing render
 fails the run.
 
-Not ported yet (ROADMAP.md Queue 1): TensorBoard, the `config.yml`
-snapshot, the supervisor, several devices (DDP).
+Saves go through `AsyncCheckpointWriter` (train/checkpoint.py): the state
+and the Adam state cloned on the training stream after the window, written
+by a worker thread to a temporary file renamed into place, at most one
+write in flight; the loop's `finally` waits for the last write and
+re-raises a failed one. `ScalarWriter` (utils/tb.py) writes
+`logdir/config.yml` and, with tensorboardX, the JAX package's panels: the
+train scalars and `host/rss_gb` from the logging thread at print
+boundaries, the validation scalars and images from the validation render.
+Under autograd's anomaly mode (`--debug-nans`), which reads every
+gradient back to the host, the loop runs one step a window.
+
+Not ported yet (ROADMAP.md Queue 1): several devices (DDP).
 """
 
 from __future__ import annotations
@@ -57,13 +67,15 @@ from nerface_tpu_torch.models.nerf_models import build_model
 from nerface_tpu_torch.ops.math import mse2psnr
 from nerface_tpu_torch.render.pipeline import RenderSettings
 from nerface_tpu_torch.train.checkpoint import (
+    AsyncCheckpointWriter,
     load_torch_checkpoint,
     restore_train_state,
-    save_torch_checkpoint,
 )
 from nerface_tpu_torch.train.schedule import from_cfg
 from nerface_tpu_torch.train.state import TrainState, build_optimizer, create_train_state
 from nerface_tpu_torch.train.window import METRIC_KEYS, TrainWindow
+from nerface_tpu_torch.utils.profiling import host_rss_gb
+from nerface_tpu_torch.utils.tb import ScalarWriter
 
 
 def build_models_from_cfg(cfg, device=None, generator: Optional[torch.Generator] = None):
@@ -107,11 +119,14 @@ def validate(
     step: int,
     num_frames: int = 2,
     dtype=None,
+    writer: Optional[ScalarWriter] = None,
 ) -> Dict[str, float]:
     """Full-frame validation renders (`train_transformed_rays.py:427-549`)
     with the reference's quirks: only the first `num_frames` val frames,
     a zero latent code (which a model that takes none ignores), the fine
-    MSE counted twice, and the sum divided by len(i_val)."""
+    MSE counted twice, and the sum divided by len(i_val). With an active
+    `writer`, the validation scalars and the last frame's images are logged
+    (`nerface_tpu/train/loop.py:151-166`)."""
     settings = RenderSettings.from_cfg(cfg, mode="validation")
     dev = next(state.model_coarse.parameters()).device
     bg = None
@@ -122,6 +137,7 @@ def validate(
         if (flags.train_latent_codes or flags.disable_latent_codes) else None
     )
     total_loss = coarse_loss = fine_loss = 0.0
+    last = None
     t0 = time.time()
     for img_idx in dataset.i_val[:num_frames]:
         expr = torch.as_tensor(np.asarray(dataset.expressions[img_idx], np.float32), device=dev)
@@ -141,8 +157,25 @@ def validate(
             total_loss += fine_loss + fine_loss
         else:
             total_loss += coarse_loss
+        last = (out, target)
     loss = total_loss / max(len(dataset.i_val), 1)
-    return {"loss": loss, "psnr": float(mse2psnr(torch.tensor(loss))),
+    psnr = float(mse2psnr(torch.tensor(loss)))
+    if writer is not None and writer.active and last is not None:
+        out, target = last
+        host = {k: out[k].float().cpu().numpy() for k in ("rgb_coarse", "rgb_fine", "bg_weight")
+                if k in out}
+        writer.scalar("validation/loss", loss, step)
+        writer.scalar("validation/coarse_loss", coarse_loss, step)
+        writer.scalar("validation/psnr", psnr, step)
+        writer.image("validation/rgb_coarse", host["rgb_coarse"], step)
+        if "rgb_fine" in host:
+            writer.scalar("validation/fine_loss", fine_loss, step)
+            writer.image("validation/rgb_fine", host["rgb_fine"], step)
+        writer.image("validation/img_target", target.cpu().numpy(), step)
+        if bg is not None:
+            writer.image("validation/background", bg.float().cpu().numpy(), step)
+            writer.image("validation/weights", host["bg_weight"], step, dataformats="HW")
+    return {"loss": loss, "psnr": psnr,
             "coarse_loss": coarse_loss, "fine_loss": fine_loss, "time": time.time() - t0}
 
 
@@ -241,7 +274,7 @@ def train(
 
     settings = RenderSettings.from_cfg(cfg, mode="train")
     logdir = os.path.join(str(cfg.experiment.logdir), str(cfg.experiment.id))
-    os.makedirs(logdir, exist_ok=True)
+    writer = ScalarWriter(logdir, cfg=cfg)
     train_iters = int(max_iters if max_iters is not None else cfg.experiment.train_iters)
     validate_every = int(cfg.experiment.validate_every)
     save_every = int(cfg.experiment.save_every)
@@ -249,6 +282,10 @@ def train(
     rays_per_step = int(cfg.nerf.train.num_random_rays)
     k_exec = _effective_window(_requested_window(steps_per_execute, cfg, train_iters),
                                [print_every, validate_every, save_every])
+    if torch.is_anomaly_enabled() and k_exec > 1:
+        print(f"[train] anomaly detection on (--debug-nans): one step a window instead of "
+              f"{k_exec}", flush=True)
+        k_exec = 1
     if k_exec > 1:
         print(f"[train] execution window: {k_exec} steps", flush=True)
 
@@ -275,25 +312,47 @@ def train(
         while val_pending:
             val_pending.popleft().result()
 
+    ckpt_writer = AsyncCheckpointWriter()
+
+    def _before_capture():
+        _drain_validation()
+        ckpt_writer.drain()
+
     window = TrainWindow(state, optimizer, settings, flags, from_cfg(cfg), seed, k_exec,
-                         dtype=dtype, device_feed=dfeed, before_capture=_drain_validation)
+                         dtype=dtype, device_feed=dfeed, before_capture=_before_capture)
     io_pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="train-log")
     logged = []
     start_iter = state.step
     t_start = time.time()
+    log_prev = {"t": None, "n": 0}
 
     def _log_train(host, ready, j, n_done):
         # the logging thread: waits for the copy, so rays/s counts work done
         if ready is not None:
             ready.synchronize()
         m = dict(zip(METRIC_KEYS, host.tolist()))
-        rays_s = rays_per_step * n_done / max(time.time() - t_start, 1e-9)
+        now = time.time()
+        rays_s = rays_per_step * n_done / max(now - t_start, 1e-9)
+        inst = rays_s
+        if log_prev["t"] is not None and n_done > log_prev["n"]:
+            inst = rays_per_step * (n_done - log_prev["n"]) / max(now - log_prev["t"], 1e-9)
+        log_prev["t"], log_prev["n"] = now, n_done
         print(
             f"[TRAIN] Iter: {j} Loss: {m['total_loss']:.6f} "
             f"BG Loss: {m['background_loss']:.6f} PSNR: {m['psnr']:.3f} "
             f"LatentReg: {m['latent_code_loss']:.6f} rays/s: {rays_s:,.0f}",
             flush=True,
         )
+        writer.scalar("train/coarse_loss", m["coarse_loss"], j)
+        writer.scalar("train/fine_loss", m["fine_loss"], j)
+        writer.scalar("train/psnr", m["psnr"], j)
+        writer.scalar("train/rays_per_sec", rays_s, j)
+        writer.scalar("train/rays_per_sec_inst", inst, j)
+        writer.scalar("host/rss_gb", host_rss_gb() or 0.0, j)
+        if flags.train_latent_codes:
+            writer.scalar("train/code_loss", m["latent_code_loss"], j)
+        if flags.supervised_train_background:
+            writer.scalar("train/bg_loss", m["background_loss"], j)
 
     # at each print boundary the loop waits for the previous boundary's
     # copy: the host runs at most ~2 print windows ahead of the card
@@ -308,11 +367,11 @@ def train(
 
     def _run_val(snap, vj, ready):
         if val_stream is None:
-            vm = validate(cfg, dataset, snap, flags, vj, dtype=dtype)
+            vm = validate(cfg, dataset, snap, flags, vj, dtype=dtype, writer=writer)
         else:
             with torch.cuda.stream(val_stream):
                 val_stream.wait_event(ready)
-                vm = validate(cfg, dataset, snap, flags, vj, dtype=dtype)
+                vm = validate(cfg, dataset, snap, flags, vj, dtype=dtype, writer=writer)
         print(f"[VAL] Iter: {vj} loss: {vm['loss']:.6f} PSNR: {vm['psnr']:.3f} "
               f"time: {vm['time']:.2f}s", flush=True)
         return vm
@@ -354,10 +413,11 @@ def train(
                     _run_val(state, j, None)
 
             if save_every > 0 and (j % save_every == 0 or last):
-                m = dict(zip(METRIC_KEYS, window.metrics_out.tolist()))
-                save_torch_checkpoint(
+                metrics = window.metrics_out
+                ckpt_writer.submit(
                     os.path.join(logdir, f"checkpoint{state.step:05d}.ckpt"), state, optimizer,
-                    loss=m["total_loss"], psnr=m["psnr"],
+                    loss=metrics[METRIC_KEYS.index("total_loss")],
+                    psnr=metrics[METRIC_KEYS.index("psnr")],
                 )
             i = j + 1
     finally:
@@ -365,10 +425,12 @@ def train(
             if feed is not None:
                 feed.stop()
             _drain_validation()  # a failed render fails the run
+            ckpt_writer.finish()  # and so does a failed save
         finally:
             if val_pool is not None:
                 val_pool.shutdown(wait=True)
             io_pool.shutdown(wait=True)
+            writer.close()
     for f in logged:
         f.result()
     return state

@@ -532,6 +532,37 @@ def test_flex_kernels_persistent_grid(cuda_device, n, R, S):
         assert e_norm <= tol_norm + 1e-6 / max(float(r.norm()), 1e-30), f"{name}: ‖err‖ {e_norm} > {tol_norm}"
 
 
+DEAD_UNIT_CASES = [(2085, 64), (601, 128)]  # warpgroup 1's last item past the last ray
+DEAD_UNIT_PASSES = 50
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,S", DEAD_UNIT_CASES, ids=["s64", "s128"])
+def test_flex_dead_units_repeat_bit_for_bit(cuda_device, R, S):
+    """K4f + K4b at 8 hidden layers on the two cases whose last round has a
+    dead warpgroup (the walk of `fused_flex.cu::skip_stages`, where the
+    watchdog trapped before its repair), DEAD_UNIT_PASSES times: every
+    pass's output and gradients equal the first pass's bit for bit."""
+    from nerface_tpu_torch.ops.kernels import fused_flex as F
+
+    n = 8
+    params, v0 = flex_params(R + n, cuda_device, n_hidden=n)
+    ro, rd, z, dc, _, _ = _inputs(R, S, cuda_device, seed=R + S + n)
+    weights = F.pack_flex_weights(params, n, 10)
+    g = torch.randn(R, S, 4, generator=torch.Generator().manual_seed(S + n)).to(cuda_device)
+    args = (weights, ro, rd, z, dc, v0)
+    first = None
+    for _ in range(DEAD_UNIT_PASSES):
+        out = F.fused_flex_forward(*args, n)
+        grads = F.fused_flex_backward(*args, g, n)
+        flat = [out] + list(grads[0]) + list(grads[1:])
+        if first is None:
+            first = flat
+        else:
+            assert all(torch.equal(a, b) for a, b in zip(first, flat))
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("R,S", [(1, 32), (1, 64), (1, 128), (3, 32)],
                          ids=["half-unit", "one-unit", "one-ray-two-units", "ragged-item"])

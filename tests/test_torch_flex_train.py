@@ -31,7 +31,6 @@ import numpy as np
 import pytest
 import torch
 
-import nerface_tpu.native
 from nerface_tpu.config import CfgNode as JaxCfgNode
 from nerface_tpu.config.flags import FeatureFlags as JaxFlags
 from nerface_tpu.data.flame import load_flame_data as jax_load_flame_data
@@ -54,6 +53,7 @@ from nerface_tpu_torch.train import checkpoint as ckpt
 from nerface_tpu_torch.train.loop import build_models_from_cfg, train
 from nerface_tpu_torch.train.state import build_optimizer, create_train_state
 from nerface_tpu_torch.train.step import compute_losses
+from test_torch_train import pin_numpy_feeds
 
 torch.set_num_threads(1)
 
@@ -235,7 +235,7 @@ def _train_cfg(basedir, logdir):
 
 
 def test_whole_slice_matches_jax_train(tmp_path, capsys, monkeypatch):
-    monkeypatch.setattr(nerface_tpu.native, "available", lambda: False)
+    pin_numpy_feeds(monkeypatch)  # both packages' host feeds on their numpy paths
     ds_dir = make_synthetic_flame_dataset(str(tmp_path / "ds"), H=16, W=16, n_train=4, n_val=2,
                                           n_test=1, num_samples=8)
     d = _train_cfg(ds_dir, str(tmp_path / "runs"))

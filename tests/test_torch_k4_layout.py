@@ -222,6 +222,29 @@ def test_unit_schedule_covers_every_row_once(R, S):
         assert mine == sorted(mine)
 
 
+# the card tests' ragged cases (tests/test_torch_cuda.py::PERSISTENT_CASES)
+# and the CTA whose last round leaves warpgroup 1 past the last ray
+DEAD_UNIT_CTA = {(2085, 64): 118, (601, 128): 36, (1111, 32): None}
+
+
+def test_persistent_cases_reach_the_dead_unit_walk():
+    """The card tests reach the dead-unit walk (`fused_flex.cu::skip_stages`,
+    K4b's recompute and dX): 2085 × 64 and 601 × 128 end on a round whose
+    warpgroup 1 item lies past the last ray, in CTA 118 and CTA 36, the
+    blocks of the watchdog's traps; 1111 × 32's last item is live."""
+    from test_torch_cuda import PERSISTENT_CASES
+
+    assert sorted(PERSISTENT_CASES) == sorted(DEAD_UNIT_CTA)
+    for (R, S), cta in DEAD_UNIT_CTA.items():
+        dead = {(c, r, wg) for c, r, wg, _, ok in F.unit_schedule(R, S) if not ok}
+        if cta is None:
+            assert dead == set()
+        else:
+            rounds = -(-R // (F.CONSUMERS * (64 // S if S < 64 else 1)))
+            assert dead == {(cta, rounds - 1, 1)}
+            assert (rounds - 1) % F.FLEX_CTAS == cta
+
+
 def _chip_smoke():
     import importlib.util
 

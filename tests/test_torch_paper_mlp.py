@@ -39,7 +39,6 @@ import numpy as np
 import pytest
 import torch
 
-import nerface_tpu.native
 from nerface_tpu.config import CfgNode as JaxCfgNode
 from nerface_tpu.data.flame import load_flame_data as jax_load_flame_data
 from nerface_tpu.models import MODELS as JAX_MODELS
@@ -63,6 +62,7 @@ from test_torch_train import (  # noqa: F401 (dataset_dir is a fixture)
     _settings,
     _train_cfg,
     dataset_dir,
+    pin_numpy_feeds,
 )
 
 torch.set_num_threads(1)
@@ -313,7 +313,7 @@ def test_coarse_only_train_matches_jax_train(dataset_dir, tmp_path, capsys, monk
     """`train()` of both packages, f32 on the CPU, 3 steps of a coarse-only
     config (no models.fine, num_fine 0) from the same checkpoint: the loop,
     the resume and the saves carry a run with no fine model."""
-    monkeypatch.setattr(nerface_tpu.native, "available", lambda: False)
+    pin_numpy_feeds(monkeypatch)  # both packages' host feeds on their numpy paths
     d = _train_cfg(dataset_dir, str(tmp_path / "runs"))
     del d["models"]["fine"]
     for mode in ("train", "validation"):

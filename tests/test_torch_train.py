@@ -21,7 +21,8 @@ Tolerances, with their reasons:
 * Adam + the LR schedule against optax's over 5 steps on the same
   gradients: parameters atol 1e-3·lr (a few ulps of a parameter: the f32
   rounding of the same update), moments atol 1e-5·max.
-* `RayFeed`: bit-identical batches (the numpy path of both packages).
+* `RayFeed`: bit-identical batches, the numpy path of both packages and
+  the native path of both.
 * The whole slice, `train()` of both packages for 3 steps on the same
   weights and data with deterministic draws: per-step losses rtol 1e-4;
   final parameters atol 10·lr, ≥ 99 % of elements within 1e-5 — Adam's
@@ -67,6 +68,7 @@ from nerface_tpu_torch.ops.safe import safe_norm
 from nerface_tpu_torch.ops.sampling import per_ray_normal
 from nerface_tpu_torch.render.pipeline import EncodeSpec, RenderSettings
 from nerface_tpu_torch.train import checkpoint as ckpt
+from nerface_tpu_torch.train import loop as loop_mod
 from nerface_tpu_torch.train.fused import fused_losses, fused_train_eligible
 from nerface_tpu_torch.train.loop import build_models_from_cfg, train
 from nerface_tpu_torch.train.schedule import from_cfg as schedule_from_cfg
@@ -76,6 +78,29 @@ from nerface_tpu_torch.train.step import compute_losses
 torch.set_num_threads(1)
 
 SC = SF = 16
+
+
+def pin_numpy_feeds(monkeypatch):
+    """Both packages' host feeds on their numpy paths: the JAX package's
+    `RayFeed` takes it when its native library is not `available()`, the
+    port's with `native=False` (`train()` builds `loop.RayFeed`)."""
+    monkeypatch.setattr(nerface_tpu.native, "available", lambda: False)
+    monkeypatch.setattr(loop_mod, "RayFeed", functools.partial(RayFeed, native=False))
+
+
+def jax_native():
+    """The JAX package's native module with its library loaded. Its loader
+    builds beside the source without a lock and remembers a failed load
+    (ROADMAP Queue 3), so a load that failed while another test worker was
+    still writing the library is tried again."""
+    import time
+
+    for _ in range(10):
+        if nerface_tpu.native.available():
+            return nerface_tpu.native
+        nerface_tpu.native._tried = False
+        time.sleep(1.0)
+    raise AssertionError("the JAX package's native library does not load")
 
 
 def _opt_cfg(lr_decay=250):
@@ -315,13 +340,10 @@ def test_adam_and_schedule_match_optax():
     assert float(opt.state[params[0]]["step"]) == int(adam.count) == 5
 
 
-def test_ray_feed_matches_jax_numpy_path(monkeypatch):
-    monkeypatch.setattr(nerface_tpu.native, "available", lambda: False)
-    ds = synthetic_flame_dataset(H=24, W=20, n_train=4, n_val=1, n_test=1, with_images=True)
-    bg = ds.load_background()
-    jfeed = JaxRayFeed(ds, num_rays=50, background=bg, seed=5)
-    assert jfeed._native is None
-    feed = RayFeed(ds, num_rays=50, background=bg, seed=5)
+def _ray_feeds_equal(jfeed, native):
+    ds, bg = jfeed.dataset, jfeed._background_flat
+    bg = None if bg is None else bg.reshape(ds.H, ds.W, -1)
+    feed = RayFeed(ds, num_rays=50, background=bg, seed=5, native=native)
     jb = [jfeed.sample_batch() for _ in range(4)]
     tb = [next(feed) for _ in range(4)]
     for a, b in zip(jb, tb):
@@ -329,13 +351,30 @@ def test_ray_feed_matches_jax_numpy_path(monkeypatch):
         for k in a:
             np.testing.assert_array_equal(np.asarray(b[k]), np.asarray(a[k]), err_msg=k)
     # a resumed feed continues the stream; the prefetch thread gives the same
-    resumed = RayFeed(ds, num_rays=50, background=bg, seed=5, start_batch=3).start()
+    resumed = RayFeed(ds, num_rays=50, background=bg, seed=5, start_batch=3,
+                      native=native).start()
     try:
         b3 = next(resumed)
     finally:
         resumed.stop()
     for k in jb[3]:
         np.testing.assert_array_equal(np.asarray(b3[k]), np.asarray(jb[3][k]), err_msg=k)
+
+
+def test_ray_feed_matches_jax_numpy_path(monkeypatch):
+    pin_numpy_feeds(monkeypatch)
+    ds = synthetic_flame_dataset(H=24, W=20, n_train=4, n_val=1, n_test=1, with_images=True)
+    jfeed = JaxRayFeed(ds, num_rays=50, background=ds.load_background(), seed=5)
+    assert jfeed._native is None
+    _ray_feeds_equal(jfeed, native=False)
+
+
+def test_ray_feed_matches_jax_native_path():
+    jax_native()
+    ds = synthetic_flame_dataset(H=24, W=20, n_train=4, n_val=1, n_test=1, with_images=True)
+    jfeed = JaxRayFeed(ds, num_rays=50, background=ds.load_background(), seed=5)
+    assert jfeed._native is not None
+    _ray_feeds_equal(jfeed, native=True)
 
 
 def test_safe_norm_gradient_at_zero():
@@ -448,11 +487,10 @@ def dataset_dir(tmp_path_factory):
     )
 
 
-def test_whole_slice_matches_jax_train(dataset_dir, tmp_path, capsys, monkeypatch):
+def _whole_slice(dataset_dir, tmp_path, capsys):
     """`train()` of both packages, f32 on the CPU, 3 steps from the same
     reference-schema checkpoint on the same 16×16 dataset (perturb off,
     σ-noise 0: no random draws) and the same feed seed."""
-    monkeypatch.setattr(nerface_tpu.native, "available", lambda: False)
     d = _train_cfg(dataset_dir, str(tmp_path / "runs"))
     cfg = CfgNode(d)
     mc, mf = build_models_from_cfg(cfg, generator=torch.Generator().manual_seed(3))
@@ -480,6 +518,18 @@ def test_whole_slice_matches_jax_train(dataset_dir, tmp_path, capsys, monkeypatc
             assert np.mean(np.abs(got - want) <= 1e-5) >= 0.99, name
     np.testing.assert_allclose(state.latent_codes.detach().numpy(),
                                np.asarray(jstate.params["latent_codes"]), atol=10 * lr)
+
+
+def test_whole_slice_matches_jax_train(dataset_dir, tmp_path, capsys, monkeypatch):
+    """Both packages' host feeds on their numpy paths."""
+    pin_numpy_feeds(monkeypatch)
+    _whole_slice(dataset_dir, tmp_path, capsys)
+
+
+def test_whole_slice_matches_jax_train_native(dataset_dir, tmp_path, capsys):
+    """Both packages' host feeds on their native paths, each's default."""
+    jax_native()
+    _whole_slice(dataset_dir, tmp_path, capsys)
 
 
 def test_cli_trains_on_the_cpu(dataset_dir, tmp_path, capsys):
