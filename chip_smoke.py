@@ -225,6 +225,26 @@ Phases, one line each (plus the kernels' register reports):
                tiles × 2 frames, K4b 2 × steps, K1 and K2 never; the printed
                loss falling; the last .ckpt reloading; steady step ms and
                rays/s.
+ 11. stock_eval — `cli/eval_nerf.py` at the NeRF paper's stock settings
+               (PaperNeRFModel coarse and fine, 10 xyz / 4 direction bands,
+               64 + 128 samples, f32; He-scaled random weights, σ biased up
+               by SIGMA_BIAS, saved as a reference-schema .ckpt) over
+               STOCK_FRAMES render poses of a blender scene written at 800²
+               and read with half_res (400², near 2, far 6) and of a
+               forward-facing LLFF scene at fern's 378 × 504 (its
+               `images_8/` present), rendered through NDC. Checks: K1–K5
+               launched 0 times, and 0 hand-kernel runs among the card's
+               kernels under torch.profiler (the JAX package's gate: no
+               kernel takes a stock model); each frame's STOCK_CHECK_RAYS =
+               2048 rays, spread over it, within STOCK_LEVELS = 1 uint8
+               level of the port's plain path on the CPU
+               (`run_one_iter_of_nerf`, NDC for LLFF) and not flat. Prints
+               each frame's ms and `Avg time per image`.
+ 12. tiny_nerf — `examples/tiny_nerf.py` on the card on its synthetic data
+               for TINY_ITERS = 300 iterations: the last loss below half
+               the first (tests/test_lie_and_tools.py's criterion); the
+               train loop's and the whole call's seconds, the last test
+               PSNR.
 
     python3 chip_smoke.py --profile
 
@@ -3200,6 +3220,249 @@ def occupancy_serve_phase(dev, ds, ckpt):
                 capacity=server.settings.fast_eval_capacity)
 
 
+# ---- the stock NeRF surface: cli/eval_nerf.py and examples/tiny_nerf.py ---
+
+# The NeRF paper's stock settings (Mildenhall et al. 2020, arXiv 2003.08934,
+# §5.3): 64 coarse + 128 fine samples, PaperNeRFModel (a 6 × 256 trunk, a
+# 128-wide direction branch) at 10 xyz / 4 direction bands.
+STOCK_MODEL = {
+    "type": "PaperNeRFModel", "num_layers": 8, "hidden_size": 256, "skip_connect_every": 4,
+    "num_encoding_fn_xyz": 10, "include_input_xyz": True, "log_sampling_xyz": True,
+    "use_viewdirs": True, "num_encoding_fn_dir": 4, "include_input_dir": True,
+    "log_sampling_dir": True,
+}
+STOCK_BLENDER_SIZE = 800  # the blender scenes' frames, read with half_res: 400²
+STOCK_LLFF_HW = (378, 504)  # fern's frames at factor 8
+STOCK_LLFF_FACTOR = 8
+STOCK_LLFF_VIEWS = 5
+STOCK_CHUNK = 16384  # rays a tile
+STOCK_FRAMES = 2
+STOCK_CHECK_RAYS = 2048
+STOCK_LEVELS = 1  # uint8 levels between the card's frame and the CPU plain path
+LEGO_CAMERA_ANGLE_X = 0.6911112070083618
+TINY_ITERS = 300
+
+
+def _stock_cfg(ds_dir, llff):
+    node = {"chunksize": STOCK_CHUNK, "perturb": False, "num_coarse": 64, "num_fine": 128,
+            "white_background": not llff, "radiance_field_noise_std": 0.0, "lindisp": False}
+    dataset = ({"type": "llff", "basedir": ds_dir, "downsample_factor": STOCK_LLFF_FACTOR,
+                "no_ndc": False, "near": 0.0, "far": 1.0} if llff else
+               {"type": "blender", "basedir": ds_dir, "half_res": True, "testskip": 1,
+                "no_ndc": True, "near": 2.0, "far": 6.0})
+    return {
+        "experiment": {"id": "stock", "logdir": "/tmp/unused", "randomseed": 42,
+                       "train_iters": 1, "validate_every": 100, "save_every": 100,
+                       "print_every": 100},
+        "dataset": dataset,
+        "models": {"coarse": dict(STOCK_MODEL), "fine": dict(STOCK_MODEL)},
+        "optimizer": {"type": "Adam", "lr": 5.0e-4},
+        "scheduler": {"lr_decay": 250, "lr_decay_factor": 0.1},
+        "nerf": {"use_viewdirs": True, "train": dict(node, num_random_rays=1024),
+                 "validation": dict(node)},
+    }
+
+
+def _smooth_image(h, w, channels, seed):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    yy, xx = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, w), indexing="ij")
+    img = [0.5 + 0.5 * np.sin(2 * np.pi * (rng.rand() * 3 * xx + rng.rand() * 3 * yy))
+           for _ in range(channels)]
+    return (np.stack(img, -1) * 255).astype(np.uint8)
+
+
+def _write_blender(path):
+    """A blender scene on disk: one STOCK_BLENDER_SIZE² RGBA frame a split
+    on the loader's spherical poses, lego's camera_angle_x."""
+    from PIL import Image
+
+    from nerface_tpu_torch.data.flame import pose_spherical
+
+    for k, split in enumerate(("train", "val", "test")):
+        os.makedirs(os.path.join(path, split), exist_ok=True)
+        s = STOCK_BLENDER_SIZE
+        Image.fromarray(_smooth_image(s, s, 4, k)).save(os.path.join(path, split, "r_0.png"))
+        frames = [{"file_path": f"{split}/r_0",
+                   "transform_matrix": pose_spherical(40.0 * k, -30.0, 4.0).tolist()}]
+        with open(os.path.join(path, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": LEGO_CAMERA_ANGLE_X, "frames": frames}, f)
+    return path
+
+
+def _write_llff(path):
+    """A forward-facing scene on disk as fern's: `poses_bounds.npy` in the
+    raw LLFF layout ([down right back] columns, [H, W, focal] at 3024 ×
+    4032) and the frames in `images_8/` at 378 × 504, which the loader
+    reads as they are; `images/` holds one 8 × 8 stand-in a view, since
+    the loader only counts its files when `images_8/` is there."""
+    import numpy as np
+    from PIL import Image
+
+    from nerface_tpu_torch.examples.tiny_nerf import look_at
+
+    n = STOCK_LLFF_VIEWS
+    h, w = STOCK_LLFF_HW
+    f = STOCK_LLFF_FACTOR
+    for d in ("images", f"images_{f}"):
+        os.makedirs(os.path.join(path, d), exist_ok=True)
+    poses = np.zeros((n, 3, 5))
+    for i in range(n):
+        Image.fromarray(_smooth_image(8, 8, 3, i)).save(
+            os.path.join(path, "images", f"IMG_{i:04d}.JPG.png"))
+        Image.fromarray(_smooth_image(h, w, 3, 10 + i)).save(
+            os.path.join(path, f"images_{f}", f"IMG_{i:04d}.png"))
+        th = 0.3 * (i - n / 2) / n
+        cam = np.array([np.sin(th), 0.1 * np.cos(3 * th), np.cos(th)]) * 4.0
+        c2w = look_at(cam, np.zeros(3))[:3, :4]
+        poses[i, :, 1], poses[i, :, 0], poses[i, :, 2:4] = c2w[:, 0], -c2w[:, 1], c2w[:, 2:]
+        poses[i, :, 4] = [h * f, w * f, 3260.0]
+    bds = np.stack([np.full(n, 2.0), np.full(n, 12.0)], -1)
+    np.save(os.path.join(path, "poses_bounds.npy"), np.concatenate([poses.reshape(n, -1), bds], -1))
+    return path
+
+
+def _stock_ckpt(cfg, path, seed):
+    """A reference-schema .ckpt of He-scaled random PaperNeRFModels, σ
+    raised by SIGMA_BIAS so that the MLP's colour makes the pixels."""
+    import torch
+
+    from nerface_tpu_torch.config import CfgNode
+    from nerface_tpu_torch.tools.perf.cases import he_scale
+    from nerface_tpu_torch.train.loop import build_models_from_cfg
+
+    coarse, fine = build_models_from_cfg(CfgNode(copy.deepcopy(cfg)),
+                                         generator=torch.Generator().manual_seed(seed))
+    for m in (coarse, fine):
+        he_scale(m)
+        with torch.no_grad():
+            m.fc_alpha.bias += SIGMA_BIAS
+    torch.save({"iter": 0, "model_coarse_state_dict": coarse.state_dict(),
+                "model_fine_state_dict": fine.state_dict(), "optimizer_state_dict": None,
+                "loss": 0.0, "psnr": 0.0, "background": None, "latent_codes": None}, path)
+    return path
+
+
+def _hand_counters():
+    """Every hand kernel's wrapper launch counter, K1–K5."""
+    from nerface_tpu_torch.ops.kernels import fused_flex as F
+    from nerface_tpu_torch.ops.kernels import fused_resample as R
+
+    return dict(_launch_counts(), K4f=F.fused_flex_forward, K4b=F.fused_flex_backward,
+                K5=R.fused_resample)
+
+
+def _stock_frame_check(cfg, ckpt, png, i, label):
+    """Frame i's STOCK_CHECK_RAYS rays, spread over the frame, rendered by
+    the port's plain path on the CPU from the same .ckpt, through
+    `run_one_iter_of_nerf` (NDC for LLFF): the max uint8 level difference
+    against the card's PNG."""
+    import numpy as np
+    import torch
+
+    from nerface_tpu_torch.cli.eval_nerf import load_render_path
+    from nerface_tpu_torch.config import CfgNode
+    from nerface_tpu_torch.eval.driver import cast_to_image
+    from nerface_tpu_torch.ops.rays import get_ray_bundle
+    from nerface_tpu_torch.render.pipeline import RenderSettings, run_one_iter_of_nerf
+    from nerface_tpu_torch.train.checkpoint import load_torch_checkpoint
+    from nerface_tpu_torch.train.loop import build_models_from_cfg
+
+    node = CfgNode(copy.deepcopy(cfg))
+    render_poses, H, W, focal = load_render_path(node)
+    mc, mf = build_models_from_cfg(node)
+    sd = load_torch_checkpoint(ckpt)
+    mc.load_state_dict(sd["coarse"], strict=True)
+    mf.load_state_dict(sd["fine"], strict=True)
+    intr = np.array([focal, focal, 0.5, 0.5], np.float32)
+    ro, rd = get_ray_bundle(H, W, intr, torch.as_tensor(render_poses[i][:3, :4]))
+    idx = torch.linspace(0, H * W - 1, STOCK_CHECK_RAYS).long()
+    with torch.no_grad():
+        out = run_one_iter_of_nerf(H, W, mc, mf, ro.reshape(-1, 3)[idx], rd.reshape(-1, 3)[idx],
+                                   RenderSettings.from_cfg(node, "validation"), seed=i,
+                                   focal=intr[:2])
+    ref = cast_to_image(out[3].numpy()).astype(int)
+    got = png.reshape(-1, 3)[idx.numpy()].astype(int)
+    check(png.shape == (H, W, 3), f"{label}: frame {png.shape}, want {(H, W, 3)}")
+    err = int(np.abs(got - ref).max())
+    check(err <= STOCK_LEVELS, f"{label}: frame {i} off the CPU plain path by {err} levels")
+    check(float(ref.std()) >= 10.0, f"{label}: frame {i} is flat (std {ref.std():.2f})")
+    return err
+
+
+def stock_eval_phase(dev, tmp, card):
+    """`cli/eval_nerf.py` on the card at the NeRF paper's stock settings:
+    STOCK_FRAMES render poses of a blender scene (400² at half_res) and of
+    an LLFF scene (378 × 504, through NDC), f32, no hand kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from nerface_tpu_torch.cli import eval_nerf
+
+    res = {}
+    for name in ("blender", "llff"):
+        llff = name == "llff"
+        d = os.path.join(tmp, f"stock_{name}")
+        ds = _write_llff(d) if llff else _write_blender(d)
+        cfg = _stock_cfg(ds, llff)
+        cfg_path = _write_cfg(cfg, os.path.join(tmp, f"stock_{name}.json"))
+        ckpt = _stock_ckpt(cfg, os.path.join(tmp, f"stock_{name}.ckpt"), SEED + 20 + llff)
+        out = os.path.join(tmp, f"stock_{name}_renders")
+        argv = ["--config", cfg_path, "--checkpoint", ckpt, "--device", str(dev),
+                "--savedir", out, "--max-frames", str(STOCK_FRAMES)]
+        counters = _hand_counters()
+        for c in counters.values():
+            c.launches = 0
+        summary, text = _cli(eval_nerf.main, argv)
+        launched = {k: c.launches for k, c in counters.items()}
+        check(not any(launched.values()), f"stock_eval {name}: hand kernels launched {launched}")
+        check(text.count("Avg time per image: ") == STOCK_FRAMES,
+              f"stock_eval {name}: printed {text!r}")
+        # the same command's first frame under torch.profiler: no hand kernel
+        # ran on the card, and the profiler saw the card's kernels
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _cli(eval_nerf.main, argv[:-4] + ["--savedir", out + "_prof", "--max-frames", "1"])
+            torch.cuda.synchronize()
+        runs = kernel_runs(prof)
+        seen = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+        check(seen > 0 and not any(runs.values()),
+              f"stock_eval {name}: profiler saw {seen} kernel runs, hand kernels {runs}")
+        errs = [_stock_frame_check(cfg, ckpt, _png(os.path.join(out, f"{i:04d}.png")), i,
+                                   f"stock_eval {name}") for i in range(STOCK_FRAMES)]
+        h, w = _png(os.path.join(out, "0000.png")).shape[:2]
+        res[name] = {"frame_ms": [1e3 * t for t in summary["times"]],
+                     "avg_time_per_image": summary["avg_time_per_image"], "hw": [h, w],
+                     "levels": errs, "profiled_kernel_runs": seen}
+        phase("stock_eval", f"{name} {h}x{w}, PaperNeRFModel 64 + 128 samples, f32: frame ms "
+              f"{[round(v, 3) for v in res[name]['frame_ms']]}, Avg time per image "
+              f"{summary['avg_time_per_image']:.4f} s; {STOCK_CHECK_RAYS} rays a frame within "
+              f"{errs} levels of the CPU plain path; hand kernels: 0 launched, 0 of {seen} "
+              f"profiled kernel runs; {card}")
+    return res
+
+
+def tiny_nerf_phase(dev, card):
+    """`examples/tiny_nerf.py` on the card for TINY_ITERS iterations on its
+    synthetic data: the last loss below half the first."""
+    from nerface_tpu_torch.examples import tiny_nerf
+
+    t0 = time.perf_counter()
+    r, text = _cli(tiny_nerf.main, ["--iters", str(TINY_ITERS), "--display-every", "100",
+                                    "--device", str(dev)])
+    wall = time.perf_counter() - t0
+    losses = r["losses"]
+    check(len(losses) == TINY_ITERS and all(math.isfinite(v) for v in losses),
+          f"tiny_nerf: losses {losses[:3]}...")
+    check(losses[-1] < 0.5 * losses[0], f"tiny_nerf: loss {losses[0]} -> {losses[-1]}")
+    phase("tiny_nerf", f"{TINY_ITERS} iterations: loss {losses[0]:.5f} -> {losses[-1]:.5f}, "
+          f"last test PSNR {r['psnr']:.2f} dB, train loop {r['seconds']:.2f} s, wall "
+          f"{wall:.2f} s with the data; {card}")
+    return {"losses": [losses[0], losses[-1]], "psnr": r["psnr"], "seconds": r["seconds"],
+            "wall": wall}
+
+
 def _probe_entry(res, name, headline, replaces, card):
     """A probe's entry of the kernels line: `headline` is the variant K2
     follows; every variant's numbers ride along."""
@@ -3285,6 +3548,8 @@ def main() -> int:
         du = flex_dead_units_phase(dev)
         fs = flex_serve_phase(dev, tmp, args.profile)
         ft = flex_train_phase(dev, ds, tmp, args.profile, card)
+        stock_eval_phase(dev, tmp, card)
+        tiny_nerf_phase(dev, card)
 
     errs = [v for r in (k, ks) for errs in r["err"].values() for key, v in errs.items()
             if key in ("rgb", "acc", "bg_weight", "weights")]

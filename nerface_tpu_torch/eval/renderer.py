@@ -20,6 +20,11 @@ those rays render as usual (spare slots render real rays), and the results
 are scattered over the background defaults. Active rays beyond the capacity
 fall back to the background. Mesh sharding is not ported yet (ROADMAP.md
 Queue 1).
+
+With `settings.no_ndc` false (the stock LLFF configs) the parity renderer
+projects the frame's rays to NDC, with near / far 0 / 1, before tiling
+them (`nerface_tpu/eval/renderer.py:51-60`); the fast renderer keeps the
+JAX package's gate and takes no such frame.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ from nerface_tpu_torch.eval.occupancy import (
     ray_occupancy_mask_blocked,
     ray_occupancy_mask_splat,
 )
-from nerface_tpu_torch.ops.rays import get_ray_bundle
+from nerface_tpu_torch.ops.rays import get_ray_bundle, ndc_rays
 from nerface_tpu_torch.render.pipeline import RenderSettings, render_rays
 
 # the fast path's largest tile: small tiles round the capacity tighter
@@ -184,6 +189,12 @@ def render_full_frame(
                                   settings, bg, bbox, occupancy, tile, **kw)
 
     ro, rd = get_ray_bundle(height, width, intrinsics, pose)
+    if not settings.no_ndc:
+        # the LLFF path: rays projected to NDC, near / far 0 / 1
+        # (`train_utils.py:198-207`)
+        focal = torch.as_tensor(intrinsics, dtype=torch.float32, device=ro.device)[:2]
+        ro, rd = ndc_rays(height, width, focal, 1.0, ro.reshape(n, 3), rd.reshape(n, 3))
+        settings = dataclasses.replace(settings, no_ndc=True, near=0.0, far=1.0)
     n_pad = _round_up(n, tile)
     ro = _pad_rows(ro.reshape(n, 3), n_pad, 0.0)
     rd = _pad_rows(rd.reshape(n, 3), n_pad, 1.0)

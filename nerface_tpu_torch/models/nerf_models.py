@@ -1,23 +1,34 @@
 """The radiance-field models as `nn.Module`s.
 
-Ports of `nerface_tpu/models/nerf_models.py` (reference `models.py`):
+Ports of the 14 classes of `nerface_tpu/models/nerf_models.py` (reference
+`models.py`):
 
+* the stock NeRF models `VeryTinyNeRFModel` (`models.py:4-31`),
+  `MultiHeadNeRFModel` (:34-78), `ReplicateNeRFModel` (:81-121) and
+  `PaperNeRFModel` (:124-184), with the reference's quirks: VeryTiny's
+  width is `filter_size` (a `hidden_size` is swallowed), and the paper
+  model hardcodes 256 / 128 and creates `layers_dir.3`, which it never
+  applies;
 * `ConditionalBlendshapePaperNeRFModel` (`models.py:189-261`): PE(xyz) ⊕
   expr·(1/3) ⊕ 32-d latent code into a 6×256 trunk with a concat-skip at
   layer 3, the σ head off `fc_feat`, and a 3×128 view-direction branch to
-  RGB. Its state dict keeps `layers_dir.3`, which the reference creates
-  and never applies (`models.py` quirk, kept for checkpoint parity).
+  RGB. Its state dict keeps `layers_dir.3` too;
 * `ConditionalBlendshapePaperSmallerNeRFModel` (`models.py:266-338`): the
   same with 5 trunk layers, and the expression fed again into the
-  direction branch, whose first layer reads [feat; dirs; expr/3].
-* The Flexible family (`_FlexibleFamily` and its 8 subclasses,
+  direction branch, whose first layer reads [feat; dirs; expr/3];
+* the Flexible family (`_FlexibleFamily` and its 8 subclasses,
   `models.py:351-1230`): `layer1` + (num_layers − 1) hidden layers with
   periodic concat-skips, then a view-direction head or `fc_out`, each
   subclass folding its own conditioning into `layer1` and the skips.
 
-`state_dict` keys are the reference's, registered in the order of the JAX
-package's `init` dict (the Adam parameter order). `build_model` refuses
-the classes still to port and names the ROADMAP queue that carries them.
+Every class takes flat rows (N, D) with pe_dir (N, Dd), or the structured
+(R, S, D) layout with pe_dir (R, Dd), whose direction contribution is
+computed once a ray and broadcast over the samples. `state_dict` keys are
+the reference's, registered in the order of the JAX package's `init` dict
+(the Adam parameter order). The stock models take no expression or latent
+code (`takes_expression` / `takes_latent` False), and no kernel takes them
+(the kernels' gates admit the paper and Flexible families only): they run
+as PyTorch ops, as they run as XLA ops in the JAX package.
 """
 
 from __future__ import annotations
@@ -50,17 +61,21 @@ class _ModelBase(nn.Module):
     takes_expression = False
     takes_latent = False
 
-    @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
-        """nn.Linear's default distribution, U(-1/sqrt(in), 1/sqrt(in)) for
-        weight and bias, drawn from `generator` on the CPU in registration
-        order."""
-        for m in self.modules():
-            if isinstance(m, nn.Linear):
-                bound = 1.0 / math.sqrt(m.in_features)
-                for p in (m.weight, m.bias):
-                    u = torch.rand(p.shape, generator=generator)
-                    p.copy_((u * 2.0 - 1.0) * bound)
+        default_init(self, generator)
+
+
+@torch.no_grad()
+def default_init(module: nn.Module, generator: Optional[torch.Generator] = None) -> None:
+    """nn.Linear's and nn.Conv2d's default distribution, U(-1/sqrt(fan_in),
+    1/sqrt(fan_in)) for weight and bias, drawn from `generator` on the CPU
+    in registration order."""
+    for m in module.modules():
+        if isinstance(m, (nn.Linear, nn.Conv2d)):
+            bound = 1.0 / math.sqrt(m.weight[0].numel())
+            for p in (m.weight, m.bias):
+                u = torch.rand(p.shape, generator=generator)
+                p.copy_((u * 2.0 - 1.0) * bound)
 
 
 def _lin(i: int, o: int) -> nn.Linear:
@@ -72,6 +87,178 @@ def _flatten_xyz(pe_xyz: torch.Tensor):
     if pe_xyz.ndim == 3:
         return pe_xyz.reshape(-1, pe_xyz.shape[-1]), pe_xyz.shape[:2]
     return pe_xyz, None
+
+
+def _dir_contrib(layer: nn.Linear, pe_dir, col_start: int, structure, dtype):
+    """Columns [col_start, col_start + Dd) of `layer` applied to pe_dir: per
+    ray (R, 1, out), broadcast over the samples, with structured input;
+    per row (N, out) otherwise."""
+    contrib = linear_cols(layer, pe_dir, col_start, col_start + pe_dir.shape[-1], dtype)
+    return contrib[:, None, :] if structure is not None else contrib
+
+
+class VeryTinyNeRFModel(_ModelBase):
+    """Three-layer toy NeRF (`models.py:4-31`)."""
+
+    def __init__(self, filter_size=128, num_encoding_functions=6, use_viewdirs=True,
+                 device=None, generator: Optional[torch.Generator] = None, **_):
+        super().__init__()
+        self.filter_size = filter_size
+        self.dim_xyz = 3 + 3 * 2 * num_encoding_functions
+        self.dim_dir = (3 + 3 * 2 * num_encoding_functions) if use_viewdirs else 0
+        self.use_viewdirs = use_viewdirs
+        self.layer1 = _lin(self.dim_xyz + self.dim_dir, filter_size)
+        self.layer2 = _lin(filter_size, filter_size)
+        self.layer3 = _lin(filter_size, 4)
+        self.to_empty(device=device or "cpu")
+        self.reset_parameters(generator)
+
+    def forward(self, pe_xyz, pe_dir, expr=None, latent=None, dtype=None):
+        x, structure = _flatten_xyz(pe_xyz)
+        h = linear_cols(self.layer1, x, 0, self.dim_xyz, dtype, with_bias=True)
+        if structure is not None:
+            h = h.reshape(*structure, -1)
+        if self.use_viewdirs and self.dim_dir:
+            h = h + _dir_contrib(self.layer1, pe_dir, self.dim_xyz, structure, dtype)
+        x = torch.relu(h)
+        x = torch.relu(linear(self.layer2, x, dtype))
+        return linear(self.layer3, x, dtype)
+
+
+class MultiHeadNeRFModel(_ModelBase):
+    """Separate σ and RGB heads (`models.py:34-78`)."""
+
+    def __init__(self, hidden_size=128, num_encoding_functions=6, use_viewdirs=True,
+                 device=None, generator: Optional[torch.Generator] = None, **_):
+        super().__init__()
+        h = self.hidden_size = hidden_size
+        self.dim_xyz = 3 + 3 * 2 * num_encoding_functions
+        self.dim_dir = (3 + 3 * 2 * num_encoding_functions) if use_viewdirs else 0
+        self.use_viewdirs = use_viewdirs
+        self.layer1 = _lin(self.dim_xyz, h)
+        self.layer2 = _lin(h, h)
+        self.layer3_1 = _lin(h, 1)
+        self.layer3_2 = _lin(h, h)
+        self.layer4 = _lin(self.dim_dir + h, h)
+        self.layer5 = _lin(h, h)
+        self.layer6 = _lin(h, 3)
+        self.to_empty(device=device or "cpu")
+        self.reset_parameters(generator)
+
+    def forward(self, pe_xyz, pe_dir, expr=None, latent=None, dtype=None):
+        x, structure = _flatten_xyz(pe_xyz)
+        x = torch.relu(linear(self.layer1, x, dtype))
+        x = torch.relu(linear(self.layer2, x, dtype))
+        sigma = linear(self.layer3_1, x, dtype)
+        feat = torch.relu(linear(self.layer3_2, x, dtype))
+        # layer4 reads [feat; view]
+        h = linear_cols(self.layer4, feat, 0, self.hidden_size, dtype, with_bias=True)
+        if structure is not None:
+            h = h.reshape(*structure, -1)
+            sigma = sigma.reshape(*structure, -1)
+        if self.dim_dir:
+            h = h + _dir_contrib(self.layer4, pe_dir, self.hidden_size, structure, dtype)
+        x = torch.relu(h)
+        x = torch.relu(linear(self.layer5, x, dtype))
+        return torch.cat([linear(self.layer6, x, dtype), sigma], dim=-1)
+
+
+class ReplicateNeRFModel(_ModelBase):
+    """The NeRF supplementary figure's model (`models.py:81-121`)."""
+
+    def __init__(self, hidden_size=256, num_layers=4, num_encoding_fn_xyz=6,
+                 num_encoding_fn_dir=4, include_input_xyz=True, include_input_dir=True,
+                 device=None, generator: Optional[torch.Generator] = None, **_):
+        super().__init__()
+        h = self.hidden_size = hidden_size
+        self.dim_xyz = _xyz_dim(num_encoding_fn_xyz, include_input_xyz)
+        self.dim_dir = _dir_dim(num_encoding_fn_dir, include_input_dir)
+        self.layer1 = _lin(self.dim_xyz, h)
+        self.layer2 = _lin(h, h)
+        self.layer3 = _lin(h, h)
+        self.fc_alpha = _lin(h, 1)
+        self.layer4 = _lin(h + self.dim_dir, h // 2)
+        self.layer5 = _lin(h // 2, h // 2)
+        self.fc_rgb = _lin(h // 2, 3)
+        self.to_empty(device=device or "cpu")
+        self.reset_parameters(generator)
+
+    def forward(self, pe_xyz, pe_dir, expr=None, latent=None, dtype=None):
+        x, structure = _flatten_xyz(pe_xyz)
+        x_ = torch.relu(linear(self.layer1, x, dtype))
+        x_ = torch.relu(linear(self.layer2, x_, dtype))
+        feat = linear(self.layer3, x_, dtype)
+        alpha = linear(self.fc_alpha, x_, dtype)  # σ off layer2's output, as the reference
+        h = linear_cols(self.layer4, feat, 0, self.hidden_size, dtype, with_bias=True)
+        if structure is not None:
+            h = h.reshape(*structure, -1)
+            alpha = alpha.reshape(*structure, -1)
+        h = h + _dir_contrib(self.layer4, pe_dir, self.hidden_size, structure, dtype)
+        y = torch.relu(h)
+        y = torch.relu(linear(self.layer5, y, dtype))
+        return torch.cat([linear(self.fc_rgb, y, dtype), alpha], dim=-1)
+
+
+class PaperNeRFModel(_ModelBase):
+    """The NeRF paper's Fig. 7 model (`models.py:124-184`): a 6×256 trunk
+    with a concat-skip [xyz; x] at layer 3, σ off `fc_feat`, and a 3×128
+    view-direction branch. `num_layers`, `hidden_size` and
+    `skip_connect_every` are accepted and ignored (the widths are
+    hardcoded); `layers_dir.3` is created and never applied."""
+
+    n_xyz_layers = 6
+    skip_at = 3
+
+    def __init__(self, num_layers=8, hidden_size=256, skip_connect_every=4,
+                 num_encoding_fn_xyz=6, num_encoding_fn_dir=4, include_input_xyz=True,
+                 include_input_dir=True, use_viewdirs=True, device=None,
+                 generator: Optional[torch.Generator] = None, **_):
+        super().__init__()
+        self.dim_xyz = _xyz_dim(num_encoding_fn_xyz, include_input_xyz)
+        self.dim_dir = _dir_dim(num_encoding_fn_dir, include_input_dir)
+        self.use_viewdirs = use_viewdirs
+        self.layers_xyz = nn.ModuleList(
+            [_lin(self.dim_xyz, HIDDEN)]
+            + [
+                _lin(self.dim_xyz + HIDDEN if i == self.skip_at else HIDDEN, HIDDEN)
+                for i in range(1, self.n_xyz_layers)
+            ]
+        )
+        self.fc_feat = _lin(HIDDEN, HIDDEN)
+        self.fc_alpha = _lin(HIDDEN, 1)
+        self.layers_dir = nn.ModuleList(
+            [_lin(HIDDEN + self.dim_dir, DIR_HIDDEN)]
+            + [_lin(DIR_HIDDEN, DIR_HIDDEN) for _ in range(3)]
+        )
+        self.fc_rgb = _lin(DIR_HIDDEN, 3)
+        self.to_empty(device=device or "cpu")
+        self.reset_parameters(generator)
+
+    def forward(self, pe_xyz, pe_dir, expr=None, latent=None, dtype=None):
+        xyz, structure = _flatten_xyz(pe_xyz)
+        dx = self.dim_xyz
+        x = xyz
+        for i, layer in enumerate(self.layers_xyz):
+            if i == self.skip_at:
+                # W @ [xyz; x] + b
+                x = linear_cols(layer, xyz, 0, dx, dtype) + linear_cols(
+                    layer, x, dx, dx + HIDDEN, dtype, with_bias=True
+                )
+            else:
+                x = linear(layer, x, dtype)
+            x = torch.relu(x)
+        feat = linear(self.fc_feat, x, dtype)
+        alpha = linear(self.fc_alpha, feat, dtype)
+        h = linear_cols(self.layers_dir[0], feat, 0, HIDDEN, dtype, with_bias=True)
+        if structure is not None:
+            h = h.reshape(*structure, -1)
+            alpha = alpha.reshape(*structure, -1)
+        if self.use_viewdirs:
+            h = h + _dir_contrib(self.layers_dir[0], pe_dir, HIDDEN, structure, dtype)
+        x = torch.relu(h)
+        for i in range(1, 3):
+            x = torch.relu(linear(self.layers_dir[i], x, dtype))
+        return torch.cat([linear(self.fc_rgb, x, dtype), alpha], dim=-1)
 
 
 class ConditionalBlendshapePaperNeRFModel(_ModelBase):
@@ -493,6 +680,10 @@ class ConditionalAutoEncoderNeRFModel(_FlexibleFamily):
 
 
 MODELS = {
+    "VeryTinyNeRFModel": VeryTinyNeRFModel,
+    "MultiHeadNeRFModel": MultiHeadNeRFModel,
+    "ReplicateNeRFModel": ReplicateNeRFModel,
+    "PaperNeRFModel": PaperNeRFModel,
     "ConditionalBlendshapePaperNeRFModel": ConditionalBlendshapePaperNeRFModel,
     "ConditionalBlendshapePaperSmallerNeRFModel": ConditionalBlendshapePaperSmallerNeRFModel,
     "FlexibleNeRFModel": FlexibleNeRFModel,
@@ -515,12 +706,7 @@ def build_model(
     reference entry scripts' kwargs (`train_transformed_rays.py:100-124`):
     `skip_connect_every` is not forwarded, and the fine model takes the
     coarse num_layers/hidden_size when the caller passes them."""
-    cls = MODELS.get(model_cfg.type)
-    if cls is None:
-        raise NotImplementedError(
-            f"model type {model_cfg.type!r} is not ported to PyTorch yet; "
-            "ROADMAP.md Queue 1 lists the model classes still to port"
-        )
+    cls = MODELS[model_cfg.type]
     return cls(
         num_encoding_fn_xyz=model_cfg.num_encoding_fn_xyz,
         num_encoding_fn_dir=model_cfg.num_encoding_fn_dir,

@@ -41,12 +41,16 @@ injected; otherwise they come from the port's per-ray hash of (seed,
 ray_index), one stream per kind of draw, as the JAX package splits its key
 four ways. The unfused path is plain differentiable torch: the f32
 training path takes its gradients by autograd through it.
+
+`render_rays` refuses NDC rays, as the JAX package's does: the stock LLFF
+configs project upstream, in `run_one_iter_of_nerf` (the reference's
+7-tuple wrapper) or in `eval/renderer.py::render_full_frame`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -67,6 +71,7 @@ from nerface_tpu_torch.ops.kernels.fused_mlp import (
     pack_paper_weights,
 )
 from nerface_tpu_torch.ops.kernels.fused_train import prefold_paper_params
+from nerface_tpu_torch.ops.rays import ndc_rays
 from nerface_tpu_torch.ops.sampling import (
     STREAM_NOISE_COARSE,
     STREAM_NOISE_FINE,
@@ -374,7 +379,10 @@ def render_rays(
     `ray_index` (global ray indices, default arange(R)) keys the port's
     own draws, so any tiling of a frame draws the same numbers."""
     if not settings.no_ndc:
-        raise NotImplementedError("the NDC (LLFF) ray path is not ported yet")
+        raise NotImplementedError(
+            "NDC ray path is only used by the stock LLFF configs; "
+            "use ops.rays.ndc_rays upstream."
+        )
     ro = ray_origins.reshape(-1, 3)
     rd = ray_directions.reshape(-1, 3)
     num_rays = ro.shape[0]
@@ -481,3 +489,60 @@ def render_rays(
     out["weights"] = weights
     out["bg_weight"] = weights[..., -1]
     return out
+
+
+def run_one_iter_of_nerf(
+    height: int,
+    width: int,
+    model_coarse,
+    model_fine,
+    ray_origins: torch.Tensor,
+    ray_directions: torch.Tensor,
+    settings: RenderSettings,
+    seed=0,
+    expressions: Optional[torch.Tensor] = None,
+    background_prior: Optional[torch.Tensor] = None,
+    latent_code: Optional[torch.Tensor] = None,
+    ray_directions_ablation: Optional[torch.Tensor] = None,
+    mode: str = "train",
+    dtype=None,
+    focal=None,
+) -> Tuple:
+    """The reference's 7-tuple (rgb_coarse, disp_coarse, acc_coarse,
+    rgb_fine, disp_fine, acc_fine, bg_weight), image-shaped in validation
+    mode (`train_utils.py:270-290`; the JAX package's
+    `render/pipeline.py::run_one_iter_of_nerf`).
+
+    Ray tensors may be (H, W, 3) or flat (R, 3). With `settings.no_ndc`
+    false (LLFF) the rays are projected to NDC and near / far become 0 / 1
+    (`train_utils.py:198-207`); `focal` (a scalar or [fx, fy]) is required
+    then."""
+    img_shape = ray_directions.shape[:-1]
+    if not settings.no_ndc:
+        if focal is None:
+            raise ValueError("NDC rendering requires `focal`")
+        ray_origins, ray_directions = ndc_rays(
+            height, width, focal, 1.0, ray_origins.reshape(-1, 3), ray_directions.reshape(-1, 3)
+        )
+        settings = dataclasses.replace(settings, no_ndc=True, near=0.0, far=1.0)
+    out = render_rays(
+        model_coarse, model_fine,
+        ray_origins.reshape(-1, 3), ray_directions.reshape(-1, 3), settings, seed=seed,
+        expressions=expressions, latent_code=latent_code,
+        background_prior=(
+            background_prior.reshape(-1, 3) if background_prior is not None else None
+        ),
+        ray_directions_ablation=(
+            ray_directions_ablation.reshape(-1, 3)
+            if ray_directions_ablation is not None else None
+        ),
+        dtype=dtype,
+    )
+    results = [
+        out["rgb_coarse"], out["disp_coarse"], out["acc_coarse"],
+        out["rgb_fine"], out["disp_fine"], out["acc_fine"], out["bg_weight"],
+    ]
+    if mode == "validation":
+        shapes = [img_shape + (3,), img_shape, img_shape] * 2 + [img_shape]
+        results = [r.reshape(s) if r is not None else None for r, s in zip(results, shapes)]
+    return tuple(results)

@@ -110,8 +110,13 @@ def _model_cfg(type_name):
 
 
 def test_build_model():
+    """`build_model` builds every one of the JAX package's 14 `MODELS` keys,
+    and `MODELS` holds them in JAX's order."""
+    from nerface_tpu_torch.models.nerf_models import MODELS as PORT_MODELS
+
     m = build_model(_model_cfg("ConditionalBlendshapePaperNeRFModel"))
     assert isinstance(m, ConditionalBlendshapePaperNeRFModel)
     assert m.dim_xyz == 63 and m.dim_dir == 24 and m.dim_cond == 108
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(_model_cfg("VeryTinyNeRFModel"))
+    assert list(PORT_MODELS) == list(MODELS) and len(PORT_MODELS) == 14  # MODELS: JAX's
+    for name in MODELS:
+        assert type(build_model(_model_cfg(name))) is PORT_MODELS[name]
