@@ -178,6 +178,27 @@ Phases, one line each (plus the kernels' register reports):
                the uninterrupted run's bit for bit. Then the training
                thread's ms inside an async save's `submit` against a
                synchronous save's.
+     ddp_train — data parallelism (train/distributed.py) on the eval
+               dataset: (a) NCCL at world 1 through `cli/train.py
+               --coordinator-address`, DDP_STEPS steps of synth512_devfeed
+               at K = DDP_K (the all-reduce captured in the step's graph)
+               and at K = 1, each checkpoint and printed line bit for bit
+               the no-group run's, K1's and the NCCL kernels' runs from
+               torch.profiler, the steady windowed step with and without
+               the group in turns; (b) gloo at world 2 with both ranks on
+               the card: DDP_GLOO_STEPS host-feed steps of `train()` in
+               each spawned rank (K1 2 × steps a rank), the ranks bit for
+               bit equal, and one DP step's gradients against the
+               one-process step's within `_k1_dp_limits`; (c) NCCL at
+               world min(device_count, 4) through `--num-devices` where the
+               host has 2 cards or more, else one line saying so.
+     sharded_serve — `AvatarServer(devices=[cuda:0] × 2)` on the eval
+               phase's checkpoint, bf16, parity and fast: every map's
+               floats and the served uint8 maps bit for bit the one-device
+               server's (fast: outside the extra spare slots that JAX's
+               capacity rule gives two devices), K2 2 × tiles a frame, the
+               frame ms beside the one-device frame's; `evaluate(devices=
+               ...)` over 2 test frames, the PNGs byte for byte.
      occupancy_serve — that run's last checkpoint served with fast_eval and
                the occupancy grid (splat, 128³, 2× supersampled): the grid
                builds' seconds, occupied and active fractions, capacity, K2
@@ -2329,6 +2350,487 @@ def supervised_train_phase(dev, tmp, ds_dir, card):
             "whole_s": whole_s, "supervised_s": sup_s, "phase_s": phase_s}
 
 
+DDP_STEPS = 40
+DDP_K = 10
+DDP_GLOO_STEPS = 10
+DDP_WORLD_MAX = 4
+DDP_TIMED_STEPS = 11  # the first timed one warms up
+
+
+def state_numel(state):
+    """The gradients' count of a TrainState: every trained tensor's size."""
+    return sum(p.numel() for p in state.ordered_params() + [state.background_slot()]
+               if p.requires_grad)
+
+
+def _ddp_cfg(ds_dir, logdir, run_id, k, steps=None, device_feed=True, print_every=10,
+             validate_every=20, save_every=20):
+    """configs/synth512_devfeed.yml's settings (synth512_paper, the device
+    feed) on the dataset at `ds_dir`, cut to `steps` steps at
+    `steps_per_execute` k: print every 10, validate at 0 and 20, save every
+    20 and at the end."""
+    d = copy.deepcopy(SYNTH512_PAPER)
+    d["experiment"].update(id=run_id, logdir=logdir, train_iters=steps or DDP_STEPS,
+                           print_every=print_every,
+                           validate_every=validate_every, save_every=save_every,
+                           steps_per_execute=k, device_feed=device_feed)
+    d["dataset"]["basedir"] = ds_dir
+    return d
+
+
+def _ckpt_tensors(path):
+    """A .ckpt's parameters, latent table and Adam state, by name."""
+    from nerface_tpu_torch.train.checkpoint import load_torch_checkpoint
+
+    c = load_torch_checkpoint(path)
+    out = {f"coarse.{k}": v for k, v in c["coarse"].items()}
+    out.update({f"fine.{k}": v for k, v in c["fine"].items()})
+    out["latent_codes"] = c["latent_codes"]
+    for i, st in c["optimizer"]["state"].items():
+        out.update({f"{f}/{i}": st[f] for f in ("step", "exp_avg", "exp_avg_sq")})
+    return out
+
+
+def _differ(a, b):
+    """The names whose tensors are not bit for bit the same."""
+    import torch
+
+    if a.keys() != b.keys():
+        return sorted(set(a) ^ set(b))
+    return [k for k in a if not torch.equal(torch.as_tensor(a[k]), torch.as_tensor(b[k]))]
+
+
+def _nccl_kernels(prof):
+    """(runs, device ms) of the NCCL kernels that torch.profiler read."""
+    from torch.autograd import DeviceType
+
+    runs, us = 0, 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and "nccl" in e.key.lower():
+            runs += e.count
+            t = getattr(e, "device_time_total", None)
+            us += t if t is not None else e.cuda_time_total
+    return runs, us / 1e3
+
+
+def _ddp_cli_run(cfg_path, dev, extra=(), profile=False):
+    """`cli/train.py --bf16` on `dev` in this process, the launch counts
+    reset just before and read just after, the graph replays counted, and
+    with `profile` under torch.profiler: (printed text, launches, replays,
+    kernel runs, (NCCL kernel runs, their device ms), wall s)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from nerface_tpu_torch.cli import train as cli_train
+
+    counters = _launch_counts()
+    for c in counters.values():
+        c.launches = 0
+    calls = {"replays": 0}
+    replay = torch.cuda.CUDAGraph.replay
+
+    def counted_replay(g):
+        calls["replays"] += 1
+        return replay(g)
+
+    argv = ["--config", cfg_path, "--device", str(dev), "--bf16", *extra]
+    torch.cuda.CUDAGraph.replay = counted_replay
+    runs = nccl = None
+    t0 = time.perf_counter()
+    try:
+        if profile:
+            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                _, text = _cli(cli_train.main, argv)
+                torch.cuda.synchronize()
+            runs, nccl = kernel_runs(prof), _nccl_kernels(prof)
+        else:
+            _, text = _cli(cli_train.main, argv)
+    finally:
+        torch.cuda.CUDAGraph.replay = replay
+    return {"text": text, "launches": {k: c.launches for k, c in counters.items()},
+            "replays": calls["replays"], "runs": runs, "nccl": nccl,
+            "wall": time.perf_counter() - t0}
+
+
+def _k1_dp_limits(name, n_rays=None):
+    """(max, norm) limits of a DP step's gradient tensor `name` (two ranks
+    of n_rays / 2 rays, default TRAIN_RAYS) against the one-process step's
+    (n_rays), relative to the latter's max|g| and ‖g‖: each is within
+    `k1_grad_limits` of the same f32 plain gradient at its ray count, so
+    their difference is within the sum (the direction branch's weights
+    take its own max limit)."""
+    n_rays = n_rays or TRAIN_RAYS
+    key = "wd0" if "layers_dir" in name else name
+    a, b = k1_grad_limits(n_rays // 2, key), k1_grad_limits(n_rays, key)
+    return a[0] + b[0], a[1] + b[1]
+
+
+def ddp_train_phase(dev, ds, tmp, ds_dir, card):
+    """Data parallelism on the main path (train/distributed.py):
+
+    (a) NCCL at world 1 through `cli/train.py`'s coordinator flags on the
+        card: synth512_devfeed's settings, DDP_STEPS steps at K = DDP_K
+        (the collective captured in the step's graph) and at K = 1, each
+        checkpoint bit for bit the one-process run's (no group); K1 and
+        the NCCL kernels' runs from torch.profiler; the steady windowed
+        step with the group against without (medians of WINDOW_TIMED
+        blocks, in turns).
+    (b) gloo at world 2, both ranks on the card: synth512_paper's host
+        feed (TRAIN_RAYS global rays, TRAIN_RAYS / 2 a rank through K1),
+        K = 1, DDP_GLOO_STEPS steps of `train()` in each rank, the ranks'
+        parameters bit for bit the same; one DP step's gradients (Adam's
+        first moments) against the one-process step's on the same global
+        batch within `_k1_dp_limits`.
+    (c) NCCL at world min(device_count, DDP_WORLD_MAX) through
+        `--num-devices`, only where the host has 2 cards or more."""
+    import numpy as np
+    import torch
+
+    from nerface_tpu_torch.config import CfgNode, FeatureFlags
+    from nerface_tpu_torch.data.flame import load_flame_data
+    from nerface_tpu_torch.data.pipeline import RayFeed, batch_to_device
+    from nerface_tpu_torch.render.pipeline import RenderSettings
+    from nerface_tpu_torch.train import distributed, dryrun
+    from nerface_tpu_torch.train.fused import fused_train_eligible
+    from nerface_tpu_torch.train.loop import setup_background
+
+    t_phase = time.perf_counter()
+    res = {"launches": {}}
+
+    # (a) NCCL at world 1, windowed and step at a time, against no group
+    ckpts, runs = {}, {}
+    for name, k, coord, profile in (("single", DDP_K, False, False),
+                                    ("nccl_windowed", DDP_K, True, True),
+                                    ("nccl_k1", 1, True, False)):
+        logdir = os.path.join(tmp, f"ddp_{name}")
+        cfg_path = _write_cfg(_ddp_cfg(ds_dir, logdir, "ddp", k), logdir + ".yml")
+        extra = (["--coordinator-address", f"127.0.0.1:{distributed.free_port()}",
+                  "--num-processes", "1", "--process-id", "0"] if coord else [])
+        r = runs[name] = _ddp_cli_run(cfg_path, dev, extra, profile)
+        check(not distributed.initialized(), f"ddp_train ({name}): the group was not left")
+        ckpts[name] = _ckpt_tensors(os.path.join(logdir, "ddp", f"checkpoint{DDP_STEPS:05d}.ckpt"))
+        printed = re.findall(_TRAIN_LINE, r["text"])
+        check([int(p[0]) for p in printed] == list(range(0, DDP_STEPS, 10)) + [DDP_STEPS - 1],
+              f"ddp_train ({name}): printed steps {[p[0] for p in printed]}")
+        r["printed"] = printed
+        want_k1 = 2 * DDP_STEPS if k == 1 else 2 * 2 + 2
+        check(r["launches"]["K1"] == want_k1,
+              f"ddp_train ({name}): K1 wrapper calls {r['launches']['K1']}, expected {want_k1}")
+    for name in ("nccl_windowed", "nccl_k1"):
+        bad = _differ(ckpts["single"], ckpts[name])
+        check(not bad, f"ddp_train: {name} differs from the one-process run in {bad[:5]}")
+        check(runs[name]["printed"] == runs["single"]["printed"],
+              f"ddp_train: {name}'s printed lines differ from the one-process run's")
+    win = runs["nccl_windowed"]
+    check(win["replays"] == DDP_STEPS - 2,
+          f"ddp_train: {win['replays']} graph replays, expected {DDP_STEPS - 2}")
+    check(win["runs"]["train_pass_kernel"] == 2 * DDP_STEPS,
+          f"ddp_train: K1 ran {win['runs']['train_pass_kernel']} times on the card")
+    nccl_runs, nccl_ms = win["nccl"]
+    res["nccl_world1"] = {"kernel_runs": nccl_runs, "device_ms": nccl_ms,
+                          "device_ms_a_step": nccl_ms / DDP_STEPS}
+    for name, r in runs.items():
+        res["launches"][name] = r["launches"]
+
+    # the steady windowed step with the one-rank group against without, in turns
+    cfg = CfgNode(_window_cfg(tmp, WINDOW_K, True))
+    steady = {"no_group": [], "nccl_world1": []}
+    for turn in ("no_group", "nccl_world1", "nccl_world1", "no_group"):
+        if turn == "nccl_world1":
+            distributed.initialize(f"127.0.0.1:{distributed.free_port()}", 1, 0, device=dev)
+        try:
+            steady[turn] += _window_steady(cfg, ds, dev, WINDOW_K, True)[0]
+        finally:
+            if turn == "nccl_world1":
+                distributed.shutdown()
+    res["step_ms"] = {k: statistics.median(v) for k, v in steady.items()}
+    phase("ddp_train", f"(a) NCCL world 1 via --coordinator-address: {DDP_STEPS} steps of "
+                       f"synth512_devfeed at {EVAL_SIZE}x{EVAL_SIZE}, K={DDP_K} "
+                       f"({win['replays']} graph replays, K1 ran "
+                       f"{win['runs']['train_pass_kernel']} times from {win['launches']['K1']} "
+                       f"calls, {nccl_runs} NCCL kernel runs on the card, "
+                       f"{nccl_ms / DDP_STEPS:.4f} ms a step) = K=1 = no group, bit for bit "
+                       f"({len(ckpts['single'])} tensors of the step-{DDP_STEPS} checkpoint, "
+                       f"printed lines); steady windowed step {res['step_ms']['nccl_world1']:.3f} "
+                       f"ms with the group vs {res['step_ms']['no_group']:.3f} ms without "
+                       f"(medians of {2 * WINDOW_TIMED} blocks of {WINDOW_K} each, in turns; "
+                       f"with min {min(steady['nccl_world1']):.3f} max "
+                       f"{max(steady['nccl_world1']):.3f}, without min "
+                       f"{min(steady['no_group']):.3f} max {max(steady['no_group']):.3f}) on {card}")
+
+    # (b) gloo at world 2 on the one card: DDP_GLOO_STEPS steps of train()
+    gloo_cfg = _ddp_cfg(ds_dir, os.path.join(tmp, "ddp_gloo"), "ddp_gloo", 1,
+                        steps=DDP_GLOO_STEPS, device_feed=False, print_every=DDP_GLOO_STEPS,
+                        validate_every=0, save_every=0)
+    t0 = time.perf_counter()
+    ranks = distributed.spawn(dryrun.train_replica, 2, args=(gloo_cfg, str(dev), True),
+                              devices=[str(dev)] * 2, backend="gloo", timeout=600)
+    gloo_s = time.perf_counter() - t0
+    bad = _differ(ranks[0]["arrays"], ranks[1]["arrays"])
+    check(not bad, f"ddp_train (b): the ranks differ in {bad[:5]}")
+    for r, out in enumerate(ranks):
+        check(out["launches"]["K1"] == 2 * DDP_GLOO_STEPS,
+              f"ddp_train (b): rank {r} made {out['launches']['K1']} K1 calls")
+    one = dryrun.train_replica(gloo_cfg, str(dev), True)
+    disk_ds = load_flame_data(ds_dir)
+    upd = {}
+    init = dryrun.replica_arrays(_fresh_state(CfgNode(gloo_cfg), disk_ds, "cpu"))
+    for k, v in one["arrays"].items():
+        d1, d2 = v - init[k], ranks[0]["arrays"][k] - init[k]
+        upd[k] = float(np.linalg.norm(d2 - d1) / max(np.linalg.norm(d1), 1e-30))
+    res["gloo"] = {"seconds": gloo_s, "k1_calls_a_rank": ranks[0]["launches"]["K1"],
+                   "update_rel_diff_max": max(upd.values())}
+
+    # one DP step's gradients against the one-process step's, same global batch
+    cfg_b = CfgNode(gloo_cfg)
+    state = _fresh_state(cfg_b, disk_ds, "cpu")
+    flags = FeatureFlags.from_cfg(cfg_b)
+    settings = RenderSettings.from_cfg(cfg_b, mode="train")
+    bg = setup_background(disk_ds, flags)
+    batch = RayFeed(disk_ds, TRAIN_RAYS, background=bg if flags.fixed_background else None,
+                    seed=SEED, native=False).sample_batch()
+    check(fused_train_eligible(state.model_coarse, state.model_fine, settings, flags,
+                               torch.bfloat16, dev), "ddp_train (b): the step is not K1's")
+    payload = {"state": state, "opt_cfg": {k: gloo_cfg[k] for k in ("optimizer", "scheduler")},
+               "batch": batch_to_device(batch, "cpu"), "settings": settings, "flags": flags,
+               "seed": 3, "dtype": torch.bfloat16, "fused": True, "device": str(dev),
+               "timed_steps": DDP_TIMED_STEPS}
+    single = dryrun.dp_step(payload)
+    pair = dryrun.dryrun(payload, 2, timeout=600)
+    bad = _differ(pair[0]["arrays"], pair[1]["arrays"])
+    check(not bad, f"ddp_train (b): the DP step's ranks differ in {bad[:5]}")
+    worst = {}
+    for k, g1 in single["arrays"].items():
+        if not k.startswith("exp_avg/"):
+            continue
+        g2 = pair[0]["arrays"][k]
+        lim_max, lim_norm = _k1_dp_limits(k)
+        e_max = float(np.abs(g2 - g1).max() / max(np.abs(g1).max(), 1e-30))
+        e_norm = float(np.linalg.norm(g2 - g1) / max(np.linalg.norm(g1), 1e-30))
+        check(e_max <= lim_max and e_norm <= lim_norm,
+              f"ddp_train (b): {k}: max {e_max:.4f} (limit {lim_max}), norm {e_norm:.4f} "
+              f"(limit {lim_norm})")
+        worst[k] = (e_max, e_norm)
+    res["gloo"]["step_grad_rel"] = {"max": max(v[0] for v in worst.values()),
+                                    "norm": max(v[1] for v in worst.values())}
+    # the step's wall ms (steps after the first, each synchronised)
+    res["gloo"]["step_ms"] = {"one_process": statistics.median(single["step_ms"][1:]),
+                              **{f"rank{r}": statistics.median(p["step_ms"][1:])
+                                 for r, p in enumerate(pair)}}
+    res["gloo"]["all_reduce_ms"] = {f"rank{r}": statistics.median(p["all_reduce_ms"][1:])
+                                    for r, p in enumerate(pair)}
+    res["launches"]["gloo_ranks"] = 2 * ranks[0]["launches"]["K1"]
+    phase("ddp_train", f"(b) gloo world 2, both ranks on {dev}: {DDP_GLOO_STEPS} steps of "
+                       f"synth512_paper ({TRAIN_RAYS} global rays, host feed, K=1) in "
+                       f"{gloo_s:.1f} s, K1 called {ranks[0]['launches']['K1']} times in each "
+                       f"rank, the ranks' {len(ranks[0]['arrays'])} tensors bit for bit equal; "
+                       f"their updates against the one-process run's: worst relative norm "
+                       f"{res['gloo']['update_rel_diff_max']:.4f} (reported, no limit); one DP "
+                       f"step's gradients against the one-process step's: worst max "
+                       f"{res['gloo']['step_grad_rel']['max']:.4f}, worst norm "
+                       f"{res['gloo']['step_grad_rel']['norm']:.4f} of "
+                       f"{len(worst)} tensors (limits k1_grad_limits({TRAIN_RAYS // 2}) + "
+                       f"k1_grad_limits({TRAIN_RAYS}): trunk "
+                       f"{_k1_dp_limits('coarse.fc_alpha.weight')}, direction branch "
+                       f"{_k1_dp_limits('coarse.layers_dir.0.weight')}); a step at K=1 "
+                       f"(median of {DDP_TIMED_STEPS - 1}, synchronised): rank 0 "
+                       f"{res['gloo']['step_ms']['rank0']:.3f} ms, rank 1 "
+                       f"{res['gloo']['step_ms']['rank1']:.3f} ms, the one-process step "
+                       f"{res['gloo']['step_ms']['one_process']:.3f} ms; the gloo all-reduce "
+                       f"of the {int(state_numel(state))} gradients + metrics alone "
+                       f"{res['gloo']['all_reduce_ms']['rank0']:.3f} / "
+                       f"{res['gloo']['all_reduce_ms']['rank1']:.3f} ms on {card}")
+
+    # (c) NCCL over the host's cards
+    count = torch.cuda.device_count()
+    if count < 2:
+        phase("ddp_train", f"(c) NCCL at world >= 2 not run: this host has {count} CUDA device")
+        res["nccl_multi"] = None
+    else:
+        from nerface_tpu_torch.cli import train as cli_train
+
+        world = min(count, DDP_WORLD_MAX)
+        logdir = os.path.join(tmp, "ddp_multi")
+        cfg_path = _write_cfg(_ddp_cfg(ds_dir, logdir, "ddp", DDP_K), logdir + ".yml")
+        t0 = time.perf_counter()
+        cli_train.main(["--config", cfg_path, "--bf16", "--num-devices", str(world)])
+        wall = time.perf_counter() - t0
+        path = os.path.join(logdir, "ddp", f"checkpoint{DDP_STEPS:05d}.ckpt")
+        check(os.path.isfile(path), f"ddp_train (c): no checkpoint at {path}")
+        res["nccl_multi"] = {"world": world, "seconds": wall}
+        phase("ddp_train", f"(c) NCCL world {world} via --num-devices: {DDP_STEPS} steps at "
+                           f"K={DDP_K} in {wall:.1f} s on {card}")
+    res["seconds"] = time.perf_counter() - t_phase
+    phase("ddp_train", f"the phase took {res['seconds']:.1f} s")
+    return res
+
+
+def _fresh_state(cfg, ds, device):
+    """`train()`'s initial state for `cfg` on `ds` (the seeded weights)."""
+    import torch
+
+    from nerface_tpu_torch.config import FeatureFlags
+    from nerface_tpu_torch.train.loop import build_models_from_cfg, setup_background
+    from nerface_tpu_torch.train.state import create_train_state
+
+    flags = FeatureFlags.from_cfg(cfg)
+    seed = int(cfg.experiment.randomseed)
+    mc, mf = build_models_from_cfg(cfg, device=device,
+                                   generator=torch.Generator().manual_seed(seed))
+    return create_train_state(mc, mf, flags, n_train=len(ds.i_train),
+                              background=setup_background(ds, flags), device=device)
+
+
+SHARDED_DEVICES = 2
+SHARDED_FRAMES = 2
+
+
+def _extra_slots(server, n_dev, frame):
+    """(H, W) bool: the pixels that a fast frame over `n_dev` devices
+    renders in spare slots where the one-device frame leaves the
+    background (JAX's rule rounds the capacity to whole tiles on every
+    device; the slots' order is the same)."""
+    import torch
+
+    from nerface_tpu_torch.eval import renderer
+    from nerface_tpu_torch.ops.rays import get_ray_bundle
+
+    n = server.H * server.W
+    tile = min(server.settings.chunksize, renderer.FAST_TILE, n)
+    x = max(1, int(n * server.settings.fast_eval_capacity))
+
+    def cap(m):
+        return min(renderer._round_up(x, tile * m), renderer._round_up(n, tile * m))
+
+    pose = torch.as_tensor(server._frame_defaults(frame)[0][:3, :4], dtype=torch.float32,
+                           device=server.device)
+    ro, rd = get_ray_bundle(server.H, server.W, server.intrinsics, pose)
+    inside = renderer._active_mask(ro.reshape(n, 3), rd.reshape(n, 3), server.H, server.W,
+                                   server.fast_bbox, server.occupancy, server.settings,
+                                   pose=pose, intrinsics=server.intrinsics)
+    order = torch.argsort((~inside).to(torch.int32), stable=True).cpu()
+    extra = torch.zeros(n, dtype=torch.bool)
+    extra[order.repeat(2)[cap(1):cap(n_dev)]] = True
+    extra[order.repeat(2)[:cap(1)]] = False
+    return extra.reshape(server.H, server.W).numpy(), cap(1), cap(n_dev)
+
+
+def sharded_serve_phase(dev, tmp, ev, card):
+    """Sharded rendering on the main path (`render_full_frame(devices=...)`):
+    `AvatarServer(devices=[dev] * SHARDED_DEVICES)` against the one-device
+    server on the eval phase's trained checkpoint, bf16: the parity frames
+    (each map's floats and the served uint8 maps) bit for bit, K2 launched
+    2 × tiles a frame; the fast frames bit for bit wherever the one-device
+    frame renders or both leave the background (JAX's capacity rule may
+    give the sharded frame more spare slots, which render real rays), K2
+    2 × tiles; each frame's ms beside the one-device frame's; then
+    `evaluate(devices=...)` over SHARDED_FRAMES test frames, its PNGs byte
+    for byte the one-device run's."""
+    import numpy as np
+    import torch
+
+    from nerface_tpu_torch.config import load_config
+    from nerface_tpu_torch.eval.driver import evaluate
+    from nerface_tpu_torch.eval.renderer import render_full_frame
+    from nerface_tpu_torch.ops.kernels.fused_mlp import fused_paper_render
+    from nerface_tpu_torch.serve import AvatarServer
+
+    t_phase = time.perf_counter()
+    devices = [dev] * SHARDED_DEVICES
+    res = {"launches": {}, "frame_ms": {}}
+    for mode in ("parity", "fast"):
+        cfg = load_config(ev["cfg"])
+        if mode == "fast":
+            cfg.nerf.validation["fast_eval"] = True
+        one = AvatarServer(cfg, ev["ckpt"], dtype=torch.bfloat16, device=dev, log=False)
+        shard = AvatarServer(cfg, ev["ckpt"], dtype=torch.bfloat16, log=False, devices=devices)
+        n = one.H * one.W
+        if mode == "parity":
+            tiles = parity_tiles = -(-n // min(one.settings.chunksize, n))
+            extra, spare = np.zeros((one.H, one.W), bool), None
+        else:
+            extra, cap1, cap2 = _extra_slots(one, SHARDED_DEVICES, 0)
+            tiles = cap2 // min(one.settings.chunksize, 16384, n)
+            spare = (cap1, cap2)
+        # the frames' floats, every map
+        pose = one._frame_defaults(0)[0][:3, :4]
+        kw = dict(seed=0, expressions=torch.as_tensor(one._default_expression, device=dev),
+                  latent_code=one.latent_codes[0], background=one.background,
+                  dtype=torch.bfloat16, bbox=one.fast_bbox, occupancy=one.occupancy)
+        a = render_full_frame(one.model_coarse, one.model_fine, one.H, one.W, one.intrinsics,
+                              pose, one.settings, device=dev, **kw)
+        fused_paper_render.launches = 0
+        b = render_full_frame(one.model_coarse, one.model_fine, one.H, one.W, one.intrinsics,
+                              pose, one.settings, devices=devices, **kw)
+        torch.cuda.synchronize()
+        launched = fused_paper_render.launches
+        check(launched == 2 * tiles,
+              f"sharded_serve ({mode}): K2 launched {launched} times, expected 2 x {tiles}")
+        keep = torch.from_numpy(~extra).to(dev)
+        for k in a:
+            check(torch.equal(a[k][keep], b[k][keep]),
+                  f"sharded_serve ({mode}): {k} differs from the one-device frame")
+        # the served frames, timed in turns
+        maps = ("rgb_fine", "acc")
+        ms = {"one": [], "sharded": []}
+        for _ in range(3):
+            for name, srv in (("one", one), ("sharded", shard)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                img = srv.render(frame=0, seed=1, maps=maps)
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+                if name == "one":
+                    ref = img
+                else:
+                    for k in maps:
+                        check(np.array_equal(img[k][~extra], ref[k][~extra]),
+                              f"sharded_serve ({mode}): the served {k} differs")
+        res["launches"][mode] = launched
+        res["frame_ms"][mode] = {k: v[1:] for k, v in ms.items()}
+        phase("sharded_serve",
+              f"{mode}: AvatarServer(devices=[{dev}] x {SHARDED_DEVICES}) bf16 at "
+              f"{one.H}x{one.W}: K2 {launched} launches a frame (2 x {tiles} tiles), every map "
+              f"bit for bit the one-device frame's"
+              + ("" if spare is None else
+                 f" outside the {int(extra.sum())} pixels of the extra spare slots "
+                 f"(capacity {spare[0]} rays on one device, {spare[1]} over "
+                 f"{SHARDED_DEVICES})")
+              + f"; warm frame ms sharded {[round(v, 3) for v in ms['sharded'][1:]]} vs one "
+                f"device {[round(v, 3) for v in ms['one'][1:]]} on {card}")
+        del one, shard
+
+    # evaluate over the device list against one device
+    cfg = load_config(ev["cfg"])
+    out = {}
+    fused_paper_render.launches = 0
+    for name, kw in (("sharded", {"devices": devices}), ("one", {"device": dev})):
+        savedir = os.path.join(tmp, f"sharded_eval_{name}")
+        out[name] = evaluate(cfg, ev["ckpt"], savedir, dtype=torch.bfloat16, log=False,
+                             max_frames=SHARDED_FRAMES, **kw)
+        if name == "sharded":
+            res["launches"]["evaluate"] = fused_paper_render.launches
+    files = {}
+    for name in out:
+        root = os.path.join(tmp, f"sharded_eval_{name}")
+        files[name] = {os.path.relpath(os.path.join(d, f), root):
+                       open(os.path.join(d, f), "rb").read()
+                       for d, _, fs in os.walk(root) for f in fs}
+    check(files["one"] and files["one"] == files["sharded"],
+          "sharded_serve: evaluate(devices=...) wrote other files than one device")
+    check(res["launches"]["evaluate"] == 2 * parity_tiles * SHARDED_FRAMES,
+          f"sharded_serve: evaluate launched K2 {res['launches']['evaluate']} times, expected "
+          f"2 x {parity_tiles} tiles x {SHARDED_FRAMES} frames")
+    res["eval_avg_s"] = {k: v["avg_time_per_image"] for k, v in out.items()}
+    res["seconds"] = time.perf_counter() - t_phase
+    phase("sharded_serve", f"evaluate(devices=[{dev}] x {SHARDED_DEVICES}) over "
+                           f"{SHARDED_FRAMES} test frames: {len(files['one'])} PNGs byte for byte "
+                           f"the one-device run's, K2 {res['launches']['evaluate']} launches, "
+                           f"avg_time_per_image {out['sharded']['avg_time_per_image']:.4f} s vs "
+                           f"{out['one']['avg_time_per_image']:.4f} s on {card}; the phase "
+                           f"took {res['seconds']:.1f} s")
+    return res
+
+
 def _k4_bytes(n_rays, n_samples, backward):
     """The bytes K4f / K4b must move: each input read once (rays, depths,
     dir_c, v0, weights; g and the transposed weights for K4b), each output
@@ -3538,6 +4040,8 @@ def main() -> int:
         me = metrics_phase(ev)
         qu = quality_phase(dev, tmp, ev, me, card)
         su = supervised_train_phase(dev, tmp, ev["dataset"], card)
+        dd = ddp_train_phase(dev, ds, tmp, ev["dataset"], card)
+        sh = sharded_serve_phase(dev, tmp, ev, card)
         oc = occupancy_serve_phase(dev, ds, tr["checkpoint"])
         st = train_phase(dev, ds, tmp, False, card, SYNTH512_SMALLER, PAPER_TRAIN_STEPS,
                          "smaller_train")
@@ -3561,6 +4065,12 @@ def main() -> int:
     wt_k1 = sum(r[m]["K1"] for r in wt["launches"].values() for m in r)
     wt_k1_runs = sum(r[m]["train_pass_kernel"] for r in wt["runs"].values() for m in r)
     wt_k2_runs = sum(r[m]["render_kernel"] for r in wt["runs"].values() for m in r)
+    # ddp_train: the three one-card runs of (a) in this process, and the gloo
+    # ranks of (b) (their K2 calls: the validations of (a))
+    dd_k1 = sum(r["K1"] for name, r in dd["launches"].items() if name != "gloo_ranks") \
+        + dd["launches"]["gloo_ranks"]
+    dd_k2 = sum(r["K2"] for name, r in dd["launches"].items() if name != "gloo_ranks")
+    sh_k2 = sum(sh["launches"].values())
     # the coarse-only training pass: 2048 rays at S = 64, the paper model
     k3 = "paper_64"
     kernels = {"kernels": [
@@ -3572,7 +4082,8 @@ def main() -> int:
             "modes": ["paper", "small"],
             # the frames of the four serving paths and of the eval entry point
             "launches": s["launches"] + ss["launches"] + fe["launches"] + oc["launches"]
-            + sum(m["launches"] for m in ev["modes"].values()) + su["launches"]["K2"],
+            + sum(m["launches"] for m in ev["modes"].values()) + su["launches"]["K2"]
+            + dd_k2 + sh_k2,
             "launches_by_path": {"serve": s["launches"], "smaller_serve": ss["launches"],
                                  "fast_serve": fe["launches"],
                                  "occupancy_serve": oc["launches"],
@@ -3582,7 +4093,8 @@ def main() -> int:
                                                      for m in r),
                                  "smaller_train": st["launches"]["K2"],
                                  "coarse_train": ct["launches"]["K2"],
-                                 "supervised_train": su["launches"]["K2"]},
+                                 "supervised_train": su["launches"]["K2"],
+                                 "ddp_train": dd_k2, "sharded_serve": sh_k2},
             "kernel_runs_by_path": {"window_train": wt_k2_runs, "eval_parity": ev["runs"]},
             "max_abs_err": max(errs),
             # one coarse (S=64, weights) + one fine (S=128) call on 4096 rays
@@ -3605,6 +4117,8 @@ def main() -> int:
                                       for p, S in (("coarse", 64), ("fine", 128))},
             "design": K2_DESIGN,
             "frame_ms_512": s["frame_ms"],
+            # AvatarServer(devices=[cuda:0] x 2) beside the one-device server
+            "sharded_frame_ms_512": sh["frame_ms"],
             "smaller_frame_ms_512": ss["frame_ms"],
             "fast_frame_ms_512": {"fast": fe["fast_ms"], "parity": fe["parity_ms"]},
             "occupancy_frame_ms_512": {"fast": oc["fast_ms"], "parity": oc["parity_ms"]},
@@ -3626,12 +4140,13 @@ def main() -> int:
             "replaces": "nerface_tpu/ops/pallas/fused_train.py:69",
             "modes": ["paper", "small"],
             "launches": tr["launches"]["K1"] + st["launches"]["K1"] + wt_k1
-            + ev["train"]["launches"]["K1"] + su["launches"]["K1"],
+            + ev["train"]["launches"]["K1"] + su["launches"]["K1"] + dd_k1,
             "launches_by_path": {"train": tr["launches"]["K1"],
                                  "smaller_train": st["launches"]["K1"],
                                  "window_train": wt_k1,
                                  "eval_train": ev["train"]["launches"]["K1"],
-                                 "supervised_train": su["launches"]["K1"]},
+                                 "supervised_train": su["launches"]["K1"],
+                                 "ddp_train": dd_k1},
             "kernel_runs_by_path": {"window_train": wt_k1_runs},
             "max_abs_err": max(v for r in (tk, tks) for e in r["err"].values() for v in e.values()),
             # a train step's two passes: coarse (S=64) + fine (S=128), 2048 rays
@@ -3666,6 +4181,10 @@ def main() -> int:
             "device_feed_topk_ms": wt["topk_ms"],
             # the supervised run: where SIGTERM hit, the resume point, and a
             # save's ms on the training thread, async submit vs synchronous
+            # data parallelism: NCCL at world 1 (the NCCL kernels' runs and
+            # device ms, the steady windowed step with and without the group)
+            # and gloo at world 2 on the one card
+            "ddp": {k: dd[k] for k in ("nccl_world1", "step_ms", "gloo", "nccl_multi")},
             "supervised": {k: su[k] for k in ("sigterm_after", "resumed_from", "save_ms",
                                              "ckpt_mb", "whole_s", "supervised_s", "phase_s")},
             "feed_rows_s": wt["feed_rows_s"],

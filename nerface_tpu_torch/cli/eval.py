@@ -8,9 +8,9 @@ its hardcoded ablation switches, :374-380,420, exposed as flags or
         --checkpoint run.ckpt --savedir renders/ --bf16 --save-disparity-image
     # the CPU (f32, the kernels' plain versions)
     python -m nerface_tpu_torch.cli.eval --config c.yml --checkpoint run.ckpt --device cpu
-
-`--num-devices` > 1 is not ported yet and is refused (ROADMAP.md Queue 1:
-DDP).
+    # each frame's rays sharded over the host's first 2 cards
+    python -m nerface_tpu_torch.cli.eval --config c.yml --checkpoint run.ckpt --bf16 \
+        --num-devices 2
 """
 
 from __future__ import annotations
@@ -20,6 +20,24 @@ import dataclasses
 
 # JAX's precision names onto torch.set_float32_matmul_precision's
 MATMUL_PRECISION = {"default": "medium", "high": "high", "highest": "highest"}
+
+
+def shard_devices(num_devices: int, device: str):
+    """`--num-devices N` with `--device`: the N devices to spread over —
+    cuda:0..N-1, or the CPU N times with `--device cpu` — or None below 2.
+    N beyond the host's cards is refused."""
+    if not num_devices or num_devices < 2:
+        return None
+    import torch
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        count = torch.cuda.device_count()
+        if num_devices > count:
+            raise SystemExit(f"--num-devices {num_devices}: this host has {count} CUDA "
+                             f"device(s)")
+        return [torch.device("cuda", i) for i in range(num_devices)]
+    return [dev] * num_devices
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -35,8 +53,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Save photometric error visualization.")
     parser.add_argument("--max-frames", type=int, default=None)
     parser.add_argument("--num-devices", type=int, default=0,
-                        help="Shard each frame's rays over this many devices (not yet "
-                             "ported: > 1 is refused).")
+                        help="Shard each frame's rays over this many devices: cuda:0..N-1, "
+                             "or N times the CPU with --device cpu.")
     parser.add_argument("--matmul-precision", type=str, default=None,
                         choices=sorted(MATMUL_PRECISION),
                         help="f32 matmul precision ('highest' = strict f32), through "
@@ -69,8 +87,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    if args.num_devices > 1:
-        raise SystemExit("--num-devices > 1 is not yet ported to PyTorch (ROADMAP.md Queue 1: DDP)")
+    devices = shard_devices(args.num_devices, args.device)
 
     import torch
 
@@ -103,7 +120,7 @@ def main(argv=None) -> dict:
         cfg, checkpoint=args.checkpoint, savedir=args.savedir, eval_flags=flags,
         save_disparity_image=args.save_disparity_image,
         save_error_image=args.save_error_image, max_frames=args.max_frames,
-        dtype=torch.bfloat16 if args.bf16 else None, device=args.device,
+        dtype=torch.bfloat16 if args.bf16 else None, device=args.device, devices=devices,
     )
     print(f"Rendered {int(summary['frames'])} frames; "
           f"avg time per image: {summary['avg_time_per_image']:.4f}s")

@@ -9,6 +9,9 @@ reference-schema `.ckpt`. Protocol: newline-delimited JSON (see
     # TCP, bf16 on the card: both passes through the fused-render kernel
     python -m nerface_tpu_torch.cli.serve --config c.yml --checkpoint m.ckpt \
         --listen 0.0.0.0:7860 --bf16 --device cuda
+    # each frame sharded over the host's first 2 cards
+    python -m nerface_tpu_torch.cli.serve --config c.yml --checkpoint m.ckpt --stdio \
+        --bf16 --num-devices 2
 """
 
 from __future__ import annotations
@@ -48,7 +51,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--num-devices", type=int, default=0,
-        help="Shard each frame over this many devices (not yet ported: > 1 is refused).",
+        help="Shard each frame over this many devices: cuda:0..N-1, or N times the CPU "
+        "with --device cpu.",
     )
     parser.add_argument(
         "--warmup", action="store_true",
@@ -63,10 +67,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    if args.num_devices > 1:
-        raise SystemExit("--num-devices > 1 is not yet ported to PyTorch")
 
     import sys
+
+    from nerface_tpu_torch.cli.eval import shard_devices
+
+    devices = shard_devices(args.num_devices, args.device)
 
     import torch
 
@@ -80,6 +86,7 @@ def main(argv=None) -> None:
         cfg, checkpoint=args.checkpoint,
         dtype=torch.bfloat16 if args.bf16 else None,
         device=args.device,
+        devices=devices,
     )
     if args.warmup:
         server.render(maps=("rgb_fine",))

@@ -2,8 +2,9 @@
 draw (Gumbel top-k) and the rays, all on the device, with no host work and
 no host-to-device copy a step.
 
-Port of the single-device sampler of `nerface_tpu/data/device_feed.py:33-132`
-(the mesh and process samplers wait for DDP). The batch has the schema of
+Port of `nerface_tpu/data/device_feed.py`: the single-device sampler
+(:33-132) and, through `draw(seed, position=g)`, the mesh and process
+samplers (:134-249). The batch has the schema of
 `data/pipeline.py::RayFeed`'s, so it drops into the train step unchanged.
 The train images live on the device as uint8 ((N·H·W·3) bytes) and are
 normalised after the gather.
@@ -21,6 +22,13 @@ execution window): the frame from stream `STREAM_FEED_FRAME`, one Gumbel
 key a pixel from `STREAM_FEED_PIXEL` by pixel index. So the feed is
 deterministic in (seed, step), and a resumed run continues the stream.
 Both draws can be injected (`frame`, `gumbel`).
+
+Under data parallelism every rank draws one block of the step's global
+batch: the frame comes from the seed alone, so all ranks share it, and the
+rank at global position g takes its Gumbel keys from sample g of each
+pixel's hash row (position 0 is the single-device stream, bit for bit),
+with `ray_index` g·num_rays + arange(num_rays), as JAX's `fold_in(k_pix,
+g)` gives each mesh position its own block.
 """
 
 from __future__ import annotations
@@ -119,10 +127,12 @@ class DeviceRayFeed:
         bits = per_ray_bits(seed, STREAM_FEED_FRAME, self.pixels[:1], 1).reshape(1)
         return (bits * self.n_frames) >> 32
 
-    def gumbel(self, seed) -> torch.Tensor:
-        """(H·W,) f32 standard Gumbel keys for the step's seed, one a pixel:
-        −log(−log u), u = (23 hash bits + ½)·2⁻²³, in (0, 1) exactly."""
-        bits = per_ray_bits(seed, STREAM_FEED_PIXEL, self.pixels, 1).reshape(-1)
+    def gumbel(self, seed, position: int = 0) -> torch.Tensor:
+        """(H·W,) f32 standard Gumbel keys for the step's seed at global
+        position `position`, one a pixel: −log(−log u), u = (23 hash bits +
+        ½)·2⁻²³, in (0, 1) exactly."""
+        bits = per_ray_bits(seed, STREAM_FEED_PIXEL, self.pixels, 1,
+                            first_sample=int(position)).reshape(-1)
         u = ((bits >> 9).to(torch.float32) + 0.5) * (1.0 / (1 << 23))
         return -torch.log(-torch.log(u))
 
@@ -131,18 +141,21 @@ class DeviceRayFeed:
         seed,
         frame: Optional[torch.Tensor] = None,
         gumbel: Optional[torch.Tensor] = None,
+        position: Optional[int] = None,
     ) -> Dict[str, torch.Tensor]:
         """One train frame and `num_rays` of its pixels without replacement,
         proportional to its importance map: the top `num_rays` of log-map +
         Gumbel keys, highest first (as `jax.lax.top_k`). `seed` is an int or
         `step_seed`'s 0-d tensor; `frame` (a row of `i_train`) and `gumbel`
-        ((H·W,) f32) replace the hash's draws."""
+        ((H·W,) f32) replace the hash's draws. With `position` g the batch
+        is block g of a data-parallel step: the pixels of position g and
+        `ray_index` g·num_rays + arange(num_rays)."""
         dev = self.dirs_cam.device
         if frame is None:
             t = self.frame(seed)
         else:
             t = torch.as_tensor(frame, dtype=torch.int64, device=dev).reshape(1)
-        g = self.gumbel(seed) if gumbel is None else gumbel
+        g = self.gumbel(seed, position or 0) if gumbel is None else gumbel
         sel = torch.topk(self.log_row(t) + g, self.num_rays).indices
 
         pose = self.poses.index_select(0, t)[0]
@@ -161,4 +174,7 @@ class DeviceRayFeed:
         }
         if self.background is not None:
             batch["background_rgb"] = self.background.index_select(0, sel)
+        if position is not None:
+            batch["ray_index"] = torch.arange(
+                position * self.num_rays, (position + 1) * self.num_rays, device=dev)
         return batch

@@ -37,7 +37,7 @@ import contextlib
 import dataclasses
 import os
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -271,11 +271,14 @@ def evaluate(
     dtype=None,
     log: bool = True,
     device="cuda",
+    devices: Optional[Sequence] = None,
 ) -> Dict[str, float]:
     """Render the test split of `cfg`'s dataset with the `.ckpt` at
     `checkpoint` into `savedir`, on `device` (the card unless the caller
     asks for the CPU; there is no fallback); `dtype=torch.bfloat16` takes
-    the kernel path. Returns `frames`, `avg_time_per_image` (seconds from a
+    the kernel path. With `devices` (JAX's `mesh`) every frame's rays are
+    sharded over them (`render_full_frame(devices=...)`); the models load
+    on, and the frames land on, `devices[0]`. Returns `frames`, `avg_time_per_image` (seconds from a
     frame's start until its uint8 rgb is on the device, the stream
     synchronised), `setup_s` (dataset, checkpoint, fast-eval / occupancy
     set-up) and `frame_loop_s` (renders, copies and PNG writes, the saver
@@ -287,6 +290,8 @@ def evaluate(
     from nerface_tpu_torch.render.pipeline import RenderSettings
 
     t_setup0 = time.perf_counter()
+    if devices:
+        device = devices[0]
     device = torch.device(device)
     flags = eval_flags if eval_flags is not None else EvalFlags.from_cfg(cfg)
     if dataset is None:
@@ -363,7 +368,7 @@ def evaluate(
                 seed=i, expressions=torch.as_tensor(expression, device=device),
                 latent_code=latent_code, background=background,
                 ray_directions_ablation=abl, dtype=dtype, device=device,
-                bbox=fast_bbox, occupancy=occ_grid,
+                bbox=fast_bbox, occupancy=occ_grid, devices=devices,
             )
             rgb = out.get("rgb_fine", out["rgb_coarse"])
             disp = out.get("disp_fine", out["disp_coarse"])

@@ -1,6 +1,6 @@
 """Full-frame rendering: the eval/serving path.
 
-Port of the single-device renderers of `nerface_tpu/eval/renderer.py`.
+Port of `nerface_tpu/eval/renderer.py`.
 
 The parity renderer (`_render_frame_jit`): the frame's H·W rays are padded
 to whole tiles of `tile` rays (default `settings.chunksize`, the
@@ -18,8 +18,19 @@ first in raster order, wrapped cyclically to a fixed capacity of
 `fast_eval_capacity`·H·W rays rounded up to whole tiles of at most 16384;
 those rays render as usual (spare slots render real rays), and the results
 are scattered over the background defaults. Active rays beyond the capacity
-fall back to the background. Mesh sharding is not ported yet (ROADMAP.md
-Queue 1).
+fall back to the background.
+
+Sharding (`devices`, JAX's `mesh`: `_render_frame_sharded` and
+`_render_frame_fast_sharded`, :270-345, :441-514): the ray axis (or the
+fast path's capacity) is padded to whole tiles on every device, with JAX's
+rules — the tile cut to ⌈n / n_dev⌉ on the parity path, the capacity
+rounded to tile·n_dev on the fast path — and cut into one block a device.
+Each block carries its rays' global indices, so its draws are the
+one-device frame's; its tiles are launched on its device (asynchronously
+on a card) through a replica of the models kept on that device, and the
+blocks are gathered on the first device. With the same tiles the sharded
+frame is the one-device frame bit for bit. A list may repeat a device,
+which drives the split and the gather on one card or the CPU.
 
 With `settings.no_ndc` false (the stock LLFF configs) the parity renderer
 projects the frame's rays to NDC, with near / far 0 / 1, before tiling
@@ -29,8 +40,10 @@ JAX package's gate and takes no such frame.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Dict, Optional
+import weakref
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -108,12 +121,63 @@ def _render_tiles(model_coarse, model_fine, ro, rd, idx, bg, abl, tile, settings
     return {k: torch.cat([t[k] for t in tiles]) for k in tiles[0]}
 
 
+# model → {device: (the weights' storage and versions, the replica)}
+_REPLICAS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _replica(model, device: torch.device):
+    """`model` on `device`: the model itself where it lives there, else a
+    copy made once and kept while its weights are unchanged."""
+    if model is None or next(model.parameters()).device == device:
+        return model
+    key = tuple((p.data_ptr(), p._version) for p in model.parameters())
+    per = _REPLICAS.setdefault(model, {})
+    hit = per.get(device)
+    if hit is None or hit[0] != key:
+        cache = model.__dict__.pop("_kernel_weights_cache", None)
+        try:
+            rep = copy.deepcopy(model)
+        finally:
+            if cache is not None:
+                model._kernel_weights_cache = cache
+        per[device] = hit = (key, rep.to(device).requires_grad_(False))
+    return hit[1]
+
+
+def _on(x, device):
+    return x.to(device, non_blocking=True) if isinstance(x, torch.Tensor) else x
+
+
+def _render_blocks(model_coarse, model_fine, ro, rd, idx, bg, abl, tile, settings, devices,
+                   **kw):
+    """`_render_tiles` over one equal block of the rays a device, block d
+    on `devices[d]` (its launches queued there before the next block's),
+    gathered on `devices[0]`."""
+    if len(devices) == 1:
+        return _render_tiles(model_coarse, model_fine, ro, rd, idx, bg, abl, tile, settings,
+                             **kw)
+    per = ro.shape[0] // len(devices)
+    blocks = []
+    for d, dev in enumerate(devices):
+        sl = slice(d * per, (d + 1) * per)
+        blocks.append(_render_tiles(
+            _replica(model_coarse, dev), _replica(model_fine, dev), _on(ro[sl], dev),
+            _on(rd[sl], dev), _on(idx[sl], dev), _on(bg[sl], dev) if bg is not None else None,
+            _on(abl[sl], dev) if abl is not None else None, tile, settings,
+            **{k: _on(v, dev) for k, v in kw.items()},
+        ))
+    first = devices[0]
+    return {k: torch.cat([_on(b[k], first) for b in blocks]) for k in blocks[0]}
+
+
 def _render_frame_fast(model_coarse, model_fine, height, width, intrinsics, pose, settings,
-                       background, bbox, occupancy, tile, **kw):
+                       background, bbox, occupancy, tile, devices, **kw):
     n = height * width
+    n_dev = len(devices)
     tile = min(tile, FAST_TILE)
-    cap = _round_up(max(1, int(n * float(settings.fast_eval_capacity))), tile)
-    cap = min(cap, _round_up(n, tile))
+    # the capacity in whole tiles on every device (`renderer.py:284-290`)
+    cap = _round_up(max(1, int(n * float(settings.fast_eval_capacity))), tile * n_dev)
+    cap = min(cap, _round_up(n, tile * n_dev))
     ro, rd = get_ray_bundle(height, width, intrinsics, pose)
     ro, rd = ro.reshape(n, 3), rd.reshape(n, 3)
     inside = _active_mask(ro, rd, height, width, bbox, occupancy, settings, pose=pose,
@@ -123,9 +187,10 @@ def _render_frame_fast(model_coarse, model_fine, height, width, intrinsics, pose
     # same twice, its draws keyed by its global index
     order = torch.argsort((~inside).to(torch.int32), stable=True)
     act = order.repeat(-(-cap // n))[:cap]
-    maps = _render_tiles(
+    maps = _render_blocks(
         model_coarse, model_fine, ro[act], rd[act], act,
-        background[act] if background is not None else None, None, tile, settings, **kw,
+        background[act] if background is not None else None, None, tile, settings, devices,
+        **kw,
     )
     # the skipped rays' defaults: the background sample absorbs all the
     # transmittance (acc and bg_weight 1, depth at the far plane)
@@ -167,6 +232,7 @@ def render_full_frame(
     device=None,
     bbox=None,
     occupancy=None,
+    devices: Optional[Sequence] = None,
 ) -> Dict[str, torch.Tensor]:
     """Render one frame on `device` (default: the coarse model's); returns
     image-shaped maps (rgb_coarse/rgb_fine (H, W, 3); disp/acc/depth and
@@ -175,9 +241,17 @@ def render_full_frame(
 
     With `settings.fast_eval` and a pixel `bbox` [h0, h1, w0, w1] and/or an
     `occupancy` grid, only the active rays run the radiance field (the JAX
-    package's gate: no direction ablation, `no_ndc`)."""
+    package's gate: no direction ablation, `no_ndc`).
+
+    With `devices` (JAX's `mesh`) the frame's rays are sharded over them,
+    one block a device (the module docstring); the maps land on
+    `devices[0]`, where the inputs live."""
+    if devices:
+        devices = [torch.device(d) for d in devices]
+        device = devices[0]
     if device is None:
         device = next(model_coarse.parameters()).device
+    devices = devices or [torch.device(device)]
     tile = min(int(tile or settings.chunksize), height * width)
     pose = torch.as_tensor(pose, dtype=torch.float32, device=device)
     n = height * width
@@ -186,7 +260,7 @@ def render_full_frame(
     if (settings.fast_eval and (bbox is not None or occupancy is not None)
             and ray_directions_ablation is None and settings.no_ndc):
         return _render_frame_fast(model_coarse, model_fine, height, width, intrinsics, pose,
-                                  settings, bg, bbox, occupancy, tile, **kw)
+                                  settings, bg, bbox, occupancy, tile, devices, **kw)
 
     ro, rd = get_ray_bundle(height, width, intrinsics, pose)
     if not settings.no_ndc:
@@ -195,7 +269,10 @@ def render_full_frame(
         focal = torch.as_tensor(intrinsics, dtype=torch.float32, device=ro.device)[:2]
         ro, rd = ndc_rays(height, width, focal, 1.0, ro.reshape(n, 3), rd.reshape(n, 3))
         settings = dataclasses.replace(settings, no_ndc=True, near=0.0, far=1.0)
-    n_pad = _round_up(n, tile)
+    # whole tiles on every device (`renderer.py:453-456`)
+    n_dev = len(devices)
+    tile = min(tile, _round_up(n, n_dev) // n_dev)
+    n_pad = _round_up(n, tile * n_dev)
     ro = _pad_rows(ro.reshape(n, 3), n_pad, 0.0)
     rd = _pad_rows(rd.reshape(n, 3), n_pad, 1.0)
     bg = _pad_rows(bg, n_pad, 0.0) if bg is not None else None
@@ -204,5 +281,6 @@ def render_full_frame(
         if ray_directions_ablation is not None else None
     )
     idx = torch.arange(n_pad, device=ro.device)
-    maps = _render_tiles(model_coarse, model_fine, ro, rd, idx, bg, abl, tile, settings, **kw)
+    maps = _render_blocks(model_coarse, model_fine, ro, rd, idx, bg, abl, tile, settings, devices,
+                          **kw)
     return {k: v[:n].reshape(height, width, *v.shape[1:]) for k, v in maps.items()}

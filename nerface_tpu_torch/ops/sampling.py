@@ -72,16 +72,19 @@ def step_seed(seed, step):
     return _mix32((seed & _M32) ^ _mix32((step + 0x632BE5AB) & _M32))
 
 
-def per_ray_bits(seed, stream: int, ray_index: torch.Tensor, num_samples: int) -> torch.Tensor:
+def per_ray_bits(seed, stream: int, ray_index: torch.Tensor, num_samples: int,
+                 first_sample: int = 0) -> torch.Tensor:
     """(R, num_samples) int64 hashes in [0, 2^32) on `ray_index`'s device.
     Row r depends only on (seed, stream, ray_index[r]); `seed` is an int or
-    a 0-d int64 tensor (`step_seed`'s tensor form)."""
+    a 0-d int64 tensor (`step_seed`'s tensor form). Column c is sample
+    `first_sample + c` of the row."""
     if not isinstance(seed, torch.Tensor):
         seed = int(seed)
     key = _mix32((seed & _M32) ^ _mix32((int(stream) + 0x9E3779B9) & _M32))
     ray = ray_index.to(torch.int64).reshape(-1, 1) & _M32
     h = _mix32(ray ^ key)
-    col = torch.arange(num_samples, dtype=torch.int64, device=ray_index.device)
+    col = torch.arange(first_sample, first_sample + num_samples, dtype=torch.int64,
+                       device=ray_index.device)
     return _mix32(h ^ _mix32(_mul32(col, 0x9E3779B9) ^ 0x85EBCA6B))
 
 

@@ -34,8 +34,10 @@ Fast-eval + bf16 is the production serving configuration, as in the JAX
 package: with `nerf.validation.fast_eval` the server sizes the head-bbox
 capacity (and, with `occupancy`, builds the occupancy grid from the trained
 field) once at construction (`eval/occupancy.py::fast_eval_setup`), and
-only the active rays of each frame run the radiance field. Multi-device
-serving is not ported yet.
+only the active rays of each frame run the radiance field. With `devices`
+(JAX's `mesh`, `serve.py:322`) every frame, parity or fast, is sharded over
+them by the renderer (`render_full_frame(devices=...)`); the avatar lives
+on, and the frames land on, `devices[0]`.
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ import io
 import json
 import socket
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -103,11 +105,13 @@ class AvatarServer:
         dtype=None,
         device="cuda",
         log: bool = True,
+        devices: Optional[Sequence] = None,
     ):
         self.cfg = cfg
         self.checkpoint = checkpoint
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.devices = [torch.device(d) for d in devices] if devices else None
+        self.device = self.devices[0] if self.devices else torch.device(device)
         self.flags = eval_flags if eval_flags is not None else EvalFlags.from_cfg(cfg)
 
         self.settings = RenderSettings.from_cfg(cfg, mode="validation")
@@ -231,6 +235,7 @@ class AvatarServer:
             device=self.device,
             bbox=bbox,
             occupancy=occ,
+            devices=self.devices,
         )
         pending: Dict[str, tuple] = {}
         with torch.no_grad():

@@ -43,7 +43,20 @@ boundaries, the validation scalars and images from the validation render.
 Under autograd's anomaly mode (`--debug-nans`), which reads every
 gradient back to the host, the loop runs one step a window.
 
-Not ported yet (ROADMAP.md Queue 1): several devices (DDP).
+Several ranks (train/distributed.py, joined before `train()` is called):
+every rank builds the same weights (checked by a checksum all-reduce, and
+again after a resume, which every rank loads), runs the DP step
+(train/window.py) and ends with the same parameters (checked again at the
+end). The host feed's `num_random_rays` is the global batch, split over
+the ranks (`local_batch`); the device feed draws `num_random_rays` a rank,
+so a step takes world × `num_random_rays` rays (`nerface_tpu/train/
+loop.py:404-408`). Rank 0 alone prints, validates (on its side stream
+under a window), writes `config.yml`, TensorBoard and the checkpoints; the
+other ranks write nothing. The window rule: over NCCL the steps are
+windowed as on one device, its collective captured with the step; gloo's
+cannot be captured, so a gloo run takes one step a window. (JAX runs every
+multi-process run at K = 1 because its host feed exchanges `global_batch`
+outside jit, `loop.py:176-177`; here each rank slices its own batch.)
 """
 
 from __future__ import annotations
@@ -66,6 +79,7 @@ from nerface_tpu_torch.eval.renderer import render_full_frame
 from nerface_tpu_torch.models.nerf_models import build_model
 from nerface_tpu_torch.ops.math import mse2psnr
 from nerface_tpu_torch.render.pipeline import RenderSettings
+from nerface_tpu_torch.train import distributed
 from nerface_tpu_torch.train.checkpoint import (
     AsyncCheckpointWriter,
     load_torch_checkpoint,
@@ -179,11 +193,13 @@ def validate(
             "coarse_loss": coarse_loss, "fine_loss": fine_loss, "time": time.time() - t0}
 
 
-def _effective_window(requested, cadences, multiprocess: bool = False) -> int:
+def _effective_window(requested, cadences, eager_collectives: bool = False) -> int:
     """The largest window K ≤ `requested` that divides every active
     cadence, so print, validate and save land on window ends
-    (`nerface_tpu/train/loop.py:170-186`). Several processes run K = 1."""
-    if multiprocess:
+    (`nerface_tpu/train/loop.py:170-186`). Ranks whose collectives cannot
+    be captured (`eager_collectives`: gloo) run K = 1, JAX's rule for every
+    multi-process run."""
+    if eager_collectives:
         return 1
     cad = [int(c) for c in cadences if c and int(c) > 0]
     k = max(1, int(requested))
@@ -246,8 +262,11 @@ def train(
     caller asks for the CPU); returns the final `TrainState`. `dtype`
     torch.bfloat16 trains the paper model through K1 and a Flexible-family
     model through K4f/K4b. `steps_per_execute` and `device_feed` override
-    the config's."""
+    the config's. Under data parallelism every rank calls it with its own
+    `device` (the module docstring)."""
     dev = torch.device(device)
+    world = distributed.world_size()
+    primary = distributed.is_primary()
     flags = FeatureFlags.from_cfg(cfg)
     if device_feed is None:
         device_feed = bool(cfg.experiment.get("device_feed") or False)
@@ -271,22 +290,31 @@ def train(
         if not os.path.isfile(load_checkpoint):
             raise FileNotFoundError(f"--load-checkpoint path does not exist: {load_checkpoint!r}")
         restore_train_state(state, optimizer, load_torch_checkpoint(load_checkpoint, device=dev))
+    replicated = state.ordered_params() + [state.background_slot()]
+    distributed.check_replicas_agree(
+        replicated, "the resumed checkpoint" if load_checkpoint else "the initial weights")
 
     settings = RenderSettings.from_cfg(cfg, mode="train")
     logdir = os.path.join(str(cfg.experiment.logdir), str(cfg.experiment.id))
-    writer = ScalarWriter(logdir, cfg=cfg)
+    writer = ScalarWriter(logdir if primary else None, cfg=cfg)
     train_iters = int(max_iters if max_iters is not None else cfg.experiment.train_iters)
     validate_every = int(cfg.experiment.validate_every)
     save_every = int(cfg.experiment.save_every)
     print_every = int(cfg.experiment.print_every)
     rays_per_step = int(cfg.nerf.train.num_random_rays)
-    k_exec = _effective_window(_requested_window(steps_per_execute, cfg, train_iters),
-                               [print_every, validate_every, save_every])
+    eager_collectives = world > 1 and distributed.backend() != "nccl"
+    k_req = _requested_window(steps_per_execute, cfg, train_iters)
+    k_exec = _effective_window(k_req, [print_every, validate_every, save_every],
+                               eager_collectives)
+    if eager_collectives and primary and k_req > 1:
+        print(f"[train] {world} ranks over {distributed.backend()}, whose collectives cannot "
+              f"be captured: one step a window", flush=True)
     if torch.is_anomaly_enabled() and k_exec > 1:
-        print(f"[train] anomaly detection on (--debug-nans): one step a window instead of "
-              f"{k_exec}", flush=True)
+        if primary:
+            print(f"[train] anomaly detection on (--debug-nans): one step a window instead of "
+                  f"{k_exec}", flush=True)
         k_exec = 1
-    if k_exec > 1:
+    if k_exec > 1 and primary:
         print(f"[train] execution window: {k_exec} steps", flush=True)
 
     feed = dfeed = None
@@ -296,6 +324,8 @@ def train(
         dfeed = DeviceRayFeed(dataset, num_rays=rays_per_step,
                               background=background if flags.fixed_background else None,
                               device=dev)
+        # every rank draws its own num_random_rays
+        rays_per_step *= world
     else:
         # resume continues the uninterrupted run's sample stream
         feed = RayFeed(dataset, num_rays=rays_per_step,
@@ -384,11 +414,12 @@ def train(
             j = i if i % k_exec == 0 else (i // k_exec + 1) * k_exec
             j = min(j, train_iters - 1)
             k_run = j - i + 1
-            batches = None if dfeed is not None else [next(feed) for _ in range(k_run)]
+            batches = (None if dfeed is not None
+                       else [distributed.local_batch(next(feed)) for _ in range(k_run)])
             window.run(k_run, batches)
             last = j == train_iters - 1
 
-            if j % print_every == 0 or last:
+            if primary and (j % print_every == 0 or last):
                 host = torch.empty(len(METRIC_KEYS), dtype=torch.float32, pin_memory=cuda)
                 host.copy_(window.metrics_out, non_blocking=cuda)
                 ready = None
@@ -398,7 +429,7 @@ def train(
                 _backpressure(ready)
                 logged.append(io_pool.submit(_log_train, host, ready, j, j - start_iter + 1))
 
-            if validate_every > 0 and j % validate_every == 0 and len(dataset.i_val):
+            if primary and validate_every > 0 and j % validate_every == 0 and len(dataset.i_val):
                 if val_pool is not None:
                     snap = _snapshot(state, val_stream)
                     ready = None
@@ -412,7 +443,7 @@ def train(
                 else:
                     _run_val(state, j, None)
 
-            if save_every > 0 and (j % save_every == 0 or last):
+            if primary and save_every > 0 and (j % save_every == 0 or last):
                 metrics = window.metrics_out
                 ckpt_writer.submit(
                     os.path.join(logdir, f"checkpoint{state.step:05d}.ckpt"), state, optimizer,
@@ -433,4 +464,6 @@ def train(
             writer.close()
     for f in logged:
         f.result()
+    distributed.check_replicas_agree(replicated, "the trained weights")
+    distributed.barrier()
     return state

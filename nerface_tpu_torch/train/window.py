@@ -42,6 +42,17 @@ On the CPU, and on the card where `k_max` is 1 (`train()` at a window of
 one step), there is no graph: a window runs its steps one at a time
 through the same step body and the same bookkeeping. That is the
 step-at-a-time path, bit for bit the window's.
+
+Under data parallelism (train/distributed.py) the step body is JAX's DP
+step (`nerface_tpu/train/step.py:172-201`): between `backward()` and the
+optimizer's step one all-reduce averages the gradients and the metrics
+over the ranks (`GradReducer`'s flat buffer, allocated here), and PSNR is
+recomputed from the averaged loss. A group of one rank runs the collective
+too, and trains bit for bit as no group does. Over NCCL the collective is
+captured with the step and replayed with it; the eager first step runs it
+once before the capture. gloo's collectives cannot be captured, so a gloo
+run steps one at a time (train/loop.py's window rule). The device feed's
+rank r draws block r of the step (`DeviceRayFeed.draw(position=r)`).
 """
 
 from __future__ import annotations
@@ -52,14 +63,50 @@ import numpy as np
 import torch
 
 from nerface_tpu_torch.config.flags import FeatureFlags
+from nerface_tpu_torch.ops.math import mse2psnr
 from nerface_tpu_torch.ops.sampling import step_seed
 from nerface_tpu_torch.render.pipeline import RenderSettings
+from nerface_tpu_torch.train import distributed
 from nerface_tpu_torch.train.fused import fused_losses, fused_train_eligible
 from nerface_tpu_torch.train.state import TrainState, set_lr
 from nerface_tpu_torch.train.step import compute_losses
 
 METRIC_KEYS = ("total_loss", "loss", "coarse_loss", "fine_loss", "psnr", "latent_code_loss",
                "background_loss")
+
+
+def train_step(
+    state: TrainState,
+    optimizer: torch.optim.Optimizer,
+    batch: Dict[str, torch.Tensor],
+    seed,
+    settings: RenderSettings,
+    flags: FeatureFlags,
+    dtype=None,
+    fused: bool = False,
+    reducer: Optional[distributed.GradReducer] = None,
+    draws: Optional[Dict[str, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """One train step: the losses (through K1 where `fused`), backward,
+    with a `reducer` the all-reduce of the gradients and metrics over the
+    ranks, and the optimizer's step. Returns the `METRIC_KEYS` vector.
+    `draws` may inject the render's draws (as `compute_losses`)."""
+    optimizer.zero_grad(set_to_none=True)
+    if fused:
+        total, metrics = fused_losses(state, batch, seed, settings, flags, draws=draws)
+    else:
+        total, metrics = compute_losses(state, batch, seed, settings, flags, dtype=dtype,
+                                        draws=draws)
+    total.backward()
+    metrics["total_loss"] = total.detach()
+    vec = torch.stack([metrics[k].reshape(()) for k in METRIC_KEYS])
+    if reducer is not None:
+        vec = reducer(vec)
+        # the PSNR of the averaged loss: a mean of logs is not the log of
+        # the mean (`nerface_tpu/train/step.py:187-191`)
+        vec[METRIC_KEYS.index("psnr")] = mse2psnr(vec[METRIC_KEYS.index("loss")])
+    optimizer.step()
+    return vec
 
 
 class TrainWindow:
@@ -94,6 +141,11 @@ class TrainWindow:
         dev = next(state.model_coarse.parameters()).device
         self.device = dev
         self.graphed = dev.type == "cuda" and self.k_max > 1
+        self.rank = distributed.rank()
+        self.reducer = None
+        if distributed.initialized():
+            self.reducer = distributed.GradReducer(
+                [p for g in optimizer.param_groups for p in g["params"]], len(METRIC_KEYS))
         self.fused = fused_train_eligible(state.model_coarse, state.model_fine, settings, flags,
                                           dtype, dev)
         self.seed_t = torch.tensor(int(seed), dtype=torch.int64, device=dev)
@@ -111,28 +163,22 @@ class TrainWindow:
     # -- the step ------------------------------------------------------------
     def _batch(self) -> Dict[str, torch.Tensor]:
         if self.device_feed is not None:
-            return self.device_feed.draw(step_seed(self.seed_t, self.step_t))
+            position = self.rank if self.reducer is not None else None
+            return self.device_feed.draw(step_seed(self.seed_t, self.step_t), position=position)
         idx = self.slot_t.reshape(1)
         return {k: buf.index_select(0, idx)[0] for k, buf in self.buffers.items()}
 
     def _step(self) -> None:
         """One train step on the static buffers (eager, or being captured)."""
-        state, settings, flags = self.state, self.settings, self.flags
         batch = self._batch()
         seed = step_seed(self.seed_t, self.step_t)
-        self.optimizer.zero_grad(set_to_none=True)
-        if self.fused:
-            total, metrics = fused_losses(state, batch, seed, settings, flags)
-        else:
-            total, metrics = compute_losses(state, batch, seed, settings, flags, dtype=self.dtype)
-        total.backward()
-        self.optimizer.step()
+        vec = train_step(self.state, self.optimizer, batch, seed, self.settings, self.flags,
+                         dtype=self.dtype, fused=self.fused, reducer=self.reducer)
         self.step_t.add_(1)
         self.slot_t.add_(1)
         # the reference sets the LR after the step (train/schedule.py)
         set_lr(self.optimizer, self.lr_schedule(self.step_t))
-        metrics["total_loss"] = total.detach()
-        self.metrics_out.copy_(torch.stack([metrics[k].reshape(()) for k in METRIC_KEYS]))
+        self.metrics_out.copy_(vec)
 
     def _capture(self) -> None:
         if self.before_capture is not None:

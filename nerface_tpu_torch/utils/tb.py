@@ -7,13 +7,15 @@ train/fine_loss, train/psnr, train/code_loss, train/bg_loss,
 validation/{loss,coarse_loss,fine_loss,psnr} and image panels
 validation/{rgb_coarse,rgb_fine,img_target,background,weights}. The
 config snapshot is dumped to `logdir/config.yml` on construction, with or
-without tensorboardX; without it the writer logs nothing.
+without tensorboardX; without it the writer logs nothing. A writer with no
+logdir (a data-parallel run's ranks other than 0) writes nothing at all.
 """
 
 from __future__ import annotations
 
 import os
 import threading
+from typing import Optional
 
 import numpy as np
 
@@ -23,10 +25,13 @@ class ScalarWriter:
     thread while validation images are written from the validation
     thread; a lock serializes the underlying writer."""
 
-    def __init__(self, logdir: str, cfg=None):
+    def __init__(self, logdir: Optional[str], cfg=None):
         self.logdir = logdir
-        os.makedirs(logdir, exist_ok=True)
         self._lock = threading.Lock()
+        self._writer = None
+        if logdir is None:
+            return
+        os.makedirs(logdir, exist_ok=True)
         try:
             from tensorboardX import SummaryWriter
 

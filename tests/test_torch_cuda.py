@@ -967,3 +967,48 @@ def test_render_after_a_window_sees_the_updated_weights(cuda_device, window_data
     assert not torch.equal(before, fresh)
     assert torch.equal(after, fresh)
 
+
+
+@pytest.mark.cuda
+def test_gloo_dp_step_on_one_card(cuda_device, window_dataset, tmp_path):
+    """The DP step at world 2 over gloo with both ranks on the card (NCCL
+    refuses two ranks on one GPU): one bf16 step of the paper model through
+    K1 on each rank's half of a global batch of 2 × WINDOW_RAYS rays. The
+    ranks' parameters and Adam moments are bit for bit the same, and the
+    averaged gradients (Adam's first moments) are within `_k1_dp_limits`
+    of the one-process step's on the whole batch."""
+    import numpy as np
+
+    from chip_smoke import SYNTH512_PAPER, _fresh_state, _k1_dp_limits
+    from nerface_tpu_torch.config import FeatureFlags
+    from nerface_tpu_torch.data.pipeline import RayFeed, batch_to_device
+    from nerface_tpu_torch.render.pipeline import RenderSettings
+    from nerface_tpu_torch.train import dryrun
+    from nerface_tpu_torch.train.loop import setup_background
+
+    cfg = _window_cfg(SYNTH512_PAPER, 1, False, str(tmp_path))
+    ds = window_dataset
+    flags = FeatureFlags.from_cfg(cfg)
+    bg = setup_background(ds, flags)
+    batch = RayFeed(ds, 2 * WINDOW_RAYS, background=bg if flags.fixed_background else None,
+                    seed=3, native=False).sample_batch()
+    payload = {"state": _fresh_state(cfg, ds, "cpu"),
+               "opt_cfg": {"optimizer": dict(cfg.optimizer), "scheduler": dict(cfg.scheduler)},
+               "batch": batch_to_device(batch, "cpu"),
+               "settings": RenderSettings.from_cfg(cfg, "train"), "flags": flags, "seed": 3,
+               "dtype": torch.bfloat16, "fused": True, "device": str(cuda_device)}
+    one = dryrun.dp_step(payload)
+    ranks = dryrun.dryrun(payload, 2, init_method=f"file://{tmp_path}/rendezvous", timeout=300)
+    a, b = ranks[0]["arrays"], ranks[1]["arrays"]
+    assert a.keys() == b.keys() == one["arrays"].keys()
+    for k in a:
+        assert np.array_equal(a[k], b[k]), k
+    seen = 0
+    for k, g1 in one["arrays"].items():
+        if k.startswith("exp_avg/"):
+            lim_max, lim_norm = _k1_dp_limits(k, 2 * WINDOW_RAYS)
+            d = a[k] - g1
+            assert np.abs(d).max() <= lim_max * np.abs(g1).max(), k
+            assert np.linalg.norm(d) <= lim_norm * np.linalg.norm(g1), k
+            seen += 1
+    assert seen >= 40
