@@ -61,7 +61,11 @@ Phases, one line each (plus the kernels' register reports):
                bf16 kernel frame against the f32 plain-PyTorch frame of the
                same request (max FRAME_MAX = 1 level, mean ≤ FRAME_MEAN =
                0.15 levels), and that the frame is the MLP's (≥ 10 levels
-               off the background and a std of ≥ 10 levels).
+               off the background and a std of ≥ 10 levels). Then the TCP
+               front end: `serve_tcp` on port 0 in a thread (the bound port
+               read from the line it prints), one `AvatarClient` ping and
+               render, its rgb equal to `handle()`'s for the same request,
+               stop.
      smaller_serve — the same for SYNTH512_SMALLER (both models the smaller
                paper model): K2 `small`, 24 launches.
      fast_serve — the same avatar with `nerf.validation.fast_eval: true`, the
@@ -166,6 +170,28 @@ Phases, one line each (plus the kernels' register reports):
                scored: each run ≥ QUALITY_GAIN_DB above its first
                checkpoint, bf16's mean test PSNR ≥ f32's −
                QUALITY_BF16_MARGIN_DB.
+     reenact — the cross-actor reenactment path: `tools/reenactment_demo.py`'s
+               `main` at REENACT_SIZE = 128² (where the paper's 2048 rays
+               and 64 + 64 samples hold), REENACT_FRAMES = 60 frames a
+               synthetic tracker identity, REENACT_ITERS = 2000 bf16 steps
+               on the card (configs/synth512_paper.yml with the JAX demo's
+               overrides: the device feed, K = 50): two tracker
+               identities, `build_dataset`, `train`, the self-reenactment
+               evaluation and metrics, the driven evaluation, the triptych
+               AVI. The wrappers' counts are reset at each stage's start
+               and read at its end: K1 > 0 in training, K2 > 0 in each
+               evaluation, K3 never. Checks: the summary's PSNR / SSIM / L1
+               finite, `temporal_std` > 1, the AVI's 60 frames; then
+               REENACT_F32_FRAMES = 2 driven frames of the f32 plain path
+               against the bf16 ones (FRAME_MAX / FRAME_MEAN),
+               `cli/build_dataset.py --mode driven` writing the demo's
+               transforms_test.json, and the self-reenactment PSNR
+               ≥ QUALITY_GAIN_DB above the untrained avatar's
+               (checkpoint00001) on the same 10 frames. Prints the
+               tracker, dataset build, training and evaluation seconds,
+               each evaluation's avg_time_per_image, and the steady
+               windowed step (the median ms a step between the loop's
+               print lines after the first).
      supervised_train — the production run's sidecars: `cli/train.py
                --bf16` on the eval dataset with the host feed (native), K
                = 50, save_every 100, 300 steps, uninterrupted (in this
@@ -847,7 +873,58 @@ def serve_phase(dev, tmp, cfg_dict=SYNTH512_PAPER, name="serve", seed=SEED + 2):
                 f"levels, frame std {f['spread']:.2f} levels; bf16 kernel frame "
                 f"vs f32 plain frame: mean |diff| {f['mean_diff']:.4f} levels, p99 {f['p99']:.0f}, "
                 f"max {f['max_diff']} (limits {FRAME_MEAN}, {FRAME_MAX})")
+    if name == "serve":
+        f["client"] = _client_phase(server, name)
     return server, dict(f, launches=launches, frame_ms=frame_ms, tiles=tiles)
+
+
+def _client_phase(server, name):
+    """One `AvatarClient.render` over `serve_tcp` on port 0 (the bound port
+    read from the line serve_tcp prints): its rgb equal to `handle()`'s for
+    the same request, decoded from the same inline PNG encoding."""
+    import base64
+    import threading
+
+    import numpy as np
+    from PIL import Image
+
+    from nerface_tpu_torch.client import AvatarClient
+
+    req = {"frame": 1, "seed": 1, "maps": ["rgb_fine"]}
+    log, server._log = server._log, True  # serve_tcp prints its port only when logging
+    done = {}
+    t = threading.Thread(target=lambda: done.setdefault("n", server.serve_tcp("127.0.0.1", 0)))
+    out = io.StringIO()
+    port = None
+    try:
+        with contextlib.redirect_stdout(out):
+            t.start()
+            deadline = time.time() + 60
+            while port is None and t.is_alive() and time.time() < deadline:
+                m = re.search(r"\[serve\] listening on 127\.0\.0\.1:(\d+)", out.getvalue())
+                port = int(m.group(1)) if m else None
+                time.sleep(0.02)
+        check(port is not None, f"{name}: serve_tcp printed no port: {out.getvalue()!r}")
+        with AvatarClient("127.0.0.1", port) as client:
+            pong = client.ping()
+            t0 = time.perf_counter()
+            got = client.render(frame=req["frame"], seed=req["seed"], maps=tuple(req["maps"]))
+            client_ms = (time.perf_counter() - t0) * 1e3
+            client.stop_server()
+        t.join(timeout=120)
+    finally:
+        server._log = log
+    check(not t.is_alive() and done.get("n") == 3, f"{name}: serve_tcp handled {done}")
+    rep = server.handle(dict(req, encode="png_base64"))
+    want = np.asarray(Image.open(io.BytesIO(base64.b64decode(rep["maps"]["rgb_fine"]["png_base64"]))))
+    check(pong["ok"] and pong["H"] == server.H and got["rgb_fine"].shape == want.shape
+          and np.array_equal(got["rgb_fine"], want),
+          f"{name}: the client's rgb differs from handle()'s "
+          f"({got['rgb_fine'].shape} vs {want.shape})")
+    phase(name, f"AvatarClient over serve_tcp on port 0 (bound {port}): ping, one render "
+                f"{got['rgb_fine'].shape} in {client_ms:.1f} ms round trip (PNG included), "
+                f"rgb equal to handle()'s for the same request; stop")
+    return {"port": port, "round_trip_ms": client_ms}
 
 
 def noisy_frame_phase(dev, tmp, profile=False):
@@ -2165,6 +2242,210 @@ def quality_phase(dev, tmp, ev, me, card):
                                  for run, s in scores.items())
                      + f"; bf16 - f32 {-gap:+.3f} dB (limit -{QUALITY_BF16_MARGIN_DB}); on {card}")
     return {"scores": scores, "train": tr, "gap_db": -gap}
+
+
+REENACT_SIZE = 128  # the paper's shape holds from 128² (2048 rays, 64 + 64 samples)
+REENACT_FRAMES = 60
+REENACT_ITERS = 2000
+REENACT_F32_FRAMES = 2  # driven frames rendered again by the f32 plain path
+
+
+class _StampedOut(io.StringIO):
+    """Captured standard output that also records when each [TRAIN] line
+    was written: (iteration, perf_counter seconds)."""
+
+    def __init__(self):
+        super().__init__()
+        self.stamps = []
+
+    def write(self, text):
+        m = re.match(r"\[TRAIN\] Iter: (\d+)", text)
+        if m:
+            self.stamps.append((int(m.group(1)), time.perf_counter()))
+        return super().write(text)
+
+
+def _steady_step_ms(stamps):
+    """The median ms a step between consecutive [TRAIN] lines after the
+    first interval (which holds the eager steps and the capture). The loop
+    prints a line once the card has finished that step, so the intervals
+    read the card's pace."""
+    per = [(t1 - t0) * 1e3 / (j1 - j0) for (j0, t0), (j1, t1) in zip(stamps[1:], stamps[2:])]
+    return statistics.median(per) if per else float("nan"), per
+
+
+def _avi_frames(path):
+    """The frame count an MJPEG AVI declares (avih dwTotalFrames) and the
+    count of its index entries."""
+    import struct
+
+    with open(path, "rb") as f:
+        blob = f.read()
+    avih = blob.index(b"avih") + 8
+    idx1 = blob.rindex(b"idx1")
+    return (struct.unpack("<I", blob[avih + 16:avih + 20])[0],
+            struct.unpack("<I", blob[idx1 + 4:idx1 + 8])[0] // 16)
+
+
+def reenact_phase(dev, tmp, card):
+    """The cross-actor reenactment path (`tools/reenactment_demo.py`'s
+    `main`) at REENACT_SIZE², REENACT_FRAMES frames a tracker identity,
+    REENACT_ITERS bf16 steps on the card: the dataset build, K1 in
+    training, K2 in both evaluations (the wrappers' counts reset at each
+    stage's start and read at its end), the summary's metrics, the 60-frame
+    AVI; then the self-reenactment PSNR against the untrained avatar's
+    (checkpoint00001, the [quality] rule), REENACT_F32_FRAMES driven frames
+    against the f32 plain frames of the same checkpoint, and
+    `cli/build_dataset.py --mode driven` against the demo's test split."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from nerface_tpu_torch.cli import build_dataset as cli_build
+    from nerface_tpu_torch.config import EvalFlags, load_config
+    from nerface_tpu_torch.eval import driver
+    from nerface_tpu_torch.metrics.harness import two_folders
+    from nerface_tpu_torch.tools import dataset_builder as B
+    from nerface_tpu_torch.tools import reenactment_demo as demo
+    from nerface_tpu_torch.train import loop
+
+    w = os.path.join(tmp, "reenact")
+    counters = _launch_counts()
+    stages = []
+    real = {"tracker": (demo, "make_tracker_identity"), "build": (B, "build_dataset"),
+            "train": (loop, "train"), "evaluate": (driver, "evaluate")}
+    originals = {k: getattr(mod, attr) for k, (mod, attr) in real.items()}
+
+    def staged(name, fn):
+        def run(*a, **k):
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            result = fn(*a, **k)
+            torch.cuda.synchronize()
+            stages.append({"stage": name, "s": time.perf_counter() - t0, "result": result,
+                           "launches": {n: c.launches for n, c in counters.items()}})
+            return result
+        return run
+
+    out = _StampedOut()
+    argv = ["--size", str(REENACT_SIZE), "--frames", str(REENACT_FRAMES), "--iters",
+            str(REENACT_ITERS), "--workdir", w, "--device", str(dev)]
+    t0 = time.perf_counter()
+    try:
+        for k, (mod, attr) in real.items():
+            setattr(mod, attr, staged(k, originals[k]))
+        with contextlib.redirect_stdout(out):
+            summary = demo.main(argv)
+    finally:
+        for k, (mod, attr) in real.items():
+            setattr(mod, attr, originals[k])
+    demo_s = time.perf_counter() - t0
+    text = out.getvalue()
+    by = {}
+    for st in stages:
+        by.setdefault(st["stage"], []).append(st)
+    check(len(by.get("tracker", [])) == 2 and len(by.get("build", [])) == 1
+          and len(by.get("train", [])) == 1 and len(by.get("evaluate", [])) == 2,
+          f"reenact: stages {[st['stage'] for st in stages]}")
+    check(f"bf16=True, {dev}" in text, "reenact: the demo did not train in bf16 on the card")
+    check("execution window: 50 steps" in text, "reenact: training did not take the window")
+    tr, (ev_self, ev_drv) = by["train"][0], by["evaluate"]
+    check(tr["launches"]["K1"] > 0 and tr["launches"]["K3f"] == tr["launches"]["K3b"] == 0,
+          f"reenact: training launches {tr['launches']}")
+    for label, ev in (("self", ev_self), ("driven", ev_drv)):
+        check(ev["launches"]["K2"] > 0 and ev["launches"]["K1"] == ev["launches"]["K3f"] == 0,
+              f"reenact: {label} evaluation launches {ev['launches']}")
+    s_self, s_drv = summary["self_reenactment"], summary["cross_reenactment"]
+    check(all(math.isfinite(s_self[k]) for k in ("psnr", "ssim", "l1")) and s_self["frames"] == 10,
+          f"reenact: self-reenactment {s_self}")
+    check(s_drv["temporal_std"] > 1.0 and s_drv["frames"] == REENACT_FRAMES,
+          f"reenact: driven {s_drv}")
+    avi = _avi_frames(summary["video"])
+    check(avi == (REENACT_FRAMES, REENACT_FRAMES), f"reenact: the AVI holds {avi} frames")
+    step_ms, per = _steady_step_ms(out.stamps)
+    psnr = {int(m[0]): float(m[3]) for m in re.findall(_TRAIN_LINE, text)}
+    tracker_s = sum(st["s"] for st in by["tracker"])
+    phase("reenact", f"reenactment_demo.main at {REENACT_SIZE}x{REENACT_SIZE}, {REENACT_FRAMES} "
+                     f"frames, {REENACT_ITERS} bf16 steps on {card}: {demo_s:.1f} s in all; two "
+                     f"tracker identities rendered in {tracker_s:.1f} s, dataset build "
+                     f"{by['build'][0]['s']:.2f} s, training {tr['s']:.1f} s (K1 wrapper calls "
+                     f"{tr['launches']['K1']}, K2 {tr['launches']['K2']}), steady windowed step "
+                     f"{step_ms:.3f} ms (median of {len(per)} print intervals: "
+                     f"{[round(x, 3) for x in per]}), printed PSNR {psnr}")
+    phase("reenact", f"self-reenactment: {s_self['frames']:.0f} frames, avg_time_per_image "
+                     f"{s_self['s_per_frame'] * 1e3:.2f} ms, {ev_self['s']:.2f} s in evaluate, "
+                     f"K2 {ev_self['launches']['K2']}; PSNR {s_self['psnr']:.3f} dB, SSIM "
+                     f"{s_self['ssim']:.4f}, L1 {s_self['l1']:.5f}")
+    phase("reenact", f"cross-actor driven: {s_drv['frames']:.0f} frames, avg_time_per_image "
+                     f"{s_drv['s_per_frame'] * 1e3:.2f} ms, {ev_drv['s']:.2f} s in evaluate, K2 "
+                     f"{ev_drv['launches']['K2']}; temporal_std {s_drv['temporal_std']:.3f}; "
+                     f"{summary['video']} holds {avi[0]} frames")
+
+    ds_dir = os.path.join(w, "target_ds")
+    cfg = load_config(os.path.join(w, "cfg.yml"))
+    # the driven split is the dataset's test split now: its first frames
+    # again, f32 through the plain path, from the same checkpoint
+    ckpt = os.path.join(w, "logs", "avatar", f"checkpoint{REENACT_ITERS:05d}.ckpt")
+    for c in counters.values():
+        c.launches = 0
+    f32_dir = os.path.join(w, "renders_driven_f32")
+    driver.evaluate(cfg, ckpt, f32_dir, eval_flags=EvalFlags(), max_frames=REENACT_F32_FRAMES,
+                    log=False, dtype=None, device=dev)
+    check(all(c.launches == 0 for c in counters.values()),
+          f"reenact: the f32 plain path launched {[(n, c.launches) for n, c in counters.items()]}")
+    vs_f32 = []
+    for i in range(REENACT_F32_FRAMES):
+        a = _png(os.path.join(w, "renders_driven", f"{i:04d}.png")).astype(np.int16)
+        b = _png(os.path.join(f32_dir, f"{i:04d}.png")).astype(np.int16)
+        diff = np.abs(a - b)
+        vs_f32.append((float(diff.mean()), int(diff.max())))
+        check(int(diff.max()) <= FRAME_MAX and float(diff.mean()) <= FRAME_MEAN,
+              f"reenact: bf16 driven frame {i} vs f32: mean {diff.mean()}, max {diff.max()}")
+
+    # cli/build_dataset.py --mode driven on the same two tracker dirs
+    cli_dir = os.path.join(w, "cli_driven")
+    _cli(cli_build.main, ["--source", os.path.join(w, "tracker_target"), "--target", cli_dir,
+                          "--driving", os.path.join(w, "tracker_driving"), "--mode", "driven",
+                          "--n-max", str(REENACT_FRAMES), "--reserve-test", "10", "--seed", "0",
+                          "--neutral-driving-idx", "0", "--neutral-target-idx", "0"])
+    with open(os.path.join(cli_dir, "transforms_test.json")) as fa, \
+            open(os.path.join(ds_dir, "transforms_test.json")) as fb:
+        check(json.load(fa) == json.load(fb),
+              "reenact: cli/build_dataset.py --mode driven wrote another transforms_test.json")
+
+    # the untrained avatar (the first checkpoint) on the self-reenactment split
+    B.generate_original_test_sequence(
+        B.BuilderConfig(source=os.path.join(w, "tracker_target"), target=ds_dir,
+                        reserve_test=10), log=False)
+    first_dir = os.path.join(w, "renders_self_first")
+    for c in counters.values():
+        c.launches = 0
+    driver.evaluate(cfg, os.path.join(w, "logs", "avatar", "checkpoint00001.ckpt"), first_dir,
+                    eval_flags=EvalFlags(), log=False, dtype=torch.bfloat16, device=dev)
+    k2_first = counters["K2"].launches
+    first = two_folders(os.path.join(ds_dir, "test"), first_dir, log=False, device=dev)
+    gain = s_self["psnr"] - first["PSNR"]
+    check(gain >= QUALITY_GAIN_DB,
+          f"reenact: self-reenactment {s_self['psnr']:.3f} dB, untrained {first['PSNR']:.3f} dB")
+    phase("reenact", f"bf16 driven frames vs the f32 plain frames of the checkpoint: (mean "
+                     f"|diff|, max) {[(round(m, 4), x) for m, x in vs_f32]} levels (limits "
+                     f"{FRAME_MEAN}, {FRAME_MAX}); cli/build_dataset.py --mode driven wrote the "
+                     f"demo's transforms_test.json; self-reenactment {s_self['psnr']:.3f} dB vs "
+                     f"the untrained avatar's {first['PSNR']:.3f} dB (checkpoint00001, K2 "
+                     f"{k2_first}): +{gain:.2f} dB (limit {QUALITY_GAIN_DB})")
+    return {"launches": {"K1": tr["launches"]["K1"],
+                         "K2": tr["launches"]["K2"] + ev_self["launches"]["K2"]
+                         + ev_drv["launches"]["K2"]},
+            "launches_by_stage": {"train": tr["launches"], "eval_self": ev_self["launches"],
+                                  "eval_driven": ev_drv["launches"]},
+            "demo_s": demo_s, "tracker_s": tracker_s, "build_s": by["build"][0]["s"],
+            "train_s": tr["s"], "step_ms": step_ms, "step_ms_intervals": per,
+            "eval_s": {"self": ev_self["s"], "driven": ev_drv["s"]},
+            "avg_time_per_image": {"self": s_self["s_per_frame"],
+                                   "driven": s_drv["s_per_frame"]},
+            "summary": summary, "vs_f32": vs_f32, "untrained_psnr": first["PSNR"],
+            "gain_db": gain}
 
 
 SUPERVISED_SAVE = 100
@@ -3802,7 +4083,7 @@ def _write_llff(path):
     import numpy as np
     from PIL import Image
 
-    from nerface_tpu_torch.examples.tiny_nerf import look_at
+    from nerface_tpu_torch.tools.dataset_builder import look_at
 
     n = STOCK_LLFF_VIEWS
     h, w = STOCK_LLFF_HW
@@ -4039,6 +4320,7 @@ def main() -> int:
         ev = eval_phase(dev, tmp, card)
         me = metrics_phase(ev)
         qu = quality_phase(dev, tmp, ev, me, card)
+        rn = reenact_phase(dev, tmp, card)
         su = supervised_train_phase(dev, tmp, ev["dataset"], card)
         dd = ddp_train_phase(dev, ds, tmp, ev["dataset"], card)
         sh = sharded_serve_phase(dev, tmp, ev, card)
@@ -4083,7 +4365,7 @@ def main() -> int:
             # the frames of the four serving paths and of the eval entry point
             "launches": s["launches"] + ss["launches"] + fe["launches"] + oc["launches"]
             + sum(m["launches"] for m in ev["modes"].values()) + su["launches"]["K2"]
-            + dd_k2 + sh_k2,
+            + dd_k2 + sh_k2 + rn["launches"]["K2"],
             "launches_by_path": {"serve": s["launches"], "smaller_serve": ss["launches"],
                                  "fast_serve": fe["launches"],
                                  "occupancy_serve": oc["launches"],
@@ -4094,7 +4376,9 @@ def main() -> int:
                                  "smaller_train": st["launches"]["K2"],
                                  "coarse_train": ct["launches"]["K2"],
                                  "supervised_train": su["launches"]["K2"],
-                                 "ddp_train": dd_k2, "sharded_serve": sh_k2},
+                                 "ddp_train": dd_k2, "sharded_serve": sh_k2,
+                                 # the demo's validations and its two evaluations
+                                 "reenact": rn["launches"]["K2"]},
             "kernel_runs_by_path": {"window_train": wt_k2_runs, "eval_parity": ev["runs"]},
             "max_abs_err": max(errs),
             # one coarse (S=64, weights) + one fine (S=128) call on 4096 rays
@@ -4131,6 +4415,13 @@ def main() -> int:
                              for run, sc in qu["scores"].items()},
             "quality_ssim": {run: {w: v["SSIM"] for w, v in sc.items()}
                              for run, sc in qu["scores"].items()},
+            # the reenactment demo at 128²: each evaluation's s a frame, the
+            # self-reenactment metrics and the untrained avatar's PSNR
+            "reenact_avg_time_per_image_128": rn["avg_time_per_image"],
+            "reenact_self": rn["summary"]["self_reenactment"],
+            "reenact_untrained_psnr": rn["untrained_psnr"],
+            "reenact_vs_f32_levels": rn["vs_f32"],
+            "client_round_trip_ms_512": s["client"]["round_trip_ms"],
             "card": card,
         },
         {
@@ -4140,13 +4431,14 @@ def main() -> int:
             "replaces": "nerface_tpu/ops/pallas/fused_train.py:69",
             "modes": ["paper", "small"],
             "launches": tr["launches"]["K1"] + st["launches"]["K1"] + wt_k1
-            + ev["train"]["launches"]["K1"] + su["launches"]["K1"] + dd_k1,
+            + ev["train"]["launches"]["K1"] + su["launches"]["K1"] + dd_k1
+            + rn["launches"]["K1"],
             "launches_by_path": {"train": tr["launches"]["K1"],
                                  "smaller_train": st["launches"]["K1"],
                                  "window_train": wt_k1,
                                  "eval_train": ev["train"]["launches"]["K1"],
                                  "supervised_train": su["launches"]["K1"],
-                                 "ddp_train": dd_k1},
+                                 "ddp_train": dd_k1, "reenact": rn["launches"]["K1"]},
             "kernel_runs_by_path": {"window_train": wt_k1_runs},
             "max_abs_err": max(v for r in (tk, tks) for e in r["err"].values() for v in e.values()),
             # a train step's two passes: coarse (S=64) + fine (S=128), 2048 rays
@@ -4189,6 +4481,10 @@ def main() -> int:
                                              "ckpt_mb", "whole_s", "supervised_s", "phase_s")},
             "feed_rows_s": wt["feed_rows_s"],
             "smaller_train_step_ms": st["step_ms"],
+            # the reenactment demo's 2000 steps at 128²: the steady windowed
+            # step between print lines, and the training's wall seconds
+            "reenact_step_ms": rn["step_ms"],
+            "reenact_train_s": rn["train_s"],
             "step_vs_f32": ts,
             "card": card,
         },

@@ -8,8 +8,10 @@ and `index_map.npy`. Pillow is imported where the frames are written.
 
     python -m nerface_tpu_torch.cli.generate_synthetic --target /tmp/synth512 --size 512
 
-The JAX CLI's `--mesh` and `--splat` modes (its software rasterizer and
-point splatting tools) are not ported and are refused.
+`--mesh` renders a mesh file with the software rasterizer instead
+(`tools/mesh_dataset.py`, the `pyrender_data.py` counterpart), and
+`--splat --mesh` writes the point-splatting dataset
+(`tools/point_splat.py`, the `render_trimesh.py` counterpart).
 """
 
 from __future__ import annotations
@@ -31,39 +33,57 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--sampling", type=str, default="LATTICE",
                         help="LATTICE | RANDOM | CURVE | SPIRAL | HELIX | ARC")
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--mesh", type=str, default=None, help="Not ported: refused.")
-    parser.add_argument("--splat", action="store_true", help="Not ported: refused.")
+    parser.add_argument(
+        "--mesh", type=str, default=None,
+        help="Render THIS mesh file (.off/.ply) with the software rasterizer instead of the "
+        "analytic blob (tools/mesh_dataset.py). Uses --n-train+--n-val+--n-test views split "
+        "60/20/20; --sampling HELIX, SPIRAL or ARC makes the test split that smooth path.",
+    )
+    parser.add_argument("--focal", type=float, default=300.0,
+                        help="--mesh mode: focal length in pixels (pyrender_data.py:90).")
+    parser.add_argument(
+        "--splat", action="store_true",
+        help="Point-splatting output instead of a NeRF dataset (tools/point_splat.py: depth/ "
+        "pngs, <mode>/A/pose_%%d.npy xyz+vert_id maps, poses_{train,test}.npy; LATTICE train / "
+        "SPIRAL test poses). Requires --mesh; --n-train/--n-test set the view counts.",
+    )
+    parser.add_argument("--render-color", action="store_true",
+                        help="--splat mode: also write <mode>/B color renders of each pose.")
+    parser.add_argument("--coords-space", choices=["world", "cam"], default="world",
+                        help="--splat mode: xyz stored per pixel (world or camera space).")
     return parser
-
-
-def look_at(cam_pos_world, to_pos_world, up=np.array([0.0, 1.0, 0.0])) -> np.ndarray:
-    """Right-handed look-at c2w matrix (`nerface_tpu/tools/dataset_builder.py:123`,
-    reference `real_to_nerf.py:32-47`)."""
-
-    def normalize(v):
-        return v / np.linalg.norm(v)
-
-    cam_pos_world = np.asarray(cam_pos_world, np.float64)
-    forward = normalize(cam_pos_world - np.asarray(to_pos_world, np.float64))
-    right = normalize(np.cross(normalize(up), forward))
-    up2 = normalize(np.cross(forward, right))
-    c2w = np.zeros((4, 4))
-    c2w[0, :-1] = right
-    c2w[1, :-1] = up2
-    c2w[2, :-1] = forward
-    c2w[3, :-1] = cam_pos_world
-    c2w[3, 3] = 1.0
-    return c2w.T
 
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    if args.mesh or args.splat:
-        raise SystemExit("--mesh and --splat are not ported to PyTorch (ROADMAP.md Queue 1: "
-                         "the tools)")
+    if args.splat:
+        if not args.mesh:
+            raise SystemExit("--splat requires --mesh")
+        from nerface_tpu_torch.tools.point_splat import splat_dataset
+
+        counts = splat_dataset(
+            args.mesh, args.target, n_views_train=args.n_train, n_views_test=args.n_test,
+            im_size=args.size, coords_space=args.coords_space,
+            render_color=args.render_color, focal=args.focal,
+        )
+        print(f"splat dataset written to {args.target}: {counts}")
+        return
+
+    if args.mesh:
+        from nerface_tpu_torch.tools.mesh_dataset import generate_mesh_dataset
+
+        counts = generate_mesh_dataset(
+            args.mesh, args.target, n_views=args.n_train + args.n_val + args.n_test,
+            im_size=args.size, focal=args.focal, seed=args.seed,
+            test_sequence=args.sampling if args.sampling in ("HELIX", "SPIRAL", "ARC") else None,
+        )
+        print(f"mesh dataset written to {args.target}: {counts}")
+        return
+
     from PIL import Image
 
     from nerface_tpu_torch.data.synthetic import _checkerboard, render_blob_frame
+    from nerface_tpu_torch.tools.dataset_builder import look_at
     from nerface_tpu_torch.tools.spherical_sampler import SphericalSampler
 
     H = W = args.size

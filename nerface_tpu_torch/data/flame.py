@@ -113,6 +113,23 @@ class FlameDataset:
     def i_test(self):
         return self.i_split[-1]
 
+    @property
+    def hwf(self):
+        return [self.H, self.W, self.intrinsics]
+
+    def as_tuple(self):
+        """The reference `load_flame_data`'s return tuple, in its order."""
+        return (
+            self.images,
+            self.poses,
+            self.render_poses,
+            [self.H, self.W, self.intrinsics],
+            self.i_split,
+            self.expressions,
+            self.frontal_images,
+            self.bboxes,
+        )
+
     def load_background(self, name: str = "00050.png") -> np.ndarray:
         """GT background `bg/00050.png` scaled to [0, 1] and thumbnailed to
         (H, W) (`train_transformed_rays.py:159-168`); the in-memory

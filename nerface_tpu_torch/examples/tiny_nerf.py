@@ -107,30 +107,11 @@ def run_one_iter_of_tinynerf(
     return torch.mean((rgb - target) ** 2), rgb
 
 
-def look_at(cam_pos_world, to_pos_world, up=np.array([0.0, 1.0, 0.0])) -> np.ndarray:
-    """Right-handed look-at c2w matrix (`real_to_nerf.py:32-47`; the JAX
-    package's `tools/dataset_builder.py::look_at`)."""
-
-    def normalize(v):
-        return v / np.linalg.norm(v)
-
-    cam_pos_world = np.asarray(cam_pos_world, np.float64)
-    forward = normalize(cam_pos_world - np.asarray(to_pos_world, np.float64))
-    right = normalize(np.cross(normalize(up), forward))
-    up2 = normalize(np.cross(forward, right))
-    c2w = np.zeros((4, 4))
-    c2w[0, :-1] = right
-    c2w[1, :-1] = up2
-    c2w[2, :-1] = forward
-    c2w[3, :-1] = cam_pos_world
-    c2w[3, 3] = 1.0
-    return c2w.T
-
-
 def make_synthetic_tiny_data(n=20, H=48, W=48, num_render_samples=32):
     """Offline stand-in for tiny_nerf_data.npz: multi-view renders of a
     soft-blob volume by the synthetic renderer. (images, poses, focal)."""
     from nerface_tpu_torch.data.synthetic import render_blob_frame
+    from nerface_tpu_torch.tools.dataset_builder import look_at
     from nerface_tpu_torch.tools.spherical_sampler import sphere_fibonacci_grid_points
 
     focal = 0.7 * W

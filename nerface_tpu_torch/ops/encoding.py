@@ -84,3 +84,24 @@ def positional_encoding(
         return torch.cat([tensor, enc], dim=-1)
     return enc
 
+
+
+def encoding_dim(input_dim: int, num_encoding_functions: int, include_input: bool) -> int:
+    """Feature size of `positional_encoding`'s output (`nerface_tpu/ops/encoding.py:94`)."""
+    if num_encoding_functions == 0:
+        return input_dim if include_input else 0
+    return input_dim * ((1 if include_input else 0) + 2 * num_encoding_functions)
+
+
+def get_embedding_function(
+    num_encoding_functions: int = 6,
+    include_input: bool = True,
+    log_sampling: bool = True,
+):
+    """`positional_encoding` with its settings bound (reference `nerf_helpers.py:242-249`)."""
+    return functools.partial(
+        positional_encoding,
+        num_encoding_functions=num_encoding_functions,
+        include_input=include_input,
+        log_sampling=log_sampling,
+    )

@@ -1,7 +1,7 @@
 """Small numeric helpers shared across the pipeline.
 
-Port of `nerface_tpu/ops/math.py`: `meshgrid_xy`, `cumprod_exclusive` and
-`mse2psnr` (the PSNR of an MSE tensor),
+Port of `nerface_tpu/ops/math.py`: `img2mse`, `meshgrid_xy`,
+`cumprod_exclusive` and `mse2psnr` (the PSNR of an MSE tensor),
 plus `linspace01`, which reproduces `jnp.linspace(0, 1, n)` bit for bit
 (torch's and numpy's linspace round differently in the last place, and
 the sample depths must match the JAX package's exactly).
@@ -10,6 +10,10 @@ the sample depths must match the JAX package's exactly).
 from __future__ import annotations
 
 import torch
+
+
+def img2mse(img_src: torch.Tensor, img_tgt: torch.Tensor) -> torch.Tensor:
+    return torch.mean((img_src - img_tgt) ** 2)
 
 
 def mse2psnr(mse: torch.Tensor) -> torch.Tensor:

@@ -72,6 +72,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from nerface_tpu_torch.config.cfgnode import load_config
 from nerface_tpu_torch.config.flags import FeatureFlags
 from nerface_tpu_torch.data.flame import FlameDataset, load_flame_data
 from nerface_tpu_torch.data.pipeline import RayFeed
@@ -467,3 +468,8 @@ def train(
     distributed.check_replicas_agree(replicated, "the trained weights")
     distributed.barrier()
     return state
+
+
+def train_from_config_file(config_path: str, **kwargs) -> TrainState:
+    """`train` on the YAML config at `config_path`; `kwargs` are `train`'s."""
+    return train(load_config(config_path), **kwargs)

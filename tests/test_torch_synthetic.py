@@ -3,7 +3,8 @@
 * `make_synthetic_flame_dataset` writes what the JAX package's writes at
   32², the default scene and the `compact` one: the same file names, the
   same JSON, the same decoded PNGs and index map.
-* `cli/generate_synthetic.py` writes what the JAX package's CLI writes.
+* `cli/generate_synthetic.py` writes what the JAX package's CLI writes,
+  and refuses `--splat` without `--mesh` as it does.
 * The loader reads the frames with Pillow: the arrays the JAX package's
   loader reads with imageio.
 * The two CLIs end to end: generate a dataset, then train
@@ -67,8 +68,10 @@ def test_generate_synthetic_cli_equals_jax(tmp_path, capsys, sampling):
     gen_cli.main(["--target", str(tmp_path / "port")] + argv)
     jax_gen_cli.main(["--target", str(tmp_path / "jax")] + argv)
     _assert_same_dataset(str(tmp_path / "port"), str(tmp_path / "jax"))
-    with pytest.raises(SystemExit, match="not ported"):
-        gen_cli.main(["--target", str(tmp_path / "m"), "--mesh", "x.off"])
+    # --splat needs --mesh, as in JAX's CLI (tests/test_torch_tools.py runs both modes)
+    for cli in (gen_cli, jax_gen_cli):
+        with pytest.raises(SystemExit, match="--splat requires --mesh"):
+            cli.main(["--target", str(tmp_path / "m"), "--splat"])
 
 
 def test_loader_reads_the_frames_without_imageio(tmp_path, monkeypatch):
