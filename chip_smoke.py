@@ -192,6 +192,25 @@ Phases, one line each (plus the kernels' register reports):
                each evaluation's avg_time_per_image, and the steady
                windowed step (the median ms a step between the loop's
                print lines after the first).
+     reenact_64 — the same demo at 64² (512 rays, 16 + 16 samples: K1 and
+               K2 at S = 16 and 32), then REENACT_WINDOW_STEPS steps of its
+               config windowed against step at a time, bit for bit; in
+               both, no bf16 paper pass on the plain path
+               (`plain_paper_passes`, counted at the dispatch).
+     sample_counts — K2, K3f, K1 and K3b of the paper model at every
+               (S, rays) of SAMPLE_CASES: every layout class at 2048 rays,
+               and S = 1 and the padded layouts S = 5 / 40 / 200 at a
+               ray count that cuts the last item short, against their
+               plain versions (K2 with a background and with none; 3 seeds
+               for the others; K1 / K3b bit-identical over 2 launches;
+               each reading within its base limit or FLEX_TC_FACTOR × the
+               plain version's own on the tensor cores, and a lost 64-row
+               unit caught by the limits applied wherever the base limits
+               catch it; Σ d_dir against d_bd0), each kernel's ms, plain
+               ms and bound per S.
+     serve_64_128 — synth512_paper at 64 + 128 samples served as in phase
+               4: K2 at S = 64 and 192, the frame against the f32 plain
+               frame.
      supervised_train — the production run's sidecars: `cli/train.py
                --bf16` on the eval dataset with the host feed (native), K
                = 50, save_every 100, 300 steps, uninterrupted (in this
@@ -389,6 +408,12 @@ SYNTH512_SMALLER = copy.deepcopy(SYNTH512_PAPER)
 for _node in SYNTH512_SMALLER["models"].values():
     _node["type"] = "ConditionalBlendshapePaperSmallerNeRFModel"
 
+# synth512_paper with num_fine 128 (the NeRF paper's 64 + 128 schedule):
+# K2 serves each tile's coarse pass at S = 64 and its fine pass at S = 192
+SYNTH512_PAPER_64_128 = copy.deepcopy(SYNTH512_PAPER)
+for _mode in ("train", "validation"):
+    SYNTH512_PAPER_64_128["nerf"][_mode]["num_fine"] = 128
+
 KERNEL_RAYS = 4096
 TILE_RAYS = 65536  # the validation chunksize: one tile of the main path
 FAR = 0.8
@@ -498,8 +523,15 @@ K3F_K2_TOL = 1e-4
 # without `small`) and the σ-noise frame through K3f
 FRAME_MAX = 1
 FRAME_MEAN = 0.15
+# train_pass_kernel's instantiations, at most (K1 and K3b, each model, each
+# layout class S = 64, 128 and any other S): the spilling kernel's nvcc
+# time grows with each, and the script's build shares the 1200 s limit
+TRAIN_PASS_INSTANTIATIONS = 12
 LIBRARIES = ("fused_paper_render", "fused_train_pass", "fused_paper_mlp", "fused_flex",
              "fused_resample", "probes")
+# K1's and K3's libraries build as two builds each (ops/kernels/build.py's
+# SAMPLE_CLASS_DEFINES: S = 64 / 128 and any other S), side by side
+SPLIT_LIBRARIES = ("fused_train_pass", "fused_paper_mlp")
 # PR 5's record of K2's 65536-ray tile times in its earlier design
 # (ldmatrix + mma.sync, one 512-thread CTA a tile), read by chip_smoke.py on
 # an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6). Copied, not measured: the
@@ -558,6 +590,35 @@ def check(cond, msg):
 
 def phase(name, text):
     print(f"[{name}] {text}", flush=True)
+
+
+@contextlib.contextmanager
+def plain_paper_passes():
+    """Counts, at the dispatch of every pass that no K2 call takes
+    (`render.pipeline._apply_model`), the bf16 passes of a paper-family
+    model left to the model's plain forward: the calls in which K3f's
+    wrapper launched nothing. Yields a list whose one item is the count."""
+    import torch
+
+    from nerface_tpu_torch.ops.kernels.fused_mlp import fused_paper_mlp_forward
+    from nerface_tpu_torch.render import pipeline
+
+    count = [0]
+    dispatch = pipeline._apply_model
+
+    def counted(model, *args):
+        before = fused_paper_mlp_forward.launches
+        out = dispatch(model, *args)
+        if (args[-1] == torch.bfloat16 and pipeline._fused_variant(model) is not None
+                and fused_paper_mlp_forward.launches == before):
+            count[0] += 1
+        return out
+
+    pipeline._apply_model = counted
+    try:
+        yield count
+    finally:
+        pipeline._apply_model = dispatch
 
 
 def _median_ms(fn, warmup=3, iters=15):
@@ -846,9 +907,11 @@ def serve_phase(dev, tmp, cfg_dict=SYNTH512_PAPER, name="serve", seed=SEED + 2):
     n_renders = sum("cmd" not in r for r in requests)
     out = io.StringIO()
     fused_paper_render.launches = fused_paper_mlp_forward.launches = 0
-    handled = server.serve_jsonl(io.StringIO("\n".join(map(json.dumps, requests)) + "\n"), out)
+    with plain_paper_passes() as plain:
+        handled = server.serve_jsonl(io.StringIO("\n".join(map(json.dumps, requests)) + "\n"), out)
     launches = fused_paper_render.launches
     check(fused_paper_mlp_forward.launches == 0, f"{name}: serving launched K3f")
+    check(plain[0] == 0, f"{name}: a bf16 pass took the plain path")
     replies = [json.loads(line) for line in out.getvalue().splitlines()]
     check(handled == len(requests) and len(replies) == len(requests), f"replies: {replies}")
     for req, rep in zip(requests, replies):
@@ -857,8 +920,10 @@ def serve_phase(dev, tmp, cfg_dict=SYNTH512_PAPER, name="serve", seed=SEED + 2):
     check(launches == 2 * tiles * n_renders,
           f"{name}: K2 launches {launches} != 2 x {tiles} tiles x {n_renders} frames")
     frame_ms = [r["frame_ms"] for r in replies if "frame_ms" in r]
-    phase(name, f"{n_renders} renders of {cfg.models.coarse.type} at 512x512 via serve_jsonl, "
-                f"frame_ms {frame_ms}, K2 launches {launches} = 2 x {tiles} tiles x {n_renders}")
+    sc, sf = cfg.nerf.validation.num_coarse, cfg.nerf.validation.num_fine
+    phase(name, f"{n_renders} renders of {cfg.models.coarse.type} at 512x512 via serve_jsonl "
+                f"({sc} + {sf} samples: K2 at S = {sc} and {sc + sf}), frame_ms {frame_ms}, K2 "
+                f"launches {launches} = 2 x {tiles} tiles x {n_renders}, no bf16 pass on the plain path")
 
     # the maps of the request, and the same frame from the f32 plain path
     img = server.render(frame=1, seed=1, maps=tuple(maps))
@@ -1027,8 +1092,10 @@ def _entry_name(text):
         from nerface_tpu_torch.tools.perf.chain_overlap_probe import VARIANTS
 
         targs = VARIANTS[int(m.group(2))]
-    if m.group(5):
+    if m.group(5) and m.group(1) == "encoder_kernel":
         targs = "split" if m.group(5) == "1" else "packed"
+    elif m.group(5):  # the paper kernels: the model alone (S is a runtime value)
+        targs = "small" if m.group(5) == "1" else ""
     return m.group(1) + (f"<{targs}>" if targs else "")
 
 
@@ -1038,17 +1105,23 @@ def build_phase():
 
     from nerface_tpu_torch.ops.kernels import build
 
-    def one(name):
+    def one(job):
+        name, defines = job
         t0 = time.perf_counter()
-        lib = build.build_library(name)
-        return name, lib, time.perf_counter() - t0
+        lib = build.build_library(name, defines)
+        return name, defines, lib, time.perf_counter() - t0
 
+    jobs = [(name, defines) for name in LIBRARIES
+            for defines in (build.SAMPLE_CLASS_DEFINES.values() if name in SPLIT_LIBRARIES else [()])]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
-        built = list(pool.map(one, LIBRARIES))
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        built = list(pool.map(one, jobs))
     wall = time.perf_counter() - t0
-    for name, lib, secs in built:
+    n_pass = 0  # train_pass_kernel's instantiations over the libraries
+    for name, defines, lib, secs in built:
+        label = name + (f" [{', '.join(defines)}]" if defines else "")
         log = open(str(lib) + ".log").read().splitlines()
+        n_pass += sum("Compiling entry function" in x and "train_pass_kernel" in x for x in log)
         info = []
         for i, line in enumerate(log):
             if "Compiling entry function" not in line:
@@ -1063,23 +1136,31 @@ def build_phase():
             if m:
                 serial.add(f"{_entry_name(m.group(3) or '?')}: {m.group(1)} {m.group(2)}")
         serial = sorted(serial)
-        phase("build", f"{name}: {secs:.1f} s ({lib.name}); ptxas: {' | '.join(info)}")
-        phase("build", f"{name} wgmma serialisation (ptxas C75xx): "
+        phase("build", f"{label}: {secs:.1f} s ({lib.name}); ptxas: {' | '.join(info)}")
+        phase("build", f"{label} wgmma serialisation (ptxas C75xx): "
                        f"{' | '.join(serial) if serial else 'none reported'}")
-        if name in ("fused_train_pass", "fused_paper_mlp"):
+        if name in SPLIT_LIBRARIES:
             smem = (ctypes.c_longlong * 3)()
             k = "train" if name == "fused_train_pass" else "paper_mlp"
-            getattr(build.load_library(name), f"nerface_fused_{k}_shared_bytes")(smem)
+            getattr(build.load_library(name, defines), f"nerface_fused_{k}_shared_bytes")(smem)
             sizes = ([] if k == "train" else [f"mlp_fwd_kernel {smem[0]} B"]) + [
                 f"train_pass_kernel {smem[k != 'train']} B",
                 f"dw_wgmma_kernel {smem[1 + (k != 'train')]} B"]
-            phase("build", f"{name} shared memory a CTA (dynamic): {', '.join(sizes)}")
+            phase("build", f"{label} shared memory a CTA (dynamic): {', '.join(sizes)}")
         if name == "fused_flex":
             smem = (ctypes.c_longlong * 3)()
             build.load_library(name).nerface_fused_flex_shared_bytes(smem)
             phase("build", f"{name} shared memory a CTA (dynamic): flex_chain_kernel {smem[0]} B, "
                            f"flex_dx_kernel {smem[1]} B, dw_wgmma_kernel {smem[2]} B")
-    phase("build", f"{len(LIBRARIES)} libraries in {wall:.1f} s")
+    check(0 < n_pass <= TRAIN_PASS_INSTANTIATIONS,
+          f"train_pass_kernel has {n_pass} instantiations (at most {TRAIN_PASS_INSTANTIATIONS})")
+    phase("build", f"{len(jobs)} library builds in {wall:.1f} s of nvcc (each build's own seconds "
+                   f"above, all started together); train_pass_kernel instantiations {n_pass} (at "
+                   f"most {TRAIN_PASS_INSTANTIATIONS}: S = 64 / 128 fixed, 0 any other S, × model, "
+                   f"× K1 / K3b)")
+    return {"nvcc_s": wall, "train_pass_instantiations": n_pass,
+            "nvcc_s_by_library": {name + "".join(f" {d}" for d in defines): secs
+                                  for name, defines, _, secs in built}}
 
 
 def _train_kernel_inputs(n_rays, n_samples, gen, dev):
@@ -1128,20 +1209,36 @@ def _bundle_names(small):
     return ["cond0", "cond3", "dir"] + list(wn) + list(bn)
 
 
-def _grad_readings(label, what, R, names, grads, rgrads, worst):
+def _grad_readings(label, what, R, names, grads, rgrads, worst, tc_grads=None, control=None,
+                   fault_grads=None, seed=0):
     """Each gradient tensor against the plain version's within
-    `k1_grad_limits`; updates `worst` (tensor -> (max, norm) relative
-    readings) and returns the largest absolute error."""
+    `k1_grad_limits` (with `tc_grads`, the plain version's gradients on the
+    tensor cores, within `k3b_grad_limits` of their own readings instead);
+    updates `worst` (tensor -> (max, norm) relative readings) and returns
+    the largest absolute error. With `control` (a list, `_sample_control`'s),
+    appends each tensor's max and norm readings beside the yardstick's, the
+    base limit (`k1_grad_limits`), the limit applied and `fault_grads'` (a
+    modelled fault's gradients) readings."""
     import torch
 
     abs_err = 0.0
-    for name, g, r in zip(names, grads, rgrads):
+    for k, (name, g, r) in enumerate(zip(names, grads, rgrads)):
         g, r = g.float(), r.float()
         check(bool(torch.isfinite(g).all()), f"{label}: {what} grad {name} not finite")
         d = g - r
         e, scale = float(d.abs().max()), float(r.abs().max())
         e_norm, r_norm = float(d.norm()), float(r.norm())
-        tol, tol_norm = k1_grad_limits(R, name)
+        base = k1_grad_limits(R, name)
+        tol, tol_norm = base
+        if tc_grads is not None:
+            tc_err = rel_err(tc_grads[k], r)
+            tol, tol_norm = k3b_grad_limits(R, name, tc_err)
+            if control is not None:
+                f_err = rel_err(fault_grads[k], r) if fault_grads is not None else (None, None)
+                for j, (kind, lim) in enumerate((("max", tol), ("norm", tol_norm))):
+                    control.append(dict(kernel=what, name=name, seed=seed, kind=kind,
+                                        value=(e / max(scale, 1e-30), e_norm / max(r_norm, 1e-30))[j],
+                                        tc=tc_err[j], base=base[j], limit=lim, fault=f_err[j]))
         check(e <= tol * scale + 1e-6,
               f"{label}: {what} grad {name} max err {e} > {tol}·{scale} + 1e-6")
         check(e_norm <= tol_norm * r_norm + 1e-6,
@@ -1152,19 +1249,42 @@ def _grad_readings(label, what, R, names, grads, rgrads, worst):
     return abs_err
 
 
+def split_rows(fn, bounds):
+    """The device ms a call of `fn`'s kernels, each beside its operations
+    bound and byte floor (`bounds`: {kernel: (flop, bytes, what)}), with
+    the source of each number in the row's "source": by kernel name under
+    torch.profiler ("profiler", tools/perf/k1_launch_split.py); where the
+    profiler saw no device time, the whole call from CUDA events around
+    calls queued behind a spin kernel ("queued events",
+    tools/perf/k3f_k5_launch_split.py's `queued_ms`), one row "call"."""
+    from nerface_tpu_torch.tools.perf import k1_launch_split as KS
+    from nerface_tpu_torch.tools.perf.k3f_k5_launch_split import queued_ms
+
+    rows = KS.split_rows(fn, bounds)
+    if rows:
+        return {k: dict(r, source="profiler") for k, r in rows.items()}
+    flop, nbytes = sum(b[0] for b in bounds.values()), sum(b[1] for b in bounds.values())
+    row = KS.launch_row(queued_ms(fn, n=20), 1, flop, nbytes, "all the call's kernels")
+    return {"call": dict(row, source="queued events")}
+
+
+def split_text(short, row):
+    from nerface_tpu_torch.tools.perf import k1_launch_split as KS
+
+    return f"{KS.row_text(short, row)} [{row['source']}]"
+
+
 def _launch_split(name, what, fn, R, S, small, k3b=False):
     """`fn`, a bare launch of K1 or K3b (operands packed beforehand), timed
-    (CUDA events), then its kernels' device ms a call by name under
-    torch.profiler, each beside its operations bound and its byte floor
-    (tools/perf/k1_launch_split.py). Returns (bare ms, {kernel: row})."""
+    (CUDA events), then its kernels' device ms a call (`split_rows`), each
+    beside its operations bound and its byte floor. Returns (bare ms,
+    {kernel: row})."""
     from nerface_tpu_torch.tools.perf import k1_launch_split as KS
 
     bare = _median_ms(fn, iters=10)
-    rows = KS.split_rows(fn, KS.launch_bounds(R, S, small, k3b))
+    rows = split_rows(fn, KS.launch_bounds(R, S, small, k3b))
     for short, r in rows.items():
-        phase(name, f"  {what} S={S} {KS.row_text(short, r)}")
-    if not rows:
-        phase(name, f"  {what} S={S} split not measured: the profiler saw no device time")
+        phase(name, f"  {what} S={S} {split_text(short, r)}")
     return bare, rows
 
 
@@ -1440,6 +1560,293 @@ def k3f_k2_crosscheck(dev):
     return err
 
 
+# [sample_counts]: (S, rays). Every layout class at TRAIN_RAYS rays, each
+# S filling its units; S = 1 (64 rays a unit) and three layouts with
+# padding rows (S = 5: 51 rays in 4 units, 1 padding row; 40: 3 rays in 2
+# units, 8; 200: 1 ray in 4 units, 56) at SAMPLE_RAGGED_RAYS, whose last
+# item is cut short at S = 1, 5 and 40.
+SAMPLE_RAGGED_RAYS = 2072
+SAMPLE_CASES = ((1, SAMPLE_RAGGED_RAYS), (5, SAMPLE_RAGGED_RAYS), (16, TRAIN_RAYS), (24, TRAIN_RAYS),
+                (40, SAMPLE_RAGGED_RAYS), (48, TRAIN_RAYS), (96, TRAIN_RAYS), (192, TRAIN_RAYS),
+                (200, SAMPLE_RAGGED_RAYS), (256, TRAIN_RAYS), (32, TRAIN_RAYS), (64, TRAIN_RAYS),
+                (128, TRAIN_RAYS))
+SAMPLE_SEEDS = 3
+DIR_SUM_TOL = 1e-4  # Σ_rays d_dir against d_bd0: the same f32 cotangents summed by two routes
+# K3b at the sample counts of [sample_counts], against its plain version
+# with the yardstick beside it (`k3b_grad_limits`): a max reading is one
+# flipped bf16 rounding of an activation under a random cotangent, which
+# reads up to 2.44 × the yardstick's own (S = 5, PERF.md §6), so it passes
+# within K1_GRAD_TOL_FEW_RAYS' max (sums whose flips weigh more) or
+# FLEX_TC_FACTOR × the yardstick's; the norm, which flips barely move
+# (0.82–1.30 × the yardstick's over every S, tensor and seed at 2048
+# rays), within FLEX_TC_FACTOR × the yardstick's, and no less than
+# K3B_NORM_FLOOR (f32 sums in another order: the heads' bias sums, which
+# the yardstick gets exact, read ≤ 5e-7), or at fewer rays than
+# TRAIN_RAYS, whose norms have fewer terms, K1_GRAD_TOL_FEW_RAYS' norm.
+K3B_NORM_FLOOR = 1e-3
+# the gradient tensors of the paper kernels' dW launch (csrc/paper_train.cuh
+# `launch_pass`); wa and wrgb are dX's partial sums
+DW_TENSORS = ("w0a", "w0b", "w1", "w2", "w3xa", "w3xb", "w3h", "w4", "w5", "wf", "wd0", "wd1", "wd2")
+# K2's maps: (base limit, relative to |plain|): abs errors, disp relative
+K2_MAP_LIMITS = {"rgb": (2e-3, False), "acc": (2e-3, False), "bg_weight": (2e-3, False),
+                 "weights": (2e-3, False), "depth": (2e-3 * FAR, False), "disp": (1e-2, True)}
+
+
+def _dir_sum_error(grads, names):
+    """K1's / K3b's d_dir summed over the rays against its bd0 gradient, the
+    same masked f32 cotangents of the direction branch's first layer summed
+    per column by the bias sums: max |difference| / max Σ|d_dir| a column.
+    A row lost or counted twice among d_dir's pieces shows here at full
+    size, bf16 roundings not at all."""
+    g = dict(zip(names, grads))
+    d_dir, bd0 = g["dir"].float(), g["bd0"].float().reshape(-1)
+    return float((d_dir.sum(0) - bd0).abs().max() / d_dir.abs().sum(0).max().clamp_min(1e-30))
+
+
+def lost_unit_rows(n_rays, n_samples):
+    """The flat sample rows (ray·S + sample) of one 64-row unit of the
+    paper kernels' schedule (`unit_layout`): the real rows of the middle
+    item's first unit."""
+    from nerface_tpu_torch.ops.kernels.fused_mlp import unit_layout
+
+    rays, _ = unit_layout(n_samples)
+    first = (-(-n_rays // rays) // 2) * rays * n_samples
+    return slice(first, first + min(64, rays * n_samples, n_rays * n_samples - first))
+
+
+def _without_rows(t, rows):
+    """`t` (R, S, C) with the flat sample rows `rows` zeroed: a kernel that
+    loses them."""
+    f = t.clone().reshape(-1, t.shape[-1])
+    f[rows] = 0
+    return f.reshape(t.shape)
+
+
+def _k2_readings(got, ref, tc, rows, S):
+    """K2's maps against the plain version's: {map: (kernel, tensor cores,
+    one unit lost)} readings, abs (disp relative). The lost unit's rays
+    come back zero."""
+    import torch
+
+    rays = slice(rows.start // S, (rows.stop - 1) // S + 1)
+    out = {}
+    for k, (_, rel) in K2_MAP_LIMITS.items():
+        check(bool(torch.isfinite(got[k]).all()), f"K2 S={S}: kernel {k} not finite")
+        lost = ref[k].clone()
+        lost[rays] = 0
+
+        def err(a, r=ref[k], rel=rel):
+            d = (a - r).abs()
+            return float((d / r.abs() if rel else d).max())
+
+        out[k] = (err(got[k]), err(tc[k]), err(lost))
+    return out
+
+
+def _sample_control(S, control):
+    """The readings of one S in [sample_counts] above their base limit
+    (`k1_grad_limits`, K3_OUT_TOL, [kernel]'s) and within the limit applied,
+    and a modelled fault: one 64-row unit lost (`lost_unit_rows`; K2 and
+    K3f outputs, K3b cotangents). Checks, seed by seed, that wherever the
+    base limits catch the lost unit in a kernel's readings (K3b's: its dW
+    launch's tensors), the limits applied catch it too. Returns the
+    summary."""
+
+    def ratio(c, key="value"):
+        return c[key] / c["tc"] if c["tc"] > 0 else float("inf")
+
+    decided = [c for c in control if c["value"] > c["base"]]
+    top = max(decided, key=ratio, default=None)
+    by_kernel = ", ".join(f"{k} {sum(c['kernel'] == k for c in decided)}"
+                          for k in sorted({c["kernel"] for c in decided})) or "none"
+    caught, missed = {}, []
+    for c in control:
+        if c.get("fault") is None or (c["kernel"] == "K3b" and c["name"] not in DW_TENSORS):
+            continue
+        n = caught.setdefault((c["kernel"], c["seed"]), [0, 0])
+        n[0] += c["fault"] > c["base"]
+        n[1] += c["fault"] > c["limit"]
+    for (k, seed), (by_base, by_limit) in caught.items():
+        if by_base and not by_limit:
+            missed.append(f"{k} seed {seed}")
+    cells = "; ".join(f"{k} s{seed} {b}/{a}" for (k, seed), (b, a) in sorted(caught.items()))
+    phase("sample_counts",
+          f"S={S}: {len(decided)} of {len(control)} readings above their base limit, within the limit "
+          f"applied ({by_kernel})"
+          + (f", the largest kernel / tensor-core ratio {ratio(top):.3f} ({top['kernel']} {top['name']} "
+             f"seed {top['seed']} {top['kind']})" if top else "")
+          + f"; one 64-row unit lost, readings caught by the base limits / by the limits applied "
+            f"(K3b: its dW tensors): {cells}")
+    check(not missed, f"S={S}: a lost unit that the base limits catch passes the limits applied: "
+                      + ", ".join(missed))
+    return {"decided": len(decided), "readings": len(control),
+            "largest_ratio": top and (ratio(top), top["kernel"], top["name"], top["seed"], top["kind"]),
+            "lost_unit_caught": {f"{k} s{seed}": v for (k, seed), v in sorted(caught.items())}}
+
+
+def sample_counts_phase(dev):
+    """K2, K3f, K1 and K3b of the paper model at every (S, rays) of
+    SAMPLE_CASES (the kernels take S at run time: whole rays in 64-row
+    units, padding rows where S neither divides nor is a multiple of 64),
+    each against its plain version: K2's maps as [kernel] (with a
+    background and with none) and K3f within K3_OUT_TOL·max, each reading
+    also passing within FLEX_TC_FACTOR × the plain version's own on the
+    tensor cores ([flex_kernel]'s yardstick: bf16 roundings that flip
+    between two f32 summation orders reach past those limits, the plain
+    version's own as far as the kernel's); K1's rgb / weights within 2e-3
+    and its gradients within `k1_grad_limits`; K3b's gradients within
+    `k3b_grad_limits` of the yardstick's; K1 and K3b over SAMPLE_SEEDS
+    seeds and bit-identical over 2 launches. `_sample_control` checks that
+    a lost 64-row unit that the base limits catch, the limits applied catch
+    too. K1's and K3b's
+    d_dir summed over the rays within DIR_SUM_TOL of their bd0 gradient,
+    the same cotangents summed by another route, which no rounding flip
+    moves. Times each through its wrapper beside its plain version and its
+    operations bound. Returns {kernel: {S: {...}}}."""
+    import torch
+
+    from nerface_tpu_torch.ops.kernels import fused_mlp as K
+    from nerface_tpu_torch.ops.kernels import fused_train as T
+    from nerface_tpu_torch.tools.perf.cases import he_scale
+
+    names = _bundle_names(False)
+    res = {k: {} for k in ("K2", "K3f", "K1", "K3b", "control")}
+    model = _paper_model(SEED + 21, dev)
+    he_scale(model)
+    params = model.state_dict()
+    packed = K.pack_paper_weights(params)
+    f_fwd, f_bwd = paper_flop_per_sample(False, False), paper_flop_per_sample(False, True)
+    for S, R in SAMPLE_CASES:
+        rays, units = K.unit_layout(S)
+        rows = lost_unit_rows(R, S)
+        control = []
+        # K2, as [kernel]: weights out, a background and none
+        ro, rd, z, dc, cond, bg = _kernel_inputs(R, S, torch.Generator().manual_seed(SEED + S), dev)
+        k2 = {"rays": R, "max_abs_err": 0.0}
+        for bg_kind in ("background", "none"):
+            kw = dict(background=bg if bg_kind == "background" else None, out_weights=True)
+            got = K.fused_paper_render(packed, ro, rd, z, dc, cond, **kw)
+            torch.cuda.synchronize()
+            ref = K.fused_paper_render_reference(params, ro, rd, z, dc, cond, **kw)
+            tc = tensor_core_plain(lambda: K.fused_paper_render_reference(params, ro, rd, z, dc, cond, **kw))
+            check(float(got["acc"][:2].abs().max()) == 0.0, f"K2 S={S}: rd = 0 rays have acc != 0")
+            for k, (e, e_tc, f) in _k2_readings(got, ref, tc, rows, S).items():
+                base = K2_MAP_LIMITS[k][0]
+                lim = tc_limit(base, e_tc)
+                check(e <= lim, f"K2 S={S} {bg_kind}: {k} err {e} > {lim} (base {base}, the plain version "
+                                f"on the tensor cores {e_tc:.3g})")
+                control.append(dict(kernel="K2", name=f"{k}/{bg_kind}", seed=0, kind="abs", value=e, tc=e_tc,
+                                    base=base, limit=lim, fault=f))
+                if not K2_MAP_LIMITS[k][1]:
+                    k2["max_abs_err"] = max(k2["max_abs_err"], e)
+            del got, ref, tc
+        kw = dict(background=bg, out_weights=True)
+        k2.update(
+            ms=_median_ms(lambda: K.fused_paper_render(packed, ro, rd, z, dc, cond, **kw)),
+            plain_ms=_median_ms(lambda: K.fused_paper_render_reference(params, ro, rd, z, dc, cond, **kw),
+                                1, 3),
+            bound_ms=_bound_ms(R * S * f_fwd, _k2_bytes(R, S, True))[0])
+        res["K2"][S] = k2
+        k3f, k1, k3b = ({"rays": R, "out_rel": 0.0, "tc_rel": 0.0, "max_abs_err": 0.0},
+                        {"rays": R, "worst": {}, "max_abs_err": 0.0}, {"rays": R, "worst": {}, "max_abs_err": 0.0})
+        dir_sum = 0.0
+        for i in range(SAMPLE_SEEDS):
+            p = _k1_params(SEED + 23 + 100 * i, dev)
+            gen = torch.Generator().manual_seed(SEED + 24 + 100 * i + S)
+            ro, rd, z, tgt, bg, noise, pe_dir, cond = _train_kernel_inputs(R, S, gen, dev)
+            bundle = [t.contiguous() for t in T.prefold_paper_params(p, cond, pe_dir, 10)]
+            # K3f and K3b
+            out = K.fused_paper_mlp_forward(bundle, ro, rd, z)
+            torch.cuda.synchronize()
+            ref = K.fused_paper_mlp_reference(bundle, ro, rd, z)
+            # the yardstick of [flex_kernel]: the plain version on the tensor
+            # cores, the same bf16 operands summed in the kernel's way
+            tc = tensor_core_plain(lambda: K.fused_paper_mlp_reference(bundle, ro, rd, z))
+            lost = _without_rows(ref, rows)
+            for part, sl in (("rgb", slice(0, 3)), ("sigma", slice(3, 4))):
+                e, e_tc, f = (rel_err(x[..., sl], ref[..., sl])[0] for x in (out, tc, lost))
+                lim = tc_limit(K3_OUT_TOL, e_tc)
+                check(e <= lim, f"K3f S={S} seed {i}: {part} max err {e:.3g}·max > {lim:.3g} "
+                                f"(the plain version on the tensor cores: {e_tc:.3g}·max)")
+                control.append(dict(kernel="K3f", name=part, seed=i, kind="max", value=e, tc=e_tc,
+                                    base=K3_OUT_TOL, limit=lim, fault=f))
+                k3f["out_rel"], k3f["tc_rel"] = max(k3f["out_rel"], e), max(k3f["tc_rel"], e_tc)
+            g = torch.randn(R, S, 4, generator=gen).to(dev)
+            grads = K.fused_paper_mlp_backward(bundle, ro, rd, z, g)
+            grads2 = K.fused_paper_mlp_backward(bundle, ro, rd, z, g)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(grads, grads2)),
+                  f"K3b S={S} seed {i}: two launches gave different gradients")
+            rgrads = K.fused_paper_mlp_backward_reference(bundle, ro, rd, z, g)
+            tcg = tensor_core_plain(lambda: K.fused_paper_mlp_backward_reference(bundle, ro, rd, z, g))
+            fault = K.fused_paper_mlp_backward_reference(bundle, ro, rd, z, _without_rows(g, rows))
+            k3b["max_abs_err"] = max(k3b["max_abs_err"], _grad_readings(
+                f"K3b S={S} seed {i}", "K3b", R, names, grads, rgrads, k3b["worst"], tcg,
+                control=control, fault_grads=fault, seed=i))
+            dir_sum = max(dir_sum, _dir_sum_error(grads, names))
+            if i == 0:
+                k3f.update(
+                    ms=_median_ms(lambda: K.fused_paper_mlp_forward(bundle, ro, rd, z)),
+                    plain_ms=_median_ms(lambda: K.fused_paper_mlp_reference(bundle, ro, rd, z), 1, 3),
+                    bound_ms=_bound_ms(R * S * f_fwd, _k3_bytes(R, S, False))[0])
+                k3b.update(
+                    ms=_median_ms(lambda: K.fused_paper_mlp_backward(bundle, ro, rd, z, g), iters=10),
+                    plain_ms=_median_ms(lambda: K.fused_paper_mlp_backward_reference(bundle, ro, rd, z, g),
+                                        1, 3),
+                    bound_ms=_bound_ms(R * S * f_bwd, _k3_bytes(R, S, True))[0])
+            k3f["max_abs_err"] = max(k3f["max_abs_err"], float((out - ref).abs().max()))
+            del out, ref, tc, lost, grads, grads2, rgrads, tcg, fault
+            # K1: σ-noise and a background, as [train_kernel]'s passes (at
+            # S = 1 the one sample is the background's: rgb is the
+            # background and every gradient 0, which K1 must give too)
+            kw = dict(loss_scale=2.0 / (3.0 * R), background=bg, noise=noise, noise_std=0.1)
+            args = (bundle, ro, rd, z, tgt)
+            got, grads, _ = T.fused_train_pass(*args, **kw)
+            _, grads2, _ = T.fused_train_pass(*args, **kw)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(grads, grads2)),
+                  f"K1 S={S} seed {i}: two launches gave different gradients")
+            ref, rgrads, _ = T.fused_train_pass_reference(*args, **kw)
+            for k in ("rgb", "weights"):
+                e = float((got[k] - ref[k]).abs().max())
+                check(e <= 2e-3, f"K1 S={S} seed {i}: {k} max abs err {e} > 2e-3")
+                k1["max_abs_err"] = max(k1["max_abs_err"], e)
+            _grad_readings(f"K1 S={S} seed {i}", "K1", R, names, grads, rgrads, k1["worst"])
+            dir_sum = max(dir_sum, _dir_sum_error(grads, names))
+            if i == 0:
+                k1.update(ms=_median_ms(lambda: T.fused_train_pass(*args, **kw), iters=10),
+                          plain_ms=_median_ms(lambda: T.fused_train_pass_reference(*args, **kw), 1, 3),
+                          bound_ms=_bound_ms(R * S * f_bwd, _k1_bytes(R, S))[0])
+            del got, ref, grads, grads2, rgrads
+        check(dir_sum <= DIR_SUM_TOL, f"S={S}: Σ d_dir vs d_bd0 {dir_sum:.2e} > {DIR_SUM_TOL}")
+        for r in (k1, k3b):
+            w = r.pop("worst")
+            r["worst_max"] = max(w.items(), key=lambda kv: kv[1][0])
+            r["worst_norm"] = max(w.items(), key=lambda kv: kv[1][1])
+        res["K3f"][S], res["K1"][S], res["K3b"][S] = k3f, k1, k3b
+        phase("sample_counts",
+              f"S={S} ({rays} ray{'s' if rays > 1 else ''} in {units} unit{'s' if units > 1 else ''} an "
+              f"item, {units * 64 - rays * S} padding rows), {R} rays ({R % rays or rays} in the last item): "
+              f"K2 max abs err {k2['max_abs_err']:.3g} (limit 2e-3, or {FLEX_TC_FACTOR} × the plain version's "
+              f"own on the tensor cores; a background and none), {k2['ms']:.3f} ms, plain "
+              f"{k2['plain_ms']:.3f}, bound {k2['bound_ms']:.3f}; K3f {SAMPLE_SEEDS} seeds "
+              f"{k3f['out_rel']:.2e}·max (limit {K3_OUT_TOL}, or {FLEX_TC_FACTOR} × the plain version's own, "
+              f"up to {k3f['tc_rel']:.2e}·max on the tensor cores), {k3f['ms']:.3f} ms, "
+              f"plain {k3f['plain_ms']:.3f}, bound {k3f['bound_ms']:.3f}")
+        for k, r in (("K1", k1), ("K3b", k3b)):
+            (wm, (wm_v, _)), (wn, (_, wn_v)) = r["worst_max"], r["worst_norm"]
+            phase("sample_counts",
+                  f"S={S}: {k} {SAMPLE_SEEDS} seeds worst grad {wm} {wm_v:.4f}·max, worst ‖err‖ {wn} "
+                  f"{wn_v:.4f}·‖r‖ ({'k1_grad_limits' if k == 'K1' else 'k3b_grad_limits'}), "
+                  f"bit-identical over 2 launches; {r['ms']:.3f} ms, "
+                  f"plain {r['plain_ms']:.3f}, bound {r['bound_ms']:.3f}")
+        phase("sample_counts", f"S={S}: Σ_rays d_dir vs d_bd0, K1 and K3b: {dir_sum:.2e} of Σ|d_dir| "
+                               f"(limit {DIR_SUM_TOL})")
+        res["control"][S] = _sample_control(S, control)
+        torch.cuda.empty_cache()
+    return res
+
+
 def _train_cfg(steps, logdir, cfg_dict=SYNTH512_PAPER):
     d = copy.deepcopy(cfg_dict)
     d["experiment"].update(logdir=logdir, train_iters=steps, print_every=10,
@@ -1485,7 +1892,7 @@ def train_step_phase(dev, ds, cfg_dict=SYNTH512_PAPER, name="train_step"):
     bg = setup_background(ds, flags)
     batch = batch_to_device(RayFeed(ds, TRAIN_RAYS, background=bg, seed=SEED).sample_batch(), dev)
     mc, mf = build_models_from_cfg(cfg, device=dev, generator=torch.Generator().manual_seed(SEED))
-    fused = fused_train_eligible(mc, mf, settings, flags, torch.bfloat16, dev)
+    fused = fused_train_eligible(mc, mf, settings, flags, torch.bfloat16, dev, num_rays=TRAIN_RAYS)
     n_pass = 2 if mf is not None else 1
     want = {"K1": n_pass, "K3f": 0, "K3b": 0} if fused else {"K1": 0, "K3f": n_pass, "K3b": n_pass}
     latent = torch.randn(len(ds.i_train), 32, generator=torch.Generator().manual_seed(1)) * 0.1
@@ -2245,6 +2652,11 @@ def quality_phase(dev, tmp, ev, me, card):
 
 
 REENACT_SIZE = 128  # the paper's shape holds from 128² (2048 rays, 64 + 64 samples)
+# the demo's smoke regime below 128² (512 rays, 16 + 16 samples): the
+# kernels take it at S = 16 and 32
+REENACT_SMALL_SIZE = 64
+REENACT_WINDOW_STEPS = 100  # the small regime's windowed run against step at a time
+REENACT_WINDOW_K = 10
 REENACT_FRAMES = 60
 REENACT_ITERS = 2000
 REENACT_F32_FRAMES = 2  # driven frames rendered again by the f32 plain path
@@ -2287,16 +2699,22 @@ def _avi_frames(path):
             struct.unpack("<I", blob[idx1 + 4:idx1 + 8])[0] // 16)
 
 
-def reenact_phase(dev, tmp, card):
+def reenact_phase(dev, tmp, card, size=REENACT_SIZE, name="reenact"):
     """The cross-actor reenactment path (`tools/reenactment_demo.py`'s
-    `main`) at REENACT_SIZE², REENACT_FRAMES frames a tracker identity,
+    `main`) at size², REENACT_FRAMES frames a tracker identity,
     REENACT_ITERS bf16 steps on the card: the dataset build, K1 in
-    training, K2 in both evaluations (the wrappers' counts reset at each
-    stage's start and read at its end), the summary's metrics, the 60-frame
-    AVI; then the self-reenactment PSNR against the untrained avatar's
-    (checkpoint00001, the [quality] rule), REENACT_F32_FRAMES driven frames
-    against the f32 plain frames of the same checkpoint, and
-    `cli/build_dataset.py --mode driven` against the demo's test split."""
+    training, K2 in its validations and both evaluations (the wrappers'
+    counts reset at each stage's start and read at its end), no bf16 pass
+    of the paper model on the plain path anywhere in the demo (counted at
+    the dispatch, `plain_paper_passes`), the
+    summary's metrics, the 60-frame AVI; then the self-reenactment PSNR
+    against the untrained avatar's (checkpoint00001: the [quality] rule at
+    REENACT_SIZE², above it at the small regime), REENACT_F32_FRAMES driven
+    frames against the f32 plain frames of the same checkpoint, and
+    `cli/build_dataset.py --mode driven` against the demo's test split. In
+    the small regime (size < 128: 512 rays, 16 + 16 samples) also
+    REENACT_WINDOW_STEPS steps of the demo's config windowed
+    (REENACT_WINDOW_K) against step at a time, bit for bit."""
     import numpy as np
     import torch
     from PIL import Image
@@ -2309,7 +2727,7 @@ def reenact_phase(dev, tmp, card):
     from nerface_tpu_torch.tools import reenactment_demo as demo
     from nerface_tpu_torch.train import loop
 
-    w = os.path.join(tmp, "reenact")
+    w = os.path.join(tmp, name)
     counters = _launch_counts()
     stages = []
     real = {"tracker": (demo, "make_tracker_identity"), "build": (B, "build_dataset"),
@@ -2329,55 +2747,58 @@ def reenact_phase(dev, tmp, card):
         return run
 
     out = _StampedOut()
-    argv = ["--size", str(REENACT_SIZE), "--frames", str(REENACT_FRAMES), "--iters",
+    argv = ["--size", str(size), "--frames", str(REENACT_FRAMES), "--iters",
             str(REENACT_ITERS), "--workdir", w, "--device", str(dev)]
     t0 = time.perf_counter()
     try:
         for k, (mod, attr) in real.items():
             setattr(mod, attr, staged(k, originals[k]))
-        with contextlib.redirect_stdout(out):
+        with contextlib.redirect_stdout(out), plain_paper_passes() as plain:
             summary = demo.main(argv)
     finally:
         for k, (mod, attr) in real.items():
             setattr(mod, attr, originals[k])
     demo_s = time.perf_counter() - t0
+    plain_passes = plain[0]
+    check(plain_passes == 0, f"{name}: {plain_passes} bf16 paper passes took the plain path")
     text = out.getvalue()
     by = {}
     for st in stages:
         by.setdefault(st["stage"], []).append(st)
     check(len(by.get("tracker", [])) == 2 and len(by.get("build", [])) == 1
           and len(by.get("train", [])) == 1 and len(by.get("evaluate", [])) == 2,
-          f"reenact: stages {[st['stage'] for st in stages]}")
-    check(f"bf16=True, {dev}" in text, "reenact: the demo did not train in bf16 on the card")
-    check("execution window: 50 steps" in text, "reenact: training did not take the window")
+          f"{name}: stages {[st['stage'] for st in stages]}")
+    check(f"bf16=True, {dev}" in text, f"{name}: the demo did not train in bf16 on the card")
+    check("execution window: 50 steps" in text, f"{name}: training did not take the window")
     tr, (ev_self, ev_drv) = by["train"][0], by["evaluate"]
-    check(tr["launches"]["K1"] > 0 and tr["launches"]["K3f"] == tr["launches"]["K3b"] == 0,
-          f"reenact: training launches {tr['launches']}")
+    check(tr["launches"]["K1"] > 0 and tr["launches"]["K2"] > 0
+          and tr["launches"]["K3f"] == tr["launches"]["K3b"] == 0,
+          f"{name}: training launches {tr['launches']} (K1 steps, K2 validations)")
     for label, ev in (("self", ev_self), ("driven", ev_drv)):
         check(ev["launches"]["K2"] > 0 and ev["launches"]["K1"] == ev["launches"]["K3f"] == 0,
-              f"reenact: {label} evaluation launches {ev['launches']}")
+              f"{name}: {label} evaluation launches {ev['launches']}")
     s_self, s_drv = summary["self_reenactment"], summary["cross_reenactment"]
     check(all(math.isfinite(s_self[k]) for k in ("psnr", "ssim", "l1")) and s_self["frames"] == 10,
-          f"reenact: self-reenactment {s_self}")
+          f"{name}: self-reenactment {s_self}")
     check(s_drv["temporal_std"] > 1.0 and s_drv["frames"] == REENACT_FRAMES,
-          f"reenact: driven {s_drv}")
+          f"{name}: driven {s_drv}")
     avi = _avi_frames(summary["video"])
-    check(avi == (REENACT_FRAMES, REENACT_FRAMES), f"reenact: the AVI holds {avi} frames")
+    check(avi == (REENACT_FRAMES, REENACT_FRAMES), f"{name}: the AVI holds {avi} frames")
     step_ms, per = _steady_step_ms(out.stamps)
     psnr = {int(m[0]): float(m[3]) for m in re.findall(_TRAIN_LINE, text)}
     tracker_s = sum(st["s"] for st in by["tracker"])
-    phase("reenact", f"reenactment_demo.main at {REENACT_SIZE}x{REENACT_SIZE}, {REENACT_FRAMES} "
+    phase(name, f"reenactment_demo.main at {size}x{size}, {REENACT_FRAMES} "
                      f"frames, {REENACT_ITERS} bf16 steps on {card}: {demo_s:.1f} s in all; two "
                      f"tracker identities rendered in {tracker_s:.1f} s, dataset build "
                      f"{by['build'][0]['s']:.2f} s, training {tr['s']:.1f} s (K1 wrapper calls "
                      f"{tr['launches']['K1']}, K2 {tr['launches']['K2']}), steady windowed step "
                      f"{step_ms:.3f} ms (median of {len(per)} print intervals: "
                      f"{[round(x, 3) for x in per]}), printed PSNR {psnr}")
-    phase("reenact", f"self-reenactment: {s_self['frames']:.0f} frames, avg_time_per_image "
+    phase(name, f"self-reenactment: {s_self['frames']:.0f} frames, avg_time_per_image "
                      f"{s_self['s_per_frame'] * 1e3:.2f} ms, {ev_self['s']:.2f} s in evaluate, "
                      f"K2 {ev_self['launches']['K2']}; PSNR {s_self['psnr']:.3f} dB, SSIM "
                      f"{s_self['ssim']:.4f}, L1 {s_self['l1']:.5f}")
-    phase("reenact", f"cross-actor driven: {s_drv['frames']:.0f} frames, avg_time_per_image "
+    phase(name, f"cross-actor driven: {s_drv['frames']:.0f} frames, avg_time_per_image "
                      f"{s_drv['s_per_frame'] * 1e3:.2f} ms, {ev_drv['s']:.2f} s in evaluate, K2 "
                      f"{ev_drv['launches']['K2']}; temporal_std {s_drv['temporal_std']:.3f}; "
                      f"{summary['video']} holds {avi[0]} frames")
@@ -2393,7 +2814,7 @@ def reenact_phase(dev, tmp, card):
     driver.evaluate(cfg, ckpt, f32_dir, eval_flags=EvalFlags(), max_frames=REENACT_F32_FRAMES,
                     log=False, dtype=None, device=dev)
     check(all(c.launches == 0 for c in counters.values()),
-          f"reenact: the f32 plain path launched {[(n, c.launches) for n, c in counters.items()]}")
+          f"{name}: the f32 plain path launched {[(n, c.launches) for n, c in counters.items()]}")
     vs_f32 = []
     for i in range(REENACT_F32_FRAMES):
         a = _png(os.path.join(w, "renders_driven", f"{i:04d}.png")).astype(np.int16)
@@ -2401,7 +2822,9 @@ def reenact_phase(dev, tmp, card):
         diff = np.abs(a - b)
         vs_f32.append((float(diff.mean()), int(diff.max())))
         check(int(diff.max()) <= FRAME_MAX and float(diff.mean()) <= FRAME_MEAN,
-              f"reenact: bf16 driven frame {i} vs f32: mean {diff.mean()}, max {diff.max()}")
+              f"{name}: bf16 driven frame {i} vs f32: mean {diff.mean()}, max {diff.max()}")
+
+    window = _reenact_window(cfg, w, dev, name) if size < 128 else None
 
     # cli/build_dataset.py --mode driven on the same two tracker dirs
     cli_dir = os.path.join(w, "cli_driven")
@@ -2412,7 +2835,7 @@ def reenact_phase(dev, tmp, card):
     with open(os.path.join(cli_dir, "transforms_test.json")) as fa, \
             open(os.path.join(ds_dir, "transforms_test.json")) as fb:
         check(json.load(fa) == json.load(fb),
-              "reenact: cli/build_dataset.py --mode driven wrote another transforms_test.json")
+              f"{name}: cli/build_dataset.py --mode driven wrote another transforms_test.json")
 
     # the untrained avatar (the first checkpoint) on the self-reenactment split
     B.generate_original_test_sequence(
@@ -2426,14 +2849,15 @@ def reenact_phase(dev, tmp, card):
     k2_first = counters["K2"].launches
     first = two_folders(os.path.join(ds_dir, "test"), first_dir, log=False, device=dev)
     gain = s_self["psnr"] - first["PSNR"]
-    check(gain >= QUALITY_GAIN_DB,
-          f"reenact: self-reenactment {s_self['psnr']:.3f} dB, untrained {first['PSNR']:.3f} dB")
-    phase("reenact", f"bf16 driven frames vs the f32 plain frames of the checkpoint: (mean "
+    min_gain = QUALITY_GAIN_DB if size >= 128 else 0.0
+    check(gain >= min_gain and gain > 0.0,
+          f"{name}: self-reenactment {s_self['psnr']:.3f} dB, untrained {first['PSNR']:.3f} dB")
+    phase(name, f"bf16 driven frames vs the f32 plain frames of the checkpoint: (mean "
                      f"|diff|, max) {[(round(m, 4), x) for m, x in vs_f32]} levels (limits "
                      f"{FRAME_MEAN}, {FRAME_MAX}); cli/build_dataset.py --mode driven wrote the "
                      f"demo's transforms_test.json; self-reenactment {s_self['psnr']:.3f} dB vs "
                      f"the untrained avatar's {first['PSNR']:.3f} dB (checkpoint00001, K2 "
-                     f"{k2_first}): +{gain:.2f} dB (limit {QUALITY_GAIN_DB})")
+                     f"{k2_first}): +{gain:.2f} dB (limit {min_gain})")
     return {"launches": {"K1": tr["launches"]["K1"],
                          "K2": tr["launches"]["K2"] + ev_self["launches"]["K2"]
                          + ev_drv["launches"]["K2"]},
@@ -2445,7 +2869,57 @@ def reenact_phase(dev, tmp, card):
             "avg_time_per_image": {"self": s_self["s_per_frame"],
                                    "driven": s_drv["s_per_frame"]},
             "summary": summary, "vs_f32": vs_f32, "untrained_psnr": first["PSNR"],
-            "gain_db": gain}
+            "gain_db": gain, "plain_paper_passes": plain_passes, "window": window}
+
+
+def _reenact_window(cfg, w, dev, name):
+    """REENACT_WINDOW_STEPS bf16 steps of the demo's config (its dataset,
+    its sample counts) windowed at REENACT_WINDOW_K against step at a time:
+    the last .ckpt (parameters, latent table, Adam state) and the printed
+    [TRAIN] / [VAL] lines bit for bit, K1 taking every step of both runs
+    and no bf16 paper pass on the plain path."""
+    import glob
+
+    import torch
+
+    from nerface_tpu_torch.config import CfgNode
+    from nerface_tpu_torch.ops.kernels import fused_train as T
+    from nerface_tpu_torch.train.loop import train
+
+    runs = {}
+    for k in (REENACT_WINDOW_K, 1):
+        d = copy.deepcopy(cfg.to_dict())
+        d["experiment"].update(logdir=os.path.join(w, f"window_{k}"), train_iters=REENACT_WINDOW_STEPS,
+                               print_every=10, validate_every=REENACT_WINDOW_STEPS // 2,
+                               save_every=REENACT_WINDOW_STEPS // 2, steps_per_execute=k)
+        T.fused_train_pass.launches = 0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), plain_paper_passes() as plain:
+            train(CfgNode(d), dtype=torch.bfloat16, device=dev)
+        torch.cuda.synchronize()
+        text = out.getvalue()
+        ckpt = sorted(glob.glob(os.path.join(w, f"window_{k}", "**", "checkpoint*.ckpt"), recursive=True))[-1]
+        runs[k] = {"s": time.perf_counter() - t0, "k1": T.fused_train_pass.launches,
+                   "plain": plain[0], "ckpt": ckpt,
+                   # the printed values, not the timings beside them
+                   "lines": re.findall(_TRAIN_LINE, text) + re.findall(_VAL_LINE, text)}
+        window = re.search(r"execution window: (\d+) steps", text)
+        check((int(window.group(1)) if window else 1) == k, f"{name}: the run at K = {k} took another window")
+        check(runs[k]["k1"] > 0 and runs[k]["plain"] == 0,
+              f"{name}: K = {k}: K1 calls {runs[k]['k1']}, plain bf16 paper passes {runs[k]['plain']}")
+    a, b = runs[REENACT_WINDOW_K], runs[1]
+    differ = _differ(_ckpt_tensors(a["ckpt"]), _ckpt_tensors(b["ckpt"]))
+    check(os.path.basename(a["ckpt"]) == os.path.basename(b["ckpt"]) and not differ,
+          f"{name}: windowed vs step at a time differ in {differ[:5]} ({a['ckpt']}, {b['ckpt']})")
+    check(a["lines"] == b["lines"] and len(a["lines"]) > REENACT_WINDOW_STEPS // 10,
+          f"{name}: the printed lines differ: {a['lines'][:3]} vs {b['lines'][:3]}")
+    phase(name, f"{REENACT_WINDOW_STEPS} bf16 steps of the demo's config windowed (K = {REENACT_WINDOW_K}, "
+                f"{a['s']:.1f} s) vs step at a time ({b['s']:.1f} s): {os.path.basename(a['ckpt'])} "
+                f"bit for bit, {len(a['lines'])} printed lines equal; K1 wrapper calls {a['k1']} / "
+                f"{b['k1']}, plain bf16 paper passes 0 / 0")
+    return {"windowed_s": a["s"], "step_s": b["s"], "k1_calls": (a["k1"], b["k1"]),
+            "ckpt": os.path.basename(a["ckpt"])}
 
 
 SUPERVISED_SAVE = 100
@@ -2871,7 +3345,8 @@ def ddp_train_phase(dev, ds, tmp, ds_dir, card):
     batch = RayFeed(disk_ds, TRAIN_RAYS, background=bg if flags.fixed_background else None,
                     seed=SEED, native=False).sample_batch()
     check(fused_train_eligible(state.model_coarse, state.model_fine, settings, flags,
-                               torch.bfloat16, dev), "ddp_train (b): the step is not K1's")
+                               torch.bfloat16, dev, num_rays=TRAIN_RAYS),
+          "ddp_train (b): the step is not K1's")
     payload = {"state": state, "opt_cfg": {k: gloo_cfg[k] for k in ("optimizer", "scheduler")},
                "batch": batch_to_device(batch, "cpu"), "settings": settings, "flags": flags,
                "seed": 3, "dtype": torch.bfloat16, "fused": True, "device": str(dev),
@@ -3142,12 +3617,29 @@ FLEX_TC_DEPTH = 8
 FLEX_TC_FACTOR = 1.5
 
 
+def k3b_grad_limits(n_rays, name, tc_err):
+    """(max, norm) limits of K3b's gradient tensor `name` in a pass of
+    `n_rays` rays, relative to the plain version's max|r| and ‖r‖, given
+    the yardstick's (max, norm) readings `tc_err` (`tensor_core_plain`):
+    K3B_NORM_FLOOR's comment."""
+    few = max(K1_GRAD_TOL_FEW_RAYS[0], K1_DIR_BRANCH_MAX_TOL.get(name, 0.0))
+    floor = K3B_NORM_FLOOR if n_rays >= TRAIN_RAYS else K1_GRAD_TOL_FEW_RAYS[1]
+    return tc_limit(few, tc_err[0]), tc_limit(floor, tc_err[1])
+
+
+def tc_limit(base, tc):
+    """A reading's limit where bf16 roundings that flip between two f32
+    summation orders reach past `base`: no less than FLEX_TC_FACTOR × `tc`,
+    the same reading of the plain version on the tensor cores
+    (`tensor_core_plain`)."""
+    return max(base, FLEX_TC_FACTOR * tc)
+
+
 def flex_limit(base, n_hidden, tc=None):
     """The limit of one reading of K4f or K4b (relative to the plain
     version's max or norm) at `n_hidden` hidden layers: `base`, and at
-    n_hidden ≥ FLEX_TC_DEPTH no less than FLEX_TC_FACTOR × `tc`, the same
-    reading of the plain version on the tensor cores (`tensor_core_plain`)."""
-    return base if n_hidden < FLEX_TC_DEPTH else max(base, FLEX_TC_FACTOR * tc)
+    n_hidden ≥ FLEX_TC_DEPTH `tc_limit(base, tc)`."""
+    return base if n_hidden < FLEX_TC_DEPTH else tc_limit(base, tc)
 
 
 def flex_grad_limits(n_rays, name, n_hidden, tc_err=None):
@@ -3310,13 +3802,10 @@ def flex_kernel_phase(dev):
                                                        _k4_bytes(R, S, True))
                 bwd = FS.bare_bwd(case)
                 result["bwd_bare_ms"][label] = _median_ms(bwd, iters=10)
-                rows = KS.split_rows(bwd, FS.launch_bounds(R, S, n))
+                rows = split_rows(bwd, FS.launch_bounds(R, S, n))
                 result["bwd_split"][label] = rows
                 for short, row in rows.items():
-                    phase("flex_kernel", f"  K4b S={S} {KS.row_text(short, row)}")
-                if not rows:
-                    phase("flex_kernel", f"  K4b S={S} split not measured: the profiler saw no "
-                                         "device time")
+                    phase("flex_kernel", f"  K4b S={S} {split_text(short, row)}")
         result["err"][label] = out_err
         line = (f"{label} R={R} S={S} n={n}, {FLEX_SEEDS} seeds: K4f max err rgb "
                 f"{out_err['rgb']:.2e}·max, σ {out_err['sigma']:.2e}·max (limits "
@@ -4296,7 +4785,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
-    build_phase()
+    bd = build_phase()
     k = kernel_phase(dev)
     ks = kernel_phase(dev, small=True)
     rk = resample_phase(dev)
@@ -4309,10 +4798,13 @@ def main() -> int:
         fe = fast_serve_phase(dev, tmp, args.profile)
         server, ss = serve_phase(dev, tmp, SYNTH512_SMALLER, "smaller_serve", SEED + 6)
         del server
+        server, s128 = serve_phase(dev, tmp, SYNTH512_PAPER_64_128, "serve_64_128", SEED + 7)
+        del server
         nf = noisy_frame_phase(dev, tmp, args.profile)
         tk = train_kernel_phase(dev)
         tks = train_kernel_phase(dev, small=True)
         pk = paper_mlp_kernel_phase(dev)
+        sc = sample_counts_phase(dev)
         ds = _train_dataset()
         ts = train_step_phase(dev, ds)
         tr = train_phase(dev, ds, tmp, args.profile, card)
@@ -4321,6 +4813,7 @@ def main() -> int:
         me = metrics_phase(ev)
         qu = quality_phase(dev, tmp, ev, me, card)
         rn = reenact_phase(dev, tmp, card)
+        rn64 = reenact_phase(dev, tmp, card, REENACT_SMALL_SIZE, "reenact_64")
         su = supervised_train_phase(dev, tmp, ev["dataset"], card)
         dd = ddp_train_phase(dev, ds, tmp, ev["dataset"], card)
         sh = sharded_serve_phase(dev, tmp, ev, card)
@@ -4365,8 +4858,9 @@ def main() -> int:
             # the frames of the four serving paths and of the eval entry point
             "launches": s["launches"] + ss["launches"] + fe["launches"] + oc["launches"]
             + sum(m["launches"] for m in ev["modes"].values()) + su["launches"]["K2"]
-            + dd_k2 + sh_k2 + rn["launches"]["K2"],
+            + dd_k2 + sh_k2 + rn["launches"]["K2"] + s128["launches"] + rn64["launches"]["K2"],
             "launches_by_path": {"serve": s["launches"], "smaller_serve": ss["launches"],
+                                 "serve_64_128": s128["launches"],
                                  "fast_serve": fe["launches"],
                                  "occupancy_serve": oc["launches"],
                                  **{f"eval_{k}": m["launches"] for k, m in ev["modes"].items()},
@@ -4378,7 +4872,8 @@ def main() -> int:
                                  "supervised_train": su["launches"]["K2"],
                                  "ddp_train": dd_k2, "sharded_serve": sh_k2,
                                  # the demo's validations and its two evaluations
-                                 "reenact": rn["launches"]["K2"]},
+                                 "reenact": rn["launches"]["K2"],
+                                 "reenact_64": rn64["launches"]["K2"]},
             "kernel_runs_by_path": {"window_train": wt_k2_runs, "eval_parity": ev["runs"]},
             "max_abs_err": max(errs),
             # one coarse (S=64, weights) + one fine (S=128) call on 4096 rays
@@ -4422,6 +4917,8 @@ def main() -> int:
             "reenact_untrained_psnr": rn["untrained_psnr"],
             "reenact_vs_f32_levels": rn["vs_f32"],
             "client_round_trip_ms_512": s["client"]["round_trip_ms"],
+            # [sample_counts]: SAMPLE_CASES' rays at each S through the wrapper
+            "by_sample_count": sc["K2"],
             "card": card,
         },
         {
@@ -4432,13 +4929,14 @@ def main() -> int:
             "modes": ["paper", "small"],
             "launches": tr["launches"]["K1"] + st["launches"]["K1"] + wt_k1
             + ev["train"]["launches"]["K1"] + su["launches"]["K1"] + dd_k1
-            + rn["launches"]["K1"],
+            + rn["launches"]["K1"] + rn64["launches"]["K1"],
             "launches_by_path": {"train": tr["launches"]["K1"],
                                  "smaller_train": st["launches"]["K1"],
                                  "window_train": wt_k1,
                                  "eval_train": ev["train"]["launches"]["K1"],
                                  "supervised_train": su["launches"]["K1"],
-                                 "ddp_train": dd_k1, "reenact": rn["launches"]["K1"]},
+                                 "ddp_train": dd_k1, "reenact": rn["launches"]["K1"],
+                                 "reenact_64": rn64["launches"]["K1"]},
             "kernel_runs_by_path": {"window_train": wt_k1_runs},
             "max_abs_err": max(v for r in (tk, tks) for e in r["err"].values() for v in e.values()),
             # a train step's two passes: coarse (S=64) + fine (S=128), 2048 rays
@@ -4485,7 +4983,14 @@ def main() -> int:
             # step between print lines, and the training's wall seconds
             "reenact_step_ms": rn["step_ms"],
             "reenact_train_s": rn["train_s"],
+            # the demo at 64² (512 rays, 16 + 16 samples), now through K1
+            "reenact_64_step_ms": rn64["step_ms"],
+            "reenact_64_train_s": rn64["train_s"],
+            "reenact_64_window": rn64["window"],
             "step_vs_f32": ts,
+            # [sample_counts]: SAMPLE_CASES' rays at each S through the wrapper
+            "by_sample_count": sc["K1"],
+            "build": bd,  # nvcc seconds and train_pass_kernel instantiations
             "card": card,
         },
         {
@@ -4520,6 +5025,8 @@ def main() -> int:
             "vs_k2_max_err": pk["k2_cross"],
             "design": K3F_DESIGN,
             "noisy_frame_ms_512": nf["frame_ms"],
+            # [sample_counts]: SAMPLE_CASES' rays at each S through the wrapper
+            "by_sample_count": sc["K3f"],
             "card": card,
         },
         {
@@ -4543,6 +5050,11 @@ def main() -> int:
             "bound_ms_by_case": {c: b[0] for c, b in pk["bwd_bound"].items()},
             "coarse_train_step_ms": ct["step_ms"],
             "step_vs_f32": cs,
+            # [sample_counts]: SAMPLE_CASES' rays at each S through the wrapper
+            "by_sample_count": sc["K3b"],
+            # [sample_counts]' readings the tensor-core yardstick decides, and
+            # its lost units caught (`_sample_control`), by S
+            "sample_count_control": sc["control"],
             "card": card,
         },
         {

@@ -59,21 +59,24 @@ struct FwdArgs {
   const bf16* W;       // the weights' chunk images (W_OFF_* offsets, as K2 takes them)
   const float* F;      // packed bias rows + frequency bands (F_LAYOUT)
   float* out;          // (R, S, 4): raw rgb, σ
-  int n_rays, n_freqs;
+  int n_rays;
+  UnitLayout l;  // the pass's S, and its items' rays and units (host-computed)
+  int n_freqs;
 };
 
 constexpr size_t FWD_SMEM_BYTES = sizeof(PaperChainSmem) + ATOM_BYTES;  // + the alignment pad
 
 // A consumer warpgroup over its units: the chain, then the rows out. Its
-// k-th unit is unit k % UNITS of the item of round blockIdx.x + (k /
-// UNITS)·gridDim.x; a unit holds the pass's sample rows [64·unit, +64). A
+// k-th unit is unit k % units() of the item of round blockIdx.x + (k /
+// units())·gridDim.x; the item's row i < rows() is row ray0·S + i of the
+// pass (sample i % S of ray ray0 + i / S), a padding row after. A
 // warpgroup whose rays are past the last computes zeros and stores nothing,
 // so both consumers walk the same chunk sequence.
-template <int S, bool SMALL>
+template <int SF, bool SMALL>
 __device__ __forceinline__ void fwd_consume(PaperChainSmem& sm, const FwdArgs& a, int wg, int n_rounds) {
-  using G = Schedule<S, 1>;
+  const UnitSchedule<SF, 1> g{a.l};
   const int lane = threadIdx.x & 31;
-  const int r0 = k1::frag_row();  // the thread's accumulator rows: r0 and r0 + 8 of a unit, in one ray
+  const int r0 = k1::frag_row();  // the thread's accumulator rows: r0 and r0 + 8 of a unit
   Ring ring;
   float acc[128];
   uint32_t act[64];
@@ -83,58 +86,65 @@ __device__ __forceinline__ void fwd_consume(PaperChainSmem& sm, const FwdArgs& a
   for (int i = 0; i < 64; ++i) act[i] = 0u;
 
   for (int k = 0;; ++k) {
-    const int round = blockIdx.x + (k / G::UNITS) * gridDim.x;
+    const int units = g.units();
+    const int round = blockIdx.x + (k / units) * gridDim.x;
     if (round >= n_rounds) break;
-    const int row0 = (G::item(round, 0, wg) * G::UNITS + k % G::UNITS) * 64 + r0;
-    const int ray = row0 / S;
+    const int item = g.item(round, 0, wg);
     mbar_wait(&sm.xin_full[wg][k & 1], (k >> 1) & 1);
     float hs[4], hc[4];
     paper_unit<SMALL, 1>(acc, act, smem_u32(sm.xin[wg][k & 1]), sm, ring, 0, &sm.xin_empty[wg][k & 1], a.dir_c,
-                         ray, a.n_rays, hs, hc);
+                         g, item * g.wg_rays(), k % units, a.n_rays, hs, hc);
+    const int rows = g.rows();
+    const int i0 = (k % units) * 64 + r0;  // the item's row of the thread's first row
+    // a padding row's ray is n_rays: it is not stored
+    const int ray_h[2] = {i0 < rows ? item * g.wg_rays() + g.ray_of(i0) : a.n_rays,
+                          i0 + 8 < rows ? item * g.wg_rays() + g.ray_of(i0 + 8) : a.n_rays};
     // hs / hc[2h + j]: row r0 + 8h, column 2·(lane % 4) + j; lane q = 1
     // holds rgb's third column, handed to lane q = 0, which stores the row
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const float b2 = __shfl_down_sync(0xffffffffu, hc[2 * h], 1);
-      if ((lane & 3) == 0 && ray < a.n_rays)
-        *reinterpret_cast<float4*>(a.out + (size_t)(row0 + 8 * h) * 4) =
+      const size_t row = (size_t)item * rows + i0 + 8 * h;  // the pass's row
+      if ((lane & 3) == 0 && ray_h[h] < a.n_rays)
+        *reinterpret_cast<float4*>(a.out + row * 4) =
             make_float4(hc[2 * h] + sm.f[F_OFF_BRGB], hc[2 * h + 1] + sm.f[F_OFF_BRGB + 1],
                         b2 + sm.f[F_OFF_BRGB + 2], hs[2 * h] + sm.f[F_OFF_BA]);
     }
   }
 }
 
-template <int S, bool SMALL>
+template <int SF, bool SMALL>
 __global__ void __launch_bounds__(PAPER_THREADS, 1) mlp_fwd_kernel(const FwdArgs a) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t pad = (ATOM_BYTES - (smem_u32(smem_raw) & (ATOM_BYTES - 1))) & (ATOM_BYTES - 1);
   PaperChainSmem& sm = *reinterpret_cast<PaperChainSmem*>(smem_raw + pad);
   paper_setup<1>(sm, a.W, a.F);
-  const int n_rounds = Schedule<S, 1>::rounds(a.n_rays);
+  const UnitSchedule<SF, 1> g{a.l};
+  const int n_rounds = g.rounds(a.n_rays);
   const int wg = threadIdx.x / 128;
   if (wg == CHAIN_CONSUMERS) {
     reg_dealloc<40>();
-    paper_feed<S, SMALL, 1>(sm, a, 0, blockIdx.x, gridDim.x, n_rounds);
+    paper_feed<SMALL, 1>(sm, a, g, 0, blockIdx.x, gridDim.x, n_rounds);
   } else {
     reg_alloc<232>();
-    fwd_consume<S, SMALL>(sm, a, wg, n_rounds);
+    fwd_consume<SF, SMALL>(sm, a, wg, n_rounds);
   }
 }
 
 // K3b's middle: each row's cotangent of raw [rgb, σ] from g (R, S, 4),
-// zero past the last ray.
+// zero on the item's padding rows and past the last ray.
 struct K3bPolicy {
   const float* g;
   int n_rays;
 
-  template <int S>
-  __device__ __forceinline__ void middle(const float*, const float*, float* gsig, float* grgb, int ray0, int,
-                                         int) const {
-    constexpr int ROWS = 64 * k1::Geometry<S>::UNITS;
-    const size_t row0 = (size_t)ray0 * S, rows = (size_t)n_rays * S;
-    for (int e = threadIdx.x & 127; e < ROWS * 4; e += 128) {
+  template <class G>
+  __device__ __forceinline__ void middle(const float*, const float*, float* gsig, float* grgb, int ray0,
+                                         const G& l, int, int) const {
+    const int real = l.rows();  // the item's real rows; the rest pad its last unit
+    const size_t row0 = (size_t)ray0 * l.samples(), rows = (size_t)n_rays * l.samples();
+    for (int e = threadIdx.x & 127; e < l.units() * 64 * 4; e += 128) {
       const int r = e >> 2, c = e & 3;
-      const float v = row0 + r < rows ? g[(row0 + r) * 4 + c] : 0.f;
+      const float v = r < real && row0 + r < rows ? g[(row0 + r) * 4 + c] : 0.f;
       if (c < 3) {
         grgb[r * 3 + c] = v;
       } else {
@@ -144,21 +154,21 @@ struct K3bPolicy {
   }
 };
 
-template <int S, bool SMALL>
+template <int SF, bool SMALL>
 struct Forward {
   static int run(const FwdArgs& a, cudaStream_t st) {
-    auto kernel = mlp_fwd_kernel<S, SMALL>;
+    auto kernel = mlp_fwd_kernel<SF, SMALL>;
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FWD_SMEM_BYTES);
     if (e != cudaSuccess) return (int)e;
-    kernel<<<k1::pass_ctas(a.n_rays, S), PAPER_THREADS, FWD_SMEM_BYTES, st>>>(a);
+    kernel<<<k1::pass_ctas(a.n_rays, a.l.S), PAPER_THREADS, FWD_SMEM_BYTES, st>>>(a);
     return (int)cudaGetLastError();
   }
 };
 
-template <int S, bool SMALL>
+template <int SF, bool SMALL>
 struct Backward {
   static int run(const k1::PassArgs& pa, const K3bPolicy& policy, float* dW, float* dF, cudaStream_t st) {
-    return k1::launch_pass<S, SMALL>(pa, policy, dW, dF, st);
+    return k1::launch_pass<SF, SMALL>(pa, policy, dW, dF, st);
   }
 };
 
@@ -184,9 +194,9 @@ extern "C" int nerface_fused_paper_mlp_fwd(const float* ro, const float* rd, con
                                            const float* dir_c, const void* W, const float* F, float* out,
                                            int n_rays, int n_samples, int n_freqs, int small, void* stream) {
   if (n_rays < 0 || n_freqs < 1 || 3 + 6 * n_freqs > K_XIN) return (int)cudaErrorInvalidValue;
-  if (n_samples != 32 && n_samples != 64 && n_samples != 128) return (int)cudaErrorInvalidValue;
+  if (n_samples < 1 || n_samples > MAX_SAMPLES) return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
-  FwdArgs a{ro, rd, z, dir_c, static_cast<const bf16*>(W), F, out, n_rays, n_freqs};
+  FwdArgs a{ro, rd, z, dir_c, static_cast<const bf16*>(W), F, out, n_rays, UnitLayout::of(n_samples), n_freqs};
   return dispatch_pass<Forward>(n_samples, small, a, static_cast<cudaStream_t>(stream));
 }
 
@@ -204,13 +214,13 @@ extern "C" int nerface_fused_paper_mlp_bwd(const float* ro, const float* rd, con
                                            float* d_dir, void* workspace, int n_rays, int n_samples,
                                            int n_freqs, int small, void* stream) {
   if (n_rays < 0 || n_freqs < 1 || 3 + 6 * n_freqs > K_XIN) return (int)cudaErrorInvalidValue;
-  if (n_samples != 32 && n_samples != 64 && n_samples != 128) return (int)cudaErrorInvalidValue;
+  if (n_samples < 1 || n_samples > MAX_SAMPLES) return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
   k1::Workspace ws;
   k1::carve(static_cast<unsigned char*>(workspace), k1::pass_units(n_rays, n_samples),
             k1::pass_ctas(n_rays, n_samples), &ws);
   k1::PassArgs pa{ro, rd, z, dir_c, static_cast<const bf16*>(W), static_cast<const bf16*>(WT), F, d_dir, ws,
-                  n_rays, n_freqs};
+                  n_rays, UnitLayout::of(n_samples), n_freqs};
   return dispatch_pass<Backward>(n_samples, small, pa, K3bPolicy{g, n_rays}, dW, dF,
                                  static_cast<cudaStream_t>(stream));
 }

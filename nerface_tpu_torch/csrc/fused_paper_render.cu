@@ -38,8 +38,13 @@
 //     consumer. `setmaxnreg` gives the warpgroup's registers to the
 //     consumers (40 / 232).
 //   - Warpgroups 0 and 1 (the consumers) each take whole rays as 64-row
-//     units: two rays a unit at S = 32, one at S = 64, one ray in two
-//     units at S = 128. Each layer is `wgmma.mma_async` m64n256k16
+//     units, S in 1..256 (`UnitLayout`, wgmma_chain.cuh): an item of
+//     64 / S rays in one unit where S divides 64, one ray in S / 64 units
+//     at a multiple of 64, and otherwise the few rays whose units waste
+//     the fewest rows (8 rays in 3 units at S = 24; padding rows compute
+//     zeros and are never composited). S = 64 and 128 have instantiations
+//     of their own (the layout class SF), any other S reads it at run
+//     time. Each layer is `wgmma.mma_async` m64n256k16
 //     (m64n128k16 for the direction branch) into 128 f32 accumulator
 //     registers a thread. Layer 0 and the skip layer's first chunk read
 //     xin from shared memory with K packed to 64 (probe P1: four k16 steps
@@ -60,10 +65,15 @@
 //     Only the weight ring ties them.
 //   - The σ head (256→1) and the rgb head (128→3) are m64n8k16 wgmmas
 //     against the head weights zero-padded to 8 columns in shared memory;
-//     the raw σ and rgb go to shared memory for the compositing: one warp
-//     per ray, an f32 scan of log transmittance with separately rounded
-//     __fadd_rn / __fmul_rn, the background on the last sample, relu σ +
-//     1e-6 there, the 1e-10 / 1e-38 guards.
+//     the raw σ and rgb of an item's rows (up to 256) go to shared memory
+//     for the compositing once its last unit is done, so a ray spanning
+//     several units composites in one piece: one warp per ray (warp w
+//     takes rays w, w + 4, ...), lane l its samples [l·spl, (l + 1)·spl)
+//     with spl = ⌈S / 32⌉, an f32 scan of log transmittance with
+//     separately rounded __fadd_rn / __fmul_rn, the background on the
+//     last sample, relu σ + 1e-6 there, the 1e-10 / 1e-38 guards. Below
+//     S = 32 lanes idle (S = 16: half a warp): the compositing is well
+//     under 1 % of a unit's time next to its 64 rows of the MLP.
 //   - The grid is persistent: cluster c takes rounds c, c + clusters, ...
 //     of 2 CTAs × 2 warpgroups' rays; the producer and the encoders run
 //     ahead into the next round. A warpgroup whose rays are past the last
@@ -93,11 +103,13 @@ constexpr int CONSUMERS = CHAIN_CONSUMERS;  // warpgroups computing the tile
 constexpr int K2_THREADS = PAPER_THREADS;
 constexpr int BAR_WG = 1;                   // + warpgroup: that warpgroup's named barrier
 
-// A consumer warpgroup takes whole rays, WG_RAYS at a time, as UNITS
-// 64-row units (two at S = 128: one ray); a cluster takes RAYS_PER_ROUND
-// rays a round of its loop, and streams every chunk UNITS times a round.
-template <int S>
-using Geometry = Schedule<S, CLUSTER>;
+// A consumer warpgroup takes whole rays, wg_rays() at a time, as units()
+// 64-row units; a cluster takes CLUSTER · CONSUMERS items a round of its
+// loop, and streams every chunk units() times a round. SF: the layout
+// class (wgmma_chain.cuh).
+template <int SF>
+using Geometry = UnitSchedule<SF, CLUSTER>;
+constexpr int MAX_SPL = MAX_SAMPLES / 32;  // samples a lane composites, at most
 
 struct Args {
   const float* ro;     // (R, 3)
@@ -114,24 +126,29 @@ struct Args {
   float* bgw;          // (R,)
   float* weights;      // (R, S) or null
   int n_rays;
+  UnitLayout l;  // the pass's S, and its items' rays and units (host-computed)
   int n_freqs;
   int white_bg;
 };
 
-// The chain's shared memory (paper_chain.cuh), then a warpgroup's rays'
+// The chain's shared memory (paper_chain.cuh), then a warpgroup's item's
 // raw σ and rgb for the compositing.
 struct K2Smem : PaperChainSmem {
-  float sigma[CONSUMERS][128];
-  float rgb[CONSUMERS][128 * 3];
+  float sigma[CONSUMERS][ITEM_ROWS];
+  float rgb[CONSUMERS][ITEM_ROWS * 3];
 };
 
-// Compositing of ray `ray` (rows warp·S .. warp·S + S - 1 of its
-// warpgroup's raw σ and rgb) by one warp: lane l owns samples
-// [l·SPL, (l+1)·SPL).
-template <int S>
-__device__ __forceinline__ void composite(const float* sigma, const float* rgb, const Args& a, int warp,
-                                          int lane, int ray) {
-  constexpr int SPL = S / 32;
+// Compositing of ray `ray` (rows row0 .. row0 + S - 1 of its warpgroup's
+// raw σ and rgb) by one warp: lane l owns samples [l·spl, (l+1)·spl) below
+// S, spl = ⌈S / 32⌉ (at S = 32 / 64 / 128 every lane S / 32 of them), in
+// registers of SPL ≥ spl slots (`composite_ray` picks SPL: a warp that
+// composites holds up its warpgroup's next wgmma, so S = 64 runs a loop of
+// 2 samples, and in its own instantiation with S folded in, not the
+// largest one).
+template <int SPL>
+__device__ __forceinline__ void composite(const float* sigma, const float* rgb, const Args& a, int row0,
+                                          int lane, int ray, int S) {
+  const int spl = (S + 31) >> 5;
   const float* zr = a.z + (size_t)ray * S;
   const float rx = a.rd[ray * 3], ry = a.rd[ray * 3 + 1], rz = a.rd[ray * 3 + 2];
   const float rnorm =
@@ -142,8 +159,11 @@ __device__ __forceinline__ void composite(const float* sigma, const float* rgb, 
   float run = 0.f;
 #pragma unroll
   for (int q = 0; q < SPL; ++q) {
-    const int s = lane * SPL + q;
-    const int row = warp * S + s;
+    const int s = lane * spl + q;
+    alpha[q] = 0.f;
+    prefix[q] = run;
+    if (q >= spl || s >= S) continue;
+    const int row = row0 + s;
     const float dz = s < S - 1 ? __fsub_rn(zr[s + 1], zr[s]) : 1e10f;
     const float d = __fmul_rn(dz, rnorm);
     float sa = fmaxf(sigma[row], 0.f);
@@ -152,7 +172,6 @@ __device__ __forceinline__ void composite(const float* sigma, const float* rgb, 
     // to exactly 0 for alpha == 1 and log would give -inf
     const float oma = expf(__fmul_rn(-sa, d));
     alpha[q] = __fsub_rn(1.f, oma);
-    prefix[q] = run;
     run = __fadd_rn(run, logf(__fadd_rn(oma, 1e-10f)));
   }
   // exclusive scan of the lanes' log-transmittance totals
@@ -165,11 +184,12 @@ __device__ __forceinline__ void composite(const float* sigma, const float* rgb, 
   float excl = __shfl_up_sync(0xffffffffu, incl, 1);
   if (lane == 0) excl = 0.f;
 
-  float r_sum = 0.f, g_sum = 0.f, b_sum = 0.f, depth = 0.f, acc = 0.f, w_last = 0.f;
+  float r_sum = 0.f, g_sum = 0.f, b_sum = 0.f, depth = 0.f, acc = 0.f;
 #pragma unroll
   for (int q = 0; q < SPL; ++q) {
-    const int s = lane * SPL + q;
-    const int row = warp * S + s;
+    const int s = lane * spl + q;
+    if (q >= spl || s >= S) continue;
+    const int row = row0 + s;
     const float w = alpha[q] * expf(excl + prefix[q]);
     float c[3];
 #pragma unroll
@@ -183,7 +203,7 @@ __device__ __forceinline__ void composite(const float* sigma, const float* rgb, 
     b_sum += w * c[2];
     depth += w * zr[s];
     acc += w;
-    if (s == S - 1) w_last = w;
+    if (s == S - 1) a.bgw[ray] = w;
     if (a.weights != nullptr) a.weights[(size_t)ray * S + s] = w;
   }
 #pragma unroll
@@ -194,7 +214,6 @@ __device__ __forceinline__ void composite(const float* sigma, const float* rgb, 
     depth += __shfl_xor_sync(0xffffffffu, depth, o);
     acc += __shfl_xor_sync(0xffffffffu, acc, o);
   }
-  if (lane == 31) a.bgw[ray] = w_last;
   if (lane == 0) {
     const float white = a.white_bg ? 1.f - acc : 0.f;
     a.rgb[ray * 3] = r_sum + white;
@@ -206,16 +225,30 @@ __device__ __forceinline__ void composite(const float* sigma, const float* rgb, 
   }
 }
 
+__device__ __forceinline__ void composite_ray(const float* sigma, const float* rgb, const Args& a, int row0,
+                                              int lane, int ray, int S) {
+  const int spl = (S + 31) >> 5;
+  if (spl == 1) {
+    composite<1>(sigma, rgb, a, row0, lane, ray, S);
+  } else if (spl == 2) {
+    composite<2>(sigma, rgb, a, row0, lane, ray, S);
+  } else if (spl <= 4) {
+    composite<4>(sigma, rgb, a, row0, lane, ray, S);
+  } else {
+    composite<MAX_SPL>(sigma, rgb, a, row0, lane, ray, S);
+  }
+}
+
 // A consumer warpgroup (wg 0 or 1) over its rays: for each unit, encode,
 // the layers and the heads; after an item's last unit, its warps composite
 // its rays. Nothing but the weight ring ties the two warpgroups together,
 // so one's encode, epilogues, heads and compositing run under the other's
 // matrix products.
-template <int S, bool SMALL>
+template <int SF, bool SMALL>
 __device__ __forceinline__ void consume(K2Smem& sm, const Args& a, uint32_t rank, int wg, int n_pairs) {
-  using G = Geometry<S>;
+  const Geometry<SF> g{a.l};
   const int lane = threadIdx.x & 31, lw = (threadIdx.x >> 5) & 3;  // lw: the warp in the warpgroup
-  // the thread's accumulator rows: r0 and r0 + 8 of a unit, in one ray
+  // the thread's accumulator rows: r0 and r0 + 8 of a unit
   const int r0 = lw * 16 + (lane >> 2);
   int units = 0;  // units taken, for the xin buffer and its phase
   float* sigma = sm.sigma[wg];
@@ -229,15 +262,14 @@ __device__ __forceinline__ void consume(K2Smem& sm, const Args& a, uint32_t rank
   for (int i = 0; i < 64; ++i) act[i] = 0u;
 
   for (int pair = cluster_id(); pair < n_pairs; pair += cluster_count()) {
-    const int ray0 = G::item(pair, (int)rank, wg) * G::WG_RAYS;
+    const int ray0 = g.item(pair, (int)rank, wg) * g.wg_rays();
 #pragma unroll 1
-    for (int u = 0; u < G::UNITS; ++u) {
-      const int ray = ray0 + (u * 64 + r0) / S;
+    for (int u = 0; u < g.units(); ++u) {
       const int b = units & 1;
       mbar_wait(&sm.xin_full[wg][b], (units >> 1) & 1);
       float hs[4], hc[4];
       paper_unit<SMALL, CLUSTER>(acc, act, smem_u32(sm.xin[wg][b]), sm, ring, rank, &sm.xin_empty[wg][b], a.dir_c,
-                                 ray, a.n_rays, hs, hc);
+                                 g, ray0, u, a.n_rays, hs, hc);
       ++units;
 
       if (u == 0) named_bar_sync(BAR_WG + wg, 128);  // the last item's compositing has read sigma / rgb
@@ -255,11 +287,12 @@ __device__ __forceinline__ void consume(K2Smem& sm, const Args& a, uint32_t rank
       }
     }
     named_bar_sync(BAR_WG + wg, 128);
-    if (lw < G::WG_RAYS && ray0 + lw < a.n_rays) composite<S>(sigma, rgb, a, lw, lane, ray0 + lw);
+    for (int r = lw; r < g.wg_rays() && ray0 + r < a.n_rays; r += 4)
+      composite_ray(sigma, rgb, a, r * g.samples(), lane, ray0 + r, g.samples());
   }
 }
 
-template <int S, bool SMALL>
+template <int SF, bool SMALL>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(K2_THREADS, 1) render_kernel(const Args a) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t pad = (ATOM_BYTES - (smem_u32(smem_raw) & (ATOM_BYTES - 1))) & (ATOM_BYTES - 1);
@@ -268,23 +301,24 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(K2_THREADS, 1)
   cluster_sync();  // the peer's barriers exist before any copy or arrive reaches them
 
   const uint32_t rank = cluster_rank();
-  const int n_pairs = Geometry<S>::rounds(a.n_rays);
+  const Geometry<SF> g{a.l};
+  const int n_pairs = g.rounds(a.n_rays);
   const int wg = threadIdx.x / 128;
   if (wg == CONSUMERS) {
     reg_dealloc<40>();
-    paper_feed<S, SMALL, CLUSTER>(sm, a, rank, cluster_id(), cluster_count(), n_pairs);
+    paper_feed<SMALL, CLUSTER>(sm, a, g, rank, cluster_id(), cluster_count(), n_pairs);
   } else {
     reg_alloc<232>();
-    consume<S, SMALL>(sm, a, rank, wg, n_pairs);
+    consume<SF, SMALL>(sm, a, rank, wg, n_pairs);
   }
 }
 
 constexpr size_t SMEM_BYTES = sizeof(K2Smem) + ATOM_BYTES;  // + the alignment pad
 
-template <int S, bool SMALL>
+template <int SF, bool SMALL>
 struct Render {
   static int run(const Args& args, cudaStream_t stream) {
-    auto kernel = render_kernel<S, SMALL>;
+    auto kernel = render_kernel<SF, SMALL>;
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
     if (e != cudaSuccess) return (int)e;
     static int max_clusters = 0;  // co-resident clusters on this card
@@ -297,7 +331,7 @@ struct Render {
       if (e != cudaSuccess) return (int)e;
       if (max_clusters < 1) return (int)cudaErrorInvalidConfiguration;
     }
-    const int pairs = Geometry<S>::rounds(args.n_rays);
+    const int pairs = Geometry<SF>{args.l}.rounds(args.n_rays);
     const int clusters = pairs < max_clusters ? pairs : max_clusters;
     kernel<<<clusters * CLUSTER, K2_THREADS, SMEM_BYTES, stream>>>(args);
     return (int)cudaGetLastError();
@@ -306,9 +340,9 @@ struct Render {
 
 }  // namespace
 
-// Returns a cudaError_t (0 on success). Launches on `stream`, does not
-// synchronise and allocates nothing. W is `pack_sm90_chunks`' image of the
-// packed weights.
+// Returns a cudaError_t (0 on success; cudaErrorInvalidValue for n_samples
+// outside 1..MAX_SAMPLES). Launches on `stream`, does not synchronise and
+// allocates nothing. W is `pack_sm90_chunks`' image of the packed weights.
 extern "C" int nerface_fused_paper_render(const float* ro, const float* rd, const float* z,
                                           const float* dir_c, const float* bg, const void* W,
                                           const float* F, float* rgb, float* disp, float* acc,
@@ -316,8 +350,9 @@ extern "C" int nerface_fused_paper_render(const float* ro, const float* rd, cons
                                           int n_rays, int n_samples, int n_freqs, int white_bg,
                                           int small, void* stream) {
   if (n_rays < 0 || n_freqs < 1 || 3 + 6 * n_freqs > K_XIN) return (int)cudaErrorInvalidValue;
-  Args args{ro,  rd,  z,     dir_c, bg,  static_cast<const bf16*>(W), F,      rgb,     disp,
-            acc, depth, bgw, weights, n_rays, n_freqs, white_bg};
+  if (n_samples < 1 || n_samples > MAX_SAMPLES) return (int)cudaErrorInvalidValue;
+  Args args{ro,  rd,    z,   dir_c,   bg,     static_cast<const bf16*>(W), F,       rgb,     disp,
+            acc, depth, bgw, weights, n_rays, UnitLayout::of(n_samples),   n_freqs, white_bg};
   if (n_rays == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch_pass<Render>(n_samples, small, args, s);

@@ -50,13 +50,17 @@ namespace {
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
 
-// K1's middle: per ray one warp (warp lw of the warpgroup owns ray ray0 +
-// lw; lane l owns samples [l·SPL, (l+1)·SPL)): compositing with an f32
-// scan of log transmittance, rgb and weights out, the loss cotangent (rgb
-// − t)·loss_scale (+ the white-background and supervised-background
-// terms), and the compositing backward with a reverse (suffix) warp scan,
-// giving each row's f32 cotangents of raw σ and rgb. A ray past the last
-// one gets zero cotangents.
+constexpr int MAX_SPL = MAX_SAMPLES / 32;  // samples a lane takes, at most
+
+// K1's middle: per ray one warp (warp lw of the warpgroup takes rays lw,
+// lw + 4, ... of the item; lane l its samples [l·spl, (l+1)·spl) below S,
+// spl = ⌈S / 32⌉): compositing with an f32 scan of log transmittance, rgb
+// and weights out, the loss cotangent (rgb − t)·loss_scale (+ the
+// white-background and supervised-background terms), and the compositing
+// backward with a reverse (suffix) warp scan, giving each row's f32
+// cotangents of raw σ and rgb. A ray past the last one and the item's
+// padding rows get zero cotangents. The background and its weight are the
+// ray's sample S − 1, wherever the item's rows end.
 struct K1Policy {
   const float* rd;      // (R, 3)
   const float* z;       // (R, S)
@@ -69,27 +73,48 @@ struct K1Policy {
   int n_rays, white_bg;
   float noise_std, loss_scale, sup_bg_scale;
 
-  template <int S>
+  template <class G>
   __device__ __forceinline__ void middle(const float* sigma, const float* rgb_raw, float* gsig, float* grgb,
-                                         int ray0, int lw, int lane) const {
-    if (lw >= Geometry<S>::WG_RAYS) return;
-    const int ray = ray0 + lw;
-    if (ray >= n_rays) {
-      for (int s = lane; s < S; s += 32) {
-        gsig[lw * S + s] = 0.f;
-        grgb[(lw * S + s) * 3] = grgb[(lw * S + s) * 3 + 1] = grgb[(lw * S + s) * 3 + 2] = 0.f;
-      }
-      return;
+                                         int ray0, const G& l, int lw, int lane) const {
+    const int S = l.samples();
+    for (int r = l.rows() + (threadIdx.x & 127); r < l.units() * 64; r += 128) {
+      gsig[r] = 0.f;
+      grgb[r * 3] = grgb[r * 3 + 1] = grgb[r * 3 + 2] = 0.f;
     }
-    composite<S>(sigma, rgb_raw, gsig, grgb, ray, lw, lane);
+    for (int r = lw; r < l.wg_rays(); r += 4) {
+      const int ray = ray0 + r;
+      if (ray >= n_rays) {
+        for (int s = lane; s < S; s += 32) {
+          const int row = r * S + s;
+          gsig[row] = 0.f;
+          grgb[row * 3] = grgb[row * 3 + 1] = grgb[row * 3 + 2] = 0.f;
+        }
+      } else {
+        // SPL ≥ ⌈S / 32⌉ register slots a lane: a warp that composites holds
+        // up its warpgroup's next wgmma, so S = 64 runs a loop of 2 samples
+        // (and in its own instantiation, S folded in), not the largest one
+        const int spl = (S + 31) >> 5;
+        if (spl == 1) {
+          composite<1>(sigma, rgb_raw, gsig, grgb, ray, r * S, lane, S);
+        } else if (spl == 2) {
+          composite<2>(sigma, rgb_raw, gsig, grgb, ray, r * S, lane, S);
+        } else if (spl <= 4) {
+          composite<4>(sigma, rgb_raw, gsig, grgb, ray, r * S, lane, S);
+        } else {
+          composite<MAX_SPL>(sigma, rgb_raw, gsig, grgb, ray, r * S, lane, S);
+        }
+      }
+    }
   }
 
-  // kept operation for operation from the earlier one-CTA-a-tile kernel
-  template <int S>
+  // kept operation for operation from the earlier one-CTA-a-tile kernel;
+  // the ray's rows are row0 .. row0 + S - 1 of the item's, SPL register
+  // slots a lane
+  template <int SPL>
   __device__ __forceinline__ void composite(const float* sigma, const float* rgb, float* gsig, float* grgb,
-                                            int ray, int lw, int lane) const {
+                                            int ray, int row0, int lane, int S) const {
     const K1Policy& a = *this;
-    constexpr int SPL = S / 32;
+    const int spl = (S + 31) >> 5;
     const float* zr = a.z + (size_t)ray * S;
     const float rx = a.rd[ray * 3], ry = a.rd[ray * 3 + 1], rz = a.rd[ray * 3 + 2];
     const float rnorm =
@@ -100,8 +125,12 @@ struct K1Policy {
     float run = 0.f;
 #pragma unroll
     for (int q = 0; q < SPL; ++q) {
-      const int s = lane * SPL + q;
-      const int row = lw * S + s;
+      const int s = lane * spl + q;
+      d[q] = oma[q] = alpha[q] = 0.f;
+      mask[q] = false;
+      prefix[q] = run;
+      if (q >= spl || s >= S) continue;
+      const int row = row0 + s;
       const float dz = s < S - 1 ? __fsub_rn(zr[s + 1], zr[s]) : 1e10f;
       d[q] = __fmul_rn(dz, rnorm);
       float sn = sigma[row];
@@ -111,7 +140,6 @@ struct K1Policy {
       if (s == S - 1) sa = __fadd_rn(sa, 1e-6f);
       oma[q] = expf(__fmul_rn(-sa, d[q]));
       alpha[q] = __fsub_rn(1.f, oma[q]);
-      prefix[q] = run;
       run = __fadd_rn(run, logf(__fadd_rn(oma[q], 1e-10f)));
     }
     float incl = run;
@@ -126,8 +154,10 @@ struct K1Policy {
     float c_sum[3] = {0.f, 0.f, 0.f}, acc = 0.f;
 #pragma unroll
     for (int q = 0; q < SPL; ++q) {
-      const int s = lane * SPL + q;
-      const int row = lw * S + s;
+      const int s = lane * spl + q;
+      trans[q] = w[q] = 0.f;
+      if (q >= spl || s >= S) continue;
+      const int row = row0 + s;
       trans[q] = expf(excl + prefix[q]);
       w[q] = alpha[q] * trans[q];
 #pragma unroll
@@ -165,8 +195,10 @@ struct K1Policy {
     float vt = 0.f;
 #pragma unroll
     for (int q = 0; q < SPL; ++q) {
-      const int s = lane * SPL + q;
-      const int row = lw * S + s;
+      const int s = lane * spl + q;
+      g_alpha_c[q] = v[q] = 0.f;
+      if (q >= spl || s >= S) continue;
+      const int row = row0 + s;
       float g_w = g_acc;
 #pragma unroll
       for (int ch = 0; ch < 3; ++ch) {
@@ -188,8 +220,9 @@ struct K1Policy {
     if (lane == 31) after = 0.f;
 #pragma unroll
     for (int q = SPL - 1; q >= 0; --q) {
-      const int s = lane * SPL + q;
-      const int row = lw * S + s;
+      const int s = lane * spl + q;
+      if (q >= spl || s >= S) continue;
+      const int row = row0 + s;
       const float g_log_t = after;
       after += v[q];
       const float g_omae = g_log_t / (oma[q] + 1e-10f) - g_alpha_c[q];
@@ -216,10 +249,10 @@ struct K1Policy {
   }
 };
 
-template <int S, bool SMALL>
+template <int SF, bool SMALL>
 struct Pass {
   static int run(const PassArgs& pa, const K1Policy& policy, float* dW, float* dF, cudaStream_t st) {
-    return launch_pass<S, SMALL>(pa, policy, dW, dF, st);
+    return launch_pass<SF, SMALL>(pa, policy, dW, dF, st);
   }
 };
 
@@ -237,7 +270,8 @@ extern "C" long long nerface_fused_train_workspace_bytes(int n_rays, int n_sampl
   return k1::workspace_bytes(n_rays, n_samples);
 }
 
-// Returns a cudaError_t (0 on success). Launches on `stream`, does not
+// Returns a cudaError_t (0 on success; cudaErrorInvalidValue for n_samples
+// outside 1..MAX_SAMPLES). Launches on `stream`, does not
 // synchronise and allocates nothing: `workspace` holds
 // nerface_fused_train_workspace_bytes(n_rays, n_samples) bytes. W and WT
 // are the chunk images of the packed weights and of the transposed trunk
@@ -252,12 +286,12 @@ extern "C" int nerface_fused_train_pass(
     int n_samples, int n_freqs, int white_bg, int small, float noise_std, float loss_scale,
     float sup_bg_scale, void* stream) {
   if (n_rays < 0 || n_freqs < 1 || 3 + 6 * n_freqs > K_XIN) return (int)cudaErrorInvalidValue;
-  if (n_samples != 32 && n_samples != 64 && n_samples != 128) return (int)cudaErrorInvalidValue;
+  if (n_samples < 1 || n_samples > MAX_SAMPLES) return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
   Workspace ws;
   carve(static_cast<unsigned char*>(workspace), pass_units(n_rays, n_samples), pass_ctas(n_rays, n_samples), &ws);
   PassArgs pa{ro, rd, z, dir_c, static_cast<const bf16*>(W), static_cast<const bf16*>(WT), F, d_dir, ws,
-              n_rays, n_freqs};
+              n_rays, UnitLayout::of(n_samples), n_freqs};
   K1Policy policy{rd, z, target, bg, noise_std > 0.f ? noise : nullptr, rgb, weights, d_bg, n_rays, white_bg,
                   noise_std, loss_scale, sup_bg_scale};
   return dispatch_pass<Pass>(n_samples, small, pa, policy, dW, dF, static_cast<cudaStream_t>(stream));

@@ -2,7 +2,7 @@
 // fused_paper_render.cu, K1 fused_train_pass.cu, K3 fused_paper_mlp.cu)
 // and K4 (fused_flex.cu): the widths, the offsets of the packed weights
 // and bias rows, the bf16 rounding helper, and `dispatch_pass`, which runs
-// a kernel's instantiation for a pass's sample count and model.
+// a kernel's instantiation for a pass's layout class and model.
 
 #pragma once
 
@@ -60,16 +60,23 @@ static_assert(F_OFF_BD0 - F_OFF_BF == HIDDEN && F_OFF_BA - F_OFF_BD2 == DIR_HIDD
 
 __device__ __forceinline__ float round_bf16(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
 
-// Runs FN<S, SMALL>::run(args...) for a pass's sample count and model
-// (SMALL: the smaller paper model); returns its cudaError_t
-// (cudaErrorInvalidValue for a sample count the kernels are not built for).
+// The layout classes a build of a library holds (a -D switch, so that
+// `build.py` compiles them as two libraries side by side, each half the
+// nvcc time): 1 the runtime class only, 2 the fixed classes only, 3 both.
+#ifndef NERFACE_SAMPLE_CLASSES
+#define NERFACE_SAMPLE_CLASSES 3
+#endif
+
+// Runs FN<SF, SMALL>::run(args...) for a pass of n_samples samples a ray
+// and its model (SMALL: the smaller paper model), and returns its
+// cudaError_t. SF is the pass's layout class: 64 or 128 (the paper
+// schedule's passes, S folded in as a constant), else 0 (S read at run
+// time, any S the kernels take); cudaErrorInvalidValue for a class the
+// build does not hold.
 template <template <int, bool> class FN, class... Args>
 int dispatch_pass(int n_samples, int small, Args&&... args) {
+#if NERFACE_SAMPLE_CLASSES & 2
   switch (n_samples * 2 + (small ? 1 : 0)) {
-    case 64:
-      return FN<32, false>::run(args...);
-    case 65:
-      return FN<32, true>::run(args...);
     case 128:
       return FN<64, false>::run(args...);
     case 129:
@@ -79,8 +86,14 @@ int dispatch_pass(int n_samples, int small, Args&&... args) {
     case 257:
       return FN<128, true>::run(args...);
     default:
-      return (int)cudaErrorInvalidValue;
+      break;
   }
+#endif
+#if NERFACE_SAMPLE_CLASSES & 1
+  return small ? FN<0, true>::run(args...) : FN<0, false>::run(args...);
+#else
+  return (int)cudaErrorInvalidValue;
+#endif
 }
 
 }  // namespace nerface

@@ -68,19 +68,19 @@ __device__ __forceinline__ void paper_setup(PaperChainSmem& sm, const bf16* W, c
   __syncthreads();
 }
 
-// The producer: every chunk of every layer of every unit of rounds round0,
-// round0 + step, ... below n_rounds, in the consumers' order; then wait
-// until each stage has been released once more, so no arrive or copy of a
-// peer CTA is left in flight when this CTA exits.
-template <int S, bool SMALL, int CTAS>
+// The producer: every chunk of every layer of every unit (`units` a round)
+// of rounds round0, round0 + step, ... below n_rounds, in the consumers'
+// order; then wait until each stage has been released once more, so no
+// arrive or copy of a peer CTA is left in flight when this CTA exits.
+template <bool SMALL, int CTAS>
 __device__ __forceinline__ void paper_produce(PaperChainSmem& sm, const bf16* __restrict__ W, uint32_t rank,
-                                              int round0, int step, int n_rounds) {
+                                              int round0, int step, int n_rounds, int units) {
   Ring ring;
   auto load = [&](int off, int k, int n) {
     load_layer<PAPER_RING, CTAS>(sm.ring, sm.full, sm.empty, ring, W + off, k, n, rank);
   };
   for (int round = round0; round < n_rounds; round += step) {
-    for (int u = 0; u < Schedule<S, CTAS>::UNITS; ++u) {
+    for (int u = 0; u < units; ++u) {
       load(W_OFF_W0, K_XIN, HIDDEN);
       load(W_OFF_W1, HIDDEN, HIDDEN);
       load(W_OFF_W2, HIDDEN, HIDDEN);
@@ -100,18 +100,18 @@ __device__ __forceinline__ void paper_produce(PaperChainSmem& sm, const bf16* __
 }
 
 // Warpgroup CHAIN_CONSUMERS after it gave its registers away: the producer
-// thread and the encoder warps over the same rounds as the consumers. `a`
-// has W, the rays (ro, rd, z), n_rays and n_freqs.
-template <int S, bool SMALL, int CTAS, class A>
-__device__ __forceinline__ void paper_feed(PaperChainSmem& sm, const A& a, uint32_t rank, int round0, int step,
-                                           int n_rounds) {
+// thread and the encoder warps over the same rounds of schedule g as the
+// consumers. `a` has W, the rays (ro, rd, z), n_rays and n_freqs.
+template <bool SMALL, int CTAS, class A, class G>
+__device__ __forceinline__ void paper_feed(PaperChainSmem& sm, const A& a, const G& g, uint32_t rank, int round0,
+                                           int step, int n_rounds) {
   const int t = threadIdx.x - CHAIN_CONSUMERS * 128;  // the thread in the warpgroup
   const int w = t >> 5;
   if (t == 0) {
-    paper_produce<S, SMALL, CTAS>(sm, a.W, rank, round0, step, n_rounds);
+    paper_produce<SMALL, CTAS>(sm, a.W, rank, round0, step, n_rounds, g.units());
   } else if (w >= 1 && w <= CHAIN_ENCODERS) {
-    encode_units<S, CTAS>(sm.xin, sm.xin_full, sm.xin_empty, a, sm.f + F_OFF_FREQS, rank, round0, step, n_rounds,
-                          t - 32, [](int, int) -> unsigned char* { return nullptr; });
+    encode_units(g, sm.xin, sm.xin_full, sm.xin_empty, a, sm.f + F_OFF_FREQS, rank, round0, step, n_rounds, t - 32,
+                 [](int, int) -> unsigned char* { return nullptr; });
   }
 }
 
@@ -137,14 +137,16 @@ __device__ __forceinline__ void paper_layer(float* acc, uint32_t* a, uint32_t xi
 // (released on *xin_empty after the skip layer, its last reader), the
 // layers and the heads. hs / hc[2h + j] come back as the σ / rgb heads'
 // sums without their biases, for row r0 + 8h and column 2·(lane % 4) + j
-// (r0 = 16·warp + lane / 4). The rows' ray `ray` reads its dir_c row from
-// dir_c_base (R, 128) unless it lies past n_rays; its address is taken
-// where the direction branch needs it, not held through the trunk (that
-// register kept K3f's S = 128 chain from a clean wgmma pipeline, C7511).
-template <bool SMALL, int CTAS>
+// (r0 = 16·warp + lane / 4). The unit is unit u of an item of schedule g
+// whose first ray is ray0: rows r0 and r0 + 8 read their rays' dir_c rows
+// from dir_c_base (R, 128), a padding row or a ray past n_rays none. The
+// rays and the addresses are worked out where the direction branch needs
+// them, not held through the trunk (such a register kept K3f's S = 128
+// chain from a clean wgmma pipeline, C7511).
+template <bool SMALL, int CTAS, class G>
 __device__ __forceinline__ void paper_unit(float* acc, uint32_t* act, uint32_t xin, PaperChainSmem& sm, Ring& ring,
-                                           uint32_t rank, uint64_t* xin_empty, const float* dir_c_base, int ray,
-                                           int n_rays, float* hs, float* hc) {
+                                           uint32_t rank, uint64_t* xin_empty, const float* dir_c_base, const G& g,
+                                           int ray0, int u, int n_rays, float* hs, float* hc) {
   paper_layer<HIDDEN, 1, 1, CTAS>(acc, act, xin, sm, ring, rank);
   acc_to_a<HIDDEN, true>(acc, act, ChainBias{sm.f + F_OFF_COND0});
   paper_layer<HIDDEN, 4, 0, CTAS>(acc, act, xin, sm, ring, rank);
@@ -169,8 +171,13 @@ __device__ __forceinline__ void paper_unit(float* acc, uint32_t* act, uint32_t x
   chain_head<HIDDEN>(hs, act, smem_u32(sm.wa8));
 
   paper_layer<DIR_HIDDEN, 4, 0, CTAS>(acc, act, xin, sm, ring, rank);
-  const float* dir_c = ray < n_rays ? dir_c_base + (size_t)ray * DIR_HIDDEN : nullptr;
-  acc_to_a<DIR_HIDDEN, true>(acc, act, ChainDir{sm.f + F_OFF_BD0, dir_c});
+  const int row = u * 64 + ((threadIdx.x >> 5) & 3) * 16 + ((threadIdx.x & 31) >> 2);  // the item's row of r0
+  const int rows = g.rows();
+  const int ray_a = row < rows ? ray0 + g.ray_of(row) : n_rays;
+  const int ray_b = row + 8 < rows ? ray0 + g.ray_of(row + 8) : n_rays;
+  const float* dir_c0 = ray_a < n_rays ? dir_c_base + (size_t)ray_a * DIR_HIDDEN : nullptr;
+  const float* dir_c1 = ray_b < n_rays ? dir_c_base + (size_t)ray_b * DIR_HIDDEN : nullptr;
+  acc_to_a<DIR_HIDDEN, true>(acc, act, ChainDirRows{sm.f + F_OFF_BD0, {dir_c0, dir_c1}});
   paper_layer<DIR_HIDDEN, 2, 0, CTAS>(acc, act, xin, sm, ring, rank);
   acc_to_a<DIR_HIDDEN, true>(acc, act, ChainBias{sm.f + F_OFF_BD1});
   paper_layer<DIR_HIDDEN, 2, 0, CTAS>(acc, act, xin, sm, ring, rank);

@@ -5,9 +5,12 @@
 //
 // A pass is four launches on the caller's stream:
 //
-//   1. train_pass_kernel<S, SMALL, Policy>: one persistent CTA an SM
-//      (K1_CTAS at most), 384 threads. Per item of a consumer warpgroup
-//      (64·UNITS sample rows: whole rays) it runs
+//   1. train_pass_kernel<SF, SMALL, Policy>: one persistent CTA an SM
+//      (K1_CTAS at most), 384 threads. The sample count S is 1..MAX_SAMPLES,
+//      a constant of the layout class SF = 64 or 128, else (SF = 0) read at
+//      run time. Per item of a consumer warpgroup (whole rays in 64-row
+//      units, `UnitLayout` of wgmma_chain.cuh, padding rows after the last
+//      ray's when S neither divides nor is a multiple of 64) it runs
 //        - the forward chain of K2 (fused_paper_render.cu): wgmma m64n256k16
 //          / m64n128k16 with A from registers, each epilogue's bf16 pairs
 //          the next layer's A fragment, the weights' chunk images
@@ -18,7 +21,8 @@
 //        - the middle, a policy: K1's compositing, loss cotangent and
 //          compositing backward (fused_train_pass.cu), or K3b's read of
 //          autograd's cotangent g (fused_paper_mlp.cu), giving each row's
-//          f32 cotangents of raw σ and rgb;
+//          f32 cotangents of raw σ and rgb, zero on a padding row (so it
+//          adds nothing to dW, the bias sums or d_dir);
 //        - the dX chain, on wgmma too: gy as bf16 A fragments in
 //          registers, B the layer's Wᵀ as its own chunk images (the
 //          transposed trunk through `pack_sm90_chunks`), streamed through
@@ -26,7 +30,9 @@
 //          warpgroup stored a moment before (an L2 hit); each bf16
 //          cotangent to the workspace;
 //        - the bias and conditioning sums (f32 cotangents) and the σ / rgb
-//          heads' weight sums, per warp (`colsum`).
+//          heads' weight sums, per warp (`colsum`); d_dir, each ray's sum
+//          of its rows' f32 cotangents of the direction branch's input,
+//          from per-warp pieces summed in row order (`dir_pieces`).
 //   2. dw_wgmma_kernel (wgmma_dw.cuh): dW = Xᵀ·bf16(gY) for the 11
 //      products (10 in the smaller model; W3 in two: its xin rows and its
 //      h2 rows), read from the workspace's operand images.
@@ -86,6 +92,7 @@
 #pragma once
 
 #include "grad_tile.cuh"
+#include "wgmma_chain.cuh"
 #include "wgmma_dw.cuh"
 #include "wgmma_tile.cuh"
 
@@ -144,24 +151,24 @@ __host__ __device__ __forceinline__ int image_offset(int row, int col) {
   return (col >> 6) * BLOCK_BYTES + sw128(row, col & 63);
 }
 
-// An item of a consumer warpgroup: WG_RAYS rays, UNITS 64-row units (two
-// rays a unit at S = 32, one at S = 64, one ray in two units at S = 128).
-template <int S>
+// The items of a pass at S samples a ray: `UnitLayout` (wgmma_chain.cuh),
+// l.rays rays in l.units 64-row units an item (two rays a unit at S = 32,
+// one at S = 64, one ray in two units at S = 128, 8 rays in 3 units at S =
+// 24); consumer wg of CTA c takes item 2·pair + wg of its pairs c, c +
+// gridDim.x, ... (`UnitSchedule<SF, 1>::item`, SF the layout class).
 struct Geometry {
-  static constexpr int WG_RAYS = S >= 64 ? 1 : 64 / S;
-  static constexpr int UNITS = S > 64 ? S / 64 : 1;
-  __host__ __device__ static int items(int n_rays) { return (n_rays + WG_RAYS - 1) / WG_RAYS; }
-  __host__ __device__ static int pairs(int n_rays) { return (items(n_rays) + CONSUMERS - 1) / CONSUMERS; }
+  UnitLayout l;
+  __host__ __device__ explicit Geometry(int s) : l(UnitLayout::of(s)) {}
+  __host__ __device__ int items(int n_rays) const { return (n_rays + l.rays - 1) / l.rays; }
+  __host__ __device__ int pairs(int n_rays) const { return (items(n_rays) + CONSUMERS - 1) / CONSUMERS; }
 };
 
 inline int pass_units(int n_rays, int n_samples) {
-  const int per_unit = n_samples >= 64 ? 1 : 64 / n_samples;  // rays a unit
-  const int units_a_ray = n_samples > 64 ? n_samples / 64 : 1;
-  return (n_rays + per_unit - 1) / per_unit * units_a_ray;
+  const Geometry g(n_samples);
+  return g.items(n_rays) * g.l.units;
 }
 inline int pass_ctas(int n_rays, int n_samples) {
-  const int per_item = n_samples >= 64 ? 1 : 64 / n_samples;
-  const int pairs = ((n_rays + per_item - 1) / per_item + CONSUMERS - 1) / CONSUMERS;
+  const int pairs = Geometry(n_samples).pairs(n_rays);
   return pairs < K1_CTAS ? pairs : K1_CTAS;
 }
 
@@ -208,7 +215,10 @@ struct PassArgs {
   const float* F;      // bias rows + frequency bands
   float* d_dir;        // (R, 128)
   Workspace ws;
-  int n_rays, n_freqs;
+  int n_rays;
+  UnitLayout l;  // the pass's S, and its items' rays and units (host-computed; read from the
+                 // argument space, they hold no register through the chains)
+  int n_freqs;
 };
 
 struct alignas(ATOM_BYTES) Smem {
@@ -220,12 +230,14 @@ struct alignas(ATOM_BYTES) Smem {
   float wa[HIDDEN];              // the heads' bf16 weights as f32, for dX
   float wrgb[DIR_HIDDEN * 3];
   // an item's raw σ / rgb and their f32 cotangents, per consumer warpgroup
-  float sigma[CONSUMERS][128];
-  float rgb[CONSUMERS][128 * 3];
-  float gsig[CONSUMERS][128];
-  float grgb[CONSUMERS][128 * 3];
-  float dsum[CONSUMERS][2][4][DIR_HIDDEN];  // a unit's per-warp d_dir sums, by unit parity
-  float dacc[CONSUMERS][DIR_HIDDEN];        // d_dir of a ray's first unit (S = 128)
+  float sigma[CONSUMERS][ITEM_ROWS];
+  float rgb[CONSUMERS][ITEM_ROWS * 3];
+  float gsig[CONSUMERS][ITEM_ROWS];
+  float grgb[CONSUMERS][ITEM_ROWS * 3];
+  // a unit's d_dir pieces, by unit parity: per warp, its first ray's
+  // (slot 0) and, where its rows reach another ray, its last ray's (slot 1)
+  float dsum[CONSUMERS][2][4][2][DIR_HIDDEN];
+  float dacc[CONSUMERS][DIR_HIDDEN];  // d_dir of a ray's rows in earlier units
   uint64_t full[RING];
   uint64_t empty[RING];
   uint64_t xin_full[CONSUMERS][2];
@@ -236,12 +248,13 @@ static_assert(SMEM_BYTES <= 232448, "shared memory");
 
 // -- the chunk sequence ---------------------------------------------------------
 
-// Every chunk, in the consumers' order, of a round: each unit's forward
-// layers, then each unit's dX layers. `fn(src, k, n)` takes one layer.
-template <int S, bool SMALL, class Fn>
-__device__ __forceinline__ void round_layers(const bf16* W, const bf16* WT, Fn&& fn) {
+// Every chunk, in the consumers' order, of a round of `units` units: each
+// unit's forward layers, then each unit's dX layers. `fn(src, k, n)` takes
+// one layer.
+template <bool SMALL, class Fn>
+__device__ __forceinline__ void round_layers(const bf16* W, const bf16* WT, int units, Fn&& fn) {
 #pragma unroll 1
-  for (int u = 0; u < Geometry<S>::UNITS; ++u) {
+  for (int u = 0; u < units; ++u) {
     fn(W + W_OFF_W0, K_XIN, HIDDEN);
     fn(W + W_OFF_W1, HIDDEN, HIDDEN);
     fn(W + W_OFF_W2, HIDDEN, HIDDEN);
@@ -254,7 +267,7 @@ __device__ __forceinline__ void round_layers(const bf16* W, const bf16* WT, Fn&&
     fn(W + W_OFF_WD2, DIR_HIDDEN, DIR_HIDDEN);
   }
 #pragma unroll 1
-  for (int u = 0; u < Geometry<S>::UNITS; ++u) {
+  for (int u = 0; u < units; ++u) {
     fn(WT + WT_OFF_WD2T, DIR_HIDDEN, DIR_HIDDEN);
     fn(WT + WT_OFF_WD1T, DIR_HIDDEN, DIR_HIDDEN);
     fn(WT + WT_OFF_WD0T, DIR_HIDDEN, HIDDEN);
@@ -268,8 +281,8 @@ __device__ __forceinline__ void round_layers(const bf16* W, const bf16* WT, Fn&&
 }
 
 // The producer: every chunk of every round of this CTA.
-template <int S, bool SMALL>
-__device__ __forceinline__ void produce(Smem& sm, const PassArgs& a, int n_pairs) {
+template <bool SMALL>
+__device__ __forceinline__ void produce(Smem& sm, const PassArgs& a, int n_pairs, int units) {
   Ring ring;
   auto load = [&](const bf16* src, int k, int n) {
     const uint32_t bytes = KCH * n * 2;
@@ -280,7 +293,7 @@ __device__ __forceinline__ void produce(Smem& sm, const PassArgs& a, int n_pairs
       ring.advance<RING>();
     }
   };
-  for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) round_layers<S, SMALL>(a.W, a.WT, load);
+  for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) round_layers<SMALL>(a.W, a.WT, units, load);
 }
 
 // One layer of a warpgroup's 64 rows: acc = A·B over NCH chunks of N
@@ -466,93 +479,35 @@ struct EpiBias {
   }
 };
 
-struct EpiDir {
-  const float* bias;
-  const float* dir_c;  // the ray's row, or null past the last ray
-  __device__ __forceinline__ float2 operator()(int, int col, float v0, float v1) const {
-    const float2 b = *reinterpret_cast<const float2*>(bias + col);
-    v0 += b.x;
-    v1 += b.y;
-    if (dir_c != nullptr) {
-      const float2 d = __ldg(reinterpret_cast<const float2*>(dir_c + col));
-      v0 += d.x;
-      v1 += d.y;
-    }
-    return make_float2(v0, v1);
-  }
-};
-
-// One encode task of a unit (rows row_base .. row_base + 63 of an item):
-// row task % 64, the 32 columns [32·(task / 64), +32) of [xyz; sin(x·f +
-// φ); 0], rounded to bf16, into the unit's swizzled xin buffer and, when
-// given, the workspace's xin image. Products and sums round separately
-// (no FMA contraction) as in the plain version; `sinf` has full range
-// reduction. Rows past the last ray are 0.
-template <int S>
-__device__ __forceinline__ void encode_task(unsigned char* xin, unsigned char* xg, int task, const PassArgs& a,
-                                            const float* freqs, int ray0, int row_base) {
-  const int r = task & 63, c0 = (task >> 6) * 32;
-  const int row = row_base + r;
-  const int ray = ray0 + row / S;
-  const int n_cols = ray < a.n_rays ? 3 + 6 * a.n_freqs : 0;
-  float x0 = 0.f, x1 = 0.f, x2 = 0.f;
-  if (n_cols > 0) {
-    const float zz = a.z[(size_t)ray * S + row % S];
-    x0 = __fadd_rn(a.ro[ray * 3], __fmul_rn(a.rd[ray * 3], zz));
-    x1 = __fadd_rn(a.ro[ray * 3 + 1], __fmul_rn(a.rd[ray * 3 + 1], zz));
-    x2 = __fadd_rn(a.ro[ray * 3 + 2], __fmul_rn(a.rd[ray * 3 + 2], zz));
-  }
-  auto col = [&](int c) {
-    if (c >= n_cols) return 0.f;
-    if (c < 3) return c == 0 ? x0 : (c == 1 ? x1 : x2);
-    const int p = c - 3, d = p % 3;
-    const float phase = (p % 6) >= 3 ? 1.57079632679489661923f : 0.f;
-    return sinf(__fadd_rn(__fmul_rn(d == 0 ? x0 : (d == 1 ? x1 : x2), freqs[p / 6]), phase));
-  };
-#pragma unroll 1
-  for (int j = 0; j < 32; j += 2) {
-    const int c = c0 + j;
-    const uint32_t v = pack_bf16(col(c), col(c + 1));
-    *reinterpret_cast<uint32_t*>(xin + sw128(r, c)) = v;
-    if (xg != nullptr) *reinterpret_cast<uint32_t*>(xg + sw128(r, c)) = v;
-  }
-}
-
-// The item a consumer warpgroup takes in a round.
-__device__ __forceinline__ int item_of(int pair, int wg) { return pair * CONSUMERS + wg; }
+// The direction branch's first epilogue: + bias and each row's ray's
+// dir_c row (ChainDirRows: the thread's rows r0 and r0 + 8 may lie in two
+// rays; null for a padding row or past the last ray).
+using EpiDir = ChainDirRows;
 
 // The encoder warps (ENCODERS · 32 threads, index e): every unit of both
-// consumer warpgroups, in their order, each into the next of the
-// warpgroup's two xin buffers once its skip layer has released it.
-template <int S>
+// consumer warpgroups, in their order (`encode_units` of wgmma_chain.cuh
+// on the pass's UnitSchedule<SF, 1>, whose item(pair, 0, wg) is 2·pair +
+// wg), each into the next of the warpgroup's two xin buffers once its skip
+// layer has released it, and into the workspace's xin image of a live item.
+template <int SF>
 __device__ __forceinline__ void encode(Smem& sm, const PassArgs& a, int n_pairs, int e) {
-  using G = Geometry<S>;
-  const int n_items = G::items(a.n_rays);
-  int done[CONSUMERS] = {};
-  for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
-    for (int u = 0; u < G::UNITS; ++u) {
-#pragma unroll
-      for (int wg = 0; wg < CONSUMERS; ++wg) {
-        const int b = done[wg] & 1;
-        mbar_wait(&sm.xin_empty[wg][b], ((done[wg] >> 1) & 1) ^ 1);
-        const int item = item_of(pair, wg);
-        unsigned char* xg = item < n_items ? a.ws.unit(WS_XIN, item * G::UNITS + u) : nullptr;
-        for (int task = e; task < 128; task += ENCODERS * 32)
-          encode_task<S>(sm.xin[wg][b], xg, task, a, sm.f + F_OFF_FREQS, item * G::WG_RAYS, u * 64);
-        fence_proxy_async();
-        mbar_arrive(&sm.xin_full[wg][b]);
-        ++done[wg];
-      }
-    }
-  }
+  const UnitSchedule<SF, 1> g{a.l};
+  const int n_items = (a.n_rays + g.wg_rays() - 1) / g.wg_rays();
+  const int units = g.units();
+  encode_units(g, sm.xin, sm.xin_full, sm.xin_empty, a, sm.f + F_OFF_FREQS, 0, blockIdx.x, gridDim.x, n_pairs, e,
+               [&](int item, int u) -> unsigned char* {
+                 return item < n_items ? a.ws.unit(WS_XIN, item * units + u) : nullptr;
+               });
 }
 
 // The forward of one unit: K2's chain, each activation also stored to
 // the workspace (when `live`), the raw σ and rgb of its rows into
-// sigma / rgb (rows u·64 ..).
-template <int S, bool SMALL>
+// sigma / rgb (rows u·64 ..). The item's first ray is ray0; the rays of
+// the thread's rows r0 and r0 + 8 are worked out at the direction branch.
+template <int SF, bool SMALL>
 __device__ __forceinline__ void forward_unit(Smem& sm, const PassArgs& a, Ring& ring, float* acc, uint32_t* act,
-                                             int wg, int u, int unit, int ray, bool live, int& units) {
+                                             int wg, int u, int unit, int ray0, bool live, int& units) {
+  const UnitSchedule<SF, 1> g{a.l};
   const int b = units & 1;
   mbar_wait(&sm.xin_full[wg][b], (units >> 1) & 1);
   const uint32_t xin = smem_u32(sm.xin[wg][b]);
@@ -585,10 +540,15 @@ __device__ __forceinline__ void forward_unit(Smem& sm, const PassArgs& a, Ring& 
   if (live) store_frag<HIDDEN>(ws.unit(WS_FEAT, unit), act);
   float hs[4] = {0.f, 0.f, 0.f, 0.f};
   head<HIDDEN>(hs, act, smem_u32(sm.wa8));
-  const float* dir_c = ray < a.n_rays ? a.dir_c + (size_t)ray * DIR_HIDDEN : nullptr;
   layer<DIR_HIDDEN, 4, 0>(acc, act, xin, sm, ring);
-  // x0 = relu(hd_pre): its mask is hd_pre's, and it is WD1's dW operand
-  acc_to_a<DIR_HIDDEN, true>(acc, act, EpiDir{sm.f + F_OFF_BD0, dir_c});
+  // x0 = relu(hd_pre): its mask is hd_pre's, and it is WD1's dW operand;
+  // a padding row's ray is n_rays, with no dir_c row
+  const int row = u * 64 + frag_row(), rows = g.rows();
+  const int ray_a = row < rows ? ray0 + g.ray_of(row) : a.n_rays;
+  const int ray_b = row + 8 < rows ? ray0 + g.ray_of(row + 8) : a.n_rays;
+  const float* dir_a = ray_a < a.n_rays ? a.dir_c + (size_t)ray_a * DIR_HIDDEN : nullptr;
+  const float* dir_b = ray_b < a.n_rays ? a.dir_c + (size_t)ray_b * DIR_HIDDEN : nullptr;
+  acc_to_a<DIR_HIDDEN, true>(acc, act, EpiDir{sm.f + F_OFF_BD0, {dir_a, dir_b}});
   if (live) store_frag<DIR_HIDDEN>(ws.unit(WS_X0, unit), act);
   layer<DIR_HIDDEN, 2, 0>(acc, act, xin, sm, ring);
   acc_to_a<DIR_HIDDEN, true>(acc, act, EpiBias{sm.f + F_OFF_BD1});
@@ -616,14 +576,18 @@ __device__ __forceinline__ void forward_unit(Smem& sm, const PassArgs& a, Ring& 
 
 // -- dX -------------------------------------------------------------------------
 
-// acc ⊙ [the activation image > 0] (no mask when img is null), then bf16
-// into act (the next product's A) and, when live, into the cotangent's
-// image `gout`; then the f32 column sums into the warp's partial row. The
-// mask's words are loaded into act, whose old values (the layer's A) are
-// dead here.
-template <int N>
+struct NoPieces {
+  __device__ __forceinline__ void operator()(float*) const {}
+};
+
+// acc ⊙ [the activation image > 0] (no mask when img is null), then
+// `pieces(acc)` on the masked f32 values, bf16 into act (the next
+// product's A) and, when live, into the cotangent's image `gout`; then the
+// f32 column sums into the warp's partial row. The mask's words are loaded
+// into act, whose old values (the layer's A) are dead here.
+template <int N, class Pieces = NoPieces>
 __device__ __forceinline__ void dx_epilogue(float* acc, uint32_t* act, const unsigned char* img, unsigned char* gout,
-                                            float* part, bool live) {
+                                            float* part, bool live, const Pieces& pieces = Pieces{}) {
   if (img != nullptr) {
     load_frag<N>(act, img);
 #pragma unroll
@@ -633,6 +597,7 @@ __device__ __forceinline__ void dx_epilogue(float* acc, uint32_t* act, const uns
       acc[2 * p + 1] = m.y > 0.f ? acc[2 * p + 1] : 0.f;
     }
   }
+  pieces(acc);
 #pragma unroll
   for (int p = 0; p < N / 4; ++p) act[p] = pack_bf16(acc[2 * p], acc[2 * p + 1]);
   if (live) store_frag<N>(gout, act);
@@ -731,12 +696,125 @@ __device__ __forceinline__ void add_sigma(float* acc, const float* gsig, const f
   }
 }
 
+// Where the rows of warp w of unit u lie: item rows [w0, w0 + 16), real
+// below rows = l.rays·l.S; its first ray fa and its last fb
+// (item-relative), both -1 when the warp holds padding rows only.
+struct WarpRays {
+  int fa, fb;
+  template <class G>
+  __device__ __forceinline__ WarpRays(int u, int w, const G& l) {
+    const int w0 = u * 64 + 16 * w, rows = l.rows();
+    fa = w0 < rows ? l.ray_of(w0) : -1;
+    fb = w0 < rows ? l.ray_of(min(w0 + 15, rows - 1)) : -1;
+  }
+};
+
+// d_dir's pieces of a warp whose 16 rows reach more than one ray, from the
+// masked f32 gx0 in acc[0, 64) (rows r0 / r0 + 8, `fold_col` columns):
+// for each ray j of the warp, its rows' sums over the warp (acc[64, 96)
+// as the fold, `scatter_sum`), into slot 0 (j = fa) or slot 1 (j = fb) of
+// the warp's pieces, or, for a ray whose rows all lie inside the warp
+// between those two, straight into d_dir. A warp of one ray takes its
+// piece from `colsum` after the epilogue instead (the same sums).
+template <class G>
+struct DirPieces {
+  float (*slots)[DIR_HIDDEN];  // the warp's two slots
+  float* d_dir;                // the item's first ray's row of d_dir
+  const G& l;
+  int u, ray0, n_rays;
+  bool live;
+  __device__ __forceinline__ void operator()(float* acc) const {
+    const int lw = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const WarpRays wr(u, lw, l);
+    if (!live || wr.fa == wr.fb) return;
+    const int rows = l.rows(), ia = u * 64 + frag_row(), ib = ia + 8;
+    const int ra = ia < rows ? l.ray_of(ia) : -1, rb = ib < rows ? l.ray_of(ib) : -1;
+    float* v = acc + 64;
+    const int base = (lane >> 2) * (DIR_HIDDEN / 32);
+#pragma unroll 1
+    for (int j = wr.fa; j <= wr.fb; ++j) {
+      const bool in_a = ra == j, in_b = rb == j;
+#pragma unroll
+      for (int c = 0; c < DIR_HIDDEN / 8; ++c) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) v[2 * c + e] = (in_a ? acc[4 * c + e] : 0.f) + (in_b ? acc[4 * c + 2 + e] : 0.f);
+      }
+      scatter_sum<DIR_HIDDEN / 4>(v);
+      if (j == wr.fa || j == wr.fb) {
+        float* slot = slots[j == wr.fa ? 0 : 1];
+#pragma unroll
+        for (int k = 0; k < DIR_HIDDEN / 32; ++k) slot[fold_col(base + k)] = v[k];
+      } else if (ray0 + j < n_rays) {
+#pragma unroll
+        for (int k = 0; k < DIR_HIDDEN / 32; ++k) d_dir[(size_t)j * DIR_HIDDEN + fold_col(base + k)] = v[k];
+      }
+    }
+  }
+};
+
+// d_dir of the rays of unit u, by thread t of the warpgroup (column t):
+// the warps' pieces in row order, a ray's pieces added in that order; a
+// ray that began in an earlier unit adds its sum so far (dacc) to this
+// unit's, and a ray that goes on past the unit keeps its sum there.
+template <class G>
+__device__ __forceinline__ void dir_pieces(const float (*d)[2][DIR_HIDDEN], float* dacc, float* d_dir, const G& l,
+                                           int u, int ray0, int n_rays, bool live, int t) {
+  const int S = l.samples();
+  // the common layouts first, with the same sums in the same order: one
+  // ray over whole units (S = 64, 128, ...) and two rays a unit (S = 32)
+  if (S % 64 == 0) {
+    const float s = ((d[0][0][t] + d[1][0][t]) + d[2][0][t]) + d[3][0][t];
+    const float total = u > 0 ? dacc[t] + s : s;
+    if (u + 1 < l.units()) {
+      dacc[t] = total;
+    } else if (live && ray0 < n_rays) {
+      d_dir[t] = total;
+    }
+    return;
+  }
+  if (S == 32) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (live && ray0 + r < n_rays) d_dir[(size_t)r * DIR_HIDDEN + t] = d[2 * r][0][t] + d[2 * r + 1][0][t];
+    return;
+  }
+  int cur = -1;
+  float sum = 0.f;
+  auto finish = [&]() {
+    const float total = cur * S < u * 64 ? dacc[t] + sum : sum;
+    if ((cur + 1) * S > u * 64 + 64) {
+      dacc[t] = total;
+    } else if (live && ray0 + cur < n_rays) {
+      d_dir[(size_t)cur * DIR_HIDDEN + t] = total;
+    }
+  };
+#pragma unroll 1
+  for (int w = 0; w < 4; ++w) {
+    const WarpRays wr(u, w, l);
+    if (wr.fa < 0) break;
+#pragma unroll 1
+    for (int slot = 0; slot < (wr.fb > wr.fa ? 2 : 1); ++slot) {
+      const int j = slot ? wr.fb : wr.fa;
+      const float v = d[w][slot][t];
+      if (j == cur) {
+        sum += v;
+      } else {
+        if (cur >= 0) finish();
+        cur = j;
+        sum = v;
+      }
+    }
+  }
+  if (cur >= 0) finish();
+}
+
 // The dX chain of one unit, from the item's f32 head cotangents in
 // gsig / grgb: each cotangent masked, stored and summed (dx_epilogue),
 // d_dir of the unit's rays.
-template <int S, bool SMALL>
+template <int SF, bool SMALL>
 __device__ __forceinline__ void dx_unit(Smem& sm, const PassArgs& a, Ring& ring, float* acc, uint32_t* act, int wg,
                                         int u, int unit, int ray0, float* part, bool live, int& dx_units) {
+  const UnitSchedule<SF, 1> g{a.l};
   const Workspace& ws = a.ws;
   const uint32_t none = 0;
   dx_heads(sm, a, acc, act, wg, u, unit, part, live);  // gx2, masked, in acc
@@ -744,33 +822,26 @@ __device__ __forceinline__ void dx_unit(Smem& sm, const PassArgs& a, Ring& ring,
   layer<DIR_HIDDEN, 2, 0>(acc, act, none, sm, ring);  // gx1 = gx2·WD2ᵀ ⊙ [x1 > 0]
   dx_epilogue<DIR_HIDDEN>(acc, act, ws.unit(WS_X1, unit), ws.unit(WS_GX1, unit), part + F_OFF_BD1, live);
   layer<DIR_HIDDEN, 2, 0>(acc, act, none, sm, ring);  // gx0 = gx1·WD1ᵀ ⊙ [x0 > 0]
-  dx_epilogue<DIR_HIDDEN>(acc, act, ws.unit(WS_X0, unit), ws.unit(WS_GX0, unit), part + F_OFF_BD0, live);
-  // d_dir: the warps' column sums of gx0 (acc[0, 4) of each lane) summed
-  // over the ray's warps in order
+  const int lane = threadIdx.x & 31, lw = (threadIdx.x >> 5) & 3, t = threadIdx.x & 127;
+  float(*ds)[2][DIR_HIDDEN] = sm.dsum[wg][dx_units & 1];
+  float* d_dir = a.d_dir + (size_t)ray0 * DIR_HIDDEN;
+  if (g.samples() % 16 == 0) {  // each warp's real rows lie in one ray: its column sums are its piece
+    dx_epilogue<DIR_HIDDEN>(acc, act, ws.unit(WS_X0, unit), ws.unit(WS_GX0, unit), part + F_OFF_BD0, live);
+  } else {
+    dx_epilogue<DIR_HIDDEN>(acc, act, ws.unit(WS_X0, unit), ws.unit(WS_GX0, unit), part + F_OFF_BD0, live,
+                            DirPieces<UnitSchedule<SF, 1>>{ds[lw], d_dir, g, u, ray0, a.n_rays, live});
+  }
+  // d_dir: a warp of one ray's piece is its column sums of gx0 (acc[0, 4)
+  // of each lane); the pieces summed over each ray's warps and units in order
   {
-    const int lane = threadIdx.x & 31, lw = (threadIdx.x >> 5) & 3, t = threadIdx.x & 127;
-    float* ds = sm.dsum[wg][dx_units & 1][lw];
-    const int base = (lane >> 2) * (DIR_HIDDEN / 32);
+    const WarpRays wr(u, lw, g);
+    if (wr.fa >= 0 && wr.fa == wr.fb) {
+      const int base = (lane >> 2) * (DIR_HIDDEN / 32);
 #pragma unroll
-    for (int k = 0; k < DIR_HIDDEN / 32; ++k) ds[fold_col(base + k)] = acc[k];
-    named_bar_sync(BAR_WG + wg, 128);
-    const float(*d)[DIR_HIDDEN] = sm.dsum[wg][dx_units & 1];
-    if constexpr (S == 32) {
-      // two rays a unit: warps 0-1 and 2-3
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int ray = ray0 + r;
-        if (live && ray < a.n_rays) a.d_dir[(size_t)ray * DIR_HIDDEN + t] = d[2 * r][t] + d[2 * r + 1][t];
-      }
-    } else {
-      const float s = ((d[0][t] + d[1][t]) + d[2][t]) + d[3][t];
-      if (S == 64 || u == 1) {
-        const float total = S == 64 ? s : sm.dacc[wg][t] + s;
-        if (live && ray0 < a.n_rays) a.d_dir[(size_t)ray0 * DIR_HIDDEN + t] = total;
-      } else {
-        sm.dacc[wg][t] = s;
-      }
+      for (int k = 0; k < DIR_HIDDEN / 32; ++k) ds[lw][0][fold_col(base + k)] = acc[k];
     }
+    named_bar_sync(BAR_WG + wg, 128);
+    dir_pieces(ds, sm.dacc[wg], d_dir, g, u, ray0, a.n_rays, live, t);
     ++dx_units;
   }
   layer<HIDDEN, 2, 0>(acc, act, none, sm, ring);  // gfeat = gx0·WD0ᵀ + bf16(g_σ) ⊗ wa
@@ -797,14 +868,14 @@ __device__ __forceinline__ void dx_unit(Smem& sm, const PassArgs& a, Ring& ring,
 
 // A consumer warpgroup over its items: each unit's forward, the middle
 // (`policy`: the rows' f32 cotangents of raw σ and rgb into gsig / grgb,
-// zero past the last ray), each unit's dX. A warpgroup whose item is past
-// the last ray walks the same chunks and stores nothing.
-template <int S, bool SMALL, class Policy>
+// zero on padding rows and past the last ray), each unit's dX. A
+// warpgroup whose item is past the last ray walks the same chunks and
+// stores nothing.
+template <int SF, bool SMALL, class Policy>
 __device__ __forceinline__ void consume(Smem& sm, const PassArgs& a, const Policy& policy, int wg, int n_pairs,
                                         float* part) {
-  using G = Geometry<S>;
+  const UnitSchedule<SF, 1> g{a.l};
   const int lane = threadIdx.x & 31, lw = (threadIdx.x >> 5) & 3;
-  const int r0 = frag_row();
   int units = 0, dx_units = 0;
   Ring ring;
   float acc[128];
@@ -813,15 +884,17 @@ __device__ __forceinline__ void consume(Smem& sm, const PassArgs& a, const Polic
   for (int i = 0; i < 128; ++i) acc[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < 64; ++i) act[i] = 0u;
-  const int n_items = G::items(a.n_rays);
+  const int n_items = (a.n_rays + g.wg_rays() - 1) / g.wg_rays();
   for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
-    const int item = item_of(pair, wg);
+    const int item = g.item(pair, 0, wg);
     const bool live = item < n_items;
-    const int ray0 = item * G::WG_RAYS;
+    const int ray0 = item * g.wg_rays();
+    // a warpgroup past the last ray computes on the first unit's images,
+    // whose results it drops: it reads nothing past the workspace
+    const int unit0 = live ? item * g.units() : 0;
 #pragma unroll 1
-    for (int u = 0; u < G::UNITS; ++u)
-      forward_unit<S, SMALL>(sm, a, ring, acc, act, wg, u, item * G::UNITS + u, ray0 + (u * 64 + r0) / S, live,
-                             units);
+    for (int u = 0; u < g.units(); ++u)
+      forward_unit<SF, SMALL>(sm, a, ring, acc, act, wg, u, unit0 + u, ray0, live, units);
     // the chain's registers hold nothing the middle needs: constants, so
     // the compiler can hand their registers to the compositing
 #pragma unroll
@@ -829,15 +902,15 @@ __device__ __forceinline__ void consume(Smem& sm, const PassArgs& a, const Polic
 #pragma unroll
     for (int i = 0; i < 64; ++i) act[i] = 0u;
     named_bar_sync(BAR_WG + wg, 128);
-    policy.template middle<S>(sm.sigma[wg], sm.rgb[wg], sm.gsig[wg], sm.grgb[wg], ray0, lw, lane);
+    policy.middle(sm.sigma[wg], sm.rgb[wg], sm.gsig[wg], sm.grgb[wg], ray0, g, lw, lane);
     named_bar_sync(BAR_WG + wg, 128);
 #pragma unroll 1
-    for (int u = 0; u < G::UNITS; ++u)
-      dx_unit<S, SMALL>(sm, a, ring, acc, act, wg, u, item * G::UNITS + u, ray0, part, live, dx_units);
+    for (int u = 0; u < g.units(); ++u)
+      dx_unit<SF, SMALL>(sm, a, ring, acc, act, wg, u, unit0 + u, ray0, part, live, dx_units);
   }
 }
 
-template <int S, bool SMALL, class Policy>
+template <int SF, bool SMALL, class Policy>
 __global__ void __launch_bounds__(THREADS, 1) train_pass_kernel(const PassArgs a, const Policy policy) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t pad = (ATOM_BYTES - (smem_u32(smem_raw) & (ATOM_BYTES - 1))) & (ATOM_BYTES - 1);
@@ -880,19 +953,20 @@ __global__ void __launch_bounds__(THREADS, 1) train_pass_kernel(const PassArgs a
   }
   __syncthreads();
 
-  const int n_pairs = Geometry<S>::pairs(a.n_rays);
+  const UnitSchedule<SF, 1> g{a.l};
+  const int n_pairs = ((a.n_rays + g.wg_rays() - 1) / g.wg_rays() + CONSUMERS - 1) / CONSUMERS;
   const int wg = t / 128;
   if (wg == CONSUMERS) {
     reg_dealloc<40>();
     const int w = (t >> 5) - 4 * CONSUMERS;  // the warp in the producer warpgroup
     if (t == CONSUMERS * 128) {
-      produce<S, SMALL>(sm, a, n_pairs);
+      produce<SMALL>(sm, a, n_pairs, g.units());
     } else if (w >= 1 && w <= ENCODERS) {
-      encode<S>(sm, a, n_pairs, t - CONSUMERS * 128 - 32);
+      encode<SF>(sm, a, n_pairs, t - CONSUMERS * 128 - 32);
     }
   } else {
     reg_alloc<232>();
-    consume<S, SMALL, Policy>(sm, a, policy, wg, n_pairs, part);
+    consume<SF, SMALL, Policy>(sm, a, policy, wg, n_pairs, part);
     // the CTA's partial row: its warps' rows added in order
     named_bar_sync(BAR_CONSUMERS, CONSUMERS * 128);
     const float* rows = a.ws.warp_part + (size_t)blockIdx.x * WARPS_A_CTA * PART_COLS;
@@ -909,10 +983,10 @@ __global__ void __launch_bounds__(THREADS, 1) train_pass_kernel(const PassArgs a
 // the packed weight layout (W_OFF_TOTAL), dF in the bias-row layout
 // (F_OFF_TOTAL: COND0/COND3 hold d_cond0/d_cond3; FREQS is 0). Returns a
 // cudaError_t.
-template <int S, bool SMALL, class Policy>
+template <int SF, bool SMALL, class Policy>
 int launch_pass(const PassArgs& a, const Policy& policy, float* dW, float* dF, cudaStream_t st) {
-  const int ctas = pass_ctas(a.n_rays, S);
-  auto kernel = train_pass_kernel<S, SMALL, Policy>;
+  const int ctas = pass_ctas(a.n_rays, a.l.S);
+  auto kernel = train_pass_kernel<SF, SMALL, Policy>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
   kernel<<<ctas, THREADS, SMEM_BYTES, st>>>(a, policy);
@@ -936,7 +1010,7 @@ int launch_pass(const PassArgs& a, const Policy& policy, float* dW, float* dF, c
   // the smaller model has no W5: the last entry drops out, and its slot,
   // which no dW block covers, is zeroed after the reduction
   const int n_mats = (int)(sizeof(mats) / sizeof(mats[0])) - (SMALL ? 1 : 0);
-  int err = launch_dw_wgmma(mats, n_mats, ws.dw_part, W_OFF_WA, pass_units(a.n_rays, S), DWG_SEGS, st);
+  int err = launch_dw_wgmma(mats, n_mats, ws.dw_part, W_OFF_WA, pass_units(a.n_rays, a.l.S), DWG_SEGS, st);
   if (err != 0) return err;
   reduce_rows<<<(W_OFF_WA + 255) / 256, 256, 0, st>>>(ws.dw_part, DWG_SEGS, W_OFF_WA, W_OFF_WA, dW, nullptr);
   if (SMALL) {

@@ -8,11 +8,13 @@
 // (`load_layer`), three of its warps encode each unit's [xyz; PE; 0] tile
 // into the consumer's two swizzled xin buffers (`encode_units`), handed
 // over on mbarriers. A consumer warpgroup takes whole rays as 64-row units
-// (`Schedule`) and runs each layer as one chain of wgmmas with A in
-// registers (`chain_layer`), its epilogue turning the accumulators into
-// the next layer's A (`acc_to_a` with `ChainBias` / `ChainDir`); the
-// narrow heads are m64n8 products (`chain_head`). Nothing here calls out:
-// ptxas serialises every wgmma of a kernel that contains a call.
+// (`Schedule`, or the paper kernels' `UnitSchedule`, S fixed by a layout
+// class or read at run time) and runs each layer as one chain of wgmmas
+// with A in registers (`chain_layer`), its epilogue turning the
+// accumulators into the next layer's A (`acc_to_a` with `ChainBias`,
+// `ChainDir` or `ChainDirRows`); the narrow heads are m64n8 products
+// (`chain_head`). Nothing here calls out: ptxas serialises every wgmma of
+// a kernel that contains a call.
 
 #pragma once
 
@@ -26,18 +28,92 @@ constexpr int CHAIN_ENCODERS = 3;                  // warps of the producer warp
 constexpr int CHAIN_STAGE = KCH * 256 * 2;         // a ring stage: one 64 × 256 bf16 chunk image
 constexpr int XIN_BYTES = 64 * ROW_BYTES;          // a unit's [xyz; PE; 0], K = 64
 
-// The unit schedule. A consumer warpgroup takes whole rays, WG_RAYS at a
-// time (an item), as UNITS 64-row units: two rays a unit at S = 32, one at
-// S = 64, one ray in two units at S = 128. Round r of a CTA group of CTAS
-// (a cluster, or 1) gives item (r·CTAS + rank)·CHAIN_CONSUMERS + wg to
-// consumer wg of CTA rank. Unit k of the pass holds its sample rows
-// [64k, 64k + 64).
+// The unit schedule of K4f / K4b (fused_flex.cu), S = 32, 64 or 128. A
+// consumer warpgroup takes whole rays, WG_RAYS at a time (an item), as
+// UNITS 64-row units: two rays a unit at S = 32, one at S = 64, one ray in
+// two units at S = 128. Round r of a CTA group of CTAS (a cluster, or 1)
+// gives item (r·CTAS + rank)·CHAIN_CONSUMERS + wg to consumer wg of CTA
+// rank. Unit k of the pass holds its sample rows [64k, 64k + 64).
 template <int S, int CTAS>
 struct Schedule {
   static constexpr int WG_RAYS = S >= 64 ? 1 : 64 / S;
   static constexpr int UNITS = S > 64 ? S / 64 : 1;
   static constexpr int RAYS_PER_ROUND = CTAS * CHAIN_CONSUMERS * WG_RAYS;
   __host__ __device__ static int rounds(int n_rays) { return (n_rays + RAYS_PER_ROUND - 1) / RAYS_PER_ROUND; }
+  __host__ __device__ static int item(int round, int rank, int wg) {
+    return (round * CTAS + rank) * CHAIN_CONSUMERS + wg;
+  }
+  // the interface `encode_units` reads, shared with UnitSchedule
+  __host__ __device__ static constexpr int samples() { return S; }
+  __host__ __device__ static constexpr int wg_rays() { return WG_RAYS; }
+  __host__ __device__ static constexpr int units() { return UNITS; }
+  __host__ __device__ static constexpr int rows() { return WG_RAYS * S; }
+  __host__ __device__ static constexpr int ray_of(int row) { return row / S; }
+};
+
+// The paper kernels' sample counts (K2, K3f, K1, K3b): 1..MAX_SAMPLES. An
+// item is at most ITEM_ROWS rows (four units).
+constexpr int MAX_SAMPLES = 256;
+constexpr int ITEM_ROWS = 256;
+
+// The paper kernels' unit layout at any S in 1..MAX_SAMPLES: an item, what
+// a consumer warpgroup takes at once, is `rays` whole rays in `units`
+// 64-row units. Its row i < rays·S is sample i % S of its ray i / S; the
+// rows from rays·S to 64·units pad the last unit, and the kernels take
+// them as rows past the last ray. S dividing 64: 64 / S rays in one unit;
+// S a multiple of 64: one ray in S / 64 units (both as `Schedule`); any
+// other S: the ray count up to ITEM_ROWS / S whose units hold the most
+// real rows a unit, the fewest rays on a tie (8 rays in 3 units at S = 24,
+// 4 in 3 at 48, 2 in 3 at 96, 1 in 3 at 192, 3 in 2 at 40).
+// ops/kernels/fused_mlp.py::unit_layout is the same rule. An item row's
+// ray, row / S, is a multiply and a shift (`ray_of`, exact for every row
+// below ITEM_ROWS and S ≤ MAX_SAMPLES): the encoder warps, which divide
+// once a task, keep pace with the consumers as at a compile-time S.
+struct UnitLayout {
+  int S, rays, units;
+  uint32_t div;  // ⌈2^24 / S⌉
+  __host__ __device__ static UnitLayout of(int s) {
+    int rays = 1, units = (s + 63) / 64;
+    if (64 % s == 0) {
+      rays = 64 / s;
+    } else if (s % 64 != 0) {
+      for (int n = 2; n * s <= ITEM_ROWS; ++n) {
+        const int u = (n * s + 63) / 64;
+        if (n * units > rays * u) {  // n / u > rays / units
+          rays = n;
+          units = u;
+        }
+      }
+    }
+    return UnitLayout{s, rays, units, ((1u << 24) + (uint32_t)s - 1u) / (uint32_t)s};
+  }
+  // row / S for 0 ≤ row < ITEM_ROWS
+  __host__ __device__ int ray_of(int row) const { return (int)(((uint32_t)row * div) >> 24); }
+};
+
+// `Schedule` at the pass's layout, for an instantiation of layout class
+// SF: at SF = 0 the UnitLayout `l` (a kernel argument, computed on the
+// host: read from the argument space, S, rays and units hold no register
+// through the consumers' chains); at SF = 64 or 128, the passes of the
+// paper schedule (64 + 64), one ray over SF / 64 units as constants, so
+// that code folds as it did when S was a template argument of every
+// kernel (at a runtime S, K1's 64 + 64 pair took 2.5–4 % longer and K2's
+// tile 2 %). Round r of a CTA group of CTAS gives item (r·CTAS + rank)·
+// CHAIN_CONSUMERS + wg to consumer wg of CTA rank; item k holds rays
+// [k·rays, (k + 1)·rays) and the pass's units [k·units, (k + 1)·units).
+template <int SF, int CTAS>
+struct UnitSchedule {
+  static_assert(SF % 64 == 0, "a fixed layout class is one ray over whole units");
+  const UnitLayout& l;
+  __host__ __device__ int samples() const { return SF ? SF : l.S; }
+  __host__ __device__ int wg_rays() const { return SF ? 1 : l.rays; }
+  __host__ __device__ int units() const { return SF ? SF / 64 : l.units; }
+  __host__ __device__ int rows() const { return SF ? SF : l.rays * l.S; }
+  __host__ __device__ int ray_of(int row) const { return SF ? row / SF : l.ray_of(row); }
+  __host__ __device__ int rounds(int n_rays) const {
+    const int per_round = CTAS * CHAIN_CONSUMERS * wg_rays();
+    return (n_rays + per_round - 1) / per_round;
+  }
   __host__ __device__ static int item(int round, int rank, int wg) {
     return (round * CTAS + rank) * CHAIN_CONSUMERS + wg;
   }
@@ -165,24 +241,47 @@ struct ChainDir {
   }
 };
 
+// The same where the thread's two rows (r0 and r0 + 8) may lie in two
+// rays: row half h adds dir_c[h] (null for a padding row or past the last
+// ray). The paper kernels, at any S.
+struct ChainDirRows {
+  const float* bias;
+  const float* dir_c[2];
+  __device__ __forceinline__ float2 operator()(int h, int col, float v0, float v1) const {
+    const float2 b = *reinterpret_cast<const float2*>(bias + col);
+    v0 += b.x;
+    v1 += b.y;
+    const float* d = h ? dir_c[1] : dir_c[0];
+    if (d != nullptr) {
+      const float2 dv = __ldg(reinterpret_cast<const float2*>(d + col));
+      v0 += dv.x;
+      v1 += dv.y;
+    }
+    return make_float2(v0, v1);
+  }
+};
+
 // One encode task of a unit (rows row_base .. row_base + 63 of an item
-// whose first ray is ray0): row task % 64, the 32 columns [32·(task / 64),
-// +32) of [xyz; sin(x·f + φ); 0], rounded to bf16, into the unit's
-// swizzled xin buffer and, when xg is not null, into the same bytes of a
-// workspace image. A row's point is loaded and computed once. The products
-// and sums round separately (no FMA contraction) as in the plain version;
-// `sinf` has full range reduction. Rows past the last ray are 0. `a` has
-// the rays (ro, rd, z), n_rays and n_freqs.
-template <int S, class A>
+// whose first ray is ray0, of schedule g: S = g.samples(), the real rows
+// below g.rows()):
+// row task % 64, the 32 columns [32·(task / 64), +32) of [xyz; sin(x·f +
+// φ); 0], rounded to bf16, into the unit's swizzled xin buffer and, when
+// xg is not null, into the same bytes of a workspace image. A row's point
+// is loaded and computed once. The products and sums round separately (no
+// FMA contraction) as in the plain version; `sinf` has full range
+// reduction. Padding rows and rows past the last ray are 0. `a` has the
+// rays (ro, rd, z), n_rays and n_freqs.
+template <class G, class A>
 __device__ __forceinline__ void encode_task(unsigned char* xin, unsigned char* xg, int task, const A& a,
-                                            const float* freqs, int ray0, int row_base) {
+                                            const float* freqs, int ray0, int row_base, const G& g) {
   const int r = task & 63, c0 = (task >> 6) * 32;
   const int row = row_base + r;
-  const int ray = ray0 + row / S;
-  const int n_cols = ray < a.n_rays ? 3 + 6 * a.n_freqs : 0;
+  const int q = g.ray_of(row);  // the item's ray of the row
+  const int ray = ray0 + q;
+  const int n_cols = row < g.rows() && ray < a.n_rays ? 3 + 6 * a.n_freqs : 0;
   float x0 = 0.f, x1 = 0.f, x2 = 0.f;
   if (n_cols > 0) {
-    const float zz = a.z[(size_t)ray * S + row % S];
+    const float zz = a.z[(size_t)ray * g.samples() + (row - q * g.samples())];
     x0 = __fadd_rn(a.ro[ray * 3], __fmul_rn(a.rd[ray * 3], zz));
     x1 = __fadd_rn(a.ro[ray * 3 + 1], __fmul_rn(a.rd[ray * 3 + 1], zz));
     x2 = __fadd_rn(a.ro[ray * 3 + 2], __fmul_rn(a.rd[ray * 3 + 2], zz));
@@ -205,32 +304,41 @@ __device__ __forceinline__ void encode_task(unsigned char* xin, unsigned char* x
 
 // The encoder warps (CHAIN_ENCODERS · 32 threads, index e): every unit of
 // both consumer warpgroups of CTA `rank`, rounds round0, round0 + step, ...
-// below n_rounds, in the order the consumers take them, each into the
-// next of the warpgroup's two xin buffers once its reader has released it.
-// xg(item, u) is the unit's workspace image, or null.
-template <int S, int CTAS, class A, class Xg>
-__device__ __forceinline__ void encode_units(unsigned char (*xin)[2][XIN_BYTES], uint64_t (*xin_full)[2],
-                                             uint64_t (*xin_empty)[2], const A& a, const float* freqs,
-                                             uint32_t rank, int round0, int step, int n_rounds, int e,
-                                             const Xg& xg) {
-  using G = Schedule<S, CTAS>;
+// below n_rounds of schedule g (a `Schedule` or a `UnitSchedule`), in the
+// order the consumers take them, each into the next of the warpgroup's two
+// xin buffers once its reader has released it. xg(item, u) is the unit's
+// workspace image, or null.
+template <class G, class A, class Xg>
+__device__ __forceinline__ void encode_units(const G& g, unsigned char (*xin)[2][XIN_BYTES],
+                                             uint64_t (*xin_full)[2], uint64_t (*xin_empty)[2], const A& a,
+                                             const float* freqs, uint32_t rank, int round0, int step,
+                                             int n_rounds, int e, const Xg& xg) {
   int done[CHAIN_CONSUMERS] = {};  // units encoded for each warpgroup
   for (int round = round0; round < n_rounds; round += step) {
-    for (int u = 0; u < G::UNITS; ++u) {
+    for (int u = 0; u < g.units(); ++u) {
 #pragma unroll
       for (int wg = 0; wg < CHAIN_CONSUMERS; ++wg) {
         const int b = done[wg] & 1;
         mbar_wait(&xin_empty[wg][b], ((done[wg] >> 1) & 1) ^ 1);
-        const int item = G::item(round, (int)rank, wg);
-        unsigned char* g = xg(item, u);
+        const int item = g.item(round, (int)rank, wg);
+        unsigned char* gi = xg(item, u);
         for (int task = e; task < 128; task += CHAIN_ENCODERS * 32)
-          encode_task<S>(xin[wg][b], g, task, a, freqs, item * G::WG_RAYS, u * 64);
+          encode_task(xin[wg][b], gi, task, a, freqs, item * g.wg_rays(), u * 64, g);
         fence_proxy_async();
         mbar_arrive(&xin_full[wg][b]);
         ++done[wg];
       }
     }
   }
+}
+
+// K4f / K4b's form: the schedule of S samples a ray in groups of CTAS.
+template <int S, int CTAS, class A, class Xg>
+__device__ __forceinline__ void encode_units(unsigned char (*xin)[2][XIN_BYTES], uint64_t (*xin_full)[2],
+                                             uint64_t (*xin_empty)[2], const A& a, const float* freqs,
+                                             uint32_t rank, int round0, int step, int n_rounds, int e,
+                                             const Xg& xg) {
+  encode_units(Schedule<S, CTAS>{}, xin, xin_full, xin_empty, a, freqs, rank, round0, step, n_rounds, e, xg);
 }
 
 }  // namespace sm90

@@ -57,7 +57,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Dict, Optional, Sequence, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -69,9 +69,50 @@ DIR_HIDDEN = 128
 # columns to one tensor-core K extent: 64 holds N <= 10 bands.
 K_XIN = 64
 MAX_FREQS = (K_XIN - 3) // 6
-# S values the kernels are compiled for: a tile of 128 sample rows holds
-# 128 / S whole rays, and K2 composites each ray with one warp.
-KERNEL_SAMPLES = (32, 64, 128)
+# The paper kernels (K2, K3f, K1, K3b) take any sample count S in
+# 1..MAX_SAMPLES, a runtime value (`MAX_SAMPLES` in csrc/wgmma_chain.cuh).
+MAX_SAMPLES = 256
+# An item, the rows a consumer warpgroup takes at once, is at most four
+# 64-row units (`ITEM_ROWS`).
+ITEM_ROWS = 256
+
+
+def unit_layout(n_samples: int) -> Tuple[int, int]:
+    """(rays, units) of an item at S samples a ray: csrc/wgmma_chain.cuh's
+    `UnitLayout::of`. S dividing 64: 64 / S rays in one 64-row unit; S a
+    multiple of 64: one ray in S / 64 units; otherwise the ray count up to
+    ITEM_ROWS / S whose units hold the most real rows a unit (the fewest
+    rays on a tie); the item's rows past rays·S pad its last unit."""
+    S = n_samples
+    if 64 % S == 0:
+        return 64 // S, 1
+    if S % 64 == 0:
+        return 1, S // 64
+    rays, units = 1, -(-S // 64)
+    n = 2
+    while n * S <= ITEM_ROWS:
+        u = -(-(n * S) // 64)
+        if n * units > rays * u:
+            rays, units = n, u
+        n += 1
+    return rays, units
+
+
+def kernel_pass_ok(n_rays: int, n_samples: int) -> bool:
+    """Whether a paper-family pass of (n_rays, n_samples) goes to the hand
+    kernels on the card: the JAX package's rule for its Pallas kernels,
+    that `_pick_rays_per_tile` (`nerface_tpu/ops/pallas/fused_mlp.py:
+    421-432`) finds a ray tile, a multiple of 8 dividing n_rays (so
+    n_rays % 8 == 0), within the kernels' 1..MAX_SAMPLES."""
+    return 1 <= n_samples <= MAX_SAMPLES and n_rays % 8 == 0
+
+
+def check_samples(n_samples: int) -> None:
+    """The paper kernels' wrappers take 1..MAX_SAMPLES samples a ray, on
+    either device (the CPU runs the kernels' plain versions)."""
+    if not 1 <= n_samples <= MAX_SAMPLES:
+        raise ValueError(
+            f"the paper kernels take 1..{MAX_SAMPLES} samples per ray, got {n_samples}")
 
 # The kernel bundle's matrices (in, out) and bias rows, in the JAX
 # package's order; the smaller model (`small`) has no w5 / b5.
@@ -590,10 +631,7 @@ def _check_kernel_call(name, ray_origins, ray_directions, z_vals, num_encoding_f
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {dev}")
     n_rays, n_samples = z_vals.shape
-    if n_samples not in KERNEL_SAMPLES:
-        raise ValueError(
-            f"kernel is built for {KERNEL_SAMPLES} samples per ray, got {n_samples}"
-        )
+    check_samples(n_samples)
     if not 1 <= num_encoding_fn_xyz <= MAX_FREQS:
         raise ValueError(f"kernel takes 1..{MAX_FREQS} xyz encoding bands")
     _check("ray_origins", ray_origins, (n_rays, 3), dev)
@@ -632,6 +670,7 @@ def fused_paper_render(
     if small == ("layers_xyz.5.weight" in state):
         raise ValueError(f"called with small={small} on the weights of the "
                          f"{'paper' if small else 'smaller'} model")
+    check_samples(z_vals.shape[-1])
     if dev.type == "cpu":
         return fused_paper_render_reference(
             state, ray_origins, ray_directions, z_vals, dir_contrib, cond,
@@ -847,6 +886,7 @@ def fused_paper_mlp_forward(
     raises; on CPU tensors it runs the plain version (bf16 operands)."""
     kw = dict(num_encoding_fn_xyz=num_encoding_fn_xyz, log_sampling_xyz=log_sampling_xyz,
               small=small)
+    check_samples(z_vals.shape[-1])
     if ray_origins.device.type == "cpu":
         return fused_paper_mlp_reference(bundle, ray_origins, ray_directions, z_vals, **kw)
     dev = _check_kernel_call("fused_paper_mlp_forward", ray_origins, ray_directions, z_vals,
@@ -868,12 +908,12 @@ def _launch_paper_fwd(operands, per_ray, out, num_encoding_fn_xyz, small):
     `_kernel_operands(..., transposed=False)`, `per_ray` (ro, rd, z), `out`
     the (R, S, 4) f32 output. Counts the launch in
     `fused_paper_mlp_forward.launches`."""
-    from nerface_tpu_torch.ops.kernels.build import load_library
+    from nerface_tpu_torch.ops.kernels.build import paper_library
 
     dir_c, wbuf, fbuf, _ = operands
     ro, rd, z = per_ray
     n_rays, n_samples = z.shape
-    lib = load_library("fused_paper_mlp")
+    lib = paper_library("fused_paper_mlp", n_samples)
     with torch.cuda.device(ro.device):
         stream = torch.cuda.current_stream(ro.device).cuda_stream
         err = lib.nerface_fused_paper_mlp_fwd(
@@ -895,6 +935,7 @@ def fused_paper_mlp_backward(
     middle, then dW; `csrc/paper_train.cuh`) or raises; on CPU tensors it runs the plain version (bf16 operands)."""
     kw = dict(num_encoding_fn_xyz=num_encoding_fn_xyz, log_sampling_xyz=log_sampling_xyz,
               small=small)
+    check_samples(z_vals.shape[-1])
     if ray_origins.device.type == "cpu":
         return fused_paper_mlp_backward_reference(
             bundle, ray_origins, ray_directions, z_vals, g, **kw)
@@ -928,9 +969,9 @@ def paper_bwd_outputs(n_rays: int, dev) -> Dict[str, torch.Tensor]:
 
 def paper_bwd_workspace(n_rays: int, n_samples: int, dev) -> torch.Tensor:
     """K3b's device workspace for a pass (`csrc/paper_train.cuh`)."""
-    from nerface_tpu_torch.ops.kernels.build import load_library
+    from nerface_tpu_torch.ops.kernels.build import paper_library
 
-    nbytes = load_library("fused_paper_mlp").nerface_fused_paper_mlp_workspace_bytes(
+    nbytes = paper_library("fused_paper_mlp", n_samples).nerface_fused_paper_mlp_workspace_bytes(
         n_rays, n_samples)
     return torch.empty(nbytes, dtype=torch.uint8, device=dev)
 
@@ -940,12 +981,12 @@ def _launch_paper_bwd(operands, per_ray, out, ws, num_encoding_fn_xyz, small):
     `_kernel_operands(..., transposed=True)`, `per_ray` (ro, rd, z, g),
     `out` from `paper_bwd_outputs`, `ws` from `paper_bwd_workspace`.
     Counts the launch in `fused_paper_mlp_backward.launches`."""
-    from nerface_tpu_torch.ops.kernels.build import load_library
+    from nerface_tpu_torch.ops.kernels.build import paper_library
 
     dir_c, wbuf, fbuf, wtbuf = operands
     ro, rd, z, g = per_ray
     n_rays, n_samples = z.shape
-    lib = load_library("fused_paper_mlp")
+    lib = paper_library("fused_paper_mlp", n_samples)
     with torch.cuda.device(ro.device):
         stream = torch.cuda.current_stream(ro.device).cuda_stream
         err = lib.nerface_fused_paper_mlp_bwd(

@@ -58,6 +58,8 @@ from nerface_tpu_torch.ops.kernels.fused_mlp import (
     _trunk_forward_reference,
     _unbundle,
     bundle_names,
+    check_samples,
+    unit_layout,
 )
 
 
@@ -82,11 +84,11 @@ PART_COLS = F_OFFSETS["TOTAL"] + HIDDEN + DIR_HIDDEN * 3
 
 def workspace_geometry(n_rays: int, n_samples: int) -> Tuple[int, int]:
     """(64-row units, persistent CTAs) of a pass: a consumer warpgroup's
-    item is 64 // S rays at S = 32 and one ray of S // 64 units above."""
-    per_item = 64 // n_samples if n_samples < 64 else 1
+    item is `unit_layout(S)`'s rays in its units (64 // S rays in one unit
+    at S = 32, one ray of S // 64 units at 64 and 128)."""
+    per_item, units_an_item = unit_layout(n_samples)
     items = -(-n_rays // per_item)
-    units = items * max(1, n_samples // 64)
-    return units, min(-(-items // 2), K1_CTAS)
+    return items * units_an_item, min(-(-items // 2), K1_CTAS)
 
 
 def workspace_image(m: torch.Tensor) -> torch.Tensor:
@@ -288,6 +290,7 @@ def fused_train_pass(
     "weights": (R, S)}, grads the f32 gradients in the bundle's order and
     shapes, d_bg (R, 3) when `train_bg` else None."""
     n_rays, n_samples = z_vals.shape
+    check_samples(n_samples)
     if noise_std > 0.0 and noise is None:
         raise ValueError("noise_std > 0 requires a noise array")
     if (sup_bg_scale > 0.0 or train_bg) and background is None:
@@ -339,9 +342,9 @@ def train_outputs(n_rays: int, n_samples: int, train_bg: bool, dev) -> dict:
 
 def train_workspace(n_rays: int, n_samples: int, dev) -> torch.Tensor:
     """K1's device workspace for a pass (`WS_BUFFERS`, csrc/paper_train.cuh)."""
-    from nerface_tpu_torch.ops.kernels.build import load_library
+    from nerface_tpu_torch.ops.kernels.build import paper_library
 
-    nbytes = load_library("fused_train_pass").nerface_fused_train_workspace_bytes(
+    nbytes = paper_library("fused_train_pass", n_samples).nerface_fused_train_workspace_bytes(
         n_rays, n_samples)
     return torch.empty(nbytes, dtype=torch.uint8, device=dev)
 
@@ -353,12 +356,12 @@ def _launch_train(operands, per_ray, out, ws, *, num_encoding_fn_xyz, white_back
     target, background or None, noise or None), `out` from
     `train_outputs`, `ws` from `train_workspace`. Counts the launch in
     `fused_train_pass.launches`."""
-    from nerface_tpu_torch.ops.kernels.build import load_library
+    from nerface_tpu_torch.ops.kernels.build import paper_library
 
     dir_c, wbuf, fbuf, wtbuf = operands
     ro, rd, z, tgt, bg, noise = per_ray
     n_rays, n_samples = z.shape
-    lib = load_library("fused_train_pass")
+    lib = paper_library("fused_train_pass", n_samples)
     with torch.cuda.device(ro.device):
         stream = torch.cuda.current_stream(ro.device).cuda_stream
         err = lib.nerface_fused_train_pass(

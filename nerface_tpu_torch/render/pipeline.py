@@ -25,8 +25,10 @@ Path choice, in bf16 (`dtype=torch.bfloat16`), for the paper family
 * otherwise each pass's MLP is one `fused_paper_mlp` call (K3f; its
   backward is K3b) over the differentiable `prefold_paper_params` bundle,
   composited by `volume_render_radiance_field` with the σ-noise, as the
-  JAX package composites it with XLA (`pipeline.py:240-267`). On the card
-  a pass with a sample count the kernels are not built for runs the
+  JAX package composites it with XLA (`pipeline.py:240-267`). Both take
+  any sample count in 1..MAX_SAMPLES (256); on the card a pass goes to
+  them where the JAX package's tile rule sends it to Pallas
+  (`_paper_kernels_take`: the ray count a multiple of 8), else it runs the
   model's plain forward.
 
 For an eligible Flexible-family model in bf16, each pass's MLP is one
@@ -64,10 +66,11 @@ from nerface_tpu_torch.ops.compositing import inject_background, volume_render_r
 from nerface_tpu_torch.ops.encoding import positional_encoding
 from nerface_tpu_torch.ops.kernels.fused_flex import flex_fused_eligible, fused_flex_mlp
 from nerface_tpu_torch.ops.kernels.fused_mlp import (
-    KERNEL_SAMPLES,
     MAX_FREQS,
+    MAX_SAMPLES,
     fused_paper_mlp,
     fused_paper_render,
+    kernel_pass_ok,
     pack_paper_weights,
 )
 from nerface_tpu_torch.ops.kernels.fused_train import prefold_paper_params
@@ -209,14 +212,27 @@ def _fused_model_ok(model, encode_xyz: EncodeSpec, pe_dir, expr, latent) -> bool
     return not small or model.dim_expression == 76
 
 
-def _fused_render_eligible(model, n_samples, pe_dir, expr, latent, settings, dtype) -> bool:
+def _paper_kernels_take(n_rays: int, n_samples: int, device) -> bool:
+    """Whether a paper-family pass goes to K2 / K3: on the card the JAX
+    package's rule for its Pallas kernels (`kernel_pass_ok`: the tile
+    picker finds a tile) within the kernels' 1..MAX_SAMPLES; on the CPU,
+    where the kernels' plain versions run, any ray count in that domain."""
+    if torch.device(device).type == "cuda":
+        return kernel_pass_ok(n_rays, n_samples)
+    return 1 <= n_samples <= MAX_SAMPLES
+
+
+def _fused_render_eligible(model, n_rays, n_samples, pe_dir, expr, latent, settings, dtype,
+                           device) -> bool:
     """Whether a pass can be one `fused_paper_render` call: only where the
-    caller set `settings.fused_render` (K2 has no backward)."""
+    caller set `settings.fused_render` (K2 has no backward), at σ-noise 0
+    and where the kernels take the pass (`nerface_tpu/render/pipeline.py:
+    328-345`)."""
     if dtype != torch.bfloat16 or not settings.fused_render:
         return False
     if settings.radiance_field_noise_std > 0.0:
         return False
-    return n_samples in KERNEL_SAMPLES and _fused_model_ok(
+    return _paper_kernels_take(n_rays, n_samples, device) and _fused_model_ok(
         model, settings.encode_xyz, pe_dir, expr, latent
     )
 
@@ -309,10 +325,10 @@ def _flex_pass(model, ro, rd, z_vals, encode_xyz, pe_dir, expr, latent):
 
 def _apply_model(model, ro, rd, z_vals, encode_xyz, pe_dir, expr, latent, dtype):
     """Evaluate the radiance field at the samples: in bf16 with 2-D rays
-    and per-frame conditioning, one K3 call for a paper-family model (on
-    the card at the kernels' sample counts) or one K4 call for an eligible
-    Flexible-family model; else positional-encode the points and run the
-    model."""
+    and per-frame conditioning, one K3 call for a paper-family model (where
+    the kernels take the pass, `_paper_kernels_take`) or one K4 call for an
+    eligible Flexible-family model; else positional-encode the points and
+    run the model."""
     if (
         dtype == torch.bfloat16
         and ro.ndim == 2
@@ -320,7 +336,7 @@ def _apply_model(model, ro, rd, z_vals, encode_xyz, pe_dir, expr, latent, dtype)
         and pe_dir is not None
         and pe_dir.ndim == 2
         and _fused_model_ok(model, encode_xyz, pe_dir, expr, latent)
-        and (ro.device.type != "cuda" or z_vals.shape[-1] in KERNEL_SAMPLES)
+        and _paper_kernels_take(z_vals.shape[0], z_vals.shape[-1], ro.device)
     ):
         return _paper_pass(model, ro, rd, z_vals, encode_xyz, pe_dir, expr, latent)
     if (
@@ -405,7 +421,8 @@ def render_rays(
         pe_dir = settings.encode_dir(_direction_branch_input(dir_src, near, far))
 
     if _fused_render_eligible(
-        model_coarse, settings.num_coarse, pe_dir, expressions, latent_code, settings, dtype
+        model_coarse, ro.shape[0], settings.num_coarse, pe_dir, expressions, latent_code,
+        settings, dtype, ro.device,
     ):
         fc = _fused_pass(
             model_coarse, ro, rd, z_vals, pe_dir, expressions, latent_code,
@@ -452,7 +469,8 @@ def render_rays(
         )
         z_all = merge_sorted_zvals(z_vals, z_samples)
         if _fused_render_eligible(
-            model_fine, z_all.shape[-1], pe_dir, expressions, latent_code, settings, dtype
+            model_fine, ro.shape[0], z_all.shape[-1], pe_dir, expressions, latent_code,
+            settings, dtype, ro.device,
         ):
             fr = _fused_pass(
                 model_fine, ro, rd, z_all, pe_dir, expressions, latent_code,

@@ -25,9 +25,9 @@ sequence:
 The schedule is `configs/synth512_paper.yml` (the reference's
 `dave_dvp_lcode_fixed_bg_512_paper_model.yml` schedule) with the JAX
 demo's overrides. bf16 is on by default on a CUDA device. Below 128² the
-demo trains 512 rays at 16 + 16 samples, a sample count the hand kernels
-are not built for, so a bf16 run there takes the plain bf16 path. Results
-are printed and written to <workdir>/summary.json.
+demo trains 512 rays at 16 + 16 samples, which the hand kernels take as
+they take the production 64 + 64 (K1 in training, K2 in validation and
+evaluation). Results are printed and written to <workdir>/summary.json.
 """
 
 from __future__ import annotations

@@ -20,7 +20,7 @@ import torch
 
 from nerface_tpu_torch.config.flags import FeatureFlags
 from nerface_tpu_torch.models.nerf_models import HIDDEN
-from nerface_tpu_torch.ops.kernels.fused_mlp import KERNEL_SAMPLES, MAX_FREQS
+from nerface_tpu_torch.ops.kernels.fused_mlp import MAX_FREQS, MAX_SAMPLES, kernel_pass_ok
 from nerface_tpu_torch.ops.kernels.fused_train import fused_train_loss, prefold_paper_params
 from nerface_tpu_torch.ops.math import mse2psnr
 from nerface_tpu_torch.ops.safe import safe_norm
@@ -40,14 +40,18 @@ from nerface_tpu_torch.render.pipeline import (
 
 
 def fused_train_eligible(
-    model_coarse, model_fine, settings: RenderSettings, flags: FeatureFlags, dtype, device
+    model_coarse, model_fine, settings: RenderSettings, flags: FeatureFlags, dtype, device,
+    num_rays: int,
 ) -> bool:
     """Whether a step can train through K1 with the f32 path's semantics:
     bf16, the same paper-family variant for both passes (the smaller one
     with the 76-dim expression), ≥ 1 fine sample, view directions, the xyz
-    input included, a latent vector (the table or the zeros ablation), and
-    on the card sample counts the kernel is built for
-    (`nerface_tpu/train/fused.py:43-74`)."""
+    input included, a latent vector (the table or the zeros ablation), both
+    passes' sample counts (coarse, coarse + fine) in 1..MAX_SAMPLES, and on
+    the card the JAX package's rule for its Pallas kernel at `num_rays`,
+    the step's rays on this rank: a ray tile for both passes
+    (`kernel_pass_ok`; `nerface_tpu/train/fused.py:43-74`,
+    `fused_train_available`)."""
     if dtype != torch.bfloat16:
         return False
     models = (model_coarse, model_fine)
@@ -67,10 +71,10 @@ def fused_train_eligible(
         return False
     if not (flags.train_latent_codes or flags.disable_latent_codes):
         return False
+    s_all = settings.num_coarse + settings.num_fine
     if torch.device(device).type == "cuda":
-        s_all = settings.num_coarse + settings.num_fine
-        return settings.num_coarse in KERNEL_SAMPLES and s_all in KERNEL_SAMPLES
-    return True
+        return kernel_pass_ok(num_rays, settings.num_coarse) and kernel_pass_ok(num_rays, s_all)
+    return 1 <= settings.num_coarse and s_all <= MAX_SAMPLES
 
 
 def background_prior(state, batch, flags: FeatureFlags) -> Optional[torch.Tensor]:

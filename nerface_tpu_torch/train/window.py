@@ -146,8 +146,9 @@ class TrainWindow:
         if distributed.initialized():
             self.reducer = distributed.GradReducer(
                 [p for g in optimizer.param_groups for p in g["params"]], len(METRIC_KEYS))
-        self.fused = fused_train_eligible(state.model_coarse, state.model_fine, settings, flags,
-                                          dtype, dev)
+        # whether the steps train through K1: decided at the first batch,
+        # whose ray count the card's rule reads
+        self.fused: Optional[bool] = None
         self.seed_t = torch.tensor(int(seed), dtype=torch.int64, device=dev)
         self.step_t = torch.tensor(int(state.step), dtype=torch.int64, device=dev)
         self.slot_t = torch.zeros((), dtype=torch.int64, device=dev)
@@ -171,6 +172,11 @@ class TrainWindow:
     def _step(self) -> None:
         """One train step on the static buffers (eager, or being captured)."""
         batch = self._batch()
+        if self.fused is None:
+            s = self.state
+            self.fused = fused_train_eligible(
+                s.model_coarse, s.model_fine, self.settings, self.flags, self.dtype, self.device,
+                num_rays=batch["ray_origins"].reshape(-1, 3).shape[0])
         seed = step_seed(self.seed_t, self.step_t)
         vec = train_step(self.state, self.optimizer, batch, seed, self.settings, self.flags,
                          dtype=self.dtype, fused=self.fused, reducer=self.reducer)

@@ -15,7 +15,12 @@ imports no JAX, so it also runs where JAX is not installed:
 
 Tolerances are those of `chip_smoke.py`: rgb, acc, bg_weight and weights
 atol 2e-3 (the f32 sums run in another order, which can flip a bf16
-rounding of an activation), depth atol 2e-3·far, disp rtol 1e-2.
+rounding of an activation), depth atol 2e-3·far, disp rtol 1e-2. At the
+sample counts the paper kernels take at run time beside 32 / 64 / 128
+(`_yardstick`), K2's and K3f's readings also pass within `tc_limit`,
+FLEX_TC_FACTOR × the plain version's own reading on the tensor cores, and
+K3b's gradients within `k3b_grad_limits` of it, as in `chip_smoke.py
+[sample_counts]`; K1 keeps its limits.
 """
 
 import pytest
@@ -33,7 +38,9 @@ from chip_smoke import (
     flex_grad_limits,
     flex_limit,
     k1_grad_limits,
+    k3b_grad_limits,
     rel_err,
+    tc_limit,
     tensor_core_plain,
 )
 from nerface_tpu_torch.models.nerf_models import (
@@ -65,6 +72,11 @@ def params(cuda_device):
     return m.state_dict()
 
 
+def _past_the_limit(z):
+    """z's rows at 257 samples: one past the paper kernels' MAX_SAMPLES."""
+    return z.repeat(1, -(-257 // z.shape[1]))[:, :257].contiguous()
+
+
 def _inputs(n_rays, n_samples, dev, seed):
     """Rays through a head at the origin; rays 0-1 with rd = 0 (acc = 0)
     and 2-3 with |rd| = 1e-9 (acc ~ 1e-5)."""
@@ -78,22 +90,43 @@ def _inputs(n_rays, n_samples, dev, seed):
     return [t.to(dev).contiguous() for t in (ro, rd, z, dc, cond, bg)]
 
 
-def _assert_close(got, ref):
+def _yardstick(S):
+    """Whether the tensor-core yardstick (`tc_limit`) applies at S: the
+    sample counts the paper kernels take beside 32 / 64 / 128."""
+    return S not in (32, 64, 128)
+
+
+def _tc_abs(tc, ref):
+    """max |tc − ref|, or 0 without a yardstick."""
+    return 0.0 if tc is None else float((tc - ref).abs().max())
+
+
+def _assert_close(got, ref, tc=None):
+    """K2's maps against the plain version's; with `tc` (the plain version
+    on the tensor cores), each within `tc_limit` of its own reading."""
     for k, v in got.items():
         assert torch.isfinite(v).all(), k
     for k in ("rgb", "acc", "bg_weight", "weights"):
         if k in ref:
-            torch.testing.assert_close(got[k], ref[k], atol=2e-3, rtol=0, msg=k)
-    torch.testing.assert_close(got["depth"], ref["depth"], atol=2e-3 * FAR, rtol=0)
-    torch.testing.assert_close(got["disp"], ref["disp"], atol=0, rtol=1e-2)
+            atol = tc_limit(2e-3, _tc_abs(tc and tc[k], ref[k]))
+            torch.testing.assert_close(got[k], ref[k], atol=atol, rtol=0, msg=k)
+    atol = tc_limit(2e-3 * FAR, _tc_abs(tc and tc["depth"], ref["depth"]))
+    torch.testing.assert_close(got["depth"], ref["depth"], atol=atol, rtol=0)
+    rtol = 1e-2 if tc is None else tc_limit(1e-2, float(((tc["disp"] - ref["disp"]) / ref["disp"]).abs().max()))
+    torch.testing.assert_close(got["disp"], ref["disp"], atol=0, rtol=rtol)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "n_rays,S,with_bg,white",
     [(512, 64, True, False), (512, 128, True, False), (301, 64, False, True),
-     (77, 128, True, False), (1000, 32, False, False)],
-    ids=["coarse", "fine", "ragged-white", "ragged-fine", "s32"],
+     (77, 128, True, False), (1000, 32, False, False), (512, 16, True, False),
+     (301, 24, True, False), (77, 96, False, True), (64, 192, True, False),
+     (40, 256, True, False), (530, 1, True, False), (530, 1, False, False), (301, 5, True, False),
+     (301, 40, False, False), (77, 200, False, True)],
+    ids=["coarse", "fine", "ragged-white", "ragged-fine", "s32", "s16", "s24-ragged",
+         "s96-ragged-white", "s192", "s256", "s1", "s1-no-bg", "s5-ragged", "s40-ragged-no-bg",
+         "s200-ragged-white"],
 )
 def test_kernel_matches_plain(cuda_device, params, n_rays, S, with_bg, white):
     """Rows past the last ray of a ragged last tile are masked (301·64 and
@@ -107,7 +140,9 @@ def test_kernel_matches_plain(cuda_device, params, n_rays, S, with_bg, white):
     ref = K.fused_paper_render_reference(params, ro, rd, z, dc, cond, **kw)
     assert set(got) == set(ref) and got["weights"].shape == (n_rays, S)
     assert float(got["acc"][:2].abs().max()) == 0.0
-    _assert_close(got, ref)
+    tc = _yardstick(S) and tensor_core_plain(
+        lambda: K.fused_paper_render_reference(params, ro, rd, z, dc, cond, **kw))
+    _assert_close(got, ref, tc or None)
 
 
 @pytest.mark.cuda
@@ -115,7 +150,7 @@ def test_kernel_refuses_what_it_does_not_take(cuda_device, params):
     ro, rd, z, dc, cond, bg = _inputs(64, 64, cuda_device, seed=1)
     before = K.fused_paper_render.launches
     with pytest.raises(ValueError, match="samples per ray"):
-        K.fused_paper_render(params, ro, rd, z[:, :16].contiguous(), dc, cond)
+        K.fused_paper_render(params, ro, rd, _past_the_limit(z), dc, cond)
     with pytest.raises(ValueError, match="contiguous"):
         K.fused_paper_render(params, ro, rd, z.t().contiguous().t(), dc, cond)
     with pytest.raises(TypeError, match="float32"):
@@ -141,8 +176,9 @@ def test_packed_weights_give_the_same_result(cuda_device, params):
 @pytest.mark.parametrize("small", [False, True], ids=["paper", "small"])
 @pytest.mark.parametrize(
     "n_rays,S",
-    [(0, 64), (1, 64), (5, 128), (3, 32), (333, 128), (2049, 64)],
-    ids=["none", "one", "fewer-than-clusters", "one-tile", "odd-tiles", "ragged"],
+    [(0, 64), (1, 64), (5, 128), (3, 32), (333, 128), (2049, 64), (2049, 24), (333, 192)],
+    ids=["none", "one", "fewer-than-clusters", "one-tile", "odd-tiles", "ragged", "s24-ragged",
+         "s192-odd-tiles"],
 )
 def test_kernel_edges_bit_identical(cuda_device, small, n_rays, S):
     """The persistent 2-CTA cluster grid at its edges: no ray, one ray,
@@ -260,8 +296,13 @@ def _train_inputs(R, S, dev, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "R,S,kind",
-    [(512, 64, "noise"), (77, 128, "noise"), (301, 32, "white"), (301, 32, "train_bg")],
-    ids=["coarse", "fine-ragged", "s32-white-ragged", "s32-train-bg"],
+    [(512, 64, "noise"), (77, 128, "noise"), (301, 32, "white"), (301, 32, "train_bg"),
+     (512, 16, "noise"), (301, 24, "noise"), (77, 96, "white"), (64, 192, "train_bg"),
+     (40, 256, "noise"), (530, 1, "noise"), (301, 5, "noise"), (301, 40, "white"),
+     (77, 200, "train_bg")],
+    ids=["coarse", "fine-ragged", "s32-white-ragged", "s32-train-bg", "s16", "s24-ragged",
+         "s96-white-ragged", "s192-train-bg", "s256", "s1", "s5-ragged", "s40-white-ragged",
+         "s200-train-bg-ragged"],
 )
 def test_train_kernel_matches_plain(cuda_device, he_params, R, S, kind):
     from nerface_tpu_torch.ops.kernels import fused_train as T
@@ -288,15 +329,9 @@ def test_train_kernel_matches_plain(cuda_device, he_params, R, S, kind):
     for k in ("rgb", "weights"):
         torch.testing.assert_close(got[k], ref[k], atol=2e-3, rtol=0, msg=k)
     names = _bundle_names(False)
-    pairs = list(zip(names, grads, rgrads))
     if kind == "train_bg":
-        pairs.append(("bg", d_bg, rd_bg))
-    for name, g, r in pairs:
-        assert torch.isfinite(g).all(), name
-        tol, tol_norm = k1_grad_limits(R, name)
-        torch.testing.assert_close(g, r, atol=tol * float(r.abs().max()) + 1e-6, rtol=0, msg=name)
-        err, ref_norm = float((g - r).norm()), float(r.norm())
-        assert err <= tol_norm * ref_norm + 1e-6, f"{name}: ‖err‖ {err} > {tol_norm}·{ref_norm}"
+        names, grads, rgrads = names + ["bg"], list(grads) + [d_bg], list(rgrads) + [rd_bg]
+    _assert_grads_close(names, grads, rgrads, R)
 
 
 @pytest.mark.cuda
@@ -307,7 +342,7 @@ def test_train_kernel_refuses_what_it_does_not_take(cuda_device, params):
     bundle = T.prefold_paper_params(params, cond, pe_dir, 10)
     before = T.fused_train_pass.launches
     with pytest.raises(ValueError, match="samples per ray"):
-        T.fused_train_pass(bundle, ro, rd, z[:, :16].contiguous(), tgt, loss_scale=1.0)
+        T.fused_train_pass(bundle, ro, rd, _past_the_limit(z), tgt, loss_scale=1.0)
     with pytest.raises(ValueError, match="contiguous"):
         T.fused_train_pass(bundle, ro, rd, z.t().contiguous().t(), tgt, loss_scale=1.0)
     with pytest.raises(TypeError, match="float32"):
@@ -392,7 +427,8 @@ def test_flex_kernels_refuse_what_they_do_not_take(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_rays,S", [(512, 64), (77, 128)], ids=["coarse", "fine-ragged"])
+@pytest.mark.parametrize("n_rays,S", [(512, 64), (77, 128), (301, 5), (77, 200)],
+                         ids=["coarse", "fine-ragged", "s5-ragged", "s200-ragged"])
 def test_render_kernel_small_matches_plain(cuda_device, n_rays, S):
     params = _k1_params(5, cuda_device, small=True)
     ro, rd, z, dc, cond, bg = _inputs(n_rays, S, cuda_device, seed=S + n_rays + 1)
@@ -401,14 +437,17 @@ def test_render_kernel_small_matches_plain(cuda_device, n_rays, S):
     got = K.fused_paper_render(params, ro, rd, z, dc, cond, **kw)
     torch.cuda.synchronize()
     assert K.fused_paper_render.launches == before + 1
-    _assert_close(got, K.fused_paper_render_reference(params, ro, rd, z, dc, cond, **kw))
+    tc = _yardstick(S) and tensor_core_plain(
+        lambda: K.fused_paper_render_reference(params, ro, rd, z, dc, cond, **kw))
+    _assert_close(got, K.fused_paper_render_reference(params, ro, rd, z, dc, cond, **kw), tc or None)
     with pytest.raises(ValueError, match="small"):
         K.fused_paper_render(K.pack_paper_weights(params), ro, rd, z, dc, cond,
                              background=bg)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R,S", [(512, 64), (77, 128)], ids=["coarse", "fine-ragged"])
+@pytest.mark.parametrize("R,S", [(512, 64), (77, 128), (301, 5), (77, 200)],
+                         ids=["coarse", "fine-ragged", "s5-ragged", "s200-ragged"])
 def test_train_kernel_small_matches_plain(cuda_device, R, S):
     from nerface_tpu_torch.ops.kernels import fused_train as T
 
@@ -426,11 +465,16 @@ def test_train_kernel_small_matches_plain(cuda_device, R, S):
     _assert_grads_close(_bundle_names(True), grads, rgrads, R)
 
 
-def _assert_grads_close(names, grads, rgrads, R):
+def _assert_grads_close(names, grads, rgrads, R, tc_grads=None):
+    """Each gradient within `k1_grad_limits`; with `tc_grads` (K3b's plain
+    version on the tensor cores), within `k3b_grad_limits` of their
+    readings instead."""
     assert len(names) == len(grads) == len(rgrads)
-    for name, g, r in zip(names, grads, rgrads):
+    for k, (name, g, r) in enumerate(zip(names, grads, rgrads)):
         assert torch.isfinite(g).all(), name
         tol, tol_norm = k1_grad_limits(R, name)
+        if tc_grads is not None:
+            tol, tol_norm = k3b_grad_limits(R, name, rel_err(tc_grads[k], r))
         torch.testing.assert_close(g, r, atol=tol * float(r.abs().max()) + 1e-6, rtol=0, msg=name)
         err, ref_norm = float((g - r).norm()), float(r.norm())
         assert err <= tol_norm * ref_norm + 1e-6, f"{name}: ‖err‖ {err} > {tol_norm}·{ref_norm}"
@@ -441,11 +485,14 @@ def _assert_grads_close(names, grads, rgrads, R):
 # the last item of a round is cut short, and at S = 32 the last item holds
 # one live ray and one past the end.
 PERSISTENT_CASES = [(2085, 64), (601, 128), (1111, 32)]
+# the paper kernels take any S: also S = 24 (8 rays in 3 units) and 192 (3 units a ray),
+# each past one round of the grid
+PAPER_PERSISTENT_CASES = PERSISTENT_CASES + [(2200, 24), (601, 192)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("small", [False, True], ids=["paper", "small"])
-@pytest.mark.parametrize("R,S", PERSISTENT_CASES, ids=["s64", "s128", "s32"])
+@pytest.mark.parametrize("R,S", PAPER_PERSISTENT_CASES, ids=["s64", "s128", "s32", "s24", "s192"])
 def test_train_kernel_persistent_grid(cuda_device, small, R, S):
     from nerface_tpu_torch.ops.kernels import fused_train as T
 
@@ -454,7 +501,7 @@ def test_train_kernel_persistent_grid(cuda_device, small, R, S):
     bundle = [t.contiguous() for t in T.prefold_paper_params(params, cond, pe_dir, 10, small=small)]
     kw = dict(loss_scale=2.0 / (3.0 * R), background=bg, noise=noise, noise_std=0.1, small=small)
     _, ctas = T.workspace_geometry(R, S)
-    assert ctas == T.K1_CTAS and R > 2 * T.K1_CTAS * (64 // S if S < 64 else 1)
+    assert ctas == T.K1_CTAS and R > 2 * T.K1_CTAS * T.unit_layout(S)[0]
     got, grads, _ = T.fused_train_pass(bundle, ro, rd, z, tgt, **kw)
     _, grads2, _ = T.fused_train_pass(bundle, ro, rd, z, tgt, **kw)
     torch.cuda.synchronize()
@@ -467,7 +514,7 @@ def test_train_kernel_persistent_grid(cuda_device, small, R, S):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("small", [False, True], ids=["paper", "small"])
-@pytest.mark.parametrize("R,S", PERSISTENT_CASES, ids=["s64", "s128", "s32"])
+@pytest.mark.parametrize("R,S", PAPER_PERSISTENT_CASES, ids=["s64", "s128", "s32", "s24", "s192"])
 def test_paper_mlp_backward_persistent_grid(cuda_device, small, R, S):
     from nerface_tpu_torch.ops.kernels.fused_train import prefold_paper_params
 
@@ -599,8 +646,11 @@ def test_flex_kernels_passes_below_one_round(cuda_device, R, S):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("small", [False, True], ids=["paper", "small"])
-@pytest.mark.parametrize("R,S", [(512, 64), (77, 128), (301, 32)],
-                         ids=["coarse", "fine-ragged", "s32-ragged"])
+@pytest.mark.parametrize("R,S", [(512, 64), (77, 128), (301, 32), (512, 16), (301, 24), (77, 96),
+                                 (64, 192), (40, 256), (530, 1), (301, 5), (301, 40), (77, 200)],
+                         ids=["coarse", "fine-ragged", "s32-ragged", "s16", "s24-ragged",
+                              "s96-ragged", "s192", "s256", "s1", "s5-ragged", "s40-ragged",
+                              "s200-ragged"])
 def test_paper_mlp_kernels_match_plain(cuda_device, small, R, S):
     """Rows past the last ray of a ragged last tile are masked."""
     from nerface_tpu_torch.ops.kernels.fused_train import prefold_paper_params
@@ -621,12 +671,16 @@ def test_paper_mlp_kernels_match_plain(cuda_device, small, R, S):
         before[0] + 2, before[1] + 2)
     assert torch.equal(out, out2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
     ref = K.fused_paper_mlp_reference(*args, small=small)
+    tc = _yardstick(S) and tensor_core_plain(lambda: K.fused_paper_mlp_reference(*args, small=small))
     assert out.shape == (R, S, 4) and torch.isfinite(out).all()
     for sl in (slice(0, 3), slice(3, 4)):
+        tol = tc_limit(K3_OUT_TOL, rel_err(tc[..., sl], ref[..., sl])[0] if tc is not False else 0.0)
         torch.testing.assert_close(out[..., sl], ref[..., sl],
-                                   atol=K3_OUT_TOL * float(ref[..., sl].abs().max()), rtol=0)
+                                   atol=tol * float(ref[..., sl].abs().max()), rtol=0)
     rgrads = K.fused_paper_mlp_backward_reference(*args, g, small=small)
-    _assert_grads_close(_bundle_names(small), grads, rgrads, R)
+    tc_grads = _yardstick(S) and tensor_core_plain(
+        lambda: K.fused_paper_mlp_backward_reference(*args, g, small=small))
+    _assert_grads_close(_bundle_names(small), grads, rgrads, R, tc_grads or None)
 
 
 @pytest.mark.cuda
@@ -659,7 +713,7 @@ def test_paper_mlp_kernels_refuse_what_they_do_not_take(cuda_device, params):
     g = torch.zeros(64, 64, 4, device=cuda_device)
     before = (K.fused_paper_mlp_forward.launches, K.fused_paper_mlp_backward.launches)
     with pytest.raises(ValueError, match="samples per ray"):
-        K.fused_paper_mlp_forward(bundle, ro, rd, z[:, :16].contiguous())
+        K.fused_paper_mlp_forward(bundle, ro, rd, _past_the_limit(z))
     with pytest.raises(ValueError, match="contiguous"):
         K.fused_paper_mlp_forward(bundle, ro, rd, z.t().contiguous().t())
     with pytest.raises(TypeError, match="float32"):

@@ -326,3 +326,208 @@ def test_launch_split_covers_the_pass(small):
     assert row["byte_floor_ms"] == pytest.approx(nbytes / KS.PEAK_BYTES_S * 1e3)
     assert row["of_ops_bound"] == pytest.approx(row["ops_bound_ms"] / 2.0)
     assert "operations bound" in KS.row_text("train_pass_kernel", row)
+
+
+# -- the unit schedule at any S: rows, the encoder, d_dir's pieces ------------------
+
+LAYOUT_S = [1, 5, 16, 24, 40, 96, 128, 192, 256]
+
+
+@pytest.mark.parametrize("S", LAYOUT_S + [32, 64])
+@pytest.mark.parametrize("R", [2085, 2048, 1111, 77])
+def test_dead_warpgroups_read_inside_the_workspace(R, S):
+    """`consume`'s unit indices (the lines held by
+    `test_runtime_schedule_formulas_are_the_sources`), replayed over every
+    pair of a pass: a warpgroup past the last ray (the last pair of a
+    ragged pass) computes on the first unit's images, so every unit whose
+    activation and cotangent images a consumer loads lies inside the
+    workspace (`pass_units` live units): a read past it can fault on the
+    card (K3b's small-model pass at 2085 × 64 did)."""
+    rays, units = K.unit_layout(S)
+    n_items = -(-R // rays)
+    pass_units = n_items * units
+    for pair in range(-(-n_items // 2)):
+        for wg in range(2):
+            item = 2 * pair + wg  # g.item(pair, 0, wg)
+            unit0 = item * units if item < n_items else 0
+            assert all(unit0 + u < pass_units for u in range(units)), (R, S, item)
+
+
+def test_runtime_schedule_formulas_are_the_sources():
+    """The replay below transcribes these lines of paper_train.cuh: the
+    consumers' items and rows, the encoder's valid rows (wgmma_chain.cuh's
+    `encode_task`), the middle's zeroed padding, and d_dir's pieces (a
+    warp's first / last ray, the interior rays written directly, the column
+    pass carrying a ray's sum across units); a row's ray is `ray_of`'s
+    multiply and shift, which `test_ray_of_is_row_over_s` holds exact."""
+    wc = (CSRC / "wgmma_chain.cuh").read_text()
+    assert "const int q = g.ray_of(row);  // the item's ray of the row" in wc
+    assert "const int ray = ray0 + q;" in wc
+    assert "const int n_cols = row < g.rows() && ray < a.n_rays ? 3 + 6 * a.n_freqs : 0;" in wc
+    assert "const float zz = a.z[(size_t)ray * g.samples() + (row - q * g.samples())];" in wc
+    assert "const int item = g.item(pair, 0, wg);" in HDR
+    assert "const int ray0 = item * g.wg_rays();" in HDR
+    assert "const int unit0 = live ? item * g.units() : 0;" in HDR
+    assert "forward_unit<SF, SMALL>(sm, a, ring, acc, act, wg, u, unit0 + u, ray0, live, units);" in HDR
+    assert "dx_unit<SF, SMALL>(sm, a, ring, acc, act, wg, u, unit0 + u, ray0, part, live, dx_units);" in HDR
+    assert "const int row = u * 64 + frag_row(), rows = g.rows();" in HDR
+    assert "const int ray_a = row < rows ? ray0 + g.ray_of(row) : a.n_rays;" in HDR
+    assert "const int ray_b = row + 8 < rows ? ray0 + g.ray_of(row + 8) : a.n_rays;" in HDR
+    assert "const int w0 = u * 64 + 16 * w, rows = l.rows();" in HDR
+    assert "fa = w0 < rows ? l.ray_of(w0) : -1;" in HDR
+    assert "fb = w0 < rows ? l.ray_of(min(w0 + 15, rows - 1)) : -1;" in HDR
+    assert "if (!live || wr.fa == wr.fb) return;" in HDR
+    assert "const int ra = ia < rows ? l.ray_of(ia) : -1, rb = ib < rows ? l.ray_of(ib) : -1;" in HDR
+    assert "float* slot = slots[j == wr.fa ? 0 : 1];" in HDR
+    assert "} else if (ray0 + j < n_rays) {" in HDR
+    assert "const float total = cur * S < u * 64 ? dacc[t] + sum : sum;" in HDR
+    assert "if ((cur + 1) * S > u * 64 + 64) {" in HDR
+    assert "for (int slot = 0; slot < (wr.fb > wr.fa ? 2 : 1); ++slot) {" in HDR
+    assert "if (wr.fa >= 0 && wr.fa == wr.fb) {" in HDR
+    k1 = (CSRC / "fused_train_pass.cu").read_text()
+    assert "for (int r = l.rows() + (threadIdx.x & 127); r < l.units() * 64; r += 128) {" in k1
+    assert "for (int r = lw; r < l.wg_rays(); r += 4) {" in k1
+    # the layout classes: S = 64 and 128 as constants, one ray over S / 64 units
+    wc = (CSRC / "wgmma_chain.cuh").read_text()
+    for line in ("int samples() const { return SF ? SF : l.S; }", "int wg_rays() const { return SF ? 1 : l.rays; }",
+                 "int units() const { return SF ? SF / 64 : l.units; }",
+                 "int rows() const { return SF ? SF : l.rays * l.S; }",
+                 "int ray_of(int row) const { return SF ? row / SF : l.ray_of(row); }"):
+        assert line in wc, line
+    assert all(K.unit_layout(S) == (1, S // 64) for S in (64, 128))
+    mma = (CSRC / "mma_tile.cuh").read_text()
+    assert "return FN<64, false>::run(args...);" in mma and "return FN<128, true>::run(args...);" in mma
+
+
+def _replay_items(R, S):
+    """Every thread row of every unit of a pass, as the consumers walk them:
+    (item, unit u, row of the item, its ray or R for a padding row)."""
+    rays, units = K.unit_layout(S)
+    n_items = -(-R // rays)
+    pairs = -(-n_items // 2)
+    rows = rays * S
+    r0 = ((np.arange(128) >> 5) & 3) * 16 + ((np.arange(128) & 31) >> 2)
+    out = []
+    for pair in range(pairs):
+        for wg in range(2):
+            item = 2 * pair + wg
+            for u in range(units):
+                for h in range(2):
+                    row = u * 64 + r0 + 8 * h
+                    ray = np.where(row < rows, item * rays + row // S, R)
+                    out += [(item, u, int(i), int(r)) for i, r in zip(row, ray)]
+    return out, n_items, units
+
+
+@pytest.mark.parametrize("S", LAYOUT_S)
+@pytest.mark.parametrize("R", [1, 7, 77, 264, 1001])
+def test_unit_schedule_covers_every_sample_row_once(R, S):
+    """Replayed row by row, the consumers' units give every (ray, sample)
+    of the pass exactly one accumulator row (held by a quad's four lanes,
+    each its own column pairs), the encoder writes the same rows' points
+    and zeros elsewhere, padding rows are marked invalid (ray = R, no dir_c,
+    no point) and the workspace units run 0 .. items·units − 1."""
+    seen, n_items, units = _replay_items(R, S)
+    rays, _ = K.unit_layout(S)
+    real = {}
+    for item, u, row, ray in seen:
+        if ray < R:
+            assert ray == item * rays + row // S and row < rays * S
+            real[(ray, row % S)] = real.get((ray, row % S), 0) + 1
+        else:
+            assert row >= rays * S or item * rays + row // S >= R
+    assert sorted(real) == [(r, s) for r in range(R) for s in range(S)]
+    assert set(real.values()) == {4}  # a quad's four lanes share rows r0 and r0 + 8
+    # the encoder (`encode_task`): unit u's row r is the item's row u·64 + r
+    encoded = []
+    for item, u in {(i, u) for i, u, *_ in seen}:
+        row = u * 64 + np.arange(64)
+        ray = item * rays + row // S
+        ok = (row < rays * S) & (ray < R)
+        encoded += list(zip(ray[ok], row[ok] % S))
+    assert sorted(encoded) == sorted(real)
+    assert {(i, u) for i, u, *_ in seen} == {(i, u) for i in range(-(-n_items // 2) * 2)
+                                             for u in range(units)}
+    assert T.workspace_geometry(R, S)[0] == n_items * units
+
+
+def _replay_d_dir(R, S, values):
+    """d_dir as dx_unit assembles it (`DirPieces`, then `dir_pieces`),
+    replayed on one column: `values` (R·S,) the rows' gx0 entries."""
+    rays, units = K.unit_layout(S)
+    rows = rays * S
+    n_items = -(-R // rays)
+    d_dir = np.full(R, np.nan)
+
+    def warp_rays(u, w):
+        w0 = u * 64 + 16 * w
+        return (w0 // S, min(w0 + 15, rows - 1) // S) if w0 < rows else (-1, -1)
+
+    for item in range(n_items):
+        ray0 = item * rays
+        val = np.zeros(units * 64)
+        n_real = min(rows, (R - ray0) * S)
+        val[:n_real] = values[ray0 * S:ray0 * S + n_real]
+        dacc = None
+        for u in range(units):
+            slots = {}
+            for w in range(4):
+                fa, fb = warp_rays(u, w)
+                if fa < 0:
+                    continue
+                idx = u * 64 + 16 * w + np.arange(16)
+                ray_of = np.where(idx < rows, idx // S, -1)
+                for j in range(fa, fb + 1):
+                    s = val[idx][ray_of == j].sum()
+                    if j in (fa, fb):
+                        slots[(w, 0 if j == fa else 1)] = s
+                    elif ray0 + j < R:
+                        assert np.isnan(d_dir[ray0 + j])
+                        d_dir[ray0 + j] = s
+            cur, acc = -1, 0.0
+            pieces = []
+            for w in range(4):
+                fa, fb = warp_rays(u, w)
+                if fa < 0:
+                    break
+                for slot in range(2 if fb > fa else 1):
+                    pieces.append((fb if slot else fa, slots[(w, slot)]))
+            pieces.append((None, 0.0))
+            for j, v in pieces:
+                if j == cur:
+                    acc += v
+                    continue
+                if cur >= 0:
+                    total = dacc + acc if cur * S < u * 64 else acc
+                    if (cur + 1) * S > u * 64 + 64:
+                        dacc = total
+                    elif ray0 + cur < R:
+                        assert np.isnan(d_dir[ray0 + cur])
+                        d_dir[ray0 + cur] = total
+                cur, acc = (j if j is not None else -1), v
+    return d_dir
+
+
+@pytest.mark.parametrize("S", LAYOUT_S)
+@pytest.mark.parametrize("R", [1, 7, 77, 264])
+def test_d_dir_pieces_sum_each_ray_once(R, S):
+    """d_dir's assembly, replayed on integer rows: every ray gets the sum
+    of exactly its own rows, written once, whether its rows lie in one
+    warp, across warps, across units, or inside a warp between two others."""
+    values = np.random.RandomState(S).randint(1, 1000, size=R * S).astype(np.float64)
+    got = _replay_d_dir(R, S, values)
+    assert np.array_equal(got, values.reshape(R, S).sum(1))
+
+
+def test_ray_of_is_row_over_s():
+    """`UnitLayout::ray_of`, (row · ⌈2^24 / S⌉) >> 24 as the header writes
+    it, is row // S for every item row (below ITEM_ROWS) at every S of the
+    kernels, and its product stays within 32 bits."""
+    wc = (CSRC / "wgmma_chain.cuh").read_text()
+    assert "return UnitLayout{s, rays, units, ((1u << 24) + (uint32_t)s - 1u) / (uint32_t)s};" in wc
+    assert "int ray_of(int row) const { return (int)(((uint32_t)row * div) >> 24); }" in wc
+    S = np.arange(1, K.MAX_SAMPLES + 1, dtype=np.uint64)[:, None]
+    row = np.arange(K.ITEM_ROWS, dtype=np.uint64)[None, :]
+    div = ((1 << 24) + S - 1) // S
+    assert int((row * div).max()) < 2 ** 32
+    assert np.array_equal((row * div) >> 24, row // S)

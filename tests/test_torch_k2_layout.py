@@ -162,3 +162,60 @@ def test_cluster_default_and_ablation_loader():
         build.load_library = real
     assert seen == [("fused_paper_render", ("NERFACE_K2_CLUSTER=1",)), ("probes", ()),
                     ("fused_paper_render", ())]
+
+
+# -- the unit schedule at any S: K2's items, rows and compositing ------------------
+
+@pytest.mark.parametrize("S", [1, 5, 16, 24, 40, 96, 128, 192, 256])
+@pytest.mark.parametrize("R", [1, 9, 77, 530, 1001])
+def test_k2_schedule_composites_every_ray_once(R, S):
+    """K2's cluster rounds (2 CTAs × 2 consumer warpgroups a round), replayed
+    row by row: every (ray, sample) is one accumulator row of the item that
+    holds the ray, padding rows carry ray n_rays; each ray is composited once,
+    by warp r % 4 of its warpgroup, from its item's rows r·S .. r·S + S − 1,
+    every sample by one lane (samples [l·spl, (l+1)·spl), spl = ⌈S / 32⌉),
+    and its background weight by the lane of sample S − 1."""
+    src = (CSRC / "fused_paper_render.cu").read_text()
+    chain = (CSRC / "paper_chain.cuh").read_text()
+    assert "const int ray0 = g.item(pair, (int)rank, wg) * g.wg_rays();" in src
+    assert "const int row = u * 64 + ((threadIdx.x >> 5) & 3) * 16 + ((threadIdx.x & 31) >> 2);" in chain
+    assert "const int ray_a = row < rows ? ray0 + g.ray_of(row) : n_rays;" in chain
+    assert ("for (int r = lw; r < g.wg_rays() && ray0 + r < a.n_rays; r += 4)\n"
+            "      composite_ray(sigma, rgb, a, r * g.samples(), lane, ray0 + r, g.samples());") in src
+    assert "const int spl = (S + 31) >> 5;" in src
+    assert "const int s = lane * spl + q;" in src and "if (q >= spl || s >= S) continue;" in src
+    assert "if (s == S - 1) a.bgw[ray] = w;" in src
+    rays, units = K.unit_layout(S)
+    rows = rays * S
+    rounds = -(-R // (2 * 2 * rays))  # UnitSchedule<CLUSTER>::rounds, CLUSTER = 2
+    spl = -(-S // 32)
+    r0 = ((np.arange(128) >> 5) & 3) * 16 + ((np.arange(128) & 31) >> 2)
+    held, composited, owned = {}, {}, {}
+    for rnd in range(rounds):
+        for rank in range(2):
+            for wg in range(2):
+                item = (rnd * 2 + rank) * 2 + wg
+                ray0 = item * rays
+                for u in range(units):
+                    for h in range(2):
+                        row = u * 64 + r0 + 8 * h
+                        ray = np.where(row < rows, ray0 + row // S, R)
+                        for i, r in zip(row, ray):
+                            if r < R:
+                                held[(int(r), int(i % S))] = (item, int(i))
+                for lw in range(4):
+                    r = lw
+                    while r < rays and ray0 + r < R:
+                        assert ray0 + r not in composited
+                        composited[ray0 + r] = (item, lw)
+                        for lane in range(32):
+                            for q in range(spl):
+                                s = lane * spl + q
+                                if s < S:
+                                    assert held[(ray0 + r, s)] == (item, r * S + s)
+                                    owned[(ray0 + r, s)] = owned.get((ray0 + r, s), 0) + 1
+                        r += 4
+    assert sorted(held) == [(r, s) for r in range(R) for s in range(S)]
+    assert sorted(composited) == list(range(R))
+    assert set(owned.values()) == {1} and len(owned) == R * S
+    assert (S - 1) // spl < 32  # sample S − 1 has a lane, which writes bgw

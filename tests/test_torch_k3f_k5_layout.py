@@ -100,23 +100,35 @@ def _k1_ctas():
 
 def test_schedule_formulas_are_the_sources():
     """The mirror below transcribes these lines: the grid (k1::pass_ctas),
-    the consumers' unit loop and the producer's round loop, the Schedule's
-    widths and item, and the row each thread stores."""
+    the consumers' unit loop and the producer's round loop, the unit
+    layout (`UnitLayout::of`, whose rule `fused_mlp.unit_layout` is) and
+    item, and the row each thread stores."""
     wc = (CSRC / "wgmma_chain.cuh").read_text()
-    assert "static constexpr int WG_RAYS = S >= 64 ? 1 : 64 / S;" in wc
-    assert "static constexpr int UNITS = S > 64 ? S / 64 : 1;" in wc
+    assert "if (64 % s == 0) {\n      rays = 64 / s;" in wc
+    assert "} else if (s % 64 != 0) {" in wc
+    assert "int rays = 1, units = (s + 63) / 64;" in wc
+    assert "if (n * units > rays * u) {  // n / u > rays / units" in wc
+    assert "constexpr int ITEM_ROWS = 256;" in wc and K.ITEM_ROWS == 256
     assert "return (round * CTAS + rank) * CHAIN_CONSUMERS + wg;" in wc
-    assert "kernel<<<k1::pass_ctas(a.n_rays, S), PAPER_THREADS, FWD_SMEM_BYTES, st>>>(a);" in K3_CU
+    assert "kernel<<<k1::pass_ctas(a.n_rays, a.l.S), PAPER_THREADS, FWD_SMEM_BYTES, st>>>(a);" in K3_CU
+    assert "const UnitSchedule<SF, 1> g{a.l};" in K3_CU
     body = K3_CU[K3_CU.index("void fwd_consume("):K3_CU.index("__global__")]
-    assert "const int round = blockIdx.x + (k / G::UNITS) * gridDim.x;" in body
+    assert "const int round = blockIdx.x + (k / units) * gridDim.x;" in body
     assert "if (round >= n_rounds) break;" in body
-    assert "const int row0 = (G::item(round, 0, wg) * G::UNITS + k % G::UNITS) * 64 + r0;" in body
-    assert "const int ray = row0 / S;" in body
-    assert "if ((lane & 3) == 0 && ray < a.n_rays)" in body
-    assert "*reinterpret_cast<float4*>(a.out + (size_t)(row0 + 8 * h) * 4)" in body
-    assert "paper_feed<S, SMALL, 1>(sm, a, 0, blockIdx.x, gridDim.x, n_rounds);" in K3_CU
+    assert "const int units = g.units();" in body
+    assert "const int item = g.item(round, 0, wg);" in body
+    assert "g, item * g.wg_rays(), k % units, a.n_rays, hs, hc);" in body
+    assert "const int rows = g.rows();" in body
+    assert "const int i0 = (k % units) * 64 + r0;" in body
+    assert "i0 < rows ? item * g.wg_rays() + g.ray_of(i0) : a.n_rays" in body
+    assert "i0 + 8 < rows ? item * g.wg_rays() + g.ray_of(i0 + 8) : a.n_rays" in body
+    assert "const size_t row = (size_t)item * rows + i0 + 8 * h;" in body
+    assert "if ((lane & 3) == 0 && ray_h[h] < a.n_rays)" in body
+    assert "*reinterpret_cast<float4*>(a.out + row * 4)" in body
+    assert "paper_feed<SMALL, 1>(sm, a, g, 0, blockIdx.x, gridDim.x, n_rounds);" in K3_CU
     produce = CHAIN[CHAIN.index("void paper_produce("):CHAIN.index("void paper_feed(")]
     assert "for (int round = round0; round < n_rounds; round += step) {" in produce
+    assert "for (int u = 0; u < units; ++u) {" in produce
     # the paper_train.cuh helper the mirror uses for r0
     assert "int frag_row() { return ((threadIdx.x >> 5) & 3) * 16 + ((threadIdx.x & 31) >> 2); }" in (
         CSRC / "paper_train.cuh").read_text()
@@ -126,8 +138,8 @@ def _fwd_rows(R, S):
     """Every float4 row store of a K3f launch, as the kernel's formulas
     give them: (cta, round, wg, ray, sample row) for each thread that
     stores, in each CTA's order."""
-    wg_rays = 64 // S if S < 64 else 1
-    units = S // 64 if S > 64 else 1
+    wg_rays, units = K.unit_layout(S)
+    rows = wg_rays * S
     rounds = -(-R // (2 * wg_rays))
     ctas = min(rounds, _k1_ctas())
     stores = []
@@ -140,28 +152,31 @@ def _fwd_rows(R, S):
                 rnd = cta + (k // units) * ctas
                 if rnd >= rounds:
                     break
-                row0 = ((2 * rnd + wg) * units + k % units) * 64 + r0  # G::item(round, 0, wg)
-                ray = row0 // S
+                item = 2 * rnd + wg  # G::item(round, 0, wg)
+                i0 = (k % units) * 64 + r0
                 for h in range(2):
+                    i = i0 + 8 * h
+                    ray = np.where(i < rows, item * wg_rays + i // S, R)
                     ok = ((lane & 3) == 0) & (ray < R)
-                    for g_row, rr in zip(row0[ok] + 8 * h, ray[ok]):
+                    for g_row, rr in zip(item * rows + i[ok], ray[ok]):
                         stores.append((cta, rnd, wg, int(rr), int(g_row)))
                 k += 1
     return stores, ctas
 
 
-@pytest.mark.parametrize("S", [32, 64, 128])
+@pytest.mark.parametrize("S", [1, 16, 24, 32, 64, 96, 128, 192, 256])
 @pytest.mark.parametrize("R", [1, 3, 77, 263, 264, 265, 1111])
 def test_output_rows_written_exactly_once(R, S):
     """Each (ray, sample) row of the (R, S, 4) output is stored once, by
-    a thread whose ray holds that row, and nothing past the last ray; each
-    warpgroup walks its rounds in order, and past one round of the grid (R >
-    2·132·rays an item) a CTA takes a second one."""
+    a thread whose ray holds that row, and nothing past the last ray nor
+    from a padding row; each warpgroup walks its rounds in order, and past
+    one round of the grid (R > 2·132·rays an item) a CTA takes a second
+    one."""
     stores, ctas = _fwd_rows(R, S)
     rows = np.array([g for *_, g in stores])
     assert len(rows) == R * S and np.array_equal(np.sort(rows), np.arange(R * S))
     assert all(g // S == ray for _, _, _, ray, g in stores)
-    per_item = 64 // S if S < 64 else 1
+    per_item = K.unit_layout(S)[0]
     assert ctas == min(-(-R // (2 * per_item)), _k1_ctas())
     for c in range(ctas):
         for wg in range(2):
@@ -177,7 +192,7 @@ def test_k2_and_k3f_run_one_chain():
     its shared memory is the chain's alone; no mma.sync tile is left."""
     for src in (K2_CU, K3_CU):
         assert '#include "paper_chain.cuh"' in src
-        assert "paper_unit<SMALL, " in src and "paper_feed<S, SMALL, " in src and "paper_setup<" in src
+        assert "paper_unit<SMALL, " in src and "paper_feed<SMALL, " in src and "paper_setup<" in src
         assert "chain_layer<" not in src and "load_layer(" not in src
     assert "paper_unit<SMALL, CLUSTER>" in K2_CU and "paper_unit<SMALL, 1>" in K3_CU
     assert "__cluster_dims__" not in K3_CU

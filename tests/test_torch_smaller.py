@@ -225,11 +225,11 @@ def test_fused_train_eligibility_needs_one_variant():
     flags = FeatureFlags()
     small = ConditionalBlendshapePaperSmallerNeRFModel(**KW)
     paper = MODELS["ConditionalBlendshapePaperNeRFModel"](**KW)
-    assert fused_train_eligible(small, small, tset, flags, torch.bfloat16, "cpu")
-    assert not fused_train_eligible(small, paper, tset, flags, torch.bfloat16, "cpu")
-    assert not fused_train_eligible(paper, small, tset, flags, torch.bfloat16, "cpu")
+    assert fused_train_eligible(small, small, tset, flags, torch.bfloat16, "cpu", 64)
+    assert not fused_train_eligible(small, paper, tset, flags, torch.bfloat16, "cpu", 64)
+    assert not fused_train_eligible(paper, small, tset, flags, torch.bfloat16, "cpu", 64)
     no_expr = ConditionalBlendshapePaperSmallerNeRFModel(**KW, include_expression=False)
-    assert not fused_train_eligible(no_expr, no_expr, tset, flags, torch.bfloat16, "cpu")
+    assert not fused_train_eligible(no_expr, no_expr, tset, flags, torch.bfloat16, "cpu", 64)
 
 
 def test_bf16_step_through_fused_losses_matches_jax_f32(pair):
@@ -249,9 +249,9 @@ def test_bf16_step_through_fused_losses_matches_jax_f32(pair):
     opt = build_optimizer(CfgNode(_opt_cfg()), state)
     ckpt.train_state_from_jax(jax.device_get(jstate), state, opt)
     tset, jset = _settings(0.1)
-    assert fused_train_eligible(state.model_coarse, state.model_fine, tset, flags, torch.bfloat16,
-                                "cpu")
     R = 64
+    assert fused_train_eligible(state.model_coarse, state.model_fine, tset, flags, torch.bfloat16,
+                                "cpu", R)
     jb, tb = _batch(R, seed=11)
     key = jax.random.PRNGKey(1)
 

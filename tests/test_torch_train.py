@@ -280,7 +280,7 @@ def test_fused_path_matches_jax_f32_path(case):
     jb, tb = _batch(R, seed=11, with_pixels=bg_kind is not None, with_bg=with_bg)
     key = jax.random.PRNGKey(1)
     assert fused_train_eligible(state.model_coarse, state.model_fine, tset, flags,
-                                torch.bfloat16, "cpu")
+                                torch.bfloat16, "cpu", R)
 
     def loss_fn(params):
         return _compute_losses(params, jb, key, jm, jm, jset, jflags, jstate.fixed_background)
