@@ -14,8 +14,11 @@ Phases, one line each (plus the kernels' register reports):
                `fused_train_pass.cu` (K1), `fused_paper_mlp.cu` (K3),
                `fused_flex.cu` (K4), `fused_resample.cu` (K5) and
                `probes.cu` (the design probes P1 / P2), in parallel into
-               build/nerface_tpu_torch/; prints the seconds and each
-               kernel's ptxas registers, spills and shared memory.
+               build/nerface_tpu_torch/ (K1, K3 and K4 as two builds each:
+               the fixed layout classes S = 64 / 128 and the runtime class
+               of every other S); prints the seconds (the flex builds' on
+               the summary line) and each kernel's ptxas registers, spills
+               and shared memory.
   3. kernel  — the fused-render kernel against its plain PyTorch version
                (bf16 operands), on He-scaled random weights (cases.HE_GAIN) on
                the card, at the main path's coarse
@@ -197,17 +200,22 @@ Phases, one line each (plus the kernels' register reports):
                config windowed against step at a time, bit for bit; in
                both, no bf16 paper pass on the plain path
                (`plain_paper_passes`, counted at the dispatch).
-     sample_counts — K2, K3f, K1 and K3b of the paper model at every
+     sample_counts — K2, K3f, K1 and K3b of the paper model, and K4f and
+               K4b of synth512_lcode's trunk (3 hidden layers), at every
                (S, rays) of SAMPLE_CASES: every layout class at 2048 rays,
                and S = 1 and the padded layouts S = 5 / 40 / 200 at a
                ray count that cuts the last item short, against their
                plain versions (K2 with a background and with none; 3 seeds
-               for the others; K1 / K3b bit-identical over 2 launches;
-               each reading within its base limit or FLEX_TC_FACTOR × the
-               plain version's own on the tensor cores, and a lost 64-row
-               unit caught by the limits applied wherever the base limits
-               catch it; Σ d_dir against d_bd0), each kernel's ms, plain
-               ms and bound per S.
+               for the others; K1 / K3b / K4b bit-identical over 2
+               launches; each reading within its base limit ([flex_kernel]'s
+               for K4) or FLEX_TC_FACTOR × the plain version's own on the
+               tensor cores, and a lost 64-row unit caught by the limits
+               applied wherever the base limits catch it; Σ d_dir against
+               d_bd0), each kernel's ms, plain ms and bound per S, and K4's
+               ms against S / 64 × its S = 64 time; then K5 at Sc ∈ {3, 16,
+               24, 48, 96, 200} × Sf ∈ {1, 33, 56} (Sc + Sf ≤ 256), both
+               regimes, on 2072 rays: within K5_GRID_TOL = 2e-6 of its plain
+               version, rows sorted, bit-identical, ms, plain ms, bound.
      serve_64_128 — synth512_paper at 64 + 128 samples served as in phase
                4: K2 at S = 64 and 192, the frame against the f32 plain
                frame.
@@ -275,7 +283,8 @@ Phases, one line each (plus the kernels' register reports):
                dW, reductions) under torch.profiler, each beside its
                operations bound and, apart, its workspace byte floor.
      flex_dead_units — K4f + K4b at 8 hidden layers, DEAD_UNIT_PASSES
-               passes of 2085 × 64 and 601 × 128 (their last round leaves
+               passes of 2085 × 64, 601 × 128, and at the runtime layouts
+               2133 × 24 and 267 × 200 (their last round leaves
                warpgroup 1 past the last ray: the dead-unit walk of K4b's
                recompute and dX, `fused_flex.cu::skip_stages`), every
                pass's output and gradients equal to the first pass's bit
@@ -291,6 +300,19 @@ Phases, one line each (plus the kernels' register reports):
                tiles × 2 frames, K4b 2 × steps, K1 and K2 never; the printed
                loss falling; the last .ckpt reloading; steady step ms and
                rays/s.
+     flex_64_128 — synth512_lcode at the NeRF paper's 64 + 128 samples
+               (SYNTH512_LCODE_64_128: K4 at S = 64 and, through the
+               runtime layout class, 192): 3 frames of 512² served via
+               serve_jsonl (K4f 2 × tiles a frame), each within
+               FLEX_FRAME_MAX / FLEX_PLAIN_FRAME_MEAN of the same frame
+               through K4f's plain version and within FRAME_MAX /
+               FRAME_MEAN of the f32 plain frame; one
+               bf16 step against the f32 plain step ([train_step]'s
+               limits); FLEX_TRAIN_STEPS steps of `train()` (K4f / K4b
+               counted, the printed loss falling); 20 steps windowed (K =
+               10) against step at a time, bit for bit; no bf16 Flexible
+               pass on the plain path anywhere in the phase
+               (`plain_flex_passes`, counted at the dispatch).
  11. stock_eval — `cli/eval_nerf.py` at the NeRF paper's stock settings
                (PaperNeRFModel coarse and fine, 10 xyz / 4 direction bands,
                64 + 128 samples, f32; He-scaled random weights, σ biased up
@@ -414,6 +436,13 @@ SYNTH512_PAPER_64_128 = copy.deepcopy(SYNTH512_PAPER)
 for _mode in ("train", "validation"):
     SYNTH512_PAPER_64_128["nerf"][_mode]["num_fine"] = 128
 
+# synth512_lcode with num_fine 128: K4f / K4b take each tile's and each
+# train step's coarse pass at S = 64 (a fixed layout class) and its fine
+# pass at S = 192 (the runtime class)
+SYNTH512_LCODE_64_128 = copy.deepcopy(SYNTH512_LCODE)
+for _mode in ("train", "validation"):
+    SYNTH512_LCODE_64_128["nerf"][_mode]["num_fine"] = 128
+
 KERNEL_RAYS = 4096
 TILE_RAYS = 65536  # the validation chunksize: one tile of the main path
 FAR = 0.8
@@ -498,6 +527,14 @@ FLEX_OUT_TOL = 0.01
 # (readings on the card: max 1, mean 0.0748; PERF.md)
 FLEX_FRAME_MAX = 1
 FLEX_FRAME_MEAN = 0.1
+# [flex_64_128]: the served K4f frame against the same frame rendered with
+# K4f's plain version (the kernel's bf16 roundings, torch's f32 sums), in
+# 8-bit levels (read 0.0024–0.0026 at 64 + 64 and 64 + 128 on an H100,
+# PERF.md §6). Against the f32 frame it takes the paper family's
+# FRAME_MAX / FRAME_MEAN, which [serve_64_128] holds at the same schedule:
+# at 64 + 128 the plain version itself reads 0.104–0.115 levels from f32,
+# past FLEX_FRAME_MEAN, the kernel's frame the same to 1e-4
+FLEX_PLAIN_FRAME_MEAN = 0.01
 
 TRAIN_RAYS = 2048
 TRAIN_STEPS = 40
@@ -529,9 +566,6 @@ FRAME_MEAN = 0.15
 TRAIN_PASS_INSTANTIATIONS = 12
 LIBRARIES = ("fused_paper_render", "fused_train_pass", "fused_paper_mlp", "fused_flex",
              "fused_resample", "probes")
-# K1's and K3's libraries build as two builds each (ops/kernels/build.py's
-# SAMPLE_CLASS_DEFINES: S = 64 / 128 and any other S), side by side
-SPLIT_LIBRARIES = ("fused_train_pass", "fused_paper_mlp")
 # PR 5's record of K2's 65536-ray tile times in its earlier design
 # (ldmatrix + mma.sync, one 512-thread CTA a tile), read by chip_smoke.py on
 # an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6). Copied, not measured: the
@@ -590,6 +624,51 @@ def check(cond, msg):
 
 def phase(name, text):
     print(f"[{name}] {text}", flush=True)
+
+
+@contextlib.contextmanager
+def plain_flex_passes():
+    """Counts, at the dispatch (`render.pipeline._apply_model`), the bf16
+    passes of a Flexible-family model left to the model's plain forward:
+    the calls in which K4f's wrapper launched nothing. Yields a list whose
+    one item is the count."""
+    import torch
+
+    from nerface_tpu_torch.models.nerf_models import _FlexibleFamily
+    from nerface_tpu_torch.ops.kernels.fused_flex import fused_flex_forward
+    from nerface_tpu_torch.render import pipeline
+
+    count = [0]
+    dispatch = pipeline._apply_model
+
+    def counted(model, *args):
+        before = fused_flex_forward.launches
+        out = dispatch(model, *args)
+        if (args[-1] == torch.bfloat16 and isinstance(model, _FlexibleFamily)
+                and fused_flex_forward.launches == before):
+            count[0] += 1
+        return out
+
+    pipeline._apply_model = counted
+    try:
+        yield count
+    finally:
+        pipeline._apply_model = dispatch
+
+
+@contextlib.contextmanager
+def flex_plain_version():
+    """K4f's wrapper replaced by its plain version (`fused_flex_forward_
+    reference`, on whatever device the tensors are): a bf16 pass through it
+    has K4f's roundings and torch's f32 sums, and launches nothing."""
+    from nerface_tpu_torch.ops.kernels import fused_flex as F
+
+    kernel = F.fused_flex_forward
+    F.fused_flex_forward = lambda *a, **k: F.fused_flex_forward_reference(*a, **k)
+    try:
+        yield
+    finally:
+        F.fused_flex_forward = kernel
 
 
 @contextlib.contextmanager
@@ -1111,8 +1190,10 @@ def build_phase():
         lib = build.build_library(name, defines)
         return name, defines, lib, time.perf_counter() - t0
 
+    # K1's, K3's and K4's libraries build as two builds each (build.py's
+    # LAYOUT_LIBRARIES and SAMPLE_CLASS_DEFINES: S = 64 / 128 and any other S)
     jobs = [(name, defines) for name in LIBRARIES
-            for defines in (build.SAMPLE_CLASS_DEFINES.values() if name in SPLIT_LIBRARIES else [()])]
+            for defines in (build.SAMPLE_CLASS_DEFINES.values() if name in build.LAYOUT_LIBRARIES else [()])]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(jobs)) as pool:
         built = list(pool.map(one, jobs))
@@ -1139,7 +1220,7 @@ def build_phase():
         phase("build", f"{label}: {secs:.1f} s ({lib.name}); ptxas: {' | '.join(info)}")
         phase("build", f"{label} wgmma serialisation (ptxas C75xx): "
                        f"{' | '.join(serial) if serial else 'none reported'}")
-        if name in SPLIT_LIBRARIES:
+        if name in ("fused_train_pass", "fused_paper_mlp"):
             smem = (ctypes.c_longlong * 3)()
             k = "train" if name == "fused_train_pass" else "paper_mlp"
             getattr(build.load_library(name, defines), f"nerface_fused_{k}_shared_bytes")(smem)
@@ -1149,13 +1230,15 @@ def build_phase():
             phase("build", f"{label} shared memory a CTA (dynamic): {', '.join(sizes)}")
         if name == "fused_flex":
             smem = (ctypes.c_longlong * 3)()
-            build.load_library(name).nerface_fused_flex_shared_bytes(smem)
-            phase("build", f"{name} shared memory a CTA (dynamic): flex_chain_kernel {smem[0]} B, "
+            build.load_library(name, defines).nerface_fused_flex_shared_bytes(smem)
+            phase("build", f"{label} shared memory a CTA (dynamic): flex_chain_kernel {smem[0]} B, "
                            f"flex_dx_kernel {smem[1]} B, dw_wgmma_kernel {smem[2]} B")
     check(0 < n_pass <= TRAIN_PASS_INSTANTIATIONS,
           f"train_pass_kernel has {n_pass} instantiations (at most {TRAIN_PASS_INSTANTIATIONS})")
+    flex = [secs for name, _, _, secs in built if name == "fused_flex"]
     phase("build", f"{len(jobs)} library builds in {wall:.1f} s of nvcc (each build's own seconds "
-                   f"above, all started together); train_pass_kernel instantiations {n_pass} (at "
+                   f"above, all started together); the flex builds (fixed / runtime class) "
+                   f"{flex[0]:.1f} / {flex[1]:.1f} s; train_pass_kernel instantiations {n_pass} (at "
                    f"most {TRAIN_PASS_INSTANTIATIONS}: S = 64 / 128 fixed, 0 any other S, × model, "
                    f"× K1 / K3b)")
     return {"nvcc_s": wall, "train_pass_instantiations": n_pass,
@@ -1587,6 +1670,17 @@ K3B_NORM_FLOOR = 1e-3
 # the gradient tensors of the paper kernels' dW launch (csrc/paper_train.cuh
 # `launch_pass`); wa and wrgb are dX's partial sums
 DW_TENSORS = ("w0a", "w0b", "w1", "w2", "w3xa", "w3xb", "w3h", "w4", "w5", "wf", "wd0", "wd1", "wd2")
+# K4b's dW launch's tensors at FLEX_N_HIDDEN hidden layers (`w_offsets`
+# before WA: W1's two parts, the hidden layers, WF, WD0); wa and wrgb are
+# dX's partial sums
+FLEX_DW_TENSORS = ("w1a", "w1b", "wh0", "wh1", "wh2", "wf", "wd0")
+# [sample_counts]' K5 grid: (Sc, Sf) at Sc + Sf ≤ 256, both regimes, at
+# SAMPLE_RAGGED_RAYS rays; weights in [0.5, 1) keep every pdf bin ≥ 1e-3
+# (≥ 0.5 / 253), where the kernel agrees with the plain version to 2e-6
+# (the reading there, PERF.md §6; fused_resample.py's docstring), its limit here
+K5_GRID_COARSE = (3, 16, 24, 48, 96, 200)
+K5_GRID_FINE = (1, 33, 56)
+K5_GRID_TOL = 2e-6
 # K2's maps: (base limit, relative to |plain|): abs errors, disp relative
 K2_MAP_LIMITS = {"rgb": (2e-3, False), "acc": (2e-3, False), "bg_weight": (2e-3, False),
                  "weights": (2e-3, False), "depth": (2e-3 * FAR, False), "disp": (1e-2, True)}
@@ -1648,9 +1742,9 @@ def _sample_control(S, control):
     (`k1_grad_limits`, K3_OUT_TOL, [kernel]'s) and within the limit applied,
     and a modelled fault: one 64-row unit lost (`lost_unit_rows`; K2 and
     K3f outputs, K3b cotangents). Checks, seed by seed, that wherever the
-    base limits catch the lost unit in a kernel's readings (K3b's: its dW
-    launch's tensors), the limits applied catch it too. Returns the
-    summary."""
+    base limits catch the lost unit in a kernel's readings (K3b's and
+    K4b's: their dW launch's tensors), the limits applied catch it too.
+    Returns the summary."""
 
     def ratio(c, key="value"):
         return c[key] / c["tc"] if c["tc"] > 0 else float("inf")
@@ -1660,8 +1754,9 @@ def _sample_control(S, control):
     by_kernel = ", ".join(f"{k} {sum(c['kernel'] == k for c in decided)}"
                           for k in sorted({c["kernel"] for c in decided})) or "none"
     caught, missed = {}, []
+    dw_tensors = {"K3b": DW_TENSORS, "K4b": FLEX_DW_TENSORS}
     for c in control:
-        if c.get("fault") is None or (c["kernel"] == "K3b" and c["name"] not in DW_TENSORS):
+        if c.get("fault") is None or (c["kernel"] in dw_tensors and c["name"] not in dw_tensors[c["kernel"]]):
             continue
         n = caught.setdefault((c["kernel"], c["seed"]), [0, 0])
         n[0] += c["fault"] > c["base"]
@@ -1676,12 +1771,159 @@ def _sample_control(S, control):
           + (f", the largest kernel / tensor-core ratio {ratio(top):.3f} ({top['kernel']} {top['name']} "
              f"seed {top['seed']} {top['kind']})" if top else "")
           + f"; one 64-row unit lost, readings caught by the base limits / by the limits applied "
-            f"(K3b: its dW tensors): {cells}")
+            f"(K3b, K4b: their dW tensors): {cells}")
     check(not missed, f"S={S}: a lost unit that the base limits catch passes the limits applied: "
                       + ", ".join(missed))
     return {"decided": len(decided), "readings": len(control),
             "largest_ratio": top and (ratio(top), top["kernel"], top["name"], top["seed"], top["kind"]),
             "lost_unit_caught": {f"{k} s{seed}": v for (k, seed), v in sorted(caught.items())}}
+
+
+def _flex_sample_count(S, R, dev, rows, control):
+    """K4f and K4b of synth512_lcode's He-scaled trunk (FLEX_N_HIDDEN hidden
+    layers, `cases.flex_params`) at one (S, R) of SAMPLE_CASES against their
+    plain versions, SAMPLE_SEEDS draws, under [flex_kernel]'s limits: raw
+    rgb and σ within `flex_limit(FLEX_OUT_TOL)`, every gradient tensor, d_v0
+    and d_dir within `flex_grad_limits`, through the tensor-core yardstick
+    where `flex_yardstick` holds (every S but 32 / 64 / 128); K4b
+    bit-identical over 2 launches. Where the yardstick decides, each
+    reading goes into `control` beside what one lost 64-row unit (`rows`)
+    reads. Times each through its wrapper beside its plain version and its
+    operations bound. Returns ({K4f}, {K4b})."""
+    import torch
+
+    from nerface_tpu_torch.ops.kernels import fused_flex as F
+    from nerface_tpu_torch.tools.perf.cases import flex_params
+
+    n = FLEX_N_HIDDEN
+    wn, bn = F.weight_names(n)
+    names = list(wn) + list(bn) + ["v0", "dir"]
+    yard = flex_yardstick(S, n)
+    k4f = {"rays": R, "out_rel": 0.0, "tc_rel": 0.0, "max_abs_err": 0.0}
+    k4b = {"rays": R, "worst": {}, "max_abs_err": 0.0}
+    for i in range(SAMPLE_SEEDS):
+        params, v0 = flex_params(SEED + 27 + 100 * i, dev, n)
+        gen = torch.Generator().manual_seed(SEED + 28 + 100 * i + S)
+        ro, rd, z, dc, _, _ = _kernel_inputs(R, S, gen, dev)
+        weights = F.pack_flex_weights(params, n, 10)
+        args = (weights, ro, rd, z, dc, v0, n)
+        out = F.fused_flex_forward(*args)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), f"K4f S={S} seed {i}: output not finite")
+        ref = F.fused_flex_forward_reference(*args)
+        tc = tensor_core_plain(lambda: F.fused_flex_forward_reference(*args)) if yard else None
+        lost = _without_rows(ref, rows)
+        for part, sl in (("rgb", slice(0, 3)), ("sigma", slice(3, 4))):
+            e = rel_err(out[..., sl], ref[..., sl])[0]
+            e_tc = rel_err(tc[..., sl], ref[..., sl])[0] if yard else None
+            lim = flex_limit(FLEX_OUT_TOL, n, e_tc)
+            check(e <= lim, f"K4f S={S} seed {i}: {part} max err {e:.3g}·max > {lim:.3g}"
+                            + (f" (the plain version on the tensor cores: {e_tc:.3g}·max)" if yard else ""))
+            if yard:
+                control.append(dict(kernel="K4f", name=part, seed=i, kind="max", value=e, tc=e_tc,
+                                    base=FLEX_OUT_TOL, limit=lim,
+                                    fault=rel_err(lost[..., sl], ref[..., sl])[0]))
+                k4f["tc_rel"] = max(k4f["tc_rel"], e_tc)
+            k4f["out_rel"] = max(k4f["out_rel"], e)
+        k4f["max_abs_err"] = max(k4f["max_abs_err"], float((out - ref).abs().max()))
+        del out, ref, tc, lost
+        g = torch.randn(R, S, 4, generator=gen).to(dev)
+        grads = F.fused_flex_backward(*args[:6], g, n)
+        grads2 = F.fused_flex_backward(*args[:6], g, n)
+        torch.cuda.synchronize()
+        flat, flat2 = grads[0] + grads[1:], grads2[0] + grads2[1:]
+        check(all(torch.equal(a, b) for a, b in zip(flat, flat2)),
+              f"K4b S={S} seed {i}: two launches gave different gradients")
+        plain = F.fused_flex_backward_reference(*args[:6], g, n)
+        rflat = plain[0] + plain[1:]
+        tc_flat = fault_flat = [None] * len(names)
+        if yard:
+            t = tensor_core_plain(lambda: F.fused_flex_backward_reference(*args[:6], g, n))
+            tc_flat = t[0] + t[1:]
+            t = F.fused_flex_backward_reference(*args[:6], _without_rows(g, rows), n)
+            fault_flat = t[0] + t[1:]
+        for name, a, r, t, f in zip(names, flat, rflat, tc_flat, fault_flat):
+            a, r = a.float(), r.float()
+            check(bool(torch.isfinite(a).all()), f"K4b S={S} seed {i}: grad {name} not finite")
+            e, e_norm = rel_err(a, r)
+            tc_err = rel_err(t.float(), r) if t is not None else None
+            tol, tol_norm = flex_grad_limits(R, name, n, tc_err, S)
+            scale, r_norm = max(float(r.abs().max()), 1e-30), max(float(r.norm()), 1e-30)
+            check(e <= tol + 1e-6 / scale, f"K4b S={S} seed {i}: grad {name} max err {e:.4g}·max > {tol:.4g}")
+            check(e_norm <= tol_norm + 1e-6 / r_norm,
+                  f"K4b S={S} seed {i}: grad {name} ‖err‖ {e_norm:.4g}·‖r‖ > {tol_norm:.4g}")
+            if yard:
+                f_err = rel_err(f.float(), r)
+                for j, (kind, lim) in enumerate((("max", tol), ("norm", tol_norm))):
+                    control.append(dict(kernel="K4b", name=name, seed=i, kind=kind, value=(e, e_norm)[j],
+                                        tc=tc_err[j], base=k1_grad_limits(R, name)[j], limit=lim,
+                                        fault=f_err[j]))
+            w = k4b["worst"].get(name, (0.0, 0.0))
+            k4b["worst"][name] = (max(w[0], e), max(w[1], e_norm))
+            k4b["max_abs_err"] = max(k4b["max_abs_err"], float((a - r).abs().max()))
+        if i == 0:
+            k4f.update(ms=_median_ms(lambda: F.fused_flex_forward(*args)),
+                       plain_ms=_median_ms(lambda: F.fused_flex_forward_reference(*args), 1, 3),
+                       bound_ms=_bound_ms(R * S * K4F_FLOP_PER_SAMPLE, _k4_bytes(R, S, False))[0])
+            k4b.update(ms=_median_ms(lambda: F.fused_flex_backward(*args[:6], g, n), iters=10),
+                       plain_ms=_median_ms(lambda: F.fused_flex_backward_reference(*args[:6], g, n), 1, 3),
+                       bound_ms=_bound_ms(R * S * K4B_FLOP_PER_SAMPLE, _k4_bytes(R, S, True))[0])
+        del grads, grads2, flat, flat2, plain, rflat, tc_flat, fault_flat
+    w = k4b.pop("worst")
+    k4b["worst_max"] = max(w.items(), key=lambda kv: kv[1][0])
+    k4b["worst_norm"] = max(w.items(), key=lambda kv: kv[1][1])
+    return k4f, k4b
+
+
+def _resample_grid(dev):
+    """K5 at every (Sc, Sf) of K5_GRID_COARSE × K5_GRID_FINE with Sc + Sf
+    ≤ 256 (Sc padded to its class 32 / 64 / 256, Sf to 1, 2 or 8 draws a
+    lane), both regimes (per-ray draws, and the shared linspace row with
+    `sorted_u`), on SAMPLE_RAGGED_RAYS rays: within K5_GRID_TOL of its
+    plain version (the pipeline's sample_pdf + merge_sorted_zvals),
+    rows sorted, bit-identical over 2 launches. Times each through its
+    wrapper beside its plain version and its bound. Returns {"Sc+Sf
+    regime": {...}}."""
+    import torch
+
+    from nerface_tpu_torch.ops.kernels.fused_resample import fused_resample, fused_resample_reference
+    from nerface_tpu_torch.ops.math import linspace01
+
+    R = SAMPLE_RAGGED_RAYS
+    res = {}
+    for sc in K5_GRID_COARSE:
+        for sf in K5_GRID_FINE:
+            if sc + sf > 256:
+                continue
+            g = torch.Generator().manual_seed(SEED + 31 + sc * 1000 + sf)
+            z = (0.2 + (FAR - 0.2) * (torch.arange(sc) + torch.rand(R, sc, generator=g)) / sc).to(dev)
+            w = (0.5 + 0.5 * torch.rand(R, sc, generator=g)).to(dev)
+            for regime in ("general", "sorted_u"):
+                srt = regime == "sorted_u"
+                u = linspace01(sf, device=dev) if srt else torch.rand(R, sf, generator=g).to(dev)
+                got = fused_resample(z, w, u, sorted_u=srt)
+                again = fused_resample(z, w, u, sorted_u=srt)
+                torch.cuda.synchronize()
+                ref = fused_resample_reference(z, w, u, srt)
+                err = float((got - ref).abs().max())
+                label = f"{sc}+{sf} {regime}"
+                check(got.shape == (R, sc + sf) and torch.equal(got, again),
+                      f"K5 {label}: shape {tuple(got.shape)} or two launches differ")
+                check(bool((got[:, 1:] >= got[:, :-1]).all()), f"K5 {label}: a row is not sorted")
+                check(err <= K5_GRID_TOL, f"K5 {label}: max err {err} > {K5_GRID_TOL}")
+                res[label] = {
+                    "rays": R, "max_abs_err": err,
+                    "ms": _median_ms(lambda: fused_resample(z, w, u, sorted_u=srt), iters=20),
+                    "plain_ms": _median_ms(lambda: fused_resample_reference(z, w, u, srt), 1, 5),
+                    "bound_ms": _bound_ms(0, _k5_bytes(R, sc, sf, srt))[0]}
+    errs = [r["max_abs_err"] for r in res.values()]
+    phase("sample_counts", f"K5 at {len(res)} shapes (Sc {K5_GRID_COARSE} × Sf {K5_GRID_FINE}, Sc + Sf ≤ "
+                           f"256, both regimes), {R} rays: max err {max(errs):.3g} (limit {K5_GRID_TOL}), rows "
+                           f"sorted, bit-identical over 2 launches")
+    for label, r in res.items():
+        phase("sample_counts", f"  K5 {label}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, bound "
+                               f"{r['bound_ms']:.4f}, max err {r['max_abs_err']:.3g}")
+    return res
 
 
 def sample_counts_phase(dev):
@@ -1710,7 +1952,7 @@ def sample_counts_phase(dev):
     from nerface_tpu_torch.tools.perf.cases import he_scale
 
     names = _bundle_names(False)
-    res = {k: {} for k in ("K2", "K3f", "K1", "K3b", "control")}
+    res = {k: {} for k in ("K2", "K3f", "K1", "K3b", "K4f", "K4b", "control")}
     model = _paper_model(SEED + 21, dev)
     he_scale(model)
     params = model.state_dict()
@@ -1842,8 +2084,27 @@ def sample_counts_phase(dev):
                   f"plain {r['plain_ms']:.3f}, bound {r['bound_ms']:.3f}")
         phase("sample_counts", f"S={S}: Σ_rays d_dir vs d_bd0, K1 and K3b: {dir_sum:.2e} of Σ|d_dir| "
                                f"(limit {DIR_SUM_TOL})")
+        k4f, k4b = _flex_sample_count(S, R, dev, rows, control)
+        res["K4f"][S], res["K4b"][S] = k4f, k4b
+        (wm, (wm_v, _)), (wn, (_, wn_v)) = k4b["worst_max"], k4b["worst_norm"]
+        phase("sample_counts",
+              f"S={S}: K4f {SAMPLE_SEEDS} seeds {k4f['out_rel']:.2e}·max (limit {FLEX_OUT_TOL}"
+              + (f", or {FLEX_TC_FACTOR} × the plain version's own, up to {k4f['tc_rel']:.2e}·max on the "
+                 f"tensor cores" if flex_yardstick(S, FLEX_N_HIDDEN) else "")
+              + f"), {k4f['ms']:.3f} ms, plain {k4f['plain_ms']:.3f}, bound {k4f['bound_ms']:.3f}; K4b worst grad "
+                f"{wm} {wm_v:.4f}·max, worst ‖err‖ {wn} {wn_v:.4f}·‖r‖ (`flex_grad_limits`), bit-identical "
+                f"over 2 launches; {k4b['ms']:.3f} ms, plain {k4b['plain_ms']:.3f}, bound {k4b['bound_ms']:.3f}")
         res["control"][S] = _sample_control(S, control)
         torch.cuda.empty_cache()
+    # the prediction written in PERF.md before the run: from S = 48 up, K4's
+    # time at S is S / 64 × its time at S = 64 at the same rays, ± 25 %
+    for k in ("K4f", "K4b"):
+        base = res[k][64]["ms"]
+        cells = [f"S={S} {r['ms'] / (base * S / 64 * r['rays'] / res[k][64]['rays']):.2f}"
+                 for S, r in sorted(res[k].items()) if S >= 48]
+        phase("sample_counts", f"{k} ms / (S / 64 × the S = 64 time, per ray): {', '.join(cells)} "
+                               f"(predicted 0.75–1.25)")
+    res["K5"] = _resample_grid(dev)
     return res
 
 
@@ -1874,12 +2135,15 @@ def train_step_phase(dev, ds, cfg_dict=SYNTH512_PAPER, name="train_step"):
     """One step's losses and gradients both ways from the same weights,
     batch and draws (the update itself is Adam's, the same code both ways):
     bf16 on the card (through K1 where the step is eligible, else through
-    K3) against the f32 plain path. Every parameter the f32 step gives a
-    gradient gets one in bf16, within 0.25·max."""
+    K3; a Flexible-family config through K4f / K4b) against the f32 plain
+    path. Every parameter the f32 step gives a gradient gets one in bf16,
+    within 0.25·max."""
     import torch
 
     from nerface_tpu_torch.config import CfgNode, FeatureFlags
     from nerface_tpu_torch.data.pipeline import RayFeed, batch_to_device
+    from nerface_tpu_torch.models.nerf_models import _FlexibleFamily
+    from nerface_tpu_torch.ops.kernels.fused_flex import fused_flex_backward, fused_flex_forward
     from nerface_tpu_torch.render.pipeline import RenderSettings
     from nerface_tpu_torch.train.fused import fused_losses, fused_train_eligible
     from nerface_tpu_torch.train.loop import build_models_from_cfg, setup_background
@@ -1894,9 +2158,13 @@ def train_step_phase(dev, ds, cfg_dict=SYNTH512_PAPER, name="train_step"):
     mc, mf = build_models_from_cfg(cfg, device=dev, generator=torch.Generator().manual_seed(SEED))
     fused = fused_train_eligible(mc, mf, settings, flags, torch.bfloat16, dev, num_rays=TRAIN_RAYS)
     n_pass = 2 if mf is not None else 1
+    flex = isinstance(mc, _FlexibleFamily)
     want = {"K1": n_pass, "K3f": 0, "K3b": 0} if fused else {"K1": 0, "K3f": n_pass, "K3b": n_pass}
+    want.update(K4f=0, K4b=0)
+    if flex:  # every pass through K4f, every gradient through K4b
+        want.update(K1=0, K3f=0, K3b=0, K4f=n_pass, K4b=n_pass)
     latent = torch.randn(len(ds.i_train), 32, generator=torch.Generator().manual_seed(1)) * 0.1
-    counters = _launch_counts()
+    counters = dict(_launch_counts(), K4f=fused_flex_forward, K4b=fused_flex_backward)
     out = {}
     for label in ("bf16", "f32"):
         state = create_train_state(copy.deepcopy(mc), copy.deepcopy(mf), flags,
@@ -1937,7 +2205,7 @@ def train_step_phase(dev, ds, cfg_dict=SYNTH512_PAPER, name="train_step"):
         n_grads += 1
         if scale > 0 and e / scale > worst_rel:
             worst, worst_rel = t, e / scale
-    via = "K1" if fused else "K3"
+    via = "K4" if flex else ("K1" if fused else "K3")
     phase(name, f"{TRAIN_RAYS} rays, {settings.num_coarse}+{settings.num_fine} samples, σ-noise "
                 f"{settings.radiance_field_noise_std}: loss bf16/{via} {loss_b:.6f} vs f32 plain "
                 f"{loss_f:.6f} (rel {abs(loss_b - loss_f) / loss_f:.4f}); {n_grads} parameters with "
@@ -3637,18 +3905,42 @@ def tc_limit(base, tc):
 
 def flex_limit(base, n_hidden, tc=None):
     """The limit of one reading of K4f or K4b (relative to the plain
-    version's max or norm) at `n_hidden` hidden layers: `base`, and at
-    n_hidden ≥ FLEX_TC_DEPTH `tc_limit(base, tc)`."""
-    return base if n_hidden < FLEX_TC_DEPTH else tc_limit(base, tc)
+    version's max or norm) at `n_hidden` hidden layers: `base`, and
+    `tc_limit(base, tc)` where the tensor-core yardstick decides: at
+    n_hidden ≥ FLEX_TC_DEPTH, and at the sample counts beside 32 / 64 /
+    128 (`flex_yardstick`), as for the paper kernels there; `tc`
+    is the yardstick's reading, needed there only."""
+    if tc is None or tc is False:
+        check(n_hidden < FLEX_TC_DEPTH, f"a reading at {n_hidden} hidden layers needs the yardstick's")
+        return base
+    return tc_limit(base, tc)
 
 
-def flex_grad_limits(n_rays, name, n_hidden, tc_err=None):
-    """(max, norm) limits of K4b's gradient tensor `name`: `k1_grad_limits`
-    through `flex_limit`, `tc_err` the tensor-core yardstick's (max, norm)
-    readings (needed at n_hidden ≥ FLEX_TC_DEPTH only)."""
+def flex_yardstick(n_samples, n_hidden):
+    """Whether the tensor-core yardstick decides K4's readings: at
+    FLEX_TC_DEPTH hidden layers and more, and at every S beside the
+    [flex_kernel] cases' 32 / 64 / 128 (`tc_limit`)."""
+    return n_hidden >= FLEX_TC_DEPTH or n_samples not in (32, 64, 128)
+
+
+def flex_grad_limits(n_rays, name, n_hidden, tc_err=None, n_samples=64):
+    """(max, norm) limits of K4b's gradient tensor `name` in a pass of
+    n_rays × n_samples: `k1_grad_limits`, and given the tensor-core
+    yardstick's (max, norm) readings `tc_err` (needed where
+    `flex_yardstick` holds) each through `tc_limit`. Below FLEX_TC_DEPTH, a
+    pass of fewer sample rows than the slice's coarse pass (TRAIN_RAYS ×
+    64), whose sums have fewer terms, takes K1's few-ray max (as
+    `k3b_grad_limits` holds K3b there): one flipped bf16 rounding read 1.86 × the
+    yardstick's max at S = 1 (on an H100, PERF.md §6); its norm keeps the
+    base, so a lost 64-row unit that the base limits catch is still
+    caught (`_sample_control`)."""
     tol, tol_norm = k1_grad_limits(n_rays, name)
-    tc = tc_err or (None, None)
-    return flex_limit(tol, n_hidden, tc[0]), flex_limit(tol_norm, n_hidden, tc[1])
+    if tc_err is None or tc_err is False:
+        check(n_hidden < FLEX_TC_DEPTH, f"a reading at {n_hidden} hidden layers needs the yardstick's")
+        return tol, tol_norm
+    if n_hidden < FLEX_TC_DEPTH and n_rays * n_samples < TRAIN_RAYS * 64:
+        tol = k1_grad_limits(0, name)[0]
+    return tc_limit(tol, tc_err[0]), tc_limit(tol_norm, tc_err[1])
 
 
 def _lost_unit(t):
@@ -3781,7 +4073,7 @@ def flex_kernel_phase(dev):
                 d = a - r
                 e, scale = float(d.abs().max()), float(r.abs().max())
                 e_norm, r_norm = float(d.norm()), float(r.norm())
-                tol, tol_norm = flex_grad_limits(R, name, n, tc_err)
+                tol, tol_norm = flex_grad_limits(R, name, n, tc_err, S)
                 if tc_err is not None:
                     calib.setdefault(name, []).append(dict(
                         kernel=rel_err(a, r), tc=tc_err, limit=(tol, tol_norm),
@@ -3847,14 +4139,17 @@ def flex_kernel_phase(dev):
 
 
 # the ray / sample cases whose last round leaves warpgroup 1 past the last
-# ray (tests/test_torch_k4_layout.py::DEAD_UNIT_CTA), at 8 hidden layers
-DEAD_UNIT_CASES = ((2085, 64), (601, 128))
+# ray (tests/test_torch_k4_layout.py::DEAD_UNIT_CTA), at 8 hidden layers:
+# the fixed layout classes and two runtime ones (8 rays in 3 units, one ray
+# in 4 units with 56 padding rows)
+DEAD_UNIT_CASES = ((2085, 64), (601, 128), (2133, 24), (267, 200))
 DEAD_UNIT_PASSES = 200
 
 
 def flex_dead_units_phase(dev):
-    """K4f + K4b at 8 hidden layers on DEAD_UNIT_CASES, DEAD_UNIT_PASSES
-    passes: the dead-unit walk of K4b's recompute and dX
+    """K4f + K4b at 8 hidden layers on DEAD_UNIT_CASES (S = 64 and 128, and
+    the runtime layouts at S = 24 and 200), DEAD_UNIT_PASSES passes: the
+    dead-unit walk of K4b's recompute and dX
     (`fused_flex.cu::skip_stages`), which trapped in the mbarrier watchdog
     before its repair. Every pass's output and gradients equal the first
     pass's bit for bit. Nothing catches a fault: it fails the run."""
@@ -4161,6 +4456,172 @@ def flex_train_phase(dev, ds, tmp, profile, card):
     feed.stop()
     return {"k4f_launches": k4f, "k4b_launches": k4b, "step_ms": step_ms,
             "rays_s": TRAIN_RAYS / step_ms * 1e3, "loss_printed": printed}
+
+
+FLEX_64_128_WINDOW_STEPS = 20  # [flex_64_128]'s windowed run against step at a time
+FLEX_64_128_WINDOW_K = 10
+
+
+def flex_64_128_phase(dev, ds, tmp, card):
+    """synth512_lcode at the NeRF paper's 64 + 128 samples
+    (SYNTH512_LCODE_64_128): every bf16 pass through K4f / K4b, the coarse
+    ones at S = 64 and the fine ones at S = 192 (the runtime layout class),
+    and none left to the model's plain forward (`plain_flex_passes`).
+    Serves 3 frames of 512² through `serve_jsonl` (K4f 2 × tiles a frame,
+    no K4b or K2), each frame within FLEX_FRAME_MAX / FLEX_PLAIN_FRAME_MEAN
+    of the same frame through K4f's plain version (`flex_plain_version`)
+    and within FRAME_MAX / FRAME_MEAN of the same model's f32 plain frame
+    ([serve_64_128]'s limits); one bf16 step against the f32 plain
+    step ([train_step]'s limits); FLEX_TRAIN_STEPS steps of `train()` (the
+    printed loss falls); FLEX_64_128_WINDOW_STEPS steps windowed (K =
+    FLEX_64_128_WINDOW_K, CUDA-graph replays) against step at a time, the
+    last checkpoint and the printed lines bit for bit."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from nerface_tpu_torch.config import CfgNode
+    from nerface_tpu_torch.data.synthetic import synthetic_flame_dataset
+    from nerface_tpu_torch.ops.kernels import fused_flex as F
+    from nerface_tpu_torch.ops.kernels.fused_mlp import fused_paper_render
+    from nerface_tpu_torch.ops.kernels.fused_train import fused_train_pass
+    from nerface_tpu_torch.serve import AvatarServer
+    from nerface_tpu_torch.train.loop import train
+
+    name = "flex_64_128"
+    t_phase = time.perf_counter()
+    cfg = CfgNode(SYNTH512_LCODE_64_128)
+    sc, sf = cfg.nerf.validation.num_coarse, cfg.nerf.validation.num_fine
+    sds = synthetic_flame_dataset(H=512, W=512, n_train=8, n_val=2, n_test=2, seed=SEED)
+    ckpt = _save_avatar(cfg, sds, os.path.join(tmp, f"{name}.ckpt"), SEED + 12)
+    server = AvatarServer(cfg, ckpt, dataset=sds, dtype=torch.bfloat16, device=dev, log=False)
+    tiles = -(-server.H * server.W // min(server.settings.chunksize, server.H * server.W))
+    maps = ["rgb_fine", "disp", "normals"]
+    frames = [(0, 0), (1, 1), (0, 2)]
+    requests = ([{"cmd": "ping"}] + [{"frame": f, "seed": sd, "maps": maps} for f, sd in frames]
+                + [{"cmd": "stop"}])
+    out = io.StringIO()
+    F.fused_flex_forward.launches = F.fused_flex_backward.launches = fused_paper_render.launches = 0
+    with plain_flex_passes() as plain:
+        handled = server.serve_jsonl(io.StringIO("\n".join(map(json.dumps, requests)) + "\n"), out)
+        served = F.fused_flex_forward.launches
+        replies = [json.loads(line) for line in out.getvalue().splitlines()]
+        check(handled == len(requests) and all(r.get("ok") is True for r in replies), f"{name}: {replies}")
+        check(served == 2 * tiles * len(frames) and F.fused_flex_backward.launches == 0
+              and fused_paper_render.launches == 0,
+              f"{name}: K4f {served} (want 2 x {tiles} x {len(frames)}), K4b "
+              f"{F.fused_flex_backward.launches}, K2 {fused_paper_render.launches}")
+        frame_ms = [r["frame_ms"] for r in replies if "frame_ms" in r]
+        imgs = [server.render(frame=f, seed=sd, maps=("rgb_fine",))["rgb_fine"] for f, sd in frames]
+        serve_plain = plain[0]
+    check(serve_plain == 0, f"{name}: {serve_plain} bf16 flex passes served on the plain path")
+    del server
+    cfg_ref = CfgNode(SYNTH512_LCODE_64_128)
+    cfg_ref.nerf.validation["chunksize"] = 8192  # bounds the plain activations
+    before = F.fused_flex_forward.launches
+    vs_f32, vs_plain = [], []
+    bg = (np.clip(sds.load_background(), 0.0, 1.0) * 255.0).astype(np.int16)
+    with flex_plain_version():
+        ref_server = AvatarServer(cfg_ref, ckpt, dataset=sds, dtype=torch.bfloat16, device=dev, log=False)
+        plain_imgs = [ref_server.render(frame=f, seed=sd, maps=("rgb_fine",))["rgb_fine"] for f, sd in frames]
+    ref_server = AvatarServer(cfg_ref, ckpt, dataset=sds, dtype=None, device=dev, log=False)
+    for (f, sd), img, pimg in zip(frames, imgs, plain_imgs):
+        ref = ref_server.render(frame=f, seed=sd, maps=("rgb_fine",))["rgb_fine"]
+        off_bg, spread = float(np.abs(img.astype(np.int16) - bg).mean()), float(img.std())
+        check(off_bg >= 10.0 and spread >= 10.0,
+              f"{name}: frame {f} {off_bg} levels off the background, std {spread}: the MLP shows little")
+        for against, lim_mean, lim_max, out in ((pimg, FLEX_PLAIN_FRAME_MEAN, FLEX_FRAME_MAX, vs_plain),
+                                                 (ref, FRAME_MEAN, FRAME_MAX, vs_f32)):
+            diff = np.abs(img.astype(np.int16) - against.astype(np.int16))
+            check(int(diff.max()) <= lim_max and float(diff.mean()) <= lim_mean,
+                  f"{name}: frame {f} seed {sd} vs the {'plain version' if out is vs_plain else 'f32 plain path'}: "
+                  f"mean {float(diff.mean())}, max {int(diff.max())} (limits {lim_mean}, {lim_max})")
+            out.append((float(diff.mean()), int(diff.max())))
+    check(F.fused_flex_forward.launches == before, f"{name}: the plain frames launched K4f")
+    del ref_server
+    phase(name, f"{len(frames)} synth512_lcode frames at 512x512 via serve_jsonl ({sc} + {sf} samples: K4f "
+                f"at S = {sc} and {sc + sf}), frame_ms {frame_ms}, K4f launches {served} = 2 x {tiles} tiles "
+                f"x {len(frames)}, plain bf16 flex passes 0; each frame, mean / max |diff| levels, vs K4f's "
+                f"plain version's {[(round(m, 4), x) for m, x in vs_plain]} (limits {FLEX_PLAIN_FRAME_MEAN}, "
+                f"{FLEX_FRAME_MAX}), vs the f32 plain frame {[(round(m, 4), x) for m, x in vs_f32]} (limits "
+                f"{FRAME_MEAN}, {FRAME_MAX})")
+    torch.cuda.empty_cache()
+
+    with plain_flex_passes() as plain:
+        step = train_step_phase(dev, ds, SYNTH512_LCODE_64_128, name)
+        steps = FLEX_TRAIN_STEPS
+        d = copy.deepcopy(SYNTH512_LCODE_64_128)
+        d["experiment"].update(logdir=os.path.join(tmp, name), train_iters=steps, print_every=10,
+                               validate_every=1000, save_every=1000)
+        F.fused_flex_forward.launches = F.fused_flex_backward.launches = 0
+        fused_train_pass.launches = fused_paper_render.launches = 0
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            train(CfgNode(d), dataset=ds, dtype=torch.bfloat16, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k4f, k4b = F.fused_flex_forward.launches, F.fused_flex_backward.launches
+        val_tiles = -(-ds.H * ds.W // int(cfg.nerf.validation.chunksize))
+        check(k4f == 2 * steps + 2 * val_tiles * 2 and k4b == 2 * steps,
+              f"{name}: K4f {k4f} (want 2 x {steps} + 2 x {val_tiles} x 2), K4b {k4b} (want 2 x {steps})")
+        check(fused_train_pass.launches == 0 and fused_paper_render.launches == 0, f"{name}: K1 or K2 ran")
+        printed = {int(i): float(v) for i, v in re.findall(r"\[TRAIN\] Iter: (\d+) Loss: (\S+)", text.getvalue())}
+        want = sorted(set(range(0, steps, 10)) | {steps - 1})
+        check(sorted(printed) == want and all(math.isfinite(v) for v in printed.values()),
+              f"{name}: printed {printed}")
+        first = statistics.mean(printed[i] for i in want if i < 20)
+        last = statistics.mean(printed[i] for i in want if i >= steps - 10)
+        check(last < first, f"{name}: the loss did not fall: steps < 20 {first}, last 10 steps {last}")
+        train_plain = plain[0]
+    check(train_plain == 0, f"{name}: {train_plain} bf16 flex passes trained on the plain path")
+    phase(name, f"{steps} bf16 steps of {TRAIN_RAYS} rays at {sc} + {sf} in {wall:.1f} s with one validation: "
+                f"K4f launches {k4f} = 2 x {steps} + 2 x {val_tiles} tiles x 2 frames, K4b {k4b} = 2 x "
+                f"{steps}, K1 and K2 0, plain bf16 flex passes 0; printed loss, mean of steps 0 and 10 "
+                f"{first:.5f} -> of the last 10 steps {last:.5f}")
+
+    runs = {}
+    for k in (FLEX_64_128_WINDOW_K, 1):
+        d = copy.deepcopy(SYNTH512_LCODE_64_128)
+        w = os.path.join(tmp, f"{name}_window_{k}")
+        d["experiment"].update(logdir=w, train_iters=FLEX_64_128_WINDOW_STEPS, print_every=10,
+                               validate_every=1000, save_every=FLEX_64_128_WINDOW_STEPS // 2,
+                               steps_per_execute=k)
+        F.fused_flex_forward.launches = F.fused_flex_backward.launches = 0
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text), plain_flex_passes() as plain:
+            train(CfgNode(d), dataset=ds, dtype=torch.bfloat16, device=dev)
+        torch.cuda.synchronize()
+        out_text = text.getvalue()
+        window = re.search(r"execution window: (\d+) steps", out_text)
+        check((int(window.group(1)) if window else 1) == k, f"{name}: the run at K = {k} took another window")
+        ckpts = sorted(glob.glob(os.path.join(w, "**", "checkpoint*.ckpt"), recursive=True))
+        runs[k] = {"s": time.perf_counter() - t0, "plain": plain[0], "ckpt": ckpts[-1],
+                   "k4": (F.fused_flex_forward.launches, F.fused_flex_backward.launches),
+                   "lines": re.findall(_TRAIN_LINE, out_text) + re.findall(_VAL_LINE, out_text)}
+        check(runs[k]["plain"] == 0 and runs[k]["k4"][1] > 0,
+              f"{name}: K = {k}: plain bf16 flex passes {runs[k]['plain']}, K4 wrapper calls {runs[k]['k4']}")
+    a, b = runs[FLEX_64_128_WINDOW_K], runs[1]
+    differ = _differ(_ckpt_tensors(a["ckpt"]), _ckpt_tensors(b["ckpt"]))
+    check(os.path.basename(a["ckpt"]) == os.path.basename(b["ckpt"]) and not differ,
+          f"{name}: windowed vs step at a time differ in {differ[:5]} ({a['ckpt']}, {b['ckpt']})")
+    check(a["lines"] == b["lines"] and len(a["lines"]) > FLEX_64_128_WINDOW_STEPS // 10,
+          f"{name}: the printed lines differ: {a['lines'][:3]} vs {b['lines'][:3]}")
+    seconds = time.perf_counter() - t_phase
+    phase(name, f"{FLEX_64_128_WINDOW_STEPS} bf16 steps windowed (K = {FLEX_64_128_WINDOW_K}, {a['s']:.1f} s) "
+                f"vs step at a time ({b['s']:.1f} s): {os.path.basename(a['ckpt'])} bit for bit, "
+                f"{len(a['lines'])} printed lines equal; K4f / K4b wrapper calls {a['k4']} / {b['k4']}, plain "
+                f"bf16 flex passes 0 / 0; the phase took {seconds:.1f} s on {card}")
+    # launches: the frames served, the bf16 step's two passes, train() and the two window runs
+    return {"serve_launches": served, "frame_ms": frame_ms, "vs_f32_levels": vs_f32,
+            "vs_plain_version_levels": vs_plain, "step_vs_f32": step,
+            "k4f_launches": served + 2 + k4f + sum(r["k4"][0] for r in runs.values()),
+            "k4b_launches": 2 + k4b + sum(r["k4"][1] for r in runs.values()),
+            "loss_printed": printed, "train_s": wall,
+            "window": {"windowed_s": a["s"], "step_s": b["s"], "ckpt": os.path.basename(a["ckpt"])},
+            "seconds": seconds}
 
 
 def _print_profile(name, prof, n, wall, unit, DeviceType, what=""):
@@ -4827,6 +5288,7 @@ def main() -> int:
         du = flex_dead_units_phase(dev)
         fs = flex_serve_phase(dev, tmp, args.profile)
         ft = flex_train_phase(dev, ds, tmp, args.profile, card)
+        f64 = flex_64_128_phase(dev, ds, tmp, card)
         stock_eval_phase(dev, tmp, card)
         tiny_nerf_phase(dev, card)
 
@@ -5062,9 +5524,11 @@ def main() -> int:
             "route": "cuda",
             "source": "nerface_tpu_torch/csrc/fused_flex.cu",
             "replaces": "nerface_tpu/ops/pallas/fused_flex.py:131",
-            # the flex paths: served frames + training (steps and validation)
-            "launches": fs["launches"] + ft["k4f_launches"],
-            "launches_by_path": {"flex_serve": fs["launches"], "flex_train": ft["k4f_launches"]},
+            # the flex paths: served frames + training (steps and validation),
+            # and synth512_lcode at 64 + 128 (S = 64 and 192)
+            "launches": fs["launches"] + ft["k4f_launches"] + f64["k4f_launches"],
+            "launches_by_path": {"flex_serve": fs["launches"], "flex_train": ft["k4f_launches"],
+                                 "flex_64_128": f64["k4f_launches"]},
             "max_abs_err": fk["abs_err"],  # of raw rgb and σ, all cases
             "max_rel_err": fk["err"],  # relative to max|plain| per case
             # a train step's two passes at 2048 rays: coarse (S=64) + fine (S=128)
@@ -5080,6 +5544,12 @@ def main() -> int:
             "bare_ms_by_pass": fk["bare_ms"],
             "design": K4F_DESIGN,
             "frame_ms_512": fs["frame_ms"],
+            # synth512_lcode at 64 + 128: served frames and each one's levels off f32
+            "frame_ms_512_64_128": f64["frame_ms"],
+            "vs_f32_levels_64_128": f64["vs_f32_levels"],
+            "vs_plain_version_levels_64_128": f64["vs_plain_version_levels"],
+            # [sample_counts]: SAMPLE_CASES' rays at each S through the wrapper
+            "by_sample_count": sc["K4f"],
             "card": card,
         },
         {
@@ -5087,7 +5557,8 @@ def main() -> int:
             "route": "cuda",
             "source": "nerface_tpu_torch/csrc/fused_flex.cu",
             "replaces": "nerface_tpu/ops/pallas/fused_flex.py:143",
-            "launches": ft["k4b_launches"],
+            "launches": ft["k4b_launches"] + f64["k4b_launches"],
+            "launches_by_path": {"flex_train": ft["k4b_launches"], "flex_64_128": f64["k4b_launches"]},
             "max_abs_err": fk["grad_abs_err"],  # over every gradient tensor
             "worst_grad_rel": fk["grad_rel"],  # (max error, norm error) per pass
             "ms": fk["bwd_ms"]["coarse"] + fk["bwd_ms"]["fine"],
@@ -5107,6 +5578,11 @@ def main() -> int:
             "design": K4B_DESIGN,
             "train_step_ms": ft["step_ms"],
             "train_rays_s": ft["rays_s"],
+            # synth512_lcode at 64 + 128: one bf16 step against f32, the windowed run
+            "step_vs_f32_64_128": f64["step_vs_f32"],
+            "window_64_128": f64["window"],
+            # [sample_counts]: SAMPLE_CASES' rays at each S through the wrapper
+            "by_sample_count": sc["K4b"],
             "card": card,
         },
         {
@@ -5133,6 +5609,8 @@ def main() -> int:
             "gb_s_device_by_case": rk["gb_s"],
             "plain_ms_by_case": rk["plain_ms"],
             "bound_ms_by_case": {c: b[0] for c, b in rk["bound"].items()},
+            # [sample_counts]' grid: Sc 3..200 × Sf 1..56 on 2072 rays, both regimes
+            "by_shape": sc["K5"],
             "design": K5_DESIGN,
             "card": card,
         },

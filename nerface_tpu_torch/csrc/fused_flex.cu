@@ -18,13 +18,21 @@
 // wrgb + brgb. Out: raw (R, S, 4) [rgb, σ]; the compositing stays with the
 // caller, as in the JAX package.
 //
-// K4f, `flex_chain_kernel<S, false>`, is K2's chain without the cluster
+// K4f, `flex_chain_kernel<SF, false>`, is K2's chain without the cluster
 // (wgmma_chain.cuh): one persistent 384-thread CTA an SM. The producer
 // warpgroup's first thread streams each unit's 1 + 4n + 4 + 4 weight chunk
 // images through a ring of RING 32 KB stages with bulk copies, its three
 // encoder warps fill each unit's swizzled [xyz; PE; 0] tile; the two
 // consumer warpgroups run free of each other over whole rays as 64-row
-// units, each layer one chain of wgmma m64n256k16 (m64n128k16 for
+// units. S is any of 1..MAX_SAMPLES: an item is the paper kernels'
+// `UnitLayout` (wgmma_chain.cuh), whole rays in 1..4 units, its rows past
+// the last ray's sample padding the last unit (8 rays in 3 units at S =
+// 24, one ray in 3 at 192); SF, the layout class, is 64 or 128 for the
+// passes of the bundled configs (S folded in as a constant) and 0, S read
+// at run time, for every other S (`dispatch_pass`, mma_tile.cuh: two
+// builds of the library, `build.py`'s `sample_class_defines`). A padding
+// row encodes to 0, is never stored and takes a zero cotangent. Each
+// layer is one chain of wgmma m64n256k16 (m64n128k16 for
 // layers_dir.0's feat columns) with A in registers: layer1 reads xin from
 // shared memory (K = 63 packed to 64), every epilogue rounds its
 // accumulator pairs to bf16 exactly where the plain version does and they
@@ -35,14 +43,14 @@
 // K4b is four kinds of launch on the caller's stream, no float atomics,
 // every partition fixed by the shape, so two calls on the same inputs give
 // bit-identical gradients:
-//   1. the recompute, `flex_chain_kernel<S, true>`: K4f's kernel with the
+//   1. the recompute, `flex_chain_kernel<SF, true>`: K4f's kernel with the
 //      save flag (the serving instantiation has no save code), storing xin,
 //      a_0..a_n, feat and x0 to the workspace as wgmma operand images (per
 //      64-row unit, 64-column blocks in the 128-byte swizzle,
 //      paper_train.cuh's `image_offset`, 16-byte stores after
 //      `quad_transpose`) and the relu masks of a_1..a_n and feat as bits
 //      in the accumulator fragment's order (`store_mask`), no heads;
-//   2. `flex_dx_kernel<S>`, persistent, two consumer warpgroups, the
+//   2. `flex_dx_kernel<SF>`, persistent, two consumer warpgroups, the
 //      transposed weights' chunk images through a ring: gx0 =
 //      bf16(g_rgb)·Wrgbᵀ ⊙ [x0 > 0] per thread; g_feat = bf16(gx0)·WD0ᵀ ⊙
 //      [feat > 0]; (bf16(g_feat)·WFᵀ + bf16(g_σ) ⊗ wa) ⊙ [a_n > 0]; WH_iᵀ
@@ -55,7 +63,10 @@
 //      sums (bh_i, bf, bd0, d_v0) and the heads' sums (x0ᵀ·bf16(g_rgb),
 //      a_nᵀ·bf16(g_σ), brgb, ba) go to each warp's running partial row
 //      (K1's reduce-scatter, paper_train.cuh), folded per CTA in order;
-//      d_dir = Σ gx0 over a ray's rows;
+//      d_dir = Σ gx0 over a ray's rows: each warp's piece of each ray
+//      (paper_train.cuh's `DirPieces` where a warp's 16 rows reach two
+//      rays), the pieces summed in row order across the ray's units
+//      (`dir_pieces`), so S = 32 / 64 / 128 keep their sums' order;
 //   3. `dw_wgmma_kernel` (wgmma_dw.cuh): dW = Xᵀ·bf16(gY) for W1 (K = 64),
 //      WF, WD0 and every WH_i from the images, in row segments that fill
 //      one wave;
@@ -259,7 +270,9 @@ struct FwdArgs {
   const float* F;      // bias rows + frequency bands (FF_OFF_*)
   float* out;          // (R, S, 4), or null in the recompute
   Workspace ws;        // the recompute's images, or all null
-  int n_rays, n_freqs, n_hidden;
+  int n_rays;
+  UnitLayout l;  // the pass's S, and its items' rays and units (host-computed)
+  int n_freqs, n_hidden;
 };
 
 struct alignas(ATOM_BYTES) FwdSmem {
@@ -314,14 +327,15 @@ __device__ __forceinline__ void skip_stages(Smem& sm, Ring& ring, int count, con
 }
 
 // The producer: each unit's chunks, W1, WH_0..WH_{n-1}, WF, WD0.
-template <int S>
+template <int SF>
 __device__ __forceinline__ void fwd_produce(FwdSmem& sm, const FwdArgs& a, int n_rounds) {
+  const UnitSchedule<SF, 1> g{a.l};
   Ring ring;
   auto load = [&](int off, int k, int n) {
     load_layer<RING, 1>(sm.ring, sm.full, sm.empty, ring, a.W + off, k, n, 0);
   };
   for (int round = blockIdx.x; round < n_rounds; round += gridDim.x) {
-    for (int u = 0; u < Schedule<S, 1>::UNITS; ++u) {
+    for (int u = 0; u < g.units(); ++u) {
       load(FW_OFF_W1, K_XIN, HIDDEN);
       for (int i = 0; i < a.n_hidden; ++i) load(FW_OFF_WH + i * HH, HIDDEN, HIDDEN);
       load(FW_OFF_WF, HIDDEN, HIDDEN);
@@ -334,13 +348,15 @@ __device__ __forceinline__ void fwd_produce(FwdSmem& sm, const FwdArgs& a, int n
 // the raw rows out, or (SAVE, the recompute) each activation to its
 // workspace image. A warpgroup whose rays are past the last walks the same
 // chunks: K4f computes them and stores nothing, the recompute waits for
-// and releases them untouched.
-template <int S, bool SAVE>
+// and releases them untouched. The item's row i < rows() is row ray0·S + i
+// of the pass (sample i % S of ray ray0 + i / S); a padding row after it,
+// or a row of a ray past the last, is computed and not stored.
+template <int SF, bool SAVE>
 __device__ __forceinline__ void fwd_consume(FwdSmem& sm, const FwdArgs& a, int wg, int n_rounds) {
-  using G = Schedule<S, 1>;
+  const UnitSchedule<SF, 1> g{a.l};
   constexpr bool FRESH = SAVE;
   const int lane = threadIdx.x & 31;
-  const int r0 = k1::frag_row();  // the thread's accumulator rows: r0 and r0 + 8 of a unit, in one ray
+  const int r0 = k1::frag_row();  // the thread's accumulator rows: r0 and r0 + 8 of a unit
   const int n = a.n_hidden;
   const Workspace& ws = a.ws;
   auto release = [&](int stage) {
@@ -356,13 +372,12 @@ __device__ __forceinline__ void fwd_consume(FwdSmem& sm, const FwdArgs& a, int w
   for (int i = 0; i < 64; ++i) act[i] = 0u;
 
   for (int round = blockIdx.x; round < n_rounds; round += gridDim.x) {
-    const int item = G::item(round, 0, wg);
-    const int ray0 = item * G::WG_RAYS;
+    const int item = g.item(round, 0, wg);
+    const int ray0 = item * g.wg_rays();
     const bool live = ray0 < a.n_rays;
 #pragma unroll 1
-    for (int u = 0; u < G::UNITS; ++u) {
-      const int unit = item * G::UNITS + u;
-      const int ray = ray0 + (u * 64 + r0) / S;
+    for (int u = 0; u < g.units(); ++u) {
+      const int unit = item * g.units() + u;
       const int b = units & 1;
       if (SAVE && !live) {  // the recompute stores nothing of a dead unit: skip its chunks
         // thread 0 alone takes the xin buffer, as skip_stages the ring
@@ -399,9 +414,18 @@ __device__ __forceinline__ void fwd_consume(FwdSmem& sm, const FwdArgs& a, int w
         k1::store_frag<HIDDEN>(unit_image(ws.feat, HIDDEN, unit), act);
         store_mask(unit_mask(ws.fmask, unit), act);
       }
-      const float* dir_c = ray < a.n_rays ? a.dir_c + (size_t)ray * DIR_HIDDEN : nullptr;
       layer<DIR_HIDDEN, 4, 0, FRESH>(acc, act, xin, sm, ring, release);
-      acc_to_a<DIR_HIDDEN, true>(acc, act, ChainDir{sm.f + FF_OFF_BD0, dir_c});  // x0
+      // the rays of the thread's rows, worked out here and not held through
+      // the trunk; a padding row's is n_rays
+      const int i0 = u * 64 + r0, rows = g.rows();
+      const int ray_h[2] = {i0 < rows ? ray0 + g.ray_of(i0) : a.n_rays,
+                            i0 + 8 < rows ? ray0 + g.ray_of(i0 + 8) : a.n_rays};
+      auto dir_row = [&](int ray) { return ray < a.n_rays ? a.dir_c + (size_t)ray * DIR_HIDDEN : nullptr; };
+      if constexpr (SF != 0) {  // one ray over whole units: both rows in it
+        acc_to_a<DIR_HIDDEN, true>(acc, act, ChainDir{sm.f + FF_OFF_BD0, dir_row(ray_h[0])});  // x0
+      } else {
+        acc_to_a<DIR_HIDDEN, true>(acc, act, ChainDirRows{sm.f + FF_OFF_BD0, {dir_row(ray_h[0]), dir_row(ray_h[1])}});
+      }
       if constexpr (SAVE) {
         k1::store_frag<DIR_HIDDEN>(unit_image(ws.x0, DIR_HIDDEN, unit), act);
       } else {
@@ -412,9 +436,9 @@ __device__ __forceinline__ void fwd_consume(FwdSmem& sm, const FwdArgs& a, int w
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const float b2 = __shfl_down_sync(0xffffffffu, hc[2 * h], 1);
-          const int row = u * 64 + r0 + 8 * h;
-          if ((lane & 3) == 0 && ray < a.n_rays)
-            *reinterpret_cast<float4*>(a.out + ((size_t)ray0 * S + row) * 4) =
+          const size_t row = (size_t)ray0 * g.samples() + i0 + 8 * h;  // the pass's row
+          if ((lane & 3) == 0 && ray_h[h] < a.n_rays)
+            *reinterpret_cast<float4*>(a.out + row * 4) =
                 make_float4(hc[2 * h] + sm.f[FF_OFF_BRGB], hc[2 * h + 1] + sm.f[FF_OFF_BRGB + 1],
                             b2 + sm.f[FF_OFF_BRGB + 2], hs[2 * h] + sm.f[FF_OFF_BA]);
         }
@@ -423,12 +447,12 @@ __device__ __forceinline__ void fwd_consume(FwdSmem& sm, const FwdArgs& a, int w
   }
 }
 
-template <int S, bool SAVE>
+template <int SF, bool SAVE>
 __global__ void __launch_bounds__(FLEX_THREADS, 1) flex_chain_kernel(const FwdArgs a) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t pad = (ATOM_BYTES - (smem_u32(smem_raw) & (ATOM_BYTES - 1))) & (ATOM_BYTES - 1);
   FwdSmem& sm = *reinterpret_cast<FwdSmem*>(smem_raw + pad);
-  using G = Schedule<S, 1>;
+  const UnitSchedule<SF, 1> g{a.l};
   const int t = threadIdx.x;
   const Layout L = flex_layout(a.n_hidden);
   for (int i = t; i < L.f_total; i += FLEX_THREADS) sm.f[i] = a.F[i];
@@ -452,30 +476,30 @@ __global__ void __launch_bounds__(FLEX_THREADS, 1) flex_chain_kernel(const FwdAr
   }
   __syncthreads();
 
-  const int n_rounds = G::rounds(a.n_rays);
+  const int n_rounds = g.rounds(a.n_rays);
   const int wg = t / 128;
   if (wg == CONSUMERS) {
     reg_dealloc<40>();
     const int w = (t >> 5) - 4 * CONSUMERS;  // the warp in the producer warpgroup
     if (t == CONSUMERS * 128) {
-      fwd_produce<S>(sm, a, n_rounds);
+      fwd_produce<SF>(sm, a, n_rounds);
     } else if (w >= 1 && w <= ENCODERS) {
       const int e = t - CONSUMERS * 128 - 32;
       if constexpr (SAVE) {
         // the recompute also stores each live unit's xin image
-        encode_units<S, 1>(sm.xin, sm.xin_full, sm.xin_empty, a, sm.f + FF_OFF_FREQS, 0, blockIdx.x, gridDim.x,
-                           n_rounds, e, [&](int item, int u) -> unsigned char* {
-                             return item * G::WG_RAYS < a.n_rays ? unit_image(a.ws.xin, K_XIN, item * G::UNITS + u)
-                                                                 : nullptr;
-                           });
+        encode_units(g, sm.xin, sm.xin_full, sm.xin_empty, a, sm.f + FF_OFF_FREQS, 0, blockIdx.x, gridDim.x,
+                     n_rounds, e, [&](int item, int u) -> unsigned char* {
+                       return item * g.wg_rays() < a.n_rays ? unit_image(a.ws.xin, K_XIN, item * g.units() + u)
+                                                            : nullptr;
+                     });
       } else {
-        encode_units<S, 1>(sm.xin, sm.xin_full, sm.xin_empty, a, sm.f + FF_OFF_FREQS, 0, blockIdx.x, gridDim.x,
-                           n_rounds, e, [](int, int) -> unsigned char* { return nullptr; });
+        encode_units(g, sm.xin, sm.xin_full, sm.xin_empty, a, sm.f + FF_OFF_FREQS, 0, blockIdx.x, gridDim.x,
+                     n_rounds, e, [](int, int) -> unsigned char* { return nullptr; });
       }
     }
   } else {
     reg_alloc<232>();
-    fwd_consume<S, SAVE>(sm, a, wg, n_rounds);
+    fwd_consume<SF, SAVE>(sm, a, wg, n_rounds);
   }
 }
 
@@ -483,12 +507,12 @@ __global__ void __launch_bounds__(FLEX_THREADS, 1) flex_chain_kernel(const FwdAr
 // (the persistent grid; k1::pass_ctas, which K1 shares).
 int flex_ctas(int n_rays, int n_samples) { return k1::pass_ctas(n_rays, n_samples); }
 
-template <int S, bool SAVE>
+template <int SF, bool SAVE>
 int launch_chain(const FwdArgs& a, cudaStream_t st) {
-  auto kernel = flex_chain_kernel<S, SAVE>;
+  auto kernel = flex_chain_kernel<SF, SAVE>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FWD_SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<flex_ctas(a.n_rays, S), FLEX_THREADS, FWD_SMEM_BYTES, st>>>(a);
+  kernel<<<flex_ctas(a.n_rays, a.l.S), FLEX_THREADS, FWD_SMEM_BYTES, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -500,7 +524,9 @@ struct DxArgs {
   const bf16* WT;   // the transposed weights' chunk images (FT_OFF_*)
   float* d_dir;     // (R, 128)
   Workspace ws;
-  int n_rays, n_hidden;
+  int n_rays;
+  UnitLayout l;  // the pass's S, and its items' rays and units (host-computed)
+  int n_hidden;
 };
 
 // Each dX product reads its A, the bf16 cotangent the product before wrote,
@@ -519,8 +545,10 @@ struct alignas(ATOM_BYTES) DxSmem {
   float wa[HIDDEN];                          // the heads' bf16 weights as f32
   float wrgb[DIR_HIDDEN * 3];
   float g[CONSUMERS][2][64 * 4];             // a unit's cotangent rows [rgb, σ], by unit parity
-  float dsum[CONSUMERS][2][4][DIR_HIDDEN];   // a unit's per-warp d_dir sums, by unit parity
-  float dacc[CONSUMERS][DIR_HIDDEN];         // d_dir of a ray's first unit (S = 128)
+  // a unit's d_dir pieces, by unit parity: per warp, its first ray's (slot
+  // 0) and, where its rows reach another ray, its last ray's (slot 1)
+  float dsum[CONSUMERS][2][4][2][DIR_HIDDEN];
+  float dacc[CONSUMERS][DIR_HIDDEN];         // d_dir of a ray's rows in earlier units
   uint64_t full[DX_RING];
   uint64_t empty[DX_RING];
 };
@@ -542,14 +570,15 @@ __device__ __forceinline__ void bulk_wait_read() {
 __device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
 
 // The producer: each unit's dX chunks, WD0ᵀ, WFᵀ, WH_{n-1}ᵀ..WH_0ᵀ.
-template <int S>
+template <int SF>
 __device__ __forceinline__ void dx_produce(DxSmem& sm, const DxArgs& a, int n_pairs) {
+  const UnitSchedule<SF, 1> g{a.l};
   Ring ring;
   auto load = [&](int off, int k) {
     load_layer<DX_RING, 1>(sm.ring, sm.full, sm.empty, ring, a.WT + off, k, HIDDEN, 0);
   };
   for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
-    for (int u = 0; u < Schedule<S, 1>::UNITS; ++u) {
+    for (int u = 0; u < g.units(); ++u) {
       load(FT_OFF_WD0T, DIR_HIDDEN);
       load(FT_OFF_WFT, HIDDEN);
       for (int i = a.n_hidden - 1; i >= 0; --i) load(FT_OFF_WHT + i * HH, HIDDEN);
@@ -699,51 +728,50 @@ __device__ __forceinline__ void dx_product(float* acc, DxSmem& sm, int wg, Ring&
   dx_store<HIDDEN>(acc, sm.atile[wg], gout, part, wg);
 }
 
-// The dX chain of one live unit (rows [64·unit, +64) of the pass, of the
-// item whose first ray is ray0): its cotangent rows staged in shared
-// memory, the heads, gx0 and d_dir of the unit's rays, then each product.
-template <int S, class Release>
+// The dX chain of one live unit (unit u of the item whose first ray is
+// ray0, the pass's unit `unit`): its cotangent rows staged in shared memory
+// (zero on padding rows and past the last ray), the heads, gx0 and d_dir
+// of the unit's rays, then each product.
+template <int SF, class Release>
 __device__ __forceinline__ void dx_unit(DxSmem& sm, const DxArgs& a, const Layout& L, Ring& ring, float* acc, int wg,
                                         int u, int unit, int ray0, float* part, int& dx_units, const Release& release) {
+  const UnitSchedule<SF, 1> g{a.l};
   const Workspace& ws = a.ws;
   const int n = a.n_hidden;
   const int t = threadIdx.x & 127;
   float* gs = sm.g[wg][dx_units & 1];
   auto img = [&](unsigned char* buf) { return unit_image(buf, HIDDEN, unit); };
   if (t < 64) {
-    const bool valid = ray0 + (u * 64 + t) / S < a.n_rays;
-    const size_t row = (size_t)ray0 * S + u * 64 + t;
+    const int i = u * 64 + t;  // the item's row
+    const bool valid = i < g.rows() && ray0 + g.ray_of(i) < a.n_rays;
+    const size_t row = (size_t)ray0 * g.samples() + i;
     reinterpret_cast<float4*>(gs)[t] =
         valid ? *reinterpret_cast<const float4*>(a.g + row * 4) : make_float4(0.f, 0.f, 0.f, 0.f);
   }
   named_bar_sync(BAR_WG + wg, 128);
   dx_heads(sm, img(ws.act[n]), unit_image(ws.x0, DIR_HIDDEN, unit), gs, acc, part, L.f_total, L.f_total + HIDDEN);
+  if constexpr (SF == 0) {
+    // a warp whose 16 rows reach two rays: its pieces from the masked f32
+    // gx0 in acc before the epilogue consumes it
+    if (g.samples() % 16 != 0)
+      k1::DirPieces<UnitSchedule<SF, 1>>{sm.dsum[wg][dx_units & 1][(threadIdx.x >> 5) & 3],
+                                         a.d_dir + (size_t)ray0 * DIR_HIDDEN, g, u, ray0, a.n_rays, true}(acc);
+  }
   dx_store<DIR_HIDDEN>(acc, sm.atile[wg], unit_image(ws.gx0, DIR_HIDDEN, unit), part + FF_OFF_BD0, wg);
-  // d_dir: the warps' column sums of gx0 (acc[0, 4) of each lane) summed
-  // over the ray's warps in order
+  // d_dir: a warp of one ray's piece is its column sums of gx0 (acc[0, 4)
+  // of each lane); the pieces summed over each ray's warps and units in
+  // order (at S = 32 / 64 / 128 the sums of the fixed-S kernels)
   {
     const int lane = threadIdx.x & 31, lw = (threadIdx.x >> 5) & 3;
-    float* ds = sm.dsum[wg][dx_units & 1][lw];
-    const int base = (lane >> 2) * (DIR_HIDDEN / 32);
+    float(*ds)[2][DIR_HIDDEN] = sm.dsum[wg][dx_units & 1];
+    const k1::WarpRays wr(u, lw, g);
+    if (wr.fa >= 0 && wr.fa == wr.fb) {
+      const int base = (lane >> 2) * (DIR_HIDDEN / 32);
 #pragma unroll
-    for (int k = 0; k < DIR_HIDDEN / 32; ++k) ds[k1::fold_col(base + k)] = acc[k];
-    named_bar_sync(BAR_WG + wg, 128);
-    const float(*d)[DIR_HIDDEN] = sm.dsum[wg][dx_units & 1];
-    if constexpr (S == 32) {
-      // two rays a unit: warps 0-1 and 2-3
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int ray = ray0 + r;
-        if (ray < a.n_rays) a.d_dir[(size_t)ray * DIR_HIDDEN + t] = d[2 * r][t] + d[2 * r + 1][t];
-      }
-    } else {
-      const float s = ((d[0][t] + d[1][t]) + d[2][t]) + d[3][t];
-      if (S == 64 || u == 1) {
-        a.d_dir[(size_t)ray0 * DIR_HIDDEN + t] = S == 64 ? s : sm.dacc[wg][t] + s;
-      } else {
-        sm.dacc[wg][t] = s;
-      }
+      for (int k = 0; k < DIR_HIDDEN / 32; ++k) ds[lw][0][k1::fold_col(base + k)] = acc[k];
     }
+    named_bar_sync(BAR_WG + wg, 128);
+    k1::dir_pieces(ds, sm.dacc[wg], a.d_dir + (size_t)ray0 * DIR_HIDDEN, g, u, ray0, a.n_rays, true, t);
     ++dx_units;
   }
   // g_feat = bf16(gx0)·WD0ᵀ ⊙ [feat > 0]
@@ -766,10 +794,10 @@ __device__ __forceinline__ void dx_unit(DxSmem& sm, const DxArgs& a, const Layou
   }
 }
 
-template <int S>
+template <int SF>
 __device__ __forceinline__ void dx_consume(DxSmem& sm, const DxArgs& a, const Layout& L, int wg, int n_pairs,
                                            float* part) {
-  using G = Schedule<S, 1>;
+  const UnitSchedule<SF, 1> g{a.l};
   auto release = [&](int stage) {
     if ((threadIdx.x & 127) == 0) mbar_arrive(&sm.empty[stage]);
   };
@@ -778,20 +806,21 @@ __device__ __forceinline__ void dx_consume(DxSmem& sm, const DxArgs& a, const La
   float acc[128];
 #pragma unroll
   for (int i = 0; i < 128; ++i) acc[i] = 0.f;
-  const int n_items = (a.n_rays + G::WG_RAYS - 1) / G::WG_RAYS;
+  const int n_items = (a.n_rays + g.wg_rays() - 1) / g.wg_rays();
+  const int units = g.units();
   for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
-    const int item = G::item(pair, 0, wg);
+    const int item = g.item(pair, 0, wg);
 #pragma unroll 1
-    for (int u = 0; u < G::UNITS; ++u) {
+    for (int u = 0; u < units; ++u) {
       if (item < n_items) {
         // the heads' images of this warpgroup's next unit into L2, a unit ahead
-        const int next_item = u + 1 < G::UNITS ? item : G::item(pair + gridDim.x, 0, wg);
+        const int next_item = u + 1 < units ? item : g.item(pair + gridDim.x, 0, wg);
         if (next_item < n_items) {
-          const int next = next_item * G::UNITS + (u + 1 < G::UNITS ? u + 1 : 0);
+          const int next = next_item * units + (u + 1 < units ? u + 1 : 0);
           prefetch_l2(unit_image(a.ws.act[a.n_hidden], HIDDEN, next), ATILE_BYTES);
           prefetch_l2(unit_image(a.ws.x0, DIR_HIDDEN, next), ATILE_BYTES / 2);
         }
-        dx_unit<S>(sm, a, L, ring, acc, wg, u, item * G::UNITS + u, item * G::WG_RAYS, part, dx_units, release);
+        dx_unit<SF>(sm, a, L, ring, acc, wg, u, item * units + u, item * g.wg_rays(), part, dx_units, release);
       } else {  // past the last ray: the unit's chunks, untouched
         skip_stages<DX_RING>(sm, ring, DIR_HIDDEN / KCH + HIDDEN / KCH * (1 + a.n_hidden), release);
       }
@@ -800,7 +829,7 @@ __device__ __forceinline__ void dx_consume(DxSmem& sm, const DxArgs& a, const La
   if ((threadIdx.x & 127) == 0) bulk_wait();  // the last tile's copy is out before the CTA's memory goes
 }
 
-template <int S>
+template <int SF>
 __global__ void __launch_bounds__(FLEX_THREADS, 1) flex_dx_kernel(const DxArgs a) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t pad = (ATOM_BYTES - (smem_u32(smem_raw) & (ATOM_BYTES - 1))) & (ATOM_BYTES - 1);
@@ -825,14 +854,14 @@ __global__ void __launch_bounds__(FLEX_THREADS, 1) flex_dx_kernel(const DxArgs a
   }
   __syncthreads();
 
-  const int n_pairs = Schedule<S, 1>::rounds(a.n_rays);
+  const int n_pairs = UnitSchedule<SF, 1>{a.l}.rounds(a.n_rays);
   const int wg = t / 128;
   if (wg == CONSUMERS) {
     reg_dealloc<40>();
-    if (t == CONSUMERS * 128) dx_produce<S>(sm, a, n_pairs);
+    if (t == CONSUMERS * 128) dx_produce<SF>(sm, a, n_pairs);
   } else {
     reg_alloc<232>();
-    dx_consume<S>(sm, a, L, wg, n_pairs, part);
+    dx_consume<SF>(sm, a, L, wg, n_pairs, part);
     // the CTA's partial row: its warps' rows added in order
     named_bar_sync(BAR_CONSUMERS, CONSUMERS * 128);
     const float* rows = a.ws.warp_part + (size_t)blockIdx.x * WARPS_A_CTA * L.part_cols;
@@ -845,20 +874,33 @@ __global__ void __launch_bounds__(FLEX_THREADS, 1) flex_dx_kernel(const DxArgs a
 }
 
 // The recompute and the dX chain of a pass.
-template <int S>
+template <int SF>
 int launch_backward(const FwdArgs& fa, const DxArgs& da, cudaStream_t st) {
-  int err = launch_chain<S, true>(fa, st);
+  int err = launch_chain<SF, true>(fa, st);
   if (err != 0) return err;
-  auto kernel = flex_dx_kernel<S>;
+  auto kernel = flex_dx_kernel<SF>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DX_SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<flex_ctas(da.n_rays, S), FLEX_THREADS, DX_SMEM_BYTES, st>>>(da);
+  kernel<<<flex_ctas(da.n_rays, da.l.S), FLEX_THREADS, DX_SMEM_BYTES, st>>>(da);
   return (int)cudaGetLastError();
 }
 
+// `dispatch_pass`'s functions (mma_tile.cuh: the pass's layout class SF,
+// in the build that holds it); the Flexible trunk has one mode.
+template <int SF, bool>
+struct Forward {
+  static int run(const FwdArgs& a, cudaStream_t st) { return launch_chain<SF, false>(a, st); }
+};
+template <int SF, bool>
+struct Backward {
+  static int run(const FwdArgs& fa, const DxArgs& da, cudaStream_t st) { return launch_backward<SF>(fa, da, st); }
+};
+
+// What the kernels take: S in 1..MAX_SAMPLES, 1..MAX_FREQS bands (K_XIN
+// columns), 0..MAX_HIDDEN hidden layers.
 bool valid(int n_rays, int n_samples, int n_freqs, int n_hidden) {
-  return n_rays >= 0 && n_freqs >= 1 && 3 + 6 * n_freqs <= K_XIN && n_hidden >= 0 &&
-         n_hidden <= MAX_HIDDEN && (n_samples == 32 || n_samples == 64 || n_samples == 128);
+  return n_rays >= 0 && n_samples >= 1 && n_samples <= MAX_SAMPLES && n_freqs >= 1 && 3 + 6 * n_freqs <= K_XIN &&
+         n_hidden >= 0 && n_hidden <= MAX_HIDDEN;
 }
 
 }  // namespace
@@ -872,25 +914,20 @@ extern "C" void nerface_fused_flex_shared_bytes(long long* out) {
   out[2] = (long long)DWG_SMEM_BYTES;
 }
 
-// K4f. Returns a cudaError_t (0 on success). Launches on `stream`, does not
-// synchronise and allocates nothing. W is the forward weights' chunk images
-// (FW_OFF_* offsets), F the bias rows and bands (FF_OFF_*).
+// K4f. Returns a cudaError_t (0 on success; cudaErrorInvalidValue for what
+// `valid` refuses, or for an S whose layout class this build does not
+// hold). Launches on `stream`, does not synchronise and allocates nothing.
+// W is the forward weights' chunk images (FW_OFF_* offsets), F the bias
+// rows and bands (FF_OFF_*).
 extern "C" int nerface_fused_flex_fwd(const float* ro, const float* rd, const float* z,
                                       const float* dir_c, const void* W, const float* F, float* out,
                                       int n_rays, int n_samples, int n_freqs, int n_hidden,
                                       void* stream) {
   if (!valid(n_rays, n_samples, n_freqs, n_hidden)) return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
-  FwdArgs fa{ro, rd, z, dir_c, static_cast<const bf16*>(W), F, out, Workspace{}, n_rays, n_freqs, n_hidden};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (n_samples) {
-    case 32:
-      return launch_chain<32, false>(fa, st);
-    case 64:
-      return launch_chain<64, false>(fa, st);
-    default:
-      return launch_chain<128, false>(fa, st);
-  }
+  FwdArgs fa{ro,    rd,     z,     dir_c, static_cast<const bf16*>(W), F, out, Workspace{}, n_rays,
+             UnitLayout::of(n_samples), n_freqs, n_hidden};
+  return dispatch_pass<Forward>(n_samples, 0, fa, static_cast<cudaStream_t>(stream));
 }
 
 // Bytes of device workspace one K4b call needs.
@@ -900,7 +937,8 @@ extern "C" long long nerface_fused_flex_workspace_bytes(int n_rays, int n_sample
                           flex_layout(n_hidden), nullptr);
 }
 
-// K4b: the gradients of Σ g·out. Returns a cudaError_t (0 on success).
+// K4b: the gradients of Σ g·out. Returns a cudaError_t (0 on success; as
+// K4f's for what it does not take).
 // Launches on `stream`, does not synchronise and allocates nothing:
 // `workspace` holds nerface_fused_flex_workspace_bytes(...) bytes. W and
 // WT are the forward and the transposed weights' chunk images; dW is the
@@ -919,19 +957,10 @@ extern "C" int nerface_fused_flex_bwd(const float* ro, const float* rd, const fl
   carve(static_cast<unsigned char*>(workspace), units, ctas, L, &ws);
   const bf16* Wb = static_cast<const bf16*>(W);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FwdArgs fa{ro, rd, z, dir_c, Wb, F, nullptr, ws, n_rays, n_freqs, n_hidden};
-  DxArgs da{g, Wb, static_cast<const bf16*>(WT), d_dir, ws, n_rays, n_hidden};
-  int err;
-  switch (n_samples) {
-    case 32:
-      err = launch_backward<32>(fa, da, st);
-      break;
-    case 64:
-      err = launch_backward<64>(fa, da, st);
-      break;
-    default:
-      err = launch_backward<128>(fa, da, st);
-  }
+  const UnitLayout l = UnitLayout::of(n_samples);
+  FwdArgs fa{ro, rd, z, dir_c, Wb, F, nullptr, ws, n_rays, l, n_freqs, n_hidden};
+  DxArgs da{g, Wb, static_cast<const bf16*>(WT), d_dir, ws, n_rays, l, n_hidden};
+  int err = dispatch_pass<Backward>(n_samples, 0, fa, da, st);
   if (err != 0) return err;
   // dW = Xᵀ·bf16(gY) from the images: W1 (its xin rows, K = 64), WF, WD0, WH_i
   DwgMat mats[DWG_MATS_MAX];

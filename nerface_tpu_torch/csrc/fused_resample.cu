@@ -27,14 +27,18 @@
 // Design: a persistent grid (as many CTAs as fit on the card, WARPS warps
 // each) whose warps walk the rays, one ray a warp at a time, the next
 // ray's z / w (and u) rows loaded into registers while this one is worked
-// on. Per ray:
+// on. Sc is padded to its class SC (32, 64, 128 or 256: the least power of
+// two ≥ Sc, from 32): the padded z are +inf, so they sort last and are
+// never written out; the padded w weigh nothing; the padded cdf entries
+// are +inf, so no draw's search counts them. Per ray:
 //   1. the scan, in registers: lane l holds z and w at [PER·l, PER·l + PER)
-//      (one 4-, 8- or 16-byte load each); the normaliser is a butterfly
+//      (one 4-, 8- or 16-byte load each where Sc = SC, else one load an
+//      element); the normaliser is a butterfly
 //      sum, the cdf the lane's running sum plus an exclusive warp scan of
 //      the lanes' totals; cdf, bins and z go to the warp's rows in shared
 //      memory (vector stores);
 //   2. the draws: lane l draws q = FP·l .. FP·l + FP - 1 (+inf past Sf): a
-//      branch-free search of log2(Sc) steps over the cdf finds k, and the
+//      branch-free search of log2(SC) steps over the cdf finds k, and the
 //      interpolation runs with the reference's denom < 1e-5 → 1 rule in
 //      separately rounded operations (no FMA contraction: __fadd_rn /
 //      __fmul_rn / __fdiv_rn), as PyTorch's elementwise kernels compute it;
@@ -42,18 +46,22 @@
 //      registers (shuffles, FP a lane); with `sorted_u` (u non-decreasing,
 //      e.g. the deterministic linspace draws) the draw is monotone in u and
 //      they come out sorted;
-//   4. the union: a warp's N = 32·E registers (N the power of two ≥ Sc +
-//      32·FP) hold z ascending (lanes below Sc / E, read back from shared
-//      memory) and then the draws descending (moved into place by one
-//      shuffle a register), a bitonic sequence that log2(N) merge stages
-//      sort; equal values are equal, so the output is what any tie order
-//      (the reference puts z first) gives. Lane l then stores
-//      [E·l, E·l + E) of the row with 16-byte stores.
+//   4. the union: a warp's N = 32·E registers (N the power of two ≥ SC +
+//      32·FP, at most 512) hold z ascending (lanes below SC / E, read back
+//      from shared memory) and then the draws descending (moved into place
+//      by one shuffle a register), a bitonic sequence that log2(N) merge
+//      stages sort; equal values are equal, so the output is what any tie
+//      order (the reference puts z first) gives. Its first Sc + Sf values
+//      are the row: lane l stores those of [E·l, E·l + E), with 16-byte
+//      stores where the row's length is a multiple of 4.
 // The shared (Sf,) u row is read once per CTA. The work is a pure function
 // of the ray's inputs: launches are bit-identical.
 //
-// Shapes: Sc ∈ {32, 64, 128}, 1 ≤ Sf ≤ 128 (FP = 1, 2 or 4 draws a lane:
-// both template arguments), Sc + Sf ≤ 256, z sorted per ray, any R.
+// Shapes: 3 ≤ Sc, 1 ≤ Sf, Sc + Sf ≤ MAX_OUT = 256 (the JAX kernel's Sc ≥ 3,
+// within the port's 256 samples a ray); SC and FP (1, 2, 4 or 8 draws a
+// lane, 32·FP ≥ Sf) are the template arguments, 15 pairs × 2 regimes; z
+// sorted per ray, any R. The wrapper refuses anything else, and so does
+// the entry point (cudaErrorInvalidValue).
 //
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a -O3 (no fast math).
 
@@ -62,8 +70,9 @@
 namespace {
 
 constexpr int WARPS = 8;  // warps a CTA, one ray each at a time
-constexpr int MAX_FINE = 128;
+constexpr int MIN_COARSE = 3;
 constexpr int MAX_OUT = 256;
+constexpr int MAX_FINE = MAX_OUT - MIN_COARSE;
 constexpr unsigned FULL = 0xffffffffu;
 
 __host__ __device__ constexpr int pow2_at_least(int x) { return x <= 1 ? 1 : 2 * pow2_at_least((x + 1) / 2); }
@@ -136,24 +145,35 @@ __device__ __forceinline__ void bitonic_sort(float (&v)[E], int lane) {
   }
 }
 
-// A warp's rows in shared memory: the ray's cdf, bins and z.
+// A warp's rows in shared memory: the ray's cdf, bins and z, padded to SC.
 template <int SC>
 struct __align__(16) WarpRows {
-  float cdf[SC];   // Sc - 1 used
+  float cdf[SC];   // Sc - 1 real, +inf after
   float bins[SC];  // Sc - 1 used
-  float z[SC];
+  float z[SC];     // Sc real, +inf after
 };
 
-// A ray's inputs in registers: z and w at [PER·lane, +PER), u at
-// [FP·lane, +FP) (0 past n_fine, or unread with a shared row).
+// A ray's inputs in registers: z and w at [PER·lane, +PER) (past Sc, z
+// +inf and w 0), u at [FP·lane, +FP) (0 past n_fine, or unread with a
+// shared row).
 template <int SC, int FP>
 struct RayRows {
   static constexpr int PER = SC / 32;
   float z[PER], w[PER], u[FP];
   __device__ __forceinline__ void load(const float* __restrict__ zg, const float* __restrict__ wg,
-                                       const float* __restrict__ ug, bool u_shared, int n_fine, int ray, int lane) {
-    load_vec<PER>(z, zg + (size_t)ray * SC + PER * lane);
-    load_vec<PER>(w, wg + (size_t)ray * SC + PER * lane);
+                                       const float* __restrict__ ug, bool u_shared, int n_coarse, int n_fine,
+                                       int ray, int lane) {
+    if (n_coarse == SC) {  // whole rows of the class: vector loads
+      load_vec<PER>(z, zg + (size_t)ray * SC + PER * lane);
+      load_vec<PER>(w, wg + (size_t)ray * SC + PER * lane);
+    } else {
+#pragma unroll
+      for (int k = 0; k < PER; ++k) {
+        const int i = PER * lane + k;
+        z[k] = i < n_coarse ? zg[(size_t)ray * n_coarse + i] : pos_inf();
+        w[k] = i < n_coarse ? wg[(size_t)ray * n_coarse + i] : 0.f;
+      }
+    }
     if (!u_shared) {
 #pragma unroll
       for (int k = 0; k < FP; ++k) {
@@ -164,16 +184,16 @@ struct RayRows {
   }
 };
 
+// SC: Sc's class (the padded coarse count, 32..256), FP: draws a lane.
 template <int SC, int FP, bool SORTED>
 __global__ void __launch_bounds__(WARPS * 32)
 resample_kernel(const float* __restrict__ z, const float* __restrict__ w, const float* __restrict__ u,
-                int u_shared, float* __restrict__ out, int n_rays, int n_fine) {
+                int u_shared, float* __restrict__ out, int n_rays, int n_coarse, int n_fine) {
   constexpr int PER = SC / 32;                       // z and w a lane in the scan
-  constexpr int B = SC - 1;                          // cdf and bins
   constexpr int N = pow2_at_least(SC + 32 * FP);     // the union's network
   constexpr int E = N / 32;                          // union positions a lane
   constexpr int ZL = SC / E;                         // lanes holding z in the union
-  static_assert(E % FP == 0 && SC % E == 0 && N <= MAX_OUT, "shapes");
+  static_assert(E % FP == 0 && SC % E == 0 && N <= 2 * MAX_OUT, "shapes");
   __shared__ float u_row[MAX_FINE];
   __shared__ WarpRows<SC> rows[WARPS];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -182,22 +202,23 @@ resample_kernel(const float* __restrict__ z, const float* __restrict__ w, const 
   }
   __syncthreads();
   WarpRows<SC>& m = rows[warp];
-  const int n_out = SC + n_fine;
+  const int B = n_coarse - 1;  // the real cdf entries and bins
+  const int n_out = n_coarse + n_fine;
   const int stride = gridDim.x * WARPS;
 
   RayRows<SC, FP> next;
   int ray = blockIdx.x * WARPS + warp;
-  if (ray < n_rays) next.load(z, w, u, u_shared, n_fine, ray, lane);
+  if (ray < n_rays) next.load(z, w, u, u_shared, n_coarse, n_fine, ray, lane);
   for (; ray < n_rays; ray += stride) {
     const RayRows<SC, FP> cur = next;
-    if (ray + stride < n_rays) next.load(z, w, u, u_shared, n_fine, ray + stride, lane);
+    if (ray + stride < n_rays) next.load(z, w, u, u_shared, n_coarse, n_fine, ray + stride, lane);
 
     // 1. the shifted weights, their sum, the cdf and the bins
     float wk[PER], part = 0.f;
 #pragma unroll
     for (int k = 0; k < PER; ++k) {
       const int i = PER * lane + k;
-      wk[k] = (i >= 1 && i <= SC - 2) ? __fadd_rn(cur.w[k], 1e-5f) : 0.f;
+      wk[k] = (i >= 1 && i <= n_coarse - 2) ? __fadd_rn(cur.w[k], 1e-5f) : 0.f;
       part = __fadd_rn(part, wk[k]);
     }
 #pragma unroll
@@ -207,7 +228,7 @@ resample_kernel(const float* __restrict__ z, const float* __restrict__ w, const 
 #pragma unroll
     for (int k = 0; k < PER; ++k) {
       const int i = PER * lane + k;
-      if (i >= 1 && i <= SC - 2) run = __fadd_rn(run, __fdiv_rn(wk[k], total));
+      if (i >= 1 && i <= n_coarse - 2) run = __fadd_rn(run, __fdiv_rn(wk[k], total));
       c[k] = run;
     }
     float incl = run;
@@ -222,7 +243,8 @@ resample_kernel(const float* __restrict__ z, const float* __restrict__ w, const 
     float bins[PER];
 #pragma unroll
     for (int k = 0; k < PER; ++k) {
-      c[k] = __fadd_rn(excl, c[k]);
+      // a padded entry is +inf: no draw counts it
+      c[k] = PER * lane + k < B ? __fadd_rn(excl, c[k]) : pos_inf();
       bins[k] = __fmul_rn(0.5f, __fadd_rn(k + 1 < PER ? cur.z[k + 1] : z_next, cur.z[k]));
     }
     __syncwarp();  // the last ray's reads of the rows are done
@@ -239,7 +261,7 @@ resample_kernel(const float* __restrict__ z, const float* __restrict__ w, const 
       s[k] = pos_inf();
       if (q < n_fine) {
         const float uq = u_shared ? u_row[q] : cur.u[k];
-        int pos = 0;  // #{cdf ≤ uq}: the steps add up to B
+        int pos = 0;  // #{cdf ≤ uq} over the real entries: the steps add up to SC - 1 ≥ B
 #pragma unroll
         for (int step = SC / 2; step > 0; step >>= 1) pos += m.cdf[pos + step - 1] <= uq ? step : 0;
         const int below = pos > 0 ? pos - 1 : 0;
@@ -287,8 +309,8 @@ resample_kernel(const float* __restrict__ z, const float* __restrict__ w, const 
 }
 
 template <int SC, int FP, bool SORTED>
-int launch_one(const float* z, const float* w, const float* u, int u_shared, float* out, int n_rays, int n_fine,
-               cudaStream_t stream) {
+int launch_one(const float* z, const float* w, const float* u, int u_shared, float* out, int n_rays, int n_coarse,
+               int n_fine, cudaStream_t stream) {
   auto kernel = resample_kernel<SC, FP, SORTED>;
   static int ctas = 0;  // CTAs resident on the card at once: the persistent grid
   if (ctas == 0) {
@@ -301,41 +323,49 @@ int launch_one(const float* z, const float* w, const float* u, int u_shared, flo
     ctas = sms * per_sm;
   }
   const int need = (n_rays + WARPS - 1) / WARPS;
-  kernel<<<need < ctas ? need : ctas, WARPS * 32, 0, stream>>>(z, w, u, u_shared, out, n_rays, n_fine);
+  kernel<<<need < ctas ? need : ctas, WARPS * 32, 0, stream>>>(z, w, u, u_shared, out, n_rays, n_coarse, n_fine);
   return (int)cudaGetLastError();
 }
 
+// Sc's class SC: FP draws a lane (32·FP ≥ Sf) and the regime.
 template <int SC>
-int launch(const float* z, const float* w, const float* u, int u_shared, float* out, int n_rays, int n_fine,
-           int sorted_u, cudaStream_t stream) {
-  const int fp = n_fine <= 32 ? 1 : (n_fine <= 64 ? 2 : 4);
+int launch(const float* z, const float* w, const float* u, int u_shared, float* out, int n_rays, int n_coarse,
+           int n_fine, int sorted_u, cudaStream_t stream) {
+  const int fp = n_fine <= 32 ? 1 : (n_fine <= 64 ? 2 : (n_fine <= 128 ? 4 : 8));
+#define NERFACE_K5_LAUNCH(FP, SORTED) \
+  return launch_one<SC, FP, SORTED>(z, w, u, u_shared, out, n_rays, n_coarse, n_fine, stream)
   switch (fp * 2 + (sorted_u ? 1 : 0)) {
-    case 2: return launch_one<SC, 1, false>(z, w, u, u_shared, out, n_rays, n_fine, stream);
-    case 3: return launch_one<SC, 1, true>(z, w, u, u_shared, out, n_rays, n_fine, stream);
-    case 4: return launch_one<SC, 2, false>(z, w, u, u_shared, out, n_rays, n_fine, stream);
-    case 5: return launch_one<SC, 2, true>(z, w, u, u_shared, out, n_rays, n_fine, stream);
-    case 8: return launch_one<SC, 4, false>(z, w, u, u_shared, out, n_rays, n_fine, stream);
-    default: return launch_one<SC, 4, true>(z, w, u, u_shared, out, n_rays, n_fine, stream);
+    case 2: NERFACE_K5_LAUNCH(1, false);
+    case 3: NERFACE_K5_LAUNCH(1, true);
+    case 4: NERFACE_K5_LAUNCH(2, false);
+    case 5: NERFACE_K5_LAUNCH(2, true);
+    case 8: NERFACE_K5_LAUNCH(4, false);
+    case 9: NERFACE_K5_LAUNCH(4, true);
   }
+  if constexpr (SC + 32 * 8 <= 2 * MAX_OUT && SC < 256) {  // Sc ≤ 128 leaves room for Sf > 128
+    if (sorted_u) NERFACE_K5_LAUNCH(8, true);
+    NERFACE_K5_LAUNCH(8, false);
+  }
+#undef NERFACE_K5_LAUNCH
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // z, w (n_rays, n_coarse), u (n_rays, n_fine) or (n_fine,) with u_shared,
 // out (n_rays, n_coarse + n_fine), all f32 and contiguous. Returns a
-// cudaError_t (0 on success). Launches on `stream`, does not synchronise and
-// allocates nothing.
+// cudaError_t (0 on success; cudaErrorInvalidValue outside 3 ≤ n_coarse,
+// 1 ≤ n_fine, n_coarse + n_fine ≤ 256). Launches on `stream`, does not
+// synchronise and allocates nothing.
 extern "C" int nerface_fused_resample(const float* z, const float* w, const float* u, int u_shared,
                                       float* out, int n_rays, int n_coarse, int n_fine,
                                       int sorted_u, void* stream) {
-  if (n_rays < 0 || n_fine < 1 || n_fine > MAX_FINE || n_coarse + n_fine > MAX_OUT)
+  if (n_rays < 0 || n_coarse < MIN_COARSE || n_fine < 1 || n_coarse + n_fine > MAX_OUT)
     return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (n_coarse) {
-    case 32: return launch<32>(z, w, u, u_shared, out, n_rays, n_fine, sorted_u, s);
-    case 64: return launch<64>(z, w, u, u_shared, out, n_rays, n_fine, sorted_u, s);
-    case 128: return launch<128>(z, w, u, u_shared, out, n_rays, n_fine, sorted_u, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (n_coarse <= 32) return launch<32>(z, w, u, u_shared, out, n_rays, n_coarse, n_fine, sorted_u, s);
+  if (n_coarse <= 64) return launch<64>(z, w, u, u_shared, out, n_rays, n_coarse, n_fine, sorted_u, s);
+  if (n_coarse <= 128) return launch<128>(z, w, u, u_shared, out, n_rays, n_coarse, n_fine, sorted_u, s);
+  return launch<256>(z, w, u, u_shared, out, n_rays, n_coarse, n_fine, sorted_u, s);
 }

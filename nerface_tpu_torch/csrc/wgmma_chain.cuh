@@ -8,8 +8,8 @@
 // (`load_layer`), three of its warps encode each unit's [xyz; PE; 0] tile
 // into the consumer's two swizzled xin buffers (`encode_units`), handed
 // over on mbarriers. A consumer warpgroup takes whole rays as 64-row units
-// (`Schedule`, or the paper kernels' `UnitSchedule`, S fixed by a layout
-// class or read at run time) and runs each layer as one chain of wgmmas
+// (`UnitSchedule`, S fixed by a layout class or read at run time) and runs
+// each layer as one chain of wgmmas
 // with A in registers (`chain_layer`), its epilogue turning the
 // accumulators into the next layer's A (`acc_to_a` with `ChainBias`,
 // `ChainDir` or `ChainDirRows`); the narrow heads are m64n8 products
@@ -28,41 +28,17 @@ constexpr int CHAIN_ENCODERS = 3;                  // warps of the producer warp
 constexpr int CHAIN_STAGE = KCH * 256 * 2;         // a ring stage: one 64 × 256 bf16 chunk image
 constexpr int XIN_BYTES = 64 * ROW_BYTES;          // a unit's [xyz; PE; 0], K = 64
 
-// The unit schedule of K4f / K4b (fused_flex.cu), S = 32, 64 or 128. A
-// consumer warpgroup takes whole rays, WG_RAYS at a time (an item), as
-// UNITS 64-row units: two rays a unit at S = 32, one at S = 64, one ray in
-// two units at S = 128. Round r of a CTA group of CTAS (a cluster, or 1)
-// gives item (r·CTAS + rank)·CHAIN_CONSUMERS + wg to consumer wg of CTA
-// rank. Unit k of the pass holds its sample rows [64k, 64k + 64).
-template <int S, int CTAS>
-struct Schedule {
-  static constexpr int WG_RAYS = S >= 64 ? 1 : 64 / S;
-  static constexpr int UNITS = S > 64 ? S / 64 : 1;
-  static constexpr int RAYS_PER_ROUND = CTAS * CHAIN_CONSUMERS * WG_RAYS;
-  __host__ __device__ static int rounds(int n_rays) { return (n_rays + RAYS_PER_ROUND - 1) / RAYS_PER_ROUND; }
-  __host__ __device__ static int item(int round, int rank, int wg) {
-    return (round * CTAS + rank) * CHAIN_CONSUMERS + wg;
-  }
-  // the interface `encode_units` reads, shared with UnitSchedule
-  __host__ __device__ static constexpr int samples() { return S; }
-  __host__ __device__ static constexpr int wg_rays() { return WG_RAYS; }
-  __host__ __device__ static constexpr int units() { return UNITS; }
-  __host__ __device__ static constexpr int rows() { return WG_RAYS * S; }
-  __host__ __device__ static constexpr int ray_of(int row) { return row / S; }
-};
-
-// The paper kernels' sample counts (K2, K3f, K1, K3b): 1..MAX_SAMPLES. An
-// item is at most ITEM_ROWS rows (four units).
+// The kernels' sample counts (K2, K3f, K1, K3b, K4f, K4b): 1..MAX_SAMPLES.
+// An item is at most ITEM_ROWS rows (four units).
 constexpr int MAX_SAMPLES = 256;
 constexpr int ITEM_ROWS = 256;
 
-// The paper kernels' unit layout at any S in 1..MAX_SAMPLES: an item, what
+// The kernels' unit layout at any S in 1..MAX_SAMPLES: an item, what
 // a consumer warpgroup takes at once, is `rays` whole rays in `units`
 // 64-row units. Its row i < rays·S is sample i % S of its ray i / S; the
 // rows from rays·S to 64·units pad the last unit, and the kernels take
 // them as rows past the last ray. S dividing 64: 64 / S rays in one unit;
-// S a multiple of 64: one ray in S / 64 units (both as `Schedule`); any
-// other S: the ray count up to ITEM_ROWS / S whose units hold the most
+// S a multiple of 64: one ray in S / 64 units; any other S: the ray count up to ITEM_ROWS / S whose units hold the most
 // real rows a unit, the fewest rays on a tie (8 rays in 3 units at S = 24,
 // 4 in 3 at 48, 2 in 3 at 96, 1 in 3 at 192, 3 in 2 at 40).
 // ops/kernels/fused_mlp.py::unit_layout is the same rule. An item row's
@@ -91,11 +67,11 @@ struct UnitLayout {
   __host__ __device__ int ray_of(int row) const { return (int)(((uint32_t)row * div) >> 24); }
 };
 
-// `Schedule` at the pass's layout, for an instantiation of layout class
-// SF: at SF = 0 the UnitLayout `l` (a kernel argument, computed on the
+// The schedule of a pass's items at its layout, for an instantiation of
+// layout class SF: at SF = 0 the UnitLayout `l` (a kernel argument, computed on the
 // host: read from the argument space, S, rays and units hold no register
 // through the consumers' chains); at SF = 64 or 128, the passes of the
-// paper schedule (64 + 64), one ray over SF / 64 units as constants, so
+// bundled configs (64 + 64), one ray over SF / 64 units as constants, so
 // that code folds as it did when S was a template argument of every
 // kernel (at a runtime S, K1's 64 + 64 pair took 2.5–4 % longer and K2's
 // tile 2 %). Round r of a CTA group of CTAS gives item (r·CTAS + rank)·
@@ -304,7 +280,7 @@ __device__ __forceinline__ void encode_task(unsigned char* xin, unsigned char* x
 
 // The encoder warps (CHAIN_ENCODERS · 32 threads, index e): every unit of
 // both consumer warpgroups of CTA `rank`, rounds round0, round0 + step, ...
-// below n_rounds of schedule g (a `Schedule` or a `UnitSchedule`), in the
+// below n_rounds of schedule g (a `UnitSchedule`), in the
 // order the consumers take them, each into the next of the warpgroup's two
 // xin buffers once its reader has released it. xg(item, u) is the unit's
 // workspace image, or null.
@@ -330,15 +306,6 @@ __device__ __forceinline__ void encode_units(const G& g, unsigned char (*xin)[2]
       }
     }
   }
-}
-
-// K4f / K4b's form: the schedule of S samples a ray in groups of CTAS.
-template <int S, int CTAS, class A, class Xg>
-__device__ __forceinline__ void encode_units(unsigned char (*xin)[2][XIN_BYTES], uint64_t (*xin_full)[2],
-                                             uint64_t (*xin_empty)[2], const A& a, const float* freqs,
-                                             uint32_t rank, int round0, int step, int n_rounds, int e,
-                                             const Xg& xg) {
-  encode_units(Schedule<S, CTAS>{}, xin, xin_full, xin_empty, a, freqs, rank, round0, step, n_rounds, e, xg);
 }
 
 }  // namespace sm90

@@ -17,10 +17,10 @@ Flags: Hopper (`sm_90a`), -O3, and neither `--use_fast_math` nor
 arguments reach hundreds of radians), and the disparity guard
 max(acc, 1e-38) needs denormals.
 
-K1's and K3's libraries (`fused_train_pass`, `fused_paper_mlp`) hold the
-paper kernels' layout classes (`csrc/mma_tile.cuh`) in two builds,
-compiled side by side: the fixed classes S = 64 / 128 and the runtime
-class of every other S (`paper_library`, `SAMPLE_CLASS_DEFINES`).
+K1's, K3's and K4's libraries (`fused_train_pass`, `fused_paper_mlp`,
+`fused_flex`) hold the kernels' layout classes (`csrc/mma_tile.cuh`) in
+two builds, compiled side by side: the fixed classes S = 64 / 128 and the
+runtime class of every other S (`layout_library`, `SAMPLE_CLASS_DEFINES`).
 
 A debug build: the environment variable NERFACE_KERNEL_DEFINES (defines,
 space-separated) is added to every library's `defines`, e.g.
@@ -135,9 +135,10 @@ def load_library(name: str = "fused_paper_render", defines: tuple = ()) -> ctype
     return lib
 
 
-# The two builds of K1's and K3's libraries: the fixed layout classes (S =
-# 64 and 128, the paper schedule's passes) and the runtime class (any other
-# S). Each builds in about half the nvcc time of one library of all of them.
+# The two builds of K1's, K3's and K4's libraries: the fixed layout classes
+# (S = 64 and 128, the passes of the bundled configs) and the runtime class
+# (any other S). Each builds in about half the nvcc time of one library of
+# all of them.
 FIXED_SAMPLES = (64, 128)
 SAMPLE_CLASS_DEFINES = {"fixed": ("NERFACE_SAMPLE_CLASSES=2",), "any": ("NERFACE_SAMPLE_CLASSES=1",)}
 
@@ -147,7 +148,11 @@ def sample_class_defines(n_samples: int) -> tuple:
     return SAMPLE_CLASS_DEFINES["fixed" if n_samples in FIXED_SAMPLES else "any"]
 
 
-def paper_library(name: str, n_samples: int) -> ctypes.CDLL:
+# the libraries built as the two builds of `SAMPLE_CLASS_DEFINES`
+LAYOUT_LIBRARIES = ("fused_train_pass", "fused_paper_mlp", "fused_flex")
+
+
+def layout_library(name: str, n_samples: int) -> ctypes.CDLL:
     """`load_library(name)` in the build that holds n_samples' layout class
-    (`fused_train_pass` or `fused_paper_mlp`)."""
+    (one of LAYOUT_LIBRARIES)."""
     return load_library(name, sample_class_defines(n_samples))

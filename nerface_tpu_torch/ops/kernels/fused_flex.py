@@ -36,10 +36,13 @@ contribution, relu, `fc_rgb` — and returns the raw radiance [rgb, σ]
   the bias gradients, d_v0 and d_dir in f32. `fused_flex_mlp` is the
   JAX package's entry point.
 * `flex_fused_eligible` is the port's copy of the JAX eligibility check
-  (`fused_flex.py:364-385`) plus what the kernel is built for: hidden
-  width 256 only (JAX also admits 512, which here runs the model's plain
-  forward), at most `MAX_HIDDEN` hidden layers, and on the card
-  `FLEX_KERNEL_SAMPLES` samples per ray.
+  (`fused_flex.py:364-385`) and of its pipeline's tile rule
+  (`nerface_tpu/render/pipeline.py:287-292`: `kernel_pass_ok`, the ray
+  count a multiple of 8) plus what the kernel is built for: hidden width
+  256 only (JAX also admits 512, which here runs the model's plain
+  forward), at most `MAX_HIDDEN` hidden layers, 1..MAX_SAMPLES samples a
+  ray (any S: `csrc/fused_flex.cu` takes the paper kernels' `unit_layout`,
+  S = 64 and 128 as fixed layout classes, every other S at run time).
 """
 
 from __future__ import annotations
@@ -55,15 +58,17 @@ from nerface_tpu_torch.ops.kernels.fused_mlp import (
     HIDDEN,
     K_XIN,
     MAX_FREQS,
+    MAX_SAMPLES,
     _check,
     _device_bands,
     _encode_points,
     _ptr,
+    check_samples,
+    kernel_pass_ok,
     sm90_chunk_image,
+    unit_layout,
 )
 
-# S values the kernels are compiled for (whole rays in 64-row units)
-FLEX_KERNEL_SAMPLES = (32, 64, 128)
 # hidden layers after layer1 the kernel takes (num_layers − 1)
 MAX_HIDDEN = 8
 
@@ -106,12 +111,14 @@ def _unpack(weights: Sequence[torch.Tensor], n_hidden: int):
     return dict(zip(wn + bn, weights))
 
 
-def flex_fused_eligible(model, encode_xyz, pe_dir, n_samples: int, device) -> bool:
+def flex_fused_eligible(model, encode_xyz, pe_dir, n_rays: int, n_samples: int, device) -> bool:
     """Whether `model` can run its radiance field as one `fused_flex_mlp`
     call: a Flexible-family model with view directions, the xyz input and
     its declared encoding, no skip layer engaged (every reference config),
     hidden width 256, at most MAX_HIDDEN hidden layers, ≤ MAX_FREQS bands,
-    and on the card a sample count the kernel is built for."""
+    1..MAX_SAMPLES samples a ray, and on the card a pass the JAX package
+    sends to its Pallas kernel (`kernel_pass_ok`: its tile picker finds a
+    ray tile, so n_rays % 8 == 0)."""
     from nerface_tpu_torch.models.nerf_models import _FlexibleFamily
 
     if not isinstance(model, _FlexibleFamily):
@@ -129,7 +136,9 @@ def flex_fused_eligible(model, encode_xyz, pe_dir, n_samples: int, device) -> bo
         return False
     if any(model._is_skip_forward(i, n_hidden) for i in range(n_hidden)):
         return False
-    return torch.device(device).type != "cuda" or n_samples in FLEX_KERNEL_SAMPLES
+    if torch.device(device).type == "cuda":
+        return kernel_pass_ok(n_rays, n_samples)
+    return 1 <= n_samples <= MAX_SAMPLES
 
 
 # -- plain versions -----------------------------------------------------------
@@ -394,10 +403,7 @@ def _kernel_call(weights, ro, rd, z, dir_c, v0, n_hidden, num_encoding_fn_xyz, g
     """Check the operands of a kernel launch; returns the weights by name."""
     dev = ro.device
     n_rays, n_samples = z.shape
-    if n_samples not in FLEX_KERNEL_SAMPLES:
-        raise ValueError(
-            f"kernel is built for {FLEX_KERNEL_SAMPLES} samples per ray, got {n_samples}"
-        )
+    check_samples(n_samples)
     if not 1 <= num_encoding_fn_xyz <= MAX_FREQS:
         raise ValueError(f"kernel takes 1..{MAX_FREQS} xyz encoding bands")
     if not 0 <= n_hidden <= MAX_HIDDEN:
@@ -441,10 +447,12 @@ def _kernel_operands(W, v0, n_hidden, num_encoding_fn_xyz, log_sampling_xyz, tra
     return both[wt_total:], fbuf, both[:wt_total]
 
 
-def _lib():
-    from nerface_tpu_torch.ops.kernels.build import load_library
+def _lib(n_samples: int):
+    """The build of `csrc/fused_flex.cu` that holds n_samples' layout
+    class (`build.layout_library`)."""
+    from nerface_tpu_torch.ops.kernels.build import layout_library
 
-    return load_library("fused_flex")
+    return layout_library("fused_flex", n_samples)
 
 
 def _launch_flex_fwd(operands, per_ray, out, n_hidden, num_encoding_fn_xyz):
@@ -457,7 +465,7 @@ def _launch_flex_fwd(operands, per_ray, out, n_hidden, num_encoding_fn_xyz):
     n_rays, n_samples = z.shape
     with torch.cuda.device(ro.device):
         stream = torch.cuda.current_stream(ro.device).cuda_stream
-        err = _lib().nerface_fused_flex_fwd(
+        err = _lib(n_samples).nerface_fused_flex_fwd(
             _ptr(ro), _ptr(rd), _ptr(z), _ptr(dc), _ptr(wbuf), _ptr(fbuf), _ptr(out), n_rays,
             n_samples, num_encoding_fn_xyz, n_hidden, ctypes.c_void_p(stream),
         )
@@ -479,7 +487,7 @@ def flex_bwd_outputs(n_rays: int, n_hidden: int, dev) -> Dict[str, torch.Tensor]
 
 def flex_bwd_workspace(n_rays: int, n_samples: int, n_hidden: int, dev) -> torch.Tensor:
     """K4b's device workspace for a pass (`workspace_layout`'s bytes)."""
-    nbytes = _lib().nerface_fused_flex_workspace_bytes(n_rays, n_samples, n_hidden)
+    nbytes = _lib(n_samples).nerface_fused_flex_workspace_bytes(n_rays, n_samples, n_hidden)
     return torch.empty(nbytes, dtype=torch.uint8, device=dev)
 
 
@@ -494,7 +502,7 @@ def _launch_flex_bwd(operands, per_ray, out, ws, n_hidden, num_encoding_fn_xyz):
     n_rays, n_samples = z.shape
     with torch.cuda.device(ro.device):
         stream = torch.cuda.current_stream(ro.device).cuda_stream
-        err = _lib().nerface_fused_flex_bwd(
+        err = _lib(n_samples).nerface_fused_flex_bwd(
             _ptr(ro), _ptr(rd), _ptr(z), _ptr(dc), _ptr(wbuf), _ptr(wtbuf), _ptr(fbuf), _ptr(g),
             _ptr(out["dw"]), _ptr(out["df"]), _ptr(out["d_dir"]), _ptr(ws), n_rays, n_samples,
             num_encoding_fn_xyz, n_hidden, ctypes.c_void_p(stream),
@@ -513,6 +521,7 @@ def fused_flex_forward(
     dir_contrib (R, 128) = pe_dir @ W_dir0[:, 256:].T, v0 (1, 256), all
     f32 and contiguous."""
     dev = ray_origins.device
+    check_samples(z_vals.shape[-1])
     if dev.type == "cpu":
         return fused_flex_forward_reference(
             weights, ray_origins, ray_directions, z_vals, dir_contrib, v0, n_hidden,
@@ -543,6 +552,7 @@ def fused_flex_backward(
     order and dtypes, d_v0 (1, 256), d_dir (R, 128)), f32 but for the
     matrices' bf16."""
     dev = ray_origins.device
+    check_samples(z_vals.shape[-1])
     if dev.type == "cpu":
         return fused_flex_backward_reference(
             weights, ray_origins, ray_directions, z_vals, dir_contrib, v0, g, n_hidden,
@@ -605,11 +615,12 @@ def unit_schedule(n_rays: int, n_samples: int):
     """The persistent grid's work, as the kernels walk it: a list of (cta,
     round, warpgroup, unit, live) in each CTA's order. CTA c takes rounds
     c, c + ctas, ...; round r gives warpgroup wg the item 2r + wg, whole
-    rays (two at S = 32, one at 64 and 128) as 64-row units (two at S =
-    128); unit k holds the pass's rows [64k, 64k + 64). An item past the
-    last ray is not live."""
-    wg_rays = 64 // n_samples if n_samples < 64 else 1
-    units_an_item = n_samples // 64 if n_samples > 64 else 1
+    rays as 64-row units (`unit_layout`: two rays in one unit at S = 32,
+    one ray in one at 64 and in two at 128, 8 rays in 3 at S = 24); item
+    k's units are the pass's units [k·units, (k + 1)·units), its rows past
+    its rays' samples pad the last. An item past the last ray is not
+    live."""
+    wg_rays, units_an_item = unit_layout(n_samples)
     rounds = -(-n_rays // (CONSUMERS * wg_rays))
     ctas = min(rounds, FLEX_CTAS)
     out = []
@@ -627,9 +638,9 @@ def workspace_layout(n_rays: int, n_samples: int, n_hidden: int):
     lays it out: the image buffers (`workspace_buffers`), the relu masks
     (`mask_buffers`), then the warps' and the CTAs' partial rows and dW's
     segments, each 256-byte aligned."""
-    per_unit = 64 // n_samples if n_samples < 64 else 1
-    units = -(-n_rays // per_unit) * (n_samples // 64 if n_samples > 64 else 1)
-    ctas = min(-(-n_rays // (CONSUMERS * per_unit)), FLEX_CTAS)
+    rays, units_an_item = unit_layout(n_samples)
+    units = -(-n_rays // rays) * units_an_item
+    ctas = min(-(-n_rays // (CONSUMERS * rays)), FLEX_CTAS)
     part_cols = f_offsets(n_hidden)["TOTAL"] + HIDDEN + 3 * DIR_HIDDEN
     pieces = [(name, units * width * 128) for name, width in workspace_buffers(n_hidden)]
     pieces += [(name, units * MASK_BYTES) for name in mask_buffers(n_hidden)]

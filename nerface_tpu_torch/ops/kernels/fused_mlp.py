@@ -108,11 +108,11 @@ def kernel_pass_ok(n_rays: int, n_samples: int) -> bool:
 
 
 def check_samples(n_samples: int) -> None:
-    """The paper kernels' wrappers take 1..MAX_SAMPLES samples a ray, on
-    either device (the CPU runs the kernels' plain versions)."""
+    """The paper kernels' and K4's wrappers take 1..MAX_SAMPLES samples a
+    ray, on either device (the CPU runs the kernels' plain versions)."""
     if not 1 <= n_samples <= MAX_SAMPLES:
         raise ValueError(
-            f"the paper kernels take 1..{MAX_SAMPLES} samples per ray, got {n_samples}")
+            f"the kernels take 1..{MAX_SAMPLES} samples per ray, got {n_samples}")
 
 # The kernel bundle's matrices (in, out) and bias rows, in the JAX
 # package's order; the smaller model (`small`) has no w5 / b5.
@@ -908,12 +908,12 @@ def _launch_paper_fwd(operands, per_ray, out, num_encoding_fn_xyz, small):
     `_kernel_operands(..., transposed=False)`, `per_ray` (ro, rd, z), `out`
     the (R, S, 4) f32 output. Counts the launch in
     `fused_paper_mlp_forward.launches`."""
-    from nerface_tpu_torch.ops.kernels.build import paper_library
+    from nerface_tpu_torch.ops.kernels.build import layout_library
 
     dir_c, wbuf, fbuf, _ = operands
     ro, rd, z = per_ray
     n_rays, n_samples = z.shape
-    lib = paper_library("fused_paper_mlp", n_samples)
+    lib = layout_library("fused_paper_mlp", n_samples)
     with torch.cuda.device(ro.device):
         stream = torch.cuda.current_stream(ro.device).cuda_stream
         err = lib.nerface_fused_paper_mlp_fwd(
@@ -969,9 +969,9 @@ def paper_bwd_outputs(n_rays: int, dev) -> Dict[str, torch.Tensor]:
 
 def paper_bwd_workspace(n_rays: int, n_samples: int, dev) -> torch.Tensor:
     """K3b's device workspace for a pass (`csrc/paper_train.cuh`)."""
-    from nerface_tpu_torch.ops.kernels.build import paper_library
+    from nerface_tpu_torch.ops.kernels.build import layout_library
 
-    nbytes = paper_library("fused_paper_mlp", n_samples).nerface_fused_paper_mlp_workspace_bytes(
+    nbytes = layout_library("fused_paper_mlp", n_samples).nerface_fused_paper_mlp_workspace_bytes(
         n_rays, n_samples)
     return torch.empty(nbytes, dtype=torch.uint8, device=dev)
 
@@ -981,12 +981,12 @@ def _launch_paper_bwd(operands, per_ray, out, ws, num_encoding_fn_xyz, small):
     `_kernel_operands(..., transposed=True)`, `per_ray` (ro, rd, z, g),
     `out` from `paper_bwd_outputs`, `ws` from `paper_bwd_workspace`.
     Counts the launch in `fused_paper_mlp_backward.launches`."""
-    from nerface_tpu_torch.ops.kernels.build import paper_library
+    from nerface_tpu_torch.ops.kernels.build import layout_library
 
     dir_c, wbuf, fbuf, wtbuf = operands
     ro, rd, z, g = per_ray
     n_rays, n_samples = z.shape
-    lib = paper_library("fused_paper_mlp", n_samples)
+    lib = layout_library("fused_paper_mlp", n_samples)
     with torch.cuda.device(ro.device):
         stream = torch.cuda.current_stream(ro.device).cuda_stream
         err = lib.nerface_fused_paper_mlp_bwd(

@@ -14,6 +14,17 @@ JAX package's, it is an entry point of its own: nothing in `render/` or
   `render_rays` runs: `sample_pdf` over the z-midpoints and the weights
   `w[:, 1:-1]` at the given draws, then `merge_sorted_zvals`.
 
+The kernel takes every shape of the JAX kernel within the port's 256
+samples a ray: Sc ≥ MIN_COARSE = 3 coarse samples, Sf ≥ 1 draws, Sc + Sf ≤
+MAX_TOTAL = 256 (`csrc/fused_resample.cu` pads Sc to its class, 32, 64, 128
+or 256). The wrapper raises past that on either device.
+
+It agrees with `sample_pdf` to 2e-6·far where every pdf bin is ≥ 1e-3,
+but not where a bin sits at the 1e-5 clamp: near the knots of such a bin
+the draw jumps across it with the cdf's last ulp, which no two orders of
+f32 sums share. A change that wires it into `render_rays` must handle
+those bins first.
+
 Two regimes, as in JAX: `sorted_u=True` when u is non-decreasing per ray
 (the deterministic linspace draws, passed once as an (Sf,) row), where the
 drawn samples come out sorted and the kernel merges without sorting them;
@@ -30,9 +41,8 @@ import torch
 
 from nerface_tpu_torch.ops.sampling import merge_sorted_zvals, sample_pdf
 
-KERNEL_COARSE = (32, 64, 128)
-MAX_FINE = 128
-MAX_TOTAL = 256
+MIN_COARSE = 3  # the JAX kernel's least Sc
+MAX_TOTAL = 256  # Sc + Sf, the port's samples a ray
 
 
 def _check_shapes(z_vals, weights, u):
@@ -67,9 +77,10 @@ def fused_resample(
 ) -> torch.Tensor:
     """The fused resample. z_vals, weights (R, Sc) f32 with z sorted per
     ray; u (R, Sf) or (Sf,) f32 draws in [0, 1], non-decreasing per ray
-    when `sorted_u`. On the card: Sc ∈ KERNEL_COARSE, 1 ≤ Sf ≤ MAX_FINE,
-    Sc + Sf ≤ MAX_TOTAL, contiguous inputs."""
+    when `sorted_u`. MIN_COARSE ≤ Sc, 1 ≤ Sf, Sc + Sf ≤ MAX_TOTAL; on the
+    card contiguous inputs."""
     _check_shapes(z_vals, weights, u)
+    check_sample_counts(z_vals.shape[1], u.shape[-1])
     dev = z_vals.device
     if dev.type == "cpu":
         return fused_resample_reference(z_vals, weights, u, sorted_u)
@@ -85,18 +96,23 @@ def fused_resample(
 fused_resample.launches = 0
 
 
-def check_kernel_operands(z_vals: torch.Tensor, weights: torch.Tensor, u: torch.Tensor):
-    """Raise on what the kernel does not take: Sc outside KERNEL_COARSE, Sf
-    outside 1..MAX_FINE or Sc + Sf past MAX_TOTAL, an operand that is not
-    f32, not on z_vals' device or not contiguous."""
-    n_coarse, n_fine = z_vals.shape[1], u.shape[-1]
-    if n_coarse not in KERNEL_COARSE:
-        raise ValueError(f"kernel is built for {KERNEL_COARSE} coarse samples, got {n_coarse}")
-    if not 1 <= n_fine <= MAX_FINE or n_coarse + n_fine > MAX_TOTAL:
+def check_sample_counts(n_coarse: int, n_fine: int) -> None:
+    """Raise on sample counts outside the kernel's domain: Sc below
+    MIN_COARSE, Sf below 1, Sc + Sf past MAX_TOTAL."""
+    if n_coarse < MIN_COARSE:
+        raise ValueError(f"the kernel takes at least {MIN_COARSE} coarse samples, got {n_coarse}")
+    if n_fine < 1 or n_coarse + n_fine > MAX_TOTAL:
         raise ValueError(
-            f"kernel takes 1..{MAX_FINE} fine samples and at most {MAX_TOTAL} in all, "
+            f"the kernel takes 1 or more fine samples and at most {MAX_TOTAL} in all, "
             f"got {n_coarse} + {n_fine}"
         )
+
+
+def check_kernel_operands(z_vals: torch.Tensor, weights: torch.Tensor, u: torch.Tensor):
+    """Raise on what the kernel does not take: sample counts outside
+    `check_sample_counts`' domain, an operand that is not f32, not on
+    z_vals' device or not contiguous."""
+    check_sample_counts(z_vals.shape[1], u.shape[-1])
     for name, t in (("z_vals", z_vals), ("weights", weights), ("u", u)):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")

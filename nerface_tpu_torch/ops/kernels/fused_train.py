@@ -342,9 +342,9 @@ def train_outputs(n_rays: int, n_samples: int, train_bg: bool, dev) -> dict:
 
 def train_workspace(n_rays: int, n_samples: int, dev) -> torch.Tensor:
     """K1's device workspace for a pass (`WS_BUFFERS`, csrc/paper_train.cuh)."""
-    from nerface_tpu_torch.ops.kernels.build import paper_library
+    from nerface_tpu_torch.ops.kernels.build import layout_library
 
-    nbytes = paper_library("fused_train_pass", n_samples).nerface_fused_train_workspace_bytes(
+    nbytes = layout_library("fused_train_pass", n_samples).nerface_fused_train_workspace_bytes(
         n_rays, n_samples)
     return torch.empty(nbytes, dtype=torch.uint8, device=dev)
 
@@ -356,12 +356,12 @@ def _launch_train(operands, per_ray, out, ws, *, num_encoding_fn_xyz, white_back
     target, background or None, noise or None), `out` from
     `train_outputs`, `ws` from `train_workspace`. Counts the launch in
     `fused_train_pass.launches`."""
-    from nerface_tpu_torch.ops.kernels.build import paper_library
+    from nerface_tpu_torch.ops.kernels.build import layout_library
 
     dir_c, wbuf, fbuf, wtbuf = operands
     ro, rd, z, tgt, bg, noise = per_ray
     n_rays, n_samples = z.shape
-    lib = paper_library("fused_train_pass", n_samples)
+    lib = layout_library("fused_train_pass", n_samples)
     with torch.cuda.device(ro.device):
         stream = torch.cuda.current_stream(ro.device).cuda_stream
         err = lib.nerface_fused_train_pass(

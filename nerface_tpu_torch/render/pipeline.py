@@ -327,8 +327,9 @@ def _apply_model(model, ro, rd, z_vals, encode_xyz, pe_dir, expr, latent, dtype)
     """Evaluate the radiance field at the samples: in bf16 with 2-D rays
     and per-frame conditioning, one K3 call for a paper-family model (where
     the kernels take the pass, `_paper_kernels_take`) or one K4 call for an
-    eligible Flexible-family model; else positional-encode the points and
-    run the model."""
+    eligible Flexible-family model (`flex_fused_eligible`: on the card the
+    same ray-count rule); else positional-encode the points and run the
+    model."""
     if (
         dtype == torch.bfloat16
         and ro.ndim == 2
@@ -349,7 +350,8 @@ def _apply_model(model, ro, rd, z_vals, encode_xyz, pe_dir, expr, latent, dtype)
         and (latent is None or latent.ndim == 1)
         and (not model.takes_expression or expr is not None)
         and (not model.takes_latent or latent is not None)
-        and flex_fused_eligible(model, encode_xyz, pe_dir, z_vals.shape[-1], ro.device)
+        and flex_fused_eligible(model, encode_xyz, pe_dir, z_vals.shape[0], z_vals.shape[-1],
+                                ro.device)
     ):
         return _flex_pass(model, ro, rd, z_vals, encode_xyz, pe_dir, expr, latent)
     pts = ro[..., None, :] + rd[..., None, :] * z_vals[..., :, None]

@@ -65,7 +65,7 @@ def resample_inputs(n_rays, n_coarse, n_fine, seed, dev, spike=0.0):
     z = 0.2 + (FAR - 0.2) * t
     w = 0.1 + 0.9 * torch.rand(n_rays, n_coarse, generator=g)
     if spike:
-        w[:, 7] = spike
+        w[:, min(7, n_coarse - 2)] = spike
     u = torch.rand(n_rays, n_fine, generator=g)
     return [x.to(dev).contiguous() for x in (z, w, u)]
 

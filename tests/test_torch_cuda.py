@@ -28,7 +28,6 @@ import torch
 
 from chip_smoke import (
     FLEX_OUT_TOL,
-    FLEX_TC_DEPTH,
     K3_OUT_TOL,
     RESAMPLE_SPIKE,
     RESAMPLE_TOL,
@@ -37,6 +36,7 @@ from chip_smoke import (
     _k1_params,
     flex_grad_limits,
     flex_limit,
+    flex_yardstick,
     k1_grad_limits,
     k3b_grad_limits,
     rel_err,
@@ -355,16 +355,52 @@ def test_train_kernel_refuses_what_it_does_not_take(cuda_device, params):
 # -- K4: fused_flex_forward / fused_flex_backward -----------------------------
 # Tolerances are chip_smoke.py's: raw rgb and σ each within FLEX_OUT_TOL of
 # their max|plain|; each gradient tensor (d_v0 and d_dir included) within
-# `k1_grad_limits`, read on the card (PERF.md). Weights: synth512_lcode's
-# model He-scaled, v0 its layer1 fold of a random conditioning.
+# `k1_grad_limits`, read on the card (PERF.md); where `flex_yardstick`
+# holds (8 hidden layers, an S beside 32 / 64 / 128) `flex_limit` /
+# `flex_grad_limits`: no less than FLEX_TC_FACTOR × the plain version's
+# own reading on the tensor cores. Weights: synth512_lcode's model
+# He-scaled, v0 its layer1 fold of a random conditioning.
+
+
+def _assert_flex_close(out, flat, args, g, R, S, n):
+    """K4f's output and K4b's gradients (flat: the weights', d_v0, d_dir)
+    against the plain versions within `flex_limit` / `flex_grad_limits`,
+    with the tensor-core yardstick where `flex_yardstick` holds."""
+    from nerface_tpu_torch.ops.kernels import fused_flex as F
+
+    yard = flex_yardstick(S, n)
+    ref = F.fused_flex_forward_reference(*args, n)
+    tc_ref = tensor_core_plain(lambda: F.fused_flex_forward_reference(*args, n)) if yard else None
+    assert torch.isfinite(out).all()
+    for sl in (slice(0, 3), slice(3, 4)):
+        tol = flex_limit(FLEX_OUT_TOL, n, yard and rel_err(tc_ref[..., sl], ref[..., sl])[0])
+        torch.testing.assert_close(out[..., sl], ref[..., sl],
+                                   atol=tol * float(ref[..., sl].abs().max()), rtol=0)
+    rgrads = F.fused_flex_backward_reference(*args, g, n)
+    rflat = rgrads[0] + rgrads[1:]
+    tc = tensor_core_plain(lambda: F.fused_flex_backward_reference(*args, g, n)) if yard else None
+    tc_flat = tc[0] + tc[1:] if yard else [None] * len(rflat)
+    wn, bn = F.weight_names(n)
+    for name, a, r, t in zip(wn + bn + ("v0", "dir"), flat, rflat, tc_flat):
+        a, r = a.float(), r.float()
+        assert torch.isfinite(a).all(), name
+        tol, tol_norm = flex_grad_limits(R, name, n, t is not None and rel_err(t.float(), r), S)
+        e_max, e_norm = rel_err(a, r)
+        assert e_max <= tol + 1e-6 / max(float(r.abs().max()), 1e-30), f"{name}: max err {e_max} > {tol}"
+        assert e_norm <= tol_norm + 1e-6 / max(float(r.norm()), 1e-30), f"{name}: ‖err‖ {e_norm} > {tol_norm}"
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R,S", [(512, 64), (77, 128), (301, 32)],
-                         ids=["coarse", "fine-ragged", "s32-ragged"])
+@pytest.mark.parametrize("R,S", [(512, 64), (77, 128), (301, 32), (530, 1), (301, 24), (77, 96),
+                                 (64, 192), (40, 256), (77, 200)],
+                         ids=["coarse", "fine-ragged", "s32-ragged", "s1", "s24-ragged",
+                              "s96-ragged", "s192", "s256", "s200-ragged"])
 def test_flex_kernels_match_plain(cuda_device, R, S):
     """Rows past the last ray of a ragged last tile are masked (77·128 and
-    301·32 are not multiples of the 128-row tile)."""
+    301·32 are not multiples of the 128-row tile); the runtime layouts
+    (S = 1: 64 rays a unit; 24: 8 rays in 3 units; 96: 2 in 3; 192: one
+    ray in 3; 200: one in 4 with 56 padding rows) with a cut-short last
+    item."""
     from nerface_tpu_torch.ops.kernels import fused_flex as F
 
     params, v0 = flex_params(R + S, cuda_device)
@@ -381,20 +417,7 @@ def test_flex_kernels_match_plain(cuda_device, R, S):
         before[0] + 1, before[1] + 2)
     flat, flat2 = grads[0] + grads[1:], grads2[0] + grads2[1:]
     assert all(torch.equal(a, b) for a, b in zip(flat, flat2)), "not deterministic"
-    ref = F.fused_flex_forward_reference(*args, 3)
-    assert torch.isfinite(out).all()
-    for sl in (slice(0, 3), slice(3, 4)):
-        torch.testing.assert_close(out[..., sl], ref[..., sl],
-                                   atol=FLEX_OUT_TOL * float(ref[..., sl].abs().max()), rtol=0)
-    rgrads = F.fused_flex_backward_reference(*args, g, 3)
-    wn, bn = F.weight_names(3)
-    for name, a, r in zip(wn + bn + ("v0", "dir"), flat, rgrads[0] + rgrads[1:]):
-        a, r = a.float(), r.float()
-        assert torch.isfinite(a).all(), name
-        tol, tol_norm = k1_grad_limits(R, name)
-        torch.testing.assert_close(a, r, atol=tol * float(r.abs().max()) + 1e-6, rtol=0, msg=name)
-        err, ref_norm = float((a - r).norm()), float(r.norm())
-        assert err <= tol_norm * ref_norm + 1e-6, f"{name}: ‖err‖ {err} > {tol_norm}·{ref_norm}"
+    _assert_flex_close(out, flat, args, g, R, S, 3)
 
 
 @pytest.mark.cuda
@@ -406,8 +429,8 @@ def test_flex_kernels_refuse_what_they_do_not_take(cuda_device):
     weights = F.pack_flex_weights(params, 3, 10)
     g = torch.zeros(64, 64, 4, device=cuda_device)
     before = (F.fused_flex_forward.launches, F.fused_flex_backward.launches)
-    with pytest.raises(ValueError, match="samples per ray"):
-        F.fused_flex_forward(weights, ro, rd, z[:, :16].contiguous(), dc, v0, 3)
+    with pytest.raises(ValueError, match="1..256 samples per ray"):
+        F.fused_flex_forward(weights, ro, rd, _past_the_limit(z), dc, v0, 3)
     with pytest.raises(ValueError, match="contiguous"):
         F.fused_flex_forward(weights, ro, rd, z.t().contiguous().t(), dc, v0, 3)
     with pytest.raises(TypeError, match="float32"):
@@ -420,6 +443,38 @@ def test_flex_kernels_refuse_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="g has shape"):
         F.fused_flex_backward(weights, ro, rd, z, dc, v0, g[:, :32].contiguous(), 3)
     assert (F.fused_flex_forward.launches, F.fused_flex_backward.launches) == before
+
+
+@pytest.mark.cuda
+def test_flex_entry_points_refuse_what_the_kernels_do_not_take(cuda_device):
+    """The C entry points of K4f / K4b return cudaErrorInvalidValue (1) for
+    S outside 1..256 and for an S whose layout class the build does not
+    hold (the fixed build at S = 24 or 32): no S runs another S's layout.
+    Nothing is launched."""
+    import ctypes
+
+    from nerface_tpu_torch.ops.kernels import fused_flex as F
+    from nerface_tpu_torch.ops.kernels.build import SAMPLE_CLASS_DEFINES, load_library
+
+    out = torch.zeros(8, 4, device=cuda_device)
+    null = ctypes.c_void_p(0)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(cuda_device).cuda_stream)
+
+    def fwd(lib, S):
+        # ray pointers are never read: the entry refuses before it launches
+        return lib.nerface_fused_flex_fwd(null, null, null, null, null, null, ctypes.c_void_p(out.data_ptr()),
+                                          8, S, 10, 3, stream)
+
+    fixed = load_library("fused_flex", SAMPLE_CLASS_DEFINES["fixed"])
+    runtime = load_library("fused_flex", SAMPLE_CLASS_DEFINES["any"])
+    for lib in (fixed, runtime):
+        for S in (0, -1, 257, 1000):
+            assert fwd(lib, S) == 1, S
+            assert lib.nerface_fused_flex_workspace_bytes(8, S, 3) == -1, S
+        assert lib.nerface_fused_flex_workspace_bytes(8, 24, F.MAX_HIDDEN + 1) == -1
+    assert fwd(fixed, 24) == 1 and fwd(fixed, 32) == 1
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.zeros_like(out))
 
 
 # -- the smaller model: K2 and K1 in their `small` mode -----------------------
@@ -488,6 +543,11 @@ PERSISTENT_CASES = [(2085, 64), (601, 128), (1111, 32)]
 # the paper kernels take any S: also S = 24 (8 rays in 3 units) and 192 (3 units a ray),
 # each past one round of the grid
 PAPER_PERSISTENT_CASES = PERSISTENT_CASES + [(2200, 24), (601, 192)]
+# K4 too, at two runtime layouts whose last round leaves warpgroup 1 past
+# the last ray (tests/test_torch_k4_layout.py::DEAD_UNIT_CTA): 2133 × 24
+# (267 items of 8 rays, the last of 5) and 267 × 200 (one ray in 4 units,
+# 56 padding rows)
+FLEX_PERSISTENT_CASES = PERSISTENT_CASES + [(2133, 24), (267, 200)]
 
 
 @pytest.mark.cuda
@@ -542,7 +602,7 @@ def test_paper_mlp_backward_persistent_grid(cuda_device, small, R, S):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [0, 3, 8])
-@pytest.mark.parametrize("R,S", PERSISTENT_CASES, ids=["s64", "s128", "s32"])
+@pytest.mark.parametrize("R,S", FLEX_PERSISTENT_CASES, ids=["s64", "s128", "s32", "s24", "s200"])
 def test_flex_kernels_persistent_grid(cuda_device, n, R, S):
     from nerface_tpu_torch.ops.kernels import fused_flex as F
 
@@ -559,32 +619,16 @@ def test_flex_kernels_persistent_grid(cuda_device, n, R, S):
     assert torch.equal(out, out2)
     flat, flat2 = grads[0] + grads[1:], grads2[0] + grads2[1:]
     assert all(torch.equal(a, b) for a, b in zip(flat, flat2)), "not deterministic"
-    ref = F.fused_flex_forward_reference(*args, n)
-    deep = n >= FLEX_TC_DEPTH
-    tc_ref = tensor_core_plain(lambda: F.fused_flex_forward_reference(*args, n)) if deep else None
-    for sl in (slice(0, 3), slice(3, 4)):
-        tol = flex_limit(FLEX_OUT_TOL, n, deep and rel_err(tc_ref[..., sl], ref[..., sl])[0])
-        torch.testing.assert_close(out[..., sl], ref[..., sl],
-                                   atol=tol * float(ref[..., sl].abs().max()), rtol=0)
-    rgrads = F.fused_flex_backward_reference(*args, g, n)
-    rflat = rgrads[0] + rgrads[1:]
-    tc = tensor_core_plain(lambda: F.fused_flex_backward_reference(*args, g, n)) if deep else None
-    tc_flat = tc[0] + tc[1:] if deep else [None] * len(rflat)
-    wn, bn = F.weight_names(n)
-    for name, a, r, t in zip(wn + bn + ("v0", "dir"), flat, rflat, tc_flat):
-        assert torch.isfinite(a).all(), name
-        tol, tol_norm = flex_grad_limits(R, name, n, t is not None and rel_err(t, r))
-        e_max, e_norm = rel_err(a, r)
-        assert e_max <= tol + 1e-6 / max(float(r.abs().max()), 1e-30), f"{name}: max err {e_max} > {tol}"
-        assert e_norm <= tol_norm + 1e-6 / max(float(r.norm()), 1e-30), f"{name}: ‖err‖ {e_norm} > {tol_norm}"
+    _assert_flex_close(out, flat, args, g, R, S, n)
 
 
-DEAD_UNIT_CASES = [(2085, 64), (601, 128)]  # warpgroup 1's last item past the last ray
+# warpgroup 1's last item past the last ray, the fixed layouts and two runtime ones
+DEAD_UNIT_CASES = [(2085, 64), (601, 128), (2133, 24), (267, 200)]
 DEAD_UNIT_PASSES = 50
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R,S", DEAD_UNIT_CASES, ids=["s64", "s128"])
+@pytest.mark.parametrize("R,S", DEAD_UNIT_CASES, ids=["s64", "s128", "s24", "s200"])
 def test_flex_dead_units_repeat_bit_for_bit(cuda_device, R, S):
     """K4f + K4b at 8 hidden layers on the two cases whose last round has a
     dead warpgroup (the walk of `fused_flex.cu::skip_stages`, where the
@@ -611,11 +655,14 @@ def test_flex_dead_units_repeat_bit_for_bit(cuda_device, R, S):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R,S", [(1, 32), (1, 64), (1, 128), (3, 32)],
-                         ids=["half-unit", "one-unit", "one-ray-two-units", "ragged-item"])
+@pytest.mark.parametrize("R,S", [(1, 32), (1, 64), (1, 128), (3, 32), (1, 24), (5, 5), (1, 255)],
+                         ids=["half-unit", "one-unit", "one-ray-two-units", "ragged-item",
+                              "s24-one-ray", "s5-five-rays", "s255"])
 def test_flex_kernels_passes_below_one_round(cuda_device, R, S):
     """Passes smaller than one unit or item: one CTA, a dead warpgroup,
-    rows past the last ray inside a live unit (S = 32)."""
+    rows past the last ray inside a live unit (S = 32, and at runtime
+    layouts: one ray of an 8-ray item at S = 24, 5 of 51 at S = 5, one
+    ray in 4 units with one padding row at S = 255)."""
     from nerface_tpu_torch.ops.kernels import fused_flex as F
 
     params, v0 = flex_params(R + S + 11, cuda_device)
@@ -629,14 +676,7 @@ def test_flex_kernels_passes_below_one_round(cuda_device, R, S):
     torch.cuda.synchronize()
     flat, flat2 = grads[0] + grads[1:], grads2[0] + grads2[1:]
     assert all(torch.equal(a, b) for a, b in zip(flat, flat2)), "not deterministic"
-    ref = F.fused_flex_forward_reference(*args, 3)
-    for sl in (slice(0, 3), slice(3, 4)):
-        torch.testing.assert_close(out[..., sl], ref[..., sl],
-                                   atol=FLEX_OUT_TOL * float(ref[..., sl].abs().max()), rtol=0)
-    rgrads = F.fused_flex_backward_reference(*args, g, 3)
-    wn, bn = F.weight_names(3)
-    _assert_grads_close(wn + bn + ("v0", "dir"), [t.float() for t in flat],
-                        [t.float() for t in rgrads[0] + rgrads[1:]], R)
+    _assert_flex_close(out, flat, args, g, R, S, 3)
 
 
 # -- K3: fused_paper_mlp_forward / fused_paper_mlp_backward -------------------
@@ -733,14 +773,18 @@ def test_paper_mlp_kernels_refuse_what_they_do_not_take(cuda_device, params):
     "R,Sc,Sf,regime,spike",
     [(2048, 64, 64, "general", False), (2048, 64, 64, "sorted_u", False),
      (2048, 64, 64, "sorted_u", True), (77, 32, 16, "general", False),
-     (301, 128, 128, "general", False), (300, 128, 100, "sorted_u", False)],
-    ids=["general", "sorted_u", "sorted_u-spike", "ragged-32", "128+128", "128+100"],
+     (301, 128, 128, "general", False), (300, 128, 100, "sorted_u", False),
+     (301, 3, 56, "general", False), (77, 24, 200, "general", False), (300, 24, 200, "sorted_u", False),
+     (2085, 200, 56, "general", False), (300, 200, 56, "sorted_u", True), (77, 48, 33, "general", True)],
+    ids=["general", "sorted_u", "sorted_u-spike", "ragged-32", "128+128", "128+100", "3+56", "24+200",
+         "24+200-sorted_u", "200+56", "200+56-sorted_u-spike", "48+33-spike"],
 )
 def test_resample_kernel_matches_plain(cuda_device, R, Sc, Sf, regime, spike):
     """K5 against its plain version (the pipeline's sample_pdf +
     merge_sorted_zvals) within chip_smoke's RESAMPLE_TOL·far, rows sorted,
     bit-identical over two launches; a ragged last CTA (77 rays) and a
-    non-power-of-two Sf in both regimes."""
+    non-power-of-two Sf in both regimes; Sc padded to its class (3 and 24
+    to 32, 48 to 64, 200 to 256) and 8 draws a lane (Sf = 200)."""
     from nerface_tpu_torch.ops.kernels import fused_resample as K5
     from nerface_tpu_torch.ops.math import linspace01
 
@@ -766,9 +810,9 @@ def test_resample_kernel_refuses_what_it_does_not_take(cuda_device):
     z, w, u = resample_inputs(64, 64, 64, 1, cuda_device)
     before = K5.fused_resample.launches
     with pytest.raises(ValueError, match="coarse samples"):
-        K5.fused_resample(z[:, :48].contiguous(), w[:, :48].contiguous(), u)
+        K5.fused_resample(z[:, :2].contiguous(), w[:, :2].contiguous(), u)
     with pytest.raises(ValueError, match="fine samples"):
-        K5.fused_resample(z, w, torch.rand(64, 129, device=cuda_device))
+        K5.fused_resample(z, w, torch.rand(64, 193, device=cuda_device))
     with pytest.raises(ValueError, match="contiguous"):
         K5.fused_resample(z.t().contiguous().t(), w, u)
     with pytest.raises(TypeError, match="float32"):
@@ -776,6 +820,26 @@ def test_resample_kernel_refuses_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="u is on"):
         K5.fused_resample(z, w, u.cpu())
     assert K5.fused_resample.launches == before
+
+
+@pytest.mark.cuda
+def test_resample_entry_point_refuses_what_the_kernel_does_not_take(cuda_device):
+    """K5's C entry point returns cudaErrorInvalidValue (1) outside 3 ≤ Sc,
+    1 ≤ Sf, Sc + Sf ≤ 256 and launches nothing."""
+    import ctypes
+
+    from nerface_tpu_torch.ops.kernels.build import load_library
+
+    lib = load_library("fused_resample")
+    out = torch.zeros(4, 4, device=cuda_device)
+    null = ctypes.c_void_p(0)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(cuda_device).cuda_stream)
+    for sc, sf in ((2, 64), (0, 1), (64, 0), (64, 193), (255, 2), (3, 254)):
+        for sorted_u in (0, 1):
+            assert lib.nerface_fused_resample(null, null, null, 0, ctypes.c_void_p(out.data_ptr()), 4, sc, sf,
+                                              sorted_u, stream) == 1, (sc, sf)
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.zeros_like(out))
 
 
 # -- K3f on the shared chain and K5 as a persistent kernel ----------------------

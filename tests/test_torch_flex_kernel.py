@@ -23,7 +23,8 @@
 * `FusedFlexMLP` hands the backward's gradients to the params (matrix
   gradients bf16-representable), v0 and dir_contrib; the wrappers on CPU
   tensors are the plain versions; the packed layouts match the .cu file;
-  `flex_fused_eligible` takes what the kernel takes.
+  `flex_fused_eligible` takes what the kernel takes (any S up to 256,
+  on the card where the JAX package's tile rule sends the pass to Pallas).
 
 The CUDA kernels themselves are tested in tests/test_torch_cuda.py and by
 chip_smoke.py.
@@ -341,12 +342,15 @@ def test_eligibility():
     enc = EncodeSpec(10, True, True)
     pe_dir = torch.zeros(4, 24)
 
-    def ok(name="ConditionalBlendshapeLearnableCodeNeRFModel", S=64, dev="cuda", enc=enc, **kw):
+    def ok(name="ConditionalBlendshapeLearnableCodeNeRFModel", S=64, dev="cuda", enc=enc, R=2048,
+           **kw):
         m = MODELS[name](**dict(KW, include_input_dir=False, **kw))
-        return F.flex_fused_eligible(m, enc, pe_dir, S, dev)
+        return F.flex_fused_eligible(m, enc, pe_dir, R, S, dev)
 
     assert ok() and ok("FlexibleNeRFModel") and ok(S=128) and ok(S=16, dev="cpu")
-    assert not ok(S=16)  # no kernel for 16 samples a ray on the card
+    assert ok(S=16) and ok(S=192) and ok(S=1) and ok(S=256)  # the kernels take any S up to 256
+    assert not ok(S=257) and not ok(S=257, dev="cpu")
+    assert not ok(R=2047) and ok(R=2047, dev="cpu")  # the JAX tile rule, on the card
     assert not ok(num_layers=6, skip_connect_every=3)  # a skip layer engages
     assert ok(num_layers=6, skip_connect_every=4)  # the would-be skip is the last layer
     assert not ok(use_viewdirs=False)
@@ -354,4 +358,4 @@ def test_eligibility():
     assert not ok(enc=EncodeSpec(10, False, True))
     assert not ok(num_encoding_fn_xyz=6)  # the model's width is not the encoding's
     assert not F.flex_fused_eligible(MODELS["ConditionalBlendshapePaperNeRFModel"](
-        num_encoding_fn_xyz=10), enc, pe_dir, 64, "cuda")
+        num_encoding_fn_xyz=10), enc, pe_dir, 2048, 64, "cuda")

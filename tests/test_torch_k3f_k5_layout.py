@@ -222,18 +222,20 @@ def _k5_args(R=4, Sc=64, Sf=64):
 
 @pytest.mark.parametrize(
     "change,error,match",
-    [("coarse48", ValueError, "coarse samples"), ("fine0", ValueError, "fine samples"),
-     ("fine129", ValueError, "fine samples"), ("double", TypeError, "float32"),
+    [("coarse2", ValueError, "coarse samples"), ("fine0", ValueError, "fine samples"),
+     ("fine193", ValueError, "fine samples"), ("double", TypeError, "float32"),
      ("strided", ValueError, "contiguous")],
 )
 def test_resample_checks_refuse_what_the_kernel_does_not_take(change, error, match):
+    """Outside 3 ≤ Sc, 1 ≤ Sf, Sc + Sf ≤ 256 (64 + 193 = 257), or an
+    operand the kernel cannot read."""
     z, w, u = _k5_args()
-    if change == "coarse48":
-        z, w = z[:, :48].contiguous(), w[:, :48].contiguous()
+    if change == "coarse2":
+        z, w = z[:, :2].contiguous(), w[:, :2].contiguous()
     elif change == "fine0":
         u = u[:, :0]
-    elif change == "fine129":
-        u = torch.rand(4, 129)
+    elif change == "fine193":
+        u = torch.rand(4, 193)
     elif change == "double":
         w = w.double()
     else:
@@ -242,7 +244,8 @@ def test_resample_checks_refuse_what_the_kernel_does_not_take(change, error, mat
         K5.check_kernel_operands(z, w, u)
 
 
-@pytest.mark.parametrize("Sc,Sf", [(32, 128), (64, 64), (128, 128), (128, 1)])
+@pytest.mark.parametrize("Sc,Sf", [(32, 128), (64, 64), (128, 128), (128, 1), (3, 253), (48, 129),
+                                   (255, 1), (200, 56)])
 def test_resample_checks_take_the_kernels_shapes(Sc, Sf):
     K5.check_kernel_operands(*_k5_args(3, Sc, Sf))
     K5.check_kernel_operands(*_k5_args(3, Sc, Sf)[:2], torch.rand(Sf))
@@ -276,17 +279,27 @@ def _stage(v, size, j):
     return out
 
 
+def k5_class(Sc, Sf):
+    """(SC, FP): Sc's class, the least power of two ≥ Sc from 32, and the
+    draws a lane (`fused_resample.cu`'s template arguments)."""
+    return max(32, _pow2_at_least(Sc)), 1 if Sf <= 32 else (2 if Sf <= 64 else (4 if Sf <= 128 else 8))
+
+
 def _k5_warp(z, w, u, sorted_regime):
     """One ray through the kernel's warp, in float32: z, w (Sc,), u (Sf,)
-    -> the (Sc + Sf,) row and the draws."""
+    -> the (Sc + Sf,) row and the draws. z and w padded to Sc's class
+    (z +inf, w 0), the cdf's padded entries +inf."""
     f32 = np.float32
     Sc, Sf = len(z), len(u)
-    PER, FP = Sc // 32, 1 if Sf <= 32 else (2 if Sf <= 64 else 4)
-    N = _pow2_at_least(Sc + 32 * FP)
+    SC, FP = k5_class(Sc, Sf)
+    PER = SC // 32
+    N = _pow2_at_least(SC + 32 * FP)
     E, B = N // 32, Sc - 1
-    ZL = Sc // E
+    ZL = SC // E
     i = PER * LANE[:, None] + np.arange(PER)[None, :]
-    zv, wv = z.reshape(32, PER), w.reshape(32, PER)
+    zp = np.concatenate([z.astype(f32), np.full(SC - Sc, np.inf, f32)])
+    wp = np.concatenate([w.astype(f32), np.zeros(SC - Sc, f32)])
+    zv, wv = zp.reshape(32, PER), wp.reshape(32, PER)
     inner = (i >= 1) & (i <= Sc - 2)
     wk = np.where(inner, wv + f32(1e-5), f32(0)).astype(f32)
     part = np.zeros(32, f32)
@@ -305,7 +318,7 @@ def _k5_warp(z, w, u, sorted_regime):
         incl = np.where(LANE >= o, incl + t, incl).astype(f32)
     excl = np.where(LANE == 0, f32(0), incl[np.maximum(LANE - 1, 0)]).astype(f32)
     z_next = zv[np.minimum(LANE + 1, 31), 0]
-    cdf = (excl[:, None] + c).astype(f32).reshape(-1)
+    cdf = np.where(i < B, excl[:, None] + c, np.inf).astype(f32).reshape(-1)
     zn = np.concatenate([zv[:, 1:], z_next[:, None]], 1)
     bins = (f32(0.5) * (zn + zv).astype(f32)).astype(f32).reshape(-1)
     s = np.full((32, FP), np.inf, f32)
@@ -314,7 +327,7 @@ def _k5_warp(z, w, u, sorted_regime):
             q = FP * lane + k
             if q >= Sf:
                 continue
-            uq, pos, step = f32(u[q]), 0, Sc // 2
+            uq, pos, step = f32(u[q]), 0, SC // 2
             while step:
                 pos += step if cdf[pos + step - 1] <= uq else 0
                 step >>= 1
@@ -333,13 +346,12 @@ def _k5_warp(z, w, u, sorted_regime):
                 j >>= 1
             size <<= 1
     v = np.zeros((32, E), f32)
-    zf = z.astype(f32)
     for e in range(E):
         q = N - 1 - (E * LANE + e)
         slot = FP - 1 - e % FP
         assert ((q % FP) == slot).all()
         t = s[(q // FP) & 31, slot]
-        v[:, e] = np.where(LANE < ZL, zf[np.minimum(E * LANE + e, Sc - 1)],
+        v[:, e] = np.where(LANE < ZL, zp[np.minimum(E * LANE + e, SC - 1)],
                            np.where(q < Sf, t, np.inf))
     j = N // 2
     while j:
@@ -350,7 +362,7 @@ def _k5_warp(z, w, u, sorted_regime):
 
 @pytest.mark.parametrize("regime", ["general", "sorted_u"])
 @pytest.mark.parametrize("Sc,Sf", [(32, 1), (32, 37), (32, 128), (64, 64), (64, 100), (128, 16),
-                                   (128, 128)])
+                                   (128, 128), (3, 56), (24, 200), (48, 33), (200, 56)])
 def test_resample_warp_mirror_gives_the_sorted_union(Sc, Sf, regime):
     """The mirror's row is exactly the sorted union of z and its own
     draws, and within RESAMPLE_TOL·far of the plain version (rays as
@@ -371,7 +383,9 @@ def test_resample_kernel_shapes_are_the_sources():
     """The mirror's shapes are the kernel's: the network's size, the draws
     a lane, and the placement's slot and lane."""
     assert "constexpr int N = pow2_at_least(SC + 32 * FP);" in K5_CU
-    assert "const int fp = n_fine <= 32 ? 1 : (n_fine <= 64 ? 2 : 4);" in K5_CU
+    assert "const int fp = n_fine <= 32 ? 1 : (n_fine <= 64 ? 2 : (n_fine <= 128 ? 4 : 8));" in K5_CU
+    assert "if (n_coarse <= 32) return launch<32>(" in K5_CU and "return launch<256>(" in K5_CU
+    assert "c[k] = PER * lane + k < B ? __fadd_rn(excl, c[k]) : pos_inf();" in K5_CU
     assert "const int q = N - 1 - (E * lane + e);" in K5_CU
     assert "__shfl_sync(FULL, s[FP - 1 - e % FP], (q / FP) & 31);" in K5_CU
     assert "for (int step = SC / 2; step > 0; step >>= 1) pos += m.cdf[pos + step - 1] <= uq ? step : 0;" in K5_CU

@@ -151,7 +151,7 @@ def test_wrappers_raise_past_the_limit():
 
 
 def test_layout_class_builds():
-    """K1's and K3's libraries build as two builds (`build.paper_library`):
+    """K1's and K3's libraries build as two builds (`build.layout_library`):
     S = 64 and 128, each a fixed layout class, in the build that holds the
     fixed classes (`csrc/mma_tile.cuh`: NERFACE_SAMPLE_CLASSES bit 2, the
     `dispatch_pass` cases 128 / 129 / 256 / 257), every other S in the one
