@@ -216,6 +216,9 @@ Phases, one line each (plus the kernels' register reports):
                24, 48, 96, 200} × Sf ∈ {1, 33, 56} (Sc + Sf ≤ 256), both
                regimes, on 2072 rays: within K5_GRID_TOL = 2e-6 of its plain
                version, rows sorted, bit-identical, ms, plain ms, bound.
+               K4f / K4b also at hidden 512 (synth512_lcode_w512's trunk)
+               for FLEX_W512_SAMPLE_CASES (S = 1 on 2072 rays, 24 / 192 /
+               256 on 2048), the same limits and lost-unit control.
      serve_64_128 — synth512_paper at 64 + 128 samples served as in phase
                4: K2 at S = 64 and 192, the frame against the f32 plain
                frame.
@@ -268,9 +271,12 @@ Phases, one line each (plus the kernels' register reports):
                synth512_lcode's He-scaled weights, FLEX_SEEDS draws a case
                (FLEX_CASES): R = 2048 at S = 64 and 128 (forward and
                backward), one 65536-ray tile at each (forward), and the
-               same model at 0 and 8 hidden layers at R = 2048, S = 32. Raw
+               same model at 0 and 8 hidden layers at R = 2048, S = 32 and
+               at 12 on 512 × 32; at hidden 512 (the kernels'
+               `wide_chain_kernel` / `wide_dx_kernel`) R = 2048 at S = 64
+               and 128, and 10 hidden layers on 512 × 32. Raw
                rgb and σ within FLEX_OUT_TOL of their max; every gradient
-               tensor, d_v0 and d_dir within `k1_grad_limits` (at 8 hidden
+               tensor, d_v0 and d_dir within `k1_grad_limits` (from 8 hidden
                layers `flex_limit`: no less than FLEX_TC_FACTOR × the
                plain version's own error on the tensor cores, each reading
                printed per seed beside that yardstick's and what a lost
@@ -288,7 +294,9 @@ Phases, one line each (plus the kernels' register reports):
                warpgroup 1 past the last ray: the dead-unit walk of K4b's
                recompute and dX, `fused_flex.cu::skip_stages`), every
                pass's output and gradients equal to the first pass's bit
-               for bit; passes and wall time. A fault fails the run.
+               for bit; passes and wall time; then the same at hidden 512
+               on 2085 × 64 (a persistent grid past one round, the last
+               round cut short). A fault fails the run.
   9. flex_serve — a 512² synth512_lcode avatar (SYNTH512_LCODE: the paper
                config with the Flexible family's
                ConditionalBlendshapeLearnableCodeNeRFModel) served as in
@@ -309,10 +317,16 @@ Phases, one line each (plus the kernels' register reports):
                FRAME_MEAN of the f32 plain frame; one
                bf16 step against the f32 plain step ([train_step]'s
                limits); FLEX_TRAIN_STEPS steps of `train()` (K4f / K4b
-               counted, the printed loss falling); 20 steps windowed (K =
-               10) against step at a time, bit for bit; no bf16 Flexible
-               pass on the plain path anywhere in the phase
-               (`plain_flex_passes`, counted at the dispatch).
+               counted, the printed loss falling), then the steady step's
+               ms beside the frame's; 20 steps windowed (K = 10) against
+               step at a time, bit for bit; no bf16 Flexible pass on the
+               plain path anywhere in the phase (`plain_flex_passes`,
+               counted at the dispatch).
+     flex_w512 — the same for synth512_lcode_w512 (SYNTH512_LCODE_W512:
+               hidden_size 512 in both models, 64 + 64): every bf16 pass
+               through K4f / K4b's h = 512 kernels; the frames against
+               f32 within the larger of FRAME_MEAN and the plain version's
+               own frame's reading + FLEX_PLAIN_FRAME_MEAN.
  11. stock_eval — `cli/eval_nerf.py` at the NeRF paper's stock settings
                (PaperNeRFModel coarse and fine, 10 xyz / 4 direction bands,
                64 + 128 samples, f32; He-scaled random weights, σ biased up
@@ -443,6 +457,14 @@ SYNTH512_LCODE_64_128 = copy.deepcopy(SYNTH512_LCODE)
 for _mode in ("train", "validation"):
     SYNTH512_LCODE_64_128["nerf"][_mode]["num_fine"] = 128
 
+# synth512_lcode with hidden_size 512 in both models (layers_dir.0 256
+# wide): K4f / K4b's h = 512 kernels (`wide_chain_kernel`,
+# `wide_dx_kernel`) take every bf16 pass
+SYNTH512_LCODE_W512 = copy.deepcopy(SYNTH512_LCODE)
+for _node in SYNTH512_LCODE_W512["models"].values():
+    _node["hidden_size"] = 512
+FLEX_WIDE = 512
+
 KERNEL_RAYS = 4096
 TILE_RAYS = 65536  # the validation chunksize: one tile of the main path
 FAR = 0.8
@@ -516,6 +538,17 @@ FLEX_DX_KN = [(128, 3), (256, 128), (256, 256), (256, 1)] + [(256, 256)] * 3
 K4F_FLOP_PER_SAMPLE = sum(2 * k * n for k, n in FLEX_FORWARD_KN)
 # K4b: recompute + dX + dW (dW has the forward's products)
 K4B_FLOP_PER_SAMPLE = sum(2 * k * n for k, n in FLEX_FORWARD_KN + FLEX_DX_KN + FLEX_FORWARD_KN)
+
+
+def k4_flop_per_sample(n=None, h=256, backward=False):
+    """K4f's (or with `backward` K4b's: recompute, dX, dW) operations a
+    sample at n hidden layers (FLEX_N_HIDDEN) and width h, at the
+    function's widths (`tools/perf/flex_launch_split.py`)."""
+    from nerface_tpu_torch.tools.perf import flex_launch_split as FS
+
+    n = FLEX_N_HIDDEN if n is None else n
+    fwd = FS.flop_per_sample(FS.forward_kn(n, h))
+    return 2 * fwd + FS.flop_per_sample(FS.dx_kn(n, h)) if backward else fwd
 FLEX_N_HIDDEN = 3
 FLEX_SEEDS = 3
 # K4f against its plain version: max |kernel − plain| ≤ FLEX_OUT_TOL·max|plain|,
@@ -560,6 +593,11 @@ K3F_K2_TOL = 1e-4
 # without `small`) and the σ-noise frame through K3f
 FRAME_MAX = 1
 FRAME_MEAN = 0.15
+# [flex_w512]'s served frame against the f32 plain frame, mean 8-bit levels:
+# at hidden 512 the bf16 plain version's own frame reads 0.1520–0.1546 from
+# f32 and the kernel's 0.1519–0.1546 (an H100, PERF.md §6), past FRAME_MEAN;
+# the max stays FRAME_MAX
+FLEX_W512_FRAME_MEAN = 0.17
 # train_pass_kernel's instantiations, at most (K1 and K3b, each model, each
 # layout class S = 64, 128 and any other S): the spilling kernel's nvcc
 # time grows with each, and the script's build shares the 1200 s limit
@@ -716,6 +754,18 @@ def _kernel_inputs(n_rays, n_samples, gen, dev):
     rd[0:2] = 0.0
     rd[2:4] = 1e-9
     return [ro, rd, z, dc, cond, bg]
+
+
+def _flex_inputs(n_rays, n_samples, gen, dev, h=256):
+    """K4's per-ray inputs (ro, rd, z, dir_contrib (R, h / 2)): at h = 256
+    `_kernel_inputs`' draws, at 512 those with a 256-wide dir_contrib
+    drawn after them."""
+    import torch
+
+    ro, rd, z, dc, _, _ = _kernel_inputs(n_rays, n_samples, gen, dev)
+    if h != 256:
+        dc = (torch.randn(n_rays, h // 2, generator=gen) * 0.3).to(dev)
+    return ro, rd, z, dc
 
 
 def _compare(got, ref, label):
@@ -1157,12 +1207,13 @@ def _entry_name(text):
     """A kernel's short name, with its template arguments, from a ptxas
     line that holds its mangled name."""
     m = re.search(r"(train_pass_kernel|dw_wgmma_kernel|flex_chain_kernel|flex_dx_kernel|"
-                  r"reduce_rows|render_kernel|mlp_fwd_kernel|"
+                  r"wide_chain_kernel|wide_dx_kernel|reduce_rows|render_kernel|mlp_fwd_kernel|"
                   r"resample_kernel|chain_kernel|encoder_kernel)"
                   r"(?:ILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?|ILb([01])E)?", text)
     if not m:
         return text
-    flag = {"resample_kernel": "sorted_u", "flex_chain_kernel": "save"}.get(m.group(1), "small")
+    flag = {"resample_kernel": "sorted_u", "flex_chain_kernel": "save", "wide_chain_kernel": "save"}.get(
+        m.group(1), "small")
     ints = [m.group(2)] if m.group(2) else []
     if m.group(3):  # K5's draws a lane
         ints.append(f"FP={m.group(3)}")
@@ -1229,16 +1280,17 @@ def build_phase():
                 f"dw_wgmma_kernel {smem[1 + (k != 'train')]} B"]
             phase("build", f"{label} shared memory a CTA (dynamic): {', '.join(sizes)}")
         if name == "fused_flex":
-            smem = (ctypes.c_longlong * 3)()
+            smem = (ctypes.c_longlong * 5)()
             build.load_library(name, defines).nerface_fused_flex_shared_bytes(smem)
             phase("build", f"{label} shared memory a CTA (dynamic): flex_chain_kernel {smem[0]} B, "
-                           f"flex_dx_kernel {smem[1]} B, dw_wgmma_kernel {smem[2]} B")
+                           f"flex_dx_kernel {smem[1]} B, dw_wgmma_kernel {smem[2]} B, wide_chain_kernel "
+                           f"{smem[3]} B, wide_dx_kernel {smem[4]} B")
     check(0 < n_pass <= TRAIN_PASS_INSTANTIATIONS,
           f"train_pass_kernel has {n_pass} instantiations (at most {TRAIN_PASS_INSTANTIATIONS})")
     flex = [secs for name, _, _, secs in built if name == "fused_flex"]
     phase("build", f"{len(jobs)} library builds in {wall:.1f} s of nvcc (each build's own seconds "
-                   f"above, all started together); the flex builds (fixed / runtime class) "
-                   f"{flex[0]:.1f} / {flex[1]:.1f} s; train_pass_kernel instantiations {n_pass} (at "
+                   f"above, all started together); the flex builds (fixed / runtime class, h = 256 "
+                   f"and 512 each) {flex[0]:.1f} / {flex[1]:.1f} s; train_pass_kernel instantiations {n_pass} (at "
                    f"most {TRAIN_PASS_INSTANTIATIONS}: S = 64 / 128 fixed, 0 any other S, × model, "
                    f"× K1 / K3b)")
     return {"nvcc_s": wall, "train_pass_instantiations": n_pass,
@@ -1674,6 +1726,10 @@ DW_TENSORS = ("w0a", "w0b", "w1", "w2", "w3xa", "w3xb", "w3h", "w4", "w5", "wf",
 # before WA: W1's two parts, the hidden layers, WF, WD0); wa and wrgb are
 # dX's partial sums
 FLEX_DW_TENSORS = ("w1a", "w1b", "wh0", "wh1", "wh2", "wf", "wd0")
+# [sample_counts]' K4f / K4b at h = 512: S = 1 and 24 (runtime layouts, 64
+# rays a unit and 8 in 3 units), 192 (one ray in 3 units) and 256 (the
+# largest S), on ragged and whole ray counts
+FLEX_W512_SAMPLE_CASES = ((1, SAMPLE_RAGGED_RAYS), (24, TRAIN_RAYS), (192, TRAIN_RAYS), (256, TRAIN_RAYS))
 # [sample_counts]' K5 grid: (Sc, Sf) at Sc + Sf ≤ 256, both regimes, at
 # SAMPLE_RAGGED_RAYS rays; weights in [0.5, 1) keep every pdf bin ≥ 1e-3
 # (≥ 0.5 / 253), where the kernel agrees with the plain version to 2e-6
@@ -1754,7 +1810,7 @@ def _sample_control(S, control):
     by_kernel = ", ".join(f"{k} {sum(c['kernel'] == k for c in decided)}"
                           for k in sorted({c["kernel"] for c in decided})) or "none"
     caught, missed = {}, []
-    dw_tensors = {"K3b": DW_TENSORS, "K4b": FLEX_DW_TENSORS}
+    dw_tensors = {"K3b": DW_TENSORS, "K4b": FLEX_DW_TENSORS, f"K4b_{FLEX_WIDE}": FLEX_DW_TENSORS}
     for c in control:
         if c.get("fault") is None or (c["kernel"] in dw_tensors and c["name"] not in dw_tensors[c["kernel"]]):
             continue
@@ -1779,9 +1835,10 @@ def _sample_control(S, control):
             "lost_unit_caught": {f"{k} s{seed}": v for (k, seed), v in sorted(caught.items())}}
 
 
-def _flex_sample_count(S, R, dev, rows, control):
+def _flex_sample_count(S, R, dev, rows, control, h=256):
     """K4f and K4b of synth512_lcode's He-scaled trunk (FLEX_N_HIDDEN hidden
-    layers, `cases.flex_params`) at one (S, R) of SAMPLE_CASES against their
+    layers, `cases.flex_params`; at h = 512 synth512_lcode_w512's) at one
+    (S, R) of SAMPLE_CASES (of FLEX_W512_SAMPLE_CASES) against their
     plain versions, SAMPLE_SEEDS draws, under [flex_kernel]'s limits: raw
     rgb and σ within `flex_limit(FLEX_OUT_TOL)`, every gradient tensor, d_v0
     and d_dir within `flex_grad_limits`, through the tensor-core yardstick
@@ -1799,12 +1856,13 @@ def _flex_sample_count(S, R, dev, rows, control):
     wn, bn = F.weight_names(n)
     names = list(wn) + list(bn) + ["v0", "dir"]
     yard = flex_yardstick(S, n)
-    k4f = {"rays": R, "out_rel": 0.0, "tc_rel": 0.0, "max_abs_err": 0.0}
-    k4b = {"rays": R, "worst": {}, "max_abs_err": 0.0}
+    kf, kb = ("K4f", "K4b") if h == 256 else (f"K4f_{h}", f"K4b_{h}")  # `_sample_control`'s kernels
+    k4f = {"rays": R, "hidden": h, "out_rel": 0.0, "tc_rel": 0.0, "max_abs_err": 0.0}
+    k4b = {"rays": R, "hidden": h, "worst": {}, "max_abs_err": 0.0}
     for i in range(SAMPLE_SEEDS):
-        params, v0 = flex_params(SEED + 27 + 100 * i, dev, n)
+        params, v0 = flex_params(SEED + 27 + 100 * i + (h if h != 256 else 0), dev, n, h)
         gen = torch.Generator().manual_seed(SEED + 28 + 100 * i + S)
-        ro, rd, z, dc, _, _ = _kernel_inputs(R, S, gen, dev)
+        ro, rd, z, dc = _flex_inputs(R, S, gen, dev, h)
         weights = F.pack_flex_weights(params, n, 10)
         args = (weights, ro, rd, z, dc, v0, n)
         out = F.fused_flex_forward(*args)
@@ -1820,7 +1878,7 @@ def _flex_sample_count(S, R, dev, rows, control):
             check(e <= lim, f"K4f S={S} seed {i}: {part} max err {e:.3g}·max > {lim:.3g}"
                             + (f" (the plain version on the tensor cores: {e_tc:.3g}·max)" if yard else ""))
             if yard:
-                control.append(dict(kernel="K4f", name=part, seed=i, kind="max", value=e, tc=e_tc,
+                control.append(dict(kernel=kf, name=part, seed=i, kind="max", value=e, tc=e_tc,
                                     base=FLEX_OUT_TOL, limit=lim,
                                     fault=rel_err(lost[..., sl], ref[..., sl])[0]))
                 k4f["tc_rel"] = max(k4f["tc_rel"], e_tc)
@@ -1855,7 +1913,7 @@ def _flex_sample_count(S, R, dev, rows, control):
             if yard:
                 f_err = rel_err(f.float(), r)
                 for j, (kind, lim) in enumerate((("max", tol), ("norm", tol_norm))):
-                    control.append(dict(kernel="K4b", name=name, seed=i, kind=kind, value=(e, e_norm)[j],
+                    control.append(dict(kernel=kb, name=name, seed=i, kind=kind, value=(e, e_norm)[j],
                                         tc=tc_err[j], base=k1_grad_limits(R, name)[j], limit=lim,
                                         fault=f_err[j]))
             w = k4b["worst"].get(name, (0.0, 0.0))
@@ -1864,10 +1922,11 @@ def _flex_sample_count(S, R, dev, rows, control):
         if i == 0:
             k4f.update(ms=_median_ms(lambda: F.fused_flex_forward(*args)),
                        plain_ms=_median_ms(lambda: F.fused_flex_forward_reference(*args), 1, 3),
-                       bound_ms=_bound_ms(R * S * K4F_FLOP_PER_SAMPLE, _k4_bytes(R, S, False))[0])
+                       bound_ms=_bound_ms(R * S * k4_flop_per_sample(n, h), _k4_bytes(R, S, False, n, h))[0])
             k4b.update(ms=_median_ms(lambda: F.fused_flex_backward(*args[:6], g, n), iters=10),
                        plain_ms=_median_ms(lambda: F.fused_flex_backward_reference(*args[:6], g, n), 1, 3),
-                       bound_ms=_bound_ms(R * S * K4B_FLOP_PER_SAMPLE, _k4_bytes(R, S, True))[0])
+                       bound_ms=_bound_ms(R * S * k4_flop_per_sample(n, h, True),
+                                          _k4_bytes(R, S, True, n, h))[0])
         del grads, grads2, flat, flat2, plain, rflat, tc_flat, fault_flat
     w = k4b.pop("worst")
     k4b["worst_max"] = max(w.items(), key=lambda kv: kv[1][0])
@@ -1952,7 +2011,7 @@ def sample_counts_phase(dev):
     from nerface_tpu_torch.tools.perf.cases import he_scale
 
     names = _bundle_names(False)
-    res = {k: {} for k in ("K2", "K3f", "K1", "K3b", "K4f", "K4b", "control")}
+    res = {k: {} for k in ("K2", "K3f", "K1", "K3b", "K4f", "K4b", "control", "K4f_512", "K4b_512", "control_512")}
     model = _paper_model(SEED + 21, dev)
     he_scale(model)
     params = model.state_dict()
@@ -2095,6 +2154,22 @@ def sample_counts_phase(dev):
                 f"{wm} {wm_v:.4f}·max, worst ‖err‖ {wn} {wn_v:.4f}·‖r‖ (`flex_grad_limits`), bit-identical "
                 f"over 2 launches; {k4b['ms']:.3f} ms, plain {k4b['plain_ms']:.3f}, bound {k4b['bound_ms']:.3f}")
         res["control"][S] = _sample_control(S, control)
+        torch.cuda.empty_cache()
+    # K4f / K4b at h = 512 (synth512_lcode_w512's trunk): the runtime layouts'
+    # extremes and the largest fixed-S one, under the same limits and control
+    for S, R in FLEX_W512_SAMPLE_CASES:
+        control = []
+        k4f, k4b = _flex_sample_count(S, R, dev, lost_unit_rows(R, S), control, FLEX_WIDE)
+        res["K4f_512"][S], res["K4b_512"][S] = k4f, k4b
+        (wm, (wm_v, _)), (wn, (_, wn_v)) = k4b["worst_max"], k4b["worst_norm"]
+        phase("sample_counts",
+              f"S={S} h={FLEX_WIDE}, {R} rays: K4f {SAMPLE_SEEDS} seeds {k4f['out_rel']:.2e}·max (limit "
+              f"{FLEX_OUT_TOL}, or {FLEX_TC_FACTOR} × the plain version's own, up to {k4f['tc_rel']:.2e}·max on "
+              f"the tensor cores), {k4f['ms']:.3f} ms, plain {k4f['plain_ms']:.3f}, bound {k4f['bound_ms']:.3f}; "
+              f"K4b worst grad {wm} {wm_v:.4f}·max, worst ‖err‖ {wn} {wn_v:.4f}·‖r‖ (`flex_grad_limits`), "
+              f"bit-identical over 2 launches; {k4b['ms']:.3f} ms, plain {k4b['plain_ms']:.3f}, bound "
+              f"{k4b['bound_ms']:.3f}")
+        res["control_512"][S] = _sample_control(S, control)
         torch.cuda.empty_cache()
     # the prediction written in PERF.md before the run: from S = 48 up, K4's
     # time at S is S / 64 × its time at S = 64 at the same rays, ± 25 %
@@ -3855,20 +3930,21 @@ def sharded_serve_phase(dev, tmp, ev, card):
     return res
 
 
-def _k4_bytes(n_rays, n_samples, backward):
-    """The bytes K4f / K4b must move: each input read once (rays, depths,
-    dir_c, v0, weights; g and the transposed weights for K4b), each output
-    written once ((R, S, 4); the gradients and d_dir for K4b)."""
+def _k4_bytes(n_rays, n_samples, backward, n=None, h=256):
+    """The bytes K4f / K4b must move at n hidden layers (FLEX_N_HIDDEN) and
+    width h: each input read once (rays, depths, dir_c, v0, weights; g and
+    the transposed weights for K4b), each output written once ((R, S, 4);
+    the gradients and d_dir for K4b)."""
     from nerface_tpu_torch.ops.kernels import fused_flex as F
 
-    n = FLEX_N_HIDDEN
-    w, f, wt = F.w_offsets(n)["TOTAL"], F.f_offsets(n)["TOTAL"], F.wt_offsets(n)["TOTAL"]
-    rays = n_rays * 4 * (3 + 3 + n_samples + 128)
+    n = FLEX_N_HIDDEN if n is None else n
+    w, f, wt = F.w_offsets(n, h)["TOTAL"], F.f_offsets(n, h)["TOTAL"], F.wt_offsets(n, h)["TOTAL"]
+    rays = n_rays * 4 * (3 + 3 + n_samples + h // 2)
     samples = n_rays * n_samples * 4 * 4  # (R, S, 4) f32: the output, or g
     weights = 2 * w + 4 * f
     if not backward:
         return rays + samples + weights
-    return rays + samples + weights + 2 * wt + 4 * (w + f) + n_rays * 4 * 128
+    return rays + samples + weights + 2 * wt + 4 * (w + f) + n_rays * 4 * (h // 2)
 
 
 # At FLEX_TC_DEPTH hidden layers no evaluation on the tensor cores meets
@@ -3971,20 +4047,33 @@ def rel_err(a, r):
     return float(d.abs().max()) / max(float(r.abs().max()), 1e-30), float(d.norm()) / max(float(r.norm()), 1e-30)
 
 
-# [flex_kernel]'s cases: (label, rays, samples a ray, hidden layers); the
-# train step's pair and the serving tiles at synth512_lcode's n = 3, and
-# the kernels' other chunk sequences, n = 0 and the most they take, 8
-FLEX_CASES = (("coarse", TRAIN_RAYS, 64, FLEX_N_HIDDEN), ("fine", TRAIN_RAYS, 128, FLEX_N_HIDDEN),
-              ("tile64", TILE_RAYS, 64, FLEX_N_HIDDEN), ("tile128", TILE_RAYS, 128, FLEX_N_HIDDEN),
-              ("n0_s32", TRAIN_RAYS, 32, 0), ("n8_s32", TRAIN_RAYS, 32, 8))
+# [flex_kernel]'s cases: (label, rays, samples a ray, hidden layers, hidden
+# width); the train step's pair and the serving tiles at synth512_lcode's n
+# = 3, the kernels' other chunk sequences, n = 0 and 8 (the most they took
+# before any depth), 12 hidden layers, and at h = 512 synth512_lcode_w512's
+# train step pair and 10 hidden layers. The two deepest on DEEP_RAYS × 32
+# (256 units): the yardstick's flip noise in dW falls as 1 / √units, a lost
+# unit's share as 1 / units, and on 2048 × 64 at n = 12 the noise hid the
+# lost unit (caught only up to a factor of 1.048, PERF.md §6)
+DEEP_RAYS = 512
+FLEX_CASES = (("coarse", TRAIN_RAYS, 64, FLEX_N_HIDDEN, 256), ("fine", TRAIN_RAYS, 128, FLEX_N_HIDDEN, 256),
+              ("tile64", TILE_RAYS, 64, FLEX_N_HIDDEN, 256), ("tile128", TILE_RAYS, 128, FLEX_N_HIDDEN, 256),
+              ("n0_s32", TRAIN_RAYS, 32, 0, 256), ("n8_s32", TRAIN_RAYS, 32, 8, 256),
+              ("n12_s32", DEEP_RAYS, 32, 12, 256),
+              ("coarse_512", TRAIN_RAYS, 64, FLEX_N_HIDDEN, FLEX_WIDE),
+              ("fine_512", TRAIN_RAYS, 128, FLEX_N_HIDDEN, FLEX_WIDE),
+              ("n10_s32_512", DEEP_RAYS, 32, 10, FLEX_WIDE))
 
 
 def flex_kernel_phase(dev):
     """K4f and K4b against their plain versions on synth512_lcode's
-    He-scaled weights (and the same model at 0 and 8 hidden layers),
-    FLEX_SEEDS draws of weights and inputs a case; at n = 3 the wrappers'
-    and the bare launches' times (`tools/perf/flex_launch_split.py`, the
-    wrappers' own `_launch_flex_*`) and K4b's device time per launch."""
+    He-scaled weights (and the same model at 0, 8 and 12 hidden layers;
+    synth512_lcode_w512's at 3 and 10), FLEX_SEEDS draws of weights and
+    inputs a case; at n = 3 the wrappers' and the bare launches' times
+    (`tools/perf/flex_launch_split.py`, the wrappers' own
+    `_launch_flex_*`) and K4b's device time per launch. At n ≥
+    FLEX_TC_DEPTH the tensor-core yardstick and the lost-unit control
+    (`_flex_calibration`)."""
     import torch
 
     from nerface_tpu_torch.ops.kernels import fused_flex as F
@@ -3996,17 +4085,19 @@ def flex_kernel_phase(dev):
               "bare_ms": {}, "bwd_ms": {}, "bwd_plain_ms": {}, "bwd_bound": {}, "grad_rel": {},
               "bwd_bare_ms": {}, "bwd_split": {}, "abs_err": 0.0, "grad_abs_err": 0.0}
     models = {}
-    for c, (label, R, S, n) in enumerate(FLEX_CASES):
-        if n not in models:
-            models[n] = [flex_params(SEED + 7 + 100 * i + (n if n != FLEX_N_HIDDEN else 0), dev, n)
-                         for i in range(FLEX_SEEDS)]
+    for c, (label, R, S, n, h) in enumerate(FLEX_CASES):
+        if (n, h) not in models:
+            models[n, h] = [flex_params(SEED + 7 + 100 * i + (n if n != FLEX_N_HIDDEN else 0)
+                                        + (h if h != 256 else 0), dev, n, h)
+                            for i in range(FLEX_SEEDS)]
         wn, bn = F.weight_names(n)
         names = list(wn) + list(bn) + ["v0", "dir"]
         timed = n == FLEX_N_HIDDEN
+        f_fwd, f_bwd = k4_flop_per_sample(n, h), k4_flop_per_sample(n, h, True)
         worst, out_err, out_lim, calib = {}, {"rgb": 0.0, "sigma": 0.0}, {"rgb": 0.0, "sigma": 0.0}, {}
-        for i, (params, v0) in enumerate(models[n]):
+        for i, (params, v0) in enumerate(models[n, h]):
             gen = torch.Generator().manual_seed(SEED + 8 + 100 * i + c)
-            ro, rd, z, dc, _, _ = _kernel_inputs(R, S, gen, dev)
+            ro, rd, z, dc = _flex_inputs(R, S, gen, dev, h)
             weights = F.pack_flex_weights(params, n, 10)
             args = (weights, ro, rd, z, dc, v0, n)
             got = F.fused_flex_forward(*args)
@@ -4040,7 +4131,7 @@ def flex_kernel_phase(dev):
             g = torch.randn(R, S, 4, generator=gen).to(dev)
             case = dict(weights=weights, ro=ro, rd=rd, z=z, dc=dc, v0=v0, g=g, n=n)
             if i == 0 and timed:
-                flops = R * S * K4F_FLOP_PER_SAMPLE
+                flops = R * S * f_fwd
                 key = "tile_ms" if R == TILE_RAYS else "ms"
                 iters = 10 if R == TILE_RAYS else 15
                 result[key][label] = _median_ms(lambda: F.fused_flex_forward(*args), iters=iters)
@@ -4048,8 +4139,8 @@ def flex_kernel_phase(dev):
                 if R == TRAIN_RAYS:
                     result["plain_ms"][label] = _median_ms(
                         lambda: F.fused_flex_forward_reference(*args), warmup=1, iters=5)
-                    result["bound"][label] = _bound_ms(flops, _k4_bytes(R, S, False))
-            if R != TRAIN_RAYS:
+                    result["bound"][label] = _bound_ms(flops, _k4_bytes(R, S, False, n, h))
+            if R == TILE_RAYS:  # the serving tiles: K4f only
                 continue
             grads, d_v0, d_dir = F.fused_flex_backward(*args[:6], g, n)
             torch.cuda.synchronize()
@@ -4090,24 +4181,23 @@ def flex_kernel_phase(dev):
                     lambda: F.fused_flex_backward(*args[:6], g, n), iters=10)
                 result["bwd_plain_ms"][label] = _median_ms(
                     lambda: F.fused_flex_backward_reference(*args[:6], g, n), warmup=1, iters=3)
-                result["bwd_bound"][label] = _bound_ms(R * S * K4B_FLOP_PER_SAMPLE,
-                                                       _k4_bytes(R, S, True))
+                result["bwd_bound"][label] = _bound_ms(R * S * f_bwd, _k4_bytes(R, S, True, n, h))
                 bwd = FS.bare_bwd(case)
                 result["bwd_bare_ms"][label] = _median_ms(bwd, iters=10)
-                rows = split_rows(bwd, FS.launch_bounds(R, S, n))
+                rows = split_rows(bwd, FS.launch_bounds(R, S, n, h))
                 result["bwd_split"][label] = rows
                 for short, row in rows.items():
-                    phase("flex_kernel", f"  K4b S={S} {split_text(short, row)}")
+                    phase("flex_kernel", f"  K4b h={h} S={S} {split_text(short, row)}")
         result["err"][label] = out_err
-        line = (f"{label} R={R} S={S} n={n}, {FLEX_SEEDS} seeds: K4f max err rgb "
+        line = (f"{label} R={R} S={S} n={n} h={h}, {FLEX_SEEDS} seeds: K4f max err rgb "
                 f"{out_err['rgb']:.2e}·max, σ {out_err['sigma']:.2e}·max (limits "
                 f"{out_lim['rgb']:.4g}, {out_lim['sigma']:.4g})")
         if R == TILE_RAYS:
             ms, bare = result["tile_ms"][label], result["bare_ms"][label]
             line += (f"; K4f {ms:.3f} ms, bare launch {bare:.3f} ms "
-                     f"({R * S * K4F_FLOP_PER_SAMPLE / bare / 1e9:.1f} TFLOP/s at "
-                     f"{K4F_FLOP_PER_SAMPLE / 1e6:.4f} MFLOP a sample, operations bound "
-                     f"{R * S * K4F_FLOP_PER_SAMPLE / PEAK_BF16_FLOPS * 1e3:.3f} ms)")
+                     f"({R * S * f_fwd / bare / 1e9:.1f} TFLOP/s at "
+                     f"{f_fwd / 1e6:.4f} MFLOP a sample, operations bound "
+                     f"{R * S * f_fwd / PEAK_BF16_FLOPS * 1e3:.3f} ms)")
         else:
             result["readings"][label] = worst
             w_max = max(worst, key=lambda k: worst[k][0])
@@ -4118,11 +4208,11 @@ def flex_kernel_phase(dev):
             if timed:
                 fw, bw = result["ms"][label], result["bwd_ms"][label]
                 line += (f"; K4f {fw:.3f} ms, bare launch {result['bare_ms'][label]:.3f} ms "
-                         f"({R * S * K4F_FLOP_PER_SAMPLE / fw / 1e9:.1f} TFLOP/s, bound "
+                         f"({R * S * f_fwd / fw / 1e9:.1f} TFLOP/s, bound "
                          f"{result['bound'][label][0]:.3f}), plain {result['plain_ms'][label]:.3f} ms; "
                          f"K4b {bw:.3f} ms, bare launch {result['bwd_bare_ms'][label]:.3f} ms "
-                         f"({R * S * K4B_FLOP_PER_SAMPLE / bw / 1e9:.1f} TFLOP/s at "
-                         f"{K4B_FLOP_PER_SAMPLE / 1e6:.4f} MFLOP a sample, bound "
+                         f"({R * S * f_bwd / bw / 1e9:.1f} TFLOP/s at "
+                         f"{f_bwd / 1e6:.4f} MFLOP a sample, bound "
                          f"{result['bwd_bound'][label][0]:.3f}), plain "
                          f"{result['bwd_plain_ms'][label]:.3f} ms")
         phase("flex_kernel", line)
@@ -4144,6 +4234,10 @@ def flex_kernel_phase(dev):
 # in 4 units with 56 padding rows)
 DEAD_UNIT_CASES = ((2085, 64), (601, 128), (2133, 24), (267, 200))
 DEAD_UNIT_PASSES = 200
+# h = 512's persistent grid: a CTA a round of one item on both warpgroups,
+# so no warpgroup walks a dead item; 2085 items at S = 64 take 16 rounds
+# of 132 CTAs, the last one cut short
+DEAD_UNIT_WIDE_CASE = (2085, 64)
 
 
 def flex_dead_units_phase(dev):
@@ -4151,8 +4245,10 @@ def flex_dead_units_phase(dev):
     the runtime layouts at S = 24 and 200), DEAD_UNIT_PASSES passes: the
     dead-unit walk of K4b's recompute and dX
     (`fused_flex.cu::skip_stages`), which trapped in the mbarrier watchdog
-    before its repair. Every pass's output and gradients equal the first
-    pass's bit for bit. Nothing catches a fault: it fails the run."""
+    before its repair; then the same at h = 512 on DEAD_UNIT_WIDE_CASE, a
+    persistent grid past one round with a cut-short last round. Every
+    pass's output and gradients equal the first pass's bit for bit.
+    Nothing catches a fault: it fails the run."""
     import torch
 
     from nerface_tpu_torch.ops.kernels import fused_flex as F
@@ -4160,13 +4256,19 @@ def flex_dead_units_phase(dev):
 
     n = 8
     result = {}
-    for R, S in DEAD_UNIT_CASES:
-        sched = F.unit_schedule(R, S)
-        dead = sorted({(c, r, wg) for c, r, wg, _, ok in sched if not ok})
-        check(len(dead) == 1 and dead[0][2] == 1, f"flex_dead_units {R}x{S}: dead items {dead}")
-        params, v0 = flex_params(SEED + R + n, dev, n_hidden=n)
+    for R, S, h in [(R, S, 256) for R, S in DEAD_UNIT_CASES] + [(*DEAD_UNIT_WIDE_CASE, FLEX_WIDE)]:
+        if h == 256:
+            sched = F.unit_schedule(R, S)
+            dead = sorted({(c, r, wg) for c, r, wg, _, ok in sched if not ok})
+            check(len(dead) == 1 and dead[0][2] == 1, f"flex_dead_units {R}x{S}: dead items {dead}")
+        else:
+            items = -(-R // F.unit_layout(S)[0])
+            check(F.flex_ctas(R, S, h) == F.FLEX_CTAS < items and items % F.FLEX_CTAS,
+                  f"flex_dead_units {R}x{S} h={h}: {items} items on {F.flex_ctas(R, S, h)} CTAs")
+            dead = [(items % F.FLEX_CTAS, items // F.FLEX_CTAS, None)]  # the first CTA with a round fewer
+        params, v0 = flex_params(SEED + R + n + (h if h != 256 else 0), dev, n, h)
         gen = torch.Generator().manual_seed(SEED + R + S)
-        ro, rd, z, dc, _, _ = _kernel_inputs(R, S, gen, dev)
+        ro, rd, z, dc = _flex_inputs(R, S, gen, dev, h)
         weights = F.pack_flex_weights(params, n, 10)
         g = torch.randn(R, S, 4, generator=gen).to(dev)
         args = (weights, ro, rd, z, dc, v0)
@@ -4187,11 +4289,14 @@ def flex_dead_units_phase(dev):
         wall = time.perf_counter() - t0
         check(all(bool(torch.isfinite(t).all()) for t in first),
               f"flex_dead_units {R}x{S}: not finite")
-        result[f"{R}x{S}"] = {"passes": DEAD_UNIT_PASSES, "seconds": wall, "dead_item": dead[0]}
+        label = f"{R}x{S}" + ("" if h == 256 else f"_h{h}")
+        result[label] = {"passes": DEAD_UNIT_PASSES, "seconds": wall, "dead_item": dead[0]}
+        where = (f"the dead warpgroup-1 item in CTA {dead[0][0]}, round {dead[0][1]}" if h == 256 else
+                 f"h = {h}: {F.FLEX_CTAS} CTAs, CTA {dead[0][0]} on takes {dead[0][1]} rounds, the ones "
+                 f"before one more")
         phase("flex_dead_units", f"{R}x{S}, n = {n}: {DEAD_UNIT_PASSES} passes of K4f + K4b in "
                                  f"{wall:.2f} s, each bit for bit the first (outputs and "
-                                 f"{len(first) - 1} gradient tensors); the dead warpgroup-1 item "
-                                 f"in CTA {dead[0][0]}, round {dead[0][1]}")
+                                 f"{len(first) - 1} gradient tensors); {where}")
     return result
 
 
@@ -4464,16 +4569,30 @@ FLEX_64_128_WINDOW_K = 10
 
 def flex_64_128_phase(dev, ds, tmp, card):
     """synth512_lcode at the NeRF paper's 64 + 128 samples
-    (SYNTH512_LCODE_64_128): every bf16 pass through K4f / K4b, the coarse
-    ones at S = 64 and the fine ones at S = 192 (the runtime layout class),
-    and none left to the model's plain forward (`plain_flex_passes`).
-    Serves 3 frames of 512² through `serve_jsonl` (K4f 2 × tiles a frame,
-    no K4b or K2), each frame within FLEX_FRAME_MAX / FLEX_PLAIN_FRAME_MEAN
-    of the same frame through K4f's plain version (`flex_plain_version`)
-    and within FRAME_MAX / FRAME_MEAN of the same model's f32 plain frame
-    ([serve_64_128]'s limits); one bf16 step against the f32 plain
-    step ([train_step]'s limits); FLEX_TRAIN_STEPS steps of `train()` (the
-    printed loss falls); FLEX_64_128_WINDOW_STEPS steps windowed (K =
+    (SYNTH512_LCODE_64_128): the coarse passes at S = 64 and the fine ones
+    at S = 192 (the runtime layout class), `_flex_config_phase`."""
+    return _flex_config_phase(dev, ds, tmp, card, SYNTH512_LCODE_64_128, "flex_64_128")
+
+
+def flex_w512_phase(dev, ds, tmp, card):
+    """synth512_lcode_w512 (SYNTH512_LCODE_W512: hidden_size 512 in both
+    models, 64 + 64 samples): every bf16 pass through K4f / K4b's h = 512
+    kernels, `_flex_config_phase`, its frames held to f32 within
+    FLEX_W512_FRAME_MEAN."""
+    return _flex_config_phase(dev, ds, tmp, card, SYNTH512_LCODE_W512, "flex_w512", FLEX_W512_FRAME_MEAN)
+
+
+def _flex_config_phase(dev, ds, tmp, card, cfg_dict, name, f32_mean=FRAME_MEAN):
+    """A Flexible-family config `cfg_dict` end to end on the card: every
+    bf16 pass through K4f / K4b and none left to the model's plain forward
+    (`plain_flex_passes`). Serves 3 frames of 512² through `serve_jsonl`
+    (K4f 2 × tiles a frame, no K4b or K2), each frame within FLEX_FRAME_MAX
+    / FLEX_PLAIN_FRAME_MEAN of the same frame through K4f's plain version
+    (`flex_plain_version`) and within FRAME_MAX / f32_mean of the same
+    model's f32 plain frame ([serve_64_128]'s limits by default); one bf16 step
+    against the f32 plain step ([train_step]'s limits); FLEX_TRAIN_STEPS
+    steps of `train()` (the printed loss falls), then the steady step's ms
+    beside the frame's; FLEX_64_128_WINDOW_STEPS steps windowed (K =
     FLEX_64_128_WINDOW_K, CUDA-graph replays) against step at a time, the
     last checkpoint and the printed lines bit for bit."""
     import glob
@@ -4489,9 +4608,8 @@ def flex_64_128_phase(dev, ds, tmp, card):
     from nerface_tpu_torch.serve import AvatarServer
     from nerface_tpu_torch.train.loop import train
 
-    name = "flex_64_128"
     t_phase = time.perf_counter()
-    cfg = CfgNode(SYNTH512_LCODE_64_128)
+    cfg = CfgNode(cfg_dict)
     sc, sf = cfg.nerf.validation.num_coarse, cfg.nerf.validation.num_fine
     sds = synthetic_flame_dataset(H=512, W=512, n_train=8, n_val=2, n_test=2, seed=SEED)
     ckpt = _save_avatar(cfg, sds, os.path.join(tmp, f"{name}.ckpt"), SEED + 12)
@@ -4517,7 +4635,7 @@ def flex_64_128_phase(dev, ds, tmp, card):
         serve_plain = plain[0]
     check(serve_plain == 0, f"{name}: {serve_plain} bf16 flex passes served on the plain path")
     del server
-    cfg_ref = CfgNode(SYNTH512_LCODE_64_128)
+    cfg_ref = CfgNode(cfg_dict)
     cfg_ref.nerf.validation["chunksize"] = 8192  # bounds the plain activations
     before = F.fused_flex_forward.launches
     vs_f32, vs_plain = [], []
@@ -4526,13 +4644,16 @@ def flex_64_128_phase(dev, ds, tmp, card):
         ref_server = AvatarServer(cfg_ref, ckpt, dataset=sds, dtype=torch.bfloat16, device=dev, log=False)
         plain_imgs = [ref_server.render(frame=f, seed=sd, maps=("rgb_fine",))["rgb_fine"] for f, sd in frames]
     ref_server = AvatarServer(cfg_ref, ckpt, dataset=sds, dtype=None, device=dev, log=False)
+    plain_vs_f32 = []  # the plain version's own frame against f32: the bf16 roundings' share
     for (f, sd), img, pimg in zip(frames, imgs, plain_imgs):
         ref = ref_server.render(frame=f, seed=sd, maps=("rgb_fine",))["rgb_fine"]
         off_bg, spread = float(np.abs(img.astype(np.int16) - bg).mean()), float(img.std())
         check(off_bg >= 10.0 and spread >= 10.0,
               f"{name}: frame {f} {off_bg} levels off the background, std {spread}: the MLP shows little")
+        own = np.abs(pimg.astype(np.int16) - ref.astype(np.int16))
+        plain_vs_f32.append((float(own.mean()), int(own.max())))
         for against, lim_mean, lim_max, out in ((pimg, FLEX_PLAIN_FRAME_MEAN, FLEX_FRAME_MAX, vs_plain),
-                                                 (ref, FRAME_MEAN, FRAME_MAX, vs_f32)):
+                                                 (ref, f32_mean, FRAME_MAX, vs_f32)):
             diff = np.abs(img.astype(np.int16) - against.astype(np.int16))
             check(int(diff.max()) <= lim_max and float(diff.mean()) <= lim_mean,
                   f"{name}: frame {f} seed {sd} vs the {'plain version' if out is vs_plain else 'f32 plain path'}: "
@@ -4540,18 +4661,20 @@ def flex_64_128_phase(dev, ds, tmp, card):
             out.append((float(diff.mean()), int(diff.max())))
     check(F.fused_flex_forward.launches == before, f"{name}: the plain frames launched K4f")
     del ref_server
-    phase(name, f"{len(frames)} synth512_lcode frames at 512x512 via serve_jsonl ({sc} + {sf} samples: K4f "
-                f"at S = {sc} and {sc + sf}), frame_ms {frame_ms}, K4f launches {served} = 2 x {tiles} tiles "
+    h = cfg.models.coarse.hidden_size
+    phase(name, f"{len(frames)} frames (hidden {h}) at 512x512 via serve_jsonl ({sc} + {sf} samples: K4f at S "
+                f"= {sc} and {sc + sf}), frame_ms {frame_ms} on {card}, K4f launches {served} = 2 x {tiles} tiles "
                 f"x {len(frames)}, plain bf16 flex passes 0; each frame, mean / max |diff| levels, vs K4f's "
                 f"plain version's {[(round(m, 4), x) for m, x in vs_plain]} (limits {FLEX_PLAIN_FRAME_MEAN}, "
                 f"{FLEX_FRAME_MAX}), vs the f32 plain frame {[(round(m, 4), x) for m, x in vs_f32]} (limits "
-                f"{FRAME_MEAN}, {FRAME_MAX})")
+                f"{f32_mean}, "
+                f"{FRAME_MAX}); the plain version's own frame vs f32 {[(round(m, 4), x) for m, x in plain_vs_f32]}")
     torch.cuda.empty_cache()
 
     with plain_flex_passes() as plain:
-        step = train_step_phase(dev, ds, SYNTH512_LCODE_64_128, name)
+        step = train_step_phase(dev, ds, cfg_dict, name)
         steps = FLEX_TRAIN_STEPS
-        d = copy.deepcopy(SYNTH512_LCODE_64_128)
+        d = copy.deepcopy(cfg_dict)
         d["experiment"].update(logdir=os.path.join(tmp, name), train_iters=steps, print_every=10,
                                validate_every=1000, save_every=1000)
         F.fused_flex_forward.launches = F.fused_flex_backward.launches = 0
@@ -4559,7 +4682,7 @@ def flex_64_128_phase(dev, ds, tmp, card):
         text = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(text):
-            train(CfgNode(d), dataset=ds, dtype=torch.bfloat16, device=dev)
+            state = train(CfgNode(d), dataset=ds, dtype=torch.bfloat16, device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         k4f, k4b = F.fused_flex_forward.launches, F.fused_flex_backward.launches
@@ -4580,10 +4703,19 @@ def flex_64_128_phase(dev, ds, tmp, card):
                 f"K4f launches {k4f} = 2 x {steps} + 2 x {val_tiles} tiles x 2 frames, K4b {k4b} = 2 x "
                 f"{steps}, K1 and K2 0, plain bf16 flex passes 0; printed loss, mean of steps 0 and 10 "
                 f"{first:.5f} -> of the last 10 steps {last:.5f}")
+    with plain_flex_passes() as plain:
+        times, _, feed = _steady_steps(state, CfgNode(d), ds, dev)
+        feed.stop()
+    check(plain[0] == 0, f"{name}: {plain[0]} bf16 flex passes of the steady steps on the plain path")
+    step_ms = statistics.median(times)
+    phase(name, f"steady step {step_ms:.2f} ms (median of {len(times)}, synchronised; min {min(times):.2f}, "
+                f"max {max(times):.2f}), {TRAIN_RAYS / step_ms * 1e3:,.0f} rays/s; frame ms "
+                f"{statistics.median(frame_ms):.2f} (median of {len(frame_ms)}); on {card}")
+    del state
 
     runs = {}
     for k in (FLEX_64_128_WINDOW_K, 1):
-        d = copy.deepcopy(SYNTH512_LCODE_64_128)
+        d = copy.deepcopy(cfg_dict)
         w = os.path.join(tmp, f"{name}_window_{k}")
         d["experiment"].update(logdir=w, train_iters=FLEX_64_128_WINDOW_STEPS, print_every=10,
                                validate_every=1000, save_every=FLEX_64_128_WINDOW_STEPS // 2,
@@ -4616,10 +4748,10 @@ def flex_64_128_phase(dev, ds, tmp, card):
                 f"bf16 flex passes 0 / 0; the phase took {seconds:.1f} s on {card}")
     # launches: the frames served, the bf16 step's two passes, train() and the two window runs
     return {"serve_launches": served, "frame_ms": frame_ms, "vs_f32_levels": vs_f32,
-            "vs_plain_version_levels": vs_plain, "step_vs_f32": step,
+            "vs_plain_version_levels": vs_plain, "plain_version_vs_f32_levels": plain_vs_f32, "step_vs_f32": step,
             "k4f_launches": served + 2 + k4f + sum(r["k4"][0] for r in runs.values()),
             "k4b_launches": 2 + k4b + sum(r["k4"][1] for r in runs.values()),
-            "loss_printed": printed, "train_s": wall,
+            "loss_printed": printed, "train_s": wall, "step_ms": step_ms,
             "window": {"windowed_s": a["s"], "step_s": b["s"], "ckpt": os.path.basename(a["ckpt"])},
             "seconds": seconds}
 
@@ -5289,6 +5421,7 @@ def main() -> int:
         fs = flex_serve_phase(dev, tmp, args.profile)
         ft = flex_train_phase(dev, ds, tmp, args.profile, card)
         f64 = flex_64_128_phase(dev, ds, tmp, card)
+        fw = flex_w512_phase(dev, ds, tmp, card)
         stock_eval_phase(dev, tmp, card)
         tiny_nerf_phase(dev, card)
 
@@ -5525,10 +5658,10 @@ def main() -> int:
             "source": "nerface_tpu_torch/csrc/fused_flex.cu",
             "replaces": "nerface_tpu/ops/pallas/fused_flex.py:131",
             # the flex paths: served frames + training (steps and validation),
-            # and synth512_lcode at 64 + 128 (S = 64 and 192)
-            "launches": fs["launches"] + ft["k4f_launches"] + f64["k4f_launches"],
+            # synth512_lcode at 64 + 128 (S = 64 and 192) and at hidden 512
+            "launches": fs["launches"] + ft["k4f_launches"] + f64["k4f_launches"] + fw["k4f_launches"],
             "launches_by_path": {"flex_serve": fs["launches"], "flex_train": ft["k4f_launches"],
-                                 "flex_64_128": f64["k4f_launches"]},
+                                 "flex_64_128": f64["k4f_launches"], "flex_w512": fw["k4f_launches"]},
             "max_abs_err": fk["abs_err"],  # of raw rgb and σ, all cases
             "max_rel_err": fk["err"],  # relative to max|plain| per case
             # a train step's two passes at 2048 rays: coarse (S=64) + fine (S=128)
@@ -5550,6 +5683,16 @@ def main() -> int:
             "vs_plain_version_levels_64_128": f64["vs_plain_version_levels"],
             # [sample_counts]: SAMPLE_CASES' rays at each S through the wrapper
             "by_sample_count": sc["K4f"],
+            # hidden 512 (wide_chain_kernel): the train step's pair, the
+            # bound by operations at the bf16 peak; its frames and sample counts
+            "h512": {"ms": fk["ms"]["coarse_512"] + fk["ms"]["fine_512"],
+                     "plain_ms": fk["plain_ms"]["coarse_512"] + fk["plain_ms"]["fine_512"],
+                     "bound_ms": fk["bound"]["coarse_512"][0] + fk["bound"]["fine_512"][0],
+                     "bound_by": fk["bound"]["coarse_512"][1],
+                     "bare_ms_by_pass": {p: fk["bare_ms"][p] for p in ("coarse_512", "fine_512")},
+                     "frame_ms": fw["frame_ms"], "vs_f32_levels": fw["vs_f32_levels"],
+                     "vs_plain_version_levels": fw["vs_plain_version_levels"],
+                     "by_sample_count": sc["K4f_512"]},
             "card": card,
         },
         {
@@ -5557,8 +5700,9 @@ def main() -> int:
             "route": "cuda",
             "source": "nerface_tpu_torch/csrc/fused_flex.cu",
             "replaces": "nerface_tpu/ops/pallas/fused_flex.py:143",
-            "launches": ft["k4b_launches"] + f64["k4b_launches"],
-            "launches_by_path": {"flex_train": ft["k4b_launches"], "flex_64_128": f64["k4b_launches"]},
+            "launches": ft["k4b_launches"] + f64["k4b_launches"] + fw["k4b_launches"],
+            "launches_by_path": {"flex_train": ft["k4b_launches"], "flex_64_128": f64["k4b_launches"],
+                                 "flex_w512": fw["k4b_launches"]},
             "max_abs_err": fk["grad_abs_err"],  # over every gradient tensor
             "worst_grad_rel": fk["grad_rel"],  # (max error, norm error) per pass
             "ms": fk["bwd_ms"]["coarse"] + fk["bwd_ms"]["fine"],
@@ -5583,6 +5727,16 @@ def main() -> int:
             "window_64_128": f64["window"],
             # [sample_counts]: SAMPLE_CASES' rays at each S through the wrapper
             "by_sample_count": sc["K4b"],
+            # hidden 512 (wide_chain_kernel's recompute, wide_dx_kernel, dW):
+            # the train step's pair, its launch split, the step and window
+            "h512": {"ms": fk["bwd_ms"]["coarse_512"] + fk["bwd_ms"]["fine_512"],
+                     "plain_ms": fk["bwd_plain_ms"]["coarse_512"] + fk["bwd_plain_ms"]["fine_512"],
+                     "bound_ms": fk["bwd_bound"]["coarse_512"][0] + fk["bwd_bound"]["fine_512"][0],
+                     "bound_by": fk["bwd_bound"]["coarse_512"][1],
+                     "bare_ms_by_pass": {p: fk["bwd_bare_ms"][p] for p in ("coarse_512", "fine_512")},
+                     "launch_split_by_pass": {p: fk["bwd_split"][p] for p in ("coarse_512", "fine_512")},
+                     "step_ms": fw["step_ms"], "step_vs_f32": fw["step_vs_f32"], "window": fw["window"],
+                     "by_sample_count": sc["K4b_512"], "sample_count_control": sc["control_512"]},
             "card": card,
         },
         {

@@ -11,12 +11,16 @@
 // The function, per sample row: points ro + rd·z, [xyz; sin(x·f + φ); 0]
 // (64 bf16 columns), a_0 = that @ W1 + v0 with NO activation (`layer1`, a
 // reference quirk; v0 is its bias with the per-frame conditioning folded
-// in), a_{i+1} = relu(a_i @ WH_i + bh_i) for the n hidden layers (0 ≤ n ≤
-// MAX_HIDDEN, a runtime argument), then σ = a_n · wa + ba off the trunk
+// in), a_{i+1} = relu(a_i @ WH_i + bh_i) for the n hidden layers (any n ≥
+// 0, a runtime argument), then σ = a_n · wa + ba off the trunk
 // (not off feat, unlike the paper model), feat = relu(a_n @ WF + bf), x0 =
 // relu(feat @ WD0 + bd0 + the ray's direction contribution), rgb = x0 @
 // wrgb + brgb. Out: raw (R, S, 4) [rgb, σ]; the compositing stays with the
-// caller, as in the JAX package.
+// caller, as in the JAX package. The hidden width h is 256 or 512 (layers_dir.0
+// h / 2), a runtime argument: h = 256 runs the kernels described next, h
+// = 512 its own pair (`wide_chain_kernel`, `wide_dx_kernel`, below: the
+// two consumer warpgroups share each unit, each computing half of every
+// layer's columns).
 //
 // K4f, `flex_chain_kernel<SF, false>`, is K2's chain without the cluster
 // (wgmma_chain.cuh): one persistent 384-thread CTA an SM. The producer
@@ -38,7 +42,9 @@
 // accumulator pairs to bf16 exactly where the plain version does and they
 // are the next product's A fragment. The σ head is an m64n8 wgmma off
 // a_n's A registers before fc_feat overwrites them, the rgb head one off
-// x0's; the raw rows go out as float4s.
+// x0's; the raw rows go out as float4s. The bias rows before the hidden
+// layers' (and the bands) sit in shared memory; each hidden layer's row is
+// read from F by its epilogue, so the depth sizes no buffer.
 //
 // K4b is four kinds of launch on the caller's stream, no float atomics,
 // every partition fixed by the shape, so two calls on the same inputs give
@@ -68,8 +74,10 @@
 //      rays), the pieces summed in row order across the ray's units
 //      (`dir_pieces`), so S = 32 / 64 / 128 keep their sums' order;
 //   3. `dw_wgmma_kernel` (wgmma_dw.cuh): dW = Xᵀ·bf16(gY) for W1 (K = 64),
-//      WF, WD0 and every WH_i from the images, in row segments that fill
-//      one wave;
+//      WF, WD0 and every WH_i from the images (`dw_products`: gY by column
+//      blocks of at most 256), in row segments that fill one wave, at
+//      most DWG_MATS_MAX products a launch (a deep pass launches it more
+//      than once into the same segments);
 //   4. two `reduce_rows`: dW's segments, and the CTAs' partial rows.
 // Rounding as in the TPU kernel: every left matmul operand (the raw points
 // included), the saved activations and their masks, both dW operands, the
@@ -87,6 +95,9 @@
 // 0.24 / 0.29 / 0.43 ms (recompute / dX / dW) above the operations bound
 // of 0.165 / 0.157 / 0.165. chip_smoke.py's `[flex_kernel]` prints each
 // launch's device time beside both, apart.
+//
+// At h = 512 (`wide_chain_kernel` / `wide_dx_kernel`, below) every
+// product reads its A from shared memory: 4.06 × the operations at n = 3.
 //
 // Measured (NVIDIA H100 80GB HBM3, 700 W; PERF.md): the tiles 6.0 / 11.7
 // ms as bare launches, 44 % of their operations bound (K2 reaches 60 %;
@@ -110,41 +121,66 @@ using namespace nerface::sm90;
 
 namespace {
 
-constexpr int MAX_HIDDEN = 8;
+constexpr int WIDE = 512;  // the second hidden width the kernels take
 
-// Packed operand offsets, in elements. They must equal w_offsets /
-// f_offsets / wt_offsets in ops/kernels/fused_flex.py (a CPU test checks
-// it). bf16 weights, (in, out): W1 = [w1a; w1b; 0], WF, WD0, WH_i at
-// FW_OFF_WH + i·HIDDEN², each as its chunk images, then WA and WRGB
-// row-major.
-constexpr int FW_OFF_W1 = 0;
-constexpr int FW_OFF_WF = 16384;
-constexpr int FW_OFF_WD0 = 81920;
-constexpr int FW_OFF_WH = 114688;
-// f32 rows: V0, BF, BD0, BA, BRGB, FREQS, then BH_i at FF_OFF_BH + i·HIDDEN.
-constexpr int FF_OFF_V0 = 0;
-constexpr int FF_OFF_BF = 256;
-constexpr int FF_OFF_BD0 = 512;
-constexpr int FF_OFF_BA = 640;
-constexpr int FF_OFF_BRGB = 641;
-constexpr int FF_OFF_FREQS = 644;
-constexpr int FF_OFF_BH = 660;
-// transposed weights, (out, in), each as its chunk images (K = out, N =
-// in): WD0T, WFT, WHT_i at FT_OFF_WHT + i·HIDDEN².
-constexpr int FT_OFF_WD0T = 0;
-constexpr int FT_OFF_WFT = 32768;
-constexpr int FT_OFF_WHT = 98304;
-static_assert(FW_OFF_WF - FW_OFF_W1 == K_XIN * HIDDEN && FW_OFF_WD0 - FW_OFF_WF == HIDDEN * HIDDEN &&
-                  FW_OFF_WH - FW_OFF_WD0 == HIDDEN * DIR_HIDDEN,
-              "weight layout");
-static_assert(FF_OFF_BD0 - FF_OFF_BF == HIDDEN && FF_OFF_BA - FF_OFF_BD0 == DIR_HIDDEN &&
-                  FF_OFF_FREQS - FF_OFF_BRGB == 3 && FF_OFF_BH - FF_OFF_FREQS == 16,
-              "bias row layout");
-static_assert(FT_OFF_WFT - FT_OFF_WD0T == DIR_HIDDEN * HIDDEN && FT_OFF_WHT - FT_OFF_WFT == HIDDEN * HIDDEN,
-              "transposed layout");
+// Packed operand offsets at hidden width H, in elements. They must equal
+// w_offsets / f_offsets / wt_offsets in ops/kernels/fused_flex.py (a CPU
+// test checks it). bf16 weights, (in, out): W1 = [w1a; w1b; 0], WF, WD0,
+// WH_i at FW_OFF_WH + i·H², each as its chunk images, then WA and WRGB
+// row-major. f32 rows: V0, BF, BD0, BA, BRGB, FREQS, then BH_i at
+// FF_OFF_BH + i·H. Transposed weights, (out, in), each as its chunk images
+// (K = out, N = in): WD0T, WFT, WHT_i at FT_OFF_WHT + i·H².
+template <int H>
+struct Offsets;
+template <>
+struct Offsets<256> {
+  static constexpr int FW_OFF_W1 = 0;
+  static constexpr int FW_OFF_WF = 16384;
+  static constexpr int FW_OFF_WD0 = 81920;
+  static constexpr int FW_OFF_WH = 114688;
+  static constexpr int FF_OFF_V0 = 0;
+  static constexpr int FF_OFF_BF = 256;
+  static constexpr int FF_OFF_BD0 = 512;
+  static constexpr int FF_OFF_BA = 640;
+  static constexpr int FF_OFF_BRGB = 641;
+  static constexpr int FF_OFF_FREQS = 644;
+  static constexpr int FF_OFF_BH = 660;
+  static constexpr int FT_OFF_WD0T = 0;
+  static constexpr int FT_OFF_WFT = 32768;
+  static constexpr int FT_OFF_WHT = 98304;
+};
+template <>
+struct Offsets<512> {
+  static constexpr int FW_OFF_W1 = 0;
+  static constexpr int FW_OFF_WF = 32768;
+  static constexpr int FW_OFF_WD0 = 294912;
+  static constexpr int FW_OFF_WH = 425984;
+  static constexpr int FF_OFF_V0 = 0;
+  static constexpr int FF_OFF_BF = 512;
+  static constexpr int FF_OFF_BD0 = 1024;
+  static constexpr int FF_OFF_BA = 1280;
+  static constexpr int FF_OFF_BRGB = 1281;
+  static constexpr int FF_OFF_FREQS = 1284;
+  static constexpr int FF_OFF_BH = 1300;
+  static constexpr int FT_OFF_WD0T = 0;
+  static constexpr int FT_OFF_WFT = 131072;
+  static constexpr int FT_OFF_WHT = 393216;
+};
+
+template <int H>
+constexpr bool offsets_ok() {
+  using O = Offsets<H>;
+  return O::FW_OFF_WF - O::FW_OFF_W1 == K_XIN * H && O::FW_OFF_WD0 - O::FW_OFF_WF == H * H &&
+         O::FW_OFF_WH - O::FW_OFF_WD0 == H * (H / 2) && O::FF_OFF_BF == H && O::FF_OFF_BD0 - O::FF_OFF_BF == H &&
+         O::FF_OFF_BA - O::FF_OFF_BD0 == H / 2 && O::FF_OFF_BRGB == O::FF_OFF_BA + 1 &&
+         O::FF_OFF_FREQS - O::FF_OFF_BRGB == 3 && O::FF_OFF_BH - O::FF_OFF_FREQS == 16 &&
+         O::FT_OFF_WFT - O::FT_OFF_WD0T == (H / 2) * H && O::FT_OFF_WHT - O::FT_OFF_WFT == H * H;
+}
+static_assert(offsets_ok<256>() && offsets_ok<512>(), "operand layout");
+
+using O = Offsets<HIDDEN>;  // the h = 256 kernels'
 
 constexpr int HH = HIDDEN * HIDDEN;
-constexpr int FF_MAX = FF_OFF_BH + MAX_HIDDEN * HIDDEN;
 constexpr int RING = 5;                          // weight stages
 constexpr int CONSUMERS = CHAIN_CONSUMERS;       // warpgroups computing units
 constexpr int ENCODERS = CHAIN_ENCODERS;         // warps of the producer warpgroup that encode
@@ -153,53 +189,63 @@ constexpr int WARPS_A_CTA = 4 * CONSUMERS;
 constexpr int BAR_WG = 1;                        // + warpgroup: that warpgroup's named barrier
 constexpr int BAR_CONSUMERS = 3;                 // both consumer warpgroups
 
-// The offsets that depend on the number of hidden layers n.
+// The offsets and sizes that depend on the width h and the number of
+// hidden layers n (any n ≥ 0: nothing is sized by it at compile time).
 struct Layout {
-  int n;
-  int wa, wrgb;  // WA, WRGB after the WH_i
+  int h, dh, n;        // dh = h / 2, layers_dir.0's width
+  int wf, wd0, wh;     // WF, WD0, WH_0
+  int wa, wrgb;        // WA, WRGB after the WH_i
   int f_total;
-  int part_cols;  // a partial row: the f32 rows, then WA and WRGB
+  int part_cols;       // a partial row: the f32 rows, then WA and WRGB
+  int mask_bytes;      // a unit's relu mask of an h-wide activation, as bits
 };
 
+template <int H>
 __host__ __device__ inline Layout flex_layout(int n) {
+  using OH = Offsets<H>;
   Layout L;
+  L.h = H;
+  L.dh = H / 2;
   L.n = n;
-  L.wa = FW_OFF_WH + n * HH;
-  L.wrgb = L.wa + HIDDEN;
-  L.f_total = FF_OFF_BH + n * HIDDEN;
-  L.part_cols = L.f_total + HIDDEN + DIR_HIDDEN * 3;
+  L.wf = OH::FW_OFF_WF;
+  L.wd0 = OH::FW_OFF_WD0;
+  L.wh = OH::FW_OFF_WH;
+  L.wa = OH::FW_OFF_WH + n * H * H;
+  L.wrgb = L.wa + H;
+  L.f_total = OH::FF_OFF_BH + n * H;
+  L.part_cols = L.f_total + H + (H / 2) * 3;
+  L.mask_bytes = 128 * H / 64 * 4;
   return L;
-}
-
-// dW's products' X widths (W1, WF, WD0, WH_i), and the row segments that
-// fill one wave with them.
-int dw_segments_of(int n) {
-  int kdims[3 + MAX_HIDDEN] = {K_XIN, HIDDEN, HIDDEN};
-  for (int i = 0; i < n; ++i) kdims[3 + i] = HIDDEN;
-  return dw_segments(kdims, 3 + n);
 }
 
 // The backward's workspace. Each bf16 buffer holds one matrix of the pass
 // as wgmma operand images: per 64-row unit, its 64-column blocks of 64
 // rows in the 128-byte swizzle (k1::image_offset), `width` · 128 bytes a
-// unit. The order is the carve's, mirrored by `workspace_buffers` and
-// `mask_buffers` in ops/kernels/fused_flex.py.
+// unit. A run of buffers of one kind (a_0..a_n, the WH_i outputs'
+// cotangents, a_1..a_n's masks) lies back to back, `hbytes` / `mask_words`
+// apart, so the depth sizes nothing. The order is the carve's, mirrored
+// by `workspace_buffers` and `mask_buffers` in ops/kernels/fused_flex.py.
 struct Workspace {
-  unsigned char* xin;                    // K_XIN
-  unsigned char* act[MAX_HIDDEN + 1];    // a_0..a_n
+  unsigned char* xin;    // K_XIN
+  unsigned char* act0;   // a_0..a_n
   unsigned char* feat;
-  unsigned char* x0;                     // DIR_HIDDEN
-  unsigned char* gx0;                    // DIR_HIDDEN
+  unsigned char* x0;     // h / 2
+  unsigned char* gx0;    // h / 2
   unsigned char* gfeat;
-  unsigned char* gpre[MAX_HIDDEN];       // the cotangents of WH_i's outputs before the relu
-  unsigned char* ga0;                    // the cotangent of a_0
-  // the relu masks dX applies, as bits in the fragment's order (MASK_BYTES
-  // a unit): feat's, and a_1..a_n's at amask[i - 1]
+  unsigned char* gpre0;  // the cotangents of WH_i's outputs before the relu
+  unsigned char* ga0;    // the cotangent of a_0
+  // the relu masks dX applies, as bits in the fragment's order
+  // (Layout::mask_bytes a unit): feat's, and a_1..a_n's at amask(i - 1)
   uint32_t* fmask;
-  uint32_t* amask[MAX_HIDDEN];
-  float* warp_part;                      // (ctas · WARPS_A_CTA, part_cols): each warp's running sums
-  float* tile_part;                      // (ctas, part_cols): a CTA's sums
-  float* dw_part;                        // (dw segments, wa)
+  uint32_t* amask0;
+  float* warp_part;      // (ctas · WARPS_A_CTA, part_cols): each warp's running sums
+  float* tile_part;      // (ctas, part_cols): a CTA's sums
+  float* dw_part;        // (dw segments, wa)
+  size_t hbytes;         // an h-wide buffer: units · h · 128
+  size_t mask_words;     // a mask buffer: units · mask_bytes / 4
+  __host__ __device__ unsigned char* act(int i) const { return act0 + i * hbytes; }
+  __host__ __device__ unsigned char* gpre(int i) const { return gpre0 + i * hbytes; }
+  __host__ __device__ uint32_t* amask(int i) const { return amask0 + i * mask_words; }
 };
 
 __host__ __device__ __forceinline__ unsigned char* unit_image(unsigned char* buf, int width, int unit) {
@@ -210,11 +256,19 @@ __host__ __device__ __forceinline__ unsigned char* unit_image(unsigned char* buf
 // thread t holds the 128 elements of its accumulator fragment (pairs p,
 // k1::frag_row / fold_col) and keeps them in words [4t, 4t + 4): bit
 // 2·(p % 16) + e of word p / 16 is element e of pair p > 0. The recompute
-// and dX hold the same elements in the same threads.
+// and dX hold the same elements in the same threads. At h = 512 each
+// consumer warpgroup holds 256 of the columns (`wide_mask`).
 constexpr int MASK_BYTES = 128 * HIDDEN / 64 * 4;  // 2 KB
+constexpr int WIDE_MASK_BYTES = 128 * WIDE / 64 * 4;  // 4 KB
 
 __device__ __forceinline__ uint32_t* unit_mask(uint32_t* buf, int unit) {
   return buf + (size_t)unit * (MASK_BYTES / 4) + 4 * (threadIdx.x & 127);
+}
+
+// h = 512: warpgroup wg's threads keep its columns' words after warpgroup
+// 0's.
+__device__ __forceinline__ uint32_t* wide_mask(uint32_t* buf, int unit, int wg) {
+  return buf + (size_t)unit * (WIDE_MASK_BYTES / 4) + 4 * (wg * 128 + (threadIdx.x & 127));
 }
 
 // The bits of the bf16 pairs a[0, 64) (a relu'd activation: > 0 is a
@@ -230,6 +284,31 @@ __device__ __forceinline__ void store_mask(uint32_t* dst, const uint32_t* a) {
   *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
 }
 
+// dW's products of a pass, dW = Xᵀ·bf16(gY) from the workspace images: W1
+// (its xin rows, K = 64), WF, WD0 and every WH_i, each by column blocks of
+// at most 256 of its gY (two at h = 512), in that order; fn(DwgMat).
+template <class Fn>
+void dw_products(const Workspace& ws, const Layout& L, Fn&& fn) {
+  auto blocks = [&](const unsigned char* X, const unsigned char* G, int kdim, int ndim, int out_off) {
+    const int nb = ndim > 256 ? 256 : ndim;
+    for (int c = 0; c < ndim; c += nb)
+      fn(DwgMat{X, G ? G + (size_t)c * ROW_BYTES : nullptr, kdim, nb, out_off + c, ndim, ndim});
+  };
+  blocks(ws.xin, ws.ga0, K_XIN, L.h, 0);
+  blocks(ws.act0 ? ws.act(L.n) : nullptr, ws.gfeat, L.h, L.h, L.wf);
+  blocks(ws.feat, ws.gx0, L.h, L.dh, L.wd0);
+  for (int i = 0; i < L.n; ++i)
+    blocks(ws.act0 ? ws.act(i) : nullptr, ws.gpre0 ? ws.gpre(i) : nullptr, L.h, L.h, L.wh + i * L.h * L.h);
+}
+
+// dW's row segments: one wave over its products' CTAs (`dw_tasks` a
+// product), at least 1.
+int dw_segments_of(const Layout& L) {
+  int tasks = 0;
+  dw_products(Workspace{}, L, [&](const DwgMat& m) { tasks += dw_tasks(m.kdim); });
+  return tasks >= DWG_WAVE ? 1 : DWG_WAVE / tasks;
+}
+
 // Lays the workspace out from `base` (or only measures it when base is
 // null); returns its size in bytes.
 size_t carve(unsigned char* base, int units, int ctas, const Layout& L, Workspace* ws) {
@@ -239,22 +318,33 @@ size_t carve(unsigned char* base, int units, int ctas, const Layout& L, Workspac
     off = align256(off + bytes);
     return p;
   };
+  // `count` buffers of `bytes` each, back to back (each a multiple of 256)
+  auto run = [&](size_t bytes, int count) -> void* {
+    void* p = base ? base + off : nullptr;
+    for (int i = 0; i < count; ++i) take(bytes);
+    return p;
+  };
   auto img = [&](int width) { return static_cast<unsigned char*>(take((size_t)units * width * ROW_BYTES)); };
+  auto imgs = [&](int width, int count) {
+    return static_cast<unsigned char*>(run((size_t)units * width * ROW_BYTES, count));
+  };
+  auto bits = [&](int count) { return static_cast<uint32_t*>(run((size_t)units * L.mask_bytes, count)); };
   Workspace w = {};
+  w.hbytes = (size_t)units * L.h * ROW_BYTES;
+  w.mask_words = (size_t)units * L.mask_bytes / 4;
   w.xin = img(K_XIN);
-  for (int i = 0; i <= L.n; ++i) w.act[i] = img(HIDDEN);
-  w.feat = img(HIDDEN);
-  w.x0 = img(DIR_HIDDEN);
-  w.gx0 = img(DIR_HIDDEN);
-  w.gfeat = img(HIDDEN);
-  for (int i = 0; i < L.n; ++i) w.gpre[i] = img(HIDDEN);
-  w.ga0 = img(HIDDEN);
-  auto bits = [&]() { return static_cast<uint32_t*>(take((size_t)units * MASK_BYTES)); };
-  w.fmask = bits();
-  for (int i = 0; i < L.n; ++i) w.amask[i] = bits();
+  w.act0 = imgs(L.h, L.n + 1);
+  w.feat = img(L.h);
+  w.x0 = img(L.dh);
+  w.gx0 = img(L.dh);
+  w.gfeat = img(L.h);
+  w.gpre0 = imgs(L.h, L.n);
+  w.ga0 = img(L.h);
+  w.fmask = bits(1);
+  w.amask0 = bits(L.n);
   w.warp_part = static_cast<float*>(take((size_t)ctas * WARPS_A_CTA * L.part_cols * sizeof(float)));
   w.tile_part = static_cast<float*>(take((size_t)ctas * L.part_cols * sizeof(float)));
-  w.dw_part = static_cast<float*>(take((size_t)dw_segments_of(L.n) * L.wa * sizeof(float)));
+  w.dw_part = static_cast<float*>(take((size_t)dw_segments_of(L) * L.wa * sizeof(float)));
   if (ws) *ws = w;
   return off;
 }
@@ -266,8 +356,8 @@ struct FwdArgs {
   const float* rd;     // (R, 3)
   const float* z;      // (R, S)
   const float* dir_c;  // (R, 128)
-  const bf16* W;       // the forward weights' chunk images (FW_OFF_*)
-  const float* F;      // bias rows + frequency bands (FF_OFF_*)
+  const bf16* W;       // the forward weights' chunk images (Offsets<h>::FW_OFF_*)
+  const float* F;      // bias rows + frequency bands (Offsets<h>::FF_OFF_*)
   float* out;          // (R, S, 4), or null in the recompute
   Workspace ws;        // the recompute's images, or all null
   int n_rays;
@@ -280,7 +370,7 @@ struct alignas(ATOM_BYTES) FwdSmem {
   unsigned char xin[CONSUMERS][2][XIN_BYTES];
   unsigned char wa8[HIDDEN / KCH][8 * ROW_BYTES];  // the heads' weights padded to 8 columns
   unsigned char wrgb8[DIR_HIDDEN / KCH][8 * ROW_BYTES];
-  float f[FF_MAX];
+  float f[O::FF_OFF_BH];  // the rows before the hidden layers' (read from F, any depth)
   uint64_t full[RING];
   uint64_t empty[RING];
   uint64_t xin_full[CONSUMERS][2];
@@ -336,10 +426,10 @@ __device__ __forceinline__ void fwd_produce(FwdSmem& sm, const FwdArgs& a, int n
   };
   for (int round = blockIdx.x; round < n_rounds; round += gridDim.x) {
     for (int u = 0; u < g.units(); ++u) {
-      load(FW_OFF_W1, K_XIN, HIDDEN);
-      for (int i = 0; i < a.n_hidden; ++i) load(FW_OFF_WH + i * HH, HIDDEN, HIDDEN);
-      load(FW_OFF_WF, HIDDEN, HIDDEN);
-      load(FW_OFF_WD0, HIDDEN, DIR_HIDDEN);
+      load(O::FW_OFF_W1, K_XIN, HIDDEN);
+      for (int i = 0; i < a.n_hidden; ++i) load(O::FW_OFF_WH + i * HH, HIDDEN, HIDDEN);
+      load(O::FW_OFF_WF, HIDDEN, HIDDEN);
+      load(O::FW_OFF_WD0, HIDDEN, DIR_HIDDEN);
     }
   }
 }
@@ -394,22 +484,22 @@ __device__ __forceinline__ void fwd_consume(FwdSmem& sm, const FwdArgs& a, int w
       layer<HIDDEN, 1, 1, FRESH>(acc, act, xin, sm, ring, release);
       if ((threadIdx.x & 127) == 0) mbar_arrive(&sm.xin_empty[wg][b]);  // layer1 is its only reader
       ++units;
-      acc_to_a<HIDDEN, false>(acc, act, ChainBias{sm.f + FF_OFF_V0});  // layer1: NO relu
-      if (SAVE) k1::store_frag<HIDDEN>(unit_image(ws.act[0], HIDDEN, unit), act);
+      acc_to_a<HIDDEN, false>(acc, act, ChainBias{sm.f + O::FF_OFF_V0});  // layer1: NO relu
+      if (SAVE) k1::store_frag<HIDDEN>(unit_image(ws.act(0), HIDDEN, unit), act);
 #pragma unroll 1
       for (int i = 0; i < n; ++i) {
         layer<HIDDEN, 4, 0, FRESH>(acc, act, xin, sm, ring, release);
-        acc_to_a<HIDDEN, true>(acc, act, ChainBias{sm.f + FF_OFF_BH + i * HIDDEN});
+        acc_to_a<HIDDEN, true>(acc, act, ChainBias{a.F + O::FF_OFF_BH + i * HIDDEN});
         if (SAVE) {
-          k1::store_frag<HIDDEN>(unit_image(ws.act[i + 1], HIDDEN, unit), act);
-          store_mask(unit_mask(ws.amask[i], unit), act);
+          k1::store_frag<HIDDEN>(unit_image(ws.act(i + 1), HIDDEN, unit), act);
+          store_mask(unit_mask(ws.amask(i), unit), act);
         }
       }
       // σ off the trunk: a_n's A registers against wa padded to 8 columns
       float hs[4] = {0.f, 0.f, 0.f, 0.f};
       if constexpr (!SAVE) chain_head<HIDDEN>(hs, act, smem_u32(sm.wa8));
       layer<HIDDEN, 4, 0, FRESH>(acc, act, xin, sm, ring, release);
-      acc_to_a<HIDDEN, true>(acc, act, ChainBias{sm.f + FF_OFF_BF});  // feat
+      acc_to_a<HIDDEN, true>(acc, act, ChainBias{sm.f + O::FF_OFF_BF});  // feat
       if (SAVE) {
         k1::store_frag<HIDDEN>(unit_image(ws.feat, HIDDEN, unit), act);
         store_mask(unit_mask(ws.fmask, unit), act);
@@ -422,9 +512,9 @@ __device__ __forceinline__ void fwd_consume(FwdSmem& sm, const FwdArgs& a, int w
                             i0 + 8 < rows ? ray0 + g.ray_of(i0 + 8) : a.n_rays};
       auto dir_row = [&](int ray) { return ray < a.n_rays ? a.dir_c + (size_t)ray * DIR_HIDDEN : nullptr; };
       if constexpr (SF != 0) {  // one ray over whole units: both rows in it
-        acc_to_a<DIR_HIDDEN, true>(acc, act, ChainDir{sm.f + FF_OFF_BD0, dir_row(ray_h[0])});  // x0
+        acc_to_a<DIR_HIDDEN, true>(acc, act, ChainDir{sm.f + O::FF_OFF_BD0, dir_row(ray_h[0])});  // x0
       } else {
-        acc_to_a<DIR_HIDDEN, true>(acc, act, ChainDirRows{sm.f + FF_OFF_BD0, {dir_row(ray_h[0]), dir_row(ray_h[1])}});
+        acc_to_a<DIR_HIDDEN, true>(acc, act, ChainDirRows{sm.f + O::FF_OFF_BD0, {dir_row(ray_h[0]), dir_row(ray_h[1])}});
       }
       if constexpr (SAVE) {
         k1::store_frag<DIR_HIDDEN>(unit_image(ws.x0, DIR_HIDDEN, unit), act);
@@ -439,8 +529,8 @@ __device__ __forceinline__ void fwd_consume(FwdSmem& sm, const FwdArgs& a, int w
           const size_t row = (size_t)ray0 * g.samples() + i0 + 8 * h;  // the pass's row
           if ((lane & 3) == 0 && ray_h[h] < a.n_rays)
             *reinterpret_cast<float4*>(a.out + row * 4) =
-                make_float4(hc[2 * h] + sm.f[FF_OFF_BRGB], hc[2 * h + 1] + sm.f[FF_OFF_BRGB + 1],
-                            b2 + sm.f[FF_OFF_BRGB + 2], hs[2 * h] + sm.f[FF_OFF_BA]);
+                make_float4(hc[2 * h] + sm.f[O::FF_OFF_BRGB], hc[2 * h + 1] + sm.f[O::FF_OFF_BRGB + 1],
+                            b2 + sm.f[O::FF_OFF_BRGB + 2], hs[2 * h] + sm.f[O::FF_OFF_BA]);
         }
       }
     }
@@ -454,8 +544,8 @@ __global__ void __launch_bounds__(FLEX_THREADS, 1) flex_chain_kernel(const FwdAr
   FwdSmem& sm = *reinterpret_cast<FwdSmem*>(smem_raw + pad);
   const UnitSchedule<SF, 1> g{a.l};
   const int t = threadIdx.x;
-  const Layout L = flex_layout(a.n_hidden);
-  for (int i = t; i < L.f_total; i += FLEX_THREADS) sm.f[i] = a.F[i];
+  const Layout L = flex_layout<HIDDEN>(a.n_hidden);
+  for (int i = t; i < O::FF_OFF_BH; i += FLEX_THREADS) sm.f[i] = a.F[i];
   if constexpr (!SAVE) {
     head_image<HIDDEN>(sm.wa8, a.W + L.wa, 1, t, FLEX_THREADS);
     head_image<DIR_HIDDEN>(sm.wrgb8, a.W + L.wrgb, 3, t, FLEX_THREADS);
@@ -487,13 +577,13 @@ __global__ void __launch_bounds__(FLEX_THREADS, 1) flex_chain_kernel(const FwdAr
       const int e = t - CONSUMERS * 128 - 32;
       if constexpr (SAVE) {
         // the recompute also stores each live unit's xin image
-        encode_units(g, sm.xin, sm.xin_full, sm.xin_empty, a, sm.f + FF_OFF_FREQS, 0, blockIdx.x, gridDim.x,
+        encode_units(g, sm.xin, sm.xin_full, sm.xin_empty, a, sm.f + O::FF_OFF_FREQS, 0, blockIdx.x, gridDim.x,
                      n_rounds, e, [&](int item, int u) -> unsigned char* {
                        return item * g.wg_rays() < a.n_rays ? unit_image(a.ws.xin, K_XIN, item * g.units() + u)
                                                             : nullptr;
                      });
       } else {
-        encode_units(g, sm.xin, sm.xin_full, sm.xin_empty, a, sm.f + FF_OFF_FREQS, 0, blockIdx.x, gridDim.x,
+        encode_units(g, sm.xin, sm.xin_full, sm.xin_empty, a, sm.f + O::FF_OFF_FREQS, 0, blockIdx.x, gridDim.x,
                      n_rounds, e, [](int, int) -> unsigned char* { return nullptr; });
       }
     }
@@ -521,7 +611,7 @@ int launch_chain(const FwdArgs& a, cudaStream_t st) {
 struct DxArgs {
   const float* g;   // (R, S, 4): the cotangent of [rgb, σ]
   const bf16* W;    // the forward weights (WA and WRGB, row-major)
-  const bf16* WT;   // the transposed weights' chunk images (FT_OFF_*)
+  const bf16* WT;   // the transposed weights' chunk images (Offsets<h>::FT_OFF_*)
   float* d_dir;     // (R, 128)
   Workspace ws;
   int n_rays;
@@ -579,19 +669,23 @@ __device__ __forceinline__ void dx_produce(DxSmem& sm, const DxArgs& a, int n_pa
   };
   for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
     for (int u = 0; u < g.units(); ++u) {
-      load(FT_OFF_WD0T, DIR_HIDDEN);
-      load(FT_OFF_WFT, HIDDEN);
-      for (int i = a.n_hidden - 1; i >= 0; --i) load(FT_OFF_WHT + i * HH, HIDDEN);
+      load(O::FT_OFF_WD0T, DIR_HIDDEN);
+      load(O::FT_OFF_WFT, HIDDEN);
+      for (int i = a.n_hidden - 1; i >= 0; --i) load(O::FT_OFF_WHT + i * HH, HIDDEN);
     }
   }
 }
 
 // The heads' parts of a unit's dX, before its first product (K1's
-// `dx_heads` with a_n for feat and x0 for x2): the WA sums a_nᵀ·bf16(g_σ)
-// and WRGB sums x0ᵀ·bf16(g_rgb) into the warp's partial row, the σ / rgb
-// biases' sums, and gx0 = bf16(g_rgb)·Wrgbᵀ ⊙ [x0 > 0] into acc[0, 64).
-__device__ __forceinline__ void dx_heads(const DxSmem& sm, const unsigned char* an, const unsigned char* x0img,
-                                         const float* gs, float* acc, float* part, int wa_col, int wrgb_col) {
+// `dx_heads` with a_n for feat and x0 for x2), over the warpgroup's 256
+// columns of a_n and 128 of x0 (`wrgb` their rows of the f32 (h / 2, 3)
+// weight): the WA sums a_nᵀ·bf16(g_σ) and WRGB sums x0ᵀ·bf16(g_rgb) into
+// the warp's partial row, with `biases` the σ / rgb biases' sums (at
+// `bias_part`: ba, then brgb), and gx0 = bf16(g_rgb)·Wrgbᵀ ⊙ [x0 > 0] into
+// acc[0, 64).
+__device__ __forceinline__ void dx_heads(const float* wrgb, const unsigned char* an, const unsigned char* x0img,
+                                         const float* gs, float* acc, float* part, int wa_col, int wrgb_col,
+                                         float* bias_part, bool biases) {
   const int r0 = k1::frag_row(), lane = threadIdx.x & 31;
   const int g8 = lane >> 2;
   // WA: the 2-row fold of a_n · bf16(g_σ), 64 column partials in acc
@@ -632,7 +726,7 @@ __device__ __forceinline__ void dx_heads(const DxSmem& sm, const unsigned char* 
     const float2 m = unpack_bf16(x0[p]);
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const float* w = sm.wrgb + (col + e) * 3;
+      const float* w = wrgb + (col + e) * 3;
       const float gx = gr[h][0] * w[0] + gr[h][1] * w[1] + gr[h][2] * w[2];
       acc[2 * p + e] = (e == 0 ? m.x : m.y) > 0.f ? gx : 0.f;
     }
@@ -653,10 +747,10 @@ __device__ __forceinline__ void dx_heads(const DxSmem& sm, const unsigned char* 
   }
   // the σ and rgb biases: one lane a column, the unit's rows in order
   const int lw = (threadIdx.x >> 5) & 3;
-  if (lw == 0 && lane < 4) {
+  if (biases && lw == 0 && lane < 4) {
     float s = 0.f;
     for (int r = 0; r < 64; ++r) s += gs[r * 4 + (lane < 3 ? lane : 3)];
-    part[lane < 3 ? FF_OFF_BRGB + lane : FF_OFF_BA] += s;
+    bias_part[lane < 3 ? 1 + lane : 0] += s;  // ba, then brgb after it
   }
 }
 
@@ -695,19 +789,30 @@ __device__ __forceinline__ void apply_mask(float* acc, const uint4& m) {
 // warp's partial row at `part` (consuming acc: afterwards acc[0, N/32)
 // holds the lane's sums, k1::colsum), and the tile copied out to the
 // cotangent's image `gout` with one bulk store by the warpgroup's first
-// thread, once the tile's previous copy has read it.
-template <int N>
+// thread, once the tile's previous copy has read it. With PAIR (h = 512)
+// the tile is the warpgroup's columns of an A image both warpgroups read:
+// the barriers are both warpgroups' (each one's copies out and product
+// done before either writes; the image whole before either reads).
+template <int N, bool PAIR = false>
 __device__ __forceinline__ void dx_store(float* acc, unsigned char* tile, unsigned char* gout, float* part, int wg) {
   const int t = threadIdx.x & 127, r0 = k1::frag_row(), c2 = 2 * (threadIdx.x & 3);
   if (t == 0) bulk_wait_read();
-  named_bar_sync(BAR_WG + wg, 128);
+  if constexpr (PAIR) {
+    named_bar_sync(BAR_CONSUMERS, CONSUMERS * 128);
+  } else {
+    named_bar_sync(BAR_WG + wg, 128);
+  }
 #pragma unroll
   for (int p = 0; p < N / 4; ++p)
     *reinterpret_cast<uint32_t*>(tile + k1::image_offset(r0 + 8 * (p & 1), 8 * (p >> 1) + c2)) =
         pack_bf16(acc[2 * p], acc[2 * p + 1]);
   fence_proxy_async();  // the tile is read by wgmma and the bulk store
   k1::colsum<N>(acc, part, true);
-  named_bar_sync(BAR_WG + wg, 128);
+  if constexpr (PAIR) {
+    named_bar_sync(BAR_CONSUMERS, CONSUMERS * 128);
+  } else {
+    named_bar_sync(BAR_WG + wg, 128);
+  }
   if (t == 0) bulk_store(gout, tile, N * ROW_BYTES);
 }
 
@@ -749,7 +854,8 @@ __device__ __forceinline__ void dx_unit(DxSmem& sm, const DxArgs& a, const Layou
         valid ? *reinterpret_cast<const float4*>(a.g + row * 4) : make_float4(0.f, 0.f, 0.f, 0.f);
   }
   named_bar_sync(BAR_WG + wg, 128);
-  dx_heads(sm, img(ws.act[n]), unit_image(ws.x0, DIR_HIDDEN, unit), gs, acc, part, L.f_total, L.f_total + HIDDEN);
+  dx_heads(sm.wrgb, img(ws.act(n)), unit_image(ws.x0, DIR_HIDDEN, unit), gs, acc, part, L.f_total, L.f_total + HIDDEN,
+           part + O::FF_OFF_BA, true);
   if constexpr (SF == 0) {
     // a warp whose 16 rows reach two rays: its pieces from the masked f32
     // gx0 in acc before the epilogue consumes it
@@ -757,7 +863,7 @@ __device__ __forceinline__ void dx_unit(DxSmem& sm, const DxArgs& a, const Layou
       k1::DirPieces<UnitSchedule<SF, 1>>{sm.dsum[wg][dx_units & 1][(threadIdx.x >> 5) & 3],
                                          a.d_dir + (size_t)ray0 * DIR_HIDDEN, g, u, ray0, a.n_rays, true}(acc);
   }
-  dx_store<DIR_HIDDEN>(acc, sm.atile[wg], unit_image(ws.gx0, DIR_HIDDEN, unit), part + FF_OFF_BD0, wg);
+  dx_store<DIR_HIDDEN>(acc, sm.atile[wg], unit_image(ws.gx0, DIR_HIDDEN, unit), part + O::FF_OFF_BD0, wg);
   // d_dir: a warp of one ray's piece is its column sums of gx0 (acc[0, 4)
   // of each lane); the pieces summed over each ray's warps and units in
   // order (at S = 32 / 64 / 128 the sums of the fixed-S kernels)
@@ -776,21 +882,21 @@ __device__ __forceinline__ void dx_unit(DxSmem& sm, const DxArgs& a, const Layou
   }
   // g_feat = bf16(gx0)·WD0ᵀ ⊙ [feat > 0]
   dx_product<DIR_HIDDEN / KCH, true, false>(acc, sm, wg, ring, release, unit_mask(ws.fmask, unit), img(ws.gfeat),
-                                            part + FF_OFF_BF, gs);
+                                            part + O::FF_OFF_BF, gs);
   // a_n's cotangent, bf16(g_feat)·WFᵀ + bf16(g_σ) ⊗ wa: masked by a_n, or
   // unmasked when a_n is layer1's output (n = 0); then down the hidden
   // layers, g_{i-1} = bf16(g_i)·WH_iᵀ ⊙ [a_i > 0], and at i = 0 the
   // cotangent of layer1's output a_0, unmasked
   if (n > 0) {
-    dx_product<HIDDEN / KCH, true, true>(acc, sm, wg, ring, release, unit_mask(ws.amask[n - 1], unit),
-                                         img(ws.gpre[n - 1]), part + FF_OFF_BH + (n - 1) * HIDDEN, gs);
+    dx_product<HIDDEN / KCH, true, true>(acc, sm, wg, ring, release, unit_mask(ws.amask(n - 1), unit),
+                                         img(ws.gpre(n - 1)), part + O::FF_OFF_BH + (n - 1) * HIDDEN, gs);
 #pragma unroll 1
     for (int i = n - 1; i >= 1; --i)
-      dx_product<HIDDEN / KCH, true, false>(acc, sm, wg, ring, release, unit_mask(ws.amask[i - 1], unit),
-                                            img(ws.gpre[i - 1]), part + FF_OFF_BH + (i - 1) * HIDDEN, gs);
-    dx_product<HIDDEN / KCH, false, false>(acc, sm, wg, ring, release, nullptr, img(ws.ga0), part + FF_OFF_V0, gs);
+      dx_product<HIDDEN / KCH, true, false>(acc, sm, wg, ring, release, unit_mask(ws.amask(i - 1), unit),
+                                            img(ws.gpre(i - 1)), part + O::FF_OFF_BH + (i - 1) * HIDDEN, gs);
+    dx_product<HIDDEN / KCH, false, false>(acc, sm, wg, ring, release, nullptr, img(ws.ga0), part + O::FF_OFF_V0, gs);
   } else {
-    dx_product<HIDDEN / KCH, false, true>(acc, sm, wg, ring, release, nullptr, img(ws.ga0), part + FF_OFF_V0, gs);
+    dx_product<HIDDEN / KCH, false, true>(acc, sm, wg, ring, release, nullptr, img(ws.ga0), part + O::FF_OFF_V0, gs);
   }
 }
 
@@ -817,7 +923,7 @@ __device__ __forceinline__ void dx_consume(DxSmem& sm, const DxArgs& a, const La
         const int next_item = u + 1 < units ? item : g.item(pair + gridDim.x, 0, wg);
         if (next_item < n_items) {
           const int next = next_item * units + (u + 1 < units ? u + 1 : 0);
-          prefetch_l2(unit_image(a.ws.act[a.n_hidden], HIDDEN, next), ATILE_BYTES);
+          prefetch_l2(unit_image(a.ws.act(a.n_hidden), HIDDEN, next), ATILE_BYTES);
           prefetch_l2(unit_image(a.ws.x0, DIR_HIDDEN, next), ATILE_BYTES / 2);
         }
         dx_unit<SF>(sm, a, L, ring, acc, wg, u, item * units + u, item * g.wg_rays(), part, dx_units, release);
@@ -835,7 +941,7 @@ __global__ void __launch_bounds__(FLEX_THREADS, 1) flex_dx_kernel(const DxArgs a
   const uint32_t pad = (ATOM_BYTES - (smem_u32(smem_raw) & (ATOM_BYTES - 1))) & (ATOM_BYTES - 1);
   DxSmem& sm = *reinterpret_cast<DxSmem*>(smem_raw + pad);
   const int t = threadIdx.x;
-  const Layout L = flex_layout(a.n_hidden);
+  const Layout L = flex_layout<HIDDEN>(a.n_hidden);
   for (int i = t; i < HIDDEN; i += FLEX_THREADS) sm.wa[i] = __bfloat162float(a.W[L.wa + i]);
   for (int i = t; i < DIR_HIDDEN * 3; i += FLEX_THREADS) sm.wrgb[i] = __bfloat162float(a.W[L.wrgb + i]);
   if (t == 0) {
@@ -885,56 +991,540 @@ int launch_backward(const FwdArgs& fa, const DxArgs& da, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// `dispatch_pass`'s functions (mma_tile.cuh: the pass's layout class SF,
-// in the build that holds it); the Flexible trunk has one mode.
-template <int SF, bool>
-struct Forward {
-  static int run(const FwdArgs& a, cudaStream_t st) { return launch_chain<SF, false>(a, st); }
+// -- h = 512: the two consumer warpgroups share a unit ------------------------------
+//
+// At h = 512 a layer's output for a 64-row unit is 64 × 512 f32: 256
+// accumulator registers a thread of one warpgroup, more than it holds. So
+// both consumer warpgroups of a CTA take the same unit, warpgroup wg the
+// output columns [256·wg, +256) of every trunk layer ([128·wg, +128) of
+// layers_dir.0's 256), one m64n256k16 (m64n128k16) chain each. A product
+// reads all of its A from shared memory: layer1 the unit's xin tile, every
+// other layer the exchange image, where each warpgroup's epilogue leaves
+// its columns of the activation (the unit's image, k1::image_offset, so K
+// chunk c of the next product is 8 KB · c into it). A ring stage holds one
+// whole 64 × 512 chunk image; a warpgroup reads its columns' rows of it
+// and both release it. A named barrier of both warpgroups before each
+// write of the image (the partner's product that read it is done) and
+// after it (the image is whole). The σ and rgb heads are each warpgroup's
+// m64n8 product over its own columns, off the A registers of its epilogue;
+// the two partial rows meet in shared memory and warpgroup 0 stores the
+// raw rows. K4b's dX splits the same way: the cotangent's image is both
+// warpgroups' A, each computes its columns of the next one. A CTA takes
+// one item a round (the h = 256 kernels' items: whole rays in 1..4
+// units), so no warpgroup walks a dead item.
+
+constexpr int WIDE_DH = WIDE / 2;
+constexpr int WHALF = WIDE / CONSUMERS;      // a warpgroup's columns of a trunk layer
+constexpr int WDHALF = WIDE_DH / CONSUMERS;  // ... of layers_dir.0
+constexpr int WSTAGE = KCH * WIDE * 2;       // a ring stage: one 64 × 512 chunk image, 64 KB
+constexpr int WRING = 2;
+constexpr int WIMG_BYTES = WIDE * ROW_BYTES;  // a unit's 512-wide activation or cotangent as its image
+using OW = Offsets<WIDE>;
+
+// CTAs of a pass at h = 512: one a round of one item, at most one an SM.
+int wide_ctas(int n_rays, int n_samples) {
+  const int items = k1::Geometry(n_samples).items(n_rays);
+  return items < k1::K1_CTAS ? items : k1::K1_CTAS;
+}
+
+// One product of a unit the warpgroups share: acc = A·W[:, the warpgroup's
+// N columns], A (K = NCH·64) the image at shared address `a_img`, W's
+// chunk images through the ring (the warpgroup's columns N·wg rows into a
+// stage). acc needs no clearing: the first wgmma overwrites it.
+template <int N, int NCH, class Smem, class Release>
+__device__ __forceinline__ void wide_layer(float* acc, uint32_t a_img, Smem& sm, Ring& ring, int wg,
+                                           const Release& release) {
+  uint32_t* no_a = nullptr;  // every chunk's A comes from the image
+  auto stages = reinterpret_cast<unsigned char(*)[WSTAGE]>(sm.ring[0] + wg * N * ROW_BYTES);
+  chain_layer<N, NCH, NCH, WRING, true, 0, WSTAGE>(acc, no_a, a_img, stages, sm.full, ring, release);
+}
+
+struct alignas(ATOM_BYTES) WideFwdSmem {
+  unsigned char ring[WRING][WSTAGE];  // weight chunk images
+  unsigned char xch[WIMG_BYTES];      // the layer's output, both warpgroups' columns: the next product's A
+  unsigned char xin[2][XIN_BYTES];    // a unit's [xyz; PE; 0], both warpgroups' A of layer1
+  unsigned char wa8[WIDE / KCH][8 * ROW_BYTES];  // the heads' weights padded to 8 columns
+  unsigned char wrgb8[WIDE_DH / KCH][8 * ROW_BYTES];
+  float heads[CONSUMERS][64][4];      // each warpgroup's partial [rgb, σ] of the unit's rows
+  uint64_t full[WRING];
+  uint64_t empty[WRING];
+  uint64_t xin_full[2];
+  uint64_t xin_empty[2];
 };
-template <int SF, bool>
+constexpr size_t WIDE_FWD_SMEM_BYTES = sizeof(WideFwdSmem) + ATOM_BYTES;
+static_assert(WIDE_FWD_SMEM_BYTES <= 232448, "shared memory");
+
+// The warpgroup's N columns of a layer's output (its A registers) into the
+// exchange image, once both warpgroups' products that read it are done;
+// afterwards the image is whole.
+template <int N>
+__device__ __forceinline__ void wide_exchange(unsigned char* img, const uint32_t* act, int wg) {
+  named_bar_sync(BAR_CONSUMERS, CONSUMERS * 128);
+  k1::store_frag<N>(img + wg * N * ROW_BYTES, act);
+  fence_proxy_async();  // the image is read by wgmma
+  named_bar_sync(BAR_CONSUMERS, CONSUMERS * 128);
+}
+
+// The producer: each unit's chunks, W1, WH_0..WH_{n-1}, WF, WD0.
+template <int SF>
+__device__ __forceinline__ void wide_fwd_produce(WideFwdSmem& sm, const FwdArgs& a, int n_items) {
+  const UnitSchedule<SF, 1> g{a.l};
+  Ring ring;
+  auto load = [&](int off, int k, int n) {
+    load_layer<WRING, 1, WSTAGE>(sm.ring, sm.full, sm.empty, ring, a.W + off, k, n, 0);
+  };
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    for (int u = 0; u < g.units(); ++u) {
+      load(OW::FW_OFF_W1, K_XIN, WIDE);
+      for (int i = 0; i < a.n_hidden; ++i) load(OW::FW_OFF_WH + i * WIDE * WIDE, WIDE, WIDE);
+      load(OW::FW_OFF_WF, WIDE, WIDE);
+      load(OW::FW_OFF_WD0, WIDE, WIDE_DH);
+    }
+  }
+}
+
+// The encoder warps (index e): each unit of the CTA's items, in order, into
+// the next of the two xin buffers once both warpgroups have released it;
+// with `xg` (the recompute) also into the unit's workspace image.
+template <class G>
+__device__ __forceinline__ void wide_encode(const G& g, WideFwdSmem& sm, const FwdArgs& a, int n_items, int e,
+                                            unsigned char* xg) {
+  int done = 0;
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    for (int u = 0; u < g.units(); ++u) {
+      const int b = done & 1;
+      mbar_wait(&sm.xin_empty[b], ((done >> 1) & 1) ^ 1);
+      unsigned char* gi = xg ? unit_image(xg, K_XIN, item * g.units() + u) : nullptr;
+      for (int task = e; task < 128; task += ENCODERS * 32)
+        encode_task(sm.xin[b], gi, task, a, a.F + OW::FF_OFF_FREQS, item * g.wg_rays(), u * 64, g);
+      fence_proxy_async();
+      mbar_arrive(&sm.xin_full[b]);
+      ++done;
+    }
+  }
+}
+
+// A consumer warpgroup's share of each unit: its columns of every layer,
+// then (K4f) its partial heads, warpgroup 0 storing the raw rows, or
+// (SAVE, the recompute) its columns of each activation and mask to the
+// workspace. Row i < rows() of an item is row ray0·S + i of the pass; a
+// padding row, or a row of a ray past the last, is computed and not
+// stored.
+template <int SF, bool SAVE>
+__device__ __forceinline__ void wide_fwd_consume(WideFwdSmem& sm, const FwdArgs& a, int wg, int n_items) {
+  const UnitSchedule<SF, 1> g{a.l};
+  const int t = threadIdx.x & 127, lane = threadIdx.x & 31;
+  const int r0 = k1::frag_row();
+  const int n = a.n_hidden;
+  const int c0 = wg * WHALF, d0 = wg * WDHALF;  // the warpgroup's first column of a trunk layer / of x0
+  const Workspace& ws = a.ws;
+  auto release = [&](int stage) {
+    if (t == 0) mbar_arrive(&sm.empty[stage]);
+  };
+  const uint32_t xch = smem_u32(sm.xch);
+  int units = 0;  // units taken, for the xin buffer and its phase
+  Ring ring;
+  float acc[128];
+  uint32_t act[64];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) act[i] = 0u;
+
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const int ray0 = item * g.wg_rays();
+#pragma unroll 1
+    for (int u = 0; u < g.units(); ++u) {
+      const int unit = item * g.units() + u;
+      const int b = units & 1;
+      mbar_wait(&sm.xin_full[b], (units >> 1) & 1);
+      wide_layer<WHALF, 1>(acc, smem_u32(sm.xin[b]), sm, ring, wg, release);
+      if (t == 0) mbar_arrive(&sm.xin_empty[b]);  // layer1 is its only reader
+      ++units;
+      acc_to_a<WHALF, false>(acc, act, ChainBias{a.F + OW::FF_OFF_V0 + c0});  // layer1: NO relu
+      if (SAVE) k1::store_frag<WHALF>(unit_image(ws.act(0), WIDE, unit) + c0 * ROW_BYTES, act);
+      wide_exchange<WHALF>(sm.xch, act, wg);
+#pragma unroll 1
+      for (int i = 0; i < n; ++i) {
+        wide_layer<WHALF, WIDE / KCH>(acc, xch, sm, ring, wg, release);
+        acc_to_a<WHALF, true>(acc, act, ChainBias{a.F + OW::FF_OFF_BH + i * WIDE + c0});
+        if (SAVE) {
+          k1::store_frag<WHALF>(unit_image(ws.act(i + 1), WIDE, unit) + c0 * ROW_BYTES, act);
+          store_mask(wide_mask(ws.amask(i), unit, wg), act);
+        }
+        wide_exchange<WHALF>(sm.xch, act, wg);
+      }
+      // σ off the trunk: the warpgroup's columns of a_n against its rows of wa
+      float hs[4] = {0.f, 0.f, 0.f, 0.f};
+      if constexpr (!SAVE) chain_head<WHALF>(hs, act, smem_u32(sm.wa8[c0 / KCH]));
+      wide_layer<WHALF, WIDE / KCH>(acc, xch, sm, ring, wg, release);
+      acc_to_a<WHALF, true>(acc, act, ChainBias{a.F + OW::FF_OFF_BF + c0});  // feat
+      if (SAVE) {
+        k1::store_frag<WHALF>(unit_image(ws.feat, WIDE, unit) + c0 * ROW_BYTES, act);
+        store_mask(wide_mask(ws.fmask, unit, wg), act);
+      }
+      wide_exchange<WHALF>(sm.xch, act, wg);
+      wide_layer<WDHALF, WIDE / KCH>(acc, xch, sm, ring, wg, release);
+      const int i0 = u * 64 + r0, rows = g.rows();
+      const int ray_h[2] = {i0 < rows ? ray0 + g.ray_of(i0) : a.n_rays,
+                            i0 + 8 < rows ? ray0 + g.ray_of(i0 + 8) : a.n_rays};
+      auto dir_row = [&](int ray) { return ray < a.n_rays ? a.dir_c + (size_t)ray * WIDE_DH + d0 : nullptr; };
+      if constexpr (SF != 0) {  // one ray over whole units: both rows in it
+        acc_to_a<WDHALF, true>(acc, act, ChainDir{a.F + OW::FF_OFF_BD0 + d0, dir_row(ray_h[0])});  // x0
+      } else {
+        acc_to_a<WDHALF, true>(acc, act,
+                               ChainDirRows{a.F + OW::FF_OFF_BD0 + d0, {dir_row(ray_h[0]), dir_row(ray_h[1])}});
+      }
+      if constexpr (SAVE) {
+        k1::store_frag<WDHALF>(unit_image(ws.x0, WIDE_DH, unit) + d0 * ROW_BYTES, act);
+      } else {
+        float hc[4] = {0.f, 0.f, 0.f, 0.f};
+        chain_head<WDHALF>(hc, act, smem_u32(sm.wrgb8[d0 / KCH]));
+        // hs / hc[2h + j]: row r0 + 8h, column 2·(lane % 4) + j: lane q = 0
+        // holds rgb's first two columns and σ's, lane q = 1 rgb's third
+        float(*hp)[4] = sm.heads[wg];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if ((lane & 3) == 0) {
+            hp[r0 + 8 * h][0] = hc[2 * h];
+            hp[r0 + 8 * h][1] = hc[2 * h + 1];
+            hp[r0 + 8 * h][3] = hs[2 * h];
+          } else if ((lane & 3) == 1) {
+            hp[r0 + 8 * h][2] = hc[2 * h];
+          }
+        }
+        named_bar_sync(BAR_CONSUMERS, CONSUMERS * 128);
+        if (wg == 0 && t < 64) {
+          const int i = u * 64 + t;  // the item's row
+          if (i < rows && ray0 + g.ray_of(i) < a.n_rays) {
+            const float* p0 = sm.heads[0][t];
+            const float* p1 = sm.heads[1][t];
+            const float* f = a.F;
+            *reinterpret_cast<float4*>(a.out + ((size_t)ray0 * g.samples() + i) * 4) =
+                make_float4(p0[0] + p1[0] + f[OW::FF_OFF_BRGB], p0[1] + p1[1] + f[OW::FF_OFF_BRGB + 1],
+                            p0[2] + p1[2] + f[OW::FF_OFF_BRGB + 2], p0[3] + p1[3] + f[OW::FF_OFF_BA]);
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int SF, bool SAVE>
+__global__ void __launch_bounds__(FLEX_THREADS, 1) wide_chain_kernel(const FwdArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t pad = (ATOM_BYTES - (smem_u32(smem_raw) & (ATOM_BYTES - 1))) & (ATOM_BYTES - 1);
+  WideFwdSmem& sm = *reinterpret_cast<WideFwdSmem*>(smem_raw + pad);
+  const UnitSchedule<SF, 1> g{a.l};
+  const int t = threadIdx.x;
+  const Layout L = flex_layout<WIDE>(a.n_hidden);
+  if constexpr (!SAVE) {
+    head_image<WIDE>(sm.wa8, a.W + L.wa, 1, t, FLEX_THREADS);
+    head_image<WIDE_DH>(sm.wrgb8, a.W + L.wrgb, 3, t, FLEX_THREADS);
+    fence_proxy_async();  // the images are read by wgmma
+  }
+  if (t == 0) {
+    for (int s = 0; s < WRING; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], CONSUMERS);
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&sm.xin_full[b], ENCODERS * 32);
+      mbar_init(&sm.xin_empty[b], CONSUMERS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int n_items = (a.n_rays + g.wg_rays() - 1) / g.wg_rays();
+  const int wg = t / 128;
+  if (wg == CONSUMERS) {
+    reg_dealloc<40>();
+    const int w = (t >> 5) - 4 * CONSUMERS;  // the warp in the producer warpgroup
+    if (t == CONSUMERS * 128) {
+      wide_fwd_produce<SF>(sm, a, n_items);
+    } else if (w >= 1 && w <= ENCODERS) {
+      wide_encode(g, sm, a, n_items, t - CONSUMERS * 128 - 32, SAVE ? a.ws.xin : nullptr);
+    }
+  } else {
+    reg_alloc<232>();
+    wide_fwd_consume<SF, SAVE>(sm, a, wg, n_items);
+  }
+}
+
+template <int SF, bool SAVE>
+int launch_wide_chain(const FwdArgs& a, cudaStream_t st) {
+  auto kernel = wide_chain_kernel<SF, SAVE>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)WIDE_FWD_SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<wide_ctas(a.n_rays, a.l.S), FLEX_THREADS, WIDE_FWD_SMEM_BYTES, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+struct alignas(ATOM_BYTES) WideDxSmem {
+  unsigned char ring[WRING][WSTAGE];  // transposed weights' chunk images
+  unsigned char atile[WIMG_BYTES];    // the unit's cotangent, both warpgroups' columns: the next product's A
+  float wa[WIDE];                     // the heads' bf16 weights as f32
+  float wrgb[WIDE_DH * 3];
+  float g[2][64 * 4];                 // a unit's cotangent rows [rgb, σ], by unit parity
+  // a warpgroup's d_dir pieces of its 128 columns (as DxSmem's)
+  float dsum[CONSUMERS][2][4][2][DIR_HIDDEN];
+  float dacc[CONSUMERS][DIR_HIDDEN];
+  uint64_t full[WRING];
+  uint64_t empty[WRING];
+};
+constexpr size_t WIDE_DX_SMEM_BYTES = sizeof(WideDxSmem) + ATOM_BYTES;
+static_assert(WIDE_DX_SMEM_BYTES <= 232448, "shared memory");
+
+// The producer: each unit's dX chunks, WD0ᵀ, WFᵀ, WH_{n-1}ᵀ..WH_0ᵀ.
+template <int SF>
+__device__ __forceinline__ void wide_dx_produce(WideDxSmem& sm, const DxArgs& a, int n_items) {
+  const UnitSchedule<SF, 1> g{a.l};
+  Ring ring;
+  auto load = [&](int off, int k) {
+    load_layer<WRING, 1, WSTAGE>(sm.ring, sm.full, sm.empty, ring, a.WT + off, k, WIDE, 0);
+  };
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    for (int u = 0; u < g.units(); ++u) {
+      load(OW::FT_OFF_WD0T, WIDE_DH);
+      load(OW::FT_OFF_WFT, WIDE);
+      for (int i = a.n_hidden - 1; i >= 0; --i) load(OW::FT_OFF_WHT + i * WIDE * WIDE, WIDE);
+    }
+  }
+}
+
+// One dX product of a unit (`dx_product` at h = 512): the warpgroup's 256
+// columns of A·Wᵀ, A (K = NCH·64) the cotangent image both warpgroups
+// wrote, then the σ head's cotangent, the mask and `dx_store` into its
+// columns of the image and of `gout`.
+template <int NCH, bool MASKED, bool SIGMA, class Release>
+__device__ __forceinline__ void wide_dx_product(float* acc, WideDxSmem& sm, int wg, Ring& ring,
+                                                const Release& release, const uint32_t* mask, unsigned char* gout,
+                                                float* part, const float* gs) {
+  uint4 m = make_uint4(0u, 0u, 0u, 0u);
+  if constexpr (MASKED) m = *reinterpret_cast<const uint4*>(mask);  // lands under the product
+  wide_layer<WHALF, NCH>(acc, smem_u32(sm.atile), sm, ring, wg, release);
+  if constexpr (SIGMA) add_sigma(acc, gs, sm.wa + wg * WHALF);
+  if constexpr (MASKED) apply_mask(acc, m);
+  dx_store<WHALF, true>(acc, sm.atile + wg * WHALF * ROW_BYTES, gout + wg * WHALF * ROW_BYTES, part, wg);
+}
+
+// The dX chain of a unit at h = 512 (`dx_unit`): the unit's cotangent
+// rows staged once for both warpgroups, each warpgroup's columns of the
+// heads, gx0, d_dir and every product.
+template <int SF, class Release>
+__device__ __forceinline__ void wide_dx_unit(WideDxSmem& sm, const DxArgs& a, const Layout& L, Ring& ring,
+                                             float* acc, int wg, int u, int unit, int ray0, float* part,
+                                             int& dx_units, const Release& release) {
+  const UnitSchedule<SF, 1> g{a.l};
+  const Workspace& ws = a.ws;
+  const int n = a.n_hidden;
+  const int t = threadIdx.x & 127;
+  const int c0 = wg * WHALF, d0 = wg * WDHALF;
+  float* gs = sm.g[dx_units & 1];
+  auto img = [&](unsigned char* buf) { return unit_image(buf, WIDE, unit); };
+  if (wg == 0 && t < 64) {
+    const int i = u * 64 + t;  // the item's row
+    const bool valid = i < g.rows() && ray0 + g.ray_of(i) < a.n_rays;
+    const size_t row = (size_t)ray0 * g.samples() + i;
+    reinterpret_cast<float4*>(gs)[t] =
+        valid ? *reinterpret_cast<const float4*>(a.g + row * 4) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  named_bar_sync(BAR_CONSUMERS, CONSUMERS * 128);
+  dx_heads(sm.wrgb + d0 * 3, img(ws.act(n)) + c0 * ROW_BYTES,
+           unit_image(ws.x0, WIDE_DH, unit) + d0 * ROW_BYTES, gs, acc, part, L.f_total + c0,
+           L.f_total + WIDE + d0 * 3, part + OW::FF_OFF_BA, wg == 0);
+  float* d_dir = a.d_dir + (size_t)ray0 * WIDE_DH + d0;  // the item's first ray's row, the warpgroup's columns
+  if constexpr (SF == 0) {
+    if (g.samples() % 16 != 0)
+      k1::DirPieces<UnitSchedule<SF, 1>, WIDE_DH>{sm.dsum[wg][dx_units & 1][(threadIdx.x >> 5) & 3], d_dir, g, u,
+                                                   ray0, a.n_rays, true}(acc);
+  }
+  dx_store<WDHALF, true>(acc, sm.atile + d0 * ROW_BYTES, unit_image(ws.gx0, WIDE_DH, unit) + d0 * ROW_BYTES,
+                         part + OW::FF_OFF_BD0 + d0, wg);
+  {
+    const int lane = threadIdx.x & 31, lw = (threadIdx.x >> 5) & 3;
+    float(*ds)[2][DIR_HIDDEN] = sm.dsum[wg][dx_units & 1];
+    const k1::WarpRays wr(u, lw, g);
+    if (wr.fa >= 0 && wr.fa == wr.fb) {
+      const int base = (lane >> 2) * (DIR_HIDDEN / 32);
+#pragma unroll
+      for (int k = 0; k < DIR_HIDDEN / 32; ++k) ds[lw][0][k1::fold_col(base + k)] = acc[k];
+    }
+    named_bar_sync(BAR_WG + wg, 128);
+    k1::dir_pieces<WIDE_DH>(ds, sm.dacc[wg], d_dir, g, u, ray0, a.n_rays, true, t);
+    ++dx_units;
+  }
+  // g_feat = bf16(gx0)·WD0ᵀ ⊙ [feat > 0]; then as `dx_unit`
+  wide_dx_product<WIDE_DH / KCH, true, false>(acc, sm, wg, ring, release, wide_mask(ws.fmask, unit, wg),
+                                              img(ws.gfeat), part + OW::FF_OFF_BF + c0, gs);
+  if (n > 0) {
+    wide_dx_product<WIDE / KCH, true, true>(acc, sm, wg, ring, release, wide_mask(ws.amask(n - 1), unit, wg),
+                                            img(ws.gpre(n - 1)), part + OW::FF_OFF_BH + (n - 1) * WIDE + c0, gs);
+#pragma unroll 1
+    for (int i = n - 1; i >= 1; --i)
+      wide_dx_product<WIDE / KCH, true, false>(acc, sm, wg, ring, release, wide_mask(ws.amask(i - 1), unit, wg),
+                                               img(ws.gpre(i - 1)), part + OW::FF_OFF_BH + (i - 1) * WIDE + c0,
+                                               gs);
+    wide_dx_product<WIDE / KCH, false, false>(acc, sm, wg, ring, release, nullptr, img(ws.ga0),
+                                              part + OW::FF_OFF_V0 + c0, gs);
+  } else {
+    wide_dx_product<WIDE / KCH, false, true>(acc, sm, wg, ring, release, nullptr, img(ws.ga0),
+                                             part + OW::FF_OFF_V0 + c0, gs);
+  }
+}
+
+template <int SF>
+__global__ void __launch_bounds__(FLEX_THREADS, 1) wide_dx_kernel(const DxArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t pad = (ATOM_BYTES - (smem_u32(smem_raw) & (ATOM_BYTES - 1))) & (ATOM_BYTES - 1);
+  WideDxSmem& sm = *reinterpret_cast<WideDxSmem*>(smem_raw + pad);
+  const UnitSchedule<SF, 1> g{a.l};
+  const int t = threadIdx.x;
+  const Layout L = flex_layout<WIDE>(a.n_hidden);
+  for (int i = t; i < WIDE; i += FLEX_THREADS) sm.wa[i] = __bfloat162float(a.W[L.wa + i]);
+  for (int i = t; i < WIDE_DH * 3; i += FLEX_THREADS) sm.wrgb[i] = __bfloat162float(a.W[L.wrgb + i]);
+  if (t == 0) {
+    for (int s = 0; s < WRING; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], CONSUMERS);
+    }
+    mbar_init_fence();
+  }
+  // each consumer warp's running partial row starts at zero
+  float* part = nullptr;
+  if (t < CONSUMERS * 128) {
+    part = a.ws.warp_part + ((size_t)blockIdx.x * WARPS_A_CTA + (t >> 5)) * L.part_cols;
+    for (int c = t & 31; c < L.part_cols; c += 32) part[c] = 0.f;
+    __syncwarp();
+  }
+  __syncthreads();
+
+  const int n_items = (a.n_rays + g.wg_rays() - 1) / g.wg_rays();
+  const int wg = t / 128;
+  if (wg == CONSUMERS) {
+    reg_dealloc<40>();
+    if (t == CONSUMERS * 128) wide_dx_produce<SF>(sm, a, n_items);
+  } else {
+    reg_alloc<232>();
+    auto release = [&](int stage) {
+      if ((threadIdx.x & 127) == 0) mbar_arrive(&sm.empty[stage]);
+    };
+    int dx_units = 0;
+    Ring ring;
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+#pragma unroll 1
+      for (int u = 0; u < g.units(); ++u)
+        wide_dx_unit<SF>(sm, a, L, ring, acc, wg, u, item * g.units() + u, item * g.wg_rays(), part, dx_units,
+                         release);
+    }
+    if ((threadIdx.x & 127) == 0) bulk_wait();  // the last tile's copy is out before the CTA's memory goes
+    // the CTA's partial row: its warps' rows added in order
+    named_bar_sync(BAR_CONSUMERS, CONSUMERS * 128);
+    const float* rows = a.ws.warp_part + (size_t)blockIdx.x * WARPS_A_CTA * L.part_cols;
+    for (int c = t; c < L.part_cols; c += CONSUMERS * 128) {
+      float s = 0.f;
+      for (int w = 0; w < WARPS_A_CTA; ++w) s += rows[(size_t)w * L.part_cols + c];
+      a.ws.tile_part[(size_t)blockIdx.x * L.part_cols + c] = s;
+    }
+  }
+}
+
+template <int SF>
+int launch_wide_backward(const FwdArgs& fa, const DxArgs& da, cudaStream_t st) {
+  int err = launch_wide_chain<SF, true>(fa, st);
+  if (err != 0) return err;
+  auto kernel = wide_dx_kernel<SF>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)WIDE_DX_SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<wide_ctas(da.n_rays, da.l.S), FLEX_THREADS, WIDE_DX_SMEM_BYTES, st>>>(da);
+  return (int)cudaGetLastError();
+}
+
+// -- the entry points ---------------------------------------------------------------
+
+// `dispatch_pass`'s functions (mma_tile.cuh: the pass's layout class SF,
+// in the build that holds it); its model flag here is the width: false h
+// = 256, true h = 512. Every build holds both widths.
+template <int SF, bool WIDE_H>
+struct Forward {
+  static int run(const FwdArgs& a, cudaStream_t st) {
+    if constexpr (WIDE_H) {
+      return launch_wide_chain<SF, false>(a, st);
+    } else {
+      return launch_chain<SF, false>(a, st);
+    }
+  }
+};
+template <int SF, bool WIDE_H>
 struct Backward {
-  static int run(const FwdArgs& fa, const DxArgs& da, cudaStream_t st) { return launch_backward<SF>(fa, da, st); }
+  static int run(const FwdArgs& fa, const DxArgs& da, cudaStream_t st) {
+    if constexpr (WIDE_H) {
+      return launch_wide_backward<SF>(fa, da, st);
+    } else {
+      return launch_backward<SF>(fa, da, st);
+    }
+  }
 };
 
 // What the kernels take: S in 1..MAX_SAMPLES, 1..MAX_FREQS bands (K_XIN
-// columns), 0..MAX_HIDDEN hidden layers.
-bool valid(int n_rays, int n_samples, int n_freqs, int n_hidden) {
+// columns), hidden width 256 or 512 (no other: each has its own layout,
+// and no width falls back on another's), any number n ≥ 0 of hidden
+// layers whose offsets fit an int.
+bool valid(int n_rays, int n_samples, int n_freqs, int n_hidden, int hidden) {
   return n_rays >= 0 && n_samples >= 1 && n_samples <= MAX_SAMPLES && n_freqs >= 1 && 3 + 6 * n_freqs <= K_XIN &&
-         n_hidden >= 0 && n_hidden <= MAX_HIDDEN;
+         (hidden == HIDDEN || hidden == WIDE) && n_hidden >= 0 &&
+         (long long)(n_hidden + 4) * hidden * hidden * 2 < (1ll << 31);
+}
+
+Layout layout_of(int hidden, int n_hidden) {
+  return hidden == WIDE ? flex_layout<WIDE>(n_hidden) : flex_layout<HIDDEN>(n_hidden);
+}
+
+int ctas_of(int hidden, int n_rays, int n_samples) {
+  return hidden == WIDE ? wide_ctas(n_rays, n_samples) : flex_ctas(n_rays, n_samples);
 }
 
 }  // namespace
 
 // Shared memory a CTA of each kernel takes (dynamic, with the 1 KB
 // alignment pad): out[0] flex_chain_kernel, out[1] flex_dx_kernel, out[2]
-// dw_wgmma_kernel.
+// dw_wgmma_kernel, out[3] wide_chain_kernel, out[4] wide_dx_kernel (h =
+// 512).
 extern "C" void nerface_fused_flex_shared_bytes(long long* out) {
   out[0] = (long long)FWD_SMEM_BYTES;
   out[1] = (long long)DX_SMEM_BYTES;
   out[2] = (long long)DWG_SMEM_BYTES;
+  out[3] = (long long)WIDE_FWD_SMEM_BYTES;
+  out[4] = (long long)WIDE_DX_SMEM_BYTES;
 }
 
 // K4f. Returns a cudaError_t (0 on success; cudaErrorInvalidValue for what
-// `valid` refuses, or for an S whose layout class this build does not
-// hold). Launches on `stream`, does not synchronise and allocates nothing.
-// W is the forward weights' chunk images (FW_OFF_* offsets), F the bias
-// rows and bands (FF_OFF_*).
+// `valid` refuses, or for a width or an S whose layout class this build
+// does not hold). Launches on `stream`, does not synchronise and allocates
+// nothing. W is the forward weights' chunk images (Offsets<hidden>::FW_OFF_*
+// offsets), F the bias rows and bands (FF_OFF_*).
 extern "C" int nerface_fused_flex_fwd(const float* ro, const float* rd, const float* z,
                                       const float* dir_c, const void* W, const float* F, float* out,
-                                      int n_rays, int n_samples, int n_freqs, int n_hidden,
+                                      int n_rays, int n_samples, int n_freqs, int n_hidden, int hidden,
                                       void* stream) {
-  if (!valid(n_rays, n_samples, n_freqs, n_hidden)) return (int)cudaErrorInvalidValue;
+  if (!valid(n_rays, n_samples, n_freqs, n_hidden, hidden)) return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
   FwdArgs fa{ro,    rd,     z,     dir_c, static_cast<const bf16*>(W), F, out, Workspace{}, n_rays,
              UnitLayout::of(n_samples), n_freqs, n_hidden};
-  return dispatch_pass<Forward>(n_samples, 0, fa, static_cast<cudaStream_t>(stream));
+  return dispatch_pass<Forward>(n_samples, hidden == WIDE, fa, static_cast<cudaStream_t>(stream));
 }
 
-// Bytes of device workspace one K4b call needs.
-extern "C" long long nerface_fused_flex_workspace_bytes(int n_rays, int n_samples, int n_hidden) {
-  if (!valid(n_rays, n_samples, 1, n_hidden)) return -1;
-  return (long long)carve(nullptr, k1::pass_units(n_rays, n_samples), flex_ctas(n_rays, n_samples),
-                          flex_layout(n_hidden), nullptr);
+// Bytes of device workspace one K4b call needs (-1 for what `valid`
+// refuses).
+extern "C" long long nerface_fused_flex_workspace_bytes(int n_rays, int n_samples, int n_hidden, int hidden) {
+  if (!valid(n_rays, n_samples, 1, n_hidden, hidden)) return -1;
+  return (long long)carve(nullptr, k1::pass_units(n_rays, n_samples), ctas_of(hidden, n_rays, n_samples),
+                          layout_of(hidden, n_hidden), nullptr);
 }
 
 // K4b: the gradients of Σ g·out. Returns a cudaError_t (0 on success; as
@@ -943,16 +1533,16 @@ extern "C" long long nerface_fused_flex_workspace_bytes(int n_rays, int n_sample
 // `workspace` holds nerface_fused_flex_workspace_bytes(...) bytes. W and
 // WT are the forward and the transposed weights' chunk images; dW is the
 // f32 gradient in the packed weight layout (w_offsets), dF in the
-// bias-row layout (its V0 row holds d_v0; FREQS is 0), d_dir (R, 128).
+// bias-row layout (its V0 row holds d_v0; FREQS is 0), d_dir (R, h / 2).
 extern "C" int nerface_fused_flex_bwd(const float* ro, const float* rd, const float* z,
                                       const float* dir_c, const void* W, const void* WT,
                                       const float* F, const float* g, float* dW, float* dF,
                                       float* d_dir, void* workspace, int n_rays, int n_samples,
-                                      int n_freqs, int n_hidden, void* stream) {
-  if (!valid(n_rays, n_samples, n_freqs, n_hidden)) return (int)cudaErrorInvalidValue;
+                                      int n_freqs, int n_hidden, int hidden, void* stream) {
+  if (!valid(n_rays, n_samples, n_freqs, n_hidden, hidden)) return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
-  const int units = k1::pass_units(n_rays, n_samples), ctas = flex_ctas(n_rays, n_samples);
-  const Layout L = flex_layout(n_hidden);
+  const int units = k1::pass_units(n_rays, n_samples), ctas = ctas_of(hidden, n_rays, n_samples);
+  const Layout L = layout_of(hidden, n_hidden);
   Workspace ws;
   carve(static_cast<unsigned char*>(workspace), units, ctas, L, &ws);
   const bf16* Wb = static_cast<const bf16*>(W);
@@ -960,17 +1550,21 @@ extern "C" int nerface_fused_flex_bwd(const float* ro, const float* rd, const fl
   const UnitLayout l = UnitLayout::of(n_samples);
   FwdArgs fa{ro, rd, z, dir_c, Wb, F, nullptr, ws, n_rays, l, n_freqs, n_hidden};
   DxArgs da{g, Wb, static_cast<const bf16*>(WT), d_dir, ws, n_rays, l, n_hidden};
-  int err = dispatch_pass<Backward>(n_samples, 0, fa, da, st);
+  int err = dispatch_pass<Backward>(n_samples, hidden == WIDE, fa, da, st);
   if (err != 0) return err;
-  // dW = Xᵀ·bf16(gY) from the images: W1 (its xin rows, K = 64), WF, WD0, WH_i
+  // dW from the images (`dw_products`), DWG_MATS_MAX products a launch
+  const int segs = dw_segments_of(L);
   DwgMat mats[DWG_MATS_MAX];
   int n_mats = 0;
-  mats[n_mats++] = {ws.xin, ws.ga0, K_XIN, HIDDEN, FW_OFF_W1};
-  mats[n_mats++] = {ws.act[n_hidden], ws.gfeat, HIDDEN, HIDDEN, FW_OFF_WF};
-  mats[n_mats++] = {ws.feat, ws.gx0, HIDDEN, DIR_HIDDEN, FW_OFF_WD0};
-  for (int i = 0; i < n_hidden; ++i) mats[n_mats++] = {ws.act[i], ws.gpre[i], HIDDEN, HIDDEN, FW_OFF_WH + i * HH};
-  const int segs = dw_segments_of(n_hidden);
-  err = launch_dw_wgmma(mats, n_mats, ws.dw_part, L.wa, units, segs, st);
+  auto flush = [&]() {
+    if (err == 0 && n_mats > 0) err = launch_dw_wgmma(mats, n_mats, ws.dw_part, L.wa, units, segs, st);
+    n_mats = 0;
+  };
+  dw_products(ws, L, [&](const DwgMat& m) {
+    if (n_mats == DWG_MATS_MAX) flush();
+    mats[n_mats++] = m;
+  });
+  flush();
   if (err != 0) return err;
   reduce_rows<<<(L.wa + 255) / 256, 256, 0, st>>>(ws.dw_part, segs, L.wa, L.wa, dW, nullptr);
   reduce_rows<<<(L.part_cols + 255) / 256, 256, 0, st>>>(ws.tile_part, ctas, L.part_cols, L.f_total, dF,

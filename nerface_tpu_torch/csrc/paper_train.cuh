@@ -714,9 +714,10 @@ struct WarpRays {
 // for each ray j of the warp, its rows' sums over the warp (acc[64, 96)
 // as the fold, `scatter_sum`), into slot 0 (j = fa) or slot 1 (j = fb) of
 // the warp's pieces, or, for a ray whose rows all lie inside the warp
-// between those two, straight into d_dir. A warp of one ray takes its
+// between those two, straight into d_dir (rows LD floats apart: K4b at h =
+// 512 sums each half of its 256-wide rows). A warp of one ray takes its
 // piece from `colsum` after the epilogue instead (the same sums).
-template <class G>
+template <class G, int LD = DIR_HIDDEN>
 struct DirPieces {
   float (*slots)[DIR_HIDDEN];  // the warp's two slots
   float* d_dir;                // the item's first ray's row of d_dir
@@ -746,7 +747,7 @@ struct DirPieces {
         for (int k = 0; k < DIR_HIDDEN / 32; ++k) slot[fold_col(base + k)] = v[k];
       } else if (ray0 + j < n_rays) {
 #pragma unroll
-        for (int k = 0; k < DIR_HIDDEN / 32; ++k) d_dir[(size_t)j * DIR_HIDDEN + fold_col(base + k)] = v[k];
+        for (int k = 0; k < DIR_HIDDEN / 32; ++k) d_dir[(size_t)j * LD + fold_col(base + k)] = v[k];
       }
     }
   }
@@ -755,8 +756,9 @@ struct DirPieces {
 // d_dir of the rays of unit u, by thread t of the warpgroup (column t):
 // the warps' pieces in row order, a ray's pieces added in that order; a
 // ray that began in an earlier unit adds its sum so far (dacc) to this
-// unit's, and a ray that goes on past the unit keeps its sum there.
-template <class G>
+// unit's, and a ray that goes on past the unit keeps its sum there. d_dir's
+// rows are LD floats apart.
+template <int LD = DIR_HIDDEN, class G>
 __device__ __forceinline__ void dir_pieces(const float (*d)[2][DIR_HIDDEN], float* dacc, float* d_dir, const G& l,
                                            int u, int ray0, int n_rays, bool live, int t) {
   const int S = l.samples();
@@ -775,7 +777,7 @@ __device__ __forceinline__ void dir_pieces(const float (*d)[2][DIR_HIDDEN], floa
   if (S == 32) {
 #pragma unroll
     for (int r = 0; r < 2; ++r)
-      if (live && ray0 + r < n_rays) d_dir[(size_t)r * DIR_HIDDEN + t] = d[2 * r][0][t] + d[2 * r + 1][0][t];
+      if (live && ray0 + r < n_rays) d_dir[(size_t)r * LD + t] = d[2 * r][0][t] + d[2 * r + 1][0][t];
     return;
   }
   int cur = -1;
@@ -785,7 +787,7 @@ __device__ __forceinline__ void dir_pieces(const float (*d)[2][DIR_HIDDEN], floa
     if ((cur + 1) * S > u * 64 + 64) {
       dacc[t] = total;
     } else if (live && ray0 + cur < n_rays) {
-      d_dir[(size_t)cur * DIR_HIDDEN + t] = total;
+      d_dir[(size_t)cur * LD + t] = total;
     }
   };
 #pragma unroll 1

@@ -96,11 +96,11 @@ struct UnitSchedule {
 };
 
 // The producer: one layer's k / 64 chunks of 64 × n bf16 from the chunk
-// images at `src`, each into the next stage once every consumer has
-// released it; in a cluster of CTAS each CTA copies its part of a chunk
-// and multicasts it to all.
-template <int RING, int CTAS>
-__device__ __forceinline__ void load_layer(unsigned char (*stages)[CHAIN_STAGE], uint64_t* full, uint64_t* empty,
+// images at `src`, each into the next stage (STAGE bytes, at least 128·n)
+// once every consumer has released it; in a cluster of CTAS each CTA
+// copies its part of a chunk and multicasts it to all.
+template <int RING, int CTAS, int STAGE = CHAIN_STAGE>
+__device__ __forceinline__ void load_layer(unsigned char (*stages)[STAGE], uint64_t* full, uint64_t* empty,
                                            Ring& ring, const bf16* src, int k, int n, uint32_t rank) {
   const uint32_t bytes = KCH * n * 2, part = bytes / CTAS;
   for (int c = 0; c < k / KCH; ++c) {

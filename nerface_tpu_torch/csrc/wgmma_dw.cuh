@@ -17,8 +17,8 @@
 // warpgroup: the 64 × N f32 block of dW, 64 or 128 accumulator registers
 // a thread) and one of the caller's row segments, a count fixed by the
 // pass's shape: DWG_SEGS for the paper model (its 18 column-block pairs ×
-// 7 = 126 CTAs, one wave on 132 SMs), `dw_segments` of the product list
-// for a pass that picks its own.
+// 7 = 126 CTAs, one wave on 132 SMs), or one the pass picks for its
+// product list (K4b's `dw_segments_of`, fused_flex.cu).
 // Its producer thread keeps a ring of DWG_RING stages in flight, each a
 // unit of gY and of the CTA's two X blocks (one bulk copy each); the
 // consumers run four m64nNk16 wgmmas a unit and keep one unit's group in
@@ -51,8 +51,9 @@ constexpr int DWG_THREADS = 2 * 128 + 32;        // two consumer warpgroups, the
 
 struct DwgMat {
   const unsigned char* X;  // unit images, kdim columns
-  const unsigned char* G;  // unit images, ndim columns
+  const unsigned char* G;  // ndim columns of unit images g_ld columns wide
   int kdim, ndim, out_off;
+  int g_ld, out_ld;        // G's unit width and dW's row length, in columns (0: ndim)
 };
 
 struct DwgArgs {
@@ -71,7 +72,7 @@ struct alignas(sm90::ATOM_BYTES) DwgSmem {
 };
 
 template <int N>
-__device__ __forceinline__ void dwg_consume(DwgSmem& sm, int wg, int mb, int u0, int u1, float* out) {
+__device__ __forceinline__ void dwg_consume(DwgSmem& sm, int wg, int mb, int u0, int u1, float* out, int ld) {
   using namespace sm90;
   float acc[N / 2];
 #pragma unroll
@@ -103,7 +104,7 @@ __device__ __forceinline__ void dwg_consume(DwgSmem& sm, int wg, int mb, int u0,
 #pragma unroll
   for (int p = 0; p < N / 4; ++p) {
     const int row = r0 + 8 * (p & 1), col = 8 * (p >> 1) + c2;
-    *reinterpret_cast<float2*>(out + (size_t)row * N + col) = make_float2(acc[2 * p], acc[2 * p + 1]);
+    *reinterpret_cast<float2*>(out + (size_t)row * ld + col) = make_float2(acc[2 * p], acc[2 * p + 1]);
   }
 }
 
@@ -137,7 +138,7 @@ __global__ void __launch_bounds__(DWG_THREADS, 1) dw_wgmma_kernel(const DwgArgs 
     for (int u = u0; u < u1; ++u) {
       mbar_wait(&sm.empty[ring.stage], ring.phase ^ 1);
       mbar_expect_tx(&sm.full[ring.stage], g_bytes + x_bytes);
-      bulk_load(sm.ring[ring.stage], M.G + (size_t)u * g_bytes, g_bytes, &sm.full[ring.stage]);
+      bulk_load(sm.ring[ring.stage], M.G + (size_t)u * M.g_ld * ROW_BYTES, g_bytes, &sm.full[ring.stage]);
       bulk_load(sm.ring[ring.stage] + DWG_G_BYTES, M.X + (size_t)u * M.kdim * ROW_BYTES + mb0 * DWG_BLOCK,
                 x_bytes, &sm.full[ring.stage]);
       ring.advance<DWG_RING>();
@@ -147,9 +148,9 @@ __global__ void __launch_bounds__(DWG_THREADS, 1) dw_wgmma_kernel(const DwgArgs 
   if (wg >= blocks) return;
   float* out = a.part + (size_t)blockIdx.y * a.part_ld + M.out_off;
   if (M.ndim == 256) {
-    dwg_consume<256>(sm, wg, mb0 + wg, u0, u1, out);
+    dwg_consume<256>(sm, wg, mb0 + wg, u0, u1, out, M.out_ld);
   } else {
-    dwg_consume<128>(sm, wg, mb0 + wg, u0, u1, out);
+    dwg_consume<128>(sm, wg, mb0 + wg, u0, u1, out, M.out_ld);
   }
 }
 
@@ -158,18 +159,13 @@ constexpr size_t DWG_SMEM_BYTES = sizeof(DwgSmem) + sm90::ATOM_BYTES;  // + the 
 // A product's CTAs: one a pair of X's 64-column blocks.
 __host__ __device__ inline int dw_tasks(int kdim) { return (kdim / 64 + 1) / 2; }
 
-// The row segments that fill one wave with the products of `kdims`
-// (their X widths): DWG_WAVE / their CTAs, at least 1.
-inline int dw_segments(const int* kdims, int n_mats) {
-  int tasks = 0;
-  for (int i = 0; i < n_mats; ++i) tasks += dw_tasks(kdims[i]);
-  return tasks >= DWG_WAVE ? 1 : DWG_WAVE / tasks;
-}
-
 // dW of `n_mats` products over `units` workspace units into `part`
 // (segs × part_ld floats; the products cover every column below part_ld),
 // the units cut into `segs` row segments; returns a cudaError_t. The
-// caller adds the segments (reduce_rows).
+// caller adds the segments (reduce_rows). A product of more than 256
+// columns is launched as products of column blocks (a G pointer and an
+// out_off into the block, g_ld / out_ld the whole widths); a pass of more
+// than DWG_MATS_MAX products launches several times into the same `part`.
 inline int launch_dw_wgmma(const DwgMat* mats, int n_mats, float* part, int part_ld, int units, int segs,
                            cudaStream_t st) {
   if (n_mats > DWG_MATS_MAX || segs < 1) return (int)cudaErrorInvalidValue;
@@ -179,6 +175,8 @@ inline int launch_dw_wgmma(const DwgMat* mats, int n_mats, float* part, int part
     if (mats[i].kdim % 64 != 0 || (mats[i].ndim != 128 && mats[i].ndim != 256))
       return (int)cudaErrorInvalidValue;
     da.m[i] = mats[i];
+    if (da.m[i].g_ld == 0) da.m[i].g_ld = mats[i].ndim;
+    if (da.m[i].out_ld == 0) da.m[i].out_ld = mats[i].ndim;
     da.task_start[i + 1] = da.task_start[i] + dw_tasks(mats[i].kdim);
   }
   da.part = part;

@@ -107,9 +107,9 @@ SIGNATURES = {
         "nerface_fused_paper_mlp_shared_bytes": ([_P], None),
     },
     "fused_flex": {
-        "nerface_fused_flex_fwd": ([_P] * 7 + [_I] * 4 + [_P], ctypes.c_int),
-        "nerface_fused_flex_bwd": ([_P] * 12 + [_I] * 4 + [_P], ctypes.c_int),
-        "nerface_fused_flex_workspace_bytes": ([_I, _I, _I], ctypes.c_longlong),
+        "nerface_fused_flex_fwd": ([_P] * 7 + [_I] * 5 + [_P], ctypes.c_int),
+        "nerface_fused_flex_bwd": ([_P] * 12 + [_I] * 5 + [_P], ctypes.c_int),
+        "nerface_fused_flex_workspace_bytes": ([_I] * 4, ctypes.c_longlong),
         "nerface_fused_flex_shared_bytes": ([_P], None),
     },
     "fused_resample": {

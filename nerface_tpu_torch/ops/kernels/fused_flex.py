@@ -38,11 +38,17 @@ contribution, relu, `fc_rgb` — and returns the raw radiance [rgb, σ]
 * `flex_fused_eligible` is the port's copy of the JAX eligibility check
   (`fused_flex.py:364-385`) and of its pipeline's tile rule
   (`nerface_tpu/render/pipeline.py:287-292`: `kernel_pass_ok`, the ray
-  count a multiple of 8) plus what the kernel is built for: hidden width
-  256 only (JAX also admits 512, which here runs the model's plain
-  forward), at most `MAX_HIDDEN` hidden layers, 1..MAX_SAMPLES samples a
-  ray (any S: `csrc/fused_flex.cu` takes the paper kernels' `unit_layout`,
-  S = 64 and 128 as fixed layout classes, every other S at run time).
+  count a multiple of 8) plus what the kernels are built for: hidden width
+  256 or 512 (`WIDTHS`; JAX also admits 768, 1024, ..., which here run the
+  model's plain forward), any number of hidden layers, 1..MAX_SAMPLES
+  samples a ray (any S: `csrc/fused_flex.cu` takes the paper kernels'
+  `unit_layout`, S = 64 and 128 as fixed layout classes, every other S at
+  run time).
+* The width h is read from the weights (v0 is (1, h)); every layout
+  function takes it, h = 256 by default. At h = 512 the two consumer
+  warpgroups of a CTA share each unit (`csrc/fused_flex.cu`,
+  `wide_chain_kernel` / `wide_dx_kernel`), so a CTA takes one item a round
+  (`flex_ctas`).
 """
 
 from __future__ import annotations
@@ -69,8 +75,14 @@ from nerface_tpu_torch.ops.kernels.fused_mlp import (
     unit_layout,
 )
 
-# hidden layers after layer1 the kernel takes (num_layers − 1)
-MAX_HIDDEN = 8
+# the hidden widths the kernels take; layers_dir.0 is h / 2 wide
+WIDTHS = (HIDDEN, 2 * HIDDEN)
+
+
+def check_width(h: int) -> None:
+    """K4's wrappers take hidden width 256 or 512, on either device."""
+    if h not in WIDTHS:
+        raise ValueError(f"the Flexible kernels take hidden width 256 or 512, got {h}")
 
 
 def weight_names(n_hidden: int) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
@@ -115,8 +127,8 @@ def flex_fused_eligible(model, encode_xyz, pe_dir, n_rays: int, n_samples: int, 
     """Whether `model` can run its radiance field as one `fused_flex_mlp`
     call: a Flexible-family model with view directions, the xyz input and
     its declared encoding, no skip layer engaged (every reference config),
-    hidden width 256, at most MAX_HIDDEN hidden layers, ≤ MAX_FREQS bands,
-    1..MAX_SAMPLES samples a ray, and on the card a pass the JAX package
+    hidden width 256 or 512, any number of hidden layers, ≤ MAX_FREQS
+    bands, 1..MAX_SAMPLES samples a ray, and on the card a pass the JAX package
     sends to its Pallas kernel (`kernel_pass_ok`: its tile picker finds a
     ray tile, so n_rays % 8 == 0)."""
     from nerface_tpu_torch.models.nerf_models import _FlexibleFamily
@@ -132,7 +144,7 @@ def flex_fused_eligible(model, encode_xyz, pe_dir, n_rays: int, n_samples: int, 
     if model.dim_dir < pe_dir.shape[-1]:
         return False
     n_hidden = model.num_layers - 1
-    if model.hidden_size != HIDDEN or not 0 <= n_hidden <= MAX_HIDDEN:
+    if model.hidden_size not in WIDTHS or n_hidden < 0:
         return False
     if any(model._is_skip_forward(i, n_hidden) for i in range(n_hidden)):
         return False
@@ -254,45 +266,46 @@ def fused_flex_backward_reference(
 # tests/test_torch_flex_kernel.py checks it against the source.
 
 
-def w_offsets(n_hidden: int) -> Dict[str, int]:
+def w_offsets(n_hidden: int, h: int = HIDDEN) -> Dict[str, int]:
     """bf16 weights, each (in, out) row-major: W1 = [w1a; w1b; 0] (K_XIN,
     h), WF, WD0, WH0..WH{n-1}, then WA and WRGB (the σ and rgb heads, whose
     gradients are the CTAs' partial sums)."""
-    offs = {"W1": 0, "WF": K_XIN * HIDDEN}
-    offs["WD0"] = offs["WF"] + HIDDEN * HIDDEN
-    wh = offs["WD0"] + HIDDEN * DIR_HIDDEN
+    dh = h // 2
+    offs = {"W1": 0, "WF": K_XIN * h}
+    offs["WD0"] = offs["WF"] + h * h
+    wh = offs["WD0"] + h * dh
     for i in range(n_hidden):
-        offs[f"WH{i}"] = wh + i * HIDDEN * HIDDEN
-    offs["WA"] = wh + n_hidden * HIDDEN * HIDDEN
-    offs["WRGB"] = offs["WA"] + HIDDEN
-    offs["TOTAL"] = offs["WRGB"] + DIR_HIDDEN * 3
+        offs[f"WH{i}"] = wh + i * h * h
+    offs["WA"] = wh + n_hidden * h * h
+    offs["WRGB"] = offs["WA"] + h
+    offs["TOTAL"] = offs["WRGB"] + dh * 3
     return offs
 
 
-def f_offsets(n_hidden: int) -> Dict[str, int]:
+def f_offsets(n_hidden: int, h: int = HIDDEN) -> Dict[str, int]:
     """f32 rows: V0 (layer1's folded bias), BF, BD0, BA, BRGB, the encoding's
     frequency bands, BH0..BH{n-1}."""
-    offs = {"V0": 0, "BF": HIDDEN, "BD0": 2 * HIDDEN, "BA": 2 * HIDDEN + DIR_HIDDEN}
+    offs = {"V0": 0, "BF": h, "BD0": 2 * h, "BA": 2 * h + h // 2}
     offs["BRGB"] = offs["BA"] + 1
     offs["FREQS"] = offs["BRGB"] + 3
     for i in range(n_hidden):
-        offs[f"BH{i}"] = offs["FREQS"] + 16 + i * HIDDEN
-    offs["TOTAL"] = offs["FREQS"] + 16 + n_hidden * HIDDEN
+        offs[f"BH{i}"] = offs["FREQS"] + 16 + i * h
+    offs["TOTAL"] = offs["FREQS"] + 16 + n_hidden * h
     return offs
 
 
-def wt_offsets(n_hidden: int) -> Dict[str, int]:
+def wt_offsets(n_hidden: int, h: int = HIDDEN) -> Dict[str, int]:
     """The dX products' transposed weights, (out, in) row-major: WD0T, WFT,
     WHT0..WHT{n-1}."""
-    offs = {"WD0T": 0, "WFT": DIR_HIDDEN * HIDDEN}
+    offs = {"WD0T": 0, "WFT": h // 2 * h}
     for i in range(n_hidden):
-        offs[f"WHT{i}"] = offs["WFT"] + (1 + i) * HIDDEN * HIDDEN
-    offs["TOTAL"] = offs["WFT"] + (1 + n_hidden) * HIDDEN * HIDDEN
+        offs[f"WHT{i}"] = offs["WFT"] + (1 + i) * h * h
+    offs["TOTAL"] = offs["WFT"] + (1 + n_hidden) * h * h
     return offs
 
 
 def _pack_rows(W, v0: torch.Tensor, n_hidden: int, freqs: torch.Tensor) -> torch.Tensor:
-    """The f32 rows in `f_offsets` order."""
+    """The f32 rows in `f_offsets` order (at the width of v0)."""
     rows = [v0, W["bf"], W["bd0"], W["ba"], W["brgb"],
             torch.cat([freqs, freqs.new_zeros(16 - freqs.numel())])]
     rows += [W[f"bh{i}"] for i in range(n_hidden)]
@@ -302,7 +315,7 @@ def _pack_rows(W, v0: torch.Tensor, n_hidden: int, freqs: torch.Tensor) -> torch
 def _forward_matrices(W, n_hidden: int):
     """`w_offsets`' matrices by name, (in, out): W1 = [w1a; w1b; 0]."""
     n_enc = W["w1b"].shape[0]
-    pad = W["w1a"].new_zeros(K_XIN - 3 - n_enc, HIDDEN)
+    pad = W["w1a"].new_zeros(K_XIN - 3 - n_enc, W["w1a"].shape[1])
     mats = {"W1": torch.cat([W["w1a"], W["w1b"], pad]), "WF": W["wf"], "WD0": W["wd0"]}
     mats.update({f"WH{i}": W[f"wh{i}"] for i in range(n_hidden)})
     mats.update(WA=W["wa"], WRGB=W["wrgb"])
@@ -319,8 +332,9 @@ def _transposed_matrices(W, n_hidden: int):
 def pack_kernel_operands(W, v0: torch.Tensor, n_hidden: int, freqs: torch.Tensor):
     """(bf16 weights, f32 rows) flat buffers in the `w_offsets` /
     `f_offsets` order, each matrix row-major."""
+    h = v0.shape[-1]
     mats = _forward_matrices(W, n_hidden)
-    wbuf = torch.cat([mats[k].reshape(-1).to(torch.bfloat16) for k in w_offsets(n_hidden)
+    wbuf = torch.cat([mats[k].reshape(-1).to(torch.bfloat16) for k in w_offsets(n_hidden, h)
                       if k != "TOTAL"])
     return wbuf.contiguous(), _pack_rows(W, v0, n_hidden, freqs)
 
@@ -329,7 +343,7 @@ def pack_transposed_weights(W, n_hidden: int) -> torch.Tensor:
     """The dX products' bf16 operand buffer in `wt_offsets` order, each
     matrix row-major."""
     mats = _transposed_matrices(W, n_hidden)
-    return torch.cat([mats[k].reshape(-1).to(torch.bfloat16) for k in wt_offsets(n_hidden)
+    return torch.cat([mats[k].reshape(-1).to(torch.bfloat16) for k in wt_offsets(n_hidden, W["wf"].shape[0])
                       if k != "TOTAL"]).contiguous()
 
 
@@ -338,16 +352,17 @@ def pack_transposed_weights(W, n_hidden: int) -> torch.Tensor:
 CHUNKED = ("W1", "WF", "WD0")
 
 
-def _matrix_shapes(n_hidden: int, n_enc: int) -> Dict[str, Tuple[int, int]]:
+def _matrix_shapes(n_hidden: int, n_enc: int, h: int = HIDDEN) -> Dict[str, Tuple[int, int]]:
     """`weight_names`' matrices' shapes, (in, out)."""
-    shapes = {"w1a": (3, HIDDEN), "w1b": (n_enc, HIDDEN), "wf": (HIDDEN, HIDDEN),
-              "wa": (HIDDEN, 1), "wd0": (HIDDEN, DIR_HIDDEN), "wrgb": (DIR_HIDDEN, 3)}
-    shapes.update({f"wh{i}": (HIDDEN, HIDDEN) for i in range(n_hidden)})
+    dh = h // 2
+    shapes = {"w1a": (3, h), "w1b": (n_enc, h), "wf": (h, h), "wa": (h, 1), "wd0": (h, dh),
+              "wrgb": (dh, 3)}
+    shapes.update({f"wh{i}": (h, h) for i in range(n_hidden)})
     return shapes
 
 
 @functools.lru_cache(maxsize=None)
-def _flex_weight_gather(n_hidden: int, n_enc: int, device, transposed: bool) -> torch.Tensor:
+def _flex_weight_gather(n_hidden: int, n_enc: int, device, transposed: bool, h: int = HIDDEN) -> torch.Tensor:
     """Where each element of the kernels' bf16 weight buffer comes from: its
     position in [0; the weights' matrices flat, in `weight_names` order].
     The buffer is the forward weights in `w_offsets` order, each matrix but
@@ -356,7 +371,7 @@ def _flex_weight_gather(n_hidden: int, n_enc: int, device, transposed: bool) -> 
     what imaging `pack_kernel_operands` / `pack_transposed_weights` gives,
     composed into one gather. The transposed part's size, a multiple of
     1024 bytes, keeps the forward weights' start aligned."""
-    shapes = _matrix_shapes(n_hidden, n_enc)
+    shapes = _matrix_shapes(n_hidden, n_enc, h)
     idx, o = {}, 1
     for name in weight_names(n_hidden)[0]:
         k, n = shapes[name]
@@ -372,11 +387,12 @@ def _flex_weight_gather(n_hidden: int, n_enc: int, device, transposed: bool) -> 
     return torch.cat(parts).contiguous()
 
 
-def _split_kernel_grads(dwbuf, dfbuf, n_hidden: int, n_enc: int):
+def _split_kernel_grads(dwbuf, dfbuf, n_hidden: int, n_enc: int, h: int = HIDDEN):
     """The kernel's packed f32 gradients -> ({matrix name: grad},
     {bias name: (1, out) grad}, d_v0 (1, h)); W1's zero-padded rows are
     dropped."""
-    wo, fo = w_offsets(n_hidden), f_offsets(n_hidden)
+    dh = h // 2
+    wo, fo = w_offsets(n_hidden, h), f_offsets(n_hidden, h)
 
     def mat(name, rows, cols):
         return dwbuf[wo[name]:wo[name] + rows * cols].reshape(rows, cols)
@@ -384,44 +400,50 @@ def _split_kernel_grads(dwbuf, dfbuf, n_hidden: int, n_enc: int):
     def row(name, n):
         return dfbuf[fo[name]:fo[name] + n][None, :]
 
-    w1 = mat("W1", K_XIN, HIDDEN)
-    gw = {"w1a": w1[:3], "w1b": w1[3:3 + n_enc], "wf": mat("WF", HIDDEN, HIDDEN),
-          "wa": mat("WA", HIDDEN, 1), "wd0": mat("WD0", HIDDEN, DIR_HIDDEN),
-          "wrgb": mat("WRGB", DIR_HIDDEN, 3)}
-    gb = {"bf": row("BF", HIDDEN), "ba": row("BA", 1), "bd0": row("BD0", DIR_HIDDEN),
+    w1 = mat("W1", K_XIN, h)
+    gw = {"w1a": w1[:3], "w1b": w1[3:3 + n_enc], "wf": mat("WF", h, h),
+          "wa": mat("WA", h, 1), "wd0": mat("WD0", h, dh),
+          "wrgb": mat("WRGB", dh, 3)}
+    gb = {"bf": row("BF", h), "ba": row("BA", 1), "bd0": row("BD0", dh),
           "brgb": row("BRGB", 3)}
     for i in range(n_hidden):
-        gw[f"wh{i}"] = mat(f"WH{i}", HIDDEN, HIDDEN)
-        gb[f"bh{i}"] = row(f"BH{i}", HIDDEN)
-    return gw, gb, row("V0", HIDDEN)
+        gw[f"wh{i}"] = mat(f"WH{i}", h, h)
+        gb[f"bh{i}"] = row(f"BH{i}", h)
+    return gw, gb, row("V0", h)
 
 
 # -- the wrappers -------------------------------------------------------------
+
+
+def _check_domain(z_vals, v0, n_hidden):
+    """What the wrappers take on either device: 1..MAX_SAMPLES samples a
+    ray, hidden width 256 or 512 (v0's), n_hidden ≥ 0."""
+    check_samples(z_vals.shape[-1])
+    check_width(v0.shape[-1])
+    if n_hidden < 0:
+        raise ValueError(f"the Flexible kernels take n_hidden ≥ 0, got {n_hidden}")
 
 
 def _kernel_call(weights, ro, rd, z, dir_c, v0, n_hidden, num_encoding_fn_xyz, g=None):
     """Check the operands of a kernel launch; returns the weights by name."""
     dev = ro.device
     n_rays, n_samples = z.shape
-    check_samples(n_samples)
+    _check_domain(z, v0, n_hidden)
+    h = v0.shape[-1]
     if not 1 <= num_encoding_fn_xyz <= MAX_FREQS:
         raise ValueError(f"kernel takes 1..{MAX_FREQS} xyz encoding bands")
-    if not 0 <= n_hidden <= MAX_HIDDEN:
-        raise ValueError(f"kernel takes 0..{MAX_HIDDEN} hidden layers, got {n_hidden}")
     _check("ray_origins", ro, (n_rays, 3), dev)
     _check("ray_directions", rd, (n_rays, 3), dev)
     _check("z_vals", z, (n_rays, n_samples), dev)
-    _check("dir_contrib", dir_c, (n_rays, DIR_HIDDEN), dev)
-    _check("v0", v0, (1, HIDDEN), dev)
+    _check("dir_contrib", dir_c, (n_rays, h // 2), dev)
+    _check("v0", v0, (1, h), dev)
     if g is not None:
         _check("g", g, (n_rays, n_samples, 4), dev)
     W = _unpack([t.detach() for t in weights], n_hidden)
-    n_enc = 6 * num_encoding_fn_xyz
-    shapes = {"w1a": (3, HIDDEN), "w1b": (n_enc, HIDDEN), "wa": (HIDDEN, 1),
-              "wd0": (HIDDEN, DIR_HIDDEN), "wrgb": (DIR_HIDDEN, 3)}
+    shapes = _matrix_shapes(n_hidden, 6 * num_encoding_fn_xyz, h)
     for name, t in W.items():
         if name.startswith("w"):
-            want = shapes.get(name, (HIDDEN, HIDDEN))
+            want = shapes[name]
             if t.dtype != torch.bfloat16 or tuple(t.shape) != want or t.device != dev:
                 raise ValueError(f"{name} must be bfloat16 {want} on {dev}, got {t.dtype} "
                                  f"{tuple(t.shape)} on {t.device}")
@@ -435,21 +457,21 @@ def _kernel_operands(W, v0, n_hidden, num_encoding_fn_xyz, log_sampling_xyz, tra
     weight images, f32 rows), and with `transposed` (K4b) the transposed
     weights' images after them. Both images come out of one gather
     (`_flex_weight_gather`); nothing is copied from the host."""
-    dev = v0.device
+    dev, h = v0.device, v0.shape[-1]
     n_enc = 6 * num_encoding_fn_xyz
     src = torch.cat([W["w1a"].new_zeros(1)]
                     + [W[n].reshape(-1) for n in weight_names(n_hidden)[0]])
-    both = src[_flex_weight_gather(n_hidden, n_enc, dev, transposed)]
+    both = src[_flex_weight_gather(n_hidden, n_enc, dev, transposed, h)]
     fbuf = _pack_rows(W, v0, n_hidden, _device_bands(num_encoding_fn_xyz, log_sampling_xyz, dev))
     if not transposed:
         return both, fbuf
-    wt_total = wt_offsets(n_hidden)["TOTAL"]
+    wt_total = wt_offsets(n_hidden, h)["TOTAL"]
     return both[wt_total:], fbuf, both[:wt_total]
 
 
 def _lib(n_samples: int):
     """The build of `csrc/fused_flex.cu` that holds n_samples' layout
-    class (`build.layout_library`)."""
+    class (`build.layout_library`), both widths."""
     from nerface_tpu_torch.ops.kernels.build import layout_library
 
     return layout_library("fused_flex", n_samples)
@@ -458,36 +480,39 @@ def _lib(n_samples: int):
 def _launch_flex_fwd(operands, per_ray, out, n_hidden, num_encoding_fn_xyz):
     """K4f's C entry on checked CUDA operands: `operands` (W images, f32
     rows) from `_kernel_operands(..., transposed=False)`, `per_ray` (ro,
-    rd, z, dir_contrib), `out` (R, S, 4) f32. Counts the launch in
-    `fused_flex_forward.launches`."""
+    rd, z, dir_contrib (R, h / 2)), `out` (R, S, 4) f32. Counts the launch
+    in `fused_flex_forward.launches`."""
     wbuf, fbuf = operands
     ro, rd, z, dc = per_ray
     n_rays, n_samples = z.shape
+    h = 2 * dc.shape[-1]
     with torch.cuda.device(ro.device):
         stream = torch.cuda.current_stream(ro.device).cuda_stream
         err = _lib(n_samples).nerface_fused_flex_fwd(
             _ptr(ro), _ptr(rd), _ptr(z), _ptr(dc), _ptr(wbuf), _ptr(fbuf), _ptr(out), n_rays,
-            n_samples, num_encoding_fn_xyz, n_hidden, ctypes.c_void_p(stream),
+            n_samples, num_encoding_fn_xyz, n_hidden, h, ctypes.c_void_p(stream),
         )
     if err != 0:
         raise RuntimeError(f"fused_flex_forward kernel launch failed: cudaError {err}")
     fused_flex_forward.launches += 1
 
 
-def flex_bwd_outputs(n_rays: int, n_hidden: int, dev) -> Dict[str, torch.Tensor]:
+def flex_bwd_outputs(n_rays: int, n_hidden: int, dev, h: int = HIDDEN) -> Dict[str, torch.Tensor]:
     """K4b's uninitialised f32 outputs: the packed weight and row gradients
-    (`w_offsets` / `f_offsets`) and d_dir (R, 128)."""
+    (`w_offsets` / `f_offsets`) and d_dir (R, h / 2)."""
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
-    return {"dw": empty(w_offsets(n_hidden)["TOTAL"]), "df": empty(f_offsets(n_hidden)["TOTAL"]),
-            "d_dir": empty(n_rays, DIR_HIDDEN)}
+    return {"dw": empty(w_offsets(n_hidden, h)["TOTAL"]), "df": empty(f_offsets(n_hidden, h)["TOTAL"]),
+            "d_dir": empty(n_rays, h // 2)}
 
 
-def flex_bwd_workspace(n_rays: int, n_samples: int, n_hidden: int, dev) -> torch.Tensor:
+def flex_bwd_workspace(n_rays: int, n_samples: int, n_hidden: int, dev, h: int = HIDDEN) -> torch.Tensor:
     """K4b's device workspace for a pass (`workspace_layout`'s bytes)."""
-    nbytes = _lib(n_samples).nerface_fused_flex_workspace_bytes(n_rays, n_samples, n_hidden)
+    nbytes = _lib(n_samples).nerface_fused_flex_workspace_bytes(n_rays, n_samples, n_hidden, h)
+    if nbytes < 0:
+        raise ValueError(f"K4b takes no pass of {n_rays} × {n_samples} at h = {h}, n = {n_hidden}")
     return torch.empty(nbytes, dtype=torch.uint8, device=dev)
 
 
@@ -500,12 +525,13 @@ def _launch_flex_bwd(operands, per_ray, out, ws, n_hidden, num_encoding_fn_xyz):
     wbuf, fbuf, wtbuf = operands
     ro, rd, z, dc, g = per_ray
     n_rays, n_samples = z.shape
+    h = 2 * dc.shape[-1]
     with torch.cuda.device(ro.device):
         stream = torch.cuda.current_stream(ro.device).cuda_stream
         err = _lib(n_samples).nerface_fused_flex_bwd(
             _ptr(ro), _ptr(rd), _ptr(z), _ptr(dc), _ptr(wbuf), _ptr(wtbuf), _ptr(fbuf), _ptr(g),
             _ptr(out["dw"]), _ptr(out["df"]), _ptr(out["d_dir"]), _ptr(ws), n_rays, n_samples,
-            num_encoding_fn_xyz, n_hidden, ctypes.c_void_p(stream),
+            num_encoding_fn_xyz, n_hidden, h, ctypes.c_void_p(stream),
         )
     if err != 0:
         raise RuntimeError(f"fused_flex_backward kernel launch failed: cudaError {err}")
@@ -518,10 +544,10 @@ def fused_flex_forward(
 ) -> torch.Tensor:
     """K4f: the raw radiance (R, S, 4) f32 of the skip-free Flexible trunk.
     `weights` is `pack_flex_weights(...)`; ro/rd (R, 3), z (R, S),
-    dir_contrib (R, 128) = pe_dir @ W_dir0[:, 256:].T, v0 (1, 256), all
-    f32 and contiguous."""
+    dir_contrib (R, h / 2) = pe_dir @ W_dir0[:, h:].T, v0 (1, h), all f32
+    and contiguous; h is 256 or 512."""
     dev = ray_origins.device
-    check_samples(z_vals.shape[-1])
+    _check_domain(z_vals, v0, n_hidden)
     if dev.type == "cpu":
         return fused_flex_forward_reference(
             weights, ray_origins, ray_directions, z_vals, dir_contrib, v0, n_hidden,
@@ -549,10 +575,10 @@ def fused_flex_backward(
 ):
     """K4b: the gradients of Σ g·out for the cotangent g (R, S, 4) of
     `fused_flex_forward`'s output. Returns (d_weights in the weights'
-    order and dtypes, d_v0 (1, 256), d_dir (R, 128)), f32 but for the
+    order and dtypes, d_v0 (1, h), d_dir (R, h / 2)), f32 but for the
     matrices' bf16."""
     dev = ray_origins.device
-    check_samples(z_vals.shape[-1])
+    _check_domain(z_vals, v0, n_hidden)
     if dev.type == "cpu":
         return fused_flex_backward_reference(
             weights, ray_origins, ray_directions, z_vals, dir_contrib, v0, g, n_hidden,
@@ -563,12 +589,13 @@ def fused_flex_backward(
     W = _kernel_call(weights, ray_origins, ray_directions, z_vals, dir_contrib, v0, n_hidden,
                      num_encoding_fn_xyz, g=g)
     n_rays, n_samples = z_vals.shape
+    h = v0.shape[-1]
     operands = _kernel_operands(W, v0, n_hidden, num_encoding_fn_xyz, log_sampling_xyz, True)
-    out = flex_bwd_outputs(n_rays, n_hidden, dev)
-    ws = flex_bwd_workspace(n_rays, n_samples, n_hidden, dev)
+    out = flex_bwd_outputs(n_rays, n_hidden, dev, h)
+    ws = flex_bwd_workspace(n_rays, n_samples, n_hidden, dev, h)
     _launch_flex_bwd(operands, (ray_origins, ray_directions, z_vals, dir_contrib, g), out, ws,
                      n_hidden, num_encoding_fn_xyz)
-    gw, gb, d_v0 = _split_kernel_grads(out["dw"], out["df"], n_hidden, 6 * num_encoding_fn_xyz)
+    gw, gb, d_v0 = _split_kernel_grads(out["dw"], out["df"], n_hidden, 6 * num_encoding_fn_xyz, h)
     wn, bn = weight_names(n_hidden)
     grads = tuple(gw[n].to(torch.bfloat16) for n in wn) + tuple(gb[n] for n in bn)
     # the operand buffers and the workspace may be freed on return
@@ -588,38 +615,61 @@ WARPS_A_CTA = 4 * CONSUMERS
 DWG_WAVE = 132  # dW's CTAs of one wave (wgmma_dw.cuh)
 
 
-MASK_BYTES = 128 * HIDDEN // 64 * 4  # a unit's relu mask as bits: 4 words a thread
+def mask_bytes(h: int = HIDDEN) -> int:
+    """A unit's relu mask of an h-wide activation as bits: 4 words a thread
+    of a warpgroup's 256 columns (at h = 512 each consumer warpgroup keeps
+    its columns' words, `wide_mask`)."""
+    return 128 * h // 64 * 4
 
 
-def workspace_buffers(n_hidden: int) -> Tuple[Tuple[str, int], ...]:
+def workspace_buffers(n_hidden: int, h: int = HIDDEN) -> Tuple[Tuple[str, int], ...]:
     """K4b's bf16 image buffers and their widths, in the carve's order."""
-    return ((("xin", K_XIN),) + tuple((f"a{i}", HIDDEN) for i in range(n_hidden + 1))
-            + (("feat", HIDDEN), ("x0", DIR_HIDDEN), ("gx0", DIR_HIDDEN), ("gfeat", HIDDEN))
-            + tuple((f"gpre{i}", HIDDEN) for i in range(n_hidden)) + (("ga0", HIDDEN),))
+    dh = h // 2
+    return ((("xin", K_XIN),) + tuple((f"a{i}", h) for i in range(n_hidden + 1))
+            + (("feat", h), ("x0", dh), ("gx0", dh), ("gfeat", h))
+            + tuple((f"gpre{i}", h) for i in range(n_hidden)) + (("ga0", h),))
 
 
 def mask_buffers(n_hidden: int) -> Tuple[str, ...]:
-    """The relu masks dX applies (`MASK_BYTES` a unit), after the images:
+    """The relu masks dX applies (`mask_bytes` a unit), after the images:
     feat's, then a_1..a_n's."""
     return ("fmask",) + tuple(f"amask{i}" for i in range(1, n_hidden + 1))
 
 
-def dw_segments(n_hidden: int) -> int:
-    """dW's row segments: one wave over its products' column-block pairs
-    (W1: 1, WF, WD0 and each WH_i: 2)."""
-    tasks = 1 + 2 * (2 + n_hidden)
+def dw_products(n_hidden: int, h: int = HIDDEN) -> Tuple[Tuple[int, int], ...]:
+    """dW's products (X width, gY columns), as the kernel launches them
+    (`dw_products`): W1, WF, WD0, each WH_i, each by column blocks of at
+    most 256."""
+    mats = [(K_XIN, h), (h, h), (h, h // 2)] + [(h, h)] * n_hidden
+    return tuple((k, min(n, 256)) for k, n in mats for _ in range(0, n, 256))
+
+
+def dw_segments(n_hidden: int, h: int = HIDDEN) -> int:
+    """dW's row segments: one wave over its products' CTAs (a pair of X's
+    64-column blocks each)."""
+    tasks = sum((k // 64 + 1) // 2 for k, _ in dw_products(n_hidden, h))
     return 1 if tasks >= DWG_WAVE else DWG_WAVE // tasks
 
 
+def flex_ctas(n_rays: int, n_samples: int, h: int = HIDDEN) -> int:
+    """The persistent grid's CTAs: one a round, at most FLEX_CTAS; a round
+    is two items (one a consumer warpgroup) at h = 256, one item (both
+    warpgroups on each unit) at h = 512."""
+    rays, _ = unit_layout(n_samples)
+    items = -(-n_rays // rays)
+    return min(-(-items // CONSUMERS) if h == HIDDEN else items, FLEX_CTAS)
+
+
 def unit_schedule(n_rays: int, n_samples: int):
-    """The persistent grid's work, as the kernels walk it: a list of (cta,
-    round, warpgroup, unit, live) in each CTA's order. CTA c takes rounds
-    c, c + ctas, ...; round r gives warpgroup wg the item 2r + wg, whole
-    rays as 64-row units (`unit_layout`: two rays in one unit at S = 32,
-    one ray in one at 64 and in two at 128, 8 rays in 3 at S = 24); item
-    k's units are the pass's units [k·units, (k + 1)·units), its rows past
-    its rays' samples pad the last. An item past the last ray is not
-    live."""
+    """The persistent grid's work at h = 256, as the kernels walk it: a
+    list of (cta, round, warpgroup, unit, live) in each CTA's order. CTA c
+    takes rounds c, c + ctas, ...; round r gives warpgroup wg the item 2r +
+    wg, whole rays as 64-row units (`unit_layout`: two rays in one unit at
+    S = 32, one ray in one at 64 and in two at 128, 8 rays in 3 at S = 24);
+    item k's units are the pass's units [k·units, (k + 1)·units), its rows
+    past its rays' samples pad the last. An item past the last ray is not
+    live. (At h = 512 CTA c's round r is item r, both warpgroups on each of
+    its units.)"""
     wg_rays, units_an_item = unit_layout(n_samples)
     rounds = -(-n_rays // (CONSUMERS * wg_rays))
     ctas = min(rounds, FLEX_CTAS)
@@ -633,19 +683,19 @@ def unit_schedule(n_rays: int, n_samples: int):
     return out
 
 
-def workspace_layout(n_rays: int, n_samples: int, n_hidden: int):
+def workspace_layout(n_rays: int, n_samples: int, n_hidden: int, h: int = HIDDEN):
     """({piece: byte offset}, total bytes) of K4b's workspace, as `carve`
     lays it out: the image buffers (`workspace_buffers`), the relu masks
     (`mask_buffers`), then the warps' and the CTAs' partial rows and dW's
     segments, each 256-byte aligned."""
     rays, units_an_item = unit_layout(n_samples)
     units = -(-n_rays // rays) * units_an_item
-    ctas = min(-(-n_rays // (CONSUMERS * rays)), FLEX_CTAS)
-    part_cols = f_offsets(n_hidden)["TOTAL"] + HIDDEN + 3 * DIR_HIDDEN
-    pieces = [(name, units * width * 128) for name, width in workspace_buffers(n_hidden)]
-    pieces += [(name, units * MASK_BYTES) for name in mask_buffers(n_hidden)]
+    ctas = flex_ctas(n_rays, n_samples, h)
+    part_cols = f_offsets(n_hidden, h)["TOTAL"] + h + 3 * (h // 2)
+    pieces = [(name, units * width * 128) for name, width in workspace_buffers(n_hidden, h)]
+    pieces += [(name, units * mask_bytes(h)) for name in mask_buffers(n_hidden)]
     pieces += [("warp_part", ctas * WARPS_A_CTA * part_cols * 4), ("tile_part", ctas * part_cols * 4),
-               ("dw_part", dw_segments(n_hidden) * w_offsets(n_hidden)["WA"] * 4)]
+               ("dw_part", dw_segments(n_hidden, h) * w_offsets(n_hidden, h)["WA"] * 4)]
     offs, o = {}, 0
     for name, nbytes in pieces:
         offs[name] = o

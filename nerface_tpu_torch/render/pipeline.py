@@ -304,7 +304,9 @@ def _flex_pass(model, ro, rd, z_vals, encode_xyz, pe_dir, expr, latent):
     """One `fused_flex_mlp` call for a Flexible-family model
     (`nerface_tpu/render/pipeline.py:268-317`): v0 = layer1's bias + its
     conditioning columns applied to the prepared (expr, latent), and the
-    per-ray direction contribution, both differentiable f32 torch."""
+    per-ray direction contribution, both differentiable f32 torch. The
+    model's width h (256 or 512) goes to the kernels as their shapes: v0
+    (1, h), dir_contrib (R, h / 2)."""
     e, l = model._prepare(
         expr if model.takes_expression else None, latent if model.takes_latent else None, None
     )
@@ -327,9 +329,9 @@ def _apply_model(model, ro, rd, z_vals, encode_xyz, pe_dir, expr, latent, dtype)
     """Evaluate the radiance field at the samples: in bf16 with 2-D rays
     and per-frame conditioning, one K3 call for a paper-family model (where
     the kernels take the pass, `_paper_kernels_take`) or one K4 call for an
-    eligible Flexible-family model (`flex_fused_eligible`: on the card the
-    same ray-count rule); else positional-encode the points and run the
-    model."""
+    eligible Flexible-family model (`flex_fused_eligible`: hidden width 256
+    or 512 at any depth, on the card the same ray-count rule); else
+    positional-encode the points and run the model."""
     if (
         dtype == torch.bfloat16
         and ro.ndim == 2

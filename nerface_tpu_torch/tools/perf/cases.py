@@ -102,15 +102,16 @@ def paper_case(R, S, seed, dev, small=False):
     return bundle, rays
 
 
-def flex_params(seed, dev, n_hidden=3):
+def flex_params(seed, dev, n_hidden=3, hidden=256):
     """He-scaled random weights of one synth512_lcode model (the state-dict
-    params; `n_hidden` hidden layers after layer1, 3 in the config) and a
-    per-frame v0 = layer1's bias + its conditioning columns applied to a
-    random [expr / 3; latent]."""
+    params; `n_hidden` hidden layers after layer1, 3 in the config; hidden
+    width 256, or 512 as synth512_lcode_w512) and a per-frame v0 = layer1's
+    bias + its conditioning columns applied to a random [expr / 3;
+    latent]."""
     from nerface_tpu_torch.models.nerf_models import ConditionalBlendshapeLearnableCodeNeRFModel
 
     model = ConditionalBlendshapeLearnableCodeNeRFModel(
-        num_layers=n_hidden + 1, hidden_size=256, num_encoding_fn_xyz=10,
+        num_layers=n_hidden + 1, hidden_size=hidden, num_encoding_fn_xyz=10,
         # no skip layer engages (synth512_lcode's 4 at n = 3)
         skip_connect_every=max(4, n_hidden + 1),
         num_encoding_fn_dir=4, include_input_dir=False, device=dev,
@@ -123,15 +124,15 @@ def flex_params(seed, dev, n_hidden=3):
     return params, v0
 
 
-def flex_case(R, S, seed, dev, n_hidden=3):
+def flex_case(R, S, seed, dev, n_hidden=3, hidden=256):
     """`flex_params`' weights packed for K4 (`pack_flex_weights`), its v0,
-    and a pass's rays, dir_contrib and cotangent g."""
+    and a pass's rays, dir_contrib (R, hidden / 2) and cotangent g."""
     from nerface_tpu_torch.ops.kernels import fused_flex as F
 
-    params, v0 = flex_params(seed, dev, n_hidden)
+    params, v0 = flex_params(seed, dev, n_hidden, hidden)
     g = torch.Generator().manual_seed(seed + 2)
     ro, rd, z = ray_draws(R, S, g)
-    case = dict(ro=ro, rd=rd, z=z, dc=torch.randn(R, 128, generator=g) * 0.3,
+    case = dict(ro=ro, rd=rd, z=z, dc=torch.randn(R, hidden // 2, generator=g) * 0.3,
                 g=torch.randn(R, S, 4, generator=g))
     case = {k: v.to(dev).contiguous() for k, v in case.items()}
     case.update(weights=F.pack_flex_weights(params, n_hidden, 10), v0=v0, n=n_hidden)

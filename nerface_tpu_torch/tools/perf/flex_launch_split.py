@@ -7,14 +7,16 @@ that work. Here the operands are packed once and only the launch is timed,
 through the wrappers' own `_launch_flex_fwd` / `_launch_flex_bwd` (which
 count it): K4f on a 65536-ray serving tile and on a train step's 2048 rays
 at S = 64 and 128, K4b on the 2048 rays, synth512_lcode's He-scaled trunk
-(n = 3 hidden layers). Then `torch.profiler` splits each K4b call's device
+(n = 3 hidden layers) at each hidden width asked for (256, the config's,
+and 512, synth512_lcode_w512's; `--hidden`). Then `torch.profiler` splits
+each K4b call's device
 time by kernel, each beside two figures of its own (`launch_bounds`,
 `k1_launch_split.launch_row`): its operations at the bf16 dense peak, the
 bound its time is read against, and the bytes this design moves at the
 memory rate, the workspace's round trip included, a floor of the design
 (the TPU kernel moves no workspace).
 
-    python -m nerface_tpu_torch.tools.perf.flex_launch_split [--json PATH]
+    python -m nerface_tpu_torch.tools.perf.flex_launch_split [--hidden 256 512] [--json PATH]
 
 It prints the card line, one line per case and kernel, and a JSON line.
 """
@@ -34,36 +36,47 @@ from nerface_tpu_torch.tools.perf.k1_launch_split import PEAK_BF16_FLOPS, row_te
 RAYS = 2048
 TILE_RAYS = 65536
 N_HIDDEN = 3  # synth512_lcode: num_layers 4
-# the kernels K4b launches, in order
-K4B_KERNELS = ("flex_chain_kernel", "flex_dx_kernel", "dw_wgmma_kernel", "reduce_rows")
+WIDTHS = (256, 512)
 
 
-def forward_kn(n):
+def k4b_kernels(h=256):
+    """The kernels K4b launches at width h, in order (h = 512 has its own
+    recompute and dX kernels)."""
+    if h == 256:
+        return ("flex_chain_kernel", "flex_dx_kernel", "dw_wgmma_kernel", "reduce_rows")
+    return ("wide_chain_kernel", "wide_dx_kernel", "dw_wgmma_kernel", "reduce_rows")
+
+
+K4B_KERNELS = k4b_kernels()
+
+
+def forward_kn(n, h=256):
     """(K, N) of the forward's products at the function's widths: layer1,
     the hidden layers, fc_feat, the σ head, layers_dir.0's feat columns,
     fc_rgb. dW has the same products."""
-    return [(D_XYZ, 256)] + [(256, 256)] * n + [(256, 256), (256, 1), (256, 128), (128, 3)]
+    return [(D_XYZ, h)] + [(h, h)] * n + [(h, h), (h, 1), (h, h // 2), (h // 2, 3)]
 
 
-def dx_kn(n):
+def dx_kn(n, h=256):
     """(K, N) of dX's products: fc_rgb, layers_dir.0, fc_feat, the σ head,
     the hidden layers (layer1's input gets no cotangent)."""
-    return [(128, 3), (256, 128), (256, 256), (256, 1)] + [(256, 256)] * n
+    return [(h // 2, 3), (h, h // 2), (h, h), (h, 1)] + [(h, h)] * n
 
 
 def flop_per_sample(kn):
     return sum(2 * k * n for k, n in kn)
 
 
-def workspace_row_bytes(n):
+def workspace_row_bytes(n, h=256):
     """Bytes a sample row of the workspace holds: (the recompute's bf16
     images: xin, a_0..a_n, feat, x0; their relu masks as bits: feat,
     a_1..a_n; dX's bf16 cotangents: gx0, gfeat, the hidden layers', ga0)."""
-    mask = F.MASK_BYTES // 64
-    return 2 * (64 + 256 * (n + 1) + 256 + 128), mask * (1 + n), 2 * (128 + 256 + 256 * n + 256)
+    mask = F.mask_bytes(h) // 64
+    dh = h // 2
+    return 2 * (64 + h * (n + 1) + h + dh), mask * (1 + n), 2 * (dh + h + h * n + h)
 
 
-def launch_bounds(R, S, n):
+def launch_bounds(R, S, n, h=256):
     """Kernel name -> (flop, bytes, what) of one K4b launch of R rays × S
     samples. `bytes` is what the launch moves in this design: the ray
     inputs, the weights, the activations' images and their relu masks with
@@ -71,17 +84,19 @@ def launch_bounds(R, S, n):
     the masks, its cotangents' images and d_dir with dX; every image but
     x0 with dW; the gradients with the reductions."""
     rows = R * S
-    acts, masks, cots = workspace_row_bytes(n)
-    wo, fo, to = F.w_offsets(n)["TOTAL"], F.f_offsets(n)["TOTAL"], F.wt_offsets(n)["TOTAL"]
-    rays = R * 4 * (3 + 3 + S + 128)
-    heads = 2 * (128 + 256)
+    dh = h // 2
+    acts, masks, cots = workspace_row_bytes(n, h)
+    wo, fo, to = F.w_offsets(n, h)["TOTAL"], F.f_offsets(n, h)["TOTAL"], F.wt_offsets(n, h)["TOTAL"]
+    rays = R * 4 * (3 + 3 + S + dh)
+    heads = 2 * (dh + h)
+    chain, dx, dw, sums = k4b_kernels(h)
     return {
-        "flex_chain_kernel": (rows * flop_per_sample(forward_kn(n)),
-                              rays + 2 * wo + 4 * fo + rows * (acts + masks), "recompute"),
-        "flex_dx_kernel": (rows * flop_per_sample(dx_kn(n)),
-                           rows * (16 + heads + masks + cots) + 2 * to + R * 4 * 128, "dX"),
-        "dw_wgmma_kernel": (rows * flop_per_sample(forward_kn(n)), rows * (acts - 2 * 128 + cots), "dW"),
-        "reduce_rows": (0, 4 * (wo + fo), "sums"),
+        chain: (rows * flop_per_sample(forward_kn(n, h)),
+                rays + 2 * wo + 4 * fo + rows * (acts + masks), "recompute"),
+        dx: (rows * flop_per_sample(dx_kn(n, h)),
+             rows * (16 + heads + masks + cots) + 2 * to + R * 4 * dh, "dX"),
+        dw: (rows * flop_per_sample(forward_kn(n, h)), rows * (acts - 2 * dh + cots), "dW"),
+        sums: (0, 4 * (wo + fo), "sums"),
     }
 
 
@@ -114,33 +129,35 @@ def bare_bwd(case):
     W = F._kernel_call(*a, n, 10, g=case["g"])
     R, S = case["z"].shape
     dev = case["ro"].device
+    h = case["v0"].shape[-1]
     operands = F._kernel_operands(W, case["v0"], n, 10, True, True)
-    out = F.flex_bwd_outputs(R, n, dev)
-    ws = F.flex_bwd_workspace(R, S, n, dev)
+    out = F.flex_bwd_outputs(R, n, dev, h)
+    ws = F.flex_bwd_workspace(R, S, n, dev, h)
     per_ray = (case["ro"], case["rd"], case["z"], case["dc"], case["g"])
     return lambda: F._launch_flex_bwd(operands, per_ray, out, ws, n, 10)
 
 
-def measure(dev):
-    """K4f at the tile and at 2048 rays, K4b at 2048 rays, S = 64 and 128:
-    wrapper and bare-launch median ms; K4b's kernels' device ms a call,
-    beside their bounds. Returns {case: {...}}."""
+def measure(dev, h=256):
+    """K4f at the tile and at 2048 rays, K4b at 2048 rays, S = 64 and 128,
+    at hidden width h: wrapper and bare-launch median ms; K4b's kernels'
+    device ms a call, beside their bounds. Returns {case: {...}} (cases
+    "RxS", with "@512" at h = 512)."""
     res = {}
     for R, S in ((TILE_RAYS, 64), (TILE_RAYS, 128), (RAYS, 64), (RAYS, 128)):
-        case = flex_case(R, S, 7 + S, dev, N_HIDDEN)
+        case = flex_case(R, S, 7 + S, dev, N_HIDDEN, h)
         fwd, bwd = wrapper_fns(case)
-        label = f"{R}x{S}"
+        label = f"{R}x{S}" + ("" if h == 256 else f"@{h}")
         iters = 10 if R == TILE_RAYS else 15
         r = {"k4f_ms": median_ms(fwd, warmup=3, iters=iters),
              "k4f_bare_ms": median_ms(bare_fwd(case), warmup=3, iters=iters),
-             "k4f_ops_bound_ms": R * S * flop_per_sample(forward_kn(N_HIDDEN)) / PEAK_BF16_FLOPS * 1e3}
+             "k4f_ops_bound_ms": R * S * flop_per_sample(forward_kn(N_HIDDEN, h)) / PEAK_BF16_FLOPS * 1e3}
         print(f"[flex_split] K4f {label}: wrapper {r['k4f_ms']:.3f} ms, bare launch "
               f"{r['k4f_bare_ms']:.3f} ms; operations bound {r['k4f_ops_bound_ms']:.3f} ms", flush=True)
         if R == RAYS:
             bbwd = bare_bwd(case)
             r["k4b_ms"] = median_ms(bwd, warmup=3, iters=10)
             r["k4b_bare_ms"] = median_ms(bbwd, warmup=3, iters=10)
-            r["kernels"] = split_rows(bbwd, launch_bounds(R, S, N_HIDDEN))
+            r["kernels"] = split_rows(bbwd, launch_bounds(R, S, N_HIDDEN, h))
             print(f"[flex_split] K4b {label}: wrapper {r['k4b_ms']:.3f} ms, bare launch "
                   f"{r['k4b_bare_ms']:.3f} ms, device {sum(v['ms'] for v in r['kernels'].values()):.3f} ms",
                   flush=True)
@@ -154,15 +171,20 @@ def measure(dev):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--hidden", type=int, nargs="+", choices=WIDTHS, default=list(WIDTHS),
+                    help="the hidden widths to measure")
     ap.add_argument("--json", help="also write the result here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA card")
     card = card_line()
     print(card, flush=True)
-    res = measure(torch.device("cuda", 0))
-    pair = res[f"{RAYS}x64"]["k4b_bare_ms"] + res[f"{RAYS}x128"]["k4b_bare_ms"]
-    print(f"[flex_split] K4b pair (64 + 128) bare launch {pair:.3f} ms", flush=True)
+    res = {}
+    for h in args.hidden:
+        res.update(measure(torch.device("cuda", 0), h))
+        at = "" if h == 256 else f"@{h}"
+        pair = res[f"{RAYS}x64{at}"]["k4b_bare_ms"] + res[f"{RAYS}x128{at}"]["k4b_bare_ms"]
+        print(f"[flex_split] K4b pair (64 + 128) at h = {h} bare launch {pair:.3f} ms", flush=True)
     line = json.dumps({"card": card, "cases": res})
     if args.json:
         with open(args.json, "w") as f:

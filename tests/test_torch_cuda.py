@@ -436,7 +436,13 @@ def test_flex_kernels_refuse_what_they_do_not_take(cuda_device):
     with pytest.raises(TypeError, match="float32"):
         F.fused_flex_forward(weights, ro.double(), rd, z, dc, v0, 3)
     with pytest.raises(ValueError, match="hidden layers"):
-        F.fused_flex_forward(weights, ro, rd, z, dc, v0, 9)
+        F.fused_flex_forward(weights, ro, rd, z, dc, v0, 9)  # 9 hidden layers' weights, 3 given
+    with pytest.raises(ValueError, match="n_hidden"):
+        F.fused_flex_forward(weights, ro, rd, z, dc, v0, -1)
+    for h in (128, 768):  # JAX's kernel takes 768; the port's kernels are built for 256 and 512
+        with pytest.raises(ValueError, match="hidden width 256 or 512"):
+            F.fused_flex_forward(weights, ro, rd, z, torch.zeros(64, h // 2, device=cuda_device),
+                                 torch.zeros(1, h, device=cuda_device), 3)
     f32_mats = tuple(w.float() for w in weights)
     with pytest.raises(ValueError, match="bfloat16"):
         F.fused_flex_forward(f32_mats, ro, rd, z, dc, v0, 3)
@@ -448,33 +454,75 @@ def test_flex_kernels_refuse_what_they_do_not_take(cuda_device):
 @pytest.mark.cuda
 def test_flex_entry_points_refuse_what_the_kernels_do_not_take(cuda_device):
     """The C entry points of K4f / K4b return cudaErrorInvalidValue (1) for
-    S outside 1..256 and for an S whose layout class the build does not
-    hold (the fixed build at S = 24 or 32): no S runs another S's layout.
-    Nothing is launched."""
+    S outside 1..256, for an S whose layout class the build does not hold
+    (the fixed build at S = 24 or 32), for a hidden width other than 256
+    and 512 and for n < 0: no S or width runs another's layout. Nothing is
+    launched."""
     import ctypes
 
-    from nerface_tpu_torch.ops.kernels import fused_flex as F
     from nerface_tpu_torch.ops.kernels.build import SAMPLE_CLASS_DEFINES, load_library
 
     out = torch.zeros(8, 4, device=cuda_device)
     null = ctypes.c_void_p(0)
     stream = ctypes.c_void_p(torch.cuda.current_stream(cuda_device).cuda_stream)
 
-    def fwd(lib, S):
+    def fwd(lib, S, h=256, n=3):
         # ray pointers are never read: the entry refuses before it launches
         return lib.nerface_fused_flex_fwd(null, null, null, null, null, null, ctypes.c_void_p(out.data_ptr()),
-                                          8, S, 10, 3, stream)
+                                          8, S, 10, n, h, stream)
 
     fixed = load_library("fused_flex", SAMPLE_CLASS_DEFINES["fixed"])
     runtime = load_library("fused_flex", SAMPLE_CLASS_DEFINES["any"])
-    for lib in (fixed, runtime):
-        for S in (0, -1, 257, 1000):
-            assert fwd(lib, S) == 1, S
-            assert lib.nerface_fused_flex_workspace_bytes(8, S, 3) == -1, S
-        assert lib.nerface_fused_flex_workspace_bytes(8, 24, F.MAX_HIDDEN + 1) == -1
-    assert fwd(fixed, 24) == 1 and fwd(fixed, 32) == 1
+    for h in (256, 512):
+        for lib in (fixed, runtime):
+            for S in (0, -1, 257, 1000):
+                assert fwd(lib, S, h) == 1, S
+                assert lib.nerface_fused_flex_workspace_bytes(8, S, 3, h) == -1, S
+            for bad in (0, 128, 384, 768, 1024):
+                assert fwd(lib, 64, bad) == 1 and fwd(lib, 24, bad) == 1, bad
+                assert lib.nerface_fused_flex_workspace_bytes(8, 64, 3, bad) == -1, bad
+            assert fwd(lib, 64, h, -1) == 1 and lib.nerface_fused_flex_workspace_bytes(8, 64, -1, h) == -1
+            assert lib.nerface_fused_flex_workspace_bytes(8, 24, 12, h) > 0  # any depth
+        assert fwd(fixed, 24, h) == 1 and fwd(fixed, 32, h) == 1
     torch.cuda.synchronize()
     assert torch.equal(out, torch.zeros_like(out))
+
+
+# K4f / K4b at hidden width 512 (the two consumer warpgroups share each
+# unit: csrc/fused_flex.cu's wide_chain_kernel / wide_dx_kernel) and at 12
+# hidden layers at both widths: (h, n, R, S); ragged passes, the runtime
+# layouts, one past one round of the 132-CTA grid (a CTA a round of one
+# item at 512).
+FLEX_WIDE_CASES = [(512, 3, 512, 64), (512, 3, 77, 128), (512, 3, 301, 24), (512, 3, 530, 1),
+                   (512, 3, 40, 256), (512, 0, 301, 32), (512, 12, 2085, 64), (512, 12, 267, 200),
+                   (256, 12, 2085, 64), (256, 12, 301, 24)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,n,R,S", FLEX_WIDE_CASES, ids=[f"h{h}_n{n}_{R}x{S}" for h, n, R, S in FLEX_WIDE_CASES])
+def test_flex_wide_and_deep_kernels_match_plain(cuda_device, h, n, R, S):
+    """The kernels against their plain versions within `flex_limit` /
+    `flex_grad_limits` (the tensor-core yardstick at n ≥ 8 and beside S =
+    32 / 64 / 128), each launch counted once, K4b bit-identical over two
+    launches."""
+    from nerface_tpu_torch.ops.kernels import fused_flex as F
+
+    params, v0 = flex_params(R + S + n, cuda_device, n_hidden=n, hidden=h)
+    ro, rd, z, _, _, _ = _inputs(R, S, cuda_device, seed=R + S + n)
+    dc = (torch.randn(R, h // 2, generator=torch.Generator().manual_seed(n)) * 0.3).to(cuda_device)
+    weights = F.pack_flex_weights(params, n, 10)
+    g = torch.randn(R, S, 4, generator=torch.Generator().manual_seed(S + n)).to(cuda_device)
+    args = (weights, ro, rd, z, dc, v0)
+    before = (F.fused_flex_forward.launches, F.fused_flex_backward.launches)
+    out = F.fused_flex_forward(*args, n)
+    grads = F.fused_flex_backward(*args, g, n)
+    grads2 = F.fused_flex_backward(*args, g, n)
+    torch.cuda.synchronize()
+    assert (F.fused_flex_forward.launches, F.fused_flex_backward.launches) == (before[0] + 1, before[1] + 2)
+    assert grads[1].shape == (1, h) and grads[2].shape == (R, h // 2)
+    flat, flat2 = grads[0] + grads[1:], grads2[0] + grads2[1:]
+    assert all(torch.equal(a, b) for a, b in zip(flat, flat2)), "not deterministic"
+    _assert_flex_close(out, flat, args, g, R, S, n)
 
 
 # -- the smaller model: K2 and K1 in their `small` mode -----------------------

@@ -263,26 +263,42 @@ def test_wrappers_on_cpu_are_the_plain_versions():
         F.fused_flex_forward(weights[:-1], *args[1:], NH)
 
 
+def cuda_offsets(src, h):
+    """`Offsets<h>`'s constants as written in csrc/fused_flex.cu."""
+    block = src[src.index(f"struct Offsets<{h}> {{"):]
+    block = block[:block.index("};")]
+    return {m.group(1): int(m.group(2))
+            for m in re.finditer(r"static constexpr int (F[WFT]_OFF_\w+) = (\d+);", block)}
+
+
 def test_offsets_match_cuda_source():
+    """`w_offsets` / `f_offsets` / `wt_offsets` at each width and depth
+    equal csrc/fused_flex.cu's `Offsets<h>` and `flex_layout`'s rule (the
+    WH_i, BH_i and WHT_i after them, h² or h apart, at any n)."""
     src = CU.read_text()
-    c = {m.group(1): int(m.group(2))
-         for m in re.finditer(r"constexpr int (F[WFT]_OFF_\w+|MAX_HIDDEN) = (\d+);", src)}
-    assert c["MAX_HIDDEN"] == F.MAX_HIDDEN
-    hh = H * H
-    for n in range(F.MAX_HIDDEN + 1):
-        wa = c["FW_OFF_WH"] + n * hh
-        want_w = {"W1": c["FW_OFF_W1"], "WF": c["FW_OFF_WF"], "WD0": c["FW_OFF_WD0"],
-                  "WA": wa, "WRGB": wa + H, "TOTAL": wa + H + 128 * 3}
-        want_w.update({f"WH{i}": c["FW_OFF_WH"] + i * hh for i in range(n)})
-        assert F.w_offsets(n) == want_w
-        want_f = {k: c[f"FF_OFF_{k}"] for k in ("V0", "BF", "BD0", "BA", "BRGB", "FREQS")}
-        want_f.update({f"BH{i}": c["FF_OFF_BH"] + i * H for i in range(n)})
-        want_f["TOTAL"] = c["FF_OFF_BH"] + n * H
-        assert F.f_offsets(n) == want_f
-        want_t = {"WD0T": c["FT_OFF_WD0T"], "WFT": c["FT_OFF_WFT"],
-                  "TOTAL": c["FT_OFF_WHT"] + n * hh}
-        want_t.update({f"WHT{i}": c["FT_OFF_WHT"] + i * hh for i in range(n)})
-        assert F.wt_offsets(n) == want_t
+    assert "MAX_HIDDEN" not in src and not hasattr(F, "MAX_HIDDEN")  # any depth
+    for h in F.WIDTHS:
+        c = cuda_offsets(src, h)
+        hh, dh = h * h, h // 2
+        for n in (0, 1, 3, 8, 9, 12):
+            wa = c["FW_OFF_WH"] + n * hh
+            want_w = {"W1": c["FW_OFF_W1"], "WF": c["FW_OFF_WF"], "WD0": c["FW_OFF_WD0"],
+                      "WA": wa, "WRGB": wa + h, "TOTAL": wa + h + dh * 3}
+            want_w.update({f"WH{i}": c["FW_OFF_WH"] + i * hh for i in range(n)})
+            assert F.w_offsets(n, h) == want_w
+            want_f = {k: c[f"FF_OFF_{k}"] for k in ("V0", "BF", "BD0", "BA", "BRGB", "FREQS")}
+            want_f.update({f"BH{i}": c["FF_OFF_BH"] + i * h for i in range(n)})
+            want_f["TOTAL"] = c["FF_OFF_BH"] + n * h
+            assert F.f_offsets(n, h) == want_f
+            want_t = {"WD0T": c["FT_OFF_WD0T"], "WFT": c["FT_OFF_WFT"],
+                      "TOTAL": c["FT_OFF_WHT"] + n * hh}
+            want_t.update({f"WHT{i}": c["FT_OFF_WHT"] + i * hh for i in range(n)})
+            assert F.wt_offsets(n, h) == want_t
+    layout = src[src.index("__host__ __device__ inline Layout flex_layout(int n) {"):]
+    layout = layout[:layout.index("return L;")]
+    for line in ("L.wa = OH::FW_OFF_WH + n * H * H;", "L.wrgb = L.wa + H;", "L.f_total = OH::FF_OFF_BH + n * H;",
+                 "L.part_cols = L.f_total + H + (H / 2) * 3;"):
+        assert line in layout, line
     # the wgmma chain K2 shares, K1's operand images and dW, reduce_rows
     for header in ("wgmma_chain.cuh", "paper_train.cuh", "wgmma_dw.cuh", "grad_tile.cuh"):
         assert f'#include "{header}"' in src, header
@@ -354,7 +370,8 @@ def test_eligibility():
     assert not ok(num_layers=6, skip_connect_every=3)  # a skip layer engages
     assert ok(num_layers=6, skip_connect_every=4)  # the would-be skip is the last layer
     assert not ok(use_viewdirs=False)
-    assert not ok(hidden_size=512)  # JAX admits it; the port's kernel is built for 256
+    assert ok(hidden_size=512) and ok(hidden_size=512, num_layers=13, skip_connect_every=13)  # h = 512, any depth
+    assert not ok(hidden_size=768)  # JAX admits it; the port's kernels are built for 256 and 512
     assert not ok(enc=EncodeSpec(10, False, True))
     assert not ok(num_encoding_fn_xyz=6)  # the model's width is not the encoding's
     assert not F.flex_fused_eligible(MODELS["ConditionalBlendshapePaperNeRFModel"](

@@ -158,12 +158,13 @@ def test_entry_points_take_exactly_the_kernels_domain():
     valid = code[code.index("bool valid("):code.index("}", code.index("bool valid("))]
     assert "n_samples >= 1 && n_samples <= MAX_SAMPLES" in valid
     assert code.count("UnitLayout::of(n_samples)") == 2
-    assert "dispatch_pass<Forward>(n_samples, 0, fa, " in code
-    assert "dispatch_pass<Backward>(n_samples, 0, fa, da, st)" in code
-    assert code.count("if (!valid(n_rays, n_samples, n_freqs, n_hidden)) return (int)cudaErrorInvalidValue;") == 2
+    assert "dispatch_pass<Forward>(n_samples, hidden == WIDE, fa, " in code
+    assert "dispatch_pass<Backward>(n_samples, hidden == WIDE, fa, da, st)" in code
+    assert code.count("if (!valid(n_rays, n_samples, n_freqs, n_hidden, hidden)) return (int)cudaErrorInvalidValue;") == 2
     assert not re.search(r"(?<!Unit)Schedule<", code)  # the fixed-S schedule is gone
     for fn in ("flex_chain_kernel", "flex_dx_kernel", "fwd_produce", "fwd_consume", "dx_produce", "dx_unit",
-               "dx_consume"):
+               "dx_consume", "wide_chain_kernel", "wide_dx_kernel", "wide_fwd_produce", "wide_fwd_consume",
+               "wide_dx_produce", "wide_dx_unit"):
         body = code[code.index(fn + "("):]
         assert "UnitSchedule<SF, 1>" in body[:body.index("\n}\n")], fn
     k5 = re.sub(r"//.*", "", (CSRC / "fused_resample.cu").read_text())

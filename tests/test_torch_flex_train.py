@@ -173,8 +173,9 @@ def test_step_matches_jax_value_and_grad(dtype, monkeypatch):
 
 
 def test_apply_model_dispatch(monkeypatch):
-    """bf16 + an eligible Flexible model → one K4 call; a skip layer
-    engaged, no view directions, or f32 → the model's own forward."""
+    """bf16 + an eligible Flexible model (hidden 256 or 512) → one K4 call;
+    a skip layer engaged, no view directions, hidden 768, or f32 → the
+    model's own forward."""
     calls = []
     real = pipeline.fused_flex_mlp
     monkeypatch.setattr(pipeline, "fused_flex_mlp", lambda *a, **k: calls.append(1) or real(*a, **k))
@@ -208,7 +209,9 @@ def test_apply_model_dispatch(monkeypatch):
     no_dirs = MODELS[NAME](**dict(KW, use_viewdirs=False))
     assert run(no_dirs, pe=None)[:2] == (0, 1)
     wide = MODELS[NAME](**dict(KW, hidden_size=512))
-    assert run(wide)[:2] == (0, 1)  # JAX's kernel takes 512; the port's does not
+    assert run(wide)[:2] == (1, 0)  # h = 512: K4
+    wider = MODELS[NAME](**dict(KW, hidden_size=768))
+    assert run(wider)[:2] == (0, 1)  # JAX's kernel takes 768; the port's do not
 
 
 def _train_cfg(basedir, logdir):

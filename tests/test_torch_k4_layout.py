@@ -96,24 +96,38 @@ def test_workspace_carve_matches_cuda_source():
     relu masks in `mask_buffers` order, then the partial rows and dW's
     segments; the masks' size and the grid's constants agree."""
     carve = CU[CU.index("size_t carve("):CU.index("// -- K4f and the recompute")]
-    order = re.findall(r"w\.(\w+)(?:\[i\])? = (img|bits|static_cast)", carve)
+    order = re.findall(r"w\.(\w+) = (img|imgs|bits|static_cast)", carve)
     names = [x[0] for x in order]
-    assert names == ["xin", "act", "feat", "x0", "gx0", "gfeat", "gpre", "ga0", "fmask", "amask", "warp_part",
+    assert names == ["xin", "act0", "feat", "x0", "gx0", "gfeat", "gpre0", "ga0", "fmask", "amask0", "warp_part",
                      "tile_part", "dw_part"]
-    widths = dict(re.findall(r"w\.(\w+)(?:\[i\])? = img\((\w+)\)", carve))
-    consts = {"K_XIN": F.K_XIN, "HIDDEN": H, "DIR_HIDDEN": D}
-    mirror = dict(F.workspace_buffers(3))
-    assert {"xin": mirror["xin"], "act": mirror["a0"], "feat": mirror["feat"], "x0": mirror["x0"],
-            "gx0": mirror["gx0"], "gfeat": mirror["gfeat"], "gpre": mirror["gpre0"],
-            "ga0": mirror["ga0"]} == {k: consts[v] for k, v in widths.items()}
+    # each buffer's width and count (a run of n + 1, n or 1), at h = 256 and 512
+    sizes = {k: (w, c or "1") for k, w, c in re.findall(r"w\.(\w+) = imgs?\(([\w.]+)(?:, ([\w. +]+))?\)", carve)}
+    assert re.findall(r"w\.(\w+) = bits\(([\w. ]+)\)", carve) == [("fmask", "1"), ("amask0", "L.n")]
+    for h, n in ((H, 3), (2 * H, 12)):
+        env = {"K_XIN": F.K_XIN, "L": type("L", (), {"h": h, "dh": h // 2, "n": n})}
+        mirror = dict(F.workspace_buffers(n, h))
+        runs = {"act0": [f"a{i}" for i in range(n + 1)], "gpre0": [f"gpre{i}" for i in range(n)]}
+        for k, (w, c) in sizes.items():
+            bufs = runs.get(k, [k])
+            assert eval(c, {}, env) == len(bufs), k
+            assert all(mirror[b] == eval(w, {}, env) for b in bufs), k
+        assert F.mask_buffers(n) == ("fmask",) + tuple(f"amask{i}" for i in range(1, n + 1))
     m = re.search(r"constexpr int MASK_BYTES = ([\w *+/]+);", CU).group(1)
-    assert eval(m, {}, consts) == F.MASK_BYTES
+    assert eval(m, {}, {"HIDDEN": H}) == F.mask_bytes(H)
+    m = re.search(r"constexpr int WIDE_MASK_BYTES = ([\w *+/]+);", CU).group(1)
+    assert eval(m, {}, {"WIDE": 2 * H}) == F.mask_bytes(2 * H)
+    assert "L.mask_bytes = 128 * H / 64 * 4;" in CU
     k1_ctas = re.search(r"constexpr int K1_CTAS = (\d+);", (CSRC / "paper_train.cuh").read_text()).group(1)
     assert int(k1_ctas) == F.FLEX_CTAS == T.K1_CTAS
     assert "int flex_ctas(int n_rays, int n_samples) { return k1::pass_ctas(n_rays, n_samples); }" in CU
     wave = re.search(r"constexpr int DWG_WAVE = (\d+);", (CSRC / "wgmma_dw.cuh").read_text()).group(1)
     assert int(wave) == F.DWG_WAVE
-    assert [F.dw_segments(n) for n in (0, 3, 8)] == [26, 12, 6]  # 132 / (5 + 2n)
+    assert [F.dw_segments(n) for n in (0, 3, 8, 12)] == [26, 12, 6, 4]  # 132 / (5 + 2n)
+    assert [F.dw_segments(n, 2 * H) for n in (0, 3, 10)] == [9, 3, 1]  # 132 / (14 + 8n)
+    wide = re.search(r"int wide_ctas\(int n_rays, int n_samples\) \{\n(.*?)\n\}", CU, re.S).group(1)
+    assert "k1::Geometry(n_samples).items(n_rays)" in wide and "k1::K1_CTAS" in wide
+    assert F.flex_ctas(2048, 64, 2 * H) == 132 and F.flex_ctas(100, 64, 2 * H) == 100
+    assert F.flex_ctas(2048, 64) == 132 and F.flex_ctas(100, 64) == 50
 
 
 @functools.lru_cache(maxsize=None)
@@ -138,7 +152,7 @@ def test_workspace_images_round_trip_every_buffer(R, S, n):
     widths = dict(F.workspace_buffers(n))
     for name, end in zip(names, ends):
         need = units * widths[name] * 128 if name in widths else (
-            units * F.MASK_BYTES if name in F.mask_buffers(n) else 0)
+            units * F.mask_bytes() if name in F.mask_buffers(n) else 0)
         assert end - offs[name] >= need, name
     g = torch.Generator().manual_seed(R + S + n)
     for name, width in F.workspace_buffers(n):
