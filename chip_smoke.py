@@ -219,6 +219,13 @@ Phases, one line each (plus the kernels' register reports):
                K4f / K4b also at hidden 512 (synth512_lcode_w512's trunk)
                for FLEX_W512_SAMPLE_CASES (S = 1 on 2072 rays, 24 / 192 /
                256 on 2048), the same limits and lost-unit control.
+     xyz_bands — K2, K3f, K1 and K3b of the paper model at 11, 16 and 20
+               xyz encoding bands (a K = 128 encoding, the kernels' runtime
+               layout class) and at 10 (the control, K = 64), at S = 64,
+               128 and 48 on 2048 and on 2072 rays (XYZ_CASES), one seed a
+               case, under [sample_counts]' limits and lost-unit control,
+               bit-identical over 2 launches; ms, plain ms and bound on the
+               2048-ray cases, and each time against the 10-band one.
      serve_64_128 — synth512_paper at 64 + 128 samples served as in phase
                4: K2 at S = 64 and 192, the frame against the f32 plain
                frame.
@@ -266,6 +273,18 @@ Phases, one line each (plus the kernels' register reports):
                and K3b once each, K1 never; every parameter with a
                gradient), then PAPER_TRAIN_STEPS steps of `train()`: K3f and
                K3b 30 times each, K1 never, K2 4 tiles × 2 validation frames.
+     pe16    — synth512_pe16 (SYNTH512_PE16: synth512_paper with 16 xyz
+               bands in both models) through the paper kernels at K = 128,
+               no bf16 pass on the plain path: 3 served 512² frames through
+               K2 and 3 at σ-noise 0.1 through K3f, each within
+               PE16_PLAIN_FRAME_* of the same frame through the kernel's
+               plain version and within PE16_FRAME_* of f32 (no bf16 path
+               holds [serve]'s limits at 16 bands: the plain version's own
+               frame reads the same); a bf16 step through
+               K1 against f32; PAPER_TRAIN_STEPS steps (the loss falls) and
+               the steady step; 20 steps windowed against step at a time,
+               bit for bit; the coarse-only variant's step against f32 and
+               PAPER_TRAIN_STEPS steps through K3f / K3b.
   8. flex_kernel — K4f `fused_flex_forward` and K4b `fused_flex_backward`
                (csrc/fused_flex.cu) against their plain versions on
                synth512_lcode's He-scaled weights, FLEX_SEEDS draws a case
@@ -465,6 +484,31 @@ for _node in SYNTH512_LCODE_W512["models"].values():
     _node["hidden_size"] = 512
 FLEX_WIDE = 512
 
+# synth512_paper with 16 xyz encoding bands in both models (dim_xyz 99):
+# past 10 bands the paper kernels read a K = 128 encoding (two 64-column
+# blocks) in their runtime layout class at every S, K2, K3, K1 alike; and
+# its coarse-only variant (K3f / K3b for every training pass)
+SYNTH512_PE16 = copy.deepcopy(SYNTH512_PAPER)
+for _node in SYNTH512_PE16["models"].values():
+    _node["num_encoding_fn_xyz"] = 16
+SYNTH512_PE16_COARSE = copy.deepcopy(SYNTH512_PAPER_COARSE)
+SYNTH512_PE16_COARSE["models"]["coarse"]["num_encoding_fn_xyz"] = 16
+# [pe16]'s served frames, levels of 8-bit rgb_fine (mean |diff|, max). At
+# 16 bands the fine pass's depths follow the coarse weights, and the 2^15
+# band turns what bf16 moves those weights into other colours: the plain
+# version's own bf16 frame reads 0.29 / 4–5 from f32 (0.36–0.38 / 5–6 at
+# σ-noise 0.1; on an H100 80GB HBM3), where [serve]'s 10-band frame reads
+# 0.10 / 1. No bf16 path holds
+# [serve]'s FRAME_MEAN / FRAME_MAX there, so a frame is held to the same
+# frame through K2's (or K3f's) plain version, the kernel's own
+# arithmetic, within PE16_PLAIN_FRAME_* (read 0.017–0.022 / 2: the plain
+# version's f32 sums, not the kernel's, place the fine samples), and to f32
+# within PE16_FRAME_*, fixed above the plain version's own readings.
+PE16_PLAIN_FRAME_MEAN = 0.05
+PE16_PLAIN_FRAME_MAX = 2
+PE16_FRAME_MEAN = 0.45
+PE16_FRAME_MAX = 7
+
 KERNEL_RAYS = 4096
 TILE_RAYS = 65536  # the validation chunksize: one tile of the main path
 FAR = 0.8
@@ -496,12 +540,15 @@ K1_FLOP_PER_SAMPLE = sum(2 * k * n for k, n in PAPER_FORWARD_KN + PAPER_DX_KN + 
 W5_FLOP = 2 * 256 * 256
 
 
-def paper_flop_per_sample(small, backward):
-    """The paper MLP's operations a sample: the forward (K2, K3f) or the
-    forward + dX + dW (K1, K3b)."""
+def paper_flop_per_sample(small, backward, bands=10):
+    """The paper MLP's operations a sample at `bands` xyz bands: the
+    forward (K2, K3f) or the forward + dX + dW (K1, K3b). Each band past 10
+    adds 6 input columns to layer 0 and to the skip layer, read by the
+    forward and by dW (dX reads no encoded column)."""
+    enc = 2 * 2 * 6 * (bands - 10) * 256
     if backward:
-        return K1_FLOP_PER_SAMPLE - (3 * W5_FLOP if small else 0)
-    return K2_FLOP_PER_SAMPLE - (W5_FLOP if small else 0)
+        return K1_FLOP_PER_SAMPLE - (3 * W5_FLOP if small else 0) + 2 * enc
+    return K2_FLOP_PER_SAMPLE - (W5_FLOP if small else 0) + enc
 
 
 # K1 against its plain version: each gradient tensor g against the plain
@@ -710,6 +757,31 @@ def flex_plain_version():
 
 
 @contextlib.contextmanager
+def paper_plain_version():
+    """K2's and K3f's wrappers replaced by their plain versions
+    (`fused_paper_render_reference` on the packed weights' state dict,
+    `fused_paper_mlp_reference`, on whatever device the tensors are), where
+    the render pipeline and K3's autograd.Function call them: a bf16 pass
+    through them has the kernels' roundings and torch's f32 sums, and
+    launches nothing."""
+    from nerface_tpu_torch.ops.kernels import fused_mlp as K
+    from nerface_tpu_torch.render import pipeline
+
+    k2, k3f = pipeline.fused_paper_render, K.fused_paper_mlp_forward
+
+    def plain_k2(params, *a, **k):
+        state = params.params if isinstance(params, K.PackedPaperWeights) else params
+        return K.fused_paper_render_reference(state, *a, **k)
+
+    pipeline.fused_paper_render = plain_k2
+    K.fused_paper_mlp_forward = lambda *a, **k: K.fused_paper_mlp_reference(*a, **k)
+    try:
+        yield
+    finally:
+        pipeline.fused_paper_render, K.fused_paper_mlp_forward = k2, k3f
+
+
+@contextlib.contextmanager
 def plain_paper_passes():
     """Counts, at the dispatch of every pass that no K2 call takes
     (`render.pipeline._apply_model`), the bf16 passes of a paper-family
@@ -800,9 +872,9 @@ def _chunked(fn, params, per_ray, cond, chunk=16384, **kw):
     return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
 
 
-def _paper_model(seed, dev, small=False):
+def _paper_model(seed, dev, small=False, bands=10):
     """A paper-family model (the smaller one with `small`) at the slice's
-    widths, its weights drawn from `seed`."""
+    widths and `bands` xyz encoding bands, its weights drawn from `seed`."""
     import torch
 
     from nerface_tpu_torch.models.nerf_models import (
@@ -811,7 +883,7 @@ def _paper_model(seed, dev, small=False):
     )
 
     cls = ConditionalBlendshapePaperSmallerNeRFModel if small else ConditionalBlendshapePaperNeRFModel
-    return cls(num_encoding_fn_xyz=10, num_encoding_fn_dir=4, include_input_dir=False,
+    return cls(num_encoding_fn_xyz=bands, num_encoding_fn_dir=4, include_input_dir=False,
                device=dev, generator=torch.Generator().manual_seed(seed))
 
 
@@ -1271,6 +1343,14 @@ def build_phase():
         phase("build", f"{label}: {secs:.1f} s ({lib.name}); ptxas: {' | '.join(info)}")
         phase("build", f"{label} wgmma serialisation (ptxas C75xx): "
                        f"{' | '.join(serial) if serial else 'none reported'}")
+        # the paper kernels' shared memory is the same at either encoding
+        # extent: a warpgroup's xin bytes hold two 8 KB buffers at K = 64 and
+        # one 16 KB buffer at K = 128
+        extents = " (at K = 64 and at K = 128 alike)"
+        if name == "fused_paper_render":
+            smem = (ctypes.c_longlong * 1)()
+            build.load_library(name, defines).nerface_fused_paper_render_shared_bytes(smem)
+            phase("build", f"{label} shared memory a CTA (dynamic): render_kernel {smem[0]} B{extents}")
         if name in ("fused_train_pass", "fused_paper_mlp"):
             smem = (ctypes.c_longlong * 3)()
             k = "train" if name == "fused_train_pass" else "paper_mlp"
@@ -1278,7 +1358,7 @@ def build_phase():
             sizes = ([] if k == "train" else [f"mlp_fwd_kernel {smem[0]} B"]) + [
                 f"train_pass_kernel {smem[k != 'train']} B",
                 f"dw_wgmma_kernel {smem[1 + (k != 'train')]} B"]
-            phase("build", f"{label} shared memory a CTA (dynamic): {', '.join(sizes)}")
+            phase("build", f"{label} shared memory a CTA (dynamic): {', '.join(sizes)}{extents}")
         if name == "fused_flex":
             smem = (ctypes.c_longlong * 5)()
             build.load_library(name, defines).nerface_fused_flex_shared_bytes(smem)
@@ -1309,30 +1389,37 @@ def _train_kernel_inputs(n_rays, n_samples, gen, dev):
     return ro, rd.contiguous(), z, tgt, bg, noise, pe_dir, cond
 
 
-def _k2_bytes(n_rays, n_samples, with_weights):
-    from nerface_tpu_torch.ops.kernels.fused_mlp import F_OFFSETS, W_OFFSETS
+def _w_total(bands=10):
+    """Elements of the packed weights at `bands` xyz bands."""
+    from nerface_tpu_torch.ops.kernels.fused_mlp import w_offsets, xin_extent
+
+    return w_offsets(xin_extent(bands))["TOTAL"]
+
+
+def _k2_bytes(n_rays, n_samples, with_weights, bands=10):
+    from nerface_tpu_torch.ops.kernels.fused_mlp import F_OFFSETS
 
     per_ray_in = 4 * (3 + 3 + 3 + 128 + n_samples)  # ro rd bg dir_c z
     per_ray_out = 4 * (3 + 4 + (n_samples if with_weights else 0))  # rgb, 4 maps, weights
-    return n_rays * (per_ray_in + per_ray_out) + 2 * W_OFFSETS["TOTAL"] + 4 * F_OFFSETS["TOTAL"]
+    return n_rays * (per_ray_in + per_ray_out) + 2 * _w_total(bands) + 4 * F_OFFSETS["TOTAL"]
 
 
-def _k1_bytes(n_rays, n_samples):
-    from nerface_tpu_torch.ops.kernels.fused_mlp import F_OFFSETS, W_OFFSETS
+def _k1_bytes(n_rays, n_samples, bands=10):
+    from nerface_tpu_torch.ops.kernels.fused_mlp import F_OFFSETS
     from nerface_tpu_torch.ops.kernels.fused_mlp import WT_OFFSETS
 
     per_ray_in = 4 * (3 + 3 + 3 + 3 + 128 + 2 * n_samples)  # ro rd target bg dir_c z noise
     per_ray_out = 4 * (3 + n_samples + 128)  # rgb, weights, d_dir
-    weights = 2 * (W_OFFSETS["TOTAL"] + WT_OFFSETS["TOTAL"]) + 4 * F_OFFSETS["TOTAL"]
-    grads = 4 * (W_OFFSETS["TOTAL"] + F_OFFSETS["TOTAL"])
+    weights = 2 * (_w_total(bands) + WT_OFFSETS["TOTAL"]) + 4 * F_OFFSETS["TOTAL"]
+    grads = 4 * (_w_total(bands) + F_OFFSETS["TOTAL"])
     return n_rays * (per_ray_in + per_ray_out) + weights + grads
 
 
-def _k1_params(seed, dev, small=False):
+def _k1_params(seed, dev, small=False, bands=10):
     """He-scaled random weights of one paper-family model."""
     from nerface_tpu_torch.tools.perf.cases import he_scale
 
-    model = _paper_model(seed, dev, small)
+    model = _paper_model(seed, dev, small, bands)
     he_scale(model)
     return {k: v.detach() for k, v in model.named_parameters()}
 
@@ -1519,18 +1606,18 @@ def train_kernel_phase(dev, small=False):
     return result
 
 
-def _k3_bytes(n_rays, n_samples, backward):
+def _k3_bytes(n_rays, n_samples, backward, bands=10):
     """The bytes K3f / K3b must move: each input read once (rays, depths,
     dir_c, the packed weights; g and the transposed weights for K3b), each
     output written once ((R, S, 4); the gradients and d_dir for K3b)."""
-    from nerface_tpu_torch.ops.kernels.fused_mlp import F_OFFSETS, W_OFFSETS, WT_OFFSETS
+    from nerface_tpu_torch.ops.kernels.fused_mlp import F_OFFSETS, WT_OFFSETS
 
     rays = n_rays * 4 * (3 + 3 + n_samples + 128)
     samples = n_rays * n_samples * 4 * 4  # (R, S, 4) f32: the output, or g
-    weights = 2 * W_OFFSETS["TOTAL"] + 4 * F_OFFSETS["TOTAL"]
+    weights = 2 * _w_total(bands) + 4 * F_OFFSETS["TOTAL"]
     if not backward:
         return rays + samples + weights
-    grads = 4 * (W_OFFSETS["TOTAL"] + F_OFFSETS["TOTAL"]) + n_rays * 4 * 128
+    grads = 4 * (_w_total(bands) + F_OFFSETS["TOTAL"]) + n_rays * 4 * 128
     return rays + samples + weights + 2 * WT_OFFSETS["TOTAL"] + grads
 
 
@@ -1793,8 +1880,9 @@ def _k2_readings(got, ref, tc, rows, S):
     return out
 
 
-def _sample_control(S, control):
-    """The readings of one S in [sample_counts] above their base limit
+def _sample_control(S, control, name="sample_counts", label=None):
+    """The readings of one S in [sample_counts] (or in phase `name`, the
+    case `label`) above their base limit
     (`k1_grad_limits`, K3_OUT_TOL, [kernel]'s) and within the limit applied,
     and a modelled fault: one 64-row unit lost (`lost_unit_rows`; K2 and
     K3f outputs, K3b cotangents). Checks, seed by seed, that wherever the
@@ -1821,14 +1909,15 @@ def _sample_control(S, control):
         if by_base and not by_limit:
             missed.append(f"{k} seed {seed}")
     cells = "; ".join(f"{k} s{seed} {b}/{a}" for (k, seed), (b, a) in sorted(caught.items()))
-    phase("sample_counts",
-          f"S={S}: {len(decided)} of {len(control)} readings above their base limit, within the limit "
+    label = label or f"S={S}"
+    phase(name,
+          f"{label}: {len(decided)} of {len(control)} readings above their base limit, within the limit "
           f"applied ({by_kernel})"
           + (f", the largest kernel / tensor-core ratio {ratio(top):.3f} ({top['kernel']} {top['name']} "
              f"seed {top['seed']} {top['kind']})" if top else "")
           + f"; one 64-row unit lost, readings caught by the base limits / by the limits applied "
             f"(K3b, K4b: their dW tensors): {cells}")
-    check(not missed, f"S={S}: a lost unit that the base limits catch passes the limits applied: "
+    check(not missed, f"{label}: a lost unit that the base limits catch passes the limits applied: "
                       + ", ".join(missed))
     return {"decided": len(decided), "readings": len(control),
             "largest_ratio": top and (ratio(top), top["kernel"], top["name"], top["seed"], top["kind"]),
@@ -1985,6 +2074,131 @@ def _resample_grid(dev):
     return res
 
 
+def _paper_sample_case(S, R, dev, params, packed, rows, control, bands=10, seeds=SAMPLE_SEEDS, timed=True,
+                       label=None):
+    """K2, K3f, K3b and K1 of the paper model at S samples a ray on R rays
+    and `bands` xyz bands, each against its plain version under
+    [sample_counts]' limits (`sample_counts_phase`): K2 on the weights
+    `params` (`packed` for the kernel), K3 and K1 on `seeds` draws of
+    `_k1_params`; every reading and its lost-unit fault (`rows`) appended
+    to `control` (`_sample_control`); Σ_rays d_dir within DIR_SUM_TOL of
+    d_bd0. With `timed`, each through its wrapper beside its plain version
+    and its operations bound. Returns (k2, k3f, k1, k3b, dir_sum)."""
+    import torch
+
+    from nerface_tpu_torch.ops.kernels import fused_mlp as K
+    from nerface_tpu_torch.ops.kernels import fused_train as T
+
+    label = label or f"S={S}"
+    names = _bundle_names(False)
+    kb = dict(num_encoding_fn_xyz=bands)
+    f_fwd, f_bwd = paper_flop_per_sample(False, False, bands), paper_flop_per_sample(False, True, bands)
+    # K2, as [kernel]: weights out, a background and none
+    ro, rd, z, dc, cond, bg = _kernel_inputs(R, S, torch.Generator().manual_seed(SEED + S + 1000 * (bands - 10)), dev)
+    k2 = {"rays": R, "max_abs_err": 0.0}
+    for bg_kind in ("background", "none"):
+        kw = dict(background=bg if bg_kind == "background" else None, out_weights=True, num_encoding_fn_xyz=bands)
+        got = K.fused_paper_render(packed, ro, rd, z, dc, cond, **kw)
+        torch.cuda.synchronize()
+        ref = K.fused_paper_render_reference(params, ro, rd, z, dc, cond, **kw)
+        tc = tensor_core_plain(lambda: K.fused_paper_render_reference(params, ro, rd, z, dc, cond, **kw))
+        check(float(got["acc"][:2].abs().max()) == 0.0, f"K2 {label}: rd = 0 rays have acc != 0")
+        for k, (e, e_tc, f) in _k2_readings(got, ref, tc, rows, S).items():
+            base = K2_MAP_LIMITS[k][0]
+            lim = tc_limit(base, e_tc)
+            check(e <= lim, f"K2 {label} {bg_kind}: {k} err {e} > {lim} (base {base}, the plain version "
+                            f"on the tensor cores {e_tc:.3g})")
+            control.append(dict(kernel="K2", name=f"{k}/{bg_kind}", seed=0, kind="abs", value=e, tc=e_tc,
+                                base=base, limit=lim, fault=f))
+            if not K2_MAP_LIMITS[k][1]:
+                k2["max_abs_err"] = max(k2["max_abs_err"], e)
+        del got, ref, tc
+    kw = dict(background=bg, out_weights=True, num_encoding_fn_xyz=bands)
+    if timed:
+        k2.update(
+            ms=_median_ms(lambda: K.fused_paper_render(packed, ro, rd, z, dc, cond, **kw)),
+            plain_ms=_median_ms(lambda: K.fused_paper_render_reference(params, ro, rd, z, dc, cond, **kw),
+                                1, 3),
+            bound_ms=_bound_ms(R * S * f_fwd, _k2_bytes(R, S, True, bands))[0])
+    k3f, k1, k3b = ({"rays": R, "out_rel": 0.0, "tc_rel": 0.0, "max_abs_err": 0.0},
+                    {"rays": R, "worst": {}, "max_abs_err": 0.0}, {"rays": R, "worst": {}, "max_abs_err": 0.0})
+    dir_sum = 0.0
+    for i in range(seeds):
+        p = _k1_params(SEED + 23 + 100 * i, dev, bands=bands)
+        gen = torch.Generator().manual_seed(SEED + 24 + 100 * i + S)
+        ro, rd, z, tgt, bg, noise, pe_dir, cond = _train_kernel_inputs(R, S, gen, dev)
+        bundle = [t.contiguous() for t in T.prefold_paper_params(p, cond, pe_dir, bands)]
+        # K3f and K3b
+        out = K.fused_paper_mlp_forward(bundle, ro, rd, z, **kb)
+        torch.cuda.synchronize()
+        ref = K.fused_paper_mlp_reference(bundle, ro, rd, z, **kb)
+        # the yardstick of [flex_kernel]: the plain version on the tensor
+        # cores, the same bf16 operands summed in the kernel's way
+        tc = tensor_core_plain(lambda: K.fused_paper_mlp_reference(bundle, ro, rd, z, **kb))
+        lost = _without_rows(ref, rows)
+        for part, sl in (("rgb", slice(0, 3)), ("sigma", slice(3, 4))):
+            e, e_tc, f = (rel_err(x[..., sl], ref[..., sl])[0] for x in (out, tc, lost))
+            lim = tc_limit(K3_OUT_TOL, e_tc)
+            check(e <= lim, f"K3f {label} seed {i}: {part} max err {e:.3g}·max > {lim:.3g} "
+                            f"(the plain version on the tensor cores: {e_tc:.3g}·max)")
+            control.append(dict(kernel="K3f", name=part, seed=i, kind="max", value=e, tc=e_tc,
+                                base=K3_OUT_TOL, limit=lim, fault=f))
+            k3f["out_rel"], k3f["tc_rel"] = max(k3f["out_rel"], e), max(k3f["tc_rel"], e_tc)
+        g = torch.randn(R, S, 4, generator=gen).to(dev)
+        grads = K.fused_paper_mlp_backward(bundle, ro, rd, z, g, **kb)
+        grads2 = K.fused_paper_mlp_backward(bundle, ro, rd, z, g, **kb)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(grads, grads2)),
+              f"K3b {label} seed {i}: two launches gave different gradients")
+        rgrads = K.fused_paper_mlp_backward_reference(bundle, ro, rd, z, g, **kb)
+        tcg = tensor_core_plain(lambda: K.fused_paper_mlp_backward_reference(bundle, ro, rd, z, g, **kb))
+        fault = K.fused_paper_mlp_backward_reference(bundle, ro, rd, z, _without_rows(g, rows), **kb)
+        k3b["max_abs_err"] = max(k3b["max_abs_err"], _grad_readings(
+            f"K3b {label} seed {i}", "K3b", R, names, grads, rgrads, k3b["worst"], tcg,
+            control=control, fault_grads=fault, seed=i))
+        dir_sum = max(dir_sum, _dir_sum_error(grads, names))
+        if i == 0 and timed:
+            k3f.update(
+                ms=_median_ms(lambda: K.fused_paper_mlp_forward(bundle, ro, rd, z, **kb)),
+                plain_ms=_median_ms(lambda: K.fused_paper_mlp_reference(bundle, ro, rd, z, **kb), 1, 3),
+                bound_ms=_bound_ms(R * S * f_fwd, _k3_bytes(R, S, False, bands))[0])
+            k3b.update(
+                ms=_median_ms(lambda: K.fused_paper_mlp_backward(bundle, ro, rd, z, g, **kb), iters=10),
+                plain_ms=_median_ms(lambda: K.fused_paper_mlp_backward_reference(bundle, ro, rd, z, g, **kb),
+                                    1, 3),
+                bound_ms=_bound_ms(R * S * f_bwd, _k3_bytes(R, S, True, bands))[0])
+        k3f["max_abs_err"] = max(k3f["max_abs_err"], float((out - ref).abs().max()))
+        del out, ref, tc, lost, grads, grads2, rgrads, tcg, fault
+        # K1: σ-noise and a background, as [train_kernel]'s passes (at
+        # S = 1 the one sample is the background's: rgb is the
+        # background and every gradient 0, which K1 must give too)
+        kw = dict(loss_scale=2.0 / (3.0 * R), background=bg, noise=noise, noise_std=0.1, **kb)
+        args = (bundle, ro, rd, z, tgt)
+        got, grads, _ = T.fused_train_pass(*args, **kw)
+        _, grads2, _ = T.fused_train_pass(*args, **kw)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(grads, grads2)),
+              f"K1 {label} seed {i}: two launches gave different gradients")
+        ref, rgrads, _ = T.fused_train_pass_reference(*args, **kw)
+        for k in ("rgb", "weights"):
+            e = float((got[k] - ref[k]).abs().max())
+            check(e <= 2e-3, f"K1 {label} seed {i}: {k} max abs err {e} > 2e-3")
+            k1["max_abs_err"] = max(k1["max_abs_err"], e)
+        _grad_readings(f"K1 {label} seed {i}", "K1", R, names, grads, rgrads, k1["worst"])
+        dir_sum = max(dir_sum, _dir_sum_error(grads, names))
+        if i == 0 and timed:
+            k1.update(ms=_median_ms(lambda: T.fused_train_pass(*args, **kw), iters=10),
+                      plain_ms=_median_ms(lambda: T.fused_train_pass_reference(*args, **kw), 1, 3),
+                      bound_ms=_bound_ms(R * S * f_bwd, _k1_bytes(R, S, bands))[0])
+        del got, ref, grads, grads2, rgrads
+    check(dir_sum <= DIR_SUM_TOL, f"{label}: Σ d_dir vs d_bd0 {dir_sum:.2e} > {DIR_SUM_TOL}")
+    for r in (k1, k3b):
+        w = r.pop("worst")
+        r["worst_max"] = max(w.items(), key=lambda kv: kv[1][0])
+        r["worst_norm"] = max(w.items(), key=lambda kv: kv[1][1])
+    return k2, k3f, k1, k3b, dir_sum
+
+
 def sample_counts_phase(dev):
     """K2, K3f, K1 and K3b of the paper model at every (S, rays) of
     SAMPLE_CASES (the kernels take S at run time: whole rays in 64-row
@@ -2007,123 +2221,19 @@ def sample_counts_phase(dev):
     import torch
 
     from nerface_tpu_torch.ops.kernels import fused_mlp as K
-    from nerface_tpu_torch.ops.kernels import fused_train as T
     from nerface_tpu_torch.tools.perf.cases import he_scale
 
-    names = _bundle_names(False)
     res = {k: {} for k in ("K2", "K3f", "K1", "K3b", "K4f", "K4b", "control", "K4f_512", "K4b_512", "control_512")}
     model = _paper_model(SEED + 21, dev)
     he_scale(model)
     params = model.state_dict()
     packed = K.pack_paper_weights(params)
-    f_fwd, f_bwd = paper_flop_per_sample(False, False), paper_flop_per_sample(False, True)
     for S, R in SAMPLE_CASES:
         rays, units = K.unit_layout(S)
         rows = lost_unit_rows(R, S)
         control = []
-        # K2, as [kernel]: weights out, a background and none
-        ro, rd, z, dc, cond, bg = _kernel_inputs(R, S, torch.Generator().manual_seed(SEED + S), dev)
-        k2 = {"rays": R, "max_abs_err": 0.0}
-        for bg_kind in ("background", "none"):
-            kw = dict(background=bg if bg_kind == "background" else None, out_weights=True)
-            got = K.fused_paper_render(packed, ro, rd, z, dc, cond, **kw)
-            torch.cuda.synchronize()
-            ref = K.fused_paper_render_reference(params, ro, rd, z, dc, cond, **kw)
-            tc = tensor_core_plain(lambda: K.fused_paper_render_reference(params, ro, rd, z, dc, cond, **kw))
-            check(float(got["acc"][:2].abs().max()) == 0.0, f"K2 S={S}: rd = 0 rays have acc != 0")
-            for k, (e, e_tc, f) in _k2_readings(got, ref, tc, rows, S).items():
-                base = K2_MAP_LIMITS[k][0]
-                lim = tc_limit(base, e_tc)
-                check(e <= lim, f"K2 S={S} {bg_kind}: {k} err {e} > {lim} (base {base}, the plain version "
-                                f"on the tensor cores {e_tc:.3g})")
-                control.append(dict(kernel="K2", name=f"{k}/{bg_kind}", seed=0, kind="abs", value=e, tc=e_tc,
-                                    base=base, limit=lim, fault=f))
-                if not K2_MAP_LIMITS[k][1]:
-                    k2["max_abs_err"] = max(k2["max_abs_err"], e)
-            del got, ref, tc
-        kw = dict(background=bg, out_weights=True)
-        k2.update(
-            ms=_median_ms(lambda: K.fused_paper_render(packed, ro, rd, z, dc, cond, **kw)),
-            plain_ms=_median_ms(lambda: K.fused_paper_render_reference(params, ro, rd, z, dc, cond, **kw),
-                                1, 3),
-            bound_ms=_bound_ms(R * S * f_fwd, _k2_bytes(R, S, True))[0])
+        k2, k3f, k1, k3b, dir_sum = _paper_sample_case(S, R, dev, params, packed, rows, control)
         res["K2"][S] = k2
-        k3f, k1, k3b = ({"rays": R, "out_rel": 0.0, "tc_rel": 0.0, "max_abs_err": 0.0},
-                        {"rays": R, "worst": {}, "max_abs_err": 0.0}, {"rays": R, "worst": {}, "max_abs_err": 0.0})
-        dir_sum = 0.0
-        for i in range(SAMPLE_SEEDS):
-            p = _k1_params(SEED + 23 + 100 * i, dev)
-            gen = torch.Generator().manual_seed(SEED + 24 + 100 * i + S)
-            ro, rd, z, tgt, bg, noise, pe_dir, cond = _train_kernel_inputs(R, S, gen, dev)
-            bundle = [t.contiguous() for t in T.prefold_paper_params(p, cond, pe_dir, 10)]
-            # K3f and K3b
-            out = K.fused_paper_mlp_forward(bundle, ro, rd, z)
-            torch.cuda.synchronize()
-            ref = K.fused_paper_mlp_reference(bundle, ro, rd, z)
-            # the yardstick of [flex_kernel]: the plain version on the tensor
-            # cores, the same bf16 operands summed in the kernel's way
-            tc = tensor_core_plain(lambda: K.fused_paper_mlp_reference(bundle, ro, rd, z))
-            lost = _without_rows(ref, rows)
-            for part, sl in (("rgb", slice(0, 3)), ("sigma", slice(3, 4))):
-                e, e_tc, f = (rel_err(x[..., sl], ref[..., sl])[0] for x in (out, tc, lost))
-                lim = tc_limit(K3_OUT_TOL, e_tc)
-                check(e <= lim, f"K3f S={S} seed {i}: {part} max err {e:.3g}·max > {lim:.3g} "
-                                f"(the plain version on the tensor cores: {e_tc:.3g}·max)")
-                control.append(dict(kernel="K3f", name=part, seed=i, kind="max", value=e, tc=e_tc,
-                                    base=K3_OUT_TOL, limit=lim, fault=f))
-                k3f["out_rel"], k3f["tc_rel"] = max(k3f["out_rel"], e), max(k3f["tc_rel"], e_tc)
-            g = torch.randn(R, S, 4, generator=gen).to(dev)
-            grads = K.fused_paper_mlp_backward(bundle, ro, rd, z, g)
-            grads2 = K.fused_paper_mlp_backward(bundle, ro, rd, z, g)
-            torch.cuda.synchronize()
-            check(all(torch.equal(a, b) for a, b in zip(grads, grads2)),
-                  f"K3b S={S} seed {i}: two launches gave different gradients")
-            rgrads = K.fused_paper_mlp_backward_reference(bundle, ro, rd, z, g)
-            tcg = tensor_core_plain(lambda: K.fused_paper_mlp_backward_reference(bundle, ro, rd, z, g))
-            fault = K.fused_paper_mlp_backward_reference(bundle, ro, rd, z, _without_rows(g, rows))
-            k3b["max_abs_err"] = max(k3b["max_abs_err"], _grad_readings(
-                f"K3b S={S} seed {i}", "K3b", R, names, grads, rgrads, k3b["worst"], tcg,
-                control=control, fault_grads=fault, seed=i))
-            dir_sum = max(dir_sum, _dir_sum_error(grads, names))
-            if i == 0:
-                k3f.update(
-                    ms=_median_ms(lambda: K.fused_paper_mlp_forward(bundle, ro, rd, z)),
-                    plain_ms=_median_ms(lambda: K.fused_paper_mlp_reference(bundle, ro, rd, z), 1, 3),
-                    bound_ms=_bound_ms(R * S * f_fwd, _k3_bytes(R, S, False))[0])
-                k3b.update(
-                    ms=_median_ms(lambda: K.fused_paper_mlp_backward(bundle, ro, rd, z, g), iters=10),
-                    plain_ms=_median_ms(lambda: K.fused_paper_mlp_backward_reference(bundle, ro, rd, z, g),
-                                        1, 3),
-                    bound_ms=_bound_ms(R * S * f_bwd, _k3_bytes(R, S, True))[0])
-            k3f["max_abs_err"] = max(k3f["max_abs_err"], float((out - ref).abs().max()))
-            del out, ref, tc, lost, grads, grads2, rgrads, tcg, fault
-            # K1: σ-noise and a background, as [train_kernel]'s passes (at
-            # S = 1 the one sample is the background's: rgb is the
-            # background and every gradient 0, which K1 must give too)
-            kw = dict(loss_scale=2.0 / (3.0 * R), background=bg, noise=noise, noise_std=0.1)
-            args = (bundle, ro, rd, z, tgt)
-            got, grads, _ = T.fused_train_pass(*args, **kw)
-            _, grads2, _ = T.fused_train_pass(*args, **kw)
-            torch.cuda.synchronize()
-            check(all(torch.equal(a, b) for a, b in zip(grads, grads2)),
-                  f"K1 S={S} seed {i}: two launches gave different gradients")
-            ref, rgrads, _ = T.fused_train_pass_reference(*args, **kw)
-            for k in ("rgb", "weights"):
-                e = float((got[k] - ref[k]).abs().max())
-                check(e <= 2e-3, f"K1 S={S} seed {i}: {k} max abs err {e} > 2e-3")
-                k1["max_abs_err"] = max(k1["max_abs_err"], e)
-            _grad_readings(f"K1 S={S} seed {i}", "K1", R, names, grads, rgrads, k1["worst"])
-            dir_sum = max(dir_sum, _dir_sum_error(grads, names))
-            if i == 0:
-                k1.update(ms=_median_ms(lambda: T.fused_train_pass(*args, **kw), iters=10),
-                          plain_ms=_median_ms(lambda: T.fused_train_pass_reference(*args, **kw), 1, 3),
-                          bound_ms=_bound_ms(R * S * f_bwd, _k1_bytes(R, S))[0])
-            del got, ref, grads, grads2, rgrads
-        check(dir_sum <= DIR_SUM_TOL, f"S={S}: Σ d_dir vs d_bd0 {dir_sum:.2e} > {DIR_SUM_TOL}")
-        for r in (k1, k3b):
-            w = r.pop("worst")
-            r["worst_max"] = max(w.items(), key=lambda kv: kv[1][0])
-            r["worst_norm"] = max(w.items(), key=lambda kv: kv[1][1])
         res["K3f"][S], res["K1"][S], res["K3b"][S] = k3f, k1, k3b
         phase("sample_counts",
               f"S={S} ({rays} ray{'s' if rays > 1 else ''} in {units} unit{'s' if units > 1 else ''} an "
@@ -2180,6 +2290,81 @@ def sample_counts_phase(dev):
         phase("sample_counts", f"{k} ms / (S / 64 × the S = 64 time, per ray): {', '.join(cells)} "
                                f"(predicted 0.75–1.25)")
     res["K5"] = _resample_grid(dev)
+    return res
+
+
+# [xyz_bands]: the paper kernels at 11..20 xyz bands (a K = 128 encoding,
+# the runtime layout class at any S), 10 the control (K = 64, the fixed
+# classes at S = 64 / 128), at the paper schedule's S = 64 and 128 and the
+# runtime S = 48 (4 rays in 3 units, 64 padding rows an item), on whole
+# (2048) and ragged (2072) ray counts; one seed a case, timed on the
+# 2048-ray cases. Not S = 192: there a pass has ≈ 400k sample rows, and a
+# lost 64-row unit moves K3b's dW sums by about sqrt(64 / rows) ≈ 1.3 % of
+# their size, inside their bf16 flips, so `_sample_control` cannot hold
+# (at 16 bands on 2072 rays the base limits caught the lost unit in some
+# of K3b's readings, the limits applied in none); the card tests run S =
+# 192 at 16 bands.
+XYZ_BANDS = (10, 11, 16, 20)
+XYZ_CASES = ((64, TRAIN_RAYS), (128, TRAIN_RAYS), (48, TRAIN_RAYS), (64, SAMPLE_RAGGED_RAYS),
+             (128, SAMPLE_RAGGED_RAYS), (48, SAMPLE_RAGGED_RAYS))
+XYZ_SEEDS = 1
+
+
+def xyz_bands_phase(dev):
+    """K2, K3f, K1 and K3b of the paper model at every band count of
+    XYZ_BANDS and every (S, rays) of XYZ_CASES, each against its plain
+    version under [sample_counts]' limits (`_paper_sample_case`: K2's maps,
+    K3f within K3_OUT_TOL·max, K1 `k1_grad_limits`, K3b `k3b_grad_limits`,
+    each where flips reach past them within FLEX_TC_FACTOR × the
+    tensor-core yardstick; bit-identical over 2 launches; Σ d_dir against
+    d_bd0), the lost 64-row unit caught wherever the base limits catch it
+    (`_sample_control`), and timed beside the plain version and the
+    operations bound on the 2048-ray cases. Returns {kernel: {"L{L}_S{S}_R{R}":
+    {...}}} and the time ratios against 10 bands."""
+    import torch
+
+    from nerface_tpu_torch.ops.kernels import fused_mlp as K
+    from nerface_tpu_torch.tools.perf.cases import he_scale
+
+    t0 = time.perf_counter()
+    res = {k: {} for k in ("K2", "K3f", "K1", "K3b", "control")}
+    for L in XYZ_BANDS:
+        model = _paper_model(SEED + 31 + L, dev, bands=L)
+        he_scale(model)
+        params = model.state_dict()
+        packed = K.pack_paper_weights(params, L)
+        for S, R in XYZ_CASES:
+            key, label = f"L{L}_S{S}_R{R}", f"L={L} S={S} R={R}"
+            control = []
+            k2, k3f, k1, k3b, dir_sum = _paper_sample_case(
+                S, R, dev, params, packed, lost_unit_rows(R, S), control, bands=L, seeds=XYZ_SEEDS,
+                timed=R == TRAIN_RAYS, label=label)
+            for k, r in (("K2", k2), ("K3f", k3f), ("K1", k1), ("K3b", k3b)):
+                res[k][key] = dict(r, bands=L, samples=S, kx=K.xin_extent(L))
+            times = "".join(f"; {k} {r['ms']:.3f} ms, plain {r['plain_ms']:.3f}, bound {r['bound_ms']:.3f}"
+                            for k, r in (("K2", k2), ("K3f", k3f), ("K1", k1), ("K3b", k3b)) if "ms" in r)
+            (m1, (m1_v, _)), (m3, (m3_v, _)) = k1["worst_max"], k3b["worst_max"]
+            phase("xyz_bands",
+                  f"{label} (K = {K.xin_extent(L)}): K2 max abs err {k2['max_abs_err']:.3g}, K3f "
+                  f"{k3f['out_rel']:.2e}·max (the tensor cores' own {k3f['tc_rel']:.2e}), K1 worst grad {m1} "
+                  f"{m1_v:.4f}·max, K3b worst grad {m3} {m3_v:.4f}·max, within [sample_counts]' limits; K1 "
+                  f"and K3b bit-identical over 2 launches; Σ d_dir vs d_bd0 {dir_sum:.2e}{times}")
+            res["control"][key] = _sample_control(S, control, "xyz_bands", label)
+            torch.cuda.empty_cache()
+    # the prediction written in PERF.md before the run: past 10 bands each
+    # kernel's time at the same (S, rays) is 1.0–1.3 × its 10-band time
+    ratios = {}
+    for k in ("K2", "K3f", "K1", "K3b"):
+        for S, R in XYZ_CASES:
+            if R != TRAIN_RAYS:
+                continue
+            base = res[k][f"L10_S{S}_R{R}"]["ms"]
+            ratios[f"{k}_S{S}"] = {L: res[k][f"L{L}_S{S}_R{R}"]["ms"] / base for L in XYZ_BANDS[1:]}
+    phase("xyz_bands", "ms / the 10-band ms at the same S and rays (predicted 1.0–1.3): " + "; ".join(
+        f"{c} " + ", ".join(f"L={L} {v:.2f}" for L, v in r.items()) for c, r in ratios.items()))
+    res["ratio_to_10_bands"] = ratios
+    res["seconds"] = time.perf_counter() - t0
+    phase("xyz_bands", f"the phase took {res['seconds']:.1f} s")
     return res
 
 
@@ -4582,6 +4767,140 @@ def flex_w512_phase(dev, ds, tmp, card):
     return _flex_config_phase(dev, ds, tmp, card, SYNTH512_LCODE_W512, "flex_w512", FLEX_W512_FRAME_MEAN)
 
 
+def _window_vs_step(dev, ds, tmp, cfg_dict, name, wrappers, plain_passes, family,
+                    steps=FLEX_64_128_WINDOW_STEPS, k=FLEX_64_128_WINDOW_K):
+    """`steps` bf16 steps of `cfg_dict` windowed (K = k, CUDA-graph
+    replays) and one step at a time from the same seed: the last
+    checkpoint and the printed lines equal bit for bit, no bf16 pass of the
+    model family on the plain path (`plain_passes`), and the last of
+    `wrappers` (the family's backward kernel) called. Returns {K: run}: its
+    seconds, checkpoint, printed lines and `wrappers`' launch counts."""
+    import glob
+
+    import torch
+
+    from nerface_tpu_torch.config import CfgNode
+    from nerface_tpu_torch.train.loop import train
+
+    runs = {}
+    for kk in (k, 1):
+        d = copy.deepcopy(cfg_dict)
+        w = os.path.join(tmp, f"{name}_window_{kk}")
+        d["experiment"].update(logdir=w, train_iters=steps, print_every=10, validate_every=1000,
+                               save_every=steps // 2, steps_per_execute=kk)
+        for fn in wrappers:
+            fn.launches = 0
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text), plain_passes() as plain:
+            train(CfgNode(d), dataset=ds, dtype=torch.bfloat16, device=dev)
+        torch.cuda.synchronize()
+        out_text = text.getvalue()
+        window = re.search(r"execution window: (\d+) steps", out_text)
+        check((int(window.group(1)) if window else 1) == kk, f"{name}: the run at K = {kk} took another window")
+        ckpts = sorted(glob.glob(os.path.join(w, "**", "checkpoint*.ckpt"), recursive=True))
+        runs[kk] = {"s": time.perf_counter() - t0, "plain": plain[0], "ckpt": ckpts[-1],
+                    "launches": tuple(fn.launches for fn in wrappers),
+                    "lines": re.findall(_TRAIN_LINE, out_text) + re.findall(_VAL_LINE, out_text)}
+        check(runs[kk]["plain"] == 0 and runs[kk]["launches"][-1] > 0,
+              f"{name}: K = {kk}: plain bf16 {family} passes {runs[kk]['plain']}, wrapper calls "
+              f"{runs[kk]['launches']}")
+    a, b = runs[k], runs[1]
+    differ = _differ(_ckpt_tensors(a["ckpt"]), _ckpt_tensors(b["ckpt"]))
+    check(os.path.basename(a["ckpt"]) == os.path.basename(b["ckpt"]) and not differ,
+          f"{name}: windowed vs step at a time differ in {differ[:5]} ({a['ckpt']}, {b['ckpt']})")
+    check(a["lines"] == b["lines"] and len(a["lines"]) > steps // 10,
+          f"{name}: the printed lines differ: {a['lines'][:3]} vs {b['lines'][:3]}")
+    return runs
+
+
+def _serve_against_plain_and_f32(dev, tmp, card, cfg_dict, name, seed, kernel, others, plain_passes,
+                                 plain_version, plain_limits, f32_limits, what, about):
+    """A 512² avatar of `cfg_dict` (He-scaled weights from `seed`) served in
+    bf16 through `serve_jsonl`: 3 frames, the forward kernel's wrapper
+    `kernel` (`what`) launched 2 × tiles a frame and none of `others`, no
+    bf16 pass on the model's plain forward (`plain_passes`); each frame
+    within `plain_limits` (mean, max |diff| levels) of the same frame
+    through the kernel's plain version (`plain_version`: the same bf16
+    roundings, torch's f32 sums) and within `f32_limits` of the same
+    model's f32 plain frame, the plain version's own frame against f32
+    beside it (the bf16 roundings' share). Returns the launches, frame_ms
+    and those readings."""
+    import numpy as np
+    import torch
+
+    from nerface_tpu_torch.config import CfgNode
+    from nerface_tpu_torch.data.synthetic import synthetic_flame_dataset
+    from nerface_tpu_torch.serve import AvatarServer
+
+    cfg = CfgNode(cfg_dict)
+    sc, sf = cfg.nerf.validation.num_coarse, cfg.nerf.validation.num_fine
+    sds = synthetic_flame_dataset(H=512, W=512, n_train=8, n_val=2, n_test=2, seed=SEED)
+    ckpt = _save_avatar(cfg, sds, os.path.join(tmp, f"{name}.ckpt"), seed)
+    server = AvatarServer(cfg, ckpt, dataset=sds, dtype=torch.bfloat16, device=dev, log=False)
+    tiles = -(-server.H * server.W // min(server.settings.chunksize, server.H * server.W))
+    maps = ["rgb_fine", "disp", "normals"]
+    frames = [(0, 0), (1, 1), (0, 2)]
+    requests = ([{"cmd": "ping"}] + [{"frame": f, "seed": sd, "maps": maps} for f, sd in frames]
+                + [{"cmd": "stop"}])
+    out = io.StringIO()
+    for fn in (kernel,) + tuple(others):
+        fn.launches = 0
+    with plain_passes() as plain:
+        handled = server.serve_jsonl(io.StringIO("\n".join(map(json.dumps, requests)) + "\n"), out)
+        served = kernel.launches
+        replies = [json.loads(line) for line in out.getvalue().splitlines()]
+        check(handled == len(requests) and all(r.get("ok") is True for r in replies), f"{name}: {replies}")
+        check(served == 2 * tiles * len(frames) and all(fn.launches == 0 for fn in others),
+              f"{name}: {what} {served} (want 2 x {tiles} x {len(frames)}), the others "
+              f"{[fn.launches for fn in others]} (want 0)")
+        frame_ms = [r["frame_ms"] for r in replies if "frame_ms" in r]
+        imgs = [server.render(frame=f, seed=sd, maps=("rgb_fine",))["rgb_fine"] for f, sd in frames]
+        serve_plain = plain[0]
+    check(serve_plain == 0, f"{name}: {serve_plain} bf16 passes served on the plain path")
+    del server
+    cfg_ref = CfgNode(cfg_dict)
+    cfg_ref.nerf.validation["chunksize"] = 8192  # bounds the plain activations
+    before = kernel.launches
+    vs_f32, vs_plain = [], []
+    bg = (np.clip(sds.load_background(), 0.0, 1.0) * 255.0).astype(np.int16)
+    with plain_version():
+        ref_server = AvatarServer(cfg_ref, ckpt, dataset=sds, dtype=torch.bfloat16, device=dev, log=False)
+        plain_imgs = [ref_server.render(frame=f, seed=sd, maps=("rgb_fine",))["rgb_fine"] for f, sd in frames]
+    ref_server = AvatarServer(cfg_ref, ckpt, dataset=sds, dtype=None, device=dev, log=False)
+    plain_vs_f32 = []  # the plain version's own frame against f32: the bf16 roundings' share
+    shows = []  # levels off the background, and the frame's spread
+    for (f, sd), img, pimg in zip(frames, imgs, plain_imgs):
+        ref = ref_server.render(frame=f, seed=sd, maps=("rgb_fine",))["rgb_fine"]
+        shows.append((float(np.abs(img.astype(np.int16) - bg).mean()), float(img.std())))
+        own = np.abs(pimg.astype(np.int16) - ref.astype(np.int16))
+        plain_vs_f32.append((float(own.mean()), int(own.max())))
+        for against, out in ((pimg, vs_plain), (ref, vs_f32)):
+            diff = np.abs(img.astype(np.int16) - against.astype(np.int16))
+            out.append((float(diff.mean()), int(diff.max())))
+    check(kernel.launches == before, f"{name}: the plain frames launched {what}")
+    del ref_server
+    phase(name, f"{len(frames)} frames ({about}) at 512x512 via serve_jsonl ({sc} + {sf} samples: {what} at S "
+                f"= {sc} and {sc + sf}), frame_ms {frame_ms} on {card}, {what} launches {served} = 2 x {tiles} "
+                f"tiles x {len(frames)}, plain bf16 passes 0; each frame, mean / max |diff| levels, vs {what}'s "
+                f"plain version's {[(round(m, 4), x) for m, x in vs_plain]} (limits {plain_limits[0]}, "
+                f"{plain_limits[1]}), vs the f32 plain frame {[(round(m, 4), x) for m, x in vs_f32]} (limits "
+                f"{f32_limits[0]}, {f32_limits[1]}); the plain version's own frame vs f32 "
+                f"{[(round(m, 4), x) for m, x in plain_vs_f32]}; mean |frame - background| and std levels "
+                f"{[(round(o, 2), round(d, 2)) for o, d in shows]}")
+    for (f, sd), (off_bg, spread), a, b in zip(frames, shows, vs_plain, vs_f32):
+        check(off_bg >= 10.0 and spread >= 10.0,
+              f"{name}: frame {f} {off_bg} levels off the background, std {spread}: the MLP shows little")
+        for (mean, mx), (lim_mean, lim_max), against in ((a, plain_limits, "plain version"),
+                                                         (b, f32_limits, "f32 plain path")):
+            check(mx <= lim_max and mean <= lim_mean,
+                  f"{name}: frame {f} seed {sd} vs the {against}: mean {mean}, max {mx} (limits {lim_mean}, "
+                  f"{lim_max})")
+    torch.cuda.empty_cache()
+    return {"launches": served, "frame_ms": frame_ms, "vs_plain_version_levels": vs_plain,
+            "vs_f32_levels": vs_f32, "plain_version_vs_f32_levels": plain_vs_f32, "tiles": tiles}
+
+
 def _flex_config_phase(dev, ds, tmp, card, cfg_dict, name, f32_mean=FRAME_MEAN):
     """A Flexible-family config `cfg_dict` end to end on the card: every
     bf16 pass through K4f / K4b and none left to the model's plain forward
@@ -4595,81 +4914,22 @@ def _flex_config_phase(dev, ds, tmp, card, cfg_dict, name, f32_mean=FRAME_MEAN):
     beside the frame's; FLEX_64_128_WINDOW_STEPS steps windowed (K =
     FLEX_64_128_WINDOW_K, CUDA-graph replays) against step at a time, the
     last checkpoint and the printed lines bit for bit."""
-    import glob
-
-    import numpy as np
     import torch
 
     from nerface_tpu_torch.config import CfgNode
-    from nerface_tpu_torch.data.synthetic import synthetic_flame_dataset
     from nerface_tpu_torch.ops.kernels import fused_flex as F
     from nerface_tpu_torch.ops.kernels.fused_mlp import fused_paper_render
     from nerface_tpu_torch.ops.kernels.fused_train import fused_train_pass
-    from nerface_tpu_torch.serve import AvatarServer
     from nerface_tpu_torch.train.loop import train
 
     t_phase = time.perf_counter()
     cfg = CfgNode(cfg_dict)
+    sv = _serve_against_plain_and_f32(
+        dev, tmp, card, cfg_dict, name, SEED + 12, F.fused_flex_forward, (F.fused_flex_backward, fused_paper_render),
+        plain_flex_passes, flex_plain_version, (FLEX_PLAIN_FRAME_MEAN, FLEX_FRAME_MAX), (f32_mean, FRAME_MAX), "K4f",
+        f"hidden {cfg.models.coarse.hidden_size}")
+    served, frame_ms = sv["launches"], sv["frame_ms"]
     sc, sf = cfg.nerf.validation.num_coarse, cfg.nerf.validation.num_fine
-    sds = synthetic_flame_dataset(H=512, W=512, n_train=8, n_val=2, n_test=2, seed=SEED)
-    ckpt = _save_avatar(cfg, sds, os.path.join(tmp, f"{name}.ckpt"), SEED + 12)
-    server = AvatarServer(cfg, ckpt, dataset=sds, dtype=torch.bfloat16, device=dev, log=False)
-    tiles = -(-server.H * server.W // min(server.settings.chunksize, server.H * server.W))
-    maps = ["rgb_fine", "disp", "normals"]
-    frames = [(0, 0), (1, 1), (0, 2)]
-    requests = ([{"cmd": "ping"}] + [{"frame": f, "seed": sd, "maps": maps} for f, sd in frames]
-                + [{"cmd": "stop"}])
-    out = io.StringIO()
-    F.fused_flex_forward.launches = F.fused_flex_backward.launches = fused_paper_render.launches = 0
-    with plain_flex_passes() as plain:
-        handled = server.serve_jsonl(io.StringIO("\n".join(map(json.dumps, requests)) + "\n"), out)
-        served = F.fused_flex_forward.launches
-        replies = [json.loads(line) for line in out.getvalue().splitlines()]
-        check(handled == len(requests) and all(r.get("ok") is True for r in replies), f"{name}: {replies}")
-        check(served == 2 * tiles * len(frames) and F.fused_flex_backward.launches == 0
-              and fused_paper_render.launches == 0,
-              f"{name}: K4f {served} (want 2 x {tiles} x {len(frames)}), K4b "
-              f"{F.fused_flex_backward.launches}, K2 {fused_paper_render.launches}")
-        frame_ms = [r["frame_ms"] for r in replies if "frame_ms" in r]
-        imgs = [server.render(frame=f, seed=sd, maps=("rgb_fine",))["rgb_fine"] for f, sd in frames]
-        serve_plain = plain[0]
-    check(serve_plain == 0, f"{name}: {serve_plain} bf16 flex passes served on the plain path")
-    del server
-    cfg_ref = CfgNode(cfg_dict)
-    cfg_ref.nerf.validation["chunksize"] = 8192  # bounds the plain activations
-    before = F.fused_flex_forward.launches
-    vs_f32, vs_plain = [], []
-    bg = (np.clip(sds.load_background(), 0.0, 1.0) * 255.0).astype(np.int16)
-    with flex_plain_version():
-        ref_server = AvatarServer(cfg_ref, ckpt, dataset=sds, dtype=torch.bfloat16, device=dev, log=False)
-        plain_imgs = [ref_server.render(frame=f, seed=sd, maps=("rgb_fine",))["rgb_fine"] for f, sd in frames]
-    ref_server = AvatarServer(cfg_ref, ckpt, dataset=sds, dtype=None, device=dev, log=False)
-    plain_vs_f32 = []  # the plain version's own frame against f32: the bf16 roundings' share
-    for (f, sd), img, pimg in zip(frames, imgs, plain_imgs):
-        ref = ref_server.render(frame=f, seed=sd, maps=("rgb_fine",))["rgb_fine"]
-        off_bg, spread = float(np.abs(img.astype(np.int16) - bg).mean()), float(img.std())
-        check(off_bg >= 10.0 and spread >= 10.0,
-              f"{name}: frame {f} {off_bg} levels off the background, std {spread}: the MLP shows little")
-        own = np.abs(pimg.astype(np.int16) - ref.astype(np.int16))
-        plain_vs_f32.append((float(own.mean()), int(own.max())))
-        for against, lim_mean, lim_max, out in ((pimg, FLEX_PLAIN_FRAME_MEAN, FLEX_FRAME_MAX, vs_plain),
-                                                 (ref, f32_mean, FRAME_MAX, vs_f32)):
-            diff = np.abs(img.astype(np.int16) - against.astype(np.int16))
-            check(int(diff.max()) <= lim_max and float(diff.mean()) <= lim_mean,
-                  f"{name}: frame {f} seed {sd} vs the {'plain version' if out is vs_plain else 'f32 plain path'}: "
-                  f"mean {float(diff.mean())}, max {int(diff.max())} (limits {lim_mean}, {lim_max})")
-            out.append((float(diff.mean()), int(diff.max())))
-    check(F.fused_flex_forward.launches == before, f"{name}: the plain frames launched K4f")
-    del ref_server
-    h = cfg.models.coarse.hidden_size
-    phase(name, f"{len(frames)} frames (hidden {h}) at 512x512 via serve_jsonl ({sc} + {sf} samples: K4f at S "
-                f"= {sc} and {sc + sf}), frame_ms {frame_ms} on {card}, K4f launches {served} = 2 x {tiles} tiles "
-                f"x {len(frames)}, plain bf16 flex passes 0; each frame, mean / max |diff| levels, vs K4f's "
-                f"plain version's {[(round(m, 4), x) for m, x in vs_plain]} (limits {FLEX_PLAIN_FRAME_MEAN}, "
-                f"{FLEX_FRAME_MAX}), vs the f32 plain frame {[(round(m, 4), x) for m, x in vs_f32]} (limits "
-                f"{f32_mean}, "
-                f"{FRAME_MAX}); the plain version's own frame vs f32 {[(round(m, 4), x) for m, x in plain_vs_f32]}")
-    torch.cuda.empty_cache()
 
     with plain_flex_passes() as plain:
         step = train_step_phase(dev, ds, cfg_dict, name)
@@ -4713,47 +4973,81 @@ def _flex_config_phase(dev, ds, tmp, card, cfg_dict, name, f32_mean=FRAME_MEAN):
                 f"{statistics.median(frame_ms):.2f} (median of {len(frame_ms)}); on {card}")
     del state
 
-    runs = {}
-    for k in (FLEX_64_128_WINDOW_K, 1):
-        d = copy.deepcopy(cfg_dict)
-        w = os.path.join(tmp, f"{name}_window_{k}")
-        d["experiment"].update(logdir=w, train_iters=FLEX_64_128_WINDOW_STEPS, print_every=10,
-                               validate_every=1000, save_every=FLEX_64_128_WINDOW_STEPS // 2,
-                               steps_per_execute=k)
-        F.fused_flex_forward.launches = F.fused_flex_backward.launches = 0
-        text = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(text), plain_flex_passes() as plain:
-            train(CfgNode(d), dataset=ds, dtype=torch.bfloat16, device=dev)
-        torch.cuda.synchronize()
-        out_text = text.getvalue()
-        window = re.search(r"execution window: (\d+) steps", out_text)
-        check((int(window.group(1)) if window else 1) == k, f"{name}: the run at K = {k} took another window")
-        ckpts = sorted(glob.glob(os.path.join(w, "**", "checkpoint*.ckpt"), recursive=True))
-        runs[k] = {"s": time.perf_counter() - t0, "plain": plain[0], "ckpt": ckpts[-1],
-                   "k4": (F.fused_flex_forward.launches, F.fused_flex_backward.launches),
-                   "lines": re.findall(_TRAIN_LINE, out_text) + re.findall(_VAL_LINE, out_text)}
-        check(runs[k]["plain"] == 0 and runs[k]["k4"][1] > 0,
-              f"{name}: K = {k}: plain bf16 flex passes {runs[k]['plain']}, K4 wrapper calls {runs[k]['k4']}")
+    runs = _window_vs_step(dev, ds, tmp, cfg_dict, name, (F.fused_flex_forward, F.fused_flex_backward),
+                           plain_flex_passes, "flex")
     a, b = runs[FLEX_64_128_WINDOW_K], runs[1]
-    differ = _differ(_ckpt_tensors(a["ckpt"]), _ckpt_tensors(b["ckpt"]))
-    check(os.path.basename(a["ckpt"]) == os.path.basename(b["ckpt"]) and not differ,
-          f"{name}: windowed vs step at a time differ in {differ[:5]} ({a['ckpt']}, {b['ckpt']})")
-    check(a["lines"] == b["lines"] and len(a["lines"]) > FLEX_64_128_WINDOW_STEPS // 10,
-          f"{name}: the printed lines differ: {a['lines'][:3]} vs {b['lines'][:3]}")
     seconds = time.perf_counter() - t_phase
     phase(name, f"{FLEX_64_128_WINDOW_STEPS} bf16 steps windowed (K = {FLEX_64_128_WINDOW_K}, {a['s']:.1f} s) "
                 f"vs step at a time ({b['s']:.1f} s): {os.path.basename(a['ckpt'])} bit for bit, "
-                f"{len(a['lines'])} printed lines equal; K4f / K4b wrapper calls {a['k4']} / {b['k4']}, plain "
+                f"{len(a['lines'])} printed lines equal; K4f / K4b wrapper calls {a['launches']} / {b['launches']}, plain "
                 f"bf16 flex passes 0 / 0; the phase took {seconds:.1f} s on {card}")
     # launches: the frames served, the bf16 step's two passes, train() and the two window runs
-    return {"serve_launches": served, "frame_ms": frame_ms, "vs_f32_levels": vs_f32,
-            "vs_plain_version_levels": vs_plain, "plain_version_vs_f32_levels": plain_vs_f32, "step_vs_f32": step,
-            "k4f_launches": served + 2 + k4f + sum(r["k4"][0] for r in runs.values()),
-            "k4b_launches": 2 + k4b + sum(r["k4"][1] for r in runs.values()),
+    return {"serve_launches": served, "frame_ms": frame_ms, "vs_f32_levels": sv["vs_f32_levels"],
+            "vs_plain_version_levels": sv["vs_plain_version_levels"],
+            "plain_version_vs_f32_levels": sv["plain_version_vs_f32_levels"], "step_vs_f32": step,
+            "k4f_launches": served + 2 + k4f + sum(r["launches"][0] for r in runs.values()),
+            "k4b_launches": 2 + k4b + sum(r["launches"][1] for r in runs.values()),
             "loss_printed": printed, "train_s": wall, "step_ms": step_ms,
             "window": {"windowed_s": a["s"], "step_s": b["s"], "ckpt": os.path.basename(a["ckpt"])},
             "seconds": seconds}
+
+
+def pe16_phase(dev, ds, tmp, card):
+    """synth512_pe16 (SYNTH512_PE16: synth512_paper with 16 xyz bands in
+    both models, dim_xyz 99, the kernels' K = 128 encoding) end to end on
+    the card, no bf16 paper pass left to the plain forward
+    (`plain_paper_passes`): 3 served 512² frames through K2 and 3 at
+    σ-noise 0.1 through K3f, each within PE16_PLAIN_FRAME_* of the same
+    frame through the kernel's plain version and within PE16_FRAME_* of
+    its f32 plain frame; a bf16 step through K1 against the f32 step
+    ([train_step]'s limits); PAPER_TRAIN_STEPS steps of `train()` through K1
+    (the printed loss falls) and the steady step; FLEX_64_128_WINDOW_STEPS
+    steps windowed against step at a time, bit for bit; the coarse-only
+    variant (SYNTH512_PE16_COARSE) through K3f / K3b: a step against f32
+    and PAPER_TRAIN_STEPS steps."""
+    from nerface_tpu_torch.ops.kernels.fused_mlp import (
+        fused_paper_mlp_backward,
+        fused_paper_mlp_forward,
+        fused_paper_render,
+    )
+    from nerface_tpu_torch.ops.kernels.fused_train import fused_train_pass
+
+    t0 = time.perf_counter()
+    limits = (PE16_PLAIN_FRAME_MEAN, PE16_PLAIN_FRAME_MAX), (PE16_FRAME_MEAN, PE16_FRAME_MAX)
+    sv = _serve_against_plain_and_f32(dev, tmp, card, SYNTH512_PE16, "pe16", SEED + 8, fused_paper_render,
+                                      (fused_paper_mlp_forward, fused_paper_mlp_backward), plain_paper_passes,
+                                      paper_plain_version, *limits, "K2", "16 xyz bands")
+    noisy = copy.deepcopy(SYNTH512_PE16)
+    noisy["nerf"]["validation"]["radiance_field_noise_std"] = 0.1
+    nf = _serve_against_plain_and_f32(dev, tmp, card, noisy, "pe16", SEED + 9, fused_paper_mlp_forward,
+                                      (fused_paper_render, fused_paper_mlp_backward), plain_paper_passes,
+                                      paper_plain_version, *limits, "K3f", "16 xyz bands, σ-noise 0.1")
+    with plain_paper_passes() as plain:
+        step = train_step_phase(dev, ds, SYNTH512_PE16, "pe16")
+        tr = train_phase(dev, ds, tmp, False, card, SYNTH512_PE16, PAPER_TRAIN_STEPS, "pe16")
+        cstep = train_step_phase(dev, ds, SYNTH512_PE16_COARSE, "pe16")
+        ctr = train_phase(dev, ds, tmp, False, card, SYNTH512_PE16_COARSE, PAPER_TRAIN_STEPS, "pe16_coarse")
+    check(plain[0] == 0, f"pe16: {plain[0]} bf16 paper passes trained on the plain path")
+    runs = _window_vs_step(dev, ds, tmp, SYNTH512_PE16, "pe16", (fused_paper_render, fused_train_pass),
+                           plain_paper_passes, "paper")
+    a, b = runs[FLEX_64_128_WINDOW_K], runs[1]
+    seconds = time.perf_counter() - t0
+    phase("pe16", f"{FLEX_64_128_WINDOW_STEPS} bf16 steps windowed (K = {FLEX_64_128_WINDOW_K}, {a['s']:.1f} s) "
+                  f"vs step at a time ({b['s']:.1f} s): {os.path.basename(a['ckpt'])} bit for bit, "
+                  f"{len(a['lines'])} printed lines equal; K2 / K1 wrapper calls {a['launches']} / "
+                  f"{b['launches']}; plain bf16 paper passes 0 in every part of the phase; the phase took "
+                  f"{seconds:.1f} s on {card}")
+    launches = {
+        "K2": sv["launches"] + tr["launches"]["K2"] + ctr["launches"]["K2"]
+        + sum(r["launches"][0] for r in runs.values()),
+        "K1": 2 + tr["launches"]["K1"] + sum(r["launches"][1] for r in runs.values()),
+        "K3f": nf["launches"] + 1 + ctr["launches"]["K3f"],
+        "K3b": 1 + ctr["launches"]["K3b"],
+    }
+    return {"serve": sv, "noisy_frame": nf, "step_vs_f32": step, "train": tr, "coarse_step_vs_f32": cstep,
+            "coarse_train": ctr, "window": {"windowed_s": a["s"], "step_s": b["s"],
+                                            "ckpt": os.path.basename(a["ckpt"])},
+            "launches": launches, "seconds": seconds}
 
 
 def _print_profile(name, prof, n, wall, unit, DeviceType, what=""):
@@ -5398,6 +5692,7 @@ def main() -> int:
         tks = train_kernel_phase(dev, small=True)
         pk = paper_mlp_kernel_phase(dev)
         sc = sample_counts_phase(dev)
+        xb = xyz_bands_phase(dev)
         ds = _train_dataset()
         ts = train_step_phase(dev, ds)
         tr = train_phase(dev, ds, tmp, args.profile, card)
@@ -5416,6 +5711,7 @@ def main() -> int:
         cs = train_step_phase(dev, ds, SYNTH512_PAPER_COARSE, "coarse_train")
         ct = train_phase(dev, ds, tmp, args.profile, card, SYNTH512_PAPER_COARSE,
                          PAPER_TRAIN_STEPS, "coarse_train")
+        p16 = pe16_phase(dev, ds, tmp, card)
         fk = flex_kernel_phase(dev)
         du = flex_dead_units_phase(dev)
         fs = flex_serve_phase(dev, tmp, args.profile)
@@ -5453,7 +5749,8 @@ def main() -> int:
             # the frames of the four serving paths and of the eval entry point
             "launches": s["launches"] + ss["launches"] + fe["launches"] + oc["launches"]
             + sum(m["launches"] for m in ev["modes"].values()) + su["launches"]["K2"]
-            + dd_k2 + sh_k2 + rn["launches"]["K2"] + s128["launches"] + rn64["launches"]["K2"],
+            + dd_k2 + sh_k2 + rn["launches"]["K2"] + s128["launches"] + rn64["launches"]["K2"]
+            + p16["launches"]["K2"],
             "launches_by_path": {"serve": s["launches"], "smaller_serve": ss["launches"],
                                  "serve_64_128": s128["launches"],
                                  "fast_serve": fe["launches"],
@@ -5468,7 +5765,9 @@ def main() -> int:
                                  "ddp_train": dd_k2, "sharded_serve": sh_k2,
                                  # the demo's validations and its two evaluations
                                  "reenact": rn["launches"]["K2"],
-                                 "reenact_64": rn64["launches"]["K2"]},
+                                 "reenact_64": rn64["launches"]["K2"],
+                                 # synth512_pe16: 3 served frames, validations and window runs
+                                 "pe16": p16["launches"]["K2"]},
             "kernel_runs_by_path": {"window_train": wt_k2_runs, "eval_parity": ev["runs"]},
             "max_abs_err": max(errs),
             # one coarse (S=64, weights) + one fine (S=128) call on 4096 rays
@@ -5514,6 +5813,13 @@ def main() -> int:
             "client_round_trip_ms_512": s["client"]["round_trip_ms"],
             # [sample_counts]: SAMPLE_CASES' rays at each S through the wrapper
             "by_sample_count": sc["K2"],
+            # [xyz_bands]: 10 / 11 / 16 / 20 bands at each (S, rays) of XYZ_CASES,
+            # and synth512_pe16's frames against f32
+            "by_xyz_bands": xb["K2"],
+            "pe16_frame_ms_512": p16["serve"]["frame_ms"],
+            "pe16_vs_plain_version_levels": p16["serve"]["vs_plain_version_levels"],
+            "pe16_vs_f32_levels": p16["serve"]["vs_f32_levels"],
+            "pe16_plain_version_vs_f32_levels": p16["serve"]["plain_version_vs_f32_levels"],
             "card": card,
         },
         {
@@ -5524,14 +5830,15 @@ def main() -> int:
             "modes": ["paper", "small"],
             "launches": tr["launches"]["K1"] + st["launches"]["K1"] + wt_k1
             + ev["train"]["launches"]["K1"] + su["launches"]["K1"] + dd_k1
-            + rn["launches"]["K1"] + rn64["launches"]["K1"],
+            + rn["launches"]["K1"] + rn64["launches"]["K1"] + p16["launches"]["K1"],
             "launches_by_path": {"train": tr["launches"]["K1"],
                                  "smaller_train": st["launches"]["K1"],
                                  "window_train": wt_k1,
                                  "eval_train": ev["train"]["launches"]["K1"],
                                  "supervised_train": su["launches"]["K1"],
                                  "ddp_train": dd_k1, "reenact": rn["launches"]["K1"],
-                                 "reenact_64": rn64["launches"]["K1"]},
+                                 "reenact_64": rn64["launches"]["K1"],
+                                 "pe16": p16["launches"]["K1"]},
             "kernel_runs_by_path": {"window_train": wt_k1_runs},
             "max_abs_err": max(v for r in (tk, tks) for e in r["err"].values() for v in e.values()),
             # a train step's two passes: coarse (S=64) + fine (S=128), 2048 rays
@@ -5585,6 +5892,11 @@ def main() -> int:
             "step_vs_f32": ts,
             # [sample_counts]: SAMPLE_CASES' rays at each S through the wrapper
             "by_sample_count": sc["K1"],
+            # [xyz_bands], and synth512_pe16's step against f32, steady step and window
+            "by_xyz_bands": xb["K1"],
+            "pe16_step_vs_f32": p16["step_vs_f32"],
+            "pe16_train_step_ms": p16["train"]["step_ms"],
+            "pe16_window": p16["window"],
             "build": bd,  # nvcc seconds and train_pass_kernel instantiations
             "card": card,
         },
@@ -5595,9 +5907,11 @@ def main() -> int:
             "replaces": "nerface_tpu/ops/pallas/fused_mlp.py:234",
             "modes": ["paper", "small"],
             # the paths through K3f: coarse-only training and the σ-noise frame
-            "launches": ct["launches"]["K3f"] + nf["launches"],
+            "launches": ct["launches"]["K3f"] + nf["launches"] + p16["launches"]["K3f"],
             "launches_by_path": {"coarse_train": ct["launches"]["K3f"],
-                                 "noisy_frame": nf["launches"]},
+                                 "noisy_frame": nf["launches"],
+                                 # its σ-noise frame and the coarse-only variant's step and train()
+                                 "pe16": p16["launches"]["K3f"]},
             "max_abs_err": pk["abs_err"],  # of raw rgb and σ, all cases
             "max_rel_err": pk["err"],  # relative to max|plain| per case
             # the coarse-only training pass: 2048 rays at S = 64
@@ -5622,6 +5936,10 @@ def main() -> int:
             "noisy_frame_ms_512": nf["frame_ms"],
             # [sample_counts]: SAMPLE_CASES' rays at each S through the wrapper
             "by_sample_count": sc["K3f"],
+            "by_xyz_bands": xb["K3f"],
+            "pe16_noisy_frame_ms_512": p16["noisy_frame"]["frame_ms"],
+            "pe16_noisy_vs_plain_version_levels": p16["noisy_frame"]["vs_plain_version_levels"],
+            "pe16_noisy_vs_f32_levels": p16["noisy_frame"]["vs_f32_levels"],
             "card": card,
         },
         {
@@ -5630,7 +5948,8 @@ def main() -> int:
             "source": "nerface_tpu_torch/csrc/fused_paper_mlp.cu",
             "replaces": "nerface_tpu/ops/pallas/fused_mlp.py:333",
             "modes": ["paper", "small"],
-            "launches": ct["launches"]["K3b"],
+            "launches": ct["launches"]["K3b"] + p16["launches"]["K3b"],
+            "launches_by_path": {"coarse_train": ct["launches"]["K3b"], "pe16": p16["launches"]["K3b"]},
             "max_abs_err": pk["grad_abs_err"],  # over every gradient tensor
             "worst_grad_rel": pk["grad_rel"],  # (max error, norm error) per case
             "ms": pk["bwd_ms"][k3],
@@ -5650,6 +5969,12 @@ def main() -> int:
             # [sample_counts]' readings the tensor-core yardstick decides, and
             # its lost units caught (`_sample_control`), by S
             "sample_count_control": sc["control"],
+            # [xyz_bands]: the readings, their control, the times against 10
+            # bands; the coarse-only synth512_pe16 step against f32
+            "by_xyz_bands": xb["K3b"],
+            "xyz_bands_control": xb["control"],
+            "xyz_bands_ms_ratio": xb["ratio_to_10_bands"],
+            "pe16_coarse_step_vs_f32": p16["coarse_step_vs_f32"],
             "card": card,
         },
         {

@@ -1471,8 +1471,8 @@ struct Backward {
   }
 };
 
-// What the kernels take: S in 1..MAX_SAMPLES, 1..MAX_FREQS bands (K_XIN
-// columns), hidden width 256 or 512 (no other: each has its own layout,
+// What the kernels take: S in 1..MAX_SAMPLES, 1..10 bands (K_XIN
+// columns: the paper kernels' wide xin image is theirs), hidden width 256 or 512 (no other: each has its own layout,
 // and no width falls back on another's), any number n ≥ 0 of hidden
 // layers whose offsets fit an int.
 bool valid(int n_rays, int n_samples, int n_freqs, int n_hidden, int hidden) {
@@ -1516,7 +1516,7 @@ extern "C" int nerface_fused_flex_fwd(const float* ro, const float* rd, const fl
   if (n_rays == 0) return 0;
   FwdArgs fa{ro,    rd,     z,     dir_c, static_cast<const bf16*>(W), F, out, Workspace{}, n_rays,
              UnitLayout::of(n_samples), n_freqs, n_hidden};
-  return dispatch_pass<Forward>(n_samples, hidden == WIDE, fa, static_cast<cudaStream_t>(stream));
+  return dispatch_pass<Forward>(n_samples, hidden == WIDE, 1, fa, static_cast<cudaStream_t>(stream));
 }
 
 // Bytes of device workspace one K4b call needs (-1 for what `valid`
@@ -1550,7 +1550,7 @@ extern "C" int nerface_fused_flex_bwd(const float* ro, const float* rd, const fl
   const UnitLayout l = UnitLayout::of(n_samples);
   FwdArgs fa{ro, rd, z, dir_c, Wb, F, nullptr, ws, n_rays, l, n_freqs, n_hidden};
   DxArgs da{g, Wb, static_cast<const bf16*>(WT), d_dir, ws, n_rays, l, n_hidden};
-  int err = dispatch_pass<Backward>(n_samples, hidden == WIDE, fa, da, st);
+  int err = dispatch_pass<Backward>(n_samples, hidden == WIDE, 1, fa, da, st);
   if (err != 0) return err;
   // dW from the images (`dw_products`), DWG_MATS_MAX products a launch
   const int segs = dw_segments_of(L);

@@ -90,9 +90,10 @@ __device__ __forceinline__ void fwd_consume(PaperChainSmem& sm, const FwdArgs& a
     const int round = blockIdx.x + (k / units) * gridDim.x;
     if (round >= n_rounds) break;
     const int item = g.item(round, 0, wg);
-    mbar_wait(&sm.xin_full[wg][k & 1], (k >> 1) & 1);
+    const int b = xin_buf(k, g.xc());
+    mbar_wait(&sm.xin_full[wg][b], xin_phase(k, g.xc()));
     float hs[4], hc[4];
-    paper_unit<SMALL, 1>(acc, act, smem_u32(sm.xin[wg][k & 1]), sm, ring, 0, &sm.xin_empty[wg][k & 1], a.dir_c,
+    paper_unit<SMALL, 1>(acc, act, smem_u32(sm.xin[wg][b]), sm, ring, 0, &sm.xin_empty[wg][b], a.dir_c,
                          g, item * g.wg_rays(), k % units, a.n_rays, hs, hc);
     const int rows = g.rows();
     const int i0 = (k % units) * 64 + r0;  // the item's row of the thread's first row
@@ -118,8 +119,8 @@ __global__ void __launch_bounds__(PAPER_THREADS, 1) mlp_fwd_kernel(const FwdArgs
   extern __shared__ unsigned char smem_raw[];
   const uint32_t pad = (ATOM_BYTES - (smem_u32(smem_raw) & (ATOM_BYTES - 1))) & (ATOM_BYTES - 1);
   PaperChainSmem& sm = *reinterpret_cast<PaperChainSmem*>(smem_raw + pad);
-  paper_setup<1>(sm, a.W, a.F);
   const UnitSchedule<SF, 1> g{a.l};
+  paper_setup<1>(sm, a.W, a.F, K_XIN * g.xc());
   const int n_rounds = g.rounds(a.n_rays);
   const int wg = threadIdx.x / 128;
   if (wg == CHAIN_CONSUMERS) {
@@ -183,44 +184,52 @@ extern "C" void nerface_fused_paper_mlp_shared_bytes(long long* out) {
   out[2] = (long long)DWG_SMEM_BYTES;
 }
 
-// Bytes of device workspace one backward call needs.
-extern "C" long long nerface_fused_paper_mlp_workspace_bytes(int n_rays, int n_samples) {
-  return k1::workspace_bytes(n_rays, n_samples);
+// Bytes of device workspace one backward call needs (-1 for n_freqs
+// outside 1..MAX_FREQS).
+extern "C" long long nerface_fused_paper_mlp_workspace_bytes(int n_rays, int n_samples, int n_freqs) {
+  if (n_freqs < 1 || n_freqs > MAX_FREQS) return -1;
+  return k1::workspace_bytes(n_rays, n_samples, xin_extent(n_freqs));
 }
 
-// K3f. Returns a cudaError_t (0 on success). Launches on `stream`, does not
-// synchronise and allocates nothing.
+// K3f. Returns a cudaError_t (0 on success; cudaErrorInvalidValue for
+// n_samples outside 1..MAX_SAMPLES or n_freqs outside 1..MAX_FREQS).
+// Launches on `stream`, does not synchronise and allocates nothing. W is
+// packed at the bands' encoding extent (`xin_extent`).
 extern "C" int nerface_fused_paper_mlp_fwd(const float* ro, const float* rd, const float* z,
                                            const float* dir_c, const void* W, const float* F, float* out,
                                            int n_rays, int n_samples, int n_freqs, int small, void* stream) {
-  if (n_rays < 0 || n_freqs < 1 || 3 + 6 * n_freqs > K_XIN) return (int)cudaErrorInvalidValue;
+  if (n_rays < 0 || n_freqs < 1 || n_freqs > MAX_FREQS) return (int)cudaErrorInvalidValue;
   if (n_samples < 1 || n_samples > MAX_SAMPLES) return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
-  FwdArgs a{ro, rd, z, dir_c, static_cast<const bf16*>(W), F, out, n_rays, UnitLayout::of(n_samples), n_freqs};
-  return dispatch_pass<Forward>(n_samples, small, a, static_cast<cudaStream_t>(stream));
+  const int xc = xin_extent(n_freqs) / K_XIN;
+  FwdArgs a{ro,     rd,     z, dir_c, static_cast<const bf16*>(W), F, out, n_rays, UnitLayout::of(n_samples, xc),
+            n_freqs};
+  return dispatch_pass<Forward>(n_samples, small, xc, a, static_cast<cudaStream_t>(stream));
 }
 
-// K3b. Returns a cudaError_t (0 on success). Launches on `stream`, does not
-// synchronise and allocates nothing: `workspace` holds
-// nerface_fused_paper_mlp_workspace_bytes(n_rays, n_samples) bytes. W and
-// WT are the chunk images of the packed weights and of the transposed
-// trunk (`pack_sm90_chunks`, as K1 takes them; K3f takes the same W). dW is
-// the f32 gradient in the packed weight layout (W_OFF_TOTAL), dF in the
-// bias-row layout (F_OFF_TOTAL: COND0/COND3 hold d_cond0/d_cond3; FREQS and
-// the smaller model's W5/B5 slots are 0), d_dir (R, 128).
+// K3b. Returns a cudaError_t (0 on success; cudaErrorInvalidValue as K3f).
+// Launches on `stream`, does not synchronise and allocates nothing:
+// `workspace` holds nerface_fused_paper_mlp_workspace_bytes(n_rays,
+// n_samples, n_freqs) bytes. W and WT are the chunk images of the packed
+// weights and of the transposed trunk (`pack_sm90_chunks`, as K1 takes
+// them; K3f takes the same W). dW is the f32 gradient in the packed weight
+// layout at the bands' encoding extent kx (w_off(W_OFF_TOTAL, kx)), dF in
+// the bias-row layout (F_OFF_TOTAL: COND0/COND3 hold d_cond0/d_cond3;
+// FREQS and the smaller model's W5/B5 slots are 0), d_dir (R, 128).
 extern "C" int nerface_fused_paper_mlp_bwd(const float* ro, const float* rd, const float* z,
                                            const float* dir_c, const float* g, const void* W,
                                            const void* WT, const float* F, float* dW, float* dF,
                                            float* d_dir, void* workspace, int n_rays, int n_samples,
                                            int n_freqs, int small, void* stream) {
-  if (n_rays < 0 || n_freqs < 1 || 3 + 6 * n_freqs > K_XIN) return (int)cudaErrorInvalidValue;
+  if (n_rays < 0 || n_freqs < 1 || n_freqs > MAX_FREQS) return (int)cudaErrorInvalidValue;
   if (n_samples < 1 || n_samples > MAX_SAMPLES) return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
+  const int kx = xin_extent(n_freqs);
   k1::Workspace ws;
   k1::carve(static_cast<unsigned char*>(workspace), k1::pass_units(n_rays, n_samples),
-            k1::pass_ctas(n_rays, n_samples), &ws);
+            k1::pass_ctas(n_rays, n_samples), kx, &ws);
   k1::PassArgs pa{ro, rd, z, dir_c, static_cast<const bf16*>(W), static_cast<const bf16*>(WT), F, d_dir, ws,
-                  n_rays, UnitLayout::of(n_samples), n_freqs};
-  return dispatch_pass<Backward>(n_samples, small, pa, K3bPolicy{g, n_rays}, dW, dF,
+                  n_rays, UnitLayout::of(n_samples, kx / K_XIN), n_freqs};
+  return dispatch_pass<Backward>(n_samples, small, kx / K_XIN, pa, K3bPolicy{g, n_rays}, dW, dF,
                                  static_cast<cudaStream_t>(stream));
 }

@@ -10,11 +10,14 @@
 // whose trunk has no layers_xyz.5 (256→256 ×1 after the skip).
 //
 // Bound: tensor-core throughput. The MLP is ≈ 0.983 MFLOP a sample at the
-// function's widths (2·(63·256 + 5·256² + 319·256 + 256 + 256·128 + 2·128²
-// + 128·3); the zero pad of layer 0 and the skip layer to K = 64 / 320 is
-// not counted): 4.17 ms for a 65536-ray tile at S = 64 and 8.34 ms at
-// S = 128 at the H100's 989 TFLOP/s bf16 dense peak, against ~1.9 MB of
-// ray data in and out per 65536 rays.
+// function's widths with 10 bands (2·(63·256 + 5·256² + 319·256 + 256 +
+// 256·128 + 2·128² + 128·3); the zero pad of layer 0 and the skip layer to
+// K = 64 / 320 is not counted; each band more adds 2·2·6·256): 4.17 ms for
+// a 65536-ray tile at S = 64 and 8.34 ms at S = 128 at the H100's 989
+// TFLOP/s bf16 dense peak, against ~1.9 MB of ray data in and out per
+// 65536 rays. From 11 to 20 bands the encoding is 69..123 columns, padded
+// to K = 128 (two 64-column blocks, `xin_extent`): layer 0 and the skip
+// layer read one chunk more, 6.7 % more products than at K = 64.
 //
 // Design (one persistent 2-CTA cluster per SM pair, 384 threads a CTA; the
 // chain's pieces are wgmma_chain.cuh's, which K4f shares, and the paper
@@ -24,7 +27,8 @@
 //     (`wbuf_sm90`): each layer's 64-row K chunks as the byte image of
 //     wgmma's 128-byte-swizzled K-major B operand (wgmma_tile.cuh), 32 KB
 //     for a 256-wide layer, 16 KB for the 128-wide direction branch; the
-//     skip layer (K = 320) is five chunks, the first reading [xyz; PE; 0].
+//     skip layer (K = 320) is five chunks, the first reading [xyz; PE; 0]
+//     (six, the first two reading it, at K = 128 past 10 bands).
 //   - Warpgroup 2 feeds the others. One thread (the producer) streams the
 //     chunk sequence through a RING-deep ring of 32 KB stages, each chunk
 //     one `cp.async.bulk` completing on the stage's `full` mbarrier; in the
@@ -35,7 +39,10 @@
 //     encoders) write each unit's [xyz; PE; 0] tile into one of its
 //     warpgroup's two swizzled xin buffers, handed over on mbarriers
 //     (`xin_full` / `xin_empty`), so the encode's sinf never holds a
-//     consumer. `setmaxnreg` gives the warpgroup's registers to the
+//     consumer. Past 10 bands a tile is 16 KB, two blocks: the same 16 KB
+//     a warpgroup hold one such buffer (K2's shared memory is ≈ 215 KB of
+//     227), and the encoders write the next unit once the skip layer has
+//     read this one, under its last eight layers. `setmaxnreg` gives the warpgroup's registers to the
 //     consumers (40 / 232).
 //   - Warpgroups 0 and 1 (the consumers) each take whole rays as 64-row
 //     units, S in 1..256 (`UnitLayout`, wgmma_chain.cuh): an item of
@@ -44,10 +51,12 @@
 //     the fewest rows (8 rays in 3 units at S = 24; padding rows compute
 //     zeros and are never composited). S = 64 and 128 have instantiations
 //     of their own (the layout class SF), any other S reads it at run
-//     time. Each layer is `wgmma.mma_async` m64n256k16
+//     time, as does a pass past 10 bands at any S (the xin image's two
+//     blocks, `xc`: the fixed classes keep one, so the 10-band 64 + 64
+//     path runs the code it ran before). Each layer is `wgmma.mma_async` m64n256k16
 //     (m64n128k16 for the direction branch) into 128 f32 accumulator
-//     registers a thread. Layer 0 and the skip layer's first chunk read
-//     xin from shared memory with K packed to 64 (probe P1: four k16 steps
+//     registers a thread. Layer 0 and the skip layer's first chunk (two
+//     at K = 128) read xin from shared memory with K packed to 64 (probe P1: four k16 steps
 //     a product against five for the split x3 | enc, 14.73 against 18.03 µs
 //     a repetition). Every other A comes from registers: the epilogue
 //     (bias, the cond0/cond3 folds, the ray's dir_c row) rounds each
@@ -265,8 +274,8 @@ __device__ __forceinline__ void consume(K2Smem& sm, const Args& a, uint32_t rank
     const int ray0 = g.item(pair, (int)rank, wg) * g.wg_rays();
 #pragma unroll 1
     for (int u = 0; u < g.units(); ++u) {
-      const int b = units & 1;
-      mbar_wait(&sm.xin_full[wg][b], (units >> 1) & 1);
+      const int b = xin_buf(units, g.xc());
+      mbar_wait(&sm.xin_full[wg][b], xin_phase(units, g.xc()));
       float hs[4], hc[4];
       paper_unit<SMALL, CLUSTER>(acc, act, smem_u32(sm.xin[wg][b]), sm, ring, rank, &sm.xin_empty[wg][b], a.dir_c,
                                  g, ray0, u, a.n_rays, hs, hc);
@@ -297,11 +306,11 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(K2_THREADS, 1)
   extern __shared__ unsigned char smem_raw[];
   const uint32_t pad = (ATOM_BYTES - (smem_u32(smem_raw) & (ATOM_BYTES - 1))) & (ATOM_BYTES - 1);
   K2Smem& sm = *reinterpret_cast<K2Smem*>(smem_raw + pad);
-  paper_setup<CLUSTER>(sm, a.W, a.F);
+  const Geometry<SF> g{a.l};
+  paper_setup<CLUSTER>(sm, a.W, a.F, K_XIN * g.xc());
   cluster_sync();  // the peer's barriers exist before any copy or arrive reaches them
 
   const uint32_t rank = cluster_rank();
-  const Geometry<SF> g{a.l};
   const int n_pairs = g.rounds(a.n_rays);
   const int wg = threadIdx.x / 128;
   if (wg == CONSUMERS) {
@@ -340,20 +349,27 @@ struct Render {
 
 }  // namespace
 
+// Shared memory a CTA of render_kernel takes (dynamic, with its 1 KB
+// alignment pad): the same at either encoding extent.
+extern "C" void nerface_fused_paper_render_shared_bytes(long long* out) { out[0] = (long long)SMEM_BYTES; }
+
 // Returns a cudaError_t (0 on success; cudaErrorInvalidValue for n_samples
-// outside 1..MAX_SAMPLES). Launches on `stream`, does not synchronise and
-// allocates nothing. W is `pack_sm90_chunks`' image of the packed weights.
+// outside 1..MAX_SAMPLES or n_freqs outside 1..MAX_FREQS). Launches on
+// `stream`, does not synchronise and allocates nothing. W is
+// `pack_sm90_chunks`' image of the weights packed at the bands' encoding
+// extent (`xin_extent`: K = 64 up to 10 bands, 128 from 11).
 extern "C" int nerface_fused_paper_render(const float* ro, const float* rd, const float* z,
                                           const float* dir_c, const float* bg, const void* W,
                                           const float* F, float* rgb, float* disp, float* acc,
                                           float* depth, float* bgw, float* weights,
                                           int n_rays, int n_samples, int n_freqs, int white_bg,
                                           int small, void* stream) {
-  if (n_rays < 0 || n_freqs < 1 || 3 + 6 * n_freqs > K_XIN) return (int)cudaErrorInvalidValue;
+  if (n_rays < 0 || n_freqs < 1 || n_freqs > MAX_FREQS) return (int)cudaErrorInvalidValue;
   if (n_samples < 1 || n_samples > MAX_SAMPLES) return (int)cudaErrorInvalidValue;
-  Args args{ro,  rd,    z,   dir_c,   bg,     static_cast<const bf16*>(W), F,       rgb,     disp,
-            acc, depth, bgw, weights, n_rays, UnitLayout::of(n_samples),   n_freqs, white_bg};
+  const int xc = xin_extent(n_freqs) / K_XIN;
+  Args args{ro,  rd,    z,   dir_c,   bg,     static_cast<const bf16*>(W),   F,       rgb,     disp,
+            acc, depth, bgw, weights, n_rays, UnitLayout::of(n_samples, xc), n_freqs, white_bg};
   if (n_rays == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch_pass<Render>(n_samples, small, args, s);
+  return dispatch_pass<Render>(n_samples, small, xc, args, s);
 }

@@ -265,34 +265,40 @@ extern "C" void nerface_fused_train_shared_bytes(long long* out) {
   out[1] = (long long)DWG_SMEM_BYTES;
 }
 
-// Bytes of device workspace one call needs.
-extern "C" long long nerface_fused_train_workspace_bytes(int n_rays, int n_samples) {
-  return k1::workspace_bytes(n_rays, n_samples);
+// Bytes of device workspace one call needs (-1 for n_freqs outside
+// 1..MAX_FREQS).
+extern "C" long long nerface_fused_train_workspace_bytes(int n_rays, int n_samples, int n_freqs) {
+  if (n_freqs < 1 || n_freqs > MAX_FREQS) return -1;
+  return k1::workspace_bytes(n_rays, n_samples, xin_extent(n_freqs));
 }
 
 // Returns a cudaError_t (0 on success; cudaErrorInvalidValue for n_samples
-// outside 1..MAX_SAMPLES). Launches on `stream`, does not
-// synchronise and allocates nothing: `workspace` holds
-// nerface_fused_train_workspace_bytes(n_rays, n_samples) bytes. W and WT
-// are the chunk images of the packed weights and of the transposed trunk
+// outside 1..MAX_SAMPLES or n_freqs outside 1..MAX_FREQS). Launches on
+// `stream`, does not synchronise and allocates nothing: `workspace` holds
+// nerface_fused_train_workspace_bytes(n_rays, n_samples, n_freqs) bytes. W
+// and WT are the chunk images of the packed weights (at the bands'
+// encoding extent kx = `xin_extent(n_freqs)`) and of the transposed trunk
 // (`pack_sm90_chunks`, ops/kernels/fused_mlp.py). dW is the f32 gradient
-// in the packed weight layout (W_OFF_TOTAL), dF in the bias-row layout
-// (F_OFF_TOTAL: COND0/COND3 rows hold d_cond0/d_cond3; FREQS is 0).
-// `small`: the smaller paper model (its W5/B5 slots come back zero).
+// in the packed weight layout at kx (w_off(W_OFF_TOTAL, kx)), dF in the
+// bias-row layout (F_OFF_TOTAL: COND0/COND3 rows hold d_cond0/d_cond3;
+// FREQS is 0). `small`: the smaller paper model (its W5/B5 slots come back
+// zero).
 extern "C" int nerface_fused_train_pass(
     const float* ro, const float* rd, const float* z, const float* target, const float* dir_c,
     const float* bg, const float* noise, const void* W, const void* WT, const float* F, float* rgb,
     float* weights, float* dW, float* dF, float* d_dir, float* d_bg, void* workspace, int n_rays,
     int n_samples, int n_freqs, int white_bg, int small, float noise_std, float loss_scale,
     float sup_bg_scale, void* stream) {
-  if (n_rays < 0 || n_freqs < 1 || 3 + 6 * n_freqs > K_XIN) return (int)cudaErrorInvalidValue;
+  if (n_rays < 0 || n_freqs < 1 || n_freqs > MAX_FREQS) return (int)cudaErrorInvalidValue;
   if (n_samples < 1 || n_samples > MAX_SAMPLES) return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
+  const int kx = xin_extent(n_freqs);
   Workspace ws;
-  carve(static_cast<unsigned char*>(workspace), pass_units(n_rays, n_samples), pass_ctas(n_rays, n_samples), &ws);
+  carve(static_cast<unsigned char*>(workspace), pass_units(n_rays, n_samples), pass_ctas(n_rays, n_samples), kx,
+        &ws);
   PassArgs pa{ro, rd, z, dir_c, static_cast<const bf16*>(W), static_cast<const bf16*>(WT), F, d_dir, ws,
-              n_rays, UnitLayout::of(n_samples), n_freqs};
+              n_rays, UnitLayout::of(n_samples, kx / K_XIN), n_freqs};
   K1Policy policy{rd, z, target, bg, noise_std > 0.f ? noise : nullptr, rgb, weights, d_bg, n_rays, white_bg,
                   noise_std, loss_scale, sup_bg_scale};
-  return dispatch_pass<Pass>(n_samples, small, pa, policy, dW, dF, static_cast<cudaStream_t>(stream));
+  return dispatch_pass<Pass>(n_samples, small, kx / K_XIN, pa, policy, dW, dF, static_cast<cudaStream_t>(stream));
 }

@@ -16,12 +16,20 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int HIDDEN = 256;
 constexpr int DIR_HIDDEN = 128;
+// Layer 0 and the skip layer read [xyz; PE; 0]: K = K_XIN holds up to 10
+// bands (3 + 6·10 = 63 columns), K = K_XIN_WIDE up to MAX_FREQS = 20 (123
+// columns) as two 64-column blocks. The paper kernels (K2, K3, K1) take
+// either extent, `xin_extent(n_freqs)`; K4 (fused_flex.cu) K_XIN only.
 constexpr int K_XIN = 64;
+constexpr int K_XIN_WIDE = 128;
+constexpr int MAX_FREQS = 20;
+__host__ __device__ constexpr int xin_extent(int n_freqs) { return 3 + 6 * n_freqs <= K_XIN ? K_XIN : K_XIN_WIDE; }
 
 // Packed operand offsets, in elements. They must equal W_OFFSETS /
 // F_OFFSETS in ops/kernels/fused_mlp.py (tests/test_torch_fused_render.py
 // checks it).
-// bf16 weights, each (in, out) row-major:
+// bf16 weights, each (in, out) row-major, at K = K_XIN (`w_off` moves
+// them to K = K_XIN_WIDE):
 constexpr int W_OFF_W0 = 0;
 constexpr int W_OFF_W1 = 16384;
 constexpr int W_OFF_W2 = 81920;
@@ -49,14 +57,25 @@ constexpr int F_OFF_BD2 = 2048;
 constexpr int F_OFF_BA = 2176;
 constexpr int F_OFF_BRGB = 2177;
 constexpr int F_OFF_FREQS = 2180;
-constexpr int F_OFF_TOTAL = 2196;
+constexpr int F_OFF_TOTAL = 2200;
 static_assert(W_OFF_W1 - W_OFF_W0 == K_XIN * HIDDEN && W_OFF_W4 - W_OFF_W3 == (K_XIN + HIDDEN) * HIDDEN &&
                   W_OFF_WD1 - W_OFF_WD0 == HIDDEN * DIR_HIDDEN && W_OFF_WRGB - W_OFF_WA == HIDDEN &&
                   W_OFF_TOTAL - W_OFF_WRGB == DIR_HIDDEN * 3,
               "weight layout");
 static_assert(F_OFF_BD0 - F_OFF_BF == HIDDEN && F_OFF_BA - F_OFF_BD2 == DIR_HIDDEN &&
-                  F_OFF_FREQS - F_OFF_BRGB == 3 && F_OFF_TOTAL - F_OFF_FREQS == 16,
+                  F_OFF_FREQS - F_OFF_BRGB == 3 && F_OFF_TOTAL - F_OFF_FREQS == MAX_FREQS,
               "bias row layout");
+
+// The offset W_OFF_* `off` in the packed weights of encoding extent kx: W0
+// (kx × 256) and W3 ([w3xa; w3xb; 0] in kx rows, then w3h) each hold kx − K_XIN
+// more rows than at K_XIN, which move every later offset (w_off(W_OFF_W3 +
+// K_XIN·HIDDEN, kx), w3h's first row, is W3's at kx plus kx·HIDDEN).
+__host__ __device__ constexpr int w_off(int off, int kx) {
+  return off + (off > W_OFF_W0 ? (kx - K_XIN) * HIDDEN : 0) + (off > W_OFF_W3 ? (kx - K_XIN) * HIDDEN : 0);
+}
+static_assert(w_off(W_OFF_TOTAL, K_XIN_WIDE) == W_OFF_TOTAL + 2 * 64 * HIDDEN &&
+                  w_off(W_OFF_W3 + K_XIN * HIDDEN, K_XIN_WIDE) == w_off(W_OFF_W3, K_XIN_WIDE) + K_XIN_WIDE * HIDDEN,
+              "the wide weight layout");
 
 __device__ __forceinline__ float round_bf16(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
 
@@ -72,11 +91,13 @@ __device__ __forceinline__ float round_bf16(float x) { return __bfloat162float(_
 // cudaError_t. SF is the pass's layout class: 64 or 128 (the paper
 // schedule's passes, S folded in as a constant), else 0 (S read at run
 // time, any S the kernels take); cudaErrorInvalidValue for a class the
-// build does not hold.
+// build does not hold. The fixed classes read a one-block xin image (K =
+// K_XIN): a pass of xc = 2 blocks (K_XIN_WIDE) runs the runtime class at
+// any S, which reads xc at run time too.
 template <template <int, bool> class FN, class... Args>
-int dispatch_pass(int n_samples, int small, Args&&... args) {
+int dispatch_pass(int n_samples, int small, int xc, Args&&... args) {
 #if NERFACE_SAMPLE_CLASSES & 2
-  switch (n_samples * 2 + (small ? 1 : 0)) {
+  switch (xc == 1 ? n_samples * 2 + (small ? 1 : 0) : 0) {
     case 128:
       return FN<64, false>::run(args...);
     case 129:

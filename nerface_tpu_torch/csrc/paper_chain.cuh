@@ -6,8 +6,9 @@
 // them (`paper_feed`: its first thread streams the chunk sequence of every
 // unit through the PAPER_RING-stage weight ring, its warps 1..3 encode each
 // unit's [xyz; PE; 0] tile). A consumer warpgroup runs one 64-row unit at
-// a time through `paper_unit`: the trunk 64→256, 256→256 ×2, the skip
-// layer [xin; h2] (K = 320)→256, 256→256 ×2 (×1 for the smaller model,
+// a time through `paper_unit`: the trunk kx→256, 256→256 ×2, the skip
+// layer [xin; h2] (K = kx + 256)→256 (kx = 64, or 128 past 10 bands:
+// UnitLayout's xc blocks, the runtime layout class only), 256→256 ×2 (×1 for the smaller model,
 // SMALL: no layers_xyz.5), fc_feat, the σ head, the direction branch
 // 256→128 (+ the ray's dir_c row) and 128→128 ×2, the rgb head; it hands
 // back the heads' raw sums and the caller adds the head biases. In a
@@ -28,8 +29,9 @@ constexpr int PAPER_THREADS = 128 * (CHAIN_CONSUMERS + 1);
 
 struct alignas(ATOM_BYTES) PaperChainSmem {
   unsigned char ring[PAPER_RING][CHAIN_STAGE];  // weight chunk images
-  // [xyz; PE; 0] of a consumer warpgroup's unit, K-major swizzled: two
-  // buffers a warpgroup, filled by the encoder warps
+  // [xyz; PE; 0] of a consumer warpgroup's unit, K-major swizzled, filled
+  // by the encoder warps: two buffers of one 64-column block a warpgroup,
+  // or one of both blocks at xc = 2 (`xin_buf`)
   unsigned char xin[CHAIN_CONSUMERS][2][XIN_BYTES];
   // the heads' weights zero-padded to 8 columns, as chunk images: wa
   // (256 → 1) and wrgb (128 → 3)
@@ -42,15 +44,15 @@ struct alignas(ATOM_BYTES) PaperChainSmem {
   uint64_t xin_empty[CHAIN_CONSUMERS][2];
 };
 
-// The CTA's set-up: the bias rows, the heads' images and the barriers (a
-// stage's `empty` counts every consumer warpgroup of the cluster); ends
-// with __syncthreads.
+// The CTA's set-up: the bias rows, the heads' images (W packed at
+// encoding extent kx) and the barriers (a stage's `empty` counts every
+// consumer warpgroup of the cluster); ends with __syncthreads.
 template <int CTAS>
-__device__ __forceinline__ void paper_setup(PaperChainSmem& sm, const bf16* W, const float* F) {
+__device__ __forceinline__ void paper_setup(PaperChainSmem& sm, const bf16* W, const float* F, int kx) {
   const int t = threadIdx.x;
   for (int i = t; i < F_OFF_TOTAL; i += PAPER_THREADS) sm.f[i] = F[i];
-  head_image<HIDDEN>(sm.wa8, W + W_OFF_WA, 1, t, PAPER_THREADS);
-  head_image<DIR_HIDDEN>(sm.wrgb8, W + W_OFF_WRGB, 3, t, PAPER_THREADS);
+  head_image<HIDDEN>(sm.wa8, W + w_off(W_OFF_WA, kx), 1, t, PAPER_THREADS);
+  head_image<DIR_HIDDEN>(sm.wrgb8, W + w_off(W_OFF_WRGB, kx), 3, t, PAPER_THREADS);
   fence_proxy_async();  // the images are read by wgmma
   if (t == 0) {
     for (int s = 0; s < PAPER_RING; ++s) {
@@ -70,21 +72,22 @@ __device__ __forceinline__ void paper_setup(PaperChainSmem& sm, const bf16* W, c
 
 // The producer: every chunk of every layer of every unit (`units` a round)
 // of rounds round0, round0 + step, ... below n_rounds, in the consumers'
-// order; then wait until each stage has been released once more, so no
-// arrive or copy of a peer CTA is left in flight when this CTA exits.
+// order, W packed at encoding extent kx; then wait until each stage has
+// been released once more, so no arrive or copy of a peer CTA is left in
+// flight when this CTA exits.
 template <bool SMALL, int CTAS>
 __device__ __forceinline__ void paper_produce(PaperChainSmem& sm, const bf16* __restrict__ W, uint32_t rank,
-                                              int round0, int step, int n_rounds, int units) {
+                                              int round0, int step, int n_rounds, int units, int kx) {
   Ring ring;
   auto load = [&](int off, int k, int n) {
-    load_layer<PAPER_RING, CTAS>(sm.ring, sm.full, sm.empty, ring, W + off, k, n, rank);
+    load_layer<PAPER_RING, CTAS>(sm.ring, sm.full, sm.empty, ring, W + w_off(off, kx), k, n, rank);
   };
   for (int round = round0; round < n_rounds; round += step) {
     for (int u = 0; u < units; ++u) {
-      load(W_OFF_W0, K_XIN, HIDDEN);
+      load(W_OFF_W0, kx, HIDDEN);
       load(W_OFF_W1, HIDDEN, HIDDEN);
       load(W_OFF_W2, HIDDEN, HIDDEN);
-      load(W_OFF_W3, K_XIN + HIDDEN, HIDDEN);
+      load(W_OFF_W3, kx + HIDDEN, HIDDEN);
       load(W_OFF_W4, HIDDEN, HIDDEN);
       if (!SMALL) load(W_OFF_W5, HIDDEN, HIDDEN);
       load(W_OFF_WF, HIDDEN, HIDDEN);
@@ -108,7 +111,7 @@ __device__ __forceinline__ void paper_feed(PaperChainSmem& sm, const A& a, const
   const int t = threadIdx.x - CHAIN_CONSUMERS * 128;  // the thread in the warpgroup
   const int w = t >> 5;
   if (t == 0) {
-    paper_produce<SMALL, CTAS>(sm, a.W, rank, round0, step, n_rounds, g.units());
+    paper_produce<SMALL, CTAS>(sm, a.W, rank, round0, step, n_rounds, g.units(), K_XIN * g.xc());
   } else if (w >= 1 && w <= CHAIN_ENCODERS) {
     encode_units(g, sm.xin, sm.xin_full, sm.xin_empty, a, sm.f + F_OFF_FREQS, rank, round0, step, n_rounds, t - 32,
                  [](int, int) -> unsigned char* { return nullptr; });
@@ -124,13 +127,13 @@ __device__ __forceinline__ void paper_release(PaperChainSmem& sm, int stage, uin
   if (CTAS > 1 && t == 32) mbar_arrive_cluster(&sm.empty[stage], rank ^ 1);
 }
 
-// One layer of a warpgroup's 64 rows (`chain_layer` on the ring), each
-// stage released in every CTA of the cluster.
+// One layer of a warpgroup's 64 rows (`chain_layer` on the ring, xin's
+// xc blocks), each stage released in every CTA of the cluster.
 template <int N, int NCH, int X_CHUNKS, int CTAS>
 __device__ __forceinline__ void paper_layer(float* acc, uint32_t* a, uint32_t xin, PaperChainSmem& sm, Ring& ring,
-                                            uint32_t rank) {
+                                            uint32_t rank, int xc = 1) {
   chain_layer<N, NCH, X_CHUNKS, PAPER_RING>(acc, a, xin, sm.ring, sm.full, ring,
-                                            [&](int stage) { paper_release<CTAS>(sm, stage, rank); });
+                                            [&](int stage) { paper_release<CTAS>(sm, stage, rank); }, xc);
 }
 
 // A consumer warpgroup's unit: its encoded tile at shared address xin
@@ -147,13 +150,13 @@ template <bool SMALL, int CTAS, class G>
 __device__ __forceinline__ void paper_unit(float* acc, uint32_t* act, uint32_t xin, PaperChainSmem& sm, Ring& ring,
                                            uint32_t rank, uint64_t* xin_empty, const float* dir_c_base, const G& g,
                                            int ray0, int u, int n_rays, float* hs, float* hc) {
-  paper_layer<HIDDEN, 1, 1, CTAS>(acc, act, xin, sm, ring, rank);
+  paper_layer<HIDDEN, 1, 1, CTAS>(acc, act, xin, sm, ring, rank, g.xc());
   acc_to_a<HIDDEN, true>(acc, act, ChainBias{sm.f + F_OFF_COND0});
   paper_layer<HIDDEN, 4, 0, CTAS>(acc, act, xin, sm, ring, rank);
   acc_to_a<HIDDEN, true>(acc, act, ChainBias{sm.f + F_OFF_B1});
   paper_layer<HIDDEN, 4, 0, CTAS>(acc, act, xin, sm, ring, rank);
   acc_to_a<HIDDEN, true>(acc, act, ChainBias{sm.f + F_OFF_B2});
-  paper_layer<HIDDEN, 5, 1, CTAS>(acc, act, xin, sm, ring, rank);  // the skip: [xin; h2]
+  paper_layer<HIDDEN, 5, 1, CTAS>(acc, act, xin, sm, ring, rank, g.xc());  // the skip: [xin; h2]
   if ((threadIdx.x & 127) == 0) mbar_arrive(xin_empty);            // its last reader is done
   acc_to_a<HIDDEN, true>(acc, act, ChainBias{sm.f + F_OFF_COND3});
   paper_layer<HIDDEN, 4, 0, CTAS>(acc, act, xin, sm, ring, rank);

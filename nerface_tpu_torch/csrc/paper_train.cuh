@@ -133,13 +133,14 @@ constexpr int BAR_CONSUMERS = 3;   // both consumer warpgroups
 constexpr int WARPS_A_CTA = 4 * CONSUMERS;
 constexpr int BLOCK_BYTES = 64 * ROW_BYTES;  // a 64 × 64 image block
 
-// The workspace's bf16 buffers and their widths.
+// The workspace's bf16 buffers and their widths; xin's is the pass's
+// encoding extent kx (K_XIN or K_XIN_WIDE).
 enum WsBuffer {
   WS_XIN, WS_H0, WS_H1, WS_H2, WS_H3, WS_H4, WS_H5, WS_FEAT, WS_X0, WS_X1, WS_X2,
   WS_GX2, WS_GX1, WS_GX0, WS_GFEAT, WS_GH0, WS_GH1, WS_GH2, WS_GH3, WS_GH4, WS_GH5, WS_BUFFERS
 };
-__host__ __device__ constexpr int ws_width(int b) {
-  return b == WS_XIN ? K_XIN
+__host__ __device__ constexpr int ws_width(int b, int kx) {
+  return b == WS_XIN ? kx
                      : (b == WS_X0 || b == WS_X1 || b == WS_X2 || b == WS_GX2 || b == WS_GX1 || b == WS_GX0)
                            ? DIR_HIDDEN
                            : HIDDEN;
@@ -176,15 +177,16 @@ struct Workspace {
   unsigned char* buf[WS_BUFFERS];  // unit images, units × width × 128 bytes each
   float* warp_part;                // (ctas · WARPS_A_CTA, PART_COLS): each warp's running sums
   float* tile_part;                // (ctas, PART_COLS): a CTA's sums
-  float* dw_part;                  // (DWG_SEGS, W_OFF_WA)
+  float* dw_part;                  // (DWG_SEGS, w_off(W_OFF_WA, kx))
+  int kx;                          // the encoding extent: xin's width
   __device__ __forceinline__ unsigned char* unit(int b, int u) const {
-    return buf[b] + (size_t)u * ws_width(b) * ROW_BYTES;
+    return buf[b] + (size_t)u * ws_width(b, kx) * ROW_BYTES;
   }
 };
 
-// Lays the workspace out from `base` (or only measures it when base is
-// null); returns its size in bytes.
-inline size_t carve(unsigned char* base, int units, int ctas, Workspace* ws) {
+// Lays the workspace of a pass at encoding extent kx out from `base` (or
+// only measures it when base is null); returns its size in bytes.
+inline size_t carve(unsigned char* base, int units, int ctas, int kx, Workspace* ws) {
   size_t off = 0;
   auto take = [&](size_t bytes) -> void* {
     void* p = base ? base + off : nullptr;
@@ -193,16 +195,17 @@ inline size_t carve(unsigned char* base, int units, int ctas, Workspace* ws) {
   };
   Workspace w;
   for (int b = 0; b < WS_BUFFERS; ++b)
-    w.buf[b] = static_cast<unsigned char*>(take((size_t)units * ws_width(b) * ROW_BYTES));
+    w.buf[b] = static_cast<unsigned char*>(take((size_t)units * ws_width(b, kx) * ROW_BYTES));
   w.warp_part = static_cast<float*>(take((size_t)ctas * WARPS_A_CTA * PART_COLS * sizeof(float)));
   w.tile_part = static_cast<float*>(take((size_t)ctas * PART_COLS * sizeof(float)));
-  w.dw_part = static_cast<float*>(take((size_t)DWG_SEGS * W_OFF_WA * sizeof(float)));
+  w.dw_part = static_cast<float*>(take((size_t)DWG_SEGS * w_off(W_OFF_WA, kx) * sizeof(float)));
+  w.kx = kx;
   if (ws) *ws = w;
   return off;
 }
 
-inline long long workspace_bytes(int n_rays, int n_samples) {
-  return (long long)carve(nullptr, pass_units(n_rays, n_samples), pass_ctas(n_rays, n_samples), nullptr);
+inline long long workspace_bytes(int n_rays, int n_samples, int kx) {
+  return (long long)carve(nullptr, pass_units(n_rays, n_samples), pass_ctas(n_rays, n_samples), kx, nullptr);
 }
 
 struct PassArgs {
@@ -223,7 +226,7 @@ struct PassArgs {
 
 struct alignas(ATOM_BYTES) Smem {
   unsigned char ring[RING][STAGE_BYTES];  // weight chunk images
-  unsigned char xin[CONSUMERS][2][64 * ROW_BYTES];
+  unsigned char xin[CONSUMERS][2][64 * ROW_BYTES];  // two buffers, or one of two blocks (`xin_buf`)
   unsigned char wa8[HIDDEN / KCH][8 * ROW_BYTES];  // the heads' weights padded to 8 columns
   unsigned char wrgb8[DIR_HIDDEN / KCH][8 * ROW_BYTES];
   float f[F_OFF_TOTAL];
@@ -249,22 +252,23 @@ static_assert(SMEM_BYTES <= 232448, "shared memory");
 // -- the chunk sequence ---------------------------------------------------------
 
 // Every chunk, in the consumers' order, of a round of `units` units: each
-// unit's forward layers, then each unit's dX layers. `fn(src, k, n)` takes
-// one layer.
+// unit's forward layers (W packed at encoding extent kx), then each unit's
+// dX layers (WT: no encoding rows, the same at either extent). `fn(src, k,
+// n)` takes one layer.
 template <bool SMALL, class Fn>
-__device__ __forceinline__ void round_layers(const bf16* W, const bf16* WT, int units, Fn&& fn) {
+__device__ __forceinline__ void round_layers(const bf16* W, const bf16* WT, int units, int kx, Fn&& fn) {
 #pragma unroll 1
   for (int u = 0; u < units; ++u) {
-    fn(W + W_OFF_W0, K_XIN, HIDDEN);
-    fn(W + W_OFF_W1, HIDDEN, HIDDEN);
-    fn(W + W_OFF_W2, HIDDEN, HIDDEN);
-    fn(W + W_OFF_W3, K_XIN + HIDDEN, HIDDEN);
-    fn(W + W_OFF_W4, HIDDEN, HIDDEN);
-    if (!SMALL) fn(W + W_OFF_W5, HIDDEN, HIDDEN);
-    fn(W + W_OFF_WF, HIDDEN, HIDDEN);
-    fn(W + W_OFF_WD0, HIDDEN, DIR_HIDDEN);
-    fn(W + W_OFF_WD1, DIR_HIDDEN, DIR_HIDDEN);
-    fn(W + W_OFF_WD2, DIR_HIDDEN, DIR_HIDDEN);
+    fn(W + W_OFF_W0, kx, HIDDEN);
+    fn(W + w_off(W_OFF_W1, kx), HIDDEN, HIDDEN);
+    fn(W + w_off(W_OFF_W2, kx), HIDDEN, HIDDEN);
+    fn(W + w_off(W_OFF_W3, kx), kx + HIDDEN, HIDDEN);
+    fn(W + w_off(W_OFF_W4, kx), HIDDEN, HIDDEN);
+    if (!SMALL) fn(W + w_off(W_OFF_W5, kx), HIDDEN, HIDDEN);
+    fn(W + w_off(W_OFF_WF, kx), HIDDEN, HIDDEN);
+    fn(W + w_off(W_OFF_WD0, kx), HIDDEN, DIR_HIDDEN);
+    fn(W + w_off(W_OFF_WD1, kx), DIR_HIDDEN, DIR_HIDDEN);
+    fn(W + w_off(W_OFF_WD2, kx), DIR_HIDDEN, DIR_HIDDEN);
   }
 #pragma unroll 1
   for (int u = 0; u < units; ++u) {
@@ -282,7 +286,7 @@ __device__ __forceinline__ void round_layers(const bf16* W, const bf16* WT, int 
 
 // The producer: every chunk of every round of this CTA.
 template <bool SMALL>
-__device__ __forceinline__ void produce(Smem& sm, const PassArgs& a, int n_pairs, int units) {
+__device__ __forceinline__ void produce(Smem& sm, const PassArgs& a, int n_pairs, int units, int kx) {
   Ring ring;
   auto load = [&](const bf16* src, int k, int n) {
     const uint32_t bytes = KCH * n * 2;
@@ -293,48 +297,23 @@ __device__ __forceinline__ void produce(Smem& sm, const PassArgs& a, int n_pairs
       ring.advance<RING>();
     }
   };
-  for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) round_layers<SMALL>(a.W, a.WT, units, load);
+  for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) round_layers<SMALL>(a.W, a.WT, units, kx, load);
 }
 
-// One layer of a warpgroup's 64 rows: acc = A·B over NCH chunks of N
-// columns; A is xin in shared memory for the first X_CHUNKS chunks, then
-// the registers a[] (k16 slice s in a[4s .. 4s + 3]). One chunk's group
-// stays in flight while the previous stage is released.
+// One layer of a warpgroup's 64 rows: acc = A·B, `chain_layer` on this
+// CTA's ring (A: xin in shared memory for the first X_CHUNKS·xc chunks,
+// then the registers a[] for NCH − X_CHUNKS); one chunk's group stays in
+// flight while the previous stage is released. The accumulators' old
+// values are dead: made constants (FRESH), they hold no register through
+// the epilogue before. Only the A registers this layer read are fenced.
 template <int N, int NCH, int X_CHUNKS>
-__device__ __forceinline__ void layer(float* acc, uint32_t* a, uint32_t xin, Smem& sm, Ring& ring) {
-  // The accumulators' old values are dead: made constants here, they hold
-  // no register through the epilogue before (the first product does not
-  // read them, but the asm operand would keep them live).
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
-  int prev = 0;
-#pragma unroll
-  for (int c = 0; c < NCH; ++c) {
-    mbar_wait(&sm.full[ring.stage], ring.phase);
-    const uint32_t b = smem_u32(sm.ring[ring.stage]);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < KCH / 16; ++kk) {
-      const uint64_t db = desc_k(b + 32 * kk);
-      const int scale = (c > 0 || kk > 0) ? 1 : 0;
-      if (c < X_CHUNKS) {
-        wgmma_ss<N>(acc, desc_k(xin + 32 * kk), db, scale);
-      } else {
-        wgmma_rs<N>(acc, a + 4 * ((KCH / 16) * (c - X_CHUNKS) + kk), db, scale);
-      }
-    }
-    wgmma_commit();
-    if (c > 0) {
-      wgmma_wait<1>();
-      if ((threadIdx.x & 127) == 0) mbar_arrive(&sm.empty[prev]);
-    }
-    prev = ring.stage;
-    ring.advance<RING>();
-  }
-  wgmma_wait<0>();
-  if ((threadIdx.x & 127) == 0) mbar_arrive(&sm.empty[prev]);
-  fence_regs<N / 2>(acc);
-  fence_regs<(KCH / 4) * (NCH - X_CHUNKS)>(a);  // only the A registers this layer read
+__device__ __forceinline__ void layer(float* acc, uint32_t* a, uint32_t xin, Smem& sm, Ring& ring, int xc = 1) {
+  chain_layer<N, NCH, X_CHUNKS, RING, true, (KCH / 4) * (NCH - X_CHUNKS), STAGE_BYTES>(
+      acc, a, xin, sm.ring, sm.full, ring,
+      [&](int stage) {
+        if ((threadIdx.x & 127) == 0) mbar_arrive(&sm.empty[stage]);
+      },
+      xc);
 }
 
 // A head: the m64n8 product of the K bf16 columns in a[] with a (K, 8)
@@ -508,11 +487,11 @@ template <int SF, bool SMALL>
 __device__ __forceinline__ void forward_unit(Smem& sm, const PassArgs& a, Ring& ring, float* acc, uint32_t* act,
                                              int wg, int u, int unit, int ray0, bool live, int& units) {
   const UnitSchedule<SF, 1> g{a.l};
-  const int b = units & 1;
-  mbar_wait(&sm.xin_full[wg][b], (units >> 1) & 1);
+  const int b = xin_buf(units, g.xc());
+  mbar_wait(&sm.xin_full[wg][b], xin_phase(units, g.xc()));
   const uint32_t xin = smem_u32(sm.xin[wg][b]);
   const Workspace& ws = a.ws;
-  layer<HIDDEN, 1, 1>(acc, act, xin, sm, ring);
+  layer<HIDDEN, 1, 1>(acc, act, xin, sm, ring, g.xc());
   acc_to_a<HIDDEN, true>(acc, act, EpiBias{sm.f + F_OFF_COND0});
   if (live) store_frag<HIDDEN>(ws.unit(WS_H0, unit), act);
   layer<HIDDEN, 4, 0>(acc, act, xin, sm, ring);
@@ -521,7 +500,7 @@ __device__ __forceinline__ void forward_unit(Smem& sm, const PassArgs& a, Ring& 
   layer<HIDDEN, 4, 0>(acc, act, xin, sm, ring);
   acc_to_a<HIDDEN, true>(acc, act, EpiBias{sm.f + F_OFF_B2});
   if (live) store_frag<HIDDEN>(ws.unit(WS_H2, unit), act);
-  layer<HIDDEN, 5, 1>(acc, act, xin, sm, ring);  // the skip: [xin; h2]
+  layer<HIDDEN, 5, 1>(acc, act, xin, sm, ring, g.xc());  // the skip: [xin; h2]
   if ((threadIdx.x & 127) == 0) mbar_arrive(&sm.xin_empty[wg][b]);
   ++units;
   acc_to_a<HIDDEN, true>(acc, act, EpiBias{sm.f + F_OFF_COND3});
@@ -918,19 +897,22 @@ __global__ void __launch_bounds__(THREADS, 1) train_pass_kernel(const PassArgs a
   const uint32_t pad = (ATOM_BYTES - (smem_u32(smem_raw) & (ATOM_BYTES - 1))) & (ATOM_BYTES - 1);
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw + pad);
   const int t = threadIdx.x;
+  const UnitSchedule<SF, 1> g{a.l};
+  const int kx = K_XIN * g.xc();
+  const bf16* wa = a.W + w_off(W_OFF_WA, kx);
+  const bf16* wrgb = a.W + w_off(W_OFF_WRGB, kx);
   for (int i = t; i < F_OFF_TOTAL; i += THREADS) sm.f[i] = a.F[i];
-  for (int i = t; i < HIDDEN; i += THREADS) sm.wa[i] = __bfloat162float(a.W[W_OFF_WA + i]);
-  for (int i = t; i < DIR_HIDDEN * 3; i += THREADS) sm.wrgb[i] = __bfloat162float(a.W[W_OFF_WRGB + i]);
+  for (int i = t; i < HIDDEN; i += THREADS) sm.wa[i] = __bfloat162float(wa[i]);
+  for (int i = t; i < DIR_HIDDEN * 3; i += THREADS) sm.wrgb[i] = __bfloat162float(wrgb[i]);
   // element (k, n) of a head's (K, 8) weight: chunk k / 64, byte sw128(n, k % 64)
   for (int i = t; i < HIDDEN * 8; i += THREADS) {
     const int k = i >> 3, n = i & 7;
-    *reinterpret_cast<bf16*>(sm.wa8[k / KCH] + sw128(n, k % KCH)) =
-        n == 0 ? a.W[W_OFF_WA + k] : __float2bfloat16_rn(0.f);
+    *reinterpret_cast<bf16*>(sm.wa8[k / KCH] + sw128(n, k % KCH)) = n == 0 ? wa[k] : __float2bfloat16_rn(0.f);
   }
   for (int i = t; i < DIR_HIDDEN * 8; i += THREADS) {
     const int k = i >> 3, n = i & 7;
     *reinterpret_cast<bf16*>(sm.wrgb8[k / KCH] + sw128(n, k % KCH)) =
-        n < 3 ? a.W[W_OFF_WRGB + k * 3 + n] : __float2bfloat16_rn(0.f);
+        n < 3 ? wrgb[k * 3 + n] : __float2bfloat16_rn(0.f);
   }
   fence_proxy_async();  // the images are read by wgmma
   if (t == 0) {
@@ -955,14 +937,13 @@ __global__ void __launch_bounds__(THREADS, 1) train_pass_kernel(const PassArgs a
   }
   __syncthreads();
 
-  const UnitSchedule<SF, 1> g{a.l};
   const int n_pairs = ((a.n_rays + g.wg_rays() - 1) / g.wg_rays() + CONSUMERS - 1) / CONSUMERS;
   const int wg = t / 128;
   if (wg == CONSUMERS) {
     reg_dealloc<40>();
     const int w = (t >> 5) - 4 * CONSUMERS;  // the warp in the producer warpgroup
     if (t == CONSUMERS * 128) {
-      produce<SMALL>(sm, a, n_pairs, g.units());
+      produce<SMALL>(sm, a, n_pairs, g.units(), kx);
     } else if (w >= 1 && w <= ENCODERS) {
       encode<SF>(sm, a, n_pairs, t - CONSUMERS * 128 - 32);
     }
@@ -981,10 +962,10 @@ __global__ void __launch_bounds__(THREADS, 1) train_pass_kernel(const PassArgs a
 }
 
 // The pass: train_pass_kernel, then dW = Xᵀ·bf16(gY) on wgmma (W3 in two:
-// its xin rows and its h2 rows), and the partials summed in order: dW in
-// the packed weight layout (W_OFF_TOTAL), dF in the bias-row layout
-// (F_OFF_TOTAL: COND0/COND3 hold d_cond0/d_cond3; FREQS is 0). Returns a
-// cudaError_t.
+// its kx xin rows and its h2 rows), and the partials summed in order: dW in
+// the packed weight layout at the pass's encoding extent kx (w_off(
+// W_OFF_TOTAL, kx)), dF in the bias-row layout (F_OFF_TOTAL: COND0/COND3
+// hold d_cond0/d_cond3; FREQS is 0). Returns a cudaError_t.
 template <int SF, bool SMALL, class Policy>
 int launch_pass(const PassArgs& a, const Policy& policy, float* dW, float* dF, cudaStream_t st) {
   const int ctas = pass_ctas(a.n_rays, a.l.S);
@@ -995,32 +976,34 @@ int launch_pass(const PassArgs& a, const Policy& policy, float* dW, float* dF, c
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const Workspace& ws = a.ws;
+  const int kx = ws.kx;
   auto B = [&](int b) { return ws.buf[b]; };
+  auto O = [&](int off) { return w_off(off, kx); };
   const DwgMat mats[] = {
-      {B(WS_XIN), B(WS_GH0), K_XIN, HIDDEN, W_OFF_W0},
-      {B(WS_H0), B(WS_GH1), HIDDEN, HIDDEN, W_OFF_W1},
-      {B(WS_H1), B(WS_GH2), HIDDEN, HIDDEN, W_OFF_W2},
-      {B(WS_XIN), B(WS_GH3), K_XIN, HIDDEN, W_OFF_W3},
-      {B(WS_H2), B(WS_GH3), HIDDEN, HIDDEN, W_OFF_W3 + K_XIN * HIDDEN},
-      {B(WS_H3), B(WS_GH4), HIDDEN, HIDDEN, W_OFF_W4},
-      {B(SMALL ? WS_H4 : WS_H5), B(WS_GFEAT), HIDDEN, HIDDEN, W_OFF_WF},
-      {B(WS_FEAT), B(WS_GX0), HIDDEN, DIR_HIDDEN, W_OFF_WD0},
-      {B(WS_X0), B(WS_GX1), DIR_HIDDEN, DIR_HIDDEN, W_OFF_WD1},
-      {B(WS_X1), B(WS_GX2), DIR_HIDDEN, DIR_HIDDEN, W_OFF_WD2},
-      {B(WS_H4), B(WS_GH5), HIDDEN, HIDDEN, W_OFF_W5},
+      {B(WS_XIN), B(WS_GH0), kx, HIDDEN, O(W_OFF_W0)},
+      {B(WS_H0), B(WS_GH1), HIDDEN, HIDDEN, O(W_OFF_W1)},
+      {B(WS_H1), B(WS_GH2), HIDDEN, HIDDEN, O(W_OFF_W2)},
+      {B(WS_XIN), B(WS_GH3), kx, HIDDEN, O(W_OFF_W3)},
+      {B(WS_H2), B(WS_GH3), HIDDEN, HIDDEN, O(W_OFF_W3) + kx * HIDDEN},
+      {B(WS_H3), B(WS_GH4), HIDDEN, HIDDEN, O(W_OFF_W4)},
+      {B(SMALL ? WS_H4 : WS_H5), B(WS_GFEAT), HIDDEN, HIDDEN, O(W_OFF_WF)},
+      {B(WS_FEAT), B(WS_GX0), HIDDEN, DIR_HIDDEN, O(W_OFF_WD0)},
+      {B(WS_X0), B(WS_GX1), DIR_HIDDEN, DIR_HIDDEN, O(W_OFF_WD1)},
+      {B(WS_X1), B(WS_GX2), DIR_HIDDEN, DIR_HIDDEN, O(W_OFF_WD2)},
+      {B(WS_H4), B(WS_GH5), HIDDEN, HIDDEN, O(W_OFF_W5)},
   };
   // the smaller model has no W5: the last entry drops out, and its slot,
   // which no dW block covers, is zeroed after the reduction
   const int n_mats = (int)(sizeof(mats) / sizeof(mats[0])) - (SMALL ? 1 : 0);
-  int err = launch_dw_wgmma(mats, n_mats, ws.dw_part, W_OFF_WA, pass_units(a.n_rays, a.l.S), DWG_SEGS, st);
+  const int wa = O(W_OFF_WA);  // dW's columns below the heads
+  int err = launch_dw_wgmma(mats, n_mats, ws.dw_part, wa, pass_units(a.n_rays, a.l.S), DWG_SEGS, st);
   if (err != 0) return err;
-  reduce_rows<<<(W_OFF_WA + 255) / 256, 256, 0, st>>>(ws.dw_part, DWG_SEGS, W_OFF_WA, W_OFF_WA, dW, nullptr);
+  reduce_rows<<<(wa + 255) / 256, 256, 0, st>>>(ws.dw_part, DWG_SEGS, wa, wa, dW, nullptr);
   if (SMALL) {
-    e = cudaMemsetAsync(dW + W_OFF_W5, 0, (size_t)HIDDEN * HIDDEN * sizeof(float), st);
+    e = cudaMemsetAsync(dW + O(W_OFF_W5), 0, (size_t)HIDDEN * HIDDEN * sizeof(float), st);
     if (e != cudaSuccess) return (int)e;
   }
-  reduce_rows<<<(PART_COLS + 255) / 256, 256, 0, st>>>(ws.tile_part, ctas, PART_COLS, F_OFF_TOTAL, dF,
-                                                       dW + W_OFF_WA);
+  reduce_rows<<<(PART_COLS + 255) / 256, 256, 0, st>>>(ws.tile_part, ctas, PART_COLS, F_OFF_TOTAL, dF, dW + wa);
   return (int)cudaGetLastError();
 }
 

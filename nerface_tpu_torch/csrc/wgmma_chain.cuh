@@ -26,7 +26,7 @@ namespace sm90 {
 constexpr int CHAIN_CONSUMERS = 2;                 // warpgroups computing units
 constexpr int CHAIN_ENCODERS = 3;                  // warps of the producer warpgroup that encode
 constexpr int CHAIN_STAGE = KCH * 256 * 2;         // a ring stage: one 64 × 256 bf16 chunk image
-constexpr int XIN_BYTES = 64 * ROW_BYTES;          // a unit's [xyz; PE; 0], K = 64
+constexpr int XIN_BYTES = 64 * ROW_BYTES;          // a 64-column block of a unit's [xyz; PE; 0]
 
 // The kernels' sample counts (K2, K3f, K1, K3b, K4f, K4b): 1..MAX_SAMPLES.
 // An item is at most ITEM_ROWS rows (four units).
@@ -45,10 +45,16 @@ constexpr int ITEM_ROWS = 256;
 // ray, row / S, is a multiply and a shift (`ray_of`, exact for every row
 // below ITEM_ROWS and S ≤ MAX_SAMPLES): the encoder warps, which divide
 // once a task, keep pace with the consumers as at a compile-time S.
+//
+// xc is the pass's xin image in 64-column blocks: 1 (K = 64, up to 10
+// bands) or 2 (K = 128, the paper kernels at 11..20 bands). A consumer
+// warpgroup's xin buffers are two of one block (the encoders one unit
+// ahead) or one of two blocks, the same bytes (`xin_buf`).
 struct UnitLayout {
   int S, rays, units;
   uint32_t div;  // ⌈2^24 / S⌉
-  __host__ __device__ static UnitLayout of(int s) {
+  int xc;
+  __host__ __device__ static UnitLayout of(int s, int xc = 1) {
     int rays = 1, units = (s + 63) / 64;
     if (64 % s == 0) {
       rays = 64 / s;
@@ -61,7 +67,7 @@ struct UnitLayout {
         }
       }
     }
-    return UnitLayout{s, rays, units, ((1u << 24) + (uint32_t)s - 1u) / (uint32_t)s};
+    return UnitLayout{s, rays, units, ((1u << 24) + (uint32_t)s - 1u) / (uint32_t)s, xc};
   }
   // row / S for 0 ≤ row < ITEM_ROWS
   __host__ __device__ int ray_of(int row) const { return (int)(((uint32_t)row * div) >> 24); }
@@ -74,7 +80,8 @@ struct UnitLayout {
 // bundled configs (64 + 64), one ray over SF / 64 units as constants, so
 // that code folds as it did when S was a template argument of every
 // kernel (at a runtime S, K1's 64 + 64 pair took 2.5–4 % longer and K2's
-// tile 2 %). Round r of a CTA group of CTAS gives item (r·CTAS + rank)·
+// tile 2 %); a fixed class reads one xin block (`dispatch_pass` sends a
+// pass of two to the runtime class). Round r of a CTA group of CTAS gives item (r·CTAS + rank)·
 // CHAIN_CONSUMERS + wg to consumer wg of CTA rank; item k holds rays
 // [k·rays, (k + 1)·rays) and the pass's units [k·units, (k + 1)·units).
 template <int SF, int CTAS>
@@ -86,6 +93,7 @@ struct UnitSchedule {
   __host__ __device__ int units() const { return SF ? SF / 64 : l.units; }
   __host__ __device__ int rows() const { return SF ? SF : l.rays * l.S; }
   __host__ __device__ int ray_of(int row) const { return SF ? row / SF : l.ray_of(row); }
+  __host__ __device__ int xc() const { return SF ? 1 : l.xc; }
   __host__ __device__ int rounds(int n_rays) const {
     const int per_round = CTAS * CHAIN_CONSUMERS * wg_rays();
     return (n_rays + per_round - 1) / per_round;
@@ -94,6 +102,13 @@ struct UnitSchedule {
     return (round * CTAS + rank) * CHAIN_CONSUMERS + wg;
   }
 };
+
+// A consumer warpgroup's k-th unit (k = 0, 1, ...) is encoded into its
+// xin buffer xin_buf(k, xc) (a buffer of xc blocks: buffer 0 at xc = 2
+// spans the two blocks of xin[wg]), whose barriers complete phase
+// xin_phase(k, xc) for it.
+__host__ __device__ __forceinline__ int xin_buf(int k, int xc) { return xc == 1 ? k & 1 : 0; }
+__host__ __device__ __forceinline__ int xin_phase(int k, int xc) { return xc == 1 ? (k >> 1) & 1 : k & 1; }
 
 // The producer: one layer's k / 64 chunks of 64 × n bf16 from the chunk
 // images at `src`, each into the next stage (STAGE bytes, at least 128·n)
@@ -117,43 +132,56 @@ __device__ __forceinline__ void load_layer(unsigned char (*stages)[STAGE], uint6
   }
 }
 
-// One layer of a warpgroup's 64 rows: acc = A·W over the layer's NCH
-// chunks of N columns. A is a K-major image in shared memory at xin (64 ×
-// 64 blocks, XIN_BYTES apart: the encoded tile, or K4b's A tile) for the
-// first X_CHUNKS chunks, then the registers a[] (k16 slice s in a[4s ..
-// 4s + 3]). One chunk's group stays in flight while the previous stage is
-// released (`release(stage)`). Afterwards the accumulators and the first
-// A_LIVE A registers are fenced (K2 fences all 64). With FRESH the
-// accumulators' old values are made constants first: the first product
-// does not read them, but its asm operand would keep them live through
-// the epilogue before. A stage holds STAGE bytes: a chunk image's N rows
-// of 64 k, or (K4b's dX) half of them.
+// One layer of a warpgroup's 64 rows: acc = A·W over the layer's chunks
+// of N columns. A is a K-major image in shared memory at xin (64 × 64
+// blocks, XIN_BYTES apart: the encoded tile, or K4b's A tile) for the
+// first X_CHUNKS·xc chunks (xc > 1 only where X_CHUNKS is 1: layer 0 and
+// the skip layer of a wide xin image, xc read at run time in a runtime
+// layout class), then the registers a[] for NCH − X_CHUNKS chunks (k16
+// slice s in a[4s .. 4s + 3], indexed at compile time). One chunk's group
+// stays in flight while the previous stage is released
+// (`release(stage)`). Afterwards the accumulators and the first A_LIVE A
+// registers are fenced (K2 fences all 64). With FRESH the accumulators'
+// old values are made constants first: the first product does not read
+// them, but its asm operand would keep them live through the epilogue
+// before. A stage holds STAGE bytes: a chunk image's N rows of 64 k, or
+// (K4b's dX) half of them.
 template <int N, int NCH, int X_CHUNKS, int RING, bool FRESH = false, int A_LIVE = 64, int STAGE = CHAIN_STAGE,
           class Release>
 __device__ __forceinline__ void chain_layer(float* acc, uint32_t* a, uint32_t xin, unsigned char (*stages)[STAGE],
-                                            uint64_t* full, Ring& ring, const Release& release) {
+                                            uint64_t* full, Ring& ring, const Release& release, int xc = 1) {
   if constexpr (FRESH) {
 #pragma unroll
     for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
   }
+  const int nx = X_CHUNKS * xc;  // the chunks whose A is in shared memory
   int prev = 0;
 #pragma unroll
-  for (int c = 0; c < NCH; ++c) {
+  for (int c = 0; c < nx; ++c) {
     mbar_wait(&full[ring.stage], ring.phase);
     const uint32_t b = smem_u32(stages[ring.stage]);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < KCH / 16; ++kk) {
-      const uint64_t db = desc_k(b + 32 * kk);
-      const int scale = (c > 0 || kk > 0) ? 1 : 0;
-      if (c < X_CHUNKS) {
-        wgmma_ss<N>(acc, desc_k(xin + c * XIN_BYTES + 32 * kk), db, scale);
-      } else {
-        wgmma_rs<N>(acc, a + 4 * ((KCH / 16) * (c - X_CHUNKS) + kk), db, scale);
-      }
-    }
+    for (int kk = 0; kk < KCH / 16; ++kk)
+      wgmma_ss<N>(acc, desc_k(xin + c * XIN_BYTES + 32 * kk), desc_k(b + 32 * kk), (c > 0 || kk > 0) ? 1 : 0);
     wgmma_commit();
     if (c > 0) {
+      wgmma_wait<1>();
+      release(prev);
+    }
+    prev = ring.stage;
+    ring.advance<RING>();
+  }
+#pragma unroll
+  for (int c = 0; c < NCH - X_CHUNKS; ++c) {
+    mbar_wait(&full[ring.stage], ring.phase);
+    const uint32_t b = smem_u32(stages[ring.stage]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KCH / 16; ++kk)
+      wgmma_rs<N>(acc, a + 4 * ((KCH / 16) * c + kk), desc_k(b + 32 * kk), (nx > 0 || c > 0 || kk > 0) ? 1 : 0);
+    wgmma_commit();
+    if (nx > 0 || c > 0) {
       wgmma_wait<1>();
       release(prev);
     }
@@ -241,8 +269,9 @@ struct ChainDirRows {
 // whose first ray is ray0, of schedule g: S = g.samples(), the real rows
 // below g.rows()):
 // row task % 64, the 32 columns [32·(task / 64), +32) of [xyz; sin(x·f +
-// φ); 0], rounded to bf16, into the unit's swizzled xin buffer and, when
-// xg is not null, into the same bytes of a workspace image. A row's point
+// φ); 0], rounded to bf16, into the unit's swizzled xin buffer (column c
+// in the 64-column block c / 64, XIN_BYTES apart) and, when xg is not
+// null, into the same bytes of a workspace image. A row's point
 // is loaded and computed once. The products and sums round separately (no
 // FMA contraction) as in the plain version; `sinf` has full range
 // reduction. Padding rows and rows past the last ray are 0. `a` has the
@@ -251,6 +280,7 @@ template <class G, class A>
 __device__ __forceinline__ void encode_task(unsigned char* xin, unsigned char* xg, int task, const A& a,
                                             const float* freqs, int ray0, int row_base, const G& g) {
   const int r = task & 63, c0 = (task >> 6) * 32;
+  const int block = (c0 >> 6) * XIN_BYTES;  // the task's 32 columns lie in one block
   const int row = row_base + r;
   const int q = g.ray_of(row);  // the item's ray of the row
   const int ray = ray0 + q;
@@ -273,32 +303,34 @@ __device__ __forceinline__ void encode_task(unsigned char* xin, unsigned char* x
   for (int j = 0; j < 32; j += 2) {
     const int c = c0 + j;
     const uint32_t v = pack_bf16(col(c), col(c + 1));
-    *reinterpret_cast<uint32_t*>(xin + sw128(r, c)) = v;
-    if (xg != nullptr) *reinterpret_cast<uint32_t*>(xg + sw128(r, c)) = v;
+    const int off = block + sw128(r, c & 63);
+    *reinterpret_cast<uint32_t*>(xin + off) = v;
+    if (xg != nullptr) *reinterpret_cast<uint32_t*>(xg + off) = v;
   }
 }
 
 // The encoder warps (CHAIN_ENCODERS · 32 threads, index e): every unit of
 // both consumer warpgroups of CTA `rank`, rounds round0, round0 + step, ...
 // below n_rounds of schedule g (a `UnitSchedule`), in the
-// order the consumers take them, each into the next of the warpgroup's two
-// xin buffers once its reader has released it. xg(item, u) is the unit's
-// workspace image, or null.
+// order the consumers take them, each (g.xc() blocks, 2·64·xc tasks) into
+// the warpgroup's next xin buffer (`xin_buf`) once its reader has released
+// it. xg(item, u) is the unit's workspace image, or null.
 template <class G, class A, class Xg>
 __device__ __forceinline__ void encode_units(const G& g, unsigned char (*xin)[2][XIN_BYTES],
                                              uint64_t (*xin_full)[2], uint64_t (*xin_empty)[2], const A& a,
                                              const float* freqs, uint32_t rank, int round0, int step,
                                              int n_rounds, int e, const Xg& xg) {
   int done[CHAIN_CONSUMERS] = {};  // units encoded for each warpgroup
+  const int xc = g.xc(), tasks = 128 * xc;
   for (int round = round0; round < n_rounds; round += step) {
     for (int u = 0; u < g.units(); ++u) {
 #pragma unroll
       for (int wg = 0; wg < CHAIN_CONSUMERS; ++wg) {
-        const int b = done[wg] & 1;
-        mbar_wait(&xin_empty[wg][b], ((done[wg] >> 1) & 1) ^ 1);
+        const int b = xin_buf(done[wg], xc);
+        mbar_wait(&xin_empty[wg][b], xin_phase(done[wg], xc) ^ 1);
         const int item = g.item(round, (int)rank, wg);
         unsigned char* gi = xg(item, u);
-        for (int task = e; task < 128; task += CHAIN_ENCODERS * 32)
+        for (int task = e; task < tasks; task += CHAIN_ENCODERS * 32)
           encode_task(xin[wg][b], gi, task, a, freqs, item * g.wg_rays(), u * 64, g);
         fence_proxy_async();
         mbar_arrive(&xin_full[wg][b]);

@@ -94,16 +94,17 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "fused_paper_render": {
         "nerface_fused_paper_render": ([_P] * 13 + [_I] * 5 + [_P], ctypes.c_int),
+        "nerface_fused_paper_render_shared_bytes": ([_P], None),
     },
     "fused_train_pass": {
         "nerface_fused_train_pass": ([_P] * 17 + [_I] * 5 + [_F] * 3 + [_P], ctypes.c_int),
-        "nerface_fused_train_workspace_bytes": ([_I, _I], ctypes.c_longlong),
+        "nerface_fused_train_workspace_bytes": ([_I] * 3, ctypes.c_longlong),
         "nerface_fused_train_shared_bytes": ([_P], None),
     },
     "fused_paper_mlp": {
         "nerface_fused_paper_mlp_fwd": ([_P] * 7 + [_I] * 4 + [_P], ctypes.c_int),
         "nerface_fused_paper_mlp_bwd": ([_P] * 12 + [_I] * 4 + [_P], ctypes.c_int),
-        "nerface_fused_paper_mlp_workspace_bytes": ([_I, _I], ctypes.c_longlong),
+        "nerface_fused_paper_mlp_workspace_bytes": ([_I] * 3, ctypes.c_longlong),
         "nerface_fused_paper_mlp_shared_bytes": ([_P], None),
     },
     "fused_flex": {
@@ -136,23 +137,29 @@ def load_library(name: str = "fused_paper_render", defines: tuple = ()) -> ctype
 
 
 # The two builds of K1's, K3's and K4's libraries: the fixed layout classes
-# (S = 64 and 128, the passes of the bundled configs) and the runtime class
-# (any other S). Each builds in about half the nvcc time of one library of
-# all of them.
+# (S = 64 and 128, the passes of the bundled configs, at up to 10 xyz
+# bands) and the runtime class (any other S, and the paper kernels' passes
+# of 11..20 bands at any S: the fixed classes read a one-block xin image).
+# Each builds in about half the nvcc time of one library of all of them.
 FIXED_SAMPLES = (64, 128)
 SAMPLE_CLASS_DEFINES = {"fixed": ("NERFACE_SAMPLE_CLASSES=2",), "any": ("NERFACE_SAMPLE_CLASSES=1",)}
 
 
-def sample_class_defines(n_samples: int) -> tuple:
-    """The defines of the build that holds a pass of n_samples samples."""
-    return SAMPLE_CLASS_DEFINES["fixed" if n_samples in FIXED_SAMPLES else "any"]
+def sample_class_defines(n_samples: int, num_encoding_fn_xyz: int = 10) -> tuple:
+    """The defines of the build that holds a pass of n_samples samples at
+    num_encoding_fn_xyz bands (the fixed classes read a K_XIN encoding)."""
+    from nerface_tpu_torch.ops.kernels.fused_mlp import K_XIN, xin_extent
+
+    fixed = n_samples in FIXED_SAMPLES and xin_extent(num_encoding_fn_xyz) == K_XIN
+    return SAMPLE_CLASS_DEFINES["fixed" if fixed else "any"]
 
 
 # the libraries built as the two builds of `SAMPLE_CLASS_DEFINES`
 LAYOUT_LIBRARIES = ("fused_train_pass", "fused_paper_mlp", "fused_flex")
 
 
-def layout_library(name: str, n_samples: int) -> ctypes.CDLL:
-    """`load_library(name)` in the build that holds n_samples' layout class
-    (one of LAYOUT_LIBRARIES)."""
-    return load_library(name, sample_class_defines(n_samples))
+def layout_library(name: str, n_samples: int, num_encoding_fn_xyz: int = 10) -> ctypes.CDLL:
+    """`load_library(name)` in the build that holds the layout class of a
+    pass of n_samples samples at num_encoding_fn_xyz bands (one of
+    LAYOUT_LIBRARIES)."""
+    return load_library(name, sample_class_defines(n_samples, num_encoding_fn_xyz))

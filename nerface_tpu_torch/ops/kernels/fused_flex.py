@@ -63,7 +63,6 @@ from nerface_tpu_torch.ops.kernels.fused_mlp import (
     DIR_HIDDEN,
     HIDDEN,
     K_XIN,
-    MAX_FREQS,
     MAX_SAMPLES,
     _check,
     _device_bands,
@@ -77,6 +76,9 @@ from nerface_tpu_torch.ops.kernels.fused_mlp import (
 
 # the hidden widths the kernels take; layers_dir.0 is h / 2 wide
 WIDTHS = (HIDDEN, 2 * HIDDEN)
+# K4's xyz encoding bands: [xyz; PE] in one K_XIN block (the paper kernels'
+# two-block image past 10 bands is theirs alone, fused_mlp.MAX_FREQS)
+MAX_FREQS = (K_XIN - 3) // 6
 
 
 def check_width(h: int) -> None:

@@ -35,7 +35,10 @@ and has a backward (training and σ-noise renders).
   `pack_kernel_operands` packs them into the two flat buffers the kernels
   read, `pack_transposed_weights` the backward's transposed trunk. The
   offsets below are mirrored as `constexpr`s in the .cu/.cuh files (CPU
-  tests check that they agree). The smaller model keeps the W5/B5 slots,
+  tests check that they agree). The encoding [xyz; PE] is zero-padded to
+  K = 64 up to 10 bands and to K = 128 from 11 to 20 (`xin_extent`); W0 and
+  W3 hold that many encoding rows (`w_layout(kx)`), and the 10-band layout
+  is `W_LAYOUT`. The smaller model keeps the W5/B5 slots,
   zero: its kernels skip that layer.
 * `pack_paper_weights` does K2's packing once per model
   (`PackedPaperWeights`); a call then folds only the conditioning into a
@@ -66,9 +69,27 @@ from nerface_tpu_torch.ops.encoding import _frequency_bands, encoding_tables
 HIDDEN = 256
 DIR_HIDDEN = 128
 # Layer 0 and the skip layer read [xyz(3); PE(6N)], padded with zero
-# columns to one tensor-core K extent: 64 holds N <= 10 bands.
+# columns to a tensor-core K extent kx (`xin_extent`): K_XIN = 64 holds N <=
+# 10 bands, K_XIN_WIDE = 128 (two 64-column blocks) N <= MAX_FREQS = 20.
+# The paper kernels (K2, K3, K1) take both; K4 (fused_flex.py) K_XIN only.
 K_XIN = 64
-MAX_FREQS = (K_XIN - 3) // 6
+K_XIN_WIDE = 128
+MAX_FREQS = (K_XIN_WIDE - 3) // 6
+
+
+def xin_extent(num_encoding_fn_xyz: int) -> int:
+    """The encoding's K extent at N bands: K_XIN up to 10, else K_XIN_WIDE
+    (`xin_extent` in csrc/mma_tile.cuh)."""
+    return K_XIN if 3 + 6 * num_encoding_fn_xyz <= K_XIN else K_XIN_WIDE
+
+
+def check_bands(num_encoding_fn_xyz: int) -> None:
+    """The paper kernels' wrappers take 1..MAX_FREQS xyz encoding bands, on
+    either device (the CPU runs the kernels' plain versions)."""
+    if not 1 <= num_encoding_fn_xyz <= MAX_FREQS:
+        raise ValueError(f"the kernels take 1..{MAX_FREQS} xyz encoding bands, got "
+                         f"{num_encoding_fn_xyz}")
+
 # The paper kernels (K2, K3f, K1, K3b) take any sample count S in
 # 1..MAX_SAMPLES, a runtime value (`MAX_SAMPLES` in csrc/wgmma_chain.cuh).
 MAX_SAMPLES = 256
@@ -131,32 +152,42 @@ def bundle_names(small: bool = False):
     return WEIGHT_NAMES, BIAS_NAMES
 
 
-# Packed bf16 weights, each (in, out) row-major, in this order.
-W_LAYOUT = (
-    ("W0", K_XIN, HIDDEN),            # [w0a; w0b; 0]
-    ("W1", HIDDEN, HIDDEN),
-    ("W2", HIDDEN, HIDDEN),
-    ("W3", K_XIN + HIDDEN, HIDDEN),   # [w3xa; w3xb; 0; w3h]
-    ("W4", HIDDEN, HIDDEN),
-    ("W5", HIDDEN, HIDDEN),
-    ("WF", HIDDEN, HIDDEN),
-    ("WD0", HIDDEN, DIR_HIDDEN),
-    ("WD1", DIR_HIDDEN, DIR_HIDDEN),
-    ("WD2", DIR_HIDDEN, DIR_HIDDEN),
-    ("WA", HIDDEN, 1),
-    ("WRGB", DIR_HIDDEN, 3),
-)
+def w_layout(kx: int = K_XIN):
+    """The packed bf16 weights at encoding extent kx, each (in, out)
+    row-major, in this order: W0 and W3 hold kx encoding rows, which move
+    every later offset (`w_off` in csrc/mma_tile.cuh)."""
+    return (
+        ("W0", kx, HIDDEN),            # [w0a; w0b; 0]
+        ("W1", HIDDEN, HIDDEN),
+        ("W2", HIDDEN, HIDDEN),
+        ("W3", kx + HIDDEN, HIDDEN),   # [w3xa; w3xb; 0; w3h]
+        ("W4", HIDDEN, HIDDEN),
+        ("W5", HIDDEN, HIDDEN),
+        ("WF", HIDDEN, HIDDEN),
+        ("WD0", HIDDEN, DIR_HIDDEN),
+        ("WD1", DIR_HIDDEN, DIR_HIDDEN),
+        ("WD2", DIR_HIDDEN, DIR_HIDDEN),
+        ("WA", HIDDEN, 1),
+        ("WRGB", DIR_HIDDEN, 3),
+    )
+
+
+# The 10-band layout, whose offsets are the .cuh's W_OFF_* constants.
+W_LAYOUT = w_layout(K_XIN)
 # Packed f32 rows: bias rows (cond0/cond3 carry the folded conditioning)
-# and the encoding's frequency bands.
+# and the encoding's frequency bands (MAX_FREQS slots, zero past N); the
+# same at both extents.
 F_LAYOUT = (
     ("COND0", HIDDEN), ("B1", HIDDEN), ("B2", HIDDEN), ("COND3", HIDDEN),
     ("B4", HIDDEN), ("B5", HIDDEN), ("BF", HIDDEN),
     ("BD0", DIR_HIDDEN), ("BD1", DIR_HIDDEN), ("BD2", DIR_HIDDEN),
-    ("BA", 1), ("BRGB", 3), ("FREQS", 16),
+    ("BA", 1), ("BRGB", 3), ("FREQS", MAX_FREQS),
 )
 # The trunk's transposed weights, (out, in) row-major, for the backward's
 # dX products gy @ Wᵀ (K1 and K3b), in this order. They must equal WT_OFF_*
-# in csrc/paper_train.cuh (a CPU test checks it).
+# in csrc/paper_train.cuh (a CPU test checks it). No dX product reads an
+# encoding row (the skip layer's dX reads w3h alone), so the layout is the
+# same at both extents.
 WT_LAYOUT = (
     ("WD2T", DIR_HIDDEN, DIR_HIDDEN),
     ("WD1T", DIR_HIDDEN, DIR_HIDDEN),
@@ -186,7 +217,13 @@ def _offsets(layout):
     return offs
 
 
-W_OFFSETS = _offsets(W_LAYOUT)
+@functools.lru_cache(maxsize=None)
+def w_offsets(kx: int = K_XIN) -> Dict[str, int]:
+    """`w_layout(kx)`'s offsets, in elements, and its TOTAL."""
+    return _offsets(w_layout(kx))
+
+
+W_OFFSETS = w_offsets(K_XIN)
 F_OFFSETS = _offsets(F_LAYOUT)
 WT_OFFSETS = _offsets(WT_LAYOUT)
 
@@ -256,11 +293,12 @@ def _matrix_shapes(n_enc: int) -> Dict[str, tuple]:
 
 
 def _weight_matrices(W):
-    """`W_LAYOUT`'s matrices by name from the kernel-layout matrices `W`:
-    W0 and W3 with their encoding rows zero-padded to K_XIN, and a zero W5
-    where `W` has no w5 (the smaller model)."""
+    """`w_layout(kx)`'s matrices by name from the kernel-layout matrices
+    `W`: W0 and W3 with their encoding rows zero-padded to the bands'
+    extent kx (`xin_extent`), and a zero W5 where `W` has no w5 (the
+    smaller model)."""
     n_enc = W["w0b"].shape[0]
-    zpad = W["w0a"].new_zeros(K_XIN - 3 - n_enc, HIDDEN)
+    zpad = W["w0a"].new_zeros(xin_extent(n_enc // 6) - 3 - n_enc, HIDDEN)
     return {
         "W0": torch.cat([W["w0a"], W["w0b"], zpad]),
         "W1": W["w1"], "W2": W["w2"],
@@ -285,15 +323,15 @@ def _pack_rows(cond0, cond3, W, freqs: torch.Tensor) -> torch.Tensor:
         "B4": W["b4"], "B5": W["b5"] if "b5" in W else W["b4"].new_zeros(HIDDEN),
         "BF": W["bf"], "BD0": W["bd0"], "BD1": W["bd1"], "BD2": W["bd2"],
         "BA": W["ba"], "BRGB": W["brgb"],
-        "FREQS": torch.cat([freqs, freqs.new_zeros(16 - freqs.numel())]),
+        "FREQS": torch.cat([freqs, freqs.new_zeros(MAX_FREQS - freqs.numel())]),
     }
     return torch.cat([rows[name].reshape(-1).float() for name, _ in F_LAYOUT]).contiguous()
 
 
 def pack_kernel_operands(cond0, cond3, W, freqs: torch.Tensor):
-    """(bf16 weights, f32 rows) flat buffers in `W_LAYOUT` / `F_LAYOUT`
-    order, on the params' device; a W without w5/b5 (the smaller model)
-    leaves their slots zero."""
+    """(bf16 weights, f32 rows) flat buffers in `w_layout(kx)` (kx the
+    bands' extent) / `F_LAYOUT` order, on the params' device; a W without
+    w5/b5 (the smaller model) leaves their slots zero."""
     mats = _weight_matrices(W)
     wbuf = torch.cat(
         [mats[name].reshape(-1) for name, *_ in W_LAYOUT]
@@ -333,13 +371,13 @@ def sm90_chunk_image(m: torch.Tensor) -> torch.Tensor:
     return t[:, n, slot ^ (n % 8), :].reshape(-1).contiguous()
 
 
-def pack_sm90_chunks(wbuf: torch.Tensor) -> torch.Tensor:
-    """K2's weight buffer: `wbuf` (W_LAYOUT, bf16) with every matrix of
-    `SM90_CHUNKED` rewritten by `sm90_chunk_image` in place of its rows; the
-    offsets (W_OFFSETS) and the heads are unchanged."""
-    parts = []
-    for name, k, n in W_LAYOUT:
-        m = wbuf[W_OFFSETS[name]:W_OFFSETS[name] + k * n]
+def pack_sm90_chunks(wbuf: torch.Tensor, kx: int = K_XIN) -> torch.Tensor:
+    """K2's weight buffer: `wbuf` (`w_layout(kx)`, bf16) with every matrix
+    of `SM90_CHUNKED` rewritten by `sm90_chunk_image` in place of its rows;
+    the offsets (`w_offsets(kx)`) and the heads are unchanged."""
+    parts, offs = [], w_offsets(kx)
+    for name, k, n in w_layout(kx):
+        m = wbuf[offs[name]:offs[name] + k * n]
         parts.append(sm90_chunk_image(m.reshape(k, n)) if name in SM90_CHUNKED else m)
     return torch.cat(parts).contiguous()
 
@@ -349,7 +387,8 @@ def _backward_weight_gather(small: bool, n_enc: int, device) -> torch.Tensor:
     """Where each element of K1's and K3b's bf16 weight buffer comes from:
     its position in [0; the bundle's matrices flat, in the bundle's
     order]. The buffer is the transposed trunk's chunk images (`WT_LAYOUT`)
-    and then the forward weights' (`W_LAYOUT`, the heads row-major): what
+    and then the forward weights' (`w_layout(kx)` at the extent of n_enc / 6
+    bands, the heads row-major): what
     `pack_sm90_chunks` makes of `pack_transposed_weights` and of
     `pack_kernel_operands`' weights, composed into one gather. The
     transposed trunk comes first: its 917504 bytes keep the forward
@@ -382,7 +421,7 @@ class PackedPaperWeights:
     the plain version reads."""
 
     params: Dict[str, torch.Tensor]
-    wbuf_sm90: torch.Tensor  # bf16, W_LAYOUT's offsets, the chunk images
+    wbuf_sm90: torch.Tensor  # bf16, w_layout(kx)'s offsets, the chunk images
     fbuf: torch.Tensor  # f32, F_LAYOUT
     cond_w: torch.Tensor  # (2, 256, dc) f32: layers_xyz.0/.3 conditioning columns
     num_encoding_fn_xyz: int
@@ -392,12 +431,10 @@ class PackedPaperWeights:
 def pack_paper_weights(
     params: Dict[str, torch.Tensor], num_encoding_fn_xyz: int = 10, log_sampling_xyz: bool = True,
 ) -> PackedPaperWeights:
-    """Check a paper-family model's state dict and pack it for K2; a trunk
-    with no layers_xyz.5 is the smaller model's (`small`)."""
-    if not 1 <= num_encoding_fn_xyz <= MAX_FREQS:
-        raise ValueError(
-            f"kernel takes 1..{MAX_FREQS} xyz encoding bands, got {num_encoding_fn_xyz}"
-        )
+    """Check a paper-family model's state dict and pack it for K2 at its
+    bands' encoding extent; a trunk with no layers_xyz.5 is the smaller
+    model's (`small`)."""
+    check_bands(num_encoding_fn_xyz)
     small = "layers_xyz.5.weight" not in params
     d_pe = 3 + 6 * num_encoding_fn_xyz
     w0, w3 = params["layers_xyz.0.weight"], params["layers_xyz.3.weight"]
@@ -418,7 +455,8 @@ def pack_paper_weights(
     )
     cond_w = torch.stack([w0[:, d_pe:d_pe + dc], w3[:, d_pe:d_pe + dc]]).contiguous()
     return PackedPaperWeights(
-        dict(params), pack_sm90_chunks(wbuf), fbuf, cond_w, num_encoding_fn_xyz, log_sampling_xyz
+        dict(params), pack_sm90_chunks(wbuf, xin_extent(num_encoding_fn_xyz)), fbuf, cond_w,
+        num_encoding_fn_xyz, log_sampling_xyz
     )
 
 
@@ -632,8 +670,7 @@ def _check_kernel_call(name, ray_origins, ray_directions, z_vals, num_encoding_f
         raise ValueError(f"{name} runs on cuda or cpu, not {dev}")
     n_rays, n_samples = z_vals.shape
     check_samples(n_samples)
-    if not 1 <= num_encoding_fn_xyz <= MAX_FREQS:
-        raise ValueError(f"kernel takes 1..{MAX_FREQS} xyz encoding bands")
+    check_bands(num_encoding_fn_xyz)
     _check("ray_origins", ray_origins, (n_rays, 3), dev)
     _check("ray_directions", ray_directions, (n_rays, 3), dev)
     _check("z_vals", z_vals, (n_rays, n_samples), dev)
@@ -671,6 +708,7 @@ def fused_paper_render(
         raise ValueError(f"called with small={small} on the weights of the "
                          f"{'paper' if small else 'smaller'} model")
     check_samples(z_vals.shape[-1])
+    check_bands(num_encoding_fn_xyz)
     if dev.type == "cpu":
         return fused_paper_render_reference(
             state, ray_origins, ray_directions, z_vals, dir_contrib, cond,
@@ -807,20 +845,23 @@ def _kernel_operands(bundle, n_rays, dev, num_encoding_fn_xyz, log_sampling_xyz,
 
 
 def _split_kernel_grads(dwbuf, dfbuf, n_enc, small=False):
-    """The kernels' packed f32 gradients -> ((d_cond0, d_cond3), weight
-    gradients, bias gradients) in the bundle's shapes; the zero-padded
-    rows of W0/W3 (and the smaller model's W5/B5 slots) are dropped."""
+    """The kernels' packed f32 gradients (`w_layout(kx)` at the extent of
+    n_enc / 6 bands, `F_LAYOUT`) -> ((d_cond0, d_cond3), weight gradients,
+    bias gradients) in the bundle's shapes; the zero-padded rows of W0/W3
+    (and the smaller model's W5/B5 slots) are dropped."""
+    kx = xin_extent(n_enc // 6)
+    offs = w_offsets(kx)
 
     def mat(name, rows, cols):
-        o = W_OFFSETS[name]
+        o = offs[name]
         return dwbuf[o:o + rows * cols].reshape(rows, cols)
 
-    w0 = mat("W0", K_XIN, HIDDEN)
-    w3 = mat("W3", K_XIN + HIDDEN, HIDDEN)
+    w0 = mat("W0", kx, HIDDEN)
+    w3 = mat("W3", kx + HIDDEN, HIDDEN)
     gw = {
         "w0a": w0[:3], "w0b": w0[3:3 + n_enc], "w1": mat("W1", HIDDEN, HIDDEN),
         "w2": mat("W2", HIDDEN, HIDDEN), "w3xa": w3[:3], "w3xb": w3[3:3 + n_enc],
-        "w3h": w3[K_XIN:], "w4": mat("W4", HIDDEN, HIDDEN), "w5": mat("W5", HIDDEN, HIDDEN),
+        "w3h": w3[kx:], "w4": mat("W4", HIDDEN, HIDDEN), "w5": mat("W5", HIDDEN, HIDDEN),
         "wf": mat("WF", HIDDEN, HIDDEN), "wa": mat("WA", HIDDEN, 1),
         "wd0": mat("WD0", HIDDEN, DIR_HIDDEN), "wd1": mat("WD1", DIR_HIDDEN, DIR_HIDDEN),
         "wd2": mat("WD2", DIR_HIDDEN, DIR_HIDDEN), "wrgb": mat("WRGB", DIR_HIDDEN, 3),
@@ -887,6 +928,7 @@ def fused_paper_mlp_forward(
     kw = dict(num_encoding_fn_xyz=num_encoding_fn_xyz, log_sampling_xyz=log_sampling_xyz,
               small=small)
     check_samples(z_vals.shape[-1])
+    check_bands(num_encoding_fn_xyz)
     if ray_origins.device.type == "cpu":
         return fused_paper_mlp_reference(bundle, ray_origins, ray_directions, z_vals, **kw)
     dev = _check_kernel_call("fused_paper_mlp_forward", ray_origins, ray_directions, z_vals,
@@ -913,7 +955,7 @@ def _launch_paper_fwd(operands, per_ray, out, num_encoding_fn_xyz, small):
     dir_c, wbuf, fbuf, _ = operands
     ro, rd, z = per_ray
     n_rays, n_samples = z.shape
-    lib = layout_library("fused_paper_mlp", n_samples)
+    lib = layout_library("fused_paper_mlp", n_samples, num_encoding_fn_xyz)
     with torch.cuda.device(ro.device):
         stream = torch.cuda.current_stream(ro.device).cuda_stream
         err = lib.nerface_fused_paper_mlp_fwd(
@@ -936,6 +978,7 @@ def fused_paper_mlp_backward(
     kw = dict(num_encoding_fn_xyz=num_encoding_fn_xyz, log_sampling_xyz=log_sampling_xyz,
               small=small)
     check_samples(z_vals.shape[-1])
+    check_bands(num_encoding_fn_xyz)
     if ray_origins.device.type == "cpu":
         return fused_paper_mlp_backward_reference(
             bundle, ray_origins, ray_directions, z_vals, g, **kw)
@@ -945,8 +988,8 @@ def fused_paper_mlp_backward(
     _check("g", g, (n_rays, n_samples, 4), dev)
     operands = _kernel_operands(bundle, n_rays, dev, num_encoding_fn_xyz, log_sampling_xyz,
                                 small, transposed=True)
-    out = paper_bwd_outputs(n_rays, dev)
-    ws = paper_bwd_workspace(n_rays, n_samples, dev)
+    out = paper_bwd_outputs(n_rays, dev, num_encoding_fn_xyz)
+    ws = paper_bwd_workspace(n_rays, n_samples, dev, num_encoding_fn_xyz)
     _launch_paper_bwd(operands, (ray_origins, ray_directions, z_vals, g), out, ws,
                       num_encoding_fn_xyz, small)
     (d_cond0, d_cond3), gw, gb = _split_kernel_grads(out["dw"], out["df"],
@@ -956,23 +999,24 @@ def fused_paper_mlp_backward(
     return _regroup(d_cond0, d_cond3, out["d_dir"], gw, gb, small)
 
 
-def paper_bwd_outputs(n_rays: int, dev) -> Dict[str, torch.Tensor]:
+def paper_bwd_outputs(n_rays: int, dev, num_encoding_fn_xyz: int = 10) -> Dict[str, torch.Tensor]:
     """K3b's uninitialised f32 outputs: the packed weight and row
-    gradients (`W_LAYOUT` / `F_LAYOUT`) and d_dir (R, 128)."""
+    gradients (`w_layout(kx)` at the bands' extent / `F_LAYOUT`) and d_dir
+    (R, 128)."""
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
-    return {"dw": empty(W_OFFSETS["TOTAL"]), "df": empty(F_OFFSETS["TOTAL"]),
-            "d_dir": empty(n_rays, DIR_HIDDEN)}
+    return {"dw": empty(w_offsets(xin_extent(num_encoding_fn_xyz))["TOTAL"]),
+            "df": empty(F_OFFSETS["TOTAL"]), "d_dir": empty(n_rays, DIR_HIDDEN)}
 
 
-def paper_bwd_workspace(n_rays: int, n_samples: int, dev) -> torch.Tensor:
+def paper_bwd_workspace(n_rays: int, n_samples: int, dev, num_encoding_fn_xyz: int = 10) -> torch.Tensor:
     """K3b's device workspace for a pass (`csrc/paper_train.cuh`)."""
     from nerface_tpu_torch.ops.kernels.build import layout_library
 
-    nbytes = layout_library("fused_paper_mlp", n_samples).nerface_fused_paper_mlp_workspace_bytes(
-        n_rays, n_samples)
+    lib = layout_library("fused_paper_mlp", n_samples, num_encoding_fn_xyz)
+    nbytes = lib.nerface_fused_paper_mlp_workspace_bytes(n_rays, n_samples, num_encoding_fn_xyz)
     return torch.empty(nbytes, dtype=torch.uint8, device=dev)
 
 
@@ -986,7 +1030,7 @@ def _launch_paper_bwd(operands, per_ray, out, ws, num_encoding_fn_xyz, small):
     dir_c, wbuf, fbuf, wtbuf = operands
     ro, rd, z, g = per_ray
     n_rays, n_samples = z.shape
-    lib = layout_library("fused_paper_mlp", n_samples)
+    lib = layout_library("fused_paper_mlp", n_samples, num_encoding_fn_xyz)
     with torch.cuda.device(ro.device):
         stream = torch.cuda.current_stream(ro.device).cuda_stream
         err = lib.nerface_fused_paper_mlp_bwd(

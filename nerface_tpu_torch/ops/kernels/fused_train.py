@@ -45,7 +45,6 @@ from nerface_tpu_torch.ops.kernels.fused_mlp import (
     F_OFFSETS,
     HIDDEN,
     K_XIN,
-    W_OFFSETS,
     _check,
     _check_kernel_call,
     _encode_points,
@@ -58,24 +57,33 @@ from nerface_tpu_torch.ops.kernels.fused_mlp import (
     _trunk_forward_reference,
     _unbundle,
     bundle_names,
+    check_bands,
     check_samples,
     unit_layout,
+    w_offsets,
+    xin_extent,
 )
 
 
 # The device workspace of a K1 / K3b call (csrc/paper_train.cuh, `WsBuffer`
 # and `carve`): these bf16 buffers in this order, each one matrix of the
 # pass (sample rows × width) as wgmma operand images (`workspace_image`),
-# then each consumer warp's and each CTA's f32 partial row (PART_COLS: the
-# bias rows, WA, WRGB) and dW's DWG_SEGS row segments; every piece aligned
-# to 256 bytes. A CPU test holds these to the .cuh.
-WS_BUFFERS = (
-    ("xin", K_XIN), ("h0", HIDDEN), ("h1", HIDDEN), ("h2", HIDDEN), ("h3", HIDDEN),
-    ("h4", HIDDEN), ("h5", HIDDEN), ("feat", HIDDEN), ("x0", DIR_HIDDEN), ("x1", DIR_HIDDEN),
-    ("x2", DIR_HIDDEN), ("gx2", DIR_HIDDEN), ("gx1", DIR_HIDDEN), ("gx0", DIR_HIDDEN),
-    ("gfeat", HIDDEN), ("gh0", HIDDEN), ("gh1", HIDDEN), ("gh2", HIDDEN), ("gh3", HIDDEN),
-    ("gh4", HIDDEN), ("gh5", HIDDEN),
-)
+# xin's width the pass's encoding extent kx (`xin_extent`), then each
+# consumer warp's and each CTA's f32 partial row (PART_COLS: the bias rows,
+# WA, WRGB) and dW's DWG_SEGS row segments (`w_offsets(kx)["WA"]` columns);
+# every piece aligned to 256 bytes. A CPU test holds these to the .cuh.
+def ws_buffers(kx: int = K_XIN):
+    """(name, width) of the workspace's bf16 buffers at encoding extent kx."""
+    return (
+        ("xin", kx), ("h0", HIDDEN), ("h1", HIDDEN), ("h2", HIDDEN), ("h3", HIDDEN),
+        ("h4", HIDDEN), ("h5", HIDDEN), ("feat", HIDDEN), ("x0", DIR_HIDDEN), ("x1", DIR_HIDDEN),
+        ("x2", DIR_HIDDEN), ("gx2", DIR_HIDDEN), ("gx1", DIR_HIDDEN), ("gx0", DIR_HIDDEN),
+        ("gfeat", HIDDEN), ("gh0", HIDDEN), ("gh1", HIDDEN), ("gh2", HIDDEN), ("gh3", HIDDEN),
+        ("gh4", HIDDEN), ("gh5", HIDDEN),
+    )
+
+
+WS_BUFFERS = ws_buffers(K_XIN)
 K1_CTAS = 132  # the persistent grid's CTAs at most
 WARPS_A_CTA = 8  # consumer warps of a CTA
 DWG_SEGS = 7  # dW's row segments
@@ -291,6 +299,7 @@ def fused_train_pass(
     shapes, d_bg (R, 3) when `train_bg` else None."""
     n_rays, n_samples = z_vals.shape
     check_samples(n_samples)
+    check_bands(num_encoding_fn_xyz)
     if noise_std > 0.0 and noise is None:
         raise ValueError("noise_std > 0 requires a noise array")
     if (sup_bg_scale > 0.0 or train_bg) and background is None:
@@ -312,8 +321,8 @@ def fused_train_pass(
         _check("noise", noise, (n_rays, n_samples), dev)
     operands = _kernel_operands(bundle, n_rays, dev, num_encoding_fn_xyz, log_sampling_xyz,
                                 small, transposed=True)
-    out = train_outputs(n_rays, n_samples, train_bg, dev)
-    ws = train_workspace(n_rays, n_samples, dev)
+    out = train_outputs(n_rays, n_samples, train_bg, dev, num_encoding_fn_xyz)
+    ws = train_workspace(n_rays, n_samples, dev, num_encoding_fn_xyz)
     _launch_train(operands, (ray_origins, ray_directions, z_vals, target, background,
                              noise if noise_std > 0.0 else None), out, ws,
                   num_encoding_fn_xyz=num_encoding_fn_xyz, white_background=white_background,
@@ -327,25 +336,28 @@ def fused_train_pass(
     return {"rgb": out["rgb"], "weights": out["weights"]}, grads, out["d_bg"]
 
 
-def train_outputs(n_rays: int, n_samples: int, train_bg: bool, dev) -> dict:
+def train_outputs(n_rays: int, n_samples: int, train_bg: bool, dev,
+                  num_encoding_fn_xyz: int = 10) -> dict:
     """K1's uninitialised f32 outputs: rgb (R, 3), weights (R, S), the
-    packed weight and row gradients (`W_OFFSETS` / `F_OFFSETS`), d_dir
-    (R, 128), and d_bg (R, 3) with `train_bg` (else None)."""
+    packed weight and row gradients (`w_offsets(kx)` at the bands' extent /
+    `F_OFFSETS`), d_dir (R, 128), and d_bg (R, 3) with `train_bg` (else
+    None)."""
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
     return {"rgb": empty(n_rays, 3), "weights": empty(n_rays, n_samples),
-            "dw": empty(W_OFFSETS["TOTAL"]), "df": empty(F_OFFSETS["TOTAL"]),
+            "dw": empty(w_offsets(xin_extent(num_encoding_fn_xyz))["TOTAL"]),
+            "df": empty(F_OFFSETS["TOTAL"]),
             "d_dir": empty(n_rays, DIR_HIDDEN), "d_bg": empty(n_rays, 3) if train_bg else None}
 
 
-def train_workspace(n_rays: int, n_samples: int, dev) -> torch.Tensor:
-    """K1's device workspace for a pass (`WS_BUFFERS`, csrc/paper_train.cuh)."""
+def train_workspace(n_rays: int, n_samples: int, dev, num_encoding_fn_xyz: int = 10) -> torch.Tensor:
+    """K1's device workspace for a pass (`ws_buffers`, csrc/paper_train.cuh)."""
     from nerface_tpu_torch.ops.kernels.build import layout_library
 
-    nbytes = layout_library("fused_train_pass", n_samples).nerface_fused_train_workspace_bytes(
-        n_rays, n_samples)
+    lib = layout_library("fused_train_pass", n_samples, num_encoding_fn_xyz)
+    nbytes = lib.nerface_fused_train_workspace_bytes(n_rays, n_samples, num_encoding_fn_xyz)
     return torch.empty(nbytes, dtype=torch.uint8, device=dev)
 
 
@@ -361,7 +373,7 @@ def _launch_train(operands, per_ray, out, ws, *, num_encoding_fn_xyz, white_back
     dir_c, wbuf, fbuf, wtbuf = operands
     ro, rd, z, tgt, bg, noise = per_ray
     n_rays, n_samples = z.shape
-    lib = layout_library("fused_train_pass", n_samples)
+    lib = layout_library("fused_train_pass", n_samples, num_encoding_fn_xyz)
     with torch.cuda.device(ro.device):
         stream = torch.cuda.current_stream(ro.device).cuda_stream
         err = lib.nerface_fused_train_pass(

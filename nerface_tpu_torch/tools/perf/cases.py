@@ -70,26 +70,27 @@ def resample_inputs(n_rays, n_coarse, n_fine, seed, dev, spike=0.0):
     return [x.to(dev).contiguous() for x in (z, w, u)]
 
 
-def paper_params(seed, dev, small=False):
-    """He-scaled random weights of the paper model (or the smaller one),
-    as a state dict of detached tensors."""
+def paper_params(seed, dev, small=False, bands=10):
+    """He-scaled random weights of the paper model (or the smaller one) at
+    `bands` xyz encoding bands, as a state dict of detached tensors."""
     from nerface_tpu_torch.models.nerf_models import (
         ConditionalBlendshapePaperNeRFModel,
         ConditionalBlendshapePaperSmallerNeRFModel,
     )
 
     cls = ConditionalBlendshapePaperSmallerNeRFModel if small else ConditionalBlendshapePaperNeRFModel
-    model = cls(num_encoding_fn_xyz=10, num_encoding_fn_dir=4, include_input_dir=False, device=dev,
+    model = cls(num_encoding_fn_xyz=bands, num_encoding_fn_dir=4, include_input_dir=False, device=dev,
                 generator=torch.Generator().manual_seed(seed))
     return {k: v.detach() for k, v in he_scale(model).named_parameters()}
 
 
-def paper_case(R, S, seed, dev, small=False):
-    """He-scaled random paper-family weights prefolded into K1's bundle,
-    and a pass's rays (σ-noise, a background, a cotangent g)."""
+def paper_case(R, S, seed, dev, small=False, bands=10):
+    """He-scaled random paper-family weights at `bands` xyz bands prefolded
+    into K1's bundle, and a pass's rays (σ-noise, a background, a cotangent
+    g)."""
     from nerface_tpu_torch.ops.kernels import fused_train as T
 
-    params = paper_params(seed, dev, small)
+    params = paper_params(seed, dev, small, bands)
     g = torch.Generator().manual_seed(seed + 1)
     ro, rd, z = ray_draws(R, S, g)
     cond = conditioning(g)
@@ -98,7 +99,7 @@ def paper_case(R, S, seed, dev, small=False):
                 g=torch.randn(R, S, 4, generator=g) * 1e-3)
     rays = {k: v.to(dev).contiguous() for k, v in rays.items()}
     bundle = [t.contiguous() for t in
-              T.prefold_paper_params(params, cond.to(dev), rays["pe_dir"], 10, small=small)]
+              T.prefold_paper_params(params, cond.to(dev), rays["pe_dir"], bands, small=small)]
     return bundle, rays
 
 

@@ -640,6 +640,134 @@ def test_paper_mlp_backward_persistent_grid(cuda_device, small, R, S):
     _assert_grads_close(_bundle_names(small), grads, rgrads, R)
 
 
+# -- the paper kernels at 11..20 xyz bands (a K = 128 encoding) ------------------
+# Past 10 bands K2, K3f, K3b and K1 read two 64-column blocks of [xyz; PE;
+# 0] in their runtime layout class at any S. Held to their plain versions
+# as in chip_smoke.py [xyz_bands]: K2's maps and K3f within `tc_limit`, K3b
+# within `k3b_grad_limits` of the tensor-core yardstick, K1 within
+# `k1_grad_limits`; K1 and K3b bit-identical over two launches.
+
+
+def _paper_band_case(dev, small, L, R, S, seed):
+    """(K2's params, K1 / K3's bundle, rays) of a paper-family model at L bands."""
+    from nerface_tpu_torch.ops.kernels.fused_train import prefold_paper_params
+
+    params = _k1_params(seed, dev, small=small, bands=L)
+    ro, rd, z, tgt, bg, noise, pe_dir, cond = _train_inputs(R, S, dev, seed=seed + R + S)
+    bundle = [t.contiguous() for t in prefold_paper_params(
+        params, cond, pe_dir, L, small=small, dir_expr_offset=(256 + 24) if small else 0)]
+    _, _, _, dc, _, _ = _inputs(R, S, dev, seed=seed + 1)
+    return params, bundle, (ro, rd, z, tgt, bg, noise, dc, cond)
+
+
+def _check_paper_kernels_at(dev, small, L, R, S, seed):
+    from nerface_tpu_torch.ops.kernels import fused_train as T
+
+    params, bundle, (ro, rd, z, tgt, bg, noise, dc, cond) = _paper_band_case(dev, small, L, R, S, seed)
+    kb = dict(num_encoding_fn_xyz=L, small=small)
+    kw = dict(background=bg, out_weights=True, **kb)
+    launches = (K.fused_paper_render.launches, K.fused_paper_mlp_forward.launches,
+                K.fused_paper_mlp_backward.launches, T.fused_train_pass.launches)
+    got = K.fused_paper_render(K.pack_paper_weights(params, L), ro, rd, z, dc, cond, **kw)
+    got2 = K.fused_paper_render(params, ro, rd, z, dc, cond, **kw)
+    torch.cuda.synchronize()
+    for k in got:
+        assert torch.equal(got[k], got2[k]), k
+    ref = K.fused_paper_render_reference(params, ro, rd, z, dc, cond, **kw)
+    _assert_close(got, ref, tensor_core_plain(lambda: K.fused_paper_render_reference(params, ro, rd, z, dc, cond,
+                                                                                         **kw)))
+    out = K.fused_paper_mlp_forward(bundle, ro, rd, z, **kb)
+    refo = K.fused_paper_mlp_reference(bundle, ro, rd, z, **kb)
+    tco = tensor_core_plain(lambda: K.fused_paper_mlp_reference(bundle, ro, rd, z, **kb))
+    for sl in (slice(0, 3), slice(3, 4)):
+        tol = tc_limit(K3_OUT_TOL, rel_err(tco[..., sl], refo[..., sl])[0])
+        torch.testing.assert_close(out[..., sl], refo[..., sl], atol=tol * float(refo[..., sl].abs().max()), rtol=0)
+    g = (torch.randn(R, S, 4, generator=torch.Generator().manual_seed(S + L)) / R).to(dev)
+    grads = K.fused_paper_mlp_backward(bundle, ro, rd, z, g, **kb)
+    grads2 = K.fused_paper_mlp_backward(bundle, ro, rd, z, g, **kb)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads2)), "K3b not deterministic"
+    assert grads[3 + 1].shape == (6 * L, 256)  # w0b
+    _assert_grads_close(_bundle_names(small), grads, K.fused_paper_mlp_backward_reference(bundle, ro, rd, z, g, **kb),
+                        R, tensor_core_plain(lambda: K.fused_paper_mlp_backward_reference(bundle, ro, rd, z, g, **kb)))
+    kw1 = dict(loss_scale=2.0 / (3.0 * R), background=bg, noise=noise, noise_std=0.1, **kb)
+    got, grads, _ = T.fused_train_pass(bundle, ro, rd, z, tgt, **kw1)
+    _, grads2, _ = T.fused_train_pass(bundle, ro, rd, z, tgt, **kw1)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads2)), "K1 not deterministic"
+    ref, rgrads, _ = T.fused_train_pass_reference(bundle, ro, rd, z, tgt, **kw1)
+    for k in ("rgb", "weights"):
+        torch.testing.assert_close(got[k], ref[k], atol=2e-3, rtol=0, msg=k)
+    _assert_grads_close(_bundle_names(small), grads, rgrads, R)
+    assert (K.fused_paper_render.launches, K.fused_paper_mlp_forward.launches,
+            K.fused_paper_mlp_backward.launches, T.fused_train_pass.launches) == (
+        launches[0] + 2, launches[1] + 1, launches[2] + 2, launches[3] + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("small", [False, True], ids=["paper", "small"])
+@pytest.mark.parametrize("L", [11, 20])
+@pytest.mark.parametrize("R,S", [(512, 64), (77, 128), (301, 24), (40, 256)], ids=["s64", "s128", "s24", "s256"])
+def test_paper_kernels_take_11_and_20_bands(cuda_device, small, L, R, S):
+    """K2, K3f, K3b and K1 at the band counts where the K = 128 encoding
+    starts and ends, at the fixed layout classes' S (which run the runtime
+    class past 10 bands) and at runtime ones, against their plain versions."""
+    _check_paper_kernels_at(cuda_device, small, L, R, S, seed=L + S)
+
+
+# ray counts past one round of the grid (132 CTAs, or 66 two-CTA clusters
+# for K2, × 2 items), each ragged, at 16 bands
+PE16_PERSISTENT_CASES = [(2085, 64), (601, 128), (2200, 24), (601, 192)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("small", [False, True], ids=["paper", "small"])
+@pytest.mark.parametrize("R,S", PE16_PERSISTENT_CASES, ids=["s64", "s128", "s24", "s192"])
+def test_paper_kernels_persistent_grid_at_16_bands(cuda_device, small, R, S):
+    """K2 and K1 (and K3f / K3b) at 16 bands on a pass past one round of
+    their persistent grids: the one 16 KB xin buffer a warpgroup carries
+    the encoders round after round."""
+    from nerface_tpu_torch.ops.kernels import fused_train as T
+
+    _, ctas = T.workspace_geometry(R, S)
+    assert ctas == T.K1_CTAS and R > 2 * T.K1_CTAS * T.unit_layout(S)[0]
+    _check_paper_kernels_at(cuda_device, small, 16, R, S, seed=R + S)
+
+
+@pytest.mark.cuda
+def test_paper_entry_points_take_1_to_20_bands(cuda_device):
+    """The C entry points of K2, K3f, K3b and K1, in every build, return
+    cudaErrorInvalidValue (1) for n_freqs outside 1..20 before they read a
+    pointer, and the workspace sizes are -1 there; at 11 and 20 the
+    workspace is larger than at 10 by xin's 64 more columns (and dW's
+    partial rows' 2·64 more rows of W0 / W3). Nothing is launched."""
+    import ctypes
+
+    from nerface_tpu_torch.ops.kernels.build import SAMPLE_CLASS_DEFINES, load_library
+
+    null = ctypes.c_void_p(0)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(cuda_device).cuda_stream)
+    k2 = load_library("fused_paper_render")
+    f0 = ctypes.c_float(0.0)
+    for L in (0, -1, 21, 64):
+        assert k2.nerface_fused_paper_render(*[null] * 13, 8, 64, L, 0, 0, stream) == 1, L
+    for defines in SAMPLE_CLASS_DEFINES.values():
+        k1 = load_library("fused_train_pass", defines)
+        k3 = load_library("fused_paper_mlp", defines)
+        for L in (0, -1, 21, 64):
+            assert k1.nerface_fused_train_pass(*[null] * 17, 8, 64, L, 0, 0, f0, f0, f0, stream) == 1, L
+            assert k3.nerface_fused_paper_mlp_fwd(*[null] * 7, 8, 64, L, 0, stream) == 1, L
+            assert k3.nerface_fused_paper_mlp_bwd(*[null] * 12, 8, 64, L, 0, stream) == 1, L
+            assert k1.nerface_fused_train_workspace_bytes(2048, 64, L) == -1, L
+            assert k3.nerface_fused_paper_mlp_workspace_bytes(2048, 64, L) == -1, L
+        for lib, fn in ((k1, "nerface_fused_train_workspace_bytes"), (k3, "nerface_fused_paper_mlp_workspace_bytes")):
+            ws = {L: getattr(lib, fn)(2048, 64, L) for L in (1, 10, 11, 20)}
+            assert ws[1] == ws[10] and ws[11] == ws[20], ws
+            units = 2048  # one ray in one unit at S = 64
+            assert ws[11] - ws[10] >= units * 64 * 128 + 7 * 2 * 64 * 256 * 4 - 256 * 2, ws
+    torch.cuda.synchronize()
+
+
 # -- K4f and K4b's persistent grid (csrc/fused_flex.cu) ----------------------
 # The same ragged ray counts past one round of the 132-CTA grid, at 0, 3 and
 # 8 hidden layers: the chunk sequences and the workspace follow n. At 8

@@ -196,12 +196,15 @@ def test_workspace_layout_matches_cuda_source():
     names = [x.strip() for x in enum.replace("\n", " ").split(",") if x.strip()]
     assert names[-1] == "WS_BUFFERS"
     assert [n[3:].lower() for n in names[:-1]] == [b for b, _ in T.WS_BUFFERS]
-    width = re.search(r"constexpr int ws_width\(int b\) \{(.+?)\n\}", HDR, re.S).group(1)
+    width = re.search(r"constexpr int ws_width\(int b, int kx\) \{(.+?)\n\}", HDR, re.S).group(1)
+    assert width.strip().startswith("return b == WS_XIN ? kx")
     narrow = set(re.findall(r"b == (WS_\w+)", width.split("?", 1)[1]))
-    for name, w in T.WS_BUFFERS:
-        cu = "WS_" + name.upper()
-        want = K.K_XIN if cu == "WS_XIN" else K.DIR_HIDDEN if cu in narrow else K.HIDDEN
-        assert w == want, name
+    assert T.WS_BUFFERS == T.ws_buffers(K.K_XIN)
+    for kx in (K.K_XIN, K.K_XIN_WIDE):
+        for name, w in T.ws_buffers(kx):
+            cu = "WS_" + name.upper()
+            want = kx if cu == "WS_XIN" else K.DIR_HIDDEN if cu in narrow else K.HIDDEN
+            assert w == want, name
     for const, value in (("K1_CTAS", T.K1_CTAS), ("WARPS_A_CTA", T.WARPS_A_CTA)):
         m = re.search(rf"constexpr int {const} = ([\w *+()]+);", HDR)
         assert eval(m.group(1), {}, {"CONSUMERS": 2}) == value, const
@@ -211,8 +214,8 @@ def test_workspace_layout_matches_cuda_source():
     # carve: the bf16 buffers in enum order, then the partial rows and dW's segments
     carve = HDR[HDR.index("inline size_t carve("):HDR.index("inline long long workspace_bytes(")]
     order = [m.group(1) for m in re.finditer(r"w\.([\w\[\]]+) = ", carve)]
-    assert order == ["buf[b]", "warp_part", "tile_part", "dw_part"]
-    assert "ctas * WARPS_A_CTA * PART_COLS" in carve and "DWG_SEGS * W_OFF_WA" in carve
+    assert order == ["buf[b]", "warp_part", "tile_part", "dw_part", "kx"]  # kx: xin's width, no bytes
+    assert "ctas * WARPS_A_CTA * PART_COLS" in carve and "DWG_SEGS * w_off(W_OFF_WA, kx)" in carve
 
 
 @pytest.mark.parametrize("R,S,units,ctas", [(2048, 128, 4096, 132), (2048, 64, 2048, 132),
@@ -227,12 +230,16 @@ def test_chunk_sequences_match_cuda_source():
     the smaller model skipping W5 and W5ᵀ; the consumers' layer<N, chunks>
     sequence is the same, forward and dX."""
     body = HDR[HDR.index("void round_layers("):HDR.index("// The producer:")]
-    seq = [(m.group(1), m.group(2), eval(m.group(3), {}, CONST), eval(m.group(4), {}, CONST))
-           for m in re.finditer(r"fn\((WT?) \+ WT?_OFF_(\w+), ([\w +]+), (\w+)\);", body)]
+    for kx in (K.K_XIN, K.K_XIN_WIDE):
+        env = dict(CONST, kx=kx)
+        seq = [(m.group(1), m.group(2), eval(m.group(3), {}, env), eval(m.group(4), {}, env))
+               for m in re.finditer(r"fn\((WT?) \+ (?:w_off\()?WT?_OFF_(\w+)(?:, kx\))?, ([\w +]+), (\w+)\);",
+                                    body)]
+        chunked = [(n, k, c) for n, k, c in K.w_layout(kx) if n in K.SM90_CHUNKED]
+        assert [(s[1], s[2], s[3]) for s in seq if s[0] == "W"] == chunked
+        assert [(s[1], s[2], s[3]) for s in seq if s[0] == "WT"] == list(K.WT_LAYOUT)
+    assert "if (!SMALL) fn(W + w_off(W_OFF_W5, kx)," in body and "if (!SMALL) fn(WT + WT_OFF_W5T," in body
     fwd = [(n, k, c) for n, k, c in K.W_LAYOUT if n in K.SM90_CHUNKED]
-    assert [(s[1], s[2], s[3]) for s in seq if s[0] == "W"] == fwd
-    assert [(s[1], s[2], s[3]) for s in seq if s[0] == "WT"] == list(K.WT_LAYOUT)
-    assert "if (!SMALL) fn(W + W_OFF_W5," in body and "if (!SMALL) fn(WT + WT_OFF_W5T," in body
     fu = HDR[HDR.index("void forward_unit("):HDR.index("// -- dX")]
     layers = [(eval(m.group(1), {}, CONST), int(m.group(2)))
               for m in re.finditer(r"\blayer<(\w+), (\d+), \d+>\(", fu)]
@@ -243,19 +250,23 @@ def test_chunk_sequences_match_cuda_source():
     assert layers == [(n, k // 64) for _, k, n in K.WT_LAYOUT]
 
 
-def test_dw_products_cover_every_matrix_once():
+@pytest.mark.parametrize("kx", [64, 128])
+def test_dw_products_cover_every_matrix_once(kx):
     """launch_pass's dW list: each product's X and gY widths are its
-    matrix's K and N, and the products tile W_LAYOUT below WA exactly."""
+    matrix's K and N, and the products tile `w_layout(kx)` below WA
+    exactly, at both encoding extents (`O` is `w_off(·, kx)`)."""
     lp = HDR[HDR.index("int launch_pass("):]
-    prods = re.findall(r"\{B\((?:SMALL \? WS_H4 : )?(WS_\w+)\), B\((WS_\w+)\), (\w+), (\w+), ([\w +*]+)\}", lp)
+    prods = re.findall(r"\{B\((?:SMALL \? WS_H4 : )?(WS_\w+)\), B\((WS_\w+)\), (\w+), (\w+), ([\w +*()]+)\}", lp)
     assert len(prods) == 11 and prods[-1][0] == "WS_H4" and prods[-1][1] == "WS_GH5"
-    widths = dict(("WS_" + n.upper(), w) for n, w in T.WS_BUFFERS)
-    offs = {f"W_OFF_{k}": v for k, v in K.W_OFFSETS.items()}
-    covered = np.zeros(K.W_OFFSETS["WA"], np.int32)
+    assert "auto O = [&](int off) { return w_off(off, kx); };" in lp and "const int kx = ws.kx;" in lp
+    widths = dict(("WS_" + n.upper(), w) for n, w in T.ws_buffers(kx))
+    offs = K.w_offsets(kx)
+    env = dict(CONST, kx=kx, O=lambda name: offs[name])
+    covered = np.zeros(offs["WA"], np.int32)
     for x, g, kd, nd, off in prods:
-        kdim, ndim = eval(kd, {}, CONST), eval(nd, {}, CONST)
+        kdim, ndim = eval(kd, {}, env), eval(nd, {}, env)
         assert widths[x] == kdim and widths[g] == ndim, (x, g)
-        o = eval(off, {}, dict(CONST, **offs))
+        o = eval(re.sub(r"W_OFF_(\w+)", r"'\1'", off), {}, env)
         covered[o:o + kdim * ndim] += 1
     assert (covered == 1).all()
 
@@ -524,7 +535,7 @@ def test_ray_of_is_row_over_s():
     it, is row // S for every item row (below ITEM_ROWS) at every S of the
     kernels, and its product stays within 32 bits."""
     wc = (CSRC / "wgmma_chain.cuh").read_text()
-    assert "return UnitLayout{s, rays, units, ((1u << 24) + (uint32_t)s - 1u) / (uint32_t)s};" in wc
+    assert "return UnitLayout{s, rays, units, ((1u << 24) + (uint32_t)s - 1u) / (uint32_t)s, xc};" in wc
     assert "int ray_of(int row) const { return (int)(((uint32_t)row * div) >> 24); }" in wc
     S = np.arange(1, K.MAX_SAMPLES + 1, dtype=np.uint64)[:, None]
     row = np.arange(K.ITEM_ROWS, dtype=np.uint64)[None, :]

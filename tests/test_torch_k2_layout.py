@@ -78,15 +78,16 @@ def test_chunk_images_hold_every_matrix_bit_for_bit(small):
         assert not img[o:o + K.HIDDEN * K.HIDDEN].float().any()
 
 
-def _cu_value(expr):
-    return eval(expr, {}, dict(CU_CONSTANTS))
+def _cu_value(expr, kx=K.K_XIN):
+    return eval(expr, {}, dict(CU_CONSTANTS, kx=kx))
 
 
 def test_chunk_sequence_matches_cuda_source():
     """The producer streams, and the consumers multiply, the chunked
-    matrices of W_LAYOUT in its order, 64 K rows a chunk; the smaller
-    model skips W5 on both sides. Both sequences live in paper_chain.cuh,
-    which K2 (and K3f) run."""
+    matrices of W_LAYOUT in its order, 64 K rows a chunk (of `w_layout(kx)`
+    at either encoding extent: the producer's K of W0 and W3 is kx, its
+    offsets `w_off`); the smaller model skips W5 on both sides. Both
+    sequences live in paper_chain.cuh, which K2 (and K3f) run."""
     assert '#include "paper_chain.cuh"' in (CSRC / "fused_paper_render.cu").read_text()
     src = (CSRC / "paper_chain.cuh").read_text()
     hdr = (CSRC / "wgmma_tile.cuh").read_text()
@@ -94,9 +95,11 @@ def test_chunk_sequence_matches_cuda_source():
     assert re.search(rf"constexpr int ROW_BYTES = {2 * K.SM90_KCH};", hdr)
     want = [(name, k, n) for name, k, n in K.W_LAYOUT if name in K.SM90_CHUNKED]
     produce = src[src.index("void paper_produce("):src.index("void paper_feed(")]
-    loads = [(m.group(1), _cu_value(m.group(2)), _cu_value(m.group(3)))
-             for m in re.finditer(r"load\(W_OFF_(\w+), ([\w +]+), (\w+)\);", produce)]
-    assert loads == want
+    assert "W + w_off(off, kx), k, n, rank);" in produce
+    for kx in (K.K_XIN, K.K_XIN_WIDE):
+        loads = [(m.group(1), _cu_value(m.group(2), kx), _cu_value(m.group(3), kx))
+                 for m in re.finditer(r"load\(W_OFF_(\w+), ([\w +]+), (\w+)\);", produce)]
+        assert loads == [(name, k, n) for name, k, n in K.w_layout(kx) if name in K.SM90_CHUNKED]
     assert re.search(r"if \(!SMALL\) load\(W_OFF_W5,", produce)
     body = src[src.index("void paper_unit("):]
     layers = [(_cu_value(m.group(1)), int(m.group(2)))
