@@ -219,11 +219,13 @@ Phases, one line each (plus the kernels' register reports):
                K4f / K4b also at hidden 512 (synth512_lcode_w512's trunk)
                for FLEX_W512_SAMPLE_CASES (S = 1 on 2072 rays, 24 / 192 /
                256 on 2048), the same limits and lost-unit control.
-     xyz_bands — K2, K3f, K1 and K3b of the paper model at 11, 16 and 20
-               xyz encoding bands (a K = 128 encoding, the kernels' runtime
-               layout class) and at 10 (the control, K = 64), at S = 64,
-               128 and 48 on 2048 and on 2072 rays (XYZ_CASES), one seed a
-               case, under [sample_counts]' limits and lost-unit control,
+     xyz_bands — K2, K3f, K1 and K3b of the paper model, and K4f / K4b
+               of synth512_lcode's trunk at hidden 256 and 512, at 11, 16
+               and 20 xyz encoding bands (a K = 128 encoding, the kernels'
+               runtime layout class) and at 10 (the control, K = 64), at S
+               = 64, 128 and 48 on 2048 and on 2072 rays (XYZ_CASES), one
+               seed a case, under [sample_counts]' limits and lost-unit
+               control (K4 with the tensor-core yardstick at every S),
                bit-identical over 2 launches; ms, plain ms and bound on the
                2048-ray cases, and each time against the 10-band one.
      serve_64_128 — synth512_paper at 64 + 128 samples served as in phase
@@ -344,8 +346,14 @@ Phases, one line each (plus the kernels' register reports):
      flex_w512 — the same for synth512_lcode_w512 (SYNTH512_LCODE_W512:
                hidden_size 512 in both models, 64 + 64): every bf16 pass
                through K4f / K4b's h = 512 kernels; the frames against
-               f32 within the larger of FRAME_MEAN and the plain version's
-               own frame's reading + FLEX_PLAIN_FRAME_MEAN.
+               f32 within FLEX_W512_FRAME_MEAN.
+     flex_pe16 — the same for synth512_lcode_pe16 (SYNTH512_LCODE_PE16:
+               16 xyz bands in both models, dim_xyz 99, 64 + 64): every
+               bf16 pass through K4f / K4b at a K = 128 encoding (the
+               runtime layout class), none on the plain path; the frames
+               against K4f's plain version within PE16_PLAIN_FRAME_* and
+               against f32 within PE16_FRAME_* ([pe16]'s: at 16 bands bf16
+               itself moves a frame off f32).
  11. stock_eval — `cli/eval_nerf.py` at the NeRF paper's stock settings
                (PaperNeRFModel coarse and fine, 10 xyz / 4 direction bands,
                64 + 128 samples, f32; He-scaled random weights, σ biased up
@@ -509,6 +517,16 @@ PE16_PLAIN_FRAME_MAX = 2
 PE16_FRAME_MEAN = 0.45
 PE16_FRAME_MAX = 7
 
+# synth512_lcode with 16 xyz encoding bands in both models (dim_xyz 99):
+# past 10 bands K4f / K4b read a K = 128 encoding (two 64-column blocks) in
+# their runtime layout class at every S. Its frames take [pe16]'s limits:
+# K4f's plain version's own bf16 frame reads 0.25–0.27 / 4–5 levels from
+# f32, the kernel's the same, and the kernel's frame 0.009 / 1–2 from the
+# plain version's (on an H100 80GB HBM3, PERF.md §6)
+SYNTH512_LCODE_PE16 = copy.deepcopy(SYNTH512_LCODE)
+for _node in SYNTH512_LCODE_PE16["models"].values():
+    _node["num_encoding_fn_xyz"] = 16
+
 KERNEL_RAYS = 4096
 TILE_RAYS = 65536  # the validation chunksize: one tile of the main path
 FAR = 0.8
@@ -587,14 +605,14 @@ K4F_FLOP_PER_SAMPLE = sum(2 * k * n for k, n in FLEX_FORWARD_KN)
 K4B_FLOP_PER_SAMPLE = sum(2 * k * n for k, n in FLEX_FORWARD_KN + FLEX_DX_KN + FLEX_FORWARD_KN)
 
 
-def k4_flop_per_sample(n=None, h=256, backward=False):
+def k4_flop_per_sample(n=None, h=256, backward=False, bands=10):
     """K4f's (or with `backward` K4b's: recompute, dX, dW) operations a
-    sample at n hidden layers (FLEX_N_HIDDEN) and width h, at the
-    function's widths (`tools/perf/flex_launch_split.py`)."""
+    sample at n hidden layers (FLEX_N_HIDDEN), width h and `bands` xyz
+    bands, at the function's widths (`tools/perf/flex_launch_split.py`)."""
     from nerface_tpu_torch.tools.perf import flex_launch_split as FS
 
     n = FLEX_N_HIDDEN if n is None else n
-    fwd = FS.flop_per_sample(FS.forward_kn(n, h))
+    fwd = FS.flop_per_sample(FS.forward_kn(n, h, bands))
     return 2 * fwd + FS.flop_per_sample(FS.dx_kn(n, h)) if backward else fwd
 FLEX_N_HIDDEN = 3
 FLEX_SEEDS = 3
@@ -1343,9 +1361,9 @@ def build_phase():
         phase("build", f"{label}: {secs:.1f} s ({lib.name}); ptxas: {' | '.join(info)}")
         phase("build", f"{label} wgmma serialisation (ptxas C75xx): "
                        f"{' | '.join(serial) if serial else 'none reported'}")
-        # the paper kernels' shared memory is the same at either encoding
-        # extent: a warpgroup's xin bytes hold two 8 KB buffers at K = 64 and
-        # one 16 KB buffer at K = 128
+        # every kernel's shared memory is the same at either encoding extent:
+        # a warpgroup's xin bytes (K4's h = 512 CTA's) hold two 8 KB buffers
+        # at K = 64 and one 16 KB buffer at K = 128
         extents = " (at K = 64 and at K = 128 alike)"
         if name == "fused_paper_render":
             smem = (ctypes.c_longlong * 1)()
@@ -1364,7 +1382,7 @@ def build_phase():
             build.load_library(name, defines).nerface_fused_flex_shared_bytes(smem)
             phase("build", f"{label} shared memory a CTA (dynamic): flex_chain_kernel {smem[0]} B, "
                            f"flex_dx_kernel {smem[1]} B, dw_wgmma_kernel {smem[2]} B, wide_chain_kernel "
-                           f"{smem[3]} B, wide_dx_kernel {smem[4]} B")
+                           f"{smem[3]} B, wide_dx_kernel {smem[4]} B{extents}")
     check(0 < n_pass <= TRAIN_PASS_INSTANTIATIONS,
           f"train_pass_kernel has {n_pass} instantiations (at most {TRAIN_PASS_INSTANTIATIONS})")
     flex = [secs for name, _, _, secs in built if name == "fused_flex"]
@@ -1924,39 +1942,43 @@ def _sample_control(S, control, name="sample_counts", label=None):
             "lost_unit_caught": {f"{k} s{seed}": v for (k, seed), v in sorted(caught.items())}}
 
 
-def _flex_sample_count(S, R, dev, rows, control, h=256):
+def _flex_sample_count(S, R, dev, rows, control, h=256, bands=10, seeds=SAMPLE_SEEDS, timed=True, yard=None,
+                       label=None):
     """K4f and K4b of synth512_lcode's He-scaled trunk (FLEX_N_HIDDEN hidden
-    layers, `cases.flex_params`; at h = 512 synth512_lcode_w512's) at one
-    (S, R) of SAMPLE_CASES (of FLEX_W512_SAMPLE_CASES) against their
-    plain versions, SAMPLE_SEEDS draws, under [flex_kernel]'s limits: raw
-    rgb and σ within `flex_limit(FLEX_OUT_TOL)`, every gradient tensor, d_v0
-    and d_dir within `flex_grad_limits`, through the tensor-core yardstick
-    where `flex_yardstick` holds (every S but 32 / 64 / 128); K4b
+    layers, `cases.flex_params`; at h = 512 synth512_lcode_w512's; at
+    `bands` xyz bands) at one (S, R) of SAMPLE_CASES (of
+    FLEX_W512_SAMPLE_CASES, of XYZ_CASES) against their plain versions,
+    `seeds` draws, under [flex_kernel]'s limits: raw rgb and σ within
+    `flex_limit(FLEX_OUT_TOL)`, every gradient tensor, d_v0 and d_dir
+    within `flex_grad_limits`, through the tensor-core yardstick where
+    `flex_yardstick` holds (every S but 32 / 64 / 128) or `yard` says; K4b
     bit-identical over 2 launches. Where the yardstick decides, each
     reading goes into `control` beside what one lost 64-row unit (`rows`)
-    reads. Times each through its wrapper beside its plain version and its
-    operations bound. Returns ({K4f}, {K4b})."""
+    reads. With `timed`, times each through its wrapper beside its plain
+    version and its operations bound. Returns ({K4f}, {K4b})."""
     import torch
 
     from nerface_tpu_torch.ops.kernels import fused_flex as F
     from nerface_tpu_torch.tools.perf.cases import flex_params
 
     n = FLEX_N_HIDDEN
+    label = label or f"S={S}"
     wn, bn = F.weight_names(n)
     names = list(wn) + list(bn) + ["v0", "dir"]
-    yard = flex_yardstick(S, n)
+    yard = flex_yardstick(S, n) if yard is None else yard
     kf, kb = ("K4f", "K4b") if h == 256 else (f"K4f_{h}", f"K4b_{h}")  # `_sample_control`'s kernels
-    k4f = {"rays": R, "hidden": h, "out_rel": 0.0, "tc_rel": 0.0, "max_abs_err": 0.0}
-    k4b = {"rays": R, "hidden": h, "worst": {}, "max_abs_err": 0.0}
-    for i in range(SAMPLE_SEEDS):
-        params, v0 = flex_params(SEED + 27 + 100 * i + (h if h != 256 else 0), dev, n, h)
+    k4f = {"rays": R, "hidden": h, "bands": bands, "out_rel": 0.0, "tc_rel": 0.0, "max_abs_err": 0.0}
+    k4b = {"rays": R, "hidden": h, "bands": bands, "worst": {}, "max_abs_err": 0.0}
+    for i in range(seeds):
+        params, v0 = flex_params(SEED + 27 + 100 * i + (h if h != 256 else 0) + 1000 * (bands - 10), dev, n, h,
+                                 bands)
         gen = torch.Generator().manual_seed(SEED + 28 + 100 * i + S)
         ro, rd, z, dc = _flex_inputs(R, S, gen, dev, h)
-        weights = F.pack_flex_weights(params, n, 10)
-        args = (weights, ro, rd, z, dc, v0, n)
+        weights = F.pack_flex_weights(params, n, bands)
+        args = (weights, ro, rd, z, dc, v0, n, bands)
         out = F.fused_flex_forward(*args)
         torch.cuda.synchronize()
-        check(bool(torch.isfinite(out).all()), f"K4f S={S} seed {i}: output not finite")
+        check(bool(torch.isfinite(out).all()), f"K4f {label} seed {i}: output not finite")
         ref = F.fused_flex_forward_reference(*args)
         tc = tensor_core_plain(lambda: F.fused_flex_forward_reference(*args)) if yard else None
         lost = _without_rows(ref, rows)
@@ -1964,7 +1986,7 @@ def _flex_sample_count(S, R, dev, rows, control, h=256):
             e = rel_err(out[..., sl], ref[..., sl])[0]
             e_tc = rel_err(tc[..., sl], ref[..., sl])[0] if yard else None
             lim = flex_limit(FLEX_OUT_TOL, n, e_tc)
-            check(e <= lim, f"K4f S={S} seed {i}: {part} max err {e:.3g}·max > {lim:.3g}"
+            check(e <= lim, f"K4f {label} seed {i}: {part} max err {e:.3g}·max > {lim:.3g}"
                             + (f" (the plain version on the tensor cores: {e_tc:.3g}·max)" if yard else ""))
             if yard:
                 control.append(dict(kernel=kf, name=part, seed=i, kind="max", value=e, tc=e_tc,
@@ -1975,30 +1997,31 @@ def _flex_sample_count(S, R, dev, rows, control, h=256):
         k4f["max_abs_err"] = max(k4f["max_abs_err"], float((out - ref).abs().max()))
         del out, ref, tc, lost
         g = torch.randn(R, S, 4, generator=gen).to(dev)
-        grads = F.fused_flex_backward(*args[:6], g, n)
-        grads2 = F.fused_flex_backward(*args[:6], g, n)
+        bargs = (*args[:6], g, n, bands)
+        grads = F.fused_flex_backward(*bargs)
+        grads2 = F.fused_flex_backward(*bargs)
         torch.cuda.synchronize()
         flat, flat2 = grads[0] + grads[1:], grads2[0] + grads2[1:]
         check(all(torch.equal(a, b) for a, b in zip(flat, flat2)),
-              f"K4b S={S} seed {i}: two launches gave different gradients")
-        plain = F.fused_flex_backward_reference(*args[:6], g, n)
+              f"K4b {label} seed {i}: two launches gave different gradients")
+        plain = F.fused_flex_backward_reference(*bargs)
         rflat = plain[0] + plain[1:]
         tc_flat = fault_flat = [None] * len(names)
         if yard:
-            t = tensor_core_plain(lambda: F.fused_flex_backward_reference(*args[:6], g, n))
+            t = tensor_core_plain(lambda: F.fused_flex_backward_reference(*bargs))
             tc_flat = t[0] + t[1:]
-            t = F.fused_flex_backward_reference(*args[:6], _without_rows(g, rows), n)
+            t = F.fused_flex_backward_reference(*args[:6], _without_rows(g, rows), n, bands)
             fault_flat = t[0] + t[1:]
         for name, a, r, t, f in zip(names, flat, rflat, tc_flat, fault_flat):
             a, r = a.float(), r.float()
-            check(bool(torch.isfinite(a).all()), f"K4b S={S} seed {i}: grad {name} not finite")
+            check(bool(torch.isfinite(a).all()), f"K4b {label} seed {i}: grad {name} not finite")
             e, e_norm = rel_err(a, r)
             tc_err = rel_err(t.float(), r) if t is not None else None
             tol, tol_norm = flex_grad_limits(R, name, n, tc_err, S)
             scale, r_norm = max(float(r.abs().max()), 1e-30), max(float(r.norm()), 1e-30)
-            check(e <= tol + 1e-6 / scale, f"K4b S={S} seed {i}: grad {name} max err {e:.4g}·max > {tol:.4g}")
+            check(e <= tol + 1e-6 / scale, f"K4b {label} seed {i}: grad {name} max err {e:.4g}·max > {tol:.4g}")
             check(e_norm <= tol_norm + 1e-6 / r_norm,
-                  f"K4b S={S} seed {i}: grad {name} ‖err‖ {e_norm:.4g}·‖r‖ > {tol_norm:.4g}")
+                  f"K4b {label} seed {i}: grad {name} ‖err‖ {e_norm:.4g}·‖r‖ > {tol_norm:.4g}")
             if yard:
                 f_err = rel_err(f.float(), r)
                 for j, (kind, lim) in enumerate((("max", tol), ("norm", tol_norm))):
@@ -2008,14 +2031,15 @@ def _flex_sample_count(S, R, dev, rows, control, h=256):
             w = k4b["worst"].get(name, (0.0, 0.0))
             k4b["worst"][name] = (max(w[0], e), max(w[1], e_norm))
             k4b["max_abs_err"] = max(k4b["max_abs_err"], float((a - r).abs().max()))
-        if i == 0:
+        if i == 0 and timed:
             k4f.update(ms=_median_ms(lambda: F.fused_flex_forward(*args)),
                        plain_ms=_median_ms(lambda: F.fused_flex_forward_reference(*args), 1, 3),
-                       bound_ms=_bound_ms(R * S * k4_flop_per_sample(n, h), _k4_bytes(R, S, False, n, h))[0])
-            k4b.update(ms=_median_ms(lambda: F.fused_flex_backward(*args[:6], g, n), iters=10),
-                       plain_ms=_median_ms(lambda: F.fused_flex_backward_reference(*args[:6], g, n), 1, 3),
-                       bound_ms=_bound_ms(R * S * k4_flop_per_sample(n, h, True),
-                                          _k4_bytes(R, S, True, n, h))[0])
+                       bound_ms=_bound_ms(R * S * k4_flop_per_sample(n, h, False, bands),
+                                          _k4_bytes(R, S, False, n, h, bands))[0])
+            k4b.update(ms=_median_ms(lambda: F.fused_flex_backward(*bargs), iters=10),
+                       plain_ms=_median_ms(lambda: F.fused_flex_backward_reference(*bargs), 1, 3),
+                       bound_ms=_bound_ms(R * S * k4_flop_per_sample(n, h, True, bands),
+                                          _k4_bytes(R, S, True, n, h, bands))[0])
         del grads, grads2, flat, flat2, plain, rflat, tc_flat, fault_flat
     w = k4b.pop("worst")
     k4b["worst_max"] = max(w.items(), key=lambda kv: kv[1][0])
@@ -2293,9 +2317,10 @@ def sample_counts_phase(dev):
     return res
 
 
-# [xyz_bands]: the paper kernels at 11..20 xyz bands (a K = 128 encoding,
-# the runtime layout class at any S), 10 the control (K = 64, the fixed
-# classes at S = 64 / 128), at the paper schedule's S = 64 and 128 and the
+# [xyz_bands]: the paper kernels, and K4f / K4b at hidden width 256 and
+# 512, at 11..20 xyz bands (a K = 128 encoding, the runtime layout class at
+# any S), 10 the control (K = 64, the fixed classes at S = 64 / 128), at
+# the paper schedule's S = 64 and 128 and the
 # runtime S = 48 (4 rays in 3 units, 64 padding rows an item), on whole
 # (2048) and ragged (2072) ray counts; one seed a case, timed on the
 # 2048-ray cases. Not S = 192: there a pass has ≈ 400k sample rows, and a
@@ -2311,23 +2336,27 @@ XYZ_SEEDS = 1
 
 
 def xyz_bands_phase(dev):
-    """K2, K3f, K1 and K3b of the paper model at every band count of
-    XYZ_BANDS and every (S, rays) of XYZ_CASES, each against its plain
-    version under [sample_counts]' limits (`_paper_sample_case`: K2's maps,
-    K3f within K3_OUT_TOL·max, K1 `k1_grad_limits`, K3b `k3b_grad_limits`,
-    each where flips reach past them within FLEX_TC_FACTOR × the
-    tensor-core yardstick; bit-identical over 2 launches; Σ d_dir against
-    d_bd0), the lost 64-row unit caught wherever the base limits catch it
-    (`_sample_control`), and timed beside the plain version and the
-    operations bound on the 2048-ray cases. Returns {kernel: {"L{L}_S{S}_R{R}":
-    {...}}} and the time ratios against 10 bands."""
+    """K2, K3f, K1 and K3b of the paper model, and K4f / K4b of
+    synth512_lcode's trunk at hidden width 256 and 512 (FLEX_N_HIDDEN
+    hidden layers), at every band count of XYZ_BANDS and every (S, rays) of
+    XYZ_CASES, each against its plain version under [sample_counts]'
+    limits (`_paper_sample_case`: K2's maps, K3f within K3_OUT_TOL·max, K1
+    `k1_grad_limits`, K3b `k3b_grad_limits`; `_flex_sample_count`: K4f
+    `flex_limit`, K4b `flex_grad_limits`; each where flips reach past them
+    within FLEX_TC_FACTOR × the tensor-core yardstick; bit-identical over 2
+    launches; Σ d_dir against d_bd0), the lost 64-row unit caught wherever
+    the base limits catch it (`_sample_control`), and timed beside the
+    plain version and the operations bound on the 2048-ray cases. Returns
+    {kernel: {"L{L}_S{S}_R{R}": {...}}} and the time ratios against 10
+    bands."""
     import torch
 
     from nerface_tpu_torch.ops.kernels import fused_mlp as K
     from nerface_tpu_torch.tools.perf.cases import he_scale
 
     t0 = time.perf_counter()
-    res = {k: {} for k in ("K2", "K3f", "K1", "K3b", "control")}
+    res = {k: {} for k in ("K2", "K3f", "K1", "K3b", "K4f", "K4b", f"K4f_{FLEX_WIDE}", f"K4b_{FLEX_WIDE}",
+                           "control")}
     for L in XYZ_BANDS:
         model = _paper_model(SEED + 31 + L, dev, bands=L)
         he_scale(model)
@@ -2349,18 +2378,36 @@ def xyz_bands_phase(dev):
                   f"{k3f['out_rel']:.2e}·max (the tensor cores' own {k3f['tc_rel']:.2e}), K1 worst grad {m1} "
                   f"{m1_v:.4f}·max, K3b worst grad {m3} {m3_v:.4f}·max, within [sample_counts]' limits; K1 "
                   f"and K3b bit-identical over 2 launches; Σ d_dir vs d_bd0 {dir_sum:.2e}{times}")
+            # K4f / K4b at both widths on the same rays' schedule, the
+            # yardstick at every S (as the paper kernels' K3f / K3b here)
+            for h in (256, FLEX_WIDE):
+                k4f, k4b = _flex_sample_count(S, R, dev, lost_unit_rows(R, S), control, h, L, XYZ_SEEDS,
+                                              R == TRAIN_RAYS, True, f"{label} h={h}")
+                at = "" if h == 256 else f"_{h}"
+                res[f"K4f{at}"][key], res[f"K4b{at}"][key] = dict(k4f, samples=S), dict(k4b, samples=S)
+                (wm, (wm_v, _)), (wn, (_, wn_v)) = k4b["worst_max"], k4b["worst_norm"]
+                times = "".join(f"; {k} {r['ms']:.3f} ms, plain {r['plain_ms']:.3f}, bound {r['bound_ms']:.3f}"
+                                for k, r in (("K4f", k4f), ("K4b", k4b)) if "ms" in r)
+                phase("xyz_bands",
+                      f"{label} h={h}: K4f {k4f['out_rel']:.2e}·max (the tensor cores' own {k4f['tc_rel']:.2e}), "
+                      f"K4b worst grad {wm} {wm_v:.4f}·max, worst ‖err‖ {wn} {wn_v:.4f}·‖r‖, within "
+                      f"[sample_counts]' limits (`flex_limit`, `flex_grad_limits`); K4b bit-identical over 2 "
+                      f"launches{times}")
             res["control"][key] = _sample_control(S, control, "xyz_bands", label)
             torch.cuda.empty_cache()
-    # the prediction written in PERF.md before the run: past 10 bands each
-    # kernel's time at the same (S, rays) is 1.0–1.3 × its 10-band time
+    # the predictions written in PERF.md before the runs: past 10 bands each
+    # kernel's time at the same (S, rays) through its wrapper is 1.0–1.3 ×
+    # its 10-band time (the paper kernels); K4f's 1.0–1.4 × at h = 256 and
+    # 1.0–1.15 × at 512, K4b's 1.0–1.2 ×
     ratios = {}
-    for k in ("K2", "K3f", "K1", "K3b"):
+    for k in ("K2", "K3f", "K1", "K3b", "K4f", "K4b", f"K4f_{FLEX_WIDE}", f"K4b_{FLEX_WIDE}"):
         for S, R in XYZ_CASES:
             if R != TRAIN_RAYS:
                 continue
             base = res[k][f"L10_S{S}_R{R}"]["ms"]
             ratios[f"{k}_S{S}"] = {L: res[k][f"L{L}_S{S}_R{R}"]["ms"] / base for L in XYZ_BANDS[1:]}
-    phase("xyz_bands", "ms / the 10-band ms at the same S and rays (predicted 1.0–1.3): " + "; ".join(
+    phase("xyz_bands", "ms / the 10-band ms at the same S and rays (predicted 1.0–1.3; K4f 1.0–1.4, at 512 "
+                       "1.0–1.15; K4b 1.0–1.2): " + "; ".join(
         f"{c} " + ", ".join(f"L={L} {v:.2f}" for L, v in r.items()) for c, r in ratios.items()))
     res["ratio_to_10_bands"] = ratios
     res["seconds"] = time.perf_counter() - t0
@@ -4115,15 +4162,17 @@ def sharded_serve_phase(dev, tmp, ev, card):
     return res
 
 
-def _k4_bytes(n_rays, n_samples, backward, n=None, h=256):
-    """The bytes K4f / K4b must move at n hidden layers (FLEX_N_HIDDEN) and
-    width h: each input read once (rays, depths, dir_c, v0, weights; g and
-    the transposed weights for K4b), each output written once ((R, S, 4);
-    the gradients and d_dir for K4b)."""
+def _k4_bytes(n_rays, n_samples, backward, n=None, h=256, bands=10):
+    """The bytes K4f / K4b must move at n hidden layers (FLEX_N_HIDDEN),
+    width h and `bands` xyz bands: each input read once (rays, depths,
+    dir_c, v0, weights; g and the transposed weights for K4b), each output
+    written once ((R, S, 4); the gradients and d_dir for K4b)."""
     from nerface_tpu_torch.ops.kernels import fused_flex as F
+    from nerface_tpu_torch.ops.kernels.fused_mlp import xin_extent
 
     n = FLEX_N_HIDDEN if n is None else n
-    w, f, wt = F.w_offsets(n, h)["TOTAL"], F.f_offsets(n, h)["TOTAL"], F.wt_offsets(n, h)["TOTAL"]
+    w = F.w_offsets(n, h, xin_extent(bands))["TOTAL"]
+    f, wt = F.f_offsets(n, h)["TOTAL"], F.wt_offsets(n, h)["TOTAL"]
     rays = n_rays * 4 * (3 + 3 + n_samples + h // 2)
     samples = n_rays * n_samples * 4 * 4  # (R, S, 4) f32: the output, or g
     weights = 2 * w + 4 * f
@@ -4314,7 +4363,7 @@ def flex_kernel_phase(dev):
                         base=(FLEX_OUT_TOL, None), fault=rel_err(lost[..., sl], ref[..., sl])))
             del ref
             g = torch.randn(R, S, 4, generator=gen).to(dev)
-            case = dict(weights=weights, ro=ro, rd=rd, z=z, dc=dc, v0=v0, g=g, n=n)
+            case = dict(weights=weights, ro=ro, rd=rd, z=z, dc=dc, v0=v0, g=g, n=n, bands=10)
             if i == 0 and timed:
                 flops = R * S * f_fwd
                 key = "tile_ms" if R == TILE_RAYS else "ms"
@@ -4764,7 +4813,19 @@ def flex_w512_phase(dev, ds, tmp, card):
     models, 64 + 64 samples): every bf16 pass through K4f / K4b's h = 512
     kernels, `_flex_config_phase`, its frames held to f32 within
     FLEX_W512_FRAME_MEAN."""
-    return _flex_config_phase(dev, ds, tmp, card, SYNTH512_LCODE_W512, "flex_w512", FLEX_W512_FRAME_MEAN)
+    return _flex_config_phase(dev, ds, tmp, card, SYNTH512_LCODE_W512, "flex_w512",
+                              f32_limits=(FLEX_W512_FRAME_MEAN, FRAME_MAX))
+
+
+def flex_pe16_phase(dev, ds, tmp, card):
+    """synth512_lcode_pe16 (SYNTH512_LCODE_PE16: 16 xyz bands in both
+    models, dim_xyz 99, 64 + 64 samples): every bf16 pass through K4f / K4b
+    at a K = 128 encoding (the runtime layout class), `_flex_config_phase`,
+    its frames held to K4f's plain version within PE16_PLAIN_FRAME_* and to
+    f32 within PE16_FRAME_*."""
+    return _flex_config_phase(dev, ds, tmp, card, SYNTH512_LCODE_PE16, "flex_pe16",
+                              plain_limits=(PE16_PLAIN_FRAME_MEAN, PE16_PLAIN_FRAME_MAX),
+                              f32_limits=(PE16_FRAME_MEAN, PE16_FRAME_MAX))
 
 
 def _window_vs_step(dev, ds, tmp, cfg_dict, name, wrappers, plain_passes, family,
@@ -4901,14 +4962,16 @@ def _serve_against_plain_and_f32(dev, tmp, card, cfg_dict, name, seed, kernel, o
             "vs_f32_levels": vs_f32, "plain_version_vs_f32_levels": plain_vs_f32, "tiles": tiles}
 
 
-def _flex_config_phase(dev, ds, tmp, card, cfg_dict, name, f32_mean=FRAME_MEAN):
+def _flex_config_phase(dev, ds, tmp, card, cfg_dict, name, plain_limits=(FLEX_PLAIN_FRAME_MEAN, FLEX_FRAME_MAX),
+                       f32_limits=(FRAME_MEAN, FRAME_MAX)):
     """A Flexible-family config `cfg_dict` end to end on the card: every
     bf16 pass through K4f / K4b and none left to the model's plain forward
     (`plain_flex_passes`). Serves 3 frames of 512² through `serve_jsonl`
-    (K4f 2 × tiles a frame, no K4b or K2), each frame within FLEX_FRAME_MAX
-    / FLEX_PLAIN_FRAME_MEAN of the same frame through K4f's plain version
-    (`flex_plain_version`) and within FRAME_MAX / f32_mean of the same
-    model's f32 plain frame ([serve_64_128]'s limits by default); one bf16 step
+    (K4f 2 × tiles a frame, no K4b or K2), each frame within `plain_limits`
+    (mean, max levels; FLEX_PLAIN_FRAME_MEAN / FLEX_FRAME_MAX by default) of
+    the same frame through K4f's plain version (`flex_plain_version`) and
+    within `f32_limits` of the same model's f32 plain frame
+    ([serve_64_128]'s limits by default); one bf16 step
     against the f32 plain step ([train_step]'s limits); FLEX_TRAIN_STEPS
     steps of `train()` (the printed loss falls), then the steady step's ms
     beside the frame's; FLEX_64_128_WINDOW_STEPS steps windowed (K =
@@ -4926,8 +4989,8 @@ def _flex_config_phase(dev, ds, tmp, card, cfg_dict, name, f32_mean=FRAME_MEAN):
     cfg = CfgNode(cfg_dict)
     sv = _serve_against_plain_and_f32(
         dev, tmp, card, cfg_dict, name, SEED + 12, F.fused_flex_forward, (F.fused_flex_backward, fused_paper_render),
-        plain_flex_passes, flex_plain_version, (FLEX_PLAIN_FRAME_MEAN, FLEX_FRAME_MAX), (f32_mean, FRAME_MAX), "K4f",
-        f"hidden {cfg.models.coarse.hidden_size}")
+        plain_flex_passes, flex_plain_version, plain_limits, f32_limits, "K4f",
+        f"hidden {cfg.models.coarse.hidden_size}, {cfg.models.coarse.num_encoding_fn_xyz} xyz bands")
     served, frame_ms = sv["launches"], sv["frame_ms"]
     sc, sf = cfg.nerf.validation.num_coarse, cfg.nerf.validation.num_fine
 
@@ -5718,6 +5781,7 @@ def main() -> int:
         ft = flex_train_phase(dev, ds, tmp, args.profile, card)
         f64 = flex_64_128_phase(dev, ds, tmp, card)
         fw = flex_w512_phase(dev, ds, tmp, card)
+        fp16 = flex_pe16_phase(dev, ds, tmp, card)
         stock_eval_phase(dev, tmp, card)
         tiny_nerf_phase(dev, card)
 
@@ -5983,10 +6047,13 @@ def main() -> int:
             "source": "nerface_tpu_torch/csrc/fused_flex.cu",
             "replaces": "nerface_tpu/ops/pallas/fused_flex.py:131",
             # the flex paths: served frames + training (steps and validation),
-            # synth512_lcode at 64 + 128 (S = 64 and 192) and at hidden 512
-            "launches": fs["launches"] + ft["k4f_launches"] + f64["k4f_launches"] + fw["k4f_launches"],
+            # synth512_lcode at 64 + 128 (S = 64 and 192), at hidden 512 and
+            # at 16 xyz bands
+            "launches": fs["launches"] + ft["k4f_launches"] + f64["k4f_launches"] + fw["k4f_launches"]
+            + fp16["k4f_launches"],
             "launches_by_path": {"flex_serve": fs["launches"], "flex_train": ft["k4f_launches"],
-                                 "flex_64_128": f64["k4f_launches"], "flex_w512": fw["k4f_launches"]},
+                                 "flex_64_128": f64["k4f_launches"], "flex_w512": fw["k4f_launches"],
+                                 "flex_pe16": fp16["k4f_launches"]},
             "max_abs_err": fk["abs_err"],  # of raw rgb and σ, all cases
             "max_rel_err": fk["err"],  # relative to max|plain| per case
             # a train step's two passes at 2048 rays: coarse (S=64) + fine (S=128)
@@ -6008,6 +6075,15 @@ def main() -> int:
             "vs_plain_version_levels_64_128": f64["vs_plain_version_levels"],
             # [sample_counts]: SAMPLE_CASES' rays at each S through the wrapper
             "by_sample_count": sc["K4f"],
+            # [xyz_bands]: 10 / 11 / 16 / 20 bands at each (S, rays) of
+            # XYZ_CASES, the times against 10 bands; synth512_lcode_pe16's
+            # frames against K4f's plain version and f32
+            "by_xyz_bands": xb["K4f"],
+            "xyz_bands_ms_ratio": {k: v for k, v in xb["ratio_to_10_bands"].items() if k.startswith("K4f_")},
+            "pe16_frame_ms_512": fp16["frame_ms"],
+            "pe16_vs_plain_version_levels": fp16["vs_plain_version_levels"],
+            "pe16_vs_f32_levels": fp16["vs_f32_levels"],
+            "pe16_plain_version_vs_f32_levels": fp16["plain_version_vs_f32_levels"],
             # hidden 512 (wide_chain_kernel): the train step's pair, the
             # bound by operations at the bf16 peak; its frames and sample counts
             "h512": {"ms": fk["ms"]["coarse_512"] + fk["ms"]["fine_512"],
@@ -6017,7 +6093,7 @@ def main() -> int:
                      "bare_ms_by_pass": {p: fk["bare_ms"][p] for p in ("coarse_512", "fine_512")},
                      "frame_ms": fw["frame_ms"], "vs_f32_levels": fw["vs_f32_levels"],
                      "vs_plain_version_levels": fw["vs_plain_version_levels"],
-                     "by_sample_count": sc["K4f_512"]},
+                     "by_sample_count": sc["K4f_512"], "by_xyz_bands": xb[f"K4f_{FLEX_WIDE}"]},
             "card": card,
         },
         {
@@ -6025,9 +6101,9 @@ def main() -> int:
             "route": "cuda",
             "source": "nerface_tpu_torch/csrc/fused_flex.cu",
             "replaces": "nerface_tpu/ops/pallas/fused_flex.py:143",
-            "launches": ft["k4b_launches"] + f64["k4b_launches"] + fw["k4b_launches"],
+            "launches": ft["k4b_launches"] + f64["k4b_launches"] + fw["k4b_launches"] + fp16["k4b_launches"],
             "launches_by_path": {"flex_train": ft["k4b_launches"], "flex_64_128": f64["k4b_launches"],
-                                 "flex_w512": fw["k4b_launches"]},
+                                 "flex_w512": fw["k4b_launches"], "flex_pe16": fp16["k4b_launches"]},
             "max_abs_err": fk["grad_abs_err"],  # over every gradient tensor
             "worst_grad_rel": fk["grad_rel"],  # (max error, norm error) per pass
             "ms": fk["bwd_ms"]["coarse"] + fk["bwd_ms"]["fine"],
@@ -6052,6 +6128,14 @@ def main() -> int:
             "window_64_128": f64["window"],
             # [sample_counts]: SAMPLE_CASES' rays at each S through the wrapper
             "by_sample_count": sc["K4b"],
+            # [xyz_bands] (their lost-unit control is K3b's row's
+            # `xyz_bands_control`), and synth512_lcode_pe16's step against
+            # f32, steady step and window
+            "by_xyz_bands": xb["K4b"],
+            "xyz_bands_ms_ratio": {k: v for k, v in xb["ratio_to_10_bands"].items() if k.startswith("K4b_")},
+            "pe16_step_vs_f32": fp16["step_vs_f32"],
+            "pe16_train_step_ms": fp16["step_ms"],
+            "pe16_window": fp16["window"],
             # hidden 512 (wide_chain_kernel's recompute, wide_dx_kernel, dW):
             # the train step's pair, its launch split, the step and window
             "h512": {"ms": fk["bwd_ms"]["coarse_512"] + fk["bwd_ms"]["fine_512"],
@@ -6061,7 +6145,8 @@ def main() -> int:
                      "bare_ms_by_pass": {p: fk["bwd_bare_ms"][p] for p in ("coarse_512", "fine_512")},
                      "launch_split_by_pass": {p: fk["bwd_split"][p] for p in ("coarse_512", "fine_512")},
                      "step_ms": fw["step_ms"], "step_vs_f32": fw["step_vs_f32"], "window": fw["window"],
-                     "by_sample_count": sc["K4b_512"], "sample_count_control": sc["control_512"]},
+                     "by_sample_count": sc["K4b_512"], "sample_count_control": sc["control_512"],
+                     "by_xyz_bands": xb[f"K4b_{FLEX_WIDE}"]},
             "card": card,
         },
         {

@@ -9,7 +9,8 @@
 // the autograd.Function and the plain PyTorch versions).
 //
 // The function, per sample row: points ro + rd·z, [xyz; sin(x·f + φ); 0]
-// (64 bf16 columns), a_0 = that @ W1 + v0 with NO activation (`layer1`, a
+// (kx bf16 columns: 64 up to 10 bands, 128 for 11..20, `xin_extent`), a_0
+// = that @ W1 + v0 with NO activation (`layer1`, a
 // reference quirk; v0 is its bias with the per-frame conditioning folded
 // in), a_{i+1} = relu(a_i @ WH_i + bh_i) for the n hidden layers (any n ≥
 // 0, a runtime argument), then σ = a_n · wa + ba off the trunk
@@ -24,7 +25,7 @@
 //
 // K4f, `flex_chain_kernel<SF, false>`, is K2's chain without the cluster
 // (wgmma_chain.cuh): one persistent 384-thread CTA an SM. The producer
-// warpgroup's first thread streams each unit's 1 + 4n + 4 + 4 weight chunk
+// warpgroup's first thread streams each unit's xc + 4n + 4 + 4 weight chunk
 // images through a ring of RING 32 KB stages with bulk copies, its three
 // encoder warps fill each unit's swizzled [xyz; PE; 0] tile; the two
 // consumer warpgroups run free of each other over whole rays as 64-row
@@ -33,13 +34,19 @@
 // the last ray's sample padding the last unit (8 rays in 3 units at S =
 // 24, one ray in 3 at 192); SF, the layout class, is 64 or 128 for the
 // passes of the bundled configs (S folded in as a constant) and 0, S read
-// at run time, for every other S (`dispatch_pass`, mma_tile.cuh: two
-// builds of the library, `build.py`'s `sample_class_defines`). A padding
+// at run time, for every other S and for every pass past 10 bands
+// (`dispatch_pass`, mma_tile.cuh: two builds of the library, `build.py`'s
+// `sample_class_defines`). Past 10 bands the encoded tile is two 64-column
+// blocks (UnitLayout's xc = 2): a consumer warpgroup's two xin buffers are
+// one buffer of both (`xin_buf` / `xin_phase`), which the encoders fill
+// for the next unit once layer1 has read this one, and W1 is two chunks.
+// The fixed classes keep one block, so a 10-band pass runs the code, the
+// offsets and the classes it ran before. A padding
 // row encodes to 0, is never stored and takes a zero cotangent. Each
 // layer is one chain of wgmma m64n256k16 (m64n128k16 for
 // layers_dir.0's feat columns) with A in registers: layer1 reads xin from
-// shared memory (K = 63 packed to 64), every epilogue rounds its
-// accumulator pairs to bf16 exactly where the plain version does and they
+// shared memory (K = 3 + 6·bands packed to 64, or to 128), every epilogue
+// rounds its accumulator pairs to bf16 exactly where the plain version does and they
 // are the next product's A fragment. The σ head is an m64n8 wgmma off
 // a_n's A registers before fc_feat overwrites them, the rgb head one off
 // x0's; the raw rows go out as float4s. The bias rows before the hidden
@@ -73,7 +80,7 @@
 //      (paper_train.cuh's `DirPieces` where a warp's 16 rows reach two
 //      rays), the pieces summed in row order across the ray's units
 //      (`dir_pieces`), so S = 32 / 64 / 128 keep their sums' order;
-//   3. `dw_wgmma_kernel` (wgmma_dw.cuh): dW = Xᵀ·bf16(gY) for W1 (K = 64),
+//   3. `dw_wgmma_kernel` (wgmma_dw.cuh): dW = Xᵀ·bf16(gY) for W1 (K = kx),
 //      WF, WD0 and every WH_i from the images (`dw_products`: gY by column
 //      blocks of at most 256), in row segments that fill one wave, at
 //      most DWG_MATS_MAX products a launch (a deep pass launches it more
@@ -88,6 +95,9 @@
 // n = 3 the forward is 0.6234 MFLOP a sample at the function's widths
 // (layer1's K = 63): a 65536-ray serving tile at S = 64 / 128 is 2.61 /
 // 5.23 TFLOP, 2.64 / 5.29 ms at the peak, against a few MB of ray data.
+// Past 10 bands layer1 reads 3 + 6·bands ≤ 123 columns (K = 128, of which
+// the zero pad is not counted): at 16 bands 2·36·256 FLOP a sample more
+// than at 10, +3 % of the forward at n = 3.
 // K4b is 1.838 MFLOP a sample (recompute 0.623, dX 0.591, dW 0.623), 0.731
 // ms for a train step's pair (2048 rays at S = 64 + 128). Its workspace,
 // which the TPU kernel never moves, holds ≈ 5.9 KB a row at n = 3, written
@@ -127,9 +137,11 @@ constexpr int WIDE = 512;  // the second hidden width the kernels take
 // w_offsets / f_offsets / wt_offsets in ops/kernels/fused_flex.py (a CPU
 // test checks it). bf16 weights, (in, out): W1 = [w1a; w1b; 0], WF, WD0,
 // WH_i at FW_OFF_WH + i·H², each as its chunk images, then WA and WRGB
-// row-major. f32 rows: V0, BF, BD0, BA, BRGB, FREQS, then BH_i at
-// FF_OFF_BH + i·H. Transposed weights, (out, in), each as its chunk images
-// (K = out, N = in): WD0T, WFT, WHT_i at FT_OFF_WHT + i·H².
+// row-major; the FW_OFF_* are those of W1 at K_XIN rows (up to 10 bands),
+// `flex_w_off` moves them to K_XIN_WIDE. f32 rows: V0, BF, BD0, BA, BRGB,
+// FREQS (MAX_FREQS slots), then BH_i at FF_OFF_BH + i·H, at every band
+// count. Transposed weights, (out, in), each as its chunk images (K = out,
+// N = in): WD0T, WFT, WHT_i at FT_OFF_WHT + i·H².
 template <int H>
 struct Offsets;
 template <>
@@ -144,7 +156,7 @@ struct Offsets<256> {
   static constexpr int FF_OFF_BA = 640;
   static constexpr int FF_OFF_BRGB = 641;
   static constexpr int FF_OFF_FREQS = 644;
-  static constexpr int FF_OFF_BH = 660;
+  static constexpr int FF_OFF_BH = 664;
   static constexpr int FT_OFF_WD0T = 0;
   static constexpr int FT_OFF_WFT = 32768;
   static constexpr int FT_OFF_WHT = 98304;
@@ -161,7 +173,7 @@ struct Offsets<512> {
   static constexpr int FF_OFF_BA = 1280;
   static constexpr int FF_OFF_BRGB = 1281;
   static constexpr int FF_OFF_FREQS = 1284;
-  static constexpr int FF_OFF_BH = 1300;
+  static constexpr int FF_OFF_BH = 1304;
   static constexpr int FT_OFF_WD0T = 0;
   static constexpr int FT_OFF_WFT = 131072;
   static constexpr int FT_OFF_WHT = 393216;
@@ -173,10 +185,22 @@ constexpr bool offsets_ok() {
   return O::FW_OFF_WF - O::FW_OFF_W1 == K_XIN * H && O::FW_OFF_WD0 - O::FW_OFF_WF == H * H &&
          O::FW_OFF_WH - O::FW_OFF_WD0 == H * (H / 2) && O::FF_OFF_BF == H && O::FF_OFF_BD0 - O::FF_OFF_BF == H &&
          O::FF_OFF_BA - O::FF_OFF_BD0 == H / 2 && O::FF_OFF_BRGB == O::FF_OFF_BA + 1 &&
-         O::FF_OFF_FREQS - O::FF_OFF_BRGB == 3 && O::FF_OFF_BH - O::FF_OFF_FREQS == 16 &&
+         O::FF_OFF_FREQS - O::FF_OFF_BRGB == 3 && O::FF_OFF_BH - O::FF_OFF_FREQS == MAX_FREQS &&
          O::FT_OFF_WFT - O::FT_OFF_WD0T == (H / 2) * H && O::FT_OFF_WHT - O::FT_OFF_WFT == H * H;
 }
 static_assert(offsets_ok<256>() && offsets_ok<512>(), "operand layout");
+
+// The offset FW_OFF_* `off` of Offsets<H> in the forward weights of
+// encoding extent kx (`xin_extent`): W1 holds kx rows, kx − K_XIN more
+// than at K_XIN, which move every later offset (mma_tile.cuh's `w_off`
+// for the paper model's layout).
+template <int H>
+__host__ __device__ constexpr int flex_w_off(int off, int kx) {
+  return off + (off > Offsets<H>::FW_OFF_W1 ? (kx - K_XIN) * H : 0);
+}
+static_assert(flex_w_off<HIDDEN>(Offsets<HIDDEN>::FW_OFF_WF, K_XIN_WIDE) == K_XIN_WIDE * HIDDEN &&
+                  flex_w_off<512>(Offsets<512>::FW_OFF_WH, K_XIN) == Offsets<512>::FW_OFF_WH,
+              "the wide weight layout");
 
 using O = Offsets<HIDDEN>;  // the h = 256 kernels'
 
@@ -189,10 +213,12 @@ constexpr int WARPS_A_CTA = 4 * CONSUMERS;
 constexpr int BAR_WG = 1;                        // + warpgroup: that warpgroup's named barrier
 constexpr int BAR_CONSUMERS = 3;                 // both consumer warpgroups
 
-// The offsets and sizes that depend on the width h and the number of
-// hidden layers n (any n ≥ 0: nothing is sized by it at compile time).
+// The offsets and sizes that depend on the width h, the number of hidden
+// layers n (any n ≥ 0: nothing is sized by it at compile time) and the
+// encoding's extent kx (K_XIN, or K_XIN_WIDE past 10 bands).
 struct Layout {
   int h, dh, n;        // dh = h / 2, layers_dir.0's width
+  int kx;              // W1's rows and the xin image's width
   int wf, wd0, wh;     // WF, WD0, WH_0
   int wa, wrgb;        // WA, WRGB after the WH_i
   int f_total;
@@ -201,16 +227,17 @@ struct Layout {
 };
 
 template <int H>
-__host__ __device__ inline Layout flex_layout(int n) {
+__host__ __device__ inline Layout flex_layout(int n, int kx) {
   using OH = Offsets<H>;
   Layout L;
   L.h = H;
   L.dh = H / 2;
   L.n = n;
-  L.wf = OH::FW_OFF_WF;
-  L.wd0 = OH::FW_OFF_WD0;
-  L.wh = OH::FW_OFF_WH;
-  L.wa = OH::FW_OFF_WH + n * H * H;
+  L.kx = kx;
+  L.wf = flex_w_off<H>(OH::FW_OFF_WF, kx);
+  L.wd0 = flex_w_off<H>(OH::FW_OFF_WD0, kx);
+  L.wh = flex_w_off<H>(OH::FW_OFF_WH, kx);
+  L.wa = L.wh + n * H * H;
   L.wrgb = L.wa + H;
   L.f_total = OH::FF_OFF_BH + n * H;
   L.part_cols = L.f_total + H + (H / 2) * 3;
@@ -226,7 +253,7 @@ __host__ __device__ inline Layout flex_layout(int n) {
 // apart, so the depth sizes nothing. The order is the carve's, mirrored
 // by `workspace_buffers` and `mask_buffers` in ops/kernels/fused_flex.py.
 struct Workspace {
-  unsigned char* xin;    // K_XIN
+  unsigned char* xin;    // kx
   unsigned char* act0;   // a_0..a_n
   unsigned char* feat;
   unsigned char* x0;     // h / 2
@@ -285,7 +312,7 @@ __device__ __forceinline__ void store_mask(uint32_t* dst, const uint32_t* a) {
 }
 
 // dW's products of a pass, dW = Xᵀ·bf16(gY) from the workspace images: W1
-// (its xin rows, K = 64), WF, WD0 and every WH_i, each by column blocks of
+// (its xin rows, K = kx), WF, WD0 and every WH_i, each by column blocks of
 // at most 256 of its gY (two at h = 512), in that order; fn(DwgMat).
 template <class Fn>
 void dw_products(const Workspace& ws, const Layout& L, Fn&& fn) {
@@ -294,7 +321,7 @@ void dw_products(const Workspace& ws, const Layout& L, Fn&& fn) {
     for (int c = 0; c < ndim; c += nb)
       fn(DwgMat{X, G ? G + (size_t)c * ROW_BYTES : nullptr, kdim, nb, out_off + c, ndim, ndim});
   };
-  blocks(ws.xin, ws.ga0, K_XIN, L.h, 0);
+  blocks(ws.xin, ws.ga0, L.kx, L.h, 0);
   blocks(ws.act0 ? ws.act(L.n) : nullptr, ws.gfeat, L.h, L.h, L.wf);
   blocks(ws.feat, ws.gx0, L.h, L.dh, L.wd0);
   for (int i = 0; i < L.n; ++i)
@@ -332,7 +359,7 @@ size_t carve(unsigned char* base, int units, int ctas, const Layout& L, Workspac
   Workspace w = {};
   w.hbytes = (size_t)units * L.h * ROW_BYTES;
   w.mask_words = (size_t)units * L.mask_bytes / 4;
-  w.xin = img(K_XIN);
+  w.xin = img(L.kx);
   w.act0 = imgs(L.h, L.n + 1);
   w.feat = img(L.h);
   w.x0 = img(L.dh);
@@ -367,6 +394,8 @@ struct FwdArgs {
 
 struct alignas(ATOM_BYTES) FwdSmem {
   unsigned char ring[RING][CHAIN_STAGE];  // weight chunk images
+  // a consumer warpgroup's encoded tiles: two of one block, or one of both
+  // blocks past 10 bands (`xin_buf`)
   unsigned char xin[CONSUMERS][2][XIN_BYTES];
   unsigned char wa8[HIDDEN / KCH][8 * ROW_BYTES];  // the heads' weights padded to 8 columns
   unsigned char wrgb8[DIR_HIDDEN / KCH][8 * ROW_BYTES];
@@ -379,16 +408,16 @@ struct alignas(ATOM_BYTES) FwdSmem {
 constexpr size_t FWD_SMEM_BYTES = sizeof(FwdSmem) + ATOM_BYTES;  // + the alignment pad
 static_assert(FWD_SMEM_BYTES <= 232448, "shared memory");
 
-// One layer of a consumer warpgroup (`chain_layer` on this CTA's ring):
-// with FRESH (the recompute, whose epilogues also store) the
-// accumulators' old values are dead and only the A registers the layer
-// reads are fenced; K4f keeps K2's form (a FRESH build of it reads the
-// same on the card).
+// One layer of a consumer warpgroup (`chain_layer` on this CTA's ring,
+// layer1 reading xin's xc blocks): with FRESH (the recompute, whose
+// epilogues also store) the accumulators' old values are dead and only the
+// A registers the layer reads are fenced; K4f keeps K2's form (a FRESH
+// build of it reads the same on the card).
 template <int N, int NCH, int X_CHUNKS, bool FRESH, class Smem, class Release>
 __device__ __forceinline__ void layer(float* acc, uint32_t* a, uint32_t xin, Smem& sm, Ring& ring,
-                                      const Release& release) {
+                                      const Release& release, int xc = 1) {
   chain_layer<N, NCH, X_CHUNKS, RING, FRESH, FRESH ? (KCH / 4) * (NCH - X_CHUNKS) : 64>(acc, a, xin, sm.ring, sm.full,
-                                                                                       ring, release);
+                                                                                       ring, release, xc);
 }
 
 // A dead unit's share of the ring: `count` stages waited for and released
@@ -416,9 +445,10 @@ __device__ __forceinline__ void skip_stages(Smem& sm, Ring& ring, int count, con
   __syncwarp();  // thread 0's warp whole again before an aligned barrier (the dX kernel's last)
 }
 
-// The producer: each unit's chunks, W1, WH_0..WH_{n-1}, WF, WD0.
+// The producer: each unit's chunks, W1 (L.kx rows), WH_0..WH_{n-1}, WF,
+// WD0.
 template <int SF>
-__device__ __forceinline__ void fwd_produce(FwdSmem& sm, const FwdArgs& a, int n_rounds) {
+__device__ __forceinline__ void fwd_produce(FwdSmem& sm, const FwdArgs& a, const Layout& L, int n_rounds) {
   const UnitSchedule<SF, 1> g{a.l};
   Ring ring;
   auto load = [&](int off, int k, int n) {
@@ -426,10 +456,10 @@ __device__ __forceinline__ void fwd_produce(FwdSmem& sm, const FwdArgs& a, int n
   };
   for (int round = blockIdx.x; round < n_rounds; round += gridDim.x) {
     for (int u = 0; u < g.units(); ++u) {
-      load(O::FW_OFF_W1, K_XIN, HIDDEN);
-      for (int i = 0; i < a.n_hidden; ++i) load(O::FW_OFF_WH + i * HH, HIDDEN, HIDDEN);
-      load(O::FW_OFF_WF, HIDDEN, HIDDEN);
-      load(O::FW_OFF_WD0, HIDDEN, DIR_HIDDEN);
+      load(O::FW_OFF_W1, L.kx, HIDDEN);
+      for (int i = 0; i < a.n_hidden; ++i) load(L.wh + i * HH, HIDDEN, HIDDEN);
+      load(L.wf, HIDDEN, HIDDEN);
+      load(L.wd0, HIDDEN, DIR_HIDDEN);
     }
   }
 }
@@ -448,6 +478,7 @@ __device__ __forceinline__ void fwd_consume(FwdSmem& sm, const FwdArgs& a, int w
   const int lane = threadIdx.x & 31;
   const int r0 = k1::frag_row();  // the thread's accumulator rows: r0 and r0 + 8 of a unit
   const int n = a.n_hidden;
+  const int xc = g.xc();  // xin's blocks, W1's chunks
   const Workspace& ws = a.ws;
   auto release = [&](int stage) {
     if ((threadIdx.x & 127) == 0) mbar_arrive(&sm.empty[stage]);
@@ -468,20 +499,20 @@ __device__ __forceinline__ void fwd_consume(FwdSmem& sm, const FwdArgs& a, int w
 #pragma unroll 1
     for (int u = 0; u < g.units(); ++u) {
       const int unit = item * g.units() + u;
-      const int b = units & 1;
+      const int b = xin_buf(units, xc), ph = xin_phase(units, xc);
       if (SAVE && !live) {  // the recompute stores nothing of a dead unit: skip its chunks
         // thread 0 alone takes the xin buffer, as skip_stages the ring
         if ((threadIdx.x & 127) == 0) {
-          mbar_wait(&sm.xin_full[wg][b], (units >> 1) & 1);
+          mbar_wait(&sm.xin_full[wg][b], ph);
           mbar_arrive(&sm.xin_empty[wg][b]);
         }
         ++units;
-        skip_stages<RING>(sm, ring, 1 + 4 * n + 4 + 4, release);
+        skip_stages<RING>(sm, ring, xc + 4 * n + 4 + 4, release);
         continue;
       }
-      mbar_wait(&sm.xin_full[wg][b], (units >> 1) & 1);
+      mbar_wait(&sm.xin_full[wg][b], ph);
       const uint32_t xin = smem_u32(sm.xin[wg][b]);
-      layer<HIDDEN, 1, 1, FRESH>(acc, act, xin, sm, ring, release);
+      layer<HIDDEN, 1, 1, FRESH>(acc, act, xin, sm, ring, release, xc);
       if ((threadIdx.x & 127) == 0) mbar_arrive(&sm.xin_empty[wg][b]);  // layer1 is its only reader
       ++units;
       acc_to_a<HIDDEN, false>(acc, act, ChainBias{sm.f + O::FF_OFF_V0});  // layer1: NO relu
@@ -544,7 +575,7 @@ __global__ void __launch_bounds__(FLEX_THREADS, 1) flex_chain_kernel(const FwdAr
   FwdSmem& sm = *reinterpret_cast<FwdSmem*>(smem_raw + pad);
   const UnitSchedule<SF, 1> g{a.l};
   const int t = threadIdx.x;
-  const Layout L = flex_layout<HIDDEN>(a.n_hidden);
+  const Layout L = flex_layout<HIDDEN>(a.n_hidden, K_XIN * g.xc());
   for (int i = t; i < O::FF_OFF_BH; i += FLEX_THREADS) sm.f[i] = a.F[i];
   if constexpr (!SAVE) {
     head_image<HIDDEN>(sm.wa8, a.W + L.wa, 1, t, FLEX_THREADS);
@@ -572,14 +603,14 @@ __global__ void __launch_bounds__(FLEX_THREADS, 1) flex_chain_kernel(const FwdAr
     reg_dealloc<40>();
     const int w = (t >> 5) - 4 * CONSUMERS;  // the warp in the producer warpgroup
     if (t == CONSUMERS * 128) {
-      fwd_produce<SF>(sm, a, n_rounds);
+      fwd_produce<SF>(sm, a, L, n_rounds);
     } else if (w >= 1 && w <= ENCODERS) {
       const int e = t - CONSUMERS * 128 - 32;
       if constexpr (SAVE) {
-        // the recompute also stores each live unit's xin image
+        // the recompute also stores each live unit's xin image (L.kx wide)
         encode_units(g, sm.xin, sm.xin_full, sm.xin_empty, a, sm.f + O::FF_OFF_FREQS, 0, blockIdx.x, gridDim.x,
                      n_rounds, e, [&](int item, int u) -> unsigned char* {
-                       return item * g.wg_rays() < a.n_rays ? unit_image(a.ws.xin, K_XIN, item * g.units() + u)
+                       return item * g.wg_rays() < a.n_rays ? unit_image(a.ws.xin, L.kx, item * g.units() + u)
                                                             : nullptr;
                      });
       } else {
@@ -941,7 +972,7 @@ __global__ void __launch_bounds__(FLEX_THREADS, 1) flex_dx_kernel(const DxArgs a
   const uint32_t pad = (ATOM_BYTES - (smem_u32(smem_raw) & (ATOM_BYTES - 1))) & (ATOM_BYTES - 1);
   DxSmem& sm = *reinterpret_cast<DxSmem*>(smem_raw + pad);
   const int t = threadIdx.x;
-  const Layout L = flex_layout<HIDDEN>(a.n_hidden);
+  const Layout L = flex_layout<HIDDEN>(a.n_hidden, K_XIN * UnitSchedule<SF, 1>{a.l}.xc());
   for (int i = t; i < HIDDEN; i += FLEX_THREADS) sm.wa[i] = __bfloat162float(a.W[L.wa + i]);
   for (int i = t; i < DIR_HIDDEN * 3; i += FLEX_THREADS) sm.wrgb[i] = __bfloat162float(a.W[L.wrgb + i]);
   if (t == 0) {
@@ -1028,21 +1059,24 @@ int wide_ctas(int n_rays, int n_samples) {
 }
 
 // One product of a unit the warpgroups share: acc = A·W[:, the warpgroup's
-// N columns], A (K = NCH·64) the image at shared address `a_img`, W's
-// chunk images through the ring (the warpgroup's columns N·wg rows into a
-// stage). acc needs no clearing: the first wgmma overwrites it.
+// N columns], A (K = NCH·xc·64) the image at shared address `a_img` (xc >
+// 1 only for layer1 on a two-block xin image, NCH 1), W's chunk images
+// through the ring (the warpgroup's columns N·wg rows into a stage). acc
+// needs no clearing: the first wgmma overwrites it.
 template <int N, int NCH, class Smem, class Release>
 __device__ __forceinline__ void wide_layer(float* acc, uint32_t a_img, Smem& sm, Ring& ring, int wg,
-                                           const Release& release) {
+                                           const Release& release, int xc = 1) {
   uint32_t* no_a = nullptr;  // every chunk's A comes from the image
   auto stages = reinterpret_cast<unsigned char(*)[WSTAGE]>(sm.ring[0] + wg * N * ROW_BYTES);
-  chain_layer<N, NCH, NCH, WRING, true, 0, WSTAGE>(acc, no_a, a_img, stages, sm.full, ring, release);
+  chain_layer<N, NCH, NCH, WRING, true, 0, WSTAGE>(acc, no_a, a_img, stages, sm.full, ring, release, xc);
 }
 
 struct alignas(ATOM_BYTES) WideFwdSmem {
   unsigned char ring[WRING][WSTAGE];  // weight chunk images
   unsigned char xch[WIMG_BYTES];      // the layer's output, both warpgroups' columns: the next product's A
-  unsigned char xin[2][XIN_BYTES];    // a unit's [xyz; PE; 0], both warpgroups' A of layer1
+  // a unit's [xyz; PE; 0], both warpgroups' A of layer1: two buffers of one
+  // block, or one of both past 10 bands (`xin_buf`; no room for two of two)
+  unsigned char xin[2][XIN_BYTES];
   unsigned char wa8[WIDE / KCH][8 * ROW_BYTES];  // the heads' weights padded to 8 columns
   unsigned char wrgb8[WIDE_DH / KCH][8 * ROW_BYTES];
   float heads[CONSUMERS][64][4];      // each warpgroup's partial [rgb, σ] of the unit's rows
@@ -1065,9 +1099,10 @@ __device__ __forceinline__ void wide_exchange(unsigned char* img, const uint32_t
   named_bar_sync(BAR_CONSUMERS, CONSUMERS * 128);
 }
 
-// The producer: each unit's chunks, W1, WH_0..WH_{n-1}, WF, WD0.
+// The producer: each unit's chunks, W1 (L.kx rows), WH_0..WH_{n-1}, WF,
+// WD0.
 template <int SF>
-__device__ __forceinline__ void wide_fwd_produce(WideFwdSmem& sm, const FwdArgs& a, int n_items) {
+__device__ __forceinline__ void wide_fwd_produce(WideFwdSmem& sm, const FwdArgs& a, const Layout& L, int n_items) {
   const UnitSchedule<SF, 1> g{a.l};
   Ring ring;
   auto load = [&](int off, int k, int n) {
@@ -1075,27 +1110,29 @@ __device__ __forceinline__ void wide_fwd_produce(WideFwdSmem& sm, const FwdArgs&
   };
   for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
     for (int u = 0; u < g.units(); ++u) {
-      load(OW::FW_OFF_W1, K_XIN, WIDE);
-      for (int i = 0; i < a.n_hidden; ++i) load(OW::FW_OFF_WH + i * WIDE * WIDE, WIDE, WIDE);
-      load(OW::FW_OFF_WF, WIDE, WIDE);
-      load(OW::FW_OFF_WD0, WIDE, WIDE_DH);
+      load(OW::FW_OFF_W1, L.kx, WIDE);
+      for (int i = 0; i < a.n_hidden; ++i) load(L.wh + i * WIDE * WIDE, WIDE, WIDE);
+      load(L.wf, WIDE, WIDE);
+      load(L.wd0, WIDE, WIDE_DH);
     }
   }
 }
 
 // The encoder warps (index e): each unit of the CTA's items, in order, into
-// the next of the two xin buffers once both warpgroups have released it;
-// with `xg` (the recompute) also into the unit's workspace image.
+// the next xin buffer (`xin_buf`: of the two, or the one of two blocks past
+// 10 bands, 2·64·xc tasks) once both warpgroups have released it; with
+// `xg` (the recompute) also into the unit's workspace image.
 template <class G>
 __device__ __forceinline__ void wide_encode(const G& g, WideFwdSmem& sm, const FwdArgs& a, int n_items, int e,
                                             unsigned char* xg) {
+  const int xc = g.xc(), tasks = 128 * xc;
   int done = 0;
   for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
     for (int u = 0; u < g.units(); ++u) {
-      const int b = done & 1;
-      mbar_wait(&sm.xin_empty[b], ((done >> 1) & 1) ^ 1);
-      unsigned char* gi = xg ? unit_image(xg, K_XIN, item * g.units() + u) : nullptr;
-      for (int task = e; task < 128; task += ENCODERS * 32)
+      const int b = xin_buf(done, xc);
+      mbar_wait(&sm.xin_empty[b], xin_phase(done, xc) ^ 1);
+      unsigned char* gi = xg ? unit_image(xg, K_XIN * xc, item * g.units() + u) : nullptr;
+      for (int task = e; task < tasks; task += ENCODERS * 32)
         encode_task(sm.xin[b], gi, task, a, a.F + OW::FF_OFF_FREQS, item * g.wg_rays(), u * 64, g);
       fence_proxy_async();
       mbar_arrive(&sm.xin_full[b]);
@@ -1117,6 +1154,7 @@ __device__ __forceinline__ void wide_fwd_consume(WideFwdSmem& sm, const FwdArgs&
   const int r0 = k1::frag_row();
   const int n = a.n_hidden;
   const int c0 = wg * WHALF, d0 = wg * WDHALF;  // the warpgroup's first column of a trunk layer / of x0
+  const int xc = g.xc();  // xin's blocks, W1's chunks
   const Workspace& ws = a.ws;
   auto release = [&](int stage) {
     if (t == 0) mbar_arrive(&sm.empty[stage]);
@@ -1136,9 +1174,9 @@ __device__ __forceinline__ void wide_fwd_consume(WideFwdSmem& sm, const FwdArgs&
 #pragma unroll 1
     for (int u = 0; u < g.units(); ++u) {
       const int unit = item * g.units() + u;
-      const int b = units & 1;
-      mbar_wait(&sm.xin_full[b], (units >> 1) & 1);
-      wide_layer<WHALF, 1>(acc, smem_u32(sm.xin[b]), sm, ring, wg, release);
+      const int b = xin_buf(units, xc);
+      mbar_wait(&sm.xin_full[b], xin_phase(units, xc));
+      wide_layer<WHALF, 1>(acc, smem_u32(sm.xin[b]), sm, ring, wg, release, xc);
       if (t == 0) mbar_arrive(&sm.xin_empty[b]);  // layer1 is its only reader
       ++units;
       acc_to_a<WHALF, false>(acc, act, ChainBias{a.F + OW::FF_OFF_V0 + c0});  // layer1: NO relu
@@ -1217,7 +1255,7 @@ __global__ void __launch_bounds__(FLEX_THREADS, 1) wide_chain_kernel(const FwdAr
   WideFwdSmem& sm = *reinterpret_cast<WideFwdSmem*>(smem_raw + pad);
   const UnitSchedule<SF, 1> g{a.l};
   const int t = threadIdx.x;
-  const Layout L = flex_layout<WIDE>(a.n_hidden);
+  const Layout L = flex_layout<WIDE>(a.n_hidden, K_XIN * g.xc());
   if constexpr (!SAVE) {
     head_image<WIDE>(sm.wa8, a.W + L.wa, 1, t, FLEX_THREADS);
     head_image<WIDE_DH>(sm.wrgb8, a.W + L.wrgb, 3, t, FLEX_THREADS);
@@ -1242,7 +1280,7 @@ __global__ void __launch_bounds__(FLEX_THREADS, 1) wide_chain_kernel(const FwdAr
     reg_dealloc<40>();
     const int w = (t >> 5) - 4 * CONSUMERS;  // the warp in the producer warpgroup
     if (t == CONSUMERS * 128) {
-      wide_fwd_produce<SF>(sm, a, n_items);
+      wide_fwd_produce<SF>(sm, a, L, n_items);
     } else if (w >= 1 && w <= ENCODERS) {
       wide_encode(g, sm, a, n_items, t - CONSUMERS * 128 - 32, SAVE ? a.ws.xin : nullptr);
     }
@@ -1382,7 +1420,7 @@ __global__ void __launch_bounds__(FLEX_THREADS, 1) wide_dx_kernel(const DxArgs a
   WideDxSmem& sm = *reinterpret_cast<WideDxSmem*>(smem_raw + pad);
   const UnitSchedule<SF, 1> g{a.l};
   const int t = threadIdx.x;
-  const Layout L = flex_layout<WIDE>(a.n_hidden);
+  const Layout L = flex_layout<WIDE>(a.n_hidden, K_XIN * g.xc());
   for (int i = t; i < WIDE; i += FLEX_THREADS) sm.wa[i] = __bfloat162float(a.W[L.wa + i]);
   for (int i = t; i < WIDE_DH * 3; i += FLEX_THREADS) sm.wrgb[i] = __bfloat162float(a.W[L.wrgb + i]);
   if (t == 0) {
@@ -1471,18 +1509,18 @@ struct Backward {
   }
 };
 
-// What the kernels take: S in 1..MAX_SAMPLES, 1..10 bands (K_XIN
-// columns: the paper kernels' wide xin image is theirs), hidden width 256 or 512 (no other: each has its own layout,
-// and no width falls back on another's), any number n ≥ 0 of hidden
-// layers whose offsets fit an int.
+// What the kernels take: S in 1..MAX_SAMPLES, 1..MAX_FREQS bands (up to
+// K_XIN_WIDE columns, `xin_extent`), hidden width 256 or 512 (no other:
+// each has its own layout, and no width falls back on another's), any
+// number n ≥ 0 of hidden layers whose offsets fit an int.
 bool valid(int n_rays, int n_samples, int n_freqs, int n_hidden, int hidden) {
-  return n_rays >= 0 && n_samples >= 1 && n_samples <= MAX_SAMPLES && n_freqs >= 1 && 3 + 6 * n_freqs <= K_XIN &&
-         (hidden == HIDDEN || hidden == WIDE) && n_hidden >= 0 &&
+  return n_rays >= 0 && n_samples >= 1 && n_samples <= MAX_SAMPLES && n_freqs >= 1 &&
+         3 + 6 * n_freqs <= K_XIN_WIDE && (hidden == HIDDEN || hidden == WIDE) && n_hidden >= 0 &&
          (long long)(n_hidden + 4) * hidden * hidden * 2 < (1ll << 31);
 }
 
-Layout layout_of(int hidden, int n_hidden) {
-  return hidden == WIDE ? flex_layout<WIDE>(n_hidden) : flex_layout<HIDDEN>(n_hidden);
+Layout layout_of(int hidden, int n_hidden, int kx) {
+  return hidden == WIDE ? flex_layout<WIDE>(n_hidden, kx) : flex_layout<HIDDEN>(n_hidden, kx);
 }
 
 int ctas_of(int hidden, int n_rays, int n_samples) {
@@ -1507,24 +1545,27 @@ extern "C" void nerface_fused_flex_shared_bytes(long long* out) {
 // `valid` refuses, or for a width or an S whose layout class this build
 // does not hold). Launches on `stream`, does not synchronise and allocates
 // nothing. W is the forward weights' chunk images (Offsets<hidden>::FW_OFF_*
-// offsets), F the bias rows and bands (FF_OFF_*).
+// offsets at the bands' extent, `flex_w_off`), F the bias rows and bands
+// (FF_OFF_*).
 extern "C" int nerface_fused_flex_fwd(const float* ro, const float* rd, const float* z,
                                       const float* dir_c, const void* W, const float* F, float* out,
                                       int n_rays, int n_samples, int n_freqs, int n_hidden, int hidden,
                                       void* stream) {
   if (!valid(n_rays, n_samples, n_freqs, n_hidden, hidden)) return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
+  const int xc = xin_extent(n_freqs) / K_XIN;
   FwdArgs fa{ro,    rd,     z,     dir_c, static_cast<const bf16*>(W), F, out, Workspace{}, n_rays,
-             UnitLayout::of(n_samples), n_freqs, n_hidden};
-  return dispatch_pass<Forward>(n_samples, hidden == WIDE, 1, fa, static_cast<cudaStream_t>(stream));
+             UnitLayout::of(n_samples, xc), n_freqs, n_hidden};
+  return dispatch_pass<Forward>(n_samples, hidden == WIDE, xc, fa, static_cast<cudaStream_t>(stream));
 }
 
 // Bytes of device workspace one K4b call needs (-1 for what `valid`
-// refuses).
-extern "C" long long nerface_fused_flex_workspace_bytes(int n_rays, int n_samples, int n_hidden, int hidden) {
-  if (!valid(n_rays, n_samples, 1, n_hidden, hidden)) return -1;
+// refuses): its xin image and W1's dW product are the bands' extent wide.
+extern "C" long long nerface_fused_flex_workspace_bytes(int n_rays, int n_samples, int n_freqs, int n_hidden,
+                                                        int hidden) {
+  if (!valid(n_rays, n_samples, n_freqs, n_hidden, hidden)) return -1;
   return (long long)carve(nullptr, k1::pass_units(n_rays, n_samples), ctas_of(hidden, n_rays, n_samples),
-                          layout_of(hidden, n_hidden), nullptr);
+                          layout_of(hidden, n_hidden, xin_extent(n_freqs)), nullptr);
 }
 
 // K4b: the gradients of Σ g·out. Returns a cudaError_t (0 on success; as
@@ -1532,7 +1573,8 @@ extern "C" long long nerface_fused_flex_workspace_bytes(int n_rays, int n_sample
 // Launches on `stream`, does not synchronise and allocates nothing:
 // `workspace` holds nerface_fused_flex_workspace_bytes(...) bytes. W and
 // WT are the forward and the transposed weights' chunk images; dW is the
-// f32 gradient in the packed weight layout (w_offsets), dF in the
+// f32 gradient in the packed weight layout (w_offsets at the bands'
+// extent), dF in the
 // bias-row layout (its V0 row holds d_v0; FREQS is 0), d_dir (R, h / 2).
 extern "C" int nerface_fused_flex_bwd(const float* ro, const float* rd, const float* z,
                                       const float* dir_c, const void* W, const void* WT,
@@ -1542,15 +1584,16 @@ extern "C" int nerface_fused_flex_bwd(const float* ro, const float* rd, const fl
   if (!valid(n_rays, n_samples, n_freqs, n_hidden, hidden)) return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
   const int units = k1::pass_units(n_rays, n_samples), ctas = ctas_of(hidden, n_rays, n_samples);
-  const Layout L = layout_of(hidden, n_hidden);
+  const int kx = xin_extent(n_freqs), xc = kx / K_XIN;
+  const Layout L = layout_of(hidden, n_hidden, kx);
   Workspace ws;
   carve(static_cast<unsigned char*>(workspace), units, ctas, L, &ws);
   const bf16* Wb = static_cast<const bf16*>(W);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const UnitLayout l = UnitLayout::of(n_samples);
+  const UnitLayout l = UnitLayout::of(n_samples, xc);
   FwdArgs fa{ro, rd, z, dir_c, Wb, F, nullptr, ws, n_rays, l, n_freqs, n_hidden};
   DxArgs da{g, Wb, static_cast<const bf16*>(WT), d_dir, ws, n_rays, l, n_hidden};
-  int err = dispatch_pass<Backward>(n_samples, hidden == WIDE, 1, fa, da, st);
+  int err = dispatch_pass<Backward>(n_samples, hidden == WIDE, xc, fa, da, st);
   if (err != 0) return err;
   // dW from the images (`dw_products`), DWG_MATS_MAX products a launch
   const int segs = dw_segments_of(L);

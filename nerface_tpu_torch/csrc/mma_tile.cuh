@@ -18,8 +18,9 @@ constexpr int HIDDEN = 256;
 constexpr int DIR_HIDDEN = 128;
 // Layer 0 and the skip layer read [xyz; PE; 0]: K = K_XIN holds up to 10
 // bands (3 + 6·10 = 63 columns), K = K_XIN_WIDE up to MAX_FREQS = 20 (123
-// columns) as two 64-column blocks. The paper kernels (K2, K3, K1) take
-// either extent, `xin_extent(n_freqs)`; K4 (fused_flex.cu) K_XIN only.
+// columns) as two 64-column blocks. Every kernel of the port that encodes
+// (K2, K3, K1, and K4 in fused_flex.cu) takes either extent,
+// `xin_extent(n_freqs)`.
 constexpr int K_XIN = 64;
 constexpr int K_XIN_WIDE = 128;
 constexpr int MAX_FREQS = 20;

@@ -47,7 +47,7 @@ constexpr int ITEM_ROWS = 256;
 // once a task, keep pace with the consumers as at a compile-time S.
 //
 // xc is the pass's xin image in 64-column blocks: 1 (K = 64, up to 10
-// bands) or 2 (K = 128, the paper kernels at 11..20 bands). A consumer
+// bands) or 2 (K = 128, 11..20 bands). A consumer
 // warpgroup's xin buffers are two of one block (the encoders one unit
 // ahead) or one of two blocks, the same bytes (`xin_buf`).
 struct UnitLayout {

@@ -40,10 +40,12 @@ contribution, relu, `fc_rgb` — and returns the raw radiance [rgb, σ]
   (`nerface_tpu/render/pipeline.py:287-292`: `kernel_pass_ok`, the ray
   count a multiple of 8) plus what the kernels are built for: hidden width
   256 or 512 (`WIDTHS`; JAX also admits 768, 1024, ..., which here run the
-  model's plain forward), any number of hidden layers, 1..MAX_SAMPLES
+  model's plain forward), any number of hidden layers, 1..MAX_FREQS xyz
+  bands (JAX has no limit; 21 and more run the plain forward), 1..MAX_SAMPLES
   samples a ray (any S: `csrc/fused_flex.cu` takes the paper kernels'
   `unit_layout`, S = 64 and 128 as fixed layout classes, every other S at
-  run time).
+  run time, and a pass past 10 bands, whose encoding is two 64-column
+  blocks, the runtime class at any S).
 * The width h is read from the weights (v0 is (1, h)); every layout
   function takes it, h = 256 by default. At h = 512 the two consumer
   warpgroups of a CTA share each unit (`csrc/fused_flex.cu`,
@@ -63,6 +65,7 @@ from nerface_tpu_torch.ops.kernels.fused_mlp import (
     DIR_HIDDEN,
     HIDDEN,
     K_XIN,
+    MAX_FREQS,
     MAX_SAMPLES,
     _check,
     _device_bands,
@@ -72,13 +75,14 @@ from nerface_tpu_torch.ops.kernels.fused_mlp import (
     kernel_pass_ok,
     sm90_chunk_image,
     unit_layout,
+    xin_extent,
 )
 
 # the hidden widths the kernels take; layers_dir.0 is h / 2 wide
 WIDTHS = (HIDDEN, 2 * HIDDEN)
-# K4's xyz encoding bands: [xyz; PE] in one K_XIN block (the paper kernels'
-# two-block image past 10 bands is theirs alone, fused_mlp.MAX_FREQS)
-MAX_FREQS = (K_XIN - 3) // 6
+# K4's xyz encoding bands, 1..MAX_FREQS (the paper kernels' 20): [xyz; PE;
+# 0] is one K_XIN block up to 10 bands and two (K = K_XIN_WIDE) from 11,
+# `xin_extent`; W1 holds that many rows (`w_offsets`' kx)
 
 
 def check_width(h: int) -> None:
@@ -129,7 +133,7 @@ def flex_fused_eligible(model, encode_xyz, pe_dir, n_rays: int, n_samples: int, 
     """Whether `model` can run its radiance field as one `fused_flex_mlp`
     call: a Flexible-family model with view directions, the xyz input and
     its declared encoding, no skip layer engaged (every reference config),
-    hidden width 256 or 512, any number of hidden layers, ≤ MAX_FREQS
+    hidden width 256 or 512, any number of hidden layers, 1..MAX_FREQS
     bands, 1..MAX_SAMPLES samples a ray, and on the card a pass the JAX package
     sends to its Pallas kernel (`kernel_pass_ok`: its tile picker finds a
     ray tile, so n_rays % 8 == 0)."""
@@ -139,7 +143,7 @@ def flex_fused_eligible(model, encode_xyz, pe_dir, n_rays: int, n_samples: int, 
         return False
     if not model.use_viewdirs or pe_dir is None:
         return False
-    if not encode_xyz.include_input or encode_xyz.num_encoding_functions > MAX_FREQS:
+    if not encode_xyz.include_input or not 1 <= encode_xyz.num_encoding_functions <= MAX_FREQS:
         return False
     if model.dim_xyz != 3 + 6 * encode_xyz.num_encoding_functions:
         return False
@@ -268,12 +272,13 @@ def fused_flex_backward_reference(
 # tests/test_torch_flex_kernel.py checks it against the source.
 
 
-def w_offsets(n_hidden: int, h: int = HIDDEN) -> Dict[str, int]:
-    """bf16 weights, each (in, out) row-major: W1 = [w1a; w1b; 0] (K_XIN,
-    h), WF, WD0, WH0..WH{n-1}, then WA and WRGB (the σ and rgb heads, whose
-    gradients are the CTAs' partial sums)."""
+def w_offsets(n_hidden: int, h: int = HIDDEN, kx: int = K_XIN) -> Dict[str, int]:
+    """bf16 weights, each (in, out) row-major: W1 = [w1a; w1b; 0] (kx, h;
+    kx the encoding's extent, `xin_extent`: W1's rows past K_XIN move
+    every later offset), WF, WD0, WH0..WH{n-1}, then WA and WRGB (the σ and
+    rgb heads, whose gradients are the CTAs' partial sums)."""
     dh = h // 2
-    offs = {"W1": 0, "WF": K_XIN * h}
+    offs = {"W1": 0, "WF": kx * h}
     offs["WD0"] = offs["WF"] + h * h
     wh = offs["WD0"] + h * dh
     for i in range(n_hidden):
@@ -286,13 +291,14 @@ def w_offsets(n_hidden: int, h: int = HIDDEN) -> Dict[str, int]:
 
 def f_offsets(n_hidden: int, h: int = HIDDEN) -> Dict[str, int]:
     """f32 rows: V0 (layer1's folded bias), BF, BD0, BA, BRGB, the encoding's
-    frequency bands, BH0..BH{n-1}."""
+    frequency bands (MAX_FREQS slots), BH0..BH{n-1}; the same at every band
+    count."""
     offs = {"V0": 0, "BF": h, "BD0": 2 * h, "BA": 2 * h + h // 2}
     offs["BRGB"] = offs["BA"] + 1
     offs["FREQS"] = offs["BRGB"] + 3
     for i in range(n_hidden):
-        offs[f"BH{i}"] = offs["FREQS"] + 16 + i * h
-    offs["TOTAL"] = offs["FREQS"] + 16 + n_hidden * h
+        offs[f"BH{i}"] = offs["FREQS"] + MAX_FREQS + i * h
+    offs["TOTAL"] = offs["FREQS"] + MAX_FREQS + n_hidden * h
     return offs
 
 
@@ -309,15 +315,16 @@ def wt_offsets(n_hidden: int, h: int = HIDDEN) -> Dict[str, int]:
 def _pack_rows(W, v0: torch.Tensor, n_hidden: int, freqs: torch.Tensor) -> torch.Tensor:
     """The f32 rows in `f_offsets` order (at the width of v0)."""
     rows = [v0, W["bf"], W["bd0"], W["ba"], W["brgb"],
-            torch.cat([freqs, freqs.new_zeros(16 - freqs.numel())])]
+            torch.cat([freqs, freqs.new_zeros(MAX_FREQS - freqs.numel())])]
     rows += [W[f"bh{i}"] for i in range(n_hidden)]
     return torch.cat([t.reshape(-1).float() for t in rows]).contiguous()
 
 
 def _forward_matrices(W, n_hidden: int):
-    """`w_offsets`' matrices by name, (in, out): W1 = [w1a; w1b; 0]."""
+    """`w_offsets`' matrices by name, (in, out): W1 = [w1a; w1b; 0], the
+    bands' extent kx rows."""
     n_enc = W["w1b"].shape[0]
-    pad = W["w1a"].new_zeros(K_XIN - 3 - n_enc, W["w1a"].shape[1])
+    pad = W["w1a"].new_zeros(xin_extent(n_enc // 6) - 3 - n_enc, W["w1a"].shape[1])
     mats = {"W1": torch.cat([W["w1a"], W["w1b"], pad]), "WF": W["wf"], "WD0": W["wd0"]}
     mats.update({f"WH{i}": W[f"wh{i}"] for i in range(n_hidden)})
     mats.update(WA=W["wa"], WRGB=W["wrgb"])
@@ -336,7 +343,8 @@ def pack_kernel_operands(W, v0: torch.Tensor, n_hidden: int, freqs: torch.Tensor
     `f_offsets` order, each matrix row-major."""
     h = v0.shape[-1]
     mats = _forward_matrices(W, n_hidden)
-    wbuf = torch.cat([mats[k].reshape(-1).to(torch.bfloat16) for k in w_offsets(n_hidden, h)
+    kx = mats["W1"].shape[0]
+    wbuf = torch.cat([mats[k].reshape(-1).to(torch.bfloat16) for k in w_offsets(n_hidden, h, kx)
                       if k != "TOTAL"])
     return wbuf.contiguous(), _pack_rows(W, v0, n_hidden, freqs)
 
@@ -392,9 +400,10 @@ def _flex_weight_gather(n_hidden: int, n_enc: int, device, transposed: bool, h: 
 def _split_kernel_grads(dwbuf, dfbuf, n_hidden: int, n_enc: int, h: int = HIDDEN):
     """The kernel's packed f32 gradients -> ({matrix name: grad},
     {bias name: (1, out) grad}, d_v0 (1, h)); W1's zero-padded rows are
-    dropped."""
+    dropped (its kx rows at n_enc / 6 bands)."""
     dh = h // 2
-    wo, fo = w_offsets(n_hidden, h), f_offsets(n_hidden, h)
+    kx = xin_extent(n_enc // 6)
+    wo, fo = w_offsets(n_hidden, h, kx), f_offsets(n_hidden, h)
 
     def mat(name, rows, cols):
         return dwbuf[wo[name]:wo[name] + rows * cols].reshape(rows, cols)
@@ -402,7 +411,7 @@ def _split_kernel_grads(dwbuf, dfbuf, n_hidden: int, n_enc: int, h: int = HIDDEN
     def row(name, n):
         return dfbuf[fo[name]:fo[name] + n][None, :]
 
-    w1 = mat("W1", K_XIN, h)
+    w1 = mat("W1", kx, h)
     gw = {"w1a": w1[:3], "w1b": w1[3:3 + n_enc], "wf": mat("WF", h, h),
           "wa": mat("WA", h, 1), "wd0": mat("WD0", h, dh),
           "wrgb": mat("WRGB", dh, 3)}
@@ -417,23 +426,25 @@ def _split_kernel_grads(dwbuf, dfbuf, n_hidden: int, n_enc: int, h: int = HIDDEN
 # -- the wrappers -------------------------------------------------------------
 
 
-def _check_domain(z_vals, v0, n_hidden):
+def _check_domain(z_vals, v0, n_hidden, num_encoding_fn_xyz):
     """What the wrappers take on either device: 1..MAX_SAMPLES samples a
-    ray, hidden width 256 or 512 (v0's), n_hidden ≥ 0."""
+    ray, hidden width 256 or 512 (v0's), n_hidden ≥ 0, 1..MAX_FREQS xyz
+    bands."""
     check_samples(z_vals.shape[-1])
     check_width(v0.shape[-1])
     if n_hidden < 0:
         raise ValueError(f"the Flexible kernels take n_hidden ≥ 0, got {n_hidden}")
+    if not 1 <= num_encoding_fn_xyz <= MAX_FREQS:
+        raise ValueError(f"the Flexible kernels take 1..{MAX_FREQS} xyz encoding bands, "
+                         f"got {num_encoding_fn_xyz}")
 
 
 def _kernel_call(weights, ro, rd, z, dir_c, v0, n_hidden, num_encoding_fn_xyz, g=None):
     """Check the operands of a kernel launch; returns the weights by name."""
     dev = ro.device
     n_rays, n_samples = z.shape
-    _check_domain(z, v0, n_hidden)
+    _check_domain(z, v0, n_hidden, num_encoding_fn_xyz)
     h = v0.shape[-1]
-    if not 1 <= num_encoding_fn_xyz <= MAX_FREQS:
-        raise ValueError(f"kernel takes 1..{MAX_FREQS} xyz encoding bands")
     _check("ray_origins", ro, (n_rays, 3), dev)
     _check("ray_directions", rd, (n_rays, 3), dev)
     _check("z_vals", z, (n_rays, n_samples), dev)
@@ -471,12 +482,13 @@ def _kernel_operands(W, v0, n_hidden, num_encoding_fn_xyz, log_sampling_xyz, tra
     return both[wt_total:], fbuf, both[:wt_total]
 
 
-def _lib(n_samples: int):
-    """The build of `csrc/fused_flex.cu` that holds n_samples' layout
-    class (`build.layout_library`), both widths."""
+def _lib(n_samples: int, num_encoding_fn_xyz: int):
+    """The build of `csrc/fused_flex.cu` that holds the layout class of a
+    pass of n_samples at num_encoding_fn_xyz bands (`build.layout_library`:
+    past 10 bands the runtime class at any S), both widths."""
     from nerface_tpu_torch.ops.kernels.build import layout_library
 
-    return layout_library("fused_flex", n_samples)
+    return layout_library("fused_flex", n_samples, num_encoding_fn_xyz)
 
 
 def _launch_flex_fwd(operands, per_ray, out, n_hidden, num_encoding_fn_xyz):
@@ -490,7 +502,7 @@ def _launch_flex_fwd(operands, per_ray, out, n_hidden, num_encoding_fn_xyz):
     h = 2 * dc.shape[-1]
     with torch.cuda.device(ro.device):
         stream = torch.cuda.current_stream(ro.device).cuda_stream
-        err = _lib(n_samples).nerface_fused_flex_fwd(
+        err = _lib(n_samples, num_encoding_fn_xyz).nerface_fused_flex_fwd(
             _ptr(ro), _ptr(rd), _ptr(z), _ptr(dc), _ptr(wbuf), _ptr(fbuf), _ptr(out), n_rays,
             n_samples, num_encoding_fn_xyz, n_hidden, h, ctypes.c_void_p(stream),
         )
@@ -499,22 +511,27 @@ def _launch_flex_fwd(operands, per_ray, out, n_hidden, num_encoding_fn_xyz):
     fused_flex_forward.launches += 1
 
 
-def flex_bwd_outputs(n_rays: int, n_hidden: int, dev, h: int = HIDDEN) -> Dict[str, torch.Tensor]:
+def flex_bwd_outputs(n_rays: int, n_hidden: int, dev, h: int = HIDDEN,
+                     num_encoding_fn_xyz: int = 10) -> Dict[str, torch.Tensor]:
     """K4b's uninitialised f32 outputs: the packed weight and row gradients
-    (`w_offsets` / `f_offsets`) and d_dir (R, h / 2)."""
+    (`w_offsets` at the bands' extent / `f_offsets`) and d_dir (R, h / 2)."""
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
-    return {"dw": empty(w_offsets(n_hidden, h)["TOTAL"]), "df": empty(f_offsets(n_hidden, h)["TOTAL"]),
+    kx = xin_extent(num_encoding_fn_xyz)
+    return {"dw": empty(w_offsets(n_hidden, h, kx)["TOTAL"]), "df": empty(f_offsets(n_hidden, h)["TOTAL"]),
             "d_dir": empty(n_rays, h // 2)}
 
 
-def flex_bwd_workspace(n_rays: int, n_samples: int, n_hidden: int, dev, h: int = HIDDEN) -> torch.Tensor:
+def flex_bwd_workspace(n_rays: int, n_samples: int, n_hidden: int, dev, h: int = HIDDEN,
+                       num_encoding_fn_xyz: int = 10) -> torch.Tensor:
     """K4b's device workspace for a pass (`workspace_layout`'s bytes)."""
-    nbytes = _lib(n_samples).nerface_fused_flex_workspace_bytes(n_rays, n_samples, n_hidden, h)
+    nbytes = _lib(n_samples, num_encoding_fn_xyz).nerface_fused_flex_workspace_bytes(
+        n_rays, n_samples, num_encoding_fn_xyz, n_hidden, h)
     if nbytes < 0:
-        raise ValueError(f"K4b takes no pass of {n_rays} × {n_samples} at h = {h}, n = {n_hidden}")
+        raise ValueError(f"K4b takes no pass of {n_rays} × {n_samples} at h = {h}, n = {n_hidden}, "
+                         f"{num_encoding_fn_xyz} bands")
     return torch.empty(nbytes, dtype=torch.uint8, device=dev)
 
 
@@ -530,7 +547,7 @@ def _launch_flex_bwd(operands, per_ray, out, ws, n_hidden, num_encoding_fn_xyz):
     h = 2 * dc.shape[-1]
     with torch.cuda.device(ro.device):
         stream = torch.cuda.current_stream(ro.device).cuda_stream
-        err = _lib(n_samples).nerface_fused_flex_bwd(
+        err = _lib(n_samples, num_encoding_fn_xyz).nerface_fused_flex_bwd(
             _ptr(ro), _ptr(rd), _ptr(z), _ptr(dc), _ptr(wbuf), _ptr(wtbuf), _ptr(fbuf), _ptr(g),
             _ptr(out["dw"]), _ptr(out["df"]), _ptr(out["d_dir"]), _ptr(ws), n_rays, n_samples,
             num_encoding_fn_xyz, n_hidden, h, ctypes.c_void_p(stream),
@@ -547,9 +564,9 @@ def fused_flex_forward(
     """K4f: the raw radiance (R, S, 4) f32 of the skip-free Flexible trunk.
     `weights` is `pack_flex_weights(...)`; ro/rd (R, 3), z (R, S),
     dir_contrib (R, h / 2) = pe_dir @ W_dir0[:, h:].T, v0 (1, h), all f32
-    and contiguous; h is 256 or 512."""
+    and contiguous; h is 256 or 512, the bands 1..MAX_FREQS."""
     dev = ray_origins.device
-    _check_domain(z_vals, v0, n_hidden)
+    _check_domain(z_vals, v0, n_hidden, num_encoding_fn_xyz)
     if dev.type == "cpu":
         return fused_flex_forward_reference(
             weights, ray_origins, ray_directions, z_vals, dir_contrib, v0, n_hidden,
@@ -580,7 +597,7 @@ def fused_flex_backward(
     order and dtypes, d_v0 (1, h), d_dir (R, h / 2)), f32 but for the
     matrices' bf16."""
     dev = ray_origins.device
-    _check_domain(z_vals, v0, n_hidden)
+    _check_domain(z_vals, v0, n_hidden, num_encoding_fn_xyz)
     if dev.type == "cpu":
         return fused_flex_backward_reference(
             weights, ray_origins, ray_directions, z_vals, dir_contrib, v0, g, n_hidden,
@@ -593,8 +610,8 @@ def fused_flex_backward(
     n_rays, n_samples = z_vals.shape
     h = v0.shape[-1]
     operands = _kernel_operands(W, v0, n_hidden, num_encoding_fn_xyz, log_sampling_xyz, True)
-    out = flex_bwd_outputs(n_rays, n_hidden, dev, h)
-    ws = flex_bwd_workspace(n_rays, n_samples, n_hidden, dev, h)
+    out = flex_bwd_outputs(n_rays, n_hidden, dev, h, num_encoding_fn_xyz)
+    ws = flex_bwd_workspace(n_rays, n_samples, n_hidden, dev, h, num_encoding_fn_xyz)
     _launch_flex_bwd(operands, (ray_origins, ray_directions, z_vals, dir_contrib, g), out, ws,
                      n_hidden, num_encoding_fn_xyz)
     gw, gb, d_v0 = _split_kernel_grads(out["dw"], out["df"], n_hidden, 6 * num_encoding_fn_xyz, h)
@@ -624,10 +641,11 @@ def mask_bytes(h: int = HIDDEN) -> int:
     return 128 * h // 64 * 4
 
 
-def workspace_buffers(n_hidden: int, h: int = HIDDEN) -> Tuple[Tuple[str, int], ...]:
-    """K4b's bf16 image buffers and their widths, in the carve's order."""
+def workspace_buffers(n_hidden: int, h: int = HIDDEN, kx: int = K_XIN) -> Tuple[Tuple[str, int], ...]:
+    """K4b's bf16 image buffers and their widths, in the carve's order (xin
+    at the encoding's extent kx)."""
     dh = h // 2
-    return ((("xin", K_XIN),) + tuple((f"a{i}", h) for i in range(n_hidden + 1))
+    return ((("xin", kx),) + tuple((f"a{i}", h) for i in range(n_hidden + 1))
             + (("feat", h), ("x0", dh), ("gx0", dh), ("gfeat", h))
             + tuple((f"gpre{i}", h) for i in range(n_hidden)) + (("ga0", h),))
 
@@ -638,18 +656,18 @@ def mask_buffers(n_hidden: int) -> Tuple[str, ...]:
     return ("fmask",) + tuple(f"amask{i}" for i in range(1, n_hidden + 1))
 
 
-def dw_products(n_hidden: int, h: int = HIDDEN) -> Tuple[Tuple[int, int], ...]:
+def dw_products(n_hidden: int, h: int = HIDDEN, kx: int = K_XIN) -> Tuple[Tuple[int, int], ...]:
     """dW's products (X width, gY columns), as the kernel launches them
-    (`dw_products`): W1, WF, WD0, each WH_i, each by column blocks of at
-    most 256."""
-    mats = [(K_XIN, h), (h, h), (h, h // 2)] + [(h, h)] * n_hidden
+    (`dw_products`): W1 (K = kx), WF, WD0, each WH_i, each by column blocks
+    of at most 256."""
+    mats = [(kx, h), (h, h), (h, h // 2)] + [(h, h)] * n_hidden
     return tuple((k, min(n, 256)) for k, n in mats for _ in range(0, n, 256))
 
 
-def dw_segments(n_hidden: int, h: int = HIDDEN) -> int:
+def dw_segments(n_hidden: int, h: int = HIDDEN, kx: int = K_XIN) -> int:
     """dW's row segments: one wave over its products' CTAs (a pair of X's
     64-column blocks each)."""
-    tasks = sum((k // 64 + 1) // 2 for k, _ in dw_products(n_hidden, h))
+    tasks = sum((k // 64 + 1) // 2 for k, _ in dw_products(n_hidden, h, kx))
     return 1 if tasks >= DWG_WAVE else DWG_WAVE // tasks
 
 
@@ -685,19 +703,19 @@ def unit_schedule(n_rays: int, n_samples: int):
     return out
 
 
-def workspace_layout(n_rays: int, n_samples: int, n_hidden: int, h: int = HIDDEN):
+def workspace_layout(n_rays: int, n_samples: int, n_hidden: int, h: int = HIDDEN, kx: int = K_XIN):
     """({piece: byte offset}, total bytes) of K4b's workspace, as `carve`
-    lays it out: the image buffers (`workspace_buffers`), the relu masks
-    (`mask_buffers`), then the warps' and the CTAs' partial rows and dW's
-    segments, each 256-byte aligned."""
+    lays it out at the encoding's extent kx: the image buffers
+    (`workspace_buffers`), the relu masks (`mask_buffers`), then the warps'
+    and the CTAs' partial rows and dW's segments, each 256-byte aligned."""
     rays, units_an_item = unit_layout(n_samples)
     units = -(-n_rays // rays) * units_an_item
     ctas = flex_ctas(n_rays, n_samples, h)
     part_cols = f_offsets(n_hidden, h)["TOTAL"] + h + 3 * (h // 2)
-    pieces = [(name, units * width * 128) for name, width in workspace_buffers(n_hidden, h)]
+    pieces = [(name, units * width * 128) for name, width in workspace_buffers(n_hidden, h, kx)]
     pieces += [(name, units * mask_bytes(h)) for name in mask_buffers(n_hidden)]
     pieces += [("warp_part", ctas * WARPS_A_CTA * part_cols * 4), ("tile_part", ctas * part_cols * 4),
-               ("dw_part", dw_segments(n_hidden, h) * w_offsets(n_hidden, h)["WA"] * 4)]
+               ("dw_part", dw_segments(n_hidden, h, kx) * w_offsets(n_hidden, h, kx)["WA"] * 4)]
     offs, o = {}, 0
     for name, nbytes in pieces:
         offs[name] = o

@@ -71,7 +71,7 @@ DIR_HIDDEN = 128
 # Layer 0 and the skip layer read [xyz(3); PE(6N)], padded with zero
 # columns to a tensor-core K extent kx (`xin_extent`): K_XIN = 64 holds N <=
 # 10 bands, K_XIN_WIDE = 128 (two 64-column blocks) N <= MAX_FREQS = 20.
-# The paper kernels (K2, K3, K1) take both; K4 (fused_flex.py) K_XIN only.
+# The paper kernels (K2, K3, K1) and K4 (fused_flex.py, its layer1) take both.
 K_XIN = 64
 K_XIN_WIDE = 128
 MAX_FREQS = (K_XIN_WIDE - 3) // 6

@@ -103,16 +103,17 @@ def paper_case(R, S, seed, dev, small=False, bands=10):
     return bundle, rays
 
 
-def flex_params(seed, dev, n_hidden=3, hidden=256):
+def flex_params(seed, dev, n_hidden=3, hidden=256, bands=10):
     """He-scaled random weights of one synth512_lcode model (the state-dict
     params; `n_hidden` hidden layers after layer1, 3 in the config; hidden
-    width 256, or 512 as synth512_lcode_w512) and a per-frame v0 = layer1's
-    bias + its conditioning columns applied to a random [expr / 3;
+    width 256, or 512 as synth512_lcode_w512; `bands` xyz encoding bands,
+    10 in the config, 16 in synth512_lcode_pe16) and a per-frame v0 =
+    layer1's bias + its conditioning columns applied to a random [expr / 3;
     latent]."""
     from nerface_tpu_torch.models.nerf_models import ConditionalBlendshapeLearnableCodeNeRFModel
 
     model = ConditionalBlendshapeLearnableCodeNeRFModel(
-        num_layers=n_hidden + 1, hidden_size=hidden, num_encoding_fn_xyz=10,
+        num_layers=n_hidden + 1, hidden_size=hidden, num_encoding_fn_xyz=bands,
         # no skip layer engages (synth512_lcode's 4 at n = 3)
         skip_connect_every=max(4, n_hidden + 1),
         num_encoding_fn_dir=4, include_input_dir=False, device=dev,
@@ -121,20 +122,20 @@ def flex_params(seed, dev, n_hidden=3, hidden=256):
     params = {k: v.detach() for k, v in he_scale(model).named_parameters()}
     cond = conditioning(torch.Generator().manual_seed(seed + 1))
     w1 = params["layer1.weight"]
-    v0 = (params["layer1.bias"] + w1[:, D_XYZ:] @ cond.to(dev))[None, :].contiguous()
+    v0 = (params["layer1.bias"] + w1[:, 3 + 6 * bands:] @ cond.to(dev))[None, :].contiguous()
     return params, v0
 
 
-def flex_case(R, S, seed, dev, n_hidden=3, hidden=256):
+def flex_case(R, S, seed, dev, n_hidden=3, hidden=256, bands=10):
     """`flex_params`' weights packed for K4 (`pack_flex_weights`), its v0,
     and a pass's rays, dir_contrib (R, hidden / 2) and cotangent g."""
     from nerface_tpu_torch.ops.kernels import fused_flex as F
 
-    params, v0 = flex_params(seed, dev, n_hidden, hidden)
+    params, v0 = flex_params(seed, dev, n_hidden, hidden, bands)
     g = torch.Generator().manual_seed(seed + 2)
     ro, rd, z = ray_draws(R, S, g)
     case = dict(ro=ro, rd=rd, z=z, dc=torch.randn(R, hidden // 2, generator=g) * 0.3,
                 g=torch.randn(R, S, 4, generator=g))
     case = {k: v.to(dev).contiguous() for k, v in case.items()}
-    case.update(weights=F.pack_flex_weights(params, n_hidden, 10), v0=v0, n=n_hidden)
+    case.update(weights=F.pack_flex_weights(params, n_hidden, bands), v0=v0, n=n_hidden, bands=bands)
     return case

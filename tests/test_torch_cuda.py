@@ -362,23 +362,24 @@ def test_train_kernel_refuses_what_it_does_not_take(cuda_device, params):
 # He-scaled, v0 its layer1 fold of a random conditioning.
 
 
-def _assert_flex_close(out, flat, args, g, R, S, n):
+def _assert_flex_close(out, flat, args, g, R, S, n, bands=10, yard=None):
     """K4f's output and K4b's gradients (flat: the weights', d_v0, d_dir)
-    against the plain versions within `flex_limit` / `flex_grad_limits`,
-    with the tensor-core yardstick where `flex_yardstick` holds."""
+    against the plain versions at `bands` xyz bands within `flex_limit` /
+    `flex_grad_limits`, with the tensor-core yardstick where `flex_yardstick`
+    holds (or `yard` says)."""
     from nerface_tpu_torch.ops.kernels import fused_flex as F
 
-    yard = flex_yardstick(S, n)
-    ref = F.fused_flex_forward_reference(*args, n)
-    tc_ref = tensor_core_plain(lambda: F.fused_flex_forward_reference(*args, n)) if yard else None
+    yard = flex_yardstick(S, n) if yard is None else yard
+    ref = F.fused_flex_forward_reference(*args, n, bands)
+    tc_ref = tensor_core_plain(lambda: F.fused_flex_forward_reference(*args, n, bands)) if yard else None
     assert torch.isfinite(out).all()
     for sl in (slice(0, 3), slice(3, 4)):
         tol = flex_limit(FLEX_OUT_TOL, n, yard and rel_err(tc_ref[..., sl], ref[..., sl])[0])
         torch.testing.assert_close(out[..., sl], ref[..., sl],
                                    atol=tol * float(ref[..., sl].abs().max()), rtol=0)
-    rgrads = F.fused_flex_backward_reference(*args, g, n)
+    rgrads = F.fused_flex_backward_reference(*args, g, n, bands)
     rflat = rgrads[0] + rgrads[1:]
-    tc = tensor_core_plain(lambda: F.fused_flex_backward_reference(*args, g, n)) if yard else None
+    tc = tensor_core_plain(lambda: F.fused_flex_backward_reference(*args, g, n, bands)) if yard else None
     tc_flat = tc[0] + tc[1:] if yard else [None] * len(rflat)
     wn, bn = F.weight_names(n)
     for name, a, r, t in zip(wn + bn + ("v0", "dir"), flat, rflat, tc_flat):
@@ -477,12 +478,12 @@ def test_flex_entry_points_refuse_what_the_kernels_do_not_take(cuda_device):
         for lib in (fixed, runtime):
             for S in (0, -1, 257, 1000):
                 assert fwd(lib, S, h) == 1, S
-                assert lib.nerface_fused_flex_workspace_bytes(8, S, 3, h) == -1, S
+                assert lib.nerface_fused_flex_workspace_bytes(8, S, 10, 3, h) == -1, S
             for bad in (0, 128, 384, 768, 1024):
                 assert fwd(lib, 64, bad) == 1 and fwd(lib, 24, bad) == 1, bad
-                assert lib.nerface_fused_flex_workspace_bytes(8, 64, 3, bad) == -1, bad
-            assert fwd(lib, 64, h, -1) == 1 and lib.nerface_fused_flex_workspace_bytes(8, 64, -1, h) == -1
-            assert lib.nerface_fused_flex_workspace_bytes(8, 24, 12, h) > 0  # any depth
+                assert lib.nerface_fused_flex_workspace_bytes(8, 64, 10, 3, bad) == -1, bad
+            assert fwd(lib, 64, h, -1) == 1 and lib.nerface_fused_flex_workspace_bytes(8, 64, 10, -1, h) == -1
+            assert lib.nerface_fused_flex_workspace_bytes(8, 24, 10, 12, h) > 0  # any depth
         assert fwd(fixed, 24, h) == 1 and fwd(fixed, 32, h) == 1
     torch.cuda.synchronize()
     assert torch.equal(out, torch.zeros_like(out))
@@ -523,6 +524,94 @@ def test_flex_wide_and_deep_kernels_match_plain(cuda_device, h, n, R, S):
     flat, flat2 = grads[0] + grads[1:], grads2[0] + grads2[1:]
     assert all(torch.equal(a, b) for a, b in zip(flat, flat2)), "not deterministic"
     _assert_flex_close(out, flat, args, g, R, S, n)
+
+
+# -- K4f / K4b at 11..20 xyz bands (a K = 128 encoding) ---------------------
+# Past 10 bands both widths' kernels read two 64-column blocks of [xyz; PE;
+# 0] in the runtime layout class at any S, W1 two chunks. Held to their
+# plain versions as in chip_smoke.py [xyz_bands]: `flex_limit` /
+# `flex_grad_limits` with the tensor-core yardstick; K4b bit-identical over
+# two launches.
+
+
+def _check_flex_kernels_at(dev, h, L, R, S, seed, n=3):
+    from nerface_tpu_torch.ops.kernels import fused_flex as F
+
+    params, v0 = flex_params(seed, dev, n_hidden=n, hidden=h, bands=L)
+    ro, rd, z, _, _, _ = _inputs(R, S, dev, seed=seed + 1)
+    dc = (torch.randn(R, h // 2, generator=torch.Generator().manual_seed(seed)) * 0.3).to(dev)
+    weights = F.pack_flex_weights(params, n, L)
+    g = torch.randn(R, S, 4, generator=torch.Generator().manual_seed(S + L)).to(dev)
+    args = (weights, ro, rd, z, dc, v0)
+    before = (F.fused_flex_forward.launches, F.fused_flex_backward.launches)
+    out = F.fused_flex_forward(*args, n, L)
+    grads = F.fused_flex_backward(*args, g, n, L)
+    grads2 = F.fused_flex_backward(*args, g, n, L)
+    torch.cuda.synchronize()
+    assert (F.fused_flex_forward.launches, F.fused_flex_backward.launches) == (before[0] + 1, before[1] + 2)
+    assert grads[0][1].shape == (6 * L, h)  # w1b
+    flat, flat2 = grads[0] + grads[1:], grads2[0] + grads2[1:]
+    assert all(torch.equal(a, b) for a, b in zip(flat, flat2)), "not deterministic"
+    _assert_flex_close(out, flat, args, g, R, S, n, L, yard=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [256, 512])
+@pytest.mark.parametrize("L", [11, 20])
+@pytest.mark.parametrize("R,S", [(512, 64), (77, 128), (301, 24), (40, 256)], ids=["s64", "s128", "s24", "s256"])
+def test_flex_kernels_take_11_and_20_bands(cuda_device, h, L, R, S):
+    """K4f and K4b at both widths at the band counts where the K = 128
+    encoding starts and ends, at the fixed layout classes' S (which run the
+    runtime class past 10 bands) and at runtime ones, against their plain
+    versions."""
+    _check_flex_kernels_at(cuda_device, h, L, R, S, seed=L + S + h)
+
+
+# ray counts past one round of the grid, each ragged, at 16 bands; 2085 ×
+# 64 has a dead warpgroup in the h = 256 recompute (the dead-unit walk)
+FLEX_PE16_PERSISTENT_CASES = [(2085, 64), (601, 128), (2133, 24), (267, 200)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [256, 512])
+@pytest.mark.parametrize("R,S", FLEX_PE16_PERSISTENT_CASES, ids=["s64", "s128", "s24", "s200"])
+def test_flex_kernels_persistent_grid_at_16_bands(cuda_device, h, R, S):
+    """K4f and K4b at 16 bands on passes past one round of the persistent
+    grid: the one 16 KB xin buffer (a warpgroup's at h = 256, the CTA's at
+    512) carries the encoders round after round, and the recompute's dead
+    units take it by thread 0 alone."""
+    _check_flex_kernels_at(cuda_device, h, 16, R, S, seed=R + S + h)
+
+
+@pytest.mark.cuda
+def test_flex_entry_points_take_1_to_20_bands(cuda_device):
+    """K4f's and K4b's C entry points, in both builds and at both widths,
+    return cudaErrorInvalidValue (1) for n_freqs outside 1..20 before they
+    read a pointer, and the workspace size is -1 there; from 10 to 11 bands
+    the workspace grows by xin's 64 more columns a unit and dW's partial
+    rows' 64 more rows of W1 a segment, and no more to 20. Nothing is
+    launched."""
+    import ctypes
+
+    from nerface_tpu_torch.ops.kernels import fused_flex as F
+    from nerface_tpu_torch.ops.kernels.build import SAMPLE_CLASS_DEFINES, load_library
+
+    null = ctypes.c_void_p(0)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(cuda_device).cuda_stream)
+    for defines in SAMPLE_CLASS_DEFINES.values():
+        lib = load_library("fused_flex", defines)
+        for h in (256, 512):
+            for L in (0, -1, 21, 64):
+                assert lib.nerface_fused_flex_fwd(*[null] * 7, 8, 64, L, 3, h, stream) == 1, L
+                assert lib.nerface_fused_flex_bwd(*[null] * 12, 8, 64, L, 3, h, stream) == 1, L
+                assert lib.nerface_fused_flex_workspace_bytes(2048, 64, L, 3, h) == -1, L
+            ws = {L: lib.nerface_fused_flex_workspace_bytes(2048, 64, L, 3, h) for L in (1, 10, 11, 16, 20)}
+            assert ws[1] == ws[10] and ws[11] == ws[16] == ws[20], ws
+            units = 2048  # one ray in one unit at S = 64
+            assert ws[11] - ws[10] >= units * 64 * 128 + F.dw_segments(3, h, 128) * 64 * h * 4 - 256 * 3, ws
+            assert ws[11] == F.workspace_layout(2048, 64, 3, h, 128)[1], ws
+            assert ws[10] == F.workspace_layout(2048, 64, 3, h)[1], ws
+    torch.cuda.synchronize()
 
 
 # -- the smaller model: K2 and K1 in their `small` mode -----------------------

@@ -274,7 +274,8 @@ def cuda_offsets(src, h):
 def test_offsets_match_cuda_source():
     """`w_offsets` / `f_offsets` / `wt_offsets` at each width and depth
     equal csrc/fused_flex.cu's `Offsets<h>` and `flex_layout`'s rule (the
-    WH_i, BH_i and WHT_i after them, h² or h apart, at any n)."""
+    WH_i, BH_i and WHT_i after them, h² or h apart, at any n), at the
+    10-band extent K = 64 (tests/test_torch_flex_bands.py holds K = 128)."""
     src = CU.read_text()
     assert "MAX_HIDDEN" not in src and not hasattr(F, "MAX_HIDDEN")  # any depth
     for h in F.WIDTHS:
@@ -294,10 +295,10 @@ def test_offsets_match_cuda_source():
                       "TOTAL": c["FT_OFF_WHT"] + n * hh}
             want_t.update({f"WHT{i}": c["FT_OFF_WHT"] + i * hh for i in range(n)})
             assert F.wt_offsets(n, h) == want_t
-    layout = src[src.index("__host__ __device__ inline Layout flex_layout(int n) {"):]
+    layout = src[src.index("__host__ __device__ inline Layout flex_layout(int n, int kx) {"):]
     layout = layout[:layout.index("return L;")]
-    for line in ("L.wa = OH::FW_OFF_WH + n * H * H;", "L.wrgb = L.wa + H;", "L.f_total = OH::FF_OFF_BH + n * H;",
-                 "L.part_cols = L.f_total + H + (H / 2) * 3;"):
+    for line in ("L.wh = flex_w_off<H>(OH::FW_OFF_WH, kx);", "L.wa = L.wh + n * H * H;", "L.wrgb = L.wa + H;",
+                 "L.f_total = OH::FF_OFF_BH + n * H;", "L.part_cols = L.f_total + H + (H / 2) * 3;"):
         assert line in layout, line
     # the wgmma chain K2 shares, K1's operand images and dW, reduce_rows
     for header in ("wgmma_chain.cuh", "paper_train.cuh", "wgmma_dw.cuh", "grad_tile.cuh"):

@@ -157,10 +157,12 @@ def test_entry_points_take_exactly_the_kernels_domain():
     assert "switch (n_samples)" not in code and "default:" not in code
     valid = code[code.index("bool valid("):code.index("}", code.index("bool valid("))]
     assert "n_samples >= 1 && n_samples <= MAX_SAMPLES" in valid
-    assert code.count("UnitLayout::of(n_samples)") == 2
-    # K4 reads one xin block: xc = 1 (mma_tile.cuh's `dispatch_pass`)
-    assert "dispatch_pass<Forward>(n_samples, hidden == WIDE, 1, fa, " in code
-    assert "dispatch_pass<Backward>(n_samples, hidden == WIDE, 1, fa, da, st)" in code
+    assert code.count("UnitLayout::of(n_samples, xc)") == 2
+    # the xin image's blocks, xc = xin_extent(n_freqs) / K_XIN (mma_tile.cuh's
+    # `dispatch_pass`: a pass of two runs the runtime class at any S)
+    assert code.count("xin_extent(n_freqs)") == 3
+    assert "dispatch_pass<Forward>(n_samples, hidden == WIDE, xc, fa, " in code
+    assert "dispatch_pass<Backward>(n_samples, hidden == WIDE, xc, fa, da, st)" in code
     assert code.count("if (!valid(n_rays, n_samples, n_freqs, n_hidden, hidden)) return (int)cudaErrorInvalidValue;") == 2
     assert not re.search(r"(?<!Unit)Schedule<", code)  # the fixed-S schedule is gone
     for fn in ("flex_chain_kernel", "flex_dx_kernel", "fwd_produce", "fwd_consume", "dx_produce", "dx_unit",

@@ -335,14 +335,14 @@ def test_wrappers_refuse_other_widths_and_depths():
         F.fused_flex_forward(weights, *args, torch.zeros(R, 128), v0, -1)
 
 
-def _carve_replay(n_rays, n_samples, n, h):
-    """`carve` in fused_flex.cu, replayed line by line from the source:
-    {buffer: byte offset}, total bytes."""
+def _carve_replay(n_rays, n_samples, n, h, kx=64):
+    """`carve` in fused_flex.cu, replayed line by line from the source at
+    the encoding's extent kx: {buffer: byte offset}, total bytes."""
     body = CU[CU.index("size_t carve("):CU.index("// -- K4f and the recompute")]
     rays, units_an_item = F.unit_layout(n_samples)
     units = -(-n_rays // rays) * units_an_item
     ctas = F.flex_ctas(n_rays, n_samples, h)
-    env = {"K_XIN": F.K_XIN, "h": h, "dh": h // 2, "n": n, "mask": F.mask_bytes(h),
+    env = {"kx": kx, "h": h, "dh": h // 2, "n": n, "mask": F.mask_bytes(h),
            "part_cols": F.f_offsets(n, h)["TOTAL"] + h + 3 * (h // 2)}
     offs, o = {}, 0
     steps = re.findall(r"w\.(\w+) = (img|imgs|bits|static_cast<float\*>\(take)\(([^;]*)\);", body)
@@ -359,8 +359,8 @@ def _carve_replay(n_rays, n_samples, n, h):
             sizes = [units * env["mask"]] * eval(arg, {}, env)
         else:
             expr = arg.rstrip(")").replace("mask_bytes", "mask")
-            expr = expr.replace("dw_segments_of(L)", str(F.dw_segments(n, h)))
-            expr = re.sub(r"\bwa\b", str(F.w_offsets(n, h)["WA"]), expr)
+            expr = expr.replace("dw_segments_of(L)", str(F.dw_segments(n, h, kx)))
+            expr = re.sub(r"\bwa\b", str(F.w_offsets(n, h, kx)["WA"]), expr)
             sizes = [eval(expr, {}, dict(env, ctas=ctas, WARPS_A_CTA=F.WARPS_A_CTA))]
         offs[name] = o
         for nbytes in sizes:
@@ -383,11 +383,12 @@ def test_dw_products_and_entry_refusals_match_source():
     body = CU[CU.index("void dw_products("):CU.index("// dW's row segments")]
     calls = re.findall(r"blocks\(([^;]*)\);", body)
     dims = [tuple(x.strip() for x in c.split(", ")[2:4]) for c in calls if not c.startswith("const")]
-    assert dims == [("K_XIN", "L.h"), ("L.h", "L.h"), ("L.h", "L.dh"), ("L.h", "L.h")]
+    assert dims == [("L.kx", "L.h"), ("L.h", "L.h"), ("L.h", "L.dh"), ("L.h", "L.h")]
     assert "for (int i = 0; i < L.n; ++i)" in body and "ndim > 256 ? 256 : ndim" in body
     for h, n in ((256, 12), (512, 12), (512, 0)):
-        mats = [(64, h), (h, h), (h, h // 2)] + [(h, h)] * n
-        assert F.dw_products(n, h) == tuple((k, min(c, 256)) for k, c in mats for _ in range(0, c, 256))
+        for kx in (64, 128):  # W1's product at the encoding's extent
+            mats = [(kx, h), (h, h), (h, h // 2)] + [(h, h)] * n
+            assert F.dw_products(n, h, kx) == tuple((k, min(c, 256)) for k, c in mats for _ in range(0, c, 256))
     code = re.sub(r"//.*", "", CU)
     valid = code[code.index("bool valid("):code.index("}", code.index("bool valid("))]
     assert "(hidden == HIDDEN || hidden == WIDE)" in valid and "n_hidden >= 0" in valid

@@ -94,7 +94,8 @@ def test_kernel_operands_split_the_one_gather():
 def test_workspace_carve_matches_cuda_source():
     """The carve takes the image buffers in `workspace_buffers` order, the
     relu masks in `mask_buffers` order, then the partial rows and dW's
-    segments; the masks' size and the grid's constants agree."""
+    segments; the masks' size and the grid's constants agree. xin is the
+    encoding's extent wide (`L.kx`: 64 up to 10 bands, 128 past)."""
     carve = CU[CU.index("size_t carve("):CU.index("// -- K4f and the recompute")]
     order = re.findall(r"w\.(\w+) = (img|imgs|bits|static_cast)", carve)
     names = [x[0] for x in order]
@@ -103,9 +104,10 @@ def test_workspace_carve_matches_cuda_source():
     # each buffer's width and count (a run of n + 1, n or 1), at h = 256 and 512
     sizes = {k: (w, c or "1") for k, w, c in re.findall(r"w\.(\w+) = imgs?\(([\w.]+)(?:, ([\w. +]+))?\)", carve)}
     assert re.findall(r"w\.(\w+) = bits\(([\w. ]+)\)", carve) == [("fmask", "1"), ("amask0", "L.n")]
-    for h, n in ((H, 3), (2 * H, 12)):
-        env = {"K_XIN": F.K_XIN, "L": type("L", (), {"h": h, "dh": h // 2, "n": n})}
-        mirror = dict(F.workspace_buffers(n, h))
+    assert sizes["xin"] == ("L.kx", "1")
+    for h, n, kx in ((H, 3, 64), (2 * H, 12, 64), (H, 3, 128), (2 * H, 12, 128)):
+        env = {"L": type("L", (), {"h": h, "dh": h // 2, "n": n, "kx": kx})}
+        mirror = dict(F.workspace_buffers(n, h, kx))
         runs = {"act0": [f"a{i}" for i in range(n + 1)], "gpre0": [f"gpre{i}" for i in range(n)]}
         for k, (w, c) in sizes.items():
             bufs = runs.get(k, [k])

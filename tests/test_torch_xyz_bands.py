@@ -11,9 +11,10 @@ is 128 wide. The 10-band layout stays K = 64, its offsets unchanged.
   and `_paper_kernels_take`) and `fused_train_eligible` admit exactly L =
   1..20 of the paper family and refuse 21; the wrappers raise a
   ValueError naming 1..20 past it (on the CPU too, whose wrappers run the
-  plain versions). K4 keeps its own limit: `flex_fused_eligible` refuses
-  L = 11, and `_apply_model` sends an 11-band Flexible pass to the plain
-  forward.
+  plain versions). K4 has the same limit: `flex_fused_eligible` takes L =
+  11 and refuses 21, and `_apply_model` sends a 21-band Flexible pass to
+  the plain forward (tests/test_torch_flex_bands.py holds K4 past 10
+  bands).
 * (b) The plain versions against the JAX package's Pallas kernels in
   interpret mode at L = 11, 16 and 20, S = 16 and 48, the paper and the
   smaller model, inputs from a numpy seed, the weights loaded by
@@ -141,26 +142,30 @@ def test_dispatch_takes_1_to_20_bands(small, monkeypatch):
 
 
 def test_flexible_models_keep_their_ten_band_limit(monkeypatch):
-    """K4 reads one 64-column xin block: `flex_fused_eligible` takes a
-    LearnableCode model at 10 bands and refuses 11 (and 16, 20) on the card
-    and on the CPU, and `_apply_model` runs an 11-band Flexible pass on the
-    model's plain forward."""
-    assert F.MAX_FREQS == 10 and K.MAX_FREQS == 20
+    """K4's band limit, which stood at 10 (one 64-column xin block) and is
+    now the paper kernels' 20 (a two-block xin image past 10):
+    `flex_fused_eligible` takes a LearnableCode model at 10, 11, 16 and 20
+    bands and refuses 21 on the card and on the CPU, `_apply_model` runs a
+    21-band Flexible pass on the model's plain forward, and the kernel's
+    operand check takes 11 and refuses 21 naming 1..20."""
+    assert F.MAX_FREQS == K.MAX_FREQS == 20
     name = "ConditionalBlendshapeLearnableCodeNeRFModel"
     pe_dir, expr, latent = torch.zeros(2048, 24), torch.zeros(76), torch.zeros(32)
     monkeypatch.setattr(pipeline, "_flex_pass", lambda *a: "K4")
-    for L in (10, 11, 16, 20):
+    for L in (10, 11, 16, 20, 21):
         m = MODELS[name](**_kw(L, hidden_size=256))
         monkeypatch.setattr(m, "forward", lambda *a, **k: "plain")
         for dev in ("cuda", "cpu"):
-            assert F.flex_fused_eligible(m, EncodeSpec(L, True, True), pe_dir, 2048, 64, dev) == (L == 10), (L, dev)
+            assert F.flex_fused_eligible(m, EncodeSpec(L, True, True), pe_dir, 2048, 64, dev) == (L <= 20), (L, dev)
         z = torch.linspace(0.2, 0.8, 64).expand(2048, 64)
         out = pipeline._apply_model(m, torch.zeros(2048, 3), torch.ones(2048, 3), z, EncodeSpec(L, True, True),
                                     pe_dir, expr, latent, torch.bfloat16)
-        assert out == ("K4" if L == 10 else "plain"), L
-    with pytest.raises(ValueError, match="1..10 xyz encoding bands"):
-        F._kernel_call(None, torch.zeros(8, 3), torch.zeros(8, 3), torch.zeros(8, 64), torch.zeros(8, 128),
-                       torch.zeros(1, 256), 3, 11)
+        assert out == ("K4" if L <= 20 else "plain"), L
+    args = (torch.zeros(8, 3), torch.zeros(8, 3), torch.zeros(8, 64), torch.zeros(8, 128), torch.zeros(1, 256), 3)
+    with pytest.raises(ValueError, match=r"1\.\.20 xyz encoding bands"):
+        F._kernel_call(None, *args, 21)
+    with pytest.raises(ValueError, match="weights, expected"):  # 11 bands pass the band check
+        F._kernel_call((), *args, 11)
 
 
 def test_wrappers_raise_past_20_bands():
