@@ -205,8 +205,9 @@ Phases, one line each (plus the kernels' register reports):
                (S, rays) of SAMPLE_CASES: every layout class at 2048 rays,
                and S = 1 and the padded layouts S = 5 / 40 / 200 at a
                ray count that cuts the last item short, against their
-               plain versions (K2 with a background and with none; 3 seeds
-               for the others; K1 / K3b / K4b bit-identical over 2
+               plain versions (K2 with a background and with none;
+               SAMPLE_SEEDS = 1 seed for the others; K1 /
+               K3b / K4b bit-identical over 2
                launches; each reading within its base limit ([flex_kernel]'s
                for K4) or FLEX_TC_FACTOR × the plain version's own on the
                tensor cores, and a lost 64-row unit caught by the limits
@@ -228,6 +229,18 @@ Phases, one line each (plus the kernels' register reports):
                control (K4 with the tensor-core yardstick at every S),
                bit-identical over 2 launches; ms, plain ms and bound on the
                2048-ray cases, and each time against the 10-band one.
+     long_rays — K2, K3f, K1 and K3b past 256 samples a ray (one ray an
+               item, in up to 16 units) at S = 257, 320, 384, 512 and 1024
+               on 2048 rays and 320 / 1000 on 2072 (LONG_RAYS_CASES), one
+               seed, under [sample_counts]' limits, K2 / K3f's lost unit
+               caught; K1's and K3b's dW launch within DW_EXACT_TOL of the
+               f64 Xᵀ·gY of their own workspace images, and a lost 64-row
+               unit past it in every product (`dw_exact`, also run on every
+               K1 / K3b pass of sample_counts); ms through the wrapper and
+               bare, plain ms and bound; then K3b at 2048 × S = 128, 320
+               and 1024 with a lost unit, DW_EXACT_SEEDS seeds each: the
+               seeds whose lost unit `k3b_grad_limits` catch, and the exact
+               check's (all).
      serve_64_128 — synth512_paper at 64 + 128 samples served as in phase
                4: K2 at S = 64 and 192, the frame against the f32 plain
                frame.
@@ -278,7 +291,7 @@ Phases, one line each (plus the kernels' register reports):
      pe16    — synth512_pe16 (SYNTH512_PE16: synth512_paper with 16 xyz
                bands in both models) through the paper kernels at K = 128,
                no bf16 pass on the plain path: 3 served 512² frames through
-               K2 and 3 at σ-noise 0.1 through K3f, each within
+               K2 and one at σ-noise 0.1 through K3f, each within
                PE16_PLAIN_FRAME_* of the same frame through the kernel's
                plain version and within PE16_FRAME_* of f32 (no bf16 path
                holds [serve]'s limits at 16 bands: the plain version's own
@@ -287,6 +300,12 @@ Phases, one line each (plus the kernels' register reports):
                the steady step; 20 steps windowed against step at a time,
                bit for bit; the coarse-only variant's step against f32 and
                PAPER_TRAIN_STEPS steps through K3f / K3b.
+     paper_64_256 — the same for synth512_paper_64_256 (64 + 256
+               samples: K2 / K1 at S = 64 and 320, a long item) at 10
+               bands (one σ-noise frame): the frames within
+               PE16_PLAIN_FRAME_* of the plain version and within [serve]'s
+               FRAME_MEAN / FRAME_MAX of f32; the coarse-only variant at
+               num_coarse 320 (K3f / K3b at S = 320).
   8. flex_kernel — K4f `fused_flex_forward` and K4b `fused_flex_backward`
                (csrc/fused_flex.cu) against their plain versions on
                synth512_lcode's He-scaled weights, FLEX_SEEDS draws a case
@@ -527,6 +546,19 @@ SYNTH512_LCODE_PE16 = copy.deepcopy(SYNTH512_LCODE)
 for _node in SYNTH512_LCODE_PE16["models"].values():
     _node["num_encoding_fn_xyz"] = 16
 
+# synth512_paper_64_256: synth512_paper with num_fine 256 in training and
+# validation, twice the NeRF paper's Nf = 128 (arXiv 2003.08934 §5.3), for
+# final renders and the served avatar: each coarse pass at S = 64 (a fixed
+# layout class), each fine pass at S = 320 (a long item: one ray in five
+# units, K2 compositing it in two segments); and its coarse-only variant at
+# num_coarse 320, which sends K3f / K3b through S = 320
+SYNTH512_PAPER_64_256 = copy.deepcopy(SYNTH512_PAPER)
+for _mode in ("train", "validation"):
+    SYNTH512_PAPER_64_256["nerf"][_mode]["num_fine"] = 256
+SYNTH512_PAPER_64_256_COARSE = copy.deepcopy(SYNTH512_PAPER_COARSE)
+for _mode in ("train", "validation"):
+    SYNTH512_PAPER_64_256_COARSE["nerf"][_mode]["num_coarse"] = 320
+
 KERNEL_RAYS = 4096
 TILE_RAYS = 65536  # the validation chunksize: one tile of the main path
 FAR = 0.8
@@ -725,8 +757,21 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+PHASE_STARTS = {}  # a phase's name -> the time of its first line
+
+
 def phase(name, text):
+    PHASE_STARTS.setdefault(name, time.perf_counter())
     print(f"[{name}] {text}", flush=True)
+
+
+def phase_seconds(t0):
+    """Each phase's seconds from its first line to the next phase's first
+    line (the time before a phase's first line counts to the one before
+    it), from `t0`, the run's start."""
+    starts = sorted(PHASE_STARTS.items(), key=lambda kv: kv[1]) + [("end", time.perf_counter())]
+    return {"start": round(starts[0][1] - t0, 1),
+            **{a[0]: round(b[1] - a[1], 1) for a, b in zip(starts, starts[1:])}}
 
 
 @contextlib.contextmanager
@@ -1299,7 +1344,7 @@ def _entry_name(text):
     m = re.search(r"(train_pass_kernel|dw_wgmma_kernel|flex_chain_kernel|flex_dx_kernel|"
                   r"wide_chain_kernel|wide_dx_kernel|reduce_rows|render_kernel|mlp_fwd_kernel|"
                   r"resample_kernel|chain_kernel|encoder_kernel)"
-                  r"(?:ILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?|ILb([01])E)?", text)
+                  r"(?:ILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?(?:Lb([01])E)?|ILb([01])E)?", text)
     if not m:
         return text
     flag = {"resample_kernel": "sorted_u", "flex_chain_kernel": "save", "wide_chain_kernel": "save"}.get(
@@ -1307,15 +1352,16 @@ def _entry_name(text):
     ints = [m.group(2)] if m.group(2) else []
     if m.group(3):  # K5's draws a lane
         ints.append(f"FP={m.group(3)}")
-    targs = ", ".join(ints + ([flag] if m.group(4) == "1" else []))
+    # K2's long-ray instantiations (`render_kernel<0, small, LONG>`)
+    targs = ", ".join(ints + ([flag] if m.group(4) == "1" else []) + (["long"] if m.group(5) == "1" else []))
     if m.group(1) == "chain_kernel" and m.group(2):
         from nerface_tpu_torch.tools.perf.chain_overlap_probe import VARIANTS
 
         targs = VARIANTS[int(m.group(2))]
-    if m.group(5) and m.group(1) == "encoder_kernel":
-        targs = "split" if m.group(5) == "1" else "packed"
-    elif m.group(5):  # the paper kernels: the model alone (S is a runtime value)
-        targs = "small" if m.group(5) == "1" else ""
+    if m.group(6) and m.group(1) == "encoder_kernel":
+        targs = "split" if m.group(6) == "1" else "packed"
+    elif m.group(6):  # the paper kernels: the model alone (S is a runtime value)
+        targs = "small" if m.group(6) == "1" else ""
     return m.group(1) + (f"<{targs}>" if targs else "")
 
 
@@ -1810,7 +1856,7 @@ SAMPLE_CASES = ((1, SAMPLE_RAGGED_RAYS), (5, SAMPLE_RAGGED_RAYS), (16, TRAIN_RAY
                 (40, SAMPLE_RAGGED_RAYS), (48, TRAIN_RAYS), (96, TRAIN_RAYS), (192, TRAIN_RAYS),
                 (200, SAMPLE_RAGGED_RAYS), (256, TRAIN_RAYS), (32, TRAIN_RAYS), (64, TRAIN_RAYS),
                 (128, TRAIN_RAYS))
-SAMPLE_SEEDS = 3
+SAMPLE_SEEDS = 1  # one draw a case keeps the whole run inside its time limit
 DIR_SUM_TOL = 1e-4  # Σ_rays d_dir against d_bd0: the same f32 cotangents summed by two routes
 # K3b at the sample counts of [sample_counts], against its plain version
 # with the yardstick beside it (`k3b_grad_limits`): a max reading is one
@@ -1858,6 +1904,107 @@ def _dir_sum_error(grads, names):
     return float((d_dir.sum(0) - bd0).abs().max() / d_dir.abs().sum(0).max().clamp_min(1e-30))
 
 
+# The exact check of the paper kernels' dW launch (K1's and K3b's
+# `dw_wgmma_kernel` + `reduce_rows`, csrc/wgmma_dw.cuh): each weight
+# gradient against the f64 product of the kernel's own workspace images,
+# dW = Xᵀ·bf16(gY), the same bf16 operands, so none of the bf16 flips
+# upstream shows. What differs is the f32 accumulation: the tensor cores'
+# over each of dW's row segments against f64 here, which read 0.9–1.3e-4
+# of a tensor's max at 2048 × 257 / 320 and 4.4–4.9e-4 at 2048 × 1024 on an
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6): it grows with the rows a
+# segment sums. A lost 64-row unit
+# moves a product by about sqrt(64 / rows) of its norm (≈ 5.5e-3 at 2048 ×
+# 1024), where the limits against the plain version cannot see it past S ≈
+# 128: the limit, on the max and on the norm, lies between.
+DW_EXACT_TOL = 1e-3
+
+
+def lost_unit_index(n_rays, n_samples):
+    """The workspace unit of `lost_unit_rows`: the middle item's first."""
+    from nerface_tpu_torch.ops.kernels.fused_mlp import unit_layout
+
+    rays, units = unit_layout(n_samples)
+    return (-(-n_rays // rays) // 2) * units
+
+
+def _unimage(ws, offset, units, width):
+    """A workspace buffer (`fused_train.workspace_image`'s bytes at byte
+    `offset` of `ws`) back to its (64·units, width) bf16 matrix: group g of
+    row r of a 64 × 64 block sits at slot g ^ (r % 8)."""
+    import torch
+
+    n = units * width * 64
+    t = ws[offset:offset + 2 * n].view(torch.bfloat16).view(units, width // 64, 64, 8, 8)
+    r = torch.arange(64, device=ws.device)[:, None]
+    g = torch.arange(8, device=ws.device)[None, :]
+    return t[:, :, r, g ^ (r % 8), :].permute(0, 2, 1, 3, 4).reshape(units * 64, width)
+
+
+def dw_products(small, kx):
+    """The dW launch's products, `launch_pass`'s `mats` (csrc/paper_train.cuh):
+    (label, weight slot, its first row, X buffer, gY buffer)."""
+    prods = [("w0", "W0", 0, "xin", "gh0"), ("w1", "W1", 0, "h0", "gh1"), ("w2", "W2", 0, "h1", "gh2"),
+             ("w3x", "W3", 0, "xin", "gh3"), ("w3h", "W3", kx, "h2", "gh3"), ("w4", "W4", 0, "h3", "gh4"),
+             ("wf", "WF", 0, "h4" if small else "h5", "gfeat"), ("wd0", "WD0", 0, "feat", "gx0"),
+             ("wd1", "WD1", 0, "x0", "gx1"), ("wd2", "WD2", 0, "x1", "gx2")]
+    return prods + ([] if small else [("w5", "W5", 0, "h4", "gh5")])
+
+
+def dw_exact(launch, R, S, bands=10, small=False, label="", catch=True):
+    """After `launch` (`k1_launch_split.k1_bare` / `k3b_bare`: its `out`
+    and `ws`) ran: each product of `dw_products` against the f64 Xᵀ·gY of
+    the workspace's images, within DW_EXACT_TOL of the tensor's max (and
+    of its norm), and what the product reads without the unit of
+    `lost_unit_index`, which with `catch` must lie past the limit in every
+    product the unit adds to (K3b's cotangents are random; K1's, from the
+    compositing, can be all but 0 on a ray's first unit in empty space, and
+    at S = 1, whose one sample is the background's, every gradient is).
+    Returns {product: (max, norm, lost-unit max, lost-unit norm)} relative
+    readings."""
+    import torch
+
+    from nerface_tpu_torch.ops.kernels import fused_mlp as K
+    from nerface_tpu_torch.ops.kernels import fused_train as T
+
+    torch.cuda.synchronize()
+    kx = K.xin_extent(bands)
+    lay = T.workspace_layout(R, S, kx)
+    check(launch.ws.numel() == lay["total"],
+          f"{label}: the workspace is {launch.ws.numel()} B, fused_train.workspace_layout says {lay['total']}")
+    units = T.workspace_geometry(R, S)[0]
+    widths = dict(T.ws_buffers(kx))
+    lost = slice(64 * lost_unit_index(R, S), 64 * lost_unit_index(R, S) + 64)
+    offs, dw = K.w_offsets(kx), launch.out["dw"]
+    out = {}
+    for name, slot, row0, xn, gn in dw_products(small, kx):
+        x = _unimage(launch.ws, lay[xn][0], units, widths[xn]).double()
+        g = _unimage(launch.ws, lay[gn][0], units, widths[gn]).double()
+        ref = x.T @ g
+        unit = x[lost].T @ g[lost]  # what losing the unit takes away
+        k, n = ref.shape
+        got = dw[offs[slot] + row0 * n:offs[slot] + (row0 + k) * n].view(k, n).double()
+        scale, norm = float(ref.abs().max()), float(ref.norm())
+        out[name] = tuple(v / max(d, 1e-300) for v, d in (
+            (float((got - ref).abs().max()), scale), (float((got - ref).norm()), norm),
+            (float(unit.abs().max()), scale), (float(unit.norm()), norm)))
+        e, e_norm, f, f_norm = out[name]
+        check(e <= DW_EXACT_TOL and e_norm <= DW_EXACT_TOL,
+              f"{label}: dW {name} {e:.3g}·max, {e_norm:.3g}·‖r‖ off Xᵀ·gY of its own images (limit {DW_EXACT_TOL})")
+        check(not catch or max(f, f_norm) > DW_EXACT_TOL or float(unit.abs().max()) == 0.0,
+              f"{label}: a lost unit moves dW {name} by {f:.3g}·max, {f_norm:.3g}·‖r‖, inside {DW_EXACT_TOL}")
+        del x, g, ref, unit, got
+    return out
+
+
+def _dw_exact_summary(res):
+    """(worst reading, its product; least lost-unit reading (the larger of
+    its max and norm readings), its product: 0 where the unit adds nothing
+    to a product)."""
+    worst = max(res.items(), key=lambda kv: max(kv[1][:2]))
+    least = min(res.items(), key=lambda kv: max(kv[1][2:]))
+    return max(worst[1][:2]), worst[0], max(least[1][2:]), least[0]
+
+
 def lost_unit_rows(n_rays, n_samples):
     """The flat sample rows (ray·S + sample) of one 64-row unit of the
     paper kernels' schedule (`unit_layout`): the real rows of the middle
@@ -1898,15 +2045,16 @@ def _k2_readings(got, ref, tc, rows, S):
     return out
 
 
-def _sample_control(S, control, name="sample_counts", label=None):
+def _sample_control(S, control, name="sample_counts", label=None, exact_k3b=False):
     """The readings of one S in [sample_counts] (or in phase `name`, the
     case `label`) above their base limit
     (`k1_grad_limits`, K3_OUT_TOL, [kernel]'s) and within the limit applied,
     and a modelled fault: one 64-row unit lost (`lost_unit_rows`; K2 and
     K3f outputs, K3b cotangents). Checks, seed by seed, that wherever the
     base limits catch the lost unit in a kernel's readings (K3b's and
-    K4b's: their dW launch's tensors), the limits applied catch it too.
-    Returns the summary."""
+    K4b's: their dW launch's tensors), the limits applied catch it too;
+    with `exact_k3b` K3b's are printed but not held, as the exact dW check
+    (`dw_exact`) holds that launch instead. Returns the summary."""
 
     def ratio(c, key="value"):
         return c[key] / c["tc"] if c["tc"] > 0 else float("inf")
@@ -1924,7 +2072,7 @@ def _sample_control(S, control, name="sample_counts", label=None):
         n[0] += c["fault"] > c["base"]
         n[1] += c["fault"] > c["limit"]
     for (k, seed), (by_base, by_limit) in caught.items():
-        if by_base and not by_limit:
+        if by_base and not by_limit and not (exact_k3b and k == "K3b"):
             missed.append(f"{k} seed {seed}")
     cells = "; ".join(f"{k} s{seed} {b}/{a}" for (k, seed), (b, a) in sorted(caught.items()))
     label = label or f"S={S}"
@@ -2099,19 +2247,24 @@ def _resample_grid(dev):
 
 
 def _paper_sample_case(S, R, dev, params, packed, rows, control, bands=10, seeds=SAMPLE_SEEDS, timed=True,
-                       label=None):
+                       label=None, exact=False, bare=False):
     """K2, K3f, K3b and K1 of the paper model at S samples a ray on R rays
     and `bands` xyz bands, each against its plain version under
     [sample_counts]' limits (`sample_counts_phase`): K2 on the weights
     `params` (`packed` for the kernel), K3 and K1 on `seeds` draws of
     `_k1_params`; every reading and its lost-unit fault (`rows`) appended
     to `control` (`_sample_control`); Σ_rays d_dir within DIR_SUM_TOL of
-    d_bd0. With `timed`, each through its wrapper beside its plain version
-    and its operations bound. Returns (k2, k3f, k1, k3b, dir_sum)."""
+    d_bd0. With `exact`, K3b's and K1's dW launch of the first seed against
+    the products of their own workspace images (`dw_exact`: "dw_exact", its
+    summary). With `timed`, each through its wrapper beside its
+    plain version and its operations bound, and with `bare` as the bare C
+    launch too ("bare_ms"). Returns (k2, k3f, k1, k3b, dir_sum)."""
     import torch
 
     from nerface_tpu_torch.ops.kernels import fused_mlp as K
     from nerface_tpu_torch.ops.kernels import fused_train as T
+    from nerface_tpu_torch.tools.perf import k1_launch_split as KS
+    from nerface_tpu_torch.tools.perf.k3f_k5_launch_split import k3f_bare
 
     label = label or f"S={S}"
     names = _bundle_names(False)
@@ -2144,8 +2297,11 @@ def _paper_sample_case(S, R, dev, params, packed, rows, control, bands=10, seeds
             plain_ms=_median_ms(lambda: K.fused_paper_render_reference(params, ro, rd, z, dc, cond, **kw),
                                 1, 3),
             bound_ms=_bound_ms(R * S * f_fwd, _k2_bytes(R, S, True, bands))[0])
+        if bare:
+            k2["bare_ms"] = _median_ms(_bare_launch(packed, (ro, rd, z, dc, cond), kw))
     k3f, k1, k3b = ({"rays": R, "out_rel": 0.0, "tc_rel": 0.0, "max_abs_err": 0.0},
-                    {"rays": R, "worst": {}, "max_abs_err": 0.0}, {"rays": R, "worst": {}, "max_abs_err": 0.0})
+                    {"rays": R, "worst": {}, "max_abs_err": 0.0, "dw_exact": []},
+                    {"rays": R, "worst": {}, "max_abs_err": 0.0, "dw_exact": []})
     dir_sum = 0.0
     for i in range(seeds):
         p = _k1_params(SEED + 23 + 100 * i, dev, bands=bands)
@@ -2181,6 +2337,12 @@ def _paper_sample_case(S, R, dev, params, packed, rows, control, bands=10, seeds
             f"K3b {label} seed {i}", "K3b", R, names, grads, rgrads, k3b["worst"], tcg,
             control=control, fault_grads=fault, seed=i))
         dir_sum = max(dir_sum, _dir_sum_error(grads, names))
+        rays = dict(ro=ro, rd=rd, z=z, g=g, tgt=tgt, bg=bg, noise=noise)
+        if exact and i == 0:
+            fn = KS.k3b_bare(bundle, rays, False, bands)
+            fn()
+            k3b["dw_exact"].append(_dw_exact_summary(dw_exact(fn, R, S, bands, label=f"K3b {label} seed {i}")))
+            del fn
         if i == 0 and timed:
             k3f.update(
                 ms=_median_ms(lambda: K.fused_paper_mlp_forward(bundle, ro, rd, z, **kb)),
@@ -2191,6 +2353,9 @@ def _paper_sample_case(S, R, dev, params, packed, rows, control, bands=10, seeds
                 plain_ms=_median_ms(lambda: K.fused_paper_mlp_backward_reference(bundle, ro, rd, z, g, **kb),
                                     1, 3),
                 bound_ms=_bound_ms(R * S * f_bwd, _k3_bytes(R, S, True, bands))[0])
+            if bare:
+                k3f["bare_ms"] = _median_ms(k3f_bare(bundle, rays))
+                k3b["bare_ms"] = _median_ms(KS.k3b_bare(bundle, rays, False, bands), iters=10)
         k3f["max_abs_err"] = max(k3f["max_abs_err"], float((out - ref).abs().max()))
         del out, ref, tc, lost, grads, grads2, rgrads, tcg, fault
         # K1: σ-noise and a background, as [train_kernel]'s passes (at
@@ -2210,10 +2375,18 @@ def _paper_sample_case(S, R, dev, params, packed, rows, control, bands=10, seeds
             k1["max_abs_err"] = max(k1["max_abs_err"], e)
         _grad_readings(f"K1 {label} seed {i}", "K1", R, names, grads, rgrads, k1["worst"])
         dir_sum = max(dir_sum, _dir_sum_error(grads, names))
+        if exact and i == 0:
+            fn = KS.k1_bare(bundle, rays, False, bands)
+            fn()
+            k1["dw_exact"].append(_dw_exact_summary(dw_exact(fn, R, S, bands, label=f"K1 {label} seed {i}",
+                                                             catch=False)))
+            del fn
         if i == 0 and timed:
             k1.update(ms=_median_ms(lambda: T.fused_train_pass(*args, **kw), iters=10),
                       plain_ms=_median_ms(lambda: T.fused_train_pass_reference(*args, **kw), 1, 3),
                       bound_ms=_bound_ms(R * S * f_bwd, _k1_bytes(R, S, bands))[0])
+            if bare:
+                k1["bare_ms"] = _median_ms(KS.k1_bare(bundle, rays, False, bands), iters=10)
         del got, ref, grads, grads2, rgrads
     check(dir_sum <= DIR_SUM_TOL, f"{label}: Σ d_dir vs d_bd0 {dir_sum:.2e} > {DIR_SUM_TOL}")
     for r in (k1, k3b):
@@ -2256,7 +2429,7 @@ def sample_counts_phase(dev):
         rays, units = K.unit_layout(S)
         rows = lost_unit_rows(R, S)
         control = []
-        k2, k3f, k1, k3b, dir_sum = _paper_sample_case(S, R, dev, params, packed, rows, control)
+        k2, k3f, k1, k3b, dir_sum = _paper_sample_case(S, R, dev, params, packed, rows, control, exact=True)
         res["K2"][S] = k2
         res["K3f"][S], res["K1"][S], res["K3b"][S] = k3f, k1, k3b
         phase("sample_counts",
@@ -2277,6 +2450,10 @@ def sample_counts_phase(dev):
                   f"plain {r['plain_ms']:.3f}, bound {r['bound_ms']:.3f}")
         phase("sample_counts", f"S={S}: Σ_rays d_dir vs d_bd0, K1 and K3b: {dir_sum:.2e} of Σ|d_dir| "
                                f"(limit {DIR_SUM_TOL})")
+        phase("sample_counts", f"S={S}: the exact dW check, the first seed (worst product reading, the lost "
+                               f"unit's least; limit {DW_EXACT_TOL}): " + "; ".join(
+                                   f"{k} {w:.3g} ({wn}), {f:.3g} ({fn})" for k, r in (("K1", k1), ("K3b", k3b))
+                                   for w, wn, f, fn in r["dw_exact"]))
         k4f, k4b = _flex_sample_count(S, R, dev, rows, control)
         res["K4f"][S], res["K4b"][S] = k4f, k4b
         (wm, (wm_v, _)), (wn, (_, wn_v)) = k4b["worst_max"], k4b["worst_norm"]
@@ -2412,6 +2589,131 @@ def xyz_bands_phase(dev):
     res["ratio_to_10_bands"] = ratios
     res["seconds"] = time.perf_counter() - t0
     phase("xyz_bands", f"the phase took {res['seconds']:.1f} s")
+    return res
+
+
+# [long_rays]: the paper kernels past 256 samples a ray, where an item is
+# one ray in ⌈S / 64⌉ units (K2 compositing it in segments of 256 rows, K1
+# and K3b keeping its rows in the workspace): S = 257 (one row into a fifth
+# unit), 320 (synth512_paper_64_256's fine pass), 384, 512 (two whole K2
+# segments) and the limit on TRAIN_RAYS rays, and 320 and 1000 (24 padding
+# rows in the last of 16 units) on SAMPLE_RAGGED_RAYS. One seed a case, the
+# exact dW check on every K1 and K3b pass, timed through the wrappers and
+# bare on the TRAIN_RAYS cases.
+LONG_RAYS_CASES = ((257, TRAIN_RAYS), (320, TRAIN_RAYS), (384, TRAIN_RAYS), (512, TRAIN_RAYS),
+                   (1024, TRAIN_RAYS), (320, SAMPLE_RAGGED_RAYS), (1000, SAMPLE_RAGGED_RAYS))
+LONG_RAYS_SEEDS = 1
+# the exact dW check beside the limits it stands in for: K3b at TRAIN_RAYS ×
+# S with one 64-row unit lost, DW_EXACT_SEEDS seeds each
+DW_EXACT_S = (128, 320, 1024)
+DW_EXACT_SEEDS = 4
+
+
+def _dw_exact_vs_limits(dev):
+    """K3b at TRAIN_RAYS × each S of DW_EXACT_S, DW_EXACT_SEEDS seeds: does
+    one lost 64-row unit (`lost_unit_rows`) pass `k3b_grad_limits` against
+    the plain version (any dW tensor's reading past its limit catches it)
+    and the exact check (`dw_exact`: every product's)? The kernel itself
+    within both. Returns {S: {"limits": seeds caught, "base": seeds the base
+    limits catch, "exact": seeds caught, "seeds": n, ...}}."""
+    import torch
+
+    from nerface_tpu_torch.ops.kernels import fused_mlp as K
+    from nerface_tpu_torch.ops.kernels import fused_train as T
+    from nerface_tpu_torch.tools.perf import k1_launch_split as KS
+
+    R, names, res = TRAIN_RAYS, _bundle_names(False), {}
+    for S in DW_EXACT_S:
+        rows = lost_unit_rows(R, S)
+        r = res[S] = {"seeds": DW_EXACT_SEEDS, "limits": 0, "base": 0, "exact": 0, "exact_worst": 0.0,
+                      "exact_lost_least": float("inf")}
+        for i in range(DW_EXACT_SEEDS):
+            label = f"S={S} seed {i}"
+            p = _k1_params(SEED + 41 + 100 * i, dev)
+            gen = torch.Generator().manual_seed(SEED + 42 + 100 * i + S)
+            ro, rd, z, tgt, bg, noise, pe_dir, cond = _train_kernel_inputs(R, S, gen, dev)
+            bundle = [t.contiguous() for t in T.prefold_paper_params(p, cond, pe_dir, 10)]
+            g = torch.randn(R, S, 4, generator=gen).to(dev)
+            grads = K.fused_paper_mlp_backward(bundle, ro, rd, z, g)
+            rgrads = K.fused_paper_mlp_backward_reference(bundle, ro, rd, z, g)
+            tcg = tensor_core_plain(lambda: K.fused_paper_mlp_backward_reference(bundle, ro, rd, z, g))
+            fault = K.fused_paper_mlp_backward_reference(bundle, ro, rd, z, _without_rows(g, rows))
+            control = []
+            _grad_readings(f"K3b {label}", "K3b", R, names, grads, rgrads, {}, tcg, control=control,
+                           fault_grads=fault, seed=i)
+            dw = [c for c in control if c["name"] in DW_TENSORS]
+            r["limits"] += any(c["fault"] > c["limit"] for c in dw)
+            r["base"] += any(c["fault"] > c["base"] for c in dw)
+            del grads, rgrads, tcg, fault
+            torch.cuda.empty_cache()
+            fn = KS.k3b_bare(bundle, dict(ro=ro, rd=rd, z=z, g=g), False)
+            fn()
+            worst, _, least, _ = _dw_exact_summary(dw_exact(fn, R, S, label=f"K3b {label}"))
+            r["exact"] += least > DW_EXACT_TOL
+            r["exact_worst"] = max(r["exact_worst"], worst)
+            r["exact_lost_least"] = min(r["exact_lost_least"], least)
+            del fn
+            torch.cuda.empty_cache()
+        check(r["exact"] == DW_EXACT_SEEDS, f"long_rays: the exact check missed a lost unit at S={S}: {r}")
+        phase("long_rays", f"the exact dW check at {R} × S={S}, K3b, {DW_EXACT_SEEDS} seeds, one 64-row unit lost: "
+                           f"`k3b_grad_limits` against the plain version catch it in {r['limits']} "
+                           f"(their base limits in {r['base']}), the exact check in {r['exact']}: the kernel "
+                           f"within {r['exact_worst']:.3g} of Xᵀ·gY of its own images, the lost unit at least "
+                           f"{r['exact_lost_least']:.3g} off (limit {DW_EXACT_TOL})")
+    return res
+
+
+def long_rays_phase(dev):
+    """K2, K3f, K1 and K3b of the paper model at every (S, rays) of
+    LONG_RAYS_CASES (S past 256: a long item), each against its plain
+    version under [sample_counts]' limits (`_paper_sample_case`: K2's maps,
+    K3f within K3_OUT_TOL·max, K1 `k1_grad_limits`, K3b `k3b_grad_limits`,
+    each where flips reach past them within FLEX_TC_FACTOR × the
+    tensor-core yardstick; bit-identical over 2 launches; Σ d_dir against
+    d_bd0), K1's and K3b's dW launch exact against their own workspace
+    images (`dw_exact`) with the lost unit caught there, K2 / K3f's lost
+    unit caught by the limits (`_sample_control`); each timed through its
+    wrapper and bare beside its plain version and its operations bound on
+    the TRAIN_RAYS cases. Then `_dw_exact_vs_limits`. Returns {kernel:
+    {"S{S}_R{R}": {...}}}."""
+    import torch
+
+    from nerface_tpu_torch.ops.kernels import fused_mlp as K
+    from nerface_tpu_torch.tools.perf.cases import he_scale
+
+    t0 = time.perf_counter()
+    res = {k: {} for k in ("K2", "K3f", "K1", "K3b", "control")}
+    model = _paper_model(SEED + 21, dev)
+    he_scale(model)
+    params = model.state_dict()
+    packed = K.pack_paper_weights(params)
+    for S, R in LONG_RAYS_CASES:
+        key, label = f"S{S}_R{R}", f"S={S} R={R}"
+        control = []
+        timed = R == TRAIN_RAYS
+        k2, k3f, k1, k3b, dir_sum = _paper_sample_case(
+            S, R, dev, params, packed, lost_unit_rows(R, S), control, seeds=LONG_RAYS_SEEDS, timed=timed,
+            label=label, exact=True, bare=timed)
+        for k, r in (("K2", k2), ("K3f", k3f), ("K1", k1), ("K3b", k3b)):
+            res[k][key] = dict(r, samples=S)
+        _, units = K.unit_layout(S)
+        (m1, (m1_v, _)), (m3, (m3_v, _)) = k1["worst_max"], k3b["worst_max"]
+        exact = "; ".join(f"{k} dW exact within {w:.3g} ({wn}), the lost unit ≥ {f:.3g} ({fn})"
+                          for k, r in (("K1", k1), ("K3b", k3b)) for w, wn, f, fn in r["dw_exact"])
+        times = "".join(f"; {k} {r['ms']:.3f} ms, bare {r['bare_ms']:.3f}, plain {r['plain_ms']:.3f}, bound "
+                        f"{r['bound_ms']:.3f}" for k, r in (("K2", k2), ("K3f", k3f), ("K1", k1), ("K3b", k3b))
+                        if "ms" in r)
+        phase("long_rays",
+              f"{label} (one ray in {units} units an item, {units * 64 - S} padding rows): K2 max abs err "
+              f"{k2['max_abs_err']:.3g}, K3f {k3f['out_rel']:.2e}·max (the tensor cores' own {k3f['tc_rel']:.2e}), "
+              f"K1 worst grad {m1} {m1_v:.4f}·max, K3b worst grad {m3} {m3_v:.4f}·max, within [sample_counts]' "
+              f"limits; K1 and K3b bit-identical over 2 launches; Σ d_dir vs d_bd0 {dir_sum:.2e}; {exact} "
+              f"(limit {DW_EXACT_TOL}){times}")
+        res["control"][key] = _sample_control(S, control, "long_rays", label, exact_k3b=True)
+        torch.cuda.empty_cache()
+    res["dw_exact_vs_limits"] = _dw_exact_vs_limits(dev)
+    res["seconds"] = time.perf_counter() - t0
+    phase("long_rays", f"the phase took {res['seconds']:.1f} s")
     return res
 
 
@@ -4876,7 +5178,7 @@ def _window_vs_step(dev, ds, tmp, cfg_dict, name, wrappers, plain_passes, family
 
 
 def _serve_against_plain_and_f32(dev, tmp, card, cfg_dict, name, seed, kernel, others, plain_passes,
-                                 plain_version, plain_limits, f32_limits, what, about):
+                                 plain_version, plain_limits, f32_limits, what, about, n_frames=3):
     """A 512² avatar of `cfg_dict` (He-scaled weights from `seed`) served in
     bf16 through `serve_jsonl`: 3 frames, the forward kernel's wrapper
     `kernel` (`what`) launched 2 × tiles a frame and none of `others`, no
@@ -4885,8 +5187,8 @@ def _serve_against_plain_and_f32(dev, tmp, card, cfg_dict, name, seed, kernel, o
     through the kernel's plain version (`plain_version`: the same bf16
     roundings, torch's f32 sums) and within `f32_limits` of the same
     model's f32 plain frame, the plain version's own frame against f32
-    beside it (the bf16 roundings' share). Returns the launches, frame_ms
-    and those readings."""
+    beside it (the bf16 roundings' share); `n_frames` of the 3. Returns the
+    launches, frame_ms and those readings."""
     import numpy as np
     import torch
 
@@ -4901,7 +5203,7 @@ def _serve_against_plain_and_f32(dev, tmp, card, cfg_dict, name, seed, kernel, o
     server = AvatarServer(cfg, ckpt, dataset=sds, dtype=torch.bfloat16, device=dev, log=False)
     tiles = -(-server.H * server.W // min(server.settings.chunksize, server.H * server.W))
     maps = ["rgb_fine", "disp", "normals"]
-    frames = [(0, 0), (1, 1), (0, 2)]
+    frames = [(0, 0), (1, 1), (0, 2)][:n_frames]
     requests = ([{"cmd": "ping"}] + [{"frame": f, "seed": sd, "maps": maps} for f, sd in frames]
                 + [{"cmd": "stop"}])
     out = io.StringIO()
@@ -5059,7 +5361,7 @@ def pe16_phase(dev, ds, tmp, card):
     """synth512_pe16 (SYNTH512_PE16: synth512_paper with 16 xyz bands in
     both models, dim_xyz 99, the kernels' K = 128 encoding) end to end on
     the card, no bf16 paper pass left to the plain forward
-    (`plain_paper_passes`): 3 served 512² frames through K2 and 3 at
+    (`plain_paper_passes`): 3 served 512² frames through K2 and one at
     σ-noise 0.1 through K3f, each within PE16_PLAIN_FRAME_* of the same
     frame through the kernel's plain version and within PE16_FRAME_* of
     its f32 plain frame; a bf16 step through K1 against the f32 step
@@ -5084,7 +5386,7 @@ def pe16_phase(dev, ds, tmp, card):
     noisy["nerf"]["validation"]["radiance_field_noise_std"] = 0.1
     nf = _serve_against_plain_and_f32(dev, tmp, card, noisy, "pe16", SEED + 9, fused_paper_mlp_forward,
                                       (fused_paper_render, fused_paper_mlp_backward), plain_paper_passes,
-                                      paper_plain_version, *limits, "K3f", "16 xyz bands, σ-noise 0.1")
+                                      paper_plain_version, *limits, "K3f", "16 xyz bands, σ-noise 0.1", 1)
     with plain_paper_passes() as plain:
         step = train_step_phase(dev, ds, SYNTH512_PE16, "pe16")
         tr = train_phase(dev, ds, tmp, False, card, SYNTH512_PE16, PAPER_TRAIN_STEPS, "pe16")
@@ -5100,6 +5402,65 @@ def pe16_phase(dev, ds, tmp, card):
                   f"{len(a['lines'])} printed lines equal; K2 / K1 wrapper calls {a['launches']} / "
                   f"{b['launches']}; plain bf16 paper passes 0 in every part of the phase; the phase took "
                   f"{seconds:.1f} s on {card}")
+    launches = {
+        "K2": sv["launches"] + tr["launches"]["K2"] + ctr["launches"]["K2"]
+        + sum(r["launches"][0] for r in runs.values()),
+        "K1": 2 + tr["launches"]["K1"] + sum(r["launches"][1] for r in runs.values()),
+        "K3f": nf["launches"] + 1 + ctr["launches"]["K3f"],
+        "K3b": 1 + ctr["launches"]["K3b"],
+    }
+    return {"serve": sv, "noisy_frame": nf, "step_vs_f32": step, "train": tr, "coarse_step_vs_f32": cstep,
+            "coarse_train": ctr, "window": {"windowed_s": a["s"], "step_s": b["s"],
+                                            "ckpt": os.path.basename(a["ckpt"])},
+            "launches": launches, "seconds": seconds}
+
+
+def paper_64_256_phase(dev, ds, tmp, card):
+    """synth512_paper_64_256 (SYNTH512_PAPER_64_256: 64 + 256 samples, the
+    fine passes at S = 320, long items) end to end on the card, no bf16
+    paper pass left to the plain forward (`plain_paper_passes`): 3 served
+    512² frames through K2 (S = 64 and 320) and one at σ-noise 0.1 through
+    K3f, each within PE16_PLAIN_FRAME_* of the same frame through the
+    kernel's plain version and within [serve]'s FRAME_MEAN / FRAME_MAX of
+    its f32 plain frame; a bf16 step through K1 against the f32
+    step ([train_step]'s limits); PAPER_TRAIN_STEPS steps of `train()`
+    through K1 (the printed loss falls) and the steady step;
+    FLEX_64_128_WINDOW_STEPS steps windowed against step at a time, bit for
+    bit; the coarse-only variant (SYNTH512_PAPER_64_256_COARSE, S = 320)
+    through K3f / K3b: a step against f32 and PAPER_TRAIN_STEPS steps."""
+    from nerface_tpu_torch.ops.kernels.fused_mlp import (
+        fused_paper_mlp_backward,
+        fused_paper_mlp_forward,
+        fused_paper_render,
+    )
+    from nerface_tpu_torch.ops.kernels.fused_train import fused_train_pass
+
+    t0 = time.perf_counter()
+    limits = ((PE16_PLAIN_FRAME_MEAN, PE16_PLAIN_FRAME_MAX), (FRAME_MEAN, FRAME_MAX))
+    sv = _serve_against_plain_and_f32(dev, tmp, card, SYNTH512_PAPER_64_256, "paper_64_256", SEED + 10,
+                                      fused_paper_render, (fused_paper_mlp_forward, fused_paper_mlp_backward),
+                                      plain_paper_passes, paper_plain_version, *limits, "K2", "64 + 256 samples")
+    noisy = copy.deepcopy(SYNTH512_PAPER_64_256)
+    noisy["nerf"]["validation"]["radiance_field_noise_std"] = 0.1
+    nf = _serve_against_plain_and_f32(dev, tmp, card, noisy, "paper_64_256", SEED + 11, fused_paper_mlp_forward,
+                                      (fused_paper_render, fused_paper_mlp_backward), plain_paper_passes,
+                                      paper_plain_version, *limits, "K3f", "64 + 256 samples, σ-noise 0.1", 1)
+    with plain_paper_passes() as plain:
+        step = train_step_phase(dev, ds, SYNTH512_PAPER_64_256, "paper_64_256")
+        tr = train_phase(dev, ds, tmp, False, card, SYNTH512_PAPER_64_256, PAPER_TRAIN_STEPS, "paper_64_256")
+        cstep = train_step_phase(dev, ds, SYNTH512_PAPER_64_256_COARSE, "paper_64_256")
+        ctr = train_phase(dev, ds, tmp, False, card, SYNTH512_PAPER_64_256_COARSE, PAPER_TRAIN_STEPS,
+                          "paper_64_256_coarse")
+    check(plain[0] == 0, f"paper_64_256: {plain[0]} bf16 paper passes trained on the plain path")
+    runs = _window_vs_step(dev, ds, tmp, SYNTH512_PAPER_64_256, "paper_64_256", (fused_paper_render, fused_train_pass),
+                           plain_paper_passes, "paper")
+    a, b = runs[FLEX_64_128_WINDOW_K], runs[1]
+    seconds = time.perf_counter() - t0
+    phase("paper_64_256", f"{FLEX_64_128_WINDOW_STEPS} bf16 steps windowed (K = {FLEX_64_128_WINDOW_K}, "
+                          f"{a['s']:.1f} s) vs step at a time ({b['s']:.1f} s): {os.path.basename(a['ckpt'])} bit "
+                          f"for bit, {len(a['lines'])} printed lines equal; K2 / K1 wrapper calls {a['launches']} / "
+                          f"{b['launches']}; plain bf16 paper passes 0 in every part of the phase; the phase took "
+                          f"{seconds:.1f} s on {card}")
     launches = {
         "K2": sv["launches"] + tr["launches"]["K2"] + ctr["launches"]["K2"]
         + sum(r["launches"][0] for r in runs.values()),
@@ -5458,7 +5819,7 @@ STOCK_LLFF_HW = (378, 504)  # fern's frames at factor 8
 STOCK_LLFF_FACTOR = 8
 STOCK_LLFF_VIEWS = 5
 STOCK_CHUNK = 16384  # rays a tile
-STOCK_FRAMES = 2
+STOCK_FRAMES = 1  # one frame a scene keeps the whole run inside its time limit
 STOCK_CHECK_RAYS = 2048
 STOCK_LEVELS = 1  # uint8 levels between the card's frame and the CPU plain path
 LEGO_CAMERA_ANGLE_X = 0.6911112070083618
@@ -5717,6 +6078,7 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile a served frame's and a train step's device time")
     args = ap.parse_args()
+    t_run = time.perf_counter()
 
     if not torch.cuda.is_available():
         print("[device] FAIL: torch.cuda.is_available() is false", file=sys.stderr)
@@ -5756,6 +6118,7 @@ def main() -> int:
         pk = paper_mlp_kernel_phase(dev)
         sc = sample_counts_phase(dev)
         xb = xyz_bands_phase(dev)
+        lr = long_rays_phase(dev)
         ds = _train_dataset()
         ts = train_step_phase(dev, ds)
         tr = train_phase(dev, ds, tmp, args.profile, card)
@@ -5775,6 +6138,7 @@ def main() -> int:
         ct = train_phase(dev, ds, tmp, args.profile, card, SYNTH512_PAPER_COARSE,
                          PAPER_TRAIN_STEPS, "coarse_train")
         p16 = pe16_phase(dev, ds, tmp, card)
+        p256 = paper_64_256_phase(dev, ds, tmp, card)
         fk = flex_kernel_phase(dev)
         du = flex_dead_units_phase(dev)
         fs = flex_serve_phase(dev, tmp, args.profile)
@@ -5814,7 +6178,7 @@ def main() -> int:
             "launches": s["launches"] + ss["launches"] + fe["launches"] + oc["launches"]
             + sum(m["launches"] for m in ev["modes"].values()) + su["launches"]["K2"]
             + dd_k2 + sh_k2 + rn["launches"]["K2"] + s128["launches"] + rn64["launches"]["K2"]
-            + p16["launches"]["K2"],
+            + p16["launches"]["K2"] + p256["launches"]["K2"],
             "launches_by_path": {"serve": s["launches"], "smaller_serve": ss["launches"],
                                  "serve_64_128": s128["launches"],
                                  "fast_serve": fe["launches"],
@@ -5831,7 +6195,9 @@ def main() -> int:
                                  "reenact": rn["launches"]["K2"],
                                  "reenact_64": rn64["launches"]["K2"],
                                  # synth512_pe16: 3 served frames, validations and window runs
-                                 "pe16": p16["launches"]["K2"]},
+                                 "pe16": p16["launches"]["K2"],
+                                 # synth512_paper_64_256: the same at S = 64 and 320
+                                 "paper_64_256": p256["launches"]["K2"]},
             "kernel_runs_by_path": {"window_train": wt_k2_runs, "eval_parity": ev["runs"]},
             "max_abs_err": max(errs),
             # one coarse (S=64, weights) + one fine (S=128) call on 4096 rays
@@ -5884,6 +6250,12 @@ def main() -> int:
             "pe16_vs_plain_version_levels": p16["serve"]["vs_plain_version_levels"],
             "pe16_vs_f32_levels": p16["serve"]["vs_f32_levels"],
             "pe16_plain_version_vs_f32_levels": p16["serve"]["plain_version_vs_f32_levels"],
+            # [long_rays]: S past 256 through the wrapper and bare; synth512_paper_64_256's frames
+            "by_long_rays": lr["K2"],
+            "paper_64_256_frame_ms_512": p256["serve"]["frame_ms"],
+            "paper_64_256_vs_plain_version_levels": p256["serve"]["vs_plain_version_levels"],
+            "paper_64_256_vs_f32_levels": p256["serve"]["vs_f32_levels"],
+            "paper_64_256_plain_version_vs_f32_levels": p256["serve"]["plain_version_vs_f32_levels"],
             "card": card,
         },
         {
@@ -5894,7 +6266,8 @@ def main() -> int:
             "modes": ["paper", "small"],
             "launches": tr["launches"]["K1"] + st["launches"]["K1"] + wt_k1
             + ev["train"]["launches"]["K1"] + su["launches"]["K1"] + dd_k1
-            + rn["launches"]["K1"] + rn64["launches"]["K1"] + p16["launches"]["K1"],
+            + rn["launches"]["K1"] + rn64["launches"]["K1"] + p16["launches"]["K1"]
+            + p256["launches"]["K1"],
             "launches_by_path": {"train": tr["launches"]["K1"],
                                  "smaller_train": st["launches"]["K1"],
                                  "window_train": wt_k1,
@@ -5902,7 +6275,8 @@ def main() -> int:
                                  "supervised_train": su["launches"]["K1"],
                                  "ddp_train": dd_k1, "reenact": rn["launches"]["K1"],
                                  "reenact_64": rn64["launches"]["K1"],
-                                 "pe16": p16["launches"]["K1"]},
+                                 "pe16": p16["launches"]["K1"],
+                                 "paper_64_256": p256["launches"]["K1"]},
             "kernel_runs_by_path": {"window_train": wt_k1_runs},
             "max_abs_err": max(v for r in (tk, tks) for e in r["err"].values() for v in e.values()),
             # a train step's two passes: coarse (S=64) + fine (S=128), 2048 rays
@@ -5961,6 +6335,11 @@ def main() -> int:
             "pe16_step_vs_f32": p16["step_vs_f32"],
             "pe16_train_step_ms": p16["train"]["step_ms"],
             "pe16_window": p16["window"],
+            # [long_rays], and synth512_paper_64_256's step against f32, steady step and window
+            "by_long_rays": lr["K1"],
+            "paper_64_256_step_vs_f32": p256["step_vs_f32"],
+            "paper_64_256_train_step_ms": p256["train"]["step_ms"],
+            "paper_64_256_window": p256["window"],
             "build": bd,  # nvcc seconds and train_pass_kernel instantiations
             "card": card,
         },
@@ -5971,11 +6350,13 @@ def main() -> int:
             "replaces": "nerface_tpu/ops/pallas/fused_mlp.py:234",
             "modes": ["paper", "small"],
             # the paths through K3f: coarse-only training and the σ-noise frame
-            "launches": ct["launches"]["K3f"] + nf["launches"] + p16["launches"]["K3f"],
+            "launches": ct["launches"]["K3f"] + nf["launches"] + p16["launches"]["K3f"] + p256["launches"]["K3f"],
             "launches_by_path": {"coarse_train": ct["launches"]["K3f"],
                                  "noisy_frame": nf["launches"],
                                  # its σ-noise frame and the coarse-only variant's step and train()
-                                 "pe16": p16["launches"]["K3f"]},
+                                 "pe16": p16["launches"]["K3f"],
+                                 # its σ-noise frames and the coarse-only variant's at S = 320
+                                 "paper_64_256": p256["launches"]["K3f"]},
             "max_abs_err": pk["abs_err"],  # of raw rgb and σ, all cases
             "max_rel_err": pk["err"],  # relative to max|plain| per case
             # the coarse-only training pass: 2048 rays at S = 64
@@ -6004,6 +6385,9 @@ def main() -> int:
             "pe16_noisy_frame_ms_512": p16["noisy_frame"]["frame_ms"],
             "pe16_noisy_vs_plain_version_levels": p16["noisy_frame"]["vs_plain_version_levels"],
             "pe16_noisy_vs_f32_levels": p16["noisy_frame"]["vs_f32_levels"],
+            "by_long_rays": lr["K3f"],
+            "paper_64_256_noisy_frame_ms_512": p256["noisy_frame"]["frame_ms"],
+            "paper_64_256_noisy_vs_f32_levels": p256["noisy_frame"]["vs_f32_levels"],
             "card": card,
         },
         {
@@ -6012,8 +6396,9 @@ def main() -> int:
             "source": "nerface_tpu_torch/csrc/fused_paper_mlp.cu",
             "replaces": "nerface_tpu/ops/pallas/fused_mlp.py:333",
             "modes": ["paper", "small"],
-            "launches": ct["launches"]["K3b"] + p16["launches"]["K3b"],
-            "launches_by_path": {"coarse_train": ct["launches"]["K3b"], "pe16": p16["launches"]["K3b"]},
+            "launches": ct["launches"]["K3b"] + p16["launches"]["K3b"] + p256["launches"]["K3b"],
+            "launches_by_path": {"coarse_train": ct["launches"]["K3b"], "pe16": p16["launches"]["K3b"],
+                                 "paper_64_256": p256["launches"]["K3b"]},
             "max_abs_err": pk["grad_abs_err"],  # over every gradient tensor
             "worst_grad_rel": pk["grad_rel"],  # (max error, norm error) per case
             "ms": pk["bwd_ms"][k3],
@@ -6039,6 +6424,12 @@ def main() -> int:
             "xyz_bands_control": xb["control"],
             "xyz_bands_ms_ratio": xb["ratio_to_10_bands"],
             "pe16_coarse_step_vs_f32": p16["coarse_step_vs_f32"],
+            # [long_rays]: the readings, their control, and the exact dW check
+            # beside the limits it stands in for (a lost unit at 2048 × S)
+            "by_long_rays": lr["K3b"],
+            "long_rays_control": lr["control"],
+            "dw_exact_vs_limits": lr["dw_exact_vs_limits"],
+            "paper_64_256_coarse_step_vs_f32": p256["coarse_step_vs_f32"],
             "card": card,
         },
         {
@@ -6183,6 +6574,10 @@ def main() -> int:
         _probe_entry(pr["P1"], "encoder_concat", "packed",
                      "tools/perf/encoder_concat_probe.py:77", card),
     ]}
+    seconds = phase_seconds(t_run)
+    phase("timing", f"seconds a phase, from its first line to the next phase's first line (a phase that prints "
+                    f"only at its end shows under the one before it: the build under [device]): "
+                    f"{json.dumps(seconds)}; the run {time.perf_counter() - t_run:.1f} s")
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)

@@ -45,7 +45,7 @@
 //     read this one, under its last eight layers. `setmaxnreg` gives the warpgroup's registers to the
 //     consumers (40 / 232).
 //   - Warpgroups 0 and 1 (the consumers) each take whole rays as 64-row
-//     units, S in 1..256 (`UnitLayout`, wgmma_chain.cuh): an item of
+//     units, S in 1..1024 (`UnitLayout`, wgmma_chain.cuh): an item of
 //     64 / S rays in one unit where S divides 64, one ray in S / 64 units
 //     at a multiple of 64, and otherwise the few rays whose units waste
 //     the fewest rows (8 rays in 3 units at S = 24; padding rows compute
@@ -82,7 +82,14 @@
 //     separately rounded __fadd_rn / __fmul_rn, the background on the
 //     last sample, relu σ + 1e-6 there, the 1e-10 / 1e-38 guards. Below
 //     S = 32 lanes idle (S = 16: half a warp): the compositing is well
-//     under 1 % of a unit's time next to its 64 rows of the MLP.
+//     under 1 % of a unit's time next to its 64 rows of the MLP. A ray
+//     longer than ITEM_ROWS (S > 256, one ray an item) composites in
+//     segments of ITEM_ROWS rows as each fills (`composite_segment`): its
+//     log transmittance and its rgb / depth / acc sums carry from one
+//     segment to the next in shared memory (`carry`), so the raw rows of
+//     one segment, not the ray's, sit in shared memory. Such a pass runs
+//     instantiations of its own (`LONG`), so the code of every other pass
+//     is as it was without them.
 //   - The grid is persistent: cluster c takes rounds c, c + clusters, ...
 //     of 2 CTAs × 2 warpgroups' rays; the producer and the encoders run
 //     ahead into the next round. A warpgroup whose rays are past the last
@@ -118,7 +125,7 @@ constexpr int BAR_WG = 1;                   // + warpgroup: that warpgroup's nam
 // class (wgmma_chain.cuh).
 template <int SF>
 using Geometry = UnitSchedule<SF, CLUSTER>;
-constexpr int MAX_SPL = MAX_SAMPLES / 32;  // samples a lane composites, at most
+constexpr int MAX_SPL = ITEM_ROWS / 32;  // samples a lane composites, at most
 
 struct Args {
   const float* ro;     // (R, 3)
@@ -141,10 +148,13 @@ struct Args {
 };
 
 // The chain's shared memory (paper_chain.cuh), then a warpgroup's item's
-// raw σ and rgb for the compositing.
+// (or a long ray's segment's) raw σ and rgb for the compositing, and a
+// long ray's state between its segments: log transmittance, the r / g / b,
+// depth and acc sums.
 struct K2Smem : PaperChainSmem {
   float sigma[CONSUMERS][ITEM_ROWS];
   float rgb[CONSUMERS][ITEM_ROWS * 3];
+  float carry[CONSUMERS][6];
 };
 
 // Compositing of ray `ray` (rows row0 .. row0 + S - 1 of its warpgroup's
@@ -248,12 +258,101 @@ __device__ __forceinline__ void composite_ray(const float* sigma, const float* r
   }
 }
 
+// One segment of a long ray (S > ITEM_ROWS) by one warp: samples s0 ..
+// s0 + n − 1 (n ≤ ITEM_ROWS) in rows 0 .. n − 1 of the warpgroup's raw σ
+// and rgb, lane l its samples [l·spl, (l+1)·spl) of the segment, spl =
+// ⌈n / 32⌉: `composite`'s scan and sums, each sample's transmittance offset
+// by the log transmittance of the ray's earlier segments, carry[0]; its
+// sums added to theirs, carry[1..5] (none at s0 = 0). After the ray's last
+// segment lane 0 writes the outputs, after any other the new state.
+__device__ __forceinline__ void composite_segment(const float* sigma, const float* rgb, float* carry, const Args& a,
+                                                  int lane, int ray, int S, int s0, int n) {
+  const int spl = (n + 31) >> 5;
+  const float* zr = a.z + (size_t)ray * S;
+  const float rx = a.rd[ray * 3], ry = a.rd[ray * 3 + 1], rz = a.rd[ray * 3 + 2];
+  const float rnorm =
+      sqrtf(__fadd_rn(__fadd_rn(__fmul_rn(rx, rx), __fmul_rn(ry, ry)), __fmul_rn(rz, rz)));
+  const bool has_bg = a.bg != nullptr;
+  const bool first = s0 == 0, last = s0 + n == S;
+  const float log_t0 = first ? 0.f : carry[0];
+
+  float alpha[MAX_SPL], prefix[MAX_SPL];
+  float run = 0.f;
+#pragma unroll
+  for (int q = 0; q < MAX_SPL; ++q) {
+    const int i = lane * spl + q, s = s0 + i;  // the segment's row, the ray's sample
+    alpha[q] = 0.f;
+    prefix[q] = run;
+    if (q >= spl || i >= n) continue;
+    const float dz = s < S - 1 ? __fsub_rn(zr[s + 1], zr[s]) : 1e10f;
+    const float d = __fmul_rn(dz, rnorm);
+    float sa = fmaxf(sigma[i], 0.f);
+    if (s == S - 1) sa = __fadd_rn(sa, 1e-6f);
+    const float oma = expf(__fmul_rn(-sa, d));
+    alpha[q] = __fsub_rn(1.f, oma);
+    run = __fadd_rn(run, logf(__fadd_rn(oma, 1e-10f)));
+  }
+  float incl = run;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) excl = 0.f;
+  const float seg_log_t = __shfl_sync(0xffffffffu, incl, 31);  // the segment's total
+
+  float sum[5] = {0.f, 0.f, 0.f, 0.f, 0.f};  // r, g, b, depth, acc
+#pragma unroll
+  for (int q = 0; q < MAX_SPL; ++q) {
+    const int i = lane * spl + q, s = s0 + i;
+    if (q >= spl || i >= n) continue;
+    const float w = alpha[q] * expf(log_t0 + (excl + prefix[q]));
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      const float c = (has_bg && s == S - 1) ? a.bg[ray * 3 + ch] : 1.f / (1.f + expf(-rgb[i * 3 + ch]));
+      sum[ch] += w * c;
+    }
+    sum[3] += w * zr[s];
+    sum[4] += w;
+    if (s == S - 1) a.bgw[ray] = w;
+    if (a.weights != nullptr) a.weights[(size_t)ray * S + s] = w;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int k = 0; k < 5; ++k) sum[k] += __shfl_xor_sync(0xffffffffu, sum[k], o);
+  }
+  if (!first) {
+#pragma unroll
+    for (int k = 0; k < 5; ++k) sum[k] = carry[1 + k] + sum[k];
+  }
+  __syncwarp();  // every lane has read carry
+  if (lane != 0) return;
+  if (!last) {
+    carry[0] = log_t0 + seg_log_t;
+#pragma unroll
+    for (int k = 0; k < 5; ++k) carry[1 + k] = sum[k];
+    return;
+  }
+  const float white = a.white_bg ? 1.f - sum[4] : 0.f;
+  a.rgb[ray * 3] = sum[0] + white;
+  a.rgb[ray * 3 + 1] = sum[1] + white;
+  a.rgb[ray * 3 + 2] = sum[2] + white;
+  a.depth[ray] = sum[3];
+  a.acc[ray] = sum[4];
+  a.disp[ray] = 1.f / fmaxf(1e-10f, sum[3] / fmaxf(sum[4], 1e-38f));
+}
+
 // A consumer warpgroup (wg 0 or 1) over its rays: for each unit, encode,
 // the layers and the heads; after an item's last unit, its warps composite
 // its rays. Nothing but the weight ring ties the two warpgroups together,
 // so one's encode, epilogues, heads and compositing run under the other's
-// matrix products.
-template <int SF, bool SMALL>
+// matrix products. LONG (the runtime class's instantiations for S >
+// ITEM_ROWS, one ray an item): its warp 0 composites each segment of four
+// units as it fills (`composite_segment`), the last after the item; the
+// other instantiations hold none of that code.
+template <int SF, bool SMALL, bool LONG>
 __device__ __forceinline__ void consume(K2Smem& sm, const Args& a, uint32_t rank, int wg, int n_pairs) {
   const Geometry<SF> g{a.l};
   const int lane = threadIdx.x & 31, lw = (threadIdx.x >> 5) & 3;  // lw: the warp in the warpgroup
@@ -281,11 +380,13 @@ __device__ __forceinline__ void consume(K2Smem& sm, const Args& a, uint32_t rank
                                  g, ray0, u, a.n_rays, hs, hc);
       ++units;
 
-      if (u == 0) named_bar_sync(BAR_WG + wg, 128);  // the last item's compositing has read sigma / rgb
+      // the unit's place in its item, or in its long ray's segment of ITEM_ROWS rows
+      const int su = LONG ? u & (ITEM_ROWS / 64 - 1) : u;
+      if (su == 0) named_bar_sync(BAR_WG + wg, 128);  // the last item's (segment's) compositing has read sigma / rgb
       // hs / hc[2h + j]: row r0 + 8h, column 2·(lane % 4) + j
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int row = u * 64 + r0 + 8 * h;
+        const int row = su * 64 + r0 + 8 * h;
         if ((lane & 3) == 0) {
           sigma[row] = hs[2 * h] + sm.f[F_OFF_BA];
           rgb[row * 3] = hc[2 * h] + sm.f[F_OFF_BRGB];
@@ -294,14 +395,27 @@ __device__ __forceinline__ void consume(K2Smem& sm, const Args& a, uint32_t rank
           rgb[row * 3 + 2] = hc[2 * h] + sm.f[F_OFF_BRGB + 2];
         }
       }
+      if constexpr (LONG) {
+        if (su == ITEM_ROWS / 64 - 1 && u + 1 < g.units()) {  // a full segment, more to come
+          named_bar_sync(BAR_WG + wg, 128);
+          if (lw == 0 && ray0 < a.n_rays)
+            composite_segment(sigma, rgb, sm.carry[wg], a, lane, ray0, g.samples(), (u >> 2) * ITEM_ROWS, ITEM_ROWS);
+        }
+      }
     }
     named_bar_sync(BAR_WG + wg, 128);
+    if constexpr (LONG) {
+      const int s0 = ((g.units() - 1) >> 2) * ITEM_ROWS;
+      if (lw == 0 && ray0 < a.n_rays) composite_segment(sigma, rgb, sm.carry[wg], a, lane, ray0, g.samples(), s0,
+                                                        g.samples() - s0);
+      continue;
+    }
     for (int r = lw; r < g.wg_rays() && ray0 + r < a.n_rays; r += 4)
       composite_ray(sigma, rgb, a, r * g.samples(), lane, ray0 + r, g.samples());
   }
 }
 
-template <int SF, bool SMALL>
+template <int SF, bool SMALL, bool LONG>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(K2_THREADS, 1) render_kernel(const Args a) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t pad = (ATOM_BYTES - (smem_u32(smem_raw) & (ATOM_BYTES - 1))) & (ATOM_BYTES - 1);
@@ -318,16 +432,16 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(K2_THREADS, 1)
     paper_feed<SMALL, CLUSTER>(sm, a, g, rank, cluster_id(), cluster_count(), n_pairs);
   } else {
     reg_alloc<232>();
-    consume<SF, SMALL>(sm, a, rank, wg, n_pairs);
+    consume<SF, SMALL, LONG>(sm, a, rank, wg, n_pairs);
   }
 }
 
 constexpr size_t SMEM_BYTES = sizeof(K2Smem) + ATOM_BYTES;  // + the alignment pad
 
-template <int SF, bool SMALL>
-struct Render {
+template <int SF, bool SMALL, bool LONG>
+struct RenderLaunch {
   static int run(const Args& args, cudaStream_t stream) {
-    auto kernel = render_kernel<SF, SMALL>;
+    auto kernel = render_kernel<SF, SMALL, LONG>;
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
     if (e != cudaSuccess) return (int)e;
     static int max_clusters = 0;  // co-resident clusters on this card
@@ -347,6 +461,18 @@ struct Render {
   }
 };
 
+// A pass's instantiation: past ITEM_ROWS rows an item (the runtime class)
+// runs LONG's, every other pass the instantiation of its layout class.
+template <int SF, bool SMALL>
+struct Render {
+  static int run(const Args& args, cudaStream_t stream) {
+    if constexpr (SF == 0) {
+      if (args.l.units * 64 > ITEM_ROWS) return RenderLaunch<SF, SMALL, true>::run(args, stream);
+    }
+    return RenderLaunch<SF, SMALL, false>::run(args, stream);
+  }
+};
+
 }  // namespace
 
 // Shared memory a CTA of render_kernel takes (dynamic, with its 1 KB
@@ -354,7 +480,7 @@ struct Render {
 extern "C" void nerface_fused_paper_render_shared_bytes(long long* out) { out[0] = (long long)SMEM_BYTES; }
 
 // Returns a cudaError_t (0 on success; cudaErrorInvalidValue for n_samples
-// outside 1..MAX_SAMPLES or n_freqs outside 1..MAX_FREQS). Launches on
+// outside 1..PAPER_MAX_SAMPLES or n_freqs outside 1..MAX_FREQS). Launches on
 // `stream`, does not synchronise and allocates nothing. W is
 // `pack_sm90_chunks`' image of the weights packed at the bands' encoding
 // extent (`xin_extent`: K = 64 up to 10 bands, 128 from 11).
@@ -365,7 +491,7 @@ extern "C" int nerface_fused_paper_render(const float* ro, const float* rd, cons
                                           int n_rays, int n_samples, int n_freqs, int white_bg,
                                           int small, void* stream) {
   if (n_rays < 0 || n_freqs < 1 || n_freqs > MAX_FREQS) return (int)cudaErrorInvalidValue;
-  if (n_samples < 1 || n_samples > MAX_SAMPLES) return (int)cudaErrorInvalidValue;
+  if (n_samples < 1 || n_samples > PAPER_MAX_SAMPLES) return (int)cudaErrorInvalidValue;
   const int xc = xin_extent(n_freqs) / K_XIN;
   Args args{ro,  rd,    z,   dir_c,   bg,     static_cast<const bf16*>(W),   F,       rgb,     disp,
             acc, depth, bgw, weights, n_rays, UnitLayout::of(n_samples, xc), n_freqs, white_bg};

@@ -50,7 +50,7 @@ namespace {
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
 
-constexpr int MAX_SPL = MAX_SAMPLES / 32;  // samples a lane takes, at most
+constexpr int MAX_SPL = ITEM_ROWS / 32;  // samples a lane takes, at most
 
 // K1's middle: per ray one warp (warp lw of the warpgroup takes rays lw,
 // lw + 4, ... of the item; lane l its samples [l·spl, (l+1)·spl) below S,
@@ -60,7 +60,8 @@ constexpr int MAX_SPL = MAX_SAMPLES / 32;  // samples a lane takes, at most
 // backward with a reverse (suffix) warp scan, giving each row's f32
 // cotangents of raw σ and rgb. A ray past the last one and the item's
 // padding rows get zero cotangents. The background and its weight are the
-// ray's sample S − 1, wherever the item's rows end.
+// ray's sample S − 1, wherever the item's rows end. A long item's ray (S >
+// ITEM_ROWS, its rows in the workspace) goes through `composite_long`.
 struct K1Policy {
   const float* rd;      // (R, 3)
   const float* z;       // (R, S)
@@ -80,6 +81,16 @@ struct K1Policy {
     for (int r = l.rows() + (threadIdx.x & 127); r < l.units() * 64; r += 128) {
       gsig[r] = 0.f;
       grgb[r * 3] = grgb[r * 3 + 1] = grgb[r * 3 + 2] = 0.f;
+    }
+    if (l.long_item()) {
+      if (lw == 0 && ray0 < n_rays) composite_long(sigma, rgb_raw, gsig, grgb, ray0, lane, S);
+      if (lw == 0 && ray0 >= n_rays) {
+        for (int s = lane; s < S; s += 32) {
+          gsig[s] = 0.f;
+          grgb[s * 3] = grgb[s * 3 + 1] = grgb[s * 3 + 2] = 0.f;
+        }
+      }
+      return;
     }
     for (int r = lw; r < l.wg_rays(); r += 4) {
       const int ray = ray0 + r;
@@ -104,6 +115,168 @@ struct K1Policy {
           composite<MAX_SPL>(sigma, rgb_raw, gsig, grgb, ray, r * S, lane, S);
         }
       }
+    }
+  }
+
+  // A long ray (S > ITEM_ROWS, rows 0 .. S − 1 of the item) by one warp,
+  // `composite`'s arithmetic in segments of ITEM_ROWS samples (lane l its
+  // samples [l·spl, (l+1)·spl) of a segment of n, spl = ⌈n / 32⌉): forward
+  // from the first segment, each sample's transmittance offset by the log
+  // transmittance of the segments before it, the weights out and each
+  // transmittance kept in its g_σ slot; then the loss cotangent; then the
+  // backward from the last segment, the suffix sums Σ_{i>j} of the later
+  // segments carried, the kept transmittance read back before its slot
+  // takes g_σ.
+  __device__ __forceinline__ void composite_long(const float* sigma, const float* rgb, float* gsig, float* grgb,
+                                                 int ray, int lane, int S) const {
+    const K1Policy& a = *this;
+    constexpr int SPL = MAX_SPL;
+    const int n_seg = (S + ITEM_ROWS - 1) / ITEM_ROWS;
+    const float* zr = a.z + (size_t)ray * S;
+    const float rx = a.rd[ray * 3], ry = a.rd[ray * 3 + 1], rz = a.rd[ray * 3 + 2];
+    const float rnorm =
+        sqrtf(__fadd_rn(__fadd_rn(__fmul_rn(rx, rx), __fmul_rn(ry, ry)), __fmul_rn(rz, rz)));
+    const bool has_bg = a.bg != nullptr;
+    // a sample's d, 1 − α, relu mask: the same operations in both directions
+    auto sample = [&](int s, float& d, float& oma, bool& mask) {
+      const float dz = s < S - 1 ? __fsub_rn(zr[s + 1], zr[s]) : 1e10f;
+      d = __fmul_rn(dz, rnorm);
+      float sn = sigma[s];
+      if (a.noise != nullptr) sn = __fadd_rn(sn, __fmul_rn(a.noise[(size_t)ray * S + s], a.noise_std));
+      mask = sn > 0.f;
+      float sa = mask ? sn : 0.f;
+      if (s == S - 1) sa = __fadd_rn(sa, 1e-6f);
+      oma = expf(__fmul_rn(-sa, d));
+    };
+    float c_sum[3] = {0.f, 0.f, 0.f}, acc = 0.f, log_t0 = 0.f;
+#pragma unroll 1
+    for (int seg = 0; seg < n_seg; ++seg) {
+      const int s0 = seg * ITEM_ROWS, n = min(ITEM_ROWS, S - s0), spl = (n + 31) >> 5;
+      float alpha[SPL], prefix[SPL];
+      float run = 0.f;
+#pragma unroll
+      for (int q = 0; q < SPL; ++q) {
+        const int i = lane * spl + q;
+        alpha[q] = 0.f;
+        prefix[q] = run;
+        if (q >= spl || i >= n) continue;
+        float d, oma;
+        bool mask;
+        sample(s0 + i, d, oma, mask);
+        alpha[q] = __fsub_rn(1.f, oma);
+        run = __fadd_rn(run, logf(__fadd_rn(oma, 1e-10f)));
+      }
+      float incl = run;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float v = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += v;
+      }
+      float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+      if (lane == 0) excl = 0.f;
+#pragma unroll
+      for (int q = 0; q < SPL; ++q) {
+        const int i = lane * spl + q, s = s0 + i;
+        if (q >= spl || i >= n) continue;
+        const float trans = expf(log_t0 + (excl + prefix[q]));
+        const float w = alpha[q] * trans;
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) {
+          const float c = (has_bg && s == S - 1) ? a.bg[ray * 3 + ch] : sigmoidf(rgb[s * 3 + ch]);
+          c_sum[ch] += w * c;
+        }
+        acc += w;
+        a.weights[(size_t)ray * S + s] = w;
+        gsig[s] = trans;  // read back by the backward below, this lane's own
+      }
+      log_t0 = log_t0 + __shfl_sync(0xffffffffu, incl, 31);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) c_sum[ch] += __shfl_xor_sync(0xffffffffu, c_sum[ch], o);
+      acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    }
+    const float white = a.white_bg ? 1.f - acc : 0.f;
+    float grm[3], tgt[3], bgv[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      const float rgb_map = c_sum[ch] + white;
+      if (lane == 0) a.rgb[ray * 3 + ch] = rgb_map;
+      tgt[ch] = a.target[ray * 3 + ch];
+      grm[ch] = (rgb_map - tgt[ch]) * a.loss_scale;
+      if (has_bg) bgv[ch] = a.bg[ray * 3 + ch];
+    }
+    const float g_acc = a.white_bg ? -(grm[0] + grm[1] + grm[2]) : 0.f;
+    float sup_ray = 0.f;
+    if (a.sup_bg_scale > 0.f) {
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) sup_ray += (bgv[ch] - tgt[ch]) * (bgv[ch] - tgt[ch]);
+    }
+    float later = 0.f;  // Σ g_trans_i·trans_i over the later segments
+#pragma unroll 1
+    for (int seg = n_seg - 1; seg >= 0; --seg) {
+      const int s0 = seg * ITEM_ROWS, n = min(ITEM_ROWS, S - s0), spl = (n + 31) >> 5;
+      float d[SPL], oma[SPL], trans[SPL], w[SPL], g_alpha_c[SPL], v[SPL];
+      bool mask[SPL];
+      float vt = 0.f;
+#pragma unroll
+      for (int q = 0; q < SPL; ++q) {
+        const int i = lane * spl + q, s = s0 + i;
+        d[q] = oma[q] = trans[q] = w[q] = g_alpha_c[q] = v[q] = 0.f;
+        mask[q] = false;
+        if (q >= spl || i >= n) continue;
+        sample(s, d[q], oma[q], mask[q]);
+        const float alpha = __fsub_rn(1.f, oma[q]);
+        trans[q] = gsig[s];
+        w[q] = alpha * trans[q];
+        float g_w = g_acc;
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) {
+          const float c = (has_bg && s == S - 1) ? bgv[ch] : sigmoidf(rgb[s * 3 + ch]);
+          g_w += c * grm[ch];
+        }
+        if (s == S - 1) g_w += sup_ray * a.sup_bg_scale;
+        g_alpha_c[q] = g_w * trans[q];
+        v[q] = (g_w * alpha) * trans[q];
+        vt += v[q];
+      }
+      float sfx = vt;  // inclusive suffix over lanes
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float t = __shfl_down_sync(0xffffffffu, sfx, o);
+        if (lane + o < 32) sfx += t;
+      }
+      float after = __shfl_down_sync(0xffffffffu, sfx, 1);  // lanes > this one
+      if (lane == 31) after = 0.f;
+      after = later + after;
+#pragma unroll
+      for (int q = SPL - 1; q >= 0; --q) {
+        const int i = lane * spl + q, s = s0 + i;
+        if (q >= spl || i >= n) continue;
+        const float g_log_t = after;
+        after += v[q];
+        const float g_omae = g_log_t / (oma[q] + 1e-10f) - g_alpha_c[q];
+        const float g_sa = -(oma[q] * g_omae) * d[q];
+        gsig[s] = mask[q] ? g_sa : 0.f;
+        const bool bg_sample = has_bg && s == S - 1;
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) {
+          const float g_act = w[q] * grm[ch];
+          if (bg_sample) {
+            grgb[s * 3 + ch] = 0.f;
+            if (a.d_bg != nullptr) {
+              float g = g_act;
+              if (a.sup_bg_scale > 0.f) g += 2.f * (bgv[ch] - tgt[ch]) * w[q] * a.sup_bg_scale;
+              a.d_bg[ray * 3 + ch] = g;
+            }
+          } else {
+            const float sg = sigmoidf(rgb[s * 3 + ch]);
+            grgb[s * 3 + ch] = g_act * sg * (1.f - sg);
+          }
+        }
+      }
+      later = later + __shfl_sync(0xffffffffu, sfx, 0);
     }
   }
 
@@ -273,7 +446,7 @@ extern "C" long long nerface_fused_train_workspace_bytes(int n_rays, int n_sampl
 }
 
 // Returns a cudaError_t (0 on success; cudaErrorInvalidValue for n_samples
-// outside 1..MAX_SAMPLES or n_freqs outside 1..MAX_FREQS). Launches on
+// outside 1..PAPER_MAX_SAMPLES or n_freqs outside 1..MAX_FREQS). Launches on
 // `stream`, does not synchronise and allocates nothing: `workspace` holds
 // nerface_fused_train_workspace_bytes(n_rays, n_samples, n_freqs) bytes. W
 // and WT are the chunk images of the packed weights (at the bands'
@@ -290,12 +463,12 @@ extern "C" int nerface_fused_train_pass(
     int n_samples, int n_freqs, int white_bg, int small, float noise_std, float loss_scale,
     float sup_bg_scale, void* stream) {
   if (n_rays < 0 || n_freqs < 1 || n_freqs > MAX_FREQS) return (int)cudaErrorInvalidValue;
-  if (n_samples < 1 || n_samples > MAX_SAMPLES) return (int)cudaErrorInvalidValue;
+  if (n_samples < 1 || n_samples > PAPER_MAX_SAMPLES) return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
   const int kx = xin_extent(n_freqs);
   Workspace ws;
   carve(static_cast<unsigned char*>(workspace), pass_units(n_rays, n_samples), pass_ctas(n_rays, n_samples), kx,
-        &ws);
+        UnitLayout::of(n_samples).units, &ws);
   PassArgs pa{ro, rd, z, dir_c, static_cast<const bf16*>(W), static_cast<const bf16*>(WT), F, d_dir, ws,
               n_rays, UnitLayout::of(n_samples, kx / K_XIN), n_freqs};
   K1Policy policy{rd, z, target, bg, noise_std > 0.f ? noise : nullptr, rgb, weights, d_bg, n_rays, white_bg,

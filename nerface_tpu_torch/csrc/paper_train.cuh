@@ -6,7 +6,7 @@
 // A pass is four launches on the caller's stream:
 //
 //   1. train_pass_kernel<SF, SMALL, Policy>: one persistent CTA an SM
-//      (K1_CTAS at most), 384 threads. The sample count S is 1..MAX_SAMPLES,
+//      (K1_CTAS at most), 384 threads. The sample count S is 1..PAPER_MAX_SAMPLES,
 //      a constant of the layout class SF = 64 or 128, else (SF = 0) read at
 //      run time. Per item of a consumer warpgroup (whole rays in 64-row
 //      units, `UnitLayout` of wgmma_chain.cuh, padding rows after the last
@@ -41,6 +41,13 @@
 //      added in a fixed order.
 // No float atomics and every partition fixed by the shape: two calls on
 // the same inputs give bit-identical gradients.
+//
+// A long item (S > ITEM_ROWS: one ray in up to 16 units) keeps its rows'
+// raw σ / rgb and their f32 cotangents, 32 bytes a row, in the workspace
+// (`Workspace::rows`, one slab a consumer warpgroup of each CTA: 8.7 MB
+// at S = 1024, L2-resident) instead of shared memory, whose item rows
+// hold ITEM_ROWS; K1's middle composites such a ray forward and back in
+// segments of ITEM_ROWS samples (fused_train_pass.cu).
 //
 // The workspace belongs to the kernels. Each buffer (`WS_BUFFERS`, the
 // order of WS_BUFFER_NAMES in ops/kernels/fused_train.py) holds one bf16
@@ -178,15 +185,22 @@ struct Workspace {
   float* warp_part;                // (ctas · WARPS_A_CTA, PART_COLS): each warp's running sums
   float* tile_part;                // (ctas, PART_COLS): a CTA's sums
   float* dw_part;                  // (DWG_SEGS, w_off(W_OFF_WA, kx))
+  float* rows;                     // a long item's rows: (ctas · CONSUMERS, 8 · 64 · units), else none
   int kx;                          // the encoding extent: xin's width
   __device__ __forceinline__ unsigned char* unit(int b, int u) const {
     return buf[b] + (size_t)u * ws_width(b, kx) * ROW_BYTES;
   }
 };
 
+// The f32 values of a long item's rows slab (`Workspace::rows`) at `units`
+// units an item: σ, rgb, g_σ, g_rgb, 64·units rows each; 0 for an item of
+// at most ITEM_ROWS rows, whose rows stay in shared memory.
+__host__ __device__ inline int item_row_floats(int units) { return units * 64 > ITEM_ROWS ? 8 * 64 * units : 0; }
+
 // Lays the workspace of a pass at encoding extent kx out from `base` (or
-// only measures it when base is null); returns its size in bytes.
-inline size_t carve(unsigned char* base, int units, int ctas, int kx, Workspace* ws) {
+// only measures it when base is null); returns its size in bytes. An item
+// is `item_units` units.
+inline size_t carve(unsigned char* base, int units, int ctas, int kx, int item_units, Workspace* ws) {
   size_t off = 0;
   auto take = [&](size_t bytes) -> void* {
     void* p = base ? base + off : nullptr;
@@ -199,13 +213,15 @@ inline size_t carve(unsigned char* base, int units, int ctas, int kx, Workspace*
   w.warp_part = static_cast<float*>(take((size_t)ctas * WARPS_A_CTA * PART_COLS * sizeof(float)));
   w.tile_part = static_cast<float*>(take((size_t)ctas * PART_COLS * sizeof(float)));
   w.dw_part = static_cast<float*>(take((size_t)DWG_SEGS * w_off(W_OFF_WA, kx) * sizeof(float)));
+  w.rows = static_cast<float*>(take((size_t)ctas * CONSUMERS * item_row_floats(item_units) * sizeof(float)));
   w.kx = kx;
   if (ws) *ws = w;
   return off;
 }
 
 inline long long workspace_bytes(int n_rays, int n_samples, int kx) {
-  return (long long)carve(nullptr, pass_units(n_rays, n_samples), pass_ctas(n_rays, n_samples), kx, nullptr);
+  return (long long)carve(nullptr, pass_units(n_rays, n_samples), pass_ctas(n_rays, n_samples), kx,
+                          Geometry(n_samples).l.units, nullptr);
 }
 
 struct PassArgs {
@@ -233,6 +249,7 @@ struct alignas(ATOM_BYTES) Smem {
   float wa[HIDDEN];              // the heads' bf16 weights as f32, for dX
   float wrgb[DIR_HIDDEN * 3];
   // an item's raw σ / rgb and their f32 cotangents, per consumer warpgroup
+  // (a long item's in the workspace: `item_rows`)
   float sigma[CONSUMERS][ITEM_ROWS];
   float rgb[CONSUMERS][ITEM_ROWS * 3];
   float gsig[CONSUMERS][ITEM_ROWS];
@@ -248,6 +265,22 @@ struct alignas(ATOM_BYTES) Smem {
 };
 constexpr size_t SMEM_BYTES = sizeof(Smem) + ATOM_BYTES;  // + the alignment pad
 static_assert(SMEM_BYTES <= 232448, "shared memory");
+
+// Where consumer warpgroup wg keeps its item's rows' raw σ, rgb and their
+// cotangents: shared memory, or a long item's slab of the workspace.
+struct ItemRows {
+  float *sigma, *rgb, *gsig, *grgb;
+};
+template <int SF>
+__device__ __forceinline__ ItemRows item_rows(Smem& sm, const PassArgs& a, int wg) {
+  const UnitSchedule<SF, 1> g{a.l};
+  if (g.long_item()) {
+    const int n = 64 * g.units();
+    float* b = a.ws.rows + ((size_t)blockIdx.x * CONSUMERS + wg) * item_row_floats(g.units());
+    return {b, b + n, b + 4 * n, b + 5 * n};
+  }
+  return {sm.sigma[wg], sm.rgb[wg], sm.gsig[wg], sm.grgb[wg]};
+}
 
 // -- the chunk sequence ---------------------------------------------------------
 
@@ -537,8 +570,9 @@ __device__ __forceinline__ void forward_unit(Smem& sm, const PassArgs& a, Ring& 
   if (live) store_frag<DIR_HIDDEN>(ws.unit(WS_X2, unit), act);
   float hc[4] = {0.f, 0.f, 0.f, 0.f};
   head<DIR_HIDDEN>(hc, act, smem_u32(sm.wrgb8));
-  float* sigma = sm.sigma[wg];
-  float* rgb = sm.rgb[wg];
+  const ItemRows ir = item_rows<SF>(sm, a, wg);
+  float* sigma = ir.sigma;
+  float* rgb = ir.rgb;
   const int lane = threadIdx.x & 31, r0 = frag_row();
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -589,10 +623,12 @@ __device__ __forceinline__ void dx_epilogue(float* acc, uint32_t* act, const uns
 // The 128-wide dX layers that follow use only acc[0, 64) and act[0, 32),
 // so the upper halves hold the temporaries: no register beyond the
 // chain's 128 + 64 is live here.
+template <int SF>
 __device__ __forceinline__ void dx_heads(Smem& sm, const PassArgs& a, float* acc, uint32_t* act, int wg, int u,
                                          int unit, float* part, bool live) {
-  const float* gsig = sm.gsig[wg] + u * 64;
-  const float* grgb = sm.grgb[wg] + u * 64 * 3;
+  const ItemRows ir = item_rows<SF>(sm, a, wg);
+  const float* gsig = ir.gsig + u * 64;
+  const float* grgb = ir.grgb + u * 64 * 3;
   const int r0 = frag_row(), lane = threadIdx.x & 31;
   const int g8 = lane >> 2;
   float* v = acc + 64;      // 64 column partials
@@ -798,7 +834,7 @@ __device__ __forceinline__ void dx_unit(Smem& sm, const PassArgs& a, Ring& ring,
   const UnitSchedule<SF, 1> g{a.l};
   const Workspace& ws = a.ws;
   const uint32_t none = 0;
-  dx_heads(sm, a, acc, act, wg, u, unit, part, live);  // gx2, masked, in acc
+  dx_heads<SF>(sm, a, acc, act, wg, u, unit, part, live);  // gx2, masked, in acc
   dx_epilogue<DIR_HIDDEN>(acc, act, nullptr, ws.unit(WS_GX2, unit), part + F_OFF_BD2, live);
   layer<DIR_HIDDEN, 2, 0>(acc, act, none, sm, ring);  // gx1 = gx2·WD2ᵀ ⊙ [x1 > 0]
   dx_epilogue<DIR_HIDDEN>(acc, act, ws.unit(WS_X1, unit), ws.unit(WS_GX1, unit), part + F_OFF_BD1, live);
@@ -826,7 +862,7 @@ __device__ __forceinline__ void dx_unit(Smem& sm, const PassArgs& a, Ring& ring,
     ++dx_units;
   }
   layer<HIDDEN, 2, 0>(acc, act, none, sm, ring);  // gfeat = gx0·WD0ᵀ + bf16(g_σ) ⊗ wa
-  add_sigma(acc, sm.gsig[wg] + u * 64, sm.wa);
+  add_sigma(acc, item_rows<SF>(sm, a, wg).gsig + u * 64, sm.wa);
   dx_epilogue<HIDDEN>(acc, act, nullptr, ws.unit(WS_GFEAT, unit), part + F_OFF_BF, live);
   // fc_feat's input: h5, or h4 in the smaller model
   constexpr int LAST = SMALL ? WS_H4 : WS_H5;
@@ -883,7 +919,8 @@ __device__ __forceinline__ void consume(Smem& sm, const PassArgs& a, const Polic
 #pragma unroll
     for (int i = 0; i < 64; ++i) act[i] = 0u;
     named_bar_sync(BAR_WG + wg, 128);
-    policy.middle(sm.sigma[wg], sm.rgb[wg], sm.gsig[wg], sm.grgb[wg], ray0, g, lw, lane);
+    const ItemRows ir = item_rows<SF>(sm, a, wg);
+    policy.middle(ir.sigma, ir.rgb, ir.gsig, ir.grgb, ray0, g, lw, lane);
     named_bar_sync(BAR_WG + wg, 128);
 #pragma unroll 1
     for (int u = 0; u < g.units(); ++u)

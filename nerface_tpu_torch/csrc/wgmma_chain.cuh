@@ -28,23 +28,31 @@ constexpr int CHAIN_ENCODERS = 3;                  // warps of the producer warp
 constexpr int CHAIN_STAGE = KCH * 256 * 2;         // a ring stage: one 64 × 256 bf16 chunk image
 constexpr int XIN_BYTES = 64 * ROW_BYTES;          // a 64-column block of a unit's [xyz; PE; 0]
 
-// The kernels' sample counts (K2, K3f, K1, K3b, K4f, K4b): 1..MAX_SAMPLES.
-// An item is at most ITEM_ROWS rows (four units).
+// The kernels' sample counts: 1..PAPER_MAX_SAMPLES for the paper kernels
+// (K2, K3f, K1, K3b), 1..MAX_SAMPLES for K4f / K4b. An item of at most
+// ITEM_ROWS rows (four units) is what K2's and K1's shared memory holds
+// for the compositing; a longer ray is an item of its own.
 constexpr int MAX_SAMPLES = 256;
+constexpr int PAPER_MAX_SAMPLES = 1024;
 constexpr int ITEM_ROWS = 256;
 
-// The kernels' unit layout at any S in 1..MAX_SAMPLES: an item, what
+// The kernels' unit layout at any S in 1..PAPER_MAX_SAMPLES: an item, what
 // a consumer warpgroup takes at once, is `rays` whole rays in `units`
 // 64-row units. Its row i < rays·S is sample i % S of its ray i / S; the
 // rows from rays·S to 64·units pad the last unit, and the kernels take
 // them as rows past the last ray. S dividing 64: 64 / S rays in one unit;
 // S a multiple of 64: one ray in S / 64 units; any other S: the ray count up to ITEM_ROWS / S whose units hold the most
 // real rows a unit, the fewest rays on a tie (8 rays in 3 units at S = 24,
-// 4 in 3 at 48, 2 in 3 at 96, 1 in 3 at 192, 3 in 2 at 40).
+// 4 in 3 at 48, 2 in 3 at 96, 1 in 3 at 192, 3 in 2 at 40). Past
+// ITEM_ROWS an item is one ray in ⌈S / 64⌉ units (a long item: `long_item`),
+// up to 16 at PAPER_MAX_SAMPLES; K2 composites it in segments of ITEM_ROWS
+// rows, K1 and K3b keep its rows in the workspace (paper_train.cuh).
 // ops/kernels/fused_mlp.py::unit_layout is the same rule. An item row's
-// ray, row / S, is a multiply and a shift (`ray_of`, exact for every row
-// below ITEM_ROWS and S ≤ MAX_SAMPLES): the encoder warps, which divide
-// once a task, keep pace with the consumers as at a compile-time S.
+// ray, row / S, is a multiply and a shift (`ray_of`, div = ⌈2^24 / S⌉): it
+// is exact while row·e < 2^24, e = S·div − 2^24 < S, so for every row below
+// ITEM_ROWS and every row of a long item (below S + 64: 1087·1023 < 2^24 at
+// PAPER_MAX_SAMPLES); the encoder warps, which divide once a task, keep
+// pace with the consumers as at a compile-time S.
 //
 // xc is the pass's xin image in 64-column blocks: 1 (K = 64, up to 10
 // bands) or 2 (K = 128, 11..20 bands). A consumer
@@ -69,7 +77,7 @@ struct UnitLayout {
     }
     return UnitLayout{s, rays, units, ((1u << 24) + (uint32_t)s - 1u) / (uint32_t)s, xc};
   }
-  // row / S for 0 ≤ row < ITEM_ROWS
+  // row / S for 0 ≤ row < max(ITEM_ROWS, 64·units)
   __host__ __device__ int ray_of(int row) const { return (int)(((uint32_t)row * div) >> 24); }
 };
 
@@ -94,6 +102,8 @@ struct UnitSchedule {
   __host__ __device__ int rows() const { return SF ? SF : l.rays * l.S; }
   __host__ __device__ int ray_of(int row) const { return SF ? row / SF : l.ray_of(row); }
   __host__ __device__ int xc() const { return SF ? 1 : l.xc; }
+  // an item past ITEM_ROWS rows: one ray of more than four units
+  __host__ __device__ bool long_item() const { return SF ? false : l.units * 64 > ITEM_ROWS; }
   __host__ __device__ int rounds(int n_rays) const {
     const int per_round = CTAS * CHAIN_CONSUMERS * wg_rays();
     return (n_rays + per_round - 1) / per_round;

@@ -66,17 +66,35 @@ from nerface_tpu_torch.ops.kernels.fused_mlp import (
     HIDDEN,
     K_XIN,
     MAX_FREQS,
-    MAX_SAMPLES,
     _check,
     _device_bands,
     _encode_points,
     _ptr,
-    check_samples,
-    kernel_pass_ok,
     sm90_chunk_image,
     unit_layout,
     xin_extent,
 )
+from nerface_tpu_torch.ops.kernels.fused_mlp import kernel_pass_ok as paper_pass_ok
+
+# K4's sample counts: 1..MAX_SAMPLES (`MAX_SAMPLES` in
+# csrc/wgmma_chain.cuh), fewer than the paper kernels' `fused_mlp.MAX_SAMPLES`:
+# every K4 item is whole rays in at most four units.
+MAX_SAMPLES = 256
+
+
+def kernel_pass_ok(n_rays: int, n_samples: int) -> bool:
+    """Whether a Flexible pass of (n_rays, n_samples) fits K4 on the card:
+    the JAX package's tile rule (`fused_mlp.kernel_pass_ok`: n_rays % 8 ==
+    0) within K4's 1..MAX_SAMPLES."""
+    return n_samples <= MAX_SAMPLES and paper_pass_ok(n_rays, n_samples)
+
+
+def check_samples(n_samples: int) -> None:
+    """K4's wrappers take 1..MAX_SAMPLES samples a ray, on either device
+    (the CPU runs the kernels' plain versions)."""
+    if not 1 <= n_samples <= MAX_SAMPLES:
+        raise ValueError(
+            f"the kernels take 1..{MAX_SAMPLES} samples per ray, got {n_samples}")
 
 # the hidden widths the kernels take; layers_dir.0 is h / 2 wide
 WIDTHS = (HIDDEN, 2 * HIDDEN)

@@ -91,10 +91,12 @@ def check_bands(num_encoding_fn_xyz: int) -> None:
                          f"{num_encoding_fn_xyz}")
 
 # The paper kernels (K2, K3f, K1, K3b) take any sample count S in
-# 1..MAX_SAMPLES, a runtime value (`MAX_SAMPLES` in csrc/wgmma_chain.cuh).
-MAX_SAMPLES = 256
-# An item, the rows a consumer warpgroup takes at once, is at most four
-# 64-row units (`ITEM_ROWS`).
+# 1..MAX_SAMPLES, a runtime value (`PAPER_MAX_SAMPLES` in
+# csrc/wgmma_chain.cuh; K4's own limit is `fused_flex.MAX_SAMPLES`).
+MAX_SAMPLES = 1024
+# An item, the rows a consumer warpgroup takes at once, is whole rays in at
+# most four 64-row units (`ITEM_ROWS`) up to S = ITEM_ROWS; past it one
+# ray in ⌈S / 64⌉ units (a long item).
 ITEM_ROWS = 256
 
 
@@ -103,7 +105,8 @@ def unit_layout(n_samples: int) -> Tuple[int, int]:
     `UnitLayout::of`. S dividing 64: 64 / S rays in one 64-row unit; S a
     multiple of 64: one ray in S / 64 units; otherwise the ray count up to
     ITEM_ROWS / S whose units hold the most real rows a unit (the fewest
-    rays on a tie); the item's rows past rays·S pad its last unit."""
+    rays on a tie), one ray in ⌈S / 64⌉ units past ITEM_ROWS / 2; the
+    item's rows past rays·S pad its last unit."""
     S = n_samples
     if 64 % S == 0:
         return 64 // S, 1
@@ -129,8 +132,8 @@ def kernel_pass_ok(n_rays: int, n_samples: int) -> bool:
 
 
 def check_samples(n_samples: int) -> None:
-    """The paper kernels' and K4's wrappers take 1..MAX_SAMPLES samples a
-    ray, on either device (the CPU runs the kernels' plain versions)."""
+    """The paper kernels' wrappers take 1..MAX_SAMPLES samples a ray, on
+    either device (the CPU runs the kernels' plain versions)."""
     if not 1 <= n_samples <= MAX_SAMPLES:
         raise ValueError(
             f"the kernels take 1..{MAX_SAMPLES} samples per ray, got {n_samples}")

@@ -44,6 +44,7 @@ from nerface_tpu_torch.ops.kernels.fused_mlp import (
     DIR_HIDDEN,
     F_OFFSETS,
     HIDDEN,
+    ITEM_ROWS,
     K_XIN,
     _check,
     _check_kernel_call,
@@ -70,8 +71,9 @@ from nerface_tpu_torch.ops.kernels.fused_mlp import (
 # pass (sample rows × width) as wgmma operand images (`workspace_image`),
 # xin's width the pass's encoding extent kx (`xin_extent`), then each
 # consumer warp's and each CTA's f32 partial row (PART_COLS: the bias rows,
-# WA, WRGB) and dW's DWG_SEGS row segments (`w_offsets(kx)["WA"]` columns);
-# every piece aligned to 256 bytes. A CPU test holds these to the .cuh.
+# WA, WRGB) and dW's DWG_SEGS row segments (`w_offsets(kx)["WA"]` columns),
+# then a long item's rows (`item_row_floats`); every piece aligned to 256
+# bytes (`workspace_layout`). A CPU test holds these to the .cuh.
 def ws_buffers(kx: int = K_XIN):
     """(name, width) of the workspace's bf16 buffers at encoding extent kx."""
     return (
@@ -97,6 +99,35 @@ def workspace_geometry(n_rays: int, n_samples: int) -> Tuple[int, int]:
     per_item, units_an_item = unit_layout(n_samples)
     items = -(-n_rays // per_item)
     return items * units_an_item, min(-(-items // 2), K1_CTAS)
+
+
+def item_row_floats(units_an_item: int) -> int:
+    """The f32 values of a long item's rows slab (`item_row_floats` in
+    csrc/paper_train.cuh): raw σ, rgb and their cotangents, 8 a row, for an
+    item past ITEM_ROWS rows (S > 256, one ray); 0 for a shorter item, whose
+    rows stay in shared memory."""
+    return 8 * 64 * units_an_item if units_an_item * 64 > ITEM_ROWS else 0
+
+
+def workspace_layout(n_rays: int, n_samples: int, kx: int = K_XIN) -> dict:
+    """{piece: (byte offset, bytes)} of a K1 / K3b call's workspace, as
+    csrc/paper_train.cuh's `carve` lays it out: the bf16 buffers of
+    `ws_buffers(kx)` (`units` 64-row unit images each), "warp_part",
+    "tile_part", "dw_part", "rows" (the long items' slabs, one a consumer
+    warpgroup of each CTA), each at a multiple of 256 bytes; "total" the
+    bytes of the whole (`nerface_fused_train_workspace_bytes`)."""
+    units, ctas = workspace_geometry(n_rays, n_samples)
+    _, units_an_item = unit_layout(n_samples)
+    pieces = [(name, units * width * 128) for name, width in ws_buffers(kx)]
+    pieces += [("warp_part", ctas * WARPS_A_CTA * PART_COLS * 4), ("tile_part", ctas * PART_COLS * 4),
+               ("dw_part", DWG_SEGS * w_offsets(kx)["WA"] * 4),
+               ("rows", ctas * 2 * item_row_floats(units_an_item) * 4)]
+    out, off = {}, 0
+    for name, n in pieces:
+        out[name] = (off, n)
+        off = -(-(off + n) // 256) * 256
+    out["total"] = off
+    return out
 
 
 def workspace_image(m: torch.Tensor) -> torch.Tensor:

@@ -26,7 +26,7 @@ Path choice, in bf16 (`dtype=torch.bfloat16`), for the paper family
   backward is K3b) over the differentiable `prefold_paper_params` bundle,
   composited by `volume_render_radiance_field` with the σ-noise, as the
   JAX package composites it with XLA (`pipeline.py:240-267`). Both take
-  any sample count in 1..MAX_SAMPLES (256); on the card a pass goes to
+  any sample count in 1..MAX_SAMPLES (1024); on the card a pass goes to
   them where the JAX package's tile rule sends it to Pallas
   (`_paper_kernels_take`: the ray count a multiple of 8), else it runs the
   model's plain forward.

@@ -98,42 +98,46 @@ def row_text(name, r):
             f"workspace included; {r['part']})")
 
 
-def _operands(bundle, R, dev, small):
+def _operands(bundle, R, dev, small, bands=10):
     """The tree's own packing of a bundle for K1 / K3b: (dir_c, W, F, WT)."""
-    return K._kernel_operands(bundle, R, dev, 10, True, small, transposed=True)
+    return K._kernel_operands(bundle, R, dev, bands, True, small, transposed=True)
 
 
-def k1_bare(bundle, rays, small):
+def k1_bare(bundle, rays, small, bands=10):
     """K1's launch alone (`fused_train._launch_train`), as a function: the
-    operands packed and the outputs and workspace allocated beforehand."""
+    operands packed and the outputs and workspace allocated beforehand (the
+    function's `out` and `ws`, which a call leaves the pass's gradients and
+    operand images in)."""
     ro, rd, z = rays["ro"], rays["rd"], rays["z"]
     R, S = z.shape
-    operands = _operands(bundle, R, ro.device, small)
-    out = T.train_outputs(R, S, False, ro.device)
-    ws = T.train_workspace(R, S, ro.device)
+    operands = _operands(bundle, R, ro.device, small, bands)
+    out = T.train_outputs(R, S, False, ro.device, bands)
+    ws = T.train_workspace(R, S, ro.device, bands)
     per_ray = (ro, rd, z, rays["tgt"], rays["bg"], rays["noise"])
-    kw = dict(num_encoding_fn_xyz=10, white_background=False, small=small, noise_std=0.1,
+    kw = dict(num_encoding_fn_xyz=bands, white_background=False, small=small, noise_std=0.1,
               loss_scale=2.0 / (3.0 * R), sup_bg_scale=0.0)
 
     def launch():
         T._launch_train(operands, per_ray, out, ws, **kw)
 
+    launch.out, launch.ws = out, ws
     return launch
 
 
-def k3b_bare(bundle, rays, small):
+def k3b_bare(bundle, rays, small, bands=10):
     """K3b's launch alone (`fused_mlp._launch_paper_bwd`), operands packed
-    beforehand."""
+    beforehand (`out` and `ws` as `k1_bare`'s)."""
     ro, rd, z = rays["ro"], rays["rd"], rays["z"]
     R, S = z.shape
-    operands = _operands(bundle, R, ro.device, small)
-    out = K.paper_bwd_outputs(R, ro.device)
-    ws = K.paper_bwd_workspace(R, S, ro.device)
+    operands = _operands(bundle, R, ro.device, small, bands)
+    out = K.paper_bwd_outputs(R, ro.device, bands)
+    ws = K.paper_bwd_workspace(R, S, ro.device, bands)
     per_ray = (ro, rd, z, rays["g"])
 
     def launch():
-        K._launch_paper_bwd(operands, per_ray, out, ws, 10, small)
+        K._launch_paper_bwd(operands, per_ray, out, ws, bands, small)
 
+    launch.out, launch.ws = out, ws
     return launch
 
 

@@ -10,9 +10,11 @@ At 10 bands it calls only what every checkout of the port with the wgmma
 kernels has, so it times two trees against each other: run it with PYTHONPATH at
 each checkout's root, in turns (parent, change, change, parent), each
 building its own libraries under its own build/. Past 10 bands (K = 128
-encoding) it needs a checkout whose kernels take them.
+encoding) it needs a checkout whose kernels take them. `--samples S ...`
+adds K2's tile and K1's pass at each S (the runtime layout class, and past
+256 a long item, which needs a checkout whose kernels take it).
 
-    python -m nerface_tpu_torch.tools.perf.paper_bands [--bands L] [--json PATH]
+    python -m nerface_tpu_torch.tools.perf.paper_bands [--bands L] [--samples S ...] [--json PATH]
 
 It prints the card line, one line per case and a JSON line.
 """
@@ -76,14 +78,18 @@ def k1_bare(dev, bands, S, seed):
     return lambda: T._launch_train(operands, per_ray, out, ws, **kw)
 
 
-def measure(dev, bands=10):
+def measure(dev, bands=10, samples=()):
     """{case: {"ms", "bound_ms", "rays", "samples"}} of K2's two tiles and
-    K1's two passes."""
+    K1's two passes, and of K2's tile and K1's pass at each S of
+    `samples`."""
     res = {}
     cases = [("k2_tile_64", lambda: k2_bare(dev, bands, 64, True, 11), TILE_RAYS, 64, False),
              ("k2_tile_128", lambda: k2_bare(dev, bands, 128, False, 12), TILE_RAYS, 128, False),
              ("k1_64", lambda: k1_bare(dev, bands, 64, 21), TRAIN_RAYS, 64, True),
              ("k1_128", lambda: k1_bare(dev, bands, 128, 22), TRAIN_RAYS, 128, True)]
+    for S in samples:
+        cases += [(f"k2_tile_{S}", lambda S=S: k2_bare(dev, bands, S, False, 13 + S), TILE_RAYS, S, False),
+                  (f"k1_{S}", lambda S=S: k1_bare(dev, bands, S, 23 + S), TRAIN_RAYS, S, True)]
     for name, make, R, S, backward in cases:
         fn = make()
         ms = median_ms(fn, warmup=3, iters=ITERS)
@@ -102,6 +108,7 @@ def measure(dev, bands=10):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bands", type=int, default=10, help="xyz encoding bands (1..20)")
+    ap.add_argument("--samples", type=int, nargs="*", default=[], help="more sample counts to time")
     ap.add_argument("--json", help="also write the result here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -113,7 +120,7 @@ def main():
     print(card, flush=True)
     print(f"[paper_bands] the package at {nerface_tpu_torch.__file__}", flush=True)
     res = {"card": card, "bands": args.bands, "package": nerface_tpu_torch.__file__,
-           "cases": measure(torch.device("cuda", 0), args.bands)}
+           "cases": measure(torch.device("cuda", 0), args.bands, args.samples)}
     line = json.dumps(res)
     if args.json:
         with open(args.json, "w") as f:

@@ -72,9 +72,11 @@ def params(cuda_device):
     return m.state_dict()
 
 
-def _past_the_limit(z):
-    """z's rows at 257 samples: one past the paper kernels' MAX_SAMPLES."""
-    return z.repeat(1, -(-257 // z.shape[1]))[:, :257].contiguous()
+def _past_the_limit(z, limit=K.MAX_SAMPLES):
+    """z's rows at one sample past `limit`: the paper kernels' MAX_SAMPLES
+    (1024), or K4's `fused_flex.MAX_SAMPLES` (256)."""
+    n = limit + 1
+    return z.repeat(1, -(-n // z.shape[1]))[:, :n].contiguous()
 
 
 def _inputs(n_rays, n_samples, dev, seed):
@@ -431,7 +433,7 @@ def test_flex_kernels_refuse_what_they_do_not_take(cuda_device):
     g = torch.zeros(64, 64, 4, device=cuda_device)
     before = (F.fused_flex_forward.launches, F.fused_flex_backward.launches)
     with pytest.raises(ValueError, match="1..256 samples per ray"):
-        F.fused_flex_forward(weights, ro, rd, _past_the_limit(z), dc, v0, 3)
+        F.fused_flex_forward(weights, ro, rd, _past_the_limit(z, F.MAX_SAMPLES), dc, v0, 3)
     with pytest.raises(ValueError, match="contiguous"):
         F.fused_flex_forward(weights, ro, rd, z.t().contiguous().t(), dc, v0, 3)
     with pytest.raises(TypeError, match="float32"):
@@ -854,6 +856,56 @@ def test_paper_entry_points_take_1_to_20_bands(cuda_device):
             assert ws[1] == ws[10] and ws[11] == ws[20], ws
             units = 2048  # one ray in one unit at S = 64
             assert ws[11] - ws[10] >= units * 64 * 128 + 7 * 2 * 64 * 256 * 4 - 256 * 2, ws
+    torch.cuda.synchronize()
+
+
+# Long items: S past 256, one ray in ⌈S / 64⌉ units (K2 composites it in
+# segments of 256 rows, K1 / K3b keep its rows in a workspace slab), at 10
+# and 16 bands, both models: a fifth unit of one row (257), five whole
+# units (320), two whole K2 segments (512), the limit, 24 padding rows
+# (1000); odd ray counts leave the last pair's second warpgroup past the
+# last ray, and 601 rays run past one round of the 132-CTA grid.
+LONG_CASES = [(77, 257), (301, 320), (40, 512), (8, 1024), (301, 1000), (601, 320)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("small", [False, True], ids=["paper", "small"])
+@pytest.mark.parametrize("L", [10, 16])
+@pytest.mark.parametrize("R,S", LONG_CASES, ids=[f"{R}x{S}" for R, S in LONG_CASES])
+def test_paper_kernels_take_long_rays(cuda_device, small, L, R, S):
+    """K2, K3f, K3b and K1 past 256 samples a ray against their plain
+    versions, K1 / K3b bit-identical over 2 launches."""
+    _check_paper_kernels_at(cuda_device, small, L, R, S, seed=L + S + R)
+
+
+@pytest.mark.cuda
+def test_paper_entry_points_take_the_new_limit(cuda_device):
+    """The C entry points of K2, K3f, K3b and K1, in every build, return
+    cudaErrorInvalidValue (1) for S outside 1..1024 before they read a
+    pointer; the workspace is `fused_train.workspace_layout`'s bytes, the
+    long items' slab included past 256. Nothing is launched."""
+    import ctypes
+
+    from nerface_tpu_torch.ops.kernels import fused_train as T
+    from nerface_tpu_torch.ops.kernels.build import SAMPLE_CLASS_DEFINES, load_library
+
+    null = ctypes.c_void_p(0)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(cuda_device).cuda_stream)
+    k2 = load_library("fused_paper_render")
+    f0 = ctypes.c_float(0.0)
+    for S in (0, -1, K.MAX_SAMPLES + 1, 2048):
+        assert k2.nerface_fused_paper_render(*[null] * 13, 8, S, 10, 0, 0, stream) == 1, S
+    for defines in SAMPLE_CLASS_DEFINES.values():
+        k1 = load_library("fused_train_pass", defines)
+        k3 = load_library("fused_paper_mlp", defines)
+        for S in (0, -1, K.MAX_SAMPLES + 1, 2048):
+            assert k1.nerface_fused_train_pass(*[null] * 17, 8, S, 10, 0, 0, f0, f0, f0, stream) == 1, S
+            assert k3.nerface_fused_paper_mlp_fwd(*[null] * 7, 8, S, 10, 0, stream) == 1, S
+            assert k3.nerface_fused_paper_mlp_bwd(*[null] * 12, 8, S, 10, 0, stream) == 1, S
+        for R, S, L in ((2048, 64, 10), (301, 200, 10), (2048, 320, 10), (2048, 1024, 16), (77, 1000, 10)):
+            want = T.workspace_layout(R, S, K.xin_extent(L))["total"]
+            assert k1.nerface_fused_train_workspace_bytes(R, S, L) == want, (R, S, L)
+            assert k3.nerface_fused_paper_mlp_workspace_bytes(R, S, L) == want, (R, S, L)
     torch.cuda.synchronize()
 
 

@@ -211,10 +211,13 @@ def test_workspace_layout_matches_cuda_source():
     assert re.search(rf"constexpr int DWG_SEGS = {T.DWG_SEGS};", DW)
     part = re.search(r"constexpr int PART_COLS = PART_WRGB \+ DIR_HIDDEN \* 3;", HDR)
     assert part and T.PART_COLS == K.F_OFFSETS["TOTAL"] + K.HIDDEN + 3 * K.DIR_HIDDEN
-    # carve: the bf16 buffers in enum order, then the partial rows and dW's segments
+    # carve: the bf16 buffers in enum order, then the partial rows, dW's
+    # segments and a long item's rows (none up to S = 256)
     carve = HDR[HDR.index("inline size_t carve("):HDR.index("inline long long workspace_bytes(")]
     order = [m.group(1) for m in re.finditer(r"w\.([\w\[\]]+) = ", carve)]
-    assert order == ["buf[b]", "warp_part", "tile_part", "dw_part", "kx"]  # kx: xin's width, no bytes
+    assert order == ["buf[b]", "warp_part", "tile_part", "dw_part", "rows", "kx"]  # kx: xin's width, no bytes
+    assert [k for k in T.workspace_layout(2048, 64) if k != "total"] == (
+        [b for b, _ in T.WS_BUFFERS] + ["warp_part", "tile_part", "dw_part", "rows"])
     assert "ctas * WARPS_A_CTA * PART_COLS" in carve and "DWG_SEGS * w_off(W_OFF_WA, kx)" in carve
 
 

@@ -6,9 +6,12 @@ count their TPU kernels take.
   (`device="cuda"`, no card needed), admit exactly what the JAX package's
   tile rule admits (`_pick_rays_per_tile` finds a tile: the test of
   `fused_paper_mlp_available` without its TPU-backend test) for every S in
-  1..256 and a few ray counts, and refuse above 256, where a direct wrapper
-  call raises a ValueError that names the limit. `unit_layout`'s items
-  hold whole rays in at most four 64-row units.
+  1..256 and a few ray counts, and past 256 up to the kernels' limit
+  (`fused_mlp.MAX_SAMPLES`, 1024 since the long items; 256 before), and
+  refuse above it, where a direct wrapper call raises a ValueError that
+  names the limit. `unit_layout`'s items hold whole rays in at most four
+  64-row units up to S = 256, one ray in ⌈S / 64⌉ units past it
+  (tests/test_torch_long_rays.py holds S past 256).
 * (b) The plain versions against the JAX package's Pallas kernels in
   interpret mode at S ∈ {16, 24, 48, 96, 192}, the paper and the smaller
   model, draws injected: K2 `fused_paper_render_reference` against
@@ -96,18 +99,20 @@ def paper_models():
 def test_train_eligibility_is_the_jax_tile_rule(paper_models, n_rays):
     """K1 takes a step on the card exactly where the JAX package's
     `fused_train_available` would send both passes to Pallas, for every
-    coarse S in 1..256 and fine counts up to a merged 256; past 256 it
-    refuses. On the CPU it takes any ray count within the same domain."""
+    coarse S in 1..256 and fine counts up to a merged MAX_SAMPLES (1024);
+    past it it refuses. On the CPU it takes any ray count within the same
+    domain."""
     tset, _ = _settings()
     flags = FeatureFlags()
     m = paper_models[False]
+    top = K.MAX_SAMPLES
     for sc in range(1, 257):
-        for sf in sorted({1, 7, 16, 64, 128, 256 - sc, 257 - sc} - {0}):
+        for sf in sorted({1, 7, 16, 64, 128, 256 - sc, 257 - sc, top - sc, top + 1 - sc} - {0}):
             s = dataclasses.replace(tset, num_coarse=sc, num_fine=sf)
             got = fused_train_eligible(m, m, s, flags, torch.bfloat16, "cuda", num_rays=n_rays)
-            want = sc + sf <= 256 and _jax_rule(n_rays, sc) and _jax_rule(n_rays, sc + sf)
+            want = sc + sf <= top and _jax_rule(n_rays, sc) and _jax_rule(n_rays, sc + sf)
             assert got == want, (n_rays, sc, sf)
-            assert fused_train_eligible(m, m, s, flags, torch.bfloat16, "cpu", n_rays) == (sc + sf <= 256)
+            assert fused_train_eligible(m, m, s, flags, torch.bfloat16, "cpu", n_rays) == (sc + sf <= top)
 
 
 @pytest.mark.parametrize("small", [False, True], ids=["paper", "small"])
@@ -115,25 +120,28 @@ def test_train_eligibility_is_the_jax_tile_rule(paper_models, n_rays):
 def test_render_dispatch_is_the_jax_tile_rule(paper_models, n_rays, small):
     """K2 (`_fused_render_eligible`) and K3 (`_paper_kernels_take`, the
     `_apply_model` branch) take a pass on the card exactly where the JAX
-    package sends it to Pallas, S in 1..256; never above 256."""
+    package sends it to Pallas, S in 1..MAX_SAMPLES (1024; S in 1..299
+    here, and S around the limit); never above it."""
     tset, _ = _settings(noise=0.0)
     settings = dataclasses.replace(tset, fused_render=True)
     m = paper_models[small]
     pe_dir, expr, latent = torch.zeros(2, 24), torch.zeros(76), torch.zeros(32)
-    for S in range(1, 300):
-        want = S <= 256 and _jax_rule(n_rays, S)
+    top = K.MAX_SAMPLES
+    for S in list(range(1, 300)) + [top - 1, top, top + 1, top + 2]:
+        want = S <= top and _jax_rule(n_rays, S)
         for dev in ("cuda", torch.device("cuda", 0)):
             assert pipeline._fused_render_eligible(m, n_rays, S, pe_dir, expr, latent, settings,
                                                    torch.bfloat16, dev) == want, (n_rays, S)
         assert pipeline._paper_kernels_take(n_rays, S, "cuda") == want, (n_rays, S)
-        assert pipeline._paper_kernels_take(n_rays, S, "cpu") == (S <= 256)
+        assert pipeline._paper_kernels_take(n_rays, S, "cpu") == (S <= top)
         assert K.kernel_pass_ok(n_rays, S) == want
 
 
 def test_wrappers_raise_past_the_limit():
-    """A direct call at S = 257 (or 0) raises a ValueError naming the
-    limit, on the CPU too, whose wrappers run the plain versions."""
-    bundle, rays = _paper_case(2, 257)
+    """A direct call at S = MAX_SAMPLES + 1 (1025; or 0) raises a ValueError
+    naming the limit, on the CPU too, whose wrappers run the plain
+    versions."""
+    bundle, rays = _paper_case(2, K.MAX_SAMPLES + 1)
     ro, rd, z = rays["ro"], rays["rd"], rays["z"]
     calls = {
         "K3f": lambda: K.fused_paper_mlp_forward(bundle, ro, rd, z),
@@ -144,9 +152,9 @@ def test_wrappers_raise_past_the_limit():
             torch.zeros(108)),
     }
     for name, call in calls.items():
-        with pytest.raises(ValueError, match="1..256 samples per ray"):
+        with pytest.raises(ValueError, match=r"1\.\.1024 samples per ray"):
             call()
-    with pytest.raises(ValueError, match="1..256 samples per ray"):
+    with pytest.raises(ValueError, match=r"1\.\.1024 samples per ray"):
         K.check_samples(0)
 
 
@@ -177,11 +185,14 @@ def _paper_case(R, S):
 
 
 def test_unit_layout_holds_whole_rays():
-    """At every S in 1..256 an item is whole rays in 1..4 units (256 rows
-    at most); where S divides 64 or is a multiple of it the units hold no
-    padding, and otherwise no other ray count up to 256 / S pads a smaller
-    share."""
-    for S in range(1, K.MAX_SAMPLES + 1):
+    """At every S in 1..256 (ITEM_ROWS) an item is whole rays in 1..4 units
+    (256 rows at most); where S divides 64 or is a multiple of it the units
+    hold no padding, and otherwise no other ray count up to 256 / S pads a
+    smaller share. Past 256 up to MAX_SAMPLES an item is one ray in ⌈S /
+    64⌉ units (a long item)."""
+    for S in range(K.ITEM_ROWS + 1, K.MAX_SAMPLES + 1):
+        assert K.unit_layout(S) == (1, -(-S // 64)), S
+    for S in range(1, K.ITEM_ROWS + 1):
         rays, units = K.unit_layout(S)
         assert 1 <= units <= 4 and rays >= 1, S
         assert (units - 1) * 64 < rays * S <= units * 64 <= K.ITEM_ROWS, S
