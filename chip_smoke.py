@@ -44,6 +44,14 @@ Phases, one line each (plus the kernels' register reports):
                launches; kernel (wrapper) ms, the bare C launch's ms, its
                device ms under torch.profiler and GB/s from that
                (`tools/perf/k3f_k5_launch_split.py`), plain and bound ms.
+               Then the long regime (Sc + Sf past 256, up to 1024):
+               Sc ∈ {3, 64, 320, 1000} × Sf ∈ {1, 192, 700, 1021} within
+               Sc + Sf ≤ 1024 on 2072 rays, both regimes, within
+               RESAMPLE_TOL of the plain version, rows sorted,
+               bit-identical, ms, plain ms and bound; a 65536-ray tile at
+               64 + 256 in both regimes timed as the 64 + 64 tile. The
+               path drive counts 4 launches: 64 + 64 and 64 + 256, each
+               regime.
      probes  — the design probes of K2's layer chain
                (nerface_tpu_torch/tools/perf/, csrc/probes.cu), each variant
                driven once at the TPU probes' sizes with the counts reset
@@ -153,7 +161,7 @@ Phases, one line each (plus the kernels' register reports):
                a batch; and the device feed's `torch.topk` over the 512²
                frame's 262144 keys timed alone.
      eval    — the eval / reenactment entry point: a 512² synthetic
-               dataset written to disk (EVAL_SPLIT: 16 train, 2 val, 5
+               dataset written to disk (EVAL_SPLIT: 8 train, 2 val, 5
                test frames), `cli/train.py --bf16` for EVAL_STEPS = 300
                steps of synth512_devfeed's settings at K = 50, then
                `cli/eval.py --bf16 --save-disparity-image
@@ -224,13 +232,13 @@ Phases, one line each (plus the kernels' register reports):
                of synth512_lcode's trunk at hidden 256 and 512, at 11, 16
                and 20 xyz encoding bands (a K = 128 encoding, the kernels'
                runtime layout class) and at 10 (the control, K = 64), at S
-               = 64, 128 and 48 on 2048 and on 2072 rays (XYZ_CASES), one
+               = 64, 128 and 48 on 2048 rays and 48 on 2072 (XYZ_CASES), one
                seed a case, under [sample_counts]' limits and lost-unit
                control (K4 with the tensor-core yardstick at every S),
                bit-identical over 2 launches; ms, plain ms and bound on the
                2048-ray cases, and each time against the 10-band one.
      long_rays — K2, K3f, K1 and K3b past 256 samples a ray (one ray an
-               item, in up to 16 units) at S = 257, 320, 384, 512 and 1024
+               item, in up to 16 units) at S = 257, 320, 512 and 1024
                on 2048 rays and 320 / 1000 on 2072 (LONG_RAYS_CASES), one
                seed, under [sample_counts]' limits, K2 / K3f's lost unit
                caught; K1's and K3b's dW launch within DW_EXACT_TOL of the
@@ -290,8 +298,8 @@ Phases, one line each (plus the kernels' register reports):
                K3b 30 times each, K1 never, K2 4 tiles × 2 validation frames.
      pe16    — synth512_pe16 (SYNTH512_PE16: synth512_paper with 16 xyz
                bands in both models) through the paper kernels at K = 128,
-               no bf16 pass on the plain path: 3 served 512² frames through
-               K2 and one at σ-noise 0.1 through K3f, each within
+               no bf16 pass on the plain path: SERVE_FRAMES served 512²
+               frames through K2 and one at σ-noise 0.1 through K3f, each within
                PE16_PLAIN_FRAME_* of the same frame through the kernel's
                plain version and within PE16_FRAME_* of f32 (no bf16 path
                holds [serve]'s limits at 16 bands: the plain version's own
@@ -337,6 +345,20 @@ Phases, one line each (plus the kernels' register reports):
                for bit; passes and wall time; then the same at hidden 512
                on 2085 × 64 (a persistent grid past one round, the last
                round cut short). A fault fails the run.
+     flex_long_rays — K4f and K4b past 256 samples a ray (one ray an item
+               in up to 16 units) at hidden 256 and 512, S = 257, 320, 512
+               and 1024 on 2048 rays and 320 / 1000 on 2072
+               (FLEX_LONG_CASES), one seed, under [sample_counts]' limits
+               and lost-unit control (the tensor-core yardstick at every
+               S), K4b bit-identical over 2 launches; wrapper, bare, plain
+               and bound ms on the 2048-ray cases; FLEX_LONG_DEAD_PASSES
+               passes of 2071 × 320 at 8 hidden layers (a dead long item:
+               the dead-unit walk), each bit for bit the first; then K4b at
+               2048 × S = 128, 320 and 1024, both widths, with a lost unit,
+               DW_EXACT_SEEDS seeds each: the seeds whose lost unit
+               `flex_grad_limits` catch, and those the exact dW check
+               (`flex_dw_exact`: the dW launch within DW_EXACT_TOL of the
+               f64 Xᵀ·gY of its own workspace images) catches (all).
   9. flex_serve — a 512² synth512_lcode avatar (SYNTH512_LCODE: the paper
                config with the Flexible family's
                ConditionalBlendshapeLearnableCodeNeRFModel) served as in
@@ -350,7 +372,7 @@ Phases, one line each (plus the kernels' register reports):
                rays/s.
      flex_64_128 — synth512_lcode at the NeRF paper's 64 + 128 samples
                (SYNTH512_LCODE_64_128: K4 at S = 64 and, through the
-               runtime layout class, 192): 3 frames of 512² served via
+               runtime layout class, 192): SERVE_FRAMES frames of 512² served via
                serve_jsonl (K4f 2 × tiles a frame), each within
                FLEX_FRAME_MAX / FLEX_PLAIN_FRAME_MEAN of the same frame
                through K4f's plain version and within FRAME_MAX /
@@ -373,6 +395,12 @@ Phases, one line each (plus the kernels' register reports):
                against K4f's plain version within PE16_PLAIN_FRAME_* and
                against f32 within PE16_FRAME_* ([pe16]'s: at 16 bands bf16
                itself moves a frame off f32).
+     flex_64_256 — the same for synth512_lcode_64_256
+               (SYNTH512_LCODE_64_256: 64 + 256 samples, K4 at S = 64 and,
+               a long item, 320) with [flex_64_128]'s limits; then its
+               hidden-512 variant (SYNTH512_LCODE_64_256_W512) served, one
+               frame against K4f's plain version and f32 (the latter
+               within FLEX_W512_FRAME_MEAN), and one bf16 step against f32.
  11. stock_eval — `cli/eval_nerf.py` at the NeRF paper's stock settings
                (PaperNeRFModel coarse and fine, 10 xyz / 4 direction bands,
                64 + 128 samples, f32; He-scaled random weights, σ biased up
@@ -559,6 +587,19 @@ SYNTH512_PAPER_64_256_COARSE = copy.deepcopy(SYNTH512_PAPER_COARSE)
 for _mode in ("train", "validation"):
     SYNTH512_PAPER_64_256_COARSE["nerf"][_mode]["num_coarse"] = 320
 
+# synth512_lcode_64_256: synth512_lcode with num_fine 256 in training and
+# validation (as synth512_paper_64_256), for a LearnableCode avatar's final
+# renders: K4f / K4b take each coarse pass at S = 64 (a fixed layout class)
+# and each fine pass at S = 320 (a long item: one ray in five units); and
+# its hidden-512 variant (as synth512_lcode_w512), through
+# `wide_chain_kernel` / `wide_dx_kernel`
+SYNTH512_LCODE_64_256 = copy.deepcopy(SYNTH512_LCODE)
+for _mode in ("train", "validation"):
+    SYNTH512_LCODE_64_256["nerf"][_mode]["num_fine"] = 256
+SYNTH512_LCODE_64_256_W512 = copy.deepcopy(SYNTH512_LCODE_64_256)
+for _node in SYNTH512_LCODE_64_256_W512["models"].values():
+    _node["hidden_size"] = 512
+
 KERNEL_RAYS = 4096
 TILE_RAYS = 65536  # the validation chunksize: one tile of the main path
 FAR = 0.8
@@ -725,7 +766,9 @@ K3F_DESIGN = ("K2's chain (csrc/paper_chain.cuh on wgmma_chain.cuh) without the 
 K5_DESIGN = ("persistent warps, one ray each at a time, the next ray's rows loaded ahead into "
              "registers; the scan in registers (butterfly sum, warp scan); a branch-free search; the "
              "draws bitonic-sorted by shuffles; the union one bitonic merge of 32·E registers; "
-             "16-byte stores")
+             "16-byte stores. Past Sc + Sf = 256 (the long regime) a warp keeps the ray's rows in "
+             "shared memory: the same scan order over lane runs, the same search, a bitonic sort in "
+             "shared memory, the union as a merge by rank")
 K2_DESIGN = ("wgmma m64n256k16 with A from registers, f32 accumulators; weight chunk "
              "images through a 5-stage ring of cp.async.bulk copies from a producer warp "
              "(mbarriers), multicast to a 2-CTA cluster; persistent grid; two free-running "
@@ -738,6 +781,13 @@ K2_DESIGN = ("wgmma m64n256k16 with A from registers, f32 accumulators; weight c
 RESAMPLE_TOL = 1e-5
 RESAMPLE_SEEDS = 3
 RESAMPLE_SPIKE = 50.0
+# K5 past Sc + Sf = 256 (its long regime): the grid Sc × Sf within Sc + Sf
+# ≤ 1024 on SAMPLE_RAGGED_RAYS rays, both regimes, within RESAMPLE_TOL of
+# the plain version; and a 65536-ray tile at 64 + 256 (synth512_lcode_64_256's
+# and synth512_paper_64_256's resample) timed beside its byte bound
+K5_LONG_COARSE = (3, 64, 320, 1000)
+K5_LONG_FINE = (1, 192, 700, 1021)
+K5_LONG_TILE = (64, 256)
 # synth512_paper served as the JAX package's production configuration:
 # fast-eval (the test split's head-bbox union, capacity 0.17 of the 512²
 # frame: 3 tiles of 16384 rays) and, for the trained checkpoint, the
@@ -1952,15 +2002,9 @@ def dw_products(small, kx):
 
 def dw_exact(launch, R, S, bands=10, small=False, label="", catch=True):
     """After `launch` (`k1_launch_split.k1_bare` / `k3b_bare`: its `out`
-    and `ws`) ran: each product of `dw_products` against the f64 Xᵀ·gY of
-    the workspace's images, within DW_EXACT_TOL of the tensor's max (and
-    of its norm), and what the product reads without the unit of
-    `lost_unit_index`, which with `catch` must lie past the limit in every
-    product the unit adds to (K3b's cotangents are random; K1's, from the
-    compositing, can be all but 0 on a ray's first unit in empty space, and
-    at S = 1, whose one sample is the background's, every gradient is).
-    Returns {product: (max, norm, lost-unit max, lost-unit norm)} relative
-    readings."""
+    and `ws`) ran: each product of `dw_products` held to the f64 Xᵀ·gY of
+    the workspace's images (`_dw_exact_check`). Returns {product: (max,
+    norm, lost-unit max, lost-unit norm)} relative readings."""
     import torch
 
     from nerface_tpu_torch.ops.kernels import fused_mlp as K
@@ -1971,18 +2015,42 @@ def dw_exact(launch, R, S, bands=10, small=False, label="", catch=True):
     lay = T.workspace_layout(R, S, kx)
     check(launch.ws.numel() == lay["total"],
           f"{label}: the workspace is {launch.ws.numel()} B, fused_train.workspace_layout says {lay['total']}")
-    units = T.workspace_geometry(R, S)[0]
-    widths = dict(T.ws_buffers(kx))
-    lost = slice(64 * lost_unit_index(R, S), 64 * lost_unit_index(R, S) + 64)
-    offs, dw = K.w_offsets(kx), launch.out["dw"]
+    widths, offs = dict(T.ws_buffers(kx)), K.w_offsets(kx)
+    prods = [(name, lay[xn][0], widths[xn], lay[gn][0], widths[gn], offs[slot] + row0 * widths[gn])
+             for name, slot, row0, xn, gn in dw_products(small, kx)]
+    return _dw_exact_check(launch, prods, T.workspace_geometry(R, S)[0], lost_unit_index(R, S), label, catch)
+
+
+def _dw_exact_check(launch, prods, units, lost, label, catch, chunk=2048):
+    """Each product (name, X's byte offset in `launch.ws`, its width, gY's
+    offset, its width, the first element of its (X width, gY width) block
+    of `launch.out["dw"]`) against the f64 Xᵀ·gY of the workspace's images
+    (summed over `chunk` units at a time: an image of 2M rows at 2048 × 1024
+    would not fit in f64 beside the workspace), within DW_EXACT_TOL of the
+    tensor's max (and of its norm), and what the product reads without the
+    workspace unit `lost`, which with `catch` must lie past the limit in
+    every product the unit adds to (K3b's and K4b's cotangents are random;
+    K1's, from the compositing, can be all but 0 on a ray's first unit in
+    empty space, and at S = 1, whose one sample is the background's, every
+    gradient is). Returns {product: (max, norm, lost-unit max, lost-unit
+    norm)} relative readings."""
+    import torch
+
+    dw = launch.out["dw"]
     out = {}
-    for name, slot, row0, xn, gn in dw_products(small, kx):
-        x = _unimage(launch.ws, lay[xn][0], units, widths[xn]).double()
-        g = _unimage(launch.ws, lay[gn][0], units, widths[gn]).double()
-        ref = x.T @ g
-        unit = x[lost].T @ g[lost]  # what losing the unit takes away
-        k, n = ref.shape
-        got = dw[offs[slot] + row0 * n:offs[slot] + (row0 + k) * n].view(k, n).double()
+    for name, ox, wx, og, wg, o in prods:
+        ref = torch.zeros(wx, wg, dtype=torch.float64, device=dw.device)
+        unit = None
+        for u0 in range(0, units, chunk):
+            u1 = min(units, u0 + chunk)
+            x = _unimage(launch.ws, ox + u0 * wx * 128, u1 - u0, wx).double()
+            g = _unimage(launch.ws, og + u0 * wg * 128, u1 - u0, wg).double()
+            ref += x.T @ g
+            if u0 <= lost < u1:
+                rows = slice(64 * (lost - u0), 64 * (lost - u0) + 64)
+                unit = x[rows].T @ g[rows]  # what losing the unit takes away
+            del x, g
+        got = dw[o:o + wx * wg].view(wx, wg).double()
         scale, norm = float(ref.abs().max()), float(ref.norm())
         out[name] = tuple(v / max(d, 1e-300) for v, d in (
             (float((got - ref).abs().max()), scale), (float((got - ref).norm()), norm),
@@ -1992,7 +2060,7 @@ def dw_exact(launch, R, S, bands=10, small=False, label="", catch=True):
               f"{label}: dW {name} {e:.3g}·max, {e_norm:.3g}·‖r‖ off Xᵀ·gY of its own images (limit {DW_EXACT_TOL})")
         check(not catch or max(f, f_norm) > DW_EXACT_TOL or float(unit.abs().max()) == 0.0,
               f"{label}: a lost unit moves dW {name} by {f:.3g}·max, {f_norm:.3g}·‖r‖, inside {DW_EXACT_TOL}")
-        del x, g, ref, unit, got
+        del ref, unit, got
     return out
 
 
@@ -2091,7 +2159,7 @@ def _sample_control(S, control, name="sample_counts", label=None, exact_k3b=Fals
 
 
 def _flex_sample_count(S, R, dev, rows, control, h=256, bands=10, seeds=SAMPLE_SEEDS, timed=True, yard=None,
-                       label=None):
+                       label=None, bare=False):
     """K4f and K4b of synth512_lcode's He-scaled trunk (FLEX_N_HIDDEN hidden
     layers, `cases.flex_params`; at h = 512 synth512_lcode_w512's; at
     `bands` xyz bands) at one (S, R) of SAMPLE_CASES (of
@@ -2103,7 +2171,9 @@ def _flex_sample_count(S, R, dev, rows, control, h=256, bands=10, seeds=SAMPLE_S
     bit-identical over 2 launches. Where the yardstick decides, each
     reading goes into `control` beside what one lost 64-row unit (`rows`)
     reads. With `timed`, times each through its wrapper beside its plain
-    version and its operations bound. Returns ({K4f}, {K4b})."""
+    version and its bound, and with `bare` also as the bare C launch, the
+    operands packed beforehand (`flex_launch_split.bare_fwd` / `bare_bwd`).
+    Returns ({K4f}, {K4b})."""
     import torch
 
     from nerface_tpu_torch.ops.kernels import fused_flex as F
@@ -2188,6 +2258,17 @@ def _flex_sample_count(S, R, dev, rows, control, h=256, bands=10, seeds=SAMPLE_S
                        plain_ms=_median_ms(lambda: F.fused_flex_backward_reference(*bargs), 1, 3),
                        bound_ms=_bound_ms(R * S * k4_flop_per_sample(n, h, True, bands),
                                           _k4_bytes(R, S, True, n, h, bands))[0])
+            if bare:
+                from nerface_tpu_torch.tools.perf import flex_launch_split as FS
+
+                case = dict(weights=weights, ro=ro, rd=rd, z=z, dc=dc, v0=v0, g=g, n=n, bands=bands)
+                k4f["bare_ms"] = _median_ms(FS.bare_fwd(case))
+                fn = FS.bare_bwd(case)
+                k4b["bare_ms"] = _median_ms(fn, iters=10)
+                del fn
+            for r, backward in ((k4f, False), (k4b, True)):
+                r["bound_by"] = _bound_ms(R * S * k4_flop_per_sample(n, h, backward, bands),
+                                          _k4_bytes(R, S, backward, n, h, bands))[1]
         del grads, grads2, flat, flat2, plain, rflat, tc_flat, fault_flat
     w = k4b.pop("worst")
     k4b["worst_max"] = max(w.items(), key=lambda kv: kv[1][0])
@@ -2507,8 +2588,7 @@ def sample_counts_phase(dev):
 # of K3b's readings, the limits applied in none); the card tests run S =
 # 192 at 16 bands.
 XYZ_BANDS = (10, 11, 16, 20)
-XYZ_CASES = ((64, TRAIN_RAYS), (128, TRAIN_RAYS), (48, TRAIN_RAYS), (64, SAMPLE_RAGGED_RAYS),
-             (128, SAMPLE_RAGGED_RAYS), (48, SAMPLE_RAGGED_RAYS))
+XYZ_CASES = ((64, TRAIN_RAYS), (128, TRAIN_RAYS), (48, TRAIN_RAYS), (48, SAMPLE_RAGGED_RAYS))
 XYZ_SEEDS = 1
 
 
@@ -2595,18 +2675,18 @@ def xyz_bands_phase(dev):
 # [long_rays]: the paper kernels past 256 samples a ray, where an item is
 # one ray in ⌈S / 64⌉ units (K2 compositing it in segments of 256 rows, K1
 # and K3b keeping its rows in the workspace): S = 257 (one row into a fifth
-# unit), 320 (synth512_paper_64_256's fine pass), 384, 512 (two whole K2
+# unit), 320 (synth512_paper_64_256's fine pass), 512 (two whole K2
 # segments) and the limit on TRAIN_RAYS rays, and 320 and 1000 (24 padding
 # rows in the last of 16 units) on SAMPLE_RAGGED_RAYS. One seed a case, the
 # exact dW check on every K1 and K3b pass, timed through the wrappers and
 # bare on the TRAIN_RAYS cases.
-LONG_RAYS_CASES = ((257, TRAIN_RAYS), (320, TRAIN_RAYS), (384, TRAIN_RAYS), (512, TRAIN_RAYS),
-                   (1024, TRAIN_RAYS), (320, SAMPLE_RAGGED_RAYS), (1000, SAMPLE_RAGGED_RAYS))
+LONG_RAYS_CASES = ((257, TRAIN_RAYS), (320, TRAIN_RAYS), (512, TRAIN_RAYS), (1024, TRAIN_RAYS),
+                   (320, SAMPLE_RAGGED_RAYS), (1000, SAMPLE_RAGGED_RAYS))
 LONG_RAYS_SEEDS = 1
 # the exact dW check beside the limits it stands in for: K3b at TRAIN_RAYS ×
 # S with one 64-row unit lost, DW_EXACT_SEEDS seeds each
 DW_EXACT_S = (128, 320, 1024)
-DW_EXACT_SEEDS = 4
+DW_EXACT_SEEDS = 3
 
 
 def _dw_exact_vs_limits(dev):
@@ -2716,6 +2796,181 @@ def long_rays_phase(dev):
     phase("long_rays", f"the phase took {res['seconds']:.1f} s")
     return res
 
+
+
+# [flex_long_rays]: K4f / K4b of synth512_lcode's trunk past 256 samples a
+# ray (one ray an item in up to 16 units) at hidden 256 and 512: S = 257
+# (a fifth unit of one row), 320 (synth512_lcode_64_256's fine pass), 512
+# and the limit on TRAIN_RAYS, and 320 / 1000 on SAMPLE_RAGGED_RAYS (the
+# last round of the persistent grid cut short; 24 padding rows at 1000).
+# One seed a case, timed through the wrappers and bare on the TRAIN_RAYS
+# cases; then the repeat check on a dead long item
+FLEX_LONG_CASES = ((257, TRAIN_RAYS), (320, TRAIN_RAYS), (512, TRAIN_RAYS), (1024, TRAIN_RAYS),
+                   (320, SAMPLE_RAGGED_RAYS), (1000, SAMPLE_RAGGED_RAYS))
+# an odd ray count at S = 320, h = 256: the last round's warpgroup-1 item is
+# a long item past the last ray, which K4b's recompute and dX walk with
+# `skip_stages`; FLEX_LONG_DEAD_PASSES passes at 8 hidden layers
+FLEX_LONG_DEAD_CASE = (2071, 320)
+FLEX_LONG_DEAD_PASSES = 50
+
+
+def flex_dw_products(n, h, kx):
+    """K4b's dW launch's products (`fused_flex.cu::dw_products`): (label,
+    the packed weight's offset name, X buffer, gY buffer) of W1, WF, WD0
+    and each WH_i."""
+    return ([("w1", "W1", "xin", "ga0"), ("wf", "WF", f"a{n}", "gfeat"), ("wd0", "WD0", "feat", "gx0")]
+            + [(f"wh{i}", f"WH{i}", f"a{i}", f"gpre{i}") for i in range(n)])
+
+
+def flex_dw_exact(launch, R, S, h, bands=10, label="", catch=True):
+    """`dw_exact` for K4b: after `launch` (`flex_launch_split.bare_bwd`, its
+    `out` and `ws`) ran, each product of `flex_dw_products` held to the f64
+    Xᵀ·gY of the workspace's images (`_dw_exact_check`). Returns
+    {product: (max, norm, lost-unit max, lost-unit norm)} relative
+    readings."""
+    import torch
+
+    from nerface_tpu_torch.ops.kernels import fused_flex as F
+    from nerface_tpu_torch.ops.kernels.fused_mlp import xin_extent
+
+    torch.cuda.synchronize()
+    n, kx = FLEX_N_HIDDEN, xin_extent(bands)
+    offs, total = F.workspace_layout(R, S, n, h, kx)
+    check(launch.ws.numel() == total,
+          f"{label}: the workspace is {launch.ws.numel()} B, fused_flex.workspace_layout says {total}")
+    rays, units_an_item = F.unit_layout(S)
+    widths, wo = dict(F.workspace_buffers(n, h, kx)), F.w_offsets(n, h, kx)
+    prods = [(name, offs[xn], widths[xn], offs[gn], widths[gn], wo[slot])
+             for name, slot, xn, gn in flex_dw_products(n, h, kx)]
+    return _dw_exact_check(launch, prods, -(-R // rays) * units_an_item, lost_unit_index(R, S), label, catch)
+
+
+def _flex_dw_exact_vs_limits(dev):
+    """K4b at TRAIN_RAYS × each S of DW_EXACT_S, hidden 256 and 512,
+    DW_EXACT_SEEDS seeds: does one lost 64-row unit (`lost_unit_rows`, its
+    cotangent rows zeroed) pass `flex_grad_limits` against the plain
+    version (any dW tensor's reading past its limit catches it; the
+    tensor-core yardstick at every S, as `[xyz_bands]` holds K4: at S = 128
+    one flipped rounding read 0.021·max of a bias row against the base
+    0.02 at h = 512) and the exact check (`flex_dw_exact`: every
+    product's)? The kernel itself within both.
+    Returns {"h{h}_S{S}": {"limits": seeds caught, "base": seeds the base
+    limits catch, "exact": seeds caught, "seeds": n, ...}}."""
+    import torch
+
+    from nerface_tpu_torch.ops.kernels import fused_flex as F
+    from nerface_tpu_torch.tools.perf import flex_launch_split as FS
+    from nerface_tpu_torch.tools.perf.cases import flex_params
+
+    R, n, res = TRAIN_RAYS, FLEX_N_HIDDEN, {}
+    wn, bn = F.weight_names(n)
+    names = list(wn) + list(bn) + ["v0", "dir"]
+    for h in (256, FLEX_WIDE):
+        for S in DW_EXACT_S:
+            rows = lost_unit_rows(R, S)
+            r = res[f"h{h}_S{S}"] = {"seeds": DW_EXACT_SEEDS, "limits": 0, "base": 0, "exact": 0,
+                                     "exact_worst": 0.0, "exact_lost_least": float("inf")}
+            for i in range(DW_EXACT_SEEDS):
+                label = f"K4b h={h} S={S} seed {i}"
+                params, v0 = flex_params(SEED + 43 + 100 * i + h, dev, n, h)
+                gen = torch.Generator().manual_seed(SEED + 44 + 100 * i + S)
+                ro, rd, z, dc = _flex_inputs(R, S, gen, dev, h)
+                weights = F.pack_flex_weights(params, n, 10)
+                g = torch.randn(R, S, 4, generator=gen).to(dev)
+                args = (weights, ro, rd, z, dc, v0)
+                grads = F.fused_flex_backward(*args, g, n)
+                plain = F.fused_flex_backward_reference(*args, g, n)
+                tcg = tensor_core_plain(lambda: F.fused_flex_backward_reference(*args, g, n))
+                fault = F.fused_flex_backward_reference(*args, _without_rows(g, rows), n)
+                flat, rflat, tflat, fflat = (t[0] + t[1:] for t in (grads, plain, tcg, fault))
+                limits = base = False
+                for name, a, p, t, f in zip(names, flat, rflat, tflat, fflat):
+                    a, p = a.float(), p.float()
+                    tol = flex_grad_limits(R, name, n, rel_err(t.float(), p), S)
+                    e = rel_err(a, p)
+                    check(e[0] <= tol[0] + 1e-6 / max(float(p.abs().max()), 1e-30) and e[1] <= tol[1] + 1e-6 / max(
+                        float(p.norm()), 1e-30), f"{label}: grad {name} {e} past {tol}")
+                    if name in FLEX_DW_TENSORS:
+                        fe = rel_err(f.float(), p)
+                        limits |= fe[0] > tol[0] or fe[1] > tol[1]
+                        b = k1_grad_limits(R, name)
+                        base |= fe[0] > b[0] or fe[1] > b[1]
+                r["limits"] += limits
+                r["base"] += base
+                del grads, plain, tcg, fault, flat, rflat, fflat, tflat
+                torch.cuda.empty_cache()
+                fn = FS.bare_bwd(dict(weights=weights, ro=ro, rd=rd, z=z, dc=dc, v0=v0, g=g, n=n, bands=10))
+                fn()
+                worst, _, least, _ = _dw_exact_summary(flex_dw_exact(fn, R, S, h, label=label))
+                r["exact"] += least > DW_EXACT_TOL
+                r["exact_worst"] = max(r["exact_worst"], worst)
+                r["exact_lost_least"] = min(r["exact_lost_least"], least)
+                del fn
+                torch.cuda.empty_cache()
+            check(r["exact"] == DW_EXACT_SEEDS, f"flex_long_rays: the exact check missed a lost unit at h={h} "
+                                                f"S={S}: {r}")
+            phase("flex_long_rays", f"the exact dW check at {R} × S={S}, K4b h={h}, {DW_EXACT_SEEDS} seeds, one "
+                                    f"64-row unit lost: `flex_grad_limits` against the plain version catch it in "
+                                    f"{r['limits']} (their base limits in {r['base']}), the exact check in "
+                                    f"{r['exact']}: the kernel within {r['exact_worst']:.3g} of Xᵀ·gY of its own "
+                                    f"images, the lost unit at least {r['exact_lost_least']:.3g} off (limit "
+                                    f"{DW_EXACT_TOL})")
+    return res
+
+
+def flex_long_rays_phase(dev):
+    """K4f and K4b of synth512_lcode's trunk (FLEX_N_HIDDEN hidden layers)
+    at hidden 256 and 512 at every (S, rays) of FLEX_LONG_CASES (S past
+    256: a long item), each against its plain version under
+    [sample_counts]' limits (`_flex_sample_count`: the tensor-core
+    yardstick, K4b bit-identical over 2 launches) and the lost-unit control
+    (`_sample_control`); timed through the wrappers and bare beside the
+    plain versions and the bound by operations on the TRAIN_RAYS cases.
+    Then FLEX_LONG_DEAD_PASSES passes on FLEX_LONG_DEAD_CASE, each bit for
+    bit the first, and `_flex_dw_exact_vs_limits`. Returns {kernel:
+    {"S{S}_R{R}": {...}}, ...}."""
+    import torch
+
+    from nerface_tpu_torch.ops.kernels import fused_flex as F
+    from nerface_tpu_torch.ops.kernels.fused_mlp import unit_layout
+
+    t0 = time.perf_counter()
+    res = {k: {} for k in ("K4f", "K4b", f"K4f_{FLEX_WIDE}", f"K4b_{FLEX_WIDE}", "control")}
+    for h in (256, FLEX_WIDE):
+        at = "" if h == 256 else f"_{h}"
+        for S, R in FLEX_LONG_CASES:
+            key, label = f"S{S}_R{R}", f"h={h} S={S} R={R}"
+            control = []
+            timed = R == TRAIN_RAYS
+            k4f, k4b = _flex_sample_count(S, R, dev, lost_unit_rows(R, S), control, h=h, timed=timed,
+                                          label=label, bare=timed)
+            res["K4f" + at][key] = dict(k4f, samples=S)
+            res["K4b" + at][key] = dict(k4b, samples=S)
+            _, units = unit_layout(S)
+            m, (m_v, _) = k4b["worst_max"]
+            times = "".join(f"; {k} {r['ms']:.3f} ms, bare {r['bare_ms']:.3f}, plain {r['plain_ms']:.3f}, bound "
+                            f"{r['bound_ms']:.3f} ({r['bound_by']})" for k, r in (("K4f", k4f), ("K4b", k4b))
+                            if "ms" in r)
+            phase("flex_long_rays",
+                  f"{label} (one ray in {units} units an item, {units * 64 - S} padding rows): K4f "
+                  f"{k4f['out_rel']:.2e}·max (the tensor cores' own {k4f['tc_rel']:.2e}), K4b worst grad {m} "
+                  f"{m_v:.4f}·max, within [sample_counts]' limits; K4b bit-identical over 2 launches{times}")
+            res["control"][f"h{h}_{key}"] = _sample_control(S, control, "flex_long_rays", label)
+            torch.cuda.empty_cache()
+    R, S = FLEX_LONG_DEAD_CASE
+    dead = sorted({(c, r, wg) for c, r, wg, _, ok in F.unit_schedule(R, S) if not ok})
+    check(len(dead) == 1 and dead[0][2] == 1, f"flex_long_rays {R}x{S}: dead items {dead}")
+    wall, n_tensors = _repeat_passes(dev, R, S, 256, 8, FLEX_LONG_DEAD_PASSES, "flex_long_rays")
+    res["dead_unit_passes"] = {"case": f"{R}x{S}", "passes": FLEX_LONG_DEAD_PASSES, "seconds": wall,
+                               "dead_item": dead[0]}
+    phase("flex_long_rays", f"{R}x{S}, n = 8: {FLEX_LONG_DEAD_PASSES} passes of K4f + K4b in {wall:.2f} s, each bit "
+                            f"for bit the first (outputs and {n_tensors - 1} gradient tensors); the dead "
+                            f"warpgroup-1 item (a long item of {F.unit_layout(S)[1]} units) in CTA {dead[0][0]}, "
+                            f"round {dead[0][1]}")
+    res["dw_exact_vs_limits"] = _flex_dw_exact_vs_limits(dev)
+    res["seconds"] = time.perf_counter() - t0
+    phase("flex_long_rays", f"the phase took {res['seconds']:.1f} s")
+    return res
 
 def _train_cfg(steps, logdir, cfg_dict=SYNTH512_PAPER):
     d = copy.deepcopy(cfg_dict)
@@ -2897,7 +3152,7 @@ def train_phase(dev, ds, tmp, profile, card, cfg_dict=SYNTH512_PAPER, steps=TRAI
 
 WINDOW_STEPS = 40
 WINDOW_K = 10
-WINDOW_TIMED = 12  # timed blocks of WINDOW_K steps each way: 120 steps
+WINDOW_TIMED = 6  # timed blocks of WINDOW_K steps each way: 60 steps
 _TRAIN_LINE = r"\[TRAIN\] Iter: (\d+) Loss: (\S+) BG Loss: (\S+) PSNR: (\S+) LatentReg: (\S+)"
 _VAL_LINE = r"\[VAL\] Iter: (\d+) loss: (\S+) PSNR: (\S+)"
 
@@ -2919,7 +3174,8 @@ def _window_cfg(logdir, k, device_feed):
 # flex_chain_kernel (its recompute) and one flex_dx_kernel, a K5 call one
 # resample_kernel
 HAND_KERNELS = ("train_pass_kernel", "dw_wgmma_kernel", "reduce_rows", "render_kernel",
-                "mlp_fwd_kernel", "flex_chain_kernel", "flex_dx_kernel", "resample_kernel")
+                "mlp_fwd_kernel", "flex_chain_kernel", "flex_dx_kernel", "wide_chain_kernel", "wide_dx_kernel",
+                "resample_kernel", "resample_long_kernel")
 
 
 def kernel_runs(prof):
@@ -3226,7 +3482,7 @@ def _topk_ms(ds, dev):
 
 
 EVAL_SIZE = 512
-EVAL_SPLIT = {"n_train": 16, "n_val": 2, "n_test": 5}
+EVAL_SPLIT = {"n_train": 8, "n_val": 2, "n_test": 5}
 EVAL_STEPS = 300
 EVAL_K = 50
 EVAL_MODES = {"parity": [], "fast": ["--fast-eval"], "occupancy": ["--occupancy"]}
@@ -4785,10 +5041,7 @@ def flex_dead_units_phase(dev):
     persistent grid past one round with a cut-short last round. Every
     pass's output and gradients equal the first pass's bit for bit.
     Nothing catches a fault: it fails the run."""
-    import torch
-
     from nerface_tpu_torch.ops.kernels import fused_flex as F
-    from nerface_tpu_torch.tools.perf.cases import flex_params
 
     n = 8
     result = {}
@@ -4802,29 +5055,7 @@ def flex_dead_units_phase(dev):
             check(F.flex_ctas(R, S, h) == F.FLEX_CTAS < items and items % F.FLEX_CTAS,
                   f"flex_dead_units {R}x{S} h={h}: {items} items on {F.flex_ctas(R, S, h)} CTAs")
             dead = [(items % F.FLEX_CTAS, items // F.FLEX_CTAS, None)]  # the first CTA with a round fewer
-        params, v0 = flex_params(SEED + R + n + (h if h != 256 else 0), dev, n, h)
-        gen = torch.Generator().manual_seed(SEED + R + S)
-        ro, rd, z, dc = _flex_inputs(R, S, gen, dev, h)
-        weights = F.pack_flex_weights(params, n, 10)
-        g = torch.randn(R, S, 4, generator=gen).to(dev)
-        args = (weights, ro, rd, z, dc, v0)
-        first = None
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(DEAD_UNIT_PASSES):
-            out = F.fused_flex_forward(*args, n)
-            grads = F.fused_flex_backward(*args, g, n)
-            flat = [out, *grads[0], *grads[1:]]
-            if first is None:
-                first = flat
-            else:
-                for a, b in zip(first, flat):
-                    check(torch.equal(a, b), f"flex_dead_units {R}x{S}: a pass differs from the "
-                                             f"first")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        check(all(bool(torch.isfinite(t).all()) for t in first),
-              f"flex_dead_units {R}x{S}: not finite")
+        wall, n_tensors = _repeat_passes(dev, R, S, h, n, DEAD_UNIT_PASSES, "flex_dead_units")
         label = f"{R}x{S}" + ("" if h == 256 else f"_h{h}")
         result[label] = {"passes": DEAD_UNIT_PASSES, "seconds": wall, "dead_item": dead[0]}
         where = (f"the dead warpgroup-1 item in CTA {dead[0][0]}, round {dead[0][1]}" if h == 256 else
@@ -4832,8 +5063,42 @@ def flex_dead_units_phase(dev):
                  f"before one more")
         phase("flex_dead_units", f"{R}x{S}, n = {n}: {DEAD_UNIT_PASSES} passes of K4f + K4b in "
                                  f"{wall:.2f} s, each bit for bit the first (outputs and "
-                                 f"{len(first) - 1} gradient tensors); {where}")
+                                 f"{n_tensors - 1} gradient tensors); {where}")
     return result
+
+
+def _repeat_passes(dev, R, S, h, n, passes, name):
+    """`passes` passes of K4f + K4b on one R × S case of synth512_lcode's
+    He-scaled trunk at width h and n hidden layers: every pass's output and
+    gradients equal to the first pass's bit for bit, all finite. A fault
+    fails the run. Returns (seconds, tensors compared a pass)."""
+    import torch
+
+    from nerface_tpu_torch.ops.kernels import fused_flex as F
+    from nerface_tpu_torch.tools.perf.cases import flex_params
+
+    params, v0 = flex_params(SEED + R + n + (h if h != 256 else 0), dev, n, h)
+    gen = torch.Generator().manual_seed(SEED + R + S)
+    ro, rd, z, dc = _flex_inputs(R, S, gen, dev, h)
+    weights = F.pack_flex_weights(params, n, 10)
+    g = torch.randn(R, S, 4, generator=gen).to(dev)
+    args = (weights, ro, rd, z, dc, v0)
+    first = None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(passes):
+        out = F.fused_flex_forward(*args, n)
+        grads = F.fused_flex_backward(*args, g, n)
+        flat = [out, *grads[0], *grads[1:]]
+        if first is None:
+            first = flat
+        else:
+            for a, b in zip(first, flat):
+                check(torch.equal(a, b), f"{name} {R}x{S}: a pass differs from the first")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(all(bool(torch.isfinite(t).all()) for t in first), f"{name} {R}x{S}: not finite")
+    return wall, len(first)
 
 
 def _flex_calibration(label, calib):
@@ -5099,6 +5364,9 @@ def flex_train_phase(dev, ds, tmp, profile, card):
             "rays_s": TRAIN_RAYS / step_ms * 1e3, "loss_printed": printed}
 
 
+# frames a config's serve check serves and holds to the plain version and
+# f32 (`_serve_against_plain_and_f32`)
+SERVE_FRAMES = 2
 FLEX_64_128_WINDOW_STEPS = 20  # [flex_64_128]'s windowed run against step at a time
 FLEX_64_128_WINDOW_K = 10
 
@@ -5117,6 +5385,34 @@ def flex_w512_phase(dev, ds, tmp, card):
     FLEX_W512_FRAME_MEAN."""
     return _flex_config_phase(dev, ds, tmp, card, SYNTH512_LCODE_W512, "flex_w512",
                               f32_limits=(FLEX_W512_FRAME_MEAN, FRAME_MAX))
+
+
+def flex_64_256_phase(dev, ds, tmp, card):
+    """synth512_lcode_64_256 (SYNTH512_LCODE_64_256: 64 + 256 samples, the
+    fine passes at S = 320, long items) through `_flex_config_phase` with
+    [flex_64_128]'s limits; then its hidden-512 variant
+    (SYNTH512_LCODE_64_256_W512) served, one frame within
+    FLEX_PLAIN_FRAME_MEAN / FLEX_FRAME_MAX of K4f's plain version and
+    FLEX_W512_FRAME_MEAN / FRAME_MAX of f32, and one bf16 step against the
+    f32 step ([train_step]'s limits); no bf16 Flexible pass on the plain
+    path."""
+    from nerface_tpu_torch.ops.kernels import fused_flex as F
+    from nerface_tpu_torch.ops.kernels.fused_mlp import fused_paper_render
+
+    res = _flex_config_phase(dev, ds, tmp, card, SYNTH512_LCODE_64_256, "flex_64_256")
+    sv = _serve_against_plain_and_f32(
+        dev, tmp, card, SYNTH512_LCODE_64_256_W512, "flex_64_256", SEED + 13, F.fused_flex_forward,
+        (F.fused_flex_backward, fused_paper_render), plain_flex_passes, flex_plain_version,
+        (FLEX_PLAIN_FRAME_MEAN, FLEX_FRAME_MAX), (FLEX_W512_FRAME_MEAN, FRAME_MAX), "K4f",
+        f"hidden {FLEX_WIDE}, 64 + 256 samples", n_frames=1, plain_chunk=2048)
+    with plain_flex_passes() as plain:
+        step = train_step_phase(dev, ds, SYNTH512_LCODE_64_256_W512, "flex_64_256")
+    check(plain[0] == 0, f"flex_64_256: {plain[0]} bf16 flex passes of the hidden-512 step on the plain path")
+    # the w512 frames, and the step's two passes of each kernel
+    res["w512"] = {"serve": sv, "step_vs_f32": step}
+    res["k4f_launches"] += sv["launches"] + 2
+    res["k4b_launches"] += 2
+    return res
 
 
 def flex_pe16_phase(dev, ds, tmp, card):
@@ -5178,16 +5474,18 @@ def _window_vs_step(dev, ds, tmp, cfg_dict, name, wrappers, plain_passes, family
 
 
 def _serve_against_plain_and_f32(dev, tmp, card, cfg_dict, name, seed, kernel, others, plain_passes,
-                                 plain_version, plain_limits, f32_limits, what, about, n_frames=3):
+                                 plain_version, plain_limits, f32_limits, what, about, n_frames=SERVE_FRAMES,
+                                 plain_chunk=8192):
     """A 512² avatar of `cfg_dict` (He-scaled weights from `seed`) served in
-    bf16 through `serve_jsonl`: 3 frames, the forward kernel's wrapper
+    bf16 through `serve_jsonl`: `n_frames` of 3 frames, the forward kernel's wrapper
     `kernel` (`what`) launched 2 × tiles a frame and none of `others`, no
     bf16 pass on the model's plain forward (`plain_passes`); each frame
     within `plain_limits` (mean, max |diff| levels) of the same frame
     through the kernel's plain version (`plain_version`: the same bf16
     roundings, torch's f32 sums) and within `f32_limits` of the same
     model's f32 plain frame, the plain version's own frame against f32
-    beside it (the bf16 roundings' share); `n_frames` of the 3. Returns the
+    beside it (the bf16 roundings' share), the plain frames in tiles of
+    `plain_chunk` rays (which bounds the plain activations). Returns the
     launches, frame_ms and those readings."""
     import numpy as np
     import torch
@@ -5223,7 +5521,7 @@ def _serve_against_plain_and_f32(dev, tmp, card, cfg_dict, name, seed, kernel, o
     check(serve_plain == 0, f"{name}: {serve_plain} bf16 passes served on the plain path")
     del server
     cfg_ref = CfgNode(cfg_dict)
-    cfg_ref.nerf.validation["chunksize"] = 8192  # bounds the plain activations
+    cfg_ref.nerf.validation["chunksize"] = plain_chunk
     before = kernel.launches
     vs_f32, vs_plain = [], []
     bg = (np.clip(sds.load_background(), 0.0, 1.0) * 255.0).astype(np.int16)
@@ -5268,7 +5566,7 @@ def _flex_config_phase(dev, ds, tmp, card, cfg_dict, name, plain_limits=(FLEX_PL
                        f32_limits=(FRAME_MEAN, FRAME_MAX)):
     """A Flexible-family config `cfg_dict` end to end on the card: every
     bf16 pass through K4f / K4b and none left to the model's plain forward
-    (`plain_flex_passes`). Serves 3 frames of 512² through `serve_jsonl`
+    (`plain_flex_passes`). Serves SERVE_FRAMES frames of 512² through `serve_jsonl`
     (K4f 2 × tiles a frame, no K4b or K2), each frame within `plain_limits`
     (mean, max levels; FLEX_PLAIN_FRAME_MEAN / FLEX_FRAME_MAX by default) of
     the same frame through K4f's plain version (`flex_plain_version`) and
@@ -5361,7 +5659,7 @@ def pe16_phase(dev, ds, tmp, card):
     """synth512_pe16 (SYNTH512_PE16: synth512_paper with 16 xyz bands in
     both models, dim_xyz 99, the kernels' K = 128 encoding) end to end on
     the card, no bf16 paper pass left to the plain forward
-    (`plain_paper_passes`): 3 served 512² frames through K2 and one at
+    (`plain_paper_passes`): SERVE_FRAMES served 512² frames through K2 and one at
     σ-noise 0.1 through K3f, each within PE16_PLAIN_FRAME_* of the same
     frame through the kernel's plain version and within PE16_FRAME_* of
     its f32 plain frame; a bf16 step through K1 against the f32 step
@@ -5418,8 +5716,8 @@ def pe16_phase(dev, ds, tmp, card):
 def paper_64_256_phase(dev, ds, tmp, card):
     """synth512_paper_64_256 (SYNTH512_PAPER_64_256: 64 + 256 samples, the
     fine passes at S = 320, long items) end to end on the card, no bf16
-    paper pass left to the plain forward (`plain_paper_passes`): 3 served
-    512² frames through K2 (S = 64 and 320) and one at σ-noise 0.1 through
+    paper pass left to the plain forward (`plain_paper_passes`): SERVE_FRAMES
+    served 512² frames through K2 (S = 64 and 320) and one at σ-noise 0.1 through
     K3f, each within PE16_PLAIN_FRAME_* of the same frame through the
     kernel's plain version and within [serve]'s FRAME_MEAN / FRAME_MAX of
     its f32 plain frame; a bf16 step through K1 against the f32
@@ -5522,12 +5820,17 @@ def resample_phase(dev):
     S = 64
     u_det = linspace01(S, device=dev)
     z, w, u = resample_inputs(TILE_RAYS, S, S, SEED + 20, dev)
+    lc, lf = K5_LONG_TILE
+    zl, wl, ul = resample_inputs(TILE_RAYS, lc, lf, SEED + 20, dev)
     fused_resample.launches = 0
     fused_resample(z, w, u)
     fused_resample(z, w, u_det, sorted_u=True)
+    fused_resample(zl, wl, ul)  # the long regime: 64 + 256
+    fused_resample(zl, wl, linspace01(lf, device=dev), sorted_u=True)
     torch.cuda.synchronize()
     path_launches = fused_resample.launches
-    check(path_launches == 2, f"resample: {path_launches} launches for 2 calls")
+    check(path_launches == 4, f"resample: {path_launches} launches for 4 calls")
+    del zl, wl, ul
 
     result = {"err": {}, "ms": {}, "bare_ms": {}, "device_ms": {}, "device_by": {}, "gb_s": {},
               "plain_ms": {}, "bound": {}, "launches": path_launches}
@@ -5582,9 +5885,91 @@ def resample_phase(dev):
                   f"(sample_pdf + merge_sorted_zvals, the pipeline's resample) "
                   f"{result['plain_ms'][label]:.4f} ms")
     result["max_abs_err"] = worst
+    result["long"] = _resample_long(dev)
+    result["max_abs_err"] = max(worst, result["long"]["max_abs_err"])
     phase("resample_kernel", f"K5 launched {path_launches} times on its entry point (a 65536-ray "
-                             f"tile, each regime once); nothing in render/ or eval/ calls it")
+                             f"tile at 64 + 64 and at 64 + 256, each regime once); nothing in render/ or "
+                             f"eval/ calls it")
     return result
+
+
+def _resample_long(dev):
+    """K5's long regime (Sc + Sf past 256, `resample_long_kernel`): every (Sc, Sf)
+    of K5_LONG_COARSE × K5_LONG_FINE within Sc + Sf ≤ 1024 (the cells up to
+    256 run the short kernel), both regimes (per-ray draws, and the
+    linspace row with `sorted_u`), on SAMPLE_RAGGED_RAYS rays: within
+    RESAMPLE_TOL of the plain version, rows sorted, bit-identical over 2
+    launches, ms through the wrapper beside the plain version's and the
+    byte bound; then a 65536-ray tile at K5_LONG_TILE in both regimes:
+    wrapper, bare and device ms (`k3f_k5_launch_split`), GB/s, plain ms and
+    the bound. Returns {"grid": {...}, "tile": {...}, "max_abs_err": x}."""
+    import torch
+
+    from nerface_tpu_torch.ops.kernels.fused_resample import SHORT_TOTAL, fused_resample, fused_resample_reference
+    from nerface_tpu_torch.ops.math import linspace01
+    from nerface_tpu_torch.tools.perf.cases import resample_inputs
+    from nerface_tpu_torch.tools.perf.k3f_k5_launch_split import device_ms, k5_bare
+
+    R = SAMPLE_RAGGED_RAYS
+    grid, worst = {}, 0.0
+    for sc in K5_LONG_COARSE:
+        for sf in K5_LONG_FINE:
+            if sc + sf > 1024:
+                continue
+            z, w, u = resample_inputs(R, sc, sf, SEED + 32 + sc * 1000 + sf, dev)
+            for regime in ("general", "sorted_u"):
+                srt = regime == "sorted_u"
+                uu = linspace01(sf, device=dev) if srt else u
+                got = fused_resample(z, w, uu, sorted_u=srt)
+                again = fused_resample(z, w, uu, sorted_u=srt)
+                torch.cuda.synchronize()
+                ref = fused_resample_reference(z, w, uu, srt)
+                err = float((got - ref).abs().max())
+                label = f"{sc}+{sf} {regime}"
+                check(got.shape == (R, sc + sf) and torch.equal(got, again),
+                      f"K5 {label}: shape {tuple(got.shape)} or two launches differ")
+                check(bool((got[:, 1:] >= got[:, :-1]).all()), f"K5 {label}: a row is not sorted")
+                check(err <= RESAMPLE_TOL, f"K5 {label}: max err {err} > {RESAMPLE_TOL}")
+                worst = max(worst, err)
+                grid[label] = {
+                    "rays": R, "long": sc + sf > SHORT_TOTAL, "max_abs_err": err,
+                    "ms": _median_ms(lambda: fused_resample(z, w, uu, sorted_u=srt), iters=20),
+                    "plain_ms": _median_ms(lambda: fused_resample_reference(z, w, uu, srt), 1, 5),
+                    "bound_ms": _bound_ms(0, _k5_bytes(R, sc, sf, srt))[0]}
+    phase("resample_kernel", f"K5 at {len(grid)} shapes (Sc {K5_LONG_COARSE} × Sf {K5_LONG_FINE}, Sc + Sf ≤ 1024, "
+                             f"{sum(r['long'] for r in grid.values())} of them past {SHORT_TOTAL}: the long "
+                             f"regime), both regimes, {R} rays: max err {worst:.3g} (limit {RESAMPLE_TOL}), rows "
+                             f"sorted, bit-identical over 2 launches")
+    for label, r in grid.items():
+        phase("resample_kernel", f"  K5 {label}{' (long)' if r['long'] else ''}: {r['ms']:.4f} ms, plain "
+                                 f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f}, max err {r['max_abs_err']:.3g}")
+    sc, sf = K5_LONG_TILE
+    tile = {}
+    z, w, u = resample_inputs(TILE_RAYS, sc, sf, SEED + 33, dev)
+    for regime in ("general", "sorted_u"):
+        srt = regime == "sorted_u"
+        uu = linspace01(sf, device=dev) if srt else u
+        got = fused_resample(z, w, uu, sorted_u=srt)
+        ref = fused_resample_reference(z, w, uu, srt)
+        err = float((got - ref).abs().max())
+        check(err <= RESAMPLE_TOL and bool((got[:, 1:] >= got[:, :-1]).all()),
+              f"K5 tile {sc}+{sf} {regime}: max err {err} (limit {RESAMPLE_TOL}) or a row not sorted")
+        worst = max(worst, err)
+        bare = k5_bare(z, w, uu, srt)
+        nbytes = _k5_bytes(TILE_RAYS, sc, sf, srt)
+        r = tile[regime] = {"rays": TILE_RAYS, "samples": (sc, sf), "max_abs_err": err,
+                            "ms": _median_ms(lambda: fused_resample(z, w, uu, sorted_u=srt), iters=20),
+                            "bare_ms": _median_ms(bare, iters=20),
+                            "plain_ms": _median_ms(lambda: fused_resample_reference(z, w, uu, srt), iters=10)}
+        r["device_ms"], r["device_by"] = device_ms(bare, "resample_long_kernel")
+        check(r["device_ms"] > 0, f"K5 tile {sc}+{sf} {regime}: no device time read")
+        r["bound_ms"], r["bound_by"] = _bound_ms(0, nbytes)
+        r["gb_s"] = nbytes / r["device_ms"] / 1e6
+        phase("resample_kernel", f"K5 {regime} R={TILE_RAYS} Sc={sc} Sf={sf} (the long regime): max abs err "
+                                 f"{err:.3g}; kernel {r['ms']:.4f} ms, bare launch {r['bare_ms']:.4f} ms, device "
+                                 f"{r['device_ms']:.4f} ms by {r['device_by']} ({r['gb_s']:.0f} GB/s), bound "
+                                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms")
+    return {"grid": grid, "tile": tile, "max_abs_err": worst}
 
 
 def _fast_contract(server, frame, seed, label):
@@ -6141,11 +6526,13 @@ def main() -> int:
         p256 = paper_64_256_phase(dev, ds, tmp, card)
         fk = flex_kernel_phase(dev)
         du = flex_dead_units_phase(dev)
+        fl = flex_long_rays_phase(dev)
         fs = flex_serve_phase(dev, tmp, args.profile)
         ft = flex_train_phase(dev, ds, tmp, args.profile, card)
         f64 = flex_64_128_phase(dev, ds, tmp, card)
         fw = flex_w512_phase(dev, ds, tmp, card)
         fp16 = flex_pe16_phase(dev, ds, tmp, card)
+        f256 = flex_64_256_phase(dev, ds, tmp, card)
         stock_eval_phase(dev, tmp, card)
         tiny_nerf_phase(dev, card)
 
@@ -6194,7 +6581,7 @@ def main() -> int:
                                  # the demo's validations and its two evaluations
                                  "reenact": rn["launches"]["K2"],
                                  "reenact_64": rn64["launches"]["K2"],
-                                 # synth512_pe16: 3 served frames, validations and window runs
+                                 # synth512_pe16: the served frames, validations and window runs
                                  "pe16": p16["launches"]["K2"],
                                  # synth512_paper_64_256: the same at S = 64 and 320
                                  "paper_64_256": p256["launches"]["K2"]},
@@ -6438,13 +6825,14 @@ def main() -> int:
             "source": "nerface_tpu_torch/csrc/fused_flex.cu",
             "replaces": "nerface_tpu/ops/pallas/fused_flex.py:131",
             # the flex paths: served frames + training (steps and validation),
-            # synth512_lcode at 64 + 128 (S = 64 and 192), at hidden 512 and
-            # at 16 xyz bands
+            # synth512_lcode at 64 + 128 (S = 64 and 192), at hidden 512, at
+            # 16 xyz bands and at 64 + 256 (S = 64 and 320, and its hidden-512
+            # frames and step)
             "launches": fs["launches"] + ft["k4f_launches"] + f64["k4f_launches"] + fw["k4f_launches"]
-            + fp16["k4f_launches"],
+            + fp16["k4f_launches"] + f256["k4f_launches"],
             "launches_by_path": {"flex_serve": fs["launches"], "flex_train": ft["k4f_launches"],
                                  "flex_64_128": f64["k4f_launches"], "flex_w512": fw["k4f_launches"],
-                                 "flex_pe16": fp16["k4f_launches"]},
+                                 "flex_pe16": fp16["k4f_launches"], "flex_64_256": f256["k4f_launches"]},
             "max_abs_err": fk["abs_err"],  # of raw rgb and σ, all cases
             "max_rel_err": fk["err"],  # relative to max|plain| per case
             # a train step's two passes at 2048 rays: coarse (S=64) + fine (S=128)
@@ -6475,6 +6863,16 @@ def main() -> int:
             "pe16_vs_plain_version_levels": fp16["vs_plain_version_levels"],
             "pe16_vs_f32_levels": fp16["vs_f32_levels"],
             "pe16_plain_version_vs_f32_levels": fp16["plain_version_vs_f32_levels"],
+            # [flex_long_rays]: S past 256 through the wrapper and bare at
+            # hidden 256 (hidden 512 under "h512"); synth512_lcode_64_256's
+            # frames (and its hidden-512 variant's)
+            "by_long_rays": fl["K4f"],
+            "flex_64_256_frame_ms_512": f256["frame_ms"],
+            "flex_64_256_vs_plain_version_levels": f256["vs_plain_version_levels"],
+            "flex_64_256_vs_f32_levels": f256["vs_f32_levels"],
+            "flex_64_256_plain_version_vs_f32_levels": f256["plain_version_vs_f32_levels"],
+            "flex_64_256_w512_frame_ms_512": f256["w512"]["serve"]["frame_ms"],
+            "flex_64_256_w512_vs_f32_levels": f256["w512"]["serve"]["vs_f32_levels"],
             # hidden 512 (wide_chain_kernel): the train step's pair, the
             # bound by operations at the bf16 peak; its frames and sample counts
             "h512": {"ms": fk["ms"]["coarse_512"] + fk["ms"]["fine_512"],
@@ -6484,7 +6882,8 @@ def main() -> int:
                      "bare_ms_by_pass": {p: fk["bare_ms"][p] for p in ("coarse_512", "fine_512")},
                      "frame_ms": fw["frame_ms"], "vs_f32_levels": fw["vs_f32_levels"],
                      "vs_plain_version_levels": fw["vs_plain_version_levels"],
-                     "by_sample_count": sc["K4f_512"], "by_xyz_bands": xb[f"K4f_{FLEX_WIDE}"]},
+                     "by_sample_count": sc["K4f_512"], "by_xyz_bands": xb[f"K4f_{FLEX_WIDE}"],
+                     "by_long_rays": fl[f"K4f_{FLEX_WIDE}"]},
             "card": card,
         },
         {
@@ -6492,9 +6891,11 @@ def main() -> int:
             "route": "cuda",
             "source": "nerface_tpu_torch/csrc/fused_flex.cu",
             "replaces": "nerface_tpu/ops/pallas/fused_flex.py:143",
-            "launches": ft["k4b_launches"] + f64["k4b_launches"] + fw["k4b_launches"] + fp16["k4b_launches"],
+            "launches": ft["k4b_launches"] + f64["k4b_launches"] + fw["k4b_launches"] + fp16["k4b_launches"]
+            + f256["k4b_launches"],
             "launches_by_path": {"flex_train": ft["k4b_launches"], "flex_64_128": f64["k4b_launches"],
-                                 "flex_w512": fw["k4b_launches"], "flex_pe16": fp16["k4b_launches"]},
+                                 "flex_w512": fw["k4b_launches"], "flex_pe16": fp16["k4b_launches"],
+                                 "flex_64_256": f256["k4b_launches"]},
             "max_abs_err": fk["grad_abs_err"],  # over every gradient tensor
             "worst_grad_rel": fk["grad_rel"],  # (max error, norm error) per pass
             "ms": fk["bwd_ms"]["coarse"] + fk["bwd_ms"]["fine"],
@@ -6527,6 +6928,18 @@ def main() -> int:
             "pe16_step_vs_f32": fp16["step_vs_f32"],
             "pe16_train_step_ms": fp16["step_ms"],
             "pe16_window": fp16["window"],
+            # [flex_long_rays] (their lost-unit control in "long_rays_control",
+            # the exact dW check against the limits, the dead long item's
+            # repeat check), and synth512_lcode_64_256's step against f32,
+            # steady step and window, its hidden-512 step against f32
+            "by_long_rays": fl["K4b"],
+            "long_rays_control": fl["control"],
+            "dw_exact_vs_limits": fl["dw_exact_vs_limits"],
+            "long_dead_unit_passes": fl["dead_unit_passes"],
+            "flex_64_256_step_vs_f32": f256["step_vs_f32"],
+            "flex_64_256_train_step_ms": f256["step_ms"],
+            "flex_64_256_window": f256["window"],
+            "flex_64_256_w512_step_vs_f32": f256["w512"]["step_vs_f32"],
             # hidden 512 (wide_chain_kernel's recompute, wide_dx_kernel, dW):
             # the train step's pair, its launch split, the step and window
             "h512": {"ms": fk["bwd_ms"]["coarse_512"] + fk["bwd_ms"]["fine_512"],
@@ -6537,7 +6950,7 @@ def main() -> int:
                      "launch_split_by_pass": {p: fk["bwd_split"][p] for p in ("coarse_512", "fine_512")},
                      "step_ms": fw["step_ms"], "step_vs_f32": fw["step_vs_f32"], "window": fw["window"],
                      "by_sample_count": sc["K4b_512"], "sample_count_control": sc["control_512"],
-                     "by_xyz_bands": xb[f"K4b_{FLEX_WIDE}"]},
+                     "by_xyz_bands": xb[f"K4b_{FLEX_WIDE}"], "by_long_rays": fl[f"K4b_{FLEX_WIDE}"]},
             "card": card,
         },
         {
@@ -6566,6 +6979,10 @@ def main() -> int:
             "bound_ms_by_case": {c: b[0] for c, b in rk["bound"].items()},
             # [sample_counts]' grid: Sc 3..200 × Sf 1..56 on 2072 rays, both regimes
             "by_shape": sc["K5"],
+            # the long regime (Sc + Sf past 256): its grid on 2072 rays, and a
+            # 65536-ray tile at 64 + 256 in both regimes
+            "by_shape_long": rk["long"]["grid"],
+            "long_tile_64_256": rk["long"]["tile"],
             "design": K5_DESIGN,
             "card": card,
         },

@@ -29,10 +29,16 @@
 // images through a ring of RING 32 KB stages with bulk copies, its three
 // encoder warps fill each unit's swizzled [xyz; PE; 0] tile; the two
 // consumer warpgroups run free of each other over whole rays as 64-row
-// units. S is any of 1..MAX_SAMPLES: an item is the paper kernels'
-// `UnitLayout` (wgmma_chain.cuh), whole rays in 1..4 units, its rows past
-// the last ray's sample padding the last unit (8 rays in 3 units at S =
-// 24, one ray in 3 at 192); SF, the layout class, is 64 or 128 for the
+// units. S is any of 1..MAX_SAMPLES (wgmma_chain.cuh, the paper kernels'
+// limit too): an item is the paper kernels' `UnitLayout`, whole rays in
+// 1..4 units, its rows past the last ray's sample padding the last unit (8
+// rays in 3 units at S = 24, one ray in 3 at 192), and past ITEM_ROWS one
+// ray in ⌈S / 64⌉ units (a long item: 5 at S = 257 or 320, 16 at 1024).
+// Every row is computed and stored on its own, the ray's direction row
+// read per row, so a long item is only more units of the same walk: the
+// producer's xc + 4n + 4 + 4 chunks a unit, the encoders' 2·64·xc tasks a
+// unit, and d_dir carried across the units by `dir_pieces` (dX, below).
+// SF, the layout class, is 64 or 128 for the
 // passes of the bundled configs (S folded in as a constant) and 0, S read
 // at run time, for every other S and for every pass past 10 bands
 // (`dispatch_pass`, mma_tile.cuh: two builds of the library, `build.py`'s
@@ -82,7 +88,11 @@
 //      (`dir_pieces`), so S = 32 / 64 / 128 keep their sums' order;
 //   3. `dw_wgmma_kernel` (wgmma_dw.cuh): dW = Xᵀ·bf16(gY) for W1 (K = kx),
 //      WF, WD0 and every WH_i from the images (`dw_products`: gY by column
-//      blocks of at most 256), in row segments that fill one wave, at
+//      blocks of at most 256), in row segments that fill one wave and
+//      hold at most DW_SEG_UNITS = 2048 units each (the count fixed by the
+//      products and the pass's units, `dw_segments_of`: 12 at h = 256 and
+//      3 at h = 512, n = 3, up to 24576 / 6144 units; at 2048 rays × S =
+//      1024, 32768 units, 16 of 2048 at either width), at
 //      most DWG_MATS_MAX products a launch (a deep pass launches it more
 //      than once into the same segments);
 //   4. two `reduce_rows`: dW's segments, and the CTAs' partial rows.
@@ -100,7 +110,10 @@
 // than at 10, +3 % of the forward at n = 3.
 // K4b is 1.838 MFLOP a sample (recompute 0.623, dX 0.591, dW 0.623), 0.731
 // ms for a train step's pair (2048 rays at S = 64 + 128). Its workspace,
-// which the TPU kernel never moves, holds ≈ 5.9 KB a row at n = 3, written
+// which the TPU kernel never moves, holds ≈ 5.9 KB a row at n = 3 (11.7 KB
+// at h = 512: 11.5 / 22.8 GiB for 2048 rays at S = 1024, every offset in it
+// a 64-bit product: `carve`, `unit_image`, `unit_mask`, `wide_mask`,
+// `Workspace::act`, dW's `bulk_load`s), written
 // once and read by dX and dW: for the pair's fine pass a byte floor of
 // 0.24 / 0.29 / 0.43 ms (recompute / dX / dW) above the operations bound
 // of 0.165 / 0.157 / 0.165. chip_smoke.py's `[flex_kernel]` prints each
@@ -328,12 +341,21 @@ void dw_products(const Workspace& ws, const Layout& L, Fn&& fn) {
     blocks(ws.act0 ? ws.act(i) : nullptr, ws.gpre0 ? ws.gpre(i) : nullptr, L.h, L.h, L.wh + i * L.h * L.h);
 }
 
-// dW's row segments: one wave over its products' CTAs (`dw_tasks` a
-// product), at least 1.
-int dw_segments_of(const Layout& L) {
+// dW's row segments of a pass of `units` units: one wave over its
+// products' CTAs (`dw_tasks` a product), at least 1, and at least enough
+// that no segment sums more than DW_SEG_UNITS units. A segment's f32
+// accumulators drift from the exact sum about linearly in its rows (at h =
+// 512, 3 segments of 10923 units at 2048 rays × S = 1024 read 1.4e-3 of a
+// product's max off the f64 Xᵀ·gY on an NVIDIA H100 80GB HBM3 at 700 W,
+// PERF.md §6); the count is a
+// function of the shape, so dW stays bit-identical over launches.
+constexpr int DW_SEG_UNITS = 2048;
+int dw_segments_of(const Layout& L, int units) {
   int tasks = 0;
   dw_products(Workspace{}, L, [&](const DwgMat& m) { tasks += dw_tasks(m.kdim); });
-  return tasks >= DWG_WAVE ? 1 : DWG_WAVE / tasks;
+  const int wave = tasks >= DWG_WAVE ? 1 : DWG_WAVE / tasks;
+  const int rows = (units + DW_SEG_UNITS - 1) / DW_SEG_UNITS;
+  return wave > rows ? wave : rows;
 }
 
 // Lays the workspace out from `base` (or only measures it when base is
@@ -371,7 +393,7 @@ size_t carve(unsigned char* base, int units, int ctas, const Layout& L, Workspac
   w.amask0 = bits(L.n);
   w.warp_part = static_cast<float*>(take((size_t)ctas * WARPS_A_CTA * L.part_cols * sizeof(float)));
   w.tile_part = static_cast<float*>(take((size_t)ctas * L.part_cols * sizeof(float)));
-  w.dw_part = static_cast<float*>(take((size_t)dw_segments_of(L) * L.wa * sizeof(float)));
+  w.dw_part = static_cast<float*>(take((size_t)dw_segments_of(L, units) * L.wa * sizeof(float)));
   if (ws) *ws = w;
   return off;
 }
@@ -1596,7 +1618,7 @@ extern "C" int nerface_fused_flex_bwd(const float* ro, const float* rd, const fl
   int err = dispatch_pass<Backward>(n_samples, hidden == WIDE, xc, fa, da, st);
   if (err != 0) return err;
   // dW from the images (`dw_products`), DWG_MATS_MAX products a launch
-  const int segs = dw_segments_of(L);
+  const int segs = dw_segments_of(L, units);
   DwgMat mats[DWG_MATS_MAX];
   int n_mats = 0;
   auto flush = [&]() {

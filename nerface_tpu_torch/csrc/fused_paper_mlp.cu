@@ -192,14 +192,14 @@ extern "C" long long nerface_fused_paper_mlp_workspace_bytes(int n_rays, int n_s
 }
 
 // K3f. Returns a cudaError_t (0 on success; cudaErrorInvalidValue for
-// n_samples outside 1..PAPER_MAX_SAMPLES or n_freqs outside 1..MAX_FREQS).
+// n_samples outside 1..MAX_SAMPLES or n_freqs outside 1..MAX_FREQS).
 // Launches on `stream`, does not synchronise and allocates nothing. W is
 // packed at the bands' encoding extent (`xin_extent`).
 extern "C" int nerface_fused_paper_mlp_fwd(const float* ro, const float* rd, const float* z,
                                            const float* dir_c, const void* W, const float* F, float* out,
                                            int n_rays, int n_samples, int n_freqs, int small, void* stream) {
   if (n_rays < 0 || n_freqs < 1 || n_freqs > MAX_FREQS) return (int)cudaErrorInvalidValue;
-  if (n_samples < 1 || n_samples > PAPER_MAX_SAMPLES) return (int)cudaErrorInvalidValue;
+  if (n_samples < 1 || n_samples > MAX_SAMPLES) return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
   const int xc = xin_extent(n_freqs) / K_XIN;
   FwdArgs a{ro,     rd,     z, dir_c, static_cast<const bf16*>(W), F, out, n_rays, UnitLayout::of(n_samples, xc),
@@ -222,7 +222,7 @@ extern "C" int nerface_fused_paper_mlp_bwd(const float* ro, const float* rd, con
                                            float* d_dir, void* workspace, int n_rays, int n_samples,
                                            int n_freqs, int small, void* stream) {
   if (n_rays < 0 || n_freqs < 1 || n_freqs > MAX_FREQS) return (int)cudaErrorInvalidValue;
-  if (n_samples < 1 || n_samples > PAPER_MAX_SAMPLES) return (int)cudaErrorInvalidValue;
+  if (n_samples < 1 || n_samples > MAX_SAMPLES) return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
   const int kx = xin_extent(n_freqs);
   k1::Workspace ws;

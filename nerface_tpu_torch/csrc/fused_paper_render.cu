@@ -480,7 +480,7 @@ struct Render {
 extern "C" void nerface_fused_paper_render_shared_bytes(long long* out) { out[0] = (long long)SMEM_BYTES; }
 
 // Returns a cudaError_t (0 on success; cudaErrorInvalidValue for n_samples
-// outside 1..PAPER_MAX_SAMPLES or n_freqs outside 1..MAX_FREQS). Launches on
+// outside 1..MAX_SAMPLES or n_freqs outside 1..MAX_FREQS). Launches on
 // `stream`, does not synchronise and allocates nothing. W is
 // `pack_sm90_chunks`' image of the weights packed at the bands' encoding
 // extent (`xin_extent`: K = 64 up to 10 bands, 128 from 11).
@@ -491,7 +491,7 @@ extern "C" int nerface_fused_paper_render(const float* ro, const float* rd, cons
                                           int n_rays, int n_samples, int n_freqs, int white_bg,
                                           int small, void* stream) {
   if (n_rays < 0 || n_freqs < 1 || n_freqs > MAX_FREQS) return (int)cudaErrorInvalidValue;
-  if (n_samples < 1 || n_samples > PAPER_MAX_SAMPLES) return (int)cudaErrorInvalidValue;
+  if (n_samples < 1 || n_samples > MAX_SAMPLES) return (int)cudaErrorInvalidValue;
   const int xc = xin_extent(n_freqs) / K_XIN;
   Args args{ro,  rd,    z,   dir_c,   bg,     static_cast<const bf16*>(W),   F,       rgb,     disp,
             acc, depth, bgw, weights, n_rays, UnitLayout::of(n_samples, xc), n_freqs, white_bg};

@@ -446,7 +446,7 @@ extern "C" long long nerface_fused_train_workspace_bytes(int n_rays, int n_sampl
 }
 
 // Returns a cudaError_t (0 on success; cudaErrorInvalidValue for n_samples
-// outside 1..PAPER_MAX_SAMPLES or n_freqs outside 1..MAX_FREQS). Launches on
+// outside 1..MAX_SAMPLES or n_freqs outside 1..MAX_FREQS). Launches on
 // `stream`, does not synchronise and allocates nothing: `workspace` holds
 // nerface_fused_train_workspace_bytes(n_rays, n_samples, n_freqs) bytes. W
 // and WT are the chunk images of the packed weights (at the bands'
@@ -463,7 +463,7 @@ extern "C" int nerface_fused_train_pass(
     int n_samples, int n_freqs, int white_bg, int small, float noise_std, float loss_scale,
     float sup_bg_scale, void* stream) {
   if (n_rays < 0 || n_freqs < 1 || n_freqs > MAX_FREQS) return (int)cudaErrorInvalidValue;
-  if (n_samples < 1 || n_samples > PAPER_MAX_SAMPLES) return (int)cudaErrorInvalidValue;
+  if (n_samples < 1 || n_samples > MAX_SAMPLES) return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
   const int kx = xin_extent(n_freqs);
   Workspace ws;

@@ -6,7 +6,7 @@
 // A pass is four launches on the caller's stream:
 //
 //   1. train_pass_kernel<SF, SMALL, Policy>: one persistent CTA an SM
-//      (K1_CTAS at most), 384 threads. The sample count S is 1..PAPER_MAX_SAMPLES,
+//      (K1_CTAS at most), 384 threads. The sample count S is 1..MAX_SAMPLES,
 //      a constant of the layout class SF = 64 or 128, else (SF = 0) read at
 //      run time. Per item of a consumer warpgroup (whole rays in 64-row
 //      units, `UnitLayout` of wgmma_chain.cuh, padding rows after the last

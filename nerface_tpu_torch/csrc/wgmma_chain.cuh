@@ -28,15 +28,15 @@ constexpr int CHAIN_ENCODERS = 3;                  // warps of the producer warp
 constexpr int CHAIN_STAGE = KCH * 256 * 2;         // a ring stage: one 64 × 256 bf16 chunk image
 constexpr int XIN_BYTES = 64 * ROW_BYTES;          // a 64-column block of a unit's [xyz; PE; 0]
 
-// The kernels' sample counts: 1..PAPER_MAX_SAMPLES for the paper kernels
-// (K2, K3f, K1, K3b), 1..MAX_SAMPLES for K4f / K4b. An item of at most
-// ITEM_ROWS rows (four units) is what K2's and K1's shared memory holds
-// for the compositing; a longer ray is an item of its own.
-constexpr int MAX_SAMPLES = 256;
-constexpr int PAPER_MAX_SAMPLES = 1024;
+// The kernels' sample counts: 1..MAX_SAMPLES, one limit for the paper
+// kernels (K2, K3f, K1, K3b), K4f / K4b and K5's Sc + Sf
+// (fused_resample.cu). An item of at most ITEM_ROWS rows (four units) is
+// what K2's and K1's shared memory holds for the compositing; a longer
+// ray is an item of its own.
+constexpr int MAX_SAMPLES = 1024;
 constexpr int ITEM_ROWS = 256;
 
-// The kernels' unit layout at any S in 1..PAPER_MAX_SAMPLES: an item, what
+// The kernels' unit layout at any S in 1..MAX_SAMPLES: an item, what
 // a consumer warpgroup takes at once, is `rays` whole rays in `units`
 // 64-row units. Its row i < rays·S is sample i % S of its ray i / S; the
 // rows from rays·S to 64·units pad the last unit, and the kernels take
@@ -45,13 +45,14 @@ constexpr int ITEM_ROWS = 256;
 // real rows a unit, the fewest rays on a tie (8 rays in 3 units at S = 24,
 // 4 in 3 at 48, 2 in 3 at 96, 1 in 3 at 192, 3 in 2 at 40). Past
 // ITEM_ROWS an item is one ray in ⌈S / 64⌉ units (a long item: `long_item`),
-// up to 16 at PAPER_MAX_SAMPLES; K2 composites it in segments of ITEM_ROWS
-// rows, K1 and K3b keep its rows in the workspace (paper_train.cuh).
+// up to 16 at MAX_SAMPLES; K2 composites it in segments of ITEM_ROWS
+// rows, K1 and K3b keep its rows in the workspace (paper_train.cuh), K4f
+// and K4b walk its units as any other item's (fused_flex.cu).
 // ops/kernels/fused_mlp.py::unit_layout is the same rule. An item row's
 // ray, row / S, is a multiply and a shift (`ray_of`, div = ⌈2^24 / S⌉): it
 // is exact while row·e < 2^24, e = S·div − 2^24 < S, so for every row below
 // ITEM_ROWS and every row of a long item (below S + 64: 1087·1023 < 2^24 at
-// PAPER_MAX_SAMPLES); the encoder warps, which divide once a task, keep
+// MAX_SAMPLES); the encoder warps, which divide once a task, keep
 // pace with the consumers as at a compile-time S.
 //
 // xc is the pass's xin image in 64-column blocks: 1 (K = 64, up to 10

@@ -42,10 +42,12 @@ contribution, relu, `fc_rgb` — and returns the raw radiance [rgb, σ]
   256 or 512 (`WIDTHS`; JAX also admits 768, 1024, ..., which here run the
   model's plain forward), any number of hidden layers, 1..MAX_FREQS xyz
   bands (JAX has no limit; 21 and more run the plain forward), 1..MAX_SAMPLES
-  samples a ray (any S: `csrc/fused_flex.cu` takes the paper kernels'
-  `unit_layout`, S = 64 and 128 as fixed layout classes, every other S at
-  run time, and a pass past 10 bands, whose encoding is two 64-column
-  blocks, the runtime class at any S).
+  samples a ray (`fused_mlp.MAX_SAMPLES`, the paper kernels' and K5's
+  limit too; JAX has none, and past it the plain forward runs). Any S:
+  `csrc/fused_flex.cu` takes the paper kernels' `unit_layout`, S = 64 and
+  128 as fixed layout classes, every other S at run time, past ITEM_ROWS
+  one ray in ⌈S / 64⌉ units (a long item), and a pass past 10 bands, whose
+  encoding is two 64-column blocks, the runtime class at any S.
 * The width h is read from the weights (v0 is (1, h)); every layout
   function takes it, h = 256 by default. At h = 512 the two consumer
   warpgroups of a CTA share each unit (`csrc/fused_flex.cu`,
@@ -61,40 +63,26 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
+# K4's sample counts are the paper kernels' (`fused_mlp.MAX_SAMPLES`, one
+# `MAX_SAMPLES` in csrc/wgmma_chain.cuh): `kernel_pass_ok` (the JAX
+# package's tile rule within 1..MAX_SAMPLES) and `check_samples` (the
+# wrappers' refusal, on either device) are the paper kernels' own.
 from nerface_tpu_torch.ops.kernels.fused_mlp import (
     DIR_HIDDEN,
     HIDDEN,
     K_XIN,
     MAX_FREQS,
+    MAX_SAMPLES,
     _check,
     _device_bands,
     _encode_points,
     _ptr,
+    check_samples,
+    kernel_pass_ok,
     sm90_chunk_image,
     unit_layout,
     xin_extent,
 )
-from nerface_tpu_torch.ops.kernels.fused_mlp import kernel_pass_ok as paper_pass_ok
-
-# K4's sample counts: 1..MAX_SAMPLES (`MAX_SAMPLES` in
-# csrc/wgmma_chain.cuh), fewer than the paper kernels' `fused_mlp.MAX_SAMPLES`:
-# every K4 item is whole rays in at most four units.
-MAX_SAMPLES = 256
-
-
-def kernel_pass_ok(n_rays: int, n_samples: int) -> bool:
-    """Whether a Flexible pass of (n_rays, n_samples) fits K4 on the card:
-    the JAX package's tile rule (`fused_mlp.kernel_pass_ok`: n_rays % 8 ==
-    0) within K4's 1..MAX_SAMPLES."""
-    return n_samples <= MAX_SAMPLES and paper_pass_ok(n_rays, n_samples)
-
-
-def check_samples(n_samples: int) -> None:
-    """K4's wrappers take 1..MAX_SAMPLES samples a ray, on either device
-    (the CPU runs the kernels' plain versions)."""
-    if not 1 <= n_samples <= MAX_SAMPLES:
-        raise ValueError(
-            f"the kernels take 1..{MAX_SAMPLES} samples per ray, got {n_samples}")
 
 # the hidden widths the kernels take; layers_dir.0 is h / 2 wide
 WIDTHS = (HIDDEN, 2 * HIDDEN)
@@ -650,6 +638,7 @@ FLEX_CTAS = 132  # the persistent grid's CTAs at most (k1::pass_ctas)
 CONSUMERS = 2  # consumer warpgroups of a CTA
 WARPS_A_CTA = 4 * CONSUMERS
 DWG_WAVE = 132  # dW's CTAs of one wave (wgmma_dw.cuh)
+DW_SEG_UNITS = 2048  # units a dW row segment sums at most (fused_flex.cu)
 
 
 def mask_bytes(h: int = HIDDEN) -> int:
@@ -682,11 +671,12 @@ def dw_products(n_hidden: int, h: int = HIDDEN, kx: int = K_XIN) -> Tuple[Tuple[
     return tuple((k, min(n, 256)) for k, n in mats for _ in range(0, n, 256))
 
 
-def dw_segments(n_hidden: int, h: int = HIDDEN, kx: int = K_XIN) -> int:
-    """dW's row segments: one wave over its products' CTAs (a pair of X's
-    64-column blocks each)."""
+def dw_segments(n_hidden: int, h: int = HIDDEN, kx: int = K_XIN, units: int = 0) -> int:
+    """dW's row segments of a pass of `units` units: one wave over its
+    products' CTAs (a pair of X's 64-column blocks each), and at least
+    enough that no segment sums more than DW_SEG_UNITS units."""
     tasks = sum((k // 64 + 1) // 2 for k, _ in dw_products(n_hidden, h, kx))
-    return 1 if tasks >= DWG_WAVE else DWG_WAVE // tasks
+    return max(1 if tasks >= DWG_WAVE else DWG_WAVE // tasks, -(-units // DW_SEG_UNITS))
 
 
 def flex_ctas(n_rays: int, n_samples: int, h: int = HIDDEN) -> int:
@@ -698,26 +688,29 @@ def flex_ctas(n_rays: int, n_samples: int, h: int = HIDDEN) -> int:
     return min(-(-items // CONSUMERS) if h == HIDDEN else items, FLEX_CTAS)
 
 
-def unit_schedule(n_rays: int, n_samples: int):
-    """The persistent grid's work at h = 256, as the kernels walk it: a
-    list of (cta, round, warpgroup, unit, live) in each CTA's order. CTA c
+def unit_schedule(n_rays: int, n_samples: int, h: int = HIDDEN):
+    """The persistent grid's work, as the kernels walk it: a list of (cta,
+    round, warpgroup, unit, live) in each CTA's order. At h = 256 CTA c
     takes rounds c, c + ctas, ...; round r gives warpgroup wg the item 2r +
     wg, whole rays as 64-row units (`unit_layout`: two rays in one unit at
-    S = 32, one ray in one at 64 and in two at 128, 8 rays in 3 at S = 24);
+    S = 32, one ray in one at 64 and in two at 128, 8 rays in 3 at S = 24;
+    past ITEM_ROWS one ray in ⌈S / 64⌉ units, 5 at S = 320, 16 at 1024);
     item k's units are the pass's units [k·units, (k + 1)·units), its rows
     past its rays' samples pad the last. An item past the last ray is not
-    live. (At h = 512 CTA c's round r is item r, both warpgroups on each of
-    its units.)"""
-    wg_rays, units_an_item = unit_layout(n_samples)
-    rounds = -(-n_rays // (CONSUMERS * wg_rays))
-    ctas = min(rounds, FLEX_CTAS)
+    live. At h = 512 CTA c's rounds are the items c, c + ctas, ..., both
+    warpgroups on each of their units (an entry for each), every item
+    live."""
+    wg_rays, units = unit_layout(n_samples)
+    items = -(-n_rays // wg_rays)
+    rounds = -(-items // CONSUMERS) if h == HIDDEN else items
     out = []
-    for cta in range(ctas):
-        for r in range(cta, rounds, ctas):
-            for wg in range(CONSUMERS):
-                item = r * CONSUMERS + wg
-                for u in range(units_an_item):
-                    out.append((cta, r, wg, item * units_an_item + u, item * wg_rays < n_rays))
+    for cta in range(min(rounds, FLEX_CTAS)):
+        for r in range(cta, rounds, FLEX_CTAS):
+            if h == HIDDEN:
+                out += [(cta, r, wg, (r * CONSUMERS + wg) * units + u, (r * CONSUMERS + wg) * wg_rays < n_rays)
+                        for wg in range(CONSUMERS) for u in range(units)]
+            else:
+                out += [(cta, r, wg, r * units + u, True) for u in range(units) for wg in range(CONSUMERS)]
     return out
 
 
@@ -733,7 +726,7 @@ def workspace_layout(n_rays: int, n_samples: int, n_hidden: int, h: int = HIDDEN
     pieces = [(name, units * width * 128) for name, width in workspace_buffers(n_hidden, h, kx)]
     pieces += [(name, units * mask_bytes(h)) for name in mask_buffers(n_hidden)]
     pieces += [("warp_part", ctas * WARPS_A_CTA * part_cols * 4), ("tile_part", ctas * part_cols * 4),
-               ("dw_part", dw_segments(n_hidden, h, kx) * w_offsets(n_hidden, h, kx)["WA"] * 4)]
+               ("dw_part", dw_segments(n_hidden, h, kx, units) * w_offsets(n_hidden, h, kx)["WA"] * 4)]
     offs, o = {}, 0
     for name, nbytes in pieces:
         offs[name] = o

@@ -90,9 +90,10 @@ def check_bands(num_encoding_fn_xyz: int) -> None:
         raise ValueError(f"the kernels take 1..{MAX_FREQS} xyz encoding bands, got "
                          f"{num_encoding_fn_xyz}")
 
-# The paper kernels (K2, K3f, K1, K3b) take any sample count S in
-# 1..MAX_SAMPLES, a runtime value (`PAPER_MAX_SAMPLES` in
-# csrc/wgmma_chain.cuh; K4's own limit is `fused_flex.MAX_SAMPLES`).
+# The kernels take any sample count S in 1..MAX_SAMPLES, a runtime value:
+# one limit (`MAX_SAMPLES` in csrc/wgmma_chain.cuh) for the paper kernels
+# (K2, K3f, K1, K3b), the Flexible family's K4f / K4b (`fused_flex`
+# imports it) and K5's Sc + Sf (`fused_resample.MAX_TOTAL`).
 MAX_SAMPLES = 1024
 # An item, the rows a consumer warpgroup takes at once, is whole rays in at
 # most four 64-row units (`ITEM_ROWS`) up to S = ITEM_ROWS; past it one
@@ -123,8 +124,9 @@ def unit_layout(n_samples: int) -> Tuple[int, int]:
 
 
 def kernel_pass_ok(n_rays: int, n_samples: int) -> bool:
-    """Whether a paper-family pass of (n_rays, n_samples) goes to the hand
-    kernels on the card: the JAX package's rule for its Pallas kernels,
+    """Whether a paper-family or Flexible pass of (n_rays, n_samples) goes
+    to the hand kernels on the card: the JAX package's rule for its Pallas
+    kernels,
     that `_pick_rays_per_tile` (`nerface_tpu/ops/pallas/fused_mlp.py:
     421-432`) finds a ray tile, a multiple of 8 dividing n_rays (so
     n_rays % 8 == 0), within the kernels' 1..MAX_SAMPLES."""
@@ -132,8 +134,8 @@ def kernel_pass_ok(n_rays: int, n_samples: int) -> bool:
 
 
 def check_samples(n_samples: int) -> None:
-    """The paper kernels' wrappers take 1..MAX_SAMPLES samples a ray, on
-    either device (the CPU runs the kernels' plain versions)."""
+    """The paper kernels' and K4's wrappers take 1..MAX_SAMPLES samples a
+    ray, on either device (the CPU runs the kernels' plain versions)."""
     if not 1 <= n_samples <= MAX_SAMPLES:
         raise ValueError(
             f"the kernels take 1..{MAX_SAMPLES} samples per ray, got {n_samples}")

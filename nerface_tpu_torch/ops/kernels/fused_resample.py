@@ -14,10 +14,13 @@ JAX package's, it is an entry point of its own: nothing in `render/` or
   `render_rays` runs: `sample_pdf` over the z-midpoints and the weights
   `w[:, 1:-1]` at the given draws, then `merge_sorted_zvals`.
 
-The kernel takes every shape of the JAX kernel within the port's 256
-samples a ray: Sc ≥ MIN_COARSE = 3 coarse samples, Sf ≥ 1 draws, Sc + Sf ≤
-MAX_TOTAL = 256 (`csrc/fused_resample.cu` pads Sc to its class, 32, 64, 128
-or 256). The wrapper raises past that on either device.
+The kernel takes every shape of the JAX kernel within the port's samples
+a ray: Sc ≥ MIN_COARSE = 3 coarse samples, Sf ≥ 1 draws, Sc + Sf ≤
+MAX_TOTAL = `fused_mlp.MAX_SAMPLES` (1024), the limit of every kernel of
+the port. `csrc/fused_resample.cu` pads Sc to its class (32, 64, ...,
+1024); up to 256 in all a warp holds a ray in registers, past it (the long
+regime) a warp holds it in shared memory. The wrapper raises past that on
+either device.
 
 It agrees with `sample_pdf` to 2e-6·far where every pdf bin is ≥ 1e-3,
 but not where a bin sits at the 1e-5 clamp: near the knots of such a bin
@@ -39,10 +42,14 @@ import ctypes
 
 import torch
 
+from nerface_tpu_torch.ops.kernels.fused_mlp import MAX_SAMPLES
 from nerface_tpu_torch.ops.sampling import merge_sorted_zvals, sample_pdf
 
 MIN_COARSE = 3  # the JAX kernel's least Sc
-MAX_TOTAL = 256  # Sc + Sf, the port's samples a ray
+MAX_TOTAL = MAX_SAMPLES  # Sc + Sf, the port's samples a ray
+# Sc + Sf up to SHORT_TOTAL: a warp holds the ray in registers; past it the
+# long regime (`csrc/fused_resample.cu`)
+SHORT_TOTAL = 256
 
 
 def _check_shapes(z_vals, weights, u):

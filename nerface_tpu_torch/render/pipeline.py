@@ -33,7 +33,8 @@ Path choice, in bf16 (`dtype=torch.bfloat16`), for the paper family
 
 For an eligible Flexible-family model in bf16, each pass's MLP is one
 `fused_flex_mlp` call (K4f; its backward is K4b), with the conditioning
-folded into `v0` and the direction contribution in differentiable torch.
+folded into `v0` and the direction contribution in differentiable torch;
+`flex_fused_eligible` takes the same 1..MAX_SAMPLES and tile rule.
 Otherwise the model runs as PyTorch ops; in f32 this is the path held to
 the JAX package's f32 XLA path.
 

@@ -133,7 +133,8 @@ def bare_fwd(case):
 def bare_bwd(case):
     """K4b's launch alone (`_launch_flex_bwd`, the one C call), as a
     function: the operands packed, the outputs and the workspace allocated
-    beforehand."""
+    beforehand (the function's `out` and `ws`: the packed gradients and the
+    workspace's images after a call)."""
     a, n, L = _args(case), case["n"], case["bands"]
     W = F._kernel_call(*a, n, L, g=case["g"])
     R, S = case["z"].shape
@@ -143,7 +144,12 @@ def bare_bwd(case):
     out = F.flex_bwd_outputs(R, n, dev, h, L)
     ws = F.flex_bwd_workspace(R, S, n, dev, h, L)
     per_ray = (case["ro"], case["rd"], case["z"], case["dc"], case["g"])
-    return lambda: F._launch_flex_bwd(operands, per_ray, out, ws, n, L)
+
+    def launch():
+        F._launch_flex_bwd(operands, per_ray, out, ws, n, L)
+
+    launch.out, launch.ws = out, ws
+    return launch
 
 
 def measure(dev, h=256, bands=10):

@@ -15,7 +15,15 @@ too (or, where the profiler sees no kernel, CUDA events around launches
 queued back to back), and its GB/s from that.
 Rays, depths and weights come from `tools/perf/cases.py`.
 
-    python -m nerface_tpu_torch.tools.perf.k3f_k5_launch_split [--json PATH]
+`--k5-grid` times K5 alone instead, on `chip_smoke.py`'s `[sample_counts]`
+grid at 2072 rays (Sc + Sf ≤ 256, the short kernel) in both regimes, each
+cell's device ms read from launches queued back to back (`queued_ms`).
+It calls only what every checkout of
+the port with K5 has, so it times two trees against each other: run this
+file with PYTHONPATH at each checkout's root, in turns (parent, change,
+change, parent), each building its own library under its own build/.
+
+    python -m nerface_tpu_torch.tools.perf.k3f_k5_launch_split [--k5-grid] [--json PATH]
 
 It prints the card line, one line per case, and a JSON line.
 """
@@ -147,15 +155,43 @@ def measure(dev):
     return res
 
 
+# chip_smoke.py's [sample_counts] K5 grid (Sc + Sf ≤ 256) on its ragged ray count
+GRID_RAYS = 2072
+GRID = ((3, 16, 24, 48, 96, 200), (1, 33, 56))
+
+
+def measure_k5_grid(dev):
+    """K5's device ms (`queued_ms`, 50 launches back to back) at every
+    cell of GRID within Sc + Sf ≤ 256, both regimes: {"Sc+Sf regime @R":
+    ms}."""
+    from nerface_tpu_torch.ops.math import linspace01
+
+    res = {}
+    for sc in GRID[0]:
+        for sf in GRID[1]:
+            if sc + sf > 256:
+                continue
+            z, w, u = resample_inputs(GRID_RAYS, sc, sf, 31 + sc * 1000 + sf, dev)
+            for regime in ("general", "sorted_u"):
+                srt = regime == "sorted_u"
+                uu = linspace01(sf, device=dev) if srt else u
+                label = f"{sc}+{sf} {regime} @{GRID_RAYS}"
+                res[label] = queued_ms(k5_bare(z, w, uu, srt))
+                print(f"[k5_grid] K5 {label}: device {res[label]:.5f} ms (queued launches)", flush=True)
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--k5-grid", action="store_true", help="time K5 alone on chip_smoke.py's grid")
     ap.add_argument("--json", help="also write the result here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA card")
     card = card_line()
     print(card, flush=True)
-    res = measure(torch.device("cuda", 0))
+    dev = torch.device("cuda", 0)
+    res = measure_k5_grid(dev) if args.k5_grid else measure(dev)
     line = json.dumps({"card": card, "cases": res})
     if args.json:
         with open(args.json, "w") as f:

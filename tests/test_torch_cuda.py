@@ -73,8 +73,8 @@ def params(cuda_device):
 
 
 def _past_the_limit(z, limit=K.MAX_SAMPLES):
-    """z's rows at one sample past `limit`: the paper kernels' MAX_SAMPLES
-    (1024), or K4's `fused_flex.MAX_SAMPLES` (256)."""
+    """z's rows at one sample past `limit`: the kernels' one MAX_SAMPLES
+    (1024; K4's `fused_flex.MAX_SAMPLES` is the same)."""
     n = limit + 1
     return z.repeat(1, -(-n // z.shape[1]))[:, :n].contiguous()
 
@@ -432,7 +432,7 @@ def test_flex_kernels_refuse_what_they_do_not_take(cuda_device):
     weights = F.pack_flex_weights(params, 3, 10)
     g = torch.zeros(64, 64, 4, device=cuda_device)
     before = (F.fused_flex_forward.launches, F.fused_flex_backward.launches)
-    with pytest.raises(ValueError, match="1..256 samples per ray"):
+    with pytest.raises(ValueError, match="1..1024 samples per ray"):
         F.fused_flex_forward(weights, ro, rd, _past_the_limit(z, F.MAX_SAMPLES), dc, v0, 3)
     with pytest.raises(ValueError, match="contiguous"):
         F.fused_flex_forward(weights, ro, rd, z.t().contiguous().t(), dc, v0, 3)
@@ -457,7 +457,7 @@ def test_flex_kernels_refuse_what_they_do_not_take(cuda_device):
 @pytest.mark.cuda
 def test_flex_entry_points_refuse_what_the_kernels_do_not_take(cuda_device):
     """The C entry points of K4f / K4b return cudaErrorInvalidValue (1) for
-    S outside 1..256, for an S whose layout class the build does not hold
+    S outside 1..1024, for an S whose layout class the build does not hold
     (the fixed build at S = 24 or 32), for a hidden width other than 256
     and 512 and for n < 0: no S or width runs another's layout. Nothing is
     launched."""
@@ -478,7 +478,7 @@ def test_flex_entry_points_refuse_what_the_kernels_do_not_take(cuda_device):
     runtime = load_library("fused_flex", SAMPLE_CLASS_DEFINES["any"])
     for h in (256, 512):
         for lib in (fixed, runtime):
-            for S in (0, -1, 257, 1000):
+            for S in (0, -1, 1025, 2048):
                 assert fwd(lib, S, h) == 1, S
                 assert lib.nerface_fused_flex_workspace_bytes(8, S, 10, 3, h) == -1, S
             for bad in (0, 128, 384, 768, 1024):
@@ -1129,7 +1129,7 @@ def test_resample_kernel_refuses_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="coarse samples"):
         K5.fused_resample(z[:, :2].contiguous(), w[:, :2].contiguous(), u)
     with pytest.raises(ValueError, match="fine samples"):
-        K5.fused_resample(z, w, torch.rand(64, 193, device=cuda_device))
+        K5.fused_resample(z, w, torch.rand(64, 961, device=cuda_device))
     with pytest.raises(ValueError, match="contiguous"):
         K5.fused_resample(z.t().contiguous().t(), w, u)
     with pytest.raises(TypeError, match="float32"):
@@ -1142,7 +1142,7 @@ def test_resample_kernel_refuses_what_it_does_not_take(cuda_device):
 @pytest.mark.cuda
 def test_resample_entry_point_refuses_what_the_kernel_does_not_take(cuda_device):
     """K5's C entry point returns cudaErrorInvalidValue (1) outside 3 ≤ Sc,
-    1 ≤ Sf, Sc + Sf ≤ 256 and launches nothing."""
+    1 ≤ Sf, Sc + Sf ≤ 1024 and launches nothing."""
     import ctypes
 
     from nerface_tpu_torch.ops.kernels.build import load_library
@@ -1151,13 +1151,130 @@ def test_resample_entry_point_refuses_what_the_kernel_does_not_take(cuda_device)
     out = torch.zeros(4, 4, device=cuda_device)
     null = ctypes.c_void_p(0)
     stream = ctypes.c_void_p(torch.cuda.current_stream(cuda_device).cuda_stream)
-    for sc, sf in ((2, 64), (0, 1), (64, 0), (64, 193), (255, 2), (3, 254)):
+    for sc, sf in ((2, 64), (0, 1), (64, 0), (64, 961), (1023, 2), (3, 1022)):
         for sorted_u in (0, 1):
             assert lib.nerface_fused_resample(null, null, null, 0, ctypes.c_void_p(out.data_ptr()), 4, sc, sf,
                                               sorted_u, stream) == 1, (sc, sf)
     torch.cuda.synchronize()
     assert torch.equal(out, torch.zeros_like(out))
 
+
+
+# K5's long regime (Sc + Sf past 256, up to 1024: a warp a ray, the rows in
+# shared memory, a merge by rank): both regimes, per-ray and shared u, Sc
+# classes 32 .. 1024, Sf up to 1021, ragged ray counts and one past a round
+# of the persistent grid; the spike crowds the draws into one bin.
+K5_LONG_CASES = [(2072, 64, 256, "general", False), (2072, 64, 256, "sorted_u", False),
+                 (77, 128, 896, "general", False), (301, 3, 1021, "sorted_u", False),
+                 (301, 3, 1021, "general", False), (301, 1000, 24, "general", False),
+                 (77, 512, 512, "general", False), (300, 512, 512, "sorted_u", False),
+                 (2085, 320, 1, "general", False), (301, 255, 2, "sorted_u", False),
+                 (300, 64, 700, "shared", False), (2072, 64, 256, "general", True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,Sc,Sf,draws,spike", K5_LONG_CASES,
+                         ids=[f"{R}x{a}+{b}-{d}{'-spike' if sp else ''}" for R, a, b, d, sp in K5_LONG_CASES])
+def test_resample_kernel_long_regime(cuda_device, R, Sc, Sf, draws, spike):
+    """K5 past Sc + Sf = 256 against its plain version within
+    RESAMPLE_TOL·far, rows sorted, bit-identical over two launches, each
+    launch counted."""
+    from nerface_tpu_torch.ops.kernels import fused_resample as K5
+    from nerface_tpu_torch.ops.math import linspace01
+
+    z, w, u = resample_inputs(R, Sc, Sf, R + Sc + Sf, cuda_device, RESAMPLE_SPIKE if spike else 0.0)
+    sorted_u = draws == "sorted_u"
+    if sorted_u:
+        u = linspace01(Sf, device=cuda_device)
+    elif draws == "shared":
+        u = u[0].contiguous()
+    before = K5.fused_resample.launches
+    got = K5.fused_resample(z, w, u, sorted_u=sorted_u)
+    again = K5.fused_resample(z, w, u, sorted_u=sorted_u)
+    torch.cuda.synchronize()
+    assert K5.fused_resample.launches == before + 2
+    assert torch.equal(got, again) and got.shape == (R, Sc + Sf)
+    assert bool((got[:, 1:] >= got[:, :-1]).all())
+    ref = K5.fused_resample_reference(z, w, u, sorted_u)
+    torch.testing.assert_close(got, ref, atol=RESAMPLE_TOL * FAR, rtol=0)
+
+
+# K4f / K4b past 256 samples a ray: one ray an item in ⌈S / 64⌉ units, at
+# both widths and at 10 and 16 bands; a fifth unit of one row (257), five
+# whole units (320), the limit, 24 padding rows (1000); at h = 256 an odd
+# ray count leaves the last round's warpgroup-1 item, a long one, past the
+# last ray (the dead-unit walk), and 601 rays run past one round of the
+# 132-CTA grid.
+FLEX_LONG_CASES = [(77, 257), (301, 320), (40, 512), (8, 1024), (301, 1000), (601, 320)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [256, 512])
+@pytest.mark.parametrize("L", [10, 16])
+@pytest.mark.parametrize("R,S", FLEX_LONG_CASES, ids=[f"{R}x{S}" for R, S in FLEX_LONG_CASES])
+def test_flex_kernels_take_long_rays(cuda_device, h, L, R, S):
+    """K4f and K4b past 256 samples a ray against their plain versions
+    (the tensor-core yardstick), K4b bit-identical over 2 launches."""
+    _check_flex_kernels_at(cuda_device, h, L, R, S, seed=R + S + h + L)
+
+
+@pytest.mark.cuda
+def test_flex_long_dead_unit_repeats_bit_for_bit(cuda_device):
+    """2071 rays × S = 320 at 8 hidden layers, h = 256: the last round's
+    warpgroup-1 item is a dead long item of five units, which K4b's
+    recompute and dX walk with `skip_stages`; 20 passes of K4f + K4b each
+    equal the first bit for bit."""
+    from nerface_tpu_torch.ops.kernels import fused_flex as F
+
+    R, S, n = 2071, 320, 8
+    assert sum(not ok for *_, ok in F.unit_schedule(R, S)) == 5
+    params, v0 = flex_params(R + n, cuda_device, n_hidden=n)
+    ro, rd, z, dc, _, _ = _inputs(R, S, cuda_device, seed=R + S + n)
+    weights = F.pack_flex_weights(params, n, 10)
+    g = torch.randn(R, S, 4, generator=torch.Generator().manual_seed(S + n)).to(cuda_device)
+    args = (weights, ro, rd, z, dc, v0)
+    first = None
+    for _ in range(20):
+        out = F.fused_flex_forward(*args, n)
+        grads = F.fused_flex_backward(*args, g, n)
+        flat = [out] + list(grads[0]) + list(grads[1:])
+        if first is None:
+            first = flat
+        else:
+            assert all(torch.equal(a, b) for a, b in zip(first, flat))
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(t).all()) for t in first)
+
+
+@pytest.mark.cuda
+def test_flex_entry_points_take_the_new_limit(cuda_device):
+    """K4f's and K4b's C entry points, in both builds and at both widths,
+    return cudaErrorInvalidValue (1) past 1024 before they read a pointer,
+    and take 1024: the workspace is `fused_flex.workspace_layout`'s bytes
+    at 2048 × 1024 (past 2^31 at either width) and at 2071 × 320. Nothing
+    is launched."""
+    import ctypes
+
+    from nerface_tpu_torch.ops.kernels import fused_flex as F
+    from nerface_tpu_torch.ops.kernels.build import SAMPLE_CLASS_DEFINES, load_library
+    from nerface_tpu_torch.ops.kernels.fused_mlp import xin_extent
+
+    out = torch.zeros(8, 4, device=cuda_device)
+    null = ctypes.c_void_p(0)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(cuda_device).cuda_stream)
+    for defines in SAMPLE_CLASS_DEFINES.values():
+        lib = load_library("fused_flex", defines)
+        for h in (256, 512):
+            for S in (F.MAX_SAMPLES + 1, 2048):
+                assert lib.nerface_fused_flex_fwd(null, null, null, null, null, null, ctypes.c_void_p(out.data_ptr()),
+                                                  8, S, 10, 3, h, stream) == 1, S
+                assert lib.nerface_fused_flex_workspace_bytes(8, S, 10, 3, h) == -1, S
+            for R, S, L in ((2048, F.MAX_SAMPLES, 10), (2048, F.MAX_SAMPLES, 16), (2071, 320, 10)):
+                want = F.workspace_layout(R, S, 3, h, xin_extent(L))[1]
+                assert lib.nerface_fused_flex_workspace_bytes(R, S, L, 3, h) == want, (R, S, L, h)
+                assert R < 2048 or want > 2 ** 31
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.zeros_like(out))
 
 # -- K3f on the shared chain and K5 as a persistent kernel ----------------------
 

@@ -365,8 +365,9 @@ def test_eligibility():
         return F.flex_fused_eligible(m, enc, pe_dir, R, S, dev)
 
     assert ok() and ok("FlexibleNeRFModel") and ok(S=128) and ok(S=16, dev="cpu")
-    assert ok(S=16) and ok(S=192) and ok(S=1) and ok(S=256)  # the kernels take any S up to 256
-    assert not ok(S=257) and not ok(S=257, dev="cpu")
+    assert ok(S=16) and ok(S=192) and ok(S=1) and ok(S=256)  # the kernels take any S up to 1024
+    assert ok(S=257) and ok(S=1024) and ok(S=1024, dev="cpu")
+    assert not ok(S=1025) and not ok(S=1025, dev="cpu")
     assert not ok(R=2047) and ok(R=2047, dev="cpu")  # the JAX tile rule, on the card
     assert not ok(num_layers=6, skip_connect_every=3)  # a skip layer engages
     assert ok(num_layers=6, skip_connect_every=4)  # the would-be skip is the last layer

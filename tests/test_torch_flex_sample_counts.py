@@ -4,9 +4,10 @@ every sample count their TPU kernels take.
 * (a) Dispatch. `flex_fused_eligible`, asked for the card (`device="cuda"`,
   no card needed), admits exactly what the JAX package sends to its Pallas
   kernel (its `flex_fused_eligible` and a ray tile of `_pick_rays_per_tile`,
-  `nerface_tpu/render/pipeline.py:287-292`) for every S in 1..256 at R =
-  2048, 2072 and 2047, and nothing above 256, where a direct wrapper call
-  raises a ValueError that names the limit. `csrc/fused_flex.cu`'s entry
+  `nerface_tpu/render/pipeline.py:287-292`) for every S in 1..299 at R =
+  2048, 2072 and 2047 (the limit, `fused_mlp.MAX_SAMPLES` = 1024, and
+  past it in tests/test_torch_flex_long_rays.py), where a direct wrapper
+  call past the limit raises a ValueError that names it. `csrc/fused_flex.cu`'s entry
   points admit exactly 1..MAX_SAMPLES and dispatch each S to its own layout
   class, with no branch that runs another S's layout.
 * (b) The plain versions against the JAX package's Pallas kernels in
@@ -22,7 +23,8 @@ every sample count their TPU kernels take.
   1e-5 (tests/test_torch_resample.py's).
 * (d) Layout. A mirror of the runtime flex schedule (`unit_schedule` and
   the kernels' row arithmetic) covers every sample row once and pads only
-  an item's last unit, at every S in 1..256; K5's padded search counts
+  an item's last unit, at every S in 1..256 (past it,
+  tests/test_torch_flex_long_rays.py); K5's padded search counts
   only the real cdf entries, and its padded network keeps every real value
   and drops every pad, at every (Sc, Sf) of its domain.
 """
@@ -83,20 +85,22 @@ def _jax_rule(n_rays, n_samples):
 ], ids=["lcode", "flexible", "skip"])
 def test_flex_dispatch_is_the_jax_rule(n_rays, name, kw):
     """On the card K4 takes a pass exactly where the JAX package takes its
-    Pallas kernel, S in 1..256 (the skip-layer model: nowhere); above 256
-    nowhere. On the CPU, where the plain versions run, every ray count."""
+    Pallas kernel, S in 1..MAX_SAMPLES (1024; the skip-layer model:
+    nowhere): every S in 1..299 here. On the CPU, where the plain versions
+    run, every ray count."""
     args = dict(KW, **kw)
     m = MODELS[name](**args)
     jm = JAX_MODELS[name](**args)
     pe_dir = torch.zeros(4, 24)
     static = JF.flex_fused_eligible(jm, JaxEncodeSpec(10, True, True), jnp.zeros((4, 24)))
+    assert F.MAX_SAMPLES == 1024
     for S in range(1, 300):
-        want = static and S <= 256 and _jax_rule(n_rays, S)
+        want = static and S <= F.MAX_SAMPLES and _jax_rule(n_rays, S)
         for dev in ("cuda", torch.device("cuda", 0)):
             got = F.flex_fused_eligible(m, EncodeSpec(10, True, True), pe_dir, n_rays, S, dev)
             assert got == want, (name, n_rays, S)
         assert F.flex_fused_eligible(m, EncodeSpec(10, True, True), pe_dir, n_rays, S, "cpu") == (
-            static and S <= 256)
+            static and S <= F.MAX_SAMPLES)
 
 
 def test_apply_model_leaves_a_ragged_pass_to_the_plain_forward(monkeypatch):
@@ -124,26 +128,26 @@ def test_apply_model_leaves_a_ragged_pass_to_the_plain_forward(monkeypatch):
 
 
 def test_wrappers_raise_past_the_limit():
-    """A direct K4f / K4b call at S = 257 (or 0) raises a ValueError naming
-    the limit, on the CPU too, whose wrappers run the plain versions; so
-    does K5 past Sc + Sf = 256 or below Sc = 3."""
+    """A direct K4f / K4b call at S = 1025 (or 0) raises a ValueError
+    naming the limit, on the CPU too, whose wrappers run the plain
+    versions; so does K5 past Sc + Sf = 1024 or below Sc = 3."""
     from nerface_tpu_torch.tools.perf.cases import flex_case
 
-    for S in (257, 0):
-        c = flex_case(2, max(S, 1), 0, torch.device("cpu"), 3)
+    for S in (1025, 0):
+        c = flex_case(2, 1, 0, torch.device("cpu"), 3)
         z = c["z"].repeat(1, S)[:, :S].contiguous() if S else c["z"][:, :0]
         g = c["g"].repeat(1, max(S, 1), 1)[:, :S].contiguous()
         args = (c["weights"], c["ro"], c["rd"], z, c["dc"], c["v0"])
-        with pytest.raises(ValueError, match=r"1\.\.256 samples per ray"):
+        with pytest.raises(ValueError, match=r"1\.\.1024 samples per ray"):
             F.fused_flex_forward(*args, 3)
-        with pytest.raises(ValueError, match=r"1\.\.256 samples per ray"):
+        with pytest.raises(ValueError, match=r"1\.\.1024 samples per ray"):
             F.fused_flex_backward(*args, g, 3)
     z = torch.sort(torch.rand(2, 200), -1).values
-    with pytest.raises(ValueError, match="at most 256"):
-        K5.fused_resample(z, torch.rand(2, 200), torch.rand(2, 57))
+    with pytest.raises(ValueError, match="at most 1024"):
+        K5.fused_resample(z, torch.rand(2, 200), torch.rand(2, 825))
     with pytest.raises(ValueError, match="at least 3"):
         K5.fused_resample(z[:, :2], torch.rand(2, 2), torch.rand(2, 5))
-    assert K5.fused_resample(z, torch.rand(2, 200), torch.rand(2, 56)).shape == (2, 256)
+    assert K5.fused_resample(z, torch.rand(2, 200), torch.rand(2, 824)).shape == (2, 1024)
 
 
 def test_entry_points_take_exactly_the_kernels_domain():
@@ -151,7 +155,8 @@ def test_entry_points_take_exactly_the_kernels_domain():
     1..MAX_SAMPLES (and refuses the rest with cudaErrorInvalidValue), and
     both entry points hand S to `dispatch_pass` with its own `UnitLayout`:
     there is no `switch (n_samples)` whose `default:` runs S = 128's layout
-    for another S. K5's entry point admits 3 ≤ Sc, 1 ≤ Sf, Sc + Sf ≤ 256."""
+    for another S. K5's entry point admits 3 ≤ Sc, 1 ≤ Sf, Sc + Sf ≤ 1024
+    (MAX_OUT, the header's MAX_SAMPLES), past 256 in its long regime."""
     cu = (CSRC / "fused_flex.cu").read_text()
     code = re.sub(r"//.*", "", cu)
     assert "switch (n_samples)" not in code and "default:" not in code
@@ -172,7 +177,9 @@ def test_entry_points_take_exactly_the_kernels_domain():
         assert "UnitSchedule<SF, 1>" in body[:body.index("\n}\n")], fn
     k5 = re.sub(r"//.*", "", (CSRC / "fused_resample.cu").read_text())
     assert "n_coarse < MIN_COARSE || n_fine < 1 || n_coarse + n_fine > MAX_OUT" in k5
-    assert re.search(r"constexpr int MIN_COARSE = 3;", k5) and re.search(r"constexpr int MAX_OUT = 256;", k5)
+    assert re.search(r"constexpr int MIN_COARSE = 3;", k5)
+    assert re.search(r"constexpr int MAX_OUT = nerface::sm90::MAX_SAMPLES;", k5)
+    assert "if (n_coarse + n_fine > SHORT_OUT) {" in k5
     from nerface_tpu_torch.ops.kernels import build
 
     assert "fused_flex" in build.LAYOUT_LIBRARIES

@@ -359,7 +359,7 @@ def _carve_replay(n_rays, n_samples, n, h, kx=64):
             sizes = [units * env["mask"]] * eval(arg, {}, env)
         else:
             expr = arg.rstrip(")").replace("mask_bytes", "mask")
-            expr = expr.replace("dw_segments_of(L)", str(F.dw_segments(n, h, kx)))
+            expr = expr.replace("dw_segments_of(L, units)", str(F.dw_segments(n, h, kx, units)))
             expr = re.sub(r"\bwa\b", str(F.w_offsets(n, h, kx)["WA"]), expr)
             sizes = [eval(expr, {}, dict(env, ctas=ctas, WARPS_A_CTA=F.WARPS_A_CTA))]
         offs[name] = o

@@ -227,15 +227,16 @@ def _k5_args(R=4, Sc=64, Sf=64):
      ("strided", ValueError, "contiguous")],
 )
 def test_resample_checks_refuse_what_the_kernel_does_not_take(change, error, match):
-    """Outside 3 ≤ Sc, 1 ≤ Sf, Sc + Sf ≤ 256 (64 + 193 = 257), or an
-    operand the kernel cannot read."""
+    """Outside 3 ≤ Sc, 1 ≤ Sf, Sc + Sf ≤ 1024 (64 + 961 = 1025; the case
+    keeps its name from the limit of 256, 64 + 193), or an operand the
+    kernel cannot read."""
     z, w, u = _k5_args()
     if change == "coarse2":
         z, w = z[:, :2].contiguous(), w[:, :2].contiguous()
     elif change == "fine0":
         u = u[:, :0]
     elif change == "fine193":
-        u = torch.rand(4, 193)
+        u = torch.rand(4, 961)
     elif change == "double":
         w = w.double()
     else:
@@ -245,7 +246,7 @@ def test_resample_checks_refuse_what_the_kernel_does_not_take(change, error, mat
 
 
 @pytest.mark.parametrize("Sc,Sf", [(32, 128), (64, 64), (128, 128), (128, 1), (3, 253), (48, 129),
-                                   (255, 1), (200, 56)])
+                                   (255, 1), (200, 56), (64, 256), (3, 1021), (1023, 1)])
 def test_resample_checks_take_the_kernels_shapes(Sc, Sf):
     K5.check_kernel_operands(*_k5_args(3, Sc, Sf))
     K5.check_kernel_operands(*_k5_args(3, Sc, Sf)[:2], torch.rand(Sf))

@@ -6,14 +6,15 @@ long item, `UnitLayout::of`); K2 composites it in segments of ITEM_ROWS
 rows, carrying the log transmittance and the sums from one to the next;
 K1 and K3b keep its rows' raw σ / rgb and their cotangents in a slab of
 the workspace (`item_row_floats`), and K1's middle composites the ray
-forward and back in segments (`composite_long`). K4 keeps its own limit
-of 256 (`fused_flex.MAX_SAMPLES`).
+forward and back in segments (`composite_long`). K4 takes the same limit
+(`fused_flex.MAX_SAMPLES` is `fused_mlp.MAX_SAMPLES`;
+tests/test_torch_flex_long_rays.py holds it there).
 
 * (a) Dispatch. Asked for the card (`device="cuda"`, no card needed),
   `_paper_kernels_take`, `_fused_render_eligible` and
   `fused_train_eligible` admit S up to 1024 where the JAX package's tile
   rule sends a pass to Pallas and refuse 1025; on the CPU the same domain.
-  K4 still refuses S = 257 on both devices. The wrappers raise past 1024,
+  K4 takes the same limit on both devices. The wrappers raise past 1024,
   on the CPU too.
 * (b) Layout. Every S in 257..1024 is one ray in ⌈S / 64⌉ units, as the
   header's rule gives it; `ray_of` is row // S on every row of such an
@@ -119,17 +120,17 @@ def _case_id(c):
 
 def test_the_paper_kernels_limit_is_one_constant():
     """The wrappers, the dispatch and the C entry points read one limit:
-    `fused_mlp.MAX_SAMPLES`, `PAPER_MAX_SAMPLES` in the header, which
-    every paper entry point checks; K4 keeps `MAX_SAMPLES` (256)."""
-    assert K.MAX_SAMPLES == LIMIT and F.MAX_SAMPLES == 256
+    `fused_mlp.MAX_SAMPLES`, `MAX_SAMPLES` in the header, which every
+    paper entry point checks; K4 reads the same (`fused_flex.MAX_SAMPLES`,
+    its `valid`)."""
+    assert K.MAX_SAMPLES == LIMIT and F.MAX_SAMPLES == LIMIT
     wc = (CSRC / "wgmma_chain.cuh").read_text()
-    assert f"constexpr int PAPER_MAX_SAMPLES = {K.MAX_SAMPLES};" in wc
-    assert f"constexpr int MAX_SAMPLES = {F.MAX_SAMPLES};" in wc
-    check = "if (n_samples < 1 || n_samples > PAPER_MAX_SAMPLES) return (int)cudaErrorInvalidValue;"
+    assert f"constexpr int MAX_SAMPLES = {K.MAX_SAMPLES};" in wc and "PAPER_MAX_SAMPLES" not in wc
+    check = "if (n_samples < 1 || n_samples > MAX_SAMPLES) return (int)cudaErrorInvalidValue;"
     for name, n in (("fused_paper_render.cu", 1), ("fused_train_pass.cu", 1), ("fused_paper_mlp.cu", 2)):
         code = re.sub(r"//.*", "", (CSRC / name).read_text())
         assert code.count(check) == n, name
-        assert not re.search(r"n_samples > MAX_SAMPLES", code), name
+        assert "PAPER_MAX_SAMPLES" not in code, name
     flex = re.sub(r"//.*", "", (CSRC / "fused_flex.cu").read_text())
     assert "PAPER_MAX_SAMPLES" not in flex and "n_samples <= MAX_SAMPLES" in flex
 
@@ -165,22 +166,25 @@ def test_dispatch_takes_the_new_limit(small):
 
 
 def test_flexible_kernels_keep_256():
-    """K4 keeps its limit: `flex_fused_eligible` refuses S = 257 on the card
-    and on the CPU (the plain forward runs it), its wrappers raise naming
-    1..256, and `_apply_model` sends a Flexible pass at 257 to the plain
-    forward while a paper pass at 257 goes to K3."""
+    """K4 takes the paper kernels' limit now (the name kept from when it
+    stopped at 256): `flex_fused_eligible` admits S = 257 and 1024 on the
+    card and on the CPU and refuses 1025, its wrappers raise naming
+    1..1024, and `_apply_model` sends a Flexible pass at 257 to K4 as a
+    paper pass at 257 goes to K3."""
     m = MODELS["ConditionalBlendshapeLearnableCodeNeRFModel"](**_kw(10), hidden_size=256)
     enc = EncodeSpec(10, True, True)
     pe_dir = torch.zeros(2048, 24)
     for dev in ("cuda", "cpu"):
         assert F.flex_fused_eligible(m, enc, pe_dir, 2048, 256, dev)
-        assert not F.flex_fused_eligible(m, enc, pe_dir, 2048, 257, dev)
-    assert F.kernel_pass_ok(2048, 256) and not F.kernel_pass_ok(2048, 257)
-    with pytest.raises(ValueError, match=r"1\.\.256 samples per ray"):
-        F.check_samples(257)
-    args = (torch.zeros(8, 3), torch.zeros(8, 3), torch.zeros(8, 257), torch.zeros(8, 128),
+        assert F.flex_fused_eligible(m, enc, pe_dir, 2048, 257, dev)
+        assert F.flex_fused_eligible(m, enc, pe_dir, 2048, LIMIT, dev)
+        assert not F.flex_fused_eligible(m, enc, pe_dir, 2048, LIMIT + 1, dev)
+    assert F.kernel_pass_ok(2048, 257) and F.kernel_pass_ok(2048, LIMIT) and not F.kernel_pass_ok(2048, LIMIT + 1)
+    with pytest.raises(ValueError, match=r"1\.\.1024 samples per ray"):
+        F.check_samples(LIMIT + 1)
+    args = (torch.zeros(8, 3), torch.zeros(8, 3), torch.zeros(8, LIMIT + 1), torch.zeros(8, 128),
             torch.zeros(1, 256), 3)
-    with pytest.raises(ValueError, match=r"1\.\.256 samples per ray"):
+    with pytest.raises(ValueError, match=r"1\.\.1024 samples per ray"):
         F._kernel_call(None, *args, 10)
 
 
@@ -198,7 +202,7 @@ def test_apply_model_sends_a_long_paper_pass_to_k3(monkeypatch):
         args = (torch.zeros(8, 3), torch.ones(8, 3), z, EncodeSpec(10, True, True), pe_dir, expr, latent,
                 torch.bfloat16)
         assert pipeline._apply_model(paper, *args) == ("K3" if S <= LIMIT else "plain"), S
-        assert pipeline._apply_model(flex, *args) == "plain", S
+        assert pipeline._apply_model(flex, *args) == ("K4" if S <= LIMIT else "plain"), S
     assert taken == [257, 320, LIMIT]
 
 
