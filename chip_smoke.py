@@ -16,7 +16,9 @@ Phases, one line each (plus the kernels' register reports):
                `probes.cu` (the design probes P1 / P2), in parallel into
                build/nerface_tpu_torch/ (K1, K3 and K4 as two builds each:
                the fixed layout classes S = 64 / 128 and the runtime class
-               of every other S); prints the seconds (the flex builds' on
+               of every other S; K4 at h = 768 and at 1024 a build each
+               besides), all eleven started together and done before the
+               first timed phase; prints the seconds (the flex builds' on
                the summary line) and each kernel's ptxas registers, spills
                and shared memory.
   3. kernel  — the fused-render kernel against its plain PyTorch version
@@ -344,7 +346,8 @@ Phases, one line each (plus the kernels' register reports):
                pass's output and gradients equal to the first pass's bit
                for bit; passes and wall time; then the same at hidden 512
                on 2085 × 64 (a persistent grid past one round, the last
-               round cut short). A fault fails the run.
+               round cut short), and at hidden 1024 (the sliced kernels,
+               DEAD_UNIT_SLICED_PASSES passes). A fault fails the run.
      flex_long_rays — K4f and K4b past 256 samples a ray (one ray an item
                in up to 16 units) at hidden 256 and 512, S = 257, 320, 512
                and 1024 on 2048 rays and 320 / 1000 on 2072
@@ -359,6 +362,18 @@ Phases, one line each (plus the kernels' register reports):
                `flex_grad_limits` catch, and those the exact dW check
                (`flex_dw_exact`: the dW launch within DW_EXACT_TOL of the
                f64 Xᵀ·gY of its own workspace images) catches (all).
+     flex_widths — K4f and K4b at hidden 768 and 1024 (the sliced
+               kernels) on FLEX_SLICED_CASES: 2048 rays at S = 64, 128, 48
+               and 320, 2072 at S = 40, 16 bands at S = 64, 0 and 8 hidden
+               layers, and at 1024 S = 1024 on 256 rays; each under
+               `flex_limit` / `flex_grad_limits` through the tensor-core
+               yardstick (`flex_yardstick`), K4b bit-identical over 2
+               launches, its dW launch held to the f64 Xᵀ·gY of its own
+               images with a lost unit caught (`flex_dw_exact`, which holds
+               that launch where the yardstick's limits would pass a lost
+               unit); wrapper, bare, plain and bound ms of the timed cases;
+               then K4b at 2048 × S = 128, h = 1024, with a lost unit,
+               FLEX_SLICED_DW_SEEDS seeds, the exact check catching it.
   9. flex_serve — a 512² synth512_lcode avatar (SYNTH512_LCODE: the paper
                config with the Flexible family's
                ConditionalBlendshapeLearnableCodeNeRFModel) served as in
@@ -401,6 +416,18 @@ Phases, one line each (plus the kernels' register reports):
                hidden-512 variant (SYNTH512_LCODE_64_256_W512) served, one
                frame against K4f's plain version and f32 (the latter
                within FLEX_W512_FRAME_MEAN), and one bf16 step against f32.
+     flex_w1024 — the same for synth512_lcode_w1024 (SYNTH512_LCODE_W1024:
+               hidden_size 1024 in both models, mip-NeRF 360's NeRF MLP
+               width, 64 + 64): every bf16 pass through the sliced kernels;
+               one served frame, held to K4f's plain version within
+               FLEX_PLAIN_FRAME_MEAN / FLEX_FRAME_MAX through the
+               tensor-core yardstick and to f32 within the plain version's
+               own distance + FLEX_SLICED_F32_MARGIN (mean) and FRAME_MAX;
+               a frame the yardstick decided, rendered again through two
+               wrong K4f (FLEX_FRAME_FAULTS: a lost 64-row unit a launch,
+               a partial sum a layer parked in bf16), must fail its limits.
+     flex_w768 — its 768-wide variant (SYNTH512_LCODE_W768): one frame
+               within the same limits, one bf16 step against f32.
  11. stock_eval — `cli/eval_nerf.py` at the NeRF paper's stock settings
                (PaperNeRFModel coarse and fine, 10 xyz / 4 direction bands,
                64 + 128 samples, f32; He-scaled random weights, σ biased up
@@ -599,6 +626,24 @@ for _mode in ("train", "validation"):
 SYNTH512_LCODE_64_256_W512 = copy.deepcopy(SYNTH512_LCODE_64_256)
 for _node in SYNTH512_LCODE_64_256_W512["models"].values():
     _node["hidden_size"] = 512
+
+# synth512_lcode_w1024: synth512_lcode with hidden_size 1024 in both models
+# (layers_dir.0 512 wide), the width of mip-NeRF 360's NeRF MLP (Barron et
+# al., CVPR 2022, arXiv 2111.12077): every bf16 pass through K4f / K4b's
+# sliced kernels (`sliced_chain_kernel`, `sliced_dx_kernel`); and its
+# 768-wide variant, the one other width they take
+SYNTH512_LCODE_W1024 = copy.deepcopy(SYNTH512_LCODE)
+for _node in SYNTH512_LCODE_W1024["models"].values():
+    _node["hidden_size"] = 1024
+SYNTH512_LCODE_W768 = copy.deepcopy(SYNTH512_LCODE)
+for _node in SYNTH512_LCODE_W768["models"].values():
+    _node["hidden_size"] = 768
+# [flex_w1024] / [flex_w768]'s served frame against the f32 plain frame:
+# its mean within FLEX_SLICED_F32_MARGIN levels of the plain version's own
+# frame's mean distance from f32 in the same run (the bf16 roundings' share
+# at this width, not a fixed figure), its max within FRAME_MAX
+FLEX_SLICED_F32_MARGIN = 0.02
+FLEX_SLICED_PLAIN_CHUNK = 4096  # the plain frames' tiles: bounds their activations at h = 1024
 
 KERNEL_RAYS = 4096
 TILE_RAYS = 65536  # the validation chunksize: one tile of the main path
@@ -854,15 +899,93 @@ def plain_flex_passes():
         pipeline._apply_model = dispatch
 
 
+def sliced_widths():
+    """K4's widths past 512 (`fused_flex.SLICED_WIDTHS`): its sliced
+    kernels, a build each."""
+    from nerface_tpu_torch.ops.kernels.fused_flex import SLICED_WIDTHS
+
+    return SLICED_WIDTHS
+
+
 @contextlib.contextmanager
-def flex_plain_version():
+def flex_plain_version(tensor_cores=False):
     """K4f's wrapper replaced by its plain version (`fused_flex_forward_
     reference`, on whatever device the tensors are): a bf16 pass through it
-    has K4f's roundings and torch's f32 sums, and launches nothing."""
+    has K4f's roundings and torch's f32 sums, and launches nothing. With
+    `tensor_cores`, its matmuls on the tensor cores (`tensor_core_plain`:
+    its bf16-exact operands, another order of f32 sums), and nothing else
+    of the render."""
     from nerface_tpu_torch.ops.kernels import fused_flex as F
 
     kernel = F.fused_flex_forward
-    F.fused_flex_forward = lambda *a, **k: F.fused_flex_forward_reference(*a, **k)
+    if tensor_cores:
+        F.fused_flex_forward = lambda *a, **k: tensor_core_plain(lambda: F.fused_flex_forward_reference(*a, **k))
+    else:
+        F.fused_flex_forward = lambda *a, **k: F.fused_flex_forward_reference(*a, **k)
+    try:
+        yield
+    finally:
+        F.fused_flex_forward = kernel
+
+
+def _flex_forward_bf16_partials(weights, ro, rd, z, dir_c, v0, n_hidden, num_encoding_fn_xyz=10,
+                                log_sampling_xyz=True):
+    """K4f's plain version (`fused_flex_forward_reference`) with a modelled
+    fault: every matmul's sum over the first half of its K rows rounded to
+    bf16 before the second half is added, as a kernel would that parks a
+    partial sum in bf16 (one rounding a layer: the least bf16
+    accumulation)."""
+    import torch
+
+    from nerface_tpu_torch.ops.kernels import fused_flex as F
+
+    def r(x):
+        return x.to(torch.bfloat16).float()
+
+    W = F._unpack([t.detach() for t in weights], n_hidden)
+    Wr = {k: r(v.float()) for k, v in W.items() if k.startswith("w")}
+    n_rays, n_samples = z.shape
+    x3 = (ro[:, None, :] + rd[:, None, :] * z[:, :, None]).reshape(-1, 3)
+
+    def dot(a, name):
+        x, w = r(a), Wr[name]
+        k = w.shape[0] // 2
+        return r(x[:, :k] @ w[:k]) + x[:, k:] @ w[k:]
+
+    a = dot(x3, "w1a") + dot(F._encode_points(x3, num_encoding_fn_xyz, log_sampling_xyz), "w1b") + v0
+    for i in range(n_hidden):
+        a = torch.relu(dot(a, f"wh{i}") + W[f"bh{i}"])
+    feat = torch.relu(dot(a, "wf") + W["bf"])
+    alpha = dot(a, "wa") + W["ba"]
+    hd = (dot(feat, "wd0") + W["bd0"]).reshape(n_rays, n_samples, -1) + dir_c[:, None, :]
+    rgb = dot(torch.relu(hd).reshape(n_rays * n_samples, -1), "wrgb") + W["brgb"]
+    return torch.cat([rgb, alpha], -1).reshape(n_rays, n_samples, 4)
+
+
+# the modelled wrong K4f that a frame held through the tensor-core
+# yardstick must fail (`flex_planted_fault`)
+FLEX_FRAME_FAULTS = ("lost_unit", "bf16_partial")
+
+
+@contextlib.contextmanager
+def flex_planted_fault(kind):
+    """K4f's wrapper replaced by a wrong kernel of FLEX_FRAME_FAULTS:
+    "lost_unit", the kernel with one 64-row unit of every launch's output
+    lost (`lost_unit_rows`, zeroed); "bf16_partial", the plain version on
+    the tensor cores with a partial sum parked in bf16
+    (`_flex_forward_bf16_partials`)."""
+    from nerface_tpu_torch.ops.kernels import fused_flex as F
+
+    kernel = F.fused_flex_forward
+    if kind == "lost_unit":
+        def lost(*a):
+            return _without_rows(kernel(*a), lost_unit_rows(*a[3].shape))
+
+        # the launch counts into the module's wrapper, this one: not the main path's
+        lost.launches = 0
+        F.fused_flex_forward = lost
+    else:
+        F.fused_flex_forward = lambda *a: tensor_core_plain(lambda: _flex_forward_bf16_partials(*a))
     try:
         yield
     finally:
@@ -1392,13 +1515,14 @@ def _entry_name(text):
     """A kernel's short name, with its template arguments, from a ptxas
     line that holds its mangled name."""
     m = re.search(r"(train_pass_kernel|dw_wgmma_kernel|flex_chain_kernel|flex_dx_kernel|"
-                  r"wide_chain_kernel|wide_dx_kernel|reduce_rows|render_kernel|mlp_fwd_kernel|"
+                  r"wide_chain_kernel|wide_dx_kernel|sliced_chain_kernel|sliced_dx_kernel|reduce_rows|"
+                  r"render_kernel|mlp_fwd_kernel|"
                   r"resample_kernel|chain_kernel|encoder_kernel)"
                   r"(?:ILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?(?:Lb([01])E)?|ILb([01])E)?", text)
     if not m:
         return text
-    flag = {"resample_kernel": "sorted_u", "flex_chain_kernel": "save", "wide_chain_kernel": "save"}.get(
-        m.group(1), "small")
+    flag = {"resample_kernel": "sorted_u", "flex_chain_kernel": "save", "wide_chain_kernel": "save",
+            "sliced_chain_kernel": "save"}.get(m.group(1), "small")
     ints = [m.group(2)] if m.group(2) else []
     if m.group(3):  # K5's draws a lane
         ints.append(f"FP={m.group(3)}")
@@ -1415,76 +1539,93 @@ def _entry_name(text):
     return m.group(1) + (f"<{targs}>" if targs else "")
 
 
+def _build_job(job):
+    """One library build: (name, defines, library path, seconds)."""
+    from nerface_tpu_torch.ops.kernels import build
+
+    name, defines = job
+    t0 = time.perf_counter()
+    lib = build.build_library(name, defines)
+    return name, defines, lib, time.perf_counter() - t0
+
+
+def _report_build(name, defines, lib, secs):
+    """A build's [build] lines: its nvcc seconds, each kernel's ptxas
+    registers and spills, the wgmmas ptxas serialised (C75xx), and the
+    shared memory its kernels take. Returns its train_pass_kernel
+    instantiations."""
+    from nerface_tpu_torch.ops.kernels import build
+
+    label = name + (f" [{', '.join(defines)}]" if defines else "")
+    log = open(str(lib) + ".log").read().splitlines()
+    n_pass = sum("Compiling entry function" in x and "train_pass_kernel" in x for x in log)
+    info = []
+    for i, line in enumerate(log):
+        if "Compiling entry function" not in line:
+            continue
+        usage = [x.split("info    :")[-1].strip() if "info" in x else x.strip()
+                 for x in log[i + 1:i + 4] if "registers" in x or "spill" in x]
+        info.append(f"{_entry_name(line)}: {'; '.join(usage)}")
+    # ptxas's C75xx notes: wgmmas it serialises, and why
+    serial = set()
+    for x in log:
+        m = re.search(r"\((C75\d\d)\)[^:]*:\s*(.*?)(?: (?:in|for) the function '([^']+)')?\.?$", x)
+        if m:
+            serial.add(f"{_entry_name(m.group(3) or '?')}: {m.group(1)} {m.group(2)}")
+    serial = sorted(serial)
+    phase("build", f"{label}: {secs:.1f} s ({lib.name}); ptxas: {' | '.join(info)}")
+    phase("build", f"{label} wgmma serialisation (ptxas C75xx): "
+                   f"{' | '.join(serial) if serial else 'none reported'}")
+    # every kernel's shared memory is the same at either encoding extent:
+    # a warpgroup's xin bytes (K4's h = 512 CTA's) hold two 8 KB buffers
+    # at K = 64 and one 16 KB buffer at K = 128
+    extents = " (at K = 64 and at K = 128 alike)"
+    if name == "fused_paper_render":
+        smem = (ctypes.c_longlong * 1)()
+        build.load_library(name, defines).nerface_fused_paper_render_shared_bytes(smem)
+        phase("build", f"{label} shared memory a CTA (dynamic): render_kernel {smem[0]} B{extents}")
+    if name in ("fused_train_pass", "fused_paper_mlp"):
+        smem = (ctypes.c_longlong * 3)()
+        k = "train" if name == "fused_train_pass" else "paper_mlp"
+        getattr(build.load_library(name, defines), f"nerface_fused_{k}_shared_bytes")(smem)
+        sizes = ([] if k == "train" else [f"mlp_fwd_kernel {smem[0]} B"]) + [
+            f"train_pass_kernel {smem[k != 'train']} B",
+            f"dw_wgmma_kernel {smem[1 + (k != 'train')]} B"]
+        phase("build", f"{label} shared memory a CTA (dynamic): {', '.join(sizes)}{extents}")
+    if name == "fused_flex" and defines == build.SAMPLE_CLASS_DEFINES["any"]:
+        smem = (ctypes.c_longlong * 9)()
+        build.load_library(name, defines).nerface_fused_flex_shared_bytes(smem)
+        phase("build", f"fused_flex shared memory a CTA (dynamic): flex_chain_kernel {smem[0]} B, "
+                       f"flex_dx_kernel {smem[1]} B, dw_wgmma_kernel {smem[2]} B, wide_chain_kernel "
+                       f"{smem[3]} B, wide_dx_kernel {smem[4]} B, sliced_chain_kernel / sliced_dx_kernel "
+                       f"{smem[5]} / {smem[6]} B at h = 768, {smem[7]} / {smem[8]} B at 1024 (of 232448)"
+                       f"{extents}")
+    return n_pass
+
+
 def build_phase():
-    """Every library, one nvcc each, started together."""
+    """Every library, one nvcc each, all started together and all done
+    before the first phase that times anything."""
     from concurrent.futures import ThreadPoolExecutor
 
     from nerface_tpu_torch.ops.kernels import build
 
-    def one(job):
-        name, defines = job
-        t0 = time.perf_counter()
-        lib = build.build_library(name, defines)
-        return name, defines, lib, time.perf_counter() - t0
-
     # K1's, K3's and K4's libraries build as two builds each (build.py's
-    # LAYOUT_LIBRARIES and SAMPLE_CLASS_DEFINES: S = 64 / 128 and any other S)
-    jobs = [(name, defines) for name in LIBRARIES
-            for defines in (build.SAMPLE_CLASS_DEFINES.values() if name in build.LAYOUT_LIBRARIES else [()])]
+    # LAYOUT_LIBRARIES and SAMPLE_CLASS_DEFINES: S = 64 / 128 and any other
+    # S), K4's widths past 512 as a build each besides (`library_builds`)
+    jobs = [(name, defines) for name in LIBRARIES for defines in build.library_builds(name)]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(jobs)) as pool:
-        built = list(pool.map(one, jobs))
+        built = list(pool.map(_build_job, jobs))
     wall = time.perf_counter() - t0
-    n_pass = 0  # train_pass_kernel's instantiations over the libraries
-    for name, defines, lib, secs in built:
-        label = name + (f" [{', '.join(defines)}]" if defines else "")
-        log = open(str(lib) + ".log").read().splitlines()
-        n_pass += sum("Compiling entry function" in x and "train_pass_kernel" in x for x in log)
-        info = []
-        for i, line in enumerate(log):
-            if "Compiling entry function" not in line:
-                continue
-            usage = [x.split("info    :")[-1].strip() if "info" in x else x.strip()
-                     for x in log[i + 1:i + 4] if "registers" in x or "spill" in x]
-            info.append(f"{_entry_name(line)}: {'; '.join(usage)}")
-        # ptxas's C75xx notes: wgmmas it serialises, and why
-        serial = set()
-        for x in log:
-            m = re.search(r"\((C75\d\d)\)[^:]*:\s*(.*?)(?: (?:in|for) the function '([^']+)')?\.?$", x)
-            if m:
-                serial.add(f"{_entry_name(m.group(3) or '?')}: {m.group(1)} {m.group(2)}")
-        serial = sorted(serial)
-        phase("build", f"{label}: {secs:.1f} s ({lib.name}); ptxas: {' | '.join(info)}")
-        phase("build", f"{label} wgmma serialisation (ptxas C75xx): "
-                       f"{' | '.join(serial) if serial else 'none reported'}")
-        # every kernel's shared memory is the same at either encoding extent:
-        # a warpgroup's xin bytes (K4's h = 512 CTA's) hold two 8 KB buffers
-        # at K = 64 and one 16 KB buffer at K = 128
-        extents = " (at K = 64 and at K = 128 alike)"
-        if name == "fused_paper_render":
-            smem = (ctypes.c_longlong * 1)()
-            build.load_library(name, defines).nerface_fused_paper_render_shared_bytes(smem)
-            phase("build", f"{label} shared memory a CTA (dynamic): render_kernel {smem[0]} B{extents}")
-        if name in ("fused_train_pass", "fused_paper_mlp"):
-            smem = (ctypes.c_longlong * 3)()
-            k = "train" if name == "fused_train_pass" else "paper_mlp"
-            getattr(build.load_library(name, defines), f"nerface_fused_{k}_shared_bytes")(smem)
-            sizes = ([] if k == "train" else [f"mlp_fwd_kernel {smem[0]} B"]) + [
-                f"train_pass_kernel {smem[k != 'train']} B",
-                f"dw_wgmma_kernel {smem[1 + (k != 'train')]} B"]
-            phase("build", f"{label} shared memory a CTA (dynamic): {', '.join(sizes)}{extents}")
-        if name == "fused_flex":
-            smem = (ctypes.c_longlong * 5)()
-            build.load_library(name, defines).nerface_fused_flex_shared_bytes(smem)
-            phase("build", f"{label} shared memory a CTA (dynamic): flex_chain_kernel {smem[0]} B, "
-                           f"flex_dx_kernel {smem[1]} B, dw_wgmma_kernel {smem[2]} B, wide_chain_kernel "
-                           f"{smem[3]} B, wide_dx_kernel {smem[4]} B{extents}")
+    n_pass = sum(_report_build(*b) for b in built)
     check(0 < n_pass <= TRAIN_PASS_INSTANTIATIONS,
           f"train_pass_kernel has {n_pass} instantiations (at most {TRAIN_PASS_INSTANTIATIONS})")
     flex = [secs for name, _, _, secs in built if name == "fused_flex"]
     phase("build", f"{len(jobs)} library builds in {wall:.1f} s of nvcc (each build's own seconds "
                    f"above, all started together); the flex builds (fixed / runtime class, h = 256 "
-                   f"and 512 each) {flex[0]:.1f} / {flex[1]:.1f} s; train_pass_kernel instantiations {n_pass} (at "
+                   f"and 512 each; then h = {' and '.join(map(str, sliced_widths()))}) "
+                   f"{' / '.join(f'{x:.1f}' for x in flex)} s; train_pass_kernel instantiations {n_pass} (at "
                    f"most {TRAIN_PASS_INSTANTIATIONS}: S = 64 / 128 fixed, 0 any other S, × model, "
                    f"× K1 / K3b)")
     return {"nvcc_s": wall, "train_pass_instantiations": n_pass,
@@ -2113,7 +2254,7 @@ def _k2_readings(got, ref, tc, rows, S):
     return out
 
 
-def _sample_control(S, control, name="sample_counts", label=None, exact_k3b=False):
+def _sample_control(S, control, name="sample_counts", label=None, exact=()):
     """The readings of one S in [sample_counts] (or in phase `name`, the
     case `label`) above their base limit
     (`k1_grad_limits`, K3_OUT_TOL, [kernel]'s) and within the limit applied,
@@ -2121,8 +2262,9 @@ def _sample_control(S, control, name="sample_counts", label=None, exact_k3b=Fals
     K3f outputs, K3b cotangents). Checks, seed by seed, that wherever the
     base limits catch the lost unit in a kernel's readings (K3b's and
     K4b's: their dW launch's tensors), the limits applied catch it too;
-    with `exact_k3b` K3b's are printed but not held, as the exact dW check
-    (`dw_exact`) holds that launch instead. Returns the summary."""
+    the kernels in `exact` (K3b in [long_rays], K4b at the sliced widths)
+    are printed but not held, as the exact dW check (`dw_exact`,
+    `flex_dw_exact`) holds that launch instead. Returns the summary."""
 
     def ratio(c, key="value"):
         return c[key] / c["tc"] if c["tc"] > 0 else float("inf")
@@ -2133,14 +2275,20 @@ def _sample_control(S, control, name="sample_counts", label=None, exact_k3b=Fals
                           for k in sorted({c["kernel"] for c in decided})) or "none"
     caught, missed = {}, []
     dw_tensors = {"K3b": DW_TENSORS, "K4b": FLEX_DW_TENSORS, f"K4b_{FLEX_WIDE}": FLEX_DW_TENSORS}
+
+    def not_dw(c):  # a reading of the kernel's other launches (at the sliced widths: any depth)
+        if c["kernel"] in (f"K4b_{h}" for h in sliced_widths()):
+            return not c["name"].startswith("w") or c["name"] in ("wa", "wrgb")
+        return c["kernel"] in dw_tensors and c["name"] not in dw_tensors[c["kernel"]]
+
     for c in control:
-        if c.get("fault") is None or (c["kernel"] in dw_tensors and c["name"] not in dw_tensors[c["kernel"]]):
+        if c.get("fault") is None or not_dw(c):
             continue
         n = caught.setdefault((c["kernel"], c["seed"]), [0, 0])
         n[0] += c["fault"] > c["base"]
         n[1] += c["fault"] > c["limit"]
     for (k, seed), (by_base, by_limit) in caught.items():
-        if by_base and not by_limit and not (exact_k3b and k == "K3b"):
+        if by_base and not by_limit and k not in exact:
             missed.append(f"{k} seed {seed}")
     cells = "; ".join(f"{k} s{seed} {b}/{a}" for (k, seed), (b, a) in sorted(caught.items()))
     label = label or f"S={S}"
@@ -2159,10 +2307,11 @@ def _sample_control(S, control, name="sample_counts", label=None, exact_k3b=Fals
 
 
 def _flex_sample_count(S, R, dev, rows, control, h=256, bands=10, seeds=SAMPLE_SEEDS, timed=True, yard=None,
-                       label=None, bare=False):
-    """K4f and K4b of synth512_lcode's He-scaled trunk (FLEX_N_HIDDEN hidden
-    layers, `cases.flex_params`; at h = 512 synth512_lcode_w512's; at
-    `bands` xyz bands) at one (S, R) of SAMPLE_CASES (of
+                       label=None, bare=False, n=FLEX_N_HIDDEN, exact=False):
+    """K4f and K4b of synth512_lcode's He-scaled trunk (n = FLEX_N_HIDDEN
+    hidden layers, `cases.flex_params`; at h = 512 synth512_lcode_w512's,
+    at 768 / 1024 synth512_lcode_w768's / _w1024's; at `bands` xyz bands)
+    at one (S, R) of SAMPLE_CASES (of
     FLEX_W512_SAMPLE_CASES, of XYZ_CASES) against their plain versions,
     `seeds` draws, under [flex_kernel]'s limits: raw rgb and σ within
     `flex_limit(FLEX_OUT_TOL)`, every gradient tensor, d_v0 and d_dir
@@ -2173,23 +2322,24 @@ def _flex_sample_count(S, R, dev, rows, control, h=256, bands=10, seeds=SAMPLE_S
     reads. With `timed`, times each through its wrapper beside its plain
     version and its bound, and with `bare` also as the bare C launch, the
     operands packed beforehand (`flex_launch_split.bare_fwd` / `bare_bwd`).
-    Returns ({K4f}, {K4b})."""
+    With `exact`, the first seed's dW launch against the products of its
+    own workspace images, a lost unit caught (`flex_dw_exact`: K4b's
+    "dw_exact", its summary). Returns ({K4f}, {K4b})."""
     import torch
 
     from nerface_tpu_torch.ops.kernels import fused_flex as F
     from nerface_tpu_torch.tools.perf.cases import flex_params
 
-    n = FLEX_N_HIDDEN
     label = label or f"S={S}"
     wn, bn = F.weight_names(n)
     names = list(wn) + list(bn) + ["v0", "dir"]
-    yard = flex_yardstick(S, n) if yard is None else yard
+    yard = flex_yardstick(S, n, h) if yard is None else yard
     kf, kb = ("K4f", "K4b") if h == 256 else (f"K4f_{h}", f"K4b_{h}")  # `_sample_control`'s kernels
     k4f = {"rays": R, "hidden": h, "bands": bands, "out_rel": 0.0, "tc_rel": 0.0, "max_abs_err": 0.0}
     k4b = {"rays": R, "hidden": h, "bands": bands, "worst": {}, "max_abs_err": 0.0}
     for i in range(seeds):
-        params, v0 = flex_params(SEED + 27 + 100 * i + (h if h != 256 else 0) + 1000 * (bands - 10), dev, n, h,
-                                 bands)
+        params, v0 = flex_params(SEED + 27 + 100 * i + (h if h != 256 else 0) + 1000 * (bands - 10)
+                                 + (n - FLEX_N_HIDDEN), dev, n, h, bands)
         gen = torch.Generator().manual_seed(SEED + 28 + 100 * i + S)
         ro, rd, z, dc = _flex_inputs(R, S, gen, dev, h)
         weights = F.pack_flex_weights(params, n, bands)
@@ -2269,6 +2419,13 @@ def _flex_sample_count(S, R, dev, rows, control, h=256, bands=10, seeds=SAMPLE_S
             for r, backward in ((k4f, False), (k4b, True)):
                 r["bound_by"] = _bound_ms(R * S * k4_flop_per_sample(n, h, backward, bands),
                                           _k4_bytes(R, S, backward, n, h, bands))[1]
+        if i == 0 and exact:
+            from nerface_tpu_torch.tools.perf import flex_launch_split as FS
+
+            fn = FS.bare_bwd(dict(weights=weights, ro=ro, rd=rd, z=z, dc=dc, v0=v0, g=g, n=n, bands=bands))
+            fn()
+            k4b["dw_exact"] = _dw_exact_summary(flex_dw_exact(fn, R, S, h, bands, label=f"K4b {label}", n=n))
+            del fn
         del grads, grads2, flat, flat2, plain, rflat, tc_flat, fault_flat
     w = k4b.pop("worst")
     k4b["worst_max"] = max(w.items(), key=lambda kv: kv[1][0])
@@ -2684,9 +2841,11 @@ LONG_RAYS_CASES = ((257, TRAIN_RAYS), (320, TRAIN_RAYS), (512, TRAIN_RAYS), (102
                    (320, SAMPLE_RAGGED_RAYS), (1000, SAMPLE_RAGGED_RAYS))
 LONG_RAYS_SEEDS = 1
 # the exact dW check beside the limits it stands in for: K3b at TRAIN_RAYS ×
-# S with one 64-row unit lost, DW_EXACT_SEEDS seeds each
+# S with one 64-row unit lost, DW_EXACT_SEEDS seeds each (one keeps the whole
+# run inside its time limit; the exact check is held on every K1 / K3b pass
+# of [sample_counts] and [long_rays] besides)
 DW_EXACT_S = (128, 320, 1024)
-DW_EXACT_SEEDS = 3
+DW_EXACT_SEEDS = 1
 
 
 def _dw_exact_vs_limits(dev):
@@ -2789,7 +2948,7 @@ def long_rays_phase(dev):
               f"K1 worst grad {m1} {m1_v:.4f}·max, K3b worst grad {m3} {m3_v:.4f}·max, within [sample_counts]' "
               f"limits; K1 and K3b bit-identical over 2 launches; Σ d_dir vs d_bd0 {dir_sum:.2e}; {exact} "
               f"(limit {DW_EXACT_TOL}){times}")
-        res["control"][key] = _sample_control(S, control, "long_rays", label, exact_k3b=True)
+        res["control"][key] = _sample_control(S, control, "long_rays", label, exact=("K3b",))
         torch.cuda.empty_cache()
     res["dw_exact_vs_limits"] = _dw_exact_vs_limits(dev)
     res["seconds"] = time.perf_counter() - t0
@@ -2822,9 +2981,10 @@ def flex_dw_products(n, h, kx):
             + [(f"wh{i}", f"WH{i}", f"a{i}", f"gpre{i}") for i in range(n)])
 
 
-def flex_dw_exact(launch, R, S, h, bands=10, label="", catch=True):
-    """`dw_exact` for K4b: after `launch` (`flex_launch_split.bare_bwd`, its
-    `out` and `ws`) ran, each product of `flex_dw_products` held to the f64
+def flex_dw_exact(launch, R, S, h, bands=10, label="", catch=True, n=FLEX_N_HIDDEN):
+    """`dw_exact` for K4b at n hidden layers: after `launch`
+    (`flex_launch_split.bare_bwd`, its `out` and `ws`) ran, each product of
+    `flex_dw_products` held to the f64
     Xᵀ·gY of the workspace's images (`_dw_exact_check`). Returns
     {product: (max, norm, lost-unit max, lost-unit norm)} relative
     readings."""
@@ -2834,7 +2994,7 @@ def flex_dw_exact(launch, R, S, h, bands=10, label="", catch=True):
     from nerface_tpu_torch.ops.kernels.fused_mlp import xin_extent
 
     torch.cuda.synchronize()
-    n, kx = FLEX_N_HIDDEN, xin_extent(bands)
+    kx = xin_extent(bands)
     offs, total = F.workspace_layout(R, S, n, h, kx)
     check(launch.ws.numel() == total,
           f"{label}: the workspace is {launch.ws.numel()} B, fused_flex.workspace_layout says {total}")
@@ -2845,9 +3005,11 @@ def flex_dw_exact(launch, R, S, h, bands=10, label="", catch=True):
     return _dw_exact_check(launch, prods, -(-R // rays) * units_an_item, lost_unit_index(R, S), label, catch)
 
 
-def _flex_dw_exact_vs_limits(dev):
-    """K4b at TRAIN_RAYS × each S of DW_EXACT_S, hidden 256 and 512,
-    DW_EXACT_SEEDS seeds: does one lost 64-row unit (`lost_unit_rows`, its
+def _flex_dw_exact_vs_limits(dev, widths=(256, FLEX_WIDE), samples=DW_EXACT_S, seeds=DW_EXACT_SEEDS,
+                             phase_name="flex_long_rays"):
+    """K4b at TRAIN_RAYS × each S of `samples` (DW_EXACT_S), at each hidden
+    width of `widths` (256 and 512), `seeds` seeds (DW_EXACT_SEEDS), in
+    phase `phase_name`: does one lost 64-row unit (`lost_unit_rows`, its
     cotangent rows zeroed) pass `flex_grad_limits` against the plain
     version (any dW tensor's reading past its limit catches it; the
     tensor-core yardstick at every S, as `[xyz_bands]` holds K4: at S = 128
@@ -2865,12 +3027,12 @@ def _flex_dw_exact_vs_limits(dev):
     R, n, res = TRAIN_RAYS, FLEX_N_HIDDEN, {}
     wn, bn = F.weight_names(n)
     names = list(wn) + list(bn) + ["v0", "dir"]
-    for h in (256, FLEX_WIDE):
-        for S in DW_EXACT_S:
+    for h in widths:
+        for S in samples:
             rows = lost_unit_rows(R, S)
-            r = res[f"h{h}_S{S}"] = {"seeds": DW_EXACT_SEEDS, "limits": 0, "base": 0, "exact": 0,
+            r = res[f"h{h}_S{S}"] = {"seeds": seeds, "limits": 0, "base": 0, "exact": 0,
                                      "exact_worst": 0.0, "exact_lost_least": float("inf")}
-            for i in range(DW_EXACT_SEEDS):
+            for i in range(seeds):
                 label = f"K4b h={h} S={S} seed {i}"
                 params, v0 = flex_params(SEED + 43 + 100 * i + h, dev, n, h)
                 gen = torch.Generator().manual_seed(SEED + 44 + 100 * i + S)
@@ -2907,14 +3069,12 @@ def _flex_dw_exact_vs_limits(dev):
                 r["exact_lost_least"] = min(r["exact_lost_least"], least)
                 del fn
                 torch.cuda.empty_cache()
-            check(r["exact"] == DW_EXACT_SEEDS, f"flex_long_rays: the exact check missed a lost unit at h={h} "
-                                                f"S={S}: {r}")
-            phase("flex_long_rays", f"the exact dW check at {R} × S={S}, K4b h={h}, {DW_EXACT_SEEDS} seeds, one "
-                                    f"64-row unit lost: `flex_grad_limits` against the plain version catch it in "
-                                    f"{r['limits']} (their base limits in {r['base']}), the exact check in "
-                                    f"{r['exact']}: the kernel within {r['exact_worst']:.3g} of Xᵀ·gY of its own "
-                                    f"images, the lost unit at least {r['exact_lost_least']:.3g} off (limit "
-                                    f"{DW_EXACT_TOL})")
+            check(r["exact"] == seeds, f"{phase_name}: the exact check missed a lost unit at h={h} S={S}: {r}")
+            phase(phase_name, f"the exact dW check at {R} × S={S}, K4b h={h}, {seeds} seeds, one 64-row unit lost: "
+                              f"`flex_grad_limits` against the plain version catch it in {r['limits']} (their base "
+                              f"limits in {r['base']}), the exact check in {r['exact']}: the kernel within "
+                              f"{r['exact_worst']:.3g} of Xᵀ·gY of its own images, the lost unit at least "
+                              f"{r['exact_lost_least']:.3g} off (limit {DW_EXACT_TOL})")
     return res
 
 
@@ -2971,6 +3131,67 @@ def flex_long_rays_phase(dev):
     res["seconds"] = time.perf_counter() - t0
     phase("flex_long_rays", f"the phase took {res['seconds']:.1f} s")
     return res
+
+# [flex_widths]: K4f / K4b at the sliced widths (h = 768 and 1024,
+# synth512_lcode_w768's / _w1024's trunk): (S, rays, hidden layers, xyz
+# bands) on TRAIN_RAYS at the paper schedule's S = 64 / 128, the runtime S =
+# 48 and the long S = 320, on SAMPLE_RAGGED_RAYS at S = 40, at 16 bands,
+# and at 0 and 8 hidden layers; one seed a case, timed on the n = 3,
+# 10-band TRAIN_RAYS cases. At h = 1024 also S = 1024 on FLEX_SLICED_LONG_RAYS
+# (its workspace at 2048 rays would be ≈ 49 GB).
+FLEX_SLICED_CASES = ((64, TRAIN_RAYS, 3, 10), (128, TRAIN_RAYS, 3, 10), (48, TRAIN_RAYS, 3, 10),
+                     (320, TRAIN_RAYS, 3, 10), (40, SAMPLE_RAGGED_RAYS, 3, 10), (64, TRAIN_RAYS, 3, 16),
+                     (64, TRAIN_RAYS, 0, 10), (32, TRAIN_RAYS, 8, 10))
+FLEX_SLICED_LONG_RAYS = 256
+FLEX_SLICED_DW_SEEDS = 1  # the exact dW check at h = 1024, 2048 × 128 (every case's K4b launch too)
+
+
+def flex_widths_phase(dev):
+    """K4f and K4b at h = 768 and 1024 (the sliced kernels) at every case
+    of FLEX_SLICED_CASES, and at h = 1024 S = 1024 on
+    FLEX_SLICED_LONG_RAYS rays, against their plain versions under
+    `_flex_sample_count`'s limits (the tensor-core yardstick decides at
+    these widths, `flex_yardstick`; K4b bit-identical over 2 launches) and
+    the lost-unit control (`_sample_control`); timed through the wrappers
+    and bare beside the plain versions and the bound. Then the exact dW
+    check at h = 1024 (`_flex_dw_exact_vs_limits`, 2048 × S = 128,
+    FLEX_SLICED_DW_SEEDS seeds, a lost unit caught). Returns {"K4f_768":
+    {case: {...}}, ..., "control": ..., "dw_exact_vs_limits": ...}."""
+    import torch
+
+    t0 = time.perf_counter()
+    res = {f"{k}_{h}": {} for h in sliced_widths() for k in ("K4f", "K4b")}
+    res["control"] = {}
+    for h in sliced_widths():
+        cases = FLEX_SLICED_CASES + (((1024, FLEX_SLICED_LONG_RAYS, 3, 10),) if h == 1024 else ())
+        for S, R, n, bands in cases:
+            key = f"S{S}_R{R}_n{n}_L{bands}"
+            label = f"h={h} S={S} R={R} n={n} L={bands}"
+            timed = n == FLEX_N_HIDDEN and bands == 10 and (R == TRAIN_RAYS or S == 1024) and S != 48
+            control = []
+            k4f, k4b = _flex_sample_count(S, R, dev, lost_unit_rows(R, S), control, h=h, bands=bands, timed=timed,
+                                          label=label, bare=timed, n=n, exact=True)
+            res[f"K4f_{h}"][key] = dict(k4f, samples=S, n_hidden=n)
+            res[f"K4b_{h}"][key] = dict(k4b, samples=S, n_hidden=n)
+            m, (m_v, _) = k4b["worst_max"]
+            w, (_, w_v) = k4b["worst_norm"]
+            times = "".join(f"; {k} {r['ms']:.3f} ms, bare {r['bare_ms']:.3f}, plain {r['plain_ms']:.3f}, bound "
+                            f"{r['bound_ms']:.3f} ({r['bound_by']})" for k, r in (("K4f", k4f), ("K4b", k4b))
+                            if "ms" in r)
+            ex_worst, ex_at, ex_least, ex_lost = k4b["dw_exact"]
+            phase("flex_widths",
+                  f"{label}: K4f {k4f['out_rel']:.2e}·max (the tensor cores' own {k4f['tc_rel']:.2e}), K4b worst "
+                  f"grad {m} {m_v:.4f}·max, worst ‖err‖ {w} {w_v:.4f}·‖r‖, within `flex_limit` / "
+                  f"`flex_grad_limits`; K4b bit-identical over 2 launches; its dW within {ex_worst:.3g} ({ex_at}) "
+                  f"of Xᵀ·gY of its own images, a lost unit at least {ex_least:.3g} off ({ex_lost}; limit "
+                  f"{DW_EXACT_TOL}){times}")
+            res["control"][f"h{h}_{key}"] = _sample_control(S, control, "flex_widths", label, exact=(f"K4b_{h}",))
+            torch.cuda.empty_cache()
+    res["dw_exact_vs_limits"] = _flex_dw_exact_vs_limits(dev, (1024,), (128,), FLEX_SLICED_DW_SEEDS, "flex_widths")
+    res["seconds"] = time.perf_counter() - t0
+    phase("flex_widths", f"the phase took {res['seconds']:.1f} s")
+    return res
+
 
 def _train_cfg(steps, logdir, cfg_dict=SYNTH512_PAPER):
     d = copy.deepcopy(cfg_dict)
@@ -4240,7 +4461,7 @@ def supervised_train_phase(dev, tmp, ds_dir, card):
 
 DDP_STEPS = 40
 DDP_K = 10
-DDP_GLOO_STEPS = 10
+DDP_GLOO_STEPS = 5  # the spawned ranks' start-up dominates; more steps only lengthen the run
 DDP_WORLD_MAX = 4
 DDP_TIMED_STEPS = 11  # the first timed one warms up
 
@@ -4784,11 +5005,15 @@ def flex_limit(base, n_hidden, tc=None):
     return tc_limit(base, tc)
 
 
-def flex_yardstick(n_samples, n_hidden):
+def flex_yardstick(n_samples, n_hidden, h=256):
     """Whether the tensor-core yardstick decides K4's readings: at
-    FLEX_TC_DEPTH hidden layers and more, and at every S beside the
-    [flex_kernel] cases' 32 / 64 / 128 (`tc_limit`)."""
-    return n_hidden >= FLEX_TC_DEPTH or n_samples not in (32, 64, 128)
+    FLEX_TC_DEPTH hidden layers and more, at every S beside the
+    [flex_kernel] cases' 32 / 64 / 128 (`tc_limit`), and at every S at the
+    sliced widths h = 768 / 1024, whose sums have 3–4 × h = 256's terms (at
+    h = 1024, n = 3 on 2048 × 64 / 128 one flipped rounding read w1b's ‖err‖
+    0.0201 and w1a's max 0.0235 against the base 0.02; on an NVIDIA H100
+    80GB HBM3, PERF.md §6)."""
+    return n_hidden >= FLEX_TC_DEPTH or n_samples not in (32, 64, 128) or h in sliced_widths()
 
 
 def flex_grad_limits(n_rays, name, n_hidden, tc_err=None, n_samples=64):
@@ -5030,6 +5255,9 @@ DEAD_UNIT_PASSES = 200
 # so no warpgroup walks a dead item; 2085 items at S = 64 take 16 rounds
 # of 132 CTAs, the last one cut short
 DEAD_UNIT_WIDE_CASE = (2085, 64)
+# the same grid at h = 1024 (the sliced kernels), DEAD_UNIT_SLICED_PASSES
+# passes (a pass there is ≈ 15 × h = 256's work)
+DEAD_UNIT_SLICED_PASSES = 20
 
 
 def flex_dead_units_phase(dev):
@@ -5038,14 +5266,17 @@ def flex_dead_units_phase(dev):
     dead-unit walk of K4b's recompute and dX
     (`fused_flex.cu::skip_stages`), which trapped in the mbarrier watchdog
     before its repair; then the same at h = 512 on DEAD_UNIT_WIDE_CASE, a
-    persistent grid past one round with a cut-short last round. Every
-    pass's output and gradients equal the first pass's bit for bit.
-    Nothing catches a fault: it fails the run."""
+    persistent grid past one round with a cut-short last round, and at h =
+    1024 (DEAD_UNIT_SLICED_PASSES passes). Every pass's output and
+    gradients equal the first pass's bit for bit. Nothing catches a fault:
+    it fails the run."""
     from nerface_tpu_torch.ops.kernels import fused_flex as F
 
     n = 8
     result = {}
-    for R, S, h in [(R, S, 256) for R, S in DEAD_UNIT_CASES] + [(*DEAD_UNIT_WIDE_CASE, FLEX_WIDE)]:
+    for R, S, h in ([(R, S, 256) for R, S in DEAD_UNIT_CASES] + [(*DEAD_UNIT_WIDE_CASE, FLEX_WIDE)]
+                    + [(*DEAD_UNIT_WIDE_CASE, 1024)]):
+        passes = DEAD_UNIT_SLICED_PASSES if h in sliced_widths() else DEAD_UNIT_PASSES
         if h == 256:
             sched = F.unit_schedule(R, S)
             dead = sorted({(c, r, wg) for c, r, wg, _, ok in sched if not ok})
@@ -5055,13 +5286,13 @@ def flex_dead_units_phase(dev):
             check(F.flex_ctas(R, S, h) == F.FLEX_CTAS < items and items % F.FLEX_CTAS,
                   f"flex_dead_units {R}x{S} h={h}: {items} items on {F.flex_ctas(R, S, h)} CTAs")
             dead = [(items % F.FLEX_CTAS, items // F.FLEX_CTAS, None)]  # the first CTA with a round fewer
-        wall, n_tensors = _repeat_passes(dev, R, S, h, n, DEAD_UNIT_PASSES, "flex_dead_units")
+        wall, n_tensors = _repeat_passes(dev, R, S, h, n, passes, "flex_dead_units")
         label = f"{R}x{S}" + ("" if h == 256 else f"_h{h}")
-        result[label] = {"passes": DEAD_UNIT_PASSES, "seconds": wall, "dead_item": dead[0]}
+        result[label] = {"passes": passes, "seconds": wall, "dead_item": dead[0]}
         where = (f"the dead warpgroup-1 item in CTA {dead[0][0]}, round {dead[0][1]}" if h == 256 else
                  f"h = {h}: {F.FLEX_CTAS} CTAs, CTA {dead[0][0]} on takes {dead[0][1]} rounds, the ones "
                  f"before one more")
-        phase("flex_dead_units", f"{R}x{S}, n = {n}: {DEAD_UNIT_PASSES} passes of K4f + K4b in "
+        phase("flex_dead_units", f"{R}x{S}, n = {n}: {passes} passes of K4f + K4b in "
                                  f"{wall:.2f} s, each bit for bit the first (outputs and "
                                  f"{n_tensors - 1} gradient tensors); {where}")
     return result
@@ -5366,7 +5597,7 @@ def flex_train_phase(dev, ds, tmp, profile, card):
 
 # frames a config's serve check serves and holds to the plain version and
 # f32 (`_serve_against_plain_and_f32`)
-SERVE_FRAMES = 2
+SERVE_FRAMES = 1  # one frame a config keeps the whole run inside its time limit
 FLEX_64_128_WINDOW_STEPS = 20  # [flex_64_128]'s windowed run against step at a time
 FLEX_64_128_WINDOW_K = 10
 
@@ -5413,6 +5644,46 @@ def flex_64_256_phase(dev, ds, tmp, card):
     res["k4f_launches"] += sv["launches"] + 2
     res["k4b_launches"] += 2
     return res
+
+
+def flex_w1024_phase(dev, ds, tmp, card):
+    """synth512_lcode_w1024 (SYNTH512_LCODE_W1024: hidden_size 1024 in both
+    models, 64 + 64 samples) through `_flex_config_phase`: every bf16 pass
+    through K4f / K4b's h = 1024 kernels (`sliced_chain_kernel`,
+    `sliced_dx_kernel`), none on the plain path; one served frame (the
+    plain frames in FLEX_SLICED_PLAIN_CHUNK-ray tiles) within
+    FLEX_PLAIN_FRAME_MEAN / FLEX_FRAME_MAX of K4f's plain version, through
+    the tensor-core yardstick (at h = 1024 the kernel's frame read 0.0118
+    levels from it, the plain version's own on the tensor cores 0.0127; an
+    NVIDIA H100 80GB HBM3 at 700 W, PERF.md §6), and, the mean within
+    FLEX_SLICED_F32_MARGIN of the plain version's own distance from f32,
+    the max within FRAME_MAX of f32."""
+    return _flex_config_phase(dev, ds, tmp, card, SYNTH512_LCODE_W1024, "flex_w1024",
+                              f32_limits=(None, FRAME_MAX), plain_chunk=FLEX_SLICED_PLAIN_CHUNK,
+                              f32_over_plain=FLEX_SLICED_F32_MARGIN, plain_yard=True)
+
+
+def flex_w768_phase(dev, ds, tmp, card):
+    """synth512_lcode_w768 (SYNTH512_LCODE_W768: hidden_size 768) as
+    [flex_64_256]'s hidden-512 part: one frame served within [flex_w1024]'s
+    limits and one bf16 step against the f32 step ([train_step]'s limits),
+    every bf16 pass through K4f / K4b's h = 768 kernels, none on the plain
+    path."""
+    from nerface_tpu_torch.ops.kernels import fused_flex as F
+    from nerface_tpu_torch.ops.kernels.fused_mlp import fused_paper_render
+
+    sv = _serve_against_plain_and_f32(
+        dev, tmp, card, SYNTH512_LCODE_W768, "flex_w768", SEED + 12, F.fused_flex_forward,
+        (F.fused_flex_backward, fused_paper_render), plain_flex_passes, flex_plain_version,
+        (FLEX_PLAIN_FRAME_MEAN, FLEX_FRAME_MAX), (None, FRAME_MAX), "K4f", "hidden 768, 64 + 64 samples",
+        plain_chunk=FLEX_SLICED_PLAIN_CHUNK, f32_over_plain=FLEX_SLICED_F32_MARGIN, plain_yard=True)
+    F.fused_flex_backward.launches = 0
+    with plain_flex_passes() as plain:
+        step = train_step_phase(dev, ds, SYNTH512_LCODE_W768, "flex_w768")
+    check(plain[0] == 0, f"flex_w768: {plain[0]} bf16 flex passes of the step on the plain path")
+    # the frame's launches and the step's two passes of each kernel
+    return {"serve": sv, "step_vs_f32": step, "k4f_launches": sv["launches"] + 2,
+            "k4b_launches": F.fused_flex_backward.launches}
 
 
 def flex_pe16_phase(dev, ds, tmp, card):
@@ -5473,9 +5744,16 @@ def _window_vs_step(dev, ds, tmp, cfg_dict, name, wrappers, plain_passes, family
     return runs
 
 
+def _fault_readings(faulty):
+    """`_serve_against_plain_and_f32`'s planted-fault readings, one item a
+    frame: {fault: (mean, max levels)}, or None where the yardstick did
+    not decide."""
+    return [x and {k: (round(m, 4), mx) for k, (m, mx) in x.items()} for x in faulty]
+
+
 def _serve_against_plain_and_f32(dev, tmp, card, cfg_dict, name, seed, kernel, others, plain_passes,
                                  plain_version, plain_limits, f32_limits, what, about, n_frames=SERVE_FRAMES,
-                                 plain_chunk=8192):
+                                 plain_chunk=8192, f32_over_plain=None, plain_yard=False):
     """A 512² avatar of `cfg_dict` (He-scaled weights from `seed`) served in
     bf16 through `serve_jsonl`: `n_frames` of 3 frames, the forward kernel's wrapper
     `kernel` (`what`) launched 2 × tiles a frame and none of `others`, no
@@ -5485,8 +5763,16 @@ def _serve_against_plain_and_f32(dev, tmp, card, cfg_dict, name, seed, kernel, o
     roundings, torch's f32 sums) and within `f32_limits` of the same
     model's f32 plain frame, the plain version's own frame against f32
     beside it (the bf16 roundings' share), the plain frames in tiles of
-    `plain_chunk` rays (which bounds the plain activations). Returns the
-    launches, frame_ms and those readings."""
+    `plain_chunk` rays (which bounds the plain activations). With
+    `f32_over_plain`, a frame's mean limit against f32 is instead the plain
+    version's own frame's mean distance from f32 plus that many levels.
+    With `plain_yard` (K4f's sliced widths), a frame past `plain_limits`
+    is held to them through the tensor-core yardstick (`tc_limit`): the
+    same frame with the plain version's matmuls on the tensor cores
+    (`flex_plain_version(tensor_cores=True)`), read against the plain
+    version's; and that frame through each wrong K4f of FLEX_FRAME_FAULTS
+    (`flex_planted_fault`) must fail the limits it was held to. Returns
+    the launches, frame_ms and those readings."""
     import numpy as np
     import torch
 
@@ -5519,7 +5805,6 @@ def _serve_against_plain_and_f32(dev, tmp, card, cfg_dict, name, seed, kernel, o
         imgs = [server.render(frame=f, seed=sd, maps=("rgb_fine",))["rgb_fine"] for f, sd in frames]
         serve_plain = plain[0]
     check(serve_plain == 0, f"{name}: {serve_plain} bf16 passes served on the plain path")
-    del server
     cfg_ref = CfgNode(cfg_dict)
     cfg_ref.nerf.validation["chunksize"] = plain_chunk
     before = kernel.launches
@@ -5528,6 +5813,32 @@ def _serve_against_plain_and_f32(dev, tmp, card, cfg_dict, name, seed, kernel, o
     with plain_version():
         ref_server = AvatarServer(cfg_ref, ckpt, dataset=sds, dtype=torch.bfloat16, device=dev, log=False)
         plain_imgs = [ref_server.render(frame=f, seed=sd, maps=("rgb_fine",))["rgb_fine"] for f, sd in frames]
+    plain_lims, yard = [plain_limits] * len(frames), [None] * len(frames)
+    for j, ((f, sd), img, pimg) in enumerate(zip(frames, imgs, plain_imgs)):
+        d = np.abs(img.astype(np.int16) - pimg.astype(np.int16))
+        if not plain_yard or (d.mean() <= plain_limits[0] and d.max() <= plain_limits[1]):
+            continue  # within the base limits: the yardstick decides nothing
+        with plain_version(tensor_cores=True):
+            timg = ref_server.render(frame=f, seed=sd, maps=("rgb_fine",))["rgb_fine"]
+        d = np.abs(timg.astype(np.int16) - pimg.astype(np.int16))
+        yard[j] = (float(d.mean()), int(d.max()))
+        plain_lims[j] = (tc_limit(plain_limits[0], yard[j][0]), tc_limit(plain_limits[1], yard[j][1]))
+    check(kernel.launches == before, f"{name}: the plain frames launched {what}")
+    # each frame the yardstick decided, rendered again through a modelled
+    # wrong K4f (FLEX_FRAME_FAULTS), against the plain version's
+    faulty = [None] * len(frames)
+    for j, ((f, sd), pimg) in enumerate(zip(frames, plain_imgs)):
+        if yard[j] is None:
+            continue
+        faulty[j] = {}
+        for kind in FLEX_FRAME_FAULTS:
+            with flex_planted_fault(kind):
+                fimg = (server if kind == "lost_unit" else ref_server).render(
+                    frame=f, seed=sd, maps=("rgb_fine",))["rgb_fine"]
+            d = np.abs(fimg.astype(np.int16) - pimg.astype(np.int16))
+            faulty[j][kind] = (float(d.mean()), int(d.max()))
+    del server
+    before = kernel.launches
     ref_server = AvatarServer(cfg_ref, ckpt, dataset=sds, dtype=None, device=dev, log=False)
     plain_vs_f32 = []  # the plain version's own frame against f32: the bf16 roundings' share
     shows = []  # levels off the background, and the frame's spread
@@ -5541,29 +5852,43 @@ def _serve_against_plain_and_f32(dev, tmp, card, cfg_dict, name, seed, kernel, o
             out.append((float(diff.mean()), int(diff.max())))
     check(kernel.launches == before, f"{name}: the plain frames launched {what}")
     del ref_server
+    # each frame's f32 limits: fixed, or over the plain version's own distance
+    f32_lims = [f32_limits if f32_over_plain is None else (own[0] + f32_over_plain, f32_limits[1])
+                for own in plain_vs_f32]
     phase(name, f"{len(frames)} frames ({about}) at 512x512 via serve_jsonl ({sc} + {sf} samples: {what} at S "
                 f"= {sc} and {sc + sf}), frame_ms {frame_ms} on {card}, {what} launches {served} = 2 x {tiles} "
                 f"tiles x {len(frames)}, plain bf16 passes 0; each frame, mean / max |diff| levels, vs {what}'s "
-                f"plain version's {[(round(m, 4), x) for m, x in vs_plain]} (limits {plain_limits[0]}, "
-                f"{plain_limits[1]}), vs the f32 plain frame {[(round(m, 4), x) for m, x in vs_f32]} (limits "
-                f"{f32_limits[0]}, {f32_limits[1]}); the plain version's own frame vs f32 "
+                f"plain version's {[(round(m, 4), x) for m, x in vs_plain]} (limits "
+                f"{[(round(m, 4), x) for m, x in plain_lims]}"
+                + (f"; the plain version on the tensor cores reads {[y and (round(y[0], 4), y[1]) for y in yard]}"
+                   f", a wrong K4f (mean, max levels) {_fault_readings(faulty)}" if plain_yard else "")
+                + f"), vs the f32 plain frame {[(round(m, 4), x) for m, x in vs_f32]} (limits "
+                f"{[(round(m, 4), x) for m, x in f32_lims]}); the plain version's own frame vs f32 "
                 f"{[(round(m, 4), x) for m, x in plain_vs_f32]}; mean |frame - background| and std levels "
                 f"{[(round(o, 2), round(d, 2)) for o, d in shows]}")
-    for (f, sd), (off_bg, spread), a, b in zip(frames, shows, vs_plain, vs_f32):
+    for (f, sd), (off_bg, spread), a, b, plain_lim, f32_lim, fault in zip(frames, shows, vs_plain, vs_f32,
+                                                                          plain_lims, f32_lims, faulty):
         check(off_bg >= 10.0 and spread >= 10.0,
               f"{name}: frame {f} {off_bg} levels off the background, std {spread}: the MLP shows little")
-        for (mean, mx), (lim_mean, lim_max), against in ((a, plain_limits, "plain version"),
-                                                         (b, f32_limits, "f32 plain path")):
+        for kind, (mean, mx) in (fault or {}).items():
+            check(mean > plain_lim[0] or mx > plain_lim[1],
+                  f"{name}: frame {f} seed {sd}: a wrong K4f ({kind}) reads mean {mean}, max {mx}, within the "
+                  f"yardstick's limits {plain_lim}")
+        for (mean, mx), (lim_mean, lim_max), against in ((a, plain_lim, "plain version"),
+                                                         (b, f32_lim, "f32 plain path")):
             check(mx <= lim_max and mean <= lim_mean,
                   f"{name}: frame {f} seed {sd} vs the {against}: mean {mean}, max {mx} (limits {lim_mean}, "
                   f"{lim_max})")
     torch.cuda.empty_cache()
     return {"launches": served, "frame_ms": frame_ms, "vs_plain_version_levels": vs_plain,
-            "vs_f32_levels": vs_f32, "plain_version_vs_f32_levels": plain_vs_f32, "tiles": tiles}
+            "vs_f32_levels": vs_f32, "plain_version_vs_f32_levels": plain_vs_f32, "f32_limits": f32_lims,
+            "plain_limits": plain_lims, "tensor_core_vs_plain_version_levels": yard,
+            "planted_faults_vs_plain_version_levels": faulty, "tiles": tiles}
 
 
 def _flex_config_phase(dev, ds, tmp, card, cfg_dict, name, plain_limits=(FLEX_PLAIN_FRAME_MEAN, FLEX_FRAME_MAX),
-                       f32_limits=(FRAME_MEAN, FRAME_MAX)):
+                       f32_limits=(FRAME_MEAN, FRAME_MAX), plain_chunk=8192, f32_over_plain=None,
+                       plain_yard=False):
     """A Flexible-family config `cfg_dict` end to end on the card: every
     bf16 pass through K4f / K4b and none left to the model's plain forward
     (`plain_flex_passes`). Serves SERVE_FRAMES frames of 512² through `serve_jsonl`
@@ -5571,7 +5896,8 @@ def _flex_config_phase(dev, ds, tmp, card, cfg_dict, name, plain_limits=(FLEX_PL
     (mean, max levels; FLEX_PLAIN_FRAME_MEAN / FLEX_FRAME_MAX by default) of
     the same frame through K4f's plain version (`flex_plain_version`) and
     within `f32_limits` of the same model's f32 plain frame
-    ([serve_64_128]'s limits by default); one bf16 step
+    ([serve_64_128]'s limits by default; `_serve_against_plain_and_f32`'s
+    `plain_chunk`, `f32_over_plain` and `plain_yard`); one bf16 step
     against the f32 plain step ([train_step]'s limits); FLEX_TRAIN_STEPS
     steps of `train()` (the printed loss falls), then the steady step's ms
     beside the frame's; FLEX_64_128_WINDOW_STEPS steps windowed (K =
@@ -5590,7 +5916,8 @@ def _flex_config_phase(dev, ds, tmp, card, cfg_dict, name, plain_limits=(FLEX_PL
     sv = _serve_against_plain_and_f32(
         dev, tmp, card, cfg_dict, name, SEED + 12, F.fused_flex_forward, (F.fused_flex_backward, fused_paper_render),
         plain_flex_passes, flex_plain_version, plain_limits, f32_limits, "K4f",
-        f"hidden {cfg.models.coarse.hidden_size}, {cfg.models.coarse.num_encoding_fn_xyz} xyz bands")
+        f"hidden {cfg.models.coarse.hidden_size}, {cfg.models.coarse.num_encoding_fn_xyz} xyz bands",
+        plain_chunk=plain_chunk, f32_over_plain=f32_over_plain, plain_yard=plain_yard)
     served, frame_ms = sv["launches"], sv["frame_ms"]
     sc, sf = cfg.nerf.validation.num_coarse, cfg.nerf.validation.num_fine
 
@@ -5646,7 +5973,7 @@ def _flex_config_phase(dev, ds, tmp, card, cfg_dict, name, plain_limits=(FLEX_PL
                 f"bf16 flex passes 0 / 0; the phase took {seconds:.1f} s on {card}")
     # launches: the frames served, the bf16 step's two passes, train() and the two window runs
     return {"serve_launches": served, "frame_ms": frame_ms, "vs_f32_levels": sv["vs_f32_levels"],
-            "vs_plain_version_levels": sv["vs_plain_version_levels"],
+            "vs_plain_version_levels": sv["vs_plain_version_levels"], "f32_limits": sv["f32_limits"],
             "plain_version_vs_f32_levels": sv["plain_version_vs_f32_levels"], "step_vs_f32": step,
             "k4f_launches": served + 2 + k4f + sum(r["launches"][0] for r in runs.values()),
             "k4b_launches": 2 + k4b + sum(r["launches"][1] for r in runs.values()),
@@ -6527,12 +6854,15 @@ def main() -> int:
         fk = flex_kernel_phase(dev)
         du = flex_dead_units_phase(dev)
         fl = flex_long_rays_phase(dev)
+        fwd = flex_widths_phase(dev)
         fs = flex_serve_phase(dev, tmp, args.profile)
         ft = flex_train_phase(dev, ds, tmp, args.profile, card)
         f64 = flex_64_128_phase(dev, ds, tmp, card)
         fw = flex_w512_phase(dev, ds, tmp, card)
         fp16 = flex_pe16_phase(dev, ds, tmp, card)
         f256 = flex_64_256_phase(dev, ds, tmp, card)
+        fw1024 = flex_w1024_phase(dev, ds, tmp, card)
+        fw768 = flex_w768_phase(dev, ds, tmp, card)
         stock_eval_phase(dev, tmp, card)
         tiny_nerf_phase(dev, card)
 
@@ -6829,10 +7159,11 @@ def main() -> int:
             # 16 xyz bands and at 64 + 256 (S = 64 and 320, and its hidden-512
             # frames and step)
             "launches": fs["launches"] + ft["k4f_launches"] + f64["k4f_launches"] + fw["k4f_launches"]
-            + fp16["k4f_launches"] + f256["k4f_launches"],
+            + fp16["k4f_launches"] + f256["k4f_launches"] + fw1024["k4f_launches"] + fw768["k4f_launches"],
             "launches_by_path": {"flex_serve": fs["launches"], "flex_train": ft["k4f_launches"],
                                  "flex_64_128": f64["k4f_launches"], "flex_w512": fw["k4f_launches"],
-                                 "flex_pe16": fp16["k4f_launches"], "flex_64_256": f256["k4f_launches"]},
+                                 "flex_pe16": fp16["k4f_launches"], "flex_64_256": f256["k4f_launches"],
+                                 "flex_w1024": fw1024["k4f_launches"], "flex_w768": fw768["k4f_launches"]},
             "max_abs_err": fk["abs_err"],  # of raw rgb and σ, all cases
             "max_rel_err": fk["err"],  # relative to max|plain| per case
             # a train step's two passes at 2048 rays: coarse (S=64) + fine (S=128)
@@ -6884,6 +7215,26 @@ def main() -> int:
                      "vs_plain_version_levels": fw["vs_plain_version_levels"],
                      "by_sample_count": sc["K4f_512"], "by_xyz_bands": xb[f"K4f_{FLEX_WIDE}"],
                      "by_long_rays": fl[f"K4f_{FLEX_WIDE}"]},
+            # hidden 768 and 1024 (sliced_chain_kernel): [flex_widths]' train
+            # step pair (2048 rays at S = 64 + 128) through the wrapper and
+            # bare, its bound by operations at the bf16 peak, every case;
+            # synth512_lcode_w1024's / _w768's served frame
+            **{f"h{h}": {"ms": fwd[f"K4f_{h}"]["S64_R2048_n3_L10"]["ms"] + fwd[f"K4f_{h}"]["S128_R2048_n3_L10"]["ms"],
+                         "bare_ms": fwd[f"K4f_{h}"]["S64_R2048_n3_L10"]["bare_ms"]
+                         + fwd[f"K4f_{h}"]["S128_R2048_n3_L10"]["bare_ms"],
+                         "plain_ms": fwd[f"K4f_{h}"]["S64_R2048_n3_L10"]["plain_ms"]
+                         + fwd[f"K4f_{h}"]["S128_R2048_n3_L10"]["plain_ms"],
+                         "bound_ms": fwd[f"K4f_{h}"]["S64_R2048_n3_L10"]["bound_ms"]
+                         + fwd[f"K4f_{h}"]["S128_R2048_n3_L10"]["bound_ms"],
+                         "bound_by": fwd[f"K4f_{h}"]["S128_R2048_n3_L10"]["bound_by"],
+                         "launches": (fw1024 if h == 1024 else fw768)["k4f_launches"],
+                         "by_case": fwd[f"K4f_{h}"]} for h in sliced_widths()},
+            "w1024_frame": {"frame_ms": fw1024["frame_ms"], "vs_f32_levels": fw1024["vs_f32_levels"],
+                            "vs_plain_version_levels": fw1024["vs_plain_version_levels"],
+                            "plain_version_vs_f32_levels": fw1024["plain_version_vs_f32_levels"],
+                            "f32_limits": fw1024["f32_limits"]},
+            "w768_frame": {k: fw768["serve"][k] for k in ("frame_ms", "vs_f32_levels", "vs_plain_version_levels",
+                                                          "plain_version_vs_f32_levels", "f32_limits")},
             "card": card,
         },
         {
@@ -6892,10 +7243,11 @@ def main() -> int:
             "source": "nerface_tpu_torch/csrc/fused_flex.cu",
             "replaces": "nerface_tpu/ops/pallas/fused_flex.py:143",
             "launches": ft["k4b_launches"] + f64["k4b_launches"] + fw["k4b_launches"] + fp16["k4b_launches"]
-            + f256["k4b_launches"],
+            + f256["k4b_launches"] + fw1024["k4b_launches"] + fw768["k4b_launches"],
             "launches_by_path": {"flex_train": ft["k4b_launches"], "flex_64_128": f64["k4b_launches"],
                                  "flex_w512": fw["k4b_launches"], "flex_pe16": fp16["k4b_launches"],
-                                 "flex_64_256": f256["k4b_launches"]},
+                                 "flex_64_256": f256["k4b_launches"], "flex_w1024": fw1024["k4b_launches"],
+                                 "flex_w768": fw768["k4b_launches"]},
             "max_abs_err": fk["grad_abs_err"],  # over every gradient tensor
             "worst_grad_rel": fk["grad_rel"],  # (max error, norm error) per pass
             "ms": fk["bwd_ms"]["coarse"] + fk["bwd_ms"]["fine"],
@@ -6951,6 +7303,25 @@ def main() -> int:
                      "step_ms": fw["step_ms"], "step_vs_f32": fw["step_vs_f32"], "window": fw["window"],
                      "by_sample_count": sc["K4b_512"], "sample_count_control": sc["control_512"],
                      "by_xyz_bands": xb[f"K4b_{FLEX_WIDE}"], "by_long_rays": fl[f"K4b_{FLEX_WIDE}"]},
+            # hidden 768 and 1024 (sliced_chain_kernel's recompute,
+            # sliced_dx_kernel, dW): [flex_widths]' train step pair, every
+            # case, its lost-unit control and the exact dW check at 1024;
+            # synth512_lcode_w1024's steps and window, _w768's step
+            **{f"h{h}": {"ms": fwd[f"K4b_{h}"]["S64_R2048_n3_L10"]["ms"] + fwd[f"K4b_{h}"]["S128_R2048_n3_L10"]["ms"],
+                         "bare_ms": fwd[f"K4b_{h}"]["S64_R2048_n3_L10"]["bare_ms"]
+                         + fwd[f"K4b_{h}"]["S128_R2048_n3_L10"]["bare_ms"],
+                         "plain_ms": fwd[f"K4b_{h}"]["S64_R2048_n3_L10"]["plain_ms"]
+                         + fwd[f"K4b_{h}"]["S128_R2048_n3_L10"]["plain_ms"],
+                         "bound_ms": fwd[f"K4b_{h}"]["S64_R2048_n3_L10"]["bound_ms"]
+                         + fwd[f"K4b_{h}"]["S128_R2048_n3_L10"]["bound_ms"],
+                         "bound_by": fwd[f"K4b_{h}"]["S128_R2048_n3_L10"]["bound_by"],
+                         "launches": (fw1024 if h == 1024 else fw768)["k4b_launches"],
+                         "by_case": fwd[f"K4b_{h}"]} for h in sliced_widths()},
+            "sliced_control": fwd["control"],
+            "sliced_dw_exact_vs_limits": fwd["dw_exact_vs_limits"],
+            "w1024_train": {"step_ms": fw1024["step_ms"], "step_vs_f32": fw1024["step_vs_f32"],
+                            "window": fw1024["window"], "loss_printed": fw1024["loss_printed"]},
+            "w768_step_vs_f32": fw768["step_vs_f32"],
             "card": card,
         },
         {

@@ -17,11 +17,14 @@
 // (not off feat, unlike the paper model), feat = relu(a_n @ WF + bf), x0 =
 // relu(feat @ WD0 + bd0 + the ray's direction contribution), rgb = x0 @
 // wrgb + brgb. Out: raw (R, S, 4) [rgb, σ]; the compositing stays with the
-// caller, as in the JAX package. The hidden width h is 256 or 512 (layers_dir.0
-// h / 2), a runtime argument: h = 256 runs the kernels described next, h
-// = 512 its own pair (`wide_chain_kernel`, `wide_dx_kernel`, below: the
-// two consumer warpgroups share each unit, each computing half of every
-// layer's columns).
+// caller, as in the JAX package. The hidden width h is a multiple of 256
+// up to MAX_WIDTH = 1024 (layers_dir.0 h / 2), a runtime argument: h = 256
+// runs the kernels described next, h = 512 its own pair
+// (`wide_chain_kernel`, `wide_dx_kernel`, below: the two consumer
+// warpgroups share each unit, each computing half of every layer's
+// columns), h = 768 and 1024 a third (`sliced_chain_kernel`,
+// `sliced_dx_kernel`: the same sharing, each layer in slices of 256
+// columns).
 //
 // K4f, `flex_chain_kernel<SF, false>`, is K2's chain without the cluster
 // (wgmma_chain.cuh): one persistent 384-thread CTA an SM. The producer
@@ -191,6 +194,40 @@ struct Offsets<512> {
   static constexpr int FT_OFF_WFT = 131072;
   static constexpr int FT_OFF_WHT = 393216;
 };
+template <>
+struct Offsets<768> {
+  static constexpr int FW_OFF_W1 = 0;
+  static constexpr int FW_OFF_WF = 49152;
+  static constexpr int FW_OFF_WD0 = 638976;
+  static constexpr int FW_OFF_WH = 933888;
+  static constexpr int FF_OFF_V0 = 0;
+  static constexpr int FF_OFF_BF = 768;
+  static constexpr int FF_OFF_BD0 = 1536;
+  static constexpr int FF_OFF_BA = 1920;
+  static constexpr int FF_OFF_BRGB = 1921;
+  static constexpr int FF_OFF_FREQS = 1924;
+  static constexpr int FF_OFF_BH = 1944;
+  static constexpr int FT_OFF_WD0T = 0;
+  static constexpr int FT_OFF_WFT = 294912;
+  static constexpr int FT_OFF_WHT = 884736;
+};
+template <>
+struct Offsets<1024> {
+  static constexpr int FW_OFF_W1 = 0;
+  static constexpr int FW_OFF_WF = 65536;
+  static constexpr int FW_OFF_WD0 = 1114112;
+  static constexpr int FW_OFF_WH = 1638400;
+  static constexpr int FF_OFF_V0 = 0;
+  static constexpr int FF_OFF_BF = 1024;
+  static constexpr int FF_OFF_BD0 = 2048;
+  static constexpr int FF_OFF_BA = 2560;
+  static constexpr int FF_OFF_BRGB = 2561;
+  static constexpr int FF_OFF_FREQS = 2564;
+  static constexpr int FF_OFF_BH = 2584;
+  static constexpr int FT_OFF_WD0T = 0;
+  static constexpr int FT_OFF_WFT = 524288;
+  static constexpr int FT_OFF_WHT = 1572864;
+};
 
 template <int H>
 constexpr bool offsets_ok() {
@@ -201,7 +238,7 @@ constexpr bool offsets_ok() {
          O::FF_OFF_FREQS - O::FF_OFF_BRGB == 3 && O::FF_OFF_BH - O::FF_OFF_FREQS == MAX_FREQS &&
          O::FT_OFF_WFT - O::FT_OFF_WD0T == (H / 2) * H && O::FT_OFF_WHT - O::FT_OFF_WFT == H * H;
 }
-static_assert(offsets_ok<256>() && offsets_ok<512>(), "operand layout");
+static_assert(offsets_ok<256>() && offsets_ok<512>() && offsets_ok<768>() && offsets_ok<1024>(), "operand layout");
 
 // The offset FW_OFF_* `off` of Offsets<H> in the forward weights of
 // encoding extent kx (`xin_extent`): W1 holds kx rows, kx − K_XIN more
@@ -326,13 +363,15 @@ __device__ __forceinline__ void store_mask(uint32_t* dst, const uint32_t* a) {
 
 // dW's products of a pass, dW = Xᵀ·bf16(gY) from the workspace images: W1
 // (its xin rows, K = kx), WF, WD0 and every WH_i, each by column blocks of
-// at most 256 of its gY (two at h = 512), in that order; fn(DwgMat).
+// at most 256 of its gY (two at h = 512, four at 1024; WD0's 384 at h =
+// 768 as 256 + 128), in that order; fn(DwgMat).
 template <class Fn>
 void dw_products(const Workspace& ws, const Layout& L, Fn&& fn) {
   auto blocks = [&](const unsigned char* X, const unsigned char* G, int kdim, int ndim, int out_off) {
     const int nb = ndim > 256 ? 256 : ndim;
     for (int c = 0; c < ndim; c += nb)
-      fn(DwgMat{X, G ? G + (size_t)c * ROW_BYTES : nullptr, kdim, nb, out_off + c, ndim, ndim});
+      fn(DwgMat{X, G ? G + (size_t)c * ROW_BYTES : nullptr, kdim, ndim - c < nb ? ndim - c : nb, out_off + c, ndim,
+                ndim});
   };
   blocks(ws.xin, ws.ga0, L.kx, L.h, 0);
   blocks(ws.act0 ? ws.act(L.n) : nullptr, ws.gfeat, L.h, L.h, L.wf);
@@ -1143,9 +1182,11 @@ __device__ __forceinline__ void wide_fwd_produce(WideFwdSmem& sm, const FwdArgs&
 // The encoder warps (index e): each unit of the CTA's items, in order, into
 // the next xin buffer (`xin_buf`: of the two, or the one of two blocks past
 // 10 bands, 2·64·xc tasks) once both warpgroups have released it; with
-// `xg` (the recompute) also into the unit's workspace image.
-template <class G>
-__device__ __forceinline__ void wide_encode(const G& g, WideFwdSmem& sm, const FwdArgs& a, int n_items, int e,
+// `xg` (the recompute) also into the unit's workspace image. H is the
+// width, whose bias rows hold the bands (the h = 768 / 1024 kernels, below,
+// share it).
+template <int H, class G, class Smem>
+__device__ __forceinline__ void wide_encode(const G& g, Smem& sm, const FwdArgs& a, int n_items, int e,
                                             unsigned char* xg) {
   const int xc = g.xc(), tasks = 128 * xc;
   int done = 0;
@@ -1155,7 +1196,7 @@ __device__ __forceinline__ void wide_encode(const G& g, WideFwdSmem& sm, const F
       mbar_wait(&sm.xin_empty[b], xin_phase(done, xc) ^ 1);
       unsigned char* gi = xg ? unit_image(xg, K_XIN * xc, item * g.units() + u) : nullptr;
       for (int task = e; task < tasks; task += ENCODERS * 32)
-        encode_task(sm.xin[b], gi, task, a, a.F + OW::FF_OFF_FREQS, item * g.wg_rays(), u * 64, g);
+        encode_task(sm.xin[b], gi, task, a, a.F + Offsets<H>::FF_OFF_FREQS, item * g.wg_rays(), u * 64, g);
       fence_proxy_async();
       mbar_arrive(&sm.xin_full[b]);
       ++done;
@@ -1304,7 +1345,7 @@ __global__ void __launch_bounds__(FLEX_THREADS, 1) wide_chain_kernel(const FwdAr
     if (t == CONSUMERS * 128) {
       wide_fwd_produce<SF>(sm, a, L, n_items);
     } else if (w >= 1 && w <= ENCODERS) {
-      wide_encode(g, sm, a, n_items, t - CONSUMERS * 128 - 32, SAVE ? a.ws.xin : nullptr);
+      wide_encode<WIDE>(g, sm, a, n_items, t - CONSUMERS * 128 - 32, SAVE ? a.ws.xin : nullptr);
     }
   } else {
     reg_alloc<232>();
@@ -1505,6 +1546,629 @@ int launch_wide_backward(const FwdArgs& fa, const DxArgs& da, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// -- h = 768 and 1024: each layer's columns in slices --------------------------------
+//
+// Past h = 512 the h = 512 structure does not fit: the exchange image of a
+// unit's h-wide activation is 96 / 128 KB, a ring stage of whole chunk
+// images as much again, and a warpgroup's half of a layer's columns 192 /
+// 256 f32 accumulators a thread. So both consumer warpgroups still share
+// each unit, but compute each layer in slices of SLICE = 256 columns,
+// warpgroup wg the 128 columns [256·s + 128·wg, +128) of slice s (one
+// m64n128k16 chain, 64 accumulators). A ring stage holds one slice's
+// columns of one 64-row chunk (the chunk image's rows of those columns:
+// one bulk copy, 32 KB). Every slice reads the layer's whole input, the
+// exchange image (layer1 the xin tile), so a slice's output cannot go into
+// the image until every slice of both warpgroups is done: each warpgroup
+// parks its slices' bf16 outputs in registers (32 a slice, 96 live at most
+// beside the 64 accumulators at h = 1024) and writes them into the image
+// between two barriers of both warpgroups. layers_dir.0 (h / 2 wide) is
+// slices of the same kind; at h = 768 its second slice is 128 columns,
+// warpgroup 0's, and warpgroup 1 waits for and releases its stages
+// untouched. The heads are sums on the CUDA cores over the parked a_n and
+// x0 (their products are exact in f32; the f32 sums are in a fixed order:
+// the thread's columns, its quad, then warpgroup 0's partial before
+// warpgroup 1's), which frees the 24 KB of head images the m64n8 heads
+// would take. K4b's dX is the same: the cotangent's image is every
+// product's A, each product's slices parked and written into it after the
+// last, and stored to the workspace from the registers; gx0 is the h = 512
+// kernels' `dx_heads` over 128-column blocks of x0 (warpgroup wg the
+// blocks wg, wg + 2). The recompute stores each slice's activation and
+// its relu mask (2 words a thread of a 128-column block, `slice_mask`) to
+// the workspace. Only the runtime layout class (S, its items' rays and
+// units read at run time) is built: the h = 768 / 1024 passes of S = 64 /
+// 128 run it too, each width in a build of its own (`sliced_forward`).
+//
+// Bound: the tensor cores, as at h = 512, with every product's B streamed
+// from L2 once per 64-row unit (2 MB a hidden layer at h = 1024, 64 FLOP a
+// byte of L2 traffic).
+
+constexpr int MAX_WIDTH = 1024;           // the widest h: the kernels take every multiple of HIDDEN up to it
+
+// The h > 512 width whose kernels a build holds, 0 for none (a -D switch:
+// `build.py` builds each width as a library of its own, with no layout
+// class of the narrower widths, NERFACE_SAMPLE_CLASSES=0).
+#ifndef NERFACE_SLICED_WIDTH
+#define NERFACE_SLICED_WIDTH 0
+#endif
+static_assert(NERFACE_SLICED_WIDTH == 0 || NERFACE_SLICED_WIDTH == 768 || NERFACE_SLICED_WIDTH == MAX_WIDTH,
+              "a sliced width");
+constexpr int SLICE = 256;                // a slice of a layer's columns, both warpgroups'
+constexpr int SLICE_WG = SLICE / CONSUMERS;  // a warpgroup's columns of a slice
+constexpr int SSTAGE = KCH * SLICE * 2;   // a ring stage: a slice's columns of one 64-row chunk, 32 KB
+
+template <int H>
+struct Sliced {
+  static constexpr int DH = H / 2;                     // layers_dir.0
+  static constexpr int NS = H / SLICE;                 // slices of an h-wide layer or dX product
+  static constexpr int DS = (DH + SLICE - 1) / SLICE;  // slices of layers_dir.0
+  static constexpr int RING = H <= 768 ? 3 : 2;        // the stages the shared memory holds beside the image
+};
+
+// The first column of warpgroup wg's share of slice s.
+__device__ __forceinline__ int slice_col(int s, int wg) { return s * SLICE + wg * SLICE_WG; }
+
+// A unit's relu mask of an h-wide activation (h > 512): per 128-column
+// block b (slice b / 2, warpgroup b % 2), 2 words a thread of the
+// warpgroup (`store_mask_cols`); Layout::mask_bytes a unit, as at h ≤ 512.
+template <int H>
+__device__ __forceinline__ uint32_t* slice_mask(uint32_t* buf, int unit, int block) {
+  return buf + (size_t)unit * (2 * H) + ((size_t)block * 128 + (threadIdx.x & 127)) * 2;
+}
+
+// `store_mask` / `apply_mask` for an N-wide accumulator fragment (N / 64
+// words a thread).
+template <int N>
+__device__ __forceinline__ void store_mask_cols(uint32_t* dst, const uint32_t* a) {
+  static_assert(N == 128, "2 words");
+  uint32_t w[2] = {0u, 0u};
+#pragma unroll
+  for (int p = 0; p < N / 4; ++p) {
+    const uint32_t lo = a[p] & 0xffffu, hi = a[p] >> 16;
+    const uint32_t b = (lo - 1u < 0x7fffu ? 1u : 0u) | (hi - 1u < 0x7fffu ? 2u : 0u);
+    w[p / 16] |= b << (2 * (p % 16));
+  }
+  *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+}
+template <int N>
+__device__ __forceinline__ void apply_mask_cols(float* acc, const uint2& m) {
+  static_assert(N == 128, "2 words");
+  const uint32_t w[2] = {m.x, m.y};
+#pragma unroll
+  for (int p = 0; p < N / 4; ++p) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (!((w[p / 16] >> (2 * (p % 16) + e)) & 1u)) acc[2 * p + e] = 0.f;
+  }
+}
+
+// `add_sigma` over N columns: bf16(g_σ) ⊗ wa + acc.
+template <int N>
+__device__ __forceinline__ void add_sigma_cols(float* acc, const float* gs, const float* wa) {
+  const int r0 = k1::frag_row();
+  const float g0 = round_bf16(gs[r0 * 4 + 3]), g1 = round_bf16(gs[(r0 + 8) * 4 + 3]);
+#pragma unroll
+  for (int p = 0; p < N / 4; ++p) {
+    const float g = (p & 1) ? g1 : g0;
+    const int col = k1::fold_col(2 * (p >> 1));
+    acc[2 * p] = g * wa[col] + acc[2 * p];
+    acc[2 * p + 1] = g * wa[col + 1] + acc[2 * p + 1];
+  }
+}
+
+// The producer's loads of one layer whose chunk images (k rows, n columns)
+// are at `src`: slice by slice, each of its k / 64 chunks into the next
+// stage (the slice's columns of the chunk: its image's rows 256·s .. +256,
+// fewer in a last slice past n).
+template <int RING, class Smem>
+__device__ __forceinline__ void load_slices(Smem& sm, Ring& ring, const bf16* src, int k, int n) {
+  for (int s = 0; s * SLICE < n; ++s) {
+    const uint32_t bytes = (n - s * SLICE < SLICE ? n - s * SLICE : SLICE) * ROW_BYTES;
+    for (int c = 0; c < k / KCH; ++c) {
+      mbar_wait(&sm.empty[ring.stage], ring.phase ^ 1);
+      mbar_expect_tx(&sm.full[ring.stage], bytes);
+      bulk_load(sm.ring[ring.stage], src + ((size_t)c * KCH * n + (size_t)s * SLICE * KCH), bytes,
+                &sm.full[ring.stage]);
+      ring.advance<RING>();
+    }
+  }
+}
+
+// Warpgroup wg's 128 columns of one slice of a product: acc = A·W[:, those
+// columns], A (K = NCH·xc·64) the image at shared address `a_img`, W's
+// slice through the ring (the warpgroup's columns 128·wg rows into a
+// stage). The first wgmma overwrites acc.
+template <int NCH, int RING, class Smem, class Release>
+__device__ __forceinline__ void slice_product(float* acc, uint32_t a_img, Smem& sm, Ring& ring, int wg,
+                                              const Release& release, int xc = 1) {
+  uint32_t* no_a = nullptr;  // every chunk's A comes from the image
+  auto stages = reinterpret_cast<unsigned char(*)[SSTAGE]>(sm.ring[0] + wg * SLICE_WG * ROW_BYTES);
+  chain_layer<SLICE_WG, NCH, NCH, RING, true, 0, SSTAGE>(acc, no_a, a_img, stages, sm.full, ring, release, xc);
+}
+
+// The parked slices (`cols` columns of the layer) into the image at `img`,
+// once both warpgroups' products that read it are done; afterwards the
+// image is whole.
+template <int NS>
+__device__ __forceinline__ void slice_exchange(unsigned char* img, uint32_t (*park)[SLICE_WG / 4], int wg, int cols) {
+  named_bar_sync(BAR_CONSUMERS, CONSUMERS * 128);
+#pragma unroll
+  for (int s = 0; s < NS; ++s)
+    if (slice_col(s, wg) < cols) k1::store_frag<SLICE_WG>(img + slice_col(s, wg) * ROW_BYTES, park[s]);
+  fence_proxy_async();  // the image is read by wgmma
+  named_bar_sync(BAR_CONSUMERS, CONSUMERS * 128);
+}
+
+// A head's f32 sums over the thread's parked columns of `slices` slices
+// (`cols` columns), w the f32 weight rows (CH columns a row): d[2·h + ch]
+// for row half h, summed over the thread's quad.
+template <int NS, int CH>
+__device__ __forceinline__ void head_sums(float* d, const uint32_t (*park)[SLICE_WG / 4], const float* w, int wg,
+                                          int cols) {
+  const int c2 = 2 * (threadIdx.x & 3);
+#pragma unroll
+  for (int i = 0; i < 2 * CH; ++i) d[i] = 0.f;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    if (slice_col(s, wg) >= cols) continue;
+#pragma unroll
+    for (int p = 0; p < SLICE_WG / 4; ++p) {
+      const float2 v = unpack_bf16(park[s][p]);
+      const float* wr = w + (slice_col(s, wg) + 8 * (p >> 1) + c2) * CH;
+#pragma unroll
+      for (int ch = 0; ch < CH; ++ch) d[(p & 1) * CH + ch] += v.x * wr[ch] + v.y * wr[CH + ch];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2 * CH; ++i) {
+    d[i] += __shfl_xor_sync(0xffffffffu, d[i], 1);
+    d[i] += __shfl_xor_sync(0xffffffffu, d[i], 2);
+  }
+}
+
+template <int H>
+struct alignas(ATOM_BYTES) SlicedFwdSmem {
+  unsigned char ring[Sliced<H>::RING][SSTAGE];  // weight slices
+  unsigned char xch[H * ROW_BYTES];             // the layer's output, both warpgroups' columns: the next product's A
+  // a unit's [xyz; PE; 0], both warpgroups' A of layer1: two buffers of one
+  // block, or one of both past 10 bands (`xin_buf`)
+  unsigned char xin[2][XIN_BYTES];
+  float wa[H];                                  // the heads' bf16 weights as f32
+  float wrgb[H / 2 * 3];
+  float heads[CONSUMERS][64][4];                // each warpgroup's partial [rgb, σ] of the unit's rows
+  uint64_t full[Sliced<H>::RING];
+  uint64_t empty[Sliced<H>::RING];
+  uint64_t xin_full[2];
+  uint64_t xin_empty[2];
+};
+static_assert(sizeof(SlicedFwdSmem<768>) + ATOM_BYTES <= 232448 && sizeof(SlicedFwdSmem<1024>) + ATOM_BYTES <= 232448,
+              "shared memory");
+
+// The producer: each unit's slices, W1 (L.kx rows), WH_0..WH_{n-1}, WF,
+// WD0.
+template <int H>
+__device__ __forceinline__ void sliced_fwd_produce(SlicedFwdSmem<H>& sm, const FwdArgs& a, const Layout& L,
+                                                   int n_items) {
+  const UnitSchedule<0, 1> g{a.l};
+  Ring ring;
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    for (int u = 0; u < g.units(); ++u) {
+      load_slices<Sliced<H>::RING>(sm, ring, a.W + Offsets<H>::FW_OFF_W1, L.kx, H);
+      for (int i = 0; i < a.n_hidden; ++i) load_slices<Sliced<H>::RING>(sm, ring, a.W + L.wh + (size_t)i * H * H, H, H);
+      load_slices<Sliced<H>::RING>(sm, ring, a.W + L.wf, H, H);
+      load_slices<Sliced<H>::RING>(sm, ring, a.W + L.wd0, H, H / 2);
+    }
+  }
+}
+
+// A consumer warpgroup's share of each unit (`wide_fwd_consume` in
+// slices): its columns of every slice of every layer, parked and
+// exchanged, then (K4f) its partial heads, warpgroup 0 storing the raw
+// rows, or (SAVE, the recompute) its columns of each activation and mask to
+// the workspace. Row i < rows() of an item is row ray0·S + i of the pass; a
+// padding row, or a row of a ray past the last, is computed and not stored.
+template <int H, bool SAVE>
+__device__ __forceinline__ void sliced_fwd_consume(SlicedFwdSmem<H>& sm, const FwdArgs& a, int wg, int n_items) {
+  using Z = Sliced<H>;
+  using OZ = Offsets<H>;
+  constexpr int NS = Z::NS, DS = Z::DS, DH = Z::DH, RING = Z::RING;
+  const UnitSchedule<0, 1> g{a.l};
+  const int t = threadIdx.x & 127;
+  const int r0 = k1::frag_row();
+  const int n = a.n_hidden;
+  const int xc = g.xc();  // xin's blocks, W1's chunks
+  const Workspace& ws = a.ws;
+  auto release = [&](int stage) {
+    if (t == 0) mbar_arrive(&sm.empty[stage]);
+  };
+  const uint32_t xch = smem_u32(sm.xch);
+  int units = 0;  // units taken, for the xin buffer and its phase
+  Ring ring;
+  float acc[SLICE_WG / 2];
+  uint32_t park[NS][SLICE_WG / 4];  // the warpgroup's bf16 columns of each slice of the layer
+#pragma unroll
+  for (int i = 0; i < SLICE_WG / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int s = 0; s < NS; ++s)
+#pragma unroll
+    for (int i = 0; i < SLICE_WG / 4; ++i) park[s][i] = 0u;
+
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const int ray0 = item * g.wg_rays();
+#pragma unroll 1
+    for (int u = 0; u < g.units(); ++u) {
+      const int unit = item * g.units() + u;
+      const int b = xin_buf(units, xc);
+      mbar_wait(&sm.xin_full[b], xin_phase(units, xc));
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {  // layer1: NO relu
+        const int c0 = slice_col(s, wg);
+        slice_product<1, RING>(acc, smem_u32(sm.xin[b]), sm, ring, wg, release, xc);
+        acc_to_a<SLICE_WG, false>(acc, park[s], ChainBias{a.F + OZ::FF_OFF_V0 + c0});
+        if (SAVE) k1::store_frag<SLICE_WG>(unit_image(ws.act(0), H, unit) + c0 * ROW_BYTES, park[s]);
+      }
+      if (t == 0) mbar_arrive(&sm.xin_empty[b]);  // layer1 is its only reader
+      ++units;
+      slice_exchange<NS>(sm.xch, park, wg, H);
+#pragma unroll 1
+      for (int i = 0; i < n; ++i) {
+#pragma unroll
+        for (int s = 0; s < NS; ++s) {
+          const int c0 = slice_col(s, wg);
+          slice_product<H / KCH, RING>(acc, xch, sm, ring, wg, release);
+          acc_to_a<SLICE_WG, true>(acc, park[s], ChainBias{a.F + OZ::FF_OFF_BH + i * H + c0});
+          if (SAVE) {
+            k1::store_frag<SLICE_WG>(unit_image(ws.act(i + 1), H, unit) + c0 * ROW_BYTES, park[s]);
+            store_mask_cols<SLICE_WG>(slice_mask<H>(ws.amask(i), unit, 2 * s + wg), park[s]);
+          }
+        }
+        slice_exchange<NS>(sm.xch, park, wg, H);
+      }
+      // σ off the trunk: the warpgroup's parked columns of a_n against wa
+      float hs[2];
+      if constexpr (!SAVE) head_sums<NS, 1>(hs, park, sm.wa, wg, H);
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {  // feat
+        const int c0 = slice_col(s, wg);
+        slice_product<H / KCH, RING>(acc, xch, sm, ring, wg, release);
+        acc_to_a<SLICE_WG, true>(acc, park[s], ChainBias{a.F + OZ::FF_OFF_BF + c0});
+        if (SAVE) {
+          k1::store_frag<SLICE_WG>(unit_image(ws.feat, H, unit) + c0 * ROW_BYTES, park[s]);
+          store_mask_cols<SLICE_WG>(slice_mask<H>(ws.fmask, unit, 2 * s + wg), park[s]);
+        }
+      }
+      slice_exchange<NS>(sm.xch, park, wg, H);
+      // x0 = relu(feat·WD0 + bd0 + the ray's direction contribution), the
+      // rays of the thread's rows worked out here; a padding row's is n_rays
+      const int i0 = u * 64 + r0, rows = g.rows();
+      const int ray_h[2] = {i0 < rows ? ray0 + g.ray_of(i0) : a.n_rays,
+                            i0 + 8 < rows ? ray0 + g.ray_of(i0 + 8) : a.n_rays};
+#pragma unroll
+      for (int s = 0; s < DS; ++s) {
+        const int c0 = slice_col(s, wg);
+        if (c0 < DH) {
+          auto dir_row = [&](int ray) { return ray < a.n_rays ? a.dir_c + (size_t)ray * DH + c0 : nullptr; };
+          slice_product<H / KCH, RING>(acc, xch, sm, ring, wg, release);
+          acc_to_a<SLICE_WG, true>(acc, park[s],
+                                   ChainDirRows{a.F + OZ::FF_OFF_BD0 + c0, {dir_row(ray_h[0]), dir_row(ray_h[1])}});
+          if (SAVE) k1::store_frag<SLICE_WG>(unit_image(ws.x0, DH, unit) + c0 * ROW_BYTES, park[s]);
+        } else {  // h = 768: the last slice is warpgroup 0's alone
+          skip_stages<RING>(sm, ring, H / KCH, release);
+        }
+      }
+      if constexpr (!SAVE) {
+        float hc[6];
+        head_sums<DS, 3>(hc, park, sm.wrgb, wg, DH);
+        // the quad's lane 0 holds its rows' sums
+        if ((threadIdx.x & 3) == 0) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float* hp = sm.heads[wg][r0 + 8 * h];
+            hp[0] = hc[3 * h];
+            hp[1] = hc[3 * h + 1];
+            hp[2] = hc[3 * h + 2];
+            hp[3] = hs[h];
+          }
+        }
+        named_bar_sync(BAR_CONSUMERS, CONSUMERS * 128);
+        if (wg == 0 && t < 64) {
+          const int i = u * 64 + t;  // the item's row
+          if (i < rows && ray0 + g.ray_of(i) < a.n_rays) {
+            const float* p0 = sm.heads[0][t];
+            const float* p1 = sm.heads[1][t];
+            const float* f = a.F;
+            *reinterpret_cast<float4*>(a.out + ((size_t)ray0 * g.samples() + i) * 4) =
+                make_float4(p0[0] + p1[0] + f[OZ::FF_OFF_BRGB], p0[1] + p1[1] + f[OZ::FF_OFF_BRGB + 1],
+                            p0[2] + p1[2] + f[OZ::FF_OFF_BRGB + 2], p0[3] + p1[3] + f[OZ::FF_OFF_BA]);
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int H, bool SAVE>
+__global__ void __launch_bounds__(FLEX_THREADS, 1) sliced_chain_kernel(const FwdArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t pad = (ATOM_BYTES - (smem_u32(smem_raw) & (ATOM_BYTES - 1))) & (ATOM_BYTES - 1);
+  SlicedFwdSmem<H>& sm = *reinterpret_cast<SlicedFwdSmem<H>*>(smem_raw + pad);
+  const UnitSchedule<0, 1> g{a.l};
+  const int t = threadIdx.x;
+  const Layout L = flex_layout<H>(a.n_hidden, K_XIN * g.xc());
+  if constexpr (!SAVE) {
+    for (int i = t; i < H; i += FLEX_THREADS) sm.wa[i] = __bfloat162float(a.W[L.wa + i]);
+    for (int i = t; i < H / 2 * 3; i += FLEX_THREADS) sm.wrgb[i] = __bfloat162float(a.W[L.wrgb + i]);
+  }
+  if (t == 0) {
+    for (int s = 0; s < Sliced<H>::RING; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], CONSUMERS);
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&sm.xin_full[b], ENCODERS * 32);
+      mbar_init(&sm.xin_empty[b], CONSUMERS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int n_items = (a.n_rays + g.wg_rays() - 1) / g.wg_rays();
+  const int wg = t / 128;
+  if (wg == CONSUMERS) {
+    reg_dealloc<40>();
+    const int w = (t >> 5) - 4 * CONSUMERS;  // the warp in the producer warpgroup
+    if (t == CONSUMERS * 128) {
+      sliced_fwd_produce<H>(sm, a, L, n_items);
+    } else if (w >= 1 && w <= ENCODERS) {
+      wide_encode<H>(g, sm, a, n_items, t - CONSUMERS * 128 - 32, SAVE ? a.ws.xin : nullptr);
+    }
+  } else {
+    reg_alloc<232>();
+    sliced_fwd_consume<H, SAVE>(sm, a, wg, n_items);
+  }
+}
+
+template <int H, bool SAVE>
+int launch_sliced_chain(const FwdArgs& a, cudaStream_t st) {
+  auto kernel = sliced_chain_kernel<H, SAVE>;
+  constexpr size_t bytes = sizeof(SlicedFwdSmem<H>) + ATOM_BYTES;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<wide_ctas(a.n_rays, a.l.S), FLEX_THREADS, bytes, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int H>
+struct alignas(ATOM_BYTES) SlicedDxSmem {
+  unsigned char ring[Sliced<H>::RING][SSTAGE];  // transposed weights' slices
+  unsigned char atile[H * ROW_BYTES];           // the unit's cotangent, both warpgroups' columns: the next product's A
+  float wa[H];                                  // the heads' bf16 weights as f32
+  float wrgb[H / 2 * 3];
+  float g[2][64 * 4];                           // a unit's cotangent rows [rgb, σ], by unit parity
+  // a warpgroup's d_dir pieces of a 128-column block of x0, by the parity
+  // of the blocks it has taken (as DxSmem's)
+  float dsum[CONSUMERS][2][4][2][DIR_HIDDEN];
+  float dacc[CONSUMERS][2][DIR_HIDDEN];         // d_dir of a ray's rows in earlier units, the warpgroup's blocks
+  uint64_t full[Sliced<H>::RING];
+  uint64_t empty[Sliced<H>::RING];
+};
+static_assert(sizeof(SlicedDxSmem<768>) + ATOM_BYTES <= 232448 && sizeof(SlicedDxSmem<1024>) + ATOM_BYTES <= 232448,
+              "shared memory");
+
+// The producer: each unit's dX slices, WD0ᵀ, WFᵀ, WH_{n-1}ᵀ..WH_0ᵀ.
+template <int H>
+__device__ __forceinline__ void sliced_dx_produce(SlicedDxSmem<H>& sm, const DxArgs& a, int n_items) {
+  using OZ = Offsets<H>;
+  const UnitSchedule<0, 1> g{a.l};
+  Ring ring;
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    for (int u = 0; u < g.units(); ++u) {
+      load_slices<Sliced<H>::RING>(sm, ring, a.WT + OZ::FT_OFF_WD0T, H / 2, H);
+      load_slices<Sliced<H>::RING>(sm, ring, a.WT + OZ::FT_OFF_WFT, H, H);
+      for (int i = a.n_hidden - 1; i >= 0; --i)
+        load_slices<Sliced<H>::RING>(sm, ring, a.WT + OZ::FT_OFF_WHT + (size_t)i * H * H, H, H);
+    }
+  }
+}
+
+// One dX product of a unit (`wide_dx_product` in slices): each slice's
+// warpgroup columns of A·Wᵀ, A (K = NCH·64) the cotangent image, then the σ
+// head's cotangent (SIGMA), the mask (MASKED: the 128-column block's words
+// at `mask`, loaded before the product), the bf16 cotangent parked and
+// stored to `gout`, its f32 column sums into the warp's partial row at
+// `part`; then, unless it is the unit's LAST product, the parked slices
+// into the image for the next.
+template <int H, int NCH, bool MASKED, bool SIGMA, bool LAST, class Release>
+__device__ __forceinline__ void sliced_dx_product(float* acc, uint32_t (*park)[SLICE_WG / 4], SlicedDxSmem<H>& sm,
+                                                  int wg, Ring& ring, const Release& release, uint32_t* mask, int unit,
+                                                  unsigned char* gout, float* part, const float* gs) {
+  constexpr int NS = Sliced<H>::NS;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    const int c0 = slice_col(s, wg);
+    uint2 m = make_uint2(0u, 0u);
+    if constexpr (MASKED) m = *reinterpret_cast<const uint2*>(slice_mask<H>(mask, unit, 2 * s + wg));
+    slice_product<NCH, Sliced<H>::RING>(acc, smem_u32(sm.atile), sm, ring, wg, release);
+    if constexpr (SIGMA) add_sigma_cols<SLICE_WG>(acc, gs, sm.wa + c0);
+    if constexpr (MASKED) apply_mask_cols<SLICE_WG>(acc, m);
+#pragma unroll
+    for (int p = 0; p < SLICE_WG / 4; ++p) park[s][p] = pack_bf16(acc[2 * p], acc[2 * p + 1]);
+    k1::store_frag<SLICE_WG>(gout + c0 * ROW_BYTES, park[s]);
+    k1::colsum<SLICE_WG>(acc, part + c0, true);
+  }
+  if constexpr (!LAST) slice_exchange<NS>(sm.atile, park, wg, H);
+}
+
+// The dX chain of a unit at h = 768 / 1024 (`wide_dx_unit`): the unit's
+// cotangent rows staged once for both warpgroups; the heads, gx0 and d_dir
+// over each of the warpgroup's blocks (`dx_heads` on a_n's 256 columns
+// [256·i, +256) and x0's 128 [128·i, +128), i = wg, wg + 2 below h / 256),
+// gx0 into the image and the workspace; then every product.
+template <int H, class Release>
+__device__ __forceinline__ void sliced_dx_unit(SlicedDxSmem<H>& sm, const DxArgs& a, const Layout& L, Ring& ring,
+                                               float* acc, uint32_t (*park)[SLICE_WG / 4], int wg, int u, int unit,
+                                               int ray0, float* part, int& dx_units, int& dx_blocks,
+                                               const Release& release) {
+  using OZ = Offsets<H>;
+  constexpr int DH = H / 2, NB = H / SLICE;
+  const UnitSchedule<0, 1> g{a.l};
+  const Workspace& ws = a.ws;
+  const int n = a.n_hidden;
+  const int t = threadIdx.x & 127, lane = threadIdx.x & 31, lw = (threadIdx.x >> 5) & 3;
+  float* gs = sm.g[dx_units & 1];
+  ++dx_units;
+  auto img = [&](unsigned char* buf) { return unit_image(buf, H, unit); };
+  if (wg == 0 && t < 64) {
+    const int i = u * 64 + t;  // the item's row
+    const bool valid = i < g.rows() && ray0 + g.ray_of(i) < a.n_rays;
+    const size_t row = (size_t)ray0 * g.samples() + i;
+    reinterpret_cast<float4*>(gs)[t] =
+        valid ? *reinterpret_cast<const float4*>(a.g + row * 4) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  // the rows whole; both warpgroups are past the previous unit's last
+  // product, so the image is free
+  named_bar_sync(BAR_CONSUMERS, CONSUMERS * 128);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int i = wg + 2 * j;
+    if (i >= NB) continue;
+    dx_heads(sm.wrgb + DIR_HIDDEN * i * 3, img(ws.act(n)) + HIDDEN * i * ROW_BYTES,
+             unit_image(ws.x0, DH, unit) + DIR_HIDDEN * i * ROW_BYTES, gs, acc, part, L.f_total + HIDDEN * i,
+             L.f_total + H + DIR_HIDDEN * i * 3, part + OZ::FF_OFF_BA, i == 0);
+    float(*ds)[2][DIR_HIDDEN] = sm.dsum[wg][dx_blocks & 1];
+    float* d_dir = a.d_dir + (size_t)ray0 * DH + DIR_HIDDEN * i;  // the item's first ray's row, the block's columns
+    if (g.samples() % 16 != 0)
+      k1::DirPieces<UnitSchedule<0, 1>, DH>{ds[lw], d_dir, g, u, ray0, a.n_rays, true}(acc);
+    uint32_t gx[DIR_HIDDEN / 4];
+#pragma unroll
+    for (int p = 0; p < DIR_HIDDEN / 4; ++p) gx[p] = pack_bf16(acc[2 * p], acc[2 * p + 1]);
+    k1::store_frag<DIR_HIDDEN>(sm.atile + DIR_HIDDEN * i * ROW_BYTES, gx);
+    k1::store_frag<DIR_HIDDEN>(unit_image(ws.gx0, DH, unit) + DIR_HIDDEN * i * ROW_BYTES, gx);
+    k1::colsum<DIR_HIDDEN>(acc, part + OZ::FF_OFF_BD0 + DIR_HIDDEN * i, true);
+    // d_dir: a warp of one ray's piece is its column sums (acc[0, 4) of
+    // each lane); the pieces summed over each ray's warps and units in order
+    const k1::WarpRays wr(u, lw, g);
+    if (wr.fa >= 0 && wr.fa == wr.fb) {
+      const int base = (lane >> 2) * (DIR_HIDDEN / 32);
+#pragma unroll
+      for (int k = 0; k < DIR_HIDDEN / 32; ++k) ds[lw][0][k1::fold_col(base + k)] = acc[k];
+    }
+    named_bar_sync(BAR_WG + wg, 128);
+    k1::dir_pieces<DH>(ds, sm.dacc[wg][j], d_dir, g, u, ray0, a.n_rays, true, t);
+    ++dx_blocks;
+  }
+  fence_proxy_async();  // gx0's image is read by wgmma
+  named_bar_sync(BAR_CONSUMERS, CONSUMERS * 128);
+  // g_feat = bf16(gx0)·WD0ᵀ ⊙ [feat > 0]; then as `dx_unit`
+  sliced_dx_product<H, DH / KCH, true, false, false>(acc, park, sm, wg, ring, release, ws.fmask, unit, img(ws.gfeat),
+                                                     part + OZ::FF_OFF_BF, gs);
+  if (n > 0) {
+    sliced_dx_product<H, H / KCH, true, true, false>(acc, park, sm, wg, ring, release, ws.amask(n - 1), unit,
+                                                     img(ws.gpre(n - 1)), part + OZ::FF_OFF_BH + (n - 1) * H, gs);
+#pragma unroll 1
+    for (int i = n - 1; i >= 1; --i)
+      sliced_dx_product<H, H / KCH, true, false, false>(acc, park, sm, wg, ring, release, ws.amask(i - 1), unit,
+                                                        img(ws.gpre(i - 1)), part + OZ::FF_OFF_BH + (i - 1) * H, gs);
+    sliced_dx_product<H, H / KCH, false, false, true>(acc, park, sm, wg, ring, release, nullptr, unit, img(ws.ga0),
+                                                      part + OZ::FF_OFF_V0, gs);
+  } else {
+    sliced_dx_product<H, H / KCH, false, true, true>(acc, park, sm, wg, ring, release, nullptr, unit, img(ws.ga0),
+                                                     part + OZ::FF_OFF_V0, gs);
+  }
+}
+
+template <int H>
+__global__ void __launch_bounds__(FLEX_THREADS, 1) sliced_dx_kernel(const DxArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t pad = (ATOM_BYTES - (smem_u32(smem_raw) & (ATOM_BYTES - 1))) & (ATOM_BYTES - 1);
+  SlicedDxSmem<H>& sm = *reinterpret_cast<SlicedDxSmem<H>*>(smem_raw + pad);
+  const UnitSchedule<0, 1> g{a.l};
+  const int t = threadIdx.x;
+  const Layout L = flex_layout<H>(a.n_hidden, K_XIN * g.xc());
+  for (int i = t; i < H; i += FLEX_THREADS) sm.wa[i] = __bfloat162float(a.W[L.wa + i]);
+  for (int i = t; i < H / 2 * 3; i += FLEX_THREADS) sm.wrgb[i] = __bfloat162float(a.W[L.wrgb + i]);
+  if (t == 0) {
+    for (int s = 0; s < Sliced<H>::RING; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], CONSUMERS);
+    }
+    mbar_init_fence();
+  }
+  // each consumer warp's running partial row starts at zero
+  float* part = nullptr;
+  if (t < CONSUMERS * 128) {
+    part = a.ws.warp_part + ((size_t)blockIdx.x * WARPS_A_CTA + (t >> 5)) * L.part_cols;
+    for (int c = t & 31; c < L.part_cols; c += 32) part[c] = 0.f;
+    __syncwarp();
+  }
+  __syncthreads();
+
+  const int n_items = (a.n_rays + g.wg_rays() - 1) / g.wg_rays();
+  const int wg = t / 128;
+  if (wg == CONSUMERS) {
+    reg_dealloc<40>();
+    if (t == CONSUMERS * 128) sliced_dx_produce<H>(sm, a, n_items);
+  } else {
+    reg_alloc<232>();
+    auto release = [&](int stage) {
+      if ((threadIdx.x & 127) == 0) mbar_arrive(&sm.empty[stage]);
+    };
+    int dx_units = 0, dx_blocks = 0;
+    Ring ring;
+    // 64 accumulators a slice; `dx_heads` and DirPieces use up to 96
+    float acc[SLICE_WG / 2 + 32];
+    uint32_t park[Sliced<H>::NS][SLICE_WG / 4];
+#pragma unroll
+    for (int i = 0; i < SLICE_WG / 2 + 32; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int s = 0; s < Sliced<H>::NS; ++s)
+#pragma unroll
+      for (int i = 0; i < SLICE_WG / 4; ++i) park[s][i] = 0u;
+    for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+#pragma unroll 1
+      for (int u = 0; u < g.units(); ++u)
+        sliced_dx_unit<H>(sm, a, L, ring, acc, park, wg, u, item * g.units() + u, item * g.wg_rays(), part, dx_units,
+                          dx_blocks, release);
+    }
+    // the CTA's partial row: its warps' rows added in order
+    named_bar_sync(BAR_CONSUMERS, CONSUMERS * 128);
+    const float* rows = a.ws.warp_part + (size_t)blockIdx.x * WARPS_A_CTA * L.part_cols;
+    for (int c = t; c < L.part_cols; c += CONSUMERS * 128) {
+      float s = 0.f;
+      for (int w = 0; w < WARPS_A_CTA; ++w) s += rows[(size_t)w * L.part_cols + c];
+      a.ws.tile_part[(size_t)blockIdx.x * L.part_cols + c] = s;
+    }
+  }
+}
+
+template <int H>
+int launch_sliced_backward(const FwdArgs& fa, const DxArgs& da, cudaStream_t st) {
+  int err = launch_sliced_chain<H, true>(fa, st);
+  if (err != 0) return err;
+  auto kernel = sliced_dx_kernel<H>;
+  constexpr size_t bytes = sizeof(SlicedDxSmem<H>) + ATOM_BYTES;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<wide_ctas(da.n_rays, da.l.S), FLEX_THREADS, bytes, st>>>(da);
+  return (int)cudaGetLastError();
+}
+
+// K4f / K4b at h = 768 and 1024: the runtime layout class at any S, each
+// width in a build of its own (NERFACE_SLICED_WIDTH: `build.py`
+// compiles them beside the layout-class builds, in parallel); every other
+// build refuses them.
+int sliced_forward(int hidden, const FwdArgs& a, cudaStream_t st) {
+#if NERFACE_SLICED_WIDTH
+  if (hidden == NERFACE_SLICED_WIDTH) return launch_sliced_chain<NERFACE_SLICED_WIDTH, false>(a, st);
+#endif
+  return (int)cudaErrorInvalidValue;
+}
+int sliced_backward(int hidden, const FwdArgs& fa, const DxArgs& da, cudaStream_t st) {
+#if NERFACE_SLICED_WIDTH
+  if (hidden == NERFACE_SLICED_WIDTH) return launch_sliced_backward<NERFACE_SLICED_WIDTH>(fa, da, st);
+#endif
+  return (int)cudaErrorInvalidValue;
+}
+
 // -- the entry points ---------------------------------------------------------------
 
 // `dispatch_pass`'s functions (mma_tile.cuh: the pass's layout class SF,
@@ -1532,21 +2196,26 @@ struct Backward {
 };
 
 // What the kernels take: S in 1..MAX_SAMPLES, 1..MAX_FREQS bands (up to
-// K_XIN_WIDE columns, `xin_extent`), hidden width 256 or 512 (no other:
-// each has its own layout, and no width falls back on another's), any
-// number n ≥ 0 of hidden layers whose offsets fit an int.
+// K_XIN_WIDE columns, `xin_extent`), hidden width a multiple of HIDDEN up
+// to MAX_WIDTH (256 and 512 each with its own kernels, 768 and 1024 the
+// sliced ones; no width falls back on another's), any number n ≥ 0 of
+// hidden layers whose offsets fit an int.
 bool valid(int n_rays, int n_samples, int n_freqs, int n_hidden, int hidden) {
   return n_rays >= 0 && n_samples >= 1 && n_samples <= MAX_SAMPLES && n_freqs >= 1 &&
-         3 + 6 * n_freqs <= K_XIN_WIDE && (hidden == HIDDEN || hidden == WIDE) && n_hidden >= 0 &&
-         (long long)(n_hidden + 4) * hidden * hidden * 2 < (1ll << 31);
+         3 + 6 * n_freqs <= K_XIN_WIDE && hidden >= HIDDEN && hidden <= MAX_WIDTH && hidden % HIDDEN == 0 &&
+         n_hidden >= 0 && (long long)(n_hidden + 4) * hidden * hidden * 2 < (1ll << 31);
 }
 
+// the layout of a width `valid` admits
 Layout layout_of(int hidden, int n_hidden, int kx) {
+  if (hidden == MAX_WIDTH) return flex_layout<MAX_WIDTH>(n_hidden, kx);
+  if (hidden == 768) return flex_layout<768>(n_hidden, kx);
   return hidden == WIDE ? flex_layout<WIDE>(n_hidden, kx) : flex_layout<HIDDEN>(n_hidden, kx);
 }
 
+// h = 256: two items a round; every wider h: both warpgroups on each unit
 int ctas_of(int hidden, int n_rays, int n_samples) {
-  return hidden == WIDE ? wide_ctas(n_rays, n_samples) : flex_ctas(n_rays, n_samples);
+  return hidden > HIDDEN ? wide_ctas(n_rays, n_samples) : flex_ctas(n_rays, n_samples);
 }
 
 }  // namespace
@@ -1554,13 +2223,18 @@ int ctas_of(int hidden, int n_rays, int n_samples) {
 // Shared memory a CTA of each kernel takes (dynamic, with the 1 KB
 // alignment pad): out[0] flex_chain_kernel, out[1] flex_dx_kernel, out[2]
 // dw_wgmma_kernel, out[3] wide_chain_kernel, out[4] wide_dx_kernel (h =
-// 512).
+// 512), out[5] / out[6] sliced_chain_kernel / sliced_dx_kernel at h = 768,
+// out[7] / out[8] at 1024.
 extern "C" void nerface_fused_flex_shared_bytes(long long* out) {
   out[0] = (long long)FWD_SMEM_BYTES;
   out[1] = (long long)DX_SMEM_BYTES;
   out[2] = (long long)DWG_SMEM_BYTES;
   out[3] = (long long)WIDE_FWD_SMEM_BYTES;
   out[4] = (long long)WIDE_DX_SMEM_BYTES;
+  out[5] = (long long)(sizeof(SlicedFwdSmem<768>) + ATOM_BYTES);
+  out[6] = (long long)(sizeof(SlicedDxSmem<768>) + ATOM_BYTES);
+  out[7] = (long long)(sizeof(SlicedFwdSmem<MAX_WIDTH>) + ATOM_BYTES);
+  out[8] = (long long)(sizeof(SlicedDxSmem<MAX_WIDTH>) + ATOM_BYTES);
 }
 
 // K4f. Returns a cudaError_t (0 on success; cudaErrorInvalidValue for what
@@ -1578,6 +2252,7 @@ extern "C" int nerface_fused_flex_fwd(const float* ro, const float* rd, const fl
   const int xc = xin_extent(n_freqs) / K_XIN;
   FwdArgs fa{ro,    rd,     z,     dir_c, static_cast<const bf16*>(W), F, out, Workspace{}, n_rays,
              UnitLayout::of(n_samples, xc), n_freqs, n_hidden};
+  if (hidden > WIDE) return sliced_forward(hidden, fa, static_cast<cudaStream_t>(stream));
   return dispatch_pass<Forward>(n_samples, hidden == WIDE, xc, fa, static_cast<cudaStream_t>(stream));
 }
 
@@ -1615,7 +2290,8 @@ extern "C" int nerface_fused_flex_bwd(const float* ro, const float* rd, const fl
   const UnitLayout l = UnitLayout::of(n_samples, xc);
   FwdArgs fa{ro, rd, z, dir_c, Wb, F, nullptr, ws, n_rays, l, n_freqs, n_hidden};
   DxArgs da{g, Wb, static_cast<const bf16*>(WT), d_dir, ws, n_rays, l, n_hidden};
-  int err = dispatch_pass<Backward>(n_samples, hidden == WIDE, xc, fa, da, st);
+  int err = hidden > WIDE ? sliced_backward(hidden, fa, da, st)
+                          : dispatch_pass<Backward>(n_samples, hidden == WIDE, xc, fa, da, st);
   if (err != 0) return err;
   // dW from the images (`dw_products`), DWG_MATS_MAX products a launch
   const int segs = dw_segments_of(L, units);

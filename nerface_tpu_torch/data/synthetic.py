@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import json
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -52,6 +53,9 @@ def _checkerboard(H: int, W: int, tile: int = 8) -> np.ndarray:
     return bg
 
 
+BLOB_ROWS = 16  # `render_blob_frame`'s rows a block
+
+
 def render_blob_frame(
     H: int,
     W: int,
@@ -67,7 +71,10 @@ def render_blob_frame(
     """Analytic volume render of the expression-conditioned blob over
     `background`, (H, W, 3) in [0, 1] (the JAX package's
     `data/synthetic.py::render_blob_frame`). `compact` renders a small blob
-    whose σ is exactly 0 beyond 2.5 radii."""
+    whose σ is exactly 0 beyond 2.5 radii. The rows render in blocks of
+    BLOB_ROWS, in threads (numpy leaves the GIL in its array loops): every
+    pixel's arithmetic is the whole frame's, so the frame is the same bit
+    for bit."""
     fx, fy, cx, cy = intrinsics
     ii, jj = np.meshgrid(np.arange(W, dtype=np.float32), np.arange(H, dtype=np.float32), indexing="xy")
     dirs = np.stack([(ii - W * cx) / fx, -(jj - H * cy) / fy, -np.ones_like(ii)], axis=-1)
@@ -75,7 +82,6 @@ def render_blob_frame(
     ro = c2w[:3, 3]
 
     t = np.linspace(near, far, num_samples, dtype=np.float32)
-    pts = ro[None, None, None, :] + rd[..., None, :] * t[None, None, :, None]
 
     e0 = float(expression[0]) if len(expression) else 0.0
     e1 = float(expression[1]) if len(expression) > 1 else 0.0
@@ -83,24 +89,31 @@ def render_blob_frame(
     color = np.clip(
         np.array([0.8 + 0.2 * np.tanh(e1), 0.4, 0.3 - 0.2 * np.tanh(e1)]), 0, 1
     ).astype(np.float32)
+    background = np.broadcast_to(background, (H, W, 3))
 
-    d2 = np.sum(pts * pts, axis=-1)
-    sigma = 400.0 * np.exp(-d2 / (2 * radius * radius))
-    if compact:
-        cut = 2.5 * radius
-        sigma = np.where(d2 < cut * cut, sigma, 0.0)
+    def rows(b):
+        pts = ro[None, None, None, :] + rd[b, :, None, :] * t[None, None, :, None]
+        d2 = np.sum(pts * pts, axis=-1)
+        sigma = 400.0 * np.exp(-d2 / (2 * radius * radius))
+        if compact:
+            cut = 2.5 * radius
+            sigma = np.where(d2 < cut * cut, sigma, 0.0)
 
-    dists = np.diff(t, append=t[-1] + 1e10).astype(np.float32)
-    dists = dists[None, None, :] * np.linalg.norm(rd, axis=-1)[..., None]
-    alpha = 1.0 - np.exp(-sigma * dists)
-    trans = np.cumprod(1.0 - alpha + 1e-10, axis=-1)
-    trans = np.roll(trans, 1, axis=-1)
-    trans[..., 0] = 1.0
-    weights = alpha * trans
+        dists = np.diff(t, append=t[-1] + 1e10).astype(np.float32)
+        dists = dists[None, None, :] * np.linalg.norm(rd[b], axis=-1)[..., None]
+        alpha = 1.0 - np.exp(-sigma * dists)
+        trans = np.cumprod(1.0 - alpha + 1e-10, axis=-1)
+        trans = np.roll(trans, 1, axis=-1)
+        trans[..., 0] = 1.0
+        weights = alpha * trans
 
-    rgb = np.sum(weights[..., None] * color[None, None, None, :], axis=-2)
-    acc = np.sum(weights, axis=-1)
-    return np.clip(rgb + (1.0 - acc[..., None]) * background, 0.0, 1.0)
+        rgb = np.sum(weights[..., None] * color[None, None, None, :], axis=-2)
+        acc = np.sum(weights, axis=-1)
+        return np.clip(rgb + (1.0 - acc[..., None]) * background[b], 0.0, 1.0)
+
+    blocks = [slice(i, i + BLOB_ROWS) for i in range(0, H, BLOB_ROWS)]
+    with ThreadPoolExecutor(min(len(blocks), os.cpu_count() or 1)) as pool:
+        return np.concatenate(list(pool.map(rows, blocks)))
 
 
 def synthetic_flame_dataset(

@@ -15,12 +15,16 @@ rebuilt and an unchanged one is not.
 Flags: Hopper (`sm_90a`), -O3, and neither `--use_fast_math` nor
 `-ftz=true`: the encoding needs `sinf` with full range reduction (sin
 arguments reach hundreds of radians), and the disparity guard
-max(acc, 1e-38) needs denormals.
+max(acc, 1e-38) needs denormals. ptxas compiles a library's entry
+functions in parallel threads (`--split-compile=0`: as many as the host
+has cores); each kernel's SASS is the same as from one thread.
 
 K1's, K3's and K4's libraries (`fused_train_pass`, `fused_paper_mlp`,
 `fused_flex`) hold the kernels' layout classes (`csrc/mma_tile.cuh`) in
 two builds, compiled side by side: the fixed classes S = 64 / 128 and the
 runtime class of every other S (`layout_library`, `SAMPLE_CLASS_DEFINES`).
+K4's hidden widths 768 and 1024 are a build each besides
+(`flex_sliced_defines`); `library_builds` lists a library's builds.
 
 A debug build: the environment variable NERFACE_KERNEL_DEFINES (defines,
 space-separated) is added to every library's `defines`, e.g.
@@ -44,6 +48,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "nerface_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xptxas", "--split-compile=0",
 )
 
 
@@ -156,6 +161,26 @@ def sample_class_defines(n_samples: int, num_encoding_fn_xyz: int = 10) -> tuple
 
 # the libraries built as the two builds of `SAMPLE_CLASS_DEFINES`
 LAYOUT_LIBRARIES = ("fused_train_pass", "fused_paper_mlp", "fused_flex")
+
+
+def flex_sliced_defines(h: int) -> tuple:
+    """The defines of the build that holds K4 at width h, one of
+    `fused_flex.SLICED_WIDTHS` (`csrc/fused_flex.cu`'s sliced kernels, the
+    runtime layout class at every S): one build of `fused_flex` a width,
+    with no layout class of the narrower widths, so that each compiles in
+    parallel with the rest."""
+    return ("NERFACE_SAMPLE_CLASSES=0", f"NERFACE_SLICED_WIDTH={h}")
+
+
+def library_builds(name: str) -> tuple:
+    """The define sets `name` builds with: two layout-class builds of
+    LAYOUT_LIBRARIES, and fused_flex's sliced widths besides."""
+    from nerface_tpu_torch.ops.kernels.fused_flex import SLICED_WIDTHS
+
+    if name not in LAYOUT_LIBRARIES:
+        return ((),)
+    builds = tuple(SAMPLE_CLASS_DEFINES.values())
+    return builds + tuple(map(flex_sliced_defines, SLICED_WIDTHS)) if name == "fused_flex" else builds
 
 
 def layout_library(name: str, n_samples: int, num_encoding_fn_xyz: int = 10) -> ctypes.CDLL:

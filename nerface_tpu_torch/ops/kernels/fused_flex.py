@@ -39,8 +39,9 @@ contribution, relu, `fc_rgb` — and returns the raw radiance [rgb, σ]
   (`fused_flex.py:364-385`) and of its pipeline's tile rule
   (`nerface_tpu/render/pipeline.py:287-292`: `kernel_pass_ok`, the ray
   count a multiple of 8) plus what the kernels are built for: hidden width
-  256 or 512 (`WIDTHS`; JAX also admits 768, 1024, ..., which here run the
-  model's plain forward), any number of hidden layers, 1..MAX_FREQS xyz
+  a multiple of 256 up to MAX_WIDTH = 1024 (`WIDTHS`; JAX also admits
+  1280, 1536, ..., which here run the model's plain forward), any number
+  of hidden layers, 1..MAX_FREQS xyz
   bands (JAX has no limit; 21 and more run the plain forward), 1..MAX_SAMPLES
   samples a ray (`fused_mlp.MAX_SAMPLES`, the paper kernels' and K5's
   limit too; JAX has none, and past it the plain forward runs). Any S:
@@ -52,7 +53,9 @@ contribution, relu, `fc_rgb` — and returns the raw radiance [rgb, σ]
   function takes it, h = 256 by default. At h = 512 the two consumer
   warpgroups of a CTA share each unit (`csrc/fused_flex.cu`,
   `wide_chain_kernel` / `wide_dx_kernel`), so a CTA takes one item a round
-  (`flex_ctas`).
+  (`flex_ctas`); at h = 768 and 1024 too, each layer in slices of 256
+  columns (`sliced_chain_kernel` / `sliced_dx_kernel`, a build of the
+  runtime layout class for each width: `_lib`).
 """
 
 from __future__ import annotations
@@ -84,17 +87,25 @@ from nerface_tpu_torch.ops.kernels.fused_mlp import (
     xin_extent,
 )
 
-# the hidden widths the kernels take; layers_dir.0 is h / 2 wide
-WIDTHS = (HIDDEN, 2 * HIDDEN)
+# the hidden widths the kernels take, every multiple of HIDDEN up to
+# MAX_WIDTH (csrc/fused_flex.cu's, which every C entry point checks);
+# layers_dir.0 is h / 2 wide
+MAX_WIDTH = 1024
+WIDTHS = tuple(range(HIDDEN, MAX_WIDTH + 1, HIDDEN))
+# the widths past 512 run csrc/fused_flex.cu's sliced kernels, in a build of
+# their own each (`build.flex_sliced_defines`)
+SLICED_WIDTHS = tuple(h for h in WIDTHS if h > 2 * HIDDEN)
 # K4's xyz encoding bands, 1..MAX_FREQS (the paper kernels' 20): [xyz; PE;
 # 0] is one K_XIN block up to 10 bands and two (K = K_XIN_WIDE) from 11,
 # `xin_extent`; W1 holds that many rows (`w_offsets`' kx)
 
 
 def check_width(h: int) -> None:
-    """K4's wrappers take hidden width 256 or 512, on either device."""
+    """K4's wrappers take hidden width 256, 512, 768 or 1024 (`WIDTHS`), on
+    either device."""
     if h not in WIDTHS:
-        raise ValueError(f"the Flexible kernels take hidden width 256 or 512, got {h}")
+        raise ValueError(f"the Flexible kernels take hidden width 256, 512, 768 or 1024 (a multiple of "
+                         f"{HIDDEN} up to {MAX_WIDTH}), got {h}")
 
 
 def weight_names(n_hidden: int) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
@@ -139,7 +150,7 @@ def flex_fused_eligible(model, encode_xyz, pe_dir, n_rays: int, n_samples: int, 
     """Whether `model` can run its radiance field as one `fused_flex_mlp`
     call: a Flexible-family model with view directions, the xyz input and
     its declared encoding, no skip layer engaged (every reference config),
-    hidden width 256 or 512, any number of hidden layers, 1..MAX_FREQS
+    hidden width in WIDTHS, any number of hidden layers, 1..MAX_FREQS
     bands, 1..MAX_SAMPLES samples a ray, and on the card a pass the JAX package
     sends to its Pallas kernel (`kernel_pass_ok`: its tile picker finds a
     ray tile, so n_rays % 8 == 0)."""
@@ -434,7 +445,7 @@ def _split_kernel_grads(dwbuf, dfbuf, n_hidden: int, n_enc: int, h: int = HIDDEN
 
 def _check_domain(z_vals, v0, n_hidden, num_encoding_fn_xyz):
     """What the wrappers take on either device: 1..MAX_SAMPLES samples a
-    ray, hidden width 256 or 512 (v0's), n_hidden ≥ 0, 1..MAX_FREQS xyz
+    ray, hidden width in WIDTHS (v0's), n_hidden ≥ 0, 1..MAX_FREQS xyz
     bands."""
     check_samples(z_vals.shape[-1])
     check_width(v0.shape[-1])
@@ -488,12 +499,16 @@ def _kernel_operands(W, v0, n_hidden, num_encoding_fn_xyz, log_sampling_xyz, tra
     return both[wt_total:], fbuf, both[:wt_total]
 
 
-def _lib(n_samples: int, num_encoding_fn_xyz: int):
+def _lib(n_samples: int, num_encoding_fn_xyz: int, h: int = HIDDEN):
     """The build of `csrc/fused_flex.cu` that holds the layout class of a
-    pass of n_samples at num_encoding_fn_xyz bands (`build.layout_library`:
-    past 10 bands the runtime class at any S), both widths."""
-    from nerface_tpu_torch.ops.kernels.build import layout_library
+    pass of n_samples at num_encoding_fn_xyz bands and width h
+    (`build.layout_library`: past 10 bands the runtime class at any S; h =
+    256 and 512 in both, 768 and 1024 each in a build of its own at any S,
+    `build.flex_sliced_defines`)."""
+    from nerface_tpu_torch.ops.kernels.build import flex_sliced_defines, layout_library, load_library
 
+    if h in SLICED_WIDTHS:
+        return load_library("fused_flex", flex_sliced_defines(h))
     return layout_library("fused_flex", n_samples, num_encoding_fn_xyz)
 
 
@@ -508,7 +523,7 @@ def _launch_flex_fwd(operands, per_ray, out, n_hidden, num_encoding_fn_xyz):
     h = 2 * dc.shape[-1]
     with torch.cuda.device(ro.device):
         stream = torch.cuda.current_stream(ro.device).cuda_stream
-        err = _lib(n_samples, num_encoding_fn_xyz).nerface_fused_flex_fwd(
+        err = _lib(n_samples, num_encoding_fn_xyz, h).nerface_fused_flex_fwd(
             _ptr(ro), _ptr(rd), _ptr(z), _ptr(dc), _ptr(wbuf), _ptr(fbuf), _ptr(out), n_rays,
             n_samples, num_encoding_fn_xyz, n_hidden, h, ctypes.c_void_p(stream),
         )
@@ -533,7 +548,7 @@ def flex_bwd_outputs(n_rays: int, n_hidden: int, dev, h: int = HIDDEN,
 def flex_bwd_workspace(n_rays: int, n_samples: int, n_hidden: int, dev, h: int = HIDDEN,
                        num_encoding_fn_xyz: int = 10) -> torch.Tensor:
     """K4b's device workspace for a pass (`workspace_layout`'s bytes)."""
-    nbytes = _lib(n_samples, num_encoding_fn_xyz).nerface_fused_flex_workspace_bytes(
+    nbytes = _lib(n_samples, num_encoding_fn_xyz, h).nerface_fused_flex_workspace_bytes(
         n_rays, n_samples, num_encoding_fn_xyz, n_hidden, h)
     if nbytes < 0:
         raise ValueError(f"K4b takes no pass of {n_rays} × {n_samples} at h = {h}, n = {n_hidden}, "
@@ -553,7 +568,7 @@ def _launch_flex_bwd(operands, per_ray, out, ws, n_hidden, num_encoding_fn_xyz):
     h = 2 * dc.shape[-1]
     with torch.cuda.device(ro.device):
         stream = torch.cuda.current_stream(ro.device).cuda_stream
-        err = _lib(n_samples, num_encoding_fn_xyz).nerface_fused_flex_bwd(
+        err = _lib(n_samples, num_encoding_fn_xyz, h).nerface_fused_flex_bwd(
             _ptr(ro), _ptr(rd), _ptr(z), _ptr(dc), _ptr(wbuf), _ptr(wtbuf), _ptr(fbuf), _ptr(g),
             _ptr(out["dw"]), _ptr(out["df"]), _ptr(out["d_dir"]), _ptr(ws), n_rays, n_samples,
             num_encoding_fn_xyz, n_hidden, h, ctypes.c_void_p(stream),
@@ -570,7 +585,7 @@ def fused_flex_forward(
     """K4f: the raw radiance (R, S, 4) f32 of the skip-free Flexible trunk.
     `weights` is `pack_flex_weights(...)`; ro/rd (R, 3), z (R, S),
     dir_contrib (R, h / 2) = pe_dir @ W_dir0[:, h:].T, v0 (1, h), all f32
-    and contiguous; h is 256 or 512, the bands 1..MAX_FREQS."""
+    and contiguous; h is in WIDTHS, the bands 1..MAX_FREQS."""
     dev = ray_origins.device
     _check_domain(z_vals, v0, n_hidden, num_encoding_fn_xyz)
     if dev.type == "cpu":
@@ -644,7 +659,8 @@ DW_SEG_UNITS = 2048  # units a dW row segment sums at most (fused_flex.cu)
 def mask_bytes(h: int = HIDDEN) -> int:
     """A unit's relu mask of an h-wide activation as bits: 4 words a thread
     of a warpgroup's 256 columns (at h = 512 each consumer warpgroup keeps
-    its columns' words, `wide_mask`)."""
+    its columns' words, `wide_mask`; at h = 768 / 1024 2 words a thread of
+    each 128-column block, `slice_mask`)."""
     return 128 * h // 64 * 4
 
 
@@ -666,9 +682,9 @@ def mask_buffers(n_hidden: int) -> Tuple[str, ...]:
 def dw_products(n_hidden: int, h: int = HIDDEN, kx: int = K_XIN) -> Tuple[Tuple[int, int], ...]:
     """dW's products (X width, gY columns), as the kernel launches them
     (`dw_products`): W1 (K = kx), WF, WD0, each WH_i, each by column blocks
-    of at most 256."""
+    of at most 256 (WD0's 384 at h = 768 as 256 + 128)."""
     mats = [(kx, h), (h, h), (h, h // 2)] + [(h, h)] * n_hidden
-    return tuple((k, min(n, 256)) for k, n in mats for _ in range(0, n, 256))
+    return tuple((k, min(n - c, 256)) for k, n in mats for c in range(0, n, 256))
 
 
 def dw_segments(n_hidden: int, h: int = HIDDEN, kx: int = K_XIN, units: int = 0) -> int:
@@ -682,7 +698,7 @@ def dw_segments(n_hidden: int, h: int = HIDDEN, kx: int = K_XIN, units: int = 0)
 def flex_ctas(n_rays: int, n_samples: int, h: int = HIDDEN) -> int:
     """The persistent grid's CTAs: one a round, at most FLEX_CTAS; a round
     is two items (one a consumer warpgroup) at h = 256, one item (both
-    warpgroups on each unit) at h = 512."""
+    warpgroups on each unit) at every wider h."""
     rays, _ = unit_layout(n_samples)
     items = -(-n_rays // rays)
     return min(-(-items // CONSUMERS) if h == HIDDEN else items, FLEX_CTAS)
@@ -697,7 +713,7 @@ def unit_schedule(n_rays: int, n_samples: int, h: int = HIDDEN):
     past ITEM_ROWS one ray in ⌈S / 64⌉ units, 5 at S = 320, 16 at 1024);
     item k's units are the pass's units [k·units, (k + 1)·units), its rows
     past its rays' samples pad the last. An item past the last ray is not
-    live. At h = 512 CTA c's rounds are the items c, c + ctas, ..., both
+    live. At h ≥ 512 CTA c's rounds are the items c, c + ctas, ..., both
     warpgroups on each of their units (an entry for each), every item
     live."""
     wg_rays, units = unit_layout(n_samples)

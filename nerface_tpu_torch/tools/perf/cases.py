@@ -106,7 +106,8 @@ def paper_case(R, S, seed, dev, small=False, bands=10):
 def flex_params(seed, dev, n_hidden=3, hidden=256, bands=10):
     """He-scaled random weights of one synth512_lcode model (the state-dict
     params; `n_hidden` hidden layers after layer1, 3 in the config; hidden
-    width 256, or 512 as synth512_lcode_w512; `bands` xyz encoding bands,
+    width 256, or 512 / 768 / 1024 as synth512_lcode_w512 / _w768 /
+    _w1024 (any of `fused_flex.WIDTHS`); `bands` xyz encoding bands,
     10 in the config, 16 in synth512_lcode_pe16) and a per-frame v0 =
     layer1's bias + its conditioning columns applied to a random [expr / 3;
     latent]."""

@@ -8,7 +8,8 @@ through the wrappers' own `_launch_flex_fwd` / `_launch_flex_bwd` (which
 count it): K4f on a 65536-ray serving tile and on a train step's 2048 rays
 at S = 64 and 128, K4b on the 2048 rays, synth512_lcode's He-scaled trunk
 (n = 3 hidden layers) at each hidden width asked for (256, the config's,
-and 512, synth512_lcode_w512's; `--hidden`) and at its 10 xyz bands or
+512, synth512_lcode_w512's, 768 and 1024, synth512_lcode_w768's and
+_w1024's; `--hidden`, 256 and 512 by default) and at its 10 xyz bands or
 `--bands` (11..20: a K = 128 encoding, the runtime layout class at every
 S). At 10 bands it calls only what every checkout of the port with the
 wgmma kernels has, so it times two trees against each other: run it with
@@ -21,7 +22,7 @@ bound its time is read against, and the bytes this design moves at the
 memory rate, the workspace's round trip included, a floor of the design
 (the TPU kernel moves no workspace).
 
-    python -m nerface_tpu_torch.tools.perf.flex_launch_split [--hidden 256 512] [--bands L] [--json PATH]
+    python -m nerface_tpu_torch.tools.perf.flex_launch_split [--hidden 256 512 768 1024] [--bands L] [--json PATH]
 
 It prints the card line, one line per case and kernel, and a JSON line.
 """
@@ -42,15 +43,17 @@ from nerface_tpu_torch.tools.perf.k1_launch_split import PEAK_BF16_FLOPS, row_te
 RAYS = 2048
 TILE_RAYS = 65536
 N_HIDDEN = 3  # synth512_lcode: num_layers 4
-WIDTHS = (256, 512)
+WIDTHS = (256, 512)  # the default widths; --hidden takes any of F.WIDTHS
 
 
 def k4b_kernels(h=256):
     """The kernels K4b launches at width h, in order (h = 512 has its own
-    recompute and dX kernels)."""
+    recompute and dX kernels, h = 768 and 1024 theirs)."""
     if h == 256:
         return ("flex_chain_kernel", "flex_dx_kernel", "dw_wgmma_kernel", "reduce_rows")
-    return ("wide_chain_kernel", "wide_dx_kernel", "dw_wgmma_kernel", "reduce_rows")
+    if h == 512:
+        return ("wide_chain_kernel", "wide_dx_kernel", "dw_wgmma_kernel", "reduce_rows")
+    return ("sliced_chain_kernel", "sliced_dx_kernel", "dw_wgmma_kernel", "reduce_rows")
 
 
 K4B_KERNELS = k4b_kernels()
@@ -156,7 +159,7 @@ def measure(dev, h=256, bands=10):
     """K4f at the tile and at 2048 rays, K4b at 2048 rays, S = 64 and 128,
     at hidden width h and `bands` xyz bands: wrapper and bare-launch median
     ms; K4b's kernels' device ms a call, beside their bounds. Returns
-    {case: {...}} (cases "RxS", with "@512" at h = 512 and "/L16" past 10
+    {case: {...}} (cases "RxS", with "@h" past h = 256 and "/L16" past 10
     bands)."""
     res = {}
     for R, S in ((TILE_RAYS, 64), (TILE_RAYS, 128), (RAYS, 64), (RAYS, 128)):
@@ -187,7 +190,7 @@ def measure(dev, h=256, bands=10):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--hidden", type=int, nargs="+", choices=WIDTHS, default=list(WIDTHS),
+    ap.add_argument("--hidden", type=int, nargs="+", choices=F.WIDTHS, default=list(WIDTHS),
                     help="the hidden widths to measure")
     ap.add_argument("--bands", type=int, default=10, help="xyz encoding bands (1..20)")
     ap.add_argument("--json", help="also write the result here")

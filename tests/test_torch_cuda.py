@@ -368,10 +368,10 @@ def _assert_flex_close(out, flat, args, g, R, S, n, bands=10, yard=None):
     """K4f's output and K4b's gradients (flat: the weights', d_v0, d_dir)
     against the plain versions at `bands` xyz bands within `flex_limit` /
     `flex_grad_limits`, with the tensor-core yardstick where `flex_yardstick`
-    holds (or `yard` says)."""
+    holds (or `yard` says; at every S at the sliced widths 768 / 1024)."""
     from nerface_tpu_torch.ops.kernels import fused_flex as F
 
-    yard = flex_yardstick(S, n) if yard is None else yard
+    yard = flex_yardstick(S, n, args[5].shape[-1]) if yard is None else yard
     ref = F.fused_flex_forward_reference(*args, n, bands)
     tc_ref = tensor_core_plain(lambda: F.fused_flex_forward_reference(*args, n, bands)) if yard else None
     assert torch.isfinite(out).all()
@@ -442,8 +442,8 @@ def test_flex_kernels_refuse_what_they_do_not_take(cuda_device):
         F.fused_flex_forward(weights, ro, rd, z, dc, v0, 9)  # 9 hidden layers' weights, 3 given
     with pytest.raises(ValueError, match="n_hidden"):
         F.fused_flex_forward(weights, ro, rd, z, dc, v0, -1)
-    for h in (128, 768):  # JAX's kernel takes 768; the port's kernels are built for 256 and 512
-        with pytest.raises(ValueError, match="hidden width 256 or 512"):
+    for h in (128, 1280):  # JAX's kernel takes 1280; the port's take h up to 1024
+        with pytest.raises(ValueError, match="hidden width 256, 512, 768 or 1024"):
             F.fused_flex_forward(weights, ro, rd, z, torch.zeros(64, h // 2, device=cuda_device),
                                  torch.zeros(1, h, device=cuda_device), 3)
     f32_mats = tuple(w.float() for w in weights)
@@ -458,12 +458,13 @@ def test_flex_kernels_refuse_what_they_do_not_take(cuda_device):
 def test_flex_entry_points_refuse_what_the_kernels_do_not_take(cuda_device):
     """The C entry points of K4f / K4b return cudaErrorInvalidValue (1) for
     S outside 1..1024, for an S whose layout class the build does not hold
-    (the fixed build at S = 24 or 32), for a hidden width other than 256
-    and 512 and for n < 0: no S or width runs another's layout. Nothing is
-    launched."""
+    (the fixed build at S = 24 or 32), for a hidden width a build does not
+    hold (768 and 1024 only in their own builds, 1280 in none) and for n <
+    0: no S or width runs another's layout. Nothing is launched."""
     import ctypes
 
-    from nerface_tpu_torch.ops.kernels.build import SAMPLE_CLASS_DEFINES, load_library
+    from nerface_tpu_torch.ops.kernels.build import SAMPLE_CLASS_DEFINES, flex_sliced_defines, load_library
+    from nerface_tpu_torch.ops.kernels.fused_flex import SLICED_WIDTHS
 
     out = torch.zeros(8, 4, device=cuda_device)
     null = ctypes.c_void_p(0)
@@ -481,12 +482,21 @@ def test_flex_entry_points_refuse_what_the_kernels_do_not_take(cuda_device):
             for S in (0, -1, 1025, 2048):
                 assert fwd(lib, S, h) == 1, S
                 assert lib.nerface_fused_flex_workspace_bytes(8, S, 10, 3, h) == -1, S
-            for bad in (0, 128, 384, 768, 1024):
+            for bad in (0, 128, 384, 1280, 2048):
                 assert fwd(lib, 64, bad) == 1 and fwd(lib, 24, bad) == 1, bad
                 assert lib.nerface_fused_flex_workspace_bytes(8, 64, 10, 3, bad) == -1, bad
+            for other in (768, 1024):  # each in its own build: a layout-class build refuses it
+                assert fwd(lib, 64, other) == 1 and fwd(lib, 24, other) == 1, other
             assert fwd(lib, 64, h, -1) == 1 and lib.nerface_fused_flex_workspace_bytes(8, 64, 10, -1, h) == -1
             assert lib.nerface_fused_flex_workspace_bytes(8, 24, 10, 12, h) > 0  # any depth
         assert fwd(fixed, 24, h) == 1 and fwd(fixed, 32, h) == 1
+    for h in SLICED_WIDTHS:
+        lib = load_library("fused_flex", flex_sliced_defines(h))
+        for S in (0, 1025):
+            assert fwd(lib, S, h) == 1, S
+        for other in (256, 512, 1280) + tuple(x for x in SLICED_WIDTHS if x != h):
+            assert fwd(lib, 64, other) == 1 and fwd(lib, 24, other) == 1, other
+        assert fwd(lib, 64, h, -1) == 1 and lib.nerface_fused_flex_workspace_bytes(8, 64, 10, 12, h) > 0
     torch.cuda.synchronize()
     assert torch.equal(out, torch.zeros_like(out))
 
@@ -526,6 +536,36 @@ def test_flex_wide_and_deep_kernels_match_plain(cuda_device, h, n, R, S):
     flat, flat2 = grads[0] + grads[1:], grads2[0] + grads2[1:]
     assert all(torch.equal(a, b) for a, b in zip(flat, flat2)), "not deterministic"
     _assert_flex_close(out, flat, args, g, R, S, n)
+
+
+# K4f / K4b at hidden width 768 and 1024 (csrc/fused_flex.cu's sliced
+# kernels: both consumer warpgroups on each unit, each layer's columns in
+# slices of 256, in a build of each width's own): (h, n, R, S); the train
+# step's pair, ragged passes, the runtime layouts (S = 24, 1, 200), long
+# items (S = 320, 1024), 0 and 8 hidden layers, a grid past one round of
+# 132 CTAs with a cut-short last round (2085 × 64).
+FLEX_SLICED_CASES = [(768, 3, 512, 64), (768, 3, 77, 128), (768, 0, 301, 24), (768, 8, 530, 1),
+                     (768, 3, 40, 320), (1024, 3, 512, 64), (1024, 3, 77, 128), (1024, 0, 301, 24),
+                     (1024, 8, 2085, 64), (1024, 3, 64, 1024), (1024, 3, 267, 200)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,n,R,S", FLEX_SLICED_CASES,
+                         ids=[f"h{h}_n{n}_{R}x{S}" for h, n, R, S in FLEX_SLICED_CASES])
+def test_flex_sliced_kernels_match_plain(cuda_device, h, n, R, S):
+    """The sliced kernels against their plain versions within `flex_limit`
+    / `flex_grad_limits` (the tensor-core yardstick at every S at these
+    widths), each launch counted once, K4b bit-identical over two
+    launches."""
+    test_flex_wide_and_deep_kernels_match_plain(cuda_device, h, n, R, S)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,R,S", [(768, 77, 64), (1024, 301, 24)], ids=["h768_s64", "h1024_s24"])
+def test_flex_sliced_kernels_take_16_bands(cuda_device, h, R, S):
+    """The sliced kernels at 16 xyz bands (a two-block xin image, W1 two
+    chunks of each slice), as `test_flex_kernels_take_11_and_20_bands`."""
+    _check_flex_kernels_at(cuda_device, h, 16, R, S, seed=R + h)
 
 
 # -- K4f / K4b at 11..20 xyz bands (a K = 128 encoding) ---------------------

@@ -373,7 +373,8 @@ def test_eligibility():
     assert ok(num_layers=6, skip_connect_every=4)  # the would-be skip is the last layer
     assert not ok(use_viewdirs=False)
     assert ok(hidden_size=512) and ok(hidden_size=512, num_layers=13, skip_connect_every=13)  # h = 512, any depth
-    assert not ok(hidden_size=768)  # JAX admits it; the port's kernels are built for 256 and 512
+    assert ok(hidden_size=768) and ok(hidden_size=1024, num_layers=9, skip_connect_every=9)  # the sliced kernels
+    assert not ok(hidden_size=1280)  # JAX admits it; the port's kernels take h up to 1024
     assert not ok(enc=EncodeSpec(10, False, True))
     assert not ok(num_encoding_fn_xyz=6)  # the model's width is not the encoding's
     assert not F.flex_fused_eligible(MODELS["ConditionalBlendshapePaperNeRFModel"](

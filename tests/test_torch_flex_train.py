@@ -173,9 +173,9 @@ def test_step_matches_jax_value_and_grad(dtype, monkeypatch):
 
 
 def test_apply_model_dispatch(monkeypatch):
-    """bf16 + an eligible Flexible model (hidden 256 or 512) → one K4 call;
-    a skip layer engaged, no view directions, hidden 768, or f32 → the
-    model's own forward."""
+    """bf16 + an eligible Flexible model (hidden 256, 512, 768 or 1024) →
+    one K4 call; a skip layer engaged, no view directions, hidden 1280 (the
+    first width past the kernels'), or f32 → the model's own forward."""
     calls = []
     real = pipeline.fused_flex_mlp
     monkeypatch.setattr(pipeline, "fused_flex_mlp", lambda *a, **k: calls.append(1) or real(*a, **k))
@@ -210,8 +210,8 @@ def test_apply_model_dispatch(monkeypatch):
     assert run(no_dirs, pe=None)[:2] == (0, 1)
     wide = MODELS[NAME](**dict(KW, hidden_size=512))
     assert run(wide)[:2] == (1, 0)  # h = 512: K4
-    wider = MODELS[NAME](**dict(KW, hidden_size=768))
-    assert run(wider)[:2] == (0, 1)  # JAX's kernel takes 768; the port's do not
+    wider = MODELS[NAME](**dict(KW, hidden_size=1280))
+    assert run(wider)[:2] == (0, 1)  # JAX's kernel takes 1280; the port's stop at 1024
 
 
 def _train_cfg(basedir, logdir):

@@ -24,9 +24,10 @@ hidden width 512 and at any depth.
   version against JAX's bf16 pass through its Pallas kernel within 2e-3
   (the raw limit above; maps in [0, 1]).
 * Dispatch: `flex_fused_eligible` on the card against JAX's
-  `flex_fused_eligible` and its tile rule over h ∈ {128, 256, 512, 768},
-  n ∈ {0, 3, 8, 9, 12}, an engaged skip and ragged ray counts: the two
-  agree wherever the port's widths reach; h = 768 runs the plain path.
+  `flex_fused_eligible` and its tile rule over h ∈ {128, 256, 512, 768,
+  1024, 1280}, n ∈ {0, 3, 8, 9, 12}, an engaged skip and ragged ray counts:
+  the two agree wherever the port's widths reach (up to 1024); h = 1280,
+  the first width past them, runs the plain path.
 * Layouts at h = 512, n = 12: the workspace carve replayed from
   `fused_flex.cu`'s source against `workspace_layout`, dW's products and
   segments, and the entry points' refusal of any other width.
@@ -231,11 +232,11 @@ def test_limits_catch_a_planted_fault(fault):
     assert any(e_max > max_limit for _, e_max, _ in rows), (rows, max_limit)
 
 
-def _render_pair(dtype):
-    """JAX's and the port's `render_rays` of one 512-wide LearnableCode
+def _render_pair(dtype, h=512):
+    """JAX's and the port's `render_rays` of one h-wide LearnableCode
     avatar (coarse and fine models from one init) on 8 rays, JAX's draws
     injected."""
-    name, h, nc, nf = "ConditionalBlendshapeLearnableCodeNeRFModel", 512, 8, 8
+    name, nc, nf = "ConditionalBlendshapeLearnableCodeNeRFModel", 8, 8
     kw = dict(num_layers=4, hidden_size=h, num_encoding_fn_xyz=10, num_encoding_fn_dir=4,
               include_input_dir=False)
     jm = JAX_MODELS[name](**kw)
@@ -295,7 +296,7 @@ def _jax_rule(jm, enc, pe_dir, n_rays):
     return JF.flex_fused_eligible(jm, enc, pe_dir) and n_rays % 8 == 0
 
 
-@pytest.mark.parametrize("h", [128, 256, 512, 768])
+@pytest.mark.parametrize("h", [128, 256, 512, 768, 1024, 1280])
 def test_dispatch_matches_jax_rule(h):
     from nerface_tpu.render.pipeline import EncodeSpec as JaxEncodeSpec
 
@@ -311,7 +312,7 @@ def test_dispatch_matches_jax_rule(h):
                 jax_ok = _jax_rule(jm, jenc, jnp.zeros((4, 24)), n_rays)
                 got = F.flex_fused_eligible(tm, enc, pe_dir, n_rays, 64, "cuda")
                 assert got == (jax_ok and h in F.WIDTHS), (h, n, skip, n_rays)
-                if h == 768:  # JAX's kernel takes it; the port runs the plain path
+                if h == 1280:  # JAX's kernel takes it; past the port's widths, the plain path
                     assert not got
                     assert jax_ok or n_rays % 8 or skip != n + 2
                 if h in F.WIDTHS and jax_ok:  # any depth
@@ -321,15 +322,15 @@ def test_dispatch_matches_jax_rule(h):
 def test_wrappers_refuse_other_widths_and_depths():
     x = _inputs(1)
     args = (_t(x["ro"]), _t(x["rd"]), _t(x["z"]))
-    for h in (128, 768):
+    for h in (128, 1280):  # below 256, and the first width past MAX_WIDTH
         from nerface_tpu_torch.tools.perf.cases import flex_params
 
         params, v0 = flex_params(1, torch.device("cpu"), 1, 256)
         weights = F.pack_flex_weights(params, 1, 10)
         bad_v0, dc = torch.zeros(1, h), torch.zeros(R, h // 2)
-        with pytest.raises(ValueError, match="hidden width 256 or 512"):
+        with pytest.raises(ValueError, match="hidden width 256, 512, 768 or 1024"):
             F.fused_flex_forward(weights, *args, dc, bad_v0, 1)
-        with pytest.raises(ValueError, match="hidden width 256 or 512"):
+        with pytest.raises(ValueError, match="hidden width 256, 512, 768 or 1024"):
             F.fused_flex_backward(weights, *args, dc, bad_v0, _t(x["g"]), 1)
     with pytest.raises(ValueError, match="n_hidden"):
         F.fused_flex_forward(weights, *args, torch.zeros(R, 128), v0, -1)
@@ -391,8 +392,10 @@ def test_dw_products_and_entry_refusals_match_source():
             assert F.dw_products(n, h, kx) == tuple((k, min(c, 256)) for k, c in mats for _ in range(0, c, 256))
     code = re.sub(r"//.*", "", CU)
     valid = code[code.index("bool valid("):code.index("}", code.index("bool valid("))]
-    assert "(hidden == HIDDEN || hidden == WIDE)" in valid and "n_hidden >= 0" in valid
-    assert "constexpr int WIDE = 512;" in CU and "default:" not in code
+    assert "hidden >= HIDDEN && hidden <= MAX_WIDTH && hidden % HIDDEN == 0" in valid and "n_hidden >= 0" in valid
+    assert "constexpr int WIDE = 512;" in CU and f"constexpr int MAX_WIDTH = {F.MAX_WIDTH};" in CU
+    assert "default:" not in code
+    assert F.WIDTHS == tuple(range(256, F.MAX_WIDTH + 1, 256))
     for entry in ("nerface_fused_flex_fwd(", "nerface_fused_flex_bwd(", "nerface_fused_flex_workspace_bytes("):
         body = code[code.index(entry):]
         body = body[:body.index("\n}\n")]
