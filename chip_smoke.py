@@ -591,6 +591,30 @@ PE16_PLAIN_FRAME_MAX = 2
 PE16_FRAME_MEAN = 0.45
 PE16_FRAME_MAX = 7
 
+# synth512_paper with 24 xyz encoding bands in both models (dim_xyz 147,
+# xc = 3): past 20 bands the paper kernels read a K = 192 encoding (three
+# 64-column blocks, the weight ring one stage shorter) in their runtime
+# layout class at every S; and its coarse-only variant (K3f / K3b for every
+# training pass). At 24 bands the fine pass's depths follow the coarse
+# weights, and the 2^23 band turns the least difference in them into other
+# colours: K2's frame read 0.40 / 12 levels from the same frame through
+# its plain version (whose f32 sums differ from the kernel's), the plain
+# version's own bf16 frame 2.205 / 18 from f32, on an NVIDIA H100 80GB
+# HBM3 (PERF.md §6). So a frame is held to its plain version within
+# PE16_PLAIN_FRAME_* through the tensor-core yardstick (`plain_yard`: no
+# less than FLEX_TC_FACTOR × the plain version's own frame with its
+# matmuls on the tensor cores), which each wrong kernel of
+# PAPER_FRAME_FAULTS must fail, and to f32 within PE24_FRAME_*, fixed above
+# the plain version's own readings (2.205 / 18, at σ-noise 0.1 2.205 / 19;
+# the yardstick read 0.386 / 12 and 0.359 / 12).
+SYNTH512_PE24 = copy.deepcopy(SYNTH512_PAPER)
+for _node in SYNTH512_PE24["models"].values():
+    _node["num_encoding_fn_xyz"] = 24
+SYNTH512_PE24_COARSE = copy.deepcopy(SYNTH512_PAPER_COARSE)
+SYNTH512_PE24_COARSE["models"]["coarse"]["num_encoding_fn_xyz"] = 24
+PE24_FRAME_MEAN = 4.0
+PE24_FRAME_MAX = 40
+
 # synth512_lcode with 16 xyz encoding bands in both models (dim_xyz 99):
 # past 10 bands K4f / K4b read a K = 128 encoding (two 64-column blocks) in
 # their runtime layout class at every S. Its frames take [pe16]'s limits:
@@ -992,25 +1016,104 @@ def flex_planted_fault(kind):
         F.fused_flex_forward = kernel
 
 
+# the modelled wrong K2 / K3f that a paper frame held through the
+# tensor-core yardstick must fail (`paper_planted_fault`)
+PAPER_FRAME_FAULTS = ("lost_unit", "third_block")
+# the modelled faults rendered through the plain version's server (the
+# others wrap the kernel)
+PLAIN_SERVER_FAULTS = ("bf16_partial",)
+
+
+def _third_block_zeroed(packed):
+    """K2's packed weights (`PackedPaperWeights` at a K = 192 encoding) with
+    the third xin block of W0 and W3 zeroed: chunk 2 of each chunk image."""
+    import dataclasses
+
+    from nerface_tpu_torch.ops.kernels import fused_mlp as K
+
+    offs, blk = K.w_offsets(K.K_XIN_XL), 64 * K.HIDDEN
+    wbuf = packed.wbuf_sm90.clone()
+    for m in ("W0", "W3"):
+        wbuf[offs[m] + 2 * blk:offs[m] + 3 * blk] = 0
+    return dataclasses.replace(packed, wbuf_sm90=wbuf)
+
+
+def _third_block_bundle(bundle, small=False):
+    """A K3 / K1 bundle whose w0b / w3xb rows from K_XIN_WIDE − 3 on (the
+    encoding's columns 128..191) are zeroed."""
+    from nerface_tpu_torch.ops.kernels import fused_mlp as K
+
+    names, out = _bundle_names(small), list(bundle)
+    for n in ("w0b", "w3xb"):
+        i = names.index(n)
+        out[i] = bundle[i].clone()
+        out[i][K.K_XIN_WIDE - 3:] = 0
+    return out
+
+
 @contextlib.contextmanager
-def paper_plain_version():
+def paper_planted_fault(kind):
+    """K2's and K3f's wrappers, where the render pipeline and K3's
+    autograd.Function call them, replaced by a wrong kernel of
+    PAPER_FRAME_FAULTS: "lost_unit", the kernel with one 64-row unit of
+    every launch lost (`lost_unit_rows`: K3f's raw rows zeroed, every map of
+    K2's rays of those rows zeroed); "third_block", the kernel through
+    weights whose third xin block of W0 and W3 is zeroed (a kernel that
+    never reads the K = 192 image's last block). K2's launches count into
+    its wrapper, which the caller reads before and after; K3f's, whose
+    wrapper counts under its module name, into this one's, not the main
+    path's."""
+    from nerface_tpu_torch.ops.kernels import fused_mlp as K
+    from nerface_tpu_torch.render import pipeline
+
+    k2, k3f = pipeline.fused_paper_render, K.fused_paper_mlp_forward
+    if kind == "lost_unit":
+        def wrong_k2(packed, ro, rd, z, *a, **k):
+            out = dict(k2(packed, ro, rd, z, *a, **k))
+            R, S = z.shape
+            rows = lost_unit_rows(R, S)
+            for name, v in out.items():
+                out[name] = v.clone()
+                out[name][rows.start // S:(rows.stop - 1) // S + 1] = 0
+            return out
+
+        def wrong_k3f(bundle, ro, rd, z, **k):
+            return _without_rows(k3f(bundle, ro, rd, z, **k), lost_unit_rows(*z.shape))
+    else:
+        def wrong_k2(packed, *a, **k):
+            return k2(_third_block_zeroed(packed), *a, **k)
+
+        def wrong_k3f(bundle, *a, **k):
+            return k3f(_third_block_bundle(bundle, k.get("small", False)), *a, **k)
+    wrong_k3f.launches = 0
+    pipeline.fused_paper_render, K.fused_paper_mlp_forward = wrong_k2, wrong_k3f
+    try:
+        yield
+    finally:
+        pipeline.fused_paper_render, K.fused_paper_mlp_forward = k2, k3f
+
+
+@contextlib.contextmanager
+def paper_plain_version(tensor_cores=False):
     """K2's and K3f's wrappers replaced by their plain versions
     (`fused_paper_render_reference` on the packed weights' state dict,
     `fused_paper_mlp_reference`, on whatever device the tensors are), where
     the render pipeline and K3's autograd.Function call them: a bf16 pass
     through them has the kernels' roundings and torch's f32 sums, and
-    launches nothing."""
+    launches nothing. With `tensor_cores`, their matmuls on the tensor
+    cores (`tensor_core_plain`), and nothing else of the render."""
     from nerface_tpu_torch.ops.kernels import fused_mlp as K
     from nerface_tpu_torch.render import pipeline
 
     k2, k3f = pipeline.fused_paper_render, K.fused_paper_mlp_forward
+    run = tensor_core_plain if tensor_cores else (lambda fn: fn())
 
     def plain_k2(params, *a, **k):
         state = params.params if isinstance(params, K.PackedPaperWeights) else params
-        return K.fused_paper_render_reference(state, *a, **k)
+        return run(lambda: K.fused_paper_render_reference(state, *a, **k))
 
     pipeline.fused_paper_render = plain_k2
-    K.fused_paper_mlp_forward = lambda *a, **k: K.fused_paper_mlp_reference(*a, **k)
+    K.fused_paper_mlp_forward = lambda *a, **k: run(lambda: K.fused_paper_mlp_reference(*a, **k))
     try:
         yield
     finally:
@@ -2743,35 +2846,45 @@ def sample_counts_phase(dev):
 # their size, inside their bf16 flips, so `_sample_control` cannot hold
 # (at 16 bands on 2072 rays the base limits caught the lost unit in some
 # of K3b's readings, the limits applied in none); the card tests run S =
-# 192 at 16 bands.
+# 192 at 16 bands. Past 20 bands (XYZ_BANDS_XL: a K = 192 encoding, the
+# ring one stage shorter) the paper kernels alone (K4 takes 1..20), their
+# K1 and K3b dW launches held to the exact check (`dw_exact`) at
+# XYZ_DW_EXACT_BANDS; then at the last band count a planted fault: the same
+# pass through weights whose third xin block of W0 and W3 is zeroed must
+# fail the limits applied (`_third_block_fault`).
 XYZ_BANDS = (10, 11, 16, 20)
+XYZ_BANDS_XL = (21, 24, 31)
+XYZ_DW_EXACT_BANDS = (24, 31)
 XYZ_CASES = ((64, TRAIN_RAYS), (128, TRAIN_RAYS), (48, TRAIN_RAYS), (48, SAMPLE_RAGGED_RAYS))
 XYZ_SEEDS = 1
 
 
 def xyz_bands_phase(dev):
-    """K2, K3f, K1 and K3b of the paper model, and K4f / K4b of
-    synth512_lcode's trunk at hidden width 256 and 512 (FLEX_N_HIDDEN
-    hidden layers), at every band count of XYZ_BANDS and every (S, rays) of
-    XYZ_CASES, each against its plain version under [sample_counts]'
-    limits (`_paper_sample_case`: K2's maps, K3f within K3_OUT_TOL·max, K1
+    """K2, K3f, K1 and K3b of the paper model at every band count of
+    XYZ_BANDS and XYZ_BANDS_XL, and K4f / K4b of synth512_lcode's trunk at
+    hidden width 256 and 512 (FLEX_N_HIDDEN hidden layers) at those of
+    XYZ_BANDS, at every (S, rays) of XYZ_CASES, each against its plain
+    version under [sample_counts]' limits (`_paper_sample_case`: K2's maps, K3f within K3_OUT_TOL·max, K1
     `k1_grad_limits`, K3b `k3b_grad_limits`; `_flex_sample_count`: K4f
     `flex_limit`, K4b `flex_grad_limits`; each where flips reach past them
     within FLEX_TC_FACTOR × the tensor-core yardstick; bit-identical over 2
     launches; Σ d_dir against d_bd0), the lost 64-row unit caught wherever
     the base limits catch it (`_sample_control`), and timed beside the
-    plain version and the operations bound on the 2048-ray cases. Returns
-    {kernel: {"L{L}_S{S}_R{R}": {...}}} and the time ratios against 10
-    bands."""
+    plain version and the operations bound on the 2048-ray cases; K1's and
+    K3b's dW launches exact (`dw_exact`) at XYZ_DW_EXACT_BANDS; the third
+    xin block's planted fault (`_third_block_fault`). Returns {kernel:
+    {"L{L}_S{S}_R{R}": {...}}}, the time ratios against 10 bands and the
+    fault's readings."""
     import torch
 
+    from nerface_tpu_torch.ops.kernels import fused_flex as F
     from nerface_tpu_torch.ops.kernels import fused_mlp as K
     from nerface_tpu_torch.tools.perf.cases import he_scale
 
     t0 = time.perf_counter()
     res = {k: {} for k in ("K2", "K3f", "K1", "K3b", "K4f", "K4b", f"K4f_{FLEX_WIDE}", f"K4b_{FLEX_WIDE}",
                            "control")}
-    for L in XYZ_BANDS:
+    for L in XYZ_BANDS + XYZ_BANDS_XL:
         model = _paper_model(SEED + 31 + L, dev, bands=L)
         he_scale(model)
         params = model.state_dict()
@@ -2781,17 +2894,23 @@ def xyz_bands_phase(dev):
             control = []
             k2, k3f, k1, k3b, dir_sum = _paper_sample_case(
                 S, R, dev, params, packed, lost_unit_rows(R, S), control, bands=L, seeds=XYZ_SEEDS,
-                timed=R == TRAIN_RAYS, label=label)
+                timed=R == TRAIN_RAYS, label=label, exact=L in XYZ_DW_EXACT_BANDS)
             for k, r in (("K2", k2), ("K3f", k3f), ("K1", k1), ("K3b", k3b)):
                 res[k][key] = dict(r, bands=L, samples=S, kx=K.xin_extent(L))
             times = "".join(f"; {k} {r['ms']:.3f} ms, plain {r['plain_ms']:.3f}, bound {r['bound_ms']:.3f}"
                             for k, r in (("K2", k2), ("K3f", k3f), ("K1", k1), ("K3b", k3b)) if "ms" in r)
+            exact = "".join(f"; {k} dW exact: worst {w:.2e} ({wn}), a lost unit {f:.2e} ({fn})"
+                            for k, r in (("K1", k1), ("K3b", k3b)) for w, wn, f, fn in r["dw_exact"])
             (m1, (m1_v, _)), (m3, (m3_v, _)) = k1["worst_max"], k3b["worst_max"]
             phase("xyz_bands",
                   f"{label} (K = {K.xin_extent(L)}): K2 max abs err {k2['max_abs_err']:.3g}, K3f "
                   f"{k3f['out_rel']:.2e}·max (the tensor cores' own {k3f['tc_rel']:.2e}), K1 worst grad {m1} "
                   f"{m1_v:.4f}·max, K3b worst grad {m3} {m3_v:.4f}·max, within [sample_counts]' limits; K1 "
-                  f"and K3b bit-identical over 2 launches; Σ d_dir vs d_bd0 {dir_sum:.2e}{times}")
+                  f"and K3b bit-identical over 2 launches; Σ d_dir vs d_bd0 {dir_sum:.2e}{exact}{times}")
+            if L > F.MAX_FREQS:
+                res["control"][key] = _sample_control(S, control, "xyz_bands", label)
+                torch.cuda.empty_cache()
+                continue
             # K4f / K4b at both widths on the same rays' schedule, the
             # yardstick at every S (as the paper kernels' K3f / K3b here)
             for h in (256, FLEX_WIDE):
@@ -2809,24 +2928,94 @@ def xyz_bands_phase(dev):
                       f"launches{times}")
             res["control"][key] = _sample_control(S, control, "xyz_bands", label)
             torch.cuda.empty_cache()
+    res["third_block_fault"] = _third_block_fault(dev, XYZ_BANDS_XL[-1])
     # the predictions written in PERF.md before the runs: past 10 bands each
     # kernel's time at the same (S, rays) through its wrapper is 1.0–1.3 ×
     # its 10-band time (the paper kernels); K4f's 1.0–1.4 × at h = 256 and
-    # 1.0–1.15 × at 512, K4b's 1.0–1.2 ×
+    # 1.0–1.15 × at 512, K4b's 1.0–1.2 ×; past 20 bands K2's and K3f's
+    # 1.5–3.5 ×, K1's and K3b's 1.0–1.3 ×
     ratios = {}
     for k in ("K2", "K3f", "K1", "K3b", "K4f", "K4b", f"K4f_{FLEX_WIDE}", f"K4b_{FLEX_WIDE}"):
+        bands = XYZ_BANDS[1:] + (XYZ_BANDS_XL if k in ("K2", "K3f", "K1", "K3b") else ())
         for S, R in XYZ_CASES:
             if R != TRAIN_RAYS:
                 continue
             base = res[k][f"L10_S{S}_R{R}"]["ms"]
-            ratios[f"{k}_S{S}"] = {L: res[k][f"L{L}_S{S}_R{R}"]["ms"] / base for L in XYZ_BANDS[1:]}
+            ratios[f"{k}_S{S}"] = {L: res[k][f"L{L}_S{S}_R{R}"]["ms"] / base for L in bands}
     phase("xyz_bands", "ms / the 10-band ms at the same S and rays (predicted 1.0–1.3; K4f 1.0–1.4, at 512 "
-                       "1.0–1.15; K4b 1.0–1.2): " + "; ".join(
+                       "1.0–1.15; K4b 1.0–1.2; past 20 bands K2 / K3f 1.5–3.5, K1 / K3b 1.0–1.3): " + "; ".join(
         f"{c} " + ", ".join(f"L={L} {v:.2f}" for L, v in r.items()) for c, r in ratios.items()))
     res["ratio_to_10_bands"] = ratios
     res["seconds"] = time.perf_counter() - t0
     phase("xyz_bands", f"the phase took {res['seconds']:.1f} s")
     return res
+
+
+def _third_block_fault(dev, L, S=64, R=TRAIN_RAYS):
+    """[xyz_bands]' pass at L bands (a three-block xin image), S and R, each
+    paper kernel run through weights whose third xin block of W0 and W3 is
+    zeroed (the encoding's columns 128..191: K2's packed chunk images, the
+    bundle's w0b / w3xb rows from 125 for K3f, K3b and K1), as a kernel that
+    never read that block would compute, against its plain version on the
+    true weights: each must fail the limits applied to its readings (K2's
+    maps and K3f's outputs through `tc_limit`, K1 `k1_grad_limits`, K3b
+    `k3b_grad_limits` of the tensor-core yardstick). Returns {kernel: (its
+    worst reading / its limit, the reading)}."""
+    import torch
+
+    from nerface_tpu_torch.ops.kernels import fused_mlp as K
+    from nerface_tpu_torch.ops.kernels import fused_train as T
+    from nerface_tpu_torch.tools.perf.cases import he_scale
+
+    check(K.xin_extent(L) == K.K_XIN_XL, f"the third-block fault needs a three-block image, not L = {L}")
+    model = _paper_model(SEED + 31 + L, dev, bands=L)
+    he_scale(model)
+    params = model.state_dict()
+    faulty = _third_block_zeroed(K.pack_paper_weights(params, L))
+    ro, rd, z, dc, cond, bg = _kernel_inputs(R, S, torch.Generator().manual_seed(SEED + S + 1000 * (L - 10)), dev)
+    kw = dict(background=bg, out_weights=True, num_encoding_fn_xyz=L)
+    ref = K.fused_paper_render_reference(params, ro, rd, z, dc, cond, **kw)
+    tc = tensor_core_plain(lambda: K.fused_paper_render_reference(params, ro, rd, z, dc, cond, **kw))
+    got = K.fused_paper_render(faulty, ro, rd, z, dc, cond, **kw)
+    e, e_tc = (float((x["rgb"] - ref["rgb"]).abs().max()) for x in (got, tc))
+    out = {"K2": (e / tc_limit(K2_MAP_LIMITS["rgb"][0], e_tc), e)}
+    names = _bundle_names(False)
+    p = _k1_params(SEED + 23, dev, bands=L)
+    gen = torch.Generator().manual_seed(SEED + 24 + S)
+    ro, rd, z, tgt, bg, noise, pe_dir, cond = _train_kernel_inputs(R, S, gen, dev)
+    bundle = [t.contiguous() for t in T.prefold_paper_params(p, cond, pe_dir, L)]
+    fbundle = _third_block_bundle(bundle)
+    kb = dict(num_encoding_fn_xyz=L)
+    ref = K.fused_paper_mlp_reference(bundle, ro, rd, z, **kb)
+    tc = tensor_core_plain(lambda: K.fused_paper_mlp_reference(bundle, ro, rd, z, **kb))
+    got = K.fused_paper_mlp_forward(fbundle, ro, rd, z, **kb)
+    out["K3f"] = max((rel_err(got[..., sl], ref[..., sl])[0]
+                      / tc_limit(K3_OUT_TOL, rel_err(tc[..., sl], ref[..., sl])[0]),
+                      rel_err(got[..., sl], ref[..., sl])[0]) for sl in (slice(0, 3), slice(3, 4)))
+    g = torch.randn(R, S, 4, generator=gen).to(dev)
+    rgrads = K.fused_paper_mlp_backward_reference(bundle, ro, rd, z, g, **kb)
+    tcg = tensor_core_plain(lambda: K.fused_paper_mlp_backward_reference(bundle, ro, rd, z, g, **kb))
+    grads = K.fused_paper_mlp_backward(fbundle, ro, rd, z, g, **kb)
+    readings = []
+    for name, a, r, t in zip(names, grads, rgrads, tcg):
+        lims = k3b_grad_limits(R, name, rel_err(t, r))
+        readings += [(v / lim, v) for v, lim in zip(rel_err(a, r), lims)]
+    out["K3b"] = max(readings)
+    kw = dict(loss_scale=2.0 / (3.0 * R), background=bg, noise=noise, noise_std=0.1, **kb)
+    _, rgrads, _ = T.fused_train_pass_reference(bundle, ro, rd, z, tgt, **kw)
+    _, grads, _ = T.fused_train_pass(fbundle, ro, rd, z, tgt, **kw)
+    readings = []
+    for name, a, r in zip(names, grads, rgrads):
+        readings += [(v / lim, v) for v, lim in zip(rel_err(a, r), k1_grad_limits(R, name))]
+    out["K1"] = max(readings)
+    torch.cuda.synchronize()
+    phase("xyz_bands", f"L={L} S={S} R={R}, the third xin block of W0 and W3 zeroed (a kernel that never reads "
+                       f"it): worst reading / the limit applied " + ", ".join(
+                           f"{k} {q:.3g} ({v:.3g})" for k, (q, v) in out.items()) + " (each must exceed 1)")
+    for k, (q, v) in out.items():
+        check(q > 1.0, f"L={L}: {k} through a zeroed third xin block reads {v:.3g}, within its limits")
+    torch.cuda.empty_cache()
+    return out
 
 
 # [long_rays]: the paper kernels past 256 samples a ray, where an item is
@@ -5753,7 +5942,8 @@ def _fault_readings(faulty):
 
 def _serve_against_plain_and_f32(dev, tmp, card, cfg_dict, name, seed, kernel, others, plain_passes,
                                  plain_version, plain_limits, f32_limits, what, about, n_frames=SERVE_FRAMES,
-                                 plain_chunk=8192, f32_over_plain=None, plain_yard=False):
+                                 plain_chunk=8192, f32_over_plain=None, plain_yard=False,
+                                 faults=FLEX_FRAME_FAULTS, planted_fault=flex_planted_fault):
     """A 512² avatar of `cfg_dict` (He-scaled weights from `seed`) served in
     bf16 through `serve_jsonl`: `n_frames` of 3 frames, the forward kernel's wrapper
     `kernel` (`what`) launched 2 × tiles a frame and none of `others`, no
@@ -5766,13 +5956,15 @@ def _serve_against_plain_and_f32(dev, tmp, card, cfg_dict, name, seed, kernel, o
     `plain_chunk` rays (which bounds the plain activations). With
     `f32_over_plain`, a frame's mean limit against f32 is instead the plain
     version's own frame's mean distance from f32 plus that many levels.
-    With `plain_yard` (K4f's sliced widths), a frame past `plain_limits`
-    is held to them through the tensor-core yardstick (`tc_limit`): the
-    same frame with the plain version's matmuls on the tensor cores
-    (`flex_plain_version(tensor_cores=True)`), read against the plain
-    version's; and that frame through each wrong K4f of FLEX_FRAME_FAULTS
-    (`flex_planted_fault`) must fail the limits it was held to. Returns
-    the launches, frame_ms and those readings."""
+    With `plain_yard` (K4f's sliced widths, the paper kernels past 20
+    bands), a frame past `plain_limits` is held to them through the
+    tensor-core yardstick (`tc_limit`): the same frame with the plain
+    version's matmuls on the tensor cores (`plain_version(tensor_cores=
+    True)`), read against the plain version's; and that frame through each
+    wrong kernel of `faults` (`planted_fault`: FLEX_FRAME_FAULTS /
+    `flex_planted_fault`, PAPER_FRAME_FAULTS / `paper_planted_fault`) must
+    fail the limits it was held to. Returns the launches, frame_ms and
+    those readings."""
     import numpy as np
     import torch
 
@@ -5825,15 +6017,15 @@ def _serve_against_plain_and_f32(dev, tmp, card, cfg_dict, name, seed, kernel, o
         plain_lims[j] = (tc_limit(plain_limits[0], yard[j][0]), tc_limit(plain_limits[1], yard[j][1]))
     check(kernel.launches == before, f"{name}: the plain frames launched {what}")
     # each frame the yardstick decided, rendered again through a modelled
-    # wrong K4f (FLEX_FRAME_FAULTS), against the plain version's
+    # wrong kernel (`faults`), against the plain version's
     faulty = [None] * len(frames)
     for j, ((f, sd), pimg) in enumerate(zip(frames, plain_imgs)):
         if yard[j] is None:
             continue
         faulty[j] = {}
-        for kind in FLEX_FRAME_FAULTS:
-            with flex_planted_fault(kind):
-                fimg = (server if kind == "lost_unit" else ref_server).render(
+        for kind in faults:
+            with planted_fault(kind):
+                fimg = (ref_server if kind in PLAIN_SERVER_FAULTS else server).render(
                     frame=f, seed=sd, maps=("rgb_fine",))["rgb_fine"]
             d = np.abs(fimg.astype(np.int16) - pimg.astype(np.int16))
             faulty[j][kind] = (float(d.mean()), int(d.max()))
@@ -5861,7 +6053,7 @@ def _serve_against_plain_and_f32(dev, tmp, card, cfg_dict, name, seed, kernel, o
                 f"plain version's {[(round(m, 4), x) for m, x in vs_plain]} (limits "
                 f"{[(round(m, 4), x) for m, x in plain_lims]}"
                 + (f"; the plain version on the tensor cores reads {[y and (round(y[0], 4), y[1]) for y in yard]}"
-                   f", a wrong K4f (mean, max levels) {_fault_readings(faulty)}" if plain_yard else "")
+                   f", a wrong {what} (mean, max levels) {_fault_readings(faulty)}" if plain_yard else "")
                 + f"), vs the f32 plain frame {[(round(m, 4), x) for m, x in vs_f32]} (limits "
                 f"{[(round(m, 4), x) for m, x in f32_lims]}); the plain version's own frame vs f32 "
                 f"{[(round(m, 4), x) for m, x in plain_vs_f32]}; mean |frame - background| and std levels "
@@ -5872,7 +6064,7 @@ def _serve_against_plain_and_f32(dev, tmp, card, cfg_dict, name, seed, kernel, o
               f"{name}: frame {f} {off_bg} levels off the background, std {spread}: the MLP shows little")
         for kind, (mean, mx) in (fault or {}).items():
             check(mean > plain_lim[0] or mx > plain_lim[1],
-                  f"{name}: frame {f} seed {sd}: a wrong K4f ({kind}) reads mean {mean}, max {mx}, within the "
+                  f"{name}: frame {f} seed {sd}: a wrong {what} ({kind}) reads mean {mean}, max {mx}, within the "
                   f"yardstick's limits {plain_lim}")
         for (mean, mx), (lim_mean, lim_max), against in ((a, plain_lim, "plain version"),
                                                          (b, f32_lim, "f32 plain path")):
@@ -5985,16 +6177,38 @@ def _flex_config_phase(dev, ds, tmp, card, cfg_dict, name, plain_limits=(FLEX_PL
 def pe16_phase(dev, ds, tmp, card):
     """synth512_pe16 (SYNTH512_PE16: synth512_paper with 16 xyz bands in
     both models, dim_xyz 99, the kernels' K = 128 encoding) end to end on
-    the card, no bf16 paper pass left to the plain forward
-    (`plain_paper_passes`): SERVE_FRAMES served 512² frames through K2 and one at
-    σ-noise 0.1 through K3f, each within PE16_PLAIN_FRAME_* of the same
-    frame through the kernel's plain version and within PE16_FRAME_* of
-    its f32 plain frame; a bf16 step through K1 against the f32 step
-    ([train_step]'s limits); PAPER_TRAIN_STEPS steps of `train()` through K1
-    (the printed loss falls) and the steady step; FLEX_64_128_WINDOW_STEPS
-    steps windowed against step at a time, bit for bit; the coarse-only
-    variant (SYNTH512_PE16_COARSE) through K3f / K3b: a step against f32
-    and PAPER_TRAIN_STEPS steps."""
+    the card (`_paper_bands_phase`), its frames within PE16_PLAIN_FRAME_*
+    of the kernel's plain version and PE16_FRAME_* of f32."""
+    return _paper_bands_phase(dev, ds, tmp, card, SYNTH512_PE16, SYNTH512_PE16_COARSE, "pe16", SEED + 8,
+                              (PE16_FRAME_MEAN, PE16_FRAME_MAX), "16 xyz bands")
+
+
+def pe24_phase(dev, ds, tmp, card):
+    """synth512_pe24 (SYNTH512_PE24: synth512_paper with 24 xyz bands in
+    both models, dim_xyz 147, the kernels' K = 192 encoding) end to end on
+    the card (`_paper_bands_phase`), its frames within PE16_PLAIN_FRAME_*
+    of the kernel's plain version through the tensor-core yardstick, a
+    wrong kernel of PAPER_FRAME_FAULTS past them, and within PE24_FRAME_*
+    of f32."""
+    return _paper_bands_phase(dev, ds, tmp, card, SYNTH512_PE24, SYNTH512_PE24_COARSE, "pe24", SEED + 12,
+                              (PE24_FRAME_MEAN, PE24_FRAME_MAX), "24 xyz bands", plain_yard=True)
+
+
+def _paper_bands_phase(dev, ds, tmp, card, cfg_dict, coarse_dict, name, seed, f32_limits, about,
+                       plain_yard=False):
+    """A paper avatar past 10 xyz bands (`cfg_dict`, its coarse-only variant
+    `coarse_dict`) end to end on the card, no bf16 paper pass left to the
+    plain forward (`plain_paper_passes`): SERVE_FRAMES served 512² frames
+    through K2 (weights from `seed`) and one at σ-noise 0.1 through K3f,
+    each within PE16_PLAIN_FRAME_* of the same frame through the kernel's
+    plain version (with `plain_yard`, through the tensor-core yardstick and
+    PAPER_FRAME_FAULTS, `_serve_against_plain_and_f32`) and within
+    `f32_limits` of its f32 plain frame; a bf16
+    step through K1 against the f32 step ([train_step]'s limits);
+    PAPER_TRAIN_STEPS steps of `train()` through K1 (the printed loss
+    falls) and the steady step; FLEX_64_128_WINDOW_STEPS steps windowed
+    against step at a time, bit for bit; the coarse-only variant through
+    K3f / K3b: a step against f32 and PAPER_TRAIN_STEPS steps."""
     from nerface_tpu_torch.ops.kernels.fused_mlp import (
         fused_paper_mlp_backward,
         fused_paper_mlp_forward,
@@ -6003,30 +6217,31 @@ def pe16_phase(dev, ds, tmp, card):
     from nerface_tpu_torch.ops.kernels.fused_train import fused_train_pass
 
     t0 = time.perf_counter()
-    limits = (PE16_PLAIN_FRAME_MEAN, PE16_PLAIN_FRAME_MAX), (PE16_FRAME_MEAN, PE16_FRAME_MAX)
-    sv = _serve_against_plain_and_f32(dev, tmp, card, SYNTH512_PE16, "pe16", SEED + 8, fused_paper_render,
+    limits = (PE16_PLAIN_FRAME_MEAN, PE16_PLAIN_FRAME_MAX), f32_limits
+    yard = dict(plain_yard=plain_yard, faults=PAPER_FRAME_FAULTS, planted_fault=paper_planted_fault)
+    sv = _serve_against_plain_and_f32(dev, tmp, card, cfg_dict, name, seed, fused_paper_render,
                                       (fused_paper_mlp_forward, fused_paper_mlp_backward), plain_paper_passes,
-                                      paper_plain_version, *limits, "K2", "16 xyz bands")
-    noisy = copy.deepcopy(SYNTH512_PE16)
+                                      paper_plain_version, *limits, "K2", about, **yard)
+    noisy = copy.deepcopy(cfg_dict)
     noisy["nerf"]["validation"]["radiance_field_noise_std"] = 0.1
-    nf = _serve_against_plain_and_f32(dev, tmp, card, noisy, "pe16", SEED + 9, fused_paper_mlp_forward,
+    nf = _serve_against_plain_and_f32(dev, tmp, card, noisy, name, seed + 1, fused_paper_mlp_forward,
                                       (fused_paper_render, fused_paper_mlp_backward), plain_paper_passes,
-                                      paper_plain_version, *limits, "K3f", "16 xyz bands, σ-noise 0.1", 1)
+                                      paper_plain_version, *limits, "K3f", f"{about}, σ-noise 0.1", 1, **yard)
     with plain_paper_passes() as plain:
-        step = train_step_phase(dev, ds, SYNTH512_PE16, "pe16")
-        tr = train_phase(dev, ds, tmp, False, card, SYNTH512_PE16, PAPER_TRAIN_STEPS, "pe16")
-        cstep = train_step_phase(dev, ds, SYNTH512_PE16_COARSE, "pe16")
-        ctr = train_phase(dev, ds, tmp, False, card, SYNTH512_PE16_COARSE, PAPER_TRAIN_STEPS, "pe16_coarse")
-    check(plain[0] == 0, f"pe16: {plain[0]} bf16 paper passes trained on the plain path")
-    runs = _window_vs_step(dev, ds, tmp, SYNTH512_PE16, "pe16", (fused_paper_render, fused_train_pass),
+        step = train_step_phase(dev, ds, cfg_dict, name)
+        tr = train_phase(dev, ds, tmp, False, card, cfg_dict, PAPER_TRAIN_STEPS, name)
+        cstep = train_step_phase(dev, ds, coarse_dict, name)
+        ctr = train_phase(dev, ds, tmp, False, card, coarse_dict, PAPER_TRAIN_STEPS, f"{name}_coarse")
+    check(plain[0] == 0, f"{name}: {plain[0]} bf16 paper passes trained on the plain path")
+    runs = _window_vs_step(dev, ds, tmp, cfg_dict, name, (fused_paper_render, fused_train_pass),
                            plain_paper_passes, "paper")
     a, b = runs[FLEX_64_128_WINDOW_K], runs[1]
     seconds = time.perf_counter() - t0
-    phase("pe16", f"{FLEX_64_128_WINDOW_STEPS} bf16 steps windowed (K = {FLEX_64_128_WINDOW_K}, {a['s']:.1f} s) "
-                  f"vs step at a time ({b['s']:.1f} s): {os.path.basename(a['ckpt'])} bit for bit, "
-                  f"{len(a['lines'])} printed lines equal; K2 / K1 wrapper calls {a['launches']} / "
-                  f"{b['launches']}; plain bf16 paper passes 0 in every part of the phase; the phase took "
-                  f"{seconds:.1f} s on {card}")
+    phase(name, f"{FLEX_64_128_WINDOW_STEPS} bf16 steps windowed (K = {FLEX_64_128_WINDOW_K}, {a['s']:.1f} s) "
+                f"vs step at a time ({b['s']:.1f} s): {os.path.basename(a['ckpt'])} bit for bit, "
+                f"{len(a['lines'])} printed lines equal; K2 / K1 wrapper calls {a['launches']} / "
+                f"{b['launches']}; plain bf16 paper passes 0 in every part of the phase; the phase took "
+                f"{seconds:.1f} s on {card}")
     launches = {
         "K2": sv["launches"] + tr["launches"]["K2"] + ctr["launches"]["K2"]
         + sum(r["launches"][0] for r in runs.values()),
@@ -6850,6 +7065,7 @@ def main() -> int:
         ct = train_phase(dev, ds, tmp, args.profile, card, SYNTH512_PAPER_COARSE,
                          PAPER_TRAIN_STEPS, "coarse_train")
         p16 = pe16_phase(dev, ds, tmp, card)
+        p24 = pe24_phase(dev, ds, tmp, card)
         p256 = paper_64_256_phase(dev, ds, tmp, card)
         fk = flex_kernel_phase(dev)
         du = flex_dead_units_phase(dev)
@@ -6895,7 +7111,7 @@ def main() -> int:
             "launches": s["launches"] + ss["launches"] + fe["launches"] + oc["launches"]
             + sum(m["launches"] for m in ev["modes"].values()) + su["launches"]["K2"]
             + dd_k2 + sh_k2 + rn["launches"]["K2"] + s128["launches"] + rn64["launches"]["K2"]
-            + p16["launches"]["K2"] + p256["launches"]["K2"],
+            + p16["launches"]["K2"] + p24["launches"]["K2"] + p256["launches"]["K2"],
             "launches_by_path": {"serve": s["launches"], "smaller_serve": ss["launches"],
                                  "serve_64_128": s128["launches"],
                                  "fast_serve": fe["launches"],
@@ -6913,6 +7129,8 @@ def main() -> int:
                                  "reenact_64": rn64["launches"]["K2"],
                                  # synth512_pe16: the served frames, validations and window runs
                                  "pe16": p16["launches"]["K2"],
+                                 # synth512_pe24: the same at 24 bands
+                                 "pe24": p24["launches"]["K2"],
                                  # synth512_paper_64_256: the same at S = 64 and 320
                                  "paper_64_256": p256["launches"]["K2"]},
             "kernel_runs_by_path": {"window_train": wt_k2_runs, "eval_parity": ev["runs"]},
@@ -6960,13 +7178,23 @@ def main() -> int:
             "client_round_trip_ms_512": s["client"]["round_trip_ms"],
             # [sample_counts]: SAMPLE_CASES' rays at each S through the wrapper
             "by_sample_count": sc["K2"],
-            # [xyz_bands]: 10 / 11 / 16 / 20 bands at each (S, rays) of XYZ_CASES,
-            # and synth512_pe16's frames against f32
+            # [xyz_bands]: 10 / 11 / 16 / 20 / 21 / 24 / 31 bands at each (S, rays)
+            # of XYZ_CASES, the zeroed third xin block's readings / limits
+            # (every paper kernel's), and synth512_pe16's and _pe24's frames
+            # against f32
             "by_xyz_bands": xb["K2"],
+            "xyz_bands_third_block_fault": xb["third_block_fault"],
             "pe16_frame_ms_512": p16["serve"]["frame_ms"],
             "pe16_vs_plain_version_levels": p16["serve"]["vs_plain_version_levels"],
             "pe16_vs_f32_levels": p16["serve"]["vs_f32_levels"],
             "pe16_plain_version_vs_f32_levels": p16["serve"]["plain_version_vs_f32_levels"],
+            "pe24_frame_ms_512": p24["serve"]["frame_ms"],
+            "pe24_vs_plain_version_levels": p24["serve"]["vs_plain_version_levels"],
+            "pe24_vs_f32_levels": p24["serve"]["vs_f32_levels"],
+            "pe24_plain_version_vs_f32_levels": p24["serve"]["plain_version_vs_f32_levels"],
+            "pe24_plain_limits": p24["serve"]["plain_limits"],
+            "pe24_tensor_core_vs_plain_version_levels": p24["serve"]["tensor_core_vs_plain_version_levels"],
+            "pe24_planted_faults_vs_plain_version_levels": p24["serve"]["planted_faults_vs_plain_version_levels"],
             # [long_rays]: S past 256 through the wrapper and bare; synth512_paper_64_256's frames
             "by_long_rays": lr["K2"],
             "paper_64_256_frame_ms_512": p256["serve"]["frame_ms"],
@@ -6984,7 +7212,7 @@ def main() -> int:
             "launches": tr["launches"]["K1"] + st["launches"]["K1"] + wt_k1
             + ev["train"]["launches"]["K1"] + su["launches"]["K1"] + dd_k1
             + rn["launches"]["K1"] + rn64["launches"]["K1"] + p16["launches"]["K1"]
-            + p256["launches"]["K1"],
+            + p24["launches"]["K1"] + p256["launches"]["K1"],
             "launches_by_path": {"train": tr["launches"]["K1"],
                                  "smaller_train": st["launches"]["K1"],
                                  "window_train": wt_k1,
@@ -6993,6 +7221,7 @@ def main() -> int:
                                  "ddp_train": dd_k1, "reenact": rn["launches"]["K1"],
                                  "reenact_64": rn64["launches"]["K1"],
                                  "pe16": p16["launches"]["K1"],
+                                 "pe24": p24["launches"]["K1"],
                                  "paper_64_256": p256["launches"]["K1"]},
             "kernel_runs_by_path": {"window_train": wt_k1_runs},
             "max_abs_err": max(v for r in (tk, tks) for e in r["err"].values() for v in e.values()),
@@ -7052,6 +7281,9 @@ def main() -> int:
             "pe16_step_vs_f32": p16["step_vs_f32"],
             "pe16_train_step_ms": p16["train"]["step_ms"],
             "pe16_window": p16["window"],
+            "pe24_step_vs_f32": p24["step_vs_f32"],
+            "pe24_train_step_ms": p24["train"]["step_ms"],
+            "pe24_window": p24["window"],
             # [long_rays], and synth512_paper_64_256's step against f32, steady step and window
             "by_long_rays": lr["K1"],
             "paper_64_256_step_vs_f32": p256["step_vs_f32"],
@@ -7067,11 +7299,13 @@ def main() -> int:
             "replaces": "nerface_tpu/ops/pallas/fused_mlp.py:234",
             "modes": ["paper", "small"],
             # the paths through K3f: coarse-only training and the σ-noise frame
-            "launches": ct["launches"]["K3f"] + nf["launches"] + p16["launches"]["K3f"] + p256["launches"]["K3f"],
+            "launches": ct["launches"]["K3f"] + nf["launches"] + p16["launches"]["K3f"] + p24["launches"]["K3f"]
+            + p256["launches"]["K3f"],
             "launches_by_path": {"coarse_train": ct["launches"]["K3f"],
                                  "noisy_frame": nf["launches"],
                                  # its σ-noise frame and the coarse-only variant's step and train()
                                  "pe16": p16["launches"]["K3f"],
+                                 "pe24": p24["launches"]["K3f"],
                                  # its σ-noise frames and the coarse-only variant's at S = 320
                                  "paper_64_256": p256["launches"]["K3f"]},
             "max_abs_err": pk["abs_err"],  # of raw rgb and σ, all cases
@@ -7102,6 +7336,9 @@ def main() -> int:
             "pe16_noisy_frame_ms_512": p16["noisy_frame"]["frame_ms"],
             "pe16_noisy_vs_plain_version_levels": p16["noisy_frame"]["vs_plain_version_levels"],
             "pe16_noisy_vs_f32_levels": p16["noisy_frame"]["vs_f32_levels"],
+            "pe24_noisy_frame_ms_512": p24["noisy_frame"]["frame_ms"],
+            "pe24_noisy_vs_plain_version_levels": p24["noisy_frame"]["vs_plain_version_levels"],
+            "pe24_noisy_vs_f32_levels": p24["noisy_frame"]["vs_f32_levels"],
             "by_long_rays": lr["K3f"],
             "paper_64_256_noisy_frame_ms_512": p256["noisy_frame"]["frame_ms"],
             "paper_64_256_noisy_vs_f32_levels": p256["noisy_frame"]["vs_f32_levels"],
@@ -7113,9 +7350,10 @@ def main() -> int:
             "source": "nerface_tpu_torch/csrc/fused_paper_mlp.cu",
             "replaces": "nerface_tpu/ops/pallas/fused_mlp.py:333",
             "modes": ["paper", "small"],
-            "launches": ct["launches"]["K3b"] + p16["launches"]["K3b"] + p256["launches"]["K3b"],
+            "launches": ct["launches"]["K3b"] + p16["launches"]["K3b"] + p24["launches"]["K3b"]
+            + p256["launches"]["K3b"],
             "launches_by_path": {"coarse_train": ct["launches"]["K3b"], "pe16": p16["launches"]["K3b"],
-                                 "paper_64_256": p256["launches"]["K3b"]},
+                                 "pe24": p24["launches"]["K3b"], "paper_64_256": p256["launches"]["K3b"]},
             "max_abs_err": pk["grad_abs_err"],  # over every gradient tensor
             "worst_grad_rel": pk["grad_rel"],  # (max error, norm error) per case
             "ms": pk["bwd_ms"][k3],
@@ -7141,6 +7379,7 @@ def main() -> int:
             "xyz_bands_control": xb["control"],
             "xyz_bands_ms_ratio": xb["ratio_to_10_bands"],
             "pe16_coarse_step_vs_f32": p16["coarse_step_vs_f32"],
+            "pe24_coarse_step_vs_f32": p24["coarse_step_vs_f32"],
             # [long_rays]: the readings, their control, and the exact dW check
             # beside the limits it stands in for (a lost unit at 2048 × S)
             "by_long_rays": lr["K3b"],

@@ -148,6 +148,9 @@ using namespace nerface::sm90;
 namespace {
 
 constexpr int WIDE = 512;  // the second hidden width the kernels take
+// K4's xyz encoding bands: 1..20, [xyz; PE; 0] in at most two 64-column
+// blocks (K_XIN_WIDE); the paper kernels' MAX_FREQS reaches a third
+constexpr int FLEX_MAX_FREQS = (K_XIN_WIDE - 3) / 6;
 
 // Packed operand offsets at hidden width H, in elements. They must equal
 // w_offsets / f_offsets / wt_offsets in ops/kernels/fused_flex.py (a CPU
@@ -155,7 +158,7 @@ constexpr int WIDE = 512;  // the second hidden width the kernels take
 // WH_i at FW_OFF_WH + i·H², each as its chunk images, then WA and WRGB
 // row-major; the FW_OFF_* are those of W1 at K_XIN rows (up to 10 bands),
 // `flex_w_off` moves them to K_XIN_WIDE. f32 rows: V0, BF, BD0, BA, BRGB,
-// FREQS (MAX_FREQS slots), then BH_i at FF_OFF_BH + i·H, at every band
+// FREQS (FLEX_MAX_FREQS slots), then BH_i at FF_OFF_BH + i·H, at every band
 // count. Transposed weights, (out, in), each as its chunk images (K = out,
 // N = in): WD0T, WFT, WHT_i at FT_OFF_WHT + i·H².
 template <int H>
@@ -235,7 +238,7 @@ constexpr bool offsets_ok() {
   return O::FW_OFF_WF - O::FW_OFF_W1 == K_XIN * H && O::FW_OFF_WD0 - O::FW_OFF_WF == H * H &&
          O::FW_OFF_WH - O::FW_OFF_WD0 == H * (H / 2) && O::FF_OFF_BF == H && O::FF_OFF_BD0 - O::FF_OFF_BF == H &&
          O::FF_OFF_BA - O::FF_OFF_BD0 == H / 2 && O::FF_OFF_BRGB == O::FF_OFF_BA + 1 &&
-         O::FF_OFF_FREQS - O::FF_OFF_BRGB == 3 && O::FF_OFF_BH - O::FF_OFF_FREQS == MAX_FREQS &&
+         O::FF_OFF_FREQS - O::FF_OFF_BRGB == 3 && O::FF_OFF_BH - O::FF_OFF_FREQS == FLEX_MAX_FREQS &&
          O::FT_OFF_WFT - O::FT_OFF_WD0T == (H / 2) * H && O::FT_OFF_WHT - O::FT_OFF_WFT == H * H;
 }
 static_assert(offsets_ok<256>() && offsets_ok<512>() && offsets_ok<768>() && offsets_ok<1024>(), "operand layout");
@@ -667,15 +670,16 @@ __global__ void __launch_bounds__(FLEX_THREADS, 1) flex_chain_kernel(const FwdAr
       fwd_produce<SF>(sm, a, L, n_rounds);
     } else if (w >= 1 && w <= ENCODERS) {
       const int e = t - CONSUMERS * 128 - 32;
+      auto xin = [&](int wg, int b) { return sm.xin[wg][b]; };
       if constexpr (SAVE) {
         // the recompute also stores each live unit's xin image (L.kx wide)
-        encode_units(g, sm.xin, sm.xin_full, sm.xin_empty, a, sm.f + O::FF_OFF_FREQS, 0, blockIdx.x, gridDim.x,
+        encode_units(g, xin, sm.xin_full, sm.xin_empty, a, sm.f + O::FF_OFF_FREQS, 0, blockIdx.x, gridDim.x,
                      n_rounds, e, [&](int item, int u) -> unsigned char* {
                        return item * g.wg_rays() < a.n_rays ? unit_image(a.ws.xin, L.kx, item * g.units() + u)
                                                             : nullptr;
                      });
       } else {
-        encode_units(g, sm.xin, sm.xin_full, sm.xin_empty, a, sm.f + O::FF_OFF_FREQS, 0, blockIdx.x, gridDim.x,
+        encode_units(g, xin, sm.xin_full, sm.xin_empty, a, sm.f + O::FF_OFF_FREQS, 0, blockIdx.x, gridDim.x,
                      n_rounds, e, [](int, int) -> unsigned char* { return nullptr; });
       }
     }
@@ -2195,8 +2199,8 @@ struct Backward {
   }
 };
 
-// What the kernels take: S in 1..MAX_SAMPLES, 1..MAX_FREQS bands (up to
-// K_XIN_WIDE columns, `xin_extent`), hidden width a multiple of HIDDEN up
+// What the kernels take: S in 1..MAX_SAMPLES, 1..FLEX_MAX_FREQS bands (up
+// to K_XIN_WIDE columns, `xin_extent`), hidden width a multiple of HIDDEN up
 // to MAX_WIDTH (256 and 512 each with its own kernels, 768 and 1024 the
 // sliced ones; no width falls back on another's), any number n ≥ 0 of
 // hidden layers whose offsets fit an int.

@@ -93,8 +93,8 @@ __device__ __forceinline__ void fwd_consume(PaperChainSmem& sm, const FwdArgs& a
     const int b = xin_buf(k, g.xc());
     mbar_wait(&sm.xin_full[wg][b], xin_phase(k, g.xc()));
     float hs[4], hc[4];
-    paper_unit<SMALL, 1>(acc, act, smem_u32(sm.xin[wg][b]), sm, ring, 0, &sm.xin_empty[wg][b], a.dir_c,
-                         g, item * g.wg_rays(), k % units, a.n_rays, hs, hc);
+    paper_unit<SMALL, 1>(acc, act, smem_u32(xin_at(sm.xin, wg, b, g.xc())), sm, ring, 0, &sm.xin_empty[wg][b],
+                         a.dir_c, g, item * g.wg_rays(), k % units, a.n_rays, hs, hc);
     const int rows = g.rows();
     const int i0 = (k % units) * 64 + r0;  // the item's row of the thread's first row
     // a padding row's ray is n_rays: it is not stored

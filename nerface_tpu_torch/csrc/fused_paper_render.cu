@@ -17,7 +17,8 @@
 // TFLOP/s bf16 dense peak, against ~1.9 MB of ray data in and out per
 // 65536 rays. From 11 to 20 bands the encoding is 69..123 columns, padded
 // to K = 128 (two 64-column blocks, `xin_extent`): layer 0 and the skip
-// layer read one chunk more, 6.7 % more products than at K = 64.
+// layer read one chunk more, 6.7 % more products than at K = 64; from 21
+// to 31 bands 129..189 columns in K = 192, two chunks more (13.3 %).
 //
 // Design (one persistent 2-CTA cluster per SM pair, 384 threads a CTA; the
 // chain's pieces are wgmma_chain.cuh's, which K4f shares, and the paper
@@ -28,7 +29,8 @@
 //     wgmma's 128-byte-swizzled K-major B operand (wgmma_tile.cuh), 32 KB
 //     for a 256-wide layer, 16 KB for the 128-wide direction branch; the
 //     skip layer (K = 320) is five chunks, the first reading [xyz; PE; 0]
-//     (six, the first two reading it, at K = 128 past 10 bands).
+//     (six, the first two reading it, at K = 128 past 10 bands; seven, the
+//     first three, at K = 192 past 20).
 //   - Warpgroup 2 feeds the others. One thread (the producer) streams the
 //     chunk sequence through a RING-deep ring of 32 KB stages, each chunk
 //     one `cp.async.bulk` completing on the stage's `full` mbarrier; in the
@@ -42,8 +44,13 @@
 //     consumer. Past 10 bands a tile is 16 KB, two blocks: the same 16 KB
 //     a warpgroup hold one such buffer (K2's shared memory is ≈ 215 KB of
 //     227), and the encoders write the next unit once the skip layer has
-//     read this one, under its last eight layers. `setmaxnreg` gives the warpgroup's registers to the
-//     consumers (40 / 232).
+//     read this one, under its last eight layers. Past 20 a tile is three
+//     blocks, 24 KB a warpgroup, which no free bytes hold: that layout runs
+//     a 4-stage ring, and the two buffers take the fifth stage's 32 KB and
+//     16 KB of the xin array (`xin_at`, `ring_stages`; a runtime value of
+//     the runtime class, so no pass of up to 20 bands runs other code).
+//     `setmaxnreg` gives the warpgroup's registers to the consumers (40 /
+//     232).
 //   - Warpgroups 0 and 1 (the consumers) each take whole rays as 64-row
 //     units, S in 1..1024 (`UnitLayout`, wgmma_chain.cuh): an item of
 //     64 / S rays in one unit where S divides 64, one ray in S / 64 units
@@ -51,12 +58,12 @@
 //     the fewest rows (8 rays in 3 units at S = 24; padding rows compute
 //     zeros and are never composited). S = 64 and 128 have instantiations
 //     of their own (the layout class SF), any other S reads it at run
-//     time, as does a pass past 10 bands at any S (the xin image's two
-//     blocks, `xc`: the fixed classes keep one, so the 10-band 64 + 64
-//     path runs the code it ran before). Each layer is `wgmma.mma_async` m64n256k16
+//     time, as does a pass past 10 bands at any S (the xin image's two or
+//     three blocks, `xc`: the fixed classes keep one, so the 10-band 64 +
+//     64 path runs the code it ran before). Each layer is `wgmma.mma_async` m64n256k16
 //     (m64n128k16 for the direction branch) into 128 f32 accumulator
 //     registers a thread. Layer 0 and the skip layer's first chunk (two
-//     at K = 128) read xin from shared memory with K packed to 64 (probe P1: four k16 steps
+//     at K = 128, three at 192) read xin from shared memory with K packed to 64 (probe P1: four k16 steps
 //     a product against five for the split x3 | enc, 14.73 against 18.03 µs
 //     a repetition). Every other A comes from registers: the epilogue
 //     (bias, the cond0/cond3 folds, the ray's dir_c row) rounds each
@@ -376,8 +383,8 @@ __device__ __forceinline__ void consume(K2Smem& sm, const Args& a, uint32_t rank
       const int b = xin_buf(units, g.xc());
       mbar_wait(&sm.xin_full[wg][b], xin_phase(units, g.xc()));
       float hs[4], hc[4];
-      paper_unit<SMALL, CLUSTER>(acc, act, smem_u32(sm.xin[wg][b]), sm, ring, rank, &sm.xin_empty[wg][b], a.dir_c,
-                                 g, ray0, u, a.n_rays, hs, hc);
+      paper_unit<SMALL, CLUSTER>(acc, act, smem_u32(xin_at(sm.xin, wg, b, g.xc())), sm, ring, rank,
+                                 &sm.xin_empty[wg][b], a.dir_c, g, ray0, u, a.n_rays, hs, hc);
       ++units;
 
       // the unit's place in its item, or in its long ray's segment of ITEM_ROWS rows
@@ -476,14 +483,14 @@ struct Render {
 }  // namespace
 
 // Shared memory a CTA of render_kernel takes (dynamic, with its 1 KB
-// alignment pad): the same at either encoding extent.
+// alignment pad): the same at every encoding extent.
 extern "C" void nerface_fused_paper_render_shared_bytes(long long* out) { out[0] = (long long)SMEM_BYTES; }
 
 // Returns a cudaError_t (0 on success; cudaErrorInvalidValue for n_samples
 // outside 1..MAX_SAMPLES or n_freqs outside 1..MAX_FREQS). Launches on
 // `stream`, does not synchronise and allocates nothing. W is
 // `pack_sm90_chunks`' image of the weights packed at the bands' encoding
-// extent (`xin_extent`: K = 64 up to 10 bands, 128 from 11).
+// extent (`xin_extent`: K = 64 up to 10 bands, 128 from 11, 192 from 21).
 extern "C" int nerface_fused_paper_render(const float* ro, const float* rd, const float* z,
                                           const float* dir_c, const float* bg, const void* W,
                                           const float* F, float* rgb, float* disp, float* acc,

@@ -17,20 +17,24 @@ typedef __nv_bfloat16 bf16;
 constexpr int HIDDEN = 256;
 constexpr int DIR_HIDDEN = 128;
 // Layer 0 and the skip layer read [xyz; PE; 0]: K = K_XIN holds up to 10
-// bands (3 + 6·10 = 63 columns), K = K_XIN_WIDE up to MAX_FREQS = 20 (123
-// columns) as two 64-column blocks. Every kernel of the port that encodes
-// (K2, K3, K1, and K4 in fused_flex.cu) takes either extent,
-// `xin_extent(n_freqs)`.
+// bands (3 + 6·10 = 63 columns), K = K_XIN_WIDE up to 20 (123 columns) as
+// two 64-column blocks, K = K_XIN_XL up to MAX_FREQS = 31 (189 columns) as
+// three. The paper kernels (K2, K3, K1) take every extent,
+// `xin_extent(n_freqs)`; K4 (fused_flex.cu) the first two, up to its own
+// FLEX_MAX_FREQS = 20.
 constexpr int K_XIN = 64;
 constexpr int K_XIN_WIDE = 128;
-constexpr int MAX_FREQS = 20;
-__host__ __device__ constexpr int xin_extent(int n_freqs) { return 3 + 6 * n_freqs <= K_XIN ? K_XIN : K_XIN_WIDE; }
+constexpr int K_XIN_XL = 192;
+constexpr int MAX_FREQS = (K_XIN_XL - 3) / 6;
+__host__ __device__ constexpr int xin_extent(int n_freqs) {
+  return 3 + 6 * n_freqs <= K_XIN ? K_XIN : (3 + 6 * n_freqs <= K_XIN_WIDE ? K_XIN_WIDE : K_XIN_XL);
+}
 
 // Packed operand offsets, in elements. They must equal W_OFFSETS /
 // F_OFFSETS in ops/kernels/fused_mlp.py (tests/test_torch_fused_render.py
 // checks it).
 // bf16 weights, each (in, out) row-major, at K = K_XIN (`w_off` moves
-// them to K = K_XIN_WIDE):
+// them to K = K_XIN_WIDE or K_XIN_XL):
 constexpr int W_OFF_W0 = 0;
 constexpr int W_OFF_W1 = 16384;
 constexpr int W_OFF_W2 = 81920;
@@ -58,13 +62,18 @@ constexpr int F_OFF_BD2 = 2048;
 constexpr int F_OFF_BA = 2176;
 constexpr int F_OFF_BRGB = 2177;
 constexpr int F_OFF_FREQS = 2180;
-constexpr int F_OFF_TOTAL = 2200;
+constexpr int F_OFF_TOTAL = 2212;
+// FREQS holds MAX_FREQS bands and one spare slot: an even F_OFF_TOTAL keeps
+// the float2 columns of K1's partial rows (PART_WA, paper_train.cuh) and
+// the rows themselves 8-byte aligned.
+constexpr int FREQ_SLOTS = 32;
 static_assert(W_OFF_W1 - W_OFF_W0 == K_XIN * HIDDEN && W_OFF_W4 - W_OFF_W3 == (K_XIN + HIDDEN) * HIDDEN &&
                   W_OFF_WD1 - W_OFF_WD0 == HIDDEN * DIR_HIDDEN && W_OFF_WRGB - W_OFF_WA == HIDDEN &&
                   W_OFF_TOTAL - W_OFF_WRGB == DIR_HIDDEN * 3,
               "weight layout");
 static_assert(F_OFF_BD0 - F_OFF_BF == HIDDEN && F_OFF_BA - F_OFF_BD2 == DIR_HIDDEN &&
-                  F_OFF_FREQS - F_OFF_BRGB == 3 && F_OFF_TOTAL - F_OFF_FREQS == MAX_FREQS,
+                  F_OFF_FREQS - F_OFF_BRGB == 3 && F_OFF_TOTAL - F_OFF_FREQS == FREQ_SLOTS &&
+                  FREQ_SLOTS >= MAX_FREQS && F_OFF_TOTAL % 2 == 0,
               "bias row layout");
 
 // The offset W_OFF_* `off` in the packed weights of encoding extent kx: W0
@@ -77,6 +86,10 @@ __host__ __device__ constexpr int w_off(int off, int kx) {
 static_assert(w_off(W_OFF_TOTAL, K_XIN_WIDE) == W_OFF_TOTAL + 2 * 64 * HIDDEN &&
                   w_off(W_OFF_W3 + K_XIN * HIDDEN, K_XIN_WIDE) == w_off(W_OFF_W3, K_XIN_WIDE) + K_XIN_WIDE * HIDDEN,
               "the wide weight layout");
+static_assert(w_off(W_OFF_TOTAL, K_XIN_XL) == W_OFF_TOTAL + 2 * 128 * HIDDEN &&
+                  w_off(W_OFF_W1, K_XIN_XL) == K_XIN_XL * HIDDEN &&
+                  w_off(W_OFF_W3 + K_XIN * HIDDEN, K_XIN_XL) == w_off(W_OFF_W3, K_XIN_XL) + K_XIN_XL * HIDDEN,
+              "the three-block weight layout");
 
 __device__ __forceinline__ float round_bf16(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
 
@@ -93,8 +106,8 @@ __device__ __forceinline__ float round_bf16(float x) { return __bfloat162float(_
 // schedule's passes, S folded in as a constant), else 0 (S read at run
 // time, any S the kernels take); cudaErrorInvalidValue for a class the
 // build does not hold. The fixed classes read a one-block xin image (K =
-// K_XIN): a pass of xc = 2 blocks (K_XIN_WIDE) runs the runtime class at
-// any S, which reads xc at run time too.
+// K_XIN): a pass of xc = 2 or 3 blocks (K_XIN_WIDE, K_XIN_XL) runs the
+// runtime class at any S, which reads xc at run time too.
 template <template <int, bool> class FN, class... Args>
 int dispatch_pass(int n_samples, int small, int xc, Args&&... args) {
 #if NERFACE_SAMPLE_CLASSES & 2

@@ -7,8 +7,10 @@
 // unit through the PAPER_RING-stage weight ring, its warps 1..3 encode each
 // unit's [xyz; PE; 0] tile). A consumer warpgroup runs one 64-row unit at
 // a time through `paper_unit`: the trunk kx→256, 256→256 ×2, the skip
-// layer [xin; h2] (K = kx + 256)→256 (kx = 64, or 128 past 10 bands:
-// UnitLayout's xc blocks, the runtime layout class only), 256→256 ×2 (×1 for the smaller model,
+// layer [xin; h2] (K = kx + 256)→256 (kx = 64, 128 past 10 bands or 192
+// past 20: UnitLayout's xc blocks, the runtime layout class only; at xc =
+// 3 the ring runs PAPER_RING − 1 stages, `ring_stages`, and the xin
+// buffers take the last, `xin_at`), 256→256 ×2 (×1 for the smaller model,
 // SMALL: no layers_xyz.5), fc_feat, the σ head, the direction branch
 // 256→128 (+ the ray's dir_c row) and 128→128 ×2, the rgb head; it hands
 // back the heads' raw sums and the caller adds the head biases. In a
@@ -31,7 +33,8 @@ struct alignas(ATOM_BYTES) PaperChainSmem {
   unsigned char ring[PAPER_RING][CHAIN_STAGE];  // weight chunk images
   // [xyz; PE; 0] of a consumer warpgroup's unit, K-major swizzled, filled
   // by the encoder warps: two buffers of one 64-column block a warpgroup,
-  // or one of both blocks at xc = 2 (`xin_buf`)
+  // one of both blocks at xc = 2 (`xin_buf`), or at xc = 3 one of three
+  // from the ring's last stage on (`xin_at`)
   unsigned char xin[CHAIN_CONSUMERS][2][XIN_BYTES];
   // the heads' weights zero-padded to 8 columns, as chunk images: wa
   // (256 → 1) and wrgb (128 → 3)
@@ -43,6 +46,8 @@ struct alignas(ATOM_BYTES) PaperChainSmem {
   uint64_t xin_full[CHAIN_CONSUMERS][2];
   uint64_t xin_empty[CHAIN_CONSUMERS][2];
 };
+static_assert(offsetof(PaperChainSmem, xin) == offsetof(PaperChainSmem, ring) + sizeof(PaperChainSmem::ring),
+              "xin follows the ring (`xin_at`)");
 
 // The CTA's set-up: the bias rows, the heads' images (W packed at
 // encoding extent kx) and the barriers (a stage's `empty` counts every
@@ -72,15 +77,17 @@ __device__ __forceinline__ void paper_setup(PaperChainSmem& sm, const bf16* W, c
 
 // The producer: every chunk of every layer of every unit (`units` a round)
 // of rounds round0, round0 + step, ... below n_rounds, in the consumers'
-// order, W packed at encoding extent kx; then wait until each stage has
-// been released once more, so no arrive or copy of a peer CTA is left in
-// flight when this CTA exits.
+// order, W packed at encoding extent kx, through the ring's stages at kx
+// (`ring_stages`); then wait until each stage has been released once
+// more, so no arrive or copy of a peer CTA is left in flight when this CTA
+// exits.
 template <bool SMALL, int CTAS>
 __device__ __forceinline__ void paper_produce(PaperChainSmem& sm, const bf16* __restrict__ W, uint32_t rank,
                                               int round0, int step, int n_rounds, int units, int kx) {
   Ring ring;
+  const int stages = ring_stages<PAPER_RING>(kx / K_XIN);
   auto load = [&](int off, int k, int n) {
-    load_layer<PAPER_RING, CTAS>(sm.ring, sm.full, sm.empty, ring, W + w_off(off, kx), k, n, rank);
+    load_layer<PAPER_RING, CTAS>(sm.ring, sm.full, sm.empty, ring, W + w_off(off, kx), k, n, rank, stages);
   };
   for (int round = round0; round < n_rounds; round += step) {
     for (int u = 0; u < units; ++u) {
@@ -96,9 +103,9 @@ __device__ __forceinline__ void paper_produce(PaperChainSmem& sm, const bf16* __
       load(W_OFF_WD2, DIR_HIDDEN, DIR_HIDDEN);
     }
   }
-  for (int s = 0; s < PAPER_RING; ++s) {
+  for (int s = 0; s < stages; ++s) {
     mbar_wait(&sm.empty[ring.stage], ring.phase ^ 1);
-    ring.advance<PAPER_RING>();
+    ring.advance(stages);
   }
 }
 
@@ -113,7 +120,8 @@ __device__ __forceinline__ void paper_feed(PaperChainSmem& sm, const A& a, const
   if (t == 0) {
     paper_produce<SMALL, CTAS>(sm, a.W, rank, round0, step, n_rounds, g.units(), K_XIN * g.xc());
   } else if (w >= 1 && w <= CHAIN_ENCODERS) {
-    encode_units(g, sm.xin, sm.xin_full, sm.xin_empty, a, sm.f + F_OFF_FREQS, rank, round0, step, n_rounds, t - 32,
+    encode_units(g, [&](int wg, int b) { return xin_at(sm.xin, wg, b, g.xc()); }, sm.xin_full, sm.xin_empty, a,
+                 sm.f + F_OFF_FREQS, rank, round0, step, n_rounds, t - 32,
                  [](int, int) -> unsigned char* { return nullptr; });
   }
 }
@@ -127,13 +135,14 @@ __device__ __forceinline__ void paper_release(PaperChainSmem& sm, int stage, uin
   if (CTAS > 1 && t == 32) mbar_arrive_cluster(&sm.empty[stage], rank ^ 1);
 }
 
-// One layer of a warpgroup's 64 rows (`chain_layer` on the ring, xin's
-// xc blocks), each stage released in every CTA of the cluster.
+// One layer of a warpgroup's 64 rows (`chain_layer` on the ring's `stages`
+// of PAPER_RING, xin's xc blocks), each stage released in every CTA of the
+// cluster.
 template <int N, int NCH, int X_CHUNKS, int CTAS>
 __device__ __forceinline__ void paper_layer(float* acc, uint32_t* a, uint32_t xin, PaperChainSmem& sm, Ring& ring,
-                                            uint32_t rank, int xc = 1) {
+                                            uint32_t rank, int stages, int xc = 1) {
   chain_layer<N, NCH, X_CHUNKS, PAPER_RING>(acc, a, xin, sm.ring, sm.full, ring,
-                                            [&](int stage) { paper_release<CTAS>(sm, stage, rank); }, xc);
+                                            [&](int stage) { paper_release<CTAS>(sm, stage, rank); }, xc, stages);
 }
 
 // A consumer warpgroup's unit: its encoded tile at shared address xin
@@ -150,22 +159,23 @@ template <bool SMALL, int CTAS, class G>
 __device__ __forceinline__ void paper_unit(float* acc, uint32_t* act, uint32_t xin, PaperChainSmem& sm, Ring& ring,
                                            uint32_t rank, uint64_t* xin_empty, const float* dir_c_base, const G& g,
                                            int ray0, int u, int n_rays, float* hs, float* hc) {
-  paper_layer<HIDDEN, 1, 1, CTAS>(acc, act, xin, sm, ring, rank, g.xc());
+  const int stages = ring_stages<PAPER_RING>(g.xc());
+  paper_layer<HIDDEN, 1, 1, CTAS>(acc, act, xin, sm, ring, rank, stages, g.xc());
   acc_to_a<HIDDEN, true>(acc, act, ChainBias{sm.f + F_OFF_COND0});
-  paper_layer<HIDDEN, 4, 0, CTAS>(acc, act, xin, sm, ring, rank);
+  paper_layer<HIDDEN, 4, 0, CTAS>(acc, act, xin, sm, ring, rank, stages);
   acc_to_a<HIDDEN, true>(acc, act, ChainBias{sm.f + F_OFF_B1});
-  paper_layer<HIDDEN, 4, 0, CTAS>(acc, act, xin, sm, ring, rank);
+  paper_layer<HIDDEN, 4, 0, CTAS>(acc, act, xin, sm, ring, rank, stages);
   acc_to_a<HIDDEN, true>(acc, act, ChainBias{sm.f + F_OFF_B2});
-  paper_layer<HIDDEN, 5, 1, CTAS>(acc, act, xin, sm, ring, rank, g.xc());  // the skip: [xin; h2]
+  paper_layer<HIDDEN, 5, 1, CTAS>(acc, act, xin, sm, ring, rank, stages, g.xc());  // the skip: [xin; h2]
   if ((threadIdx.x & 127) == 0) mbar_arrive(xin_empty);            // its last reader is done
   acc_to_a<HIDDEN, true>(acc, act, ChainBias{sm.f + F_OFF_COND3});
-  paper_layer<HIDDEN, 4, 0, CTAS>(acc, act, xin, sm, ring, rank);
+  paper_layer<HIDDEN, 4, 0, CTAS>(acc, act, xin, sm, ring, rank, stages);
   acc_to_a<HIDDEN, true>(acc, act, ChainBias{sm.f + F_OFF_B4});
   if constexpr (!SMALL) {
-    paper_layer<HIDDEN, 4, 0, CTAS>(acc, act, xin, sm, ring, rank);
+    paper_layer<HIDDEN, 4, 0, CTAS>(acc, act, xin, sm, ring, rank, stages);
     acc_to_a<HIDDEN, true>(acc, act, ChainBias{sm.f + F_OFF_B5});
   }
-  paper_layer<HIDDEN, 4, 0, CTAS>(acc, act, xin, sm, ring, rank);
+  paper_layer<HIDDEN, 4, 0, CTAS>(acc, act, xin, sm, ring, rank, stages);
   acc_to_a<HIDDEN, false>(acc, act, ChainBias{sm.f + F_OFF_BF});  // feat
 
   // the σ head: feat (bf16, in act) against wa padded to 8 columns
@@ -173,7 +183,7 @@ __device__ __forceinline__ void paper_unit(float* acc, uint32_t* act, uint32_t x
   for (int i = 0; i < 4; ++i) hs[i] = 0.f;
   chain_head<HIDDEN>(hs, act, smem_u32(sm.wa8));
 
-  paper_layer<DIR_HIDDEN, 4, 0, CTAS>(acc, act, xin, sm, ring, rank);
+  paper_layer<DIR_HIDDEN, 4, 0, CTAS>(acc, act, xin, sm, ring, rank, stages);
   const int row = u * 64 + ((threadIdx.x >> 5) & 3) * 16 + ((threadIdx.x & 31) >> 2);  // the item's row of r0
   const int rows = g.rows();
   const int ray_a = row < rows ? ray0 + g.ray_of(row) : n_rays;
@@ -181,9 +191,9 @@ __device__ __forceinline__ void paper_unit(float* acc, uint32_t* act, uint32_t x
   const float* dir_c0 = ray_a < n_rays ? dir_c_base + (size_t)ray_a * DIR_HIDDEN : nullptr;
   const float* dir_c1 = ray_b < n_rays ? dir_c_base + (size_t)ray_b * DIR_HIDDEN : nullptr;
   acc_to_a<DIR_HIDDEN, true>(acc, act, ChainDirRows{sm.f + F_OFF_BD0, {dir_c0, dir_c1}});
-  paper_layer<DIR_HIDDEN, 2, 0, CTAS>(acc, act, xin, sm, ring, rank);
+  paper_layer<DIR_HIDDEN, 2, 0, CTAS>(acc, act, xin, sm, ring, rank, stages);
   acc_to_a<DIR_HIDDEN, true>(acc, act, ChainBias{sm.f + F_OFF_BD1});
-  paper_layer<DIR_HIDDEN, 2, 0, CTAS>(acc, act, xin, sm, ring, rank);
+  paper_layer<DIR_HIDDEN, 2, 0, CTAS>(acc, act, xin, sm, ring, rank, stages);
 
   // the rgb head: x2 = bf16(relu(acc + bd2)) against wrgb padded to 8
   // columns

@@ -141,7 +141,7 @@ constexpr int WARPS_A_CTA = 4 * CONSUMERS;
 constexpr int BLOCK_BYTES = 64 * ROW_BYTES;  // a 64 × 64 image block
 
 // The workspace's bf16 buffers and their widths; xin's is the pass's
-// encoding extent kx (K_XIN or K_XIN_WIDE).
+// encoding extent kx (K_XIN, K_XIN_WIDE or K_XIN_XL).
 enum WsBuffer {
   WS_XIN, WS_H0, WS_H1, WS_H2, WS_H3, WS_H4, WS_H5, WS_FEAT, WS_X0, WS_X1, WS_X2,
   WS_GX2, WS_GX1, WS_GX0, WS_GFEAT, WS_GH0, WS_GH1, WS_GH2, WS_GH3, WS_GH4, WS_GH5, WS_BUFFERS
@@ -240,9 +240,15 @@ struct PassArgs {
   int n_freqs;
 };
 
+// At xc = 3 (21..31 bands) the ring runs RING − 1 stages and the two
+// three-block xin buffers take its last and run on into `xin` (`xin_at`,
+// `ring_stages`): a fourth stage and three blocks a warpgroup together
+// would overrun the 227 KB by the alignment pad.
 struct alignas(ATOM_BYTES) Smem {
   unsigned char ring[RING][STAGE_BYTES];  // weight chunk images
-  unsigned char xin[CONSUMERS][2][64 * ROW_BYTES];  // two buffers, or one of two blocks (`xin_buf`)
+  // two buffers, one of two blocks (`xin_buf`), or at xc = 3 one of three
+  // from the ring's last stage on (`xin_at`)
+  unsigned char xin[CONSUMERS][2][64 * ROW_BYTES];
   unsigned char wa8[HIDDEN / KCH][8 * ROW_BYTES];  // the heads' weights padded to 8 columns
   unsigned char wrgb8[DIR_HIDDEN / KCH][8 * ROW_BYTES];
   float f[F_OFF_TOTAL];
@@ -265,6 +271,8 @@ struct alignas(ATOM_BYTES) Smem {
 };
 constexpr size_t SMEM_BYTES = sizeof(Smem) + ATOM_BYTES;  // + the alignment pad
 static_assert(SMEM_BYTES <= 232448, "shared memory");
+static_assert(STAGE_BYTES == CHAIN_STAGE && offsetof(Smem, xin) == offsetof(Smem, ring) + sizeof(Smem::ring),
+              "xin follows the ring (`xin_at`)");
 
 // Where consumer warpgroup wg keeps its item's rows' raw σ, rgb and their
 // cotangents: shared memory, or a long item's slab of the workspace.
@@ -286,7 +294,7 @@ __device__ __forceinline__ ItemRows item_rows(Smem& sm, const PassArgs& a, int w
 
 // Every chunk, in the consumers' order, of a round of `units` units: each
 // unit's forward layers (W packed at encoding extent kx), then each unit's
-// dX layers (WT: no encoding rows, the same at either extent). `fn(src, k,
+// dX layers (WT: no encoding rows, the same at every extent). `fn(src, k,
 // n)` takes one layer.
 template <bool SMALL, class Fn>
 __device__ __forceinline__ void round_layers(const bf16* W, const bf16* WT, int units, int kx, Fn&& fn) {
@@ -317,36 +325,40 @@ __device__ __forceinline__ void round_layers(const bf16* W, const bf16* WT, int 
   }
 }
 
-// The producer: every chunk of every round of this CTA.
+// The producer: every chunk of every round of this CTA, through the
+// ring's stages at encoding extent kx (`ring_stages`).
 template <bool SMALL>
 __device__ __forceinline__ void produce(Smem& sm, const PassArgs& a, int n_pairs, int units, int kx) {
   Ring ring;
+  const int stages = ring_stages<RING>(kx / K_XIN);
   auto load = [&](const bf16* src, int k, int n) {
     const uint32_t bytes = KCH * n * 2;
     for (int c = 0; c < k / KCH; ++c) {
       mbar_wait(&sm.empty[ring.stage], ring.phase ^ 1);
       mbar_expect_tx(&sm.full[ring.stage], bytes);
       bulk_load(sm.ring[ring.stage], src + c * KCH * n, bytes, &sm.full[ring.stage]);
-      ring.advance<RING>();
+      ring.advance(stages);
     }
   };
   for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) round_layers<SMALL>(a.W, a.WT, units, kx, load);
 }
 
 // One layer of a warpgroup's 64 rows: acc = A·B, `chain_layer` on this
-// CTA's ring (A: xin in shared memory for the first X_CHUNKS·xc chunks,
-// then the registers a[] for NCH − X_CHUNKS); one chunk's group stays in
-// flight while the previous stage is released. The accumulators' old
-// values are dead: made constants (FRESH), they hold no register through
-// the epilogue before. Only the A registers this layer read are fenced.
+// CTA's ring of `stages` (A: xin in shared memory for the first
+// X_CHUNKS·xc chunks, then the registers a[] for NCH − X_CHUNKS); one
+// chunk's group stays in flight while the previous stage is released. The
+// accumulators' old values are dead: made constants (FRESH), they hold no
+// register through the epilogue before. Only the A registers this layer
+// read are fenced.
 template <int N, int NCH, int X_CHUNKS>
-__device__ __forceinline__ void layer(float* acc, uint32_t* a, uint32_t xin, Smem& sm, Ring& ring, int xc = 1) {
+__device__ __forceinline__ void layer(float* acc, uint32_t* a, uint32_t xin, Smem& sm, Ring& ring, int stages,
+                                      int xc = 1) {
   chain_layer<N, NCH, X_CHUNKS, RING, true, (KCH / 4) * (NCH - X_CHUNKS), STAGE_BYTES>(
       acc, a, xin, sm.ring, sm.full, ring,
       [&](int stage) {
         if ((threadIdx.x & 127) == 0) mbar_arrive(&sm.empty[stage]);
       },
-      xc);
+      xc, stages);
 }
 
 // A head: the m64n8 product of the K bf16 columns in a[] with a (K, 8)
@@ -506,7 +518,8 @@ __device__ __forceinline__ void encode(Smem& sm, const PassArgs& a, int n_pairs,
   const UnitSchedule<SF, 1> g{a.l};
   const int n_items = (a.n_rays + g.wg_rays() - 1) / g.wg_rays();
   const int units = g.units();
-  encode_units(g, sm.xin, sm.xin_full, sm.xin_empty, a, sm.f + F_OFF_FREQS, 0, blockIdx.x, gridDim.x, n_pairs, e,
+  encode_units(g, [&](int wg, int b) { return xin_at(sm.xin, wg, b, g.xc()); }, sm.xin_full, sm.xin_empty, a,
+               sm.f + F_OFF_FREQS, 0, blockIdx.x, gridDim.x, n_pairs, e,
                [&](int item, int u) -> unsigned char* {
                  return item < n_items ? a.ws.unit(WS_XIN, item * units + u) : nullptr;
                });
@@ -522,37 +535,38 @@ __device__ __forceinline__ void forward_unit(Smem& sm, const PassArgs& a, Ring& 
   const UnitSchedule<SF, 1> g{a.l};
   const int b = xin_buf(units, g.xc());
   mbar_wait(&sm.xin_full[wg][b], xin_phase(units, g.xc()));
-  const uint32_t xin = smem_u32(sm.xin[wg][b]);
+  const uint32_t xin = smem_u32(xin_at(sm.xin, wg, b, g.xc()));
   const Workspace& ws = a.ws;
-  layer<HIDDEN, 1, 1>(acc, act, xin, sm, ring, g.xc());
+  const int stages = ring_stages<RING>(g.xc());
+  layer<HIDDEN, 1, 1>(acc, act, xin, sm, ring, stages, g.xc());
   acc_to_a<HIDDEN, true>(acc, act, EpiBias{sm.f + F_OFF_COND0});
   if (live) store_frag<HIDDEN>(ws.unit(WS_H0, unit), act);
-  layer<HIDDEN, 4, 0>(acc, act, xin, sm, ring);
+  layer<HIDDEN, 4, 0>(acc, act, xin, sm, ring, stages);
   acc_to_a<HIDDEN, true>(acc, act, EpiBias{sm.f + F_OFF_B1});
   if (live) store_frag<HIDDEN>(ws.unit(WS_H1, unit), act);
-  layer<HIDDEN, 4, 0>(acc, act, xin, sm, ring);
+  layer<HIDDEN, 4, 0>(acc, act, xin, sm, ring, stages);
   acc_to_a<HIDDEN, true>(acc, act, EpiBias{sm.f + F_OFF_B2});
   if (live) store_frag<HIDDEN>(ws.unit(WS_H2, unit), act);
-  layer<HIDDEN, 5, 1>(acc, act, xin, sm, ring, g.xc());  // the skip: [xin; h2]
+  layer<HIDDEN, 5, 1>(acc, act, xin, sm, ring, stages, g.xc());  // the skip: [xin; h2]
   if ((threadIdx.x & 127) == 0) mbar_arrive(&sm.xin_empty[wg][b]);
   ++units;
   acc_to_a<HIDDEN, true>(acc, act, EpiBias{sm.f + F_OFF_COND3});
   if (live) store_frag<HIDDEN>(ws.unit(WS_H3, unit), act);
-  layer<HIDDEN, 4, 0>(acc, act, xin, sm, ring);
+  layer<HIDDEN, 4, 0>(acc, act, xin, sm, ring, stages);
   acc_to_a<HIDDEN, true>(acc, act, EpiBias{sm.f + F_OFF_B4});
   if (live) store_frag<HIDDEN>(ws.unit(WS_H4, unit), act);
   if constexpr (!SMALL) {
-    layer<HIDDEN, 4, 0>(acc, act, xin, sm, ring);
+    layer<HIDDEN, 4, 0>(acc, act, xin, sm, ring, stages);
     acc_to_a<HIDDEN, true>(acc, act, EpiBias{sm.f + F_OFF_B5});
     if (live) store_frag<HIDDEN>(ws.unit(WS_H5, unit), act);
   }
-  layer<HIDDEN, 4, 0>(acc, act, xin, sm, ring);
+  layer<HIDDEN, 4, 0>(acc, act, xin, sm, ring, stages);
   // feat: no relu
   acc_to_a<HIDDEN, false>(acc, act, EpiBias{sm.f + F_OFF_BF});
   if (live) store_frag<HIDDEN>(ws.unit(WS_FEAT, unit), act);
   float hs[4] = {0.f, 0.f, 0.f, 0.f};
   head<HIDDEN>(hs, act, smem_u32(sm.wa8));
-  layer<DIR_HIDDEN, 4, 0>(acc, act, xin, sm, ring);
+  layer<DIR_HIDDEN, 4, 0>(acc, act, xin, sm, ring, stages);
   // x0 = relu(hd_pre): its mask is hd_pre's, and it is WD1's dW operand;
   // a padding row's ray is n_rays, with no dir_c row
   const int row = u * 64 + frag_row(), rows = g.rows();
@@ -562,10 +576,10 @@ __device__ __forceinline__ void forward_unit(Smem& sm, const PassArgs& a, Ring& 
   const float* dir_b = ray_b < a.n_rays ? a.dir_c + (size_t)ray_b * DIR_HIDDEN : nullptr;
   acc_to_a<DIR_HIDDEN, true>(acc, act, EpiDir{sm.f + F_OFF_BD0, {dir_a, dir_b}});
   if (live) store_frag<DIR_HIDDEN>(ws.unit(WS_X0, unit), act);
-  layer<DIR_HIDDEN, 2, 0>(acc, act, xin, sm, ring);
+  layer<DIR_HIDDEN, 2, 0>(acc, act, xin, sm, ring, stages);
   acc_to_a<DIR_HIDDEN, true>(acc, act, EpiBias{sm.f + F_OFF_BD1});
   if (live) store_frag<DIR_HIDDEN>(ws.unit(WS_X1, unit), act);
-  layer<DIR_HIDDEN, 2, 0>(acc, act, xin, sm, ring);
+  layer<DIR_HIDDEN, 2, 0>(acc, act, xin, sm, ring, stages);
   acc_to_a<DIR_HIDDEN, true>(acc, act, EpiBias{sm.f + F_OFF_BD2});
   if (live) store_frag<DIR_HIDDEN>(ws.unit(WS_X2, unit), act);
   float hc[4] = {0.f, 0.f, 0.f, 0.f};
@@ -834,11 +848,12 @@ __device__ __forceinline__ void dx_unit(Smem& sm, const PassArgs& a, Ring& ring,
   const UnitSchedule<SF, 1> g{a.l};
   const Workspace& ws = a.ws;
   const uint32_t none = 0;
+  const int stages = ring_stages<RING>(g.xc());
   dx_heads<SF>(sm, a, acc, act, wg, u, unit, part, live);  // gx2, masked, in acc
   dx_epilogue<DIR_HIDDEN>(acc, act, nullptr, ws.unit(WS_GX2, unit), part + F_OFF_BD2, live);
-  layer<DIR_HIDDEN, 2, 0>(acc, act, none, sm, ring);  // gx1 = gx2·WD2ᵀ ⊙ [x1 > 0]
+  layer<DIR_HIDDEN, 2, 0>(acc, act, none, sm, ring, stages);  // gx1 = gx2·WD2ᵀ ⊙ [x1 > 0]
   dx_epilogue<DIR_HIDDEN>(acc, act, ws.unit(WS_X1, unit), ws.unit(WS_GX1, unit), part + F_OFF_BD1, live);
-  layer<DIR_HIDDEN, 2, 0>(acc, act, none, sm, ring);  // gx0 = gx1·WD1ᵀ ⊙ [x0 > 0]
+  layer<DIR_HIDDEN, 2, 0>(acc, act, none, sm, ring, stages);  // gx0 = gx1·WD1ᵀ ⊙ [x0 > 0]
   const int lane = threadIdx.x & 31, lw = (threadIdx.x >> 5) & 3, t = threadIdx.x & 127;
   float(*ds)[2][DIR_HIDDEN] = sm.dsum[wg][dx_units & 1];
   float* d_dir = a.d_dir + (size_t)ray0 * DIR_HIDDEN;
@@ -861,25 +876,25 @@ __device__ __forceinline__ void dx_unit(Smem& sm, const PassArgs& a, Ring& ring,
     dir_pieces(ds, sm.dacc[wg], d_dir, g, u, ray0, a.n_rays, live, t);
     ++dx_units;
   }
-  layer<HIDDEN, 2, 0>(acc, act, none, sm, ring);  // gfeat = gx0·WD0ᵀ + bf16(g_σ) ⊗ wa
+  layer<HIDDEN, 2, 0>(acc, act, none, sm, ring, stages);  // gfeat = gx0·WD0ᵀ + bf16(g_σ) ⊗ wa
   add_sigma(acc, item_rows<SF>(sm, a, wg).gsig + u * 64, sm.wa);
   dx_epilogue<HIDDEN>(acc, act, nullptr, ws.unit(WS_GFEAT, unit), part + F_OFF_BF, live);
   // fc_feat's input: h5, or h4 in the smaller model
   constexpr int LAST = SMALL ? WS_H4 : WS_H5;
-  layer<HIDDEN, 4, 0>(acc, act, none, sm, ring);  // WFᵀ
+  layer<HIDDEN, 4, 0>(acc, act, none, sm, ring, stages);  // WFᵀ
   dx_epilogue<HIDDEN>(acc, act, ws.unit(LAST, unit), ws.unit(SMALL ? WS_GH4 : WS_GH5, unit),
                       part + (SMALL ? F_OFF_B4 : F_OFF_B5), live);
   if constexpr (!SMALL) {
-    layer<HIDDEN, 4, 0>(acc, act, none, sm, ring);  // W5ᵀ
+    layer<HIDDEN, 4, 0>(acc, act, none, sm, ring, stages);  // W5ᵀ
     dx_epilogue<HIDDEN>(acc, act, ws.unit(WS_H4, unit), ws.unit(WS_GH4, unit), part + F_OFF_B4, live);
   }
-  layer<HIDDEN, 4, 0>(acc, act, none, sm, ring);  // W4ᵀ
+  layer<HIDDEN, 4, 0>(acc, act, none, sm, ring, stages);  // W4ᵀ
   dx_epilogue<HIDDEN>(acc, act, ws.unit(WS_H3, unit), ws.unit(WS_GH3, unit), part + F_OFF_COND3, live);
-  layer<HIDDEN, 4, 0>(acc, act, none, sm, ring);  // W3hᵀ
+  layer<HIDDEN, 4, 0>(acc, act, none, sm, ring, stages);  // W3hᵀ
   dx_epilogue<HIDDEN>(acc, act, ws.unit(WS_H2, unit), ws.unit(WS_GH2, unit), part + F_OFF_B2, live);
-  layer<HIDDEN, 4, 0>(acc, act, none, sm, ring);  // W2ᵀ
+  layer<HIDDEN, 4, 0>(acc, act, none, sm, ring, stages);  // W2ᵀ
   dx_epilogue<HIDDEN>(acc, act, ws.unit(WS_H1, unit), ws.unit(WS_GH1, unit), part + F_OFF_B1, live);
-  layer<HIDDEN, 4, 0>(acc, act, none, sm, ring);  // W1ᵀ
+  layer<HIDDEN, 4, 0>(acc, act, none, sm, ring, stages);  // W1ᵀ
   dx_epilogue<HIDDEN>(acc, act, ws.unit(WS_H0, unit), ws.unit(WS_GH0, unit), part + F_OFF_COND0, live);
 }
 

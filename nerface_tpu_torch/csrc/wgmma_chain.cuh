@@ -56,9 +56,10 @@ constexpr int ITEM_ROWS = 256;
 // pace with the consumers as at a compile-time S.
 //
 // xc is the pass's xin image in 64-column blocks: 1 (K = 64, up to 10
-// bands) or 2 (K = 128, 11..20 bands). A consumer
-// warpgroup's xin buffers are two of one block (the encoders one unit
-// ahead) or one of two blocks, the same bytes (`xin_buf`).
+// bands), 2 (K = 128, 11..20 bands) or 3 (K = 192, 21..31 bands, the
+// paper kernels only). A consumer warpgroup's xin buffers are two of one
+// block (the encoders one unit ahead) or one of xc blocks (`xin_buf`,
+// `xin_at`).
 struct UnitLayout {
   int S, rays, units;
   uint32_t div;  // ⌈2^24 / S⌉
@@ -121,13 +122,33 @@ struct UnitSchedule {
 __host__ __device__ __forceinline__ int xin_buf(int k, int xc) { return xc == 1 ? k & 1 : 0; }
 __host__ __device__ __forceinline__ int xin_phase(int k, int xc) { return xc == 1 ? (k >> 1) & 1 : k & 1; }
 
+// The bytes of consumer warpgroup wg's xin buffer b in a paper kernel's
+// shared memory, whose `xin` (CHAIN_CONSUMERS × 2 blocks) directly follows
+// its weight ring of CHAIN_STAGE-byte stages: xin[wg][b] up to xc = 2; at
+// xc = 3 the two warpgroups' three-block buffers (48 KB) start at the
+// ring's last stage, which that layout's ring leaves unused
+// (`ring_stages`), and run on into xin.
+__device__ __forceinline__ unsigned char* xin_at(unsigned char (*xin)[2][XIN_BYTES], int wg, int b, int xc) {
+  return xc == 3 ? xin[0][0] - CHAIN_STAGE + wg * 3 * XIN_BYTES : xin[wg][b];
+}
+static_assert(2 * 3 * XIN_BYTES <= CHAIN_STAGE + CHAIN_CONSUMERS * 2 * XIN_BYTES, "the xc = 3 xin buffers");
+
+// The stages a paper kernel's ring of RING runs at xc blocks: one fewer
+// at xc = 3, whose xin buffers take the last (`xin_at`).
+template <int RING>
+__host__ __device__ __forceinline__ int ring_stages(int xc) {
+  return xc == 3 ? RING - 1 : RING;
+}
+
 // The producer: one layer's k / 64 chunks of 64 × n bf16 from the chunk
 // images at `src`, each into the next stage (STAGE bytes, at least 128·n)
 // once every consumer has released it; in a cluster of CTAS each CTA
-// copies its part of a chunk and multicasts it to all.
+// copies its part of a chunk and multicasts it to all. The ring runs
+// `n_stages` of its RING stages (`ring_stages`).
 template <int RING, int CTAS, int STAGE = CHAIN_STAGE>
 __device__ __forceinline__ void load_layer(unsigned char (*stages)[STAGE], uint64_t* full, uint64_t* empty,
-                                           Ring& ring, const bf16* src, int k, int n, uint32_t rank) {
+                                           Ring& ring, const bf16* src, int k, int n, uint32_t rank,
+                                           int n_stages = RING) {
   const uint32_t bytes = KCH * n * 2, part = bytes / CTAS;
   for (int c = 0; c < k / KCH; ++c) {
     mbar_wait(&empty[ring.stage], ring.phase ^ 1);
@@ -139,7 +160,7 @@ __device__ __forceinline__ void load_layer(unsigned char (*stages)[STAGE], uint6
       bulk_load_multicast(stages[ring.stage] + rank * part, s + rank * part, part, &full[ring.stage],
                           (1u << CTAS) - 1);
     }
-    ring.advance<RING>();
+    ring.advance(n_stages);
   }
 }
 
@@ -156,11 +177,12 @@ __device__ __forceinline__ void load_layer(unsigned char (*stages)[STAGE], uint6
 // old values are made constants first: the first product does not read
 // them, but its asm operand would keep them live through the epilogue
 // before. A stage holds STAGE bytes: a chunk image's N rows of 64 k, or
-// (K4b's dX) half of them.
+// (K4b's dX) half of them; the ring runs `n_stages` of its RING.
 template <int N, int NCH, int X_CHUNKS, int RING, bool FRESH = false, int A_LIVE = 64, int STAGE = CHAIN_STAGE,
           class Release>
 __device__ __forceinline__ void chain_layer(float* acc, uint32_t* a, uint32_t xin, unsigned char (*stages)[STAGE],
-                                            uint64_t* full, Ring& ring, const Release& release, int xc = 1) {
+                                            uint64_t* full, Ring& ring, const Release& release, int xc = 1,
+                                            int n_stages = RING) {
   if constexpr (FRESH) {
 #pragma unroll
     for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
@@ -181,7 +203,7 @@ __device__ __forceinline__ void chain_layer(float* acc, uint32_t* a, uint32_t xi
       release(prev);
     }
     prev = ring.stage;
-    ring.advance<RING>();
+    ring.advance(n_stages);
   }
 #pragma unroll
   for (int c = 0; c < NCH - X_CHUNKS; ++c) {
@@ -197,7 +219,7 @@ __device__ __forceinline__ void chain_layer(float* acc, uint32_t* a, uint32_t xi
       release(prev);
     }
     prev = ring.stage;
-    ring.advance<RING>();
+    ring.advance(n_stages);
   }
   wgmma_wait<0>();
   release(prev);
@@ -324,10 +346,11 @@ __device__ __forceinline__ void encode_task(unsigned char* xin, unsigned char* x
 // both consumer warpgroups of CTA `rank`, rounds round0, round0 + step, ...
 // below n_rounds of schedule g (a `UnitSchedule`), in the
 // order the consumers take them, each (g.xc() blocks, 2·64·xc tasks) into
-// the warpgroup's next xin buffer (`xin_buf`) once its reader has released
-// it. xg(item, u) is the unit's workspace image, or null.
-template <class G, class A, class Xg>
-__device__ __forceinline__ void encode_units(const G& g, unsigned char (*xin)[2][XIN_BYTES],
+// the warpgroup's next xin buffer (`xin_buf`; xin(wg, b) its bytes) once
+// its reader has released it. xg(item, u) is the unit's workspace image, or
+// null.
+template <class G, class A, class Xin, class Xg>
+__device__ __forceinline__ void encode_units(const G& g, const Xin& xin,
                                              uint64_t (*xin_full)[2], uint64_t (*xin_empty)[2], const A& a,
                                              const float* freqs, uint32_t rank, int round0, int step,
                                              int n_rounds, int e, const Xg& xg) {
@@ -342,7 +365,7 @@ __device__ __forceinline__ void encode_units(const G& g, unsigned char (*xin)[2]
         const int item = g.item(round, (int)rank, wg);
         unsigned char* gi = xg(item, u);
         for (int task = e; task < tasks; task += CHAIN_ENCODERS * 32)
-          encode_task(xin[wg][b], gi, task, a, freqs, item * g.wg_rays(), u * 64, g);
+          encode_task(xin(wg, b), gi, task, a, freqs, item * g.wg_rays(), u * 64, g);
         fence_proxy_async();
         mbar_arrive(&xin_full[wg][b]);
         ++done[wg];

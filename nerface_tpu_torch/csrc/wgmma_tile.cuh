@@ -463,15 +463,20 @@ __device__ __forceinline__ void cluster_sync() {
 }
 
 // A ring of shared-memory stages: the stage and the parity of its round.
+// The stage count is a constant, or (the paper kernels' runtime layout
+// class, whose xc = 3 layout runs a shorter ring) a value read at run time.
 struct Ring {
   int stage = 0;
   uint32_t phase = 0;
-  template <int STAGES>
-  __device__ __forceinline__ void advance() {
-    if (++stage == STAGES) {
+  __device__ __forceinline__ void advance(int stages) {
+    if (++stage == stages) {
       stage = 0;
       phase ^= 1;
     }
+  }
+  template <int STAGES>
+  __device__ __forceinline__ void advance() {
+    advance(STAGES);
   }
 };
 

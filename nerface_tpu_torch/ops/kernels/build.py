@@ -144,7 +144,7 @@ def load_library(name: str = "fused_paper_render", defines: tuple = ()) -> ctype
 # The two builds of K1's, K3's and K4's libraries: the fixed layout classes
 # (S = 64 and 128, the passes of the bundled configs, at up to 10 xyz
 # bands) and the runtime class (any other S, and every kernel's passes of
-# 11..20 bands at any S: the fixed classes read a one-block xin image).
+# 11..31 bands at any S: the fixed classes read a one-block xin image).
 # Each builds in about half the nvcc time of one library of all of them.
 FIXED_SAMPLES = (64, 128)
 SAMPLE_CLASS_DEFINES = {"fixed": ("NERFACE_SAMPLE_CLASSES=2",), "any": ("NERFACE_SAMPLE_CLASSES=1",)}

@@ -74,7 +74,7 @@ from nerface_tpu_torch.ops.kernels.fused_mlp import (
     DIR_HIDDEN,
     HIDDEN,
     K_XIN,
-    MAX_FREQS,
+    K_XIN_WIDE,
     MAX_SAMPLES,
     _check,
     _device_bands,
@@ -95,9 +95,12 @@ WIDTHS = tuple(range(HIDDEN, MAX_WIDTH + 1, HIDDEN))
 # the widths past 512 run csrc/fused_flex.cu's sliced kernels, in a build of
 # their own each (`build.flex_sliced_defines`)
 SLICED_WIDTHS = tuple(h for h in WIDTHS if h > 2 * HIDDEN)
-# K4's xyz encoding bands, 1..MAX_FREQS (the paper kernels' 20): [xyz; PE;
-# 0] is one K_XIN block up to 10 bands and two (K = K_XIN_WIDE) from 11,
-# `xin_extent`; W1 holds that many rows (`w_offsets`' kx)
+# K4's xyz encoding bands, 1..MAX_FREQS = 20 (FLEX_MAX_FREQS in
+# csrc/fused_flex.cu; the paper kernels take 31): [xyz; PE; 0] is one K_XIN
+# block up to 10 bands and two (K = K_XIN_WIDE) from 11, `xin_extent`; W1
+# holds that many rows (`w_offsets`' kx), and the f32 rows MAX_FREQS band
+# slots
+MAX_FREQS = (K_XIN_WIDE - 3) // 6
 
 
 def check_width(h: int) -> None:

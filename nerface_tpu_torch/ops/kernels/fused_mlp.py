@@ -36,9 +36,9 @@ and has a backward (training and σ-noise renders).
   read, `pack_transposed_weights` the backward's transposed trunk. The
   offsets below are mirrored as `constexpr`s in the .cu/.cuh files (CPU
   tests check that they agree). The encoding [xyz; PE] is zero-padded to
-  K = 64 up to 10 bands and to K = 128 from 11 to 20 (`xin_extent`); W0 and
-  W3 hold that many encoding rows (`w_layout(kx)`), and the 10-band layout
-  is `W_LAYOUT`. The smaller model keeps the W5/B5 slots,
+  K = 64 up to 10 bands, to K = 128 from 11 to 20 and to K = 192 from 21 to
+  31 (`xin_extent`); W0 and W3 hold that many encoding rows
+  (`w_layout(kx)`), and the 10-band layout is `W_LAYOUT`. The smaller model keeps the W5/B5 slots,
   zero: its kernels skip that layer.
 * `pack_paper_weights` does K2's packing once per model
   (`PackedPaperWeights`); a call then folds only the conditioning into a
@@ -70,17 +70,25 @@ HIDDEN = 256
 DIR_HIDDEN = 128
 # Layer 0 and the skip layer read [xyz(3); PE(6N)], padded with zero
 # columns to a tensor-core K extent kx (`xin_extent`): K_XIN = 64 holds N <=
-# 10 bands, K_XIN_WIDE = 128 (two 64-column blocks) N <= MAX_FREQS = 20.
-# The paper kernels (K2, K3, K1) and K4 (fused_flex.py, its layer1) take both.
+# 10 bands, K_XIN_WIDE = 128 (two 64-column blocks) N <= 20, K_XIN_XL = 192
+# (three) N <= MAX_FREQS = 31. The paper kernels (K2, K3, K1) take every
+# extent; K4 (fused_flex.py, its layer1) the first two, up to its own
+# `fused_flex.MAX_FREQS` = 20.
 K_XIN = 64
 K_XIN_WIDE = 128
-MAX_FREQS = (K_XIN_WIDE - 3) // 6
+K_XIN_XL = 192
+MAX_FREQS = (K_XIN_XL - 3) // 6
+# F_LAYOUT's band slots: MAX_FREQS and a spare one, which keeps the f32
+# rows' total even (`FREQ_SLOTS` in csrc/mma_tile.cuh: K1's partial rows
+# are read as float2 pairs past them)
+FREQ_SLOTS = 32
 
 
 def xin_extent(num_encoding_fn_xyz: int) -> int:
-    """The encoding's K extent at N bands: K_XIN up to 10, else K_XIN_WIDE
-    (`xin_extent` in csrc/mma_tile.cuh)."""
-    return K_XIN if 3 + 6 * num_encoding_fn_xyz <= K_XIN else K_XIN_WIDE
+    """The encoding's K extent at N bands: K_XIN up to 10, K_XIN_WIDE up
+    to 20, else K_XIN_XL (`xin_extent` in csrc/mma_tile.cuh)."""
+    n_cols = 3 + 6 * num_encoding_fn_xyz
+    return K_XIN if n_cols <= K_XIN else K_XIN_WIDE if n_cols <= K_XIN_WIDE else K_XIN_XL
 
 
 def check_bands(num_encoding_fn_xyz: int) -> None:
@@ -180,19 +188,19 @@ def w_layout(kx: int = K_XIN):
 # The 10-band layout, whose offsets are the .cuh's W_OFF_* constants.
 W_LAYOUT = w_layout(K_XIN)
 # Packed f32 rows: bias rows (cond0/cond3 carry the folded conditioning)
-# and the encoding's frequency bands (MAX_FREQS slots, zero past N); the
-# same at both extents.
+# and the encoding's frequency bands (FREQ_SLOTS slots, zero past N); the
+# same at every extent.
 F_LAYOUT = (
     ("COND0", HIDDEN), ("B1", HIDDEN), ("B2", HIDDEN), ("COND3", HIDDEN),
     ("B4", HIDDEN), ("B5", HIDDEN), ("BF", HIDDEN),
     ("BD0", DIR_HIDDEN), ("BD1", DIR_HIDDEN), ("BD2", DIR_HIDDEN),
-    ("BA", 1), ("BRGB", 3), ("FREQS", MAX_FREQS),
+    ("BA", 1), ("BRGB", 3), ("FREQS", FREQ_SLOTS),
 )
 # The trunk's transposed weights, (out, in) row-major, for the backward's
 # dX products gy @ Wᵀ (K1 and K3b), in this order. They must equal WT_OFF_*
 # in csrc/paper_train.cuh (a CPU test checks it). No dX product reads an
 # encoding row (the skip layer's dX reads w3h alone), so the layout is the
-# same at both extents.
+# same at every extent.
 WT_LAYOUT = (
     ("WD2T", DIR_HIDDEN, DIR_HIDDEN),
     ("WD1T", DIR_HIDDEN, DIR_HIDDEN),
@@ -328,7 +336,7 @@ def _pack_rows(cond0, cond3, W, freqs: torch.Tensor) -> torch.Tensor:
         "B4": W["b4"], "B5": W["b5"] if "b5" in W else W["b4"].new_zeros(HIDDEN),
         "BF": W["bf"], "BD0": W["bd0"], "BD1": W["bd1"], "BD2": W["bd2"],
         "BA": W["ba"], "BRGB": W["brgb"],
-        "FREQS": torch.cat([freqs, freqs.new_zeros(MAX_FREQS - freqs.numel())]),
+        "FREQS": torch.cat([freqs, freqs.new_zeros(FREQ_SLOTS - freqs.numel())]),
     }
     return torch.cat([rows[name].reshape(-1).float() for name, _ in F_LAYOUT]).contiguous()
 

@@ -107,7 +107,7 @@ def measure(dev, bands=10, samples=()):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--bands", type=int, default=10, help="xyz encoding bands (1..20)")
+    ap.add_argument("--bands", type=int, default=10, help="xyz encoding bands (1..31)")
     ap.add_argument("--samples", type=int, nargs="*", default=[], help="more sample counts to time")
     ap.add_argument("--json", help="also write the result here")
     args = ap.parse_args()

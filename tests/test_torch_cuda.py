@@ -865,13 +865,46 @@ def test_paper_kernels_persistent_grid_at_16_bands(cuda_device, small, R, S):
     _check_paper_kernels_at(cuda_device, small, 16, R, S, seed=R + S)
 
 
+# ... and at 21..31 bands (a K = 192 encoding: three 64-column blocks, the
+# ring one stage shorter), the same checks, at the band counts where that
+# extent starts and ends and at synth512_pe24's 24; then ray counts past
+# one round of the grid, each ragged, at 24 bands: K1 and K3b bit-identical
+# over two launches there too.
+@pytest.mark.cuda
+@pytest.mark.parametrize("small", [False, True], ids=["paper", "small"])
+@pytest.mark.parametrize("L", [21, 24, 31])
+@pytest.mark.parametrize("R,S", [(512, 64), (77, 128), (301, 24), (40, 320)], ids=["s64", "s128", "s24", "s320"])
+def test_paper_kernels_take_21_to_31_bands(cuda_device, small, L, R, S):
+    """K2, K3f, K3b and K1 at 21, 24 and 31 bands, at the fixed layout
+    classes' S (which run the runtime class past 10 bands), at runtime ones
+    and past 256 (a long item), against their plain versions."""
+    _check_paper_kernels_at(cuda_device, small, L, R, S, seed=L + S)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("small", [False, True], ids=["paper", "small"])
+@pytest.mark.parametrize("R,S", PE16_PERSISTENT_CASES, ids=["s64", "s128", "s24", "s192"])
+def test_paper_kernels_persistent_grid_at_24_bands(cuda_device, small, R, S):
+    """K2 and K1 (and K3f / K3b) at 24 bands on a pass past one round of
+    their persistent grids: the one 24 KB xin buffer a warpgroup, in the
+    ring's last stage and the xin array, carries the encoders round after
+    round while the ring runs one stage short; K1 and K3b bit-identical
+    over two launches."""
+    from nerface_tpu_torch.ops.kernels import fused_train as T
+
+    _, ctas = T.workspace_geometry(R, S)
+    assert ctas == T.K1_CTAS and R > 2 * T.K1_CTAS * T.unit_layout(S)[0]
+    _check_paper_kernels_at(cuda_device, small, 24, R, S, seed=R + S + 24)
+
+
 @pytest.mark.cuda
 def test_paper_entry_points_take_1_to_20_bands(cuda_device):
     """The C entry points of K2, K3f, K3b and K1, in every build, return
-    cudaErrorInvalidValue (1) for n_freqs outside 1..20 before they read a
-    pointer, and the workspace sizes are -1 there; at 11 and 20 the
-    workspace is larger than at 10 by xin's 64 more columns (and dW's
-    partial rows' 2·64 more rows of W0 / W3). Nothing is launched."""
+    cudaErrorInvalidValue (1) for n_freqs outside 1..31 (1..20 before the
+    three-block xin image) before they read a pointer, and the workspace
+    sizes are -1 there; at 11 and 20 the workspace is larger than at 10 by
+    xin's 64 more columns (and dW's partial rows' 2·64 more rows of W0 /
+    W3), at 21 and 31 by 128 more. Nothing is launched."""
     import ctypes
 
     from nerface_tpu_torch.ops.kernels.build import SAMPLE_CLASS_DEFINES, load_library
@@ -880,22 +913,23 @@ def test_paper_entry_points_take_1_to_20_bands(cuda_device):
     stream = ctypes.c_void_p(torch.cuda.current_stream(cuda_device).cuda_stream)
     k2 = load_library("fused_paper_render")
     f0 = ctypes.c_float(0.0)
-    for L in (0, -1, 21, 64):
+    for L in (0, -1, 32, 64):
         assert k2.nerface_fused_paper_render(*[null] * 13, 8, 64, L, 0, 0, stream) == 1, L
     for defines in SAMPLE_CLASS_DEFINES.values():
         k1 = load_library("fused_train_pass", defines)
         k3 = load_library("fused_paper_mlp", defines)
-        for L in (0, -1, 21, 64):
+        for L in (0, -1, 32, 64):
             assert k1.nerface_fused_train_pass(*[null] * 17, 8, 64, L, 0, 0, f0, f0, f0, stream) == 1, L
             assert k3.nerface_fused_paper_mlp_fwd(*[null] * 7, 8, 64, L, 0, stream) == 1, L
             assert k3.nerface_fused_paper_mlp_bwd(*[null] * 12, 8, 64, L, 0, stream) == 1, L
             assert k1.nerface_fused_train_workspace_bytes(2048, 64, L) == -1, L
             assert k3.nerface_fused_paper_mlp_workspace_bytes(2048, 64, L) == -1, L
         for lib, fn in ((k1, "nerface_fused_train_workspace_bytes"), (k3, "nerface_fused_paper_mlp_workspace_bytes")):
-            ws = {L: getattr(lib, fn)(2048, 64, L) for L in (1, 10, 11, 20)}
-            assert ws[1] == ws[10] and ws[11] == ws[20], ws
+            ws = {L: getattr(lib, fn)(2048, 64, L) for L in (1, 10, 11, 20, 21, 31)}
+            assert ws[1] == ws[10] and ws[11] == ws[20] and ws[21] == ws[31], ws
             units = 2048  # one ray in one unit at S = 64
             assert ws[11] - ws[10] >= units * 64 * 128 + 7 * 2 * 64 * 256 * 4 - 256 * 2, ws
+            assert ws[21] - ws[11] >= units * 64 * 128 + 7 * 2 * 64 * 256 * 4 - 256 * 2, ws
     torch.cuda.synchronize()
 
 

@@ -278,7 +278,9 @@ def test_wide_offsets_are_the_sources(h):
                       "BH1": 1816, "BH2": 2328, "TOTAL": 2840}}
     assert F.w_offsets(3, h) == pinned_w[h]
     assert F.f_offsets(3, h) == pinned_f[h]
-    assert c["FF_OFF_BH"] - c["FF_OFF_FREQS"] == F.MAX_FREQS == K.MAX_FREQS == 20
+    # K4's 20 band slots and limit (FLEX_MAX_FREQS), below the paper kernels' 31
+    assert c["FF_OFF_BH"] - c["FF_OFF_FREQS"] == F.MAX_FREQS == 20 and K.MAX_FREQS == 31
+    assert "constexpr int FLEX_MAX_FREQS = (K_XIN_WIDE - 3) / 6;" in CU
     assert F.wt_offsets(3, h) == {"WD0T": 0, "WFT": h // 2 * h, "WHT0": (h // 2 + h) * h,
                                   "WHT1": (h // 2 + 2 * h) * h, "WHT2": (h // 2 + 3 * h) * h,
                                   "TOTAL": (h // 2 + 4 * h) * h}

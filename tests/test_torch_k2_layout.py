@@ -85,9 +85,10 @@ def _cu_value(expr, kx=K.K_XIN):
 def test_chunk_sequence_matches_cuda_source():
     """The producer streams, and the consumers multiply, the chunked
     matrices of W_LAYOUT in its order, 64 K rows a chunk (of `w_layout(kx)`
-    at either encoding extent: the producer's K of W0 and W3 is kx, its
-    offsets `w_off`); the smaller model skips W5 on both sides. Both
-    sequences live in paper_chain.cuh, which K2 (and K3f) run."""
+    at every encoding extent: the producer's K of W0 and W3 is kx, its
+    offsets `w_off`, through the ring's stages at kx); the smaller model
+    skips W5 on both sides. Both sequences live in paper_chain.cuh, which
+    K2 (and K3f) run."""
     assert '#include "paper_chain.cuh"' in (CSRC / "fused_paper_render.cu").read_text()
     src = (CSRC / "paper_chain.cuh").read_text()
     hdr = (CSRC / "wgmma_tile.cuh").read_text()
@@ -95,8 +96,9 @@ def test_chunk_sequence_matches_cuda_source():
     assert re.search(rf"constexpr int ROW_BYTES = {2 * K.SM90_KCH};", hdr)
     want = [(name, k, n) for name, k, n in K.W_LAYOUT if name in K.SM90_CHUNKED]
     produce = src[src.index("void paper_produce("):src.index("void paper_feed(")]
-    assert "W + w_off(off, kx), k, n, rank);" in produce
-    for kx in (K.K_XIN, K.K_XIN_WIDE):
+    assert "W + w_off(off, kx), k, n, rank, stages);" in produce
+    assert "const int stages = ring_stages<PAPER_RING>(kx / K_XIN);" in produce
+    for kx in (K.K_XIN, K.K_XIN_WIDE, K.K_XIN_XL):
         loads = [(m.group(1), _cu_value(m.group(2), kx), _cu_value(m.group(3), kx))
                  for m in re.finditer(r"load\(W_OFF_(\w+), ([\w +]+), (\w+)\);", produce)]
         assert loads == [(name, k, n) for name, k, n in K.w_layout(kx) if name in K.SM90_CHUNKED]

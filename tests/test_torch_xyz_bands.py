@@ -9,12 +9,13 @@ is 128 wide. The 10-band layout stays K = 64, its offsets unchanged.
 * (a) Dispatch. Asked for the card (`device="cuda"`, no card needed),
   `_fused_render_eligible`, the `_apply_model` branch (`_fused_model_ok`
   and `_paper_kernels_take`) and `fused_train_eligible` admit exactly L =
-  1..20 of the paper family and refuse 21; the wrappers raise a
-  ValueError naming 1..20 past it (on the CPU too, whose wrappers run the
-  plain versions). K4 has the same limit: `flex_fused_eligible` takes L =
-  11 and refuses 21, and `_apply_model` sends a 21-band Flexible pass to
-  the plain forward (tests/test_torch_flex_bands.py holds K4 past 10
-  bands).
+  1..31 of the paper family and refuse 32 (1..20 until the paper kernels
+  took a three-block xin image, tests/test_torch_xyz_bands_xl.py); the
+  wrappers raise a ValueError naming 1..31 past it (on the CPU too, whose
+  wrappers run the plain versions). K4 keeps 20: `flex_fused_eligible`
+  takes L = 11 and refuses 21, and `_apply_model` sends a 21-band Flexible
+  pass to the plain forward (tests/test_torch_flex_bands.py holds K4 past
+  10 bands).
 * (b) The plain versions against the JAX package's Pallas kernels in
   interpret mode at L = 11, 16 and 20, S = 16 and 48, the paper and the
   smaller model, inputs from a numpy seed, the weights loaded by
@@ -114,16 +115,17 @@ def _settings(L, noise=0.1, sc=16, sf=16):
 @pytest.mark.parametrize("small", [False, True], ids=["paper", "small"])
 def test_dispatch_takes_1_to_20_bands(small, monkeypatch):
     """On the card K2, K3 and K1 take a 2048-ray pass at S = 64 and 48 for
-    L = 1..20 and refuse L = 21 (the plain forward runs it); on the CPU the
-    same band rule holds (the kernels' plain versions take 1..20)."""
+    L = 1..20 and, since the three-block xin image, 21..31, and refuse L =
+    32 (the plain forward runs it); on the CPU the same band rule holds
+    (the kernels' plain versions take 1..31)."""
     taken = []
     monkeypatch.setattr(pipeline, "_paper_pass", lambda *a: taken.append(a[4].num_encoding_functions) or "K3")
     flags = FeatureFlags()
     pe_dir, expr, latent = torch.zeros(2048, 24), torch.zeros(76), torch.zeros(32)
-    for L in range(1, 22):
+    for L in range(1, 33):
         m = MODELS[FAMILY[small]](**_kw(L), generator=torch.Generator().manual_seed(L))
         monkeypatch.setattr(m, "forward", lambda *a, **k: "plain")
-        want = L <= 20
+        want = L <= 31
         tset, _ = _settings(L, noise=0.0, sc=64, sf=64)
         render = dataclasses.replace(tset, fused_render=True)
         for S in (64, 48):
@@ -138,21 +140,21 @@ def test_dispatch_takes_1_to_20_bands(small, monkeypatch):
             assert out == ("K3" if want else "plain"), (L, S)
         for dev in ("cuda", "cpu"):
             assert fused_train_eligible(m, m, tset, flags, torch.bfloat16, dev, num_rays=2048) == want, (L, dev)
-    assert taken == [L for L in range(1, 21) for _ in (64, 48)]
+    assert taken == [L for L in range(1, 32) for _ in (64, 48)]
 
 
 def test_flexible_models_keep_their_ten_band_limit(monkeypatch):
     """K4's band limit, which stood at 10 (one 64-column xin block) and is
-    now the paper kernels' 20 (a two-block xin image past 10):
+    now 20 (a two-block xin image past 10), below the paper kernels' 31:
     `flex_fused_eligible` takes a LearnableCode model at 10, 11, 16 and 20
-    bands and refuses 21 on the card and on the CPU, `_apply_model` runs a
-    21-band Flexible pass on the model's plain forward, and the kernel's
-    operand check takes 11 and refuses 21 naming 1..20."""
-    assert F.MAX_FREQS == K.MAX_FREQS == 20
+    bands and refuses 21 and 31 on the card and on the CPU, `_apply_model`
+    runs a 21- or 31-band Flexible pass on the model's plain forward, and
+    the kernel's operand check takes 11 and refuses 21 naming 1..20."""
+    assert F.MAX_FREQS == 20 and K.MAX_FREQS == 31
     name = "ConditionalBlendshapeLearnableCodeNeRFModel"
     pe_dir, expr, latent = torch.zeros(2048, 24), torch.zeros(76), torch.zeros(32)
     monkeypatch.setattr(pipeline, "_flex_pass", lambda *a: "K4")
-    for L in (10, 11, 16, 20, 21):
+    for L in (10, 11, 16, 20, 21, 31):
         m = MODELS[name](**_kw(L, hidden_size=256))
         monkeypatch.setattr(m, "forward", lambda *a, **k: "plain")
         for dev in ("cuda", "cpu"):
@@ -169,13 +171,14 @@ def test_flexible_models_keep_their_ten_band_limit(monkeypatch):
 
 
 def test_wrappers_raise_past_20_bands():
-    """A direct call at L = 21 (or 0) raises a ValueError naming 1..20, on
-    the CPU too; L = 20 runs."""
+    """A direct call at L = 32 (or 0) raises a ValueError naming 1..31, on
+    the CPU too (past 20 until the paper kernels took 21..31); L = 20 and 31
+    run."""
     R, S = 2, 8
     rng = np.random.RandomState(0)
     ro, rd = _t(rng.randn(R, 3).astype(np.float32)), _t(rng.randn(R, 3).astype(np.float32))
     z = torch.linspace(0.2, 0.8, S).expand(R, S).contiguous()
-    for L in (21, 0, 20):
+    for L in (32, 0, 20, 31):
         m = MODELS[FAMILY[False]](**_kw(max(L, 1)))
         bundle = T.prefold_paper_params(m.state_dict(), torch.zeros(108), torch.zeros(R, 24), L)
         calls = {
@@ -189,13 +192,13 @@ def test_wrappers_raise_past_20_bands():
             "pack": lambda: K.pack_paper_weights(m.state_dict(), L),
         }
         for name, call in calls.items():
-            if L == 20:
+            if L in (20, 31):
                 call()
                 continue
-            with pytest.raises(ValueError, match=r"1\.\.20 xyz encoding bands"):
+            with pytest.raises(ValueError, match=r"1\.\.31 xyz encoding bands"):
                 call()
-    with pytest.raises(ValueError, match=r"1\.\.20 xyz encoding bands"):
-        K.check_bands(21)
+    with pytest.raises(ValueError, match=r"1\.\.31 xyz encoding bands"):
+        K.check_bands(32)
 
 
 # -- (b) the plain versions against the TPU kernels ------------------------------
@@ -361,11 +364,14 @@ def _c_constants():
 
 def test_wide_offsets_are_the_headers():
     """`w_layout(kx)`'s offsets are `w_off(W_OFF_*, kx)` as the header
-    computes it, at both extents; at K_XIN they are the 10-band constants
-    the kernels have always read; F_LAYOUT holds 20 bands; WT_LAYOUT has no
-    encoding row."""
+    computes it, at every extent (the three-block one too); at K_XIN they
+    are the 10-band constants the kernels have always read; F_LAYOUT holds
+    31 bands in 32 slots (20 before the three-block image); WT_LAYOUT has
+    no encoding row."""
     c = _c_constants()
-    assert (c["K_XIN"], c["K_XIN_WIDE"], c["MAX_FREQS"]) == (K.K_XIN, K.K_XIN_WIDE, K.MAX_FREQS) == (64, 128, 20)
+    assert (c["K_XIN"], c["K_XIN_WIDE"], c["K_XIN_XL"]) == (K.K_XIN, K.K_XIN_WIDE, K.K_XIN_XL) == (64, 128, 192)
+    assert "constexpr int MAX_FREQS = (K_XIN_XL - 3) / 6;" in MMA and K.MAX_FREQS == 31
+    assert c["FREQ_SLOTS"] == K.FREQ_SLOTS == 32
     body = re.search(r"constexpr int w_off\(int off, int kx\) \{\s*return (.+?);\n\}", MMA, re.S).group(1)
     w_off = eval("lambda off, kx: " + _c_expr(" ".join(body.split())), dict(c))
     w64 = {k[6:]: v for k, v in c.items() if k.startswith("W_OFF_")}
@@ -373,7 +379,7 @@ def test_wide_offsets_are_the_headers():
     assert K.W_OFFSETS == {"W0": 0, "W1": 16384, "W2": 81920, "W3": 147456, "W4": 229376, "W5": 294912,
                            "WF": 360448, "WD0": 425984, "WD1": 458752, "WD2": 475136, "WA": 491520,
                            "WRGB": 491776, "TOTAL": 492160}
-    for kx in (64, 128):
+    for kx in (64, 128, 192):
         offs = K.w_offsets(kx)
         assert {name: w_off(v, kx) for name, v in w64.items()} == offs, kx
         assert offs["W1"] == kx * 256 and offs["W4"] - offs["W3"] == (kx + 256) * 256
@@ -381,14 +387,14 @@ def test_wide_offsets_are_the_headers():
         assert w_off(w64["W3"] + 64 * 256, kx) == offs["W3"] + kx * 256
     assert K.w_offsets(128)["TOTAL"] == 492160 + 2 * 64 * 256
     f = {k[6:]: v for k, v in c.items() if k.startswith("F_OFF_")}
-    assert f == K.F_OFFSETS and f["TOTAL"] - f["FREQS"] == 20
-    assert dict(K.F_LAYOUT)["FREQS"] == K.MAX_FREQS
+    assert f == K.F_OFFSETS and f["TOTAL"] - f["FREQS"] == 32
+    assert dict(K.F_LAYOUT)["FREQS"] == K.FREQ_SLOTS == K.MAX_FREQS + 1
     train = (CSRC / "paper_train.cuh").read_text()
     wt = {m.group(1): int(m.group(2)) for m in re.finditer(r"constexpr int WT_OFF_(\w+) = (\d+);", train)}
     assert wt == K.WT_OFFSETS and "W3HT" in wt and not any(n.startswith("W0") for n in wt)
-    assert [K.xin_extent(L) for L in range(1, 21)] == [64] * 10 + [128] * 10
-    assert re.search(r"constexpr int xin_extent\(int n_freqs\) \{ return 3 \+ 6 \* n_freqs <= K_XIN \? K_XIN "
-                     r": K_XIN_WIDE; \}", MMA)
+    assert [K.xin_extent(L) for L in range(1, 32)] == [64] * 10 + [128] * 10 + [192] * 11
+    assert ("return 3 + 6 * n_freqs <= K_XIN ? K_XIN : (3 + 6 * n_freqs <= K_XIN_WIDE ? K_XIN_WIDE : K_XIN_XL);"
+            in MMA)
 
 
 @pytest.mark.parametrize("small", [False, True], ids=["paper", "small"])
